@@ -1,0 +1,174 @@
+"""The port's CUDA and Triton kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips elsewhere. The file imports no
+jax, so it runs on a machine that has none; ``tests/conftest.py`` imports jax,
+so run it there without the conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Kernels take bf16 and accumulate in fp32; the plain versions run in fp32 on
+the same bf16 inputs (TF32 off). Bounds are 2% of the output range for the
+products (bf16 operands and outputs) and 1% for the LayerNorm (one bf16
+rounding of an O(1) output).
+"""
+
+import pytest
+import torch
+
+from yolo_sam_inference_tpu_torch.ops import decoder_fused as dec
+from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
+from yolo_sam_inference_tpu_torch.ops.flash_attention import (
+    window_attention,
+    window_attention_plain,
+)
+from yolo_sam_inference_tpu_torch.ops.hull_support import support_points, support_points_plain
+from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop, window_crop_plain
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 oracle stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator().manual_seed(0)
+
+
+def _randn(gen, *shape, std=1.0, dtype=torch.bfloat16):
+    return (torch.randn(*shape, generator=gen) * std).to("cuda", dtype)
+
+
+def _close(got, want, rtol):
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got.float()).all()
+    assert err <= rtol * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [16, 32])
+def test_window_attention_vs_plain(gen, window):
+    qkv = _randn(gen, 2, 32, 32, 3 * 768)
+    rel_h, rel_w = (_randn(gen, 2 * window - 1, 64, std=0.3) for _ in range(2))
+    before = window_attention.launches
+    got = window_attention(qkv, rel_h, rel_w, 12, window)
+    assert window_attention.launches == before + 1
+    _close(got, window_attention_plain(qkv.float(), rel_h, rel_w, 12, window), 2e-2)
+
+
+@pytest.mark.cuda
+def test_fused_ln_matmul_and_mlp_vs_plain(gen):
+    rows = 1000  # not a multiple of the 128-row tile
+    x, h = _randn(gen, rows, 768), _randn(gen, rows, 768)
+    s = 1.0 + _randn(gen, 768, std=0.1, dtype=torch.float32)
+    b = _randn(gen, 768, std=0.1, dtype=torch.float32)
+    wq, bq = _randn(gen, 768, 2304, std=768 ** -0.5), _randn(gen, 2304, dtype=torch.float32)
+    w1, b1 = _randn(gen, 768, 3072, std=768 ** -0.5), _randn(gen, 3072, dtype=torch.float32)
+    w2, b2 = _randn(gen, 3072, 768, std=3072 ** -0.5), _randn(gen, 768, dtype=torch.float32)
+    before = tln.gemm_bf16.launches
+    _close(tln.fused_ln_matmul(x, s, b, wq, bq),
+           tln.fused_ln_matmul(x.float(), s, b, wq, bq, gemm=tln.gemm_plain), 2e-2)
+    _close(tln.fused_ln_mlp(x, h, s, b, w1, b1, w2, b2),
+           tln.fused_ln_mlp(x.float(), h.float(), s, b, w1, b1, w2, b2, gemm=tln.gemm_plain),
+           2e-2)
+    assert tln.gemm_bf16.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c", [(4096, 256), (5000, 64)])
+def test_layer_norm_vs_plain(gen, rows, c):
+    x, r = _randn(gen, rows, c), _randn(gen, rows, c)
+    s = 1.0 + _randn(gen, c, std=0.1, dtype=torch.float32)
+    b = _randn(gen, c, std=0.1, dtype=torch.float32)
+    before = tln.layer_norm.launches
+    _close(tln.layer_norm(x, s, b, 1e-6), tln.layer_norm_plain(x.float(), s, b, 1e-6), 1e-2)
+    y, ln = tln.layer_norm(x, s, b, 1e-6, residual=r)
+    y_ref, ln_ref = tln.layer_norm_plain(x.float(), s, b, 1e-6, residual=r.float())
+    _close(y, y_ref, 1e-2)
+    _close(ln, ln_ref, 1e-2)
+    assert tln.layer_norm.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    qkv = _randn(gen, 1, 32, 32, 3 * 768)
+    rel = _randn(gen, 31, 64)
+    with pytest.raises(ValueError, match="bf16"):
+        window_attention(qkv.float(), rel, rel, 12, 16)
+    with pytest.raises(ValueError, match="hd=64"):
+        window_attention(qkv, _randn(gen, 31, 96), _randn(gen, 31, 96), 8, 16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tln.gemm_bf16(_randn(gen, 16, 12), _randn(gen, 12, 16))
+
+
+def _decoder_weights(gen, c=256, dh=128):
+    w = lambda i, o: _randn(gen, i, o, std=i ** -0.5)
+    b = lambda o: _randn(gen, o, std=0.1, dtype=torch.float32)
+    return {"wq": w(c, dh), "bq": b(dh), "wout": w(dh, c), "bout": b(c),
+            "ln_s": 1.0 + b(c), "ln_b": b(c), "wk": w(c, dh), "bk": b(dh),
+            "wv": w(c, dh), "bv": b(dh)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i2t,k_share", [(True, 4), (True, 1), (False, 1)])
+def test_keys_stream_vs_plain(gen, i2t, k_share):
+    """keys_stream: the i2t pass with the next attention split over its
+    tiles and joined by t2i_combine (K7), or the k/v projection pass (K6)."""
+    nsrc, t, tq = 3, 256, 7
+    n = nsrc * k_share
+    p = _decoder_weights(gen)
+    keys, pe = _randn(gen, nsrc, t, 256), _randn(gen, t, 256)
+    before = dec.keys_stream.launches, dec.t2i_combine.launches
+    if not i2t:
+        got = dec.kv_project(keys, pe, p["wk"], p["bk"], p["wv"], p["bv"], 8)
+        want = dec.kv_project_plain(keys.float(), pe.float(), p["wk"], p["bk"], p["wv"], p["bv"])
+    else:
+        kq, vq = _randn(gen, n, tq, 128), _randn(gen, n, tq, 128)
+        qn = _randn(gen, n, tq, 128, std=0.25)
+        w = (p["wq"], p["bq"], p["wout"], p["bout"], p["ln_s"], p["ln_b"])
+        nxt = {"wk": p["wk"], "bk": p["bk"], "wv": p["wv"], "bv": p["bv"]}
+        got = dec.i2t_keys_update(keys, pe, kq, vq, *w, heads=8, k_share=k_share,
+                                  t2i={"qp": qn, **nxt})
+        want = dec.i2t_keys_update_plain(keys.float(), pe.float(), kq.float(), vq.float(), *w,
+                                         heads=8, k_share=k_share,
+                                         t2i={"qp": qn.float(), **nxt})
+    assert dec.keys_stream.launches == before[0] + 1
+    assert dec.t2i_combine.launches == before[1] + int(i2t)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_share", [1, 4])
+def test_t2i_attend_vs_plain(gen, k_share):
+    nsrc, t, tq = 3, 1024, 7
+    qp = _randn(gen, nsrc * k_share, tq, 128, std=0.5)
+    kp, vp = _randn(gen, nsrc, t, 128), _randn(gen, nsrc, t, 128)
+    before = dec.t2i_attend.launches
+    got = dec.t2i_attend(qp, kp, vp, 8, k_share)
+    assert dec.t2i_attend.launches == before + 1
+    _close(got, dec.t2i_attend_plain(qp.float(), kp.float(), vp.float(), 8, k_share), 2e-2)
+
+
+@pytest.mark.cuda
+def test_window_crop_vs_plain(gen):
+    grid = _randn(gen, 10, 32, 32, 256)
+    r0 = torch.randint(-2, 30, (10,), generator=gen).cuda()  # clamped to [0, 21]
+    c0 = torch.randint(0, 22, (10,), generator=gen).cuda()
+    before = window_crop.launches
+    got = window_crop(grid, r0, c0, 11)
+    assert window_crop.launches == before + 1
+    assert torch.equal(got, window_crop_plain(grid, r0, c0, 11))  # a copy: exact
+
+
+@pytest.mark.cuda
+def test_support_points_vs_plain(gen):
+    n, p, d = 20, 512, 256
+    pts = (torch.randint(0, 128, (n, p, 2), generator=gen).float() - 0.5).cuda()
+    pts[:, ::7] = pts[:, 3:4]  # repeated candidates: exact score ties
+    ang = torch.arange(d, dtype=torch.float64) * (2 * torch.pi / d)
+    dirs = torch.stack([ang.cos(), ang.sin()], 1).float().cuda()
+    before = support_points.launches
+    got = support_points(pts, dirs)
+    assert support_points.launches == before + 1
+    # the same rounded fp32 scores and the same tie-break: identical points
+    assert torch.equal(got, support_points_plain(pts, dirs))

@@ -1,0 +1,198 @@
+"""The port's decoder, window-crop and hull kernels (K6-K9) against the JAX
+package, on the CPU.
+
+On the CPU the wrappers of ``yolo_sam_inference_tpu_torch`` take their plain
+PyTorch versions; these tests hold them against the JAX package's Pallas
+kernels in interpret mode (as ``tests/test_decoder_fused.py`` runs them), in
+fp32, on the same numpy inputs. The CUDA kernels are compared with the plain
+versions on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from yolo_sam_inference_tpu.models.sam import init_sam_params, sam_tiny_test
+from yolo_sam_inference_tpu.models.sam import model as jsam
+from yolo_sam_inference_tpu.ops.decoder_fused import i2t_keys_update as j_i2t
+from yolo_sam_inference_tpu.ops.decoder_fused import t2i_shared_attend as j_t2i
+from yolo_sam_inference_tpu.ops.hull_support import support_vertices_tpu
+from yolo_sam_inference_tpu.ops.window_crop import window_crop as j_window_crop
+from yolo_sam_inference_tpu_torch.models.sam import SamModel
+from yolo_sam_inference_tpu_torch.ops import decoder_fused as dec
+from yolo_sam_inference_tpu_torch.ops.hull_support import support_points
+from yolo_sam_inference_tpu_torch.ops.metrics import _hull_directions
+from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop
+
+torch.set_num_threads(1)
+
+HEADS, HD, TQ, T, C = 2, 8, 3, 16, 32
+DH = HEADS * HD
+
+
+def _f(rng, *shape, scale=1.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+def _weights(rng):
+    return {"wq": _f(rng, C, DH, scale=0.3), "bq": _f(rng, DH, scale=0.1),
+            "wout": _f(rng, DH, C, scale=0.3), "bout": _f(rng, C, scale=0.1),
+            "lns": 1.0 + _f(rng, C, scale=0.1), "lnb": _f(rng, C, scale=0.1),
+            "wk": _f(rng, C, DH, scale=0.3), "bk": _f(rng, DH, scale=0.1),
+            "wv": _f(rng, C, DH, scale=0.3), "bv": _f(rng, DH, scale=0.1)}
+
+
+@pytest.mark.parametrize("k_share", [1, 3])
+def test_i2t_keys_update_matches_jax_kernel(k_share):
+    """K7: i2t + residual + LN4 and the next stage's t2i, against the Pallas
+    kernel with its fused t2i (interpret mode)."""
+    rng = np.random.default_rng(20 + k_share)
+    nsrc = 2
+    n = nsrc * k_share
+    w = _weights(rng)
+    keys_src, pe = _f(rng, nsrc, T, C), _f(rng, 1, T, C)
+    kq, vq = _f(rng, n, TQ, DH, scale=0.5), _f(rng, n, TQ, DH, scale=0.5)
+    qp2 = _f(rng, n, TQ + 1, DH, scale=0.3)
+    t = {k: torch.from_numpy(v) for k, v in w.items()}
+    got_keys, got_attn = dec.i2t_keys_update(
+        torch.from_numpy(keys_src), torch.from_numpy(pe), torch.from_numpy(kq),
+        torch.from_numpy(vq), t["wq"], t["bq"], t["wout"], t["bout"], t["lns"], t["lnb"],
+        heads=HEADS, k_share=k_share, eps=1e-6,
+        t2i={"qp": torch.from_numpy(qp2), "wk": t["wk"], "bk": t["bk"], "wv": t["wv"],
+             "bv": t["bv"]},
+    )
+    j = {k: jnp.asarray(v) for k, v in w.items()}
+    want_keys, want_attn = j_i2t(
+        jnp.asarray(keys_src), jnp.asarray(pe), jnp.asarray(kq), jnp.asarray(vq), j["wq"],
+        j["bq"], j["wout"], j["bout"], j["lns"], j["lnb"], heads=HEADS, k_share=k_share,
+        eps=1e-6, interpret=True,
+        t2i={"qp": jnp.asarray(qp2), "wk": j["wk"], "bk": j["bk"], "wv": j["wv"], "bv": j["bv"]},
+    )
+    # fp32 both sides; the TPU kernel sums head groups and softmax
+    # denominators through small matmuls, so the summation order differs
+    np.testing.assert_allclose(got_keys.numpy(), np.asarray(want_keys), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got_attn.numpy(), np.asarray(want_attn), rtol=2e-4, atol=2e-4)
+
+
+def test_t2i_shared_attend_matches_jax_kernel():
+    """K6: per-image k/v projections shared by k_share prompts."""
+    rng = np.random.default_rng(30)
+    b, k_share = 2, 3
+    w = _weights(rng)
+    keys, pe = _f(rng, b, T, C), _f(rng, 1, T, C)
+    qp = _f(rng, b * k_share, TQ, DH, scale=0.3)
+    got = dec.t2i_shared_attend(torch.from_numpy(keys), torch.from_numpy(pe),
+                                torch.from_numpy(qp), *(torch.from_numpy(w[k]) for k in
+                                                        ("wk", "bk", "wv", "bv")),
+                                HEADS, k_share)
+    want = j_t2i(jnp.asarray(keys), jnp.asarray(pe), jnp.asarray(qp),
+                 *(jnp.asarray(w[k]) for k in ("wk", "bk", "wv", "bv")), heads=HEADS,
+                 k_share=k_share, interpret=True)
+    # fp32; the TPU kernel computes all heads' logits in one block-diagonal dot
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+def test_decoder_matches_jax_fused_branch(monkeypatch):
+    """The port's decoder (K6 + K7 order) against the JAX decoder's fused
+    branch, its Pallas kernels in interpret mode."""
+    cfg = sam_tiny_test()
+    tree = init_sam_params(5, cfg)
+    rng = np.random.default_rng(9)
+    b, k, gs = 2, 3, cfg.grid_size
+    emb = _f(rng, b, gs, gs, cfg.prompt_hidden)
+    sparse = _f(rng, b, k, 2, cfg.prompt_hidden, scale=0.3)
+    with torch.no_grad():
+        iou, hyper, keys = SamModel(tree, cfg).mask_decoder_tokens(torch.from_numpy(emb),
+                                                                    torch.from_numpy(sparse))
+    monkeypatch.setattr(jsam, "_fused_i2t_enabled", lambda c: True)
+    jiou, jhyper, jkeys = jsam.sam_mask_decoder_tokens(tree, jnp.asarray(emb),
+                                                       jnp.asarray(sparse), cfg)
+    # fp32, two decoder layers; the same bound the JAX package holds its
+    # fused branch to against its plain one
+    for got, want in ((iou, jiou), (hyper, jhyper), (keys, jkeys)):
+        assert tuple(got.shape) == tuple(np.shape(want))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+def test_window_crop_matches_jax_kernel():
+    """K8: a copy, so exact."""
+    rng = np.random.default_rng(11)
+    n, gs, c, wg = 6, 16, 128, 5
+    grid = _f(rng, n, gs, gs, c)
+    r0 = rng.integers(0, gs - wg + 1, n).astype(np.int32)
+    c0 = rng.integers(0, gs - wg + 1, n).astype(np.int32)
+    got = window_crop(torch.from_numpy(grid), torch.from_numpy(r0), torch.from_numpy(c0), wg)
+    want = j_window_crop(jnp.asarray(grid), jnp.asarray(r0), jnp.asarray(c0), wg, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_support_points_match_jax_kernel():
+    """K9: the support point per direction, with the lexicographic (r, c)
+    tie-break. Candidates are real-valued (no near-ties that rounding could
+    decide), with duplicates and, along direction 0 = (1, 0), exact score ties
+    that the column must break."""
+    rng = np.random.default_rng(12)
+    n, p = 5, 64
+    pts = _f(rng, n, p, 2, scale=20.0)
+    pts[:, 10] = pts[:, 3]  # duplicated candidates
+    top = pts[:, :, 0].max(axis=1)
+    pts[:, 0, 0] = pts[:, 1, 0] = top + 1.0  # two candidates share the largest r
+    dirs = _hull_directions(64)
+    got = support_points(torch.from_numpy(pts), torch.from_numpy(dirs)).numpy()
+    want = np.asarray(support_vertices_tpu(jnp.asarray(pts.transpose(0, 2, 1)),
+                                           jnp.asarray(dirs), interpret=True)).transpose(0, 2, 1)
+    np.testing.assert_array_equal(got, want)
+    assert (got[:, 0, 1] == np.maximum(pts[:, 0, 1], pts[:, 1, 1])).all()  # the tie-break
+
+
+def test_mma_b_order_is_the_fragment_layout():
+    """The weight order keys_stream_kernel reads: per (n-tile j, k-tile kt),
+    lane 4g + t holds rows 2t, 2t+1, 2t+8, 2t+9 of column 8j + g."""
+    k, n = 32, 16
+    w = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
+    frag = dec._mma_b_order(w).reshape(n // 8, k // 16, 32, 4)
+    for j in range(n // 8):
+        for kt in range(k // 16):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                rows = [kt * 16 + 2 * t + d for d in (0, 1, 8, 9)]
+                assert frag[j, kt, lane].tolist() == w[rows, j * 8 + g].tolist()
+
+
+def test_t2i_combine_joins_tile_partials():
+    """The partials keys_stream_kernel stores per 64-token tile (o, max, sum
+    for each head and next query), joined by t2i_combine, give the attention
+    over the whole stream. Slots of absent queries are never read."""
+    rng = np.random.default_rng(13)
+    n, t, tq2, heads, hd, rows = 3, 256, 7, 8, 16, 64
+    qn = torch.from_numpy(_f(rng, n, tq2, heads * hd, scale=0.5))
+    kp, vp = (torch.from_numpy(_f(rng, n, t, heads * hd)) for _ in range(2))
+    part = torch.full((n, t // rows, heads, 8, hd + 2), float("nan"))
+    q = qn.reshape(n, tq2, heads, hd)
+    for i in range(t // rows):
+        k = kp[:, i * rows:(i + 1) * rows].reshape(n, rows, heads, hd)
+        v = vp[:, i * rows:(i + 1) * rows].reshape(n, rows, heads, hd)
+        s = torch.einsum("nqhd,nrhd->nhqr", q, k)
+        m = s.amax(-1)
+        e = torch.exp(s - m[..., None])
+        part[:, i, :, :tq2, :hd] = torch.einsum("nhqr,nrhd->nhqd", e, v)
+        part[:, i, :, :tq2, hd] = m
+        part[:, i, :, :tq2, hd + 1] = e.sum(-1)
+    got = dec.t2i_combine(part.reshape(n, t // rows, -1), tq2)
+    want = dec.t2i_attend_plain(qn, kp, vp, heads)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (n, tq2, heads * hd)
+    # fp32 on both sides, one bf16 rounding of the output
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
+
+
+def test_keys_stream_launch_refuses_cpu_tensors():
+    """keys_stream is the kernel launch itself; the CPU path goes through the
+    dispatching functions, which take the plain versions."""
+    x = torch.zeros(1, 64, 256)
+    w, b = torch.zeros(256, 128), torch.zeros(128)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        dec.keys_stream(x, x[0], w, b, w, b)
+    kp, vp = dec.kv_project(x, x[0], w, b, w, b, 8)
+    assert tuple(kp.shape) == tuple(vp.shape) == (1, 64, 128)

@@ -1,0 +1,662 @@
+// The SAM mask decoder's passes over the image-token ("keys") stream, for
+// Hopper (sm_90a): two kernels.
+//
+// keys_stream_kernel, one 64-token tile of one prompt stream per block:
+//
+//   [i2t]  kk   = keys + pe
+//          q    = ((kk @ Wq + bq) * hd^-0.5)                  -> bf16
+//          p    = softmax_j(q_h . kq[j]_h)  per head, over the tq tokens -> bf16
+//          attn = p @ vq                                       -> bf16
+//          keys = LayerNorm(keys + (attn @ Wout + bout))       -> bf16, stored
+//   [next] kp   = (keys + pe) @ Wk + bk,  vp = keys @ Wv + bv  -> bf16
+//          then, with [i2t], this tile's share of the next token-to-image
+//          attention of the tq2 (<= 8) next queries qn (already scaled):
+//          per (head, query) m = max_tile(qn . kp), l = sum_tile e,
+//          o = sum_tile e * vp with e = exp(qn . kp - m), stored as fp32
+//          partials; without [i2t], kp and vp are stored.
+//
+// Without [i2t] the kernel is the per-image k/v projection of decoder layer
+// 0's token-to-image attention. With k_share = K, prompt n reads keys row
+// n / K (layer 0: the K prompts of an image share its untouched tokens).
+//
+// t2i_combine_kernel, one prompt per block: the next attention's output from
+// the partials of the T / 64 tiles, out = sum o e^(m - M) / sum l e^(m - M).
+//
+// t2i_attend_kernel, one (prompt, head) per block: the token-to-image
+// attention of the tq (<= 8) prompt tokens over all T image tokens from
+// stored kp/vp, out = softmax_T(q_h . kp_h) @ vp_h, with q already scaled.
+// Per-image kp/vp with k_share = K serve all K prompts of the image.
+//
+// Replace (yolo_sam_inference_tpu/ops/decoder_fused.py):
+//   * i2t_keys_update (:298): keys_stream_kernel with [i2t] is its one pass
+//     over the keys stream, the next stage's softmax included (split over
+//     the tiles), and t2i_combine_kernel joins the tiles;
+//   * t2i_shared_attend (:231): keys_stream_kernel without [i2t] (the k/v
+//     projections once per image) + t2i_attend_kernel.
+//
+// What bounds them on the H100: at config 1 the keys stream is B*K prompts x
+// 1024 tokens x 256 channels (268 MB in bf16 at B*K = 512), and each pass
+// carries four (rows x 256) x (256 x 128)-sized products, about 137 GFLOP, so
+// a pass is compute bound (about 250 flop per byte) once the stream is read
+// once. The TPU kernel reads the keys once and writes them once; this one does
+// the same for the keys, and keeps q, the 7-token softmax and the attention
+// output on chip: q and the output projection run on mma.sync (m16n8k16,
+// bf16 in, fp32 accumulation); q waits in shared memory (registers hold the
+// 16 x 256 output accumulators of each warp); the per-head 7-token logits
+// and softmax run on the CUDA cores, a quad of lanes holding one row's 16
+// head channels; and the attention output, formed in the mma accumulator
+// layout, is the A fragment of the output projection without leaving
+// registers. Weights are read as B fragments straight from global
+// memory, stored by the wrapper in fragment order so that each warp load is
+// 256 contiguous bytes (they stay in L1/L2: the four matrices are 256 KB in
+// all, shared by every block). The residual add and
+// LayerNorm run on the accumulators (fp32 row statistics over each lane
+// quad). The TPU kernel holds a prompt's whole 1024-token stream in one
+// grid step, so the next stage's softmax is local there; here a prompt spans
+// 16 blocks, so each block keeps its tile's kp/vp in shared memory, takes
+// the softmax over its own 64 tokens (max, exponentials, sums and the
+// product with vp on the CUDA cores) and stores those partials, 4.5 KB per
+// tile instead of 64 KB of kp/vp; t2i_combine_kernel rescales and adds them.
+//
+// Shapes: C = 256 channels, 128 internal channels, 8 heads of 16, tq <= 8,
+// T a multiple of 64 (keys_stream) - SAM's decoder at every encoder size.
+// The Python wrappers check them.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "mma_frag.cuh"
+
+namespace {
+
+constexpr int C = 256;        // decoder channels
+constexpr int DH = 128;       // attention internal channels (downsample rate 2)
+constexpr int HEADS = 8, HD = 16;
+constexpr int TQ_MAX = 8;
+constexpr int ROWS = 64;      // tokens per block
+constexpr int THREADS = 128;  // 4 warps x 16 rows
+constexpr int LDX = C + 8;    // 528-byte smem rows: ldmatrix stays conflict-free
+constexpr int LDQ = DH + 8;   // q rows (bf16)
+constexpr int PART = HD + 2;  // a partial: o[HD], m, l
+constexpr int HQ = HEADS * TQ_MAX;  // (head, next query) columns
+constexpr int LDS = HQ + 1;         // fp32 row stride of the tile's logits: no bank conflicts
+static_assert(DH == HEADS * HD && HD == 16, "one m16n8k16 k-tile per head");
+static_assert(HQ <= THREADS && (HQ * HD) % THREADS == 0, "partials map onto the block");
+
+struct KeysArgs {
+  const __nv_bfloat16* keys;  // (nsrc, T, C)
+  const __nv_bfloat16* pe;    // (T, C)
+  const __nv_bfloat16* kq;    // (N, tq, DH)  i2t keys of the prompt tokens
+  const __nv_bfloat16* vq;    // (N, tq, DH)
+  const uint2* wq_f;          // (C -> DH) weights in B-fragment order, see load_b
+  const float* bq;            // (DH,)
+  const uint2* wo_f;          // (DH -> C)
+  const float* bo;            // (C,)
+  const float* ln_s;          // (C,)
+  const float* ln_b;          // (C,)
+  const uint2* wk_f;          // (C -> DH)  next t2i
+  const float* bk;
+  const uint2* wv_f;          // (C -> DH)
+  const float* bv;
+  const __nv_bfloat16* qn;    // (N, tq2, DH)  next queries, already scaled
+  __nv_bfloat16* out_keys;    // (N, T, C)
+  __nv_bfloat16* out_kp;      // (N, T, DH)   without [i2t]
+  __nv_bfloat16* out_vp;      // (N, T, DH)
+  float* part;                // (N, T / ROWS, HEADS, TQ_MAX, PART)  with [i2t]
+  int t, tq, tq2, k_share;
+  float scale, eps;
+  int do_i2t;
+};
+
+__device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  return __bfloat1622float2(h);
+}
+
+// bf16 pair sum, rounded once to bf16 (as a bf16 tensor add computes it)
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  const float2 x = unpack2(a), y = unpack2(b);
+  return pack_bf16(x.x + y.x, x.y + y.y);
+}
+
+// B fragment of n-tile j, k-tile kt of a weight stored in fragment order
+// (the wrapper's layout): for each (n-tile, k-tile), 32 lanes x {b0, b1}, so
+// a warp reads 256 contiguous bytes per fragment. kt_count = in / 16.
+__device__ __forceinline__ void load_b(const uint2* wf, int kt_count, int j, int kt, int lane,
+                                       uint32_t& b0, uint32_t& b1) {
+  const uint2 v = __ldg(wf + ((long)j * kt_count + kt) * 32 + lane);
+  b0 = v.x;
+  b1 = v.y;
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Store this warp's 16 staged rows (ncols bf16 each, from smem row stride
+// LDX) to global rows of length ld, 16 bytes per lane.
+__device__ __forceinline__ void store_rows(const __nv_bfloat16* s, __nv_bfloat16* gdst, int ld,
+                                           int ncols, int lane) {
+  const int chunks = ncols / 8;
+  for (int v = lane; v < 16 * chunks; v += 32) {
+    const int r = v / chunks, c = (v % chunks) * 8;
+    *reinterpret_cast<uint4*>(gdst + (long)r * ld + c) =
+        *reinterpret_cast<const uint4*>(s + r * LDX + c);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem);  // keys tile, then new keys
+  __nv_bfloat16* Ps = Xs + ROWS * LDX;                          // pe tile, then kp | vp
+  float* kqs = reinterpret_cast<float*>(Ps + ROWS * LDX);      // (TQ_MAX, DH)
+  float* vqs = kqs + TQ_MAX * DH;
+  float* qns = vqs + TQ_MAX * DH;                                         // (TQ_MAX, DH)
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(qns + TQ_MAX * DH);  // (ROWS, LDQ) q
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n = blockIdx.y, t0 = blockIdx.x * ROWS;
+  const long row0 = (long)n * p.t + t0;  // first output row of this tile
+  const __nv_bfloat16* xg = p.keys + ((long)(n / p.k_share) * p.t + t0) * C;
+  const __nv_bfloat16* pg = p.pe + (long)t0 * C;
+
+  for (int v = tid; v < ROWS * C / 8; v += THREADS) {
+    const int r = v / (C / 8), c = (v % (C / 8)) * 8;
+    cp_async16(Xs + r * LDX + c, xg + (long)r * C + c, true);
+    cp_async16(Ps + r * LDX + c, pg + (long)r * C + c, true);
+  }
+  cp_async_commit();
+  if (p.do_i2t) {
+    const long q0 = (long)n * p.tq * DH;
+    for (int v = tid; v < p.tq * DH; v += THREADS) {
+      kqs[v] = bf(p.kq[q0 + v]);
+      vqs[v] = bf(p.vq[q0 + v]);
+    }
+    const long n0 = (long)n * p.tq2 * DH;
+    for (int v = tid; v < p.tq2 * DH; v += THREADS) qns[v] = bf(p.qn[n0 + v]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // from here on each warp touches only its own 16 rows
+
+  const int wr = warp * 16;
+  const __nv_bfloat16* xa = Xs + (wr + (lane & 15)) * LDX + (lane >> 4) * 8;  // ldmatrix rows
+  const __nv_bfloat16* pa = Ps + (wr + (lane & 15)) * LDX + (lane >> 4) * 8;
+
+  if (p.do_i2t) {
+    // ---- q = (kk @ Wq + bq) * scale for all heads, in bf16, into this
+    // warp's rows of Qs (registers are kept for the output accumulators)
+    {
+      float acc[DH / 8][4];
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 2
+      for (int kt = 0; kt < C / 16; ++kt) {
+        uint32_t ax[4], ap[4], a[4];
+        ldmatrix_x4(ax, xa + kt * 16);
+        ldmatrix_x4(ap, pa + kt * 16);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = add2(ax[i], ap[i]);
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          uint32_t b0, b1;
+          load_b(p.wq_f, C / 16, j, kt, lane, b0, b1);
+          mma16816(acc[j], a, b0, b1);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        const float b0 = p.bq[j * 8 + 2 * t], b1 = p.bq[j * 8 + 2 * t + 1];
+        __nv_bfloat16* q0 = Qs + (wr + g) * LDQ + j * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(q0) =
+            pack_bf16((acc[j][0] + b0) * p.scale, (acc[j][1] + b1) * p.scale);
+        *reinterpret_cast<uint32_t*>(q0 + 8 * LDQ) =
+            pack_bf16((acc[j][2] + b0) * p.scale, (acc[j][3] + b1) * p.scale);
+      }
+    }
+    __syncwarp();
+
+    // ---- per head: 7-token softmax, attn = p @ vq, out += attn_h @ Wout[h rows]
+    float oacc[C / 8][4];
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
+#pragma unroll 1
+    for (int h = 0; h < HEADS; ++h) {
+      // this lane's q: rows g (r = 0) and g + 8 (r = 1), head channels
+      // e = 0..3 at 2t, 2t + 1, 8 + 2t, 9 + 2t
+      float q[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const __nv_bfloat16* qr = Qs + (wr + g + 8 * r) * LDQ + h * HD + 2 * t;
+        const float2 lo = unpack2(*reinterpret_cast<const uint32_t*>(qr));
+        const float2 hi = unpack2(*reinterpret_cast<const uint32_t*>(qr + 8));
+        q[r][0] = lo.x;
+        q[r][1] = lo.y;
+        q[r][2] = hi.x;
+        q[r][3] = hi.y;
+      }
+      const int cbase = h * HD + 2 * t;
+      const int col[4] = {cbase, cbase + 1, cbase + 8, cbase + 9};
+      float s[2][TQ_MAX];
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < TQ_MAX; ++j) {
+        if (j < p.tq) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float d = 0.f;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) d = fmaf(q[r][e], kqs[j * DH + col[e]], d);
+            s[r][j] = quad_sum(d);
+            mx[r] = fmaxf(mx[r], s[r][j]);
+          }
+        }
+      }
+      float den[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < TQ_MAX; ++j) {
+        if (j < p.tq) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            s[r][j] = expf(s[r][j] - mx[r]);
+            den[r] += s[r][j];
+          }
+        }
+      }
+      float at[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float inv = 1.f / den[r];
+#pragma unroll
+        for (int j = 0; j < TQ_MAX; ++j) {
+          if (j < p.tq) {
+            const float pj = round_bf16(s[r][j] * inv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) at[r][e] = fmaf(pj, vqs[j * DH + col[e]], at[r][e]);
+          }
+        }
+      }
+      // the attention output in the accumulator layout is the A fragment of
+      // k-tile h of the output projection
+      uint32_t a[4];
+      a[0] = pack_bf16(at[0][0], at[0][1]);
+      a[1] = pack_bf16(at[1][0], at[1][1]);
+      a[2] = pack_bf16(at[0][2], at[0][3]);
+      a[3] = pack_bf16(at[1][2], at[1][3]);
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j) {
+        uint32_t b0, b1;
+        load_b(p.wo_f, DH / 16, j, h, lane, b0, b1);
+        mma16816(oacc[j], a, b0, b1);
+      }
+    }
+
+    // ---- y = keys + (out + bout); LayerNorm over the 256 channels, fp32
+    const __nv_bfloat16* x0 = Xs + (wr + g) * LDX;
+    const __nv_bfloat16* x1 = x0 + 8 * LDX;
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+      const int cl = j * 8 + 2 * t;
+      const float b0 = p.bo[cl], b1 = p.bo[cl + 1];
+      const float2 k0 = unpack2(*reinterpret_cast<const uint32_t*>(x0 + cl));
+      const float2 k1 = unpack2(*reinterpret_cast<const uint32_t*>(x1 + cl));
+      oacc[j][0] = k0.x + (oacc[j][0] + b0);
+      oacc[j][1] = k0.y + (oacc[j][1] + b1);
+      oacc[j][2] = k1.x + (oacc[j][2] + b0);
+      oacc[j][3] = k1.y + (oacc[j][3] + b1);
+      sum[0] += oacc[j][0] + oacc[j][1];
+      sum[1] += oacc[j][2] + oacc[j][3];
+    }
+    const float mean0 = quad_sum(sum[0]) / C, mean1 = quad_sum(sum[1]) / C;
+    float var[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+      oacc[j][0] -= mean0;
+      oacc[j][1] -= mean0;
+      oacc[j][2] -= mean1;
+      oacc[j][3] -= mean1;
+      var[0] += oacc[j][0] * oacc[j][0] + oacc[j][1] * oacc[j][1];
+      var[1] += oacc[j][2] * oacc[j][2] + oacc[j][3] * oacc[j][3];
+    }
+    const float rstd0 = rsqrtf(quad_sum(var[0]) / C + p.eps);
+    const float rstd1 = rsqrtf(quad_sum(var[1]) / C + p.eps);
+    __syncwarp();  // every lane has read its residual before the rows are overwritten
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+      const int cl = j * 8 + 2 * t;
+      const float s0 = p.ln_s[cl], s1 = p.ln_s[cl + 1];
+      const float b0 = p.ln_b[cl], b1 = p.ln_b[cl + 1];
+      *reinterpret_cast<uint32_t*>(Xs + (wr + g) * LDX + cl) =
+          pack_bf16(oacc[j][0] * rstd0 * s0 + b0, oacc[j][1] * rstd0 * s1 + b1);
+      *reinterpret_cast<uint32_t*>(Xs + (wr + g + 8) * LDX + cl) =
+          pack_bf16(oacc[j][2] * rstd1 * s0 + b0, oacc[j][3] * rstd1 * s1 + b1);
+    }
+    __syncwarp();
+    store_rows(Xs + wr * LDX, p.out_keys + (row0 + wr) * C, C, C, lane);
+  }
+
+  // ---- next stage's k/v projections: kp = (x + pe) @ Wk + bk, vp = x @ Wv + bv
+  {
+    float ka[DH / 8][4], va[DH / 8][4];
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      ka[j][0] = ka[j][1] = ka[j][2] = ka[j][3] = 0.f;
+      va[j][0] = va[j][1] = va[j][2] = va[j][3] = 0.f;
+    }
+#pragma unroll 1
+    for (int kt = 0; kt < C / 16; ++kt) {
+      uint32_t ax[4], ap[4], ak[4];
+      ldmatrix_x4(ax, xa + kt * 16);
+      ldmatrix_x4(ap, pa + kt * 16);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ak[i] = add2(ax[i], ap[i]);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        uint32_t b0, b1;
+        load_b(p.wk_f, C / 16, j, kt, lane, b0, b1);
+        mma16816(ka[j], ak, b0, b1);
+        load_b(p.wv_f, C / 16, j, kt, lane, b0, b1);
+        mma16816(va[j], ax, b0, b1);
+      }
+    }
+    __syncwarp();  // the pe rows are read; they now stage kp | vp
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const int cl = j * 8 + 2 * t;
+      const float k0 = p.bk[cl], k1 = p.bk[cl + 1], v0 = p.bv[cl], v1 = p.bv[cl + 1];
+      __nv_bfloat16* r0 = Ps + (wr + g) * LDX;
+      __nv_bfloat16* r1 = r0 + 8 * LDX;
+      *reinterpret_cast<uint32_t*>(r0 + cl) = pack_bf16(ka[j][0] + k0, ka[j][1] + k1);
+      *reinterpret_cast<uint32_t*>(r1 + cl) = pack_bf16(ka[j][2] + k0, ka[j][3] + k1);
+      *reinterpret_cast<uint32_t*>(r0 + DH + cl) = pack_bf16(va[j][0] + v0, va[j][1] + v1);
+      *reinterpret_cast<uint32_t*>(r1 + DH + cl) = pack_bf16(va[j][2] + v0, va[j][3] + v1);
+    }
+    __syncwarp();
+    if (!p.do_i2t) {
+      store_rows(Ps + wr * LDX, p.out_kp + (row0 + wr) * DH, DH, DH, lane);
+      store_rows(Ps + wr * LDX + DH, p.out_vp + (row0 + wr) * DH, DH, DH, lane);
+      return;
+    }
+  }
+
+  // ---- this tile's share of the next token-to-image attention
+  float* S = reinterpret_cast<float*>(Qs);  // (ROWS, LDS) logits, then e; q is consumed
+  float* ml = kqs;                          // (HQ, 2) tile max and sum; kq is consumed
+  __syncthreads();  // every warp's kp | vp rows are staged, and q, kq are no longer read
+  {
+    // logits: thread -> row tid / 2, heads 4 * (tid % 2) .. + 3, every query
+    const int r = tid / 2;
+    const __nv_bfloat16* kr = Ps + r * LDX;
+#pragma unroll
+    for (int hh = 0; hh < HEADS / 2; ++hh) {
+      const int h = (tid % 2) * (HEADS / 2) + hh;
+      float kv[HD];
+#pragma unroll
+      for (int c = 0; c < HD; c += 2) {
+        const float2 f = unpack2(*reinterpret_cast<const uint32_t*>(kr + h * HD + c));
+        kv[c] = f.x;
+        kv[c + 1] = f.y;
+      }
+#pragma unroll
+      for (int q = 0; q < TQ_MAX; ++q) {
+        float d = 0.f;
+        if (q < p.tq2) {
+#pragma unroll
+          for (int c = 0; c < HD; ++c) d = fmaf(qns[q * DH + h * HD + c], kv[c], d);
+        }
+        S[r * LDS + h * TQ_MAX + q] = d;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < HQ) {  // column tid = (head, query): max and sum over the tile's rows
+    float m = -INFINITY, l = 0.f;
+    for (int r = 0; r < ROWS; ++r) m = fmaxf(m, S[r * LDS + tid]);
+    for (int r = 0; r < ROWS; ++r) {
+      const float e = expf(S[r * LDS + tid] - m);
+      S[r * LDS + tid] = e;
+      l += e;
+    }
+    ml[2 * tid] = m;
+    ml[2 * tid + 1] = l;
+  }
+  __syncthreads();
+  {
+    // o[(h, q)][d] = sum_r e[r][(h, q)] * vp[r][h, d]: 16 lanes per column,
+    // neighbouring lanes on neighbouring vp channels
+    const int d = tid % HD;
+    float* out = p.part + ((long)n * (p.t / ROWS) + blockIdx.x) * HQ * PART;
+#pragma unroll
+    for (int i = 0; i < HQ * HD / THREADS; ++i) {
+      const int col = tid / HD + i * (THREADS / HD);
+      const int h = col / TQ_MAX, q = col % TQ_MAX;
+      if (q >= p.tq2) continue;
+      float acc = 0.f;
+      for (int r = 0; r < ROWS; ++r)
+        acc = fmaf(S[r * LDS + col], bf(Ps[r * LDX + DH + h * HD + d]), acc);
+      out[col * PART + d] = acc;
+      if (d == 0) {
+        out[col * PART + HD] = ml[2 * col];
+        out[col * PART + HD + 1] = ml[2 * col + 1];
+      }
+    }
+  }
+}
+
+// One prompt per block: join the partials of its T / ROWS tiles.
+__global__ void __launch_bounds__(THREADS)
+    t2i_combine_kernel(const float* part, __nv_bfloat16* out, int tiles, int tq2) {
+  const int n = blockIdx.x;
+  const float* base = part + (long)n * tiles * HQ * PART;
+  for (int o = threadIdx.x; o < HQ * HD; o += THREADS) {
+    const int col = o / HD, d = o % HD;
+    const int h = col / TQ_MAX, q = col % TQ_MAX;
+    if (q >= tq2) continue;
+    float mx = -INFINITY;
+    for (int k = 0; k < tiles; ++k) mx = fmaxf(mx, base[(k * HQ + col) * PART + HD]);
+    float num = 0.f, den = 0.f;
+    for (int k = 0; k < tiles; ++k) {
+      const float* pk = base + (k * HQ + col) * PART;
+      const float w = expf(pk[HD] - mx);
+      num = fmaf(pk[d], w, num);
+      den = fmaf(pk[HD + 1], w, den);
+    }
+    out[((long)n * tq2 + q) * DH + h * HD + d] = __float2bfloat16(num / den);
+  }
+}
+
+constexpr size_t KEYS_SMEM = sizeof(__nv_bfloat16) * (2 * ROWS * LDX + ROWS * LDQ) +
+                             sizeof(float) * 3 * TQ_MAX * DH;
+static_assert(ROWS * LDS * sizeof(float) <= ROWS * LDQ * sizeof(__nv_bfloat16), "S fits in Qs");
+static_assert(2 * HQ <= TQ_MAX * DH, "the tile's max and sum fit in kqs");
+
+// ----------------------------------------------------------------- t2i attend
+
+constexpr int AT_THREADS = 256;
+constexpr int AT_SLICES = AT_THREADS / HD;  // token slices of the P @ V pass
+
+__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
+  // all AT_THREADS threads call it; red holds AT_THREADS / 32 floats
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = is_max ? fmaxf(v, u) : v + u;
+  }
+  const int warp = threadIdx.x / 32;
+  __syncthreads();  // red is free (an earlier reduction has been read)
+  if (threadIdx.x % 32 == 0) red[warp] = v;
+  __syncthreads();
+  float r = red[0];
+#pragma unroll
+  for (int w = 1; w < AT_THREADS / 32; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
+  return r;
+}
+
+__global__ void __launch_bounds__(AT_THREADS)
+    t2i_attend_kernel(const __nv_bfloat16* qp, const __nv_bfloat16* kp,
+                      const __nv_bfloat16* vp, __nv_bfloat16* out, int tq, int t, int k_share) {
+  extern __shared__ float S[];  // (tq, t): logits, then probabilities
+  __shared__ float qs[TQ_MAX][HD];
+  __shared__ float red[AT_THREADS / 32];
+  __shared__ float part[AT_SLICES][TQ_MAX][HD];
+  const int tid = threadIdx.x;
+  const int n = blockIdx.x, h = blockIdx.y;
+  const long src = n / k_share;
+  const __nv_bfloat16* kb = kp + src * t * DH + h * HD;
+  const __nv_bfloat16* vb = vp + src * t * DH + h * HD;
+
+  if (tid < tq * HD) qs[tid / HD][tid % HD] = bf(qp[((long)n * tq + tid / HD) * DH + h * HD + tid % HD]);
+  __syncthreads();
+
+  float mx[TQ_MAX];
+#pragma unroll
+  for (int j = 0; j < TQ_MAX; ++j) mx[j] = -INFINITY;
+  for (int tok = tid; tok < t; tok += AT_THREADS) {
+    float kv[HD];
+    const uint4 raw0 = *reinterpret_cast<const uint4*>(kb + (long)tok * DH);
+    const uint4 raw1 = *reinterpret_cast<const uint4*>(kb + (long)tok * DH + 8);
+    const uint32_t w[8] = {raw0.x, raw0.y, raw0.z, raw0.w, raw1.x, raw1.y, raw1.z, raw1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 f = unpack2(w[i]);
+      kv[2 * i] = f.x;
+      kv[2 * i + 1] = f.y;
+    }
+#pragma unroll
+    for (int j = 0; j < TQ_MAX; ++j) {
+      if (j < tq) {
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < HD; ++c) d = fmaf(qs[j][c], kv[c], d);
+        S[j * t + tok] = d;
+        mx[j] = fmaxf(mx[j], d);
+      }
+    }
+  }
+  float inv[TQ_MAX];
+#pragma unroll
+  for (int j = 0; j < TQ_MAX; ++j) {
+    if (j < tq) {
+      const float m = block_reduce(mx[j], red, true);
+      float sum = 0.f;
+      for (int tok = tid; tok < t; tok += AT_THREADS) {
+        const float e = expf(S[j * t + tok] - m);
+        S[j * t + tok] = e;
+        sum += e;
+      }
+      inv[j] = 1.f / block_reduce(sum, red, false);
+    }
+  }
+  __syncthreads();  // every probability numerator is in S
+
+  // P @ V: lane group d = tid % 16 reads one 32-byte head row per token
+  const int d = tid % HD, slice = tid / HD;
+  float acc[TQ_MAX];
+#pragma unroll
+  for (int j = 0; j < TQ_MAX; ++j) acc[j] = 0.f;
+  for (int tok = slice; tok < t; tok += AT_SLICES) {
+    const float v = bf(vb[(long)tok * DH + d]);
+#pragma unroll
+    for (int j = 0; j < TQ_MAX; ++j)
+      if (j < tq) acc[j] = fmaf(round_bf16(S[j * t + tok] * inv[j]), v, acc[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < TQ_MAX; ++j) part[slice][j][d] = acc[j];
+  __syncthreads();
+  if (tid < tq * HD) {
+    const int j = tid / HD, c = tid % HD;
+    float o = 0.f;
+#pragma unroll
+    for (int sl = 0; sl < AT_SLICES; ++sl) o += part[sl][j][c];
+    out[((long)n * tq + j) * DH + h * HD + c] = __float2bfloat16(o);
+  }
+}
+
+}  // namespace
+
+extern "C" int ysi_decoder_init(void) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(keys_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)KEYS_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(t2i_attend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)(sizeof(float) * (TQ_MAX * HD + AT_THREADS / 32 +
+                                                               AT_SLICES * TQ_MAX * HD)));
+  return (int)err;
+}
+
+extern "C" int ysi_keys_stream(const void* keys, const void* pe, const void* kq, const void* vq,
+                               const void* wq_f, const void* bq, const void* wo_f, const void* bo,
+                               const void* ln_s, const void* ln_b, const void* wk_f,
+                               const void* bk, const void* wv_f, const void* bv, const void* qn,
+                               void* out_keys, void* out_kp, void* out_vp, void* part, int n,
+                               int t, int tq, int tq2, int k_share, float scale, float eps,
+                               int do_i2t, void* stream) {
+  if (n <= 0 || t <= 0 || t % ROWS || k_share <= 0 || n % k_share) return (int)cudaErrorInvalidValue;
+  if (do_i2t && (tq <= 0 || tq > TQ_MAX || tq2 <= 0 || tq2 > TQ_MAX))
+    return (int)cudaErrorInvalidValue;
+  KeysArgs p;
+  p.keys = static_cast<const __nv_bfloat16*>(keys);
+  p.pe = static_cast<const __nv_bfloat16*>(pe);
+  p.kq = static_cast<const __nv_bfloat16*>(kq);
+  p.vq = static_cast<const __nv_bfloat16*>(vq);
+  p.wq_f = static_cast<const uint2*>(wq_f);
+  p.bq = static_cast<const float*>(bq);
+  p.wo_f = static_cast<const uint2*>(wo_f);
+  p.bo = static_cast<const float*>(bo);
+  p.ln_s = static_cast<const float*>(ln_s);
+  p.ln_b = static_cast<const float*>(ln_b);
+  p.wk_f = static_cast<const uint2*>(wk_f);
+  p.bk = static_cast<const float*>(bk);
+  p.wv_f = static_cast<const uint2*>(wv_f);
+  p.bv = static_cast<const float*>(bv);
+  p.qn = static_cast<const __nv_bfloat16*>(qn);
+  p.out_keys = static_cast<__nv_bfloat16*>(out_keys);
+  p.out_kp = static_cast<__nv_bfloat16*>(out_kp);
+  p.out_vp = static_cast<__nv_bfloat16*>(out_vp);
+  p.part = static_cast<float*>(part);
+  p.t = t;
+  p.tq = tq;
+  p.tq2 = tq2;
+  p.k_share = k_share;
+  p.scale = scale;
+  p.eps = eps;
+  p.do_i2t = do_i2t;
+  dim3 grid(t / ROWS, n);
+  keys_stream_kernel<<<grid, THREADS, KEYS_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ysi_t2i_attend(const void* qp, const void* kp, const void* vp, void* out, int n,
+                              int tq, int t, int k_share, void* stream) {
+  if (n <= 0 || t <= 0 || tq <= 0 || tq > TQ_MAX || k_share <= 0 || n % k_share)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(n, HEADS);
+  t2i_attend_kernel<<<grid, AT_THREADS, sizeof(float) * tq * t,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(qp), static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), static_cast<__nv_bfloat16*>(out), tq, t, k_share);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ysi_t2i_combine(const void* part, void* out, int n, int tiles, int tq2,
+                               void* stream) {
+  if (n <= 0 || tiles <= 0 || tq2 <= 0 || tq2 > TQ_MAX) return (int)cudaErrorInvalidValue;
+  t2i_combine_kernel<<<n, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out), tiles, tq2);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,470 @@
+"""SAM as ``nn.Module``s: ViT image encoder, box prompt encoder, mask decoder.
+
+Counterpart of ``yolo_sam_inference_tpu/models/sam/model.py``:
+
+* :class:`SamImageEncoder` is the grid-layout encoder (JAX ``:334-418``):
+  activations stay ``(B, S, S, C)``, windows are handled inside attention.
+  Per layer: LN1 + qkv (``fused_ln_matmul``), window attention with the
+  decomposed rel-pos bias, the output projection, and the LN2 + MLP block
+  tail (``fused_ln_mlp``); then the neck (1x1 conv, LN, 3x3 conv, LN).
+* :class:`SamPromptEncoder` encodes box prompts with fp32 Fourier features.
+* :class:`SamMaskDecoder` is the two-way transformer in the order of the
+  JAX package's fused branch (``:736-817``): layer 0's token-to-image
+  attention against per-image keys (K6, ``t2i_shared_attend``), then one pass
+  over the keys stream per layer (K7, ``i2t_keys_update``) that also feeds
+  the next token-to-image attention; and the mask head (``sam_mask_head``).
+
+Linear weights keep the JAX layout ``(in, out)`` (``x @ w + b``); conv
+weights are stored OIHW for ``F.conv2d``. Modules are built from a parameter
+tree in the JAX package's layout (:func:`init_sam_params`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ...ops.decoder_fused import i2t_keys_update, t2i_shared_attend
+from ...ops.flash_attention import window_attention, window_attention_plain
+from ...ops.fused_ln import (
+    fused_ln_matmul,
+    fused_ln_mlp,
+    gemm_plain,
+    layer_norm,
+    layer_norm_plain,
+    linear,
+)
+from .config import SamTPUConfig
+
+Params = Dict[str, Any]
+
+
+def _param(a) -> nn.Parameter:
+    return nn.Parameter(torch.as_tensor(np.asarray(a, np.float32)), requires_grad=False)
+
+
+class Linear(nn.Module):
+    def __init__(self, p: Params):
+        super().__init__()
+        self.w, self.b = _param(p["w"]), _param(p["b"])
+
+    def forward(self, x):
+        return x @ self.w + self.b
+
+
+class Norm(nn.Module):
+    """LayerNorm parameters; applied through the LN kernel (or its plain version)."""
+
+    def __init__(self, p: Params, eps: float):
+        super().__init__()
+        self.scale, self.bias, self.eps = _param(p["scale"]), _param(p["bias"]), eps
+
+    def forward(self, x, plain: bool = False):
+        fn = layer_norm_plain if plain else layer_norm
+        return fn(x, self.scale, self.bias, self.eps)
+
+
+# ---------------------------------------------------------------- image encoder
+
+
+class VisionLayer(nn.Module):
+    def __init__(self, p: Params, eps: float):
+        super().__init__()
+        a = p["attn"]
+        self.ln1, self.ln2 = Norm(p["ln1"], eps), Norm(p["ln2"], eps)
+        self.qkv, self.proj = Linear(a["qkv"]), Linear(a["proj"])
+        self.rel_pos_h, self.rel_pos_w = _param(a["rel_pos_h"]), _param(a["rel_pos_w"])
+        self.mlp1, self.mlp2 = Linear(p["mlp1"]), Linear(p["mlp2"])
+
+    def forward(self, x, heads: int, window: int, plain: bool = False):
+        """x (B, S, S, C) -> (B, S, S, C). ``plain`` runs every kernel's
+        plain PyTorch version, on any device (the fp32 oracle)."""
+        gemm = {"gemm": gemm_plain} if plain else {}
+        attn = window_attention_plain if plain else window_attention
+        qkv = fused_ln_matmul(x, self.ln1.scale, self.ln1.bias, self.qkv.w, self.qkv.b,
+                              eps=self.ln1.eps, **gemm)
+        h = attn(qkv, self.rel_pos_h, self.rel_pos_w, heads, window)
+        h = linear(h, self.proj.w, self.proj.b, **gemm)
+        return fused_ln_mlp(x, h, self.ln2.scale, self.ln2.bias, self.mlp1.w, self.mlp1.b,
+                            self.mlp2.w, self.mlp2.b, eps=self.ln2.eps, **gemm)
+
+
+class SamImageEncoder(nn.Module):
+    """ViT encoder in the grid layout. ``forward(pix)``: (B, H, W, 3)
+    normalised -> (B, gs, gs, output_channels)."""
+
+    def __init__(self, p: Params, cfg: SamTPUConfig):
+        super().__init__()
+        s = cfg.grid_size
+        if s % cfg.window_size:
+            raise ValueError(f"grid {s} is not a multiple of window {cfg.window_size}")
+        self.cfg = cfg
+        pw = np.asarray(p["patch_embed"]["w"])  # (ps, ps, 3, C) HWIO
+        self.patch_w = _param(pw.reshape(-1, pw.shape[-1]))
+        self.patch_b = _param(p["patch_embed"]["b"])
+        self.pos_embed = _param(p["pos_embed"])
+        self.layers = nn.ModuleList(VisionLayer(lp, cfg.layer_norm_eps) for lp in p["layers"])
+        n = p["neck"]
+        self.neck_conv1 = _param(n["conv1_w"])  # (C, oc)
+        self.neck_ln1, self.neck_ln2 = Norm(n["ln1"], 1e-6), Norm(n["ln2"], 1e-6)
+        self.neck_conv2 = _param(np.asarray(n["conv2_w"]).transpose(3, 2, 0, 1))  # OIHW
+
+    def forward(self, pix: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        cfg = self.cfg
+        ps = cfg.patch_size
+        b, size, _, ci = pix.shape
+        gs = size // ps
+        patches = pix.reshape(b, gs, ps, gs, ps, ci).permute(0, 1, 3, 2, 4, 5)
+        x = patches.reshape(b, gs, gs, ps * ps * ci) @ self.patch_w + self.patch_b
+        x = x + self.pos_embed
+        for i, layer in enumerate(self.layers):
+            window = gs if i in cfg.global_attn_indexes else cfg.window_size
+            x = layer(x, cfg.vision_heads, window, plain)
+        y = self.neck_ln1(x @ self.neck_conv1, plain)
+        y = F.conv2d(y.permute(0, 3, 1, 2), self.neck_conv2, padding=1).permute(0, 2, 3, 1)
+        return self.neck_ln2(y.contiguous(), plain)
+
+
+# --------------------------------------------------------------- prompt encoder
+
+
+def _fourier_embed(pe_matrix: torch.Tensor, coords01: torch.Tensor) -> torch.Tensor:
+    """Random-Fourier encoding of coords in [0, 1]^2 -> (..., 2*npf), in fp32
+    and elementwise (sine arguments reach ~100 rad)."""
+    c = (2.0 * coords01 - 1.0).float()
+    pe = pe_matrix.float()
+    proj = (2.0 * math.pi) * (c[..., 0:1] * pe[0] + c[..., 1:2] * pe[1])
+    return torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
+
+
+class SamPromptEncoder(nn.Module):
+    def __init__(self, p: Params, shared_pe, cfg: SamTPUConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.point_embed = _param(p["point_embed"])
+        self.no_mask = _param(p["no_mask"])
+        self.shared_pe = _param(shared_pe)
+
+    def boxes(self, boxes: torch.Tensor) -> torch.Tensor:
+        """boxes (B, K, 4) xyxy in encoder-input pixels -> (B, K, 2, C) fp32."""
+        coords = (boxes + 0.5).reshape(*boxes.shape[:-1], 2, 2) / self.cfg.image_size
+        emb = _fourier_embed(self.shared_pe, coords)
+        pe = self.point_embed.float()
+        return torch.stack([emb[..., 0, :] + pe[2], emb[..., 1, :] + pe[3]], dim=-2)
+
+    def image_pe(self) -> torch.Tensor:
+        """Dense (gs, gs, C) positional encoding of the decoder's image tokens."""
+        gs = self.cfg.grid_size
+        t = (torch.arange(gs, dtype=torch.float32, device=self.shared_pe.device) + 0.5) / gs
+        grid = torch.stack([t[None, :].expand(gs, gs), t[:, None].expand(gs, gs)], dim=-1)
+        return _fourier_embed(self.shared_pe, grid)
+
+
+# ----------------------------------------------------------------- mask decoder
+
+
+def _softmax_fp32(logits: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(logits.float(), dim=-1)
+
+
+class DecoderAttention(nn.Module):
+    def __init__(self, p: Params):
+        super().__init__()
+        self.q, self.k, self.v, self.out = (Linear(p[n]) for n in ("q", "k", "v", "out"))
+
+    def forward(self, q, k, v, heads: int):
+        """SAM decoder attention on (N, T, C) inputs."""
+        qp, kp, vp = self.q(q), self.k(k), self.v(v)
+        n, tq, ci = qp.shape
+        tk = kp.shape[1]
+        hd = ci // heads
+        qh = qp.reshape(n, tq, heads, hd).transpose(1, 2)
+        kh = kp.reshape(n, tk, heads, hd).transpose(1, 2)
+        vh = vp.reshape(n, tk, heads, hd).transpose(1, 2)
+        attn = _softmax_fp32((qh * hd ** -0.5) @ kh.transpose(-1, -2)).to(vh.dtype)
+        return self.out((attn @ vh).transpose(1, 2).reshape(n, tq, ci))
+
+    def scaled_query(self, q, heads: int):
+        """The query projection times hd^-0.5, as the fused decoder passes it."""
+        qp = self.q(q)
+        return qp * (qp.shape[-1] // heads) ** -0.5
+
+    def next_t2i(self, qp):
+        """The token-to-image operands :func:`i2t_keys_update` takes."""
+        return {"qp": qp, "wk": self.k.w, "bk": self.k.b, "wv": self.v.w, "bv": self.v.b}
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, p: Params, eps: float):
+        super().__init__()
+        self.self_attn = DecoderAttention(p["self_attn"])
+        self.t2i, self.i2t = DecoderAttention(p["t2i"]), DecoderAttention(p["i2t"])
+        self.ln1, self.ln2, self.ln3, self.ln4 = (Norm(p[f"ln{i}"], eps) for i in range(1, 5))
+        self.mlp1, self.mlp2 = Linear(p["mlp1"]), Linear(p["mlp2"])
+
+    def mlp(self, x):
+        return self.mlp2(torch.relu(self.mlp1(x)))
+
+
+class FeedForward(nn.Module):
+    """SAM FeedForward: relu MLP with proj_in / hidden layers / proj_out."""
+
+    def __init__(self, p: Params):
+        super().__init__()
+        self.inp, self.out = Linear(p["in"]), Linear(p["out"])
+        self.hidden = nn.ModuleList(Linear(lp) for lp in p["hidden"])
+
+    def forward(self, x):
+        x = torch.relu(self.inp(x))
+        for lp in self.hidden:
+            x = torch.relu(lp(x))
+        return self.out(x)
+
+
+def _conv_transpose_2x(x, w, b):
+    """2x2 stride-2 transposed conv, NHWC; w (in_c, out_c, 2, 2) torch layout."""
+    bsz, h, wd, _ = x.shape
+    y = torch.einsum("bhwc,coij->bhiwjo", x, w)
+    return y.reshape(bsz, h * 2, wd * 2, w.shape[1]) + b
+
+
+class SamMaskDecoder(nn.Module):
+    def __init__(self, p: Params, cfg: SamTPUConfig):
+        super().__init__()
+        self.cfg = cfg
+        eps = cfg.decoder_layer_norm_eps
+        self.iou_token, self.mask_tokens = _param(p["iou_token"]), _param(p["mask_tokens"])
+        self.layers = nn.ModuleList(DecoderLayer(lp, eps) for lp in p["layers"])
+        self.final_t2i = DecoderAttention(p["final_t2i"])
+        self.ln_final = Norm(p["ln_final"], 1e-5)  # a default nn.LayerNorm in SAM
+        self.up1_w, self.up1_b = _param(p["up1_w"]), _param(p["up1_b"])
+        self.up_ln = Norm(p["up_ln"], 1e-6)
+        self.up2_w, self.up2_b = _param(p["up2_w"]), _param(p["up2_b"])
+        self.hyper_mlps = nn.ModuleList(FeedForward(fp) for fp in p["hyper_mlps"])
+        self.iou_head = FeedForward(p["iou_head"])
+
+    def tokens(self, image_embeddings, sparse_prompts, image_pe, no_mask):
+        """Two-way transformer up to the mask upscaling.
+
+        image_embeddings (B, gs, gs, C); sparse_prompts (B, K, P, C);
+        image_pe (gs, gs, C); no_mask (C,). Returns (iou (B, K, M),
+        hyper (B*K, M, C/8), keys_grid (B*K, gs, gs, C)).
+        """
+        cfg = self.cfg
+        b, gs, _, c = image_embeddings.shape
+        k = sparse_prompts.shape[1]
+        heads = cfg.decoder_heads
+        dt = image_embeddings.dtype
+        img_flat = (image_embeddings + no_mask).reshape(b, gs * gs, c)
+        img_pe = image_pe.reshape(1, gs * gs, c).to(dt)
+
+        out_tokens = torch.cat([self.iou_token, self.mask_tokens], dim=0)
+        num_out = out_tokens.shape[0]
+        nt = num_out + sparse_prompts.shape[2]
+        tokens = torch.cat(
+            [out_tokens[None, None].expand(b, k, num_out, c), sparse_prompts], dim=2
+        ).reshape(b * k, nt, c)
+        queries = tokens
+        point_pe = tokens
+
+        # layer 0: the K prompts of an image share its image tokens, so the
+        # t2i k/v projections run once per image (K6)
+        l0 = self.layers[0]
+        queries = l0.ln1(l0.self_attn(queries, queries, queries, heads))
+        qp = l0.t2i.scaled_query(queries + point_pe, heads)
+        attn = t2i_shared_attend(img_flat, img_pe, qp, l0.t2i.k.w, l0.t2i.k.b, l0.t2i.v.w,
+                                 l0.t2i.v.b, heads, k)
+        queries = l0.ln2(queries + l0.t2i.out(attn))
+        queries = l0.ln3(queries + l0.mlp(queries))
+
+        # one pass over the keys stream per layer (K7): i2t + residual + LN4,
+        # and the next token-to-image attention (layer i + 1's, or the final
+        # one) from the new keys. Layer i + 1's self-attention and LN1 come
+        # first, as in the JAX fused branch; i2t never reads them.
+        keys_src, share = img_flat, k
+        for i, lp in enumerate(self.layers):
+            if i + 1 < len(self.layers):
+                nxt = self.layers[i + 1]
+                q = queries + point_pe
+                q_pre = nxt.ln1(queries + nxt.self_attn(q, q, queries, heads))
+                t2i = nxt.t2i
+            else:
+                q_pre, t2i = queries, self.final_t2i
+            i2t = lp.i2t
+            keys, attn = i2t_keys_update(
+                keys_src, img_pe, i2t.k(queries + point_pe), i2t.v(queries), i2t.q.w, i2t.q.b,
+                i2t.out.w, i2t.out.b, lp.ln4.scale, lp.ln4.bias, heads=heads, k_share=share,
+                eps=lp.ln4.eps, t2i=t2i.next_t2i(t2i.scaled_query(q_pre + point_pe, heads)),
+            )
+            attn = t2i.out(attn)
+            if i + 1 < len(self.layers):
+                queries = nxt.ln2(q_pre + attn)
+                queries = nxt.ln3(queries + nxt.mlp(queries))
+            else:
+                queries = self.ln_final(q_pre + attn)
+            keys_src, share = keys, 1
+
+        m = cfg.num_mask_tokens
+        hyper = torch.stack(
+            [self.hyper_mlps[i](queries[:, 1 + i, :]) for i in range(m)], dim=1
+        )
+        iou = self.iou_head(queries[:, 0, :]).reshape(b, k, m)
+        return iou, hyper, keys.reshape(b * k, gs, gs, c)
+
+    def mask_head(self, keys_grid, hyper):
+        """Upscale (N, g, g, C) tokens 4x and project with the hypernetwork
+        outputs (N, M, C/8) -> fp32 logits (N, M, 4g, 4g)."""
+        n, g, _, _ = keys_grid.shape
+        up = _conv_transpose_2x(keys_grid, self.up1_w, self.up1_b)
+        up = F.gelu(self.up_ln(up))
+        up = F.gelu(_conv_transpose_2x(up, self.up2_w, self.up2_b))
+        hw4 = g * 4
+        logits = torch.einsum("nmc,npc->nmp", hyper.float(), up.reshape(n, hw4 * hw4, -1).float())
+        return logits.reshape(n, hyper.shape[1], hw4, hw4)
+
+
+class SamModel(nn.Module):
+    """Encoder + prompt encoder + mask decoder, built from one parameter tree."""
+
+    def __init__(self, params: Params, cfg: SamTPUConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.vision = SamImageEncoder(params["vision"], cfg)
+        self.prompt = SamPromptEncoder(params["prompt"], params["shared_pe"], cfg)
+        self.decoder = SamMaskDecoder(params["decoder"], cfg)
+
+    def mask_decoder_tokens(self, image_embeddings, sparse_prompts):
+        """The JAX package's ``sam_mask_decoder_tokens`` (no dense prompt)."""
+        return self.decoder.tokens(
+            image_embeddings, sparse_prompts, self.prompt.image_pe(),
+            self.prompt.no_mask.to(image_embeddings.dtype),
+        )
+
+
+# ------------------------------------------------------------------------- init
+
+
+def init_sam_params(seed: int, cfg: SamTPUConfig) -> Params:
+    """Random-init parameter tree, host numpy fp32. The same draws in the same
+    order as the JAX package's ``init_sam_params``, so one seed gives
+    identical weights in both."""
+    nrng = np.random.default_rng(seed)
+    dtype = np.float32
+
+    def randn(*shape, scale=1.0):
+        return nrng.normal(0.0, scale, size=shape).astype(dtype)
+
+    def dense(i, o, scale=None):
+        s = scale if scale is not None else (1.0 / math.sqrt(i))
+        return {"w": randn(i, o, scale=s), "b": np.zeros((o,), dtype)}
+
+    def ln(d):
+        return {"scale": np.ones((d,), dtype), "bias": np.zeros((d,), dtype)}
+
+    c = cfg.vision_hidden
+    hd = c // cfg.vision_heads
+    gs = cfg.grid_size
+
+    def vis_layer(i):
+        ws = cfg.window_size if i not in cfg.global_attn_indexes else gs
+        return {
+            "ln1": ln(c),
+            "attn": {
+                "qkv": dense(c, 3 * c),
+                "proj": dense(c, c),
+                "rel_pos_h": np.zeros((2 * ws - 1, hd), dtype),
+                "rel_pos_w": np.zeros((2 * ws - 1, hd), dtype),
+            },
+            "ln2": ln(c),
+            "mlp1": dense(c, cfg.vision_mlp_dim),
+            "mlp2": dense(cfg.vision_mlp_dim, c),
+        }
+
+    oc = cfg.output_channels
+    vision = {
+        "patch_embed": {
+            "w": (randn(cfg.patch_size, cfg.patch_size, 3, c) * 0.02).astype(dtype),
+            "b": np.zeros((c,), dtype),
+        },
+        "pos_embed": np.zeros((1, gs, gs, c), dtype),
+        "layers": [vis_layer(i) for i in range(cfg.vision_layers)],
+        "neck": {
+            "conv1_w": (randn(c, oc) * 0.02).astype(dtype),
+            "ln1": ln(oc),
+            "conv2_w": (randn(3, 3, oc, oc) * 0.02).astype(dtype),
+            "ln2": ln(oc),
+        },
+    }
+
+    ph = cfg.prompt_hidden
+    prompt = {
+        "point_embed": randn(4, ph) * 0.02,
+        "not_a_point": randn(ph) * 0.02,
+        "no_mask": randn(ph) * 0.02,
+        "mask_embed": None,  # mask-prompt path unused by the pipeline
+    }
+
+    di = ph
+    dh = di // 2
+
+    def dec_attn(internal):
+        return {
+            "q": dense(di, internal),
+            "k": dense(di, internal),
+            "v": dense(di, internal),
+            "out": dense(internal, di),
+        }
+
+    def dec_layer():
+        return {
+            "self_attn": dec_attn(di),
+            "ln1": ln(di),
+            "t2i": dec_attn(dh),
+            "ln2": ln(di),
+            "mlp1": dense(di, cfg.decoder_mlp_dim),
+            "mlp2": dense(cfg.decoder_mlp_dim, di),
+            "ln3": ln(di),
+            "i2t": dec_attn(dh),
+            "ln4": ln(di),
+        }
+
+    def ff(i, h, o, depth):
+        return {
+            "in": dense(i, h),
+            "hidden": [dense(h, h) for _ in range(depth - 2)],
+            "out": dense(h, o),
+        }
+
+    decoder = {
+        "iou_token": randn(1, di) * 0.02,
+        "mask_tokens": randn(cfg.num_mask_tokens, di) * 0.02,
+        "layers": [dec_layer() for _ in range(cfg.decoder_layers)],
+        "final_t2i": dec_attn(dh),
+        "ln_final": ln(di),
+        "up1_w": (randn(di, di // 4, 2, 2) * 0.02).astype(dtype),
+        "up1_b": np.zeros((di // 4,), dtype),
+        "up_ln": ln(di // 4),
+        "up2_w": (randn(di // 4, di // 8, 2, 2) * 0.02).astype(dtype),
+        "up2_b": np.zeros((di // 8,), dtype),
+        "hyper_mlps": [ff(di, di, di // 8, 3) for _ in range(cfg.num_mask_tokens)],
+        "iou_head": ff(di, cfg.iou_head_hidden, cfg.num_mask_tokens, cfg.iou_head_depth),
+    }
+
+    shared_pe = (randn(2, cfg.num_pos_feats) * (cfg.vision_hidden // 2)).astype(dtype)
+    return {
+        "vision": vision,
+        "prompt": prompt,
+        "decoder": decoder,
+        "shared_pe": shared_pe,
+        "shared_image_pe": shared_pe,
+    }
+
+
+__all__ = [
+    "SamImageEncoder", "SamMaskDecoder", "SamModel", "SamPromptEncoder", "init_sam_params",
+]

@@ -1,0 +1,72 @@
+"""Batched preprocessing: letterbox for YOLO, resize + pad + normalise for SAM.
+
+Counterpart of ``yolo_sam_inference_tpu/ops/preprocess.py``. Images are
+channels-last ``(B, H, W, C)`` tensors on the pipeline's device.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+# SAM (ImageNet) normalization constants, matching SamProcessor defaults.
+SAM_MEAN = (123.675, 116.28, 103.53)
+SAM_STD = (58.395, 57.12, 57.375)
+
+
+@functools.lru_cache(maxsize=32)
+def _linear_weights(in_len: int, out_len: int) -> np.ndarray:
+    """(out_len, in_len) resampling matrix of ``jax.image.resize(method=
+    "linear")``: half-pixel centres and a triangle kernel whose support
+    widens by the downsampling factor (antialiasing), rows normalised."""
+    scale = in_len / out_len
+    kernel_scale = max(scale, 1.0)
+    centers = (np.arange(out_len, dtype=np.float64) + 0.5) * scale - 0.5
+    j = np.arange(in_len, dtype=np.float64)
+    w = np.clip(1.0 - np.abs(j[None, :] - centers[:, None]) / kernel_scale, 0.0, None)
+    w /= w.sum(axis=1, keepdims=True)
+    return w.astype(np.float32)
+
+
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize (half-pixel centres, antialiased on downsample), NHWC float."""
+    h, w = img.shape[-3], img.shape[-2]
+    if h == out_h and w == out_w:
+        return img
+    wy = torch.from_numpy(_linear_weights(h, out_h)).to(img.device)
+    wx = torch.from_numpy(_linear_weights(w, out_w)).to(img.device)
+    return torch.einsum("oh,...hwc,pw->...opc", wy, img, wx)
+
+
+def letterbox_batch(
+    images: torch.Tensor, size: int, pad_value: float = 114.0
+) -> Tuple[torch.Tensor, float, Tuple[int, int]]:
+    """(B, H, W, 3) -> ((B, size, size, 3) fp32 in [0, 1], scale, (pad_x, pad_y)):
+    aspect-preserving fit with centred gray padding (ultralytics convention)."""
+    b, h, w, c = images.shape
+    r = min(size / h, size / w)
+    nh, nw = round(h * r), round(w * r)
+    resized = resize_bilinear(images.float(), nh, nw)
+    pad_y, pad_x = (size - nh) // 2, (size - nw) // 2
+    out = torch.full((b, size, size, c), pad_value, dtype=torch.float32, device=images.device)
+    out[:, pad_y:pad_y + nh, pad_x:pad_x + nw] = resized
+    return out / 255.0, r, (pad_x, pad_y)
+
+
+def sam_preprocess_batch(
+    images: torch.Tensor, size: int = 1024
+) -> Tuple[torch.Tensor, float, Tuple[int, int]]:
+    """Resize the longest side to ``size``, ImageNet-normalise, zero-pad
+    bottom/right (SamProcessor semantics). Returns (batch, scale, (nh, nw))."""
+    b, h, w, c = images.shape
+    r = size / max(h, w)
+    nh, nw = int(h * r + 0.5), int(w * r + 0.5)
+    resized = resize_bilinear(images.float(), nh, nw)
+    mean = torch.tensor(SAM_MEAN, dtype=torch.float32, device=images.device)
+    std = torch.tensor(SAM_STD, dtype=torch.float32, device=images.device)
+    out = torch.zeros((b, size, size, c), dtype=torch.float32, device=images.device)
+    out[:, :nh, :nw] = (resized - mean) / std
+    return out, r, (nh, nw)
