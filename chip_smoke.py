@@ -10,6 +10,7 @@ failure ends the run with a non-zero exit and no result line:
    (``nvidia-smi --query-gpu=name,power.limit``); fails without a CUDA device;
 2. build: compiles ``yolo_sam_inference_tpu_torch/csrc/*.cu`` with nvcc into
    ``build/kernels/<hash>/`` and prints the seconds;
+   and each kernel's registers and spills as ``-Xptxas -v`` gives them;
 3. kernels: each hand-written kernel against its plain PyTorch version in
    fp32 (TF32 off) on the same inputs, at the config-1 main path's batch-32
    shapes, with the stated bound; then each kernel's median time beside the
@@ -19,7 +20,17 @@ failure ends the run with a non-zero exit and no result line:
    launch count checked, the bf16 image embedding of one frame against the
    fp32 plain path on the same card, the bf16 decoder on that frame's prompts
    against the fp32 plain decoder, and a timed pass at batch 32;
-5. result: the kernel table as one JSON line, then the last line
+5. big kernels: the kernels of the ViT-L/H paths at their batch-32 shapes:
+   ``gemm_bf16`` at the ViT-L/H qkv and MLP (K10) widths and the attention at
+   hd 80 against fp32 plain versions, and the w8a8 kernels (K11c, K11a,
+   K11b) against their plain int8 versions on the same bf16 inputs;
+6. big slices: ``facebook/sam-vit-large`` (max_det 50, frames with 40 cells:
+   config 3's multi-box traffic) and ``facebook/sam-vit-huge`` (max_det 16),
+   each in bf16 and with ``quant="int8"`` from one parameter tree: a batch of
+   8 with every launch count checked, the image embedding of one frame
+   against the fp32 plain encoder on the same bf16-rounded float weights,
+   and a timed pass at batch 32;
+7. result: the kernel table as one JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -37,10 +48,33 @@ TIMED_BATCH = 32
 TIMED_ITERS = 3
 FRAME = 512
 KERNEL_ROWS = TIMED_BATCH * 1024  # B * 32 * 32 tokens at config 1
+# the ViT-L/H paths: (model type, max_det, layers, C, heads, MLP hidden)
+BIG_MODELS = (("facebook/sam-vit-large", 50, 24, 1024, 16, 4096),
+              ("facebook/sam-vit-huge", 16, 32, 1280, 16, 5120))
+BIG_CELLS = 40  # cells per frame in the big slices (config 3: 10-50 per image)
 
 
 def _say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def _ptxas_summary(log: str) -> list:
+    """One line per kernel from ``-Xptxas -v``: registers and spill bytes."""
+    import re
+
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f", spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            lines.append(f"ptxas {name}: {m.group(1)} registers{spill}")
+            name = None
+    return lines
 
 
 def _check(name: str, got, ref, rtol: float, results: dict) -> float:
@@ -55,6 +89,34 @@ def _check(name: str, got, ref, rtol: float, results: dict) -> float:
                     f"rtol={rtol}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    kernel = name.split()[0]
+    results[kernel] = max(results.get(kernel, 0.0), err)
+    return err
+
+
+def _check_int8(name: str, got, ref, results: dict) -> float:
+    """An int8 kernel against its plain int8 version on the same bf16 inputs.
+
+    Both round the same exact integer products to bf16, so most elements
+    agree to the last bit. An LN or hidden value that lies on an int8
+    rounding boundary may resolve the other way after a last-bit difference
+    upstream (the fp32 LN statistics are summed in another order) and move
+    its whole row by one quantisation step (tests/test_quant.py:197-208). So:
+    rows with an element beyond one bf16 step of the row's largest value
+    (2^-7 of it) must be at most 10% of the rows, and no element may be off
+    by more than 2% of the output range (the bf16 products' bound)."""
+    import torch
+
+    d = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    row_tol = ref.float().abs().amax(-1, keepdim=True) * 2 ** -7
+    bad_rows = (d > row_tol).any(-1).float().mean().item()
+    err = d.max().item()
+    ok = bool(torch.isfinite(got.float()).all()) and bad_rows <= 0.1 and err <= 2e-2 * scale
+    _say("kernels", f"{name}: max_abs_err={err:.6g} (bound {2e-2 * scale:.6g}), rows off by more "
+                    f"than a bf16 step {bad_rows:.4f} (bound 0.1) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: int8 kernel disagrees with its plain version")
     kernel = name.split()[0]
     results[kernel] = max(results.get(kernel, 0.0), err)
     return err
@@ -274,6 +336,101 @@ def _decoder_kernel_phase(card: str) -> dict:
     return {"errs": errs, "times": times}
 
 
+def _big_kernel_phase(card: str) -> dict:
+    """The kernels of the ViT-L/H paths at their batch-32 shapes
+    (32768 rows): K1 and K10 on gemm_bf16, the attention at hd 80, and the
+    w8a8 kernels K11c, K11a (ViT-L) and K11b (ViT-H)."""
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.models.sam.model import RESIDENT_MLP_INT8_MAX
+    from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
+    from yolo_sam_inference_tpu_torch.ops.flash_attention import (
+        window_attention,
+        window_attention_plain,
+    )
+    from yolo_sam_inference_tpu_torch.ops.quant import quantize_weight
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(2)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(dev)
+
+    m = KERNEL_ROWS
+    errs: dict = {}
+    times: dict = {}
+    for model, _, _, c, heads, hidden in BIG_MODELS:
+        tag = "ViT-L" if c == 1024 else "ViT-H"
+        x, h = randn(m, c).to(bf), randn(m, c).to(bf)
+        ln_s, ln_b = 1.0 + randn(c, std=0.1), randn(c, std=0.1)
+        # weights as the pipeline holds them: bf16, and int8 from the bf16 values
+        w_qkv, b_qkv = randn(c, 3 * c, std=c ** -0.5).to(bf), randn(3 * c, std=0.1).to(bf)
+        w1, b1 = randn(c, hidden, std=c ** -0.5).to(bf), randn(hidden, std=0.1).to(bf)
+        w2, b2 = randn(hidden, c, std=hidden ** -0.5).to(bf), randn(c, std=0.1).to(bf)
+        (q_qkv, s_qkv), (q1, s1), (q2, s2) = (quantize_weight(w) for w in (w_qkv, w1, w2))
+        xf, hf = x.float(), h.float()
+
+        # K1 and K10 (K4's function, fused_ln_mlp) on gemm_bf16 against fp32
+        # plain versions
+        k1 = lambda: tln.fused_ln_matmul(x, ln_s, ln_b, w_qkv, b_qkv)
+        k1p = lambda: tln.fused_ln_matmul(x, ln_s, ln_b, w_qkv, b_qkv, gemm=tln.gemm_plain)
+        _check(f"gemm_bf16 K1 {tag} ln+qkv ({m}x{c} @ {c}x{3 * c})", k1(),
+               tln.fused_ln_matmul(xf, ln_s, ln_b, w_qkv, b_qkv, gemm=tln.gemm_plain), 2e-2, errs)
+        k10 = lambda: tln.fused_ln_mlp(x, h, ln_s, ln_b, w1, b1, w2, b2)
+        k10p = lambda: tln.fused_ln_mlp(x, h, ln_s, ln_b, w1, b1, w2, b2, gemm=tln.gemm_plain)
+        _check(f"gemm_bf16 K10 {tag} ln+mlp ({c}->{hidden}->{c}, two launches)", k10(),
+               tln.fused_ln_mlp(xf, hf, ln_s, ln_b, w1, b1, w2, b2, gemm=tln.gemm_plain),
+               2e-2, errs)
+        times[f"K1 {tag}"] = (median_ms(k1), median_ms(k1p, reps=5))
+        times[f"K10 {tag}"] = (median_ms(k10), median_ms(k10p, reps=5))
+
+        # w8a8 against the plain int8 versions on the same bf16 inputs
+        k11c = lambda: tln.fused_ln_matmul_int8(x, ln_s, ln_b, q_qkv, s_qkv, b_qkv)
+        k11cp = lambda: tln.fused_ln_matmul_int8_plain(x, ln_s, ln_b, q_qkv, s_qkv, b_qkv)
+        _check_int8(f"fused_ln_matmul_int8 K11c {tag} ({m}x{c} -> {3 * c})", k11c(), k11cp(), errs)
+        times[f"K11c {tag}"] = (median_ms(k11c), median_ms(k11cp, reps=5))
+        tiled = c * hidden > RESIDENT_MLP_INT8_MAX
+        name = "fused_ln_mlp_tiled_int8 K11b" if tiled else "fused_ln_mlp_int8 K11a"
+        tail = tln.fused_ln_mlp_tiled_int8 if tiled else tln.fused_ln_mlp_int8
+        chunks = tln.int8_tail_chunks(m, c, hidden, tiled)
+        k11 = lambda: tail(x, h, ln_s, ln_b, q1, s1, b1, q2, s2, b2)
+        k11p = lambda: tln.fused_ln_mlp_int8_plain(x, h, ln_s, ln_b, q1, s1, b1, q2, s2, b2,
+                                                   chunks=chunks)
+        _check_int8(f"{name} {tag} ({c}->{hidden}->{c}, {chunks} chunks)", k11(), k11p(), errs)
+        times[name.split()[1] + f" {tag}"] = (median_ms(k11), median_ms(k11p, reps=5))
+        for key in (f"K1 {tag}", f"K11c {tag}", f"K10 {tag}", f"{name.split()[1]} {tag}"):
+            _say("kernels", f"{key}: kernel {times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms "
+                            f"[{card}]")
+        del x, h, w_qkv, w1, w2, q_qkv, q1, q2, xf, hf
+        torch.cuda.empty_cache()
+
+    # window_attn_relpos at hd 80 (ViT-H: 16 heads of 80): windows 16 and 32,
+    # and with |q.k / sqrt(80)| ~ 30
+    c, heads, hd = 1280, 16, 80
+    for window, std_qk, label in ((16, 1.0, "hd80 w16"), (32, 1.0, "hd80 w32"),
+                                  (16, 2.8, "hd80 w16 |s|~30"), (32, 2.8, "hd80 w32 |s|~30")):
+        qkv = randn(TIMED_BATCH, 32, 32, 3 * c).to(bf)
+        qkv[..., :2 * c] *= std_qk
+        rel_h, rel_w = (randn(2 * window - 1, hd, std=0.3).to(bf) for _ in range(2))
+        fn = lambda: window_attention(qkv, rel_h, rel_w, heads, window)
+        fnp = lambda: window_attention_plain(qkv, rel_h, rel_w, heads, window)
+        if std_qk > 1.0:
+            q = qkv[..., :c].float().reshape(TIMED_BATCH, 32, 32, heads, hd)
+            kk = qkv[..., c:2 * c].float().reshape(TIMED_BATCH, 32, 32, heads, hd)
+            s_max = (q[:, :window, :window] * hd ** -0.5 * kk[:, :1, :1]).sum(-1).abs().max().item()
+            _say("kernels", f"attention {label}: sampled max |q.k/sqrt(80)| = {s_max:.1f}")
+        _check(f"window_attn_relpos {label} ({TIMED_BATCH}x32x32x{3 * c})", fn(),
+               window_attention_plain(qkv.float(), rel_h, rel_w, heads, window), 2e-2, errs)
+        if std_qk == 1.0:
+            times[f"attn {label}"] = (median_ms(fn), median_ms(fnp, reps=5))
+            _say("kernels", f"window_attn_relpos {label}: kernel {times[f'attn {label}'][0]:.4f} "
+                            f"ms, plain {times[f'attn {label}'][1]:.4f} ms [{card}]")
+        del qkv
+    torch.cuda.synchronize()
+    return {"errs": errs, "times": times}
+
+
 def _slice_phase(card: str) -> dict:
     import numpy as np
     import torch
@@ -407,6 +564,145 @@ def _slice_phase(card: str) -> dict:
     return {"launches": launches, "ms_per_batch": ms}
 
 
+def _sharing_params(pipe, options):
+    """A second pipeline over ``pipe``'s host parameter trees (one init, one
+    resolution adaptation) with other options: its stages are built anew."""
+    import copy
+
+    other = copy.copy(pipe)
+    other.options = options
+    other._stage_cache = {}
+    return other
+
+
+def _big_slice_phase(card: str, model: str, max_det: int, layers: int) -> dict:
+    """One ViT-L/H path in bf16 and in int8, through process_batch_arrays."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames
+    from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
+    from yolo_sam_inference_tpu_torch.ops.decoder_fused import keys_stream, t2i_attend, t2i_combine
+    from yolo_sam_inference_tpu_torch.ops.flash_attention import window_attention
+    from yolo_sam_inference_tpu_torch.ops.hull_support import support_points
+    from yolo_sam_inference_tpu_torch.ops.metrics import METRIC_KEYS
+    from yolo_sam_inference_tpu_torch.ops.preprocess import sam_preprocess_batch
+    from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+    from yolo_sam_inference_tpu_torch.weights import from_jax_params
+
+    short = model.rsplit("-", 1)[-1]
+    t0 = time.perf_counter()
+    opts = tengine.PipelineOptions(max_det=max_det, metric_crop=128)
+    pipe_b = tengine.CellSegmentationPipeline(sam_model_type=model, options=opts, device="cuda",
+                                              seed=0)
+    t_init = time.perf_counter() - t0
+    pipes = {"bf16": pipe_b,
+             "int8": _sharing_params(pipe_b, dataclasses.replace(opts, quant="int8"))}
+    for mode, pipe in pipes.items():
+        t0 = time.perf_counter()
+        pipe._stages(FRAME, FRAME)
+        _say("slice", f"{short} {mode}: stages built (adapt + cast"
+                      f"{' + quantise' if mode == 'int8' else ''} + upload) "
+                      f"{time.perf_counter() - t0:.2f} s")
+    _say("slice", f"{short}: numpy init of the parameters {t_init:.2f} s (shared by both)")
+    frames = cell_frames(np.random.default_rng(1), TIMED_BATCH, FRAME, cells=BIG_CELLS)
+
+    wrappers = {"gemm_bf16": tln.gemm_bf16, "window_attn_relpos": window_attention,
+                "fused_ln_matmul_int8": tln.fused_ln_matmul_int8,
+                "fused_ln_mlp_int8": tln.fused_ln_mlp_int8,
+                "fused_ln_mlp_tiled_int8": tln.fused_ln_mlp_tiled_int8,
+                "layer_norm": tln.layer_norm, "keys_stream": keys_stream, "t2i_attend": t2i_attend,
+                "t2i_combine": t2i_combine, "window_crop": window_crop,
+                "hull_support": support_points}
+    tiled = "huge" in model  # ViT-H's int8 tail is K11b, ViT-L's K11a
+    common = {"window_attn_relpos": layers, "layer_norm": 10, "keys_stream": 3, "t2i_attend": 1,
+              "t2i_combine": 2, "window_crop": 1, "hull_support": 1}
+    # bf16: per layer K1 + projection + two K10 GEMMs; int8: the projection on
+    # gemm_bf16, K11c, and the K11a or K11b tail
+    expected = {
+        "bf16": {**common, "gemm_bf16": 4 * layers, "fused_ln_matmul_int8": 0,
+                 "fused_ln_mlp_int8": 0, "fused_ln_mlp_tiled_int8": 0},
+        "int8": {**common, "gemm_bf16": layers, "fused_ln_matmul_int8": layers,
+                 "fused_ln_mlp_int8": 0 if tiled else layers,
+                 "fused_ln_mlp_tiled_int8": layers if tiled else 0},
+    }
+    result: dict = {"launches": {}, "ms_per_batch": {}, "rel_rms": {}}
+    for mode, pipe in pipes.items():
+        for w in wrappers.values():
+            w.launches = 0
+        timings: dict = {}
+        out = pipe.process_batch_arrays(frames[:SLICE_BATCH], timings)
+        torch.cuda.synchronize()
+        launches = {name: w.launches for name, w in wrappers.items()}
+        _say("slice", f"{short} {mode}: batch {SLICE_BATCH} launches {launches} "
+                      f"(expected {expected[mode]})")
+        for name, n in launches.items():
+            if n != expected[mode][name]:
+                raise AssertionError(f"{short} {mode}: {name} launched {n} times on the path, "
+                                     f"expected {expected[mode][name]}")
+        result["launches"][mode] = launches
+        b, k = SLICE_BATCH, max_det
+        if out["mask_crops"].shape != (b, k, 128, 128) or out["boxes"].shape != (b, k, 4):
+            raise AssertionError(f"{short} {mode}: output shapes {out['mask_crops'].shape}, "
+                                 f"{out['boxes'].shape}")
+        if not all(np.isfinite(out["metrics"][key]).all() for key in METRIC_KEYS):
+            raise AssertionError(f"{short} {mode}: non-finite metrics")
+        _say("slice", f"{short} {mode}: outputs ok, {int(out['valid'].sum())} valid cells in "
+                      f"{b} frames")
+
+    # the embedding of one frame against the fp32 plain encoder on the same
+    # bf16-rounded float weights (the int8 path quantises those same weights)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    st = pipe_b._stages(FRAME, FRAME)
+    scfg = st["scfg"]
+    tree = tengine._round_floating(pipe_b._sam_params_for(scfg), torch.bfloat16)
+    _, sam32 = from_jax_params(None, tree, "cuda", torch.float32, sam_config=scfg)
+    img = torch.from_numpy(frames[:1]).cuda()
+    with torch.inference_mode():
+        pix, _, _ = sam_preprocess_batch(img, scfg.image_size)
+        emb32 = sam32.vision(pix, plain=True)
+        embs = {mode: pipe._stages(FRAME, FRAME)["sam"].vision(pix.to(torch.bfloat16)).float()
+                for mode, pipe in pipes.items()}
+    del sam32, tree
+    for mode, bound in (("bf16", 0.05), ("int8", 0.10)):
+        emb = embs[mode]
+        rel = ((emb - emb32).norm() / emb32.norm()).item()
+        result["rel_rms"][mode] = rel
+        _say("slice", f"{short} {mode} embedding vs fp32 plain (1 frame, {tuple(emb32.shape)}): "
+                      f"rel_rms={rel:.5f} (bound {bound}), max_abs="
+                      f"{(emb - emb32).abs().max().item():.5f}, "
+                      f"max|ref|={emb32.abs().max().item():.4f}")
+        if not (rel <= bound and torch.isfinite(emb).all()):
+            raise AssertionError(f"{short} {mode} embedding disagrees with the fp32 plain encoder")
+    _say("slice", f"{short}: embedding rel_rms bf16 {result['rel_rms']['bf16']:.5f}, "
+                  f"int8 {result['rel_rms']['int8']:.5f}")
+
+    for mode, pipe in pipes.items():
+        pipe.process_batch_arrays(frames)  # warm-up at this shape
+        per_iter = []
+        stage_tot: dict = {}
+        for _ in range(TIMED_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.process_batch_arrays(frames, stage_tot)
+            per_iter.append(time.perf_counter() - t0)
+        ms = statistics.median(per_iter) * 1000
+        result["ms_per_batch"][mode] = ms
+        _say("slice", f"{short} {mode} timed: batch {TIMED_BATCH}, max_det {max_det}, "
+                      f"{TIMED_ITERS} iterations, median {ms:.2f} ms/batch = "
+                      f"{TIMED_BATCH / ms * 1000:.2f} img/s (iterations ms "
+                      f"{[round(t * 1000, 2) for t in per_iter]}) [{card}]")
+        _say("slice", f"{short} {mode} stage ms/batch (mean): " + json.dumps(
+            {key: round(v / TIMED_ITERS * 1000, 3) for key, v in stage_tot.items()}))
+    del pipes, pipe_b, embs
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not (ROOT / "yolo_sam_inference_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -432,11 +728,17 @@ def main() -> int:
 
     _, secs = _build.build()
     _build.kernels()
-    _say("build", f"nvcc sm_90a build {secs:.2f} s -> {_build.library_path()}")
+    _say("build", f"nvcc sm_90a build {secs:.2f} s (one nvcc per source, in parallel) -> "
+                  f"{_build.library_path()}")
+    for line in _ptxas_summary(_build.ptxas_report()):
+        _say("build", line)
 
     kp = _kernel_phase(card)
     dp = _decoder_kernel_phase(card)
     sp = _slice_phase(card)
+    bk = _big_kernel_phase(card)
+    big = {model.rsplit("-", 1)[-1]: _big_slice_phase(card, model, max_det, layers)
+           for model, max_det, layers, *_ in BIG_MODELS}
 
     t = kp["times"]
     table = [
@@ -477,6 +779,44 @@ def main() -> int:
                       "source": f"yolo_sam_inference_tpu_torch/csrc/{src}", "replaces": replaces,
                       "launches": sp["launches"][name], "max_abs_err": dp["errs"][name],
                       "ms": dt[timed][0], "plain_ms": dt[timed][1]})
+    bt = bk["times"]
+    lb, hb = big["large"]["launches"], big["huge"]["launches"]
+    table += [
+        {"name": "gemm_bf16 K10", "route": "cuda",
+         "source": "yolo_sam_inference_tpu_torch/csrc/gemm_bf16.cu",
+         "replaces": "yolo_sam_inference_tpu/ops/fused_ln.py:302 fused_ln_mlp_tiled",
+         "launches": lb["bf16"]["gemm_bf16"] + hb["bf16"]["gemm_bf16"],
+         "max_abs_err": bk["errs"]["gemm_bf16"], "ms": bt["K10 ViT-H"][0],
+         "plain_ms": bt["K10 ViT-H"][1]},
+        {"name": "window_attn_relpos hd80", "route": "cuda",
+         "source": "yolo_sam_inference_tpu_torch/csrc/window_attn_relpos.cu",
+         "replaces": "yolo_sam_inference_tpu/ops/flash_attention.py:608 flash_attention_grid "
+                     "(+ :1085 relpos_tables)",
+         "launches": hb["bf16"]["window_attn_relpos"] + hb["int8"]["window_attn_relpos"],
+         "max_abs_err": bk["errs"]["window_attn_relpos"], "ms": bt["attn hd80 w16"][0],
+         "plain_ms": bt["attn hd80 w16"][1]},
+        {"name": "fused_ln_matmul_int8", "route": "cuda",
+         "source": "yolo_sam_inference_tpu_torch/csrc/gemm_int8.cu",
+         "replaces": "yolo_sam_inference_tpu/ops/fused_ln.py:711 fused_ln_matmul_int8",
+         "launches": lb["int8"]["fused_ln_matmul_int8"] + hb["int8"]["fused_ln_matmul_int8"],
+         "max_abs_err": bk["errs"]["fused_ln_matmul_int8"], "ms": bt["K11c ViT-H"][0],
+         "plain_ms": bt["K11c ViT-H"][1]},
+        {"name": "fused_ln_mlp_int8", "route": "cuda",
+         "source": "yolo_sam_inference_tpu_torch/csrc/gemm_int8.cu",
+         "replaces": "yolo_sam_inference_tpu/ops/fused_ln.py:438 fused_ln_mlp_int8",
+         "launches": lb["int8"]["fused_ln_mlp_int8"],
+         "max_abs_err": bk["errs"]["fused_ln_mlp_int8"], "ms": bt["K11a ViT-L"][0],
+         "plain_ms": bt["K11a ViT-L"][1]},
+        {"name": "fused_ln_mlp_tiled_int8", "route": "cuda",
+         "source": "yolo_sam_inference_tpu_torch/csrc/gemm_int8.cu",
+         "replaces": "yolo_sam_inference_tpu/ops/fused_ln.py:549 fused_ln_mlp_tiled_int8",
+         "launches": hb["int8"]["fused_ln_mlp_tiled_int8"],
+         "max_abs_err": bk["errs"]["fused_ln_mlp_tiled_int8"], "ms": bt["K11b ViT-H"][0],
+         "plain_ms": bt["K11b ViT-H"][1]},
+    ]
+    for entry in table:
+        if entry["launches"] < 1:
+            raise AssertionError(f"{entry['name']}: no launch on its path")
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -36,15 +36,16 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def cell_frames(rng, n: int, size: int):
-    """uint8 (n, size, size, 3) gray frames with 12 bright elliptical cells each."""
+def cell_frames(rng, n: int, size: int, cells: int = 12):
+    """uint8 (n, size, size, 3) gray frames with ``cells`` bright elliptical
+    cells each."""
     import numpy as np
 
     yy, xx = np.mgrid[:size, :size]
     frames = []
     for _ in range(n):
         img = rng.normal(40, 5, size=(size, size))
-        for _ in range(12):
+        for _ in range(cells):
             cy, cx = rng.uniform(40, size - 40, size=2)
             ry, rx = rng.uniform(10, 30, size=2)
             img[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0] = rng.uniform(150, 220)

@@ -1,13 +1,15 @@
-"""Device time by kernel over the config-1 slice, from ``torch.profiler``.
+"""Device time by kernel over a slice of the pipeline, from ``torch.profiler``.
 
     python -m yolo_sam_inference_tpu_torch.bench.profile_slice [--batch 32] [--iters 2]
+        [--model facebook/sam-vit-base] [--quant none|int8] [--max-det 16] [--cells 12]
 
-Runs ``process_batch_arrays`` (YOLOv8n + SAM ViT-B, 512x512 frames, bf16,
-random weights from seed 0) twice to warm up, then ``--iters`` batches under
-the profiler. Prints, all from that one profiled window: its wall time, the
-union of device-kernel intervals (kernel time), the idle share (1 - kernel
-time / wall time; the profiler's own host cost inflates it), and kernel time
-by category and by kernel name. Needs one CUDA card.
+Runs ``process_batch_arrays`` (YOLOv8n + the SAM model, 512x512 frames with
+``--cells`` cells each, bf16 or w8a8 int8 encoder, random weights from seed
+0) twice to warm up, then ``--iters`` batches under the profiler. The
+defaults are config 1. Prints, all from that one profiled window: its wall
+time, the union of device-kernel intervals (kernel time), the idle share
+(1 - kernel time / wall time; the profiler's own host cost inflates it), and
+kernel time by category and by kernel name. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import time
 
 CATEGORIES = (  # (substring of the kernel name, category); first match wins
     ("gemm_bf16_kernel", "gemm_bf16"), ("ln_stats_kernel", "gemm_bf16 LN statistics"),
+    ("gemm_int8_kernel", "gemm_int8"), ("ln_quant_kernel", "int8 LN + row quantisation"),
+    ("quant_chunks_kernel", "int8 hidden requantisation"),
     ("window_attn_relpos_kernel", "window_attn_relpos"), ("keys_stream_kernel", "keys_stream"),
     ("t2i_attend_kernel", "t2i_attend"), ("t2i_combine_kernel", "t2i_combine"),
     ("window_crop_kernel", "window_crop"),
@@ -43,6 +47,10 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--iters", type=int, default=2)
+    ap.add_argument("--model", default="facebook/sam-vit-base")
+    ap.add_argument("--quant", default="none", choices=("none", "int8"))
+    ap.add_argument("--max-det", type=int, default=16)
+    ap.add_argument("--cells", type=int, default=12)
     args = ap.parse_args()
 
     import numpy as np
@@ -57,9 +65,11 @@ def main() -> None:
     )
 
     print(card(), flush=True)
-    pipe = CellSegmentationPipeline(sam_model_type="facebook/sam-vit-base", device="cuda",
-                                    options=PipelineOptions(max_det=16, metric_crop=128), seed=0)
-    frames = cell_frames(np.random.default_rng(0), args.batch, 512)
+    print(f"{args.model}, quant {args.quant}, max_det {args.max_det}, {args.cells} cells per "
+          f"frame", flush=True)
+    opts = PipelineOptions(max_det=args.max_det, metric_crop=128, quant=args.quant)
+    pipe = CellSegmentationPipeline(sam_model_type=args.model, device="cuda", options=opts, seed=0)
+    frames = cell_frames(np.random.default_rng(0), args.batch, 512, cells=args.cells)
     for _ in range(2):
         pipe.process_batch_arrays(frames)
     torch.cuda.synchronize()

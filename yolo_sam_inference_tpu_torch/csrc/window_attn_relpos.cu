@@ -36,8 +36,11 @@
 // logits; that is not copied.) The probabilities are rounded to bf16 for
 // the P.V product. It does not use wgmma or TMA; those come later.
 //
-// Supported: hd = 64, w in {16, 32}, S a multiple of w. Anything else returns
-// cudaErrorInvalidValue, and the Python wrapper raises before that.
+// Supported: hd in {64, 80} (ViT-B/L and ViT-H; both split into m16n8k16
+// k-steps and n8 tiles), w in {16, 32}, S a multiple of w. Anything else
+// returns cudaErrorInvalidValue, and the Python wrapper raises before that.
+// At hd = 80 the accumulator grows to 40 registers a thread and Geo<32, 80>
+// takes 91 KB of shared memory, under the 227 KB a block may opt in to.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,22 +51,38 @@
 
 namespace {
 
-constexpr int HD = 64;
 constexpr int BQ = 64;          // queries per block
 constexpr int BKV = 64;         // keys per streamed tile
 constexpr int THREADS = 128;    // 4 warps x 16 query rows
-constexpr int LDH = HD + 8;     // bf16 row stride of Q/K/V/table tiles (144 B: conflict-free)
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int W>
+// hd^-0.5 of the supported head widths
+template <int HD>
+struct Head;
+template <>
+struct Head<64> {
+  static constexpr float SCALE = 0.125f;
+};
+template <>
+struct Head<80> {
+  static constexpr float SCALE = 0.11180339887498948f;
+};
+
+template <int W, int HD>
 struct Geo {
-  static constexpr int NT = W * W;   // tokens per window
+  static constexpr int LDH = HD + 8;  // bf16 row stride of Q/K/V/table tiles (144 or 176 B:
+                                      // ldmatrix and the fragment loads are conflict-free)
+  static constexpr int NT = W * W;    // tokens per window
   static constexpr int NQT = NT / BQ;
   static constexpr int NKV = NT / BKV;
   static constexpr int LDR = 2 * W + 4;  // fp32 row stride of the QR tables
   static constexpr size_t SMEM =
       sizeof(__nv_bfloat16) * 5 * BQ * LDH       // Q, K[2], V[2] (tables reuse K[1], V[1])
       + sizeof(float) * 2 * BQ * LDR;            // QRh, QRw
+  static_assert(HD % 16 == 0, "hd splits into m16n8k16 k-steps");
+  static_assert((BKV * HD / 8) % THREADS == 0 && (BQ * HD / 8) % THREADS == 0,
+                "tile copies divide evenly over the threads");
+  static_assert((16 * HD / 8) % 32 == 0, "the output rows divide evenly over a warp");
 };
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -81,13 +100,15 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // Fragment layouts: mma_frag.cuh.
-template <int W>
+template <int W, int HD>
 __global__ void __launch_bounds__(THREADS)
     window_attn_relpos_kernel(const __nv_bfloat16* __restrict__ qkv,
                               const __nv_bfloat16* __restrict__ rel_h,
                               const __nv_bfloat16* __restrict__ rel_w,
                               __nv_bfloat16* __restrict__ out, int s, int heads) {
-  using G = Geo<W>;
+  using G = Geo<W, HD>;
+  constexpr int LDH = G::LDH;
+  constexpr int KS = HD / 16;  // k-steps of the q.k and q.R products
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ks = Qs + BQ * LDH;        // two stages
@@ -150,10 +171,10 @@ __global__ void __launch_bounds__(THREADS)
   cp_async_wait<1>();
   __syncthreads();
 
-  // this warp's Q fragments, hd in 4 k-steps of 16
-  uint32_t qa[4][4];
+  // this warp's Q fragments, hd in KS k-steps of 16
+  uint32_t qa[KS][4];
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     const __nv_bfloat16* q = Qs + (r0 + g) * LDH + ks * 16 + 2 * t;
     qa[ks][0] = ld32(q);
     qa[ks][1] = ld32(q + 8 * LDH);
@@ -170,7 +191,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int n = 0; n < 2 * W / 8; ++n) {
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
+      for (int ks = 0; ks < KS; ++ks) {
         const __nv_bfloat16* rp = T + (n * 8 + g) * LDH + ks * 16 + 2 * t;
         mma16816(acc, qa[ks], ld32(rp), ld32(rp + 8));
       }
@@ -200,7 +221,7 @@ __global__ void __launch_bounds__(THREADS)
     }
   __syncthreads();  // every warp is done with the tables before stage 1 is refilled
 
-  constexpr float QK_SCALE = 0.125f * LOG2E;  // hd^-0.5 (exact for hd = 64), log2 domain
+  constexpr float QK_SCALE = Head<HD>::SCALE * LOG2E;  // hd^-0.5, log2 domain
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
   float o[HD / 8][4];
 #pragma unroll
@@ -220,7 +241,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int n = 0; n < BKV / 8; ++n) {
       sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
+      for (int ks = 0; ks < KS; ++ks) {
         const __nv_bfloat16* kp = Kt + (n * 8 + g) * LDH + ks * 16 + 2 * t;
         mma16816(sc[n], qa[ks], ld32(kp), ld32(kp + 8));
       }
@@ -307,22 +328,23 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int W>
+template <int W, int HD>
 int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out, int b, int s,
            int heads, cudaStream_t stream) {
-  constexpr size_t bytes = Geo<W>::SMEM;  // allowed once, by ysi_window_attn_init
+  constexpr size_t bytes = Geo<W, HD>::SMEM;  // allowed once, by ysi_window_attn_init
   const int nw = s / W;
-  const long blocks = (long)b * nw * nw * heads * Geo<W>::NQT;
-  window_attn_relpos_kernel<W><<<(unsigned)blocks, THREADS, bytes, stream>>>(
+  const long blocks = (long)b * nw * nw * heads * Geo<W, HD>::NQT;
+  window_attn_relpos_kernel<W, HD><<<(unsigned)blocks, THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(rel_h),
       static_cast<const __nv_bfloat16*>(rel_w), static_cast<__nv_bfloat16*>(out), s, heads);
   return (int)cudaGetLastError();
 }
 
-template <int W>
+template <int W, int HD>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(window_attn_relpos_kernel<W>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Geo<W>::SMEM);
+  return cudaFuncSetAttribute(window_attn_relpos_kernel<W, HD>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)Geo<W, HD>::SMEM);
 }
 
 }  // namespace
@@ -330,17 +352,21 @@ cudaError_t allow_smem() {
 // Called once, when the library is loaded: the kernels' shared memory is
 // above the 48 KB default.
 extern "C" int ysi_window_attn_init(void) {
-  cudaError_t err = allow_smem<16>();
-  if (err == cudaSuccess) err = allow_smem<32>();
+  cudaError_t err = allow_smem<16, 64>();
+  if (err == cudaSuccess) err = allow_smem<32, 64>();
+  if (err == cudaSuccess) err = allow_smem<16, 80>();
+  if (err == cudaSuccess) err = allow_smem<32, 80>();
   return (int)err;
 }
 
 extern "C" int ysi_window_attn_relpos(const void* qkv, const void* rel_h, const void* rel_w,
                                       void* out, int b, int s, int heads, int hd, int window,
                                       void* stream) {
-  if (hd != HD || b <= 0 || s <= 0 || heads <= 0 || s % window) return (int)cudaErrorInvalidValue;
+  if (b <= 0 || s <= 0 || heads <= 0 || window <= 0 || s % window) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (window == 16) return launch<16>(qkv, rel_h, rel_w, out, b, s, heads, st);
-  if (window == 32) return launch<32>(qkv, rel_h, rel_w, out, b, s, heads, st);
+  if (hd == 64 && window == 16) return launch<16, 64>(qkv, rel_h, rel_w, out, b, s, heads, st);
+  if (hd == 64 && window == 32) return launch<32, 64>(qkv, rel_h, rel_w, out, b, s, heads, st);
+  if (hd == 80 && window == 16) return launch<16, 80>(qkv, rel_h, rel_w, out, b, s, heads, st);
+  if (hd == 80 && window == 32) return launch<32, 80>(qkv, rel_h, rel_w, out, b, s, heads, st);
   return (int)cudaErrorInvalidValue;
 }

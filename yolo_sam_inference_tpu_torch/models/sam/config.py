@@ -51,6 +51,28 @@ def sam_vit_b(image_size: int = 1024) -> SamTPUConfig:
     return SamTPUConfig(image_size=image_size)
 
 
+def sam_vit_l(image_size: int = 1024) -> SamTPUConfig:
+    return SamTPUConfig(
+        image_size=image_size,
+        vision_hidden=1024,
+        vision_layers=24,
+        vision_heads=16,
+        vision_mlp_dim=4096,
+        global_attn_indexes=(5, 11, 17, 23),
+    )
+
+
+def sam_vit_h(image_size: int = 1024) -> SamTPUConfig:
+    return SamTPUConfig(
+        image_size=image_size,
+        vision_hidden=1280,
+        vision_layers=32,
+        vision_heads=16,
+        vision_mlp_dim=5120,
+        global_attn_indexes=(7, 15, 23, 31),
+    )
+
+
 def sam_tiny_test() -> SamTPUConfig:
     """Tiny config for parity tests against a random-init torch SamModel."""
     return SamTPUConfig(

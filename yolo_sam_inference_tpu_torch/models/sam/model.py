@@ -4,9 +4,10 @@ Counterpart of ``yolo_sam_inference_tpu/models/sam/model.py``:
 
 * :class:`SamImageEncoder` is the grid-layout encoder (JAX ``:334-418``):
   activations stay ``(B, S, S, C)``, windows are handled inside attention.
-  Per layer: LN1 + qkv (``fused_ln_matmul``), window attention with the
-  decomposed rel-pos bias, the output projection, and the LN2 + MLP block
-  tail (``fused_ln_mlp``); then the neck (1x1 conv, LN, 3x3 conv, LN).
+  Per layer: LN1 + qkv, window attention with the decomposed rel-pos bias,
+  the output projection, and the LN2 + MLP block tail, on the routes the JAX
+  encoder picks (:class:`VisionLayer`); then the neck (1x1 conv, LN, 3x3
+  conv, LN).
 * :class:`SamPromptEncoder` encodes box prompts with fp32 Fourier features.
 * :class:`SamMaskDecoder` is the two-way transformer in the order of the
   JAX package's fused branch (``:736-817``): layer 0's token-to-image
@@ -33,19 +34,29 @@ from ...ops.decoder_fused import i2t_keys_update, t2i_shared_attend
 from ...ops.flash_attention import window_attention, window_attention_plain
 from ...ops.fused_ln import (
     fused_ln_matmul,
+    fused_ln_matmul_int8,
+    fused_ln_matmul_int8_plain,
     fused_ln_mlp,
+    fused_ln_mlp_int8,
+    fused_ln_mlp_int8_plain,
+    fused_ln_mlp_tiled_int8,
     gemm_plain,
+    int8_tail_chunks,
     layer_norm,
     layer_norm_plain,
     linear,
 )
+from ...ops.quant import is_quantized
 from .config import SamTPUConfig
 
 Params = Dict[str, Any]
 
 
 def _param(a) -> nn.Parameter:
-    return nn.Parameter(torch.as_tensor(np.asarray(a, np.float32)), requires_grad=False)
+    """A frozen parameter from a tree leaf: int8 stays int8, the rest is fp32."""
+    arr = np.asarray(a)
+    arr = np.array(arr) if arr.dtype == np.int8 else arr.astype(np.float32)
+    return nn.Parameter(torch.as_tensor(arr), requires_grad=False)
 
 
 class Linear(nn.Module):
@@ -55,6 +66,20 @@ class Linear(nn.Module):
 
     def forward(self, x):
         return x @ self.w + self.b
+
+
+class Int8Linear(nn.Module):
+    """A quantised record ``{"wq", "wscale", "b"}``: int8 (in, out) weight,
+    fp32 per-column scales (kept fp32 by ``weights.from_jax_params``). The
+    encoder applies it through the w8a8 kernels of :class:`VisionLayer`."""
+
+    def __init__(self, p: Params):
+        super().__init__()
+        self.wq, self.wscale, self.b = _param(p["wq"]), _param(p["wscale"]), _param(p["b"])
+
+
+def _linear(p: Params) -> nn.Module:
+    return Int8Linear(p) if is_quantized(p) else Linear(p)
 
 
 class Norm(nn.Module):
@@ -72,26 +97,57 @@ class Norm(nn.Module):
 # ---------------------------------------------------------------- image encoder
 
 
+# C * hidden up to which the TPU kernels keep both int8 MLP weights in VMEM
+# (JAX ``models/sam/model.py:339-348``): int8 ViT-B/L take the resident
+# K11a, ViT-H the tiled K11b, and the chunk count follows that choice. (The
+# bf16 K4/K10 choice, at 2.4M, changes no result, so the port has none.)
+RESIDENT_MLP_INT8_MAX = 4_500_000
+
+
 class VisionLayer(nn.Module):
+    """One encoder layer. Routes, as the JAX encoder picks them
+    (``model.py:155-178``, ``:339-409``): float weights take K1 (LN1 + qkv),
+    then the K4/K10 tail (one function, :func:`fused_ln_mlp`); int8 weights
+    take K11c, then the K11a or K11b tail. The attention projection stays a
+    float GEMM in both."""
+
     def __init__(self, p: Params, eps: float):
         super().__init__()
         a = p["attn"]
         self.ln1, self.ln2 = Norm(p["ln1"], eps), Norm(p["ln2"], eps)
-        self.qkv, self.proj = Linear(a["qkv"]), Linear(a["proj"])
+        self.qkv, self.proj = _linear(a["qkv"]), Linear(a["proj"])
         self.rel_pos_h, self.rel_pos_w = _param(a["rel_pos_h"]), _param(a["rel_pos_w"])
-        self.mlp1, self.mlp2 = Linear(p["mlp1"]), Linear(p["mlp2"])
+        self.mlp1, self.mlp2 = _linear(p["mlp1"]), _linear(p["mlp2"])
+        self.int8 = isinstance(self.mlp1, Int8Linear)
+        self.tiled = self.int8 and np.size(p["mlp1"]["wq"]) > RESIDENT_MLP_INT8_MAX
 
     def forward(self, x, heads: int, window: int, plain: bool = False):
         """x (B, S, S, C) -> (B, S, S, C). ``plain`` runs every kernel's
         plain PyTorch version, on any device (the fp32 oracle)."""
         gemm = {"gemm": gemm_plain} if plain else {}
         attn = window_attention_plain if plain else window_attention
-        qkv = fused_ln_matmul(x, self.ln1.scale, self.ln1.bias, self.qkv.w, self.qkv.b,
-                              eps=self.ln1.eps, **gemm)
+        ln1, ln2 = self.ln1, self.ln2
+        if self.int8:
+            qkv_fn = fused_ln_matmul_int8_plain if plain else fused_ln_matmul_int8
+            qkv = qkv_fn(x, ln1.scale, ln1.bias, self.qkv.wq, self.qkv.wscale, self.qkv.b,
+                         eps=ln1.eps)
+        else:
+            qkv = fused_ln_matmul(x, ln1.scale, ln1.bias, self.qkv.w, self.qkv.b, eps=ln1.eps,
+                                  **gemm)
         h = attn(qkv, self.rel_pos_h, self.rel_pos_w, heads, window)
         h = linear(h, self.proj.w, self.proj.b, **gemm)
-        return fused_ln_mlp(x, h, self.ln2.scale, self.ln2.bias, self.mlp1.w, self.mlp1.b,
-                            self.mlp2.w, self.mlp2.b, eps=self.ln2.eps, **gemm)
+        if not self.int8:
+            return fused_ln_mlp(x, h, ln2.scale, ln2.bias, self.mlp1.w, self.mlp1.b, self.mlp2.w,
+                                self.mlp2.b, eps=ln2.eps, **gemm)
+        w = (self.mlp1.wq, self.mlp1.wscale, self.mlp1.b, self.mlp2.wq, self.mlp2.wscale,
+             self.mlp2.b)
+        if plain:
+            c = x.shape[-1]
+            chunks = int8_tail_chunks(x.numel() // c, c, self.mlp1.wq.shape[1], self.tiled)
+            return fused_ln_mlp_int8_plain(x, h, ln2.scale, ln2.bias, *w, eps=ln2.eps,
+                                           chunks=chunks)
+        tail = fused_ln_mlp_tiled_int8 if self.tiled else fused_ln_mlp_int8
+        return tail(x, h, ln2.scale, ln2.bias, *w, eps=ln2.eps)
 
 
 class SamImageEncoder(nn.Module):

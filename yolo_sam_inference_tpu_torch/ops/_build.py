@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with :mod:`ctypes`. The library
-goes to ``build/kernels/<hash>/`` beside the package (a directory that
-``.gitignore`` lists), keyed by a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree loads what an earlier process built.
+Each source is compiled with ``nvcc`` for ``sm_90a`` in its own process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with :mod:`ctypes`. The library goes to
+``build/kernels/<hash>/`` beside the package (a directory that ``.gitignore``
+lists), keyed by a hash of the sources and flags, so an edit rebuilds and an
+unchanged tree loads what an earlier process built. ``ptxas.log`` beside it
+keeps what ``-Xptxas -v`` said of every kernel (registers, shared memory,
+spills).
 
 Nothing happens at import: the first wrapper that launches a kernel calls
 :func:`kernels`, which builds when needed. The CPU tests never reach it.
@@ -25,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -44,13 +47,19 @@ _SIGNATURES = {
     "ysi_t2i_combine": (_P, _P, _I, _I, _I, _P),
     # qp, kp, vp, out, n, tq, t, k_share, stream
     "ysi_t2i_attend": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, h, ln_scale, ln_bias, xq, xs, m, c, eps, stream
+    "ysi_ln_quant": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # mode, a, bt, a_scale, w_scale, bias, r1, r2, out, amax, m, n, k, chunk, stream
+    "ysi_gemm_int8": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # hf, amax, hq, hs, m, n, chunk, stream
+    "ysi_quant_chunks": (_P, _P, _P, _P, _I, _I, _I, _P),
     # grid, r0, c0, out, n, gs, c, wg, stream
     "ysi_window_crop": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # pts, dirs, out, n, p, d, stream
     "ysi_hull_support": (_P, _P, _P, _I, _I, _I, _P),
 }
 # Run once after loading (shared-memory attributes of the kernels).
-_INITS = ("ysi_gemm_init", "ysi_window_attn_init", "ysi_decoder_init")
+_INITS = ("ysi_gemm_init", "ysi_gemm_int8_init", "ysi_window_attn_init", "ysi_decoder_init")
 
 
 def _sources():
@@ -72,8 +81,21 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "libysi_kernels.so"
 
 
+def _run_all(cmds) -> list:
+    """Run the commands in parallel; raise with the failures' output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]  # waits for every process
+    bad = [(c, p.returncode, log) for c, p, log in zip(cmds, procs, logs) if p.returncode]
+    if bad:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"({rc}) {' '.join(c)}\n{log}" for c, rc, log in bad))
+    return logs
+
+
 def build() -> tuple:
-    """Compile the kernels if the hashed library is missing.
+    """Compile the kernels if the hashed library is missing: one nvcc per
+    source, all at once, then one link.
 
     Returns (path, seconds spent compiling; 0.0 when it was already built).
     """
@@ -81,16 +103,27 @@ def build() -> tuple:
     if out.exists():
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = f"{os.getpid()}"
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [out.parent / f"{src.stem}.{tag}.o" for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
+    logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                     for src, o in zip(srcs, objs)])
+    tmp = out.with_suffix(f".{tag}.tmp")
+    _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+    (out.parent / "ptxas.log").write_text("".join(logs))
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
     return out, time.perf_counter() - t0
+
+
+def ptxas_report() -> str:
+    """The ``-Xptxas -v`` lines of the current build (registers, spills)."""
+    log = library_path().parent / "ptxas.log"
+    return log.read_text() if log.exists() else ""
 
 
 @functools.lru_cache(maxsize=1)

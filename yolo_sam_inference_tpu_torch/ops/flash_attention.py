@@ -25,6 +25,12 @@ from ._build import check, kernels
 from .fused_ln import _on_cpu
 
 
+# What the kernel is built for: ViT-B/L (hd 64) and ViT-H (hd 80), windowed
+# layers (16) and the global layers of a 32 x 32 grid (512-pixel frames).
+KERNEL_HEAD_DIMS = (64, 80)
+KERNEL_WINDOWS = (16, 32)
+
+
 def window_attention_plain(qkv, rel_h, rel_w, heads: int, window: int):
     """fp32 einsum/softmax version of :func:`window_attention` (output in
     qkv's dtype). Logits use ``q * hd^-0.5``; the rel-pos terms use the
@@ -67,8 +73,8 @@ def window_attention(qkv, rel_h, rel_w, heads: int, window: int):
                          f"need {(2 * window - 1, hd)}")
     if _on_cpu(qkv):
         return window_attention_plain(qkv, rel_h, rel_w, heads, window)
-    if hd != 64 or window not in (16, 32):
-        raise ValueError(f"window_attention kernel takes hd=64, window 16 or 32; "
+    if hd not in KERNEL_HEAD_DIMS or window not in KERNEL_WINDOWS:
+        raise ValueError(f"window_attention kernel takes hd=64 or hd=80 with window 16 or 32; "
                          f"got hd={hd}, window={window}")
     for name, t in (("qkv", qkv), ("rel_h", rel_h), ("rel_w", rel_w)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != qkv.device:

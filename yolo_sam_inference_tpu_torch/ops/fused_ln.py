@@ -1,13 +1,19 @@
-"""LayerNorm-fused projections and the row LayerNorm (kernels K1, K4, K5).
+"""LayerNorm-fused projections and the row LayerNorm (kernels K1, K4, K5,
+K10, K11a-c).
 
-Counterpart of ``yolo_sam_inference_tpu/ops/fused_ln.py``. Two kernels carry
-these functions on the card:
+Counterpart of ``yolo_sam_inference_tpu/ops/fused_ln.py``. Three kernel
+sources carry these functions on the card:
 
 * ``gemm_bf16`` (``csrc/gemm_bf16.cu``): a bf16 GEMM with an optional
   LayerNorm prologue and a bias / GELU / residual epilogue. It carries
-  :func:`fused_ln_matmul` (K1: LN1 + qkv), :func:`fused_ln_mlp` (K4: the
-  block tail, two launches) and the attention output projection.
+  :func:`fused_ln_matmul` (K1: LN1 + qkv), :func:`fused_ln_mlp` (K4 and
+  K10: the block tail, two launches) and the attention output projection.
   Its source note says what bounds it and what the design does about it.
+* ``csrc/gemm_int8.cu``: the w8a8 functions on the int8 tensor cores,
+  :func:`fused_ln_matmul_int8` (K11c), :func:`fused_ln_mlp_int8` (K11a) and
+  :func:`fused_ln_mlp_tiled_int8` (K11b): a LayerNorm + row quantisation
+  pass, int8 GEMMs with dequantising epilogues, and a per-chunk
+  requantisation of the tail's hidden.
 * ``layer_norm`` (Triton, below): K5, a row LayerNorm with fp32 statistics
   and an optional residual add, which covers the JAX package's
   ``fused_ln`` (:761) and ``fused_add_ln`` (:56). It is a row reduction plus
@@ -30,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import BUILD_ROOT, check, kernels
+from .quant import int_dot, quant_rows
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -220,10 +227,14 @@ def fused_ln_matmul(x, scale, bias, w, b, eps: float = 1e-6, gemm=gemm_bf16):
 
 
 def fused_ln_mlp(x, h, scale, bias, w1, b1, w2, b2, eps: float = 1e-6, gemm=gemm_bf16):
-    """Block tail (K4): ``y = x + h; y + mlp2(GELU(mlp1(LayerNorm(y))))``.
+    """Block tail (K4, and K10 at the ViT-L/H widths):
+    ``y = x + h; y + mlp2(GELU(mlp1(LayerNorm(y))))``.
 
     Two GEMM launches; the (rows, hidden) activation passes through device
-    memory between them (the TPU kernel keeps it in VMEM).
+    memory between them (the TPU kernel keeps it in VMEM). The JAX package's
+    ``fused_ln_mlp_tiled`` (K10) computes the same function (one fp32 sum,
+    one downcast) and tiles the hidden only because the ViT-L/H weights do
+    not fit in VMEM, so this function carries it too.
     """
     c = x.shape[-1]
     x2 = x.reshape(-1, c).contiguous()
@@ -240,7 +251,228 @@ def linear(x, w, b, gemm=gemm_bf16):
     return out.reshape(*lead, w.shape[1])
 
 
+# ------------------------------------------------------- w8a8 (K11a, K11b, K11c)
+
+
+def _pick_bm(m: int, block_rows: int) -> int:
+    """Largest divisor of m within the row budget (the JAX package's ``_pick_bm``)."""
+    bm = min(m, block_rows)
+    while m % bm:
+        bm -= 1
+    return bm
+
+
+def int8_tail_chunks(m: int, c: int, hidden: int, tiled: bool, block_rows: int = 256,
+                     block_hidden: int = 0) -> int:
+    """How many hidden chunks the w8a8 block tail requantises separately.
+
+    Each chunk of the GELU output gets its own per-row int8 scale, so the
+    count is part of the function. ``tiled=False`` is K11a's rule (4 chunks
+    when they divide the hidden, else 1; JAX ``fused_ln.py:399-401``);
+    ``tiled=True`` is K11b's: one chunk per hidden tile of the largest size
+    that keeps two int8 weight tiles, double-buffered, and the fp32
+    accumulator under ~10 MB of VMEM (JAX ``fused_ln.py:573-588``), or
+    ``block_hidden`` when given. 4 at ViT-B, ViT-L and ViT-H."""
+    if not tiled:
+        return 4 if hidden % 4 == 0 else 1
+    if block_hidden:
+        if hidden % block_hidden:
+            raise ValueError(f"block_hidden {block_hidden} does not divide hidden {hidden}")
+        return hidden // block_hidden
+    bm = _pick_bm(m, block_rows)
+    ht = hidden
+    while ht > 128 and (4 * c * ht + bm * c * 4) > 10_000_000:
+        nxt = ht // 2
+        while hidden % nxt and nxt > 128:
+            nxt -= 1
+        if nxt == ht or hidden % nxt:
+            break
+        ht = nxt
+    return hidden // ht
+
+
+def _ln_act(y, scale, bias, eps: float):
+    """The JAX package's ``_ln_rows``: fp32 statistics; the normalised value
+    rounded to y's dtype, then scale and bias applied in that dtype. fp32
+    result for the quantiser."""
+    yf = y.float()
+    mean = yf.mean(-1, keepdim=True)
+    d = yf - mean
+    var = (d * d).mean(-1, keepdim=True)
+    dt = y.dtype
+    return ((d * torch.rsqrt(var + eps)).to(dt) * scale.to(dt) + bias.to(dt)).float()
+
+
+def _gelu_f32(h):
+    return h * 0.5 * (1.0 + torch.erf(h * 2 ** -0.5))
+
+
+def fused_ln_matmul_int8_plain(x, scale, bias, wq, ws, b, eps: float = 1e-6):
+    """What K11c computes: ``dequant(quant(LN(x)) @ wq) + b`` in x's dtype;
+    integer products exact, epilogue ``acc * (xs * ws) + b`` in fp32."""
+    lead = x.shape[:-1]
+    xq, xs = quant_rows(_ln_act(x.reshape(-1, x.shape[-1]), scale, bias, eps))
+    out = int_dot(xq, wq) * (xs * ws.float()) + b.float()
+    return out.to(x.dtype).reshape(*lead, wq.shape[-1])
+
+
+def fused_ln_mlp_int8_plain(x, attn, scale, bias, w1q, w1s, b1, w2q, w2s, b2,
+                            eps: float = 1e-6, chunks: int = 4):
+    """What K11a / K11b compute: ``y = x (+ attn)``; per hidden chunk c,
+    ``h = GELU(dequant(quant(LN(y)) @ w1q[:, c]) + b1[c])`` in fp32,
+    requantised per row; ``out = b2 + sum_c dequant_c(quant(h) @ w2q[c])``
+    summed in fp32 in chunk order; ``y + out`` in y's dtype."""
+    y = x if attn is None else x + attn
+    c = y.shape[-1]
+    hidden = w1q.shape[-1]
+    ch = hidden // chunks
+    xq, xs = quant_rows(_ln_act(y.reshape(-1, c), scale, bias, eps))
+    out = b2.float().expand(xq.shape[0], c)
+    for i in range(chunks):
+        sl = slice(i * ch, (i + 1) * ch)
+        h = _gelu_f32(int_dot(xq, w1q[:, sl]) * (xs * w1s[sl].float()) + b1[sl].float())
+        hq, hs = quant_rows(h)
+        out = out + int_dot(hq, w2q[sl]) * (hs * w2s.float())
+    return (y.reshape(-1, c) + out.to(y.dtype)).reshape(x.shape)
+
+
+def _check_int8(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.dtype != torch.int8 or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name}: needs a contiguous int8 tensor on {device}, got "
+                         f"{t.dtype} contiguous={t.is_contiguous()} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def _int8_t(wq: torch.Tensor) -> torch.Tensor:
+    """The (out, in) form of an (in, out) int8 weight that the kernel reads
+    (both mma operands then load with plain ldmatrix), made once."""
+    return _derived(wq, "int8_t", lambda v: v.t().contiguous())
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ln_quant(x2, h2, scale, bias, eps):
+    """Launch the LN + row quantisation pass: (xq int8 (M, C), xs fp32 (M,))."""
+    m, c = x2.shape
+    xq = torch.empty((m, c), dtype=torch.int8, device=x2.device)
+    xs = torch.empty((m,), dtype=torch.float32, device=x2.device)
+    check(kernels().ysi_ln_quant(_ptr(x2), _ptr(h2), _ptr(_f32(scale)), _ptr(_f32(bias)),
+                                 _ptr(xq), _ptr(xs), m, c, float(eps), _stream(x2)), "ln_quant")
+    return xq, xs
+
+
+def _gemm_int8(mode, a, a_scale, wq, ws, b, out, *, r1=None, r2=None, amax=None, chunk=0):
+    m, k = a.shape
+    n = wq.shape[1]
+    check(kernels().ysi_gemm_int8(mode, _ptr(a), _ptr(_int8_t(wq)), _ptr(a_scale), _ptr(_f32(ws)),
+                                  _ptr(_f32(b)), _ptr(r1), _ptr(r2), _ptr(out), _ptr(amax),
+                                  m, n, k, chunk, _stream(a)), "gemm_int8")
+    return out
+
+
+_QKV, _MLP1, _MLP2 = 0, 1, 2  # the modes of csrc/gemm_int8.cu
+
+
+def fused_ln_matmul_int8(x, scale, bias, wq, ws, b, eps: float = 1e-6, block_rows: int = 256):
+    """``int8_linear(LayerNorm(x))`` (K11c): LN1 + per-row int8 quantisation
+    + the int8 qkv projection. x (..., C) -> (..., O) in x's dtype.
+
+    CPU tensors take :func:`fused_ln_matmul_int8_plain`; CUDA tensors launch
+    ``csrc/gemm_int8.cu`` (bf16 x, C a multiple of 16, O of 8). ``block_rows``
+    is the JAX signature's and does not change the function."""
+    if _on_cpu(x):
+        return fused_ln_matmul_int8_plain(x, scale, bias, wq, ws, b, eps)
+    lead, c = x.shape[:-1], x.shape[-1]
+    o = wq.shape[1]
+    if c % 16 or o % 8:
+        raise ValueError(f"fused_ln_matmul_int8: C={c} must be a multiple of 16, O={o} of 8")
+    x2 = x.reshape(-1, c).contiguous()
+    _check_bf16("x", x2, x2.shape, x2.device)
+    _check_int8("wq", wq, (c, o), x2.device)
+    xq, xs = _ln_quant(x2, None, scale, bias, eps)
+    out = torch.empty((x2.shape[0], o), dtype=torch.bfloat16, device=x2.device)
+    _gemm_int8(_QKV, xq, xs, wq, ws, b, out)
+    fused_ln_matmul_int8.launches += 1
+    return out.reshape(*lead, o)
+
+
+fused_ln_matmul_int8.launches = 0
+
+
+def _int8_tail(x, attn, scale, bias, w1q, w1s, b1, w2q, w2s, b2, eps, chunks):
+    """The w8a8 block tail on the card: LN + quant, int8 mlp1 (+ GELU, fp32
+    hidden, per-chunk row amax), per-chunk requantisation, int8 mlp2 with the
+    chunk scales folded in and the residual y added."""
+    c = x.shape[-1]
+    hidden = w1q.shape[1]
+    ch = hidden // chunks
+    if c % 16 or hidden % chunks or ch % 128:
+        raise ValueError(f"w8a8 tail kernel: C={c} must be a multiple of 16 and the hidden "
+                         f"chunk {hidden}/{chunks} a multiple of 128")
+    x2 = x.reshape(-1, c).contiguous()
+    dev = x2.device
+    _check_bf16("x", x2, x2.shape, dev)
+    h2 = None
+    if attn is not None:
+        h2 = attn.reshape(-1, c).contiguous()
+        _check_bf16("attn", h2, x2.shape, dev)
+    _check_int8("w1q", w1q, (c, hidden), dev)
+    _check_int8("w2q", w2q, (hidden, c), dev)
+    m = x2.shape[0]
+    xq, xs = _ln_quant(x2, h2, scale, bias, eps)
+    hf = torch.empty((m, hidden), dtype=torch.float32, device=dev)
+    amax = torch.zeros((m, chunks), dtype=torch.float32, device=dev)
+    _gemm_int8(_MLP1, xq, xs, w1q, w1s, b1, hf, amax=amax, chunk=ch)
+    hq = torch.empty((m, hidden), dtype=torch.int8, device=dev)
+    hs = torch.empty((m, chunks), dtype=torch.float32, device=dev)
+    check(kernels().ysi_quant_chunks(_ptr(hf), _ptr(amax), _ptr(hq), _ptr(hs), m, hidden, ch,
+                                     _stream(hf)), "quant_chunks")
+    out = torch.empty((m, c), dtype=torch.bfloat16, device=dev)
+    _gemm_int8(_MLP2, hq, hs, w2q, w2s, b2, out, r1=x2, r2=h2, chunk=ch)
+    return out.reshape(x.shape)
+
+
+def fused_ln_mlp_int8(x, attn, scale, bias, w1q, w1s, b1, w2q, w2s, b2,
+                      eps: float = 1e-6, block_rows: int = 256):
+    """w8a8 block tail (K11a): ``y = x (+ attn); y + int8_mlp2(GELU(
+    int8_mlp1(LayerNorm(y))))`` with K11a's chunk count. CPU tensors take
+    :func:`fused_ln_mlp_int8_plain`; CUDA tensors launch ``csrc/gemm_int8.cu``."""
+    c, hidden = x.shape[-1], w1q.shape[-1]
+    chunks = int8_tail_chunks(x.numel() // c, c, hidden, tiled=False)
+    if _on_cpu(x):
+        return fused_ln_mlp_int8_plain(x, attn, scale, bias, w1q, w1s, b1, w2q, w2s, b2, eps,
+                                       chunks=chunks)
+    out = _int8_tail(x, attn, scale, bias, w1q, w1s, b1, w2q, w2s, b2, eps, chunks)
+    fused_ln_mlp_int8.launches += 1
+    return out
+
+
+fused_ln_mlp_int8.launches = 0
+
+
+def fused_ln_mlp_tiled_int8(x, attn, scale, bias, w1q, w1s, b1, w2q, w2s, b2,
+                            eps: float = 1e-6, block_rows: int = 256, block_hidden: int = 0):
+    """w8a8 block tail (K11b) with K11b's chunk count (one per hidden tile of
+    the TPU kernel). Same route as :func:`fused_ln_mlp_int8`."""
+    c, hidden = x.shape[-1], w1q.shape[-1]
+    chunks = int8_tail_chunks(x.numel() // c, c, hidden, tiled=True, block_rows=block_rows,
+                              block_hidden=block_hidden)
+    if _on_cpu(x):
+        return fused_ln_mlp_int8_plain(x, attn, scale, bias, w1q, w1s, b1, w2q, w2s, b2, eps,
+                                       chunks=chunks)
+    out = _int8_tail(x, attn, scale, bias, w1q, w1s, b1, w2q, w2s, b2, eps, chunks)
+    fused_ln_mlp_tiled_int8.launches += 1
+    return out
+
+
+fused_ln_mlp_tiled_int8.launches = 0
+
+
 __all__ = [
-    "fused_ln_matmul", "fused_ln_mlp", "gemm_bf16", "gemm_plain", "layer_norm",
-    "layer_norm_plain", "linear",
+    "fused_ln_matmul", "fused_ln_matmul_int8", "fused_ln_matmul_int8_plain", "fused_ln_mlp",
+    "fused_ln_mlp_int8", "fused_ln_mlp_int8_plain", "fused_ln_mlp_tiled_int8", "gemm_bf16",
+    "gemm_plain", "int8_tail_chunks", "layer_norm", "layer_norm_plain", "linear",
 ]

@@ -14,7 +14,9 @@ batch runs as four stages on the pipeline's device:
 
 Weights are random (the JAX package's numpy init, so one seed gives the same
 weights in both); checkpoint loading is not ported yet. Parameters are cast
-to ``compute_dtype`` once, when a stage set is built, not per call.
+to ``compute_dtype`` once, when a stage set is built, not per call; with
+``quant="int8"`` the encoder's qkv and MLP weights are then quantised (w8a8,
+``ops/quant.py``) from the cast weights, as the JAX engine orders it.
 """
 
 from __future__ import annotations
@@ -29,16 +31,32 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..models.sam import SamTPUConfig, adapt_resolution, init_sam_params, sam_vit_b
+from ..models.sam import (
+    SamTPUConfig,
+    adapt_resolution,
+    init_sam_params,
+    sam_vit_b,
+    sam_vit_h,
+    sam_vit_l,
+)
 from ..models.yolo import YoloConfig, decode_predictions, init_yolo_params, yolov8n
 from ..ops.metrics import INT_METRIC_KEYS, METRIC_KEYS, cell_metrics
 from ..ops.nms import batched_nms
 from ..ops.preprocess import letterbox_batch, sam_preprocess_batch
+from ..ops.quant import quantize_sam_encoder_params
 from ..ops.window_crop import window_crop
 from ..weights import from_jax_params
 from .results import ProcessingResult
 
-SAM_CONFIGS = {"facebook/sam-vit-base": sam_vit_b}
+SAM_CONFIGS = {
+    "facebook/sam-vit-base": sam_vit_b,
+    "facebook/sam-vit-large": sam_vit_l,
+    "facebook/sam-vit-huge": sam_vit_h,
+    "vit-base": sam_vit_b,
+    "vit-large": sam_vit_l,
+    "vit-huge": sam_vit_h,
+}
+QUANT_MODES = ("none", "int8")
 
 
 @dataclass(frozen=True)
@@ -59,6 +77,9 @@ class PipelineOptions:
     # SAM encoder canvas: None = native resolution (smallest of 256/512/768/
     # 1024 that fits the frame); weights are adapted at stage build time
     sam_encoder_size: Optional[int] = None
+    # "int8" = dynamic w8a8 quantisation of the SAM encoder's qkv/MLP
+    # projections (ops/quant.py); "none" keeps compute_dtype throughout
+    quant: str = "none"
 
     def encoder_size_for(self, h: int, w: int) -> int:
         if self.sam_encoder_size is not None:
@@ -83,6 +104,19 @@ def _ensure_rgb(images_u8: torch.Tensor) -> torch.Tensor:
     if images_u8.ndim == 3:
         return images_u8[..., None].expand(*images_u8.shape, 3)
     return images_u8
+
+
+def _round_floating(tree, dtype: torch.dtype):
+    """The tree with its float leaves rounded to ``dtype``, kept as fp32 numpy
+    (numpy has no bf16): the values the module cast will hold, so weight
+    scales taken from them are the JAX engine's (cast, then quantise)."""
+    if isinstance(tree, dict):
+        return {k: _round_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_round_floating(v, dtype) for v in tree)
+    if isinstance(tree, np.ndarray) and tree.dtype.kind == "f" and dtype != torch.float32:
+        return torch.from_numpy(np.asarray(tree, np.float32)).to(dtype).float().numpy()
+    return tree
 
 
 def _gray_f32(images_u8: torch.Tensor) -> torch.Tensor:
@@ -239,6 +273,8 @@ class CellSegmentationPipeline:
             raise RuntimeError("CellSegmentationPipeline(device='cuda'): no CUDA device")
         self.sam_model_type = sam_model_type
         self.options = options or PipelineOptions()
+        if self.options.quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {self.options.quant!r}: one of {QUANT_MODES}")
         self.yolo_config = yolo_config or yolov8n()
         if sam_config is not None:
             self.sam_config = sam_config
@@ -274,8 +310,12 @@ class CellSegmentationPipeline:
             # window 16 divides every grid of the native-resolution ladder
             ws = 16 if gs % 16 == 0 else self.sam_config.window_size
             scfg = dataclasses.replace(self.sam_config, image_size=enc_size, window_size=ws)
+            sam_tree = self._sam_params_for(scfg)
+            if opts.quant == "int8":
+                sam_tree = quantize_sam_encoder_params(
+                    _round_floating(sam_tree, opts.compute_dtype))
             yolo, sam = from_jax_params(
-                self.yolo_params, self._sam_params_for(scfg), self.device, opts.compute_dtype,
+                self.yolo_params, sam_tree, self.device, opts.compute_dtype,
                 yolo_config=ycfg, sam_config=scfg,
             )
             self._stage_cache[key] = {
