@@ -30,8 +30,29 @@ failure ends the run with a non-zero exit and no result line:
    8 with every launch count checked, the image embedding of one frame
    against the fp32 plain encoder on the same bf16-rounded float weights,
    and a timed pass at batch 32;
-7. result: the kernel table as one JSON line, then the last line
+7. large-frame kernels: the attention at windows 48 and 64 (the global
+   layers of the 768 and 1024 canvases), hd 64 and 80, at batch-32 shapes;
+8. large frames: ``facebook/sam-vit-huge`` in bf16 on 2048x2048 frames
+   (config 4: the 1024 canvas, windows 16 and 64; ViT-H's parameter tree of
+   phase 6) and ViT-B on 768x768 frames (windows 16 and 48): launch counts
+   by window at batch 8, outputs, the embedding against the fp32 plain
+   encoder, a timed batch;
+9. MobileSAM kernels: K13-K16 (``tinyvit_attention`` with its two
+   ``gemm_bf16`` launches, ``mbconv_block``, ``patch_merge_block``,
+   ``dw_conv3x3`` and its tail) at TinyViT-5M's batch-32 shapes against fp32
+   plain versions;
+10. MobileSAM slice (``"mobile-sam"``, config 2: TinyViT-5M + SAM ViT-B's
+   decoder, 512x512 frames, bf16): launch counts at batch 8, the embedding
+   against the fp32 plain TinyViT, a timed pass at batch 32;
+11. result: the kernel table as one JSON line (each kernel's launches on its
+   path, error, ms, plain ms, the bound for the same work on an H100 and
+   what sets it, and the time of one PyTorch call that computes the same
+   function where there is one), then the last line
    ``{"ok": true, "device": {...}}``.
+
+Bounds use the published H100 SXM peaks: 3.35 TB/s of device memory, 989
+TFLOP/s dense bf16, 1979 TOP/s int8, 67 TFLOP/s fp32 outside the tensor
+cores; each input counted read once and each output written once.
 """
 
 from __future__ import annotations
@@ -52,6 +73,10 @@ KERNEL_ROWS = TIMED_BATCH * 1024  # B * 32 * 32 tokens at config 1
 BIG_MODELS = (("facebook/sam-vit-large", 50, 24, 1024, 16, 4096),
               ("facebook/sam-vit-huge", 16, 32, 1280, 16, 5120))
 BIG_CELLS = 40  # cells per frame in the big slices (config 3: 10-50 per image)
+LARGE_FRAME = 2048  # config 4's TIFF frames (the 1024 canvas)
+MID_FRAME = 768  # the 768 canvas (global window 48)
+# published H100 SXM peaks (NVIDIA data sheet): bytes/s and operations/s
+PEAK = {"hbm": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
 def _say(phase: str, msg: str) -> None:
@@ -75,6 +100,24 @@ def _ptxas_summary(log: str) -> list:
             lines.append(f"ptxas {name}: {m.group(1)} registers{spill}")
             name = None
     return lines
+
+
+def _bound(flops: float, nbytes: float, rate: str = "bf16") -> tuple:
+    """(least ms on an H100, "bytes" or "operations"): the larger of the bytes
+    over the memory rate and the operations over the peak rate of their type."""
+    t_ops = flops / PEAK[rate] * 1e3
+    t_mem = nbytes / PEAK["hbm"] * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _attn_flops(windows: int, heads: int, t: int, hd: int, rel_rows: int = 0) -> float:
+    """Window attention: q.k and p.v over t keys (4 t^2 hd a window and head),
+    plus q against two rel-pos tables of rel_rows rows."""
+    return windows * heads * (4.0 * t * t * hd + 4.0 * t * rel_rows * hd)
 
 
 def _check(name: str, got, ref, rtol: float, results: dict) -> float:
@@ -160,6 +203,7 @@ def _kernel_phase(card: str) -> dict:
     xf, hf = x.float(), h.float()
     errs: dict = {}  # kernel -> largest max_abs_err over its cases
     times: dict = {}  # kernel -> (kernel ms, plain ms on the same bf16 inputs[, torch bf16 ms])
+    bounds: dict = {}  # timed case -> (bound ms, "bytes" or "operations")
 
     # gemm_bf16: K1 (LN1 + qkv), the attention projection, K4 (two launches)
     k1 = lambda: fused_ln_matmul(x, ln_s, ln_b, w_qkv, b_qkv)
@@ -186,9 +230,16 @@ def _kernel_phase(card: str) -> dict:
     _say("kernels", f"gemm_bf16 K1 shape: kernel {times['gemm_bf16'][0]:.4f} ms, plain "
                     f"{times['gemm_bf16'][1]:.4f} ms, torch bf16 addmm (no LN) "
                     f"{times['gemm_bf16'][2]:.4f} ms [{card}]")
-    t_k4 = (median_ms(k4), median_ms(k4p))
+    bounds["gemm_bf16"] = _bound(2.0 * m * c * 3 * c,
+                                 _nbytes(x, ln_s, ln_b, w_qkv, b_qkv) + m * 3 * c * 2)
+    bf16_k4 = lambda: torch.addmm(b2.to(bf), torch.addmm(b1.to(bf), x, w1), w2)
+    t_k4 = (median_ms(k4), median_ms(k4p), median_ms(bf16_k4))
+    bounds["K4"] = _bound(4.0 * m * c * hidden, _nbytes(x, h, ln_s, ln_b, w1, b1, w2, b2) + m * c * 2)
     _say("kernels", f"gemm_bf16 K4 (2 launches): kernel {t_k4[0]:.4f} ms, plain "
-                    f"{t_k4[1]:.4f} ms [{card}]")
+                    f"{t_k4[1]:.4f} ms, torch bf16 addmm x2 (no LN, GELU, residual) "
+                    f"{t_k4[2]:.4f} ms [{card}]")
+    for key in ("gemm_bf16", "K4"):
+        _say("kernels", f"{key} bound {bounds[key][0]:.4f} ms ({bounds[key][1]})")
 
     # window_attn_relpos: K2 + K3 at window 16 (8 layers) and 32 (4 global layers)
     b_att = TIMED_BATCH
@@ -209,8 +260,14 @@ def _kernel_phase(card: str) -> dict:
                window_attention_plain(qkv.float(), rel_h, rel_w, heads, window), 2e-2, errs)
         if std_qk == 1.0:
             times[f"attn_{label}"] = (median_ms(fn), median_ms(fnp, reps=5))
+            bounds[f"attn_{label}"] = _bound(
+                _attn_flops(b_att * (32 // window) ** 2, heads, window * window, 64,
+                            2 * window - 1),
+                _nbytes(qkv, rel_h, rel_w) + qkv.numel() // 3 * 2)
             _say("kernels", f"window_attn_relpos {label}: kernel {times[f'attn_{label}'][0]:.4f} "
-                            f"ms, plain {times[f'attn_{label}'][1]:.4f} ms [{card}]")
+                            f"ms, plain {times[f'attn_{label}'][1]:.4f} ms, bound "
+                            f"{bounds[f'attn_{label}'][0]:.4f} ms ({bounds[f'attn_{label}'][1]}) "
+                            f"[{card}]")
 
     # layer_norm (Triton): neck rows at C=256, mask-head rows at C=64, residual form
     for rows, cc, res, label in ((KERNEL_ROWS, 256, False, "neck 32768x256"),
@@ -231,11 +288,14 @@ def _kernel_phase(card: str) -> dict:
             fnp = lambda: layer_norm_plain(xl, sl, bl, 1e-6)
             bf16_ln = lambda: torch.nn.functional.layer_norm(xl, (cc,), sl.to(bf), bl.to(bf), 1e-6)
             times["layer_norm"] = (median_ms(fn), median_ms(fnp), median_ms(bf16_ln))
+            bounds["layer_norm"] = _bound(8.0 * xl.numel(), 2 * _nbytes(xl) + _nbytes(sl, bl),
+                                          "fp32")
             _say("kernels", f"layer_norm neck: kernel {times['layer_norm'][0]:.4f} ms, plain "
                             f"{times['layer_norm'][1]:.4f} ms, F.layer_norm bf16 "
                             f"{times['layer_norm'][2]:.4f} ms [{card}]")
     torch.cuda.synchronize()
-    return {"errs": errs, "times": times, "t_k4": t_k4}
+    return {"errs": errs, "times": times, "t_k4": t_k4, "bounds": bounds,
+            "library": {"layer_norm": times["layer_norm"][2]}}
 
 
 def _decoder_kernel_phase(card: str) -> dict:
@@ -268,6 +328,8 @@ def _decoder_kernel_phase(card: str) -> dict:
     kv = (w["wk"], bk, w["wv"], bv)
     errs: dict = {}
     times: dict = {}
+    bounds: dict = {}
+    library: dict = {}
 
     # keys_stream: the i2t pass of layer 0 (per-image keys shared by 16
     # prompts) and layer 1, each with the next attention split over the tiles
@@ -301,10 +363,19 @@ def _decoder_kernel_phase(card: str) -> dict:
     pass1 = lambda: dec.keys_stream(keys, pe, *kv, qn=qn, i2t=(kq, vq, *w_i2t))
     times["keys_stream layer 1 pass alone"] = (
         median_ms(pass1), times["keys_stream i2t layer 1 (512 streams)"][1])
-    part = pass1()[1]  # layer 1's partials
+    # K6's projection pass: k and v (2 C dh each a token)
+    bounds["keys_stream k/v projection (32 images)"] = _bound(
+        4.0 * b * t * c * dh, _nbytes(img, pe, w["wk"], w["wv"], bk, bv) + 2 * b * t * dh * 2)
+    keys1, part = pass1()  # layer 1's new keys and partials
+    # per token: q, out, k and v projections (8 C dh), i2t over tq and the
+    # next attention's partials over tq (4 dh each a query)
+    bounds["keys_stream layer 1 pass alone"] = _bound(
+        n * t * (8.0 * c * dh + 4.0 * 2 * tq * dh),
+        _nbytes(keys, pe, kq, vq, qn, bq, bk, bv, bo, ln_s, ln_b, *w.values(), keys1, part))
     fn, ref = lambda: dec.t2i_combine(part, tq), lambda: dec.t2i_combine_plain(part, tq)
     _check("t2i_combine (512 streams x 16 tiles)", fn(), ref(), 2e-2, errs)
     times["t2i_combine"] = (median_ms(fn), median_ms(ref))
+    bounds["t2i_combine"] = _bound(0.0, _nbytes(part) + n * tq * dh * 2)
     # t2i_attend: layer 0's per-image k/v shared by 16 prompts (K6)
     qp = randn(n, tq, dh, std=0.25)
     kp_, vp_ = randn(b, t, dh), randn(b, t, dh)
@@ -312,12 +383,20 @@ def _decoder_kernel_phase(card: str) -> dict:
     ref = lambda: dec.t2i_attend_plain(qp.float(), kp_.float(), vp_.float(), 8, k)
     _check("t2i_attend shared (k_share 16)", fn(), ref(), 2e-2, errs)
     times["t2i_attend"] = (median_ms(fn), median_ms(ref, reps=5))
+    bounds["t2i_attend"] = _bound(4.0 * n * tq * t * dh, _nbytes(qp, kp_, vp_) + _nbytes(qp))
+    # one library call on the same inputs: an image's 16 prompts share its
+    # keys, so their 16 x 7 (pre-scaled) queries attend as one sequence
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qp.reshape(b, k * tq, 8, 16).transpose(1, 2), kp_.reshape(b, t, 8, 16).transpose(1, 2),
+        vp_.reshape(b, t, 8, 16).transpose(1, 2), scale=1.0)
+    library["t2i_attend"] = median_ms(sdpa)
     # window_crop: a copy, exact
     grid = randn(n, 32, 32, c)
     r0, c0 = (torch.randint(0, 32 - 11 + 1, (n,), generator=g).to(dev) for _ in range(2))
     fn, ref = lambda: window_crop(grid, r0, c0, 11), lambda: window_crop_plain(grid, r0, c0, 11)
     _check("window_crop (512x32x32x256 -> 11x11)", fn(), ref(), 0.0, errs)
     times["window_crop"] = (median_ms(fn), median_ms(ref))
+    bounds["window_crop"] = _bound(0.0, 2 * n * 11 * 11 * c * 2 + _nbytes(r0, c0))  # the crops only
     # hull_support: candidates of elliptical 128 x 128 masks, exact
     rng = np.random.default_rng(1)
     yy, xx = np.mgrid[:128, :128]
@@ -330,10 +409,15 @@ def _decoder_kernel_phase(card: str) -> dict:
     _check(f"hull_support ({n} cells x {pts.shape[1]} candidates x 256 directions)", fn(), ref(),
            0.0, errs)
     times["hull_support"] = (median_ms(fn), median_ms(ref))
+    # a dot product (2 mul, 1 add) and a compare per candidate and direction
+    bounds["hull_support"] = _bound(4.0 * n * pts.shape[1] * 256, _nbytes(pts, dirs, fn()), "fp32")
     for name, (ms, plain) in times.items():
-        _say("kernels", f"{name}: kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]")
+        extra = f", bound {bounds[name][0]:.4f} ms ({bounds[name][1]})" if name in bounds else ""
+        if name in library:
+            extra += f", library {library[name]:.4f} ms"
+        _say("kernels", f"{name}: kernel {ms:.4f} ms, plain {plain:.4f} ms{extra} [{card}]")
     torch.cuda.synchronize()
-    return {"errs": errs, "times": times}
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
 
 
 def _big_kernel_phase(card: str) -> dict:
@@ -360,6 +444,7 @@ def _big_kernel_phase(card: str) -> dict:
     m = KERNEL_ROWS
     errs: dict = {}
     times: dict = {}
+    bounds: dict = {}
     for model, _, _, c, heads, hidden in BIG_MODELS:
         tag = "ViT-L" if c == 1024 else "ViT-H"
         x, h = randn(m, c).to(bf), randn(m, c).to(bf)
@@ -384,8 +469,19 @@ def _big_kernel_phase(card: str) -> dict:
                2e-2, errs)
         times[f"K1 {tag}"] = (median_ms(k1), median_ms(k1p, reps=5))
         times[f"K10 {tag}"] = (median_ms(k10), median_ms(k10p, reps=5))
+        qkv_io = _nbytes(x, ln_s, ln_b, w_qkv, b_qkv) + m * 3 * c * 2
+        tail_io = _nbytes(x, h, ln_s, ln_b, w1, b1, w2, b2) + m * c * 2
+        bounds[f"K1 {tag}"] = _bound(2.0 * m * c * 3 * c, qkv_io)
+        bounds[f"K10 {tag}"] = _bound(4.0 * m * c * hidden, tail_io)
+        # the bare products (no LN, GELU or residual) on the library's GEMM
+        addmm = (median_ms(lambda: torch.addmm(b_qkv, x, w_qkv)),
+                 median_ms(lambda: torch.addmm(b2, torch.addmm(b1, x, w1), w2)))
+        _say("kernels", f"torch bf16 addmm {tag}: qkv {addmm[0]:.4f} ms, mlp1 + mlp2 "
+                        f"{addmm[1]:.4f} ms [{card}]")
 
         # w8a8 against the plain int8 versions on the same bf16 inputs
+        bounds[f"K11c {tag}"] = _bound(2.0 * m * c * 3 * c,
+                                       qkv_io - _nbytes(w_qkv) + _nbytes(q_qkv, s_qkv), "int8")
         k11c = lambda: tln.fused_ln_matmul_int8(x, ln_s, ln_b, q_qkv, s_qkv, b_qkv)
         k11cp = lambda: tln.fused_ln_matmul_int8_plain(x, ln_s, ln_b, q_qkv, s_qkv, b_qkv)
         _check_int8(f"fused_ln_matmul_int8 K11c {tag} ({m}x{c} -> {3 * c})", k11c(), k11cp(), errs)
@@ -399,9 +495,11 @@ def _big_kernel_phase(card: str) -> dict:
                                                    chunks=chunks)
         _check_int8(f"{name} {tag} ({c}->{hidden}->{c}, {chunks} chunks)", k11(), k11p(), errs)
         times[name.split()[1] + f" {tag}"] = (median_ms(k11), median_ms(k11p, reps=5))
+        bounds[name.split()[1] + f" {tag}"] = _bound(
+            4.0 * m * c * hidden, tail_io - _nbytes(w1, w2) + _nbytes(q1, s1, q2, s2), "int8")
         for key in (f"K1 {tag}", f"K11c {tag}", f"K10 {tag}", f"{name.split()[1]} {tag}"):
-            _say("kernels", f"{key}: kernel {times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms "
-                            f"[{card}]")
+            _say("kernels", f"{key}: kernel {times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms, "
+                            f"bound {bounds[key][0]:.4f} ms ({bounds[key][1]}) [{card}]")
         del x, h, w_qkv, w1, w2, q_qkv, q1, q2, xf, hf
         torch.cuda.empty_cache()
 
@@ -424,30 +522,219 @@ def _big_kernel_phase(card: str) -> dict:
                window_attention_plain(qkv.float(), rel_h, rel_w, heads, window), 2e-2, errs)
         if std_qk == 1.0:
             times[f"attn {label}"] = (median_ms(fn), median_ms(fnp, reps=5))
+            bounds[f"attn {label}"] = _bound(
+                _attn_flops(TIMED_BATCH * (32 // window) ** 2, heads, window * window, hd,
+                            2 * window - 1),
+                _nbytes(qkv, rel_h, rel_w) + qkv.numel() // 3 * 2)
             _say("kernels", f"window_attn_relpos {label}: kernel {times[f'attn {label}'][0]:.4f} "
-                            f"ms, plain {times[f'attn {label}'][1]:.4f} ms [{card}]")
+                            f"ms, plain {times[f'attn {label}'][1]:.4f} ms, bound "
+                            f"{bounds[f'attn {label}'][0]:.4f} ms ({bounds[f'attn {label}'][1]}) "
+                            f"[{card}]")
         del qkv
     torch.cuda.synchronize()
-    return {"errs": errs, "times": times}
+    return {"errs": errs, "times": times, "bounds": bounds}
+
+
+def _large_kernel_phase(card: str) -> dict:
+    """The attention at windows 48 and 64 (the global layers of the 768 and
+    1024 canvases; ViT-B/L hd 64 with 12 heads, ViT-H hd 80 with 16) at
+    batch-32 shapes, against the fp32 plain version, plain and with sampled
+    logits of |q.k / sqrt(hd)| ~ 30."""
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.ops.flash_attention import (
+        window_attention,
+        window_attention_plain,
+    )
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(3)
+    errs: dict = {}
+    times: dict = {}
+    bounds: dict = {}
+    for window, hd in ((48, 64), (48, 80), (64, 64), (64, 80)):
+        heads = 12 if hd == 64 else 16
+        c = heads * hd
+        qkv = (torch.randn(TIMED_BATCH, window, window, 3 * c, generator=g)).to(dev, bf)
+        rel_h, rel_w = ((torch.randn(2 * window - 1, hd, generator=g) * 0.3).to(dev, bf)
+                        for _ in range(2))
+        label = f"w{window} hd{hd}"
+        fn = lambda: window_attention(qkv, rel_h, rel_w, heads, window)
+        fnp = lambda: window_attention_plain(qkv, rel_h, rel_w, heads, window)
+        _check(f"window_attn_relpos {label} ({TIMED_BATCH}x{window}x{window}x{3 * c})", fn(),
+               window_attention_plain(qkv.float(), rel_h, rel_w, heads, window), 2e-2, errs)
+        times[label] = (median_ms(fn), median_ms(fnp, reps=3, warmup=1))
+        bounds[label] = _bound(_attn_flops(TIMED_BATCH, heads, window * window, hd, 2 * window - 1),
+                               _nbytes(qkv, rel_h, rel_w) + qkv.numel() // 3 * 2)
+        _say("kernels", f"window_attn_relpos {label}: kernel {times[label][0]:.4f} ms, plain "
+                        f"{times[label][1]:.4f} ms, bound {bounds[label][0]:.4f} ms "
+                        f"({bounds[label][1]}) [{card}]")
+        qkv[..., :2 * c] *= 2.8 if hd == 80 else 3.2  # logits of |s| ~ 30
+        q = qkv[..., :c].float().reshape(TIMED_BATCH, window, window, heads, hd)
+        kk = qkv[..., c:2 * c].float().reshape(TIMED_BATCH, window, window, heads, hd)
+        s_max = (q[:4] * hd ** -0.5 * kk[:4, :1, :1]).sum(-1).abs().max().item()
+        _say("kernels", f"attention {label} |s|~30: sampled max |q.k/sqrt({hd})| = {s_max:.1f}")
+        _check(f"window_attn_relpos {label} |s|~30", fn(),
+               window_attention_plain(qkv.float(), rel_h, rel_w, heads, window), 2e-2, errs)
+        del qkv, q, kk
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return {"errs": errs, "times": times, "bounds": bounds}
+
+
+# TinyViT-5M at a 512 canvas, batch 32: (stage, grid, C, heads, window)
+TINYVIT_STAGES = ((1, 64, 128, 4, 7), (2, 32, 160, 5, 14), (3, 32, 320, 10, 7))
+
+
+def _mobile_kernel_phase(card: str) -> dict:
+    """K13-K16 at TinyViT-5M's batch-32 shapes (512 canvas) against their fp32
+    plain versions: the window attention (and its block: two gemm_bf16
+    launches around it) at the three stages, MBConv at stage 0 and merge2,
+    the stride-2 merges merge0 and merge1, the depthwise and the block tail
+    at the three stages. Beside each kernel's time, the plain version's and,
+    where one PyTorch call computes the same function, that call's:
+    scaled_dot_product_attention with the bias as a float mask (on windows
+    gathered beforehand) and F.conv2d(groups=C) for the depthwise."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.ops import dw_ln_mlp as tdw
+    from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
+    from yolo_sam_inference_tpu_torch.ops import mbconv_fused as tmb
+    from yolo_sam_inference_tpu_torch.ops import tinyvit_attention as ttv
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(4)
+
+    def randn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g) * std).to(dev, dtype)
+
+    b = TIMED_BATCH
+    errs: dict = {}
+    times: dict = {}
+    bounds: dict = {}
+    library: dict = {}
+
+    def report(key):
+        lib = f", library {library[key]:.4f} ms" if key in library else ""
+        _say("kernels", f"{key}: kernel {times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms, "
+                        f"bound {bounds[key][0]:.4f} ms ({bounds[key][1]}){lib} [{card}]")
+
+    for si, gs, c, heads, ws in TINYVIT_STAGES:
+        x = randn(b, gs, gs, c)
+        table = randn(heads, (2 * ws - 1) ** 2, std=0.5)
+        ln_s, ln_b = 1.0 + randn(c, std=0.1), randn(c, std=0.5)
+        wq, bq = randn(c, 3 * c, std=c ** -0.5), randn(3 * c, std=0.3)
+        wp, bp = randn(c, c, std=c ** -0.5), randn(c, std=0.1)
+        blk = (table, ln_s, ln_b, wq, bq, wp, bp, heads, ws)
+        qkv = tln.fused_ln_matmul(x, ln_s, ln_b, wq, bq, eps=1e-5)
+        pad = ttv.pad_qkv_row(ln_b, wq, bq, bf)
+        # K13: the attention kernel alone, then the whole block (3 launches)
+        fn = lambda: ttv.tinyvit_attention(qkv, pad, table, heads, ws)
+        fnp = lambda: ttv.tinyvit_attention_plain(qkv, pad, table, heads, ws)
+        key = f"tinyvit_attn stage{si} ws{ws}"
+        _check(f"tinyvit_attn stage {si} ({b}x{gs}x{gs}x{3 * c}, {heads} heads, ws {ws})", fn(),
+               ttv.tinyvit_attention_plain(qkv.float(), pad.float(), table, heads, ws), 2e-2,
+               errs)
+        times[key] = (median_ms(fn), median_ms(fnp, reps=5))
+        nwin = b * (-(-gs // ws)) ** 2
+        bounds[key] = _bound(_attn_flops(nwin, heads, ws * ws, 32),
+                             _nbytes(qkv, pad, table) + x.numel() * 2)
+        # the library yardstick: windows (padded with the pad row) gathered
+        # beforehand, the bias as a float mask
+        ph = -(-gs // ws) * ws
+        grid = pad.reshape(1, 1, 1, -1).repeat(b, ph, ph, 1)
+        grid[:, :gs, :gs] = qkv
+        win = ttv._windows(grid, ws).reshape(-1, ws * ws, 3, heads, 32).permute(2, 0, 3, 1, 4)
+        qw, kw, vw = win[0].contiguous(), win[1].contiguous(), win[2].contiguous()
+        mask = table[:, torch.from_numpy(ttv.offset_index(ws)).to(dev)]
+        library[key] = median_ms(lambda: F.scaled_dot_product_attention(qw, kw, vw,
+                                                                        attn_mask=mask))
+        report(key)
+        del grid, win, qw, kw, vw
+        fn = lambda: ttv.tinyvit_window_block(x, *blk)
+        fnp = lambda: ttv.tinyvit_window_block(x, *blk, gemm=tln.gemm_plain,
+                                               attention=ttv.tinyvit_attention_plain)
+        _check(f"tinyvit_block stage {si} (gemm_bf16 LN+qkv, tinyvit_attn, proj+residual)",
+               fn(), ttv.tinyvit_window_block_reference(x.float(), *blk), 2e-2, errs)
+        key = f"K13 block stage{si}"
+        times[key] = (median_ms(fn), median_ms(fnp, reps=5))
+        bounds[key] = _bound(8.0 * x.numel() * c + _attn_flops(nwin, heads, ws * ws, 32),
+                             2 * _nbytes(x) + _nbytes(wq, wp, table))
+        report(key)
+
+        # K16: the depthwise alone (beside F.conv2d), then the tail
+        wd, bd = randn(3, 3, c, std=1 / 3), randn(c, std=0.3, dtype=torch.float32)
+        w1, b1 = randn(c, 4 * c, std=c ** -0.5), randn(4 * c, std=0.1, dtype=torch.float32)
+        w2, b2 = randn(4 * c, c, std=(4 * c) ** -0.5), randn(c, std=0.1, dtype=torch.float32)
+        s2, sb2 = 1.0 + randn(c, std=0.1, dtype=torch.float32), randn(c, std=0.1,
+                                                                      dtype=torch.float32)
+        fn = lambda: tdw.dw_conv3x3(x, wd, bd)
+        fnp = lambda: tdw.dw_conv3x3_plain(x, wd, bd)
+        key = f"dw_conv3x3 stage{si}"
+        _check(f"dw_conv3x3 stage {si} ({b}x{gs}x{gs}x{c})", fn(),
+               tdw.dw_conv3x3_plain(x.float(), wd, bd), 2e-2, errs)
+        times[key] = (median_ms(fn), median_ms(fnp))
+        bounds[key] = _bound(18.0 * x.numel(), 2 * _nbytes(x) + _nbytes(wd, bd), "fp32")
+        xc = x.permute(0, 3, 1, 2)  # a channels-last view of the same tensor
+        kc, bc = wd.permute(2, 0, 1)[:, None].contiguous(), bd.to(bf)
+        library[key] = median_ms(lambda: F.conv2d(xc, kc, bc, padding=1, groups=c))
+        report(key)
+        tail = (wd, bd, s2, sb2, w1, b1, w2, b2)
+        fn = lambda: tdw.dw_ln_mlp(x, *tail)
+        fnp = lambda: tdw.dw_ln_mlp(x, *tail, gemm=tln.gemm_plain, dw=tdw.dw_conv3x3_plain)
+        _check(f"dw_ln_mlp tail stage {si} (dw_conv3x3, gemm_bf16 LN+mlp1+GELU, mlp2+y)", fn(),
+               tdw.dw_ln_mlp(x.float(), *tail, gemm=tln.gemm_plain, dw=tdw.dw_conv3x3_plain),
+               2e-2, errs)
+        key = f"K16 tail stage{si}"
+        times[key] = (median_ms(fn), median_ms(fnp, reps=5))
+        bounds[key] = _bound(18.0 * x.numel() + 16.0 * x.numel() * c,
+                             2 * _nbytes(x) + _nbytes(wd, w1, w2))
+        report(key)
+        del x, qkv
+        torch.cuda.empty_cache()
+
+    # K14 and K15 (one kernel source): (name, input, E, Co, stride, residual)
+    cases = (("mbconv stage0", (b, 128, 128, 64), 256, 64, 1, True),
+             ("mbconv merge2", (b, 32, 32, 160), 320, 320, 1, False),
+             ("patch_merge merge0", (b, 128, 128, 64), 128, 128, 2, False),
+             ("patch_merge merge1", (b, 64, 64, 128), 160, 160, 2, False))
+    for key, shape, e, co, stride, residual in cases:
+        x = randn(*shape)
+        c = shape[-1]
+        w = (randn(c, e, std=c ** -0.5), randn(e, std=0.3, dtype=torch.float32),
+             randn(3, 3, e, std=1 / 3), randn(e, std=0.3, dtype=torch.float32),
+             randn(e, co, std=e ** -0.5), randn(co, std=0.3, dtype=torch.float32))
+        if stride == 2:
+            fn = lambda: tmb.patch_merge_block(x, *w)
+        else:
+            fn = lambda: tmb.mbconv_block(x, *w, residual=residual)
+        fnp = lambda: tmb.mbconv_plain(x, *w, stride=stride, residual=residual)
+        out = fn()
+        _check(f"{key} ({'x'.join(map(str, shape))} -> E {e} -> {'x'.join(map(str, out.shape))})",
+               out, tmb.mbconv_plain(x.float(), *w, stride=stride, residual=residual), 2e-2,
+               errs)
+        times[key] = (median_ms(fn), median_ms(fnp, reps=5))
+        pix_in, pix_out = x.numel() // c, out.numel() // co
+        bounds[key] = _bound(2.0 * pix_in * c * e + pix_out * (18.0 * e + 2.0 * e * co),
+                             _nbytes(x, out, *w))
+        report(key)
+        del x, out
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
 
 
 def _slice_phase(card: str) -> dict:
     import numpy as np
-    import torch
 
     from yolo_sam_inference_tpu_torch.bench.common import cell_frames
-    from yolo_sam_inference_tpu_torch.ops.decoder_fused import keys_stream, t2i_attend, t2i_combine
-    from yolo_sam_inference_tpu_torch.ops.flash_attention import window_attention
-    from yolo_sam_inference_tpu_torch.ops.fused_ln import gemm_bf16, layer_norm
-    from yolo_sam_inference_tpu_torch.ops.hull_support import support_points
-    from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop
-    from yolo_sam_inference_tpu_torch.ops.metrics import METRIC_KEYS
-    from yolo_sam_inference_tpu_torch.ops.preprocess import sam_preprocess_batch
     from yolo_sam_inference_tpu_torch.pipeline.engine import (
         CellSegmentationPipeline,
         PipelineOptions,
     )
-    from yolo_sam_inference_tpu_torch.weights import from_jax_params
 
     t0 = time.perf_counter()
     opts = PipelineOptions(max_det=16, metric_crop=128)
@@ -459,109 +746,17 @@ def _slice_phase(card: str) -> dict:
     rng = np.random.default_rng(0)
     frames = cell_frames(rng, TIMED_BATCH, FRAME)
 
-    wrappers = {"gemm_bf16": gemm_bf16, "window_attn_relpos": window_attention,
-                "layer_norm": layer_norm, "keys_stream": keys_stream, "t2i_attend": t2i_attend,
-                "t2i_combine": t2i_combine, "window_crop": window_crop,
-                "hull_support": support_points}
-    # per batch: 12 layers x (qkv + proj + 2 MLP) GEMMs; 12 attentions;
-    # LNs: neck 2 + decoder queries 7 (LN4 is inside keys_stream) + mask head 1;
-    # keys stream: layer 0's per-image projection + one pass per decoder
-    # layer, each joined by a combine (the t2i of layer 1 and the final one);
-    # layer 0's t2i; one crop; one hull pass
-    expected = {"gemm_bf16": 48, "window_attn_relpos": 12, "layer_norm": 10, "keys_stream": 3,
-                "t2i_attend": 1, "t2i_combine": 2, "window_crop": 1, "hull_support": 1}
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.perf_counter()
-    timings: dict = {}
-    out = pipe.process_batch_arrays(frames[:SLICE_BATCH], timings)
-    torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in wrappers.items()}
-    _say("slice", f"batch {SLICE_BATCH} first run {time.perf_counter() - t0:.2f} s; launches "
-                  f"{launches} (expected {expected})")
-    for name, n in launches.items():
-        if n != expected[name]:
-            raise AssertionError(f"{name}: {n} launches on the main path, expected {expected[name]}")
+    # per batch: 12 layers x (qkv + proj + 2 MLP) GEMMs; 12 attentions, 8 at
+    # window 16 and the 4 global ones at 32; the decoder's (DECODER_COUNTS)
+    launches, _, out = _drive("config 1", pipe, frames[:SLICE_BATCH], opts.max_det,
+                              {**DECODER_COUNTS, "gemm_bf16": 48, "window_attn_relpos": 12},
+                              by_window={16: 8, 32: 4})
 
-    b, k, cm = SLICE_BATCH, opts.max_det, opts.metric_crop
-    shapes = {"boxes": (b, k, 4), "scores": (b, k), "valid": (b, k),
-              "mask_crops": (b, k, cm, cm), "offsets": (b, k, 2)}
-    for key, shape in shapes.items():
-        if tuple(out[key].shape) != shape:
-            raise AssertionError(f"{key}: shape {out[key].shape} != {shape}")
-    finite = [np.isfinite(out["boxes"]).all(), np.isfinite(out["scores"]).all()]
-    for key in METRIC_KEYS:
-        if out["metrics"][key].shape != (b, k):
-            raise AssertionError(f"metric {key}: shape {out['metrics'][key].shape}")
-        finite.append(np.isfinite(out["metrics"][key]).all())
-    if not all(finite):
-        raise AssertionError("non-finite boxes, scores or metrics")
-    if (out["metrics"]["area"][~out["valid"]] != 0).any():
-        raise AssertionError("invalid detections carry a nonzero area")
-    _say("slice", f"outputs: shapes ok, all finite; {int(out['valid'].sum())} valid cells in "
-                  f"{b} frames; stage seconds {json.dumps({k: round(v, 4) for k, v in timings.items()})}")
+    _, emb32 = _embedding_vs_plain("config 1", {"bf16": (pipe, 0.05)}, frames[:1])
+    _decoder_vs_plain("config 1", pipe, FRAME, emb32, out["boxes"][:1])
 
-    # bf16 embedding of one frame vs the fp32 plain path on the same card
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    st = pipe._stages(FRAME, FRAME)
-    scfg = st["scfg"]
-    _, sam32 = from_jax_params(None, pipe._sam_params_for(scfg), "cuda", torch.float32,
-                               sam_config=scfg)
-    img = torch.from_numpy(frames[:1]).cuda()
-    with torch.inference_mode():
-        pix, _, _ = sam_preprocess_batch(img, scfg.image_size)
-        emb16 = st["sam"].vision(pix.to(torch.bfloat16)).float()
-        emb32 = sam32.vision(pix, plain=True)
-    del sam32
-    rel = ((emb16 - emb32).norm() / emb32.norm()).item()
-    max_abs = (emb16 - emb32).abs().max().item()
-    _say("slice", f"embedding bf16 kernels vs fp32 plain (1 frame, {tuple(emb32.shape)}): "
-                  f"rel_rms={rel:.5f} (bound 0.05), max_abs={max_abs:.5f}, "
-                  f"max|ref|={emb32.abs().max().item():.4f}")
-    if not (rel <= 0.05 and torch.isfinite(emb16).all()):
-        raise AssertionError("bf16 embedding disagrees with the fp32 plain path")
-
-    # the bf16 decoder on the card (keys_stream, t2i_attend) vs the fp32 plain
-    # decoder on the host, on that frame's embedding and 16 box prompts. Both
-    # hold the same bf16-rounded weights: the pipeline casts every parameter,
-    # the Fourier matrix too (its entries are O(400), so a bf16 rounding moves
-    # the positional encodings by radians; the JAX engine does the same).
-    _, sam_cpu = from_jax_params(None, pipe._sam_params_for(scfg), "cpu", torch.bfloat16,
-                                 sam_config=scfg)
-    sam_cpu = sam_cpu.float()
-    boxes = torch.from_numpy(out["boxes"][:1])
-    with torch.inference_mode():
-        sparse = st["sam"].prompt.boxes(boxes.cuda()).to(torch.bfloat16)
-        _, hyper16, grid16 = st["sam"].mask_decoder_tokens(emb32.to(torch.bfloat16), sparse)
-        _, hyper32, grid32 = sam_cpu.mask_decoder_tokens(emb32.cpu(), sam_cpu.prompt.boxes(boxes))
-    for name, got, want in (("keys grid", grid16, grid32), ("hypernetwork out", hyper16, hyper32)):
-        got = got.float().cpu()
-        rel = ((got - want).norm() / want.norm()).item()
-        _say("slice", f"decoder {name} bf16 kernels vs fp32 plain (1 frame, 16 prompts, "
-                      f"{tuple(want.shape)}): rel_rms={rel:.5f} (bound 0.05), "
-                      f"max_abs={(got - want).abs().max().item():.5f}, "
-                      f"max|ref|={want.abs().max().item():.4f}")
-        if not (rel <= 0.05 and torch.isfinite(got).all()):
-            raise AssertionError(f"bf16 decoder {name} disagrees with the fp32 plain decoder")
-    del sam_cpu
-
-    # timed pass at batch 32
-    pipe.process_batch_arrays(frames)  # warm-up at this shape
-    per_iter = []
-    stage_tot: dict = {}
-    for _ in range(TIMED_ITERS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe.process_batch_arrays(frames, stage_tot)
-        per_iter.append(time.perf_counter() - t0)
-    ms = statistics.median(per_iter) * 1000
-    _say("slice", f"config 1 timed: batch {TIMED_BATCH}, {TIMED_ITERS} iterations, median "
-                  f"{ms:.2f} ms/batch = {TIMED_BATCH / ms * 1000:.2f} img/s "
-                  f"(iterations ms {[round(t * 1000, 2) for t in per_iter]}) [{card}]")
-    _say("slice", "stage ms/batch (mean): " + json.dumps(
-        {key: round(v / TIMED_ITERS * 1000, 3) for key, v in stage_tot.items()}))
-    return {"launches": launches, "ms_per_batch": ms}
+    ms = _timed("config 1", pipe, frames, card)
+    return {"launches": launches, "ms_per_batch": ms, "pipe": pipe}
 
 
 def _sharing_params(pipe, options):
@@ -583,15 +778,7 @@ def _big_slice_phase(card: str, model: str, max_det: int, layers: int) -> dict:
     import torch
 
     from yolo_sam_inference_tpu_torch.bench.common import cell_frames
-    from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
-    from yolo_sam_inference_tpu_torch.ops.decoder_fused import keys_stream, t2i_attend, t2i_combine
-    from yolo_sam_inference_tpu_torch.ops.flash_attention import window_attention
-    from yolo_sam_inference_tpu_torch.ops.hull_support import support_points
-    from yolo_sam_inference_tpu_torch.ops.metrics import METRIC_KEYS
-    from yolo_sam_inference_tpu_torch.ops.preprocess import sam_preprocess_batch
-    from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop
     from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
-    from yolo_sam_inference_tpu_torch.weights import from_jax_params
 
     short = model.rsplit("-", 1)[-1]
     t0 = time.perf_counter()
@@ -610,97 +797,331 @@ def _big_slice_phase(card: str, model: str, max_det: int, layers: int) -> dict:
     _say("slice", f"{short}: numpy init of the parameters {t_init:.2f} s (shared by both)")
     frames = cell_frames(np.random.default_rng(1), TIMED_BATCH, FRAME, cells=BIG_CELLS)
 
-    wrappers = {"gemm_bf16": tln.gemm_bf16, "window_attn_relpos": window_attention,
-                "fused_ln_matmul_int8": tln.fused_ln_matmul_int8,
-                "fused_ln_mlp_int8": tln.fused_ln_mlp_int8,
-                "fused_ln_mlp_tiled_int8": tln.fused_ln_mlp_tiled_int8,
-                "layer_norm": tln.layer_norm, "keys_stream": keys_stream, "t2i_attend": t2i_attend,
-                "t2i_combine": t2i_combine, "window_crop": window_crop,
-                "hull_support": support_points}
     tiled = "huge" in model  # ViT-H's int8 tail is K11b, ViT-L's K11a
-    common = {"window_attn_relpos": layers, "layer_norm": 10, "keys_stream": 3, "t2i_attend": 1,
-              "t2i_combine": 2, "window_crop": 1, "hull_support": 1}
+    common = {**DECODER_COUNTS, "window_attn_relpos": layers}
     # bf16: per layer K1 + projection + two K10 GEMMs; int8: the projection on
     # gemm_bf16, K11c, and the K11a or K11b tail
     expected = {
-        "bf16": {**common, "gemm_bf16": 4 * layers, "fused_ln_matmul_int8": 0,
-                 "fused_ln_mlp_int8": 0, "fused_ln_mlp_tiled_int8": 0},
+        "bf16": {**common, "gemm_bf16": 4 * layers},
         "int8": {**common, "gemm_bf16": layers, "fused_ln_matmul_int8": layers,
-                 "fused_ln_mlp_int8": 0 if tiled else layers,
-                 "fused_ln_mlp_tiled_int8": layers if tiled else 0},
+                 "fused_ln_mlp_tiled_int8" if tiled else "fused_ln_mlp_int8": layers},
     }
-    result: dict = {"launches": {}, "ms_per_batch": {}, "rel_rms": {}}
+    result: dict = {"launches": {}, "ms_per_batch": {}}
     for mode, pipe in pipes.items():
-        for w in wrappers.values():
-            w.launches = 0
-        timings: dict = {}
-        out = pipe.process_batch_arrays(frames[:SLICE_BATCH], timings)
-        torch.cuda.synchronize()
-        launches = {name: w.launches for name, w in wrappers.items()}
-        _say("slice", f"{short} {mode}: batch {SLICE_BATCH} launches {launches} "
-                      f"(expected {expected[mode]})")
-        for name, n in launches.items():
-            if n != expected[mode][name]:
-                raise AssertionError(f"{short} {mode}: {name} launched {n} times on the path, "
-                                     f"expected {expected[mode][name]}")
-        result["launches"][mode] = launches
-        b, k = SLICE_BATCH, max_det
-        if out["mask_crops"].shape != (b, k, 128, 128) or out["boxes"].shape != (b, k, 4):
-            raise AssertionError(f"{short} {mode}: output shapes {out['mask_crops'].shape}, "
-                                 f"{out['boxes'].shape}")
-        if not all(np.isfinite(out["metrics"][key]).all() for key in METRIC_KEYS):
-            raise AssertionError(f"{short} {mode}: non-finite metrics")
-        _say("slice", f"{short} {mode}: outputs ok, {int(out['valid'].sum())} valid cells in "
-                      f"{b} frames")
+        result["launches"][mode], _, _ = _drive(f"{short} {mode}", pipe, frames[:SLICE_BATCH],
+                                                max_det, expected[mode],
+                                                by_window={16: layers - 4, 32: 4})
 
     # the embedding of one frame against the fp32 plain encoder on the same
     # bf16-rounded float weights (the int8 path quantises those same weights)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    result["rel_rms"], _ = _embedding_vs_plain(
+        short, {"bf16": (pipe_b, 0.05), "int8": (pipes["int8"], 0.10)}, frames[:1])
+
+    for mode, pipe in pipes.items():
+        result["ms_per_batch"][mode] = _timed(f"{short} {mode} (max_det {max_det})", pipe, frames,
+                                              card)
+    for pipe in pipes.values():
+        pipe._stage_cache.clear()  # the device weights go; the host trees stay for phase 8
+    result["pipe"] = pipe_b
+    del pipes
+    torch.cuda.empty_cache()
+    return result
+
+
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port, by the name its launch count goes under."""
+    from yolo_sam_inference_tpu_torch.ops import decoder_fused as dec
+    from yolo_sam_inference_tpu_torch.ops import dw_ln_mlp as tdw
+    from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
+    from yolo_sam_inference_tpu_torch.ops import mbconv_fused as tmb
+    from yolo_sam_inference_tpu_torch.ops import tinyvit_attention as ttv
+    from yolo_sam_inference_tpu_torch.ops.flash_attention import window_attention
+    from yolo_sam_inference_tpu_torch.ops.hull_support import support_points
+    from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop
+
+    return {"gemm_bf16": tln.gemm_bf16, "window_attn_relpos": window_attention,
+            "fused_ln_matmul_int8": tln.fused_ln_matmul_int8,
+            "fused_ln_mlp_int8": tln.fused_ln_mlp_int8,
+            "fused_ln_mlp_tiled_int8": tln.fused_ln_mlp_tiled_int8,
+            "tinyvit_attn": ttv.tinyvit_attention, "mbconv_block": tmb.mbconv_block,
+            "patch_merge_block": tmb.patch_merge_block, "dw_conv3x3": tdw.dw_conv3x3,
+            "layer_norm": tln.layer_norm, "keys_stream": dec.keys_stream,
+            "t2i_attend": dec.t2i_attend, "t2i_combine": dec.t2i_combine,
+            "window_crop": window_crop, "hull_support": support_points}
+
+
+def _reset_counts() -> dict:
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    wrappers["window_attn_relpos"].by_window = {}
+    return wrappers
+
+
+def _read_counts(tag: str, wrappers: dict, expected: dict, by_window=None) -> dict:
+    """The launch counts since the reset; every kernel not in ``expected``
+    must have run 0 times, and the attention's counts by window must match."""
+    launches = {name: w.launches for name, w in wrappers.items()}
+    windows = dict(wrappers["window_attn_relpos"].by_window)
+    _say("slice", f"{tag}: launches {({k: v for k, v in launches.items() if v})}, attention by "
+                  f"window {windows}")
+    for name, n in launches.items():
+        if n != expected.get(name, 0):
+            raise AssertionError(f"{tag}: {name} launched {n} times, expected "
+                                 f"{expected.get(name, 0)}")
+    if by_window is not None and windows != by_window:
+        raise AssertionError(f"{tag}: attention launches by window {windows}, expected {by_window}")
+    return launches
+
+
+def _drive(tag: str, pipe, frames, max_det: int, expected: dict, by_window=None) -> tuple:
+    """One batch through process_batch_arrays with every count set to 0 just
+    before and read just after; output shapes and finite values checked."""
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.ops.metrics import METRIC_KEYS
+
+    wrappers = _reset_counts()
+    t0 = time.perf_counter()
+    out = pipe.process_batch_arrays(frames)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _read_counts(tag, wrappers, expected, by_window)
+    b = frames.shape[0]
+    cm = min(pipe.options.metric_crop, frames.shape[1], frames.shape[2])
+    if out["mask_crops"].shape != (b, max_det, cm, cm) or out["boxes"].shape != (b, max_det, 4):
+        raise AssertionError(f"{tag}: output shapes {out['mask_crops'].shape}, "
+                             f"{out['boxes'].shape}")
+    finite = [np.isfinite(out["boxes"]).all(), np.isfinite(out["scores"]).all()]
+    finite += [np.isfinite(out["metrics"][key]).all() and out["metrics"][key].shape == (b, max_det)
+               for key in METRIC_KEYS]
+    if not all(finite):
+        raise AssertionError(f"{tag}: non-finite or misshapen boxes, scores or metrics")
+    if (out["metrics"]["area"][~out["valid"]] != 0).any():
+        raise AssertionError(f"{tag}: invalid detections carry a nonzero area")
+    _say("slice", f"{tag}: batch {b} in {secs:.2f} s (first run at this shape); outputs ok, "
+                  f"{int(out['valid'].sum())} valid cells")
+    return launches, secs, out
+
+
+def _embedding_vs_plain(tag: str, pipes: dict, frames, encoder_expected=None) -> tuple:
+    """({mode: relative RMS}, fp32 embedding): the embedding of ``frames`` by
+    each pipeline of ``pipes`` ({mode: (pipe, bound)}, all over one host
+    tree) against the fp32 plain encoder, built once on the first one's
+    bf16-rounded weights (an int8 pipeline quantises those same weights);
+    with ``encoder_expected``, the launch counts of the first pipeline's
+    encoder alone are checked too."""
+    import torch
+
+    from yolo_sam_inference_tpu_torch.ops.preprocess import sam_preprocess_batch
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+    from yolo_sam_inference_tpu_torch.weights import from_jax_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 oracle stays fp32
     torch.backends.cudnn.allow_tf32 = False
-    st = pipe_b._stages(FRAME, FRAME)
-    scfg = st["scfg"]
-    tree = tengine._round_floating(pipe_b._sam_params_for(scfg), torch.bfloat16)
+    h, w = frames.shape[1], frames.shape[2]
+    first = next(iter(pipes.values()))[0]
+    scfg = first._stages(h, w)["scfg"]
+    tree = tengine._round_floating(first._sam_params_for(scfg), torch.bfloat16)
     _, sam32 = from_jax_params(None, tree, "cuda", torch.float32, sam_config=scfg)
-    img = torch.from_numpy(frames[:1]).cuda()
+    del tree
+    img = torch.from_numpy(frames).cuda()
     with torch.inference_mode():
         pix, _, _ = sam_preprocess_batch(img, scfg.image_size)
         emb32 = sam32.vision(pix, plain=True)
-        embs = {mode: pipe._stages(FRAME, FRAME)["sam"].vision(pix.to(torch.bfloat16)).float()
-                for mode, pipe in pipes.items()}
-    del sam32, tree
-    for mode, bound in (("bf16", 0.05), ("int8", 0.10)):
-        emb = embs[mode]
-        rel = ((emb - emb32).norm() / emb32.norm()).item()
-        result["rel_rms"][mode] = rel
-        _say("slice", f"{short} {mode} embedding vs fp32 plain (1 frame, {tuple(emb32.shape)}): "
-                      f"rel_rms={rel:.5f} (bound {bound}), max_abs="
+    del sam32
+    torch.cuda.empty_cache()
+    rels = {}
+    for mode, (pipe, bound) in pipes.items():
+        with torch.inference_mode():
+            wrappers = _reset_counts()
+            emb = pipe._stages(h, w)["sam"].vision(pix.to(torch.bfloat16)).float()
+            torch.cuda.synchronize()
+        if encoder_expected is not None and pipe is first:
+            _read_counts(f"{tag} {mode} encoder alone", wrappers, encoder_expected)
+        rels[mode] = rel = ((emb - emb32).norm() / emb32.norm()).item()
+        _say("slice", f"{tag} {mode} embedding vs fp32 plain ({frames.shape[0]} frame(s), "
+                      f"{tuple(emb32.shape)}): rel_rms={rel:.5f} (bound {bound}), max_abs="
                       f"{(emb - emb32).abs().max().item():.5f}, "
                       f"max|ref|={emb32.abs().max().item():.4f}")
         if not (rel <= bound and torch.isfinite(emb).all()):
-            raise AssertionError(f"{short} {mode} embedding disagrees with the fp32 plain encoder")
-    _say("slice", f"{short}: embedding rel_rms bf16 {result['rel_rms']['bf16']:.5f}, "
-                  f"int8 {result['rel_rms']['int8']:.5f}")
+            raise AssertionError(f"{tag} {mode}: embedding disagrees with the fp32 plain encoder")
+    return rels, emb32
 
-    for mode, pipe in pipes.items():
-        pipe.process_batch_arrays(frames)  # warm-up at this shape
-        per_iter = []
-        stage_tot: dict = {}
-        for _ in range(TIMED_ITERS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pipe.process_batch_arrays(frames, stage_tot)
-            per_iter.append(time.perf_counter() - t0)
-        ms = statistics.median(per_iter) * 1000
-        result["ms_per_batch"][mode] = ms
-        _say("slice", f"{short} {mode} timed: batch {TIMED_BATCH}, max_det {max_det}, "
-                      f"{TIMED_ITERS} iterations, median {ms:.2f} ms/batch = "
-                      f"{TIMED_BATCH / ms * 1000:.2f} img/s (iterations ms "
-                      f"{[round(t * 1000, 2) for t in per_iter]}) [{card}]")
-        _say("slice", f"{short} {mode} stage ms/batch (mean): " + json.dumps(
-            {key: round(v / TIMED_ITERS * 1000, 3) for key, v in stage_tot.items()}))
-    del pipes, pipe_b, embs
-    torch.cuda.empty_cache()
+
+def _decoder_vs_plain(tag: str, pipe, size: int, emb32, boxes) -> None:
+    """The bf16 decoder on the card (keys_stream, t2i_attend, t2i_combine)
+    against the fp32 plain decoder on the host, on one frame's fp32 plain
+    embedding and its box prompts; then window_crop of that keys grid at the
+    pipeline's crop size against its plain version (a copy: exact). Both
+    decoders hold the same bf16-rounded weights: the pipeline casts every
+    parameter, the Fourier matrix too (its entries are O(400), so a bf16
+    rounding moves the positional encodings by radians; the JAX engine does
+    the same)."""
+    import math
+
+    import torch
+
+    from yolo_sam_inference_tpu_torch.models.sam import SamMaskDecoder, SamPromptEncoder
+    from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop, window_crop_plain
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+    st = pipe._stages(size, size)
+    scfg = st["scfg"]
+    tree = tengine._round_floating({k: pipe.sam_params[k] for k in ("prompt", "decoder",
+                                                                    "shared_pe")}, torch.bfloat16)
+    prompt = SamPromptEncoder(tree["prompt"], tree["shared_pe"], scfg)
+    decoder = SamMaskDecoder(tree["decoder"], scfg)
+    boxes = torch.from_numpy(boxes) * (scfg.image_size / size)  # encoder-input pixels
+    with torch.inference_mode():
+        sparse = st["sam"].prompt.boxes(boxes.cuda()).to(torch.bfloat16)
+        _, hyper16, grid16 = st["sam"].mask_decoder_tokens(emb32.to(torch.bfloat16), sparse)
+        _, hyper32, grid32 = decoder.tokens(emb32.cpu(), prompt.boxes(boxes), prompt.image_pe(),
+                                            prompt.no_mask)
+    for name, got, want in (("keys grid", grid16, grid32), ("hypernetwork out", hyper16, hyper32)):
+        got = got.float().cpu()
+        rel = ((got - want).norm() / want.norm()).item()
+        _say("slice", f"{tag} decoder {name} bf16 kernels vs fp32 plain (1 frame, "
+                      f"{boxes.shape[1]} prompts, {tuple(want.shape)}): rel_rms={rel:.5f} (bound "
+                      f"0.05), max_abs={(got - want).abs().max().item():.5f}, "
+                      f"max|ref|={want.abs().max().item():.4f}")
+        if not (rel <= 0.05 and torch.isfinite(got).all()):
+            raise AssertionError(f"{tag}: bf16 decoder {name} disagrees with the fp32 plain decoder")
+    gs = grid16.shape[1]
+    wg = min(gs, math.ceil(pipe.options.metric_crop * scfg.image_size / size / 16) + 3)
+    g = torch.Generator(device="cpu").manual_seed(gs)
+    r0, c0 = (torch.randint(0, gs - wg + 1, (grid16.shape[0],), generator=g).cuda()
+              for _ in range(2))
+    if not torch.equal(window_crop(grid16, r0, c0, wg), window_crop_plain(grid16, r0, c0, wg)):
+        raise AssertionError(f"{tag}: window_crop disagrees with its plain version")
+    _say("slice", f"{tag} window_crop ({tuple(grid16.shape)} -> {wg} x {wg}) equals its plain "
+                  f"version")
+
+
+def _timed(tag: str, pipe, frames, card: str) -> float:
+    """Median ms per batch of ``frames`` over TIMED_ITERS runs after a warm-up,
+    with the stage means."""
+    import torch
+
+    pipe.process_batch_arrays(frames)  # warm-up at this shape
+    per_iter = []
+    stage_tot: dict = {}
+    for _ in range(TIMED_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.process_batch_arrays(frames, stage_tot)
+        per_iter.append(time.perf_counter() - t0)
+    ms = statistics.median(per_iter) * 1000
+    b = frames.shape[0]
+    _say("slice", f"{tag} timed: batch {b}, {TIMED_ITERS} iterations, median {ms:.2f} ms/batch = "
+                  f"{b / ms * 1000:.2f} img/s (iterations ms "
+                  f"{[round(t * 1000, 2) for t in per_iter]}) [{card}]")
+    _say("slice", f"{tag} stage ms/batch (mean): " + json.dumps(
+        {key: round(v / TIMED_ITERS * 1000, 3) for key, v in stage_tot.items()}))
+    return ms
+
+
+# the decoder, crop and hull kernels of one batch (max_det prompts an image)
+DECODER_COUNTS = {"layer_norm": 10, "keys_stream": 3, "t2i_attend": 1, "t2i_combine": 2,
+                  "window_crop": 1, "hull_support": 1}
+
+
+def _large_frame_phase(card: str, vit_b_pipe, vit_h_pipe) -> dict:
+    """Frames above 512 px: ViT-B on 768x768 frames (the 768 canvas, global
+    window 48), then config 4, ViT-H bf16 on 2048x2048 frames (the 1024
+    canvas, global window 64) from phase 6's ViT-H parameter tree."""
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+    result: dict = {}
+    rng = np.random.default_rng(5)
+    frames = cell_frames(rng, SLICE_BATCH, MID_FRAME)
+    expected = {**DECODER_COUNTS, "gemm_bf16": 48, "window_attn_relpos": 12}
+    result["vit-b 768"], _, _ = _drive("ViT-B 768x768", vit_b_pipe, frames, 16, expected,
+                                    by_window={16: 8, 48: 4})
+    rels, _ = _embedding_vs_plain("ViT-B 768x768", {"bf16": (vit_b_pipe, 0.05)}, frames[:1])
+    result["rel_rms vit-b 768"] = rels["bf16"]
+    result["ms vit-b 768"] = _timed("ViT-B 768x768", vit_b_pipe, frames, card)
+
+    t0 = time.perf_counter()
+    opts = tengine.PipelineOptions(max_det=16, metric_crop=128)
+    pipe = _sharing_params(vit_h_pipe, opts)
+    pipe._stages(LARGE_FRAME, LARGE_FRAME)
+    _say("slice", f"config 4: ViT-H stages for {LARGE_FRAME}x{LARGE_FRAME} frames built (adapt "
+                  f"to the 1024 canvas + cast + upload) {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    frames = cell_frames(rng, TIMED_BATCH, LARGE_FRAME, cells=BIG_CELLS)
+    _say("slice", f"config 4: {TIMED_BATCH} frames made in {time.perf_counter() - t0:.2f} s")
+    expected = {**DECODER_COUNTS, "gemm_bf16": 4 * 32, "window_attn_relpos": 32}
+    result["config 4"], secs, out = _drive("config 4 (ViT-H, 2048x2048)", pipe,
+                                           frames[:SLICE_BATCH], 16, expected,
+                                           by_window={16: 28, 64: 4})
+    # the 64 x 64 grid's stages: the encoder, then the decoder over 4096
+    # tokens a prompt and the crop at gs 64
+    rels, emb32 = _embedding_vs_plain("config 4 (ViT-H, 1024 canvas)", {"bf16": (pipe, 0.05)},
+                                      frames[:2])
+    result["rel_rms config 4"] = rels["bf16"]
+    _decoder_vs_plain("config 4", pipe, LARGE_FRAME, emb32[:1], out["boxes"][:1])
+    # batch 32 when four more such batches fit in about a minute, else 8
+    timed = frames if secs * 4 * (TIMED_ITERS + 1) <= 60 else frames[:SLICE_BATCH]
+    _say("slice", f"config 4: timing batch {timed.shape[0]} (batch 8 took {secs:.2f} s)")
+    result["ms config 4"] = _timed("config 4 (ViT-H, 2048x2048)", pipe, timed, card)
+    result["batch config 4"] = timed.shape[0]
+    pipe._stage_cache.clear()
     return result
+
+
+def _mobile_slice_phase(card: str) -> dict:
+    """MobileSAM (config 2): TinyViT-5M with SAM ViT-B's prompt encoder and
+    decoder on 512x512 frames, bf16, max_det 16."""
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+    t0 = time.perf_counter()
+    opts = tengine.PipelineOptions(max_det=16, metric_crop=128)
+    pipe = tengine.CellSegmentationPipeline("mobile-sam", options=opts, device="cuda", seed=0)
+    # the init's biases, LN shifts and attention bias tables are 0 (scales
+    # 1): drawn at random here, so the pad-token qkv row, the bias tables and
+    # the expanded halo's gelu(b1) reach the embedding check
+    _randomise_affines(pipe.sam_params["tinyvit"], np.random.default_rng(7))
+    pipe._stages(FRAME, FRAME)
+    _say("slice", f"mobile-sam: pipeline built (init + cast + upload) "
+                  f"{time.perf_counter() - t0:.2f} s")
+    frames = cell_frames(np.random.default_rng(6), TIMED_BATCH, FRAME)
+    # per batch: 10 window blocks (K13: attention + 2 GEMMs; K16: depthwise +
+    # 2 GEMMs), MBConv x2 + merge2 (K14), merge0 + merge1 (K15); the neck's 2
+    # LayerNorms, then the decoder's
+    encoder = {"gemm_bf16": 40, "tinyvit_attn": 10, "mbconv_block": 3, "patch_merge_block": 2,
+               "dw_conv3x3": 10, "layer_norm": 2}
+    launches, _, _ = _drive("mobile-sam", pipe, frames[:SLICE_BATCH], 16,
+                         {**DECODER_COUNTS, **encoder, "layer_norm": 10})
+    rels, _ = _embedding_vs_plain("mobile-sam", {"bf16": (pipe, 0.05)}, frames[:1],
+                                  encoder_expected=encoder)
+    ms = _timed("mobile-sam", pipe, frames, card)
+    del pipe
+    return {"launches": launches, "rel_rms": rels["bf16"], "ms_per_batch": ms}
+
+
+def _randomise_affines(tree, rng) -> None:
+    """Draw, in place, every bias and LN shift (0.1 N(0, 1)), LN scale
+    (1 + 0.1 N(0, 1)) and attention bias table (0.5 N(0, 1)) of a TinyViT tree."""
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            _randomise_affines(v, rng)
+        elif isinstance(v, list):
+            for item in v:
+                _randomise_affines(item, rng)
+        elif key == "scale":
+            tree[key] = (1.0 + 0.1 * rng.normal(size=v.shape)).astype(v.dtype)
+        elif key in ("b", "bias", "qkv_b", "proj_b", "mlp1_b", "mlp2_b"):
+            tree[key] = (0.1 * rng.normal(size=v.shape)).astype(v.dtype)
+        elif key == "attn_bias":
+            tree[key] = (0.5 * rng.normal(size=v.shape)).astype(v.dtype)
 
 
 def main() -> int:
@@ -739,84 +1160,102 @@ def main() -> int:
     bk = _big_kernel_phase(card)
     big = {model.rsplit("-", 1)[-1]: _big_slice_phase(card, model, max_det, layers)
            for model, max_det, layers, *_ in BIG_MODELS}
+    lk = _large_kernel_phase(card)
+    lf = _large_frame_phase(card, sp.pop("pipe"), big["huge"].pop("pipe"))
+    mk = _mobile_kernel_phase(card)
+    ms = _mobile_slice_phase(card)
 
-    t = kp["times"]
+    def entry(name, route, source, replaces, launches, err, timed, bound, library=None):
+        """One kernel's line: ``timed`` (kernel ms, plain ms, ...) and ``bound``
+        (ms, "bytes" or "operations") at the same call."""
+        return {"name": name, "route": route,
+                "source": f"yolo_sam_inference_tpu_torch/{source}",
+                "replaces": f"yolo_sam_inference_tpu/{replaces}", "launches": launches,
+                "max_abs_err": err, "ms": timed[0], "plain_ms": timed[1], "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": library}
+
+    t, kb = kp["times"], kp["bounds"]
+    attn_src, attn_tpu = "csrc/window_attn_relpos.cu", ("ops/flash_attention.py:608 "
+                                                        "flash_attention_grid (+ :1085 "
+                                                        "relpos_tables)")
     table = [
-        {"name": "gemm_bf16", "route": "cuda",
-         "source": "yolo_sam_inference_tpu_torch/csrc/gemm_bf16.cu",
-         "replaces": "yolo_sam_inference_tpu/ops/fused_ln.py:645 fused_ln_matmul "
-                     "(+ :202 fused_ln_mlp, projection of flash_attention.py:608)",
-         "launches": sp["launches"]["gemm_bf16"], "max_abs_err": kp["errs"]["gemm_bf16"],
-         "ms": t["gemm_bf16"][0], "plain_ms": t["gemm_bf16"][1]},
-        {"name": "window_attn_relpos", "route": "cuda",
-         "source": "yolo_sam_inference_tpu_torch/csrc/window_attn_relpos.cu",
-         "replaces": "yolo_sam_inference_tpu/ops/flash_attention.py:608 flash_attention_grid "
-                     "(+ :1085 relpos_tables)",
-         "launches": sp["launches"]["window_attn_relpos"],
-         "max_abs_err": kp["errs"]["window_attn_relpos"],
-         "ms": t["attn_w16"][0], "plain_ms": t["attn_w16"][1]},
-        {"name": "layer_norm", "route": "triton",
-         "source": "yolo_sam_inference_tpu_torch/ops/fused_ln.py",
-         "replaces": "yolo_sam_inference_tpu/ops/fused_ln.py:761 fused_ln (+ :56 fused_add_ln)",
-         "launches": sp["launches"]["layer_norm"], "max_abs_err": kp["errs"]["layer_norm"],
-         "ms": t["layer_norm"][0], "plain_ms": t["layer_norm"][1]},
+        entry("gemm_bf16", "cuda", "csrc/gemm_bf16.cu",
+              "ops/fused_ln.py:645 fused_ln_matmul (+ :202 fused_ln_mlp, projection of "
+              "flash_attention.py:608)", sp["launches"]["gemm_bf16"], kp["errs"]["gemm_bf16"],
+              t["gemm_bf16"], kb["gemm_bf16"]),
+        entry("window_attn_relpos", "cuda", attn_src, attn_tpu,
+              sp["launches"]["window_attn_relpos"], kp["errs"]["window_attn_relpos"],
+              t["attn_w16"], kb["attn_w16"]),
+        entry("layer_norm", "triton", "ops/fused_ln.py",
+              "ops/fused_ln.py:761 fused_ln (+ :56 fused_add_ln)", sp["launches"]["layer_norm"],
+              kp["errs"]["layer_norm"], t["layer_norm"], kb["layer_norm"],
+              kp["library"]["layer_norm"]),
     ]
-    dt = dp["times"]
+    dt, db = dp["times"], dp["bounds"]
     for name, replaces, timed in (
-        ("keys_stream", "yolo_sam_inference_tpu/ops/decoder_fused.py:298 i2t_keys_update "
-                        "(+ the k/v projections of :231 t2i_shared_attend)",
-         "keys_stream layer 1 pass alone"),
-        ("t2i_combine", "yolo_sam_inference_tpu/ops/decoder_fused.py:298 i2t_keys_update "
-                        "(its next-stage t2i, joined over the tiles)", "t2i_combine"),
-        ("t2i_attend", "yolo_sam_inference_tpu/ops/decoder_fused.py:231 t2i_shared_attend",
-         "t2i_attend"),
-        ("window_crop", "yolo_sam_inference_tpu/ops/window_crop.py:46 window_crop", "window_crop"),
-        ("hull_support", "yolo_sam_inference_tpu/ops/hull_support.py:55 support_vertices_tpu",
-         "hull_support"),
+        ("keys_stream", "ops/decoder_fused.py:298 i2t_keys_update (+ the k/v projections of "
+                        ":231 t2i_shared_attend)", "keys_stream layer 1 pass alone"),
+        ("t2i_combine", "ops/decoder_fused.py:298 i2t_keys_update (its next-stage t2i, joined "
+                        "over the tiles)", "t2i_combine"),
+        ("t2i_attend", "ops/decoder_fused.py:231 t2i_shared_attend", "t2i_attend"),
+        ("window_crop", "ops/window_crop.py:46 window_crop", "window_crop"),
+        ("hull_support", "ops/hull_support.py:55 support_vertices_tpu", "hull_support"),
     ):
         src = "decoder_keys.cu" if name.startswith(("keys", "t2i")) else f"{name}.cu"
-        table.append({"name": name, "route": "cuda",
-                      "source": f"yolo_sam_inference_tpu_torch/csrc/{src}", "replaces": replaces,
-                      "launches": sp["launches"][name], "max_abs_err": dp["errs"][name],
-                      "ms": dt[timed][0], "plain_ms": dt[timed][1]})
-    bt = bk["times"]
+        table.append(entry(name, "cuda", f"csrc/{src}", replaces, sp["launches"][name],
+                           dp["errs"][name], dt[timed], db[timed], dp["library"].get(timed)))
+    bt, bb = bk["times"], bk["bounds"]
     lb, hb = big["large"]["launches"], big["huge"]["launches"]
     table += [
-        {"name": "gemm_bf16 K10", "route": "cuda",
-         "source": "yolo_sam_inference_tpu_torch/csrc/gemm_bf16.cu",
-         "replaces": "yolo_sam_inference_tpu/ops/fused_ln.py:302 fused_ln_mlp_tiled",
-         "launches": lb["bf16"]["gemm_bf16"] + hb["bf16"]["gemm_bf16"],
-         "max_abs_err": bk["errs"]["gemm_bf16"], "ms": bt["K10 ViT-H"][0],
-         "plain_ms": bt["K10 ViT-H"][1]},
-        {"name": "window_attn_relpos hd80", "route": "cuda",
-         "source": "yolo_sam_inference_tpu_torch/csrc/window_attn_relpos.cu",
-         "replaces": "yolo_sam_inference_tpu/ops/flash_attention.py:608 flash_attention_grid "
-                     "(+ :1085 relpos_tables)",
-         "launches": hb["bf16"]["window_attn_relpos"] + hb["int8"]["window_attn_relpos"],
-         "max_abs_err": bk["errs"]["window_attn_relpos"], "ms": bt["attn hd80 w16"][0],
-         "plain_ms": bt["attn hd80 w16"][1]},
-        {"name": "fused_ln_matmul_int8", "route": "cuda",
-         "source": "yolo_sam_inference_tpu_torch/csrc/gemm_int8.cu",
-         "replaces": "yolo_sam_inference_tpu/ops/fused_ln.py:711 fused_ln_matmul_int8",
-         "launches": lb["int8"]["fused_ln_matmul_int8"] + hb["int8"]["fused_ln_matmul_int8"],
-         "max_abs_err": bk["errs"]["fused_ln_matmul_int8"], "ms": bt["K11c ViT-H"][0],
-         "plain_ms": bt["K11c ViT-H"][1]},
-        {"name": "fused_ln_mlp_int8", "route": "cuda",
-         "source": "yolo_sam_inference_tpu_torch/csrc/gemm_int8.cu",
-         "replaces": "yolo_sam_inference_tpu/ops/fused_ln.py:438 fused_ln_mlp_int8",
-         "launches": lb["int8"]["fused_ln_mlp_int8"],
-         "max_abs_err": bk["errs"]["fused_ln_mlp_int8"], "ms": bt["K11a ViT-L"][0],
-         "plain_ms": bt["K11a ViT-L"][1]},
-        {"name": "fused_ln_mlp_tiled_int8", "route": "cuda",
-         "source": "yolo_sam_inference_tpu_torch/csrc/gemm_int8.cu",
-         "replaces": "yolo_sam_inference_tpu/ops/fused_ln.py:549 fused_ln_mlp_tiled_int8",
-         "launches": hb["int8"]["fused_ln_mlp_tiled_int8"],
-         "max_abs_err": bk["errs"]["fused_ln_mlp_tiled_int8"], "ms": bt["K11b ViT-H"][0],
-         "plain_ms": bt["K11b ViT-H"][1]},
+        entry("gemm_bf16 K10", "cuda", "csrc/gemm_bf16.cu", "ops/fused_ln.py:302 "
+              "fused_ln_mlp_tiled", lb["bf16"]["gemm_bf16"] + hb["bf16"]["gemm_bf16"],
+              bk["errs"]["gemm_bf16"], bt["K10 ViT-H"], bb["K10 ViT-H"]),
+        entry("window_attn_relpos hd80", "cuda", attn_src, attn_tpu,
+              hb["bf16"]["window_attn_relpos"] + hb["int8"]["window_attn_relpos"],
+              bk["errs"]["window_attn_relpos"], bt["attn hd80 w16"], bb["attn hd80 w16"]),
+        entry("fused_ln_matmul_int8", "cuda", "csrc/gemm_int8.cu",
+              "ops/fused_ln.py:711 fused_ln_matmul_int8",
+              lb["int8"]["fused_ln_matmul_int8"] + hb["int8"]["fused_ln_matmul_int8"],
+              bk["errs"]["fused_ln_matmul_int8"], bt["K11c ViT-H"], bb["K11c ViT-H"]),
+        entry("fused_ln_mlp_int8", "cuda", "csrc/gemm_int8.cu",
+              "ops/fused_ln.py:438 fused_ln_mlp_int8", lb["int8"]["fused_ln_mlp_int8"],
+              bk["errs"]["fused_ln_mlp_int8"], bt["K11a ViT-L"], bb["K11a ViT-L"]),
+        entry("fused_ln_mlp_tiled_int8", "cuda", "csrc/gemm_int8.cu",
+              "ops/fused_ln.py:549 fused_ln_mlp_tiled_int8",
+              hb["int8"]["fused_ln_mlp_tiled_int8"], bk["errs"]["fused_ln_mlp_tiled_int8"],
+              bt["K11b ViT-H"], bb["K11b ViT-H"]),
+        entry("window_attn_relpos w48", "cuda", attn_src, attn_tpu,
+              lf["vit-b 768"]["window_attn_relpos"], lk["errs"]["window_attn_relpos"],
+              lk["times"]["w48 hd64"], lk["bounds"]["w48 hd64"]),
+        entry("window_attn_relpos w64", "cuda", attn_src, attn_tpu,
+              lf["config 4"]["window_attn_relpos"], lk["errs"]["window_attn_relpos"],
+              lk["times"]["w64 hd80"], lk["bounds"]["w64 hd80"]),
     ]
-    for entry in table:
-        if entry["launches"] < 1:
-            raise AssertionError(f"{entry['name']}: no launch on its path")
+    mt, mb, ml, mla = mk["times"], mk["bounds"], mk["library"], ms["launches"]
+    table += [
+        entry("tinyvit_attn", "cuda", "csrc/tinyvit_attn.cu",
+              "ops/tinyvit_attention.py:143 tinyvit_window_block (+ :384 "
+              "tinyvit_window_block_cells)", mla["tinyvit_attn"], mk["errs"]["tinyvit_attn"],
+              mt["tinyvit_attn stage2 ws14"], mb["tinyvit_attn stage2 ws14"],
+              ml["tinyvit_attn stage2 ws14"]),
+        entry("mbconv_block", "cuda", "csrc/tinyvit_conv.cu",
+              "ops/mbconv_fused.py:134 mbconv_block", mla["mbconv_block"],
+              mk["errs"]["mbconv"], mt["mbconv stage0"], mb["mbconv stage0"]),
+        entry("patch_merge_block", "cuda", "csrc/tinyvit_conv.cu",
+              "ops/merge_fused.py:125 patch_merge_block", mla["patch_merge_block"],
+              mk["errs"]["patch_merge"], mt["patch_merge merge0"], mb["patch_merge merge0"]),
+        entry("dw_conv3x3", "cuda", "csrc/tinyvit_conv.cu",
+              "ops/dw_ln_mlp.py:88 dw_ln_mlp (its depthwise; LN + MLP on gemm_bf16)",
+              mla["dw_conv3x3"], mk["errs"]["dw_conv3x3"], mt["dw_conv3x3 stage2"],
+              mb["dw_conv3x3 stage2"], ml["dw_conv3x3 stage2"]),
+    ]
+    _say("result", f"mobile-sam {ms['ms_per_batch']:.2f} ms/batch of {TIMED_BATCH} = "
+                   f"{TIMED_BATCH / ms['ms_per_batch'] * 1000:.2f} img/s; config 4 "
+                   f"{lf['ms config 4']:.2f} ms/batch of {lf['batch config 4']} = "
+                   f"{lf['batch config 4'] / lf['ms config 4'] * 1000:.2f} img/s [{card}]")
+    for row in table:
+        if row["launches"] < 1:
+            raise AssertionError(f"{row['name']}: no launch on its path")
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -24,6 +24,9 @@ from yolo_sam_inference_tpu_torch.ops.flash_attention import (
     window_attention,
     window_attention_plain,
 )
+from yolo_sam_inference_tpu_torch.ops import dw_ln_mlp as tdw
+from yolo_sam_inference_tpu_torch.ops import mbconv_fused as tmb
+from yolo_sam_inference_tpu_torch.ops import tinyvit_attention as ttv
 from yolo_sam_inference_tpu_torch.ops.hull_support import support_points, support_points_plain
 from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop, window_crop_plain
 
@@ -63,10 +66,14 @@ def _close_int8(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("window,hd", [(16, 64), (32, 64), (16, 80), (32, 80)])
+@pytest.mark.parametrize("window,hd", [(16, 64), (32, 64), (16, 80), (32, 80), (48, 64),
+                                       (64, 64), (48, 80), (64, 80)])
 def test_window_attention_vs_plain(gen, window, hd):
+    """Windows 16 and 32 on a 32 x 32 grid; 48 and 64 (the global layers of
+    the 768 and 1024 canvases) on one window of that size."""
     heads = 12 if hd == 64 else 16
-    qkv = _randn(gen, 2, 32, 32, 3 * heads * hd)
+    s = max(32, window)
+    qkv = _randn(gen, 2, s, s, 3 * heads * hd)
     rel_h, rel_w = (_randn(gen, 2 * window - 1, hd, std=0.3) for _ in range(2))
     before = window_attention.launches
     got = window_attention(qkv, rel_h, rel_w, heads, window)
@@ -156,6 +163,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         window_attention(qkv.float(), rel, rel, 12, 16)
     with pytest.raises(ValueError, match="hd=64"):
         window_attention(qkv, _randn(gen, 31, 96), _randn(gen, 31, 96), 8, 16)
+    qkv48 = _randn(gen, 1, 48, 48, 3 * 768)
+    with pytest.raises(ValueError, match="window 16, 32, 48"):  # a window still refused
+        window_attention(qkv48, _randn(gen, 47, 64), _randn(gen, 47, 64), 12, 24)
+    with pytest.raises(ValueError, match="ws 7 or 14"):
+        ttv.tinyvit_attention(_randn(gen, 1, 8, 8, 384), _randn(gen, 384),
+                              _randn(gen, 4, 81), 4, 5)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        tmb.mbconv_block(_randn(gen, 1, 8, 8, 48), _randn(gen, 48, 192), _randn(gen, 192),
+                         _randn(gen, 3, 3, 192), _randn(gen, 192), _randn(gen, 192, 48),
+                         _randn(gen, 48))
     with pytest.raises(ValueError, match="multiples of 8"):
         tln.gemm_bf16(_randn(gen, 16, 12), _randn(gen, 12, 16))
 
@@ -232,3 +249,95 @@ def test_support_points_vs_plain(gen):
     assert support_points.launches == before + 1
     # the same rounded fp32 scores and the same tie-break: identical points
     assert torch.equal(got, support_points_plain(pts, dirs))
+
+
+# ---------------------------------------------------------------- MobileSAM
+
+
+def _f32(gen, *shape, std=1.0):
+    return _randn(gen, *shape, std=std, dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads,ws", [((2, 16, 16, 128), 4, 7), ((2, 15, 15, 160), 5, 14),
+                                            ((2, 9, 9, 320), 10, 7), ((1, 14, 14, 128), 4, 7)])
+def test_tinyvit_attention_vs_plain(gen, shape, heads, ws):
+    """K13's attention kernel: pad tokens (16 -> 21, 15 -> 28, 9 -> 14) read
+    the pad row; an exact tiling (14) has none."""
+    b, h, w, c = shape
+    qkv = _randn(gen, b, h, w, 3 * c)
+    pad = _randn(gen, 3 * c)
+    table = _randn(gen, heads, (2 * ws - 1) ** 2, std=0.5)
+    before = ttv.tinyvit_attention.launches
+    got = ttv.tinyvit_attention(qkv, pad, table, heads, ws)
+    assert ttv.tinyvit_attention.launches == before + 1
+    _close(got, ttv.tinyvit_attention_plain(qkv.float(), pad.float(), table, heads, ws), 2e-2)
+
+
+@pytest.mark.cuda
+def test_tinyvit_window_block_vs_plain(gen):
+    """K13 as the encoder runs it: gemm_bf16 (LN + qkv), the attention kernel,
+    gemm_bf16 (projection + residual), against the pad-then-LN reference."""
+    b, h, w, c, heads, ws = 2, 16, 16, 128, 4, 7
+    x = _randn(gen, b, h, w, c)
+    table = _randn(gen, heads, (2 * ws - 1) ** 2, std=0.5)
+    s, lb = 1.0 + _randn(gen, c, std=0.1), _randn(gen, c, std=0.5)
+    wq, bq = _randn(gen, c, 3 * c, std=c ** -0.5), _randn(gen, 3 * c, std=0.3)
+    wp, bp = _randn(gen, c, c, std=c ** -0.5), _randn(gen, c, std=0.1)
+    args = (table, s, lb, wq, bq, wp, bp, heads, ws)
+    before = ttv.tinyvit_attention.launches, tln.gemm_bf16.launches
+    got = ttv.tinyvit_window_block(x, *args)
+    assert (ttv.tinyvit_attention.launches, tln.gemm_bf16.launches) == (before[0] + 1,
+                                                                         before[1] + 2)
+    _close(got, ttv.tinyvit_window_block_reference(x.float(), *args), 2e-2)
+
+
+def _conv_weights(gen, c, e, co):
+    return (_randn(gen, c, e, std=c ** -0.5), _f32(gen, e, std=0.3),
+            _randn(gen, 3, 3, e, std=1 / 3), _f32(gen, e, std=0.3),
+            _randn(gen, e, co, std=e ** -0.5), _f32(gen, co, std=0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,e,co,residual", [((2, 16, 16, 64), 256, 64, True),
+                                                 ((1, 10, 12, 64), 256, 64, True),
+                                                 ((2, 8, 8, 160), 320, 320, False)])
+def test_mbconv_vs_plain(gen, shape, e, co, residual):
+    """K14: stage 0's MBConv (a ragged 10 x 12 grid too) and the stride-1
+    merge2 without the residual."""
+    x = _randn(gen, *shape)
+    w = _conv_weights(gen, shape[-1], e, co)
+    before = tmb.mbconv_block.launches
+    got = tmb.mbconv_block(x, *w, residual=residual)
+    assert tmb.mbconv_block.launches == before + 1
+    _close(got, tmb.mbconv_plain(x.float(), *w, stride=1, residual=residual), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,co", [((2, 16, 16, 64), 128), ((2, 12, 20, 128), 160)])
+def test_patch_merge_vs_plain(gen, shape, co):
+    """K15: stride-2 merges, the second with ragged 6 x 10 output tiles."""
+    x = _randn(gen, *shape)
+    w = _conv_weights(gen, shape[-1], co, co)
+    before = tmb.patch_merge_block.launches
+    got = tmb.patch_merge_block(x, *w)
+    assert tmb.patch_merge_block.launches == before + 1
+    _close(got, tmb.mbconv_plain(x.float(), *w, stride=2, residual=False), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 16, 128), (1, 9, 7, 320)])
+def test_dw_ln_mlp_vs_plain(gen, shape):
+    """K16: the depthwise kernel alone, then the tail (dw + two gemm_bf16)."""
+    c = shape[-1]
+    x = _randn(gen, *shape)
+    wd, bd = _randn(gen, 3, 3, c, std=1 / 3), _f32(gen, c, std=0.3)
+    s, b = 1.0 + _f32(gen, c, std=0.1), _f32(gen, c, std=0.1)
+    w1, b1 = _randn(gen, c, 4 * c, std=c ** -0.5), _f32(gen, 4 * c, std=0.1)
+    w2, b2 = _randn(gen, 4 * c, c, std=(4 * c) ** -0.5), _f32(gen, c, std=0.1)
+    before = tdw.dw_conv3x3.launches, tln.gemm_bf16.launches
+    _close(tdw.dw_conv3x3(x, wd, bd), tdw.dw_conv3x3_plain(x.float(), wd, bd), 2e-2)
+    got = tdw.dw_ln_mlp(x, wd, bd, s, b, w1, b1, w2, b2)
+    assert (tdw.dw_conv3x3.launches, tln.gemm_bf16.launches) == (before[0] + 2, before[1] + 2)
+    _close(got, tdw.dw_ln_mlp(x.float(), wd, bd, s, b, w1, b1, w2, b2, gemm=tln.gemm_plain,
+                              dw=tdw.dw_conv3x3_plain), 2e-2)

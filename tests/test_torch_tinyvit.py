@@ -1,0 +1,399 @@
+"""The port's MobileSAM (TinyViT-5M) and large-canvas paths against the JAX
+package, on the CPU.
+
+The port's numpy init against the JAX one; its plain TinyViT encoder against
+``tinyvit_encoder(fused=False)`` at full widths; the plain versions of
+K13-K16 against the JAX package's Pallas kernels in interpret mode (as
+``tests/test_tinyvit.py`` runs them); the weight bridge; the MobileSAM
+pipeline against the JAX one; and, for frames above 512 px, the attention at
+windows 48 and 64, the ViT encoder on the 768 and 1024 canvases and the
+letterbox from 2048 px. All fp32, inputs from numpy seeds. The CUDA kernels
+are held against these plain versions on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from synth import make_cell_image
+from yolo_sam_inference_tpu.models.sam import model as jsam
+from yolo_sam_inference_tpu.models.sam import sam_tiny_test as jax_tiny
+from yolo_sam_inference_tpu.models.sam import tinyvit as jtv
+from yolo_sam_inference_tpu.models.yolo import YoloConfig as JaxYoloConfig
+from yolo_sam_inference_tpu.ops import preprocess as jpre
+from yolo_sam_inference_tpu.ops.dw_ln_mlp import dw_ln_mlp as jax_dw_ln_mlp
+from yolo_sam_inference_tpu.ops.mbconv_fused import mbconv_block as jax_mbconv
+from yolo_sam_inference_tpu.ops.merge_fused import patch_merge_block as jax_merge
+from yolo_sam_inference_tpu.ops.tinyvit_attention import (
+    tinyvit_window_block as jax_window_block,
+    tinyvit_window_block_cells as jax_window_block_cells,
+)
+from yolo_sam_inference_tpu.pipeline import engine as jengine
+from yolo_sam_inference_tpu_torch.models.sam import (
+    SamModel,
+    TinyViT,
+    TinyViTConfig,
+    init_sam_params,
+    init_tinyvit_params,
+    is_tinyvit,
+    sam_tiny_test,
+)
+from yolo_sam_inference_tpu_torch.models.yolo import YoloConfig
+from yolo_sam_inference_tpu_torch.ops import preprocess
+from yolo_sam_inference_tpu_torch.ops.dw_ln_mlp import dw_ln_mlp
+from yolo_sam_inference_tpu_torch.ops.flash_attention import (
+    window_attention,
+    window_attention_plain,
+)
+from yolo_sam_inference_tpu_torch.ops.mbconv_fused import mbconv_block, patch_merge_block
+from yolo_sam_inference_tpu_torch.ops.tinyvit_attention import (
+    offset_index,
+    tinyvit_attention_plain,
+    tinyvit_window_block,
+    tinyvit_window_block_reference,
+)
+from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+from yolo_sam_inference_tpu_torch.weights import from_jax_params
+
+from test_torch_models import _assert_same_tree, _leaves
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def _j(a):
+    return jnp.asarray(np.asarray(a, np.float32))
+
+
+def _rand_tinyvit_tree(seed, cfg):
+    """Init tree with every zero or one leaf (biases, LN affines, attention
+    bias tables) drawn at random: zeros hide padding and bias bugs."""
+    tree = init_tinyvit_params(seed, cfg)
+    rng = np.random.default_rng(seed + 100)
+
+    def fill(node):
+        for key, v in node.items():
+            if isinstance(v, dict):
+                fill(v)
+            elif isinstance(v, list):
+                for item in v:
+                    fill(item)
+            elif key == "scale":
+                node[key] = (1.0 + 0.1 * rng.normal(size=v.shape)).astype(np.float32)
+            elif key in ("b", "bias", "qkv_b", "proj_b", "mlp1_b", "mlp2_b"):
+                node[key] = (0.1 * rng.normal(size=v.shape)).astype(np.float32)
+            elif key == "attn_bias":
+                node[key] = (0.5 * rng.normal(size=v.shape)).astype(np.float32)
+
+    fill(tree)
+    return tree
+
+
+# ------------------------------------------------------------------ TinyViT
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_tinyvit_init_matches_jax_bitwise(seed):
+    cfg = TinyViTConfig()
+    _assert_same_tree(init_tinyvit_params(seed, cfg),
+                      jtv.init_tinyvit_params(seed, jtv.TinyViTConfig()))
+
+
+def test_offset_index_matches_jax():
+    for ws in (3, 7, 14):
+        np.testing.assert_array_equal(offset_index(ws), jtv._offset_index(ws))
+
+
+@pytest.fixture(scope="module")
+def tinyvit_tree():
+    return _rand_tinyvit_tree(3, TinyViTConfig())
+
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_tinyvit_encoder_matches_jax(tinyvit_tree, size):
+    """Full widths at images 64 and 128: stage grids 16/8/8 and 32/16/16
+    against windows 7/14/7 pad 16 -> 21, 8 -> 14, 8 -> 14 (and 32 -> 35,
+    16 -> 28, 16 -> 21): every window reaches pad tokens."""
+    cfg = TinyViTConfig(image_size=size)
+    rng = np.random.default_rng(size)
+    pix = rng.normal(size=(1, size, size, 3)).astype(np.float32)
+
+    enc = TinyViT(tinyvit_tree, cfg)
+    with torch.no_grad():
+        got = enc(_t(pix)).numpy()
+        plain = enc(_t(pix), plain=True).numpy()
+    want = np.asarray(jtv.tinyvit_encoder(tinyvit_tree, _j(pix), jtv.TinyViTConfig(
+        image_size=size), fused=False))
+    assert got.shape == want.shape == (1, size // 16, size // 16, 256)
+    np.testing.assert_array_equal(got, plain)  # the CPU wrappers are the plain versions
+    # fp32, ~25 layers in another summation order: 1e-4 of the output range
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+def _tv_block_args(rng, c, heads, ws):
+    return ((0.5 * rng.normal(size=(heads, (2 * ws - 1) ** 2))).astype(np.float32),
+            (1.0 + 0.1 * rng.normal(size=(c,))).astype(np.float32),
+            (0.5 * rng.normal(size=(c,))).astype(np.float32),
+            (rng.normal(size=(c, 3 * c)) / np.sqrt(c)).astype(np.float32),
+            (0.3 * rng.normal(size=(3 * c,))).astype(np.float32),
+            (rng.normal(size=(c, c)) / np.sqrt(c)).astype(np.float32),
+            (0.1 * rng.normal(size=(c,))).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,h,w,c,heads,ws", [(2, 9, 12, 128, 4, 7), (1, 15, 15, 160, 5, 14),
+                                              (1, 14, 14, 64, 2, 7)])
+def test_tinyvit_window_block_matches_jax_kernels(b, h, w, c, heads, ws):
+    """K13: the port's route (LN + qkv on unpadded tokens, pad tokens as keys
+    from the one pad-token row, the projection with the residual) against
+    both TPU kernel forms in interpret mode and the pad-then-LN reference.
+    A large LN bias and qkv bias make the pad keys weigh."""
+    rng = np.random.default_rng(h * c + ws)
+    x = rng.normal(size=(b, h, w, c)).astype(np.float32)
+    table, *args = _tv_block_args(rng, c, heads, ws)
+    got = tinyvit_window_block(_t(x), _t(table), *map(_t, args), heads, ws).numpy()
+    ref = tinyvit_window_block_reference(_t(x), _t(table), *map(_t, args), heads, ws).numpy()
+    bias_tt = _j(table)[:, jtv._offset_index(ws)]
+    for kernel in (jax_window_block, jax_window_block_cells):
+        want = np.asarray(kernel(_j(x), bias_tt, *map(_j, args), heads, ws, interpret=True))
+        # fp32 both sides (the TPU kernel's exp is fp32 on fp32 inputs)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+    if h % ws or w % ws:  # the pad keys weigh: a zero pad row gives another result
+        qkv = _t(rng.normal(size=(b, h, w, 3 * c)))
+        pad = _t(rng.normal(size=(3 * c,)))
+        real = tinyvit_attention_plain(qkv, pad, _t(table), heads, ws)
+        zero = tinyvit_attention_plain(qkv, torch.zeros(3 * c), _t(table), heads, ws)
+        assert (real - zero).abs().max() > 1e-2
+
+
+def _conv_weights(rng, c, e, co):
+    return ((rng.normal(size=(c, e)) / np.sqrt(c)).astype(np.float32),
+            (0.3 * rng.normal(size=(e,))).astype(np.float32),
+            (rng.normal(size=(3, 3, 1, e)) / 3).astype(np.float32),
+            (0.3 * rng.normal(size=(e,))).astype(np.float32),
+            (rng.normal(size=(e, co)) / np.sqrt(e)).astype(np.float32),
+            (0.3 * rng.normal(size=(co,))).astype(np.float32))
+
+
+# The TPU kernels' GELU uses a rational erf with a fast reciprocal (within
+# 9.3e-5 of exact erf per element, tests/test_tinyvit.py:143-145); the
+# port's plain versions use torch.erf: the bound of tests/test_tinyvit.py.
+_ERF_ATOL = 3e-4
+
+
+@pytest.mark.parametrize("residual,c,co", [(True, 64, 64), (False, 160, 320)])
+def test_mbconv_matches_jax_kernel(residual, c, co):
+    """K14: stage 0's MBConv and the stride-1 merge2 (no residual), with
+    biases that make gelu(b1) != 0 on the padding."""
+    rng = np.random.default_rng(c)
+    e = 4 * c if residual else co
+    x = rng.normal(size=(2, 16, 16, c)).astype(np.float32)
+    w = _conv_weights(rng, c, e, co)
+    got = mbconv_block(_t(x), *map(_t, w), residual=residual).numpy()
+    want = np.asarray(jax_mbconv(_j(x), *map(_j, w), interpret=True, residual=residual))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=_ERF_ATOL)
+
+
+@pytest.mark.parametrize("shape,co", [((2, 6, 16, 64), 128), ((1, 18, 32, 128), 160)])
+def test_patch_merge_matches_jax_kernel(shape, co):
+    """K15 at an odd number of row strips (3 strips of 1 and of 3 quarter
+    rows): only the top and left padding of the stride-2 depthwise exists."""
+    rng = np.random.default_rng(co)
+    x = rng.normal(size=shape).astype(np.float32)
+    w = _conv_weights(rng, shape[-1], co, co)
+    got = patch_merge_block(_t(x), *map(_t, w)).numpy()
+    want = np.asarray(jax_merge(_j(x), *map(_j, w), interpret=True))
+    assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, co)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=_ERF_ATOL)
+
+
+def test_dw_ln_mlp_matches_jax_kernel():
+    """K16: y = dw3x3(x) + b; y + mlp(LN(y)) -- the residual is y, not x."""
+    rng = np.random.default_rng(16)
+    c = 128
+    x = rng.normal(size=(2, 16, 16, c)).astype(np.float32)
+    wd = (rng.normal(size=(3, 3, 1, c)) / 3).astype(np.float32)
+    bd = (0.3 * rng.normal(size=(c,))).astype(np.float32)
+    s, b = (1.0 + 0.1 * rng.normal(size=(c,))).astype(np.float32), (0.1 * rng.normal(
+        size=(c,))).astype(np.float32)
+    w1, b1 = (rng.normal(size=(c, 4 * c)) / np.sqrt(c)).astype(np.float32), (0.1 * rng.normal(
+        size=(4 * c,))).astype(np.float32)
+    w2, b2 = (rng.normal(size=(4 * c, c)) / np.sqrt(4 * c)).astype(np.float32), (
+        0.1 * rng.normal(size=(c,))).astype(np.float32)
+    args = (wd, bd, s, b, w1, b1, w2, b2)
+    got = dw_ln_mlp(_t(x), *map(_t, args)).numpy()
+    want = np.asarray(jax_dw_ln_mlp(_j(x), *map(_j, args), eps=1e-5, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=_ERF_ATOL)
+
+
+def test_bridge_builds_tinyvit(tinyvit_tree):
+    """from_jax_params on a tree with "tinyvit" and no "vision": the module's
+    parameters are the tree's leaves (1x1 convs as (in, out) matrices,
+    depthwise as (3, 3, C), stems and the neck's 3x3 as OIHW)."""
+    cfg = sam_tiny_test()
+    tree = dict(init_sam_params(1, cfg))
+    tree.pop("vision")
+    tree["tinyvit"] = tinyvit_tree
+    _, sam = from_jax_params(None, tree, "cpu", torch.float32, sam_config=cfg)
+    tv = sam.vision
+    leaves = dict(_leaves(tinyvit_tree))
+    pairs = {
+        "/stem1/w": (tv.stem1_w, (3, 2, 0, 1)), "/neck/conv2_w": (tv.neck_conv2, (3, 2, 0, 1)),
+        "/stage0/1/conv1/w": (tv.stage0[1].w1, None), "/merge1/conv2/w": (tv.merge1.wd, None),
+        "/stage2/3/attn/attn_bias": (tv.stages[1][3].attn_bias, None),
+        "/stage3/1/local_conv/w": (tv.stages[2][1].local_w, None),
+        "/stage1/0/mlp2_w": (tv.stages[0][0].mlp2_w, None),
+        "/neck/ln2/bias": (tv.neck_ln2_bias, None),
+    }
+    for path, (param, perm) in pairs.items():
+        want = leaves[path]
+        if perm is not None:
+            want = want.transpose(perm)
+        elif want.ndim == 4 and want.shape[:2] == (1, 1):
+            want = want[0, 0]
+        np.testing.assert_array_equal(param.numpy(), want.reshape(param.shape), err_msg=path)
+    n_leaves = sum(np.size(v) for _, v in _leaves(tinyvit_tree))
+    assert sum(p.numel() for p in tv.parameters()) == n_leaves
+    _, sam16 = from_jax_params(None, tree, "cpu", torch.bfloat16, sam_config=cfg)
+    assert all(p.dtype == torch.bfloat16 for p in sam16.vision.parameters())
+
+
+# ------------------------------------------------------------ MobileSAM slice
+
+MOBILE_OPTS = dict(batch_size=2, yolo_size=64, max_det=4, metric_crop=48, nms_candidates=32,
+                   sam_encoder_size=64)
+
+
+@pytest.fixture(scope="module")
+def mobile_both():
+    """Both MobileSAM pipelines (test_tinyvit.py:382-390's configuration)."""
+    rng = np.random.default_rng(0)
+    frames = np.stack([make_cell_image(rng, 64, 64) for _ in range(2)])
+    jp = jengine.CellSegmentationPipeline(
+        sam_model_type="mobile-sam", sam_config=dataclasses.replace(
+            jax_tiny(), image_size=64, patch_size=16),
+        yolo_config=JaxYoloConfig(num_classes=1), seed=0,
+        options=jengine.PipelineOptions(compute_dtype=jnp.float32, **MOBILE_OPTS))
+    tp = tengine.CellSegmentationPipeline(
+        "mobile-sam", device="cpu", sam_config=dataclasses.replace(
+            sam_tiny_test(), image_size=64, patch_size=16),
+        yolo_config=YoloConfig(num_classes=1), seed=0,
+        options=tengine.PipelineOptions(compute_dtype=torch.float32, **MOBILE_OPTS))
+    return frames, jp, tp, jp.process_batch_arrays(frames), tp.process_batch_arrays(frames)
+
+
+def test_mobile_sam_params_match_jax(mobile_both):
+    _, jp, tp, _, _ = mobile_both
+    assert is_tinyvit(tp.sam_params)
+    _assert_same_tree(tp.sam_params, jp.sam_params)
+
+
+def test_mobile_sam_slice_matches_jax(mobile_both):
+    """Embeddings to fp32 rounding; detections exactly; mask crops on >= 99.5%
+    of pixels and the metrics of identical masks, as the config-1 slice test."""
+    frames, jp, tp, jo, to = mobile_both
+    h, w = frames.shape[1:3]
+    img = torch.from_numpy(frames)
+    with torch.inference_mode():
+        emb = tp._stages(h, w)["embed"](img).numpy()
+    jst = jp._stages(h, w)
+    jemb = np.asarray(jst["embed"](jst["sam_params"], jnp.asarray(frames)))
+    assert emb.shape == jemb.shape == (2, 4, 4, 16)
+    np.testing.assert_allclose(emb, jemb, rtol=0, atol=1e-4 * np.abs(jemb).max())
+    np.testing.assert_array_equal(to["valid"], jo["valid"])
+    np.testing.assert_allclose(to["boxes"], jo["boxes"], rtol=1e-4, atol=1e-3)
+    agree = to["mask_crops"] == jo["mask_crops"]
+    assert agree.mean() >= 0.995, agree.mean()
+    same = agree.all(axis=(2, 3)) & jo["valid"]
+    for key, want in jo["metrics"].items():
+        np.testing.assert_allclose(to["metrics"][key][same], want[same], rtol=1e-4, atol=1e-3,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("mobile", [False, True])
+def test_sam_model_picks_its_encoder_from_the_tree(tinyvit_tree, mobile):
+    """One rule, ``is_tinyvit``: a "tinyvit" subtree and no "vision" one
+    builds TinyViT; a tree that keeps "vision" builds the ViT, whatever else
+    it holds."""
+    cfg = dataclasses.replace(sam_tiny_test(), image_size=64, patch_size=16)
+    tree = dict(init_sam_params(1, cfg), tinyvit=tinyvit_tree)
+    if mobile:
+        tree.pop("vision")
+    assert is_tinyvit(tree) == mobile
+    assert isinstance(SamModel(tree, cfg).vision, TinyViT) == mobile
+
+
+# ------------------------------------------------- frames above 512 px (repair)
+
+
+@pytest.mark.parametrize("window", [48, 64])
+def test_window_attention_at_48_and_64_matches_jax(window):
+    """The global attention of the 768 and 1024 canvases against the JAX CPU
+    path (``_vision_attention``: q-scaled logits, unscaled-q rel-pos bias),
+    one window of window x window tokens, 2 heads of 8."""
+    heads, hd = 2, 8
+    c = heads * hd
+    rng = np.random.default_rng(window)
+    x = rng.normal(size=(1, window, window, c)).astype(np.float32)
+    wqkv = (rng.normal(size=(c, 3 * c)) / np.sqrt(c)).astype(np.float32)
+    bqkv = (0.1 * rng.normal(size=(3 * c,))).astype(np.float32)
+    rel = [(0.3 * rng.normal(size=(2 * window - 1, hd))).astype(np.float32) for _ in range(2)]
+    wproj = np.eye(c, dtype=np.float32)
+    qkv = _t(x) @ _t(wqkv) + _t(bqkv)
+    got = window_attention(qkv, _t(rel[0]), _t(rel[1]), heads, window).numpy()
+    p = {"qkv": {"w": _j(wqkv), "b": _j(bqkv)}, "proj": {"w": _j(wproj), "b": _j(np.zeros(c))},
+         "rel_pos_h": _j(rel[0]), "rel_pos_w": _j(rel[1])}
+    want = np.asarray(jsam._vision_attention(p, _j(x), heads, True))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)  # fp32, another order
+
+
+def test_window_attention_plain_slices_large_batches(monkeypatch):
+    """The plain version runs big batches in slices of images: same result."""
+    from yolo_sam_inference_tpu_torch.ops import flash_attention as tfa
+
+    rng = np.random.default_rng(3)
+    qkv = _t(rng.normal(size=(3, 8, 8, 3 * 16)))
+    rel = _t(0.3 * rng.normal(size=(15, 8)))
+    whole = window_attention_plain(qkv, rel, rel, 2, 8)
+    monkeypatch.setattr(tfa, "_PLAIN_LOGIT_BYTES", 2 * 8 * 8 * 64 * 4)  # one image a slice
+    torch.testing.assert_close(window_attention_plain(qkv, rel, rel, 2, 8), whole,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("canvas", [768, 1024])
+def test_vit_encoder_on_large_canvases_matches_jax(canvas):
+    """A tiny ViT (patch 16, 2 layers, the second global) on the 768 and 1024
+    canvases as the engine sets them up: windows 16 and 48 / 64."""
+    cfg = dataclasses.replace(sam_tiny_test(), image_size=canvas, patch_size=16, window_size=16,
+                              vision_hidden=16, vision_heads=2, vision_mlp_dim=32,
+                              output_channels=8)
+    tree = init_sam_params(2, cfg)
+    rng = np.random.default_rng(canvas)
+    for lp in tree["vision"]["layers"]:
+        for key in ("rel_pos_h", "rel_pos_w"):
+            lp["attn"][key] = (0.3 * rng.normal(size=lp["attn"][key].shape)).astype(np.float32)
+    pix = rng.normal(size=(1, canvas, canvas, 3)).astype(np.float32)
+    with torch.no_grad():
+        got = SamModel(tree, cfg).vision(_t(pix)).numpy()
+    want = np.asarray(jsam.sam_image_encoder(tree, _j(pix), cfg))
+    assert got.shape == want.shape == (1, canvas // 16, canvas // 16, 8)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_letterbox_from_2048_matches_jax():
+    """Config 4's frames: 2048 x 2048 down to the 640 YOLO canvas."""
+    rng = np.random.default_rng(2048)
+    img = rng.integers(0, 256, size=(1, 2048, 2048, 3), dtype=np.uint8)
+    got, r, pad = preprocess.letterbox_batch(torch.from_numpy(img), 640)
+    want, jr, jpad = jpre.letterbox_batch(jnp.asarray(img), 640)
+    assert r == jr and pad == jpad and got.shape == (1, 640, 640, 3)
+    # the antialiased triangle filter over a 3.2x downsample, fp32 sums
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

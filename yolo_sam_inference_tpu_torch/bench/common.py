@@ -38,16 +38,18 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def cell_frames(rng, n: int, size: int, cells: int = 12):
     """uint8 (n, size, size, 3) gray frames with ``cells`` bright elliptical
-    cells each."""
+    cells each. Each cell is drawn inside its bounding box only."""
     import numpy as np
 
-    yy, xx = np.mgrid[:size, :size]
-    frames = []
-    for _ in range(n):
+    frames = np.empty((n, size, size, 3), np.uint8)
+    for i in range(n):
         img = rng.normal(40, 5, size=(size, size))
         for _ in range(cells):
             cy, cx = rng.uniform(40, size - 40, size=2)
             ry, rx = rng.uniform(10, 30, size=2)
-            img[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0] = rng.uniform(150, 220)
-        frames.append(np.repeat(img.clip(0, 255)[..., None], 3, axis=2).astype(np.uint8))
-    return np.stack(frames)
+            y0, x0 = int(cy - ry), int(cx - rx)
+            yy, xx = np.mgrid[y0:int(cy + ry) + 2, x0:int(cx + rx) + 2]
+            box = img[y0:y0 + yy.shape[0], x0:x0 + yy.shape[1]]
+            box[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0] = rng.uniform(150, 220)
+        frames[i] = img.clip(0, 255).astype(np.uint8)[..., None]
+    return frames

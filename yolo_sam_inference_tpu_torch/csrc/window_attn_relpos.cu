@@ -37,10 +37,22 @@
 // the P.V product. It does not use wgmma or TMA; those come later.
 //
 // Supported: hd in {64, 80} (ViT-B/L and ViT-H; both split into m16n8k16
-// k-steps and n8 tiles), w in {16, 32}, S a multiple of w. Anything else
-// returns cudaErrorInvalidValue, and the Python wrapper raises before that.
-// At hd = 80 the accumulator grows to 40 registers a thread and Geo<32, 80>
-// takes 91 KB of shared memory, under the 227 KB a block may opt in to.
+// k-steps and n8 tiles), w in {16, 32, 48, 64}, S a multiple of w. Windows
+// 16 and 32 are the windowed layers and the global layers of a 32 x 32 grid
+// (512-pixel canvas); 48 and 64 are the global layers of the 768 and 1024
+// canvases. Anything else returns cudaErrorInvalidValue, and the Python
+// wrapper raises before that.
+//
+// The (2w-1, hd) tables pass through the 64-row second stages of the K and V
+// buffers in chunks of 64 rows (one chunk up to w = 32, two at w = 48 and 64),
+// so their length is bounded by nothing but the QR tables. Those are fp32,
+// (64, 2w + 4) each: at w = 64 they take 68 KB beside the 56 KB of bf16
+// Q/K/V tiles at hd 80, so Geo<64, 80> needs 124 KB of the 227 KB a block may
+// opt in to (set at load time for every instantiation). The rw terms of a
+// thread sit in registers up to w = 32 (2w/8 floats per row); above that the
+// loop reads them from the QRw table, which also covers w = 48, where a
+// 64-key tile does not start at a window row (2304 = 36 * 64: a tile spans
+// parts of two key rows, and 48 does not divide 64).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,9 +88,14 @@ struct Geo {
   static constexpr int NQT = NT / BQ;
   static constexpr int NKV = NT / BKV;
   static constexpr int LDR = 2 * W + 4;  // fp32 row stride of the QR tables
+  static constexpr int TROWS = 2 * W;    // table rows (2w - 1, and one zero row)
+  static constexpr int TCHUNKS = (TROWS + BKV - 1) / BKV;  // staged through K[1], V[1]
+  static constexpr bool RW_IN_REGS = BKV % W == 0;  // a key tile starts at a window row
   static constexpr size_t SMEM =
-      sizeof(__nv_bfloat16) * 5 * BQ * LDH       // Q, K[2], V[2] (tables reuse K[1], V[1])
+      sizeof(__nv_bfloat16) * 5 * BQ * LDH       // Q, K[2], V[2] (tables pass through K[1], V[1])
       + sizeof(float) * 2 * BQ * LDR;            // QRh, QRw
+  static_assert(W % 8 == 0, "one key row per n8 tile");
+  static_assert(TROWS % 8 == 0, "the table chunks split into n8 tiles");
   static_assert(HD % 16 == 0, "hd splits into m16n8k16 k-steps");
   static_assert((BKV * HD / 8) % THREADS == 0 && (BQ * HD / 8) % THREADS == 0,
                 "tile copies divide evenly over the threads");
@@ -115,8 +132,8 @@ __global__ void __launch_bounds__(THREADS)
   __nv_bfloat16* Vs = Ks + 2 * BKV * LDH;   // two stages
   float* QRh = reinterpret_cast<float*>(Vs + 2 * BKV * LDH);
   float* QRw = QRh + BQ * G::LDR;
-  __nv_bfloat16* Th = Ks + BKV * LDH;       // rel_h table in stage 1 of K (before the loop)
-  __nv_bfloat16* Tw = Vs + BKV * LDH;       // rel_w table in stage 1 of V
+  __nv_bfloat16* Th = Ks + BKV * LDH;       // rel_h table chunk in stage 1 of K (before the loop)
+  __nv_bfloat16* Tw = Vs + BKV * LDH;       // rel_w table chunk in stage 1 of V
 
   int bid = blockIdx.x;
   const int qt = bid % G::NQT;
@@ -151,20 +168,27 @@ __global__ void __launch_bounds__(THREADS)
     }
   };
 
-  // group 0: the Q tile and the two tables (row 2w-1 zero-filled); group 1: KV tile 0
+  // table rows [ch * BKV, ch * BKV + BKV) into Th, Tw (rows from 2w-1 on zero-filled)
+  auto issue_tables = [&](int ch) {
+    const int rows = min(BKV, G::TROWS - ch * BKV);
+    for (int v = tid; v < rows * (HD / 8); v += THREADS) {
+      const int r = v / (HD / 8), d = (v % (HD / 8)) * 8;
+      const int row = ch * BKV + r;
+      const bool ok = row < 2 * W - 1;
+      const long off = ok ? (long)row * HD + d : 0;
+      cp_async16(Th + r * LDH + d, rel_h + off, ok);
+      cp_async16(Tw + r * LDH + d, rel_w + off, ok);
+    }
+  };
+
+  // group 0: the Q tile and the first table chunk; group 1: KV tile 0
 #pragma unroll
   for (int i = 0; i < BQ * HD / 8 / THREADS; ++i) {
     const int v = tid + i * THREADS;
     const int r = v / (HD / 8), d = (v % (HD / 8)) * 8;
     cp_async16(Qs + r * LDH + d, qkv + row_of(qt * BQ + r) + h * HD + d, true);
   }
-  for (int v = tid; v < 2 * W * (HD / 8); v += THREADS) {
-    const int r = v / (HD / 8), d = (v % (HD / 8)) * 8;
-    const bool ok = r < 2 * W - 1;
-    const long off = ok ? (long)r * HD + d : 0;
-    cp_async16(Th + r * LDH + d, rel_h + off, ok);
-    cp_async16(Tw + r * LDH + d, rel_w + off, ok);
-  }
+  issue_tables(0);
   cp_async_commit();
   issue_kv(0, 0);
   cp_async_commit();
@@ -182,24 +206,36 @@ __global__ void __launch_bounds__(THREADS)
     qa[ks][3] = ld32(q + 8 * LDH + 8);
   }
 
-  // QR[r][j] = log2(e) * q_r . R[j] for the warp's 16 rows, all 2w table rows
+  // QR[r][j] = log2(e) * q_r . R[j] for the warp's 16 rows, all 2w table rows,
+  // one chunk of BKV table rows at a time
 #pragma unroll
-  for (int tab = 0; tab < 2; ++tab) {
-    const __nv_bfloat16* T = tab ? Tw : Th;
-    float* QR = tab ? QRw : QRh;
+  for (int ch = 0; ch < G::TCHUNKS; ++ch) {
+    if (ch > 0) {
+      __syncthreads();  // every warp is done with the previous chunk
+      issue_tables(ch);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
 #pragma unroll
-    for (int n = 0; n < 2 * W / 8; ++n) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int tab = 0; tab < 2; ++tab) {
+      const __nv_bfloat16* T = tab ? Tw : Th;
+      float* QR = tab ? QRw : QRh;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const __nv_bfloat16* rp = T + (n * 8 + g) * LDH + ks * 16 + 2 * t;
-        mma16816(acc, qa[ks], ld32(rp), ld32(rp + 8));
+      for (int n = 0; n < BKV / 8; ++n) {
+        if (ch * BKV + n * 8 >= G::TROWS) break;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const __nv_bfloat16* rp = T + (n * 8 + g) * LDH + ks * 16 + 2 * t;
+          mma16816(acc, qa[ks], ld32(rp), ld32(rp + 8));
+        }
+        float* o = QR + (r0 + g) * G::LDR + ch * BKV + n * 8 + 2 * t;
+        o[0] = acc[0] * LOG2E;
+        o[1] = acc[1] * LOG2E;
+        o[8 * G::LDR] = acc[2] * LOG2E;
+        o[8 * G::LDR + 1] = acc[3] * LOG2E;
       }
-      float* o = QR + (r0 + g) * G::LDR + n * 8 + 2 * t;
-      o[0] = acc[0] * LOG2E;
-      o[1] = acc[1] * LOG2E;
-      o[8 * G::LDR] = acc[2] * LOG2E;
-      o[8 * G::LDR + 1] = acc[3] * LOG2E;
     }
   }
   __syncwarp();
@@ -208,17 +244,22 @@ __global__ void __launch_bounds__(THREADS)
   const int tqa = qt * BQ + r0 + g, tqb = tqa + 8;
   const float* qrh_a = QRh + (r0 + g) * G::LDR + tqa / W + W - 1;  // [-ky]
   const float* qrh_b = QRh + (r0 + g + 8) * G::LDR + tqb / W + W - 1;
-  // rw terms: a thread only ever sees kx = u * 8 + 2t + e (u < w / 8, e < 2)
-  constexpr int NU = W / 8;
+  const float* qrw_a = QRw + (r0 + g) * G::LDR + tqa % W + W - 1;  // [-kx]
+  const float* qrw_b = QRw + (r0 + g + 8) * G::LDR + tqb % W + W - 1;
+  // rw terms: with a key tile starting at a window row, a thread only ever
+  // sees kx = u * 8 + 2t + e (u < w / 8, e < 2), kept in registers
+  constexpr int NU = G::RW_IN_REGS ? W / 8 : 1;
   float rwa[NU][2], rwb[NU][2];
+  if constexpr (G::RW_IN_REGS) {
 #pragma unroll
-  for (int u = 0; u < NU; ++u)
+    for (int u = 0; u < NU; ++u)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int kx = u * 8 + 2 * t + e;
-      rwa[u][e] = QRw[(r0 + g) * G::LDR + tqa % W - kx + W - 1];
-      rwb[u][e] = QRw[(r0 + g + 8) * G::LDR + tqb % W - kx + W - 1];
-    }
+      for (int e = 0; e < 2; ++e) {
+        const int kx = u * 8 + 2 * t + e;
+        rwa[u][e] = qrw_a[-kx];
+        rwb[u][e] = qrw_b[-kx];
+      }
+  }
   __syncthreads();  // every warp is done with the tables before stage 1 is refilled
 
   constexpr float QK_SCALE = Head<HD>::SCALE * LOG2E;  // hd^-0.5, log2 domain
@@ -251,13 +292,22 @@ __global__ void __launch_bounds__(THREADS)
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
     for (int n = 0; n < BKV / 8; ++n) {
-      const int ky = (kt * BKV + n * 8) / W;  // one key row per n-tile (8 | w)
-      const int u = n % NU;
+      const int key0 = kt * BKV + n * 8;
+      const int ky = key0 / W;  // one key row per n-tile (8 | w)
       const float ha = qrh_a[-ky], hb = qrh_b[-ky];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        sc[n][e] = fmaf(sc[n][e], QK_SCALE, ha + rwa[u][e]);
-        sc[n][2 + e] = fmaf(sc[n][2 + e], QK_SCALE, hb + rwb[u][e]);
+        float wa, wb;
+        if constexpr (G::RW_IN_REGS) {
+          wa = rwa[n % NU][e];
+          wb = rwb[n % NU][e];
+        } else {
+          const int kx = key0 % W + 2 * t + e;
+          wa = qrw_a[-kx];
+          wb = qrw_b[-kx];
+        }
+        sc[n][e] = fmaf(sc[n][e], QK_SCALE, ha + wa);
+        sc[n][2 + e] = fmaf(sc[n][2 + e], QK_SCALE, hb + wb);
         mx_a = fmaxf(mx_a, sc[n][e]);
         mx_b = fmaxf(mx_b, sc[n][2 + e]);
       }
@@ -354,8 +404,12 @@ cudaError_t allow_smem() {
 extern "C" int ysi_window_attn_init(void) {
   cudaError_t err = allow_smem<16, 64>();
   if (err == cudaSuccess) err = allow_smem<32, 64>();
+  if (err == cudaSuccess) err = allow_smem<48, 64>();
+  if (err == cudaSuccess) err = allow_smem<64, 64>();
   if (err == cudaSuccess) err = allow_smem<16, 80>();
   if (err == cudaSuccess) err = allow_smem<32, 80>();
+  if (err == cudaSuccess) err = allow_smem<48, 80>();
+  if (err == cudaSuccess) err = allow_smem<64, 80>();
   return (int)err;
 }
 
@@ -364,9 +418,16 @@ extern "C" int ysi_window_attn_relpos(const void* qkv, const void* rel_h, const 
                                       void* stream) {
   if (b <= 0 || s <= 0 || heads <= 0 || window <= 0 || s % window) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64 && window == 16) return launch<16, 64>(qkv, rel_h, rel_w, out, b, s, heads, st);
-  if (hd == 64 && window == 32) return launch<32, 64>(qkv, rel_h, rel_w, out, b, s, heads, st);
-  if (hd == 80 && window == 16) return launch<16, 80>(qkv, rel_h, rel_w, out, b, s, heads, st);
-  if (hd == 80 && window == 32) return launch<32, 80>(qkv, rel_h, rel_w, out, b, s, heads, st);
+#define YSI_ATTN_CASE(W_, HD_) \
+  if (hd == HD_ && window == W_) return launch<W_, HD_>(qkv, rel_h, rel_w, out, b, s, heads, st);
+  YSI_ATTN_CASE(16, 64)
+  YSI_ATTN_CASE(32, 64)
+  YSI_ATTN_CASE(48, 64)
+  YSI_ATTN_CASE(64, 64)
+  YSI_ATTN_CASE(16, 80)
+  YSI_ATTN_CASE(32, 80)
+  YSI_ATTN_CASE(48, 80)
+  YSI_ATTN_CASE(64, 80)
+#undef YSI_ATTN_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -48,6 +48,7 @@ from ...ops.fused_ln import (
 )
 from ...ops.quant import is_quantized
 from .config import SamTPUConfig
+from .tinyvit import TinyViT, TinyViTConfig, is_tinyvit
 
 Params = Dict[str, Any]
 
@@ -385,12 +386,18 @@ class SamMaskDecoder(nn.Module):
 
 
 class SamModel(nn.Module):
-    """Encoder + prompt encoder + mask decoder, built from one parameter tree."""
+    """Encoder + prompt encoder + mask decoder, built from one parameter tree.
+    A MobileSAM tree (:func:`~.tinyvit.is_tinyvit`) gets the
+    :class:`~.tinyvit.TinyViT` encoder."""
 
     def __init__(self, params: Params, cfg: SamTPUConfig):
         super().__init__()
         self.cfg = cfg
-        self.vision = SamImageEncoder(params["vision"], cfg)
+        if is_tinyvit(params):
+            tcfg = TinyViTConfig(image_size=cfg.image_size, output_channels=cfg.output_channels)
+            self.vision = TinyViT(params["tinyvit"], tcfg)
+        else:
+            self.vision = SamImageEncoder(params["vision"], cfg)
         self.prompt = SamPromptEncoder(params["prompt"], params["shared_pe"], cfg)
         self.decoder = SamMaskDecoder(params["decoder"], cfg)
 

@@ -57,9 +57,16 @@ _SIGNATURES = {
     "ysi_window_crop": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # pts, dirs, out, n, p, d, stream
     "ysi_hull_support": (_P, _P, _P, _I, _I, _I, _P),
+    # qkv, pad, bias, out, b, h, w, heads, ws, stream
+    "ysi_tinyvit_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # stride, residual, x, w1, b1, wd, bd, w3, b3, out, b, h, w, c, e, co, stream
+    "ysi_mbconv": (_I, _I) + (_P,) * 8 + (_I,) * 6 + (_P,),
+    # x, wd, bd, y, b, h, w, c, stream
+    "ysi_dw_conv3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 # Run once after loading (shared-memory attributes of the kernels).
-_INITS = ("ysi_gemm_init", "ysi_gemm_int8_init", "ysi_window_attn_init", "ysi_decoder_init")
+_INITS = ("ysi_gemm_init", "ysi_gemm_int8_init", "ysi_window_attn_init", "ysi_decoder_init",
+          "ysi_tinyvit_attn_init", "ysi_tinyvit_conv_init")
 
 
 def _sources():

@@ -1,0 +1,71 @@
+"""TinyViT's block tail: the local depthwise conv, LayerNorm and MLP (kernel K16).
+
+Counterpart of ``dw_ln_mlp`` (``yolo_sam_inference_tpu/ops/dw_ln_mlp.py:88``):
+
+    y = dw3x3(x) + bd;   out = y + mlp2(gelu(mlp1(LN(y))))
+
+The residual is ``y``, not ``x``: TinyViT's ``local_conv`` replaces x.
+
+On the card it runs as three launches: the depthwise 3x3 + bias
+(``dw_conv3x3``, ``csrc/tinyvit_conv.cu``), which writes y in bf16 where the
+TPU kernel rounds it; then ``gemm_bf16`` with its LayerNorm prologue and GELU
+epilogue, and ``gemm_bf16`` with y as the residual. The depthwise is a pure
+streaming pass (9 multiply-adds per value), so it is bound by device memory:
+one read of x and one write of y.
+
+Dispatch is by the tensor's device: a CPU tensor takes the plain version, a
+CUDA tensor launches the kernel or raises. ``dw_conv3x3.launches`` counts
+launches.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ._build import check, kernels
+from .fused_ln import _check_bf16, _f32, _on_cpu, _ptr, gemm_bf16
+
+
+def dw_conv3x3_plain(x, wd, bd):
+    """fp32 depthwise 3x3 (zero 'same' padding) + bias, result in x's dtype.
+    x (B, H, W, C), wd (3, 3, C) or (3, 3, 1, C)."""
+    c = x.shape[-1]
+    k = wd.float().reshape(3, 3, c).permute(2, 0, 1)[:, None]
+    y = F.conv2d(x.float().permute(0, 3, 1, 2), k, bd.float(), padding=1, groups=c)
+    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def dw_conv3x3(x, wd, bd):
+    """Depthwise 3x3 + bias on (B, H, W, C); the kernel takes bf16 x and C a
+    multiple of 8."""
+    if _on_cpu(x):
+        return dw_conv3x3_plain(x, wd, bd)
+    b, h, w, c = x.shape
+    if c % 8:
+        raise ValueError(f"dw_conv3x3 kernel takes C a multiple of 8, got {c}")
+    _check_bf16("x", x, (b, h, w, c), x.device)
+    out = torch.empty_like(x)
+    wd32 = _f32(wd if wd.dim() == 3 else wd.reshape(3, 3, c))  # the module keeps (3, 3, C)
+    err = kernels().ysi_dw_conv3x3(_ptr(x), _ptr(wd32), _ptr(_f32(bd)), _ptr(out), b, h, w, c,
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "dw_conv3x3")
+    dw_conv3x3.launches += 1
+    return out
+
+
+dw_conv3x3.launches = 0
+
+
+def dw_ln_mlp(x, wd, bd, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
+              gemm=gemm_bf16, dw=dw_conv3x3):
+    """x (B, H, W, C) -> ``y + mlp2(gelu(mlp1(LN(y))))``, ``y = dw3x3(x) + bd``
+    (K16). ``gemm=gemm_plain, dw=dw_conv3x3_plain`` is the plain version on
+    any device (the fp32 oracle)."""
+    c = x.shape[-1]
+    y = dw(x, wd, bd).reshape(-1, c)
+    hid = gemm(y, w1, b1, ln=(ln_scale, ln_bias, eps), gelu=True)
+    return gemm(hid, w2, b2, r1=y).reshape(x.shape)
+
+
+__all__ = ["dw_conv3x3", "dw_conv3x3_plain", "dw_ln_mlp"]

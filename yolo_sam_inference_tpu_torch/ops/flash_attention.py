@@ -14,7 +14,8 @@ the output ``(B, S, S, C)``. Attention is confined to non-overlapping
 ``window x window`` blocks of the grid (``window = S`` for global layers).
 
 Dispatch is by the tensor's device: CPU takes the plain version, CUDA
-launches the kernel or raises. ``window_attention.launches`` counts launches.
+launches the kernel or raises. ``window_attention.launches`` counts launches,
+and ``window_attention.by_window`` counts them per window size.
 """
 
 from __future__ import annotations
@@ -26,15 +27,29 @@ from .fused_ln import _on_cpu
 
 
 # What the kernel is built for: ViT-B/L (hd 64) and ViT-H (hd 80), windowed
-# layers (16) and the global layers of a 32 x 32 grid (512-pixel frames).
+# layers (16) and the global layers of the 32 x 32, 48 x 48 and 64 x 64 grids
+# (the 512, 768 and 1024 canvases).
 KERNEL_HEAD_DIMS = (64, 80)
-KERNEL_WINDOWS = (16, 32)
+KERNEL_WINDOWS = (16, 32, 48, 64)
+# fp32 logits the plain version holds at once (bytes): larger batches run in
+# slices of images (one image at w = 64 and 16 heads is 1 GiB)
+_PLAIN_LOGIT_BYTES = 2 << 30
 
 
 def window_attention_plain(qkv, rel_h, rel_w, heads: int, window: int):
     """fp32 einsum/softmax version of :func:`window_attention` (output in
     qkv's dtype). Logits use ``q * hd^-0.5``; the rel-pos terms use the
     unscaled q, as SAM does."""
+    b, s = qkv.shape[0], qkv.shape[1]
+    per_image = heads * s * s * window * window * 4
+    step = max(1, _PLAIN_LOGIT_BYTES // per_image)
+    if b > step:
+        return torch.cat([_window_attention_plain(qkv[i:i + step], rel_h, rel_w, heads, window)
+                          for i in range(0, b, step)])
+    return _window_attention_plain(qkv, rel_h, rel_w, heads, window)
+
+
+def _window_attention_plain(qkv, rel_h, rel_w, heads: int, window: int):
     b, s, _, c3 = qkv.shape
     c = c3 // 3
     hd = c // heads
@@ -74,8 +89,8 @@ def window_attention(qkv, rel_h, rel_w, heads: int, window: int):
     if _on_cpu(qkv):
         return window_attention_plain(qkv, rel_h, rel_w, heads, window)
     if hd not in KERNEL_HEAD_DIMS or window not in KERNEL_WINDOWS:
-        raise ValueError(f"window_attention kernel takes hd=64 or hd=80 with window 16 or 32; "
-                         f"got hd={hd}, window={window}")
+        raise ValueError(f"window_attention kernel takes hd=64 or hd=80 with window 16, 32, 48 "
+                         f"or 64; got hd={hd}, window={window}")
     for name, t in (("qkv", qkv), ("rel_h", rel_h), ("rel_w", rel_w)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != qkv.device:
             raise ValueError(f"window_attention kernel: {name} must be contiguous bf16 on "
@@ -87,7 +102,9 @@ def window_attention(qkv, rel_h, rel_w, heads: int, window: int):
     )
     check(err, "window_attention")
     window_attention.launches += 1
+    window_attention.by_window[window] = window_attention.by_window.get(window, 0) + 1
     return out
 
 
 window_attention.launches = 0
+window_attention.by_window = {}  # launches per window size

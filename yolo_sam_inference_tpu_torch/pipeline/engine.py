@@ -6,7 +6,8 @@ batch runs as four stages on the pipeline's device:
 * :func:`detect_stage`: letterbox -> YOLOv8 -> DFL decode -> fixed-shape NMS,
   boxes mapped back to frame pixels;
 * :func:`embed_stage`: SAM preprocess -> ViT encoder once per image at the
-  frame's native resolution (window 16, resolution-adapted weights);
+  frame's native resolution (window 16, resolution-adapted weights), or
+  TinyViT-5M for MobileSAM (``"mobile-sam"``, ``"tinyvit"``);
 * :func:`segment_stage`: box prompts -> two-way decoder batched over every
   prompt -> a per-prompt window of the token grid -> mask head -> bilinear
   resample onto a fixed crop around each cell;
@@ -33,8 +34,11 @@ import torch
 
 from ..models.sam import (
     SamTPUConfig,
+    TinyViTConfig,
     adapt_resolution,
     init_sam_params,
+    init_tinyvit_params,
+    is_tinyvit,
     sam_vit_b,
     sam_vit_h,
     sam_vit_l,
@@ -55,7 +59,11 @@ SAM_CONFIGS = {
     "vit-base": sam_vit_b,
     "vit-large": sam_vit_l,
     "vit-huge": sam_vit_h,
+    # MobileSAM: the TinyViT-5M encoder with SAM ViT-B's prompt encoder and decoder
+    "mobile-sam": sam_vit_b,
+    "tinyvit": sam_vit_b,
 }
+TINYVIT_TYPES = ("mobile-sam", "tinyvit")
 QUANT_MODES = ("none", "int8")
 
 
@@ -150,7 +158,9 @@ def detect_stage(yolo, images_u8: torch.Tensor, ycfg: YoloConfig, opts: Pipeline
 
 
 def embed_stage(sam, images_u8: torch.Tensor, scfg: SamTPUConfig, opts: PipelineOptions):
-    """uint8 (B, H, W[, 3]) -> SAM image embeddings (B, gs, gs, C) fp32."""
+    """uint8 (B, H, W[, 3]) -> SAM image embeddings (B, gs, gs, C) fp32.
+    ``sam.vision`` is the ViT encoder, or TinyViT for MobileSAM (built from
+    the tree's ``"tinyvit"`` subtree at the canvas ``scfg.image_size``)."""
     pix, _, _ = sam_preprocess_batch(_ensure_rgb(images_u8), scfg.image_size)
     return sam.vision(pix.to(opts.compute_dtype)).float()
 
@@ -287,14 +297,24 @@ class CellSegmentationPipeline:
         self._adapted_params: Dict[Tuple[int, int], Any] = {}
 
     def _initialize_models(self, seed: int) -> None:
-        """Random init on the host, the JAX engine's sub-seeds (2s, 2s + 1)."""
+        """Random init on the host, the JAX engine's sub-seeds (2s, 2s + 1).
+        MobileSAM draws the whole SAM tree first (so the decoder's draws are
+        the same), then TinyViT's from seed + 1, and drops the ViT encoder."""
         self.yolo_params = init_yolo_params(2 * seed, self.yolo_config)
         self.sam_params = init_sam_params(2 * seed + 1, self.sam_config)
+        if self.sam_model_type in TINYVIT_TYPES:
+            tcfg = TinyViTConfig(image_size=self.sam_config.image_size,
+                                 output_channels=self.sam_config.output_channels)
+            self.sam_params = dict(self.sam_params)
+            self.sam_params["tinyvit"] = init_tinyvit_params(seed + 1, tcfg)
+            self.sam_params.pop("vision", None)
 
     def _sam_params_for(self, scfg: SamTPUConfig):
-        """Resolution-adapted SAM parameter tree (cached per encoder geometry)."""
+        """Resolution-adapted SAM parameter tree (cached per encoder geometry).
+        TinyViT has no resolution-dependent weights."""
         key = (scfg.image_size, scfg.window_size)
-        if key == (self.sam_config.image_size, self.sam_config.window_size):
+        if key == (self.sam_config.image_size, self.sam_config.window_size) or is_tinyvit(
+                self.sam_params):
             return self.sam_params
         if key not in self._adapted_params:
             self._adapted_params[key] = adapt_resolution(self.sam_params, scfg)

@@ -4,8 +4,10 @@ The trees are the JAX package's (numpy leaves): ``init_yolo_params`` /
 ``init_sam_params`` from either package, or trees converted from checkpoints
 by the JAX package, including trees whose encoder projections were quantised
 (``{"wq", "wscale", "b"}`` records, ``ops.quant.quantize_sam_encoder_params``
-of either package). Layout changes happen in the module constructors (conv
-weights HWIO -> OIHW); linear weights keep the (in, out) layout.
+of either package), and MobileSAM trees, whose ``"tinyvit"`` subtree takes
+the place of ``"vision"`` (``SamModel`` then builds TinyViT as its encoder).
+Layout changes happen in the module constructors (conv weights HWIO -> OIHW);
+linear weights keep the (in, out) layout.
 """
 
 from __future__ import annotations
