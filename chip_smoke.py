@@ -34,7 +34,8 @@ failure ends the run with a non-zero exit and no result line:
    layers of the 768 and 1024 canvases), hd 64 and 80, at batch-32 shapes;
 8. large frames: ``facebook/sam-vit-huge`` in bf16 on 2048x2048 frames
    (config 4: the 1024 canvas, windows 16 and 64; ViT-H's parameter tree of
-   phase 6) and ViT-B on 768x768 frames (windows 16 and 48): launch counts
+   phase 6, its rel-pos tables, positional embedding, biases and LN affines
+   drawn at random first) and ViT-B on 768x768 frames (windows 16 and 48): launch counts
    by window at batch 8, outputs, the embedding against the fp32 plain
    encoder, a timed batch;
 9. MobileSAM kernels: K13-K16 (``tinyvit_attention`` with its two
@@ -44,7 +45,28 @@ failure ends the run with a non-zero exit and no result line:
 10. MobileSAM slice (``"mobile-sam"``, config 2: TinyViT-5M + SAM ViT-B's
    decoder, 512x512 frames, bf16): launch counts at batch 8, the embedding
    against the fp32 plain TinyViT, a timed pass at batch 32;
-11. result: the kernel table as one JSON line (each kernel's launches on its
+11. K12 kernels: ``flash_attention_relpos`` at its three shapes of batch 32
+   (a sequence-parallel rank's 2048 queries of ViT-H's 64 x 64 grid; the
+   flat route's ViT-B global layer on the 40 x 40 grid of the 640 canvas;
+   its 14 x 14 windows), plain and at sampled |q.k / sqrt(hd)| of 30-50,
+   against the fp32 plain version, timed beside it, the bound and
+   ``scaled_dot_product_attention`` with the bias as a bf16 mask; and the
+   residual LayerNorm (K11d) at the flat tails' rows;
+12. off-grid slice: ViT-B bf16 at ``sam_encoder_size=640`` (grid 40,
+   windows of 14 padded to 42: the flat route; rel-pos tables, positional
+   embedding, biases and LN affines at random) on 640x640 frames, launch
+   counts at batch 8 (K12 and K11d, no window attention), the embedding and
+   decoder against fp32 plain versions, a timed pass at batch 32; then the
+   896 canvas (grid 56, window 14: the flat route without padding) at batch
+   2;
+13. sequence-parallel slice: config 4's encoder (ViT-H bf16, 2048x2048
+   frames, 1024 canvas, phase 8's random tables) with
+   ``encoder_parallel="sp"`` on 2 ranks
+   (``parallel/launch.py``; gloo with both ranks on the one card): launch
+   counts per rank, the embedding equal across ranks bit for bit and against
+   phase 8's single-card bf16 and fp32 plain embeddings of the same frames,
+   a timed batch (two ranks sharing one card: no speed-up is measured);
+14. result: the kernel table as one JSON line (each kernel's launches on its
    path, error, ms, plain ms, the bound for the same work on an H100 and
    what sets it, and the time of one PyTorch call that computes the same
    function where there is one), then the last line
@@ -75,6 +97,9 @@ BIG_MODELS = (("facebook/sam-vit-large", 50, 24, 1024, 16, 4096),
 BIG_CELLS = 40  # cells per frame in the big slices (config 3: 10-50 per image)
 LARGE_FRAME = 2048  # config 4's TIFF frames (the 1024 canvas)
 MID_FRAME = 768  # the 768 canvas (global window 48)
+OFF_GRID = 640  # the off-grid canvas and frames (grid 40, window 14)
+SP_RANKS = 2  # sequence-parallel ranks (one card: they share it)
+SP_BATCH = 2  # frames per sequence-parallel batch
 # published H100 SXM peaks (NVIDIA data sheet): bytes/s and operations/s
 PEAK = {"hbm": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
@@ -583,6 +608,240 @@ def _large_kernel_phase(card: str) -> dict:
     return {"errs": errs, "times": times, "bounds": bounds}
 
 
+def _relpos_kernel_phase(card: str) -> dict:
+    """K12 (``flash_attention_relpos``) at the shapes of its two paths, batch
+    32, against its fp32 plain version (TF32 off): a sequence-parallel rank's
+    share of ViT-H's global layer (rank 1 of 2: rows 32-63 of the 64 x 64
+    grid, 2048 queries over 4096 keys, hd 80), the flat route's ViT-B global
+    layer at the 640 canvas (40 x 40 grid, hd 64) and its 14 x 14 windows
+    (nine windows an image, 196 keys: a partial 64-key tile). The score
+    tables come from the rel-pos tables as the path builds them
+    (``relpos_score_tables``). Each plain and with q and k scaled to sampled
+    |q.k / sqrt(hd)| of 30-50; times beside the plain version's, the bound
+    and ``scaled_dot_product_attention`` with the bias materialised as a
+    bf16 additive mask (which the port never calls). Then the residual
+    LayerNorm (K11d) at the flat tails' rows (32 x 1600 tokens x 768)."""
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
+    from yolo_sam_inference_tpu_torch.ops.flash_attention import (
+        flash_attention_relpos,
+        flash_attention_relpos_plain,
+        relpos_score_tables,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 oracle stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(6)
+
+    def randn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g) * std).to(dev, dtype)
+
+    errs: dict = {}
+    times: dict = {}
+    bounds: dict = {}
+    library: dict = {}
+    # (label, images, heads, hd, grid side, query rows, first row, scale to |s| ~ 30-50)
+    cases = (("sp ViT-H rank 1 of 2", TIMED_BATCH, 16, 80, 64, 32, 32, 2.8),
+             ("flat ViT-B global 40x40", TIMED_BATCH, 12, 64, 40, 40, 0, 3.2),
+             ("flat ViT-B windows 14x14", TIMED_BATCH * 9, 12, 64, 14, 14, 0, 3.2))
+    for label, b, heads, hd, s, rows, row0, big in cases:
+        bh, n, nq = b * heads, s * s, rows * s
+        q = randn(bh, nq, hd)
+        k, v = randn(bh, n, hd), randn(bh, n, hd)
+        rel_h, rel_w = (randn(2 * s - 1, hd, std=0.3) for _ in range(2))
+        rh, rw = relpos_score_tables(q, rel_h, rel_w, s, row0=row0)
+        fn = lambda: flash_attention_relpos(q, k, v, rh, rw, s)
+        fnp = lambda: flash_attention_relpos_plain(q, k, v, rh, rw, s)
+        shape = f"({bh} heads, NQ {nq}, N {n}, hd {hd})"
+        _check(f"flash_attention_relpos {label} {shape}", fn(),
+               flash_attention_relpos_plain(q.float(), k.float(), v.float(), rh, rw, s), 2e-2,
+               errs)
+        times[label] = (median_ms(fn), median_ms(fnp, reps=3, warmup=1))
+        bounds[label] = _bound(4.0 * bh * nq * n * hd, _nbytes(q, k, v, rh, rw) + _nbytes(q))
+        # the library yardstick: the bias as a bf16 (B, H, NQ, N) mask, made
+        # beforehand (not timed)
+        mask = (rh[..., :, None] + rw[..., None, :]).reshape(1, bh, nq, n).to(bf)
+        q4, k4, v4 = (t.reshape(1, bh, -1, hd) for t in (q, k, v))
+        try:
+            library[label] = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask))
+        except RuntimeError as e:  # a yardstick only: no library time for this shape
+            _say("kernels", f"scaled_dot_product_attention {label}: refused ({e})")
+            library[label] = None
+        lib = "n/a" if library[label] is None else f"{library[label]:.4f} ms"
+        _say("kernels", f"flash_attention_relpos {label}: kernel {times[label][0]:.4f} ms, plain "
+                        f"{times[label][1]:.4f} ms, bound {bounds[label][0]:.4f} ms "
+                        f"({bounds[label][1]}), SDPA with a bf16 mask of "
+                        f"{_nbytes(mask) / 2 ** 30:.2f} GiB at batch {b}: {lib} [{card}]")
+        del mask, q4, k4, v4
+        # logits of |s| ~ 30-50: q and k scaled, the tables rebuilt from the new q
+        q, k = q * big, k * big
+        rh, rw = relpos_score_tables(q, rel_h, rel_w, s, row0=row0)
+        s_max = (q[:8].float() @ k[:8, :512].float().transpose(1, 2)).abs().max().item() * hd ** -0.5
+        _say("kernels", f"flash_attention_relpos {label}: sampled max |q.k/sqrt({hd})| = "
+                        f"{s_max:.1f}")
+        _check(f"flash_attention_relpos {label} |s|~{s_max:.0f}", fn(),
+               flash_attention_relpos_plain(q.float(), k.float(), v.float(), rh, rw, s), 2e-2,
+               errs)
+        del q, k, v, rh, rw
+        torch.cuda.empty_cache()
+
+    # K11d: (x + r, LN(x + r)) at the flat route's tails, ViT-B at the 640 canvas
+    rows, c = TIMED_BATCH * 1600, 768
+    x, r = randn(rows, c), randn(rows, c)
+    sl, bl = 1.0 + randn(c, std=0.1, dtype=torch.float32), randn(c, std=0.1, dtype=torch.float32)
+    fn = lambda: tln.layer_norm(x, sl, bl, 1e-6, residual=r)
+    fnp = lambda: tln.layer_norm_plain(x, sl, bl, 1e-6, residual=r)
+    got, ref = fn(), tln.layer_norm_plain(x.float(), sl, bl, 1e-6, residual=r.float())
+    _check(f"layer_norm residual K11d ({rows}x{c}, sum)", got[0], ref[0], 1e-2, errs)
+    _check(f"layer_norm residual K11d ({rows}x{c}, LN)", got[1], ref[1], 1e-2, errs)
+    times["K11d"] = (median_ms(fn), median_ms(fnp))
+    bounds["K11d"] = _bound(9.0 * x.numel(), 4 * _nbytes(x) + _nbytes(sl, bl), "fp32")
+    _say("kernels", f"layer_norm residual K11d: kernel {times['K11d'][0]:.4f} ms, plain "
+                    f"{times['K11d'][1]:.4f} ms, bound {bounds['K11d'][0]:.4f} ms "
+                    f"({bounds['K11d'][1]}), no single library call [{card}]")
+    del x, r, got, ref
+    torch.cuda.synchronize()
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
+
+
+def _offgrid_slice_phase(card: str, vit_b_pipe) -> dict:
+    """The flat route end to end: ViT-B bf16 with ``sam_encoder_size=640``
+    (grid 40, window 14 padded to 42) on 640x640 frames with 12 cells, from
+    the config-1 pipeline's host trees; then the 896 canvas (grid 56, window
+    14 dividing it: the flat route without padding on the card) at batch 2."""
+    import dataclasses
+
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames
+
+    result: dict = {}
+    # random rel-pos tables, qkv biases and LN affines, so the checks see the
+    # bias and the pad tokens' keys (the stages of earlier phases are built)
+    _randomise_affines(vit_b_pipe.sam_params["vision"], np.random.default_rng(9))
+    opts = dataclasses.replace(vit_b_pipe.options, sam_encoder_size=OFF_GRID)
+    pipe = _sharing_params(vit_b_pipe, opts)
+    t0 = time.perf_counter()
+    pipe._stages(OFF_GRID, OFF_GRID)
+    _say("slice", f"off-grid 640: stages built (adapt to grid 40 + cast + upload) "
+                  f"{time.perf_counter() - t0:.2f} s")
+    frames = cell_frames(np.random.default_rng(8), TIMED_BATCH, OFF_GRID)
+    # per batch: 12 layers x (qkv + proj + mlp1 + mlp2) GEMMs; K12 at the 4
+    # global layers (1600 queries) and the 8 windowed ones (the batch of 14 x
+    # 14 windows); LN1 plain at layer 0 and in the residual form after, LN2
+    # residual: 1 + 11 + 12; no window attention
+    flat = {"gemm_bf16": 48, "flash_attention_relpos": 12, "layer_norm_residual": 23}
+    expected = {**DECODER_COUNTS, **flat, "layer_norm": DECODER_COUNTS["layer_norm"] + 1}
+    result["launches"], _, out = _drive("off-grid 640 (ViT-B, grid 40, window 14)", pipe,
+                                        frames[:SLICE_BATCH], opts.max_det, expected,
+                                        by_nq={1600: 4, 196: 8})
+    rels, emb32, _ = _embedding_vs_plain("off-grid 640", {"bf16": (pipe, 0.05)}, frames[:1])
+    result["rel_rms"] = rels["bf16"]
+    _decoder_vs_plain("off-grid 640", pipe, OFF_GRID, emb32, out["boxes"][:1])
+    result["ms"] = _timed("off-grid 640 (ViT-B)", pipe, frames, card)
+    pipe._stage_cache.clear()
+
+    opts = dataclasses.replace(vit_b_pipe.options, sam_encoder_size=896)
+    pipe = _sharing_params(vit_b_pipe, opts)
+    result["launches 896"], _, _ = _drive("off-grid 896 (ViT-B, grid 56, window 14, unpadded)",
+                                          pipe, frames[:2], opts.max_det, expected,
+                                          by_nq={3136: 4, 196: 8})
+    rels, _, _ = _embedding_vs_plain("off-grid 896", {"bf16": (pipe, 0.05)}, frames[:1])
+    result["rel_rms 896"] = rels["bf16"]
+    pipe._stage_cache.clear()
+    return result
+
+
+def _sp_rank(rank: int, world: int, job: dict) -> None:
+    """One rank of the sequence-parallel slice (run by parallel/launch.py in
+    a process of its own): config 4's pipeline with ``encoder_parallel="sp"``
+    on the parent's parameter trees and frames; its launch counts, outputs,
+    embedding and timing go to ``rank<r>.npz`` in the job's directory."""
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+    from yolo_sam_inference_tpu_torch.weights import load_tree
+
+    trees = load_tree(f"{job['dir']}/params.npz")
+    frames = np.load(f"{job['dir']}/frames.npy")
+    opts = tengine.PipelineOptions(max_det=16, metric_crop=128, encoder_parallel="sp")
+    pipe = tengine.CellSegmentationPipeline("facebook/sam-vit-huge", options=opts, device="cuda",
+                                            params=(trees["yolo"], trees["sam"]))
+    del trees
+    h, w = frames.shape[1], frames.shape[2]
+    pipe._stages(h, w)
+    tag = f"sp rank {rank} of {world}"
+    # per rank and batch: 32 layers x (K1 + proj + two K10) GEMMs on the
+    # rank's 32 grid rows, the window attention at the 28 windowed layers
+    # (w16), K12 at the 4 global ones on the rank's 2048 queries
+    expected = {**DECODER_COUNTS, "gemm_bf16": 4 * 32, "window_attn_relpos": 28,
+                "flash_attention_relpos": 4}
+    launches, _, out = _drive(tag, pipe, frames, 16, expected, by_window={16: 28},
+                              by_nq={2048: 4})
+    with torch.inference_mode():
+        emb = pipe._stages(h, w)["embed"](pipe._images_to_device(frames)).cpu().numpy()
+    ms = _timed(f"{tag} (two ranks sharing one card: no SP speed)", pipe, frames, job["card"])
+    np.savez(f"{job['dir']}/rank{rank}.npz", emb=emb, boxes=out["boxes"], valid=out["valid"],
+             mask_crops=out["mask_crops"], ms=np.float64(ms),
+             k12=np.int64(launches["flash_attention_relpos"]),
+             attn=np.int64(launches["window_attn_relpos"]))
+
+
+def _sp_slice_phase(card: str, pipe, frames, emb32, emb16) -> dict:
+    """Config 4's encoder sequence-parallel: ``SP_RANKS`` ranks through
+    parallel/launch.py on ``pipe``'s host trees (written once, here, for the
+    ranks to read: ViT-H's numpy init takes 11-15 s), on the frames whose
+    single-card bf16 (``emb16``) and fp32 plain (``emb32``) embeddings
+    phase 8 made."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.parallel.launch import run_ranks
+    from yolo_sam_inference_tpu_torch.weights import save_tree
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_tree(f"{tmp}/params.npz", {"yolo": pipe.yolo_params, "sam": pipe.sam_params})
+        np.save(f"{tmp}/frames.npy", frames)
+        _say("slice", f"sp: ViT-H parameter trees written for the ranks in "
+                      f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        backend = run_ranks(_sp_rank, SP_RANKS, ({"dir": tmp, "card": card},))
+        _say("slice", f"sp: backend {backend}, {SP_RANKS} ranks on {torch.cuda.device_count()} "
+                      f"card(s); ranks done in {time.perf_counter() - t0:.2f} s")
+        ranks = [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(SP_RANKS)]
+    emb = ranks[0]["emb"]
+    for r, res in enumerate(ranks[1:], 1):
+        if not np.array_equal(res["emb"], emb):
+            raise AssertionError(f"sp: rank {r}'s embedding differs from rank 0's")
+    rel16 = float(np.linalg.norm(emb - emb16.numpy()) / np.linalg.norm(emb16.numpy()))
+    rel32 = float(np.linalg.norm(emb - emb32.numpy()) / np.linalg.norm(emb32.numpy()))
+    same_out = all(np.array_equal(res[k], ranks[0][k]) for res in ranks[1:]
+                   for k in ("boxes", "valid", "mask_crops"))
+    _say("slice", f"sp: embedding {emb.shape} equal on all {SP_RANKS} ranks; rel_rms vs the "
+                  f"single-card bf16 encoder {rel16:.3e} (bound 0.02), vs the fp32 plain encoder "
+                  f"{rel32:.5f} (bound 0.05), max_abs vs single-card "
+                  f"{np.abs(emb - emb16.numpy()).max():.3e}; outputs equal across ranks: "
+                  f"{same_out}")
+    if not (rel16 <= 0.02 and rel32 <= 0.05 and np.isfinite(emb).all()):
+        raise AssertionError("sp: the sequence-parallel embedding disagrees with the single-card "
+                             "encoders")
+    ms = [float(res["ms"]) for res in ranks]
+    _say("slice", f"sp timed: batch {frames.shape[0]} per rank, ms/batch by rank {ms}: "
+                  f"{SP_RANKS} ranks sharing one card, so this is no sequence-parallel speed "
+                  f"[{card}]")
+    return {"k12": int(ranks[0]["k12"]), "attn": int(ranks[0]["attn"]), "rel16": rel16,
+            "rel32": rel32, "ms": ms, "backend": backend}
+
+
 # TinyViT-5M at a 512 canvas, batch 32: (stage, grid, C, heads, window)
 TINYVIT_STAGES = ((1, 64, 128, 4, 7), (2, 32, 160, 5, 14), (3, 32, 320, 10, 7))
 
@@ -752,7 +1011,7 @@ def _slice_phase(card: str) -> dict:
                               {**DECODER_COUNTS, "gemm_bf16": 48, "window_attn_relpos": 12},
                               by_window={16: 8, 32: 4})
 
-    _, emb32 = _embedding_vs_plain("config 1", {"bf16": (pipe, 0.05)}, frames[:1])
+    _, emb32, _ = _embedding_vs_plain("config 1", {"bf16": (pipe, 0.05)}, frames[:1])
     _decoder_vs_plain("config 1", pipe, FRAME, emb32, out["boxes"][:1])
 
     ms = _timed("config 1", pipe, frames, card)
@@ -814,7 +1073,7 @@ def _big_slice_phase(card: str, model: str, max_det: int, layers: int) -> dict:
 
     # the embedding of one frame against the fp32 plain encoder on the same
     # bf16-rounded float weights (the int8 path quantises those same weights)
-    result["rel_rms"], _ = _embedding_vs_plain(
+    result["rel_rms"], _, _ = _embedding_vs_plain(
         short, {"bf16": (pipe_b, 0.05), "int8": (pipes["int8"], 0.10)}, frames[:1])
 
     for mode, pipe in pipes.items():
@@ -835,11 +1094,15 @@ def _wrappers() -> dict:
     from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
     from yolo_sam_inference_tpu_torch.ops import mbconv_fused as tmb
     from yolo_sam_inference_tpu_torch.ops import tinyvit_attention as ttv
-    from yolo_sam_inference_tpu_torch.ops.flash_attention import window_attention
+    from yolo_sam_inference_tpu_torch.ops.flash_attention import (
+        flash_attention_relpos,
+        window_attention,
+    )
     from yolo_sam_inference_tpu_torch.ops.hull_support import support_points
     from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop
 
     return {"gemm_bf16": tln.gemm_bf16, "window_attn_relpos": window_attention,
+            "flash_attention_relpos": flash_attention_relpos,
             "fused_ln_matmul_int8": tln.fused_ln_matmul_int8,
             "fused_ln_mlp_int8": tln.fused_ln_mlp_int8,
             "fused_ln_mlp_tiled_int8": tln.fused_ln_mlp_tiled_int8,
@@ -855,26 +1118,37 @@ def _reset_counts() -> dict:
     for w in wrappers.values():
         w.launches = 0
     wrappers["window_attn_relpos"].by_window = {}
+    wrappers["flash_attention_relpos"].by_nq = {}
+    wrappers["layer_norm"].residual_launches = 0
     return wrappers
 
 
-def _read_counts(tag: str, wrappers: dict, expected: dict, by_window=None) -> dict:
+def _read_counts(tag: str, wrappers: dict, expected: dict, by_window=None, by_nq=None) -> dict:
     """The launch counts since the reset; every kernel not in ``expected``
-    must have run 0 times, and the attention's counts by window must match."""
+    must have run 0 times (the residual LayerNorm, K11d, counts as
+    ``layer_norm_residual``), and the window attention's counts by window
+    and K12's by query count must match. The returned counts add K12's by
+    query count as ``flash_attention_relpos nq<NQ>``."""
     launches = {name: w.launches for name, w in wrappers.items()}
+    launches["layer_norm_residual"] = wrappers["layer_norm"].residual_launches
     windows = dict(wrappers["window_attn_relpos"].by_window)
+    nqs = dict(wrappers["flash_attention_relpos"].by_nq)
     _say("slice", f"{tag}: launches {({k: v for k, v in launches.items() if v})}, attention by "
-                  f"window {windows}")
+                  f"window {windows}, K12 by query count {nqs}")
     for name, n in launches.items():
         if n != expected.get(name, 0):
             raise AssertionError(f"{tag}: {name} launched {n} times, expected "
                                  f"{expected.get(name, 0)}")
     if by_window is not None and windows != by_window:
         raise AssertionError(f"{tag}: attention launches by window {windows}, expected {by_window}")
+    if by_nq is not None and nqs != by_nq:
+        raise AssertionError(f"{tag}: K12 launches by query count {nqs}, expected {by_nq}")
+    launches.update({f"flash_attention_relpos nq{nq}": c for nq, c in nqs.items()})
     return launches
 
 
-def _drive(tag: str, pipe, frames, max_det: int, expected: dict, by_window=None) -> tuple:
+def _drive(tag: str, pipe, frames, max_det: int, expected: dict, by_window=None,
+           by_nq=None) -> tuple:
     """One batch through process_batch_arrays with every count set to 0 just
     before and read just after; output shapes and finite values checked."""
     import numpy as np
@@ -887,7 +1161,7 @@ def _drive(tag: str, pipe, frames, max_det: int, expected: dict, by_window=None)
     out = pipe.process_batch_arrays(frames)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = _read_counts(tag, wrappers, expected, by_window)
+    launches = _read_counts(tag, wrappers, expected, by_window, by_nq)
     b = frames.shape[0]
     cm = min(pipe.options.metric_crop, frames.shape[1], frames.shape[2])
     if out["mask_crops"].shape != (b, max_det, cm, cm) or out["boxes"].shape != (b, max_det, 4):
@@ -906,7 +1180,8 @@ def _drive(tag: str, pipe, frames, max_det: int, expected: dict, by_window=None)
 
 
 def _embedding_vs_plain(tag: str, pipes: dict, frames, encoder_expected=None) -> tuple:
-    """({mode: relative RMS}, fp32 embedding): the embedding of ``frames`` by
+    """({mode: relative RMS}, fp32 embedding, {mode: the pipeline's embedding
+    on the host}): the embedding of ``frames`` by
     each pipeline of ``pipes`` ({mode: (pipe, bound)}, all over one host
     tree) against the fp32 plain encoder, built once on the first one's
     bf16-rounded weights (an int8 pipeline quantises those same weights);
@@ -932,7 +1207,7 @@ def _embedding_vs_plain(tag: str, pipes: dict, frames, encoder_expected=None) ->
         emb32 = sam32.vision(pix, plain=True)
     del sam32
     torch.cuda.empty_cache()
-    rels = {}
+    rels, embs = {}, {}
     for mode, (pipe, bound) in pipes.items():
         with torch.inference_mode():
             wrappers = _reset_counts()
@@ -947,7 +1222,8 @@ def _embedding_vs_plain(tag: str, pipes: dict, frames, encoder_expected=None) ->
                       f"max|ref|={emb32.abs().max().item():.4f}")
         if not (rel <= bound and torch.isfinite(emb).all()):
             raise AssertionError(f"{tag} {mode}: embedding disagrees with the fp32 plain encoder")
-    return rels, emb32
+        embs[mode] = emb.cpu()
+    return rels, emb32, embs
 
 
 def _decoder_vs_plain(tag: str, pipe, size: int, emb32, boxes) -> None:
@@ -1042,11 +1318,16 @@ def _large_frame_phase(card: str, vit_b_pipe, vit_h_pipe) -> dict:
     expected = {**DECODER_COUNTS, "gemm_bf16": 48, "window_attn_relpos": 12}
     result["vit-b 768"], _, _ = _drive("ViT-B 768x768", vit_b_pipe, frames, 16, expected,
                                     by_window={16: 8, 48: 4})
-    rels, _ = _embedding_vs_plain("ViT-B 768x768", {"bf16": (vit_b_pipe, 0.05)}, frames[:1])
+    rels, _, _ = _embedding_vs_plain("ViT-B 768x768", {"bf16": (vit_b_pipe, 0.05)},
+                                     frames[:1])
     result["rel_rms vit-b 768"] = rels["bf16"]
     result["ms vit-b 768"] = _timed("ViT-B 768x768", vit_b_pipe, frames, card)
 
     t0 = time.perf_counter()
+    # random rel-pos tables, positional embedding, biases and LN affines from
+    # here on: config 4's checks and the sequence-parallel phase (which runs
+    # these trees) see the bias tables at each shard's rows
+    _randomise_affines(vit_h_pipe.sam_params["vision"], np.random.default_rng(10))
     opts = tengine.PipelineOptions(max_det=16, metric_crop=128)
     pipe = _sharing_params(vit_h_pipe, opts)
     pipe._stages(LARGE_FRAME, LARGE_FRAME)
@@ -1061,9 +1342,11 @@ def _large_frame_phase(card: str, vit_b_pipe, vit_h_pipe) -> dict:
                                            by_window={16: 28, 64: 4})
     # the 64 x 64 grid's stages: the encoder, then the decoder over 4096
     # tokens a prompt and the crop at gs 64
-    rels, emb32 = _embedding_vs_plain("config 4 (ViT-H, 1024 canvas)", {"bf16": (pipe, 0.05)},
-                                      frames[:2])
+    rels, emb32, embs = _embedding_vs_plain("config 4 (ViT-H, 1024 canvas)",
+                                            {"bf16": (pipe, 0.05)}, frames[:SP_BATCH])
     result["rel_rms config 4"] = rels["bf16"]
+    # the sequence-parallel phase runs these frames on these weights
+    result["sp inputs"] = (pipe, frames[:SP_BATCH], emb32.cpu(), embs["bf16"])
     _decoder_vs_plain("config 4", pipe, LARGE_FRAME, emb32[:1], out["boxes"][:1])
     # batch 32 when four more such batches fit in about a minute, else 8
     timed = frames if secs * 4 * (TIMED_ITERS + 1) <= 60 else frames[:SLICE_BATCH]
@@ -1100,7 +1383,7 @@ def _mobile_slice_phase(card: str) -> dict:
                "dw_conv3x3": 10, "layer_norm": 2}
     launches, _, _ = _drive("mobile-sam", pipe, frames[:SLICE_BATCH], 16,
                          {**DECODER_COUNTS, **encoder, "layer_norm": 10})
-    rels, _ = _embedding_vs_plain("mobile-sam", {"bf16": (pipe, 0.05)}, frames[:1],
+    rels, _, _ = _embedding_vs_plain("mobile-sam", {"bf16": (pipe, 0.05)}, frames[:1],
                                   encoder_expected=encoder)
     ms = _timed("mobile-sam", pipe, frames, card)
     del pipe
@@ -1108,8 +1391,11 @@ def _mobile_slice_phase(card: str) -> dict:
 
 
 def _randomise_affines(tree, rng) -> None:
-    """Draw, in place, every bias and LN shift (0.1 N(0, 1)), LN scale
-    (1 + 0.1 N(0, 1)) and attention bias table (0.5 N(0, 1)) of a TinyViT tree."""
+    """Draw anew, in the tree, every bias and LN shift (0.1 N(0, 1)), LN scale
+    (1 + 0.1 N(0, 1)) and attention bias table (0.5 N(0, 1)) of a TinyViT
+    tree, and the rel-pos tables and positional embedding (0.1 N(0, 1)) of a
+    SAM ViT tree: the init leaves them 0 (scales 1), which would hide the
+    rel-pos bias, the pad-token keys and the row offsets of a shard."""
     for key, v in tree.items():
         if isinstance(v, dict):
             _randomise_affines(v, rng)
@@ -1122,6 +1408,8 @@ def _randomise_affines(tree, rng) -> None:
             tree[key] = (0.1 * rng.normal(size=v.shape)).astype(v.dtype)
         elif key == "attn_bias":
             tree[key] = (0.5 * rng.normal(size=v.shape)).astype(v.dtype)
+        elif key in ("rel_pos_h", "rel_pos_w", "pos_embed"):
+            tree[key] = (0.1 * rng.normal(size=v.shape)).astype(v.dtype)
 
 
 def main() -> int:
@@ -1161,7 +1449,11 @@ def main() -> int:
     big = {model.rsplit("-", 1)[-1]: _big_slice_phase(card, model, max_det, layers)
            for model, max_det, layers, *_ in BIG_MODELS}
     lk = _large_kernel_phase(card)
-    lf = _large_frame_phase(card, sp.pop("pipe"), big["huge"].pop("pipe"))
+    vit_b_pipe = sp.pop("pipe")
+    lf = _large_frame_phase(card, vit_b_pipe, big["huge"].pop("pipe"))
+    rk = _relpos_kernel_phase(card)
+    og = _offgrid_slice_phase(card, vit_b_pipe)
+    sq = _sp_slice_phase(card, *lf.pop("sp inputs"))
     mk = _mobile_kernel_phase(card)
     ms = _mobile_slice_phase(card)
 
@@ -1249,6 +1541,28 @@ def main() -> int:
               mla["dw_conv3x3"], mk["errs"]["dw_conv3x3"], mt["dw_conv3x3 stage2"],
               mb["dw_conv3x3 stage2"], ml["dw_conv3x3 stage2"]),
     ]
+    rt, rb, rl = rk["times"], rk["bounds"], rk["library"]
+    k12_src = "csrc/flash_attention_relpos.cu"
+    k12_tpu = "ops/flash_attention.py:186 flash_attention_relpos (pallas_call :266)"
+    k12_err = rk["errs"]["flash_attention_relpos"]
+    table += [
+        entry("flash_attention_relpos sp", "cuda", k12_src, k12_tpu, sq["k12"], k12_err,
+              rt["sp ViT-H rank 1 of 2"], rb["sp ViT-H rank 1 of 2"], rl["sp ViT-H rank 1 of 2"]),
+        entry("flash_attention_relpos global", "cuda", k12_src, k12_tpu,
+              og["launches"]["flash_attention_relpos nq1600"], k12_err,
+              rt["flat ViT-B global 40x40"], rb["flat ViT-B global 40x40"],
+              rl["flat ViT-B global 40x40"]),
+        entry("flash_attention_relpos w14", "cuda", k12_src, k12_tpu,
+              og["launches"]["flash_attention_relpos nq196"], k12_err,
+              rt["flat ViT-B windows 14x14"], rb["flat ViT-B windows 14x14"],
+              rl["flat ViT-B windows 14x14"]),
+        entry("layer_norm residual", "triton", "ops/fused_ln.py",
+              "ops/fused_ln.py:56 fused_add_ln", og["launches"]["layer_norm_residual"],
+              rk["errs"]["layer_norm"], rt["K11d"], rb["K11d"]),
+    ]
+    _say("result", f"off-grid 640 {og['ms']:.2f} ms/batch of {TIMED_BATCH} = "
+                   f"{TIMED_BATCH / og['ms'] * 1000:.2f} img/s; sp ({sq['backend']}, {SP_RANKS} "
+                   f"ranks on one card) ms/batch of {SP_BATCH} by rank {sq['ms']} [{card}]")
     _say("result", f"mobile-sam {ms['ms_per_batch']:.2f} ms/batch of {TIMED_BATCH} = "
                    f"{TIMED_BATCH / ms['ms_per_batch'] * 1000:.2f} img/s; config 4 "
                    f"{lf['ms config 4']:.2f} ms/batch of {lf['batch config 4']} = "

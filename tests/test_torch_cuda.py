@@ -21,6 +21,8 @@ from yolo_sam_inference_tpu_torch.ops import decoder_fused as dec
 from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
 from yolo_sam_inference_tpu_torch.ops import quant as tq
 from yolo_sam_inference_tpu_torch.ops.flash_attention import (
+    flash_attention_relpos,
+    flash_attention_relpos_plain,
     window_attention,
     window_attention_plain,
 )
@@ -79,6 +81,62 @@ def test_window_attention_vs_plain(gen, window, hd):
     got = window_attention(qkv, rel_h, rel_w, heads, window)
     assert window_attention.launches == before + 1
     _close(got, window_attention_plain(qkv.float(), rel_h, rel_w, heads, window), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hd,rows,std_qk", [(14, 64, 14, 1.0), (14, 80, 7, 3.0),
+                                              (40, 64, 40, 1.0), (28, 80, 14, 1.0),
+                                              (64, 80, 32, 1.0), (64, 64, 64, 3.2)])
+def test_flash_attention_relpos_vs_plain(gen, s, hd, rows, std_qk):
+    """K12 on q of ``rows`` grid rows (a rank's share, or the whole grid)
+    over the S x S keys: N = 196 and 784 leave a partial 64-key tile, NQ =
+    98 a partial query tile; std_qk 3 gives logits of |s| ~ 30."""
+    bh, n, nq = 6, s * s, rows * s
+    q = _randn(gen, bh, nq, hd, std=std_qk)
+    k, v = _randn(gen, bh, n, hd, std=std_qk), _randn(gen, bh, n, hd)
+    rh, rw = (_randn(gen, bh, nq, s, std=2.0, dtype=torch.float32) for _ in range(2))
+    before = flash_attention_relpos.launches
+    got = flash_attention_relpos(q, k, v, rh, rw, s)
+    assert flash_attention_relpos.launches == before + 1
+    _close(got, flash_attention_relpos_plain(q.float(), k.float(), v.float(), rh, rw, s), 2e-2)
+
+
+@pytest.mark.cuda
+def test_sp_encoder_two_ranks_on_the_card(gen, tmp_path):
+    """The sequence-parallel encoder at ViT-B widths (grid 32, window 16, 2
+    layers: windowed, global) over 2 gloo ranks sharing the card: the ranks
+    agree bit for bit and stay within 2% relative RMS of the single-card
+    bf16 encoder (other kernels for the global layer: K12, not K3)."""
+    import dataclasses
+
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.models.sam import SamImageEncoder, init_sam_params, sam_vit_b
+    from yolo_sam_inference_tpu_torch.parallel.launch import run_ranks
+    from yolo_sam_inference_tpu_torch.parallel.workers import run_jobs
+    from yolo_sam_inference_tpu_torch.weights import save_tree
+
+    cfg = dataclasses.replace(sam_vit_b(512), vision_layers=2, global_attn_indexes=(1,),
+                              window_size=16)
+    rng = np.random.default_rng(0)
+    tree = {"vision": init_sam_params(0, cfg)["vision"]}
+    for lp in tree["vision"]["layers"]:
+        for key in ("rel_pos_h", "rel_pos_w"):
+            lp["attn"][key] = (0.3 * rng.normal(size=lp["attn"][key].shape)).astype(np.float32)
+    pix = rng.normal(size=(2, 512, 512, 3)).astype(np.float32)
+    save_tree(tmp_path / "t.npz", tree)
+    np.save(tmp_path / "p.npy", pix)
+    job = {"kind": "encoder", "tree": str(tmp_path / "t.npz"), "cfg": cfg,
+           "pix": str(tmp_path / "p.npy"), "out": str(tmp_path / "e"), "device": "cuda",
+           "dtype": torch.bfloat16}
+    assert run_ranks(run_jobs, 2, ([job],)) == ("nccl" if torch.cuda.device_count() >= 2
+                                                else "gloo")
+    a, b = (np.load(tmp_path / f"e.rank{r}.npy") for r in range(2))
+    np.testing.assert_array_equal(a, b)
+    enc = SamImageEncoder(tree["vision"], cfg).to("cuda", torch.bfloat16)
+    with torch.inference_mode():
+        want = enc(torch.from_numpy(pix).to("cuda", torch.bfloat16)).float().cpu().numpy()
+    assert np.linalg.norm(a - want) / np.linalg.norm(want) < 0.02
 
 
 def _int8_weight(gen, i, o):
@@ -146,13 +204,15 @@ def test_layer_norm_vs_plain(gen, rows, c):
     x, r = _randn(gen, rows, c), _randn(gen, rows, c)
     s = 1.0 + _randn(gen, c, std=0.1, dtype=torch.float32)
     b = _randn(gen, c, std=0.1, dtype=torch.float32)
-    before = tln.layer_norm.launches
+    before = (tln.layer_norm.launches, tln.layer_norm.residual_launches)
     _close(tln.layer_norm(x, s, b, 1e-6), tln.layer_norm_plain(x.float(), s, b, 1e-6), 1e-2)
     y, ln = tln.layer_norm(x, s, b, 1e-6, residual=r)
     y_ref, ln_ref = tln.layer_norm_plain(x.float(), s, b, 1e-6, residual=r.float())
     _close(y, y_ref, 1e-2)
     _close(ln, ln_ref, 1e-2)
-    assert tln.layer_norm.launches == before + 2
+    # the plain form (K5) and the residual form (K11d) count apart
+    assert (tln.layer_norm.launches, tln.layer_norm.residual_launches) == (before[0] + 1,
+                                                                          before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -175,6 +235,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
                          _randn(gen, 48))
     with pytest.raises(ValueError, match="multiples of 8"):
         tln.gemm_bf16(_randn(gen, 16, 12), _randn(gen, 12, 16))
+    q = _randn(gen, 2, 64, 96)
+    t = _randn(gen, 2, 64, 8, dtype=torch.float32)
+    with pytest.raises(ValueError, match="hd=64 or hd=80"):
+        flash_attention_relpos(q, q, q, t, t, 8)
+    q = _randn(gen, 2, 64, 64)
+    with pytest.raises(ValueError, match="fp32|float32"):
+        flash_attention_relpos(q, q, q, t.bfloat16(), t.bfloat16(), 8)
 
 
 def _decoder_weights(gen, c=256, dh=128):

@@ -1,0 +1,249 @@
+"""K12 and the encoder's flat route against the JAX package, on the CPU.
+
+On the CPU ``flash_attention_relpos`` takes its plain version, held here
+against the JAX package's Pallas kernel in interpret mode (as
+``tests/test_flash_attention.py`` runs it) and its naive oracle, for the
+whole grid and for a row-aligned subset of the queries (a sequence-parallel
+rank's rows). The flat encoder route (grids the window does not divide, and
+on the card the grids that are multiples of 14 but not of 16) is held
+against JAX ``sam_image_encoder``, which on the CPU always takes its flat
+route; and an off-grid pipeline against the JAX pipeline. Everything runs
+in fp32, where the TPU kernel's bf16 casts of the logits are no-ops.
+Random LayerNorm shifts and qkv biases keep the pad tokens' keys nonzero.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from synth import make_cell_image
+from yolo_sam_inference_tpu.models.sam import convert as jconvert
+from yolo_sam_inference_tpu.models.sam import model as jsam
+from yolo_sam_inference_tpu.models.yolo import YoloConfig as JaxYoloConfig
+from yolo_sam_inference_tpu.ops import flash_attention as jfa
+from yolo_sam_inference_tpu.ops import quant as jq
+from yolo_sam_inference_tpu.pipeline import engine as jengine
+from yolo_sam_inference_tpu_torch.models.sam import (
+    SamImageEncoder,
+    adapt_resolution,
+    init_sam_params,
+    sam_tiny_test,
+    sam_vit_b,
+)
+from yolo_sam_inference_tpu_torch.models.yolo import YoloConfig
+from yolo_sam_inference_tpu_torch.ops import flash_attention as tfa
+from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+torch.set_num_threads(1)
+
+# fp32 on both sides; only the summation order differs
+ATTN_TOL = dict(rtol=2e-4, atol=2e-5)
+ENC_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def _k12_case(seed, bh, s, hd):
+    rng = np.random.default_rng(seed)
+    n = s * s
+    q, k, v = (rng.normal(size=(bh, n, hd)).astype(np.float32) for _ in range(3))
+    rh, rw = ((0.5 * rng.normal(size=(bh, n, s))).astype(np.float32) for _ in range(2))
+    return q, k, v, rh, rw
+
+
+@pytest.mark.parametrize("s,hd,shard", [(8, 32, None), (8, 32, (1, 4)), (8, 64, (3, 4)),
+                                        (8, 80, None), (14, 64, None), (14, 80, (1, 2))])
+def test_relpos_plain_matches_jax_kernel(s, hd, shard):
+    """Whole-grid q, or the rows of shard i of n (NQ = N / n); S = 14 has
+    N = 196 keys, not a multiple of the card kernel's 64-key tiles."""
+    q, k, v, rh, rw = _k12_case(s * hd, 3, s, hd)
+    n = s * s
+    nq = n if shard is None else n // shard[1]
+    sl = slice(0, n) if shard is None else slice(shard[0] * nq, (shard[0] + 1) * nq)
+    got = tfa.flash_attention_relpos(_t(q[:, sl]), _t(k), _t(v), _t(rh[:, sl]), _t(rw[:, sl]), s)
+    block_q = max(d for d in range(1, nq + 1) if nq % d == 0 and d <= 64)
+    kern = jfa.flash_attention_relpos(
+        jnp.asarray(q[:, sl]), jnp.asarray(k), jnp.asarray(v), jnp.asarray(rh[:, sl]),
+        jnp.asarray(rw[:, sl]), grid_s=s, block_q=block_q, block_k=n if s == 14 else 2 * s,
+        interpret=True)
+    full = jfa.reference_attention_relpos(*(jnp.asarray(a) for a in (q, k, v, rh, rw)), s)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), **ATTN_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(full)[:, sl], **ATTN_TOL)
+
+
+@pytest.mark.parametrize("row0,rows", [(0, 8), (2, 2), (6, 2)])
+def test_relpos_score_tables_match_jax(row0, rows):
+    """The tables of a rank's rows [row0, row0 + rows) of an 8 x 8 grid, as
+    JAX ``parallel/sp.py:146-164`` builds them (``model.py:230-236`` for the
+    whole grid)."""
+    rng = np.random.default_rng(row0)
+    s, b, heads, hd = 8, 2, 3, 16
+    q = rng.normal(size=(b, heads, rows * s, hd)).astype(np.float32)
+    rel_h, rel_w = (rng.normal(size=(2 * s - 1, hd)).astype(np.float32) for _ in range(2))
+    rh, rw = tfa.relpos_score_tables(_t(q.reshape(b * heads, rows * s, hd)), _t(rel_h),
+                                     _t(rel_w), s, row0=row0)
+    rel_idx = (jnp.arange(rows) + row0)[:, None] - jnp.arange(s)[None, :] + s - 1
+    rh_t = jnp.take(jnp.asarray(rel_h), rel_idx, axis=0)
+    idx_w = np.arange(s)[:, None] - np.arange(s)[None, :] + s - 1
+    rw_t = jnp.asarray(rel_w)[idx_w]
+    qg = jnp.asarray(q).reshape(b, heads, rows, s, hd)
+    want_h = jnp.einsum("bhqwc,qkc->bhqwk", qg, rh_t).reshape(b * heads, rows * s, s)
+    want_w = jnp.einsum("bhqwc,wkc->bhqwk", qg, rw_t).reshape(b * heads, rows * s, s)
+    np.testing.assert_allclose(rh.numpy(), np.asarray(want_h), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(rw.numpy(), np.asarray(want_w), rtol=1e-5, atol=1e-5)
+
+
+def test_relpos_wrappers_refuse_bad_shapes():
+    q, k, v, rh, rw = (_t(a) for a in _k12_case(0, 2, 8, 16))
+    with pytest.raises(ValueError, match="grid"):
+        tfa.flash_attention_relpos(q, k, v, rh, rw, 7)
+    with pytest.raises(ValueError, match="score tables"):
+        tfa.flash_attention_relpos(q, k, v, rh[:, :, :4], rw, 8)
+    with pytest.raises(ValueError, match="whole"):
+        tfa.relpos_score_tables(q[:, :12], _t(np.zeros((15, 16))), _t(np.zeros((15, 16))), 8)
+
+
+def _randomise(tree, seed):
+    """Random pos embed, rel-pos tables, LN affines and qkv biases (zeros
+    hide the pad tokens' keys and the rel-pos offsets)."""
+    rng = np.random.default_rng(seed)
+    v = tree["vision"]
+
+    def rnd(a, scale):
+        return (scale * rng.normal(size=np.shape(a))).astype(np.float32)
+
+    v["pos_embed"] = rnd(v["pos_embed"], 0.1)
+    for lp in v["layers"]:
+        for key in ("rel_pos_h", "rel_pos_w"):
+            lp["attn"][key] = rnd(lp["attn"][key], 0.3)
+        lp["attn"]["qkv"]["b"] = rnd(lp["attn"]["qkv"]["b"], 0.5)
+        lp["attn"]["proj"]["b"] = rnd(lp["attn"]["proj"]["b"], 0.1)
+        for name in ("ln1", "ln2"):
+            lp[name]["scale"] = 1.0 + rnd(lp[name]["scale"], 0.1)
+            lp[name]["bias"] = rnd(lp[name]["bias"], 0.3)
+    return tree
+
+
+def _encoders(tree, cfg, pix):
+    got = SamImageEncoder(tree["vision"], cfg)(_t(pix)).detach().numpy()
+    return got, np.asarray(jsam.sam_image_encoder(tree, jnp.asarray(pix), cfg))
+
+
+@pytest.mark.parametrize("image_size,window", [(80, 4), (72, 2)])
+def test_flat_encoder_matches_jax_padded(image_size, window):
+    """Grids 10 and 9 with windows 4 and 2: partitions zero-padded to 12 and
+    10; the pad tokens' keys (qkv bias) are attended to, unmasked."""
+    cfg = dataclasses.replace(sam_tiny_test(), image_size=image_size, window_size=window)
+    tree = _randomise(init_sam_params(1, cfg), 2)
+    enc = SamImageEncoder(tree["vision"], cfg)
+    assert not enc.grid_route()
+    pix = np.random.default_rng(3).normal(size=(2, image_size, image_size, 3)).astype(np.float32)
+    got, want = _encoders(tree, cfg, pix)
+    np.testing.assert_allclose(got, want, **ENC_TOL)
+
+
+def test_flat_encoder_matches_jax_at_vit_b_640():
+    """ViT-B widths (C 768, 12 heads, MLP 3072) at the 640 canvas (grid 40,
+    window 14 padded to 42), cut to 2 layers: one windowed, one global;
+    weights adapted from the 1024 tree by each package's adapt_resolution."""
+    base = dataclasses.replace(sam_vit_b(), vision_layers=2, global_attn_indexes=(1,))
+    cfg = dataclasses.replace(base, image_size=640, window_size=14)
+    tree = init_sam_params(4, base)
+    tree = {"vision": tree["vision"]}
+    adapted = adapt_resolution(tree, cfg)
+    jadapted = jconvert.adapt_resolution(tree, cfg)
+    np.testing.assert_array_equal(adapted["vision"]["pos_embed"], jadapted["vision"]["pos_embed"])
+    tree = _randomise(adapted, 5)
+    pix = np.random.default_rng(6).normal(size=(1, 640, 640, 3)).astype(np.float32)
+    got, want = _encoders(tree, cfg, pix)
+    assert got.shape == (1, 40, 40, 256)
+    np.testing.assert_allclose(got, want, **ENC_TOL)
+
+
+@pytest.mark.parametrize("image_size", [224, 448])
+def test_grids_of_14_take_the_flat_route_on_the_card(image_size):
+    """Grids 14 and 28 at window 14 (the 224 and 448 canvases; 896 is grid
+    56): the window attention kernel takes no window of 14, so the encoder
+    takes the flat route, without padding, on every device. It equals JAX
+    (whose CPU run takes its flat route, unpadded; its grid route computes
+    the same function)."""
+    cfg = dataclasses.replace(sam_tiny_test(), image_size=image_size, patch_size=16,
+                              window_size=14)
+    tree = _randomise(init_sam_params(7, cfg), 8)
+    enc = SamImageEncoder(tree["vision"], cfg)
+    assert not enc.grid_route()
+    assert SamImageEncoder(tree["vision"], dataclasses.replace(cfg, window_size=7)).grid_route()
+    pix = np.random.default_rng(9).normal(size=(1, image_size, image_size, 3)).astype(np.float32)
+    got, want = _encoders(tree, cfg, pix)
+    np.testing.assert_allclose(got, want, **ENC_TOL)
+
+
+def test_flat_route_counts_its_layer_norms(monkeypatch):
+    """Per layer: LN1 plain at layer 0, else the residual form (K11d), and
+    LN2 residual: 2 layers -> 1 plain + 3 residual calls, then the neck's 2
+    plain ones."""
+    from yolo_sam_inference_tpu_torch.models.sam import model as tmodel
+
+    calls = []
+    real = tmodel.layer_norm
+
+    def spy(x, scale, bias, eps=1e-6, residual=None):
+        calls.append(residual is not None)
+        return real(x, scale, bias, eps, residual=residual)
+
+    monkeypatch.setattr(tmodel, "layer_norm", spy)
+    cfg = dataclasses.replace(sam_tiny_test(), image_size=72)  # grid 9, window 2
+    enc = SamImageEncoder(init_sam_params(0, cfg)["vision"], cfg)
+    enc(torch.zeros(1, 72, 72, 3))
+    assert calls == [False, True, True, True, False, False]
+
+
+def test_flat_route_refuses_int8():
+    cfg = dataclasses.replace(sam_tiny_test(), image_size=72)
+    tree = jq.quantize_sam_encoder_params(init_sam_params(0, cfg))
+    enc = SamImageEncoder(tree["vision"], cfg)
+    with pytest.raises(ValueError, match="int8 on the off-grid route"):
+        enc(torch.zeros(1, 72, 72, 3))
+
+
+OPTS = dict(batch_size=2, yolo_size=64, max_det=4, metric_crop=48, nms_candidates=64,
+            sam_encoder_size=72)  # grid 9 at the tiny config's window 2: the flat route
+
+
+@pytest.fixture(scope="module")
+def offgrid_both():
+    rng = np.random.default_rng(11)
+    frames = np.stack([make_cell_image(rng, 64, 64) for _ in range(2)])
+    jp = jengine.CellSegmentationPipeline(
+        sam_config=sam_tiny_test(), yolo_config=JaxYoloConfig(num_classes=1), seed=0,
+        options=jengine.PipelineOptions(compute_dtype=jnp.float32, **OPTS),
+    )
+    tp = tengine.CellSegmentationPipeline(
+        device="cpu", sam_config=sam_tiny_test(), yolo_config=YoloConfig(num_classes=1), seed=0,
+        options=tengine.PipelineOptions(compute_dtype=torch.float32, **OPTS),
+    )
+    return frames, jp, tp, jp.process_batch_arrays(frames), tp.process_batch_arrays(frames)
+
+
+def test_offgrid_pipeline_matches_jax(offgrid_both):
+    """Same seed, frames and options (sam_encoder_size 72: grid 9, windows of
+    2 padded to 10): embeddings within 1e-4, detections equal, masks agree
+    on >= 99.5% of pixels (an embedding difference of 1e-5 can flip a logit
+    that sits at 0)."""
+    frames, jp, tp, jo, to = offgrid_both
+    h, w = frames.shape[1:3]
+    jst, tst = jp._stages(h, w), tp._stages(h, w)
+    assert tst["scfg"].grid_size == 9 and not tst["sam"].vision.grid_route()
+    with torch.inference_mode():
+        emb = tst["embed"](torch.from_numpy(frames)).numpy()
+    jemb = np.asarray(jst["embed"](jst["sam_params"], jnp.asarray(frames)))
+    np.testing.assert_allclose(emb, jemb, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(to["valid"], jo["valid"])
+    np.testing.assert_allclose(to["boxes"], jo["boxes"], rtol=1e-4, atol=1e-3)
+    assert (to["mask_crops"] == jo["mask_crops"]).mean() >= 0.995

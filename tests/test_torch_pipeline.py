@@ -126,13 +126,17 @@ def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port (and its pipeline) must import neither jax nor the JAX package."""
+    """The port (its pipeline, and the multi-rank modules its spawned ranks
+    import) must import neither jax nor the JAX package."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import yolo_sam_inference_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import yolo_sam_inference_tpu_torch.pipeline.engine\n"
+        "walked = {'yolo_sam_inference_tpu_torch.parallel.' + m for m in ('sp', 'launch',\n"
+        "                                                                  'workers')}\n"
+        "assert walked <= set(sys.modules), sorted(walked - set(sys.modules))\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'yolo_sam_inference_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'yolo_sam_inference_tpu.'))]\n"
         "print(sorted(bad))\n"

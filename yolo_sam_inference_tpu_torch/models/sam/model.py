@@ -2,12 +2,16 @@
 
 Counterpart of ``yolo_sam_inference_tpu/models/sam/model.py``:
 
-* :class:`SamImageEncoder` is the grid-layout encoder (JAX ``:334-418``):
-  activations stay ``(B, S, S, C)``, windows are handled inside attention.
-  Per layer: LN1 + qkv, window attention with the decomposed rel-pos bias,
-  the output projection, and the LN2 + MLP block tail, on the routes the JAX
-  encoder picks (:class:`VisionLayer`); then the neck (1x1 conv, LN, 3x3
-  conv, LN).
+* :class:`SamImageEncoder` takes the JAX encoder's two routes. The grid
+  route (JAX ``:334-418``) keeps activations ``(B, S, S, C)`` and handles
+  windows inside attention. Per layer: LN1 + qkv, window attention with the
+  decomposed rel-pos bias, the output projection, and the LN2 + MLP block
+  tail (:class:`VisionLayer`). The flat route (JAX ``:420-461``) serves
+  grids the window does not divide, and grids in windows of 14
+  (:meth:`SamImageEncoder.grid_route`): windows are zero-padded partitions,
+  every attention runs on K12 (:func:`_vision_attention`), and the block
+  tails carry the MLP residual into the next LayerNorm (K11d). Then the
+  neck (1x1 conv, LN, 3x3 conv, LN).
 * :class:`SamPromptEncoder` encodes box prompts with fp32 Fourier features.
 * :class:`SamMaskDecoder` is the two-way transformer in the order of the
   JAX package's fused branch (``:736-817``): layer 0's token-to-image
@@ -31,7 +35,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.decoder_fused import i2t_keys_update, t2i_shared_attend
-from ...ops.flash_attention import window_attention, window_attention_plain
+from ...ops.flash_attention import (
+    flash_attention_relpos,
+    flash_attention_relpos_plain,
+    relpos_score_tables,
+    window_attention,
+    window_attention_plain,
+)
 from ...ops.fused_ln import (
     fused_ln_matmul,
     fused_ln_matmul_int8,
@@ -151,15 +161,54 @@ class VisionLayer(nn.Module):
         return tail(x, h, ln2.scale, ln2.bias, *w, eps=ln2.eps)
 
 
+def _window_partition(x, ws: int):
+    """(B, S, S, C) -> (B*nw*nw, ws, ws, C), zero-padded to a multiple of ws
+    (JAX ``model.py:272-281``); also returns the padded side."""
+    b, s, _, c = x.shape
+    pad = (ws - s % ws) % ws
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad, 0, pad))
+    ps = s + pad
+    nw = ps // ws
+    x = x.reshape(b, nw, ws, nw, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b * nw * nw, ws, ws, c), ps
+
+
+def _window_unpartition(win, ws: int, padded: int, orig: int):
+    """Inverse of :func:`_window_partition`, cropped to ``orig``."""
+    nw = padded // ws
+    b, c = win.shape[0] // (nw * nw), win.shape[-1]
+    x = win.reshape(b, nw, nw, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, padded, padded, c)[:, :orig, :orig]
+
+
+def _vision_attention(layer: VisionLayer, h, heads: int, plain: bool = False):
+    """The flat route's attention (JAX ``_vision_attention``, ``:215-269``)
+    on LayerNormed tokens h (B, S, S, C): a whole grid, or a batch of
+    windows. qkv and the projection on the GEMM kernel, the attention over
+    all S x S tokens on K12 with grid side S. -> (B, S, S, C).
+
+    Pad tokens of a partition are zero after LN1, so their qkv is the qkv
+    bias: they stay keys, as in the JAX package."""
+    b, s, _, c = h.shape
+    hd = c // heads
+    gemm = {"gemm": gemm_plain} if plain else {}
+    qkv = linear(h, layer.qkv.w, layer.qkv.b, **gemm)
+    t = qkv.reshape(b, s * s, 3, heads, hd).permute(2, 0, 3, 1, 4)  # (3, B, H, N, hd)
+    q, k, v = (t[i].reshape(b * heads, s * s, hd).contiguous() for i in range(3))
+    rh, rw = relpos_score_tables(q, layer.rel_pos_h, layer.rel_pos_w, s)
+    attn = flash_attention_relpos_plain if plain else flash_attention_relpos
+    o = attn(q, k, v, rh, rw, s).reshape(b, heads, s, s, hd).permute(0, 2, 3, 1, 4)
+    return linear(o.reshape(b, s, s, c), layer.proj.w, layer.proj.b, **gemm)
+
+
 class SamImageEncoder(nn.Module):
-    """ViT encoder in the grid layout. ``forward(pix)``: (B, H, W, 3)
-    normalised -> (B, gs, gs, output_channels)."""
+    """ViT encoder. ``forward(pix)``: (B, H, W, 3) normalised ->
+    (B, gs, gs, output_channels), on the grid route or the flat route
+    (:meth:`grid_route`)."""
 
     def __init__(self, p: Params, cfg: SamTPUConfig):
         super().__init__()
-        s = cfg.grid_size
-        if s % cfg.window_size:
-            raise ValueError(f"grid {s} is not a multiple of window {cfg.window_size}")
         self.cfg = cfg
         pw = np.asarray(p["patch_embed"]["w"])  # (ps, ps, 3, C) HWIO
         self.patch_w = _param(pw.reshape(-1, pw.shape[-1]))
@@ -171,20 +220,73 @@ class SamImageEncoder(nn.Module):
         self.neck_ln1, self.neck_ln2 = Norm(n["ln1"], 1e-6), Norm(n["ln2"], 1e-6)
         self.neck_conv2 = _param(np.asarray(n["conv2_w"]).transpose(3, 2, 0, 1))  # OIHW
 
-    def forward(self, pix: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        cfg = self.cfg
-        ps = cfg.patch_size
-        b, size, _, ci = pix.shape
-        gs = size // ps
-        patches = pix.reshape(b, gs, ps, gs, ps, ci).permute(0, 1, 3, 2, 4, 5)
-        x = patches.reshape(b, gs, gs, ps * ps * ci) @ self.patch_w + self.patch_b
-        x = x + self.pos_embed
-        for i, layer in enumerate(self.layers):
-            window = gs if i in cfg.global_attn_indexes else cfg.window_size
-            x = layer(x, cfg.vision_heads, window, plain)
+    def grid_route(self) -> bool:
+        """The JAX encoder's rule (``model.py:325-330``): the grid route when
+        the window divides the grid, else the flat route. One exception, on
+        every device: SAM's native window of 14, which divides the grids of
+        the 224, 448 and 896 canvases but which the window attention kernel
+        does not take (it takes ``KERNEL_WINDOWS``), sends those grids down
+        the flat route, without padding. Both routes compute the same
+        function."""
+        s, ws = self.cfg.grid_size, self.cfg.window_size
+        return s % ws == 0 and ws != 14
+
+    def embed(self, pix: torch.Tensor, row0: int = 0) -> torch.Tensor:
+        """Patch embedding + positional embedding of a block of whole patch
+        rows (B, rows * ps, W, 3) that starts at patch row ``row0``."""
+        ps = self.cfg.patch_size
+        b, hgt, wid, ci = pix.shape
+        gh, gw = hgt // ps, wid // ps
+        patches = pix.reshape(b, gh, ps, gw, ps, ci).permute(0, 1, 3, 2, 4, 5)
+        x = patches.reshape(b, gh, gw, ps * ps * ci) @ self.patch_w + self.patch_b
+        return x + self.pos_embed[:, row0:row0 + gh]
+
+    def neck(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         y = self.neck_ln1(x @ self.neck_conv1, plain)
         y = F.conv2d(y.permute(0, 3, 1, 2), self.neck_conv2, padding=1).permute(0, 2, 3, 1)
         return self.neck_ln2(y.contiguous(), plain)
+
+    def forward(self, pix: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        cfg = self.cfg
+        x = self.embed(pix)
+        if not self.grid_route():
+            return self.neck(self._forward_flat(x, plain), plain)
+        for i, layer in enumerate(self.layers):
+            window = cfg.grid_size if i in cfg.global_attn_indexes else cfg.window_size
+            x = layer(x, cfg.vision_heads, window, plain)
+        return self.neck(x, plain)
+
+    def _forward_flat(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+        """The flat route's layers, in the JAX order (``model.py:420-461``):
+        ``x, h = add_ln(ln1, x, pending)`` (the plain LN at layer 0), the
+        attention (windowed layers on zero-padded partitions), ``x, h =
+        add_ln(ln2, x, h)``, then mlp1 + GELU and mlp2 into ``pending``. The
+        residual LayerNorms are K11d's call sites."""
+        cfg = self.cfg
+        if self.layers and self.layers[0].int8:
+            raise ValueError(
+                f"quant='int8' takes the grid route only; grid {cfg.grid_size} with window "
+                f"{cfg.window_size} takes the flat route, whose int8 projections are not "
+                f"ported yet (ROADMAP.md, Queue 1: int8 on the off-grid route)")
+        s, ws, heads = cfg.grid_size, cfg.window_size, cfg.vision_heads
+        ln = layer_norm_plain if plain else layer_norm
+        gemm = {"gemm": gemm_plain} if plain else {}
+        pending = None  # the MLP residual, carried into the next LayerNorm
+        for i, layer in enumerate(self.layers):
+            l1, l2 = layer.ln1, layer.ln2
+            if pending is None:
+                h = ln(x, l1.scale, l1.bias, l1.eps)
+            else:
+                x, h = ln(x, l1.scale, l1.bias, l1.eps, residual=pending)
+            if i in cfg.global_attn_indexes:
+                h = _vision_attention(layer, h, heads, plain)
+            else:
+                win, padded = _window_partition(h, ws)
+                h = _window_unpartition(_vision_attention(layer, win, heads, plain), ws, padded, s)
+            x, h = ln(x, l2.scale, l2.bias, l2.eps, residual=h)
+            h = linear(h, layer.mlp1.w, layer.mlp1.b, **gemm, gelu=True)
+            pending = linear(h, layer.mlp2.w, layer.mlp2.b, **gemm)
+        return x if pending is None else x + pending
 
 
 # --------------------------------------------------------------- prompt encoder

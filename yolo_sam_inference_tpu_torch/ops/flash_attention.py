@@ -1,8 +1,12 @@
-"""Window attention with SAM's decomposed rel-pos bias (kernels K2 + K3).
+"""SAM's attention with the decomposed rel-pos bias: the window attention
+of the grid route (kernels K2 + K3) and the k-tiled attention of the flat
+and sequence-parallel routes (K12).
 
-Counterpart of ``relpos_tables`` and ``flash_attention_grid`` in
-``yolo_sam_inference_tpu/ops/flash_attention.py``. On the card one CUDA
-kernel (``csrc/window_attn_relpos.cu``) does both: it multiplies each query
+Counterpart of ``relpos_tables``, ``flash_attention_grid`` and
+``flash_attention_relpos`` in ``yolo_sam_inference_tpu/ops/flash_attention.py``.
+
+:func:`window_attention`: on the card one CUDA kernel
+(``csrc/window_attn_relpos.cu``) does K2 and K3: it multiplies each query
 by the raw ``(2w-1, hd)`` tables inside the block, and runs the window
 attention with an online fp32 softmax. Its source note says what
 bounds it and what the design does about it. The output projection, fused
@@ -16,6 +20,15 @@ the output ``(B, S, S, C)``. Attention is confined to non-overlapping
 Dispatch is by the tensor's device: CPU takes the plain version, CUDA
 launches the kernel or raises. ``window_attention.launches`` counts launches,
 and ``window_attention.by_window`` counts them per window size.
+
+:func:`flash_attention_relpos` (K12) takes q ``(BH, NQ, hd)`` and k, v
+``(BH, N, hd)`` over an ``S x S`` key grid (``N = S^2``), with the rel-pos
+score tables ``rh``, ``rw`` ``(BH, NQ, S)`` in fp32 that
+:func:`relpos_score_tables` builds from the unscaled q. NQ is a row-aligned
+subset of the grid when a sequence-parallel rank holds only some of the
+query rows. On the card it launches ``csrc/flash_attention_relpos.cu``;
+``flash_attention_relpos.launches`` counts launches and ``.by_nq`` counts
+them per query count.
 """
 
 from __future__ import annotations
@@ -108,3 +121,92 @@ def window_attention(qkv, rel_h, rel_w, heads: int, window: int):
 
 window_attention.launches = 0
 window_attention.by_window = {}  # launches per window size
+
+
+# ------------------------------------------------------------------------- K12
+
+# The grid sides S the K12 kernel takes: its block stages the query tile's
+# (64, S) score tables in shared memory.
+RELPOS_MAX_GRID = 64
+
+
+def relpos_score_tables(q, rel_h, rel_w, s: int, row0: int = 0):
+    """The decomposed rel-pos score tables of K12, fp32 ``(BH, NQ, S)`` each.
+
+    ``q`` (BH, NQ, hd) holds NQ / S whole rows of the S x S grid, unscaled,
+    starting at absolute grid row ``row0`` (a sequence-parallel rank's first
+    row; 0 for the whole grid). ``rel_h``, ``rel_w`` are the raw
+    ``(2S-1, hd)`` tables. ``rh[i, ky] = q_i . rel_h[y_i - ky + S - 1]`` and
+    ``rw[i, kx] = q_i . rel_w[x_i - kx + S - 1]``, as JAX
+    ``models/sam/model.py:230-236`` and ``parallel/sp.py:145-164`` build them
+    (there with XLA einsums, here with torch products)."""
+    bh, nq, hd = q.shape
+    if nq % s or row0 < 0 or row0 + nq // s > s:
+        raise ValueError(f"relpos_score_tables: {nq} queries from row {row0} are not whole "
+                         f"rows of a {s} x {s} grid")
+    dev = q.device
+    rows = torch.arange(nq // s, device=dev) + row0
+    cols = torch.arange(s, device=dev)
+    th = rel_h.float()[rows[:, None] - cols[None, :] + s - 1]  # (rows, S, hd) [qy, ky]
+    tw = rel_w.float()[cols[:, None] - cols[None, :] + s - 1]  # (S, S, hd) [qx, kx]
+    qg = q.float().reshape(bh, nq // s, s, hd)
+    rh = torch.einsum("byxc,ykc->byxk", qg, th).reshape(bh, nq, s)
+    rw = torch.einsum("byxc,xkc->byxk", qg, tw).reshape(bh, nq, s)
+    return rh.contiguous(), rw.contiguous()
+
+
+def flash_attention_relpos_plain(q, k, v, rh, rw, grid_s: int):
+    """fp32 version of :func:`flash_attention_relpos` (output in v's dtype):
+    ``softmax(q.k^T hd^-0.5 + rh[:, :, j // S] + rw[:, :, j % S]) . v``."""
+    bh, nq, hd = q.shape
+    n = k.shape[1]
+    step = max(1, _PLAIN_LOGIT_BYTES // (nq * n * 4))
+    out = []
+    for i in range(0, bh, step):
+        sl = slice(i, i + step)
+        logits = (q[sl].float() * hd ** -0.5) @ k[sl].float().transpose(1, 2)
+        bias = rh[sl].float()[..., :, None] + rw[sl].float()[..., None, :]  # (b, NQ, ky, kx)
+        p = torch.softmax(logits + bias.reshape(logits.shape), dim=-1)
+        out.append(p @ v[sl].float())
+    return torch.cat(out).to(v.dtype)
+
+
+def flash_attention_relpos(q, k, v, rh, rw, grid_s: int):
+    """K12: attention of q ``(BH, NQ, hd)`` over the ``grid_s^2`` keys of
+    k, v ``(BH, N, hd)`` with the score tables rh, rw ``(BH, NQ, grid_s)``;
+    softmax in fp32, output ``(BH, NQ, hd)`` in v's dtype.
+
+    The kernel takes q, k, v in bf16 and the tables in fp32, hd 64 or 80,
+    grid_s up to 64 and any N (the tail of a 64-key tile is masked)."""
+    bh, nq, hd = q.shape
+    n = grid_s * grid_s
+    if tuple(k.shape) != (bh, n, hd) or tuple(v.shape) != (bh, n, hd) or nq % grid_s:
+        raise ValueError(f"flash_attention_relpos: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} on a {grid_s} x {grid_s} grid")
+    if tuple(rh.shape) != (bh, nq, grid_s) or rw.shape != rh.shape:
+        raise ValueError(f"flash_attention_relpos: score tables {tuple(rh.shape)}, "
+                         f"{tuple(rw.shape)}, need {(bh, nq, grid_s)}")
+    if _on_cpu(q):
+        return flash_attention_relpos_plain(q, k, v, rh, rw, grid_s)
+    if hd not in KERNEL_HEAD_DIMS or grid_s > RELPOS_MAX_GRID:
+        raise ValueError(f"flash_attention_relpos kernel takes hd=64 or hd=80 and a grid side "
+                         f"up to {RELPOS_MAX_GRID}; got hd={hd}, grid_s={grid_s}")
+    for name, t, dtype in (("q", q, torch.bfloat16), ("k", k, torch.bfloat16),
+                           ("v", v, torch.bfloat16), ("rh", rh, torch.float32),
+                           ("rw", rw, torch.float32)):
+        if t.dtype != dtype or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_attention_relpos kernel: {name} must be contiguous {dtype} "
+                             f"on {q.device}, got {t.dtype} on {t.device}")
+    out = torch.empty_like(q)
+    err = kernels().ysi_flash_attn_relpos(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
+        bh, nq, n, grid_s, hd, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check(err, "flash_attention_relpos")
+    flash_attention_relpos.launches += 1
+    flash_attention_relpos.by_nq[nq] = flash_attention_relpos.by_nq.get(nq, 0) + 1
+    return out
+
+
+flash_attention_relpos.launches = 0
+flash_attention_relpos.by_nq = {}  # launches per query count NQ

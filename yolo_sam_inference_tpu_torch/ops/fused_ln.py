@@ -190,7 +190,9 @@ def _triton_layer_norm():
 
 def layer_norm(x, scale, bias, eps: float = 1e-6, residual=None):
     """Row LayerNorm over the last axis (K5); with ``residual`` returns
-    ``(x + residual, LayerNorm(x + residual))`` like ``fused_add_ln``."""
+    ``(x + residual, LayerNorm(x + residual))`` like ``fused_add_ln`` (K11d).
+    The two forms count their launches apart: ``.launches`` and
+    ``.residual_launches``."""
     if _on_cpu(x):
         return layer_norm_plain(x, scale, bias, eps, residual)
     kernel, next_pow2 = _triton_layer_norm()
@@ -207,11 +209,15 @@ def layer_norm(x, scale, bias, eps: float = 1e-6, residual=None):
         x2, r2 if r2 is not None else x2, y, out, _f32(scale), _f32(bias), c, float(eps),
         HAS_RES=r2 is not None, BLOCK=block, num_warps=4 if block >= 1024 else 1,
     )
-    layer_norm.launches += 1
-    return out if r2 is None else (y, out)
+    if r2 is None:
+        layer_norm.launches += 1
+        return out
+    layer_norm.residual_launches += 1
+    return y, out
 
 
-layer_norm.launches = 0
+layer_norm.launches = 0  # the plain form (K5)
+layer_norm.residual_launches = 0  # the residual form (K11d's call sites)
 
 
 # ------------------------------------------------------------ the fused blocks
@@ -244,10 +250,11 @@ def fused_ln_mlp(x, h, scale, bias, w1, b1, w2, b2, eps: float = 1e-6, gemm=gemm
     return out.reshape(x.shape)
 
 
-def linear(x, w, b, gemm=gemm_bf16):
-    """``x @ w + b`` through the GEMM kernel (the attention projection)."""
+def linear(x, w, b, gemm=gemm_bf16, gelu: bool = False):
+    """``x @ w + b`` (then GELU) through the GEMM kernel: the attention
+    projections, and the flat route's qkv and MLP."""
     lead = x.shape[:-1]
-    out = gemm(x.reshape(-1, x.shape[-1]).contiguous(), w, b)
+    out = gemm(x.reshape(-1, x.shape[-1]).contiguous(), w, b, gelu=gelu)
     return out.reshape(*lead, w.shape[1])
 
 

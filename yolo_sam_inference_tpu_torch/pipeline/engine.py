@@ -7,7 +7,11 @@ batch runs as four stages on the pipeline's device:
   boxes mapped back to frame pixels;
 * :func:`embed_stage`: SAM preprocess -> ViT encoder once per image at the
   frame's native resolution (window 16, resolution-adapted weights), or
-  TinyViT-5M for MobileSAM (``"mobile-sam"``, ``"tinyvit"``);
+  TinyViT-5M for MobileSAM (``"mobile-sam"``, ``"tinyvit"``); with
+  ``PipelineOptions.encoder_parallel="sp"`` the ViT encoder's token rows are
+  split over the ranks of a process group (``parallel/sp.py``), and every
+  rank runs the other stages on the whole batch and returns the same
+  outputs;
 * :func:`segment_stage`: box prompts -> two-way decoder batched over every
   prompt -> a per-prompt window of the token grid -> mask head -> bilinear
   resample onto a fixed crop around each cell;
@@ -31,6 +35,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.sam import (
     SamTPUConfig,
@@ -49,6 +54,7 @@ from ..ops.nms import batched_nms
 from ..ops.preprocess import letterbox_batch, sam_preprocess_batch
 from ..ops.quant import quantize_sam_encoder_params
 from ..ops.window_crop import window_crop
+from ..parallel.sp import sam_image_encoder_sp
 from ..weights import from_jax_params
 from .results import ProcessingResult
 
@@ -65,6 +71,7 @@ SAM_CONFIGS = {
 }
 TINYVIT_TYPES = ("mobile-sam", "tinyvit")
 QUANT_MODES = ("none", "int8")
+ENCODER_PARALLEL = ("none", "sp", "tp")
 
 
 @dataclass(frozen=True)
@@ -88,6 +95,9 @@ class PipelineOptions:
     # "int8" = dynamic w8a8 quantisation of the SAM encoder's qkv/MLP
     # projections (ops/quant.py); "none" keeps compute_dtype throughout
     quant: str = "none"
+    # "sp" = the ViT encoder's token rows split over the ranks of the
+    # pipeline's process group (parallel/sp.py); "tp" is not ported yet
+    encoder_parallel: str = "none"
 
     def encoder_size_for(self, h: int, w: int) -> int:
         if self.sam_encoder_size is not None:
@@ -157,12 +167,18 @@ def detect_stage(yolo, images_u8: torch.Tensor, ycfg: YoloConfig, opts: Pipeline
     return boxes, scores, valid
 
 
-def embed_stage(sam, images_u8: torch.Tensor, scfg: SamTPUConfig, opts: PipelineOptions):
+def embed_stage(sam, images_u8: torch.Tensor, scfg: SamTPUConfig, opts: PipelineOptions,
+                group=None):
     """uint8 (B, H, W[, 3]) -> SAM image embeddings (B, gs, gs, C) fp32.
     ``sam.vision`` is the ViT encoder, or TinyViT for MobileSAM (built from
-    the tree's ``"tinyvit"`` subtree at the canvas ``scfg.image_size``)."""
+    the tree's ``"tinyvit"`` subtree at the canvas ``scfg.image_size``).
+    With a process ``group``, the ViT encoder runs sequence-parallel over
+    its ranks."""
     pix, _, _ = sam_preprocess_batch(_ensure_rgb(images_u8), scfg.image_size)
-    return sam.vision(pix.to(opts.compute_dtype)).float()
+    pix = pix.to(opts.compute_dtype)
+    if group is None:
+        return sam.vision(pix).float()
+    return sam_image_encoder_sp(sam.vision, pix, scfg, group).float()
 
 
 def _bilinear_crop_sample_window(
@@ -267,6 +283,10 @@ class CellSegmentationPipeline:
     """YOLO + SAM + morphometrics pipeline on one device (default ``"cuda"``).
 
     Asking for CUDA where there is none raises; nothing falls back to the CPU.
+    With ``encoder_parallel="sp"`` it is one rank of a ``torch.distributed``
+    program: ``process_group`` (default: the world group) holds the ranks,
+    each calls the pipeline on the same batch. ``params`` = (YOLO tree, SAM
+    tree) in the JAX layout replaces the seeded random init.
     """
 
     def __init__(
@@ -277,14 +297,20 @@ class CellSegmentationPipeline:
         seed: int = 0,
         sam_config: Optional[SamTPUConfig] = None,
         yolo_config: Optional[YoloConfig] = None,
+        process_group=None,
+        params: Optional[Tuple[Any, Any]] = None,
     ) -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CellSegmentationPipeline(device='cuda'): no CUDA device")
         self.sam_model_type = sam_model_type
         self.options = options or PipelineOptions()
+        self.process_group = process_group
         if self.options.quant not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {self.options.quant!r}: one of {QUANT_MODES}")
+        if self.options.encoder_parallel not in ENCODER_PARALLEL:
+            raise ValueError(f"encoder_parallel must be one of {ENCODER_PARALLEL}, got "
+                             f"{self.options.encoder_parallel!r}")
         self.yolo_config = yolo_config or yolov8n()
         if sam_config is not None:
             self.sam_config = sam_config
@@ -292,7 +318,10 @@ class CellSegmentationPipeline:
             self.sam_config = SAM_CONFIGS[sam_model_type]()
         else:
             raise ValueError(f"unknown SAM model type: {sam_model_type}")
-        self._initialize_models(seed)
+        if params is None:
+            self._initialize_models(seed)
+        else:
+            self.yolo_params, self.sam_params = params
         self._stage_cache: Dict[Tuple[int, int], Dict[str, Any]] = {}
         self._adapted_params: Dict[Tuple[int, int], Any] = {}
 
@@ -325,6 +354,7 @@ class CellSegmentationPipeline:
         key = (h, w)
         if key not in self._stage_cache:
             opts, ycfg = self.options, self.yolo_config
+            group = self._encoder_group() if opts.encoder_parallel != "none" else None
             enc_size = opts.encoder_size_for(h, w)
             gs = enc_size // self.sam_config.patch_size
             # window 16 divides every grid of the native-resolution ladder
@@ -341,7 +371,7 @@ class CellSegmentationPipeline:
             self._stage_cache[key] = {
                 "scfg": scfg,
                 "detect": lambda img: detect_stage(yolo, img, ycfg, opts),
-                "embed": lambda img: embed_stage(sam, img, scfg, opts),
+                "embed": lambda img: embed_stage(sam, img, scfg, opts, group),
                 "segment": lambda emb, boxes, valid: segment_stage(
                     sam, emb, boxes, valid, (h, w), scfg, opts
                 ),
@@ -352,6 +382,25 @@ class CellSegmentationPipeline:
                 "sam": sam,
             }
         return self._stage_cache[key]
+
+    def _encoder_group(self):
+        """The process group of ``encoder_parallel``; the errors mirror the
+        JAX engine's ``_parallel_embed`` (``engine.py:778-799``), int8
+        weights refused by :func:`sam_image_encoder_sp` at the first batch."""
+        opts = self.options
+        if opts.encoder_parallel == "tp":
+            raise ValueError("encoder_parallel='tp' is not ported yet (parallel/tp.py; "
+                             "ROADMAP.md, Queue 1): use 'sp' or 'none'")
+        if is_tinyvit(self.sam_params):
+            raise ValueError("encoder_parallel supports ViT SAM encoders only (TinyViT's conv "
+                             "stages have no sp sharding)")
+        if self.process_group is not None:
+            return self.process_group
+        if not (dist.is_available() and dist.is_initialized()):
+            raise ValueError("encoder_parallel='sp' requires a torch.distributed process group "
+                             "(init_process_group, or process_group=; "
+                             "parallel.launch.run_ranks starts ranks)")
+        return dist.group.WORLD
 
     # -- array-level API -------------------------------------------------------
 

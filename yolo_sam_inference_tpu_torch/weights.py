@@ -8,12 +8,17 @@ of either package), and MobileSAM trees, whose ``"tinyvit"`` subtree takes
 the place of ``"vision"`` (``SamModel`` then builds TinyViT as its encoder).
 Layout changes happen in the module constructors (conv weights HWIO -> OIHW);
 linear weights keep the (in, out) layout.
+
+:func:`save_tree` and :func:`load_tree` carry a tree between processes (the
+ranks of a multi-process run) as one uncompressed ``.npz``.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .models.sam import SamModel, SamTPUConfig
@@ -45,3 +50,35 @@ def from_jax_params(
             if p.is_floating_point() and not name.endswith(".wscale"):
                 p.data = p.data.to(dtype)
     return yolo, sam
+
+
+def save_tree(path, tree) -> None:
+    """Write a parameter tree (nested dicts and lists of arrays, None leaves)
+    to ``path`` (.npz): the arrays as entries, the nesting as JSON."""
+    leaves = []
+
+    def skeleton(t):
+        if isinstance(t, dict):
+            return {k: skeleton(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [skeleton(v) for v in t]
+        if t is None:
+            return None
+        leaves.append(np.asarray(t))
+        return len(leaves) - 1
+
+    nest = json.dumps(skeleton(tree))
+    np.savez(path, __tree__=np.array(nest), **{f"a{i}": a for i, a in enumerate(leaves)})
+
+
+def load_tree(path):
+    """The tree :func:`save_tree` wrote (tuples come back as lists)."""
+    with np.load(path) as z:
+        def build(t):
+            if isinstance(t, dict):
+                return {k: build(v) for k, v in t.items()}
+            if isinstance(t, list):
+                return [build(v) for v in t]
+            return None if t is None else z[f"a{t}"]
+
+        return build(json.loads(str(z["__tree__"])))
