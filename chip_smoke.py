@@ -20,6 +20,15 @@ failure ends the run with a non-zero exit and no result line:
    launch count checked, the bf16 image embedding of one frame against the
    fp32 plain path on the same card, the bf16 decoder on that frame's prompts
    against the fp32 plain decoder, and a timed pass at batch 32;
+4b. K17: ``conv2d_act`` at its seven batch-32 shapes of the paths (the YOLO
+   stem, a C2f bottleneck on a channel slice, a detect tower, down5, the SAM
+   neck without bias, TinyViT's stem1 with GELU, the s2d k = 2 exit) against
+   its fp32 plain version, timed beside it, the bound and ``F.conv2d`` on
+   channels-last bf16; then config 1 with ``PipelineOptions(conv2d_fused=
+   True)`` on the same parameters and frames: launch counts at batch 8 (39
+   YOLO convs + the neck), the raw YOLO maps of one frame and the embedding
+   against fp32 plain versions (the default route's YOLO maps too), a timed
+   pass at batch 32 beside the default route's;
 5. big kernels: the kernels of the ViT-L/H paths at their batch-32 shapes:
    ``gemm_bf16`` at the ViT-L/H qkv and MLP (K10) widths and the attention at
    hd 80 against fp32 plain versions, and the w8a8 kernels (K11c, K11a,
@@ -44,7 +53,9 @@ failure ends the run with a non-zero exit and no result line:
    plain versions;
 10. MobileSAM slice (``"mobile-sam"``, config 2: TinyViT-5M + SAM ViT-B's
    decoder, 512x512 frames, bf16): launch counts at batch 8, the embedding
-   against the fp32 plain TinyViT, a timed pass at batch 32;
+   against the fp32 plain TinyViT, a timed pass at batch 32; then with
+   ``conv2d_fused=True`` (42 ``conv2d_act`` launches: YOLO's 39, the two
+   stems, the neck), the embedding against fp32 plain and a timed pass;
 11. K12 kernels: ``flash_attention_relpos`` at its three shapes of batch 32
    (a sequence-parallel rank's 2048 queries of ViT-H's 64 x 64 grid; the
    flat route's ViT-B global layer on the 40 x 40 grid of the 640 canvas;
@@ -986,6 +997,67 @@ def _mobile_kernel_phase(card: str) -> dict:
     return {"errs": errs, "times": times, "bounds": bounds, "library": library}
 
 
+# K17's shapes at batch 32: (name, (H, W, Ci), Co, k, stride, act, bias, channel slice)
+CONV_SHAPES = (
+    ("yolo stem", (512, 512, 3), 16, 3, 2, "silu", True, False),
+    ("c2f3 bottleneck", (64, 64, 32), 32, 3, 1, "silu", True, True),
+    ("detect box1 level 0", (64, 64, 64), 64, 3, 1, "silu", True, False),
+    ("down5", (32, 32, 128), 256, 3, 2, "silu", True, False),
+    ("sam neck", (32, 32, 256), 256, 3, 1, "none", False, False),
+    ("tinyvit stem1", (512, 512, 3), 32, 3, 2, "gelu", True, False),
+    ("s2d down4 exit k2", (32, 32, 256), 128, 2, 1, "silu", True, False),
+)
+
+
+def _conv_kernel_phase(card: str) -> dict:
+    """K17 (``conv2d_act``) at its batch-32 shapes against its fp32 plain
+    version, within 2% of the output range; beside its time, the plain
+    version's, the bound and the library call: ``F.conv2d`` with its bias on
+    channels-last bf16 (the activation left apart, as ``addmm`` for K1;
+    for k = 2 with padding 1, whose first H x W outputs are K17's). The C2f
+    bottleneck's input is a channel slice (pixel stride 64), as on the path."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.ops import conv2d_fused as tcv
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(17)
+
+    def randn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g) * std).to(dev, dtype)
+
+    b = TIMED_BATCH
+    errs: dict = {}
+    times: dict = {}
+    bounds: dict = {}
+    library: dict = {}
+    for key, (h, w, ci), co, k, stride, act, has_bias, sliced in CONV_SHAPES:
+        x = randn(b, h, w, 2 * ci)[..., ci:] if sliced else randn(b, h, w, ci)
+        wt = randn(k, k, ci, co, std=(k * k * ci) ** -0.5)
+        bias = randn(co, std=0.3, dtype=torch.float32) if has_bias else None
+        fn = lambda: tcv.conv2d_act(x, wt, bias, k, stride, act)
+        fnp = lambda: tcv.conv2d_act_plain(x, wt, bias, k, stride, act)
+        out = fn()
+        _check(f"conv2d_act {key} ({b}x{h}x{w}x{ci} -> {'x'.join(map(str, out.shape))}, k {k}, "
+               f"stride {stride}, {act}{'' if has_bias else ', no bias'})", out,
+               tcv.conv2d_act_plain(x.float(), wt, bias, k, stride, act), 2e-2, errs)
+        times[key] = (median_ms(fn), median_ms(fnp, reps=5))
+        bounds[key] = _bound(2.0 * out.numel() * k * k * ci, _nbytes(x, wt, bias, out))
+        xc = x.permute(0, 3, 1, 2)  # a channels-last view of the same tensor
+        wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bc = None if bias is None else bias.to(bf)
+        library[key] = median_ms(lambda: F.conv2d(xc, wc, bc, stride, 1))
+        _say("kernels", f"conv2d_act {key}: kernel {times[key][0]:.4f} ms, plain "
+                        f"{times[key][1]:.4f} ms, bound {bounds[key][0]:.4f} ms "
+                        f"({bounds[key][1]}), F.conv2d bf16 {library[key]:.4f} ms [{card}]")
+        del x, wt, out, xc, wc
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
+
+
 def _slice_phase(card: str) -> dict:
     import numpy as np
 
@@ -1015,7 +1087,58 @@ def _slice_phase(card: str) -> dict:
     _decoder_vs_plain("config 1", pipe, FRAME, emb32, out["boxes"][:1])
 
     ms = _timed("config 1", pipe, frames, card)
-    return {"launches": launches, "ms_per_batch": ms, "pipe": pipe}
+    return {"launches": launches, "ms_per_batch": ms, "pipe": pipe, "frames": frames}
+
+
+def _fused_slice_phase(card: str, pipe, frames, default_ms: float) -> dict:
+    """Config 1 with ``conv2d_fused=True`` over ``pipe``'s parameters and
+    frames: YOLOv8n's 39 dense convs and the ViT neck's 3x3 on K17."""
+    import dataclasses
+
+    fpipe = _sharing_params(pipe, dataclasses.replace(pipe.options, conv2d_fused=True))
+    tag = "config 1 conv2d_fused"
+    launches, _, _ = _drive(tag, fpipe, frames[:SLICE_BATCH], fpipe.options.max_det,
+                            {**DECODER_COUNTS, "gemm_bf16": 48, "window_attn_relpos": 12,
+                             "conv2d_act": 40}, by_window={16: 8, 32: 4})
+    yolo_rel = _yolo_vs_plain(tag, {"conv2d_fused": fpipe, "default": pipe}, frames[:1])
+    yolo_ms = _yolo_forward_ms(tag, {"default": pipe, "conv2d_fused": fpipe}, frames, card)
+    _embedding_vs_plain(tag, {"bf16": (fpipe, 0.05)}, frames[:1])
+    # in turns with the default route (its first pass ran before the conv kernels' phase)
+    turns = {"default": [default_ms], "conv2d_fused": []}
+    for mode, p in (("conv2d_fused", fpipe), ("default", pipe), ("conv2d_fused", fpipe)):
+        turns[mode].append(_timed(f"config 1 ({mode} route, in turns)", p, frames, card))
+    ms = statistics.median(turns["conv2d_fused"])
+    _say("slice", f"{tag}: ms per batch of {frames.shape[0]} in turns (default, then after the "
+                  f"conv kernels fused, default, fused): default "
+                  f"{[round(v, 2) for v in turns['default']]}, conv2d_fused "
+                  f"{[round(v, 2) for v in turns['conv2d_fused']]} [{card}]")
+    fpipe._stage_cache.clear()
+    return {"launches": launches, "ms_per_batch": ms, "yolo_rel_rms": yolo_rel,
+            "yolo_ms": yolo_ms, "turns": turns}
+
+
+def _yolo_forward_ms(tag: str, pipes: dict, frames, card: str) -> dict:
+    """{mode: [median ms, ...]}: YOLOv8n's forward alone on the letterboxed
+    bf16 batch (CUDA events), each pipeline's in turns (a, b, b, a)."""
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.ops.preprocess import letterbox_batch
+
+    h, w = frames.shape[1], frames.shape[2]
+    modes = list(pipes)
+    res = {mode: [] for mode in modes}
+    with torch.inference_mode():
+        first = pipes[modes[0]]
+        lb, _, _ = letterbox_batch(torch.from_numpy(frames).cuda(),
+                                   first.options.yolo_size_for(h, w))
+        lb = lb.to(torch.bfloat16)
+        for mode in modes + modes[::-1]:
+            yolo = pipes[mode]._stages(h, w)["yolo"]
+            res[mode].append(median_ms(lambda: yolo(lb), reps=10))
+    _say("slice", f"{tag}: YOLOv8n forward alone, batch {frames.shape[0]}, ms in turns: "
+                  + ", ".join(f"{m} {[round(v, 4) for v in res[m]]}" for m in modes) + f" [{card}]")
+    return res
 
 
 def _sharing_params(pipe, options):
@@ -1089,6 +1212,7 @@ def _big_slice_phase(card: str, model: str, max_det: int, layers: int) -> dict:
 
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its launch count goes under."""
+    from yolo_sam_inference_tpu_torch.ops import conv2d_fused as tcv
     from yolo_sam_inference_tpu_torch.ops import decoder_fused as dec
     from yolo_sam_inference_tpu_torch.ops import dw_ln_mlp as tdw
     from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
@@ -1110,7 +1234,8 @@ def _wrappers() -> dict:
             "patch_merge_block": tmb.patch_merge_block, "dw_conv3x3": tdw.dw_conv3x3,
             "layer_norm": tln.layer_norm, "keys_stream": dec.keys_stream,
             "t2i_attend": dec.t2i_attend, "t2i_combine": dec.t2i_combine,
-            "window_crop": window_crop, "hull_support": support_points}
+            "window_crop": window_crop, "hull_support": support_points,
+            "conv2d_act": tcv.conv2d_act}
 
 
 def _reset_counts() -> dict:
@@ -1224,6 +1349,41 @@ def _embedding_vs_plain(tag: str, pipes: dict, frames, encoder_expected=None) ->
             raise AssertionError(f"{tag} {mode}: embedding disagrees with the fp32 plain encoder")
         embs[mode] = emb.cpu()
     return rels, emb32, embs
+
+
+def _yolo_vs_plain(tag: str, pipes: dict, frames) -> dict:
+    """{mode: the largest relative RMS over the three levels}: the raw YOLO
+    level maps of ``frames`` by each pipeline of ``pipes`` ({mode: pipe}, one
+    host tree) against ``YoloV8(plain=True)`` in fp32 (TF32 off) on the same
+    bf16-rounded weights; each within 5%."""
+    import torch
+
+    from yolo_sam_inference_tpu_torch.ops.preprocess import letterbox_batch
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+    from yolo_sam_inference_tpu_torch.weights import from_jax_params
+
+    torch.backends.cudnn.allow_tf32 = False  # the fp32 oracle stays fp32
+    first = next(iter(pipes.values()))
+    h, w = frames.shape[1], frames.shape[2]
+    tree = tengine._round_floating(first.yolo_params, torch.bfloat16)
+    yolo32, _ = from_jax_params(tree, None, "cuda", torch.float32, yolo_config=first.yolo_config)
+    size = first.options.yolo_size_for(h, w)
+    with torch.inference_mode():
+        lb, _, _ = letterbox_batch(torch.from_numpy(frames).cuda(), size)
+        want = yolo32(lb.float(), plain=True)
+    rels = {}
+    for mode, pipe in pipes.items():
+        with torch.inference_mode():
+            got = pipe._stages(h, w)["yolo"](lb.to(torch.bfloat16))
+        per_level = [((g.float() - r).norm() / r.norm()).item() for g, r in zip(got, want)]
+        rels[mode] = max(per_level)
+        _say("slice", f"{tag} YOLO raw maps ({mode}) vs fp32 plain ({frames.shape[0]} frame(s), "
+                      f"{[tuple(r.shape) for r in want]}): rel_rms by level "
+                      f"{[round(v, 5) for v in per_level]} (bound 0.05)")
+        if not (rels[mode] <= 0.05 and all(torch.isfinite(g).all() for g in got)):
+            raise AssertionError(f"{tag} {mode}: YOLO maps disagree with the fp32 plain YOLO")
+    del yolo32
+    return rels
 
 
 def _decoder_vs_plain(tag: str, pipe, size: int, emb32, boxes) -> None:
@@ -1359,7 +1519,9 @@ def _large_frame_phase(card: str, vit_b_pipe, vit_h_pipe) -> dict:
 
 def _mobile_slice_phase(card: str) -> dict:
     """MobileSAM (config 2): TinyViT-5M with SAM ViT-B's prompt encoder and
-    decoder on 512x512 frames, bf16, max_det 16."""
+    decoder on 512x512 frames, bf16, max_det 16; then with conv2d_fused."""
+    import dataclasses
+
     import numpy as np
 
     from yolo_sam_inference_tpu_torch.bench.common import cell_frames
@@ -1386,8 +1548,19 @@ def _mobile_slice_phase(card: str) -> dict:
     rels, _, _ = _embedding_vs_plain("mobile-sam", {"bf16": (pipe, 0.05)}, frames[:1],
                                   encoder_expected=encoder)
     ms = _timed("mobile-sam", pipe, frames, card)
-    del pipe
-    return {"launches": launches, "rel_rms": rels["bf16"], "ms_per_batch": ms}
+    # with conv2d_fused: YOLO's 39 dense convs, TinyViT's two stems and its neck's 3x3 on K17
+    fpipe = _sharing_params(pipe, dataclasses.replace(opts, conv2d_fused=True))
+    tag = "mobile-sam conv2d_fused"
+    fused = {**encoder, "conv2d_act": 3}
+    launches_f, _, _ = _drive(tag, fpipe, frames[:SLICE_BATCH], 16,
+                              {**DECODER_COUNTS, **fused, "layer_norm": 10, "conv2d_act": 42})
+    rels_f, _, _ = _embedding_vs_plain(tag, {"bf16": (fpipe, 0.05)}, frames[:1],
+                                       encoder_expected=fused)
+    ms_f = _timed(tag, fpipe, frames, card)
+    del pipe, fpipe
+    return {"launches": launches, "rel_rms": rels["bf16"], "ms_per_batch": ms,
+            "launches conv2d_fused": launches_f, "rel_rms conv2d_fused": rels_f["bf16"],
+            "ms conv2d_fused": ms_f}
 
 
 def _randomise_affines(tree, rng) -> None:
@@ -1445,6 +1618,8 @@ def main() -> int:
     kp = _kernel_phase(card)
     dp = _decoder_kernel_phase(card)
     sp = _slice_phase(card)
+    ck = _conv_kernel_phase(card)
+    fs = _fused_slice_phase(card, sp["pipe"], sp.pop("frames"), sp["ms_per_batch"])
     bk = _big_kernel_phase(card)
     big = {model.rsplit("-", 1)[-1]: _big_slice_phase(card, model, max_det, layers)
            for model, max_det, layers, *_ in BIG_MODELS}
@@ -1541,6 +1716,12 @@ def main() -> int:
               mla["dw_conv3x3"], mk["errs"]["dw_conv3x3"], mt["dw_conv3x3 stage2"],
               mb["dw_conv3x3 stage2"], ml["dw_conv3x3 stage2"]),
     ]
+    ct, cb, cl = ck["times"], ck["bounds"], ck["library"]
+    table.append(entry("conv2d_act", "cuda", "csrc/conv2d_act.cu",
+                       "ops/conv2d_fused.py:428 conv2d_act (pallas_call :524)",
+                       fs["launches"]["conv2d_act"], ck["errs"]["conv2d_act"],
+                       ct["detect box1 level 0"], cb["detect box1 level 0"],
+                       cl["detect box1 level 0"]))
     rt, rb, rl = rk["times"], rk["bounds"], rk["library"]
     k12_src = "csrc/flash_attention_relpos.cu"
     k12_tpu = "ops/flash_attention.py:186 flash_attention_relpos (pallas_call :266)"
@@ -1563,6 +1744,10 @@ def main() -> int:
     _say("result", f"off-grid 640 {og['ms']:.2f} ms/batch of {TIMED_BATCH} = "
                    f"{TIMED_BATCH / og['ms'] * 1000:.2f} img/s; sp ({sq['backend']}, {SP_RANKS} "
                    f"ranks on one card) ms/batch of {SP_BATCH} by rank {sq['ms']} [{card}]")
+    _say("result", f"config 1 conv2d_fused {fs['ms_per_batch']:.2f} ms/batch of {TIMED_BATCH} "
+                   f"(default {statistics.median(fs['turns']['default']):.2f}; medians of the "
+                   f"turns); mobile-sam conv2d_fused "
+                   f"{ms['ms conv2d_fused']:.2f} (default {ms['ms_per_batch']:.2f}) [{card}]")
     _say("result", f"mobile-sam {ms['ms_per_batch']:.2f} ms/batch of {TIMED_BATCH} = "
                    f"{TIMED_BATCH / ms['ms_per_batch'] * 1000:.2f} img/s; config 4 "
                    f"{lf['ms config 4']:.2f} ms/batch of {lf['batch config 4']} = "

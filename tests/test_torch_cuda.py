@@ -17,6 +17,7 @@ see ``_close_int8``.
 import pytest
 import torch
 
+from yolo_sam_inference_tpu_torch.ops import conv2d_fused as tcv
 from yolo_sam_inference_tpu_torch.ops import decoder_fused as dec
 from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
 from yolo_sam_inference_tpu_torch.ops import quant as tq
@@ -408,3 +409,41 @@ def test_dw_ln_mlp_vs_plain(gen, shape):
     assert (tdw.dw_conv3x3.launches, tln.gemm_bf16.launches) == (before[0] + 2, before[1] + 2)
     _close(got, tdw.dw_ln_mlp(x.float(), wd, bd, s, b, w1, b1, w2, b2, gemm=tln.gemm_plain,
                               dw=tdw.dw_conv3x3_plain), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,co,k,stride,act,bias,sliced", [
+    ((2, 64, 64, 3), 16, 3, 2, "silu", True, False),      # the YOLO stem (small-Ci kernel)
+    ((2, 24, 20, 32), 32, 3, 1, "silu", True, True),      # a C2f bottleneck on a channel slice
+    ((2, 16, 16, 64), 64, 3, 1, "silu", True, False),     # a detect tower conv
+    ((2, 16, 16, 128), 256, 3, 2, "silu", True, False),   # down5
+    ((2, 16, 16, 256), 256, 3, 1, "none", False, False),  # the SAM neck, no bias
+    ((2, 33, 40, 3), 32, 3, 2, "gelu", True, False),      # TinyViT's stem1, odd H
+    ((2, 12, 20, 256), 128, 2, 1, "silu", True, False),   # the s2d k = 2 exit, pad (1, 0)
+    ((2, 20, 18, 16), 32, 3, 2, "silu", True, False),     # Ci 16, ragged tiles
+])
+def test_conv2d_act_vs_plain(gen, shape, co, k, stride, act, bias, sliced):
+    """K17 at each geometry of the paths (narrower images, same widths)."""
+    b, h, w, ci = shape
+    x = _randn(gen, b, h, w, 2 * ci)[..., ci:] if sliced else _randn(gen, *shape)
+    wt = _randn(gen, k, k, ci, co, std=(k * k * ci) ** -0.5)
+    bb = _f32(gen, co, std=0.3) if bias else None
+    before = tcv.conv2d_act.launches
+    got = tcv.conv2d_act(x, wt, bb, k, stride, act)
+    assert tcv.conv2d_act.launches == before + 1
+    assert got.shape == (b, *tcv.output_hw(h, w, k, stride), co)
+    _close(got, tcv.conv2d_act_plain(x.float(), wt, bb, k, stride, act), 2e-2)
+
+
+@pytest.mark.cuda
+def test_conv2d_act_refuses_what_the_kernel_does_not_take(gen):
+    x, wt = _randn(gen, 1, 8, 8, 16), _randn(gen, 3, 3, 16, 16)
+    with pytest.raises(ValueError, match="bf16"):
+        tcv.conv2d_act(x.float(), wt, None)
+    with pytest.raises(ValueError, match="stride"):
+        tcv.conv2d_act(x, _randn(gen, 2, 2, 16, 16), None, k=2, stride=2)
+    with pytest.raises(ValueError, match="channel slice"):
+        tcv.conv2d_act(x.transpose(1, 2), wt, None)
+    before = tcv.conv2d_act.launches
+    tcv.conv2d_act(x, _randn(gen, 1, 1, 16, 16), None, k=1)  # a matmul: no launch
+    assert tcv.conv2d_act.launches == before

@@ -2,13 +2,13 @@
 
     python -m yolo_sam_inference_tpu_torch.bench.profile_slice [--batch 32] [--iters 2]
         [--model facebook/sam-vit-base] [--quant none|int8] [--max-det 16] [--cells 12]
-        [--frame 512] [--encoder-size N]
+        [--frame 512] [--encoder-size N] [--conv2d-fused]
 
 Runs ``process_batch_arrays`` (YOLOv8n + the SAM model, ``--frame``-pixel
 square frames with ``--cells`` cells each, bf16 or w8a8 int8 encoder;
 ``--model mobile-sam`` is config 2, ``--model facebook/sam-vit-huge --frame
 2048`` config 4, ``--frame 640 --encoder-size 640`` the off-grid cell (the
-flat encoder route); random weights from seed
+flat encoder route), ``--conv2d-fused`` the dense convs on K17; random weights from seed
 0) twice to warm up, then ``--iters`` batches under the profiler. The
 defaults are config 1. Prints, all from that one profiled window: its wall
 time, the union of device-kernel intervals (kernel time), the idle share
@@ -29,7 +29,7 @@ CATEGORIES = (  # (substring of the kernel name, category); first match wins
     ("flash_attn_relpos_kernel", "flash_attention_relpos (K12)"),
     ("keys_stream_kernel", "keys_stream"),
     ("tinyvit_attn_kernel", "tinyvit_attn"), ("mbconv_kernel", "mbconv / patch merge"),
-    ("dw3x3_kernel", "dw_conv3x3"),
+    ("dw3x3_kernel", "dw_conv3x3"), ("conv2d_act", "conv2d_act (K17)"),
     ("t2i_attend_kernel", "t2i_attend"), ("t2i_combine_kernel", "t2i_combine"),
     ("window_crop_kernel", "window_crop"),
     ("hull_support_kernel", "hull_support"), ("memcpy", "memcpy host<->device"),
@@ -62,6 +62,8 @@ def main() -> None:
     ap.add_argument("--frame", type=int, default=512)
     ap.add_argument("--encoder-size", type=int, default=None,
                     help="PipelineOptions.sam_encoder_size (default: the native canvas)")
+    ap.add_argument("--conv2d-fused", action="store_true",
+                    help="PipelineOptions.conv2d_fused (the dense convs on conv2d_act)")
     args = ap.parse_args()
 
     import numpy as np
@@ -77,10 +79,10 @@ def main() -> None:
 
     print(card(), flush=True)
     print(f"{args.model}, quant {args.quant}, max_det {args.max_det}, {args.frame}x{args.frame} "
-          f"frames with {args.cells} cells, encoder canvas {args.encoder_size or 'native'}",
-          flush=True)
+          f"frames with {args.cells} cells, encoder canvas {args.encoder_size or 'native'}, "
+          f"conv2d_fused {args.conv2d_fused}", flush=True)
     opts = PipelineOptions(max_det=args.max_det, metric_crop=128, quant=args.quant,
-                           sam_encoder_size=args.encoder_size)
+                           sam_encoder_size=args.encoder_size, conv2d_fused=args.conv2d_fused)
     pipe = CellSegmentationPipeline(sam_model_type=args.model, device="cuda", options=opts, seed=0)
     frames = cell_frames(np.random.default_rng(0), args.batch, args.frame, cells=args.cells)
     for _ in range(2):

@@ -11,7 +11,8 @@ Counterpart of ``yolo_sam_inference_tpu/models/sam/model.py``:
   (:meth:`SamImageEncoder.grid_route`): windows are zero-padded partitions,
   every attention runs on K12 (:func:`_vision_attention`), and the block
   tails carry the MLP residual into the next LayerNorm (K11d). Then the
-  neck (1x1 conv, LN, 3x3 conv, LN).
+  neck (1x1 conv, LN, 3x3 conv, LN); with ``conv2d_fused`` its 3x3 runs on
+  ``conv2d_act`` (K17), else on ``F.conv2d``.
 * :class:`SamPromptEncoder` encodes box prompts with fp32 Fourier features.
 * :class:`SamMaskDecoder` is the two-way transformer in the order of the
   JAX package's fused branch (``:736-817``): layer 0's token-to-image
@@ -20,8 +21,9 @@ Counterpart of ``yolo_sam_inference_tpu/models/sam/model.py``:
   the next token-to-image attention; and the mask head (``sam_mask_head``).
 
 Linear weights keep the JAX layout ``(in, out)`` (``x @ w + b``); conv
-weights are stored OIHW for ``F.conv2d``. Modules are built from a parameter
-tree in the JAX package's layout (:func:`init_sam_params`).
+weights are stored OIHW for ``F.conv2d``, HWIO for ``conv2d_act``. Modules
+are built from a parameter tree in the JAX package's layout
+(:func:`init_sam_params`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.conv2d_fused import conv2d_act, conv2d_act_plain
 from ...ops.decoder_fused import i2t_keys_update, t2i_shared_attend
 from ...ops.flash_attention import (
     flash_attention_relpos,
@@ -205,11 +208,12 @@ def _vision_attention(layer: VisionLayer, h, heads: int, plain: bool = False):
 class SamImageEncoder(nn.Module):
     """ViT encoder. ``forward(pix)``: (B, H, W, 3) normalised ->
     (B, gs, gs, output_channels), on the grid route or the flat route
-    (:meth:`grid_route`)."""
+    (:meth:`grid_route`). ``conv2d_fused`` puts the neck's 3x3 on K17."""
 
-    def __init__(self, p: Params, cfg: SamTPUConfig):
+    def __init__(self, p: Params, cfg: SamTPUConfig, conv2d_fused: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.conv2d_fused = conv2d_fused
         pw = np.asarray(p["patch_embed"]["w"])  # (ps, ps, 3, C) HWIO
         self.patch_w = _param(pw.reshape(-1, pw.shape[-1]))
         self.patch_b = _param(p["patch_embed"]["b"])
@@ -218,7 +222,8 @@ class SamImageEncoder(nn.Module):
         n = p["neck"]
         self.neck_conv1 = _param(n["conv1_w"])  # (C, oc)
         self.neck_ln1, self.neck_ln2 = Norm(n["ln1"], 1e-6), Norm(n["ln2"], 1e-6)
-        self.neck_conv2 = _param(np.asarray(n["conv2_w"]).transpose(3, 2, 0, 1))  # OIHW
+        w2 = np.asarray(n["conv2_w"])
+        self.neck_conv2 = _param(w2 if conv2d_fused else w2.transpose(3, 2, 0, 1))  # HWIO, OIHW
 
     def grid_route(self) -> bool:
         """The JAX encoder's rule (``model.py:325-330``): the grid route when
@@ -243,8 +248,12 @@ class SamImageEncoder(nn.Module):
 
     def neck(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         y = self.neck_ln1(x @ self.neck_conv1, plain)
-        y = F.conv2d(y.permute(0, 3, 1, 2), self.neck_conv2, padding=1).permute(0, 2, 3, 1)
-        return self.neck_ln2(y.contiguous(), plain)
+        if self.conv2d_fused:  # zero bias: the kernel takes none
+            y = (conv2d_act_plain if plain else conv2d_act)(y, self.neck_conv2, None, 3)
+        else:
+            y = F.conv2d(y.permute(0, 3, 1, 2), self.neck_conv2, padding=1)
+            y = y.permute(0, 2, 3, 1).contiguous()
+        return self.neck_ln2(y, plain)
 
     def forward(self, pix: torch.Tensor, plain: bool = False) -> torch.Tensor:
         cfg = self.cfg
@@ -490,16 +499,17 @@ class SamMaskDecoder(nn.Module):
 class SamModel(nn.Module):
     """Encoder + prompt encoder + mask decoder, built from one parameter tree.
     A MobileSAM tree (:func:`~.tinyvit.is_tinyvit`) gets the
-    :class:`~.tinyvit.TinyViT` encoder."""
+    :class:`~.tinyvit.TinyViT` encoder. ``conv2d_fused`` puts the encoder's
+    dense convs on ``conv2d_act`` (K17)."""
 
-    def __init__(self, params: Params, cfg: SamTPUConfig):
+    def __init__(self, params: Params, cfg: SamTPUConfig, conv2d_fused: bool = False):
         super().__init__()
         self.cfg = cfg
         if is_tinyvit(params):
             tcfg = TinyViTConfig(image_size=cfg.image_size, output_channels=cfg.output_channels)
-            self.vision = TinyViT(params["tinyvit"], tcfg)
+            self.vision = TinyViT(params["tinyvit"], tcfg, conv2d_fused)
         else:
-            self.vision = SamImageEncoder(params["vision"], cfg)
+            self.vision = SamImageEncoder(params["vision"], cfg, conv2d_fused)
         self.prompt = SamPromptEncoder(params["prompt"], params["shared_pe"], cfg)
         self.decoder = SamMaskDecoder(params["decoder"], cfg)
 

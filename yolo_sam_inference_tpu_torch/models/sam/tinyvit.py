@@ -14,7 +14,9 @@ with a distilled TinyViT-5M that gives the same (S/16, S/16, 256) embedding:
 
 BatchNorm is folded into the convs. Weights keep the JAX tree's layouts:
 1x1 convs as (in, out) matrices, depthwise weights as (3, 3, C), the stems
-and the neck's 3x3 as OIHW for ``F.conv2d``. ``forward(pix, plain=True)``
+and the neck's 3x3 as OIHW for ``F.conv2d``, or as HWIO for ``conv2d_act``
+(K17) with ``conv2d_fused`` (stem1's GELU then fused into its epilogue, as
+the JAX ``_conv_bn(act="gelu")`` does). ``forward(pix, plain=True)``
 runs every kernel's plain PyTorch version on any device (the fp32 oracle);
 on the CPU the wrappers take those versions anyway.
 
@@ -33,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.conv2d_fused import conv2d_act, conv2d_act_plain
 from ...ops.dw_ln_mlp import dw_conv3x3, dw_conv3x3_plain, dw_ln_mlp
 from ...ops.fused_ln import gemm_plain, layer_norm, layer_norm_plain
 from ...ops.mbconv_fused import mbconv_block, mbconv_plain, patch_merge_block
@@ -73,8 +76,10 @@ def _param(a, shape=None) -> nn.Parameter:
     return nn.Parameter(torch.as_tensor(arr), requires_grad=False)
 
 
-def _oihw(w) -> nn.Parameter:
-    return _param(np.asarray(w).transpose(3, 2, 0, 1))
+def _conv_weight(w, fused: bool) -> nn.Parameter:
+    """HWIO for ``conv2d_act``, OIHW for ``F.conv2d``."""
+    w = np.asarray(w)
+    return _param(w if fused else w.transpose(3, 2, 0, 1))
 
 
 class _ConvBlock(nn.Module):
@@ -143,13 +148,15 @@ class TinyViTBlock(nn.Module):
 
 
 class TinyViT(nn.Module):
-    """``forward(pix)``: (B, S, S, 3) normalised -> (B, S/16, S/16, output_channels)."""
+    """``forward(pix)``: (B, S, S, 3) normalised -> (B, S/16, S/16, output_channels).
+    ``conv2d_fused`` puts the two stems and the neck's 3x3 on K17."""
 
-    def __init__(self, p: Params, cfg: TinyViTConfig):
+    def __init__(self, p: Params, cfg: TinyViTConfig, conv2d_fused: bool = False):
         super().__init__()
-        self.cfg = cfg
-        self.stem1_w, self.stem1_b = _oihw(p["stem1"]["w"]), _param(p["stem1"]["b"])
-        self.stem2_w, self.stem2_b = _oihw(p["stem2"]["w"]), _param(p["stem2"]["b"])
+        self.cfg, self.conv2d_fused = cfg, conv2d_fused
+        f = conv2d_fused
+        self.stem1_w, self.stem1_b = _conv_weight(p["stem1"]["w"], f), _param(p["stem1"]["b"])
+        self.stem2_w, self.stem2_b = _conv_weight(p["stem2"]["w"], f), _param(p["stem2"]["b"])
         self.stage0 = nn.ModuleList(MBConv(bp) for bp in p["stage0"])
         self.merge0 = PatchMerge(p["merge0"], 2)
         self.merge1 = PatchMerge(p["merge1"], 2)
@@ -162,20 +169,22 @@ class TinyViT(nn.Module):
         self.neck_conv1 = _param(n["conv1_w"])  # (C3, oc)
         self.neck_ln1_scale, self.neck_ln1_bias = _param(n["ln1"]["scale"]), _param(
             n["ln1"]["bias"])
-        self.neck_conv2 = _oihw(n["conv2_w"])
+        self.neck_conv2 = _conv_weight(n["conv2_w"], f)
         self.neck_ln2_scale, self.neck_ln2_bias = _param(n["ln2"]["scale"]), _param(
             n["ln2"]["bias"])
 
-    @staticmethod
-    def _conv(x, w, b, stride: int):
-        """NHWC conv with symmetric padding k // 2 (the JAX package's ``_conv_bn``)."""
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride, padding=w.shape[-1] // 2)
-        return y.permute(0, 2, 3, 1).contiguous()
+    def _conv(self, x, w, b, stride: int, act: str = "none", plain: bool = False):
+        """NHWC 3x3 conv, padding 1, + act (the JAX package's ``_conv_bn``)."""
+        if self.conv2d_fused:
+            return (conv2d_act_plain if plain else conv2d_act)(x, w, b, 3, stride, act)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride, padding=1)
+        y = y.permute(0, 2, 3, 1).contiguous()
+        return F.gelu(y) if act == "gelu" else y
 
     def forward(self, pix: torch.Tensor, plain: bool = False) -> torch.Tensor:
         ln = layer_norm_plain if plain else layer_norm
-        x = F.gelu(self._conv(pix, self.stem1_w, self.stem1_b, 2))
-        x = self._conv(x, self.stem2_w, self.stem2_b, 2)  # /4
+        x = self._conv(pix, self.stem1_w, self.stem1_b, 2, "gelu", plain)
+        x = self._conv(x, self.stem2_w, self.stem2_b, 2, plain=plain)  # /4
         for blk in self.stage0:
             x = blk(x, plain)
         x = self.merge0(x, plain)  # /8
@@ -186,7 +195,7 @@ class TinyViT(nn.Module):
             if merge is not None:
                 x = merge(x, plain)
         y = ln(x @ self.neck_conv1, self.neck_ln1_scale, self.neck_ln1_bias, 1e-6)
-        y = self._conv(y, self.neck_conv2, None, 1)
+        y = self._conv(y, self.neck_conv2, None, 1, plain=plain)
         return ln(y, self.neck_ln2_scale, self.neck_ln2_bias, 1e-6)
 
 

@@ -65,11 +65,13 @@ _SIGNATURES = {
     "ysi_mbconv": (_I, _I) + (_P,) * 8 + (_I,) * 6 + (_P,),
     # x, wd, bd, y, b, h, w, c, stream
     "ysi_dw_conv3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, w, bias, out, b, h, w, ci, xs, co, k, stride, act, stream
+    "ysi_conv2d_act": (_P,) * 4 + (_I,) * 9 + (_P,),
 }
 # Run once after loading (shared-memory attributes of the kernels).
 _INITS = ("ysi_gemm_init", "ysi_gemm_int8_init", "ysi_window_attn_init",
           "ysi_flash_attn_relpos_init", "ysi_decoder_init", "ysi_tinyvit_attn_init",
-          "ysi_tinyvit_conv_init")
+          "ysi_tinyvit_conv_init", "ysi_conv2d_act_init")
 
 
 def _sources():

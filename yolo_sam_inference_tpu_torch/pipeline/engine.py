@@ -98,6 +98,10 @@ class PipelineOptions:
     # "sp" = the ViT encoder's token rows split over the ranks of the
     # pipeline's process group (parallel/sp.py); "tp" is not ported yet
     encoder_parallel: str = "none"
+    # True = every dense (k > 1) conv of YOLOv8, the SAM neck and TinyViT's
+    # stems and neck on conv2d_act (K17; the JAX package's CONV2D_FUSED=1),
+    # YOLO's 1x1s as its matmul; False keeps F.conv2d
+    conv2d_fused: bool = False
 
     def encoder_size_for(self, h: int, w: int) -> int:
         if self.sam_encoder_size is not None:
@@ -366,7 +370,7 @@ class CellSegmentationPipeline:
                     _round_floating(sam_tree, opts.compute_dtype))
             yolo, sam = from_jax_params(
                 self.yolo_params, sam_tree, self.device, opts.compute_dtype,
-                yolo_config=ycfg, sam_config=scfg,
+                yolo_config=ycfg, sam_config=scfg, conv2d_fused=opts.conv2d_fused,
             )
             self._stage_cache[key] = {
                 "scfg": scfg,

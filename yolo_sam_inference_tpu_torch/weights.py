@@ -6,8 +6,9 @@ by the JAX package, including trees whose encoder projections were quantised
 (``{"wq", "wscale", "b"}`` records, ``ops.quant.quantize_sam_encoder_params``
 of either package), and MobileSAM trees, whose ``"tinyvit"`` subtree takes
 the place of ``"vision"`` (``SamModel`` then builds TinyViT as its encoder).
-Layout changes happen in the module constructors (conv weights HWIO -> OIHW);
-linear weights keep the (in, out) layout.
+Layout changes happen in the module constructors (conv weights HWIO -> OIHW
+for ``F.conv2d``; with ``conv2d_fused`` the dense convs keep HWIO for
+``conv2d_act``); linear weights keep the (in, out) layout.
 
 :func:`save_tree` and :func:`load_tree` carry a tree between processes (the
 ranks of a multi-process run) as one uncompressed ``.npz``.
@@ -33,19 +34,22 @@ def from_jax_params(
     *,
     yolo_config: Optional[YoloConfig] = None,
     sam_config: Optional[SamTPUConfig] = None,
+    conv2d_fused: bool = False,
 ) -> Tuple[Optional[YoloV8], Optional[SamModel]]:
     """Build (YoloV8, SamModel) on ``device`` with floating weights in ``dtype``
     (cast once here, as the JAX engine casts outside its programs). int8
     weights and their fp32 scales keep their types. Either tree may be None;
     a SAM tree needs its ``sam_config`` (window sizes and heads are not in
-    the tree)."""
+    the tree). ``conv2d_fused`` puts the dense convs of both models on
+    ``conv2d_act`` (K17)."""
     yolo = sam = None
     if yolo_tree is not None:
-        yolo = YoloV8(yolo_tree, yolo_config or YoloConfig()).to(device=device, dtype=dtype)
+        yolo = YoloV8(yolo_tree, yolo_config or YoloConfig(), conv2d_fused)
+        yolo = yolo.to(device=device, dtype=dtype)
     if sam_tree is not None:
         if sam_config is None:
             raise ValueError("from_jax_params: a SAM tree needs sam_config")
-        sam = SamModel(sam_tree, sam_config).to(device=device)
+        sam = SamModel(sam_tree, sam_config, conv2d_fused).to(device=device)
         for name, p in sam.named_parameters():
             if p.is_floating_point() and not name.endswith(".wscale"):
                 p.data = p.data.to(dtype)
