@@ -14,7 +14,9 @@ failure ends the run with a non-zero exit and no result line:
 3. kernels: each hand-written kernel against its plain PyTorch version in
    fp32 (TF32 off) on the same inputs, at the config-1 main path's batch-32
    shapes, with the stated bound; then each kernel's median time beside the
-   plain version's (and beside bf16 torch, for context);
+   plain version's (and beside bf16 torch, for context); the decoder's
+   kernels also at T = 196 and 784 (the grids of the 224 and 448 canvases,
+   whose last 64-token tile is short);
 4. slice: the config-1 pipeline (YOLOv8n + SAM ViT-B, 512x512 uint8 frames,
    bf16, random weights from seed 0): one batch of 8 with every kernel's
    launch count checked, the bf16 image embedding of one frame against the
@@ -50,26 +52,34 @@ failure ends the run with a non-zero exit and no result line:
 9. MobileSAM kernels: K13-K16 (``tinyvit_attention`` with its two
    ``gemm_bf16`` launches, ``mbconv_block``, ``patch_merge_block``,
    ``dw_conv3x3`` and its tail) at TinyViT-5M's batch-32 shapes against fp32
-   plain versions;
+   plain versions; K14 and K15 with ``compute="bf16"`` at stage 0 and merge0
+   against their bf16-compute plain versions and, within the JAX package's
+   bound for the mode, fp32 plain, timed in turns with the fp32
+   instantiation;
 10. MobileSAM slice (``"mobile-sam"``, config 2: TinyViT-5M + SAM ViT-B's
    decoder, 512x512 frames, bf16): launch counts at batch 8, the embedding
    against the fp32 plain TinyViT, a timed pass at batch 32; then with
    ``conv2d_fused=True`` (42 ``conv2d_act`` launches: YOLO's 39, the two
    stems, the neck), the embedding against fp32 plain and a timed pass;
+   then with ``tinyvit_mbconv_compute="bf16"`` (the bf16 instantiations
+   counted apart), the embedding, and passes in turns with the default;
 11. K12 kernels: ``flash_attention_relpos`` at its three shapes of batch 32
    (a sequence-parallel rank's 2048 queries of ViT-H's 64 x 64 grid; the
    flat route's ViT-B global layer on the 40 x 40 grid of the 640 canvas;
    its 14 x 14 windows), plain and at sampled |q.k / sqrt(hd)| of 30-50,
    against the fp32 plain version, timed beside it, the bound and
-   ``scaled_dot_product_attention`` with the bias as a bf16 mask; and the
-   residual LayerNorm (K11d) at the flat tails' rows;
+   ``scaled_dot_product_attention`` with the bias as a bf16 mask; the
+   residual LayerNorm (K11d) at the flat tails' rows; and ``int8_linear``
+   (the int8 flat route's qkv, mlp1 and mlp2) beside ``torch._int_mm``;
 12. off-grid slice: ViT-B bf16 at ``sam_encoder_size=640`` (grid 40,
    windows of 14 padded to 42: the flat route; rel-pos tables, positional
    embedding, biases and LN affines at random) on 640x640 frames, launch
    counts at batch 8 (K12 and K11d, no window attention), the embedding and
-   decoder against fp32 plain versions, a timed pass at batch 32; then the
-   896 canvas (grid 56, window 14: the flat route without padding) at batch
-   2;
+   decoder against fp32 plain versions; the same with ``quant="int8"``
+   (launch counts at batch 8, the embedding within 10% of fp32 plain), both
+   timed at batch 32 in turns; then the 896 canvas (grid 56, window 14: the
+   flat route without padding) and the 448 and 224 canvases (grids 28 and
+   14: the decoder over 784 and 196 tokens) at batch 2;
 13. sequence-parallel slice: config 4's encoder (ViT-H bf16, 2048x2048
    frames, 1024 canvas, phase 8's random tables) with
    ``encoder_parallel="sp"`` on 2 ranks
@@ -77,6 +87,8 @@ failure ends the run with a non-zero exit and no result line:
    counts per rank, the embedding equal across ranks bit for bit and against
    phase 8's single-card bf16 and fp32 plain embeddings of the same frames,
    a timed batch (two ranks sharing one card: no speed-up is measured);
+   then ViT-B at the 896 canvas the same way (each rank's 14 x 14 windows
+   on K12), against phase 12's single-card 896 and fp32 plain embeddings;
 14. result: the kernel table as one JSON line (each kernel's launches on its
    path, error, ms, plain ms, the bound for the same work on an H100 and
    what sets it, and the time of one PyTorch call that computes the same
@@ -113,6 +125,9 @@ SP_RANKS = 2  # sequence-parallel ranks (one card: they share it)
 SP_BATCH = 2  # frames per sequence-parallel batch
 # published H100 SXM peaks (NVIDIA data sheet): bytes/s and operations/s
 PEAK = {"hbm": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# the decoder, crop and hull kernels of one batch (max_det prompts an image)
+DECODER_COUNTS = {"layer_norm": 10, "keys_stream": 3, "t2i_attend": 1, "t2i_combine": 2,
+                  "window_crop": 1, "hull_support": 1}
 
 
 def _say(phase: str, msg: str) -> None:
@@ -447,6 +462,46 @@ def _decoder_kernel_phase(card: str) -> dict:
     times["hull_support"] = (median_ms(fn), median_ms(ref))
     # a dot product (2 mul, 1 add) and a compare per candidate and direction
     bounds["hull_support"] = _bound(4.0 * n * pts.shape[1] * 256, _nbytes(pts, dirs, fn()), "fp32")
+    del keys, keys1, part, grid
+    torch.cuda.empty_cache()
+
+    # the grids of the 224 and 448 canvases: T = 196 and 784 tokens, whose
+    # last 64-token tile is short; each kernel against its fp32 plain version
+    for gs in (14, 28):
+        tt, tag = gs * gs, f"T{gs * gs}"
+        pe_t, img_t, keys_t = randn(tt, c), randn(b, tt, c), randn(n, tt, c)
+        fn = lambda: dec.i2t_keys_update(keys_t, pe_t, kq, vq, *w_i2t, heads=8,
+                                         t2i={"qp": qn, **nxt})
+        ref = lambda: dec.i2t_keys_update_plain(
+            keys_t.float(), pe_t.float(), kq.float(), vq.float(), *w_i2t, heads=8,
+            t2i={"qp": qn.float(), **nxt})
+        for got, want, part_name in zip(fn(), ref(), ("keys", "attn")):
+            _check(f"keys_stream i2t layer 1 {tag} (512 streams): {part_name}", got, want, 2e-2,
+                   errs)
+        for got, want, part_name in zip(dec.kv_project(img_t, pe_t, *kv, 8),
+                                        dec.kv_project_plain(img_t.float(), pe_t.float(), *kv),
+                                        ("kp", "vp")):
+            _check(f"keys_stream k/v projection {tag} (32 images): {part_name}", got, want, 2e-2,
+                   errs)
+        pass_t = lambda: dec.keys_stream(keys_t, pe_t, *kv, qn=qn, i2t=(kq, vq, *w_i2t))
+        keys1, part = pass_t()
+        times[f"keys_stream {tag}"] = (median_ms(pass_t), median_ms(ref, reps=3, warmup=1))
+        bounds[f"keys_stream {tag}"] = _bound(
+            n * tt * (8.0 * c * dh + 4.0 * 2 * tq * dh),
+            _nbytes(keys_t, pe_t, kq, vq, qn, bq, bk, bv, bo, ln_s, ln_b, *w.values(), keys1,
+                    part))
+        fn, ref = lambda: dec.t2i_combine(part, tq), lambda: dec.t2i_combine_plain(part, tq)
+        _check(f"t2i_combine {tag} (512 streams x {part.shape[1]} tiles)", fn(), ref(), 2e-2, errs)
+        times[f"t2i_combine {tag}"] = (median_ms(fn), median_ms(ref))
+        bounds[f"t2i_combine {tag}"] = _bound(0.0, _nbytes(part) + n * tq * dh * 2)
+        kp_t, vp_t = randn(b, tt, dh), randn(b, tt, dh)
+        fn = lambda: dec.t2i_attend(qp, kp_t, vp_t, 8, k)
+        ref = lambda: dec.t2i_attend_plain(qp.float(), kp_t.float(), vp_t.float(), 8, k)
+        _check(f"t2i_attend {tag} shared (k_share 16)", fn(), ref(), 2e-2, errs)
+        times[f"t2i_attend {tag}"] = (median_ms(fn), median_ms(ref, reps=5))
+        bounds[f"t2i_attend {tag}"] = _bound(4.0 * n * tq * tt * dh, _nbytes(qp, kp_t, vp_t, qp))
+        del pe_t, img_t, keys_t, keys1, part, kp_t, vp_t
+        torch.cuda.empty_cache()
     for name, (ms, plain) in times.items():
         extra = f", bound {bounds[name][0]:.4f} ms ({bounds[name][1]})" if name in bounds else ""
         if name in library:
@@ -631,7 +686,10 @@ def _relpos_kernel_phase(card: str) -> dict:
     |q.k / sqrt(hd)| of 30-50; times beside the plain version's, the bound
     and ``scaled_dot_product_attention`` with the bias materialised as a
     bf16 additive mask (which the port never calls). Then the residual
-    LayerNorm (K11d) at the flat tails' rows (32 x 1600 tokens x 768)."""
+    LayerNorm (K11d) at the flat tails' rows (32 x 1600 tokens x 768), and
+    the int8 flat route's ``int8_linear`` (row quantisation + gemm_int8) at
+    its qkv, mlp1 and mlp2 on the global layer's rows, against its plain int8
+    version, beside ``torch._int_mm`` for the bare int8 product."""
     import torch
 
     from yolo_sam_inference_tpu_torch.bench.common import median_ms
@@ -715,6 +773,35 @@ def _relpos_kernel_phase(card: str) -> dict:
                     f"{times['K11d'][1]:.4f} ms, bound {bounds['K11d'][0]:.4f} ms "
                     f"({bounds['K11d'][1]}), no single library call [{card}]")
     del x, r, got, ref
+
+    # int8_linear at ViT-B's flat global layer, batch 32 (51200 rows)
+    from yolo_sam_inference_tpu_torch.ops.quant import quant_rows, quantize_weight
+
+    rows = TIMED_BATCH * 1600
+    for label, ci, co, gelu in (("qkv", 768, 2304, False), ("mlp1", 768, 3072, True),
+                                ("mlp2", 3072, 768, False)):
+        x = randn(rows, ci)
+        wq, ws = quantize_weight(randn(ci, co, std=ci ** -0.5))
+        bb = randn(co, std=0.1, dtype=torch.float32)
+        fn = lambda: tln.int8_linear(x, wq, ws, bb, gelu=gelu)
+        fnp = lambda: tln.int8_linear_plain(x, wq, ws, bb, gelu=gelu)
+        _check_int8(f"int8_linear {label} ({rows}x{ci} -> {co}{', GELU' if gelu else ''})", fn(),
+                    fnp(), errs)
+        key = f"int8_linear {label}"
+        times[key] = (median_ms(fn), median_ms(fnp, reps=3, warmup=1))
+        bounds[key] = _bound(2.0 * rows * ci * co, _nbytes(x, wq, ws, bb) + rows * co * 2, "int8")
+        # the library yardstick: the bare int8 product of the same quantised rows
+        xq = quant_rows(x.float())[0].to(torch.int8)
+        try:
+            library[key] = median_ms(lambda: torch._int_mm(xq, wq))
+        except RuntimeError:  # a build that takes the weight only column-major
+            wcol = wq.t().contiguous().t()
+            library[key] = median_ms(lambda: torch._int_mm(xq, wcol))
+        _say("kernels", f"{key}: kernel {times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms, "
+                        f"bound {bounds[key][0]:.4f} ms ({bounds[key][1]}), torch._int_mm (the "
+                        f"bare product) {library[key]:.4f} ms [{card}]")
+        del x, xq, wq
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return {"errs": errs, "times": times, "bounds": bounds, "library": library}
 
@@ -722,8 +809,11 @@ def _relpos_kernel_phase(card: str) -> dict:
 def _offgrid_slice_phase(card: str, vit_b_pipe) -> dict:
     """The flat route end to end: ViT-B bf16 with ``sam_encoder_size=640``
     (grid 40, window 14 padded to 42) on 640x640 frames with 12 cells, from
-    the config-1 pipeline's host trees; then the 896 canvas (grid 56, window
-    14 dividing it: the flat route without padding on the card) at batch 2."""
+    the config-1 pipeline's host trees; the same with ``quant="int8"`` (the
+    flat route's qkv, mlp1 and mlp2 on ``int8_linear``), timed in turns with
+    bf16; then the 896 canvas (grid 56, window 14 dividing it: the flat route
+    without padding on the card) at batch 2, and the 448 and 224 canvases
+    (grids 28 and 14: the decoder over 784 and 196 tokens) at batch 2."""
     import dataclasses
 
     import numpy as np
@@ -750,65 +840,118 @@ def _offgrid_slice_phase(card: str, vit_b_pipe) -> dict:
     result["launches"], _, out = _drive("off-grid 640 (ViT-B, grid 40, window 14)", pipe,
                                         frames[:SLICE_BATCH], opts.max_det, expected,
                                         by_nq={1600: 4, 196: 8})
-    rels, emb32, _ = _embedding_vs_plain("off-grid 640", {"bf16": (pipe, 0.05)}, frames[:1])
-    result["rel_rms"] = rels["bf16"]
+    # int8: the flat route's qkv, mlp1 and mlp2 on int8_linear, the
+    # projection on gemm_bf16
+    pipe8 = _sharing_params(vit_b_pipe, dataclasses.replace(opts, quant="int8"))
+    expected8 = {**expected, "gemm_bf16": 12, "int8_linear": 36}
+    result["launches int8"], _, _ = _drive("off-grid 640 int8 (ViT-B)", pipe8,
+                                           frames[:SLICE_BATCH], opts.max_det, expected8,
+                                           by_nq={1600: 4, 196: 8})
+    rels, emb32, _ = _embedding_vs_plain("off-grid 640",
+                                         {"bf16": (pipe, 0.05), "int8": (pipe8, 0.10)},
+                                         frames[:1])
+    result["rel_rms"], result["rel_rms int8"] = rels["bf16"], rels["int8"]
     _decoder_vs_plain("off-grid 640", pipe, OFF_GRID, emb32, out["boxes"][:1])
-    result["ms"] = _timed("off-grid 640 (ViT-B)", pipe, frames, card)
+    turns = {"bf16": [], "int8": []}
+    for mode, p in (("bf16", pipe), ("int8", pipe8), ("int8", pipe8), ("bf16", pipe)):
+        turns[mode].append(_timed(f"off-grid 640 ViT-B {mode} (in turns)", p, frames, card))
+    result["ms"], result["ms int8"] = (statistics.median(turns[m]) for m in ("bf16", "int8"))
+    result["turns"] = turns
+    _say("slice", f"off-grid 640: ms per batch of {TIMED_BATCH} in turns (bf16, int8, int8, "
+                  f"bf16): bf16 {[round(v, 2) for v in turns['bf16']]}, int8 "
+                  f"{[round(v, 2) for v in turns['int8']]} [{card}]")
     pipe._stage_cache.clear()
+    pipe8._stage_cache.clear()
 
     opts = dataclasses.replace(vit_b_pipe.options, sam_encoder_size=896)
     pipe = _sharing_params(vit_b_pipe, opts)
     result["launches 896"], _, _ = _drive("off-grid 896 (ViT-B, grid 56, window 14, unpadded)",
                                           pipe, frames[:2], opts.max_det, expected,
                                           by_nq={3136: 4, 196: 8})
-    rels, _, _ = _embedding_vs_plain("off-grid 896", {"bf16": (pipe, 0.05)}, frames[:1])
+    rels, emb32, embs = _embedding_vs_plain("off-grid 896", {"bf16": (pipe, 0.05)},
+                                            frames[:SP_BATCH])
     result["rel_rms 896"] = rels["bf16"]
+    # the sequence-parallel phase at 896 runs these frames on these weights
+    result["sp inputs"] = (vit_b_pipe, frames[:SP_BATCH], emb32.cpu(), embs["bf16"])
     pipe._stage_cache.clear()
+
+    # grids of 28 and 14 (window 14 divides them: the flat route, unpadded);
+    # K12 at the global layers' 784 or 196 queries and the windows' 196
+    for size, by_nq in ((448, {784: 4, 196: 8}), (224, {196: 12})):
+        opts = dataclasses.replace(vit_b_pipe.options, sam_encoder_size=size)
+        pipe = _sharing_params(vit_b_pipe, opts)
+        tag = f"canvas {size} (ViT-B, grid {size // 16}, window 14)"
+        result[f"launches {size}"], _, out = _drive(tag, pipe, frames[:2], opts.max_det,
+                                                    expected, by_nq=by_nq)
+        rels, emb32, _ = _embedding_vs_plain(f"canvas {size}", {"bf16": (pipe, 0.05)},
+                                             frames[:1])
+        result[f"rel_rms {size}"] = rels["bf16"]
+        _decoder_vs_plain(f"canvas {size}", pipe, OFF_GRID, emb32, out["boxes"][:1])
+        pipe._stage_cache.clear()
     return result
 
 
+# The sequence-parallel slices (encoder_parallel="sp" on SP_RANKS ranks):
+# config 4 (ViT-H, 1024 canvas) and ViT-B at the 896 canvas, each with the
+# launch counts of one rank and batch.
+SP_SPECS = {
+    # 32 layers x (K1 + proj + two K10) GEMMs on the rank's 32 grid rows, the
+    # window attention at the 28 windowed layers (w16), K12 at the 4 global
+    # ones on the rank's 2048 queries
+    "config 4": {"model": "facebook/sam-vit-huge", "options": {},
+                 "expected": {**DECODER_COUNTS, "gemm_bf16": 4 * 32, "window_attn_relpos": 28,
+                              "flash_attention_relpos": 4},
+                 "by_window": {16: 28}, "by_nq": {2048: 4}},
+    # 12 layers x 4 GEMMs on the rank's 28 grid rows; K12 at the 8 windowed
+    # layers (the rank's 14 x 14 windows, 196 queries) and at the 4 global
+    # ones (28 x 56 = 1568 queries); no window attention
+    "896": {"model": "facebook/sam-vit-base", "options": {"sam_encoder_size": 896},
+            "expected": {**DECODER_COUNTS, "gemm_bf16": 48, "flash_attention_relpos": 12},
+            "by_window": {}, "by_nq": {196: 8, 1568: 4}},
+}
+
+
 def _sp_rank(rank: int, world: int, job: dict) -> None:
-    """One rank of the sequence-parallel slice (run by parallel/launch.py in
-    a process of its own): config 4's pipeline with ``encoder_parallel="sp"``
-    on the parent's parameter trees and frames; its launch counts, outputs,
-    embedding and timing go to ``rank<r>.npz`` in the job's directory."""
+    """One rank of a sequence-parallel slice (run by parallel/launch.py in
+    a process of its own): the pipeline of ``SP_SPECS[job["spec"]]`` with
+    ``encoder_parallel="sp"`` on the parent's parameter trees and frames; its
+    launch counts, outputs, embedding and timing go to ``rank<r>.npz`` in
+    the job's directory."""
     import numpy as np
     import torch
 
     from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
     from yolo_sam_inference_tpu_torch.weights import load_tree
 
+    spec = SP_SPECS[job["spec"]]
     trees = load_tree(f"{job['dir']}/params.npz")
     frames = np.load(f"{job['dir']}/frames.npy")
-    opts = tengine.PipelineOptions(max_det=16, metric_crop=128, encoder_parallel="sp")
-    pipe = tengine.CellSegmentationPipeline("facebook/sam-vit-huge", options=opts, device="cuda",
+    opts = tengine.PipelineOptions(max_det=16, metric_crop=128, encoder_parallel="sp",
+                                   **spec["options"])
+    pipe = tengine.CellSegmentationPipeline(spec["model"], options=opts, device="cuda",
                                             params=(trees["yolo"], trees["sam"]))
     del trees
     h, w = frames.shape[1], frames.shape[2]
     pipe._stages(h, w)
-    tag = f"sp rank {rank} of {world}"
-    # per rank and batch: 32 layers x (K1 + proj + two K10) GEMMs on the
-    # rank's 32 grid rows, the window attention at the 28 windowed layers
-    # (w16), K12 at the 4 global ones on the rank's 2048 queries
-    expected = {**DECODER_COUNTS, "gemm_bf16": 4 * 32, "window_attn_relpos": 28,
-                "flash_attention_relpos": 4}
-    launches, _, out = _drive(tag, pipe, frames, 16, expected, by_window={16: 28},
-                              by_nq={2048: 4})
+    tag = f"sp {job['spec']} rank {rank} of {world}"
+    launches, _, out = _drive(tag, pipe, frames, 16, spec["expected"],
+                              by_window=spec["by_window"], by_nq=spec["by_nq"])
     with torch.inference_mode():
         emb = pipe._stages(h, w)["embed"](pipe._images_to_device(frames)).cpu().numpy()
     ms = _timed(f"{tag} (two ranks sharing one card: no SP speed)", pipe, frames, job["card"])
     np.savez(f"{job['dir']}/rank{rank}.npz", emb=emb, boxes=out["boxes"], valid=out["valid"],
              mask_crops=out["mask_crops"], ms=np.float64(ms),
              k12=np.int64(launches["flash_attention_relpos"]),
+             k12_w14=np.int64(launches.get("flash_attention_relpos nq196", 0)),
              attn=np.int64(launches["window_attn_relpos"]))
 
 
-def _sp_slice_phase(card: str, pipe, frames, emb32, emb16) -> dict:
-    """Config 4's encoder sequence-parallel: ``SP_RANKS`` ranks through
-    parallel/launch.py on ``pipe``'s host trees (written once, here, for the
-    ranks to read: ViT-H's numpy init takes 11-15 s), on the frames whose
-    single-card bf16 (``emb16``) and fp32 plain (``emb32``) embeddings
-    phase 8 made."""
+def _sp_slice_phase(card: str, spec: str, pipe, frames, emb32, emb16) -> dict:
+    """The encoder of ``SP_SPECS[spec]`` sequence-parallel: ``SP_RANKS``
+    ranks through parallel/launch.py on ``pipe``'s host trees (written once,
+    here, for the ranks to read: ViT-H's numpy init takes 11-15 s), on the
+    frames whose single-card bf16 (``emb16``) and fp32 plain (``emb32``)
+    embeddings an earlier phase made."""
     import tempfile
 
     import numpy as np
@@ -822,34 +965,36 @@ def _sp_slice_phase(card: str, pipe, frames, emb32, emb16) -> dict:
         t0 = time.perf_counter()
         save_tree(f"{tmp}/params.npz", {"yolo": pipe.yolo_params, "sam": pipe.sam_params})
         np.save(f"{tmp}/frames.npy", frames)
-        _say("slice", f"sp: ViT-H parameter trees written for the ranks in "
+        _say("slice", f"sp {spec}: parameter trees written for the ranks in "
                       f"{time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
-        backend = run_ranks(_sp_rank, SP_RANKS, ({"dir": tmp, "card": card},))
-        _say("slice", f"sp: backend {backend}, {SP_RANKS} ranks on {torch.cuda.device_count()} "
-                      f"card(s); ranks done in {time.perf_counter() - t0:.2f} s")
+        backend = run_ranks(_sp_rank, SP_RANKS, ({"dir": tmp, "card": card, "spec": spec},))
+        _say("slice", f"sp {spec}: backend {backend}, {SP_RANKS} ranks on "
+                      f"{torch.cuda.device_count()} card(s); ranks done in "
+                      f"{time.perf_counter() - t0:.2f} s")
         ranks = [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(SP_RANKS)]
     emb = ranks[0]["emb"]
     for r, res in enumerate(ranks[1:], 1):
         if not np.array_equal(res["emb"], emb):
-            raise AssertionError(f"sp: rank {r}'s embedding differs from rank 0's")
+            raise AssertionError(f"sp {spec}: rank {r}'s embedding differs from rank 0's")
     rel16 = float(np.linalg.norm(emb - emb16.numpy()) / np.linalg.norm(emb16.numpy()))
     rel32 = float(np.linalg.norm(emb - emb32.numpy()) / np.linalg.norm(emb32.numpy()))
     same_out = all(np.array_equal(res[k], ranks[0][k]) for res in ranks[1:]
                    for k in ("boxes", "valid", "mask_crops"))
-    _say("slice", f"sp: embedding {emb.shape} equal on all {SP_RANKS} ranks; rel_rms vs the "
+    _say("slice", f"sp {spec}: embedding {emb.shape} equal on all {SP_RANKS} ranks; rel_rms vs the "
                   f"single-card bf16 encoder {rel16:.3e} (bound 0.02), vs the fp32 plain encoder "
                   f"{rel32:.5f} (bound 0.05), max_abs vs single-card "
                   f"{np.abs(emb - emb16.numpy()).max():.3e}; outputs equal across ranks: "
                   f"{same_out}")
     if not (rel16 <= 0.02 and rel32 <= 0.05 and np.isfinite(emb).all()):
-        raise AssertionError("sp: the sequence-parallel embedding disagrees with the single-card "
-                             "encoders")
+        raise AssertionError(f"sp {spec}: the sequence-parallel embedding disagrees with the "
+                             f"single-card encoders")
     ms = [float(res["ms"]) for res in ranks]
-    _say("slice", f"sp timed: batch {frames.shape[0]} per rank, ms/batch by rank {ms}: "
+    _say("slice", f"sp {spec} timed: batch {frames.shape[0]} per rank, ms/batch by rank {ms}: "
                   f"{SP_RANKS} ranks sharing one card, so this is no sequence-parallel speed "
                   f"[{card}]")
-    return {"k12": int(ranks[0]["k12"]), "attn": int(ranks[0]["attn"]), "rel16": rel16,
+    return {"k12": int(ranks[0]["k12"]), "k12_w14": int(ranks[0]["k12_w14"]),
+            "attn": int(ranks[0]["attn"]), "rel16": rel16,
             "rel32": rel32, "ms": ms, "backend": backend}
 
 
@@ -991,6 +1136,37 @@ def _mobile_kernel_phase(card: str) -> dict:
         bounds[key] = _bound(2.0 * pix_in * c * e + pix_out * (18.0 * e + 2.0 * e * co),
                              _nbytes(x, out, *w))
         report(key)
+        if key in ("mbconv stage0", "patch_merge merge0"):
+            # the compute="bf16" instantiation: against its bf16-compute plain
+            # version, and against fp32 plain within the JAX package's bound
+            # for the mode (max 8%, mean 1% of max|ref|)
+            mode = {"compute": "bf16"}
+            fn16 = ((lambda: tmb.patch_merge_block(x, *w, **mode)) if stride == 2 else
+                    (lambda: tmb.mbconv_block(x, *w, residual=residual, **mode)))
+            fnp16 = lambda: tmb.mbconv_plain(x, *w, stride=stride, residual=residual, **mode)
+            kernel = "mbconv_bf16" if stride == 1 else "patch_merge_bf16"
+            got = fn16()
+            _check(f"{kernel} {key.split()[1]} (vs its bf16-compute plain version)", got, fnp16(),
+                   2e-2, errs)
+            ref = tmb.mbconv_plain(x.float(), *w, stride=stride, residual=residual)
+            d, scale = (got.float() - ref).abs(), ref.abs().max().item()
+            ok = d.max().item() <= 0.08 * scale and d.mean().item() <= 0.01 * scale
+            _say("kernels", f"{kernel} vs fp32 plain: max {d.max().item():.5g}, mean "
+                            f"{d.mean().item():.5g} (bounds {0.08 * scale:.5g}, "
+                            f"{0.01 * scale:.5g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{kernel}: outside the JAX bound of the bf16 mode")
+            bkey = f"{key} bf16"
+            # in turns with the fp32 instantiation: fp32, bf16, bf16, fp32
+            t32 = [times[key][0]]
+            t16 = [median_ms(fn16), median_ms(fn16)]
+            t32.append(median_ms(fn))
+            times[bkey] = (statistics.median(t16), median_ms(fnp16, reps=5))
+            bounds[bkey] = bounds[key]
+            report(bkey)
+            _say("kernels", f"{key}: fp32 instantiation ms {[round(v, 4) for v in t32]}, bf16 "
+                            f"{[round(v, 4) for v in t16]} (in turns) [{card}]")
+            del got, ref, d
         del x, out
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1230,6 +1406,7 @@ def _wrappers() -> dict:
             "fused_ln_matmul_int8": tln.fused_ln_matmul_int8,
             "fused_ln_mlp_int8": tln.fused_ln_mlp_int8,
             "fused_ln_mlp_tiled_int8": tln.fused_ln_mlp_tiled_int8,
+            "int8_linear": tln.int8_linear,
             "tinyvit_attn": ttv.tinyvit_attention, "mbconv_block": tmb.mbconv_block,
             "patch_merge_block": tmb.patch_merge_block, "dw_conv3x3": tdw.dw_conv3x3,
             "layer_norm": tln.layer_norm, "keys_stream": dec.keys_stream,
@@ -1245,17 +1422,23 @@ def _reset_counts() -> dict:
     wrappers["window_attn_relpos"].by_window = {}
     wrappers["flash_attention_relpos"].by_nq = {}
     wrappers["layer_norm"].residual_launches = 0
+    wrappers["mbconv_block"].bf16_launches = 0
+    wrappers["patch_merge_block"].bf16_launches = 0
     return wrappers
 
 
 def _read_counts(tag: str, wrappers: dict, expected: dict, by_window=None, by_nq=None) -> dict:
     """The launch counts since the reset; every kernel not in ``expected``
     must have run 0 times (the residual LayerNorm, K11d, counts as
-    ``layer_norm_residual``), and the window attention's counts by window
+    ``layer_norm_residual``; the compute="bf16" instantiations of K14 and
+    K15 as ``mbconv_block_bf16`` and ``patch_merge_block_bf16`` too), and
+    the window attention's counts by window
     and K12's by query count must match. The returned counts add K12's by
     query count as ``flash_attention_relpos nq<NQ>``."""
     launches = {name: w.launches for name, w in wrappers.items()}
     launches["layer_norm_residual"] = wrappers["layer_norm"].residual_launches
+    for name in ("mbconv_block", "patch_merge_block"):
+        launches[f"{name}_bf16"] = wrappers[name].bf16_launches
     windows = dict(wrappers["window_attn_relpos"].by_window)
     nqs = dict(wrappers["flash_attention_relpos"].by_nq)
     _say("slice", f"{tag}: launches {({k: v for k, v in launches.items() if v})}, attention by "
@@ -1458,10 +1641,6 @@ def _timed(tag: str, pipe, frames, card: str) -> float:
     return ms
 
 
-# the decoder, crop and hull kernels of one batch (max_det prompts an image)
-DECODER_COUNTS = {"layer_norm": 10, "keys_stream": 3, "t2i_attend": 1, "t2i_combine": 2,
-                  "window_crop": 1, "hull_support": 1}
-
 
 def _large_frame_phase(card: str, vit_b_pipe, vit_h_pipe) -> dict:
     """Frames above 512 px: ViT-B on 768x768 frames (the 768 canvas, global
@@ -1557,10 +1736,28 @@ def _mobile_slice_phase(card: str) -> dict:
     rels_f, _, _ = _embedding_vs_plain(tag, {"bf16": (fpipe, 0.05)}, frames[:1],
                                        encoder_expected=fused)
     ms_f = _timed(tag, fpipe, frames, card)
-    del pipe, fpipe
+    # with tinyvit_mbconv_compute="bf16": K14 and K15 in their bf16 mode where
+    # the JAX package's fused path would run them (the stage-0 MBConvs,
+    # merge0 at 128 rows, merge2; merge1 at 64 rows keeps fp32)
+    bpipe = _sharing_params(pipe, dataclasses.replace(opts, tinyvit_mbconv_compute="bf16"))
+    tag = "mobile-sam mbconv bf16"
+    bf16 = {**encoder, "mbconv_block_bf16": 3, "patch_merge_block_bf16": 1}
+    launches_b, _, _ = _drive(tag, bpipe, frames[:SLICE_BATCH], 16,
+                              {**DECODER_COUNTS, **bf16, "layer_norm": 10})
+    rels_b, _, _ = _embedding_vs_plain(tag, {"bf16": (bpipe, 0.05)}, frames[:1],
+                                       encoder_expected=bf16)
+    turns = {"fp32": [ms], "bf16": []}
+    for mode, p in (("bf16", bpipe), ("fp32", pipe), ("bf16", bpipe)):
+        turns[mode].append(_timed(f"mobile-sam mbconv {mode} (in turns)", p, frames, card))
+    _say("slice", f"mobile-sam: ms per batch of {TIMED_BATCH} in turns (fp32, then after the "
+                  f"conv2d_fused pass bf16, fp32, bf16): fp32 "
+                  f"{[round(v, 2) for v in turns['fp32']]}, bf16 "
+                  f"{[round(v, 2) for v in turns['bf16']]} [{card}]")
+    del pipe, fpipe, bpipe
     return {"launches": launches, "rel_rms": rels["bf16"], "ms_per_batch": ms,
             "launches conv2d_fused": launches_f, "rel_rms conv2d_fused": rels_f["bf16"],
-            "ms conv2d_fused": ms_f}
+            "ms conv2d_fused": ms_f, "launches bf16": launches_b, "rel_rms bf16": rels_b["bf16"],
+            "turns bf16": turns}
 
 
 def _randomise_affines(tree, rng) -> None:
@@ -1628,7 +1825,8 @@ def main() -> int:
     lf = _large_frame_phase(card, vit_b_pipe, big["huge"].pop("pipe"))
     rk = _relpos_kernel_phase(card)
     og = _offgrid_slice_phase(card, vit_b_pipe)
-    sq = _sp_slice_phase(card, *lf.pop("sp inputs"))
+    sq = _sp_slice_phase(card, "config 4", *lf.pop("sp inputs"))
+    sq896 = _sp_slice_phase(card, "896", *og.pop("sp inputs"))
     mk = _mobile_kernel_phase(card)
     ms = _mobile_slice_phase(card)
 
@@ -1671,6 +1869,13 @@ def main() -> int:
         src = "decoder_keys.cu" if name.startswith(("keys", "t2i")) else f"{name}.cu"
         table.append(entry(name, "cuda", f"csrc/{src}", replaces, sp["launches"][name],
                            dp["errs"][name], dt[timed], db[timed], dp["library"].get(timed)))
+    # at T = 784 (the 448 canvas's grid of 28: a short last tile)
+    for name, replaces in (("keys_stream", "ops/decoder_fused.py:298 i2t_keys_update"),
+                           ("t2i_combine", "ops/decoder_fused.py:298 i2t_keys_update (its "
+                                           "next-stage t2i, joined over the tiles)")):
+        table.append(entry(f"{name} T784", "cuda", "csrc/decoder_keys.cu", replaces,
+                           og["launches 448"][name], dp["errs"][name], dt[f"{name} T784"],
+                           db[f"{name} T784"]))
     bt, bb = bk["times"], bk["bounds"]
     lb, hb = big["large"]["launches"], big["huge"]["launches"]
     table += [
@@ -1715,6 +1920,14 @@ def main() -> int:
               "ops/dw_ln_mlp.py:88 dw_ln_mlp (its depthwise; LN + MLP on gemm_bf16)",
               mla["dw_conv3x3"], mk["errs"]["dw_conv3x3"], mt["dw_conv3x3 stage2"],
               mb["dw_conv3x3 stage2"], ml["dw_conv3x3 stage2"]),
+        entry("mbconv_block bf16", "cuda", "csrc/tinyvit_conv.cu",
+              "ops/mbconv_fused.py:134 mbconv_block (compute=\"bf16\")",
+              ms["launches bf16"]["mbconv_block_bf16"], mk["errs"]["mbconv_bf16"],
+              mt["mbconv stage0 bf16"], mb["mbconv stage0 bf16"]),
+        entry("patch_merge_block bf16", "cuda", "csrc/tinyvit_conv.cu",
+              "ops/merge_fused.py:125 patch_merge_block (compute=\"bf16\")",
+              ms["launches bf16"]["patch_merge_block_bf16"], mk["errs"]["patch_merge_bf16"],
+              mt["patch_merge merge0 bf16"], mb["patch_merge merge0 bf16"]),
     ]
     ct, cb, cl = ck["times"], ck["bounds"], ck["library"]
     table.append(entry("conv2d_act", "cuda", "csrc/conv2d_act.cu",
@@ -1737,13 +1950,27 @@ def main() -> int:
               og["launches"]["flash_attention_relpos nq196"], k12_err,
               rt["flat ViT-B windows 14x14"], rb["flat ViT-B windows 14x14"],
               rl["flat ViT-B windows 14x14"]),
+        entry("flash_attention_relpos sp w14", "cuda", k12_src, k12_tpu, sq896["k12_w14"],
+              k12_err, rt["flat ViT-B windows 14x14"], rb["flat ViT-B windows 14x14"],
+              rl["flat ViT-B windows 14x14"]),
         entry("layer_norm residual", "triton", "ops/fused_ln.py",
               "ops/fused_ln.py:56 fused_add_ln", og["launches"]["layer_norm_residual"],
               rk["errs"]["layer_norm"], rt["K11d"], rb["K11d"]),
+        entry("int8_linear", "cuda", "csrc/gemm_int8.cu",
+              "ops/quant.py:66 int8_linear (XLA, the flat route's apply_linear: "
+              "models/sam/model.py:223, :453-455; no pallas_call)",
+              og["launches int8"]["int8_linear"], rk["errs"]["int8_linear"],
+              rt["int8_linear qkv"], rb["int8_linear qkv"], rl["int8_linear qkv"]),
     ]
     _say("result", f"off-grid 640 {og['ms']:.2f} ms/batch of {TIMED_BATCH} = "
-                   f"{TIMED_BATCH / og['ms'] * 1000:.2f} img/s; sp ({sq['backend']}, {SP_RANKS} "
-                   f"ranks on one card) ms/batch of {SP_BATCH} by rank {sq['ms']} [{card}]")
+                   f"{TIMED_BATCH / og['ms'] * 1000:.2f} img/s, int8 {og['ms int8']:.2f} "
+                   f"(medians of the turns); sp ({sq['backend']}, {SP_RANKS} ranks on one card) "
+                   f"ms/batch of {SP_BATCH} by rank: config 4 {sq['ms']}, 896 {sq896['ms']} "
+                   f"[{card}]")
+    tb = ms["turns bf16"]
+    _say("result", f"mobile-sam tinyvit_mbconv_compute bf16 "
+                   f"{statistics.median(tb['bf16']):.2f} ms/batch of {TIMED_BATCH} (fp32 "
+                   f"{statistics.median(tb['fp32']):.2f}; medians of the turns) [{card}]")
     _say("result", f"config 1 conv2d_fused {fs['ms_per_batch']:.2f} ms/batch of {TIMED_BATCH} "
                    f"(default {statistics.median(fs['turns']['default']):.2f}; medians of the "
                    f"turns); mobile-sam conv2d_fused "

@@ -103,11 +103,14 @@ def test_flash_attention_relpos_vs_plain(gen, s, hd, rows, std_qk):
 
 
 @pytest.mark.cuda
-def test_sp_encoder_two_ranks_on_the_card(gen, tmp_path):
-    """The sequence-parallel encoder at ViT-B widths (grid 32, window 16, 2
-    layers: windowed, global) over 2 gloo ranks sharing the card: the ranks
-    agree bit for bit and stay within 2% relative RMS of the single-card
-    bf16 encoder (other kernels for the global layer: K12, not K3)."""
+@pytest.mark.parametrize("canvas,window", [(512, 16), (448, 14)])
+def test_sp_encoder_two_ranks_on_the_card(gen, tmp_path, canvas, window):
+    """The sequence-parallel encoder at ViT-B widths (2 layers: windowed,
+    global) over 2 gloo ranks sharing the card, at grid 32 with window 16 and
+    at grid 28 with window 14 (each rank's windows on K12; the single card
+    takes the flat route there): the ranks agree bit for bit and stay within
+    2% relative RMS of the single-card bf16 encoder (other kernels for the
+    global layer: K12, not K3)."""
     import dataclasses
 
     import numpy as np
@@ -117,14 +120,14 @@ def test_sp_encoder_two_ranks_on_the_card(gen, tmp_path):
     from yolo_sam_inference_tpu_torch.parallel.workers import run_jobs
     from yolo_sam_inference_tpu_torch.weights import save_tree
 
-    cfg = dataclasses.replace(sam_vit_b(512), vision_layers=2, global_attn_indexes=(1,),
-                              window_size=16)
+    cfg = dataclasses.replace(sam_vit_b(canvas), vision_layers=2, global_attn_indexes=(1,),
+                              window_size=window)
     rng = np.random.default_rng(0)
     tree = {"vision": init_sam_params(0, cfg)["vision"]}
     for lp in tree["vision"]["layers"]:
         for key in ("rel_pos_h", "rel_pos_w"):
             lp["attn"][key] = (0.3 * rng.normal(size=lp["attn"][key].shape)).astype(np.float32)
-    pix = rng.normal(size=(2, 512, 512, 3)).astype(np.float32)
+    pix = rng.normal(size=(2, canvas, canvas, 3)).astype(np.float32)
     save_tree(tmp_path / "t.npz", tree)
     np.save(tmp_path / "p.npy", pix)
     job = {"kind": "encoder", "tree": str(tmp_path / "t.npz"), "cfg": cfg,
@@ -157,6 +160,21 @@ def test_fused_ln_matmul_int8_vs_plain(gen, c):
     got = tln.fused_ln_matmul_int8(x, s, b, wq, ws, bq)
     assert tln.fused_ln_matmul_int8.launches == before + 1
     _close_int8(got, tln.fused_ln_matmul_int8_plain(x, s, b, wq, ws, bq))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o,gelu", [(768, 2304, False), (768, 3072, True), (3072, 768, False)])
+def test_int8_linear_vs_plain(gen, c, o, gelu):
+    """The flat route's int8 qkv, mlp1 (+ GELU) and mlp2 at ViT-B widths:
+    the LN-less row quantisation and one int8 GEMM."""
+    rows = 1000
+    x = _randn(gen, rows, c)
+    wq, ws = _int8_weight(gen, c, o)
+    b = _randn(gen, o, std=0.1, dtype=torch.float32)
+    before = tln.int8_linear.launches
+    got = tln.int8_linear(x, wq, ws, b, gelu=gelu)
+    assert tln.int8_linear.launches == before + 1
+    _close_int8(got, tln.int8_linear_plain(x, wq, ws, b, gelu=gelu))
 
 
 @pytest.mark.cuda
@@ -283,6 +301,36 @@ def test_keys_stream_vs_plain(gen, i2t, k_share):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("gs", [14, 28])
+def test_decoder_kernels_at_short_tiles(gen, gs):
+    """keys_stream (both modes), t2i_combine and t2i_attend on grids of 14
+    and 28 (T = 196, 784: the last 64-token tile is short)."""
+    nsrc, k_share, t, tq = 2, 4, gs * gs, 7
+    n = nsrc * k_share
+    p = _decoder_weights(gen)
+    keys, pe = _randn(gen, nsrc, t, 256), _randn(gen, t, 256)
+    kq, vq = _randn(gen, n, tq, 128), _randn(gen, n, tq, 128)
+    qn = _randn(gen, n, tq, 128, std=0.25)
+    w = (p["wq"], p["bq"], p["wout"], p["bout"], p["ln_s"], p["ln_b"])
+    nxt = {"wk": p["wk"], "bk": p["bk"], "wv": p["wv"], "bv": p["bv"]}
+    before = dec.keys_stream.launches, dec.t2i_combine.launches, dec.t2i_attend.launches
+    got = dec.i2t_keys_update(keys, pe, kq, vq, *w, heads=8, k_share=k_share,
+                              t2i={"qp": qn, **nxt})
+    want = dec.i2t_keys_update_plain(keys.float(), pe.float(), kq.float(), vq.float(), *w,
+                                     heads=8, k_share=k_share, t2i={"qp": qn.float(), **nxt})
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, 2e-2)
+    kp, vp = dec.kv_project(keys, pe, p["wk"], p["bk"], p["wv"], p["bv"], 8)
+    for g_, w_ in zip((kp, vp), dec.kv_project_plain(keys.float(), pe.float(), p["wk"], p["bk"],
+                                                     p["wv"], p["bv"])):
+        _close(g_, w_, 2e-2)
+    _close(dec.t2i_attend(qn, kp, vp, 8, k_share),
+           dec.t2i_attend_plain(qn.float(), kp.float(), vp.float(), 8, k_share), 2e-2)
+    assert (dec.keys_stream.launches, dec.t2i_combine.launches, dec.t2i_attend.launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k_share", [1, 4])
 def test_t2i_attend_vs_plain(gen, k_share):
     nsrc, t, tq = 3, 1024, 7
@@ -391,6 +439,29 @@ def test_patch_merge_vs_plain(gen, shape, co):
     got = tmb.patch_merge_block(x, *w)
     assert tmb.patch_merge_block.launches == before + 1
     _close(got, tmb.mbconv_plain(x.float(), *w, stride=2, residual=False), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,e,co,stride,residual", [((2, 16, 16, 64), 256, 64, 1, True),
+                                                        ((2, 8, 8, 160), 320, 320, 1, False),
+                                                        ((2, 16, 16, 64), 128, 128, 2, False),
+                                                        ((2, 12, 20, 128), 160, 160, 2, False)])
+def test_conv_blocks_bf16_compute_vs_plain(gen, shape, e, co, stride, residual):
+    """K14 and K15 with compute="bf16": the bf16 instantiation against the
+    bf16-compute plain version (2% of the range), and against the fp32 plain
+    version within the JAX package's bound for the mode (max 8%, mean 1% of
+    max|ref|)."""
+    x = _randn(gen, *shape)
+    w = _conv_weights(gen, shape[-1], e, co)
+    fn = tmb.patch_merge_block if stride == 2 else tmb.mbconv_block
+    kw = {} if stride == 2 else {"residual": residual}
+    before = fn.launches, fn.bf16_launches
+    got = fn(x, *w, compute="bf16", **kw)
+    assert (fn.launches, fn.bf16_launches) == (before[0] + 1, before[1] + 1)
+    _close(got, tmb.mbconv_plain(x, *w, stride=stride, residual=residual, compute="bf16"), 2e-2)
+    ref = tmb.mbconv_plain(x.float(), *w, stride=stride, residual=residual)
+    err, scale = (got.float() - ref).abs(), ref.abs().max().item()
+    assert err.max().item() <= 0.08 * scale and err.mean().item() <= 0.01 * scale
 
 
 @pytest.mark.cuda

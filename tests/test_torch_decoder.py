@@ -161,30 +161,62 @@ def test_mma_b_order_is_the_fragment_layout():
                 assert frag[j, kt, lane].tolist() == w[rows, j * 8 + g].tolist()
 
 
-def test_t2i_combine_joins_tile_partials():
+@pytest.mark.parametrize("t", [256, 196, 784])
+def test_t2i_combine_joins_tile_partials(t):
     """The partials keys_stream_kernel stores per 64-token tile (o, max, sum
     for each head and next query), joined by t2i_combine, give the attention
-    over the whole stream. Slots of absent queries are never read."""
+    over the whole stream; at T = 196 and 784 (grids 14 and 28) the last
+    tile is short. Slots of absent queries are never read."""
     rng = np.random.default_rng(13)
-    n, t, tq2, heads, hd, rows = 3, 256, 7, 8, 16, 64
+    n, tq2, heads, hd = 3, 7, 8, 16
     qn = torch.from_numpy(_f(rng, n, tq2, heads * hd, scale=0.5))
     kp, vp = (torch.from_numpy(_f(rng, n, t, heads * hd)) for _ in range(2))
-    part = torch.full((n, t // rows, heads, 8, hd + 2), float("nan"))
-    q = qn.reshape(n, tq2, heads, hd)
-    for i in range(t // rows):
-        k = kp[:, i * rows:(i + 1) * rows].reshape(n, rows, heads, hd)
-        v = vp[:, i * rows:(i + 1) * rows].reshape(n, rows, heads, hd)
-        s = torch.einsum("nqhd,nrhd->nhqr", q, k)
-        m = s.amax(-1)
-        e = torch.exp(s - m[..., None])
-        part[:, i, :, :tq2, :hd] = torch.einsum("nhqr,nrhd->nhqd", e, v)
-        part[:, i, :, :tq2, hd] = m
-        part[:, i, :, :tq2, hd + 1] = e.sum(-1)
-    got = dec.t2i_combine(part.reshape(n, t // rows, -1), tq2)
+    part = dec.t2i_tile_partials_plain(qn, kp, vp)
+    tiles = -(-t // 64)
+    assert tuple(part.shape) == (n, tiles, heads * 8 * (hd + 2))
+    part.view(n, tiles, heads, 8, hd + 2)[:, :, :, tq2:] = float("nan")
+    got = dec.t2i_combine(part, tq2)
     want = dec.t2i_attend_plain(qn, kp, vp, heads)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (n, tq2, heads * hd)
     # fp32 on both sides, one bf16 rounding of the output
     torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("gs", [14, 28])
+def test_tile_partials_match_jax_i2t_at_short_tiles(gs):
+    """K7 as the card computes it at SAM's decoder widths (C 256, dh 128, 8
+    heads) on grids of 14 and 28 (T = 196, 784: the last 64-token tile is
+    short): the plain keys pass, its k/v projections, the per-tile partials
+    and t2i_combine_plain against JAX i2t_keys_update (interpret mode)."""
+    rng = np.random.default_rng(gs)
+    n, t, c, dh, tq = 2, gs * gs, 256, 128, 7
+    w = {"wq": _f(rng, c, dh, scale=c ** -0.5), "bq": _f(rng, dh, scale=0.1),
+         "wout": _f(rng, dh, c, scale=dh ** -0.5), "bout": _f(rng, c, scale=0.1),
+         "lns": 1.0 + _f(rng, c, scale=0.1), "lnb": _f(rng, c, scale=0.1),
+         "wk": _f(rng, c, dh, scale=c ** -0.5), "bk": _f(rng, dh, scale=0.1),
+         "wv": _f(rng, c, dh, scale=c ** -0.5), "bv": _f(rng, dh, scale=0.1)}
+    keys_src, pe = _f(rng, n, t, c), _f(rng, 1, t, c)
+    kq, vq = _f(rng, n, tq, dh, scale=0.5), _f(rng, n, tq, dh, scale=0.5)
+    qn = _f(rng, n, tq, dh, scale=0.25)
+    tt = {k: torch.from_numpy(v) for k, v in w.items()}
+    keys, _ = dec.i2t_keys_update_plain(
+        torch.from_numpy(keys_src), torch.from_numpy(pe), torch.from_numpy(kq),
+        torch.from_numpy(vq), tt["wq"], tt["bq"], tt["wout"], tt["bout"], tt["lns"], tt["lnb"],
+        heads=8, t2i={"qp": torch.from_numpy(qn), "wk": tt["wk"], "bk": tt["bk"],
+                      "wv": tt["wv"], "bv": tt["bv"]})
+    kp, vp = dec.kv_project_plain(keys, torch.from_numpy(pe), tt["wk"], tt["bk"], tt["wv"],
+                                  tt["bv"])
+    part = dec.t2i_tile_partials_plain(torch.from_numpy(qn), kp, vp)
+    assert part.shape[1] == -(-t // 64) and t % 64
+    got = dec.t2i_combine_plain(part, tq)
+    j = {k: jnp.asarray(v) for k, v in w.items()}
+    want_keys, want_attn = j_i2t(
+        jnp.asarray(keys_src), jnp.asarray(pe), jnp.asarray(kq), jnp.asarray(vq), j["wq"],
+        j["bq"], j["wout"], j["bout"], j["lns"], j["lnb"], heads=8, eps=1e-6, interpret=True,
+        t2i={"qp": jnp.asarray(qn), "wk": j["wk"], "bk": j["bk"], "wv": j["wv"], "bv": j["bv"]})
+    # fp32 both sides (summation orders differ); the combine rounds to bf16 once
+    np.testing.assert_allclose(keys.numpy(), np.asarray(want_keys), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want_attn), rtol=1e-2, atol=1e-2)
 
 
 def test_keys_stream_launch_refuses_cpu_tensors():

@@ -127,17 +127,25 @@ def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
 
 def test_port_imports_no_jax():
     """The port (its pipeline, and the multi-rank modules its spawned ranks
-    import) must import neither jax nor the JAX package."""
+    import) and ``chip_smoke.py`` must import neither jax nor the JAX
+    package: the script is imported, and every import statement in it, those
+    inside its phase functions too, is read from its syntax tree."""
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import ast, sys, pkgutil, importlib\n"
         "import yolo_sam_inference_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import yolo_sam_inference_tpu_torch.pipeline.engine\n"
+        "import chip_smoke\n"
         "walked = {'yolo_sam_inference_tpu_torch.parallel.' + m for m in ('sp', 'launch',\n"
         "                                                                  'workers')}\n"
         "assert walked <= set(sys.modules), sorted(walked - set(sys.modules))\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'yolo_sam_inference_tpu')\n"
+        "tree = ast.parse(open('chip_smoke.py').read())\n"
+        "names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]\n"
+        "names += [n.module or '' for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]\n"
+        "assert 'yolo_sam_inference_tpu_torch.pipeline' in names, names\n"
+        "bad = [m for m in list(sys.modules) + names\n"
+        "       if m in ('jax', 'jaxlib', 'yolo_sam_inference_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'yolo_sam_inference_tpu.'))]\n"
         "print(sorted(bad))\n"
         "sys.exit(1 if bad else 0)\n"

@@ -10,6 +10,9 @@ sp = 2 cases:
   at sp = 2 and sp = 4;
 * SAM ViT-B widths (C 768, 12 heads) at grid 32, window 16, cut to 2 layers,
   at sp = 2;
+* the tiny config at grid 28 and SAM's window of 14 at sp = 2: each rank's
+  windows run on K12 at grid side 14 (the window attention kernel takes no
+  window of 14), as the single-device flat route runs its windows;
 * ``PipelineOptions(encoder_parallel="sp")`` on the tiny pipeline at sp = 2.
 
 The parent holds the ranks' results against JAX ``sam_image_encoder_sp`` on
@@ -69,6 +72,10 @@ def _tree(cfg, seed):
     return tree
 
 
+def _w14():
+    return dataclasses.replace(sam_tiny_test(), image_size=224, window_size=14)  # grid 28
+
+
 def _vit_b_cut():
     return dataclasses.replace(sam_vit_b(512), vision_layers=2, global_attn_indexes=(1,),
                                window_size=16)  # grid 32, window 16
@@ -84,6 +91,7 @@ def runs(tmp_path_factory):
                  rng.normal(size=(4, 64, 64, 3)).astype(np.float32)),
         "vit_b": (_vit_b_cut(), _tree(_vit_b_cut(), 3),
                   rng.normal(size=(1, 512, 512, 3)).astype(np.float32)),
+        "w14": (_w14(), _tree(_w14(), 5), rng.normal(size=(2, 224, 224, 3)).astype(np.float32)),
     }
     jobs = []
     for name, (cfg, tree, pix) in cases.items():
@@ -106,7 +114,7 @@ def _rank_outputs(d, prefix, sp):
     return [np.load(d / f"{prefix}.rank{r}.npy") for r in range(sp)]
 
 
-@pytest.mark.parametrize("name,sp", [("tiny", 2), ("tiny", 4), ("vit_b", 2)])
+@pytest.mark.parametrize("name,sp", [("tiny", 2), ("tiny", 4), ("vit_b", 2), ("w14", 2)])
 def test_sp_encoder_matches_jax_and_single_device(runs, name, sp):
     """Every rank returns the same embeddings, equal to JAX
     ``sam_image_encoder_sp`` on an sp-way CPU mesh, to JAX's single-device

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from synth import make_cell_image
@@ -50,7 +51,12 @@ from yolo_sam_inference_tpu_torch.ops.flash_attention import (
     window_attention,
     window_attention_plain,
 )
-from yolo_sam_inference_tpu_torch.ops.mbconv_fused import mbconv_block, patch_merge_block
+from yolo_sam_inference_tpu_torch.models.sam import tinyvit as ttv_model
+from yolo_sam_inference_tpu_torch.ops.mbconv_fused import (
+    mbconv_block,
+    mbconv_plain,
+    patch_merge_block,
+)
 from yolo_sam_inference_tpu_torch.ops.tinyvit_attention import (
     offset_index,
     tinyvit_attention_plain,
@@ -213,6 +219,44 @@ def test_patch_merge_matches_jax_kernel(shape, co):
     want = np.asarray(jax_merge(_j(x), *map(_j, w), interpret=True))
     assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, co)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=_ERF_ATOL)
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+
+
+@pytest.mark.parametrize("stride,residual,shape,e,co", [(1, True, (2, 16, 16, 64), 256, 64),
+                                                        (1, False, (2, 16, 16, 160), 320, 320),
+                                                        (2, False, (2, 32, 32, 64), 128, 128)])
+def test_bf16_compute_matches_jax_kernels(stride, residual, shape, e, co):
+    """K14 (stage 0's MBConv, merge2) and K15 (merge0) with compute="bf16"
+    on bf16 inputs and weights: the port's plain version against the TPU
+    kernel's bf16 mode in interpret mode and against the fp32 plain version,
+    at the JAX package's bound for the mode (tests/test_tinyvit.py:250-281:
+    max <= 0.08 and mean <= 0.01 of max|ref|); and the mode changes the
+    result (it rounds where the fp32 mode does not)."""
+    rng = np.random.default_rng(shape[-1] + e)
+    x = _bf16(rng.normal(size=shape))
+    w = [_bf16(a) for a in _conv_weights(rng, shape[-1], e, co)]
+    if stride == 2:
+        got = patch_merge_block(x, *w, compute="bf16")
+        got32 = patch_merge_block(x, *w)
+        want = jax_merge(_j(x.float()).astype(jnp.bfloat16),
+                         *(_j(a.float()).astype(jnp.bfloat16) for a in w), interpret=True,
+                         compute="bf16")
+    else:
+        got = mbconv_block(x, *w, residual=residual, compute="bf16")
+        got32 = mbconv_block(x, *w, residual=residual)
+        want = jax_mbconv(_j(x.float()).astype(jnp.bfloat16),
+                          *(_j(a.float()).astype(jnp.bfloat16) for a in w), interpret=True,
+                          residual=residual, compute="bf16")
+    assert got.dtype == torch.bfloat16
+    ref = mbconv_plain(x.float(), *w, stride=stride, residual=residual).numpy()
+    scale = np.abs(ref).max()
+    for other in (np.asarray(want).astype(np.float32), ref):
+        err = np.abs(got.float().numpy() - other)
+        assert err.max() <= 0.08 * scale and err.mean() <= 0.01 * scale, (err.max(), scale)
+    assert not torch.equal(got, got32)
 
 
 def test_dw_ln_mlp_matches_jax_kernel():
@@ -397,3 +441,52 @@ def test_letterbox_from_2048_matches_jax():
     assert r == jr and pad == jpad and got.shape == (1, 640, 640, 3)
     # the antialiased triangle filter over a 3.2x downsample, fp32 sums
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_tinyvit_bf16_mbconv_compute_matches_jax(tinyvit_tree, monkeypatch):
+    """TinyViT in bf16 with ``mbconv_compute="bf16"`` on bf16 pixels (image
+    128) against JAX ``tinyvit_encoder(fused=True, interpret=True,
+    mbconv_compute="bf16")`` on the same bf16-rounded tree. The mode reaches
+    K14 and K15 under JAX's gates: the stage-0 MBConvs and merge2, not the
+    stride-2 merges below 128 rows. Both sides run ~25 layers in bf16,
+    rounding at other places (GELU arithmetic, attention, LayerNorms): within
+    3% relative RMS (the port's fp32-compute mode is 1.3% from JAX's)."""
+    size = 128
+    tree = jax.tree.map(lambda a: _bf16(a).float().numpy(), tinyvit_tree)
+    pix = _bf16(np.random.default_rng(size).normal(size=(1, size, size, 3)))
+    modes = []
+    for name in ("mbconv_block", "patch_merge_block"):
+        real = getattr(ttv_model, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            modes.append((_name, k.get("compute")))
+            return _real(*a, **k)
+
+        monkeypatch.setattr(ttv_model, name, spy)
+    enc = TinyViT(tree, TinyViTConfig(image_size=size), mbconv_compute="bf16").to(torch.bfloat16)
+    with torch.no_grad():
+        got = enc(pix).float().numpy()
+    assert modes == [("mbconv_block", "bf16")] * 2 + [("patch_merge_block", "fp32")] * 2 + [
+        ("mbconv_block", "bf16")]
+    jt = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), tree)
+    want = np.asarray(jtv.tinyvit_encoder(
+        jt, _j(pix.float()).astype(jnp.bfloat16), jtv.TinyViTConfig(image_size=size),
+        mbconv_compute="bf16", fused=True, interpret=True)).astype(np.float32)
+    assert got.shape == want.shape == (1, size // 16, size // 16, 256)
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 0.03
+
+
+def test_mbconv_compute_refuses_unknown_modes(tinyvit_tree):
+    x = torch.zeros(1, 8, 8, 64)
+    w = [torch.zeros(64, 256), torch.zeros(256), torch.zeros(3, 3, 256), torch.zeros(256),
+         torch.zeros(256, 64), torch.zeros(64)]
+    with pytest.raises(ValueError, match="compute must be one of"):
+        mbconv_block(x, *w, compute="fp16")
+    with pytest.raises(ValueError, match="compute must be one of"):
+        patch_merge_block(x, *w, compute="int8")
+    with pytest.raises(ValueError, match="mbconv_compute must be one of"):
+        TinyViT(tinyvit_tree, TinyViTConfig(image_size=64), mbconv_compute="bfloat16")
+    with pytest.raises(ValueError, match="tinyvit_mbconv_compute must be one of"):
+        tengine.CellSegmentationPipeline(
+            "mobile-sam", device="cpu", sam_config=sam_tiny_test(),
+            options=tengine.PipelineOptions(tinyvit_mbconv_compute="fp16"))

@@ -2,13 +2,14 @@
 
     python -m yolo_sam_inference_tpu_torch.bench.profile_slice [--batch 32] [--iters 2]
         [--model facebook/sam-vit-base] [--quant none|int8] [--max-det 16] [--cells 12]
-        [--frame 512] [--encoder-size N] [--conv2d-fused]
+        [--frame 512] [--encoder-size N] [--conv2d-fused] [--mbconv-compute fp32|bf16]
 
 Runs ``process_batch_arrays`` (YOLOv8n + the SAM model, ``--frame``-pixel
 square frames with ``--cells`` cells each, bf16 or w8a8 int8 encoder;
 ``--model mobile-sam`` is config 2, ``--model facebook/sam-vit-huge --frame
 2048`` config 4, ``--frame 640 --encoder-size 640`` the off-grid cell (the
-flat encoder route), ``--conv2d-fused`` the dense convs on K17; random weights from seed
+flat encoder route), ``--conv2d-fused`` the dense convs on K17, ``--mbconv-compute
+bf16`` MobileSAM's MBConv and merge kernels in their bf16 mode; random weights from seed
 0) twice to warm up, then ``--iters`` batches under the profiler. The
 defaults are config 1. Prints, all from that one profiled window: its wall
 time, the union of device-kernel intervals (kernel time), the idle share
@@ -64,6 +65,8 @@ def main() -> None:
                     help="PipelineOptions.sam_encoder_size (default: the native canvas)")
     ap.add_argument("--conv2d-fused", action="store_true",
                     help="PipelineOptions.conv2d_fused (the dense convs on conv2d_act)")
+    ap.add_argument("--mbconv-compute", default="fp32", choices=("fp32", "bf16"),
+                    help="PipelineOptions.tinyvit_mbconv_compute (MobileSAM)")
     args = ap.parse_args()
 
     import numpy as np
@@ -80,9 +83,10 @@ def main() -> None:
     print(card(), flush=True)
     print(f"{args.model}, quant {args.quant}, max_det {args.max_det}, {args.frame}x{args.frame} "
           f"frames with {args.cells} cells, encoder canvas {args.encoder_size or 'native'}, "
-          f"conv2d_fused {args.conv2d_fused}", flush=True)
+          f"conv2d_fused {args.conv2d_fused}, mbconv compute {args.mbconv_compute}", flush=True)
     opts = PipelineOptions(max_det=args.max_det, metric_crop=128, quant=args.quant,
-                           sam_encoder_size=args.encoder_size, conv2d_fused=args.conv2d_fused)
+                           sam_encoder_size=args.encoder_size, conv2d_fused=args.conv2d_fused,
+                           tinyvit_mbconv_compute=args.mbconv_compute)
     pipe = CellSegmentationPipeline(sam_model_type=args.model, device="cuda", options=opts, seed=0)
     frames = cell_frames(np.random.default_rng(0), args.batch, args.frame, cells=args.cells)
     for _ in range(2):

@@ -20,7 +20,12 @@
 // n / K (layer 0: the K prompts of an image share its untouched tokens).
 //
 // t2i_combine_kernel, one prompt per block: the next attention's output from
-// the partials of the T / 64 tiles, out = sum o e^(m - M) / sum l e^(m - M).
+// the partials of the ceil(T / 64) tiles, out = sum o e^(m - M) / sum l e^(m - M).
+//
+// T need not be a multiple of 64 (SAM's grids of 14, 28, 20, 36, 50 and 60
+// give T = 196, 784, 400, 1296, 2500, 3600): the last tile's rows at T and
+// beyond are zero-filled on load, score -inf in the next attention (so they
+// add nothing to its max, o or l) and store no keys, kp or vp row.
 //
 // t2i_attend_kernel, one (prompt, head) per block: the token-to-image
 // attention of the tq (<= 8) prompt tokens over all T image tokens from
@@ -59,7 +64,7 @@
 // tile instead of 64 KB of kp/vp; t2i_combine_kernel rescales and adds them.
 //
 // Shapes: C = 256 channels, 128 internal channels, 8 heads of 16, tq <= 8,
-// T a multiple of 64 (keys_stream) - SAM's decoder at every encoder size.
+// any T - SAM's decoder at every encoder size.
 // The Python wrappers check them.
 
 #include <cuda_bf16.h>
@@ -104,7 +109,7 @@ struct KeysArgs {
   __nv_bfloat16* out_keys;    // (N, T, C)
   __nv_bfloat16* out_kp;      // (N, T, DH)   without [i2t]
   __nv_bfloat16* out_vp;      // (N, T, DH)
-  float* part;                // (N, T / ROWS, HEADS, TQ_MAX, PART)  with [i2t]
+  float* part;                // (N, ceil(T / ROWS), HEADS, TQ_MAX, PART)  with [i2t]
   int t, tq, tq2, k_share;
   float scale, eps;
   int do_i2t;
@@ -142,12 +147,13 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Store this warp's 16 staged rows (ncols bf16 each, from smem row stride
-// LDX) to global rows of length ld, 16 bytes per lane.
+// Store the first `rows` (<= 16) of this warp's staged rows (ncols bf16
+// each, from smem row stride LDX) to global rows of length ld, 16 bytes per
+// lane.
 __device__ __forceinline__ void store_rows(const __nv_bfloat16* s, __nv_bfloat16* gdst, int ld,
-                                           int ncols, int lane) {
+                                           int ncols, int rows, int lane) {
   const int chunks = ncols / 8;
-  for (int v = lane; v < 16 * chunks; v += 32) {
+  for (int v = lane; v < rows * chunks; v += 32) {
     const int r = v / chunks, c = (v % chunks) * 8;
     *reinterpret_cast<uint4*>(gdst + (long)r * ld + c) =
         *reinterpret_cast<const uint4*>(s + r * LDX + c);
@@ -166,14 +172,17 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int n = blockIdx.y, t0 = blockIdx.x * ROWS;
+  const int valid = min(ROWS, p.t - t0);  // rows of this tile below T
   const long row0 = (long)n * p.t + t0;  // first output row of this tile
   const __nv_bfloat16* xg = p.keys + ((long)(n / p.k_share) * p.t + t0) * C;
   const __nv_bfloat16* pg = p.pe + (long)t0 * C;
 
   for (int v = tid; v < ROWS * C / 8; v += THREADS) {
     const int r = v / (C / 8), c = (v % (C / 8)) * 8;
-    cp_async16(Xs + r * LDX + c, xg + (long)r * C + c, true);
-    cp_async16(Ps + r * LDX + c, pg + (long)r * C + c, true);
+    const bool in = r < valid;  // rows at T and beyond: zero-filled, nothing read
+    const long off = (long)(in ? r : 0) * C + c;
+    cp_async16(Xs + r * LDX + c, xg + off, in);
+    cp_async16(Ps + r * LDX + c, pg + off, in);
   }
   cp_async_commit();
   if (p.do_i2t) {
@@ -189,6 +198,7 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
   __syncthreads();  // from here on each warp touches only its own 16 rows
 
   const int wr = warp * 16;
+  const int wrows = max(0, min(16, valid - wr));  // this warp's rows below T
   const __nv_bfloat16* xa = Xs + (wr + (lane & 15)) * LDX + (lane >> 4) * 8;  // ldmatrix rows
   const __nv_bfloat16* pa = Ps + (wr + (lane & 15)) * LDX + (lane >> 4) * 8;
 
@@ -342,7 +352,7 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
           pack_bf16(oacc[j][2] * rstd1 * s0 + b0, oacc[j][3] * rstd1 * s1 + b1);
     }
     __syncwarp();
-    store_rows(Xs + wr * LDX, p.out_keys + (row0 + wr) * C, C, C, lane);
+    store_rows(Xs + wr * LDX, p.out_keys + (row0 + wr) * C, C, C, wrows, lane);
   }
 
   // ---- next stage's k/v projections: kp = (x + pe) @ Wk + bk, vp = x @ Wv + bv
@@ -383,8 +393,8 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
     }
     __syncwarp();
     if (!p.do_i2t) {
-      store_rows(Ps + wr * LDX, p.out_kp + (row0 + wr) * DH, DH, DH, lane);
-      store_rows(Ps + wr * LDX + DH, p.out_vp + (row0 + wr) * DH, DH, DH, lane);
+      store_rows(Ps + wr * LDX, p.out_kp + (row0 + wr) * DH, DH, DH, wrows, lane);
+      store_rows(Ps + wr * LDX + DH, p.out_vp + (row0 + wr) * DH, DH, DH, wrows, lane);
       return;
     }
   }
@@ -394,8 +404,10 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
   float* ml = kqs;                          // (HQ, 2) tile max and sum; kq is consumed
   __syncthreads();  // every warp's kp | vp rows are staged, and q, kq are no longer read
   {
-    // logits: thread -> row tid / 2, heads 4 * (tid % 2) .. + 3, every query
+    // logits: thread -> row tid / 2, heads 4 * (tid % 2) .. + 3, every query;
+    // a row at T or beyond scores -inf
     const int r = tid / 2;
+    const bool in = r < valid;
     const __nv_bfloat16* kr = Ps + r * LDX;
 #pragma unroll
     for (int hh = 0; hh < HEADS / 2; ++hh) {
@@ -414,12 +426,13 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
 #pragma unroll
           for (int c = 0; c < HD; ++c) d = fmaf(qns[q * DH + h * HD + c], kv[c], d);
         }
-        S[r * LDS + h * TQ_MAX + q] = d;
+        S[r * LDS + h * TQ_MAX + q] = in ? d : -INFINITY;
       }
     }
   }
   __syncthreads();
   if (tid < HQ) {  // column tid = (head, query): max and sum over the tile's rows
+    // (row 0 is below T in every tile, so m is finite and e is 0 past T)
     float m = -INFINITY, l = 0.f;
     for (int r = 0; r < ROWS; ++r) m = fmaxf(m, S[r * LDS + tid]);
     for (int r = 0; r < ROWS; ++r) {
@@ -435,7 +448,7 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
     // o[(h, q)][d] = sum_r e[r][(h, q)] * vp[r][h, d]: 16 lanes per column,
     // neighbouring lanes on neighbouring vp channels
     const int d = tid % HD;
-    float* out = p.part + ((long)n * (p.t / ROWS) + blockIdx.x) * HQ * PART;
+    float* out = p.part + ((long)n * gridDim.x + blockIdx.x) * HQ * PART;
 #pragma unroll
     for (int i = 0; i < HQ * HD / THREADS; ++i) {
       const int col = tid / HD + i * (THREADS / HD);
@@ -453,7 +466,7 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
   }
 }
 
-// One prompt per block: join the partials of its T / ROWS tiles.
+// One prompt per block: join the partials of its ceil(T / ROWS) tiles.
 __global__ void __launch_bounds__(THREADS)
     t2i_combine_kernel(const float* part, __nv_bfloat16* out, int tiles, int tq2) {
   const int n = blockIdx.x;
@@ -606,7 +619,7 @@ extern "C" int ysi_keys_stream(const void* keys, const void* pe, const void* kq,
                                void* out_keys, void* out_kp, void* out_vp, void* part, int n,
                                int t, int tq, int tq2, int k_share, float scale, float eps,
                                int do_i2t, void* stream) {
-  if (n <= 0 || t <= 0 || t % ROWS || k_share <= 0 || n % k_share) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || t <= 0 || k_share <= 0 || n % k_share) return (int)cudaErrorInvalidValue;
   if (do_i2t && (tq <= 0 || tq > TQ_MAX || tq2 <= 0 || tq2 > TQ_MAX))
     return (int)cudaErrorInvalidValue;
   KeysArgs p;
@@ -636,7 +649,7 @@ extern "C" int ysi_keys_stream(const void* keys, const void* pe, const void* kq,
   p.scale = scale;
   p.eps = eps;
   p.do_i2t = do_i2t;
-  dim3 grid(t / ROWS, n);
+  dim3 grid((t + ROWS - 1) / ROWS, n);
   keys_stream_kernel<<<grid, THREADS, KEYS_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -4,6 +4,10 @@
 // Replaces (yolo_sam_inference_tpu/ops/fused_ln.py):
 //   * fused_ln_matmul_int8 (:711, K11c): LN1 + dynamic row quantisation +
 //     the int8 qkv projection;
+//   * int8_linear (ops/quant.py:66, the flat route's qkv, mlp1 and mlp2 through
+//     apply_linear; not a pallas_call there): dynamic row quantisation of the
+//     rows as they come, the int8 product, and for mlp1 the GELU of the
+//     bf16-rounded product (the JAX flat route's _gelu after apply_linear);
 //   * fused_ln_mlp_int8 (:438, K11a) and fused_ln_mlp_tiled_int8 (:549, K11b):
 //     the w8a8 block tail y = x + h; y + mlp2(GELU(mlp1(LN2(y)))) with the
 //     hidden dimension in chunks, each chunk requantised with its own row
@@ -25,13 +29,16 @@
 //     fp32 in chunk order; result bf16(y + bf16(out)).
 //
 // Three kernels; four launches per tail (ln_quant, MLP1, quant_chunks,
-// MLP2) and two for K11c (ln_quant, QKV):
+// MLP2) and two for K11c (ln_quant, QKV) and for int8_linear (ln_quant
+// without the LN, QKV or GELU):
 //   1. ln_quant_kernel: one warp per row: LN statistics (two passes), the LN
 //      values, the row amax, the int8 row and its scale (the LN never goes to
-//      device memory);
-//   2. gemm_int8_kernel<QKV | MLP1 | MLP2>: a tiled int8 GEMM on
+//      device memory); with null LN pointers the rows are quantised as they
+//      come;
+//   2. gemm_int8_kernel<QKV | GELU | MLP1 | MLP2>: a tiled int8 GEMM on
 //      mma.sync.m16n8k32 (s8 x s8 -> s32). QKV dequantises and adds the bias
-//      (bf16 out). MLP1 also applies GELU, stores the fp32 hidden and takes
+//      (bf16 out); GELU then rounds to bf16 and applies the exact-erf GELU in
+//      fp32 (bf16 out). MLP1 also applies GELU, stores the fp32 hidden and takes
 //      each row's |h| maximum per chunk (shared-memory then global atomics on
 //      the float bits; |h| >= 0 orders like an int). MLP2 folds the int32
 //      accumulator into an fp32 sum at every chunk boundary, scaled by that
@@ -76,7 +83,7 @@ constexpr int CHUNKS = BM * BK / 16 / THREADS;   // 16-byte copies per thread pe
 constexpr size_t SMEM = 2 * STAGES * TILE;
 static_assert(BM == BN, "A and the transposed weight share the tile geometry");
 
-enum Mode { QKV = 0, MLP1 = 1, MLP2 = 2 };
+enum Mode { QKV = 0, MLP1 = 1, MLP2 = 2, GELU = 3 };
 
 struct Args {
   const int8_t* a;           // (M, K) row-major int8 activations
@@ -171,7 +178,8 @@ __device__ __forceinline__ void ln8(const float y[8], float mean, float rstd, co
   }
 }
 
-// One warp per row: xq = quant(LN(x (+ h))), xs = the row scale.
+// One warp per row: xq = quant(LN(x (+ h))), xs = the row scale; with null
+// ln_s and ln_b, xq = quant(x (+ h)).
 __global__ void __launch_bounds__(256)
     ln_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ h,
                     const float* __restrict__ ln_s, const float* __restrict__ ln_b,
@@ -180,32 +188,44 @@ __global__ void __launch_bounds__(256)
   const int lane = threadIdx.x % 32;
   if (row >= m) return;
   const long base = (long)row * c;
+  const bool ln = ln_s != nullptr;
   float y[8], l[8];
-  float s = 0.f;
-  for (int j = lane * 8; j < c; j += 256) {
-    load_y8(x, h, base + j, y);
+  float mean = 0.f, rstd = 1.f;
+  if (ln) {
+    float s = 0.f;
+    for (int j = lane * 8; j < c; j += 256) {
+      load_y8(x, h, base + j, y);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s += y[i];
-  }
-  const float mean = __fdiv_rn(warp_sum(s), (float)c);
-  float q = 0.f;
-  for (int j = lane * 8; j < c; j += 256) {
-    load_y8(x, h, base + j, y);
+      for (int i = 0; i < 8; ++i) s += y[i];
+    }
+    mean = __fdiv_rn(warp_sum(s), (float)c);
+    float q = 0.f;
+    for (int j = lane * 8; j < c; j += 256) {
+      load_y8(x, h, base + j, y);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) q += (y[i] - mean) * (y[i] - mean);
+      for (int i = 0; i < 8; ++i) q += (y[i] - mean) * (y[i] - mean);
+    }
+    rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(q), (float)c), eps));
   }
-  const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(q), (float)c), eps));
+  // the values to quantise, eight columns from j
+  auto values = [&](int j) {
+    load_y8(x, h, base + j, y);
+    if (ln) {
+      ln8(y, mean, rstd, ln_s, ln_b, j, l);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) l[i] = y[i];
+    }
+  };
   float amax = 0.f;
   for (int j = lane * 8; j < c; j += 256) {  // the row is in L1 from here on
-    load_y8(x, h, base + j, y);
-    ln8(y, mean, rstd, ln_s, ln_b, j, l);
+    values(j);
 #pragma unroll
     for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(l[i]));
   }
   const float scale = quant_scale(warp_max(amax));
   for (int j = lane * 8; j < c; j += 256) {
-    load_y8(x, h, base + j, y);
-    ln8(y, mean, rstd, ln_s, ln_b, j, l);
+    values(j);
     uint2 packed;
     int8_t* e = reinterpret_cast<int8_t*>(&packed);
 #pragma unroll
@@ -389,7 +409,11 @@ __global__ void __launch_bounds__(THREADS, MODE == MLP2 ? 1 : 2) gemm_int8_kerne
         } else {
           float v0 = dequant(acc[i][j][2 * hr], sa, p.w_scale[col], p.bias[col]);
           float v1 = dequant(acc[i][j][2 * hr + 1], sa, p.w_scale[col + 1], p.bias[col + 1]);
-          if constexpr (MODE == QKV) {
+          if constexpr (MODE == GELU) {
+            v0 = gelu(round_bf16(v0));
+            v1 = gelu(round_bf16(v1));
+          }
+          if constexpr (MODE == QKV || MODE == GELU) {
             *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + idx) =
                 __floats2bfloat162_rn(v0, v1);
           } else {
@@ -428,12 +452,14 @@ extern "C" int ysi_gemm_int8_init(void) {
   cudaError_t err = allow_smem<QKV>();
   if (err == cudaSuccess) err = allow_smem<MLP1>();
   if (err == cudaSuccess) err = allow_smem<MLP2>();
+  if (err == cudaSuccess) err = allow_smem<GELU>();
   return (int)err;
 }
 
 extern "C" int ysi_ln_quant(const void* x, const void* h, const void* ln_s, const void* ln_b,
                             void* xq, void* xs, int m, int c, float eps, void* stream) {
-  if (m <= 0 || c <= 0 || c % 8) return (int)cudaErrorInvalidValue;
+  if (m <= 0 || c <= 0 || c % 8 || (ln_s == nullptr) != (ln_b == nullptr))
+    return (int)cudaErrorInvalidValue;
   ln_quant_kernel<<<(m + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(h),
       static_cast<const float*>(ln_s), static_cast<const float*>(ln_b), static_cast<int8_t*>(xq),
@@ -479,6 +505,7 @@ extern "C" int ysi_gemm_int8(int mode, const void* a, const void* bt, const void
   if (mode == QKV) gemm_int8_kernel<QKV><<<grid, THREADS, SMEM, st>>>(p);
   else if (mode == MLP1) gemm_int8_kernel<MLP1><<<grid, THREADS, SMEM, st>>>(p);
   else if (mode == MLP2) gemm_int8_kernel<MLP2><<<grid, THREADS, SMEM, st>>>(p);
+  else if (mode == GELU) gemm_int8_kernel<GELU><<<grid, THREADS, SMEM, st>>>(p);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

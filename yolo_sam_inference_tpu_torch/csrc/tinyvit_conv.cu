@@ -1,14 +1,25 @@
 // TinyViT's convolution blocks (Hopper, sm_90a): the MBConv block and the
 // patch merges, and the depthwise 3x3 of the window blocks' tails.
 //
-// mbconv_kernel<STRIDE, RESIDUAL>, for x (B, H, W, C) bf16, w1 (C, E) and
-// w3 (E, Co) bf16 (the JAX (in, out) layout), wd (3, 3, E) and the biases fp32:
+// mbconv_kernel<STRIDE, RESIDUAL, BF16>, for x (B, H, W, C) bf16, w1 (C, E)
+// and w3 (E, Co) bf16 (the JAX (in, out) layout), wd (3, 3, E) and the biases
+// fp32:
 //   h1  = gelu(x @ w1 + b1)                         rounded to bf16
 //   h2  = gelu(dw3x3_STRIDE(h1) + bd)               zero 'same' padding, fp32 taps, bf16
 //   out = h2 @ w3 + b3, then gelu(x + out) when RESIDUAL
 // The expansion of a pixel outside the image is zero (the reference pads the
 // expanded tensor), not gelu(b1). At stride 2 (even H, W) only the top and
 // left padding is ever read. GELU is the exact erf form.
+//
+// BF16 is the JAX kernels' compute="bf16" (mbconv_fused.py:68-72, :94,
+// :108-114, :126; merge_fused.py:65): the VPU-bound stretch runs in bf16. It
+// rounds to bf16 where they do: x @ w1 + b1 before its GELU; the depthwise
+// bias, weights and every tap's accumulator (packed bf16x2 FMAs, __hfma2, on
+// channel pairs: the CUDA cores' bf16x2 rate is twice their fp32 rate); and
+// with RESIDUAL, x + out before its GELU. Each GELU evaluates the erf in fp32
+// on its bf16-rounded input and rounds its output to bf16 (the JAX kernels
+// evaluate the GELU's arithmetic in bf16 too); the products keep their fp32
+// accumulation, as there.
 //
 // Replaces (yolo_sam_inference_tpu/ops/): mbconv_fused.py:134 mbconv_block
 // (stride 1, with and without the residual: stage 0 and TinyViT's stride-1
@@ -75,6 +86,10 @@ size_t conv_smem_bytes(int c, int e) {
 
 __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
 // C[m, n] = A[m, :k] @ W[:k, n] for m < rows (a multiple of 16), n < n_total
@@ -165,7 +180,7 @@ struct ConvArgs {
   int hgt, wid, c, e, co;
 };
 
-template <int STRIDE, bool RESIDUAL>
+template <int STRIDE, bool RESIDUAL, bool BF16>
 __global__ void __launch_bounds__(THREADS) mbconv_kernel(ConvArgs p) {
   using T = Tile<STRIDE>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -205,25 +220,49 @@ __global__ void __launch_bounds__(THREADS) mbconv_kernel(ConvArgs p) {
   block_gemm(Xs, ldx, T::MIN, p.c, p.w1, p.e, ring, [&](int row, int col, float v0, float v1) {
     int y, x;
     const bool ok = inside(row, y, x);
-    const float a = ok ? gelu(v0 + p.b1[col]) : 0.f, c1 = ok ? gelu(v1 + p.b1[col + 1]) : 0.f;
+    float a = v0 + p.b1[col], c1 = v1 + p.b1[col + 1];
+    if (BF16) {
+      a = round_bf16(a);
+      c1 = round_bf16(c1);
+    }
+    a = ok ? gelu(a) : 0.f;
+    c1 = ok ? gelu(c1) : 0.f;
     *reinterpret_cast<uint32_t*>(Es + row * lde + col) = pack_bf16(a, c1);
   });
 
-  // the depthwise 3x3 (stride STRIDE) in fp32, GELU, into Hs; two channels a thread
+  // the depthwise 3x3 (stride STRIDE) in fp32, or in bf16x2, GELU, into Hs;
+  // two channels a thread
   for (int v = tid; v < T::MOUT * (p.e / 2); v += THREADS) {
     const int o = v / (p.e / 2), ch = (v % (p.e / 2)) * 2;
     const int oy = o / T::TW, ox = o % T::TW;
-    float a0 = p.bd[ch], a1 = p.bd[ch + 1];
+    float a0, a1;
+    if (BF16) {
+      __nv_bfloat162 acc = __floats2bfloat162_rn(p.bd[ch], p.bd[ch + 1]);
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
+      for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(
-            Es + ((oy * STRIDE + dy) * T::IW + ox * STRIDE + dx) * lde + ch);
-        const float* wt = p.wd + (dy * 3 + dx) * p.e + ch;
-        a0 = fmaf(__low2float(hv), wt[0], a0);
-        a1 = fmaf(__high2float(hv), wt[1], a1);
-      }
+        for (int dx = 0; dx < 3; ++dx) {
+          const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(
+              Es + ((oy * STRIDE + dy) * T::IW + ox * STRIDE + dx) * lde + ch);
+          const float* wt = p.wd + (dy * 3 + dx) * p.e + ch;
+          acc = __hfma2(hv, __floats2bfloat162_rn(wt[0], wt[1]), acc);
+        }
+      a0 = __low2float(acc);
+      a1 = __high2float(acc);
+    } else {
+      a0 = p.bd[ch];
+      a1 = p.bd[ch + 1];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(
+              Es + ((oy * STRIDE + dy) * T::IW + ox * STRIDE + dx) * lde + ch);
+          const float* wt = p.wd + (dy * 3 + dx) * p.e + ch;
+          a0 = fmaf(__low2float(hv), wt[0], a0);
+          a1 = fmaf(__high2float(hv), wt[1], a1);
+        }
+    }
     *reinterpret_cast<uint32_t*>(Hs + o * lde + ch) = pack_bf16(gelu(a0), gelu(a1));
   }
   __syncthreads();
@@ -236,8 +275,14 @@ __global__ void __launch_bounds__(THREADS) mbconv_kernel(ConvArgs p) {
     if (RESIDUAL) {  // stride 1, Co == C: x at this pixel is input tile pixel (r + 1, c + 1)
       const int pin = (row / T::TW + 1) * T::IW + row % T::TW + 1;
       const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(Xs + pin * ldx + col);
-      a = gelu(__low2float(xv) + a);
-      c1 = gelu(__high2float(xv) + c1);
+      a = __low2float(xv) + a;
+      c1 = __high2float(xv) + c1;
+      if (BF16) {
+        a = round_bf16(a);
+        c1 = round_bf16(c1);
+      }
+      a = gelu(a);
+      c1 = gelu(c1);
     }
     *reinterpret_cast<uint32_t*>(p.out + (((long)b * ho + oy) * wo + ox) * p.co + col) =
         pack_bf16(a, c1);
@@ -283,21 +328,33 @@ __global__ void __launch_bounds__(256)
   *reinterpret_cast<uint4*>(y + (((long)bb * hgt + yy) * wid + xx) * c + d) = raw;
 }
 
-template <int STRIDE, bool RESIDUAL>
+template <int STRIDE, bool RESIDUAL, bool BF16>
 int launch_conv(const ConvArgs& p, int b, cudaStream_t st) {
   using T = Tile<STRIDE>;
   const int ho = p.hgt / STRIDE, wo = p.wid / STRIDE;
   const long blocks = (long)b * ((ho + T::TH - 1) / T::TH) * ((wo + T::TW - 1) / T::TW);
   // above the opt-in maximum set by ysi_tinyvit_conv_init, the launch is refused and reported
-  mbconv_kernel<STRIDE, RESIDUAL>
+  mbconv_kernel<STRIDE, RESIDUAL, BF16>
       <<<(unsigned)blocks, THREADS, conv_smem_bytes<STRIDE>(p.c, p.e), st>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <int STRIDE, bool RESIDUAL>
 cudaError_t allow_conv_smem(int bytes) {
-  return cudaFuncSetAttribute(mbconv_kernel<STRIDE, RESIDUAL>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t err = cudaFuncSetAttribute(mbconv_kernel<STRIDE, RESIDUAL, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mbconv_kernel<STRIDE, RESIDUAL, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return err;
+}
+
+template <bool BF16>
+int launch_conv_mode(int stride, int residual, const ConvArgs& p, int b, cudaStream_t st) {
+  if (stride == 1 && residual) return launch_conv<1, true, BF16>(p, b, st);
+  if (stride == 1) return launch_conv<1, false, BF16>(p, b, st);
+  if (stride == 2) return launch_conv<2, false, BF16>(p, b, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -315,9 +372,10 @@ extern "C" int ysi_tinyvit_conv_init(void) {
   return (int)err;
 }
 
-extern "C" int ysi_mbconv(int stride, int residual, const void* x, const void* w1, const void* b1,
-                          const void* wd, const void* bd, const void* w3, const void* b3,
-                          void* out, int b, int hgt, int wid, int c, int e, int co, void* stream) {
+extern "C" int ysi_mbconv(int stride, int residual, int bf16, const void* x, const void* w1,
+                          const void* b1, const void* wd, const void* bd, const void* w3,
+                          const void* b3, void* out, int b, int hgt, int wid, int c, int e, int co,
+                          void* stream) {
   if (b <= 0 || hgt <= 0 || wid <= 0 || c % 32 || e % 32 || co % 32 || c <= 0 || e <= 0 || co <= 0)
     return (int)cudaErrorInvalidValue;
   if ((residual && (stride != 1 || co != c)) || (stride == 2 && (hgt % 2 || wid % 2)))
@@ -337,10 +395,8 @@ extern "C" int ysi_mbconv(int stride, int residual, const void* x, const void* w
   p.e = e;
   p.co = co;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stride == 1 && residual) return launch_conv<1, true>(p, b, st);
-  if (stride == 1) return launch_conv<1, false>(p, b, st);
-  if (stride == 2) return launch_conv<2, false>(p, b, st);
-  return (int)cudaErrorInvalidValue;
+  return bf16 ? launch_conv_mode<true>(stride, residual, p, b, st)
+              : launch_conv_mode<false>(stride, residual, p, b, st);
 }
 
 extern "C" int ysi_dw_conv3x3(const void* x, const void* wd, const void* bd, void* y, int b,

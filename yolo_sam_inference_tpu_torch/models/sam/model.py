@@ -10,7 +10,9 @@ Counterpart of ``yolo_sam_inference_tpu/models/sam/model.py``:
   grids the window does not divide, and grids in windows of 14
   (:meth:`SamImageEncoder.grid_route`): windows are zero-padded partitions,
   every attention runs on K12 (:func:`_vision_attention`), and the block
-  tails carry the MLP residual into the next LayerNorm (K11d). Then the
+  tails carry the MLP residual into the next LayerNorm (K11d). With int8
+  weights its qkv, mlp1 and mlp2 run on ``int8_linear`` (JAX
+  ``apply_linear``; the projection stays float). Then the
   neck (1x1 conv, LN, 3x3 conv, LN); with ``conv2d_fused`` its 3x3 runs on
   ``conv2d_act`` (K17), else on ``F.conv2d``.
 * :class:`SamPromptEncoder` encodes box prompts with fp32 Fourier features.
@@ -39,9 +41,8 @@ import torch.nn.functional as F
 from ...ops.conv2d_fused import conv2d_act, conv2d_act_plain
 from ...ops.decoder_fused import i2t_keys_update, t2i_shared_attend
 from ...ops.flash_attention import (
-    flash_attention_relpos,
-    flash_attention_relpos_plain,
-    relpos_score_tables,
+    K12_WINDOW,
+    relpos_grid_attention,
     window_attention,
     window_attention_plain,
 )
@@ -54,6 +55,8 @@ from ...ops.fused_ln import (
     fused_ln_mlp_int8_plain,
     fused_ln_mlp_tiled_int8,
     gemm_plain,
+    int8_linear,
+    int8_linear_plain,
     int8_tail_chunks,
     layer_norm,
     layer_norm_plain,
@@ -85,7 +88,8 @@ class Linear(nn.Module):
 class Int8Linear(nn.Module):
     """A quantised record ``{"wq", "wscale", "b"}``: int8 (in, out) weight,
     fp32 per-column scales (kept fp32 by ``weights.from_jax_params``). The
-    encoder applies it through the w8a8 kernels of :class:`VisionLayer`."""
+    encoder applies it through the w8a8 kernels of :class:`VisionLayer`, or
+    on the flat route through :func:`_project`."""
 
     def __init__(self, p: Params):
         super().__init__()
@@ -185,24 +189,28 @@ def _window_unpartition(win, ws: int, padded: int, orig: int):
     return x.reshape(b, padded, padded, c)[:, :orig, :orig]
 
 
+def _project(lin: nn.Module, x, plain: bool = False, gelu: bool = False):
+    """``x @ w + b`` (then GELU) for a float record on the GEMM kernel, or
+    for an int8 one on ``int8_linear`` (JAX ``apply_linear``, then
+    ``_gelu``)."""
+    if isinstance(lin, Int8Linear):
+        fn = int8_linear_plain if plain else int8_linear
+        return fn(x, lin.wq, lin.wscale, lin.b, gelu=gelu)
+    return linear(x, lin.w, lin.b, **({"gemm": gemm_plain} if plain else {}), gelu=gelu)
+
+
 def _vision_attention(layer: VisionLayer, h, heads: int, plain: bool = False):
     """The flat route's attention (JAX ``_vision_attention``, ``:215-269``)
     on LayerNormed tokens h (B, S, S, C): a whole grid, or a batch of
-    windows. qkv and the projection on the GEMM kernel, the attention over
-    all S x S tokens on K12 with grid side S. -> (B, S, S, C).
+    windows. qkv (float or int8) and the projection (float) on the GEMM
+    kernels, the attention over all S x S tokens on K12 with grid side S.
+    -> (B, S, S, C).
 
     Pad tokens of a partition are zero after LN1, so their qkv is the qkv
     bias: they stay keys, as in the JAX package."""
-    b, s, _, c = h.shape
-    hd = c // heads
-    gemm = {"gemm": gemm_plain} if plain else {}
-    qkv = linear(h, layer.qkv.w, layer.qkv.b, **gemm)
-    t = qkv.reshape(b, s * s, 3, heads, hd).permute(2, 0, 3, 1, 4)  # (3, B, H, N, hd)
-    q, k, v = (t[i].reshape(b * heads, s * s, hd).contiguous() for i in range(3))
-    rh, rw = relpos_score_tables(q, layer.rel_pos_h, layer.rel_pos_w, s)
-    attn = flash_attention_relpos_plain if plain else flash_attention_relpos
-    o = attn(q, k, v, rh, rw, s).reshape(b, heads, s, s, hd).permute(0, 2, 3, 1, 4)
-    return linear(o.reshape(b, s, s, c), layer.proj.w, layer.proj.b, **gemm)
+    o = relpos_grid_attention(_project(layer.qkv, h, plain), layer.rel_pos_h, layer.rel_pos_w,
+                              heads, plain)
+    return _project(layer.proj, o, plain)
 
 
 class SamImageEncoder(nn.Module):
@@ -228,13 +236,13 @@ class SamImageEncoder(nn.Module):
     def grid_route(self) -> bool:
         """The JAX encoder's rule (``model.py:325-330``): the grid route when
         the window divides the grid, else the flat route. One exception, on
-        every device: SAM's native window of 14, which divides the grids of
-        the 224, 448 and 896 canvases but which the window attention kernel
-        does not take (it takes ``KERNEL_WINDOWS``), sends those grids down
-        the flat route, without padding. Both routes compute the same
-        function."""
+        every device: SAM's native window of 14 (``K12_WINDOW``), which
+        divides the grids of the 224, 448 and 896 canvases but which the
+        window attention kernel does not take (it takes ``KERNEL_WINDOWS``),
+        sends those grids down the flat route, without padding. Both routes
+        compute the same function."""
         s, ws = self.cfg.grid_size, self.cfg.window_size
-        return s % ws == 0 and ws != 14
+        return s % ws == 0 and ws != K12_WINDOW
 
     def embed(self, pix: torch.Tensor, row0: int = 0) -> torch.Tensor:
         """Patch embedding + positional embedding of a block of whole patch
@@ -270,16 +278,11 @@ class SamImageEncoder(nn.Module):
         ``x, h = add_ln(ln1, x, pending)`` (the plain LN at layer 0), the
         attention (windowed layers on zero-padded partitions), ``x, h =
         add_ln(ln2, x, h)``, then mlp1 + GELU and mlp2 into ``pending``. The
-        residual LayerNorms are K11d's call sites."""
+        residual LayerNorms are K11d's call sites; qkv, mlp1 and mlp2 take
+        float or int8 weights (:func:`_project`)."""
         cfg = self.cfg
-        if self.layers and self.layers[0].int8:
-            raise ValueError(
-                f"quant='int8' takes the grid route only; grid {cfg.grid_size} with window "
-                f"{cfg.window_size} takes the flat route, whose int8 projections are not "
-                f"ported yet (ROADMAP.md, Queue 1: int8 on the off-grid route)")
         s, ws, heads = cfg.grid_size, cfg.window_size, cfg.vision_heads
         ln = layer_norm_plain if plain else layer_norm
-        gemm = {"gemm": gemm_plain} if plain else {}
         pending = None  # the MLP residual, carried into the next LayerNorm
         for i, layer in enumerate(self.layers):
             l1, l2 = layer.ln1, layer.ln2
@@ -293,8 +296,8 @@ class SamImageEncoder(nn.Module):
                 win, padded = _window_partition(h, ws)
                 h = _window_unpartition(_vision_attention(layer, win, heads, plain), ws, padded, s)
             x, h = ln(x, l2.scale, l2.bias, l2.eps, residual=h)
-            h = linear(h, layer.mlp1.w, layer.mlp1.b, **gemm, gelu=True)
-            pending = linear(h, layer.mlp2.w, layer.mlp2.b, **gemm)
+            h = _project(layer.mlp1, h, plain, gelu=True)
+            pending = _project(layer.mlp2, h, plain)
         return x if pending is None else x + pending
 
 
@@ -499,15 +502,17 @@ class SamMaskDecoder(nn.Module):
 class SamModel(nn.Module):
     """Encoder + prompt encoder + mask decoder, built from one parameter tree.
     A MobileSAM tree (:func:`~.tinyvit.is_tinyvit`) gets the
-    :class:`~.tinyvit.TinyViT` encoder. ``conv2d_fused`` puts the encoder's
-    dense convs on ``conv2d_act`` (K17)."""
+    :class:`~.tinyvit.TinyViT` encoder, with ``tinyvit_mbconv_compute`` as
+    its K14/K15 compute mode. ``conv2d_fused`` puts the encoder's dense convs
+    on ``conv2d_act`` (K17)."""
 
-    def __init__(self, params: Params, cfg: SamTPUConfig, conv2d_fused: bool = False):
+    def __init__(self, params: Params, cfg: SamTPUConfig, conv2d_fused: bool = False,
+                 tinyvit_mbconv_compute: str = "fp32"):
         super().__init__()
         self.cfg = cfg
         if is_tinyvit(params):
             tcfg = TinyViTConfig(image_size=cfg.image_size, output_channels=cfg.output_channels)
-            self.vision = TinyViT(params["tinyvit"], tcfg, conv2d_fused)
+            self.vision = TinyViT(params["tinyvit"], tcfg, conv2d_fused, tinyvit_mbconv_compute)
         else:
             self.vision = SamImageEncoder(params["vision"], cfg, conv2d_fused)
         self.prompt = SamPromptEncoder(params["prompt"], params["shared_pe"], cfg)

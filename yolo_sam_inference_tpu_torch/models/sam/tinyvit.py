@@ -12,6 +12,13 @@ with a distilled TinyViT-5M that gives the same (S/16, S/16, 256) embedding:
   followed by the local depthwise conv + LayerNorm + MLP tail (K16);
 * neck: 1x1 conv (a matmul) -> LayerNorm (K5) -> 3x3 conv -> LayerNorm.
 
+``mbconv_compute="bf16"`` (the JAX ``tinyvit_encoder(mbconv_compute=)``)
+runs K14 and K15 in their bf16 compute mode where the JAX package's fused
+path would take them: at the stage-0 MBConvs and merge2 when the width is a
+multiple of 8, at the stride-2 merges when H >= 128, H is even and W a
+multiple of 16 (JAX ``tinyvit.py:114``, ``:142-145``, ``:156``). Elsewhere
+JAX runs the unfused XLA path, so the port keeps fp32 compute there.
+
 BatchNorm is folded into the convs. Weights keep the JAX tree's layouts:
 1x1 convs as (in, out) matrices, depthwise weights as (3, 3, C), the stems
 and the neck's 3x3 as OIHW for ``F.conv2d``, or as HWIO for ``conv2d_act``
@@ -38,7 +45,7 @@ import torch.nn.functional as F
 from ...ops.conv2d_fused import conv2d_act, conv2d_act_plain
 from ...ops.dw_ln_mlp import dw_conv3x3, dw_conv3x3_plain, dw_ln_mlp
 from ...ops.fused_ln import gemm_plain, layer_norm, layer_norm_plain
-from ...ops.mbconv_fused import mbconv_block, mbconv_plain, patch_merge_block
+from ...ops.mbconv_fused import COMPUTE_MODES, mbconv_block, mbconv_plain, patch_merge_block
 from ...ops.tinyvit_attention import (
     tinyvit_attention,
     tinyvit_attention_plain,
@@ -46,6 +53,10 @@ from ...ops.tinyvit_attention import (
 )
 
 Params = Dict[str, Any]
+
+# The JAX package's default gate of the fused stride-2 merge
+# (``_FUSED_MERGE_MIN_H``): smaller inputs take its unfused path.
+FUSED_MERGE_MIN_H = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,10 +94,12 @@ def _conv_weight(w, fused: bool) -> nn.Parameter:
 
 
 class _ConvBlock(nn.Module):
-    """The 1x1 -> depthwise 3x3 -> 1x1 record of an MBConv or a patch merge."""
+    """The 1x1 -> depthwise 3x3 -> 1x1 record of an MBConv or a patch merge,
+    with the compute mode asked for (used where :meth:`compute` allows it)."""
 
-    def __init__(self, p: Params):
+    def __init__(self, p: Params, compute: str = "fp32"):
         super().__init__()
+        self.mode = compute
         c1, c2, c3 = p["conv1"], p["conv2"], p["conv3"]
         self.w1, self.b1 = _param(np.asarray(c1["w"])[0, 0]), _param(c1["b"])
         e = np.asarray(c2["w"]).shape[-1]
@@ -96,25 +109,35 @@ class _ConvBlock(nn.Module):
     def args(self):
         return self.w1, self.b1, self.wd, self.bd, self.w3, self.b3
 
+    def compute(self, x, stride: int = 1) -> str:
+        """The compute mode at x: the mode asked for where the JAX package's
+        fused-path gate passes, else "fp32"."""
+        if stride == 2:
+            h, w = x.shape[1], x.shape[2]
+            fused = h >= FUSED_MERGE_MIN_H and h % 2 == 0 and w % 16 == 0
+        else:
+            fused = x.shape[2] % 8 == 0
+        return self.mode if fused else "fp32"
+
 
 class MBConv(_ConvBlock):
     def forward(self, x, plain: bool = False):
         if plain:
             return mbconv_plain(x, *self.args(), stride=1, residual=True)
-        return mbconv_block(x, *self.args())
+        return mbconv_block(x, *self.args(), compute=self.compute(x))
 
 
 class PatchMerge(_ConvBlock):
-    def __init__(self, p: Params, stride: int):
-        super().__init__(p)
+    def __init__(self, p: Params, stride: int, compute: str = "fp32"):
+        super().__init__(p, compute)
         self.stride = stride
 
     def forward(self, x, plain: bool = False):
         if plain:
             return mbconv_plain(x, *self.args(), stride=self.stride, residual=False)
         if self.stride == 2:
-            return patch_merge_block(x, *self.args())
-        return mbconv_block(x, *self.args(), residual=False)
+            return patch_merge_block(x, *self.args(), compute=self.compute(x, 2))
+        return mbconv_block(x, *self.args(), residual=False, compute=self.compute(x))
 
 
 class TinyViTBlock(nn.Module):
@@ -149,18 +172,24 @@ class TinyViTBlock(nn.Module):
 
 class TinyViT(nn.Module):
     """``forward(pix)``: (B, S, S, 3) normalised -> (B, S/16, S/16, output_channels).
-    ``conv2d_fused`` puts the two stems and the neck's 3x3 on K17."""
+    ``conv2d_fused`` puts the two stems and the neck's 3x3 on K17;
+    ``mbconv_compute`` ("fp32" or "bf16") is K14's and K15's compute mode
+    at the stage-0 MBConvs and the three merges. ``plain=True`` ignores it."""
 
-    def __init__(self, p: Params, cfg: TinyViTConfig, conv2d_fused: bool = False):
+    def __init__(self, p: Params, cfg: TinyViTConfig, conv2d_fused: bool = False,
+                 mbconv_compute: str = "fp32"):
         super().__init__()
+        if mbconv_compute not in COMPUTE_MODES:
+            raise ValueError(f"mbconv_compute must be one of {COMPUTE_MODES}, got "
+                             f"{mbconv_compute!r}")
         self.cfg, self.conv2d_fused = cfg, conv2d_fused
-        f = conv2d_fused
+        f, mc = conv2d_fused, mbconv_compute
         self.stem1_w, self.stem1_b = _conv_weight(p["stem1"]["w"], f), _param(p["stem1"]["b"])
         self.stem2_w, self.stem2_b = _conv_weight(p["stem2"]["w"], f), _param(p["stem2"]["b"])
-        self.stage0 = nn.ModuleList(MBConv(bp) for bp in p["stage0"])
-        self.merge0 = PatchMerge(p["merge0"], 2)
-        self.merge1 = PatchMerge(p["merge1"], 2)
-        self.merge2 = PatchMerge(p["merge2"], 1)  # stride 1: the grid stays S/16
+        self.stage0 = nn.ModuleList(MBConv(bp, mc) for bp in p["stage0"])
+        self.merge0 = PatchMerge(p["merge0"], 2, mc)
+        self.merge1 = PatchMerge(p["merge1"], 2, mc)
+        self.merge2 = PatchMerge(p["merge2"], 1, mc)  # stride 1: the grid stays S/16
         self.stages = nn.ModuleList(
             nn.ModuleList(TinyViTBlock(bp, cfg.num_heads[si], cfg.window_sizes[si])
                           for bp in p[f"stage{si}"])

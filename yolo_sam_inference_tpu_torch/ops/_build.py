@@ -61,8 +61,8 @@ _SIGNATURES = {
     "ysi_hull_support": (_P, _P, _P, _I, _I, _I, _P),
     # qkv, pad, bias, out, b, h, w, heads, ws, stream
     "ysi_tinyvit_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # stride, residual, x, w1, b1, wd, bd, w3, b3, out, b, h, w, c, e, co, stream
-    "ysi_mbconv": (_I, _I) + (_P,) * 8 + (_I,) * 6 + (_P,),
+    # stride, residual, bf16, x, w1, b1, wd, bd, w3, b3, out, b, h, w, c, e, co, stream
+    "ysi_mbconv": (_I, _I, _I) + (_P,) * 8 + (_I,) * 6 + (_P,),
     # x, wd, bd, y, b, h, w, c, stream
     "ysi_dw_conv3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w, bias, out, b, h, w, ci, xs, co, k, stride, act, stream

@@ -8,7 +8,8 @@ kernels (``csrc/decoder_keys.cu``) carry its two functions on the card:
   its residual add and LayerNorm, the next token-to-image attention's k/v
   projections of the new keys, and that attention's softmax over the pass's
   64-token tile, stored as per-tile partials; ``t2i_combine_kernel`` joins
-  the tiles of each prompt.
+  the tiles of each prompt. T need not be a multiple of 64: the last tile is
+  short.
 * :func:`t2i_shared_attend` (K6): the same pass without the i2t part
   projects decoder layer 0's per-image keys once per image
   (:func:`kv_project`), and ``t2i_attend_kernel`` runs the token-to-image
@@ -101,11 +102,10 @@ def i2t_keys_update_plain(keys_src, img_pe, kq, vq, wq, bq, wout, bout, ln_scale
 # ------------------------------------------------------------------ kernels
 
 
-def _check_geometry(name: str, c: int, dh: int, heads: int, t: int) -> None:
-    if (c, dh, heads) != (KERNEL_C, KERNEL_DH, KERNEL_HEADS) or t % KERNEL_ROWS:
+def _check_geometry(name: str, c: int, dh: int, heads: int) -> None:
+    if (c, dh, heads) != (KERNEL_C, KERNEL_DH, KERNEL_HEADS):
         raise ValueError(f"{name} kernel takes C={KERNEL_C}, dh={KERNEL_DH}, {KERNEL_HEADS} "
-                         f"heads, T % {KERNEL_ROWS} == 0; got C={c}, dh={dh}, heads={heads}, "
-                         f"T={t}")
+                         f"heads; got C={c}, dh={dh}, heads={heads}")
 
 
 def _check_tokens(name: str, tq: int) -> None:
@@ -122,7 +122,7 @@ def _weight(w, shape, dev):
 def keys_stream(keys_src, img_pe, wk, bk, wv, bv, *, k_share: int = 1, i2t=None,
                 qn: Optional[torch.Tensor] = None, eps: float = 1e-6):
     """Launch ``keys_stream_kernel`` on CUDA tensors (bf16, C = 256, dh = 128,
-    8 heads, T a multiple of 64). Without ``i2t`` it returns (kp, vp); with
+    8 heads, any T). Without ``i2t`` it returns (kp, vp); with
     ``i2t`` = (kq, vq, wq, bq, wout, bout, ln_scale, ln_bias) and the next
     queries ``qn`` (N, tq2, dh) already scaled, it returns (keys, partials)
     for :func:`t2i_combine`. :func:`kv_project_plain` and
@@ -133,7 +133,7 @@ def keys_stream(keys_src, img_pe, wk, bk, wv, bv, *, k_share: int = 1, i2t=None,
     nsrc, t, c = keys_src.shape
     n = nsrc * k_share
     dh = wk.shape[1]
-    _check_geometry("keys_stream", c, dh, KERNEL_HEADS, t)
+    _check_geometry("keys_stream", c, dh, KERNEL_HEADS)
     dev = keys_src.device
     pe = img_pe.reshape(t, c)
     _check_bf16("keys_src", keys_src, (nsrc, t, c), dev)
@@ -154,7 +154,7 @@ def keys_stream(keys_src, img_pe, wk, bk, wv, bv, *, k_share: int = 1, i2t=None,
         i2t_args = [kq, vq, _weight(wq, (c, dh), dev), _f32(bq), _weight(wout, (dh, c), dev),
                     _f32(bout), _f32(ln_s), _f32(ln_b)]
         outs["keys"] = torch.empty((n, t, c), dtype=torch.bfloat16, device=dev)
-        outs["part"] = torch.empty((n, t // KERNEL_ROWS, KERNEL_HEADS * KERNEL_TQ_MAX * _PART),
+        outs["part"] = torch.empty((n, -(-t // KERNEL_ROWS), KERNEL_HEADS * KERNEL_TQ_MAX * _PART),
                                    dtype=torch.float32, device=dev)
     err = kernels().ysi_keys_stream(
         _ptr(keys_src), _ptr(pe), *map(_ptr, i2t_args),
@@ -169,6 +169,32 @@ def keys_stream(keys_src, img_pe, wk, bk, wv, bv, *, k_share: int = 1, i2t=None,
 
 
 keys_stream.launches = 0
+
+
+def t2i_tile_partials_plain(qn, kp, vp) -> torch.Tensor:
+    """The per-tile partials :func:`keys_stream` stores for the next
+    attention, in fp32: qn (N, tq2, dh) already scaled, kp and vp (N, T, dh)
+    -> (N, ceil(T / 64), heads * 8 * (16 + 2)). Per 64-token tile, head and
+    query: o = sum e vp, the max m and l = sum e, with e = exp(qn . kp - m)
+    over the tile's tokens below T (the last tile may be short). The slots of
+    absent queries hold zeros (the kernel leaves them unwritten)."""
+    n, tq2, dh = qn.shape
+    t = kp.shape[1]
+    heads, hd = KERNEL_HEADS, dh // KERNEL_HEADS
+    tiles = -(-t // KERNEL_ROWS)
+    part = torch.zeros((n, tiles, heads, KERNEL_TQ_MAX, hd + 2), device=qn.device)
+    q = qn.float().reshape(n, tq2, heads, hd)
+    for i in range(tiles):
+        sl = slice(i * KERNEL_ROWS, min(t, (i + 1) * KERNEL_ROWS))
+        k = kp[:, sl].float().reshape(n, -1, heads, hd)
+        v = vp[:, sl].float().reshape(n, -1, heads, hd)
+        s = torch.einsum("nqhd,nrhd->nhqr", q, k)
+        m = s.amax(-1)
+        e = torch.exp(s - m[..., None])
+        part[:, i, :, :tq2, :hd] = torch.einsum("nhqr,nrhd->nhqd", e, v)
+        part[:, i, :, :tq2, hd] = m
+        part[:, i, :, :tq2, hd + 1] = e.sum(-1)
+    return part.reshape(n, tiles, -1)
 
 
 def t2i_combine_plain(part: torch.Tensor, tq2: int) -> torch.Tensor:
@@ -209,7 +235,7 @@ def t2i_attend(qp, kp, vp, heads: int, k_share: int = 1):
         return t2i_attend_plain(qp, kp, vp, heads, k_share)
     n, tq, dh = qp.shape
     nsrc, t, _ = kp.shape
-    _check_geometry("t2i_attend", KERNEL_C, dh, heads, KERNEL_ROWS)
+    _check_geometry("t2i_attend", KERNEL_C, dh, heads)
     _check_tokens("t2i_attend", tq)
     if nsrc * k_share != n:
         raise ValueError(f"t2i_attend: {n} prompts != {nsrc} sources x k_share {k_share}")
@@ -270,4 +296,5 @@ def i2t_keys_update(keys_src, img_pe, kq, vq, wq, bq, wout, bout, ln_scale, ln_b
 __all__ = [
     "i2t_keys_update", "i2t_keys_update_plain", "keys_stream", "kv_project", "kv_project_plain",
     "t2i_attend", "t2i_attend_plain", "t2i_combine", "t2i_combine_plain", "t2i_shared_attend",
+    "t2i_tile_partials_plain",
 ]

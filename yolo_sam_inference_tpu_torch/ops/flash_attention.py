@@ -28,7 +28,10 @@ score tables ``rh``, ``rw`` ``(BH, NQ, S)`` in fp32 that
 subset of the grid when a sequence-parallel rank holds only some of the
 query rows. On the card it launches ``csrc/flash_attention_relpos.cu``;
 ``flash_attention_relpos.launches`` counts launches and ``.by_nq`` counts
-them per query count.
+them per query count. :func:`relpos_grid_attention` takes the fused qkv
+layout of :func:`window_attention` and runs K12 over each whole grid of the
+batch: the flat route's grids and windows, and a sequence-parallel rank's
+windows of ``K12_WINDOW``.
 """
 
 from __future__ import annotations
@@ -44,6 +47,9 @@ from .fused_ln import _on_cpu
 # (the 512, 768 and 1024 canvases).
 KERNEL_HEAD_DIMS = (64, 80)
 KERNEL_WINDOWS = (16, 32, 48, 64)
+# SAM's native window, which the window attention kernel does not take: on
+# every device, windows of this size run on K12 (:func:`relpos_grid_attention`)
+K12_WINDOW = 14
 # fp32 logits the plain version holds at once (bytes): larger batches run in
 # slices of images (one image at w = 64 and 16 heads is 1 GiB)
 _PLAIN_LOGIT_BYTES = 2 << 30
@@ -210,3 +216,19 @@ def flash_attention_relpos(q, k, v, rh, rw, grid_s: int):
 
 flash_attention_relpos.launches = 0
 flash_attention_relpos.by_nq = {}  # launches per query count NQ
+
+
+def relpos_grid_attention(qkv, rel_h, rel_w, heads: int, plain: bool = False):
+    """(B, S, S, 3C) fused qkv + raw (2S-1, hd) rel-pos tables -> (B, S, S, C):
+    attention over all S x S tokens of each grid of the batch on K12 (a whole
+    token grid, or a batch of windows), with the score tables at grid side S
+    from row 0. ``plain`` takes K12's plain version on any device."""
+    b, s, _, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // heads
+    t = qkv.reshape(b, s * s, 3, heads, hd).permute(2, 0, 3, 1, 4)  # (3, B, H, N, hd)
+    q, k, v = (t[i].reshape(b * heads, s * s, hd).contiguous() for i in range(3))
+    rh, rw = relpos_score_tables(q, rel_h, rel_w, s)
+    attn = flash_attention_relpos_plain if plain else flash_attention_relpos
+    o = attn(q, k, v, rh, rw, s).reshape(b, heads, s, s, hd).permute(0, 2, 3, 1, 4)
+    return o.reshape(b, s, s, c)

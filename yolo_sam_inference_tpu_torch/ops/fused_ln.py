@@ -13,7 +13,9 @@ sources carry these functions on the card:
   :func:`fused_ln_matmul_int8` (K11c), :func:`fused_ln_mlp_int8` (K11a) and
   :func:`fused_ln_mlp_tiled_int8` (K11b): a LayerNorm + row quantisation
   pass, int8 GEMMs with dequantising epilogues, and a per-chunk
-  requantisation of the tail's hidden.
+  requantisation of the tail's hidden; and :func:`int8_linear`, the flat
+  route's w8a8 projections (the JAX package's unfused ``int8_linear``): the
+  quantisation pass without the LayerNorm, then one int8 GEMM.
 * ``layer_norm`` (Triton, below): K5, a row LayerNorm with fp32 statistics
   and an optional residual add, which covers the JAX package's
   ``fused_ln`` (:761) and ``fused_add_ln`` (:56). It is a row reduction plus
@@ -35,6 +37,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import quant
 from ._build import BUILD_ROOT, check, kernels
 from .quant import int_dot, quant_rows
 
@@ -362,7 +365,8 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _ln_quant(x2, h2, scale, bias, eps):
-    """Launch the LN + row quantisation pass: (xq int8 (M, C), xs fp32 (M,))."""
+    """Launch the LN + row quantisation pass: (xq int8 (M, C), xs fp32 (M,)).
+    With ``scale`` and ``bias`` None the rows are quantised as they come."""
     m, c = x2.shape
     xq = torch.empty((m, c), dtype=torch.int8, device=x2.device)
     xs = torch.empty((m,), dtype=torch.float32, device=x2.device)
@@ -380,7 +384,43 @@ def _gemm_int8(mode, a, a_scale, wq, ws, b, out, *, r1=None, r2=None, amax=None,
     return out
 
 
-_QKV, _MLP1, _MLP2 = 0, 1, 2  # the modes of csrc/gemm_int8.cu
+_QKV, _MLP1, _MLP2, _GELU = 0, 1, 2, 3  # the modes of csrc/gemm_int8.cu
+
+
+def int8_linear_plain(x, wq, ws, b, gelu: bool = False):
+    """What :func:`int8_linear` computes: ``ops/quant.py::int8_linear``
+    (result in x's dtype), then the exact-erf GELU in fp32 of that rounded
+    result, as the JAX flat route applies ``_gelu`` after ``apply_linear``."""
+    out = quant.int8_linear(x, wq, ws, b)
+    return F.gelu(out.float()).to(x.dtype) if gelu else out
+
+
+def int8_linear(x, wq, ws, b, gelu: bool = False):
+    """``x @ dequant(wq) + b`` (then GELU) with dynamic per-row int8
+    activations: the flat route's qkv, mlp1 and mlp2. x (..., C) -> (..., O)
+    in x's dtype.
+
+    CPU tensors take :func:`int8_linear_plain`; CUDA tensors launch
+    ``csrc/gemm_int8.cu`` (bf16 x, C a multiple of 16, O of 8): the row
+    quantisation pass without its LayerNorm, then the int8 GEMM with the row
+    and column scales, the bias (and the GELU) in its epilogue."""
+    if _on_cpu(x):
+        return int8_linear_plain(x, wq, ws, b, gelu)
+    lead, c = x.shape[:-1], x.shape[-1]
+    o = wq.shape[1]
+    if c % 16 or o % 8:
+        raise ValueError(f"int8_linear: C={c} must be a multiple of 16, O={o} of 8")
+    x2 = x.reshape(-1, c).contiguous()
+    _check_bf16("x", x2, x2.shape, x2.device)
+    _check_int8("wq", wq, (c, o), x2.device)
+    xq, xs = _ln_quant(x2, None, None, None, 0.0)
+    out = torch.empty((x2.shape[0], o), dtype=torch.bfloat16, device=x2.device)
+    _gemm_int8(_GELU if gelu else _QKV, xq, xs, wq, ws, b, out)
+    int8_linear.launches += 1
+    return out.reshape(*lead, o)
+
+
+int8_linear.launches = 0
 
 
 def fused_ln_matmul_int8(x, scale, bias, wq, ws, b, eps: float = 1e-6, block_rows: int = 256):
@@ -481,5 +521,6 @@ fused_ln_mlp_tiled_int8.launches = 0
 __all__ = [
     "fused_ln_matmul", "fused_ln_matmul_int8", "fused_ln_matmul_int8_plain", "fused_ln_mlp",
     "fused_ln_mlp_int8", "fused_ln_mlp_int8_plain", "fused_ln_mlp_tiled_int8", "gemm_bf16",
-    "gemm_plain", "int8_tail_chunks", "layer_norm", "layer_norm_plain", "linear",
+    "gemm_plain", "int8_linear", "int8_linear_plain", "int8_tail_chunks", "layer_norm",
+    "layer_norm_plain", "linear",
 ]

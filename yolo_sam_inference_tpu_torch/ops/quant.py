@@ -9,10 +9,11 @@ Counterpart of ``yolo_sam_inference_tpu/ops/quant.py``, same scheme:
 * products: int8 x int8 with exact integer accumulation, then
   ``acc * (row_scale * col_scale) + bias`` in fp32.
 
-In the encoder the activation side is fused with its producer: the kernels
-``fused_ln_matmul_int8``, ``fused_ln_mlp_int8`` and ``fused_ln_mlp_tiled_int8``
-in :mod:`.fused_ln`. :func:`int8_linear` is the plain version of the JAX
-package's unfused path, kept as a reference.
+On the grid route the activation side is fused with its producer: the
+kernels ``fused_ln_matmul_int8``, ``fused_ln_mlp_int8`` and
+``fused_ln_mlp_tiled_int8`` in :mod:`.fused_ln`. The flat route takes the
+JAX package's unfused path, whose plain version is :func:`int8_linear` here
+and whose kernel wrapper is ``fused_ln.int8_linear``.
 """
 
 from __future__ import annotations

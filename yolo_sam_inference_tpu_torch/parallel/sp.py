@@ -10,8 +10,11 @@ holding rows ``[r * S/sp, (r + 1) * S/sp)`` of every image:
   from one parameter tree), so nothing is scattered;
 * windowed layers: windows are ``ws``-aligned row blocks, so with
   ``(S/sp) % ws == 0`` every window lies inside one rank. LN1 + qkv (K1),
-  the window attention (K2 + K3, the row block's windows given as a batch of
-  ``ws x ws`` grids), the projection; no communication;
+  the row block's windows as a batch of ``ws x ws`` grids through the window
+  attention (K2 + K3), or, at SAM's native window of 14 which that kernel
+  does not take, through K12 at grid side 14 as the single-card flat route
+  runs its windows (one rule on every device); the projection; no
+  communication;
 * global layers: q stays local; k and v are all-gathered over the group in
   rank (= row) order, and K12 runs on the local q rows with score tables
   built at the rank's absolute first row;
@@ -28,7 +31,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..ops.flash_attention import flash_attention_relpos, relpos_score_tables, window_attention
+from ..ops.flash_attention import (
+    K12_WINDOW,
+    flash_attention_relpos,
+    relpos_grid_attention,
+    relpos_score_tables,
+    window_attention,
+)
 from ..ops.fused_ln import fused_ln_matmul, fused_ln_mlp, linear
 
 
@@ -67,12 +76,16 @@ def _win_unpart_rect(win: torch.Tensor, ws: int, b: int, hh: int, ww: int) -> to
 def _window_attention_local(layer, x, heads: int, ws: int):
     """A windowed layer's attention on a row block x (B, Hl, W, C), before
     LN1: LN1 + qkv, the windows as a batch of ws x ws grids through the
-    window attention, the projection. Every window is local."""
+    window attention (K12 for windows of ``K12_WINDOW``), the projection.
+    Every window is local."""
     b, hl, ww, _ = x.shape
     ln1 = layer.ln1
     qkv = fused_ln_matmul(x, ln1.scale, ln1.bias, layer.qkv.w, layer.qkv.b, eps=ln1.eps)
-    h = window_attention(_win_part_rect(qkv, ws).contiguous(), layer.rel_pos_h, layer.rel_pos_w,
-                         heads, ws)
+    win = _win_part_rect(qkv, ws).contiguous()
+    if ws == K12_WINDOW:
+        h = relpos_grid_attention(win, layer.rel_pos_h, layer.rel_pos_w, heads)
+    else:
+        h = window_attention(win, layer.rel_pos_h, layer.rel_pos_w, heads, ws)
     h = _win_unpart_rect(h, ws, b, hl, ww)
     return linear(h, layer.proj.w, layer.proj.b)
 

@@ -49,6 +49,7 @@ from ..models.sam import (
     sam_vit_l,
 )
 from ..models.yolo import YoloConfig, decode_predictions, init_yolo_params, yolov8n
+from ..ops.mbconv_fused import COMPUTE_MODES
 from ..ops.metrics import INT_METRIC_KEYS, METRIC_KEYS, cell_metrics
 from ..ops.nms import batched_nms
 from ..ops.preprocess import letterbox_batch, sam_preprocess_batch
@@ -102,6 +103,10 @@ class PipelineOptions:
     # stems and neck on conv2d_act (K17; the JAX package's CONV2D_FUSED=1),
     # YOLO's 1x1s as its matmul; False keeps F.conv2d
     conv2d_fused: bool = False
+    # MobileSAM: "bf16" runs the MBConv and merge kernels' GELUs and depthwise
+    # (K14, K15) in bf16 instead of fp32 (ops/mbconv_fused.py), where the
+    # JAX package's fused path would
+    tinyvit_mbconv_compute: str = "fp32"
 
     def encoder_size_for(self, h: int, w: int) -> int:
         if self.sam_encoder_size is not None:
@@ -312,6 +317,9 @@ class CellSegmentationPipeline:
         self.process_group = process_group
         if self.options.quant not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {self.options.quant!r}: one of {QUANT_MODES}")
+        if self.options.tinyvit_mbconv_compute not in COMPUTE_MODES:
+            raise ValueError(f"tinyvit_mbconv_compute must be one of {COMPUTE_MODES}, got "
+                             f"{self.options.tinyvit_mbconv_compute!r}")
         if self.options.encoder_parallel not in ENCODER_PARALLEL:
             raise ValueError(f"encoder_parallel must be one of {ENCODER_PARALLEL}, got "
                              f"{self.options.encoder_parallel!r}")
@@ -371,6 +379,7 @@ class CellSegmentationPipeline:
             yolo, sam = from_jax_params(
                 self.yolo_params, sam_tree, self.device, opts.compute_dtype,
                 yolo_config=ycfg, sam_config=scfg, conv2d_fused=opts.conv2d_fused,
+                tinyvit_mbconv_compute=opts.tinyvit_mbconv_compute,
             )
             self._stage_cache[key] = {
                 "scfg": scfg,

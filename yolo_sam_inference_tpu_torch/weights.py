@@ -35,13 +35,15 @@ def from_jax_params(
     yolo_config: Optional[YoloConfig] = None,
     sam_config: Optional[SamTPUConfig] = None,
     conv2d_fused: bool = False,
+    tinyvit_mbconv_compute: str = "fp32",
 ) -> Tuple[Optional[YoloV8], Optional[SamModel]]:
     """Build (YoloV8, SamModel) on ``device`` with floating weights in ``dtype``
     (cast once here, as the JAX engine casts outside its programs). int8
     weights and their fp32 scales keep their types. Either tree may be None;
     a SAM tree needs its ``sam_config`` (window sizes and heads are not in
     the tree). ``conv2d_fused`` puts the dense convs of both models on
-    ``conv2d_act`` (K17)."""
+    ``conv2d_act`` (K17); ``tinyvit_mbconv_compute`` is a MobileSAM
+    encoder's K14/K15 compute mode."""
     yolo = sam = None
     if yolo_tree is not None:
         yolo = YoloV8(yolo_tree, yolo_config or YoloConfig(), conv2d_fused)
@@ -49,7 +51,8 @@ def from_jax_params(
     if sam_tree is not None:
         if sam_config is None:
             raise ValueError("from_jax_params: a SAM tree needs sam_config")
-        sam = SamModel(sam_tree, sam_config, conv2d_fused).to(device=device)
+        sam = SamModel(sam_tree, sam_config, conv2d_fused, tinyvit_mbconv_compute)
+        sam = sam.to(device=device)
         for name, p in sam.named_parameters():
             if p.is_floating_point() and not name.endswith(".wscale"):
                 p.data = p.data.to(dtype)
