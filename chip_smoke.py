@@ -14,9 +14,12 @@ failure ends the run with a non-zero exit and no result line:
 3. kernels: each hand-written kernel against its plain PyTorch version in
    fp32 (TF32 off) on the same inputs, at the config-1 main path's batch-32
    shapes, with the stated bound; then each kernel's median time beside the
-   plain version's (and beside bf16 torch, for context); the decoder's
-   kernels also at T = 196 and 784 (the grids of the 224 and 448 canvases,
-   whose last 64-token tile is short);
+   plain version's (and beside bf16 torch, for context); ``gemm_bf16``'s
+   bare product (no LN) beside ``torch.addmm`` in turns at the qkv and mlp1
+   shapes, and at a short M of 100 rows; the decoder's kernels also at
+   T = 196 and 784 (the grids of the 224 and 448 canvases, whose last
+   64-token tile is short), ``t2i_attend`` also at T = 4096 (config 4's
+   grid), each T beside SDPA on the same inputs;
 4. slice: the config-1 pipeline (YOLOv8n + SAM ViT-B, 512x512 uint8 frames,
    bf16, random weights from seed 0): one batch of 8 with every kernel's
    launch count checked, the bf16 image embedding of one frame against the
@@ -291,6 +294,24 @@ def _kernel_phase(card: str) -> dict:
                     f"{t_k4[2]:.4f} ms [{card}]")
     for key in ("gemm_bf16", "K4"):
         _say("kernels", f"{key} bound {bounds[key][0]:.4f} ms ({bounds[key][1]})")
+    # the bare product (bias only, no LN pass) beside addmm at the qkv and
+    # mlp1 shapes, in turns: what is left of the LN's cost is K1's time less
+    # this one
+    for label, wb, bb in (("qkv", w_qkv, b_qkv), ("mlp1", w1, b1)):
+        fn = lambda: gemm_bf16(x, wb, bb)
+        lib = lambda: torch.addmm(bb.to(bf), x, wb)
+        _check(f"gemm_bf16 bare {label} (32768x768 @ 768x{wb.shape[1]})", fn(),
+               gemm_plain(xf, wb, bb), 2e-2, errs)
+        t_bare = (median_ms(fn), median_ms(lib), median_ms(lib), median_ms(fn))
+        times[f"gemm_bf16 bare {label}"] = t_bare
+        _say("kernels", f"gemm_bf16 bare {label}: kernel {t_bare[0]:.4f}, {t_bare[3]:.4f} ms, "
+                        f"torch bf16 addmm {t_bare[1]:.4f}, {t_bare[2]:.4f} ms (in turns), "
+                        f"{2.0 * m * c * wb.shape[1] / min(t_bare[0], t_bare[3]) / 1e9:.0f} "
+                        f"TFLOP/s [{card}]")
+    xs = randn(100, c).to(bf)  # a short M: one partial row tile
+    _check("gemm_bf16 short M (100x768 @ 768x2304, ln)",
+           fused_ln_matmul(xs, ln_s, ln_b, w_qkv, b_qkv),
+           fused_ln_matmul(xs.float(), ln_s, ln_b, w_qkv, b_qkv, gemm=gemm_plain), 2e-2, errs)
 
     # window_attn_relpos: K2 + K3 at window 16 (8 layers) and 32 (4 global layers)
     b_att = TIMED_BATCH
@@ -437,10 +458,14 @@ def _decoder_kernel_phase(card: str) -> dict:
     bounds["t2i_attend"] = _bound(4.0 * n * tq * t * dh, _nbytes(qp, kp_, vp_) + _nbytes(qp))
     # one library call on the same inputs: an image's 16 prompts share its
     # keys, so their 16 x 7 (pre-scaled) queries attend as one sequence
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qp.reshape(b, k * tq, 8, 16).transpose(1, 2), kp_.reshape(b, t, 8, 16).transpose(1, 2),
-        vp_.reshape(b, t, 8, 16).transpose(1, 2), scale=1.0)
-    library["t2i_attend"] = median_ms(sdpa)
+    def sdpa_of(kv_k, kv_v):
+        tt = kv_k.shape[1]
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qp.reshape(b, k * tq, 8, 16).transpose(1, 2),
+            kv_k.reshape(b, tt, 8, 16).transpose(1, 2), kv_v.reshape(b, tt, 8, 16).transpose(1, 2),
+            scale=1.0)
+
+    library["t2i_attend"] = median_ms(sdpa_of(kp_, vp_))
     # window_crop: a copy, exact
     grid = randn(n, 32, 32, c)
     r0, c0 = (torch.randint(0, 32 - 11 + 1, (n,), generator=g).to(dev) for _ in range(2))
@@ -500,8 +525,18 @@ def _decoder_kernel_phase(card: str) -> dict:
         _check(f"t2i_attend {tag} shared (k_share 16)", fn(), ref(), 2e-2, errs)
         times[f"t2i_attend {tag}"] = (median_ms(fn), median_ms(ref, reps=5))
         bounds[f"t2i_attend {tag}"] = _bound(4.0 * n * tq * tt * dh, _nbytes(qp, kp_t, vp_t, qp))
+        library[f"t2i_attend {tag}"] = median_ms(sdpa_of(kp_t, vp_t))
         del pe_t, img_t, keys_t, keys1, part, kp_t, vp_t
         torch.cuda.empty_cache()
+    # T 4096: the 64 x 64 grid of config 4's 1024 canvas
+    kp_t, vp_t = randn(b, 4096, dh), randn(b, 4096, dh)
+    fn = lambda: dec.t2i_attend(qp, kp_t, vp_t, 8, k)
+    ref = lambda: dec.t2i_attend_plain(qp.float(), kp_t.float(), vp_t.float(), 8, k)
+    _check("t2i_attend T4096 shared (k_share 16)", fn(), ref(), 2e-2, errs)
+    times["t2i_attend T4096"] = (median_ms(fn), median_ms(ref, reps=5))
+    bounds["t2i_attend T4096"] = _bound(4.0 * n * tq * 4096 * dh, _nbytes(qp, kp_t, vp_t, qp))
+    library["t2i_attend T4096"] = median_ms(sdpa_of(kp_t, vp_t))
+    del kp_t, vp_t
     for name, (ms, plain) in times.items():
         extra = f", bound {bounds[name][0]:.4f} ms ({bounds[name][1]})" if name in bounds else ""
         if name in library:
@@ -1876,6 +1911,13 @@ def main() -> int:
         table.append(entry(f"{name} T784", "cuda", "csrc/decoder_keys.cu", replaces,
                            og["launches 448"][name], dp["errs"][name], dt[f"{name} T784"],
                            db[f"{name} T784"]))
+    # t2i_attend at the other grids: 28 (448 canvas), 14 (224), 64 (config 4)
+    for tag, launches in (("T784", og["launches 448"]), ("T196", og["launches 224"]),
+                          ("T4096", lf["config 4"])):
+        table.append(entry(f"t2i_attend {tag}", "cuda", "csrc/decoder_keys.cu",
+                           "ops/decoder_fused.py:231 t2i_shared_attend", launches["t2i_attend"],
+                           dp["errs"]["t2i_attend"], dt[f"t2i_attend {tag}"],
+                           db[f"t2i_attend {tag}"], dp["library"][f"t2i_attend {tag}"]))
     bt, bb = bk["times"], bk["bounds"]
     lb, hb = big["large"]["launches"], big["huge"]["launches"]
     table += [

@@ -200,14 +200,15 @@ def test_int8_tails_vs_plain(gen, c, hidden, tiled, attn):
 
 
 @pytest.mark.cuda
-def test_fused_ln_matmul_and_mlp_vs_plain(gen):
-    rows = 1000  # not a multiple of the 128-row tile
-    x, h = _randn(gen, rows, 768), _randn(gen, rows, 768)
-    s = 1.0 + _randn(gen, 768, std=0.1, dtype=torch.float32)
-    b = _randn(gen, 768, std=0.1, dtype=torch.float32)
-    wq, bq = _randn(gen, 768, 2304, std=768 ** -0.5), _randn(gen, 2304, dtype=torch.float32)
-    w1, b1 = _randn(gen, 768, 3072, std=768 ** -0.5), _randn(gen, 3072, dtype=torch.float32)
-    w2, b2 = _randn(gen, 3072, 768, std=3072 ** -0.5), _randn(gen, 768, dtype=torch.float32)
+@pytest.mark.parametrize("c", [768, 1024, 1280])  # ViT-B, L, H (K1, K4 / K10)
+def test_fused_ln_matmul_and_mlp_vs_plain(gen, c):
+    rows, hidden = 1000, 4 * c  # rows: not a multiple of the 128-row tile
+    x, h = _randn(gen, rows, c), _randn(gen, rows, c)
+    s = 1.0 + _randn(gen, c, std=0.1, dtype=torch.float32)
+    b = _randn(gen, c, std=0.1, dtype=torch.float32)
+    wq, bq = _randn(gen, c, 3 * c, std=c ** -0.5), _randn(gen, 3 * c, dtype=torch.float32)
+    w1, b1 = _randn(gen, c, hidden, std=c ** -0.5), _randn(gen, hidden, dtype=torch.float32)
+    w2, b2 = _randn(gen, hidden, c, std=hidden ** -0.5), _randn(gen, c, dtype=torch.float32)
     before = tln.gemm_bf16.launches
     _close(tln.fused_ln_matmul(x, s, b, wq, bq),
            tln.fused_ln_matmul(x.float(), s, b, wq, bq, gemm=tln.gemm_plain), 2e-2)
@@ -215,6 +216,38 @@ def test_fused_ln_matmul_and_mlp_vs_plain(gen):
            tln.fused_ln_mlp(x.float(), h.float(), s, b, w1, b1, w2, b2, gemm=tln.gemm_plain),
            2e-2)
     assert tln.gemm_bf16.launches == before + 3
+
+
+_GEMM_MODES = ("bias", "ln", "a2", "ln a2 gelu", "gelu", "r1", "r1 r2")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", _GEMM_MODES)
+@pytest.mark.parametrize("m,k,n", [(3584, 264, 136), (100, 768, 2304), (2048, 64, 192),
+                                   (1024, 160, 640), (512, 320, 960)])
+def test_gemm_bf16_modes_vs_plain(gen, m, k, n, mode):
+    """Every mode of the GEMM at ragged M, N and K (264 and 136: neither a
+    multiple of the 64-wide k-tile nor of the 128-wide n-tile), a short M of
+    100 rows, and TinyViT's widths 64 / 160 / 320 (qkv and MLP)."""
+    a, w = _randn(gen, m, k), _randn(gen, k, n, std=k ** -0.5)
+    bias = _randn(gen, n, std=0.1, dtype=torch.float32)
+    kw = {}
+    if "ln" in mode:
+        kw["ln"] = (1.0 + _randn(gen, k, std=0.1, dtype=torch.float32),
+                    _randn(gen, k, std=0.1, dtype=torch.float32), 1e-6)
+    if "a2" in mode:
+        kw["a2"] = _randn(gen, m, k)
+    if "gelu" in mode:
+        kw["gelu"] = True
+    if "r1" in mode:
+        kw["r1"] = _randn(gen, m, n)
+    if "r2" in mode:
+        kw["r2"] = _randn(gen, m, n)
+    before = tln.gemm_bf16.launches
+    got = tln.gemm_bf16(a, w, bias, **kw)
+    assert tln.gemm_bf16.launches == before + 1
+    ref = {key: (v.float() if isinstance(v, torch.Tensor) else v) for key, v in kw.items()}
+    _close(got, tln.gemm_plain(a.float(), w, bias, **ref), 2e-2)
 
 
 @pytest.mark.cuda
@@ -331,9 +364,13 @@ def test_decoder_kernels_at_short_tiles(gen, gs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k_share", [1, 4])
-def test_t2i_attend_vs_plain(gen, k_share):
-    nsrc, t, tq = 3, 1024, 7
+@pytest.mark.parametrize("t,k_share", [(t, k) for t in (196, 784, 1024, 4096) for k in (1, 16)]
+                         + [(784, 36), (1024, 50)])
+def test_t2i_attend_vs_plain(gen, t, k_share):
+    """T: the grids of 14, 28, 32 and 64 (short last key tile at 196 and
+    784); k_share 1 (7 rows: one warp), 16 (config 1: 112 rows), 36 and 50
+    (252 and 350 rows: four row tiles a warp, the last warp's partly empty)."""
+    nsrc, tq = 3, 7
     qp = _randn(gen, nsrc * k_share, tq, 128, std=0.5)
     kp, vp = _randn(gen, nsrc, t, 128), _randn(gen, nsrc, t, 128)
     before = dec.t2i_attend.launches

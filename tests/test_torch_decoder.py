@@ -76,12 +76,14 @@ def test_i2t_keys_update_matches_jax_kernel(k_share):
     np.testing.assert_allclose(got_attn.numpy(), np.asarray(want_attn), rtol=2e-4, atol=2e-4)
 
 
-def test_t2i_shared_attend_matches_jax_kernel():
-    """K6: per-image k/v projections shared by k_share prompts."""
-    rng = np.random.default_rng(30)
-    b, k_share = 2, 3
+@pytest.mark.parametrize("t,k_share", [(196, 1), (196, 16), (784, 1), (784, 16)])
+def test_t2i_shared_attend_matches_jax_kernel(t, k_share):
+    """K6: per-image k/v projections shared by k_share prompts, over the
+    token counts of the 224 and 448 canvases (grids of 14 and 28)."""
+    rng = np.random.default_rng(30 + t + k_share)
+    b = 2
     w = _weights(rng)
-    keys, pe = _f(rng, b, T, C), _f(rng, 1, T, C)
+    keys, pe = _f(rng, b, t, C), _f(rng, 1, t, C)
     qp = _f(rng, b * k_share, TQ, DH, scale=0.3)
     got = dec.t2i_shared_attend(torch.from_numpy(keys), torch.from_numpy(pe),
                                 torch.from_numpy(qp), *(torch.from_numpy(w[k]) for k in
@@ -92,6 +94,67 @@ def test_t2i_shared_attend_matches_jax_kernel():
                  k_share=k_share, interpret=True)
     # fp32; the TPU kernel computes all heads' logits in one block-diagonal dot
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+def _t2i_attend_as_the_kernel_tiles_it(qp, kp, vp, k_share, keys=64):
+    """``t2i_attend_kernel``'s arithmetic in fp32 on the CPU: per image and
+    head, all k_share * tq query rows against 64-key tiles (the last one
+    short: its missing keys score -inf), an online softmax with running max
+    and sum, e rounded to bf16 before P.V, the output divided by the fp32 sum
+    at the end, in bf16."""
+    n, tq, dh = qp.shape
+    nsrc, t, _ = kp.shape
+    q = qp.float().reshape(nsrc, k_share * tq, 8, 16).transpose(1, 2)  # (img, head, rows, 16)
+    k = kp.float().reshape(nsrc, t, 8, 16).transpose(1, 2)
+    v = vp.float().reshape(nsrc, t, 8, 16).transpose(1, 2)
+    mx = torch.full(q.shape[:3], float("-inf"))
+    sm = torch.zeros(q.shape[:3])
+    o = torch.zeros(q.shape)
+    for k0 in range(0, t, keys):
+        s = torch.full((*q.shape[:3], keys), float("-inf"))
+        s[..., :min(keys, t - k0)] = q @ k[:, :, k0:k0 + keys].transpose(-1, -2)
+        new = torch.maximum(mx, s.amax(-1))
+        corr = torch.exp(mx - new)
+        e = torch.exp(s - new[..., None])
+        sm = sm * corr + e.sum(-1)
+        vt = torch.zeros((*v.shape[:2], keys, 16))
+        vt[:, :, :min(keys, t - k0)] = v[:, :, k0:k0 + keys]
+        o = o * corr[..., None] + e.to(torch.bfloat16).float() @ vt
+        mx = new
+    out = (o / sm[..., None]).transpose(1, 2).reshape(n, tq, dh)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("t,k_share", [(196, 16), (784, 1), (1024, 16)])
+def test_kernel_tiling_of_t2i_attend_stays_within_its_gate(t, k_share):
+    """The online softmax over 64-key tiles, with e rounded to bf16 before
+    P.V (the kernel's order), against JAX's t2i attention, which rounds the
+    normalised p instead (decoder_fused.py:223), run in interpret mode on the
+    same bf16 inputs: within the 2% of range the card's check allows. T 196
+    and 784 end on a short tile."""
+    rng = np.random.default_rng(t + k_share)
+    b, tq = 2, 7
+    keys, pe = _f(rng, b, t, 256), _f(rng, 1, t, 256)
+    wk, wv = _f(rng, 256, 128, scale=256 ** -0.5), _f(rng, 256, 128, scale=256 ** -0.5)
+    bk, bv = _f(rng, 128, scale=0.1), _f(rng, 128, scale=0.1)
+    qp = _f(rng, b * k_share, tq, 128, scale=0.5)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    kp, vp = dec.kv_project_plain(bf(keys), bf(pe), *map(torch.from_numpy, (wk, bk, wv, bv)))
+    got = _t2i_attend_as_the_kernel_tiles_it(bf(qp), kp, vp, k_share)
+    # JAX's kernel on the same bf16 k/v: its keys hold [vp | kp], and its
+    # projections select them exactly (0/1 weights, zero biases and pe)
+    stacked = jnp.asarray(torch.cat([vp, kp], -1).float().numpy(), jnp.bfloat16)
+    sel = np.zeros((2, 256, 128), np.float32)
+    sel[0, 128 + np.arange(128), np.arange(128)] = 1.0  # wk: the kp half
+    sel[1, np.arange(128), np.arange(128)] = 1.0  # wv: the vp half
+    zero = jnp.zeros(128, jnp.float32)
+    want_k = j_t2i(stacked, jnp.zeros((1, t, 256), jnp.bfloat16),
+                   jnp.asarray(bf(qp).float().numpy(), jnp.bfloat16),
+                   jnp.asarray(sel[0], jnp.bfloat16), zero, jnp.asarray(sel[1], jnp.bfloat16),
+                   zero, heads=8, k_share=k_share, interpret=True)
+    want = np.asarray(want_k.astype(jnp.float32))
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 2e-2 * np.abs(want).max(), err
 
 
 def test_decoder_matches_jax_fused_branch(monkeypatch):

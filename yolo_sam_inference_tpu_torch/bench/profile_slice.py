@@ -23,7 +23,7 @@ import argparse
 import time
 
 CATEGORIES = (  # (substring of the kernel name, category); first match wins
-    ("gemm_bf16_kernel", "gemm_bf16"), ("ln_stats_kernel", "gemm_bf16 LN statistics"),
+    ("gemm_bf16_kernel", "gemm_bf16"), ("ln_rows_kernel", "gemm_bf16 LN pass"),
     ("gemm_int8_kernel", "gemm_int8"), ("ln_quant_kernel", "int8 LN + row quantisation"),
     ("quant_chunks_kernel", "int8 hidden requantisation"),
     ("window_attn_relpos_kernel", "window_attn_relpos"),

@@ -27,10 +27,10 @@
 // beyond are zero-filled on load, score -inf in the next attention (so they
 // add nothing to its max, o or l) and store no keys, kp or vp row.
 //
-// t2i_attend_kernel, one (prompt, head) per block: the token-to-image
-// attention of the tq (<= 8) prompt tokens over all T image tokens from
-// stored kp/vp, out = softmax_T(q_h . kp_h) @ vp_h, with q already scaled.
-// Per-image kp/vp with k_share = K serve all K prompts of the image.
+// t2i_attend_kernel, one (image, head) per block: the token-to-image
+// attention of the image's K prompts x tq (<= 8) tokens over all T image
+// tokens from stored kp/vp, out = softmax_T(q_h . kp_h) @ vp_h, with q
+// already scaled; per-image kp/vp with k_share = K serve all K prompts.
 //
 // Replace (yolo_sam_inference_tpu/ops/decoder_fused.py):
 //   * i2t_keys_update (:298): keys_stream_kernel with [i2t] is its one pass
@@ -62,6 +62,14 @@
 // the softmax over its own 64 tokens (max, exponentials, sums and the
 // product with vp on the CUDA cores) and stores those partials, 4.5 KB per
 // tile instead of 64 KB of kp/vp; t2i_combine_kernel rescales and adds them.
+// t2i_attend_kernel is bound by bytes: it must read each image's kp/vp once
+// (16.8 MB at config 1's batch of 32 images, T 1024: 0.0056 ms at 3.35 TB/s)
+// for about 0.5 GFLOP. Its first design ran one block per (prompt, head), so
+// an image's 16 prompts read its kp/vp 16 times, and it took the logits on
+// the CUDA cores through a (tq, T) fp32 buffer in shared memory: it was
+// 0.4688 ms at T 1024 and 0.2198 at T 196 on an H100 80GB HBM3 at 700 W,
+// against 0.0587 for PyTorch's SDPA at T 1024. Its note below says what the
+// present design does about that.
 //
 // Shapes: C = 256 channels, 128 internal channels, 8 heads of 16, tq <= 8,
 // any T - SAM's decoder at every encoder size.
@@ -494,122 +502,185 @@ static_assert(ROWS * LDS * sizeof(float) <= ROWS * LDQ * sizeof(__nv_bfloat16), 
 static_assert(2 * HQ <= TQ_MAX * DH, "the tile's max and sum fit in kqs");
 
 // ----------------------------------------------------------------- t2i attend
+//
+// One block per (image, head[, query block]): the image's k_share * tq query
+// rows (112 at config 1: 16 prompts x 7 tokens), one or more m16 row tiles
+// per warp, against the image's kp/vp head slice, which streams through a
+// cp.async ring of 64-key tiles and is read once for all of them. q.k^T and
+// P.V run on mma.sync m16n8k16 (head dim 16 is one k-step); the softmax is
+// online, its running max and sum in fp32 registers, exp2 in fp32 on
+// log2(e)-scaled logits. The probabilities leave the q.k^T accumulators as
+// the A fragments of P.V without touching shared memory; they are the
+// unnormalised e rounded to bf16, and the output is divided by the fp32 sum
+// at the end (JAX rounds the normalised p to bf16 instead: both are one bf16
+// rounding of a value in [0, 1], within the 2% gate against the fp32 plain
+// version). Keys at T and beyond (the last tile may be short) load as zeros
+// and score -inf; tile 0 always holds key 0, so the running max is finite
+// from the first tile on. Query rows past k_share * tq are zero and are not
+// stored, so k_share = 1 (7 rows) is one warp with 9 idle rows.
 
-constexpr int AT_THREADS = 256;
-constexpr int AT_SLICES = AT_THREADS / HD;  // token slices of the P @ V pass
+constexpr int AT_KEYS = 64;                 // keys per streamed tile
+constexpr int AT_STAGES = 4;                // cp.async ring depth
+constexpr int AT_WARPS = 8;                 // at most; the launch uses what the rows need
+constexpr int AT_STAGE = 2 * AT_KEYS * HD;  // bf16 elements per stage: K, then V
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
-  // all AT_THREADS threads call it; red holds AT_THREADS / 32 floats
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = is_max ? fmaxf(v, u) : v + u;
-  }
-  const int warp = threadIdx.x / 32;
-  __syncthreads();  // red is free (an earlier reduction has been read)
-  if (threadIdx.x % 32 == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < AT_THREADS / 32; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
-  return r;
+// Element offset of (key, 8-channel half) in a K or V tile: 32-byte rows whose
+// two 16-byte halves swap on every other group of 4 keys, so that the 8 rows
+// of each ldmatrix fall on distinct banks.
+__device__ __forceinline__ int at_off(int key, int half) {
+  return key * HD + (half ^ ((key >> 2) & 1)) * 8;
 }
 
-__global__ void __launch_bounds__(AT_THREADS)
+template <int MT>  // m16 row tiles per warp
+__global__ void __launch_bounds__(AT_WARPS * 32)
     t2i_attend_kernel(const __nv_bfloat16* qp, const __nv_bfloat16* kp,
-                      const __nv_bfloat16* vp, __nv_bfloat16* out, int tq, int t, int k_share) {
-  extern __shared__ float S[];  // (tq, t): logits, then probabilities
-  __shared__ float qs[TQ_MAX][HD];
-  __shared__ float red[AT_THREADS / 32];
-  __shared__ float part[AT_SLICES][TQ_MAX][HD];
-  const int tid = threadIdx.x;
-  const int n = blockIdx.x, h = blockIdx.y;
-  const long src = n / k_share;
-  const __nv_bfloat16* kb = kp + src * t * DH + h * HD;
-  const __nv_bfloat16* vb = vp + src * t * DH + h * HD;
+                      const __nv_bfloat16* vp, __nv_bfloat16* out, int rows, int t) {
+  __shared__ __align__(128) __nv_bfloat16 ring[AT_STAGES][AT_STAGE];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tl = lane % 4;
+  const long kv0 = (long)blockIdx.x * t * DH + blockIdx.y * HD;       // image, head
+  const long q0 = (long)blockIdx.x * rows * DH + blockIdx.y * HD;     // k_share * tq rows
+  const int row0 = (blockIdx.z * (blockDim.x / 32) + warp) * MT * 16 + g;  // tile 0, row g
+  const int ntiles = (t + AT_KEYS - 1) / AT_KEYS;
 
-  if (tid < tq * HD) qs[tid / HD][tid % HD] = bf(qp[((long)n * tq + tid / HD) * DH + h * HD + tid % HD]);
-  __syncthreads();
+  auto issue = [&](int kt) {
+    __nv_bfloat16* s = ring[kt % AT_STAGES];
+    const int k0 = kt * AT_KEYS;
+    for (int v = tid; v < 4 * AT_KEYS; v += blockDim.x) {  // K and V, two halves a key
+      const int which = v / (2 * AT_KEYS), key = (v / 2) % AT_KEYS, half = v % 2;
+      const bool in = k0 + key < t;  // keys at T and beyond: zero-filled, nothing read
+      const __nv_bfloat16* src =
+          (which ? vp : kp) + kv0 + (long)(in ? k0 + key : 0) * DH + half * 8;
+      cp_async16(s + which * AT_KEYS * HD + at_off(key, half), src, in);
+    }
+  };
 
-  float mx[TQ_MAX];
+  // this warp's query rows as A fragments (held for the whole pass), and the
+  // online-softmax state of rows g and g + 8 of each row tile
+  uint32_t qa[MT][4];
+  float o[MT][2][4], mx[MT][2], sum[MT][2];
 #pragma unroll
-  for (int j = 0; j < TQ_MAX; ++j) mx[j] = -INFINITY;
-  for (int tok = tid; tok < t; tok += AT_THREADS) {
-    float kv[HD];
-    const uint4 raw0 = *reinterpret_cast<const uint4*>(kb + (long)tok * DH);
-    const uint4 raw1 = *reinterpret_cast<const uint4*>(kb + (long)tok * DH + 8);
-    const uint32_t w[8] = {raw0.x, raw0.y, raw0.z, raw0.w, raw1.x, raw1.y, raw1.z, raw1.w};
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float2 f = unpack2(w[i]);
-      kv[2 * i] = f.x;
-      kv[2 * i + 1] = f.y;
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + mt * 16 + (i & 1) * 8;
+      qa[mt][i] = r < rows ? *reinterpret_cast<const uint32_t*>(qp + q0 + (long)r * DH +
+                                                                 (i >> 1) * 8 + 2 * tl)
+                           : 0u;
     }
 #pragma unroll
-    for (int j = 0; j < TQ_MAX; ++j) {
-      if (j < tq) {
-        float d = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      mx[mt][r] = -INFINITY;
+      sum[mt][r] = 0.f;
+      o[mt][r][0] = o[mt][r][1] = o[mt][r][2] = o[mt][r][3] = 0.f;
+    }
+  }
+
 #pragma unroll
-        for (int c = 0; c < HD; ++c) d = fmaf(qs[j][c], kv[c], d);
-        S[j * t + tok] = d;
-        mx[j] = fmaxf(mx[j], d);
+  for (int s = 0; s < AT_STAGES - 1; ++s) {
+    if (s < ntiles) issue(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait<AT_STAGES - 2>();  // this thread's copies of tile kt have landed
+    __syncthreads();                 // everyone's have; tile kt - 1 is consumed
+    if (kt + AT_STAGES - 1 < ntiles) issue(kt + AT_STAGES - 1);
+    cp_async_commit();
+    const __nv_bfloat16* ks = ring[kt % AT_STAGES];
+    const __nv_bfloat16* vs = ks + AT_KEYS * HD;
+    const int kvalid = t - kt * AT_KEYS;  // keys of this tile below T (>= 1)
+
+    // B fragments: K for the 8 eight-key n-tiles of q.k^T; V (transposed)
+    // for the 4 sixteen-key k-steps x 2 eight-channel n-tiles of P.V
+    uint32_t kf[AT_KEYS / 8][2], vf[AT_KEYS / 16][2][2];
+#pragma unroll
+    for (int jp = 0; jp < AT_KEYS / 16; ++jp) {
+      uint32_t r[4];
+      ldmatrix_x4(r, ks + at_off(16 * jp + (lane >> 4) * 8 + (lane & 7), (lane >> 3) & 1));
+      kf[2 * jp][0] = r[0];
+      kf[2 * jp][1] = r[1];
+      kf[2 * jp + 1][0] = r[2];
+      kf[2 * jp + 1][1] = r[3];
+      ldmatrix_x4_trans(r, vs + at_off(16 * jp + ((lane >> 3) & 1) * 8 + (lane & 7), lane >> 4));
+      vf[jp][0][0] = r[0];
+      vf[jp][0][1] = r[1];
+      vf[jp][1][0] = r[2];
+      vf[jp][1][1] = r[3];
+    }
+
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float s[AT_KEYS / 8][4];
+#pragma unroll
+      for (int j = 0; j < AT_KEYS / 8; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        mma16816(s[j], qa[mt], kf[j][0], kf[j][1]);
+      }
+      float tmax[2] = {mx[mt][0], mx[mt][1]};
+#pragma unroll
+      for (int j = 0; j < AT_KEYS / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = 8 * j + 2 * tl + (e & 1) < kvalid;
+          s[j][e] = in ? s[j][e] * LOG2E : -INFINITY;
+          tmax[e >> 1] = fmaxf(tmax[e >> 1], s[j][e]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+        const float corr = exp2f(mx[mt][r] - tmax[r]);  // 0 on the first tile (mx = -inf)
+        mx[mt][r] = tmax[r];
+        sum[mt][r] *= corr;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          o[mt][n][2 * r] *= corr;
+          o[mt][n][2 * r + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < AT_KEYS / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = exp2f(s[j][e] - tmax[e >> 1]);
+          sum[mt][e >> 1] += s[j][e];
+        }
+      }
+      // P . V: the accumulators of n-tiles 2kk, 2kk + 1 are the A fragment of k-step kk
+#pragma unroll
+      for (int kk = 0; kk < AT_KEYS / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        mma16816(o[mt][0], a, vf[kk][0][0], vf[kk][0][1]);
+        mma16816(o[mt][1], a, vf[kk][1][0], vf[kk][1][1]);
       }
     }
   }
-  float inv[TQ_MAX];
-#pragma unroll
-  for (int j = 0; j < TQ_MAX; ++j) {
-    if (j < tq) {
-      const float m = block_reduce(mx[j], red, true);
-      float sum = 0.f;
-      for (int tok = tid; tok < t; tok += AT_THREADS) {
-        const float e = expf(S[j * t + tok] - m);
-        S[j * t + tok] = e;
-        sum += e;
-      }
-      inv[j] = 1.f / block_reduce(sum, red, false);
-    }
-  }
-  __syncthreads();  // every probability numerator is in S
 
-  // P @ V: lane group d = tid % 16 reads one 32-byte head row per token
-  const int d = tid % HD, slice = tid / HD;
-  float acc[TQ_MAX];
 #pragma unroll
-  for (int j = 0; j < TQ_MAX; ++j) acc[j] = 0.f;
-  for (int tok = slice; tok < t; tok += AT_SLICES) {
-    const float v = bf(vb[(long)tok * DH + d]);
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < TQ_MAX; ++j)
-      if (j < tq) acc[j] = fmaf(round_bf16(S[j * t + tok] * inv[j]), v, acc[j]);
-  }
+    for (int r = 0; r < 2; ++r) {
+      const float inv = 1.f / quad_sum(sum[mt][r]);
+      const int row = row0 + mt * 16 + 8 * r;
+      if (row >= rows) continue;
 #pragma unroll
-  for (int j = 0; j < TQ_MAX; ++j) part[slice][j][d] = acc[j];
-  __syncthreads();
-  if (tid < tq * HD) {
-    const int j = tid / HD, c = tid % HD;
-    float o = 0.f;
-#pragma unroll
-    for (int sl = 0; sl < AT_SLICES; ++sl) o += part[sl][j][c];
-    out[((long)n * tq + j) * DH + h * HD + c] = __float2bfloat16(o);
+      for (int n = 0; n < 2; ++n)
+        *reinterpret_cast<uint32_t*>(out + q0 + (long)row * DH + n * 8 + 2 * tl) =
+            pack_bf16(o[mt][n][2 * r] * inv, o[mt][n][2 * r + 1] * inv);
+    }
   }
 }
 
 }  // namespace
 
 extern "C" int ysi_decoder_init(void) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(keys_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)KEYS_SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(t2i_attend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - (int)(sizeof(float) * (TQ_MAX * HD + AT_THREADS / 32 +
-                                                               AT_SLICES * TQ_MAX * HD)));
-  return (int)err;
+  return (int)cudaFuncSetAttribute(keys_stream_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)KEYS_SMEM);
 }
 
 extern "C" int ysi_keys_stream(const void* keys, const void* pe, const void* kq, const void* vq,
@@ -658,11 +729,22 @@ extern "C" int ysi_t2i_attend(const void* qp, const void* kp, const void* vp, vo
                               int tq, int t, int k_share, void* stream) {
   if (n <= 0 || t <= 0 || tq <= 0 || tq > TQ_MAX || k_share <= 0 || n % k_share)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(n, HEADS);
-  t2i_attend_kernel<<<grid, AT_THREADS, sizeof(float) * tq * t,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qp), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), static_cast<__nv_bfloat16*>(out), tq, t, k_share);
+  // all k_share * tq rows of an image in one block while 8 warps of up to 4
+  // row tiles hold them (k_share <= 73 at tq 7), so its k/v are read once
+  const int rows = k_share * tq;
+  const int mt = rows <= 16 * AT_WARPS ? 1 : 4;
+  const int need = (rows + 16 * mt - 1) / (16 * mt);  // warps the rows need
+  const int warps = need < AT_WARPS ? need : AT_WARPS;
+  const dim3 grid(n / k_share, HEADS, (rows + 16 * mt * warps - 1) / (16 * mt * warps));
+  const auto* q = static_cast<const __nv_bfloat16*>(qp);
+  const auto* k = static_cast<const __nv_bfloat16*>(kp);
+  const auto* v = static_cast<const __nv_bfloat16*>(vp);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mt == 1)
+    t2i_attend_kernel<1><<<grid, warps * 32, 0, st>>>(q, k, v, o, rows, t);
+  else
+    t2i_attend_kernel<4><<<grid, warps * 32, 0, st>>>(q, k, v, o, rows, t);
   return (int)cudaGetLastError();
 }
 

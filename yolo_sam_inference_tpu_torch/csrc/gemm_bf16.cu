@@ -1,5 +1,5 @@
-// Tiled bf16 GEMM for Hopper (sm_90a) with an optional LayerNorm prologue
-// and a bias / exact-erf GELU / residual epilogue.
+// bf16 GEMM for Hopper (sm_90a) on TMA and wgmma, with an optional LayerNorm
+// of its A operand and a bias / exact-erf GELU / residual epilogue.
 //
 //   out[m, n] = epilogue( sum_k A'[m, k] * W[k, n] )
 //   A'        = LN(A (+ A2))   when ln_scale is given, else A (+ A2)
@@ -7,13 +7,15 @@
 //
 // A, A2, R1, R2, out: row-major bf16 (rows, features); W: row-major bf16
 // (K, N), the JAX package's (in, out) layout; bias, ln_scale, ln_bias: fp32;
-// stats: fp32 (M, 2) scratch for the LN row statistics. Every pointer but A,
-// W and out may be null (stats must be given when ln_scale is).
+// scratch: bf16 (M, K), written with A' when ln_scale or A2 is given. Every
+// pointer but A, W and out may be null (scratch must be given with ln_scale
+// or A2).
 //
 // Replaces (yolo_sam_inference_tpu/ops/fused_ln.py):
-//   * fused_ln_matmul (:645)  LN1 + qkv projection: LN prologue + bias;
+//   * fused_ln_matmul (:645)  LN1 + qkv projection: LN + bias;
 //   * fused_ln_mlp (:202)     LN2 over y = x + h + mlp1 + bias + GELU, then a
 //                             second launch mlp2 + bias + residual y = x + h;
+//   * fused_ln_mlp_tiled (:302) the same function at the ViT-L/H widths;
 //   * the output projection fused into flash_attention_grid
 //     (ops/flash_attention.py:608): bias only.
 // The TPU kernels keep the (rows, 3072) MLP hidden in VMEM; here it passes
@@ -21,34 +23,54 @@
 // 200 MB at batch 32). Keeping it on chip is later work.
 //
 // What bounds it on the H100: at the encoder's shapes (M = B*1024 rows,
-// K = 768 or 3072) the products are compute bound (about 500 flop per byte),
-// so the tensor cores are the limit, and the first obstacles to reaching them
-// are the latency of global loads and the cost of feeding the tensor cores
-// from shared memory. This version issues mma.sync (m16n8k16, bf16 in, fp32
-// accumulation) from 128x128x32 block tiles, 8 warps of 64x32, with the
-// fragments loaded by ldmatrix (W transposed on the fly) from padded,
-// conflict-free shared-memory tiles. The A and W tiles stream through a
-// cp.async ring in shared memory, so the next tiles are in flight while one
-// is multiplied. The epilogue stages the bf16 tile in shared memory, so the
-// residual reads and the output stores are 16-byte and coalesced. It does not
-// use wgmma or TMA, so it stays below the card's bf16 rate; those come later.
+// K = 768 to 5120) the products do about 500 flop per byte they must move,
+// so the tensor cores are the limit (989 TFLOP/s dense bf16), and only wgmma
+// reaches their rate. The first design issued mma.sync from a cp.async ring
+// and normalised each A tile in place in shared memory once per block along
+// N (18 times per row at qkv, 24 at mlp1): it was 0.9431 ms for K1 at ViT-B
+// (bf16 torch.addmm of the bare product: 0.2136), 2.3332 for K4 (0.4823),
+// 5.9052 for K10 at ViT-H (1.1698), on an H100 80GB HBM3 at 700 W.
 //
-// LayerNorm: a first launch takes each row's fp32 mean and variance (two
-// passes: mean, then centred variance; one warp per row) into the stats
-// scratch. The GEMM then normalises each A tile in shared memory, in place,
-// after it lands and before the product reads it, so the normalised
-// activations never reach device memory. The pass runs one tile ahead of the
-// product, in the same barrier interval, so the two can overlap. With A2 the same
-// in-place pass forms A + A2 (rounded to bf16 like the stored residual sum of
-// the JAX block tail). Its cost: every block along N repeats the pass for its
-// rows (N / 128 times per row), so the LayerNorm products run well below the
-// plain ones; PERF.md holds the measurement.
+// This design:
+//   * one producer warp keeps a ring of STAGES k-tiles (A 128 x 64, W 64 x
+//     128) in flight with TMA (128-byte swizzle, out-of-bounds rows and
+//     columns zero-filled), each stage guarded by a full and an empty
+//     mbarrier;
+//   * two consumer warpgroups take the block's 128 x 128 tiles in turn
+//     ("ping-pong"): each multiplies a whole tile with two wgmma m64n128k16
+//     per k-step (bf16 in, fp32 accumulation), A K-major and W read as it
+//     lies, N-major (wgmma's transpose flag for B), both straight from the
+//     swizzled tiles, while the other runs its epilogue; a turn barrier
+//     starts one's products only after the other has issued its own;
+//   * the grid is persistent (one block per SM, tiles strided over it), so
+//     the producer loads the next tile while the current one finishes;
+//   * the epilogue adds the bias and applies the GELU on the accumulators,
+//     stages the bf16 tile in shared memory, then adds the residuals and
+//     stores with 16-byte coalesced accesses, rows and columns masked.
+// Two alternatives measured slower at the encoder's shapes on the H100, in
+// turns within one call: a 128 x 256 tile shared by both warpgroups
+// (m64n256k16, the epilogue exposed) by 1.03-1.37x (bench/gemm_shapes.py),
+// and an epilogue stored straight from the registers, which freed the C
+// tiles' shared memory for 6 ring stages, by 1.3-1.95x (it spilled;
+// bench/kernel_turns.py). What still bounds this one:
+// a fixed cost per tile, which the products at K = 768 do not hide (the
+// bare product runs at about 380-400 TFLOP/s there, 500-630 at K = 3072 and
+// 5120); PERF.md holds the numbers.
 //
-// Ragged edges: M, N and K need not be multiples of the tile; out-of-range
-// elements load as zero (cp.async with a zero source size) and are not
-// stored. K and N must be multiples of 8 (16-byte copies); the Python wrapper
-// checks this.
+// LayerNorm: one pass before the product, one warp per row, reads A (+ A2)
+// once from device memory and holds the row in registers (K <= 2048; wider
+// rows are read again from L1), takes the fp32 mean and centred variance and
+// writes A' = LN(A (+ A2)) in bf16 to the scratch, which the product then
+// reads as A. Each element is normalised once, not once per block along N;
+// with A2 the sum is rounded to bf16 before the LN, like the stored residual
+// sum of the JAX block tail. Normalising in the consumers instead (A from
+// registers) could save at most this pass's write and re-read of A'.
+//
+// Ragged edges: M, N and K need not be multiples of the tile (TMA fills
+// zeros, the epilogue masks). K and N must be multiples of 8 (TMA's 16-byte
+// row strides) and the pointers 16-byte aligned; the Python wrapper checks.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,34 +79,24 @@
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
-constexpr int MIN_BLOCKS = 2;                    // two blocks per SM: at most 128 registers
-constexpr int THREADS = 256;                     // 8 warps: 2 along M x 4 along N
-constexpr int WARP_M = 64, WARP_N = 32;
-constexpr int FM = WARP_M / 16, FN = WARP_N / 8;  // m16 x n8 accumulator fragments
-constexpr int LDA = BK + 8;                      // bf16 row strides: 80 B and 272 B rows
-constexpr int LDB = BN + 8;                      // keep ldmatrix conflict-free
-constexpr int LDC = BN + 8;
-constexpr int A_STAGE = BM * LDA;                // elements per stage
-constexpr int B_STAGE = BK * LDB;
-constexpr int A_CHUNKS = BM * BK / 8 / THREADS;  // 16-byte copies per thread per tile
-constexpr int B_CHUNKS = BK * BN / 8 / THREADS;
-static_assert(BM * LDC <= STAGES * (A_STAGE + B_STAGE), "the C tile reuses the A/W ring");
-static_assert(STAGES >= 3, "the LayerNorm pipeline normalises one tile ahead");
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4;
+constexpr int CONSUMERS = 2;                   // warpgroups, alternate tiles
+constexpr int THREADS = CONSUMERS * 128 + 32;  // + one producer warp
+constexpr int BOX = 64;                        // bf16 elements in a 128-byte swizzled row
+constexpr int A_STAGE = BM * BK;               // elements per stage
+constexpr int B_STAGE = BK * BN;               // BN / 64 boxes of 64 k-rows x 64 columns
+constexpr uint32_t STAGE_BYTES = 2 * (A_STAGE + B_STAGE);
+constexpr int LDC = BN + 8;                    // bf16 row stride of the staged C tile
+constexpr size_t SMEM_BYTES = 1024 /* alignment slack */ + 2 * STAGES * (A_STAGE + B_STAGE) +
+                              2 * CONSUMERS * BM * LDC + (2 * STAGES + 2) * sizeof(uint64_t);
+static_assert(BK == BOX && BN % BOX == 0, "one swizzle atom across K for A, BN / 64 for W");
 
-struct Args {
-  const __nv_bfloat16* a;
-  const __nv_bfloat16* a2;
-  const __nv_bfloat16* w;
+struct Epilogue {
   const float* bias;
-  const float* ln_scale;
-  const float* ln_bias;
-  const float* stats;
   const __nv_bfloat16* r1;
   const __nv_bfloat16* r2;
   __nv_bfloat16* out;
-  int m, n, k;
-  int gelu;
+  int m, n, gelu;
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -124,287 +136,436 @@ __device__ __forceinline__ void load_a8(const __nv_bfloat16* a, const __nv_bfloa
   }
 }
 
-// One warp per row: fp32 mean and 1/sqrt(var + eps) of A (+ A2).
+// Eight values of A' at column c of the row: the LN of v, or v itself.
+__device__ __forceinline__ void store_a8(__nv_bfloat16* out, long base, int c, float v[8],
+                                         const float* ln_scale, const float* ln_bias, float mean,
+                                         float rstd) {
+  if (ln_scale) {
+    const float4 g0 = *reinterpret_cast<const float4*>(ln_scale + c);
+    const float4 g1 = *reinterpret_cast<const float4*>(ln_scale + c + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(ln_bias + c);
+    const float4 b1 = *reinterpret_cast<const float4*>(ln_bias + c + 4);
+    const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = fmaf((v[e] - mean) * rstd, gv[e], bv[e]);
+  }
+  *reinterpret_cast<uint4*>(out + base + c) = pack8(v);
+}
+
+// One warp per row: A' = LN(A (+ A2)) with fp32 mean and centred variance,
+// or A + A2 without ln_scale, into out (bf16, the product's A). With CH > 0
+// the row waits in registers (CH 8-element chunks a lane: K <= 256 CH), so it
+// is read once; with CH = 0 (wider rows) the statistics read it again, from L1.
+template <int CH>
 __global__ void __launch_bounds__(256)
-    ln_stats_kernel(const __nv_bfloat16* a, const __nv_bfloat16* a2, float* stats, int m, int k,
-                    float eps) {
+    ln_rows_kernel(const __nv_bfloat16* a, const __nv_bfloat16* a2, const float* ln_scale,
+                   const float* ln_bias, __nv_bfloat16* out, int m, int k, float eps) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= m) return;
   const long base = (long)row * k;
-  float s = 0.f;
-  for (int c = lane * 8; c < k; c += 256) {
-    float v[8];
-    load_a8(a, a2, base + c, v);
+  float mean = 0.f, rstd = 1.f;
+  if constexpr (CH > 0) {
+    float x[CH][8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s += v[i];
-  }
-  const float mean = warp_sum(s) / k;
-  float q = 0.f;
-  for (int c = lane * 8; c < k; c += 256) {
-    float v[8];
-    load_a8(a, a2, base + c, v);
+    for (int i = 0; i < CH; ++i)
+      if ((i * 32 + lane) * 8 < k) load_a8(a, a2, base + (i * 32 + lane) * 8, x[i]);
+    if (ln_scale) {
+      float s = 0.f, q = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) q += (v[i] - mean) * (v[i] - mean);
-  }
-  q = warp_sum(q);
-  if (lane == 0) {
-    stats[2 * row] = mean;
-    stats[2 * row + 1] = rsqrtf(q / k + eps);
+      for (int i = 0; i < CH; ++i)
+        if ((i * 32 + lane) * 8 < k) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s += x[i][e];
+        }
+      mean = warp_sum(s) / k;
+#pragma unroll
+      for (int i = 0; i < CH; ++i)
+        if ((i * 32 + lane) * 8 < k) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) q += (x[i][e] - mean) * (x[i][e] - mean);
+        }
+      rstd = rsqrtf(warp_sum(q) / k + eps);
+    }
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+      if ((i * 32 + lane) * 8 < k)
+        store_a8(out, base, (i * 32 + lane) * 8, x[i], ln_scale, ln_bias, mean, rstd);
+  } else {
+    if (ln_scale) {
+      float s = 0.f;
+      for (int c = lane * 8; c < k; c += 256) {
+        float v[8];
+        load_a8(a, a2, base + c, v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += v[e];
+      }
+      mean = warp_sum(s) / k;
+      float q = 0.f;
+      for (int c = lane * 8; c < k; c += 256) {
+        float v[8];
+        load_a8(a, a2, base + c, v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) q += (v[e] - mean) * (v[e] - mean);
+      }
+      rstd = rsqrtf(warp_sum(q) / k + eps);
+    }
+    for (int c = lane * 8; c < k; c += 256) {
+      float v[8];
+      load_a8(a, a2, base + c, v);
+      store_a8(out, base, c, v, ln_scale, ln_bias, mean, rstd);
+    }
   }
 }
 
-size_t gemm_smem_bytes(bool a2, bool ln, int k) {
-  return sizeof(__nv_bfloat16) * STAGES * ((a2 ? 2 : 1) * A_STAGE + B_STAGE) +
-         (ln ? sizeof(float) * 2 * k : 0);
+// ------------------------------------------------------ TMA, mbarrier, wgmma
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Fragment layouts: mma_frag.cuh.
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) gemm_bf16_kernel(Args p) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of the given parity. A
+// phase that never completes (a fault in the pipeline) traps after about ten
+// seconds, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  do {
+    if (clock64() - start > 20000000000LL) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 innermost, c1) of the tensor map into shared memory,
+// reported to bar as transaction bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across a wgmma
+// fence or wait.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, fp32) += A (64 x 16, K-major) * B (16 x 128, N-major), both
+// from 128-byte-swizzled shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33,"
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Tensor maps in kernel parameter space (__grid_constant__), as TMA needs.
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_w, Epilogue p, int k) {
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that boundary
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Bs = As + STAGES * A_STAGE;
-  __nv_bfloat16* A2s = Bs + STAGES * B_STAGE;  // only when p.a2
-  float* gam = reinterpret_cast<float*>(A2s + (p.a2 ? STAGES * A_STAGE : 0));  // only when LN
-  float* bet = gam + p.k;
-  __nv_bfloat16* Cs = As;  // the output tile, after the main loop
-  __shared__ float row_mean[BM];
-  __shared__ float row_rstd[BM];
+  __nv_bfloat16* Cs = Bs + STAGES * B_STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Cs + CONSUMERS * BM * LDC);
+  uint64_t* empty = full + STAGES;
+  uint64_t* turn = empty + STAGES;  // turn[w]: the other warpgroup has issued its products
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const bool ln = p.ln_scale != nullptr;
-  const bool transform = ln || p.a2 != nullptr;
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int tiles = (p.m + BM - 1) / BM * tiles_n;
+  const int nk = (k + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
 
-  if (ln) {
-    for (int r = tid; r < BM; r += THREADS) {
-      const int row = m0 + r;
-      row_mean[r] = row < p.m ? p.stats[2 * row] : 0.f;
-      row_rstd[r] = row < p.m ? p.stats[2 * row + 1] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);                 // the producer's arrive + the TMA bytes
+      mbar_init(&empty[s], 4);                // one arrive per warp of its consumer
     }
-    for (int c = tid; c < p.k; c += THREADS) {
-      gam[c] = p.ln_scale[c];
-      bet[c] = p.ln_bias[c];
-    }
-  }  // made visible by the first barrier of the main loop
-
-  auto issue = [&](int kt) {
-    const int stage = kt % STAGES, k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      const int v = tid + i * THREADS;
-      const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
-      const bool ok = m0 + r < p.m && k0 + c < p.k;
-      const long off = ok ? (long)(m0 + r) * p.k + k0 + c : 0;
-      cp_async16(As + stage * A_STAGE + r * LDA + c, p.a + off, ok);
-      if (p.a2) cp_async16(A2s + stage * A_STAGE + r * LDA + c, p.a2 + off, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < B_CHUNKS; ++i) {
-      const int v = tid + i * THREADS;
-      const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-      const bool ok = k0 + r < p.k && n0 + c < p.n;
-      const long off = ok ? (long)(k0 + r) * p.n + n0 + c : 0;
-      cp_async16(Bs + stage * B_STAGE + r * LDB + c, p.w + off, ok);
-    }
-  };
-
-  float acc[FM][FN][4];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int wm = (warp / 4) * WARP_M, wn = (warp % 4) * WARP_N;
-  const int nk = (p.k + BK - 1) / BK;
-
-  // A (+ A2), LayerNorm, in place in shared memory, for tile kt
-  auto transform_tile = [&](int kt) {
-    const int stage = kt % STAGES;
-#pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      const int v = tid + i * THREADS;
-      const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
-      const int col0 = kt * BK + c;
-      uint4* cell = reinterpret_cast<uint4*>(As + stage * A_STAGE + r * LDA + c);
-      float x[8];
-      unpack8(*cell, x);
-      if (p.a2) {
-        float y[8];
-        unpack8(*reinterpret_cast<const uint4*>(A2s + stage * A_STAGE + r * LDA + c), y);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) x[j] = round_bf16(x[j] + y[j]);
-      }
-      if (ln && col0 < p.k) {  // K % 8 == 0: the whole chunk is in range
-        const float4 g0 = *reinterpret_cast<const float4*>(gam + col0);
-        const float4 g1 = *reinterpret_cast<const float4*>(gam + col0 + 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(bet + col0);
-        const float4 b1 = *reinterpret_cast<const float4*>(bet + col0 + 4);
-        const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-        const float mean = row_mean[r], rstd = row_rstd[r];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) x[j] = fmaf((x[j] - mean) * rstd, gv[j], bv[j]);
-      }
-      *cell = pack8(x);
-    }
-  };
-
-  auto mma_tile = [&](int kt) {
-    const int stage = kt % STAGES;
-    const __nv_bfloat16* at = As + stage * A_STAGE;
-    const __nv_bfloat16* bt = Bs + stage * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[FM][4], bf[FN][2];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        ldmatrix_x4(af[i], at + (wm + i * 16 + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int jp = 0; jp < FN / 2; ++jp) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bt + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + wn + jp * 16 +
-                                 (lane >> 4) * 8);
-        bf[2 * jp][0] = r[0];
-        bf[2 * jp][1] = r[1];
-        bf[2 * jp + 1][0] = r[2];
-        bf[2 * jp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) mma16816(acc[i][j], af[i], bf[j][0], bf[j][1]);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) issue(s);
-    cp_async_commit();
-  }
-  if (!transform) {
-    for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt have landed
-      __syncthreads();              // everyone's have; tile kt - 1 is fully consumed
-      if (kt + STAGES - 1 < nk) issue(kt + STAGES - 1);
-      cp_async_commit();
-      mma_tile(kt);
-    }
-  } else {
-    // Tile kt + 1 is normalised in the same barrier interval as tile kt is
-    // multiplied, so the pass overlaps the tensor-core work; one barrier per
-    // tile, as without the prologue.
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    transform_tile(0);
-    for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait<STAGES - 3>();  // tile kt + 1 has landed (this thread's copies)
-      __syncthreads();              // everyone's; tile kt is normalised; kt - 1 is consumed
-      if (kt + STAGES - 1 < nk) issue(kt + STAGES - 1);
-      cp_async_commit();
-      if (kt + 1 < nk) transform_tile(kt + 1);
-      mma_tile(kt);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: it holds the C tile from here on
-
-  // bias and GELU in registers, the bf16 result into the C tile
-#pragma unroll
-  for (int j = 0; j < FN; ++j) {
-    const int cl = wn + j * 8 + 2 * t;
-    const bool in = n0 + cl < p.n;  // N % 8 == 0: cl + 1 is in range too
-    const float b0 = p.bias && in ? p.bias[n0 + cl] : 0.f;
-    const float b1 = p.bias && in ? p.bias[n0 + cl + 1] : 0.f;
-#pragma unroll
-    for (int i = 0; i < FM; ++i) {
-      float v[4] = {acc[i][j][0] + b0, acc[i][j][1] + b1, acc[i][j][2] + b0, acc[i][j][3] + b1};
-      if (p.gelu) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = 0.5f * v[e] * (1.f + erff(v[e] * 0.70710678118654752f));
-      }
-      __nv_bfloat16* c = Cs + (wm + i * 16 + g) * LDC + cl;
-      *reinterpret_cast<uint32_t*>(c) = pack_bf16(v[0], v[1]);
-      *reinterpret_cast<uint32_t*>(c + 8 * LDC) = pack_bf16(v[2], v[3]);
-    }
+    mbar_init(&turn[0], 128);
+    mbar_init(&turn[1], 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // residual and store, 16 bytes per thread, rows contiguous across threads
-  for (int v = tid; v < BM * BN / 8; v += THREADS) {
-    const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-    const int row = m0 + r, col = n0 + c;
-    if (row >= p.m || col >= p.n) continue;
-    const long idx = (long)row * p.n + col;
-    uint4 raw = *reinterpret_cast<const uint4*>(Cs + r * LDC + c);
-    if (p.r1) {
-      float y[8], x[8];
-      unpack8(*reinterpret_cast<const uint4*>(p.r1 + idx), y);
-      if (p.r2) {
-        float y2[8];
-        unpack8(*reinterpret_cast<const uint4*>(p.r2 + idx), y2);
+  if (wg == CONSUMERS) {
+    // ---- producer warp: one thread issues every copy
+    if (threadIdx.x % 32 == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);  // the consumers have released it
+          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          tma_load(As + stage * A_STAGE, &map_a, &full[stage], kt * BK, m0);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) y[e] = round_bf16(y[e] + y2[e]);
+          for (int j = 0; j < BN / BOX; ++j)
+            tma_load(Bs + stage * B_STAGE + j * BK * BOX, &map_w, &full[stage], n0 + j * BOX,
+                     kt * BK);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
-      unpack8(raw, x);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] += y[e];
-      raw = pack8(x);
     }
-    *reinterpret_cast<uint4*>(p.out + idx) = raw;
+    return;
   }
+
+  // ---- consumer warpgroups: warpgroup w takes this block's tiles w, w + 2,
+  // ... whole, and the two take turns on the tensor cores: one's epilogue
+  // runs under the other's products. A warpgroup starts a tile's products
+  // only after the other has issued all of its own (turn[]), so it never
+  // waits on a ring slot more than one barrier phase ahead: the parity
+  // waits cannot alias.
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tl = lane % 4;
+  __nv_bfloat16* cw = Cs + wg * BM * LDC;  // this warpgroup's C tile
+  float acc[2][64];                        // rows 0-63 and 64-127 of the tile
+  int local = 0;                           // this block's tiles so far
+  uint32_t turns = 0;                      // handovers this warpgroup has waited for
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++local) {
+    if (local % CONSUMERS != wg) continue;
+    const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+    if (local > 0) mbar_wait(&turn[wg], turns++ & 1);
+    int prev = -1;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int slot = local * nk + kt;  // the ring's k-tile count: stage and phase
+      const int stage = slot % STAGES;
+      mbar_wait(&full[stage], (slot / STAGES) & 1);
+      const __nv_bfloat16* at = As + stage * A_STAGE;
+      const __nv_bfloat16* bt = Bs + stage * B_STAGE;
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < BK / 16; ++s) {
+        // A: 8-row groups 1024 bytes apart, k-step s 32 bytes into the
+        // swizzled row; W: 8-row groups 1024 bytes apart, 64-column boxes
+        // BK * 128 bytes apart, k-step s 16 rows down
+        const uint64_t db = smem_desc(bt + s * 16 * BOX, BK * BOX * 2, 1024);
+        wgmma_m64n128k16(acc[0], smem_desc(at + s * 16, 16, 1024), db);
+        wgmma_m64n128k16(acc[1], smem_desc(at + 64 * BK + s * 16, 16, 1024), db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous k-tile's products are done: release its stage
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+    }
+    mbar_arrive(&turn[wg ^ 1]);  // every thread: the other warpgroup's turn
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // bias and GELU on the accumulators (rows 64 h + 16 warp + g, + 8;
+    // columns 8 j + 2 tl, + 1), the bf16 result into the C tile
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = h * 64 + warp * 16 + g;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int cl = j * 8 + 2 * tl;
+        const bool in = n0 + cl < p.n;  // N % 8 == 0: cl + 1 is in range too
+        const float b0 = p.bias && in ? __ldg(p.bias + n0 + cl) : 0.f;
+        const float b1 = p.bias && in ? __ldg(p.bias + n0 + cl + 1) : 0.f;
+        float v[4] = {acc[h][4 * j] + b0, acc[h][4 * j + 1] + b1, acc[h][4 * j + 2] + b0,
+                      acc[h][4 * j + 3] + b1};
+        if (p.gelu) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[e] = 0.5f * v[e] * (1.f + erff(v[e] * 0.70710678118654752f));
+        }
+        *reinterpret_cast<uint32_t*>(cw + rl * LDC + cl) = pack_bf16(v[0], v[1]);
+        *reinterpret_cast<uint32_t*>(cw + (rl + 8) * LDC + cl) = pack_bf16(v[2], v[3]);
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the C tile is written
+
+    // residual and store, 16 bytes per thread, rows contiguous across threads
+    for (int v = tid; v < BM * BN / 8; v += 128) {
+      const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
+      const int row = m0 + r, col = n0 + c;
+      if (row >= p.m || col >= p.n) continue;
+      const long idx = (long)row * p.n + col;
+      uint4 raw = *reinterpret_cast<const uint4*>(cw + r * LDC + c);
+      if (p.r1) {
+        float y[8], x[8];
+        unpack8(*reinterpret_cast<const uint4*>(p.r1 + idx), y);
+        if (p.r2) {
+          float y2[8];
+          unpack8(*reinterpret_cast<const uint4*>(p.r2 + idx), y2);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) y[e] = round_bf16(y[e] + y2[e]);
+        }
+        unpack8(raw, x);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[e] += y[e];
+        raw = pack8(x);
+      }
+      *reinterpret_cast<uint4*>(p.out + idx) = raw;
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the C tile is free
+  }
+}
+
+
+// ------------------------------------------------------------------ host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled = nullptr;
+int num_sms = 0;
+
+// A tensor map of a row-major bf16 (rows, cols) matrix, boxes of box_rows x
+// 64 columns (128 bytes, swizzled), zeros outside the matrix.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {(cuuint32_t)BOX, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+                                  dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Called once, when the library is loaded: lets the kernel take up to the
-// card's opt-in shared memory per block (its ring is above the 48 KB default;
-// the LayerNorm parameters add 8 bytes per K column).
+// Called once, when the library is loaded: the CUDA driver API's tensor-map encoder
+// (through the runtime, so the library links no libcuda), the SM count for
+// the persistent grid, and the kernel's shared memory above the 48 KB default.
 extern "C" int ysi_gemm_init(void) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                            &found);
+#endif
+  if (err == cudaSuccess && (found != cudaDriverEntryPointSuccess || fn == nullptr))
+    err = cudaErrorNotSupported;
+  encode_tiled = reinterpret_cast<EncodeTiled>(fn);
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - (int)(2 * BM * sizeof(float)));  // less the static row stats
+                               (int)SMEM_BYTES);
   return (int)err;
 }
 
 extern "C" int ysi_gemm_bf16(const void* a, const void* a2, const void* w, const void* bias,
-                             const void* ln_scale, const void* ln_bias, void* stats,
+                             const void* ln_scale, const void* ln_bias, void* scratch,
                              const void* r1, const void* r2, void* out, int m, int n, int k,
                              float eps, int gelu, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || n % 8 || k % 8) return (int)cudaErrorInvalidValue;
   const bool ln = ln_scale != nullptr;
-  if (ln && (ln_bias == nullptr || stats == nullptr)) return (int)cudaErrorInvalidValue;
+  if (ln && ln_bias == nullptr) return (int)cudaErrorInvalidValue;
+  if ((ln || a2) && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* a16 = static_cast<const __nv_bfloat16*>(a);
-  const __nv_bfloat16* a216 = static_cast<const __nv_bfloat16*>(a2);
-  if (ln) {
-    ln_stats_kernel<<<(m + 7) / 8, 256, 0, st>>>(a16, a216, static_cast<float*>(stats), m, k, eps);
-    cudaError_t err = cudaGetLastError();
+  const void* a_in = a;
+  if (ln || a2) {
+    const auto* a16 = static_cast<const __nv_bfloat16*>(a);
+    const auto* a216 = static_cast<const __nv_bfloat16*>(a2);
+    const auto* g = static_cast<const float*>(ln_scale);
+    const auto* b = static_cast<const float*>(ln_bias);
+    auto* o = static_cast<__nv_bfloat16*>(scratch);
+    const int blocks = (m + 7) / 8;  // a warp per row
+    if (k <= 256)
+      ln_rows_kernel<1><<<blocks, 256, 0, st>>>(a16, a216, g, b, o, m, k, eps);
+    else if (k <= 512)
+      ln_rows_kernel<2><<<blocks, 256, 0, st>>>(a16, a216, g, b, o, m, k, eps);
+    else if (k <= 1024)
+      ln_rows_kernel<4><<<blocks, 256, 0, st>>>(a16, a216, g, b, o, m, k, eps);
+    else if (k <= 2048)
+      ln_rows_kernel<8><<<blocks, 256, 0, st>>>(a16, a216, g, b, o, m, k, eps);
+    else
+      ln_rows_kernel<0><<<blocks, 256, 0, st>>>(a16, a216, g, b, o, m, k, eps);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    a_in = scratch;
   }
-  Args p;
-  p.a = a16;
-  p.a2 = a216;
-  p.w = static_cast<const __nv_bfloat16*>(w);
+  CUtensorMap map_a, map_w;
+  cudaError_t err = make_map(&map_a, a_in, m, k, BM);
+  if (err == cudaSuccess) err = make_map(&map_w, w, k, n, BK);
+  if (err != cudaSuccess) return (int)err;
+  Epilogue p;
   p.bias = static_cast<const float*>(bias);
-  p.ln_scale = static_cast<const float*>(ln_scale);
-  p.ln_bias = static_cast<const float*>(ln_bias);
-  p.stats = static_cast<const float*>(stats);
   p.r1 = static_cast<const __nv_bfloat16*>(r1);
   p.r2 = static_cast<const __nv_bfloat16*>(r2);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.m = m;
   p.n = n;
-  p.k = k;
   p.gelu = gelu;
-  // above the opt-in maximum set by ysi_gemm_init, the launch is refused and reported
-  const size_t bytes = gemm_smem_bytes(a2 != nullptr, ln, k);
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  gemm_bf16_kernel<<<grid, THREADS, bytes, st>>>(p);
+  const int tiles = (m + BM - 1) / BM * ((n + BN - 1) / BN);
+  gemm_bf16_kernel<<<tiles < num_sms ? tiles : num_sms, THREADS, SMEM_BYTES, st>>>(map_a, map_w,
+                                                                                    p, k);
   return (int)cudaGetLastError();
 }

@@ -36,7 +36,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: (argtypes). Each returns cudaGetLastError() as an int.
 _SIGNATURES = {
-    # a, a2, w, bias, ln_scale, ln_bias, stats, r1, r2, out, m, n, k, eps, gelu, stream
+    # a, a2, w, bias, ln_scale, ln_bias, scratch, r1, r2, out, m, n, k, eps, gelu, stream
     "ysi_gemm_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # qkv, rel_h, rel_w, out, b, s, heads, hd, window, stream
     "ysi_window_attn_relpos": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -4,8 +4,9 @@ K10, K11a-c).
 Counterpart of ``yolo_sam_inference_tpu/ops/fused_ln.py``. Three kernel
 sources carry these functions on the card:
 
-* ``gemm_bf16`` (``csrc/gemm_bf16.cu``): a bf16 GEMM with an optional
-  LayerNorm prologue and a bias / GELU / residual epilogue. It carries
+* ``gemm_bf16`` (``csrc/gemm_bf16.cu``): a bf16 GEMM on TMA and wgmma, after
+  an optional LayerNorm pass over its A operand, with a bias / GELU /
+  residual epilogue. It carries
   :func:`fused_ln_matmul` (K1: LN1 + qkv), :func:`fused_ln_mlp` (K4 and
   K10: the block tail, two launches) and the attention output projection.
   Its source note says what bounds it and what the design does about it.
@@ -143,11 +144,13 @@ def gemm_bf16(a, w, bias=None, a2=None, ln=None, gelu=False, r1=None, r2=None):
     bias32 = _f32(bias)
     scale32, shift32 = (_f32(ln[0]), _f32(ln[1])) if ln is not None else (None, None)
     eps = float(ln[2]) if ln is not None else 0.0
-    # per-row LN statistics (mean, rstd), written by the kernel's first launch
-    stats = torch.empty((m, 2), dtype=torch.float32, device=dev) if ln is not None else None
+    # LN(a (+ a2)) or a + a2 in bf16: written by the kernel's first launch,
+    # the product's A operand
+    pre = ln is not None or a2 is not None
+    scratch = torch.empty((m, k), dtype=torch.bfloat16, device=dev) if pre else None
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     err = kernels().ysi_gemm_bf16(
-        _ptr(a), _ptr(a2), _ptr(w), _ptr(bias32), _ptr(scale32), _ptr(shift32), _ptr(stats),
+        _ptr(a), _ptr(a2), _ptr(w), _ptr(bias32), _ptr(scale32), _ptr(shift32), _ptr(scratch),
         _ptr(r1), _ptr(r2), _ptr(out), m, n, k, eps, int(bool(gelu)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
