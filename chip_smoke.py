@@ -14,7 +14,9 @@ failure ends the run with a non-zero exit and no result line:
 3. kernels: each hand-written kernel against its plain PyTorch version in
    fp32 (TF32 off) on the same inputs, at the config-1 main path's batch-32
    shapes, with the stated bound; then each kernel's median time beside the
-   plain version's (and beside bf16 torch, for context); ``gemm_bf16``'s
+   plain version's (and beside bf16 torch, for context; the window attention
+   beside ``scaled_dot_product_attention`` with the rel-pos bias as a bf16
+   mask made beforehand, here and at every timed window); ``gemm_bf16``'s
    bare product (no LN) beside ``torch.addmm`` in turns at the qkv and mlp1
    shapes, and at a short M of 100 rows; the decoder's kernels also at
    T = 196 and 784 (the grids of the 224 and 448 canvases, whose last
@@ -28,8 +30,9 @@ failure ends the run with a non-zero exit and no result line:
 4b. K17: ``conv2d_act`` at its seven batch-32 shapes of the paths (the YOLO
    stem, a C2f bottleneck on a channel slice, a detect tower, down5, the SAM
    neck without bias, TinyViT's stem1 with GELU, the s2d k = 2 exit) against
-   its fp32 plain version, timed beside it, the bound and ``F.conv2d`` on
-   channels-last bf16; then config 1 with ``PipelineOptions(conv2d_fused=
+   its fp32 plain version, timed beside it (and its device time from
+   ``torch.profiler``), the bound and ``F.conv2d`` on channels-last bf16;
+   then config 1 with ``PipelineOptions(conv2d_fused=
    True)`` on the same parameters and frames: launch counts at batch 8 (39
    YOLO convs + the neck), the raw YOLO maps of one frame and the embedding
    against fp32 plain versions (the default route's YOLO maps too), a timed
@@ -55,7 +58,9 @@ failure ends the run with a non-zero exit and no result line:
 9. MobileSAM kernels: K13-K16 (``tinyvit_attention`` with its two
    ``gemm_bf16`` launches, ``mbconv_block``, ``patch_merge_block``,
    ``dw_conv3x3`` and its tail) at TinyViT-5M's batch-32 shapes against fp32
-   plain versions; K14 and K15 with ``compute="bf16"`` at stage 0 and merge0
+   plain versions (the depthwise as one pass writing y and LN(y): y within
+   2% of range, LN(y) within 1% of the plain LayerNorm of its own y; then y
+   alone beside ``F.conv2d(groups=C)``); K14 and K15 with ``compute="bf16"`` at stage 0 and merge0
    against their bf16-compute plain versions and, within the JAX package's
    bound for the mode, fp32 plain, timed in turns with the fp32
    instantiation;
@@ -219,6 +224,51 @@ def _check_int8(name: str, got, ref, results: dict) -> float:
     return err
 
 
+def _relpos_sdpa_ms(label: str, qkv, rel_h, rel_w, heads: int, window: int, got, card: str,
+                    cap: int = 8 << 30) -> float:
+    """K3's library yardstick: ``scaled_dot_product_attention`` over the
+    windows of ``qkv`` with the decomposed rel-pos bias (from the unscaled q)
+    built beforehand, not timed, as a bf16 (windows, heads, T, T) mask, as
+    for K12. Where the mask of the whole batch passes ``cap`` bytes, it is
+    timed on the first images and scaled to the batch. Its output on those
+    images is held against ``got``, the kernel's, within 5% of range: a
+    sanity check that it computes the same function (both sides bf16), not
+    a gate of the port. Returns the ms for the whole batch."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+
+    b, s, _, c3 = qkv.shape
+    c, w = c3 // 3, window
+    hd, nw, t = c // heads, s // window, window * window
+    n = max(1, min(b, cap // (nw * nw * heads * t * t * 2)))
+
+    def windows(part):  # (n nw nw, heads, T, hd)
+        x = qkv[:n, ..., part * c:(part + 1) * c].reshape(n, nw, w, nw, w, heads, hd)
+        return x.permute(0, 1, 3, 5, 2, 4, 6).reshape(-1, heads, t, hd).contiguous()
+
+    q, k, v = windows(0), windows(1), windows(2)
+    idx = (torch.arange(w)[:, None] - torch.arange(w)[None, :] + w - 1).to(qkv.device)
+    rh_tab, rw_tab = rel_h.float()[idx], rel_w.float()[idx]
+    mask = torch.empty((q.shape[0], heads, t, t), dtype=torch.bfloat16, device=qkv.device)
+    for j in range(q.shape[0]):  # a window at a time, in fp32
+        qf = q[j].float().reshape(heads, w, w, hd)
+        rh = torch.einsum("hyxd,ykd->hyxk", qf, rh_tab)
+        rw = torch.einsum("hyxd,xkd->hyxk", qf, rw_tab)
+        mask[j] = (rh[..., :, None] + rw[..., None, :]).reshape(heads, t, t)
+    fn = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    o = fn().reshape(n, nw, nw, heads, w, w, hd).permute(0, 1, 4, 2, 5, 3, 6).reshape(n, s, s, c)
+    _check(f"sdpa yardstick of window_attn_relpos {label} (vs the kernel)", o, got[:n], 5e-2, {})
+    ms = median_ms(fn) * b / n
+    _say("kernels", f"window_attn_relpos {label}: SDPA with a bf16 mask of "
+                    f"{_nbytes(mask) / 2 ** 30:.2f} GiB, timed on {n} of {b} images"
+                    f"{'' if n == b else ', scaled to the batch'}: {ms:.4f} ms [{card}]")
+    del q, k, v, mask, o
+    torch.cuda.empty_cache()
+    return ms
+
+
 def _kernel_phase(card: str) -> dict:
     import torch
 
@@ -315,6 +365,7 @@ def _kernel_phase(card: str) -> dict:
 
     # window_attn_relpos: K2 + K3 at window 16 (8 layers) and 32 (4 global layers)
     b_att = TIMED_BATCH
+    k3_library: dict = {}
     for window, std_qk, label in ((16, 1.0, "w16"), (32, 1.0, "w32"),
                                   (16, 3.2, "w16 |s|~30"), (32, 3.2, "w32 |s|~30")):
         qkv = randn(b_att, 32, 32, 3 * c).to(bf)
@@ -328,10 +379,13 @@ def _kernel_phase(card: str) -> dict:
             kk = qkv[..., c:2 * c].float().reshape(b_att, 32, 32, heads, 64)
             s_max = (q[:, :window, :window] * 0.125 * kk[:, :1, :1]).sum(-1).abs().max().item()
             _say("kernels", f"attention {label}: sampled max |q.k/8| = {s_max:.1f}")
-        _check(f"window_attn_relpos {label} ({b_att}x32x32x2304)", fn(),
+        got = fn()
+        _check(f"window_attn_relpos {label} ({b_att}x32x32x2304)", got,
                window_attention_plain(qkv.float(), rel_h, rel_w, heads, window), 2e-2, errs)
         if std_qk == 1.0:
             times[f"attn_{label}"] = (median_ms(fn), median_ms(fnp, reps=5))
+            k3_library[f"attn_{label}"] = _relpos_sdpa_ms(label, qkv, rel_h, rel_w, heads,
+                                                          window, got, card)
             bounds[f"attn_{label}"] = _bound(
                 _attn_flops(b_att * (32 // window) ** 2, heads, window * window, 64,
                             2 * window - 1),
@@ -367,7 +421,7 @@ def _kernel_phase(card: str) -> dict:
                             f"{times['layer_norm'][2]:.4f} ms [{card}]")
     torch.cuda.synchronize()
     return {"errs": errs, "times": times, "t_k4": t_k4, "bounds": bounds,
-            "library": {"layer_norm": times["layer_norm"][2]}}
+            "library": {"layer_norm": times["layer_norm"][2], **k3_library}}
 
 
 def _decoder_kernel_phase(card: str) -> dict:
@@ -632,6 +686,7 @@ def _big_kernel_phase(card: str) -> dict:
     # window_attn_relpos at hd 80 (ViT-H: 16 heads of 80): windows 16 and 32,
     # and with |q.k / sqrt(80)| ~ 30
     c, heads, hd = 1280, 16, 80
+    library: dict = {}
     for window, std_qk, label in ((16, 1.0, "hd80 w16"), (32, 1.0, "hd80 w32"),
                                   (16, 2.8, "hd80 w16 |s|~30"), (32, 2.8, "hd80 w32 |s|~30")):
         qkv = randn(TIMED_BATCH, 32, 32, 3 * c).to(bf)
@@ -644,10 +699,13 @@ def _big_kernel_phase(card: str) -> dict:
             kk = qkv[..., c:2 * c].float().reshape(TIMED_BATCH, 32, 32, heads, hd)
             s_max = (q[:, :window, :window] * hd ** -0.5 * kk[:, :1, :1]).sum(-1).abs().max().item()
             _say("kernels", f"attention {label}: sampled max |q.k/sqrt(80)| = {s_max:.1f}")
-        _check(f"window_attn_relpos {label} ({TIMED_BATCH}x32x32x{3 * c})", fn(),
+        got = fn()
+        _check(f"window_attn_relpos {label} ({TIMED_BATCH}x32x32x{3 * c})", got,
                window_attention_plain(qkv.float(), rel_h, rel_w, heads, window), 2e-2, errs)
         if std_qk == 1.0:
             times[f"attn {label}"] = (median_ms(fn), median_ms(fnp, reps=5))
+            library[f"attn {label}"] = _relpos_sdpa_ms(label, qkv, rel_h, rel_w, heads, window,
+                                                       got, card)
             bounds[f"attn {label}"] = _bound(
                 _attn_flops(TIMED_BATCH * (32 // window) ** 2, heads, window * window, hd,
                             2 * window - 1),
@@ -656,9 +714,9 @@ def _big_kernel_phase(card: str) -> dict:
                             f"ms, plain {times[f'attn {label}'][1]:.4f} ms, bound "
                             f"{bounds[f'attn {label}'][0]:.4f} ms ({bounds[f'attn {label}'][1]}) "
                             f"[{card}]")
-        del qkv
+        del qkv, got
     torch.cuda.synchronize()
-    return {"errs": errs, "times": times, "bounds": bounds}
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
 
 
 def _large_kernel_phase(card: str) -> dict:
@@ -679,6 +737,7 @@ def _large_kernel_phase(card: str) -> dict:
     errs: dict = {}
     times: dict = {}
     bounds: dict = {}
+    library: dict = {}
     for window, hd in ((48, 64), (48, 80), (64, 64), (64, 80)):
         heads = 12 if hd == 64 else 16
         c = heads * hd
@@ -688,9 +747,12 @@ def _large_kernel_phase(card: str) -> dict:
         label = f"w{window} hd{hd}"
         fn = lambda: window_attention(qkv, rel_h, rel_w, heads, window)
         fnp = lambda: window_attention_plain(qkv, rel_h, rel_w, heads, window)
-        _check(f"window_attn_relpos {label} ({TIMED_BATCH}x{window}x{window}x{3 * c})", fn(),
+        got = fn()
+        _check(f"window_attn_relpos {label} ({TIMED_BATCH}x{window}x{window}x{3 * c})", got,
                window_attention_plain(qkv.float(), rel_h, rel_w, heads, window), 2e-2, errs)
         times[label] = (median_ms(fn), median_ms(fnp, reps=3, warmup=1))
+        library[label] = _relpos_sdpa_ms(label, qkv, rel_h, rel_w, heads, window, got, card)
+        del got
         bounds[label] = _bound(_attn_flops(TIMED_BATCH, heads, window * window, hd, 2 * window - 1),
                                _nbytes(qkv, rel_h, rel_w) + qkv.numel() // 3 * 2)
         _say("kernels", f"window_attn_relpos {label}: kernel {times[label][0]:.4f} ms, plain "
@@ -706,7 +768,7 @@ def _large_kernel_phase(card: str) -> dict:
         del qkv, q, kk
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    return {"errs": errs, "times": times, "bounds": bounds}
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
 
 
 def _relpos_kernel_phase(card: str) -> dict:
@@ -1042,14 +1104,16 @@ def _mobile_kernel_phase(card: str) -> dict:
     plain versions: the window attention (and its block: two gemm_bf16
     launches around it) at the three stages, MBConv at stage 0 and merge2,
     the stride-2 merges merge0 and merge1, the depthwise and the block tail
-    at the three stages. Beside each kernel's time, the plain version's and,
+    at the three stages (the depthwise as the tail calls it: one pass that
+    writes y and LN(y)). Beside each kernel's time, the plain version's and,
     where one PyTorch call computes the same function, that call's:
     scaled_dot_product_attention with the bias as a float mask (on windows
-    gathered beforehand) and F.conv2d(groups=C) for the depthwise."""
+    gathered beforehand) and F.conv2d(groups=C) for the depthwise alone; and
+    the depthwise's device time from torch.profiler."""
     import torch
     import torch.nn.functional as F
 
-    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.bench.common import device_ms, median_ms
     from yolo_sam_inference_tpu_torch.ops import dw_ln_mlp as tdw
     from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
     from yolo_sam_inference_tpu_torch.ops import mbconv_fused as tmb
@@ -1067,8 +1131,13 @@ def _mobile_kernel_phase(card: str) -> dict:
     bounds: dict = {}
     library: dict = {}
 
+    device: dict = {}  # key -> the kernel's device time (torch.profiler), ms
+
     def report(key):
         lib = f", library {library[key]:.4f} ms" if key in library else ""
+        dev_ms = device.get(key, "absent")
+        lib += ("" if dev_ms == "absent" else ", device time "
+                + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms"))
         _say("kernels", f"{key}: kernel {times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms, "
                         f"bound {bounds[key][0]:.4f} ms ({bounds[key][1]}){lib} [{card}]")
 
@@ -1121,17 +1190,38 @@ def _mobile_kernel_phase(card: str) -> dict:
         w2, b2 = randn(4 * c, c, std=(4 * c) ** -0.5), randn(c, std=0.1, dtype=torch.float32)
         s2, sb2 = 1.0 + randn(c, std=0.1, dtype=torch.float32), randn(c, std=0.1,
                                                                       dtype=torch.float32)
+        # the one-pass kernel as the tail calls it: y and LN(y); y within 2% of
+        # range of the fp32 plain depthwise, LN(y) within 1% of range of the
+        # plain LayerNorm of the kernel's own y
+        ln = (s2, sb2, 1e-5)
+        fn = lambda: tdw.dw_conv3x3(x, wd, bd, ln=ln)
+        fnp = lambda: tdw.dw_conv3x3_plain(x, wd, bd, ln=ln)
+        key = f"dw_conv3x3 stage{si}"
+        y, ln_y = fn()
+        _check(f"dw_conv3x3 stage {si} y ({b}x{gs}x{gs}x{c})", y,
+               tdw.dw_conv3x3_plain(x.float(), wd, bd), 2e-2, errs)
+        _check(f"dw_conv3x3 stage {si} LN(y)", ln_y,
+               tln.layer_norm_plain(y.float(), s2, sb2, 1e-5), 1e-2, errs)
+        times[key] = (median_ms(fn), median_ms(fnp))
+        bounds[key] = _bound(18.0 * x.numel() + 8.0 * x.numel(),
+                             3 * _nbytes(x) + _nbytes(wd, bd, s2, sb2), "fp32")
+        device[key] = device_ms(fn, "dw3x3")
+        report(key)
+        # the same kernel without ln (y alone) beside F.conv2d(groups=C), which
+        # computes that function
         fn = lambda: tdw.dw_conv3x3(x, wd, bd)
         fnp = lambda: tdw.dw_conv3x3_plain(x, wd, bd)
-        key = f"dw_conv3x3 stage{si}"
-        _check(f"dw_conv3x3 stage {si} ({b}x{gs}x{gs}x{c})", fn(),
-               tdw.dw_conv3x3_plain(x.float(), wd, bd), 2e-2, errs)
+        key = f"dw_conv3x3 y only stage{si}"
+        _check(f"dw_conv3x3 y only stage {si}", fn(), tdw.dw_conv3x3_plain(x.float(), wd, bd),
+               2e-2, errs)
         times[key] = (median_ms(fn), median_ms(fnp))
         bounds[key] = _bound(18.0 * x.numel(), 2 * _nbytes(x) + _nbytes(wd, bd), "fp32")
+        device[key] = device_ms(fn, "dw3x3")
         xc = x.permute(0, 3, 1, 2)  # a channels-last view of the same tensor
         kc, bc = wd.permute(2, 0, 1)[:, None].contiguous(), bd.to(bf)
         library[key] = median_ms(lambda: F.conv2d(xc, kc, bc, padding=1, groups=c))
         report(key)
+        del y, ln_y
         tail = (wd, bd, s2, sb2, w1, b1, w2, b2)
         fn = lambda: tdw.dw_ln_mlp(x, *tail)
         fnp = lambda: tdw.dw_ln_mlp(x, *tail, gemm=tln.gemm_plain, dw=tdw.dw_conv3x3_plain)
@@ -1208,29 +1298,18 @@ def _mobile_kernel_phase(card: str) -> dict:
     return {"errs": errs, "times": times, "bounds": bounds, "library": library}
 
 
-# K17's shapes at batch 32: (name, (H, W, Ci), Co, k, stride, act, bias, channel slice)
-CONV_SHAPES = (
-    ("yolo stem", (512, 512, 3), 16, 3, 2, "silu", True, False),
-    ("c2f3 bottleneck", (64, 64, 32), 32, 3, 1, "silu", True, True),
-    ("detect box1 level 0", (64, 64, 64), 64, 3, 1, "silu", True, False),
-    ("down5", (32, 32, 128), 256, 3, 2, "silu", True, False),
-    ("sam neck", (32, 32, 256), 256, 3, 1, "none", False, False),
-    ("tinyvit stem1", (512, 512, 3), 32, 3, 2, "gelu", True, False),
-    ("s2d down4 exit k2", (32, 32, 256), 128, 2, 1, "silu", True, False),
-)
-
-
 def _conv_kernel_phase(card: str) -> dict:
     """K17 (``conv2d_act``) at its batch-32 shapes against its fp32 plain
-    version, within 2% of the output range; beside its time, the plain
-    version's, the bound and the library call: ``F.conv2d`` with its bias on
+    version, within 2% of the output range; beside its time (and its device
+    time from torch.profiler), the plain version's, the bound and the library
+    call: ``F.conv2d`` with its bias on
     channels-last bf16 (the activation left apart, as ``addmm`` for K1;
     for k = 2 with padding 1, whose first H x W outputs are K17's). The C2f
     bottleneck's input is a channel slice (pixel stride 64), as on the path."""
     import torch
     import torch.nn.functional as F
 
-    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.bench.common import CONV_SHAPES, device_ms, median_ms
     from yolo_sam_inference_tpu_torch.ops import conv2d_fused as tcv
 
     dev, bf = torch.device("cuda"), torch.bfloat16
@@ -1244,6 +1323,7 @@ def _conv_kernel_phase(card: str) -> dict:
     times: dict = {}
     bounds: dict = {}
     library: dict = {}
+    device: dict = {}  # the kernel's device time (torch.profiler), ms
     for key, (h, w, ci), co, k, stride, act, has_bias, sliced in CONV_SHAPES:
         x = randn(b, h, w, 2 * ci)[..., ci:] if sliced else randn(b, h, w, ci)
         wt = randn(k, k, ci, co, std=(k * k * ci) ** -0.5)
@@ -1260,13 +1340,15 @@ def _conv_kernel_phase(card: str) -> dict:
         wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         bc = None if bias is None else bias.to(bf)
         library[key] = median_ms(lambda: F.conv2d(xc, wc, bc, stride, 1))
-        _say("kernels", f"conv2d_act {key}: kernel {times[key][0]:.4f} ms, plain "
-                        f"{times[key][1]:.4f} ms, bound {bounds[key][0]:.4f} ms "
+        device[key] = device_ms(fn, "conv2d_act")
+        dev_ms = "not measured" if device[key] is None else f"{device[key]:.4f} ms"
+        _say("kernels", f"conv2d_act {key}: kernel {times[key][0]:.4f} ms (device time "
+                        f"{dev_ms}), plain {times[key][1]:.4f} ms, bound {bounds[key][0]:.4f} ms "
                         f"({bounds[key][1]}), F.conv2d bf16 {library[key]:.4f} ms [{card}]")
         del x, wt, out, xc, wc
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library, "device": device}
 
 
 def _slice_phase(card: str) -> dict:
@@ -1885,7 +1967,7 @@ def main() -> int:
               t["gemm_bf16"], kb["gemm_bf16"]),
         entry("window_attn_relpos", "cuda", attn_src, attn_tpu,
               sp["launches"]["window_attn_relpos"], kp["errs"]["window_attn_relpos"],
-              t["attn_w16"], kb["attn_w16"]),
+              t["attn_w16"], kb["attn_w16"], kp["library"]["attn_w16"]),
         entry("layer_norm", "triton", "ops/fused_ln.py",
               "ops/fused_ln.py:761 fused_ln (+ :56 fused_add_ln)", sp["launches"]["layer_norm"],
               kp["errs"]["layer_norm"], t["layer_norm"], kb["layer_norm"],
@@ -1926,7 +2008,8 @@ def main() -> int:
               bk["errs"]["gemm_bf16"], bt["K10 ViT-H"], bb["K10 ViT-H"]),
         entry("window_attn_relpos hd80", "cuda", attn_src, attn_tpu,
               hb["bf16"]["window_attn_relpos"] + hb["int8"]["window_attn_relpos"],
-              bk["errs"]["window_attn_relpos"], bt["attn hd80 w16"], bb["attn hd80 w16"]),
+              bk["errs"]["window_attn_relpos"], bt["attn hd80 w16"], bb["attn hd80 w16"],
+              bk["library"]["attn hd80 w16"]),
         entry("fused_ln_matmul_int8", "cuda", "csrc/gemm_int8.cu",
               "ops/fused_ln.py:711 fused_ln_matmul_int8",
               lb["int8"]["fused_ln_matmul_int8"] + hb["int8"]["fused_ln_matmul_int8"],
@@ -1940,10 +2023,10 @@ def main() -> int:
               bt["K11b ViT-H"], bb["K11b ViT-H"]),
         entry("window_attn_relpos w48", "cuda", attn_src, attn_tpu,
               lf["vit-b 768"]["window_attn_relpos"], lk["errs"]["window_attn_relpos"],
-              lk["times"]["w48 hd64"], lk["bounds"]["w48 hd64"]),
+              lk["times"]["w48 hd64"], lk["bounds"]["w48 hd64"], lk["library"]["w48 hd64"]),
         entry("window_attn_relpos w64", "cuda", attn_src, attn_tpu,
               lf["config 4"]["window_attn_relpos"], lk["errs"]["window_attn_relpos"],
-              lk["times"]["w64 hd80"], lk["bounds"]["w64 hd80"]),
+              lk["times"]["w64 hd80"], lk["bounds"]["w64 hd80"], lk["library"]["w64 hd80"]),
     ]
     mt, mb, ml, mla = mk["times"], mk["bounds"], mk["library"], ms["launches"]
     table += [
@@ -1959,9 +2042,13 @@ def main() -> int:
               "ops/merge_fused.py:125 patch_merge_block", mla["patch_merge_block"],
               mk["errs"]["patch_merge"], mt["patch_merge merge0"], mb["patch_merge merge0"]),
         entry("dw_conv3x3", "cuda", "csrc/tinyvit_conv.cu",
-              "ops/dw_ln_mlp.py:88 dw_ln_mlp (its depthwise; LN + MLP on gemm_bf16)",
-              mla["dw_conv3x3"], mk["errs"]["dw_conv3x3"], mt["dw_conv3x3 stage2"],
-              mb["dw_conv3x3 stage2"], ml["dw_conv3x3 stage2"]),
+              "ops/dw_ln_mlp.py:88 dw_ln_mlp (its depthwise and LayerNorm in one pass; the "
+              "MLP on gemm_bf16)", mla["dw_conv3x3"], mk["errs"]["dw_conv3x3"],
+              mt["dw_conv3x3 stage3"], mb["dw_conv3x3 stage3"]),
+        entry("dw_conv3x3 y only", "cuda", "csrc/tinyvit_conv.cu",
+              "ops/dw_ln_mlp.py:88 dw_ln_mlp (its depthwise alone, as F.conv2d(groups=C))",
+              mla["dw_conv3x3"], mk["errs"]["dw_conv3x3"], mt["dw_conv3x3 y only stage3"],
+              mb["dw_conv3x3 y only stage3"], ml["dw_conv3x3 y only stage3"]),
         entry("mbconv_block bf16", "cuda", "csrc/tinyvit_conv.cu",
               "ops/mbconv_fused.py:134 mbconv_block (compute=\"bf16\")",
               ms["launches bf16"]["mbconv_block_bf16"], mk["errs"]["mbconv_bf16"],
@@ -1972,11 +2059,13 @@ def main() -> int:
               mt["patch_merge merge0 bf16"], mb["patch_merge merge0 bf16"]),
     ]
     ct, cb, cl = ck["times"], ck["bounds"], ck["library"]
-    table.append(entry("conv2d_act", "cuda", "csrc/conv2d_act.cu",
-                       "ops/conv2d_fused.py:428 conv2d_act (pallas_call :524)",
-                       fs["launches"]["conv2d_act"], ck["errs"]["conv2d_act"],
-                       ct["detect box1 level 0"], cb["detect box1 level 0"],
-                       cl["detect box1 level 0"]))
+    for name, shape in (("conv2d_act", "detect box1 level 0"),
+                        ("conv2d_act sam neck", "sam neck"),
+                        ("conv2d_act yolo stem", "yolo stem")):
+        table.append(entry(name, "cuda", "csrc/conv2d_act.cu",
+                           "ops/conv2d_fused.py:428 conv2d_act (pallas_call :524)",
+                           fs["launches"]["conv2d_act"], ck["errs"]["conv2d_act"], ct[shape],
+                           cb[shape], cl[shape]))
     rt, rb, rl = rk["times"], rk["bounds"], rk["library"]
     k12_src = "csrc/flash_attention_relpos.cu"
     k12_tpu = "ops/flash_attention.py:186 flash_attention_relpos (pallas_call :266)"

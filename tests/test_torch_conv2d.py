@@ -36,7 +36,11 @@ from yolo_sam_inference_tpu_torch.models.sam import (
 )
 from yolo_sam_inference_tpu_torch.models.yolo import YoloConfig, YoloV8, init_yolo_params
 from yolo_sam_inference_tpu_torch.models.yolo import model as tyolo
-from yolo_sam_inference_tpu_torch.ops.conv2d_fused import conv2d_act, conv2d_act_plain
+from yolo_sam_inference_tpu_torch.ops.conv2d_fused import (
+    conv2d_act,
+    conv2d_act_plain,
+    conv_weight_matrix,
+)
 from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
 from yolo_sam_inference_tpu_torch.weights import from_jax_params
 
@@ -149,6 +153,20 @@ def test_conv2d_act_refuses_what_k17_does_not_compute():
         conv2d_act(x, w2, b, k=3)
     with pytest.raises(ValueError, match="stride"):
         conv2d_act_plain(x, w3, b, 3, stride=3)
+
+
+@pytest.mark.parametrize("k,ci,co", [(3, 256, 256), (3, 32, 16), (3, 64, 80), (2, 8, 128)])
+def test_conv_weight_matrix_pads_for_the_kernels_boxes(k, ci, co):
+    """The main kernel's weight matrix: w as (k k Ci, Co), zero-padded to at
+    least 64 rows and a multiple of 64 columns; w's own storage when it
+    needs no padding."""
+    w = _t(np.random.default_rng(co).normal(size=(k, k, ci, co)))
+    mat = conv_weight_matrix(w)
+    rows, cols = max(k * k * ci, 64), -(-co // 64) * 64
+    assert mat.shape == (rows, cols) and mat.is_contiguous()
+    assert torch.equal(mat[:k * k * ci, :co], w.reshape(-1, co))
+    assert not mat[k * k * ci:].any() and not mat[:, co:].any()
+    assert (mat.data_ptr() == w.data_ptr()) == (rows == k * k * ci and cols == co)
 
 
 def _yolo_tree(seed, cfg):

@@ -502,9 +502,12 @@ def test_conv_blocks_bf16_compute_vs_plain(gen, shape, e, co, stride, residual):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 16, 16, 128), (1, 9, 7, 320)])
+@pytest.mark.parametrize("shape", [(2, 13, 19, 128), (2, 15, 9, 160), (1, 9, 7, 320)])
 def test_dw_ln_mlp_vs_plain(gen, shape):
-    """K16: the depthwise kernel alone, then the tail (dw + two gemm_bf16)."""
+    """K16: the one-pass depthwise + LayerNorm kernel (H x W not a multiple
+    of its 8 x 8 tile), then the tail (dw + two gemm_bf16). y within 2% of
+    range of the fp32 plain depthwise; LN(y) within 1% of range of the plain
+    LayerNorm of the kernel's own y (one bf16 rounding of O(1) values)."""
     c = shape[-1]
     x = _randn(gen, *shape)
     wd, bd = _randn(gen, 3, 3, c, std=1 / 3), _f32(gen, c, std=0.3)
@@ -513,8 +516,11 @@ def test_dw_ln_mlp_vs_plain(gen, shape):
     w2, b2 = _randn(gen, 4 * c, c, std=(4 * c) ** -0.5), _f32(gen, c, std=0.1)
     before = tdw.dw_conv3x3.launches, tln.gemm_bf16.launches
     _close(tdw.dw_conv3x3(x, wd, bd), tdw.dw_conv3x3_plain(x.float(), wd, bd), 2e-2)
+    y, ln_y = tdw.dw_conv3x3(x, wd, bd, ln=(s, b, 1e-5))
+    _close(y, tdw.dw_conv3x3_plain(x.float(), wd, bd), 2e-2)
+    _close(ln_y, tln.layer_norm_plain(y.float(), s, b, 1e-5), 1e-2)
     got = tdw.dw_ln_mlp(x, wd, bd, s, b, w1, b1, w2, b2)
-    assert (tdw.dw_conv3x3.launches, tln.gemm_bf16.launches) == (before[0] + 2, before[1] + 2)
+    assert (tdw.dw_conv3x3.launches, tln.gemm_bf16.launches) == (before[0] + 3, before[1] + 2)
     _close(got, tdw.dw_ln_mlp(x.float(), wd, bd, s, b, w1, b1, w2, b2, gemm=tln.gemm_plain,
                               dw=tdw.dw_conv3x3_plain), 2e-2)
 
@@ -529,6 +535,17 @@ def test_dw_ln_mlp_vs_plain(gen, shape):
     ((2, 33, 40, 3), 32, 3, 2, "gelu", True, False),      # TinyViT's stem1, odd H
     ((2, 12, 20, 256), 128, 2, 1, "silu", True, False),   # the s2d k = 2 exit, pad (1, 0)
     ((2, 20, 18, 16), 32, 3, 2, "silu", True, False),     # Ci 16, ragged tiles
+    ((2, 19, 23, 16), 16, 3, 1, "silu", True, False),     # Co 16, ragged H x W
+    ((2, 21, 13, 32), 48, 3, 1, "gelu", True, False),     # Co 48, ragged H x W
+    ((2, 17, 29, 64), 128, 3, 1, "silu", True, True),     # Co 128, ragged, a channel slice
+    ((2, 27, 31, 64), 64, 3, 2, "silu", True, False),     # stride 2 at an odd size
+    ((1, 12, 12, 32), 320, 3, 1, "none", True, False),    # Co above 256: two column blocks
+    ((2, 9, 11, 72), 80, 2, 1, "silu", True, False),      # k 2, Co 80 (a padded weight copy)
+    ((2, 30, 34, 3), 16, 3, 2, "silu", True, True),       # a stem on an unaligned slice
+    ((1, 9, 67, 5), 8, 2, 1, "gelu", False, False),       # the stems' kernel at k 2, Ci 5
+    ((2, 64, 144, 16), 128, 3, 1, "silu", True, False),   # enough tiles for 128 columns a block
+    ((2, 128, 144, 16), 256, 3, 1, "none", True, False),  # and for 256
+    ((3, 128, 256, 16), 256, 3, 2, "silu", True, False),  # and for 256 at stride 2
 ])
 def test_conv2d_act_vs_plain(gen, shape, co, k, stride, act, bias, sliced):
     """K17 at each geometry of the paths (narrower images, same widths)."""

@@ -28,6 +28,7 @@ from yolo_sam_inference_tpu.models.sam import tinyvit as jtv
 from yolo_sam_inference_tpu.models.yolo import YoloConfig as JaxYoloConfig
 from yolo_sam_inference_tpu.ops import preprocess as jpre
 from yolo_sam_inference_tpu.ops.dw_ln_mlp import dw_ln_mlp as jax_dw_ln_mlp
+from yolo_sam_inference_tpu.ops.fused_ln import _ln_rows as jax_ln_rows
 from yolo_sam_inference_tpu.ops.mbconv_fused import mbconv_block as jax_mbconv
 from yolo_sam_inference_tpu.ops.merge_fused import patch_merge_block as jax_merge
 from yolo_sam_inference_tpu.ops.tinyvit_attention import (
@@ -46,7 +47,7 @@ from yolo_sam_inference_tpu_torch.models.sam import (
 )
 from yolo_sam_inference_tpu_torch.models.yolo import YoloConfig
 from yolo_sam_inference_tpu_torch.ops import preprocess
-from yolo_sam_inference_tpu_torch.ops.dw_ln_mlp import dw_ln_mlp
+from yolo_sam_inference_tpu_torch.ops.dw_ln_mlp import dw_conv3x3_plain, dw_ln_mlp
 from yolo_sam_inference_tpu_torch.ops.flash_attention import (
     window_attention,
     window_attention_plain,
@@ -259,10 +260,12 @@ def test_bf16_compute_matches_jax_kernels(stride, residual, shape, e, co):
     assert not torch.equal(got, got32)
 
 
-def test_dw_ln_mlp_matches_jax_kernel():
-    """K16: y = dw3x3(x) + b; y + mlp(LN(y)) -- the residual is y, not x."""
+@pytest.mark.parametrize("c", [128, 160, 320])  # TinyViT-5M's three block widths
+def test_dw_ln_mlp_matches_jax_kernel(c):
+    """K16: y = dw3x3(x) + b; y + mlp(LN(y)) -- the residual is y, not x. The
+    port's composition (the depthwise writing y and LN(y), then the MLP on
+    LN(y)) against the interpret-mode TPU kernel."""
     rng = np.random.default_rng(16)
-    c = 128
     x = rng.normal(size=(2, 16, 16, c)).astype(np.float32)
     wd = (rng.normal(size=(3, 3, 1, c)) / 3).astype(np.float32)
     bd = (0.3 * rng.normal(size=(c,))).astype(np.float32)
@@ -276,6 +279,24 @@ def test_dw_ln_mlp_matches_jax_kernel():
     got = dw_ln_mlp(_t(x), *map(_t, args)).numpy()
     want = np.asarray(jax_dw_ln_mlp(_j(x), *map(_j, args), eps=1e-5, interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=_ERF_ATOL)
+
+
+def test_dw_conv3x3_plain_with_ln_returns_y_and_its_layer_norm():
+    """``dw_conv3x3_plain(..., ln=)``: y exactly as without ``ln``, and LN(y)
+    as the TPU kernel's ``_ln_rows`` computes it on that y (fp32: within
+    1e-5 of its O(1) outputs, summation order aside)."""
+    rng = np.random.default_rng(8)
+    c = 160
+    x = rng.normal(size=(2, 9, 11, c)).astype(np.float32)
+    wd = (rng.normal(size=(3, 3, c)) / 3).astype(np.float32)
+    bd = (0.3 * rng.normal(size=(c,))).astype(np.float32)
+    s = (1.0 + 0.1 * rng.normal(size=(c,))).astype(np.float32)
+    sh = (0.1 * rng.normal(size=(c,))).astype(np.float32)
+    y_old = dw_conv3x3_plain(_t(x), _t(wd), _t(bd))
+    y, ln_y = dw_conv3x3_plain(_t(x), _t(wd), _t(bd), ln=(_t(s), _t(sh), 1e-5))
+    assert torch.equal(y, y_old)
+    want = np.asarray(jax_ln_rows(_j(y.numpy().reshape(-1, c)), _j(s), _j(sh), 1e-5))
+    np.testing.assert_allclose(ln_y.numpy().reshape(-1, c), want, rtol=0, atol=1e-5)
 
 
 def test_bridge_builds_tinyvit(tinyvit_tree):

@@ -1,10 +1,26 @@
 """What the card-side scripts share: the card's name and power limit, CUDA-event
-timing, and synthetic cell frames made from a seed."""
+timing, device time from the profiler, and synthetic cell frames made from a
+seed."""
 
 from __future__ import annotations
 
 import statistics
 import subprocess
+
+# K17's shapes on the paths, timed at batch 32 (chip_smoke.py, kernel_turns.py):
+# (name, (H, W, Ci), Co, k, stride, act, bias, channel slice)
+CONV_SHAPES = (
+    ("yolo stem", (512, 512, 3), 16, 3, 2, "silu", True, False),
+    ("c2f3 bottleneck", (64, 64, 32), 32, 3, 1, "silu", True, True),
+    ("detect box1 level 0", (64, 64, 64), 64, 3, 1, "silu", True, False),
+    ("down5", (32, 32, 128), 256, 3, 2, "silu", True, False),
+    ("sam neck", (32, 32, 256), 256, 3, 1, "none", False, False),
+    ("tinyvit stem1", (512, 512, 3), 32, 3, 2, "gelu", True, False),
+    ("s2d down4 exit k2", (32, 32, 256), 128, 2, 1, "silu", True, False),
+)
+# K16's depthwise at TinyViT-5M's three block stages on the 512 canvas:
+# (stage, grid side, C)
+DW_STAGES = ((1, 64, 128), (2, 32, 160), (3, 32, 320))
 
 
 def card() -> str:
@@ -34,6 +50,26 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, name: str, reps: int = 20):
+    """Mean device time in ms of the kernels whose name holds ``name`` in one
+    call of ``fn()``, from ``torch.profiler`` (CUPTI) over ``reps`` calls after
+    a warm-up; None where the profiler recorded no such kernel. Unlike
+    :func:`median_ms` it leaves out the host time of a short call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(us) / reps / 1e3 if us else None
 
 
 def cell_frames(rng, n: int, size: int, cells: int = 12):

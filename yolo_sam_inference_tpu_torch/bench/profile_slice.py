@@ -30,7 +30,7 @@ CATEGORIES = (  # (substring of the kernel name, category); first match wins
     ("flash_attn_relpos_kernel", "flash_attention_relpos (K12)"),
     ("keys_stream_kernel", "keys_stream"),
     ("tinyvit_attn_kernel", "tinyvit_attn"), ("mbconv_kernel", "mbconv / patch merge"),
-    ("dw3x3_kernel", "dw_conv3x3"), ("conv2d_act", "conv2d_act (K17)"),
+    ("dw3x3_ln_kernel", "dw_conv3x3 (+ LN)"), ("conv2d_act", "conv2d_act (K17)"),
     ("t2i_attend_kernel", "t2i_attend"), ("t2i_combine_kernel", "t2i_combine"),
     ("window_crop_kernel", "window_crop"),
     ("hull_support_kernel", "hull_support"), ("memcpy", "memcpy host<->device"),

@@ -63,10 +63,10 @@ _SIGNATURES = {
     "ysi_tinyvit_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # stride, residual, bf16, x, w1, b1, wd, bd, w3, b3, out, b, h, w, c, e, co, stream
     "ysi_mbconv": (_I, _I, _I) + (_P,) * 8 + (_I,) * 6 + (_P,),
-    # x, wd, bd, y, b, h, w, c, stream
-    "ysi_dw_conv3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x, w, bias, out, b, h, w, ci, xs, co, k, stride, act, stream
-    "ysi_conv2d_act": (_P,) * 4 + (_I,) * 9 + (_P,),
+    # x, wd, bd, ln_scale, ln_shift, y, ln, b, h, w, c, eps, stream
+    "ysi_dw_conv3x3": (_P,) * 7 + (_I,) * 4 + (_F, _P),
+    # x, w, bias, out, b, h, w, ci, xs, co, wrows, wld, k, stride, act, stream
+    "ysi_conv2d_act": (_P,) * 4 + (_I,) * 11 + (_P,),
 }
 # Run once after loading (shared-memory attributes of the kernels).
 _INITS = ("ysi_gemm_init", "ysi_gemm_int8_init", "ysi_window_attn_init",

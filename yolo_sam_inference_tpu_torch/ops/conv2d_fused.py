@@ -26,11 +26,14 @@ width included. The ``dotdense`` rewrites (``conv_unrolled_dot``,
 ``F.conv2d`` computes; they are not ported.
 
 On the card one CUDA source (``csrc/conv2d_act.cu``) computes it as an
-implicit GEMM on the tensor cores, with the im2row built in shared memory;
-its source note says what bounds it. x may be a channel slice of a
-contiguous NHWC tensor (YOLO's C2f halves ``y[..., :c]``, ``y[..., c:]``):
-the kernel takes the pixel stride beside Ci, so nothing is copied on the
-way in.
+implicit GEMM on the tensor cores (wgmma, the weights by TMA, the im2row as
+addresses into a shared-memory halo tile), with a kernel of its own for the
+stems (Ci = 3); its source note says what bounds it. x may be a channel
+slice of a contiguous NHWC tensor (YOLO's C2f halves ``y[..., :c]``,
+``y[..., c:]``): the kernel takes the pixel stride beside Ci, so nothing is
+copied on the way in. The main kernel reads the weights as a (k k Ci, Co)
+matrix through TMA boxes of 64 columns; :func:`conv_weight_matrix` pads a
+copy, made once per weight tensor, where Co is not a multiple of 64.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises. ``conv2d_act.launches`` counts
@@ -43,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check, kernels
-from .fused_ln import _check_bf16, _f32, _on_cpu, _ptr
+from .fused_ln import _check_bf16, _derived, _f32, _on_cpu, _ptr
 
 ACTS = ("none", "silu", "gelu")
 _PAD = {1: (0, 0), 2: (1, 0), 3: (1, 1)}  # (before, after) on each spatial axis
@@ -98,6 +101,21 @@ def _pixel_stride(x: torch.Tensor) -> int:
     return xs
 
 
+def conv_weight_matrix(w: torch.Tensor) -> torch.Tensor:
+    """The main kernel's weight matrix of w (k, k, Ci, Co): w as a
+    (k k Ci, Co) matrix, zero-padded to at least 64 rows and to a multiple
+    of 64 columns (the kernel's TMA boxes are 64 columns wide); w's own
+    storage where no padding is needed."""
+    k, _, ci, co = w.shape
+    rows, cols = k * k * ci, -(-co // 64) * 64
+    mat = w.reshape(rows, co)
+    if rows >= 64 and cols == co:
+        return mat
+    out = mat.new_zeros((max(rows, 64), cols))
+    out[:rows, :co] = mat
+    return out
+
+
 def _launch(x, w, b, k: int, stride: int, act: str):
     bsz, h, wid, ci = x.shape
     co = w.shape[-1]
@@ -105,7 +123,8 @@ def _launch(x, w, b, k: int, stride: int, act: str):
     if x.dtype != torch.bfloat16:
         raise ValueError(f"conv2d_act kernel: x must be bf16, got {x.dtype}")
     xs = _pixel_stride(x)
-    if ci % 8 == 0:
+    small = ci % 8 != 0
+    if not small:
         if xs % 8 or x.data_ptr() % 16:
             raise ValueError("conv2d_act kernel: x's pixels must lie on 16-byte boundaries")
     elif k * k * ci > 64:
@@ -114,11 +133,12 @@ def _launch(x, w, b, k: int, stride: int, act: str):
     if co % 8:
         raise ValueError(f"conv2d_act kernel takes Co a multiple of 8, got {co}")
     _check_bf16("w", w, (k, k, ci, co), dev)
+    wmat = w.reshape(k * k * ci, co) if small else _derived(w, "conv_wmat", conv_weight_matrix)
     ho, wo = output_hw(h, wid, k, stride)
     out = torch.empty((bsz, ho, wo, co), dtype=torch.bfloat16, device=dev)
     err = kernels().ysi_conv2d_act(
-        _ptr(x), _ptr(w), _ptr(_f32(b)), _ptr(out), bsz, h, wid, ci, xs, co, k, stride,
-        ACTS.index(act), torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(x), _ptr(wmat), _ptr(_f32(b)), _ptr(out), bsz, h, wid, ci, xs, co, wmat.shape[0],
+        wmat.shape[1], k, stride, ACTS.index(act), torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "conv2d_act kernel")
     return out
@@ -145,4 +165,4 @@ def conv2d_act(x, w, b, k: int = 3, stride: int = 1, act: str = "none"):
 conv2d_act.launches = 0
 
 
-__all__ = ["ACTS", "conv2d_act", "conv2d_act_plain", "output_hw"]
+__all__ = ["ACTS", "conv2d_act", "conv2d_act_plain", "conv_weight_matrix", "output_hw"]
