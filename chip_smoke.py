@@ -21,7 +21,10 @@ failure ends the run with a non-zero exit and no result line:
    shapes, and at a short M of 100 rows; the decoder's kernels also at
    T = 196 and 784 (the grids of the 224 and 448 canvases, whose last
    64-token tile is short), ``t2i_attend`` also at T = 4096 (config 4's
-   grid), each T beside SDPA on the same inputs;
+   grid), each T beside SDPA on the same inputs; the LayerNorm (K5) at the
+   neck's, the mask head's and the decoder's rows (and its residual form),
+   by events and on the device beside ``F.layer_norm`` with its weights cast
+   to bf16 beforehand;
 4. slice: the config-1 pipeline (YOLOv8n + SAM ViT-B, 512x512 uint8 frames,
    bf16, random weights from seed 0): one batch of 8 with every kernel's
    launch count checked, the bf16 image embedding of one frame against the
@@ -72,13 +75,17 @@ failure ends the run with a non-zero exit and no result line:
    then with ``tinyvit_mbconv_compute="bf16"`` (the bf16 instantiations
    counted apart), the embedding, and passes in turns with the default;
 11. K12 kernels: ``flash_attention_relpos`` at its three shapes of batch 32
-   (a sequence-parallel rank's 2048 queries of ViT-H's 64 x 64 grid; the
-   flat route's ViT-B global layer on the 40 x 40 grid of the 640 canvas;
-   its 14 x 14 windows), plain and at sampled |q.k / sqrt(hd)| of 30-50,
-   against the fp32 plain version, timed beside it, the bound and
-   ``scaled_dot_product_attention`` with the bias as a bf16 mask; the
-   residual LayerNorm (K11d) at the flat tails' rows; and ``int8_linear``
-   (the int8 flat route's qkv, mlp1 and mlp2) beside ``torch._int_mm``;
+   (a sequence-parallel rank's 2048 queries of ViT-H's 64 x 64 grid, q a
+   view of its qkv and k, v views of the gathered k | v half; the flat
+   route's ViT-B global layer on the 40 x 40 grid of the 640 canvas and its
+   14 x 14 windows, q, k, v views of the fused qkv; the raw rel-pos tables),
+   plain and at sampled |q.k / sqrt(hd)| of 30-60, against the fp32 plain
+   version, timed by events and on the device (``torch.profiler``) beside
+   it, the bound and ``scaled_dot_product_attention`` with the bias as a
+   bf16 mask; at the flat shapes also the whole ``relpos_grid_attention``
+   route; the residual LayerNorm (K11d) at the flat tails' rows, on the
+   device too; and ``int8_linear`` (the int8 flat route's qkv, mlp1 and
+   mlp2) beside ``torch._int_mm``;
 12. off-grid slice: ViT-B bf16 at ``sam_encoder_size=640`` (grid 40,
    windows of 14 padded to 42: the flat route; rel-pos tables, positional
    embedding, biases and LN affines at random) on 640x640 frames, launch
@@ -100,7 +107,9 @@ failure ends the run with a non-zero exit and no result line:
 14. result: the kernel table as one JSON line (each kernel's launches on its
    path, error, ms, plain ms, the bound for the same work on an H100 and
    what sets it, and the time of one PyTorch call that computes the same
-   function where there is one), then the last line
+   function where there is one, all by CUDA events; beside them
+   "device_ms" and "library_device_ms", the same calls' device times from
+   ``torch.profiler``, null where not measured), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the published H100 SXM peaks: 3.35 TB/s of device memory, 989
@@ -175,7 +184,9 @@ def _nbytes(*tensors) -> int:
 
 def _attn_flops(windows: int, heads: int, t: int, hd: int, rel_rows: int = 0) -> float:
     """Window attention: q.k and p.v over t keys (4 t^2 hd a window and head),
-    plus q against two rel-pos tables of rel_rows rows."""
+    plus each query's dot products with the rel_rows rows of each rel-pos
+    table that its bias needs (the window's side: one row for each key row,
+    one for each key column)."""
     return windows * heads * (4.0 * t * t * hd + 4.0 * t * rel_rows * hd)
 
 
@@ -272,7 +283,7 @@ def _relpos_sdpa_ms(label: str, qkv, rel_h, rel_w, heads: int, window: int, got,
 def _kernel_phase(card: str) -> dict:
     import torch
 
-    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.bench.common import device_ms, median_ms
     from yolo_sam_inference_tpu_torch.ops.flash_attention import (
         window_attention,
         window_attention_plain,
@@ -308,6 +319,7 @@ def _kernel_phase(card: str) -> dict:
     errs: dict = {}  # kernel -> largest max_abs_err over its cases
     times: dict = {}  # kernel -> (kernel ms, plain ms on the same bf16 inputs[, torch bf16 ms])
     bounds: dict = {}  # timed case -> (bound ms, "bytes" or "operations")
+    device: dict = {}  # timed case -> (kernel, library call) device ms from torch.profiler
 
     # gemm_bf16: K1 (LN1 + qkv), the attention projection, K4 (two launches)
     k1 = lambda: fused_ln_matmul(x, ln_s, ln_b, w_qkv, b_qkv)
@@ -387,17 +399,21 @@ def _kernel_phase(card: str) -> dict:
             k3_library[f"attn_{label}"] = _relpos_sdpa_ms(label, qkv, rel_h, rel_w, heads,
                                                           window, got, card)
             bounds[f"attn_{label}"] = _bound(
-                _attn_flops(b_att * (32 // window) ** 2, heads, window * window, 64,
-                            2 * window - 1),
+                _attn_flops(b_att * (32 // window) ** 2, heads, window * window, 64, window),
                 _nbytes(qkv, rel_h, rel_w) + qkv.numel() // 3 * 2)
             _say("kernels", f"window_attn_relpos {label}: kernel {times[f'attn_{label}'][0]:.4f} "
                             f"ms, plain {times[f'attn_{label}'][1]:.4f} ms, bound "
                             f"{bounds[f'attn_{label}'][0]:.4f} ms ({bounds[f'attn_{label}'][1]}) "
                             f"[{card}]")
 
-    # layer_norm (Triton): neck rows at C=256, mask-head rows at C=64, residual form
+    # layer_norm (K5): the neck's rows at C 256, the mask head's up_ln at C 64,
+    # the decoder's at C 256 (and the residual form there); each timed by
+    # events and on the device beside F.layer_norm, its weights cast to bf16
+    # before the timed calls
+    ln_library: dict = {}
     for rows, cc, res, label in ((KERNEL_ROWS, 256, False, "neck 32768x256"),
                                  (32 * 16 * 44 * 44, 64, False, "up_ln 991232x64"),
+                                 (32 * 16 * 7, 256, False, "decoder 3584x256"),
                                  (32 * 16 * 7, 256, True, "add+ln 3584x256")):
         xl = randn(rows, cc).to(bf)
         rl = randn(rows, cc).to(bf) if res else None
@@ -407,21 +423,32 @@ def _kernel_phase(card: str) -> dict:
                                residual=None if rl is None else rl.float())
         if res:
             _check(f"layer_norm {label} (sum)", got[0], ref[0], 1e-2, errs)
-            got, ref = got[1], ref[1]
+            _check(f"layer_norm {label}", got[1], ref[1], 1e-2, errs)
+            continue
         _check(f"layer_norm {label}", got, ref, 1e-2, errs)
-        if label.startswith("neck"):
-            fn = lambda: layer_norm(xl, sl, bl, 1e-6)
-            fnp = lambda: layer_norm_plain(xl, sl, bl, 1e-6)
-            bf16_ln = lambda: torch.nn.functional.layer_norm(xl, (cc,), sl.to(bf), bl.to(bf), 1e-6)
-            times["layer_norm"] = (median_ms(fn), median_ms(fnp), median_ms(bf16_ln))
-            bounds["layer_norm"] = _bound(8.0 * xl.numel(), 2 * _nbytes(xl) + _nbytes(sl, bl),
-                                          "fp32")
-            _say("kernels", f"layer_norm neck: kernel {times['layer_norm'][0]:.4f} ms, plain "
-                            f"{times['layer_norm'][1]:.4f} ms, F.layer_norm bf16 "
-                            f"{times['layer_norm'][2]:.4f} ms [{card}]")
+        key = f"layer_norm {label.split()[0]}"
+        sl16, bl16 = sl.to(bf), bl.to(bf)
+        fn = lambda: layer_norm(xl, sl, bl, 1e-6)
+        lib = lambda: torch.nn.functional.layer_norm(xl, (cc,), sl16, bl16, 1e-6)
+        times[key] = (median_ms(fn), median_ms(lambda: layer_norm_plain(xl, sl, bl, 1e-6)),
+                      median_ms(lib))
+        dev_k, dev_l = device_ms(fn, "layer_norm"), device_ms(lib, "layer_norm")
+        device[key] = (dev_k, dev_l)
+        ln_library[key] = times[key][2]
+        bounds[key] = _bound(8.0 * xl.numel(), 2 * _nbytes(xl) + _nbytes(sl, bl), "fp32")
+        _say("kernels", f"layer_norm {label}: kernel {times[key][0]:.4f} ms by events, "
+                        f"{_fmt(dev_k)} on the device; plain {times[key][1]:.4f} ms; "
+                        f"F.layer_norm (bf16 weights cast beforehand) {times[key][2]:.4f} ms by "
+                        f"events, {_fmt(dev_l)} on the device; bound {bounds[key][0]:.4f} ms "
+                        f"({bounds[key][1]}) [{card}]")
     torch.cuda.synchronize()
-    return {"errs": errs, "times": times, "t_k4": t_k4, "bounds": bounds,
-            "library": {"layer_norm": times["layer_norm"][2], **k3_library}}
+    return {"errs": errs, "times": times, "t_k4": t_k4, "bounds": bounds, "device": device,
+            "library": {**ln_library, **k3_library}}
+
+
+def _fmt(ms) -> str:
+    """A device time, or "not measured" where the profiler recorded none."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def _decoder_kernel_phase(card: str) -> dict:
@@ -708,7 +735,7 @@ def _big_kernel_phase(card: str) -> dict:
                                                        got, card)
             bounds[f"attn {label}"] = _bound(
                 _attn_flops(TIMED_BATCH * (32 // window) ** 2, heads, window * window, hd,
-                            2 * window - 1),
+                            window),
                 _nbytes(qkv, rel_h, rel_w) + qkv.numel() // 3 * 2)
             _say("kernels", f"window_attn_relpos {label}: kernel {times[f'attn {label}'][0]:.4f} "
                             f"ms, plain {times[f'attn {label}'][1]:.4f} ms, bound "
@@ -753,7 +780,7 @@ def _large_kernel_phase(card: str) -> dict:
         times[label] = (median_ms(fn), median_ms(fnp, reps=3, warmup=1))
         library[label] = _relpos_sdpa_ms(label, qkv, rel_h, rel_w, heads, window, got, card)
         del got
-        bounds[label] = _bound(_attn_flops(TIMED_BATCH, heads, window * window, hd, 2 * window - 1),
+        bounds[label] = _bound(_attn_flops(TIMED_BATCH, heads, window * window, hd, window),
                                _nbytes(qkv, rel_h, rel_w) + qkv.numel() // 3 * 2)
         _say("kernels", f"window_attn_relpos {label}: kernel {times[label][0]:.4f} ms, plain "
                         f"{times[label][1]:.4f} ms, bound {bounds[label][0]:.4f} ms "
@@ -775,25 +802,30 @@ def _relpos_kernel_phase(card: str) -> dict:
     """K12 (``flash_attention_relpos``) at the shapes of its two paths, batch
     32, against its fp32 plain version (TF32 off): a sequence-parallel rank's
     share of ViT-H's global layer (rank 1 of 2: rows 32-63 of the 64 x 64
-    grid, 2048 queries over 4096 keys, hd 80), the flat route's ViT-B global
+    grid, 2048 queries over 4096 keys, hd 80; q a view of the rank's qkv, k
+    and v views of the gathered k | v half), the flat route's ViT-B global
     layer at the 640 canvas (40 x 40 grid, hd 64) and its 14 x 14 windows
-    (nine windows an image, 196 keys: a partial 64-key tile). The score
-    tables come from the rel-pos tables as the path builds them
-    (``relpos_score_tables``). Each plain and with q and k scaled to sampled
-    |q.k / sqrt(hd)| of 30-50; times beside the plain version's, the bound
-    and ``scaled_dot_product_attention`` with the bias materialised as a
-    bf16 additive mask (which the port never calls). Then the residual
-    LayerNorm (K11d) at the flat tails' rows (32 x 1600 tokens x 768), and
-    the int8 flat route's ``int8_linear`` (row quantisation + gemm_int8) at
-    its qkv, mlp1 and mlp2 on the global layer's rows, against its plain int8
-    version, beside ``torch._int_mm`` for the bare int8 product."""
+    (nine windows an image, 196 keys), q, k and v views of the fused qkv.
+    The kernel takes the raw rel-pos tables and builds the bias inside. Each
+    plain and with q and k scaled to sampled |q.k / sqrt(hd)| of 30-50;
+    times by events and on the device (``torch.profiler``) beside the plain
+    version's, the bound and ``scaled_dot_product_attention`` with the bias
+    materialised as a bf16 additive mask beforehand (which the port never
+    calls); at the two flat shapes also the whole ``relpos_grid_attention``
+    route (qkv in, output out). Then the residual LayerNorm (K11d) at the
+    flat tails' rows (32 x 1600 tokens x 768), beside ``F.layer_norm`` of
+    the same rows, and the int8 flat route's ``int8_linear`` (row
+    quantisation + gemm_int8) at its qkv, mlp1 and mlp2 on the global
+    layer's rows, against its plain int8 version, beside ``torch._int_mm``
+    for the bare int8 product."""
     import torch
 
-    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.bench.common import device_ms, median_ms
     from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
     from yolo_sam_inference_tpu_torch.ops.flash_attention import (
         flash_attention_relpos,
-        flash_attention_relpos_plain,
+        relpos_attention_plain,
+        relpos_grid_attention,
         relpos_score_tables,
     )
 
@@ -809,50 +841,82 @@ def _relpos_kernel_phase(card: str) -> dict:
     times: dict = {}
     bounds: dict = {}
     library: dict = {}
+    device: dict = {}  # case -> (kernel, library call) device ms
+    routes: dict = {}  # flat case -> (route ms by events, on the device)
     # (label, images, heads, hd, grid side, query rows, first row, scale to |s| ~ 30-50)
     cases = (("sp ViT-H rank 1 of 2", TIMED_BATCH, 16, 80, 64, 32, 32, 2.8),
              ("flat ViT-B global 40x40", TIMED_BATCH, 12, 64, 40, 40, 0, 3.2),
              ("flat ViT-B windows 14x14", TIMED_BATCH * 9, 12, 64, 14, 14, 0, 3.2))
     for label, b, heads, hd, s, rows, row0, big in cases:
-        bh, n, nq = b * heads, s * s, rows * s
-        q = randn(bh, nq, hd)
-        k, v = randn(bh, n, hd), randn(bh, n, hd)
+        c, n, nq = heads * hd, s * s, rows * s
         rel_h, rel_w = (randn(2 * s - 1, hd, std=0.3) for _ in range(2))
-        rh, rw = relpos_score_tables(q, rel_h, rel_w, s, row0=row0)
-        fn = lambda: flash_attention_relpos(q, k, v, rh, rw, s)
-        fnp = lambda: flash_attention_relpos_plain(q, k, v, rh, rw, s)
-        shape = f"({bh} heads, NQ {nq}, N {n}, hd {hd})"
+        if label.startswith("sp"):  # the rank's own qkv, the group's gathered k | v
+            own, kv = randn(b, nq, 3 * c), randn(b, n, 2 * c)
+            views = lambda: (own[..., :c], kv[..., :c], kv[..., c:])
+        else:
+            qkv = randn(b, s, s, 3 * c)
+            flat = qkv.reshape(b, n, 3 * c)
+            views = lambda: (flat[..., :c], flat[..., c:2 * c], flat[..., 2 * c:])
+        q, k, v = views()
+        fn = lambda: flash_attention_relpos(q, k, v, rel_h, rel_w, s, row0=row0)
+        fnp = lambda: relpos_attention_plain(q, k, v, rel_h, rel_w, s, row0)
+        shape = f"({b} images x {heads} heads, NQ {nq} from row {row0}, N {n}, hd {hd})"
         _check(f"flash_attention_relpos {label} {shape}", fn(),
-               flash_attention_relpos_plain(q.float(), k.float(), v.float(), rh, rw, s), 2e-2,
-               errs)
+               relpos_attention_plain(q.float(), k.float(), v.float(), rel_h, rel_w, s, row0),
+               2e-2, errs)
         times[label] = (median_ms(fn), median_ms(fnp, reps=3, warmup=1))
-        bounds[label] = _bound(4.0 * bh * nq * n * hd, _nbytes(q, k, v, rh, rw) + _nbytes(q))
+        dev_k = device_ms(fn, "flash_attn_relpos")
+        bh = b * heads
+        # q.k and p.v over N keys, and q against the S rows of each table its
+        # bias needs
+        bounds[label] = _bound(4.0 * bh * nq * (n + s) * hd,
+                               _nbytes(rel_h, rel_w) + 2 * bh * (2 * nq + 2 * n) * hd)
+        if not label.startswith("sp"):
+            route = lambda: relpos_grid_attention(qkv, rel_h, rel_w, heads)
+            routes[label] = (median_ms(route), device_ms(route, ""))
+            _say("kernels", f"relpos_grid_attention {label} (qkv in, output out): "
+                            f"{routes[label][0]:.4f} ms by events, {_fmt(routes[label][1])} on "
+                            f"the device [{card}]")
         # the library yardstick: the bias as a bf16 (B, H, NQ, N) mask, made
-        # beforehand (not timed)
+        # beforehand (not timed), q, k, v heads-major
+        hm = lambda t: t.reshape(b, -1, heads, hd).transpose(1, 2).reshape(1, bh, -1, hd)
+        q4, k4, v4 = (hm(t).contiguous() for t in (q, k, v))
+        rh, rw = relpos_score_tables(q4[0], rel_h, rel_w, s, row0=row0)
         mask = (rh[..., :, None] + rw[..., None, :]).reshape(1, bh, nq, n).to(bf)
-        q4, k4, v4 = (t.reshape(1, bh, -1, hd) for t in (q, k, v))
+        del rh, rw
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
         try:
-            library[label] = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask))
+            lib_ev, lib_dev = median_ms(sdpa), device_ms(sdpa, "")
         except RuntimeError as e:  # a yardstick only: no library time for this shape
             _say("kernels", f"scaled_dot_product_attention {label}: refused ({e})")
-            library[label] = None
-        lib = "n/a" if library[label] is None else f"{library[label]:.4f} ms"
-        _say("kernels", f"flash_attention_relpos {label}: kernel {times[label][0]:.4f} ms, plain "
-                        f"{times[label][1]:.4f} ms, bound {bounds[label][0]:.4f} ms "
-                        f"({bounds[label][1]}), SDPA with a bf16 mask of "
-                        f"{_nbytes(mask) / 2 ** 30:.2f} GiB at batch {b}: {lib} [{card}]")
+            lib_ev = lib_dev = None
+        device[label] = (dev_k, lib_dev)
+        library[label] = lib_ev
+        _say("kernels", f"flash_attention_relpos {label}: kernel {times[label][0]:.4f} ms by "
+                        f"events, {_fmt(dev_k)} on the device; plain {times[label][1]:.4f} ms; "
+                        f"bound {bounds[label][0]:.4f} ms ({bounds[label][1]}); SDPA with a bf16 "
+                        f"mask of {_nbytes(mask) / 2 ** 30:.2f} GiB at batch {b}: "
+                        f"{_fmt(lib_ev)} by events, {_fmt(lib_dev)} on the device [{card}]")
         del mask, q4, k4, v4
-        # logits of |s| ~ 30-50: q and k scaled, the tables rebuilt from the new q
-        q, k = q * big, k * big
-        rh, rw = relpos_score_tables(q, rel_h, rel_w, s, row0=row0)
-        s_max = (q[:8].float() @ k[:8, :512].float().transpose(1, 2)).abs().max().item() * hd ** -0.5
+        # logits of |s| ~ 30-50: q and k scaled in place
+        if label.startswith("sp"):
+            own[..., :c] *= big
+            kv[..., :c] *= big
+        else:
+            qkv[..., :2 * c] *= big
+        q, k, v = views()
+        qh, kh = (hm(t)[0, :8] for t in (q, k))
+        s_max = (qh.float() @ kh[:, :512].float().transpose(1, 2)).abs().max().item() * hd ** -0.5
         _say("kernels", f"flash_attention_relpos {label}: sampled max |q.k/sqrt({hd})| = "
                         f"{s_max:.1f}")
         _check(f"flash_attention_relpos {label} |s|~{s_max:.0f}", fn(),
-               flash_attention_relpos_plain(q.float(), k.float(), v.float(), rh, rw, s), 2e-2,
-               errs)
-        del q, k, v, rh, rw
+               relpos_attention_plain(q.float(), k.float(), v.float(), rel_h, rel_w, s, row0),
+               2e-2, errs)
+        del q, k, v, qh, kh
+        if label.startswith("sp"):
+            del own, kv
+        else:
+            del qkv, flat
         torch.cuda.empty_cache()
 
     # K11d: (x + r, LN(x + r)) at the flat route's tails, ViT-B at the 640 canvas
@@ -865,10 +929,15 @@ def _relpos_kernel_phase(card: str) -> dict:
     _check(f"layer_norm residual K11d ({rows}x{c}, sum)", got[0], ref[0], 1e-2, errs)
     _check(f"layer_norm residual K11d ({rows}x{c}, LN)", got[1], ref[1], 1e-2, errs)
     times["K11d"] = (median_ms(fn), median_ms(fnp))
+    sl16, bl16 = sl.to(torch.bfloat16), bl.to(torch.bfloat16)
+    ln_alone = lambda: torch.nn.functional.layer_norm(x, (c,), sl16, bl16, 1e-6)
+    device["K11d"] = (device_ms(fn, "layer_norm"), device_ms(ln_alone, "layer_norm"))
     bounds["K11d"] = _bound(9.0 * x.numel(), 4 * _nbytes(x) + _nbytes(sl, bl), "fp32")
-    _say("kernels", f"layer_norm residual K11d: kernel {times['K11d'][0]:.4f} ms, plain "
-                    f"{times['K11d'][1]:.4f} ms, bound {bounds['K11d'][0]:.4f} ms "
-                    f"({bounds['K11d'][1]}), no single library call [{card}]")
+    _say("kernels", f"layer_norm residual K11d: kernel {times['K11d'][0]:.4f} ms by events, "
+                    f"{_fmt(device['K11d'][0])} on the device; plain {times['K11d'][1]:.4f} ms, "
+                    f"bound {bounds['K11d'][0]:.4f} ms ({bounds['K11d'][1]}); no single "
+                    f"library call (F.layer_norm of x alone, bf16 weights cast beforehand: "
+                    f"{_fmt(device['K11d'][1])} on the device) [{card}]")
     del x, r, got, ref
 
     # int8_linear at ViT-B's flat global layer, batch 32 (51200 rows)
@@ -900,7 +969,8 @@ def _relpos_kernel_phase(card: str) -> dict:
         del x, xq, wq
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library,
+            "device": device, "routes": routes}
 
 
 def _offgrid_slice_phase(card: str, vit_b_pipe) -> dict:
@@ -1947,14 +2017,18 @@ def main() -> int:
     mk = _mobile_kernel_phase(card)
     ms = _mobile_slice_phase(card)
 
-    def entry(name, route, source, replaces, launches, err, timed, bound, library=None):
-        """One kernel's line: ``timed`` (kernel ms, plain ms, ...) and ``bound``
-        (ms, "bytes" or "operations") at the same call."""
+    def entry(name, route, source, replaces, launches, err, timed, bound, library=None,
+              device=(None, None)):
+        """One kernel's line: ``timed`` (kernel ms, plain ms, ...) and ``library``
+        by events, ``bound`` (ms, "bytes" or "operations") at the same call,
+        ``device`` (kernel, library call) by torch.profiler, None where not
+        measured."""
         return {"name": name, "route": route,
                 "source": f"yolo_sam_inference_tpu_torch/{source}",
                 "replaces": f"yolo_sam_inference_tpu/{replaces}", "launches": launches,
                 "max_abs_err": err, "ms": timed[0], "plain_ms": timed[1], "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": library}
+                "bound_by": bound[1], "library_ms": library, "device_ms": device[0],
+                "library_device_ms": device[1]}
 
     t, kb = kp["times"], kp["bounds"]
     attn_src, attn_tpu = "csrc/window_attn_relpos.cu", ("ops/flash_attention.py:608 "
@@ -1968,11 +2042,13 @@ def main() -> int:
         entry("window_attn_relpos", "cuda", attn_src, attn_tpu,
               sp["launches"]["window_attn_relpos"], kp["errs"]["window_attn_relpos"],
               t["attn_w16"], kb["attn_w16"], kp["library"]["attn_w16"]),
-        entry("layer_norm", "triton", "ops/fused_ln.py",
-              "ops/fused_ln.py:761 fused_ln (+ :56 fused_add_ln)", sp["launches"]["layer_norm"],
-              kp["errs"]["layer_norm"], t["layer_norm"], kb["layer_norm"],
-              kp["library"]["layer_norm"]),
     ]
+    # K5 at the neck's, the mask head's and the decoder's rows
+    for key in ("layer_norm neck", "layer_norm up_ln", "layer_norm decoder"):
+        table.append(entry(key, "cuda", "csrc/layer_norm.cu",
+                           "ops/fused_ln.py:761 fused_ln (+ :56 fused_add_ln)",
+                           sp["launches"]["layer_norm"], kp["errs"]["layer_norm"],
+                           t[key], kb[key], kp["library"][key], kp["device"][key]))
     dt, db = dp["times"], dp["bounds"]
     for name, replaces, timed in (
         ("keys_stream", "ops/decoder_fused.py:298 i2t_keys_update (+ the k/v projections of "
@@ -2065,28 +2141,31 @@ def main() -> int:
         table.append(entry(name, "cuda", "csrc/conv2d_act.cu",
                            "ops/conv2d_fused.py:428 conv2d_act (pallas_call :524)",
                            fs["launches"]["conv2d_act"], ck["errs"]["conv2d_act"], ct[shape],
-                           cb[shape], cl[shape]))
+                           cb[shape], cl[shape], (ck["device"][shape], None)))
     rt, rb, rl = rk["times"], rk["bounds"], rk["library"]
     k12_src = "csrc/flash_attention_relpos.cu"
     k12_tpu = "ops/flash_attention.py:186 flash_attention_relpos (pallas_call :266)"
     k12_err = rk["errs"]["flash_attention_relpos"]
+    rd = rk["device"]
     table += [
         entry("flash_attention_relpos sp", "cuda", k12_src, k12_tpu, sq["k12"], k12_err,
-              rt["sp ViT-H rank 1 of 2"], rb["sp ViT-H rank 1 of 2"], rl["sp ViT-H rank 1 of 2"]),
+              rt["sp ViT-H rank 1 of 2"], rb["sp ViT-H rank 1 of 2"],
+              rl["sp ViT-H rank 1 of 2"], rd["sp ViT-H rank 1 of 2"]),
         entry("flash_attention_relpos global", "cuda", k12_src, k12_tpu,
               og["launches"]["flash_attention_relpos nq1600"], k12_err,
               rt["flat ViT-B global 40x40"], rb["flat ViT-B global 40x40"],
-              rl["flat ViT-B global 40x40"]),
+              rl["flat ViT-B global 40x40"], rd["flat ViT-B global 40x40"]),
         entry("flash_attention_relpos w14", "cuda", k12_src, k12_tpu,
               og["launches"]["flash_attention_relpos nq196"], k12_err,
               rt["flat ViT-B windows 14x14"], rb["flat ViT-B windows 14x14"],
-              rl["flat ViT-B windows 14x14"]),
+              rl["flat ViT-B windows 14x14"], rd["flat ViT-B windows 14x14"]),
         entry("flash_attention_relpos sp w14", "cuda", k12_src, k12_tpu, sq896["k12_w14"],
               k12_err, rt["flat ViT-B windows 14x14"], rb["flat ViT-B windows 14x14"],
-              rl["flat ViT-B windows 14x14"]),
-        entry("layer_norm residual", "triton", "ops/fused_ln.py",
+              rl["flat ViT-B windows 14x14"], rd["flat ViT-B windows 14x14"]),
+        # no one library call returns both x + r and its LayerNorm
+        entry("layer_norm residual", "cuda", "csrc/layer_norm.cu",
               "ops/fused_ln.py:56 fused_add_ln", og["launches"]["layer_norm_residual"],
-              rk["errs"]["layer_norm"], rt["K11d"], rb["K11d"]),
+              rk["errs"]["layer_norm"], rt["K11d"], rb["K11d"], None, (rd["K11d"][0], None)),
         entry("int8_linear", "cuda", "csrc/gemm_int8.cu",
               "ops/quant.py:66 int8_linear (XLA, the flat route's apply_linear: "
               "models/sam/model.py:223, :453-455; no pallas_call)",

@@ -1,4 +1,4 @@
-"""The port's CUDA and Triton kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips elsewhere. The file imports no
 jax, so it runs on a machine that has none; ``tests/conftest.py`` imports jax,
@@ -23,7 +23,7 @@ from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
 from yolo_sam_inference_tpu_torch.ops import quant as tq
 from yolo_sam_inference_tpu_torch.ops.flash_attention import (
     flash_attention_relpos,
-    flash_attention_relpos_plain,
+    relpos_attention_plain,
     window_attention,
     window_attention_plain,
 )
@@ -84,22 +84,56 @@ def test_window_attention_vs_plain(gen, window, hd):
     _close(got, window_attention_plain(qkv.float(), rel_h, rel_w, heads, window), 2e-2)
 
 
+def _max_logit(q, k, hd):
+    """The largest |q.k / sqrt(hd)| over the first image's keys."""
+    return (q[:1].float() @ k[:1].float().transpose(1, 2)).abs().max().item() * hd ** -0.5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,hd,rows,std_qk", [(14, 64, 14, 1.0), (14, 80, 7, 3.0),
                                               (40, 64, 40, 1.0), (28, 80, 14, 1.0),
                                               (64, 80, 32, 1.0), (64, 64, 64, 3.2)])
 def test_flash_attention_relpos_vs_plain(gen, s, hd, rows, std_qk):
-    """K12 on q of ``rows`` grid rows (a rank's share, or the whole grid)
-    over the S x S keys: N = 196 and 784 leave a partial 64-key tile, NQ =
-    98 a partial query tile; std_qk 3 gives logits of |s| ~ 30."""
-    bh, n, nq = 6, s * s, rows * s
-    q = _randn(gen, bh, nq, hd, std=std_qk)
-    k, v = _randn(gen, bh, n, hd, std=std_qk), _randn(gen, bh, n, hd)
-    rh, rw = (_randn(gen, bh, nq, s, std=2.0, dtype=torch.float32) for _ in range(2))
+    """K12 from a fused qkv (B, S*S, 3C): q the last ``rows`` grid rows (a
+    rank's share, row0 = S - rows, or the whole grid), k and v its thirds.
+    N = 196 and 784 leave partial key tiles, NQ = 98 a partial query tile;
+    std_qk 3 gives logits of |s| ~ 30-50."""
+    heads, b = 2, 3
+    c, n, nq, row0 = heads * hd, s * s, rows * s, s - rows
+    qkv = _randn(gen, b, n, 3 * c)
+    qkv[..., :2 * c] *= std_qk
+    rel_h, rel_w = (_randn(gen, 2 * s - 1, hd, std=0.3) for _ in range(2))
+    q, k, v = qkv[:, row0 * s:, :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
     before = flash_attention_relpos.launches
-    got = flash_attention_relpos(q, k, v, rh, rw, s)
+    got = flash_attention_relpos(q, k, v, rel_h, rel_w, s, row0=row0)
     assert flash_attention_relpos.launches == before + 1
-    _close(got, flash_attention_relpos_plain(q.float(), k.float(), v.float(), rh, rw, s), 2e-2)
+    assert got.shape == (b, nq, c)
+    _close(got, relpos_attention_plain(q.float(), k.float(), v.float(), rel_h, rel_w, s, row0),
+           2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hd,rows", [(14, 64, 7), (14, 80, 7), (40, 64, 20), (40, 80, 20),
+                                       (64, 64, 32), (64, 80, 32)])
+def test_flash_attention_relpos_on_gathered_kv_vs_plain(gen, s, hd, rows):
+    """K12 as the sequence-parallel global layer calls it: q a view of rank
+    1's own qkv (row0 = rows), k and v views of the gathered k | v half
+    (token stride 2C), at logits of |s| ~ 30-58."""
+    heads, b = 2, 2
+    c, n, row0 = heads * hd, s * s, rows
+    std = 3.0 if hd == 64 else 2.8
+    own = _randn(gen, b, rows * s, 3 * c)
+    own[..., :c] *= std
+    kv = _randn(gen, b, n, 2 * c)
+    kv[..., :c] *= std
+    rel_h, rel_w = (_randn(gen, 2 * s - 1, hd, std=0.3) for _ in range(2))
+    q, k, v = own[..., :c], kv[..., :c], kv[..., c:]
+    qh, kh = (t.reshape(b, -1, heads, hd).transpose(1, 2).reshape(b * heads, -1, hd)
+              for t in (q, k))
+    assert _max_logit(qh, kh, hd) >= 30
+    got = flash_attention_relpos(q, k, v, rel_h, rel_w, s, row0=row0)
+    _close(got, relpos_attention_plain(q.float(), k.float(), v.float(), rel_h, rel_w, s, row0),
+           2e-2)
 
 
 @pytest.mark.cuda
@@ -251,8 +285,12 @@ def test_gemm_bf16_modes_vs_plain(gen, m, k, n, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,c", [(4096, 256), (5000, 64)])
+@pytest.mark.parametrize("rows,c", [(4096, 256), (5000, 64), (4101, 256), (517, 768),
+                                    (301, 1024), (255, 1280)])
 def test_layer_norm_vs_plain(gen, rows, c):
+    """Both forms at every C of the paths (64 the mask head, 256 the necks and
+    the decoder, 768 ViT-B's flat route; 1024 and 1280 the wider ViTs), row
+    counts that leave a partial block of rows."""
     x, r = _randn(gen, rows, c), _randn(gen, rows, c)
     s = 1.0 + _randn(gen, c, std=0.1, dtype=torch.float32)
     b = _randn(gen, c, std=0.1, dtype=torch.float32)
@@ -287,13 +325,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
                          _randn(gen, 48))
     with pytest.raises(ValueError, match="multiples of 8"):
         tln.gemm_bf16(_randn(gen, 16, 12), _randn(gen, 12, 16))
-    q = _randn(gen, 2, 64, 96)
-    t = _randn(gen, 2, 64, 8, dtype=torch.float32)
+    q = _randn(gen, 1, 64, 192)
     with pytest.raises(ValueError, match="hd=64 or hd=80"):
-        flash_attention_relpos(q, q, q, t, t, 8)
-    q = _randn(gen, 2, 64, 64)
-    with pytest.raises(ValueError, match="fp32|float32"):
-        flash_attention_relpos(q, q, q, t.bfloat16(), t.bfloat16(), 8)
+        flash_attention_relpos(q, q, q, _randn(gen, 15, 96), _randn(gen, 15, 96), 8)
+    t = _randn(gen, 15, 64, dtype=torch.float32)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention_relpos(q[..., :128], q[..., :128], q[..., :128], t, t, 8)
+    for c in (100, 128):  # off the paths' widths, a multiple of 8 or not
+        with pytest.raises(ValueError, match="takes C in"):
+            tln.layer_norm(_randn(gen, 4, c), _randn(gen, c), _randn(gen, c))
 
 
 def _decoder_weights(gen, c=256, dh=128):

@@ -1,12 +1,15 @@
 """K12 and the encoder's flat route against the JAX package, on the CPU.
 
-On the CPU ``flash_attention_relpos`` takes its plain version, held here
-against the JAX package's Pallas kernel in interpret mode (as
-``tests/test_flash_attention.py`` runs it) and its naive oracle, for the
-whole grid and for a row-aligned subset of the queries (a sequence-parallel
-rank's rows). The flat encoder route (grids the window does not divide, and
-on the card the grids that are multiples of 14 but not of 16) is held
-against JAX ``sam_image_encoder``, which on the CPU always takes its flat
+On the CPU ``flash_attention_relpos`` (q, k and v as views of a fused qkv,
+the raw rel-pos tables) takes its plain version, held here against the JAX
+package's Pallas kernel in interpret mode (as
+``tests/test_flash_attention.py`` runs it) on score tables built as the JAX
+encoder builds them, for the whole grid and for a row-aligned subset of the
+queries from a row ``row0`` > 0 (a sequence-parallel rank's rows); its
+attention given the tables (``flash_attention_relpos_plain``) is held
+against the same kernel and the JAX naive oracle. The flat encoder route
+(grids the window does not divide, and on the card the grids that are
+multiples of 14 but not of 16) is held against JAX ``sam_image_encoder``, which on the CPU always takes its flat
 route; and an off-grid pipeline against the JAX pipeline, in float and
 with int8 weights (the flat route's qkv, mlp1 and mlp2 on ``int8_linear``,
 as JAX's ``apply_linear``). Everything runs in fp32, where the TPU kernel's
@@ -62,13 +65,15 @@ def _k12_case(seed, bh, s, hd):
 @pytest.mark.parametrize("s,hd,shard", [(8, 32, None), (8, 32, (1, 4)), (8, 64, (3, 4)),
                                         (8, 80, None), (14, 64, None), (14, 80, (1, 2))])
 def test_relpos_plain_matches_jax_kernel(s, hd, shard):
-    """Whole-grid q, or the rows of shard i of n (NQ = N / n); S = 14 has
-    N = 196 keys, not a multiple of the card kernel's 64-key tiles."""
+    """K12's attention given its score tables: whole-grid q, or the rows of
+    shard i of n (NQ = N / n); S = 14 has N = 196 keys, not a multiple of
+    the card kernel's 64-key tiles."""
     q, k, v, rh, rw = _k12_case(s * hd, 3, s, hd)
     n = s * s
     nq = n if shard is None else n // shard[1]
     sl = slice(0, n) if shard is None else slice(shard[0] * nq, (shard[0] + 1) * nq)
-    got = tfa.flash_attention_relpos(_t(q[:, sl]), _t(k), _t(v), _t(rh[:, sl]), _t(rw[:, sl]), s)
+    got = tfa.flash_attention_relpos_plain(_t(q[:, sl]), _t(k), _t(v), _t(rh[:, sl]),
+                                           _t(rw[:, sl]), s)
     block_q = max(d for d in range(1, nq + 1) if nq % d == 0 and d <= 64)
     kern = jfa.flash_attention_relpos(
         jnp.asarray(q[:, sl]), jnp.asarray(k), jnp.asarray(v), jnp.asarray(rh[:, sl]),
@@ -101,12 +106,72 @@ def test_relpos_score_tables_match_jax(row0, rows):
     np.testing.assert_allclose(rw.numpy(), np.asarray(want_w), rtol=1e-5, atol=1e-5)
 
 
+def _jax_tables(q, rel_h, rel_w, s, row0):
+    """rh, rw (B*heads, NQ, S) of q (B, heads, NQ, hd) from absolute row
+    row0, as JAX ``models/sam/model.py:230-236`` (row0 0) and
+    ``parallel/sp.py:146-164`` build them."""
+    b, heads, nq, hd = q.shape
+    rows = nq // s
+    rel_idx = (jnp.arange(rows) + row0)[:, None] - jnp.arange(s)[None, :] + s - 1
+    rh_t = jnp.take(jnp.asarray(rel_h), rel_idx, axis=0)
+    idx_w = np.arange(s)[:, None] - np.arange(s)[None, :] + s - 1
+    rw_t = jnp.asarray(rel_w)[idx_w]
+    qg = jnp.asarray(q).reshape(b, heads, rows, s, hd)
+    rh = jnp.einsum("bhqwc,qkc->bhqwk", qg, rh_t).reshape(b * heads, nq, s)
+    rw = jnp.einsum("bhqwc,wkc->bhqwk", qg, rw_t).reshape(b * heads, nq, s)
+    return rh, rw
+
+
+def jax_relpos_attention(q, k, v, rel_h, rel_w, s, row0, heads):
+    """JAX ``flash_attention_relpos`` (interpret mode) on (B, T, C) numpy q,
+    k, v with the tables of :func:`_jax_tables` -> (B, NQ, C)."""
+    b, nq, c = q.shape
+    hd = c // heads
+    n = s * s
+
+    def hm(a):  # (B, T, C) -> (B, heads, T, hd)
+        return np.ascontiguousarray(a.reshape(b, -1, heads, hd).transpose(0, 2, 1, 3))
+
+    qh = hm(q)
+    rh, rw = _jax_tables(qh, rel_h, rel_w, s, row0)
+    block_q = max(d for d in range(1, nq + 1) if nq % d == 0 and d <= 64)
+    out = jfa.flash_attention_relpos(
+        jnp.asarray(qh.reshape(b * heads, nq, hd)), jnp.asarray(hm(k).reshape(b * heads, n, hd)),
+        jnp.asarray(hm(v).reshape(b * heads, n, hd)), rh, rw, grid_s=s, block_q=block_q,
+        block_k=n if s == 14 else 2 * s, interpret=True)
+    return np.asarray(out).reshape(b, heads, nq, hd).transpose(0, 2, 1, 3).reshape(b, nq, c)
+
+
+@pytest.mark.parametrize("s,hd,heads,rows,row0", [(8, 64, 2, 8, 0), (14, 64, 2, 14, 0),
+                                                  (8, 80, 2, 2, 4), (14, 80, 1, 7, 7)])
+def test_relpos_entry_matches_jax_kernel(s, hd, heads, rows, row0):
+    """The strided entry (q, k, v as views of one fused qkv; raw rel-pos
+    tables): a whole grid, S = 14 (196 keys), and a rank's rows from row0 >
+    0, at hd 64 and 80."""
+    rng = np.random.default_rng(100 * s + hd + row0)
+    b, c = 2, heads * hd
+    qkv = rng.normal(size=(b, s * s, 3 * c)).astype(np.float32)
+    rel_h, rel_w = (0.5 * rng.normal(size=(2 * s - 1, hd)).astype(np.float32) for _ in range(2))
+    q = qkv[:, row0 * s:(row0 + rows) * s, :c]
+    t = _t(qkv)
+    got = tfa.flash_attention_relpos(t[:, row0 * s:(row0 + rows) * s, :c], t[..., c:2 * c],
+                                     t[..., 2 * c:], _t(rel_h), _t(rel_w), s, row0=row0)
+    want = jax_relpos_attention(q, qkv[..., c:2 * c], qkv[..., 2 * c:], rel_h, rel_w, s, row0,
+                                heads)
+    assert got.shape == (b, rows * s, c)
+    np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)
+
+
 def test_relpos_wrappers_refuse_bad_shapes():
-    q, k, v, rh, rw = (_t(a) for a in _k12_case(0, 2, 8, 16))
+    rng = np.random.default_rng(0)
+    q, k, v = (_t(rng.normal(size=(1, 64, 32))) for _ in range(3))
+    rel = _t(rng.normal(size=(15, 16)))
     with pytest.raises(ValueError, match="grid"):
-        tfa.flash_attention_relpos(q, k, v, rh, rw, 7)
-    with pytest.raises(ValueError, match="score tables"):
-        tfa.flash_attention_relpos(q, k, v, rh[:, :, :4], rw, 8)
+        tfa.flash_attention_relpos(q, k, v, rel, rel, 7)
+    with pytest.raises(ValueError, match="rel-pos tables"):
+        tfa.flash_attention_relpos(q, k, v, rel[:13], rel[:13], 8)
+    with pytest.raises(ValueError, match="from row 1"):
+        tfa.flash_attention_relpos(q, k, v, rel, rel, 8, row0=1)
     with pytest.raises(ValueError, match="whole"):
         tfa.relpos_score_tables(q[:, :12], _t(np.zeros((15, 16))), _t(np.zeros((15, 16))), 8)
 

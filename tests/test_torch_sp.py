@@ -15,6 +15,12 @@ sp = 2 cases:
   window of 14), as the single-device flat route runs its windows;
 * ``PipelineOptions(encoder_parallel="sp")`` on the tiny pipeline at sp = 2.
 
+K12 as a global layer of the sequence-parallel encoder calls it (q a view
+of the rank's own qkv, k and v views of the all-gathered k | v half, the
+rank's first row ``row0``) is held here, in one process, against the JAX
+package's Pallas kernel in interpret mode on the tables JAX
+``parallel/sp.py:146-164`` builds.
+
 The parent holds the ranks' results against JAX ``sam_image_encoder_sp`` on
 the virtual CPU mesh (``tests/test_parallel.py:282-310``), the JAX and the
 port's single-device encoders, and the port's single-device pipeline
@@ -32,6 +38,7 @@ import jax
 import jax.numpy as jnp
 
 from synth import make_cell_image
+from test_torch_offgrid import jax_relpos_attention
 from yolo_sam_inference_tpu.models.sam import model as jsam
 from yolo_sam_inference_tpu.parallel.mesh import make_mesh_axes
 from yolo_sam_inference_tpu.parallel.sp import sam_image_encoder_sp as jax_sp
@@ -42,6 +49,7 @@ from yolo_sam_inference_tpu_torch.models.sam import (
     sam_vit_b,
 )
 from yolo_sam_inference_tpu_torch.models.yolo import YoloConfig
+from yolo_sam_inference_tpu_torch.ops import flash_attention as tfa
 from yolo_sam_inference_tpu_torch.ops.metrics import METRIC_KEYS
 from yolo_sam_inference_tpu_torch.parallel.launch import pick_backend, run_ranks
 from yolo_sam_inference_tpu_torch.parallel.sp import rows_per_rank
@@ -52,6 +60,7 @@ from yolo_sam_inference_tpu_torch.weights import load_tree, save_tree
 torch.set_num_threads(1)
 
 ENC_TOL = dict(rtol=2e-4, atol=2e-4)  # as tests/test_parallel.py holds JAX's sp encoder
+ATTN_TOL = dict(rtol=2e-4, atol=2e-5)  # fp32 on both sides; only the summation order differs
 OPTS = dict(batch_size=4, max_det=8, metric_crop=48, yolo_size=64, nms_candidates=64,
             sam_encoder_size=64, compute_dtype=torch.float32)
 
@@ -216,3 +225,23 @@ def test_backend_choice_and_tree_files(tmp_path):
     back = load_tree(tmp_path / "t.npz")
     assert back["none"] is None and back["a"][1]["b"].dtype == np.float32
     np.testing.assert_array_equal(back["a"][0], tree["a"][0])
+
+
+@pytest.mark.parametrize("s,hd,sp,rank", [(8, 64, 2, 1), (14, 80, 2, 1), (8, 80, 4, 2)])
+def test_relpos_entry_on_a_rank_share_matches_jax_kernel(s, hd, sp, rank):
+    """K12 on rank ``rank`` of ``sp``: its own q rows (a view of its qkv,
+    row0 = rank * S / sp > 0) over the gathered k | v of every rank (views
+    with a token stride of 2C)."""
+    rng = np.random.default_rng(10 * s + hd + rank)
+    b, heads = 2, 2
+    c, hl = heads * hd, s // sp
+    qkv = [rng.normal(size=(b, hl * s, 3 * c)).astype(np.float32) for _ in range(sp)]
+    rel_h, rel_w = (0.5 * rng.normal(size=(2 * s - 1, hd)).astype(np.float32) for _ in range(2))
+    kv = np.concatenate([part[..., c:] for part in qkv], axis=1)  # rank order is row order
+    own, kvt = torch.from_numpy(qkv[rank]), torch.from_numpy(kv)
+    got = tfa.flash_attention_relpos(own[..., :c], kvt[..., :c], kvt[..., c:],
+                                     torch.from_numpy(rel_h), torch.from_numpy(rel_w), s,
+                                     row0=rank * hl)
+    want = jax_relpos_attention(qkv[rank][..., :c], kv[..., :c], kv[..., c:], rel_h, rel_w, s,
+                                rank * hl, heads)
+    np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)

@@ -2,7 +2,7 @@
 
 The layout mirrors the JAX package (``models/yolo``, ``models/sam``, ``ops``,
 ``pipeline``). The port imports ``torch`` and never ``jax`` nor the JAX
-package. Kernels written by hand for the card live in ``csrc/`` (CUDA C++)
-and in ``ops/`` (Triton); each sits beside its plain PyTorch version, which
-CPU tensors take.
+package. Kernels written by hand for the card live in ``csrc/`` (CUDA C++);
+each wrapper in ``ops/`` sits beside its plain PyTorch version, which CPU
+tensors take.
 """

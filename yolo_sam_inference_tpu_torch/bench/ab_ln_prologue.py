@@ -1,11 +1,11 @@
-"""``gemm_bf16`` with its LayerNorm against the Triton LayerNorm + the bare product.
+"""``gemm_bf16`` with its LayerNorm against the LayerNorm kernel + the bare product.
 
     python -m yolo_sam_inference_tpu_torch.bench.ab_ln_prologue
 
 At the config-1 batch-32 shapes (32768 rows, C = 768): K1 (LN1 + qkv) and
 the MLP's first product (add + LN2 + GELU). "fused" is one ``gemm_bf16``
 call (its own LN pass, then the product on the normalised rows); "separate"
-is ``layer_norm`` (K5's Triton kernel, residual form for the MLP) followed by
+is ``layer_norm`` (K5's kernel, residual form for the MLP) followed by
 ``gemm_bf16`` without its LN. Each is run both ways on the same bf16 inputs,
 timed in turns (fused, separate, separate, fused, CUDA events, median of 20),
 and checked against the fp32 plain version. Needs one card.

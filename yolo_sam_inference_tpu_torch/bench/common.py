@@ -54,22 +54,49 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def device_ms(fn, name: str, reps: int = 20):
     """Mean device time in ms of the kernels whose name holds ``name`` in one
-    call of ``fn()``, from ``torch.profiler`` (CUPTI) over ``reps`` calls after
-    a warm-up; None where the profiler recorded no such kernel. Unlike
-    :func:`median_ms` it leaves out the host time of a short call."""
+    call of ``fn()``, from ``torch.profiler`` (CUPTI); None where the
+    profiler recorded none. Unlike :func:`median_ms` it leaves out the host
+    time of a short call.
+
+    The profiler may return no record for the last kernels of a session (on
+    an H100, a session of one call often returned none, and late in
+    ``chip_smoke.py`` a session of 20 calls 0-8 of 20), so one session runs ``reps``
+    calls before and after the ``reps`` it measures, and keeps the kernels
+    that start inside the measured window (a ``record_function`` range). A
+    window whose count of records is not a multiple of ``reps`` is not
+    taken (None), and a line on stderr says so."""
+    import sys
+
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    mark = "device_ms window"  # a range on the CPU's timeline, and an annotation on the card's
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA and name in e.name]
-    return sum(us) / reps / 1e3 if us else None
+        with record_function(mark):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    window = [e.time_range for e in events if e.name == mark and e.device_type == DeviceType.CPU]
+    if not window:
+        return None
+    us = [e.time_range.end - e.time_range.start for e in events
+          if e.device_type == DeviceType.CUDA and name in e.name and e.name != mark
+          and window[0].start <= e.time_range.start <= window[0].end]
+    if not us or len(us) % reps:
+        print(f"device_ms {name!r}: {len(us)} kernel records in a window of {reps} calls: "
+              f"not measured", file=sys.stderr, flush=True)
+        return None
+    return sum(us) / reps / 1e3
 
 
 def cell_frames(rng, n: int, size: int, cells: int = 12):

@@ -16,7 +16,16 @@ per image) at T 196, 784, 1024 and 4096; ``fused_ln_matmul`` (K1) and
 depthwise) at the three TinyViT stages, with ``ln=`` where the tree's
 wrapper takes it (one pass writing y and LN(y)), else y alone. Beside each
 K17 and K16 time, the kernel's device time from ``torch.profiler``; and
-K16's whole tail (``dw_ln_mlp``) at the three stages. Prints
+K16's whole tail (``dw_ln_mlp``) at the three stages; K12
+(``flash_attention_relpos``) at its three shapes (a sequence-parallel
+rank's share of ViT-H's 64 x 64 global layer, ViT-B's 40 x 40 global layer
+and 14 x 14 windows of the 640 canvas), the kernel alone on q, k and v
+views with the raw rel-pos tables, and at the flat shapes the route the
+path runs around it (``relpos_grid_attention``, fused qkv in, output out);
+the LayerNorm (K5) at the neck's 32768 x 256, the mask head's 991232 x 64
+and the decoder's 3584 x 256 rows and its residual form (K11d) at 51200 x
+768, beside ``F.layer_norm`` with its weights cast beforehand. Beside each
+K12 and LayerNorm time, the device time of the kernels of the call. Prints
 the card, then one ``[TAG] name: ms`` line per call. Needs one card.
 """
 
@@ -51,6 +60,7 @@ def main() -> None:
     from yolo_sam_inference_tpu_torch.ops import conv2d_fused as tcv
     from yolo_sam_inference_tpu_torch.ops import decoder_fused as dec
     from yolo_sam_inference_tpu_torch.ops import dw_ln_mlp as tdw
+    from yolo_sam_inference_tpu_torch.ops import flash_attention as tfa
     from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
 
     assert tln.__file__.startswith(args.tree), tln.__file__
@@ -113,6 +123,40 @@ def main() -> None:
         w2, b2 = rn(4 * c, c, std=(4 * c) ** -0.5).to(bf), rn(c, std=0.1)
         say(f"K16 tail stage{si}", lambda: tdw.dw_ln_mlp(x, wd, bd, ln[0], ln[1], w1, b1, w2, b2))
         del x
+
+    # K12: (label, images, heads, hd, grid side, query rows, first row)
+    for label, bi, heads, hd, s, rows, row0 in (
+            ("sp ViT-H rank 1 of 2", 32, 16, 80, 64, 32, 32),
+            ("flat ViT-B global 40x40", 32, 12, 64, 40, 40, 0),
+            ("flat ViT-B windows 14x14", 32 * 9, 12, 64, 14, 14, 0)):
+        c, n, nq = heads * hd, s * s, rows * s
+        rel_h, rel_w = rn(2 * s - 1, hd, std=0.3).to(bf), rn(2 * s - 1, hd, std=0.3).to(bf)
+        own = rn(bi, nq, 3 * c).to(bf)  # the rank's qkv, or the whole grid's
+        kv = rn(bi, n, 2 * c).to(bf) if row0 else own[..., c:]
+        q, k, v = own[..., :c], kv[..., :c], kv[..., c:2 * c]
+        say(f"K12 kernel {label}",
+            lambda: tfa.flash_attention_relpos(q, k, v, rel_h, rel_w, s, row0=row0),
+            "flash_attn_relpos")
+        if rows == s:  # a whole grid: the path's call is relpos_grid_attention
+            qkv = own.reshape(bi, s, s, 3 * c)
+            say(f"K12 route {label}", lambda: tfa.relpos_grid_attention(qkv, rel_h, rel_w, heads),
+                "")
+        del own, kv, q, k, v
+        torch.cuda.empty_cache()
+
+    # K5 and K11d: (label, rows, C, residual)
+    for label, rows, c, res in (("neck 32768x256", 32768, 256, False),
+                                ("up_ln 991232x64", 991232, 64, False),
+                                ("decoder 3584x256", 3584, 256, False),
+                                ("K11d 51200x768", 51200, 768, True)):
+        x = rn(rows, c).to(bf)
+        r = rn(rows, c).to(bf) if res else None
+        sc, sh = 1.0 + rn(c, std=0.1), rn(c, std=0.1)
+        sc16, sh16 = sc.to(bf), sh.to(bf)
+        say(f"layer_norm {label}", lambda: tln.layer_norm(x, sc, sh, 1e-6, residual=r), "")
+        say(f"F.layer_norm {label} (x alone)",
+            lambda: torch.nn.functional.layer_norm(x, (c,), sc16, sh16, 1e-6), "")
+        del x, r
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ CATEGORIES = (  # (substring of the kernel name, category); first match wins
     ("quant_chunks_kernel", "int8 hidden requantisation"),
     ("window_attn_relpos_kernel", "window_attn_relpos"),
     ("flash_attn_relpos_kernel", "flash_attention_relpos (K12)"),
+    ("layer_norm_kernel", "layer_norm (K5, K11d)"),
     ("keys_stream_kernel", "keys_stream"),
     ("tinyvit_attn_kernel", "tinyvit_attn"), ("mbconv_kernel", "mbconv / patch merge"),
     ("dw3x3_ln_kernel", "dw_conv3x3 (+ LN)"), ("conv2d_act", "conv2d_act (K17)"),
@@ -44,8 +45,6 @@ CATEGORIES = (  # (substring of the kernel name, category); first match wins
 
 def category(name: str) -> str:
     low = name.lower()
-    if low == "kernel":  # the Triton LayerNorm's jit name
-        return "layer_norm (Triton)"
     for key, cat in CATEGORIES:
         if key in low:
             return cat

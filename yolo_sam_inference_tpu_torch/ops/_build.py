@@ -40,8 +40,9 @@ _SIGNATURES = {
     "ysi_gemm_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # qkv, rel_h, rel_w, out, b, s, heads, hd, window, stream
     "ysi_window_attn_relpos": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # q, k, v, rh, rw, out, bh, nq, n, s, hd, stream
-    "ysi_flash_attn_relpos": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # q, k, v, rel_h, rel_w, out, b, heads, nq, s, row0, hd, q token / image
+    # strides, k and v token / image strides, stream
+    "ysi_flash_attn_relpos": (_P,) * 6 + (_I,) * 10 + (_P,),
     # keys, pe, kq, vq, wq, bq, wo, bo, ln_s, ln_b, wk, bk, wv, bv, qn,
     # out_keys, out_kp, out_vp, part, n, t, tq, tq2, k_share, scale, eps, do_i2t, stream
     "ysi_keys_stream": (_P,) * 19 + (_I, _I, _I, _I, _I, _F, _F, _I, _P),
@@ -67,6 +68,8 @@ _SIGNATURES = {
     "ysi_dw_conv3x3": (_P,) * 7 + (_I,) * 4 + (_F, _P),
     # x, w, bias, out, b, h, w, ci, xs, co, wrows, wld, k, stride, act, stream
     "ysi_conv2d_act": (_P,) * 4 + (_I,) * 11 + (_P,),
+    # x, r, y, out, scale, bias, rows, c, eps, stream
+    "ysi_layer_norm": (_P,) * 6 + (_I, _I, _F, _P),
 }
 # Run once after loading (shared-memory attributes of the kernels).
 _INITS = ("ysi_gemm_init", "ysi_gemm_int8_init", "ysi_window_attn_init",

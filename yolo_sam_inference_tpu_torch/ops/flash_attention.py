@@ -21,17 +21,21 @@ Dispatch is by the tensor's device: CPU takes the plain version, CUDA
 launches the kernel or raises. ``window_attention.launches`` counts launches,
 and ``window_attention.by_window`` counts them per window size.
 
-:func:`flash_attention_relpos` (K12) takes q ``(BH, NQ, hd)`` and k, v
-``(BH, N, hd)`` over an ``S x S`` key grid (``N = S^2``), with the rel-pos
-score tables ``rh``, ``rw`` ``(BH, NQ, S)`` in fp32 that
-:func:`relpos_score_tables` builds from the unscaled q. NQ is a row-aligned
-subset of the grid when a sequence-parallel rank holds only some of the
-query rows. On the card it launches ``csrc/flash_attention_relpos.cu``;
+:func:`flash_attention_relpos` (K12) takes q ``(B, NQ, C)`` and k, v
+``(B, N, C)`` over an ``S x S`` key grid (``N = S^2``, ``C = heads * hd``)
+as strided views with contiguous channels, e.g. the thirds of the fused
+qkv, and the raw ``(2S-1, hd)`` rel-pos tables; the queries are whole grid
+rows from absolute row ``row0`` (a sequence-parallel rank holds only some
+of the rows). On the card it launches ``csrc/flash_attention_relpos.cu``,
+which reads q, k and v in place and builds the rel-pos terms inside;
 ``flash_attention_relpos.launches`` counts launches and ``.by_nq`` counts
-them per query count. :func:`relpos_grid_attention` takes the fused qkv
-layout of :func:`window_attention` and runs K12 over each whole grid of the
-batch: the flat route's grids and windows, and a sequence-parallel rank's
-windows of ``K12_WINDOW``.
+them per query count. Its plain version, :func:`relpos_attention_plain`,
+composes :func:`relpos_score_tables` (the fp32 ``(BH, NQ, S)`` tables, as
+the JAX package builds them) and :func:`flash_attention_relpos_plain`.
+:func:`relpos_grid_attention` takes the fused qkv layout of
+:func:`window_attention` and runs K12 over each whole grid of the batch:
+the flat route's grids and windows, and a sequence-parallel rank's windows
+of ``K12_WINDOW``.
 """
 
 from __future__ import annotations
@@ -131,8 +135,8 @@ window_attention.by_window = {}  # launches per window size
 
 # ------------------------------------------------------------------------- K12
 
-# The grid sides S the K12 kernel takes: its block stages the query tile's
-# (64, S) score tables in shared memory.
+# The grid sides S the K12 kernel takes: its key tiles are whole key rows of
+# S rounded up to 8, and it builds the q.R terms of up to 2S-1 table rows.
 RELPOS_MAX_GRID = 64
 
 
@@ -162,7 +166,9 @@ def relpos_score_tables(q, rel_h, rel_w, s: int, row0: int = 0):
 
 
 def flash_attention_relpos_plain(q, k, v, rh, rw, grid_s: int):
-    """fp32 version of :func:`flash_attention_relpos` (output in v's dtype):
+    """K12's attention in fp32 given its score tables (output in v's dtype):
+    q ``(BH, NQ, hd)``, k, v ``(BH, N, hd)``, rh, rw ``(BH, NQ, S)`` from
+    :func:`relpos_score_tables`;
     ``softmax(q.k^T hd^-0.5 + rh[:, :, j // S] + rw[:, :, j % S]) . v``."""
     bh, nq, hd = q.shape
     n = k.shape[1]
@@ -177,36 +183,78 @@ def flash_attention_relpos_plain(q, k, v, rh, rw, grid_s: int):
     return torch.cat(out).to(v.dtype)
 
 
-def flash_attention_relpos(q, k, v, rh, rw, grid_s: int):
-    """K12: attention of q ``(BH, NQ, hd)`` over the ``grid_s^2`` keys of
-    k, v ``(BH, N, hd)`` with the score tables rh, rw ``(BH, NQ, grid_s)``;
-    softmax in fp32, output ``(BH, NQ, hd)`` in v's dtype.
+def _heads_major(t, heads: int):
+    """(B, T, heads * hd) -> (B * heads, T, hd)."""
+    b, n, c = t.shape
+    return t.reshape(b, n, heads, c // heads).transpose(1, 2).reshape(b * heads, n, c // heads)
 
-    The kernel takes q, k, v in bf16 and the tables in fp32, hd 64 or 80,
-    grid_s up to 64 and any N (the tail of a 64-key tile is masked)."""
-    bh, nq, hd = q.shape
+
+def relpos_attention_plain(q, k, v, rel_h, rel_w, grid_s: int, row0: int = 0):
+    """fp32 version of :func:`flash_attention_relpos` (output in v's dtype):
+    the score tables by :func:`relpos_score_tables`, the attention by
+    :func:`flash_attention_relpos_plain`."""
+    b, nq, c = q.shape
+    heads = c // rel_h.shape[-1]
+    qh = _heads_major(q, heads)
+    rh, rw = relpos_score_tables(qh, rel_h, rel_w, grid_s, row0=row0)
+    o = flash_attention_relpos_plain(qh, _heads_major(k, heads), _heads_major(v, heads), rh, rw,
+                                     grid_s)
+    return o.reshape(b, heads, nq, -1).transpose(1, 2).reshape(b, nq, c)
+
+
+def _image_stride(t) -> int:
+    """Elements between images of a (B, T, C) view (any value where B is 1)."""
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1] * t.stride(1)
+
+
+def flash_attention_relpos(q, k, v, rel_h, rel_w, grid_s: int, row0: int = 0):
+    """K12: attention of q ``(B, NQ, C)``, whole grid rows from absolute row
+    ``row0``, over the ``grid_s^2`` keys of k, v ``(B, N, C)`` with SAM's
+    decomposed rel-pos bias from the raw ``(2 grid_s - 1, hd)`` tables
+    (``C = heads * hd``, hd from the tables); softmax in fp32, output
+    ``(B, NQ, C)`` in v's dtype, contiguous.
+
+    The kernel takes bf16 everywhere, hd 64 or 80, grid_s up to 64; q, k and
+    v may be strided views (the thirds of a fused qkv) with contiguous
+    channels, token and image strides multiples of 8 elements and k, v of
+    the same strides."""
+    b, nq, c = q.shape
+    hd = rel_h.shape[-1]
     n = grid_s * grid_s
-    if tuple(k.shape) != (bh, n, hd) or tuple(v.shape) != (bh, n, hd) or nq % grid_s:
-        raise ValueError(f"flash_attention_relpos: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} on a {grid_s} x {grid_s} grid")
-    if tuple(rh.shape) != (bh, nq, grid_s) or rw.shape != rh.shape:
-        raise ValueError(f"flash_attention_relpos: score tables {tuple(rh.shape)}, "
-                         f"{tuple(rw.shape)}, need {(bh, nq, grid_s)}")
+    if (tuple(k.shape) != (b, n, c) or tuple(v.shape) != (b, n, c) or c % hd
+            or nq % grid_s or row0 < 0 or row0 + nq // grid_s > grid_s):
+        raise ValueError(f"flash_attention_relpos: q {tuple(q.shape)} from row {row0}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} on a {grid_s} x {grid_s} "
+                         f"grid at hd {hd}")
+    if tuple(rel_h.shape) != (2 * grid_s - 1, hd) or rel_w.shape != rel_h.shape:
+        raise ValueError(f"flash_attention_relpos: rel-pos tables {tuple(rel_h.shape)}, "
+                         f"{tuple(rel_w.shape)}, need {(2 * grid_s - 1, hd)}")
     if _on_cpu(q):
-        return flash_attention_relpos_plain(q, k, v, rh, rw, grid_s)
+        return relpos_attention_plain(q, k, v, rel_h, rel_w, grid_s, row0)
     if hd not in KERNEL_HEAD_DIMS or grid_s > RELPOS_MAX_GRID:
         raise ValueError(f"flash_attention_relpos kernel takes hd=64 or hd=80 and a grid side "
                          f"up to {RELPOS_MAX_GRID}; got hd={hd}, grid_s={grid_s}")
-    for name, t, dtype in (("q", q, torch.bfloat16), ("k", k, torch.bfloat16),
-                           ("v", v, torch.bfloat16), ("rh", rh, torch.float32),
-                           ("rw", rw, torch.float32)):
-        if t.dtype != dtype or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"flash_attention_relpos kernel: {name} must be contiguous {dtype} "
-                             f"on {q.device}, got {t.dtype} on {t.device}")
-    out = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("rel_h", rel_h), ("rel_w", rel_w)):
+        if t.dtype != torch.bfloat16 or t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_relpos kernel: {name} must be bf16 on {q.device} "
+                             f"with contiguous channels, got {t.dtype} on {t.device}, strides "
+                             f"{t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_relpos kernel: {name} is not 16-byte aligned")
+    if not (rel_h.is_contiguous() and rel_w.is_contiguous()):
+        raise ValueError("flash_attention_relpos kernel: the rel-pos tables must be contiguous")
+    if k.stride() != v.stride():
+        raise ValueError(f"flash_attention_relpos kernel: k and v strides differ: {k.stride()}, "
+                         f"{v.stride()}")
+    strides = (q.stride(1), _image_stride(q), k.stride(1), _image_stride(k))
+    if any(st % 8 for st in strides):
+        raise ValueError(f"flash_attention_relpos kernel: token and image strides {strides} "
+                         f"must be multiples of 8 elements")
+    out = torch.empty((b, nq, c), dtype=torch.bfloat16, device=q.device)
     err = kernels().ysi_flash_attn_relpos(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
-        bh, nq, n, grid_s, hd, torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+        out.data_ptr(), b, c // hd, nq, grid_s, row0, hd, *strides,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(err, "flash_attention_relpos")
     flash_attention_relpos.launches += 1
@@ -221,14 +269,14 @@ flash_attention_relpos.by_nq = {}  # launches per query count NQ
 def relpos_grid_attention(qkv, rel_h, rel_w, heads: int, plain: bool = False):
     """(B, S, S, 3C) fused qkv + raw (2S-1, hd) rel-pos tables -> (B, S, S, C):
     attention over all S x S tokens of each grid of the batch on K12 (a whole
-    token grid, or a batch of windows), with the score tables at grid side S
-    from row 0. ``plain`` takes K12's plain version on any device."""
+    token grid, or a batch of windows), q, k and v read in place from qkv.
+    ``plain`` takes K12's plain version on any device."""
     b, s, _, c3 = qkv.shape
     c = c3 // 3
-    hd = c // heads
-    t = qkv.reshape(b, s * s, 3, heads, hd).permute(2, 0, 3, 1, 4)  # (3, B, H, N, hd)
-    q, k, v = (t[i].reshape(b * heads, s * s, hd).contiguous() for i in range(3))
-    rh, rw = relpos_score_tables(q, rel_h, rel_w, s)
-    attn = flash_attention_relpos_plain if plain else flash_attention_relpos
-    o = attn(q, k, v, rh, rw, s).reshape(b, heads, s, s, hd).permute(0, 2, 3, 1, 4)
+    if c3 != 3 * c or c != heads * rel_h.shape[-1]:
+        raise ValueError(f"relpos_grid_attention: qkv {tuple(qkv.shape)} is not 3 x {heads} "
+                         f"heads of {rel_h.shape[-1]}")
+    flat = qkv.reshape(b, s * s, c3)
+    attn = relpos_attention_plain if plain else flash_attention_relpos
+    o = attn(flat[..., :c], flat[..., c:2 * c], flat[..., 2 * c:], rel_h, rel_w, s)
     return o.reshape(b, s, s, c)

@@ -17,12 +17,13 @@ sources carry these functions on the card:
   requantisation of the tail's hidden; and :func:`int8_linear`, the flat
   route's w8a8 projections (the JAX package's unfused ``int8_linear``): the
   quantisation pass without the LayerNorm, then one int8 GEMM.
-* ``layer_norm`` (Triton, below): K5, a row LayerNorm with fp32 statistics
-  and an optional residual add, which covers the JAX package's
-  ``fused_ln`` (:761) and ``fused_add_ln`` (:56). It is a row reduction plus
-  an elementwise pass, so it is memory bound: one read of x (and the
-  residual) and one write per output, one row per program. It takes any C
-  (256 on the neck and decoder, 64 in the mask head).
+* ``csrc/layer_norm.cu``: :func:`layer_norm`, K5, a row LayerNorm with fp32
+  statistics and an optional residual add, which covers the JAX package's
+  ``fused_ln`` (:761) and ``fused_add_ln`` (:56). It is memory bound: one
+  read of x (and the residual) and one write per output; a group of lanes
+  per row moves 16-byte vectors. It takes the paths' widths and no other:
+  C 256 on the necks and the decoder, 64 in the mask head, 768, 1024 and
+  1280 on the flat route at ViT-B, -L and -H.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain PyTorch
 version, a CUDA tensor launches the kernel (or raises). There is no
@@ -31,15 +32,13 @@ fallback. Each kernel wrapper counts its launches in ``.launches``.
 
 from __future__ import annotations
 
-import functools
-import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from . import quant
-from ._build import BUILD_ROOT, check, kernels
+from ._build import check, kernels
 from .quant import int_dot, quant_rows
 
 
@@ -162,59 +161,45 @@ def gemm_bf16(a, w, bias=None, a2=None, ln=None, gelu=False, r1=None, r2=None):
 gemm_bf16.launches = 0
 
 
-@functools.lru_cache(maxsize=1)
-def _triton_layer_norm():
-    """Compile-on-first-use Triton kernel (triton exists only on the card's host).
-    Its cache goes beside the CUDA build, inside the checkout."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_ROOT.parent / "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def kernel(x_ptr, r_ptr, y_ptr, out_ptr, w_ptr, b_ptr, n_cols, eps,
-               HAS_RES: tl.constexpr, BLOCK: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK)
-        mask = cols < n_cols
-        off = row * n_cols + cols
-        x = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
-        if HAS_RES:
-            x = x + tl.load(r_ptr + off, mask=mask, other=0.0).to(tl.float32)
-            y = x.to(y_ptr.dtype.element_ty)
-            tl.store(y_ptr + off, y, mask=mask)
-            x = y.to(tl.float32)  # normalise the stored (rounded) sum
-        mean = tl.sum(x, axis=0) / n_cols
-        d = tl.where(mask, x - mean, 0.0)
-        var = tl.sum(d * d, axis=0) / n_cols
-        rstd = 1.0 / tl.sqrt(var + eps)
-        w = tl.load(w_ptr + cols, mask=mask, other=0.0)
-        b = tl.load(b_ptr + cols, mask=mask, other=0.0)
-        tl.store(out_ptr + off, (d * rstd * w + b).to(out_ptr.dtype.element_ty), mask=mask)
-
-    return kernel, triton.next_power_of_2
+# The widths the LayerNorm kernel takes, those of the ported paths: 64 (the
+# mask head's up_ln), 256 (the SAM and TinyViT necks, the decoder), 768,
+# 1024 and 1280 (the flat route's residual LayerNorms at ViT-B, -L, -H).
+LN_WIDTHS = (64, 256, 768, 1024, 1280)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-6, residual=None):
     """Row LayerNorm over the last axis (K5); with ``residual`` returns
-    ``(x + residual, LayerNorm(x + residual))`` like ``fused_add_ln`` (K11d).
-    The two forms count their launches apart: ``.launches`` and
-    ``.residual_launches``."""
+    ``(x + residual, LayerNorm(x + residual))`` like ``fused_add_ln`` (K11d),
+    the LayerNorm of the stored bf16 sum. The two forms count their launches
+    apart: ``.launches`` and ``.residual_launches``.
+
+    The kernel (``csrc/layer_norm.cu``) takes bf16 x (and residual) with C
+    one of ``LN_WIDTHS``."""
     if _on_cpu(x):
         return layer_norm_plain(x, scale, bias, eps, residual)
-    kernel, next_pow2 = _triton_layer_norm()
     c = x.shape[-1]
+    if c not in LN_WIDTHS:
+        raise ValueError(f"layer_norm kernel takes C in {LN_WIDTHS}, got {c}")
     x2 = x.contiguous()
     r2 = residual.contiguous() if residual is not None else None
-    if r2 is not None and (r2.shape != x2.shape or r2.dtype != x2.dtype):
-        raise ValueError("layer_norm: residual must match x in shape and dtype")
+    _check_bf16("layer_norm x", x2, x2.shape, x2.device)
+    if r2 is not None:
+        _check_bf16("layer_norm residual", r2, x2.shape, x2.device)
+    scale32, bias32 = _f32(scale), _f32(bias)
+    for name, t in (("scale", scale32), ("bias", bias32)):
+        if tuple(t.shape) != (c,) or t.device != x2.device or t.data_ptr() % 16:
+            raise ValueError(f"layer_norm kernel: {name} must be ({c},) on {x2.device}, "
+                             f"16-byte aligned; got {tuple(t.shape)} on {t.device}")
     out = torch.empty_like(x2)
-    y = torch.empty_like(x2) if r2 is not None else out
+    y = torch.empty_like(x2) if r2 is not None else None
     rows = x2.numel() // c
-    block = next_pow2(c)
-    kernel[(rows,)](
-        x2, r2 if r2 is not None else x2, y, out, _f32(scale), _f32(bias), c, float(eps),
-        HAS_RES=r2 is not None, BLOCK=block, num_warps=4 if block >= 1024 else 1,
+    if rows == 0:  # nothing to launch
+        return out if r2 is None else (y, out)
+    err = kernels().ysi_layer_norm(
+        _ptr(x2), _ptr(r2), _ptr(y), _ptr(out), _ptr(scale32), _ptr(bias32), rows, c,
+        float(eps), torch.cuda.current_stream(x2.device).cuda_stream,
     )
+    check(err, "layer_norm")
     if r2 is None:
         layer_norm.launches += 1
         return out

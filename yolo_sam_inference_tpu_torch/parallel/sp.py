@@ -15,9 +15,9 @@ holding rows ``[r * S/sp, (r + 1) * S/sp)`` of every image:
   does not take, through K12 at grid side 14 as the single-card flat route
   runs its windows (one rule on every device); the projection; no
   communication;
-* global layers: q stays local; k and v are all-gathered over the group in
-  rank (= row) order, and K12 runs on the local q rows with score tables
-  built at the rank's absolute first row;
+* global layers: q stays local; the k | v half of the qkv is all-gathered
+  over the group in rank (= row) order, and K12 runs on the local q rows,
+  its rel-pos terms taken at the rank's absolute first row;
 * block tails (K4/K10), LayerNorms, residuals: token-local;
 * neck: its 3x3 conv needs a one-row halo, so the grid is gathered once at
   the end and the neck runs on every rank.
@@ -35,7 +35,6 @@ from ..ops.flash_attention import (
     K12_WINDOW,
     flash_attention_relpos,
     relpos_grid_attention,
-    relpos_score_tables,
     window_attention,
 )
 from ..ops.fused_ln import fused_ln_matmul, fused_ln_mlp, linear
@@ -90,25 +89,22 @@ def _window_attention_local(layer, x, heads: int, ws: int):
     return linear(h, layer.proj.w, layer.proj.b)
 
 
-def _global_attention_sp(layer, x, heads: int, s: int, group):
+def _global_attention_sp(layer, x, s: int, group):
     """A global layer's attention on a row block x (B, Hl, S, C), before
-    LN1: local q against the group's all-gathered k and v, the rel-pos score
-    tables taken at the rank's absolute rows (``rank * Hl``), K12 on the
-    ``Hl * S`` local queries, the projection."""
+    LN1: local q against the group's all-gathered k and v (one gather of the
+    k | v half of the rank's qkv), K12 on the ``Hl * S`` local queries from
+    the rank's absolute first row (``rank * Hl``), q, k and v read in place,
+    the projection."""
     b, hl, ww, c = x.shape
-    hd = c // heads
     nl = hl * ww
     ln1 = layer.ln1
     qkv = fused_ln_matmul(x, ln1.scale, ln1.bias, layer.qkv.w, layer.qkv.b, eps=ln1.eps)
-    t = qkv.reshape(b, nl, 3, heads, hd).permute(2, 0, 3, 1, 4)  # (3, B, H, nl, hd)
-    q = t[0].reshape(b * heads, nl, hd).contiguous()
-    # (B, H, nl, hd) from every rank -> (B, H, S*S, hd): rank order is row order
-    k = _all_gather(t[1], group, dim=2).reshape(b * heads, s * s, hd)
-    v = _all_gather(t[2], group, dim=2).reshape(b * heads, s * s, hd)
+    qkv = qkv.reshape(b, nl, 3 * c)
+    # (B, nl, 2C) from every rank -> (B, S*S, 2C): rank order is row order
+    kv = _all_gather(qkv[..., c:], group, dim=1)
     row0 = dist.get_rank(group) * hl
-    rh, rw = relpos_score_tables(q, layer.rel_pos_h, layer.rel_pos_w, s, row0=row0)
-    o = flash_attention_relpos(q, k, v, rh, rw, s)
-    o = o.reshape(b, heads, hl, ww, hd).permute(0, 2, 3, 1, 4)
+    o = flash_attention_relpos(qkv[..., :c], kv[..., :c], kv[..., c:], layer.rel_pos_h,
+                               layer.rel_pos_w, s, row0=row0)
     return linear(o.reshape(b, hl, ww, c), layer.proj.w, layer.proj.b)
 
 
@@ -121,7 +117,7 @@ def _encoder_local(encoder, pix_local, row0: int, group):
     x = encoder.embed(pix_local, row0)
     for i, layer in enumerate(encoder.layers):
         if i in cfg.global_attn_indexes:
-            h = _global_attention_sp(layer, x, heads, s, group)
+            h = _global_attention_sp(layer, x, s, group)
         else:
             h = _window_attention_local(layer, x, heads, ws)
         ln2 = layer.ln2
