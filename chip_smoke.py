@@ -43,7 +43,9 @@ failure ends the run with a non-zero exit and no result line:
 5. big kernels: the kernels of the ViT-L/H paths at their batch-32 shapes:
    ``gemm_bf16`` at the ViT-L/H qkv and MLP (K10) widths and the attention at
    hd 80 against fp32 plain versions, and the w8a8 kernels (K11c, K11a,
-   K11b) against their plain int8 versions on the same bf16 inputs;
+   K11b) against their plain int8 versions on the same bf16 inputs, beside
+   ``torch._int_mm`` of their bare int8 products (no one call computes their
+   functions);
 6. big slices: ``facebook/sam-vit-large`` (max_det 50, frames with 40 cells:
    config 3's multi-box traffic) and ``facebook/sam-vit-huge`` (max_det 16),
    each in bf16 and with ``quant="int8"`` from one parameter tree: a batch of
@@ -105,7 +107,9 @@ failure ends the run with a non-zero exit and no result line:
    then ViT-B at the 896 canvas the same way (each rank's 14 x 14 windows
    on K12), against phase 12's single-card 896 and fp32 plain embeddings;
 14. result: the kernel table as one JSON line (each kernel's launches on its
-   path, error, ms, plain ms, the bound for the same work on an H100 and
+   path, the window attention's counted by window: windows of 16 run on
+   ``window_attn_relpos.cu``, the others on ``flash_attention_relpos.cu``;
+   error, ms, plain ms, the bound for the same work on an H100 and
    what sets it, and the time of one PyTorch call that computes the same
    function where there is one, all by CUDA events; beside them
    "device_ms" and "library_device_ms", the same calls' device times from
@@ -181,6 +185,22 @@ def _bound(flops: float, nbytes: float, rate: str = "bf16") -> tuple:
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
+
+
+def _int_mm_ms(a, w) -> float:
+    """Median ms of ``torch._int_mm(a, w)``, the bare int8 product: a
+    library yardstick beside the w8a8 kernels, which the port never calls.
+    Some builds take the weight only column-major: then its column-major
+    copy, made before timing."""
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+
+    try:
+        torch._int_mm(a, w)
+    except RuntimeError:
+        w = w.t().contiguous().t()
+    return median_ms(lambda: torch._int_mm(a, w))
 
 def _attn_flops(windows: int, heads: int, t: int, hd: int, rel_rows: int = 0) -> float:
     """Window attention: q.k and p.v over t keys (4 t^2 hd a window and head),
@@ -652,6 +672,7 @@ def _big_kernel_phase(card: str) -> dict:
     errs: dict = {}
     times: dict = {}
     bounds: dict = {}
+    int_mm: dict = {}
     for model, _, _, c, heads, hidden in BIG_MODELS:
         tag = "ViT-L" if c == 1024 else "ViT-H"
         x, h = randn(m, c).to(bf), randn(m, c).to(bf)
@@ -704,9 +725,17 @@ def _big_kernel_phase(card: str) -> dict:
         times[name.split()[1] + f" {tag}"] = (median_ms(k11), median_ms(k11p, reps=5))
         bounds[name.split()[1] + f" {tag}"] = _bound(
             4.0 * m * c * hidden, tail_io - _nbytes(w1, w2) + _nbytes(q1, s1, q2, s2), "int8")
+        # the bare int8 products on torch._int_mm: qkv; mlp1 + mlp2
+        xq = torch.randint(-127, 128, (m, c), generator=g, dtype=torch.int8).to(dev)
+        hq = torch.randint(-127, 128, (m, hidden), generator=g, dtype=torch.int8).to(dev)
+        int_mm[f"K11c {tag}"] = _int_mm_ms(xq, q_qkv)
+        int_mm[f"{name.split()[1]} {tag}"] = _int_mm_ms(xq, q1) + _int_mm_ms(hq, q2)
+        del xq, hq
         for key in (f"K1 {tag}", f"K11c {tag}", f"K10 {tag}", f"{name.split()[1]} {tag}"):
+            lib = f", torch._int_mm of the bare products {int_mm[key]:.4f} ms" if key in int_mm \
+                else ""
             _say("kernels", f"{key}: kernel {times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms, "
-                            f"bound {bounds[key][0]:.4f} ms ({bounds[key][1]}) [{card}]")
+                            f"bound {bounds[key][0]:.4f} ms ({bounds[key][1]}){lib} [{card}]")
         del x, h, w_qkv, w1, w2, q_qkv, q1, q2, xf, hf
         torch.cuda.empty_cache()
 
@@ -743,7 +772,8 @@ def _big_kernel_phase(card: str) -> dict:
                             f"[{card}]")
         del qkv, got
     torch.cuda.synchronize()
-    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library,
+            "int_mm": int_mm}
 
 
 def _large_kernel_phase(card: str) -> dict:
@@ -958,11 +988,7 @@ def _relpos_kernel_phase(card: str) -> dict:
         bounds[key] = _bound(2.0 * rows * ci * co, _nbytes(x, wq, ws, bb) + rows * co * 2, "int8")
         # the library yardstick: the bare int8 product of the same quantised rows
         xq = quant_rows(x.float())[0].to(torch.int8)
-        try:
-            library[key] = median_ms(lambda: torch._int_mm(xq, wq))
-        except RuntimeError:  # a build that takes the weight only column-major
-            wcol = wq.t().contiguous().t()
-            library[key] = median_ms(lambda: torch._int_mm(xq, wcol))
+        library[key] = _int_mm_ms(xq, wq)
         _say("kernels", f"{key}: kernel {times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms, "
                         f"bound {bounds[key][0]:.4f} ms ({bounds[key][1]}), torch._int_mm (the "
                         f"bare product) {library[key]:.4f} ms [{card}]")
@@ -1621,7 +1647,9 @@ def _read_counts(tag: str, wrappers: dict, expected: dict, by_window=None, by_nq
     K15 as ``mbconv_block_bf16`` and ``patch_merge_block_bf16`` too), and
     the window attention's counts by window
     and K12's by query count must match. The returned counts add K12's by
-    query count as ``flash_attention_relpos nq<NQ>``."""
+    query count as ``flash_attention_relpos nq<NQ>`` and the window
+    attention's by window as ``window_attn_relpos w<w>`` (windows of 16 run
+    on one kernel, the others on K12's)."""
     launches = {name: w.launches for name, w in wrappers.items()}
     launches["layer_norm_residual"] = wrappers["layer_norm"].residual_launches
     for name in ("mbconv_block", "patch_merge_block"):
@@ -1639,6 +1667,7 @@ def _read_counts(tag: str, wrappers: dict, expected: dict, by_window=None, by_nq
     if by_nq is not None and nqs != by_nq:
         raise AssertionError(f"{tag}: K12 launches by query count {nqs}, expected {by_nq}")
     launches.update({f"flash_attention_relpos nq{nq}": c for nq, c in nqs.items()})
+    launches.update({f"window_attn_relpos w{w}": c for w, c in windows.items()})
     return launches
 
 
@@ -2031,17 +2060,23 @@ def main() -> int:
                 "library_device_ms": device[1]}
 
     t, kb = kp["times"], kp["bounds"]
+    # the window attention: windows of 16 on window_attn_relpos.cu, the global
+    # layers' windows (32, 48, 64) on flash_attention_relpos.cu's kernel
     attn_src, attn_tpu = "csrc/window_attn_relpos.cu", ("ops/flash_attention.py:608 "
                                                         "flash_attention_grid (+ :1085 "
                                                         "relpos_tables)")
+    glob_src = "csrc/flash_attention_relpos.cu"
     table = [
         entry("gemm_bf16", "cuda", "csrc/gemm_bf16.cu",
               "ops/fused_ln.py:645 fused_ln_matmul (+ :202 fused_ln_mlp, projection of "
               "flash_attention.py:608)", sp["launches"]["gemm_bf16"], kp["errs"]["gemm_bf16"],
               t["gemm_bf16"], kb["gemm_bf16"]),
         entry("window_attn_relpos", "cuda", attn_src, attn_tpu,
-              sp["launches"]["window_attn_relpos"], kp["errs"]["window_attn_relpos"],
+              sp["launches"]["window_attn_relpos w16"], kp["errs"]["window_attn_relpos"],
               t["attn_w16"], kb["attn_w16"], kp["library"]["attn_w16"]),
+        entry("window_attn_relpos w32", "cuda", glob_src, attn_tpu,
+              sp["launches"]["window_attn_relpos w32"], kp["errs"]["window_attn_relpos"],
+              t["attn_w32"], kb["attn_w32"], kp["library"]["attn_w32"]),
     ]
     # K5 at the neck's, the mask head's and the decoder's rows
     for key in ("layer_norm neck", "layer_norm up_ln", "layer_norm decoder"):
@@ -2083,9 +2118,13 @@ def main() -> int:
               "fused_ln_mlp_tiled", lb["bf16"]["gemm_bf16"] + hb["bf16"]["gemm_bf16"],
               bk["errs"]["gemm_bf16"], bt["K10 ViT-H"], bb["K10 ViT-H"]),
         entry("window_attn_relpos hd80", "cuda", attn_src, attn_tpu,
-              hb["bf16"]["window_attn_relpos"] + hb["int8"]["window_attn_relpos"],
+              hb["bf16"]["window_attn_relpos w16"] + hb["int8"]["window_attn_relpos w16"],
               bk["errs"]["window_attn_relpos"], bt["attn hd80 w16"], bb["attn hd80 w16"],
               bk["library"]["attn hd80 w16"]),
+        entry("window_attn_relpos hd80 w32", "cuda", glob_src, attn_tpu,
+              hb["bf16"]["window_attn_relpos w32"] + hb["int8"]["window_attn_relpos w32"],
+              bk["errs"]["window_attn_relpos"], bt["attn hd80 w32"], bb["attn hd80 w32"],
+              bk["library"]["attn hd80 w32"]),
         entry("fused_ln_matmul_int8", "cuda", "csrc/gemm_int8.cu",
               "ops/fused_ln.py:711 fused_ln_matmul_int8",
               lb["int8"]["fused_ln_matmul_int8"] + hb["int8"]["fused_ln_matmul_int8"],
@@ -2097,11 +2136,11 @@ def main() -> int:
               "ops/fused_ln.py:549 fused_ln_mlp_tiled_int8",
               hb["int8"]["fused_ln_mlp_tiled_int8"], bk["errs"]["fused_ln_mlp_tiled_int8"],
               bt["K11b ViT-H"], bb["K11b ViT-H"]),
-        entry("window_attn_relpos w48", "cuda", attn_src, attn_tpu,
-              lf["vit-b 768"]["window_attn_relpos"], lk["errs"]["window_attn_relpos"],
+        entry("window_attn_relpos w48", "cuda", glob_src, attn_tpu,
+              lf["vit-b 768"]["window_attn_relpos w48"], lk["errs"]["window_attn_relpos"],
               lk["times"]["w48 hd64"], lk["bounds"]["w48 hd64"], lk["library"]["w48 hd64"]),
-        entry("window_attn_relpos w64", "cuda", attn_src, attn_tpu,
-              lf["config 4"]["window_attn_relpos"], lk["errs"]["window_attn_relpos"],
+        entry("window_attn_relpos w64", "cuda", glob_src, attn_tpu,
+              lf["config 4"]["window_attn_relpos w64"], lk["errs"]["window_attn_relpos"],
               lk["times"]["w64 hd80"], lk["bounds"]["w64 hd80"], lk["library"]["w64 hd80"]),
     ]
     mt, mb, ml, mla = mk["times"], mk["bounds"], mk["library"], ms["launches"]

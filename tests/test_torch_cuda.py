@@ -69,18 +69,29 @@ def _close_int8(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("window,hd", [(16, 64), (32, 64), (16, 80), (32, 80), (48, 64),
-                                       (64, 64), (48, 80), (64, 80)])
-def test_window_attention_vs_plain(gen, window, hd):
-    """Windows 16 and 32 on a 32 x 32 grid; 48 and 64 (the global layers of
-    the 768 and 1024 canvases) on one window of that size."""
+@pytest.mark.parametrize("window,hd,s,std_qk", [
+    (16, 64, 32, 1.0), (32, 64, 32, 1.0), (16, 80, 32, 1.0), (32, 80, 32, 1.0),
+    (48, 64, 48, 1.0), (64, 64, 64, 1.0), (48, 80, 48, 1.0), (64, 80, 64, 1.0),
+    (32, 64, 64, 1.0), (32, 80, 64, 1.0),  # four windows an image at a global width
+    (16, 64, 32, 3.0), (16, 80, 48, 2.8), (64, 80, 64, 2.8)])  # logits of |s| ~ 30
+def test_window_attention_vs_plain(gen, window, hd, s, std_qk):
+    """Windows 16 and 32 on a 32 x 32 grid (and 16 on 48 x 48); 48 and 64
+    (the global layers of the 768 and 1024 canvases) on one window of that
+    size; 32 on a 64 x 64 grid. K12's kernel runs all but windows of 16 in its
+    window mode (the whole-grid mode where the window is the grid); every
+    launch counts on window_attention alone."""
     heads = 12 if hd == 64 else 16
-    s = max(32, window)
-    qkv = _randn(gen, 2, s, s, 3 * heads * hd)
+    c = heads * hd
+    qkv = _randn(gen, 2, s, s, 3 * c)
+    qkv[..., :2 * c] *= std_qk
     rel_h, rel_w = (_randn(gen, 2 * window - 1, hd, std=0.3) for _ in range(2))
-    before = window_attention.launches
+    if std_qk > 1:  # the first window's first head
+        qh, kh = (qkv[:1, :window, :window, i * c:i * c + hd].reshape(1, -1, hd) for i in (0, 1))
+        assert _max_logit(qh, kh, hd) >= 25
+    before, k12 = window_attention.launches, flash_attention_relpos.launches
     got = window_attention(qkv, rel_h, rel_w, heads, window)
     assert window_attention.launches == before + 1
+    assert flash_attention_relpos.launches == k12
     _close(got, window_attention_plain(qkv.float(), rel_h, rel_w, heads, window), 2e-2)
 
 
@@ -182,9 +193,10 @@ def _int8_weight(gen, i, o):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [1024, 1280])
-def test_fused_ln_matmul_int8_vs_plain(gen, c):
-    rows = 1000  # not a multiple of the 128-row tile
+@pytest.mark.parametrize("c,rows", [(1024, 1000), (1280, 1000), (768, 100)])
+def test_fused_ln_matmul_int8_vs_plain(gen, c, rows):
+    """ViT-L/H and ViT-B (768 -> 2304) widths; rows not a multiple of the
+    128-row tile, or fewer than one tile."""
     x = _randn(gen, rows, c)
     s = 1.0 + _randn(gen, c, std=0.1, dtype=torch.float32)
     b = _randn(gen, c, std=0.1, dtype=torch.float32)
@@ -197,11 +209,11 @@ def test_fused_ln_matmul_int8_vs_plain(gen, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,o,gelu", [(768, 2304, False), (768, 3072, True), (3072, 768, False)])
-def test_int8_linear_vs_plain(gen, c, o, gelu):
+@pytest.mark.parametrize("c,o,gelu,rows", [(768, 2304, False, 1000), (768, 3072, True, 1000),
+                                         (3072, 768, False, 1000), (768, 2304, False, 100)])
+def test_int8_linear_vs_plain(gen, c, o, gelu, rows):
     """The flat route's int8 qkv, mlp1 (+ GELU) and mlp2 at ViT-B widths:
     the LN-less row quantisation and one int8 GEMM."""
-    rows = 1000
     x = _randn(gen, rows, c)
     wq, ws = _int8_weight(gen, c, o)
     b = _randn(gen, o, std=0.1, dtype=torch.float32)
@@ -212,12 +224,14 @@ def test_int8_linear_vs_plain(gen, c, o, gelu):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,hidden,tiled,attn", [(1024, 4096, False, True),
-                                                 (1024, 4096, False, False),
-                                                 (1280, 5120, True, True)])
-def test_int8_tails_vs_plain(gen, c, hidden, tiled, attn):
-    """K11a (ViT-L) with and without the attention residual, K11b (ViT-H)."""
-    rows = 1000
+@pytest.mark.parametrize("c,hidden,tiled,attn,rows", [(1024, 4096, False, True, 1000),
+                                                      (1024, 4096, False, False, 1000),
+                                                      (1280, 5120, True, True, 1000),
+                                                      (768, 3072, False, True, 100),
+                                                      (768, 3072, True, True, 1000)])
+def test_int8_tails_vs_plain(gen, c, hidden, tiled, attn, rows):
+    """K11a (ViT-L) with and without the attention residual, K11b (ViT-H),
+    and the ViT-B tail (768 / 3072) at 100 rows (under one tile) and tiled."""
     x, h = _randn(gen, rows, c), (_randn(gen, rows, c) if attn else None)
     s = 1.0 + _randn(gen, c, std=0.1, dtype=torch.float32)
     b = _randn(gen, c, std=0.1, dtype=torch.float32)
@@ -316,6 +330,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     qkv48 = _randn(gen, 1, 48, 48, 3 * 768)
     with pytest.raises(ValueError, match="window 16, 32, 48"):  # a window still refused
         window_attention(qkv48, _randn(gen, 47, 64), _randn(gen, 47, 64), 12, 24)
+    with pytest.raises(ValueError, match="bad geometry"):  # a window that does not divide S
+        window_attention(qkv48, _randn(gen, 63, 64), _randn(gen, 63, 64), 12, 32)
     with pytest.raises(ValueError, match="ws 7 or 14"):
         ttv.tinyvit_attention(_randn(gen, 1, 8, 8, 384), _randn(gen, 384),
                               _randn(gen, 4, 81), 4, 5)

@@ -21,6 +21,7 @@ from yolo_sam_inference_tpu.ops import fused_ln as jln
 from yolo_sam_inference_tpu.models.sam import model as jsam
 from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
 from yolo_sam_inference_tpu_torch.ops.flash_attention import (
+    relpos_grid_attention,
     window_attention,
     window_attention_plain,
 )
@@ -148,6 +149,59 @@ def test_window_attention_matches_jax_grid_kernels(s, window, hd):
     np.testing.assert_allclose(got, np.asarray(want), rtol=3e-3, atol=3e-3)
 
 
+def _window_mode_as_the_kernel_addresses_it(qkv, rel_h, rel_w, heads, window):
+    """K3 as the window mode of K12's kernel computes it: each (image, window)
+    unit gathers its queries, keys and values from the whole grid by the
+    kernel's token map (query i of window (wx, wy) at grid position
+    (wx w + i % w, wy w + i // w)), runs K12's plain version over the w x w
+    grid in window-local coordinates, and writes its output back in place."""
+    b, s, _, c3 = qkv.shape
+    w, nw = window, s // window
+    flat = qkv.reshape(b, s * s, c3)
+    out = torch.empty(b, s * s, c3 // 3)
+    i = torch.arange(w * w)
+    for wy in range(nw):
+        for wx in range(nw):
+            tok = (wy * w + i // w) * s + wx * w + i % w
+            unit = flat[:, tok].reshape(b, w, w, c3)
+            out[:, tok] = relpos_grid_attention(unit, rel_h, rel_w, heads,
+                                                plain=True).reshape(b, w * w, -1)
+    return out.reshape(b, s, s, -1)
+
+
+@pytest.mark.parametrize("s,window,hd", [(8, 4, 16), (8, 8, 16), (4, 2, 80), (12, 4, 16)])
+def test_window_mode_is_k12_over_each_window(s, window, hd):
+    """The window attention (K3) is K12's function over each w x w window in
+    local coordinates, and both match the JAX grid kernels (interpret mode)."""
+    heads = 2
+    qkv, rel_h, rel_w, wproj, bproj = _attn_case(11, 2, s, heads, hd, window)
+    plain = window_attention_plain(_t(qkv), _t(rel_h), _t(rel_w), heads, window)
+    mode = _window_mode_as_the_kernel_addresses_it(_t(qkv), _t(rel_h), _t(rel_w), heads, window)
+    torch.testing.assert_close(mode, plain, rtol=1e-5, atol=1e-5)
+    rhw = jfa.relpos_tables(jnp.asarray(qkv), jnp.asarray(rel_h), jnp.asarray(rel_w),
+                            heads=heads, window=window, interpret=True)
+    want = jfa.flash_attention_grid(jnp.asarray(qkv), rhw, heads=heads, window=window,
+                                    wproj=jnp.asarray(wproj), bproj=jnp.asarray(bproj),
+                                    interpret=True)
+    # the TPU kernel's bf16-rounded exponent (clamp mode) agrees to ~1e-3, as in
+    # test_window_attention_matches_jax_grid_kernels
+    for h in (plain, mode):
+        got = tln.linear(h, _t(wproj), _t(bproj)).numpy()
+        np.testing.assert_allclose(got, np.asarray(want), rtol=3e-3, atol=3e-3)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("s,window", [(8, 3), (12, 8)])
+def test_window_attention_refuses_a_window_that_does_not_divide_the_grid(device, s, window):
+    """The geometry check comes before the dispatch by device, so the CPU path
+    and the kernel's path (a non-CPU tensor) refuse alike."""
+    heads, hd = 2, 16
+    qkv = torch.zeros(1, s, s, 3 * heads * hd, device=device)
+    rel = torch.zeros(2 * window - 1, hd, device=device)
+    with pytest.raises(ValueError, match="bad geometry"):
+        window_attention(qkv, rel, rel, heads, window)
+
+
 def test_window_attention_matches_jax_naive_path():
     """Against the JAX CPU path: window partition + naive attention
     (``_vision_attention``), q-scaled logits, unscaled-q rel-pos bias."""
@@ -208,3 +262,12 @@ def test_kernel_forms_of_weights_are_made_once():
     assert tln._f32(b) is not first and torch.equal(tln._f32(b), b.float())
     f = torch.randn(8)
     assert tln._f32(f) is f
+
+
+def test_int8_weight_form_round_trips_and_is_made_once():
+    """The int8 GEMM's B operand: the (out, in) transpose of an (in, out) int8
+    weight, K-major as s8 wgmma needs, exact and made once per tensor."""
+    wq = torch.randint(-127, 128, (48, 80), dtype=torch.int8)
+    wt = tln._int8_t(wq)
+    assert wt.shape == (80, 48) and wt.is_contiguous() and torch.equal(wt.t(), wq)
+    assert tln._int8_t(wq) is wt

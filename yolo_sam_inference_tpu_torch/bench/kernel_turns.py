@@ -24,9 +24,16 @@ views with the raw rel-pos tables, and at the flat shapes the route the
 path runs around it (``relpos_grid_attention``, fused qkv in, output out);
 the LayerNorm (K5) at the neck's 32768 x 256, the mask head's 991232 x 64
 and the decoder's 3584 x 256 rows and its residual form (K11d) at 51200 x
-768, beside ``F.layer_norm`` with its weights cast beforehand. Beside each
-K12 and LayerNorm time, the device time of the kernels of the call. Prints
-the card, then one ``[TAG] name: ms`` line per call. Needs one card.
+768, beside ``F.layer_norm`` with its weights cast beforehand; the window
+attention (K3, ``window_attention``) at windows 16 and 32 of the 32 x 32
+grid at hd 64 (ViT-B) and hd 80 (ViT-H) and at the 48 x 48 and 64 x 64
+grids' global layers; the w8a8
+functions (K11a at ViT-L, K11b at ViT-H, K11c at both, 32768 rows) and
+``int8_linear`` at the flat route's 51200 rows (qkv, mlp1 + GELU, mlp2),
+with the bare int8 products on ``torch._int_mm`` beside them. Beside each
+K12, LayerNorm, K3 and w8a8 time, the device time of the kernels of the
+call. Prints the card, then one ``[TAG] name: ms`` line per call. Needs one
+card.
 """
 
 from __future__ import annotations
@@ -51,7 +58,10 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True, help="root of the checkout whose port to time")
     ap.add_argument("--tag", required=True)
+    ap.add_argument("--only", default="",
+                    help="comma-separated name prefixes of the calls to time (default: all)")
     args = ap.parse_args()
+    only = tuple(filter(None, args.only.split(",")))
     common = _own_common()
     sys.path.insert(0, args.tree)
 
@@ -62,6 +72,7 @@ def main() -> None:
     from yolo_sam_inference_tpu_torch.ops import dw_ln_mlp as tdw
     from yolo_sam_inference_tpu_torch.ops import flash_attention as tfa
     from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
+    from yolo_sam_inference_tpu_torch.ops import quant as tquant
 
     assert tln.__file__.startswith(args.tree), tln.__file__
     median_ms, device_ms = common.median_ms, common.device_ms
@@ -73,6 +84,8 @@ def main() -> None:
         return (torch.randn(*shape, generator=g) * std).to("cuda")
 
     def say(name, fn, kernel=None):
+        if only and not name.strip().startswith(only):
+            return
         for _ in range(200):  # a busy card first: its clocks ramp up from idle
             fn()
         torch.cuda.synchronize()
@@ -157,6 +170,61 @@ def main() -> None:
         say(f"F.layer_norm {label} (x alone)",
             lambda: torch.nn.functional.layer_norm(x, (c,), sc16, sh16, 1e-6), "")
         del x, r
+
+
+    # K3: (label, images, heads, hd, grid side, window)
+    for label, bi, heads, hd, s, win in (("ViT-B w16", 32, 12, 64, 32, 16),
+                                         ("ViT-B w32", 32, 12, 64, 32, 32),
+                                         ("ViT-H w16", 32, 16, 80, 32, 16),
+                                         ("ViT-H w32", 32, 16, 80, 32, 32),
+                                         ("ViT-B w48 (768 canvas)", 32, 12, 64, 48, 48),
+                                         ("ViT-H w48", 32, 16, 80, 48, 48),
+                                         ("ViT-B w64", 32, 12, 64, 64, 64),
+                                         ("ViT-H w64 (config 4)", 32, 16, 80, 64, 64)):
+        qkv = rn(bi, s, s, 3 * heads * hd).to(bf)
+        rel_h, rel_w = rn(2 * win - 1, hd, std=0.3).to(bf), rn(2 * win - 1, hd, std=0.3).to(bf)
+        say(f"K3 {label}", lambda: tfa.window_attention(qkv, rel_h, rel_w, heads, win), "")
+        del qkv
+        torch.cuda.empty_cache()
+
+    # the w8a8 functions: K11c, K11a / K11b at 32768 rows, int8_linear at 51200
+    def int8_weight(i, o):
+        return tquant.quantize_weight(rn(i, o, std=i ** -0.5))
+
+    def int_mm(rows, i, wq):  # the bare int8 product, the library yardstick
+        xq = torch.randint(-127, 128, (rows, i), generator=g, dtype=torch.int8).cuda()
+        try:
+            torch._int_mm(xq, wq)
+        except RuntimeError:  # a build that takes the weight only column-major
+            wq = wq.t().contiguous().t()
+        say(f"torch._int_mm {rows}x{i} @ {i}x{wq.shape[1]}", lambda: torch._int_mm(xq, wq))
+
+    for name, c, tiled in (("ViT-L", 1024, False), ("ViT-H", 1280, True)):
+        x, h = rn(m, c).to(bf), rn(m, c).to(bf)
+        s, bb = 1.0 + rn(c, std=0.1), rn(c, std=0.1)
+        wq, ws = int8_weight(c, 3 * c)
+        bq = rn(3 * c, std=0.1)
+        (w1q, w1s), (w2q, w2s) = int8_weight(c, 4 * c), int8_weight(4 * c, c)
+        b1, b2 = rn(4 * c, std=0.1), rn(c, std=0.1)
+        say(f"K11c {name}", lambda: tln.fused_ln_matmul_int8(x, s, bb, wq, ws, bq), "")
+        int_mm(m, c, wq)
+        tail = tln.fused_ln_mlp_tiled_int8 if tiled else tln.fused_ln_mlp_int8
+        say(f"{'K11b' if tiled else 'K11a'} {name}",
+            lambda: tail(x, h, s, bb, w1q, w1s, b1, w2q, w2s, b2), "")
+        int_mm(m, c, w1q)
+        int_mm(m, 4 * c, w2q)
+        del x, h
+        torch.cuda.empty_cache()
+    rows = 32 * 1600
+    for label, ci, co, gelu in (("qkv", 768, 2304, False), ("mlp1", 768, 3072, True),
+                                ("mlp2", 3072, 768, False)):
+        x = rn(rows, ci).to(bf)
+        wq, ws = int8_weight(ci, co)
+        bb = rn(co, std=0.1)
+        say(f"int8_linear {label} {rows}x{ci} -> {co}",
+            lambda: tln.int8_linear(x, wq, ws, bb, gelu=gelu), "")
+        int_mm(rows, ci, wq)
+        del x
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@ import time
 CATEGORIES = (  # (substring of the kernel name, category); first match wins
     ("gemm_bf16_kernel", "gemm_bf16"), ("ln_rows_kernel", "gemm_bf16 LN pass"),
     ("gemm_int8_kernel", "gemm_int8"), ("ln_quant_kernel", "int8 LN + row quantisation"),
-    ("quant_chunks_kernel", "int8 hidden requantisation"),
+    ("gelu_quant_kernel", "int8 hidden GELU + requantisation"),
     ("window_attn_relpos_kernel", "window_attn_relpos"),
     ("flash_attn_relpos_kernel", "flash_attention_relpos (K12)"),
     ("layer_norm_kernel", "layer_norm (K5, K11d)"),

@@ -1,6 +1,6 @@
-// Attention over a whole S x S token grid with SAM's decomposed relative
-// position bias, read in place from strided q, k and v (Hopper, sm_90a):
-// kernel K12.
+// Attention over an S x S token grid, or over each w x w window of it, with
+// SAM's decomposed relative position bias, read in place from strided q, k
+// and v (Hopper, sm_90a): kernels K12 and, in window mode, K3 with K2.
 //
 //   q (B, NQ, C), k and v (B, N, C) bf16, N = S * S, C = heads * hd: strided
 //   views with contiguous channels (a base pointer, a token stride and an
@@ -15,6 +15,14 @@
 // whole grid rows from row row0 (0 for a whole grid). The rel-pos terms use
 // the UNSCALED q, as SAM does.
 //
+// Window mode (w < S, w a multiple of 16 dividing S): NQ = N, and each query
+// attends only the keys of its own w x w window, with (y, x) the positions
+// inside the window and rel_h, rel_w (2w-1, hd); out (B, N, C) keeps each
+// window's tokens in place. A block's unit is one window of one image and
+// head, so it is the whole-grid case of a w x w grid, read through tensor
+// maps of the whole S x S grid at the window's origin: the same code, with
+// w for S in the rel-pos terms.
+//
 // Replaces yolo_sam_inference_tpu/ops/flash_attention.py:186
 // flash_attention_relpos (pallas_call at :266), which the JAX encoder runs
 // on its global layers off the grid route and on the sequence-parallel
@@ -23,7 +31,13 @@
 // the bias into the contraction (q' = [q s, rh, rw], k' = [k, onehot(ky),
 // onehot(kx)]) for the MXU and exponentiates bf16-rounded logits (:166).
 // Neither is copied: the bias is added to the fp32 scores, and exp stays
-// fp32.
+// fp32. In whole-grid mode at w = S (the grid route's global layers, windows
+// of 32, 48 and 64) and in window mode it replaces flash_attention_grid
+// (:608), the grid route's window attention, and relpos_tables (:1085),
+// which writes its score tables to device memory: here the tables are built
+// inside, as above. Its output projection follows as a GEMM. The windowed
+// layers' windows of 16 run on window_attn_relpos.cu, which is faster there
+// (its note says why).
 //
 // What bounds it on the H100: 4 NQ N hd flop per head (and 4 NQ S hd for
 // the q.R terms the bias needs; the kernel computes the 2S-1 rows its tile
@@ -101,9 +115,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr size_t SMEM_LIMIT = 232448;          // what a block may opt in to
 
 // key rows per tile by SP: R * SP keys, a multiple of 16, at most 160 (the
-// widest that holds its scores, probabilities and O in registers unspilled)
+// widest that holds its scores, probabilities and O in registers; at S 64 and
+// hd 64, 128-key tiles spill a little and are still faster than 64-key ones,
+// and 96-key tiles beat 64-key ones at S 32: PERF.md)
 constexpr int rows_per_tile(int hd, int sp) {
-  return sp == 8 ? 8 : sp == 16 ? 7 : sp == 24 ? 4 : sp == 64 ? 1
+  return sp == 8 ? 8 : sp == 16 ? 7 : sp == 24 ? 4 : sp == 32 ? 3 : sp == 64 ? (hd == 64 ? 2 : 1)
          : sp == 40 && hd == 64 ? 4 : 2;
 }
 
@@ -179,11 +195,23 @@ __device__ __forceinline__ uint64_t kmajor_desc(const __nv_bfloat16* base, int b
 }
 
 struct Params {
-  int nq, s, row0, heads, q_blocks, tch;
+  int nq;           // queries a block's unit attends: NQ, or w * w in window mode
+  int s;            // the side of the attended grid: S, or the window w
+  int row0, heads, q_blocks, tch;
   int passes;       // 128-query tiles a block takes (1, or 2 where QP and the ring allow)
-  long out_tokens;  // NQ * C: an image of the output
+  int grid;         // window mode: the side of the token grid the windows tile
+  int nwin;         // windows along each side of the grid (1: whole-grid mode)
+  int qrun;         // queries per TMA load of Q: 64, or 16 (one window row's part)
+  long out_tokens;  // an image of the output: NQ * C, or grid * grid * C
   __nv_bfloat16* out;
 };
+
+// Grid coordinates (x, y) of query i of the block's unit: (i, 0) over the
+// query view's tokens in whole-grid mode, (x, y) on the token grid in window
+// mode, for window (wx, wy) of side w.
+__device__ __forceinline__ int2 query_xy(const Params& p, int i, int wx, int wy) {
+  return p.nwin > 1 ? make_int2(wx * p.s + i % p.s, wy * p.s + i / p.s) : make_int2(i, 0);
+}
 
 // Fragment and accumulator layouts: hopper.cuh, mma_frag.cuh. A thread of
 // consumer warp w holds rows A = 16 w + g and B = A + 8 of its warpgroup's
@@ -215,8 +243,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const int s = p.s;
   const int qb = blockIdx.x % p.q_blocks;
-  const int bh = blockIdx.x / p.q_blocks;
-  const int h = bh % p.heads, b = bh / p.heads;
+  const int unit = blockIdx.x / p.q_blocks;  // (image, window, head)
+  const int h = unit % p.heads, win = unit / p.heads % (p.nwin * p.nwin);
+  const int b = unit / p.heads / (p.nwin * p.nwin);
+  const int wx = win % p.nwin, wy = win / p.nwin;  // 0, 0 in whole-grid mode
   const int q0 = qb * p.passes * CONSUMERS * QROWS;
   const int tiles = (s + R - 1) / R;
 
@@ -237,9 +267,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_expect_tx(qbar,
                      (uint32_t)(p.passes * G::Q_BYTES + 2 * p.tch * NB * G::BOX_BYTES));
       for (int w = 0; w < p.passes * CONSUMERS; ++w)
-        for (int nb = 0; nb < NB; ++nb)
-          tma_load_3d(Qs + (w * NB + nb) * BOXE, &map_q, qbar, h * HD + nb * BOX,
-                      q0 + w * QROWS, b);
+        for (int j = 0; j < QROWS; j += p.qrun) {
+          const int2 xy = query_xy(p, q0 + w * QROWS + j, wx, wy);
+          for (int nb = 0; nb < NB; ++nb)
+            tma_load_4d(Qs + (w * NB + nb) * BOXE + j * BOX, &map_q, qbar, h * HD + nb * BOX,
+                        xy.x, xy.y, b);
+        }
       for (int tab = 0; tab < 2; ++tab)
         for (int ch = 0; ch < p.tch; ++ch)
           for (int nb = 0; nb < NB; ++nb)
@@ -253,9 +286,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_expect_tx(&full[stage], (uint32_t)G::STAGE_BYTES);
         __nv_bfloat16* kt_s = reinterpret_cast<__nv_bfloat16*>(ring + stage * G::STAGE_BYTES);
         for (int nb = 0; nb < NB; ++nb) {
-          tma_load_4d(kt_s + nb * KVBOXE, &map_k, &full[stage], h * HD + nb * BOX, 0, kt * R, b);
-          tma_load_4d(kt_s + (NB + nb) * KVBOXE, &map_v, &full[stage], h * HD + nb * BOX, 0,
-                      kt * R, b);
+          tma_load_4d(kt_s + nb * KVBOXE, &map_k, &full[stage], h * HD + nb * BOX, wx * s,
+                      wy * s + kt * R, b);
+          tma_load_4d(kt_s + (NB + nb) * KVBOXE, &map_v, &full[stage], h * HD + nb * BOX, wx * s,
+                      wy * s + kt * R, b);
         }
         if (++stage == G::STAGES) {
           stage = 0;
@@ -496,9 +530,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int idx = lane + 32 * i;
       const int r = warp * 16 + idx / (HD / 8), cc = idx % (HD / 8);
       const int row = qw0 + r;
-      if (row < p.nq)
-        *reinterpret_cast<uint4*>(og + (long)row * c + cc * 8) =
+      if (row < p.nq) {
+        const int2 xy = query_xy(p, row, wx, wy);
+        const long token = (long)xy.y * p.grid + xy.x;  // xy.y is 0 in whole-grid mode
+        *reinterpret_cast<uint4*>(og + token * c + cc * 8) =
             *reinterpret_cast<const uint4*>(Os + r * LDO + chunk(r, cc) * 8);
+      }
     }
   }  // pass
 }
@@ -527,16 +564,25 @@ struct View {
   int tokens, token_stride, image_stride;  // strides in elements
 };
 
+// s: the side of the key grid; w: the window side (s itself in whole-grid
+// mode), which the rel-pos tables and SP follow.
 template <int HD, int SP>
 int launch(View q, View k, View v, const void* rel_h, const void* rel_w, void* out, int b,
-           int heads, int s, int row0, cudaStream_t stream) {
+           int heads, int s, int row0, int w, cudaStream_t stream) {
   using G = Geo<HD, SP>;
+  const bool windowed = w < s;
   const cuuint64_t c = (cuuint64_t)heads * HD;
   CUtensorMap mq, mk, mv, mth, mtw;
-  const cuuint64_t dq[3] = {c, (cuuint64_t)q.tokens, (cuuint64_t)b};
-  const cuuint64_t sq[2] = {(cuuint64_t)q.token_stride * 2, (cuuint64_t)q.image_stride * 2};
-  const cuuint32_t bq[3] = {BOX, QROWS, 1};
-  cudaError_t err = make_map_nd(&mq, q.ptr, 3, dq, sq, bq);
+  // Q as (C, x, y, B): the query view's tokens along x in whole-grid mode
+  // (boxes of 64 queries), the token grid in window mode (boxes of 16
+  // queries of one window row)
+  const cuuint64_t qx = windowed ? (cuuint64_t)s : (cuuint64_t)q.tokens;
+  const cuuint64_t dq[4] = {c, qx, windowed ? (cuuint64_t)s : 1, (cuuint64_t)b};
+  const cuuint64_t sq[3] = {(cuuint64_t)q.token_stride * 2, (cuuint64_t)q.token_stride * 2 * qx,
+                            (cuuint64_t)q.image_stride * 2};
+  const int qrun = windowed ? 16 : QROWS;
+  const cuuint32_t bq[4] = {BOX, (cuuint32_t)qrun, 1, 1};
+  cudaError_t err = make_map_nd(&mq, q.ptr, 4, dq, sq, bq);
   const cuuint64_t dk[4] = {c, (cuuint64_t)s, (cuuint64_t)s, (cuuint64_t)b};
   const cuuint32_t bk[4] = {BOX, SP, G::R, 1};
   const cuuint64_t sk[3] = {(cuuint64_t)k.token_stride * 2, (cuuint64_t)k.token_stride * 2 * s,
@@ -545,24 +591,27 @@ int launch(View q, View k, View v, const void* rel_h, const void* rel_w, void* o
                             (cuuint64_t)v.image_stride * 2};
   if (err == cudaSuccess) err = make_map_nd(&mk, k.ptr, 4, dk, sk, bk);
   if (err == cudaSuccess) err = make_map_nd(&mv, v.ptr, 4, dk, sv, bk);
-  const cuuint64_t dt[2] = {(cuuint64_t)HD, (cuuint64_t)(2 * s - 1)};
+  const cuuint64_t dt[2] = {(cuuint64_t)HD, (cuuint64_t)(2 * w - 1)};
   const cuuint64_t st[1] = {(cuuint64_t)HD * 2};
   const cuuint32_t bt[2] = {BOX, 64};
   if (err == cudaSuccess) err = make_map_nd(&mth, rel_h, 2, dt, st, bt);
   if (err == cudaSuccess) err = make_map_nd(&mtw, rel_w, 2, dt, st, bt);
   if (err != cudaSuccess) return (int)err;
   Params p;
-  p.nq = q.tokens;
-  p.s = s;
+  p.nq = windowed ? w * w : q.tokens;
+  p.s = w;
   p.row0 = row0;
   p.heads = heads;
-  const int q_tiles = (q.tokens + CONSUMERS * QROWS - 1) / (CONSUMERS * QROWS);
-  p.passes = G::QP == 2 && (s + G::R - 1) / G::R <= G::STAGES && q_tiles > 1 ? 2 : 1;
+  p.grid = s;
+  p.nwin = s / w;
+  p.qrun = qrun;
+  const int q_tiles = (p.nq + CONSUMERS * QROWS - 1) / (CONSUMERS * QROWS);
+  p.passes = G::QP == 2 && (w + G::R - 1) / G::R <= G::STAGES && q_tiles > 1 ? 2 : 1;
   p.q_blocks = (q_tiles + p.passes - 1) / p.passes;
-  p.tch = (2 * s - 1 + 63) / 64;
+  p.tch = (2 * w - 1 + 63) / 64;
   p.out_tokens = (long)q.tokens * (long)c;
   p.out = static_cast<__nv_bfloat16*>(out);
-  const long blocks = (long)b * heads * p.q_blocks;
+  const long blocks = (long)b * p.nwin * p.nwin * heads * p.q_blocks;
   flash_attn_relpos_kernel<HD, SP><<<(unsigned)blocks, THREADS, G::SMEM, stream>>>(
       mq, mk, mv, mth, mtw, p);
   return (int)cudaGetLastError();
@@ -570,17 +619,20 @@ int launch(View q, View k, View v, const void* rel_h, const void* rel_w, void* o
 
 template <int HD>
 int launch_sp(View q, View k, View v, const void* rel_h, const void* rel_w, void* out, int b,
-              int heads, int s, int row0, cudaStream_t st) {
-  switch ((s + 7) / 8 * 8) {
-    case 8: return launch<HD, 8>(q, k, v, rel_h, rel_w, out, b, heads, s, row0, st);
-    case 16: return launch<HD, 16>(q, k, v, rel_h, rel_w, out, b, heads, s, row0, st);
-    case 24: return launch<HD, 24>(q, k, v, rel_h, rel_w, out, b, heads, s, row0, st);
-    case 32: return launch<HD, 32>(q, k, v, rel_h, rel_w, out, b, heads, s, row0, st);
-    case 40: return launch<HD, 40>(q, k, v, rel_h, rel_w, out, b, heads, s, row0, st);
-    case 48: return launch<HD, 48>(q, k, v, rel_h, rel_w, out, b, heads, s, row0, st);
-    case 56: return launch<HD, 56>(q, k, v, rel_h, rel_w, out, b, heads, s, row0, st);
-    case 64: return launch<HD, 64>(q, k, v, rel_h, rel_w, out, b, heads, s, row0, st);
+              int heads, int s, int row0, int w, cudaStream_t st) {
+#define YSI_RELPOS_CASE(SP_) \
+  case SP_: return launch<HD, SP_>(q, k, v, rel_h, rel_w, out, b, heads, s, row0, w, st);
+  switch ((w + 7) / 8 * 8) {
+    YSI_RELPOS_CASE(8)
+    YSI_RELPOS_CASE(16)
+    YSI_RELPOS_CASE(24)
+    YSI_RELPOS_CASE(32)
+    YSI_RELPOS_CASE(40)
+    YSI_RELPOS_CASE(48)
+    YSI_RELPOS_CASE(56)
+    YSI_RELPOS_CASE(64)
   }
+#undef YSI_RELPOS_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -598,16 +650,22 @@ extern "C" int ysi_flash_attn_relpos_init(void) {
 // q: NQ tokens at q_ts elements apart, images q_is apart; k and v: S * S
 // tokens each at kv_ts apart, images kv_is apart; channel h * hd + d of a
 // token is head h's element d. out: contiguous (B, NQ, heads * hd).
+// window 0 (or S): whole-grid mode, rel_h / rel_w (2S-1, hd). A window w < S
+// (a multiple of 16 dividing S, up to 64): window mode, NQ = S * S from row
+// 0, each query attending the keys of its own w x w window, rel_h / rel_w
+// (2w-1, hd), out (B, S * S, C) with each window's tokens in place.
 extern "C" int ysi_flash_attn_relpos(const void* q, const void* k, const void* v,
                                      const void* rel_h, const void* rel_w, void* out, int b,
                                      int heads, int nq, int s, int row0, int hd, int q_ts,
-                                     int q_is, int kv_ts, int kv_is, void* stream) {
-  if (b <= 0 || heads <= 0 || nq <= 0 || s <= 0 || s > 64 || nq % s || row0 < 0 ||
-      row0 + nq / s > s || q_ts % 8 || q_is % 8 || kv_ts % 8 || kv_is % 8)
+                                     int q_is, int kv_ts, int kv_is, int window, void* stream) {
+  const int w = window > 0 ? window : s;
+  if (b <= 0 || heads <= 0 || nq <= 0 || s <= 0 || nq % s || row0 < 0 || row0 + nq / s > s ||
+      q_ts % 8 || q_is % 8 || kv_ts % 8 || kv_is % 8 || w > 64 || w > s)
     return (int)cudaErrorInvalidValue;
+  if (w < s && (w % 16 || s % w || nq != s * s || row0 != 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const View qv{q, nq, q_ts, q_is}, kv{k, s * s, kv_ts, kv_is}, vv{v, s * s, kv_ts, kv_is};
-  if (hd == 64) return launch_sp<64>(qv, kv, vv, rel_h, rel_w, out, b, heads, s, row0, st);
-  if (hd == 80) return launch_sp<80>(qv, kv, vv, rel_h, rel_w, out, b, heads, s, row0, st);
+  if (hd == 64) return launch_sp<64>(qv, kv, vv, rel_h, rel_w, out, b, heads, s, row0, w, st);
+  if (hd == 80) return launch_sp<80>(qv, kv, vv, rel_h, rel_w, out, b, heads, s, row0, w, st);
   return (int)cudaErrorInvalidValue;
 }

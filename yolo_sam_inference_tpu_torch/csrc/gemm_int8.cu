@@ -28,75 +28,109 @@
 //     (row, chunk); out = b2 + sum_c dequant_c(hq_c @ w2q[c, :]), summed in
 //     fp32 in chunk order; result bf16(y + bf16(out)).
 //
-// Three kernels; four launches per tail (ln_quant, MLP1, quant_chunks,
-// MLP2) and two for K11c (ln_quant, QKV) and for int8_linear (ln_quant
-// without the LN, QKV or GELU):
+// Three kernels; four launches per tail (ln_quant, MLP1, gelu_quant, MLP2)
+// and two for K11c (ln_quant, QKV) and for int8_linear (ln_quant without the
+// LN, QKV or GELU):
 //   1. ln_quant_kernel: one warp per row: LN statistics (two passes), the LN
 //      values, the row amax, the int8 row and its scale (the LN never goes to
 //      device memory); with null LN pointers the rows are quantised as they
-//      come;
-//   2. gemm_int8_kernel<QKV | GELU | MLP1 | MLP2>: a tiled int8 GEMM on
-//      mma.sync.m16n8k32 (s8 x s8 -> s32). QKV dequantises and adds the bias
-//      (bf16 out); GELU then rounds to bf16 and applies the exact-erf GELU in
-//      fp32 (bf16 out). MLP1 also applies GELU, stores the fp32 hidden and takes
-//      each row's |h| maximum per chunk (shared-memory then global atomics on
-//      the float bits; |h| >= 0 orders like an int). MLP2 folds the int32
+//      come. Up to C 1280 the row waits in registers and is read once;
+//   2. gemm_int8_kernel<QKV | GELU | MLP1 | MLP2>: the int8 GEMM. QKV
+//      dequantises and adds the bias (bf16 out); GELU then rounds to bf16 and
+//      applies the exact-erf GELU in fp32 (bf16 out). MLP1 stores the
+//      dequantised fp32 hidden before its GELU. MLP2 folds the int32
 //      accumulator into an fp32 sum at every chunk boundary, scaled by that
 //      chunk's row scale, and adds the residual y in its epilogue;
-//   3. quant_chunks_kernel: requantises the fp32 hidden per (row, chunk).
+//   3. gelu_quant_kernel: one warp per (row, chunk) of the hidden: the GELU,
+//      the chunk's row amax, the int8 values and their scale. The GELU's erf
+//      costs more than the product it follows at these widths, so it runs
+//      here, on every warp of the card, and not in MLP1's epilogue, where
+//      one warpgroup an SM would have to hide it under the other's products.
 //
 // What bounds it on the H100: the products are compute bound (at batch 32,
 // 32768 rows x K = 1024..5120 is about 1000 int8 operations per byte), so
-// the int8 tensor-core rate is the limit; the int8 operands halve the bytes
-// and double the rate of the bf16 products. The design takes the bf16 GEMM's
-// tiling (128 x 128 block tiles, 8 warps of 64 x 32, a 4-stage cp.async ring
-// of 64-byte k-tiles in padded, ldmatrix-conflict-free shared memory) with
-// the int8 fragment layout, which in bytes is the bf16 m16n8k16 layout: A
-// and the transposed weight (N, K), made once per weight, both load with
-// plain ldmatrix. What it gives up for simplicity: the fp32 hidden of the
-// tail goes through device memory (4 bytes a value, written once, read once,
-// then read again as int8), so the tail moves about 10 bytes per hidden
-// value; the TPU kernel keeps it in VMEM. No wgmma or TMA yet.
+// the int8 tensor-core rate (1979 TOP/s, twice bf16's) is the limit, and
+// only wgmma reaches it. The first design issued mma.sync.m16n8k32 from a
+// cp.async ring: 2.8597 ms for K11b's tail at ViT-H, slower than the bf16
+// tail on wgmma (2.0561), on an H100 80GB HBM3 at 700 W.
+//
+// This design is gemm_bf16.cu's with the int8 operands:
+//   * one producer warp keeps a ring of 4 k-tiles of 128 bytes (A 128 rows,
+//     the transposed weight (N, K) BN rows) in flight with TMA (128-byte
+//     swizzle, rows and k past the matrix zero-filled), each stage guarded
+//     by a full and an empty mbarrier;
+//   * two consumer warpgroups take the block's tiles in turn (ping-pong,
+//     handing over through turn[]): each multiplies a whole 128 x BN tile with
+//     two wgmma m64nBNk32 s8 x s8 -> s32 per 32-byte k-step, A and B both
+//     K-major (the s8 form has no transpose), straight from the swizzled
+//     tiles, while the other runs its epilogue; the grid is persistent;
+//   * MLP2 keeps an fp32 chunk sum in registers beside its int32
+//     accumulators, so there the two warpgroups share each 128 x 128 tile
+//     (64 rows each, one wgmma m64n128k32 per k-step; cooperative, no
+//     ping-pong; 128 x 64 tiles in ping-pong, which halve the products per
+//     byte of shared memory read, measured slower: PERF.md). Its residual
+//     tiles come into shared memory by cp.async while the products run;
+//   * the epilogue dequantises on the accumulators; bf16 results are staged
+//     in shared memory and stored with 16-byte coalesced accesses (MLP2 adds
+//     the residual there); MLP1 stores its fp32 hidden from the registers (a
+//     quad writes a whole 32-byte sector).
+// What it keeps for simplicity: the fp32 hidden of the tail goes through
+// device memory (4 bytes a value, written once, read once, then read again
+// as int8), so the tail moves about 10 bytes per hidden value; the TPU kernel
+// keeps it in VMEM.
 //
 // Requirements (the wrappers check them; the C entry points return
-// cudaErrorInvalidValue otherwise): K a multiple of 16, N of 8; MLP1's chunk
-// a multiple of 128 (a block's columns lie in one chunk) dividing N; MLP2's
-// chunk a multiple of 64 (the k-tile) dividing K. M is free.
+// cudaErrorInvalidValue otherwise): K a multiple of 16 (TMA's 16-byte row
+// strides), N of 8; MLP2's chunk a multiple of 128 (the k-tile) dividing K,
+// gelu_quant's a multiple of 8 dividing N. M is free; the pointers are
+// 16-byte aligned.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_frag.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64;  // BK in int8 elements (bytes)
-constexpr int STAGES = 4;
-constexpr int THREADS = 256;                     // 8 warps: 2 along M x 4 along N
-constexpr int WARP_M = 64, WARP_N = 32;
-constexpr int FM = WARP_M / 16, FN = WARP_N / 8;  // m16 x n8 accumulator fragments
-constexpr int LDS = BK + 16;                     // 80-byte rows: ldmatrix conflict-free
-constexpr int TILE = BM * LDS;                   // bytes per operand per stage (BM == BN)
-constexpr int CHUNKS = BM * BK / 16 / THREADS;   // 16-byte copies per thread per operand
-constexpr size_t SMEM = 2 * STAGES * TILE;
-static_assert(BM == BN, "A and the transposed weight share the tile geometry");
-
 enum Mode { QKV = 0, MLP1 = 1, MLP2 = 2, GELU = 3 };
 
+constexpr int BM = 128, BK = 128, STAGES = 4;  // BK in int8 elements (bytes)
+constexpr int CONSUMERS = 2;                   // warpgroups, alternate tiles
+constexpr int THREADS = CONSUMERS * 128 + 32;  // + one producer warp
+
+template <int MODE>
+struct Tile {
+  static constexpr int BN = 128;
+  // MLP2 keeps an fp32 chunk sum beside its int32 accumulators, so its two
+  // warpgroups share each block tile (64 rows each, "cooperative"); the other
+  // modes give each warpgroup whole tiles in turn ("ping-pong")
+  static constexpr bool COOP = MODE == MLP2;
+  static constexpr int HALVES = COOP ? 1 : 2;  // 64-row halves a warpgroup multiplies
+  static constexpr int A_STAGE = BM * BK, B_STAGE = BN * BK;  // bytes
+  static constexpr int LDC = BN + 8;  // bf16 row stride of the staged C (and residual) tiles
+  // the staged C tile; MLP2: its residual tiles x and h, the output written
+  // over x's
+  static constexpr size_t C_BYTES =
+      MODE == MLP1 ? 0 : (size_t)CONSUMERS * (COOP ? 2 : 1) * HALVES * 64 * LDC * 2;
+  static constexpr size_t WS_BYTES = COOP ? CONSUMERS * BN * 4 : 0;  // MLP2: the tile's w_scale
+  static constexpr size_t SMEM = 1024 /* alignment slack */ + STAGES * (A_STAGE + B_STAGE) +
+                                 C_BYTES + WS_BYTES + (2 * STAGES + 2) * sizeof(uint64_t);
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
 struct Args {
-  const int8_t* a;           // (M, K) row-major int8 activations
-  const int8_t* bt;          // (N, K) row-major: the int8 weight, transposed
   const float* a_scale;      // (M,) row scales; MLP2: (M, K / chunk)
   const float* w_scale;      // (N,) column scales
   const float* bias;         // (N,)
   const __nv_bfloat16* r1;   // MLP2: residual x (M, N)
   const __nv_bfloat16* r2;   // MLP2: residual h (M, N) or null
   void* out;                 // bf16 (M, N); MLP1: fp32 (M, N)
-  float* amax;               // MLP1: (M, N / chunk) per-chunk row max of |out|, zeroed
   int m, n, k;
-  int chunk;                 // MLP1: along N; MLP2: along K
+  int chunk;                 // MLP2: the hidden chunk along K
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -119,10 +153,6 @@ __device__ __forceinline__ float dequant(int acc, float sa, float sw, float b) {
   return __fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(sa, sw)), b);
 }
 
-__device__ __forceinline__ void atomic_max_nonneg(float* addr, float v) {
-  atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -133,22 +163,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// d += a (16x32 s8, row) * b (32x8 s8, col), s32 accumulation. In bytes the
-// fragments are those of m16n8k16 bf16 (mma_frag.cuh): a[0] = (g, 4t..4t+3),
-// a[1] = (g+8, 4t..), a[2] = (g, 16+4t..), a[3] = (g+8, 16+4t..);
-// b0 = (k 4t..4t+3, n g), b1 = (k 16+4t.., n g); d as the fp32 C fragment.
-__device__ __forceinline__ void mma_s8(int d[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const int8_t* p) {
-  ldmatrix_x4(r, reinterpret_cast<const __nv_bfloat16*>(p));  // 8 rows x 16 bytes each
 }
 
 // Eight values of y = x (+ h, rounded to bf16 like the stored residual sum).
@@ -179,277 +193,479 @@ __device__ __forceinline__ void ln8(const float y[8], float mean, float rstd, co
 }
 
 // One warp per row: xq = quant(LN(x (+ h))), xs = the row scale; with null
-// ln_s and ln_b, xq = quant(x (+ h)).
+// ln_s and ln_b, xq = quant(x (+ h)). With CH > 0 (C <= 256 CH) a lane holds
+// its CH 8-value chunks of the row in registers, so the row is read once and
+// each LN value computed once. With CH = 0 (wider rows: no LN on the paths)
+// each pass reads the row again, from L1. Either way a lane sums its values
+// in the same order, so the statistics are the same bits.
+template <int CH>
 __global__ void __launch_bounds__(256)
     ln_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ h,
                     const float* __restrict__ ln_s, const float* __restrict__ ln_b,
                     int8_t* __restrict__ xq, float* __restrict__ xs, int m, int c, float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
+  const bool ln = ln_s != nullptr;
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   if (row >= m) return;
   const long base = (long)row * c;
-  const bool ln = ln_s != nullptr;
-  float y[8], l[8];
-  float mean = 0.f, rstd = 1.f;
-  if (ln) {
-    float s = 0.f;
-    for (int j = lane * 8; j < c; j += 256) {
-      load_y8(x, h, base + j, y);
+  if constexpr (CH > 0) {
+    float y[CH][8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) s += y[i];
-    }
-    mean = __fdiv_rn(warp_sum(s), (float)c);
-    float q = 0.f;
-    for (int j = lane * 8; j < c; j += 256) {
-      load_y8(x, h, base + j, y);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) q += (y[i] - mean) * (y[i] - mean);
-    }
-    rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(q), (float)c), eps));
-  }
-  // the values to quantise, eight columns from j
-  auto values = [&](int j) {
-    load_y8(x, h, base + j, y);
+    for (int i = 0; i < CH; ++i)
+      if ((i * 32 + lane) * 8 < c) load_y8(x, h, base + (i * 32 + lane) * 8, y[i]);
     if (ln) {
-      ln8(y, mean, rstd, ln_s, ln_b, j, l);
-    } else {
+      float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) l[i] = y[i];
+      for (int i = 0; i < CH; ++i)
+        if ((i * 32 + lane) * 8 < c) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s += y[i][e];
+        }
+      const float mean = __fdiv_rn(warp_sum(s), (float)c);
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < CH; ++i)
+        if ((i * 32 + lane) * 8 < c) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) q += (y[i][e] - mean) * (y[i][e] - mean);
+        }
+      const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(q), (float)c), eps));
+#pragma unroll
+      for (int i = 0; i < CH; ++i)
+        if ((i * 32 + lane) * 8 < c) {  // the LN values in the activation dtype (bf16)
+          float l[8];
+          ln8(y[i], mean, rstd, ln_s, ln_b, (i * 32 + lane) * 8, l);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) y[i][e] = l[e];
+        }
     }
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+      if ((i * 32 + lane) * 8 < c) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(y[i][e]));
+      }
+    const float scale = quant_scale(warp_max(amax));
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+      if ((i * 32 + lane) * 8 < c) {
+        uint2 packed;
+        int8_t* e8 = reinterpret_cast<int8_t*>(&packed);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) e8[e] = (int8_t)quant(y[i][e], scale);
+        *reinterpret_cast<uint2*>(xq + base + (i * 32 + lane) * 8) = packed;
+      }
+    if (lane == 0) xs[row] = scale;
+  } else {
+    float y[8], l[8];
+    float mean = 0.f, rstd = 1.f;
+    if (ln) {
+      float s = 0.f;
+      for (int j = lane * 8; j < c; j += 256) {
+        load_y8(x, h, base + j, y);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s += y[i];
+      }
+      mean = __fdiv_rn(warp_sum(s), (float)c);
+      float q = 0.f;
+      for (int j = lane * 8; j < c; j += 256) {
+        load_y8(x, h, base + j, y);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) q += (y[i] - mean) * (y[i] - mean);
+      }
+      rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(q), (float)c), eps));
+    }
+    // the values to quantise, eight columns from j
+    auto values = [&](int j) {
+      load_y8(x, h, base + j, y);
+      if (ln) {
+        ln8(y, mean, rstd, ln_s, ln_b, j, l);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) l[i] = y[i];
+      }
+    };
+    float amax = 0.f;
+    for (int j = lane * 8; j < c; j += 256) {  // the row is in L1 from here on
+      values(j);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(l[i]));
+    }
+    const float scale = quant_scale(warp_max(amax));
+    for (int j = lane * 8; j < c; j += 256) {
+      values(j);
+      uint2 packed;
+      int8_t* e = reinterpret_cast<int8_t*>(&packed);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) e[i] = (int8_t)quant(l[i], scale);
+      *reinterpret_cast<uint2*>(xq + base + j) = packed;
+    }
+    if (lane == 0) xs[row] = scale;
+  }
+}
+
+// One warp per (row, chunk) of the fp32 hidden v (MLP1's dequantised product
+// + bias): h = GELU(v), s = quant_scale(max |h| over the chunk), hq =
+// quant(h, s), hs[row, chunk] = s. With CH > 0 (chunk <= 256 CH) a lane holds
+// its CH 8-value groups of the chunk in registers; with CH = 0 it reads them
+// twice, from L1.
+template <int CH>
+__global__ void __launch_bounds__(256)
+    gelu_quant_kernel(const float* __restrict__ hf, int8_t* __restrict__ hq,
+                      float* __restrict__ hs, int m, int n, int chunk) {
+  const int nch = n / chunk;
+  const long unit = ((long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (unit >= (long)m * nch) return;
+  const long base = unit / nch * n + unit % nch * chunk;  // the chunk's first value
+  auto gelu8 = [&](int j, float v[8]) {
+    const float4 a = *reinterpret_cast<const float4*>(hf + base + j);
+    const float4 b = *reinterpret_cast<const float4*>(hf + base + j + 4);
+    const float u[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = gelu(u[e]);
+  };
+  auto store8 = [&](int j, const float v[8], float scale) {
+    uint2 packed;
+    int8_t* e8 = reinterpret_cast<int8_t*>(&packed);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) e8[e] = (int8_t)quant(v[e], scale);
+    *reinterpret_cast<uint2*>(hq + base + j) = packed;
   };
   float amax = 0.f;
-  for (int j = lane * 8; j < c; j += 256) {  // the row is in L1 from here on
-    values(j);
+  if constexpr (CH > 0) {
+    float v[CH][8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(l[i]));
-  }
-  const float scale = quant_scale(warp_max(amax));
-  for (int j = lane * 8; j < c; j += 256) {
-    values(j);
-    uint2 packed;
-    int8_t* e = reinterpret_cast<int8_t*>(&packed);
+    for (int i = 0; i < CH; ++i)
+      if ((i * 32 + lane) * 8 < chunk) {
+        gelu8((i * 32 + lane) * 8, v[i]);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) e[i] = (int8_t)quant(l[i], scale);
-    *reinterpret_cast<uint2*>(xq + base + j) = packed;
+        for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[i][e]));
+      }
+    const float scale = quant_scale(warp_max(amax));
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+      if ((i * 32 + lane) * 8 < chunk) store8((i * 32 + lane) * 8, v[i], scale);
+    if (lane == 0) hs[unit] = scale;
+  } else {
+    float v[8];
+    for (int j = lane * 8; j < chunk; j += 256) {
+      gelu8(j, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+    }
+    const float scale = quant_scale(warp_max(amax));
+    for (int j = lane * 8; j < chunk; j += 256) {
+      gelu8(j, v);
+      store8(j, v, scale);
+    }
+    if (lane == 0) hs[unit] = scale;
   }
-  if (lane == 0) xs[row] = scale;
 }
 
-// One thread per 16 values of the fp32 hidden: hq = quant(hf, s[row, chunk]);
-// the thread at a chunk's first column writes s.
-__global__ void __launch_bounds__(256)
-    quant_chunks_kernel(const float* __restrict__ hf, const float* __restrict__ amax,
-                        int8_t* __restrict__ hq, float* __restrict__ hs, int m, int n, int chunk) {
-  const int per_row = n / 16;
-  const long v = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= (long)m * per_row) return;
-  const int row = (int)(v / per_row), col = (int)(v % per_row) * 16;
-  const int nch = n / chunk, ci = col / chunk;
-  const float scale = quant_scale(amax[(long)row * nch + ci]);
-  if (col % chunk == 0) hs[(long)row * nch + ci] = scale;
-  const float4* src = reinterpret_cast<const float4*>(hf + (long)row * n + col);
-  uint4 packed;
-  int8_t* e = reinterpret_cast<int8_t*>(&packed);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 f = src[i];
-    e[4 * i] = (int8_t)quant(f.x, scale);
-    e[4 * i + 1] = (int8_t)quant(f.y, scale);
-    e[4 * i + 2] = (int8_t)quant(f.z, scale);
-    e[4 * i + 3] = (int8_t)quant(f.w, scale);
-  }
-  *reinterpret_cast<uint4*>(hq + (long)row * n + col) = packed;
-}
-
+// Ping-pong: consumer warpgroup wg of a block takes the block's tiles wg,
+// wg + 2, ... (tiles row-major over (M / BM, N / BN)), as in gemm_bf16.cu.
+// Cooperative (MLP2): both take every tile of the block, warpgroup wg its
+// rows 64 wg..64 wg + 63. A thread holds rows r0 + 64 h + 16 warp + g (+ 8)
+// and columns 8 j + 2 tl (+ 1) of the tile.
 template <int MODE>
-__global__ void __launch_bounds__(THREADS, MODE == MLP2 ? 1 : 2) gemm_int8_kernel(Args p) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_int8_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b, Args p) {
+  using T = Tile<MODE>;
+  constexpr int BN = T::BN, NA = BN / 2, H = T::HALVES;  // NA: accumulators a 64-row half
+  constexpr bool COOP = T::COOP;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that boundary
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   int8_t* As = reinterpret_cast<int8_t*>(smem);
-  int8_t* Bs = As + STAGES * TILE;
-  __shared__ float row_amax[BM];  // MLP1
+  int8_t* Bs = As + STAGES * T::A_STAGE;
+  __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(Bs + STAGES * T::B_STAGE);
+  float* Ws = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(Cs) + T::C_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(Ws) + T::WS_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* turn = empty + STAGES;  // turn[w]: the other warpgroup has issued its products
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = (warp / 4) * WARP_M, wn = (warp % 4) * WARP_N;
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int tiles = (p.m + BM - 1) / BM * tiles_n;
   const int nk = (p.k + BK - 1) / BK;
-  if constexpr (MODE == MLP1) {
-    for (int r = tid; r < BM; r += THREADS) row_amax[r] = 0.f;
-  }  // made visible by the main loop's first barrier
+  const int wg = threadIdx.x / 128;
 
-  auto issue = [&](int kt) {
-    const int stage = kt % STAGES, k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int v = tid + i * THREADS;
-      const int r = v / (BK / 16), c = (v % (BK / 16)) * 16;
-      const bool kin = k0 + c < p.k;  // K % 16 == 0: the whole 16 bytes are in range
-      const bool oka = kin && m0 + r < p.m;
-      const bool okb = kin && n0 + r < p.n;
-      cp_async16(As + stage * TILE + r * LDS + c, p.a + (oka ? (long)(m0 + r) * p.k + k0 + c : 0),
-                 oka);
-      cp_async16(Bs + stage * TILE + r * LDS + c, p.bt + (okb ? (long)(n0 + r) * p.k + k0 + c : 0),
-                 okb);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);  // the producer's arrive + the TMA bytes
+      mbar_init(&empty[s], COOP ? 8 : 4);  // one arrive per warp that reads the stage
     }
-  };
+    mbar_init(&turn[0], 128);
+    mbar_init(&turn[1], 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  int acc[FM][FN][4];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-  // MLP2: the fp32 sum over chunks, from the bias on
-  constexpr int SM = MODE == MLP2 ? FM : 1, SN = MODE == MLP2 ? FN : 1;
-  float sum[SM][SN][4];
-  if constexpr (MODE == MLP2) {
-#pragma unroll
-    for (int j = 0; j < SN; ++j) {
-      const int col = n0 + wn + j * 8 + 2 * t;
-      const float b0 = col < p.n ? p.bias[col] : 0.f, b1 = col < p.n ? p.bias[col + 1] : 0.f;
-#pragma unroll
-      for (int i = 0; i < SM; ++i) {
-        sum[i][j][0] = sum[i][j][2] = b0;
-        sum[i][j][1] = sum[i][j][3] = b1;
+  if (wg == CONSUMERS) {
+    // ---- producer warp: one thread issues every copy
+    if (threadIdx.x % 32 == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);  // the consumers have released it
+          mbar_expect_tx(&full[stage], T::A_STAGE + T::B_STAGE);
+          tma_load(As + stage * T::A_STAGE, &map_a, &full[stage], kt * BK, m0);
+          tma_load(Bs + stage * T::B_STAGE, &map_b, &full[stage], kt * BK, n0);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
+    return;
   }
 
-  auto mma_tile = [&](int kt) {
-    const int stage = kt % STAGES;
-    const int8_t* at = As + stage * TILE;
-    const int8_t* bt = Bs + stage * TILE;
+  // ---- consumer warpgroups (see gemm_bf16.cu for the turn[] handover)
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tl = lane % 4;
+  const int r0 = COOP ? 64 * wg : 0;                // this warpgroup's first row of a tile
+  // this warpgroup's C tile (MLP2: its residual x's, then h's)
+  __nv_bfloat16* cw = Cs + wg * (COOP ? 2 : 1) * H * 64 * T::LDC;
+  float* wsw = Ws + wg * BN;  // MLP2: this tile's column scales
+  int acc[H][NA];
+  constexpr int SN = MODE == MLP2 ? NA : 1;
+  float sum[H][SN];  // MLP2: the fp32 sum over chunks
+  const int kpc = MODE == MLP2 ? p.chunk / BK : 1;  // k-tiles per chunk
+  // row (h, hr) of this thread in the tile: r0 + 64 h + 16 warp + g + 8 hr
+  auto tile_row = [&](int h, int hr) { return r0 + 64 * h + 16 * warp + g + 8 * hr; };
+  int local = 0;       // this block's tiles so far
+  uint32_t turns = 0;  // handovers this warpgroup has waited for
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++local) {
+    if (!COOP && local % CONSUMERS != wg) continue;
+    const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[FM][4], bf[FN][2];
+    for (int h = 0; h < H; ++h)
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
-        ldsm_x4(af[i], at + (wm + i * 16 + (lane & 15)) * LDS + kk + (lane >> 4) * 16);
+      for (int i = 0; i < NA; ++i) acc[h][i] = 0;
+    if constexpr (MODE == MLP2) {
 #pragma unroll
-      for (int jp = 0; jp < FN / 2; ++jp) {
-        uint32_t r[4];  // n-tiles 2jp, 2jp + 1; k bytes 0-15 and 16-31 of the step
-        ldsm_x4(r, bt + (wn + jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS + kk +
-                       ((lane >> 3) & 1) * 16);
-        bf[2 * jp][0] = r[0];
-        bf[2 * jp][1] = r[1];
-        bf[2 * jp + 1][0] = r[2];
-        bf[2 * jp + 1][1] = r[3];
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + j * 8 + 2 * tl;
+        const float b0 = col < p.n ? __ldg(p.bias + col) : 0.f;
+        const float b1 = col < p.n ? __ldg(p.bias + col + 1) : 0.f;
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          sum[h][4 * j] = sum[h][4 * j + 2] = b0;
+          sum[h][4 * j + 1] = sum[h][4 * j + 3] = b1;
+        }
       }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
     }
-  };
+    if constexpr (MODE == MLP2) {
+      // the epilogue's residual rows into shared memory while the products
+      // run (the C tile was freed at the end of the last tile); zeros outside
+      for (int v = tid; v < 64 * BN / 8; v += 128) {
+        const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
+        const int row = m0 + r0 + r, col = n0 + c;
+        const bool in = row < p.m && col < p.n;
+        const long idx = in ? (long)row * p.n + col : 0;
+        cp_async16(cw + r * T::LDC + c, p.r1 + idx, in);
+        if (p.r2) cp_async16(cw + (64 + r) * T::LDC + c, p.r2 + idx, in);
+      }
+      cp_async_commit();
+      wsw[tid] = n0 + tid < p.n ? __ldg(p.w_scale + n0 + tid) : 0.f;  // BN == 128 threads
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
+    if (!COOP && local > 0) mbar_wait(&turn[wg], turns++ & 1);
+    int prev = -1;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int slot = local * nk + kt;  // the ring's k-tile count: stage and phase
+      const int stage = slot % STAGES;
+      mbar_wait(&full[stage], (slot / STAGES) & 1);
+      const int8_t* at = As + stage * T::A_STAGE + r0 * BK;
+      const int8_t* bt = Bs + stage * T::B_STAGE;
+#pragma unroll
+      for (int h = 0; h < H; ++h) fence_acc(acc[h]);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < BK / 32; ++s) {
+        // 8-row groups 1024 bytes apart, k-step s 32 bytes into the swizzled row
+        const uint64_t db = smem_desc(bt + s * 32, 16, 1024);
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+          wgmma_s8<BN>(acc[h], smem_desc(at + h * 64 * BK + s * 32, 16, 1024), db, 1);
+      }
+      wgmma_commit();
+      if (MODE == MLP2 && (kt + 1) % kpc == 0) {
+        // a chunk ends: sum += acc * (s[row, chunk] * w_scale[col]); acc = 0.
+        // The rows' scales are read before the products are waited for.
+        float sa[H][2];  // this thread's rows' scales of the chunk
+        if constexpr (MODE == MLP2) {
+          const int nch = p.k / p.chunk, ci = (kt + 1) / kpc - 1;
+#pragma unroll
+          for (int h = 0; h < H; ++h)
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const int row = m0 + tile_row(h, hr);
+              sa[h][hr] = row < p.m ? __ldg(p.a_scale + (long)row * nch + ci) : 0.f;
+            }
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int h = 0; h < H; ++h) fence_acc(acc[h]);
+        if constexpr (MODE == MLP2) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const float w0 = wsw[j * 8 + 2 * tl], w1 = wsw[j * 8 + 2 * tl + 1];
+#pragma unroll
+            for (int h = 0; h < H; ++h)
+#pragma unroll
+              for (int hr = 0; hr < 2; ++hr) {
+                const int e = 4 * j + 2 * hr;
+                sum[h][e] = __fadd_rn(sum[h][e], __fmul_rn(__int2float_rn(acc[h][e]),
+                                                           __fmul_rn(sa[h][hr], w0)));
+                sum[h][e + 1] = __fadd_rn(sum[h][e + 1], __fmul_rn(__int2float_rn(acc[h][e + 1]),
+                                                                   __fmul_rn(sa[h][hr], w1)));
+                acc[h][e] = acc[h][e + 1] = 0;
+              }
+          }
+        }
+      } else {
+        wgmma_wait<1>();  // the previous k-tile's products are done: release its stage
+#pragma unroll
+        for (int h = 0; h < H; ++h) fence_acc(acc[h]);
+      }
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+    }
+    if (!COOP) mbar_arrive(&turn[wg ^ 1]);  // every thread: the other warpgroup's turn
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < H; ++h) fence_acc(acc[h]);
+    if (lane == 0) mbar_arrive(&empty[prev]);
 
-  // MLP2: sum += acc * (s[row, chunk] * w_scale[col]); acc = 0
-  auto fold = [&](int ci) {
-    const int nch = p.k / p.chunk;
+    // dequant + bias on the accumulators, with this thread's rows' scales and
+    // each column pair's scales and biases read once
+    float sa[H][2] = {};
+    if constexpr (MODE != MLP2) {
 #pragma unroll
-    for (int j = 0; j < SN; ++j) {
-      const int col = n0 + wn + j * 8 + 2 * t;
-      const float w0 = col < p.n ? p.w_scale[col] : 0.f, w1 = col < p.n ? p.w_scale[col + 1] : 0.f;
-#pragma unroll
-      for (int i = 0; i < SM; ++i)
+      for (int h = 0; h < H; ++h)
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
-          const int row = m0 + wm + i * 16 + g + hr * 8;
-          const float sa = row < p.m ? p.a_scale[(long)row * nch + ci] : 0.f;
-          sum[i][j][2 * hr] = __fadd_rn(sum[i][j][2 * hr],
-                                        __fmul_rn(__int2float_rn(acc[i][j][2 * hr]), __fmul_rn(sa, w0)));
-          sum[i][j][2 * hr + 1] = __fadd_rn(
-              sum[i][j][2 * hr + 1], __fmul_rn(__int2float_rn(acc[i][j][2 * hr + 1]), __fmul_rn(sa, w1)));
-          acc[i][j][2 * hr] = acc[i][j][2 * hr + 1] = 0;
+          const int row = m0 + tile_row(h, hr);
+          sa[h][hr] = row < p.m ? __ldg(p.a_scale + row) : 0.f;
         }
     }
-  };
-
+    if constexpr (MODE == MLP1) {
+      // the fp32 hidden straight from the registers (a quad writes a 32-byte sector)
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) issue(s);
-    cp_async_commit();
-  }
-  const int kpc = MODE == MLP2 ? p.chunk / BK : 1;  // k-tiles per chunk
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt have landed
-    __syncthreads();              // everyone's have; tile kt - 1 is fully consumed
-    if (kt + STAGES - 1 < nk) issue(kt + STAGES - 1);
-    cp_async_commit();
-    mma_tile(kt);
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + j * 8 + 2 * tl;
+        if (col >= p.n) continue;  // N % 8 == 0: col + 1 is in range too
+        const float w0 = __ldg(p.w_scale + col), w1 = __ldg(p.w_scale + col + 1);
+        const float b0 = __ldg(p.bias + col), b1 = __ldg(p.bias + col + 1);
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int row = m0 + tile_row(h, hr), e = 4 * j + 2 * hr;
+            if (row < p.m)
+              *reinterpret_cast<float2*>(static_cast<float*>(p.out) + (long)row * p.n + col) =
+                  make_float2(dequant(acc[h][e], sa[h][hr], w0, b0),
+                              dequant(acc[h][e + 1], sa[h][hr], w1, b1));
+          }
+      }
+      continue;
+    }
+
+    // the bf16 result into the C tile (GELU: of the rounded value; MLP2: y +
+    // the rounded fp32 sum, over the residual x, y = x (+ h) rounded to bf16)
     if constexpr (MODE == MLP2) {
-      if ((kt + 1) % kpc == 0) fold((kt + 1) / kpc - 1);
+      cp_async_wait<0>();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // every copy has landed
     }
-  }
-  cp_async_wait<0>();
-
-  // epilogue, straight from the fragments: each lane owns column pairs
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+    for (int j = 0; j < BN / 8; ++j) {
+      const int cl = j * 8 + 2 * tl, col = n0 + cl;
+      float w0 = 0.f, w1 = 0.f, b0 = 0.f, b1 = 0.f;
+      if (MODE != MLP2 && col < p.n) {  // N % 8 == 0: col + 1 is in range too
+        w0 = __ldg(p.w_scale + col);
+        w1 = __ldg(p.w_scale + col + 1);
+        b0 = __ldg(p.bias + col);
+        b1 = __ldg(p.bias + col + 1);
+      }
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int rl = wm + i * 16 + g + hr * 8, row = m0 + rl;
-      const bool rin = row < p.m;
-      const float sa = (MODE != MLP2 && rin) ? p.a_scale[row] : 0.f;
-      float rmax = 0.f;
+      for (int h = 0; h < H; ++h)
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int col = n0 + wn + j * 8 + 2 * t;
-        if (!rin || col >= p.n) continue;  // N % 8 == 0: col + 1 is in range too
-        const long idx = (long)row * p.n + col;
-        if constexpr (MODE == MLP2) {
-          float y0 = __bfloat162float(p.r1[idx]), y1 = __bfloat162float(p.r1[idx + 1]);
-          if (p.r2) {
-            y0 = round_bf16(__fadd_rn(y0, __bfloat162float(p.r2[idx])));
-            y1 = round_bf16(__fadd_rn(y1, __bfloat162float(p.r2[idx + 1])));
+        for (int hr = 0; hr < 2; ++hr) {
+          const int rl = tile_row(h, hr) - r0, e = 4 * j + 2 * hr;
+          float v0, v1;
+          if constexpr (MODE == MLP2) {
+            const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(cw + rl * T::LDC + cl);
+            float y0 = __low2float(x2), y1 = __high2float(x2);
+            if (p.r2) {
+              const __nv_bfloat162 h2 =
+                  *reinterpret_cast<const __nv_bfloat162*>(cw + (64 + rl) * T::LDC + cl);
+              y0 = round_bf16(__fadd_rn(y0, __low2float(h2)));
+              y1 = round_bf16(__fadd_rn(y1, __high2float(h2)));
+            }
+            v0 = __fadd_rn(y0, round_bf16(sum[h][e]));
+            v1 = __fadd_rn(y1, round_bf16(sum[h][e + 1]));
+          } else {  // rows and columns outside the matrix are masked at the store
+            v0 = dequant(acc[h][e], sa[h][hr], w0, b0);
+            v1 = dequant(acc[h][e + 1], sa[h][hr], w1, b1);
+            if constexpr (MODE == GELU) {
+              v0 = gelu(round_bf16(v0));
+              v1 = gelu(round_bf16(v1));
+            }
           }
-          const float o0 = __fadd_rn(y0, round_bf16(sum[i][j][2 * hr]));
-          const float o1 = __fadd_rn(y1, round_bf16(sum[i][j][2 * hr + 1]));
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + idx) =
-              __floats2bfloat162_rn(o0, o1);
-        } else {
-          float v0 = dequant(acc[i][j][2 * hr], sa, p.w_scale[col], p.bias[col]);
-          float v1 = dequant(acc[i][j][2 * hr + 1], sa, p.w_scale[col + 1], p.bias[col + 1]);
-          if constexpr (MODE == GELU) {
-            v0 = gelu(round_bf16(v0));
-            v1 = gelu(round_bf16(v1));
-          }
-          if constexpr (MODE == QKV || MODE == GELU) {
-            *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + idx) =
-                __floats2bfloat162_rn(v0, v1);
-          } else {
-            v0 = gelu(v0);
-            v1 = gelu(v1);
-            *reinterpret_cast<float2*>(static_cast<float*>(p.out) + idx) = make_float2(v0, v1);
-            rmax = fmaxf(rmax, fmaxf(fabsf(v0), fabsf(v1)));
-          }
+          *reinterpret_cast<__nv_bfloat162*>(cw + rl * T::LDC + cl) = __floats2bfloat162_rn(v0, v1);
         }
-      }
-      if constexpr (MODE == MLP1) {  // the quad holds the row's 32 columns of this warp
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
-        if (t == 0 && rin) atomic_max_nonneg(&row_amax[rl], rmax);
-      }
     }
-  if constexpr (MODE == MLP1) {
-    __syncthreads();
-    const int nch = p.n / p.chunk, ci = n0 / p.chunk;  // chunk % BN == 0: one chunk per block
-    for (int r = tid; r < BM; r += THREADS)
-      if (m0 + r < p.m && row_amax[r] > 0.f)
-        atomic_max_nonneg(&p.amax[(long)(m0 + r) * nch + ci], row_amax[r]);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the C tile is written
+
+    // store, 16 bytes per thread
+    for (int v = tid; v < H * 64 * BN / 8; v += 128) {
+      const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
+      const int row = m0 + r0 + r, col = n0 + c;
+      if (row < p.m && col < p.n)
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + (long)row * p.n + col) =
+            *reinterpret_cast<const uint4*>(cw + r * T::LDC + c);
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the C tile is free
   }
 }
 
 template <int MODE>
 cudaError_t allow_smem() {
   return cudaFuncSetAttribute(gemm_int8_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)SMEM);
+                              (int)Tile<MODE>::SMEM);
+}
+
+int num_sms = 0;
+
+template <int MODE>
+int launch(const void* a, const void* bt, const Args& p, cudaStream_t st) {
+  using T = Tile<MODE>;
+  CUtensorMap map_a, map_b;
+  cudaError_t err = make_map_s8(&map_a, a, p.m, p.k, BM);
+  if (err == cudaSuccess) err = make_map_s8(&map_b, bt, p.n, p.k, T::BN);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (p.m + BM - 1) / BM * ((p.n + T::BN - 1) / T::BN);
+  gemm_int8_kernel<MODE><<<tiles < num_sms ? tiles : num_sms, THREADS, T::SMEM, st>>>(map_a,
+                                                                                     map_b, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Called once, when the library is loaded: the ring is above the 48 KB default.
+// Called once, when the library is loaded: the tensor-map encoder, the SM
+// count for the persistent grid, and the shared memory above the 48 KB default.
 extern "C" int ysi_gemm_int8_init(void) {
-  cudaError_t err = allow_smem<QKV>();
+  cudaError_t err = load_encode_tiled();
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = allow_smem<QKV>();
   if (err == cudaSuccess) err = allow_smem<MLP1>();
   if (err == cudaSuccess) err = allow_smem<MLP2>();
   if (err == cudaSuccess) err = allow_smem<GELU>();
@@ -460,52 +676,71 @@ extern "C" int ysi_ln_quant(const void* x, const void* h, const void* ln_s, cons
                             void* xq, void* xs, int m, int c, float eps, void* stream) {
   if (m <= 0 || c <= 0 || c % 8 || (ln_s == nullptr) != (ln_b == nullptr))
     return (int)cudaErrorInvalidValue;
-  ln_quant_kernel<<<(m + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(h),
-      static_cast<const float*>(ln_s), static_cast<const float*>(ln_b), static_cast<int8_t*>(xq),
-      static_cast<float*>(xs), m, c, eps);
+  const auto* x16 = static_cast<const __nv_bfloat16*>(x);
+  const auto* h16 = static_cast<const __nv_bfloat16*>(h);
+  const auto* sp = static_cast<const float*>(ln_s);
+  const auto* bp = static_cast<const float*>(ln_b);
+  auto* q = static_cast<int8_t*>(xq);
+  auto* sc = static_cast<float*>(xs);
+  const int blocks = (m + 7) / 8;  // a warp per row
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c <= 768)
+    ln_quant_kernel<3><<<blocks, 256, 0, st>>>(x16, h16, sp, bp, q, sc, m, c, eps);
+  else if (c <= 1024)
+    ln_quant_kernel<4><<<blocks, 256, 0, st>>>(x16, h16, sp, bp, q, sc, m, c, eps);
+  else if (c <= 1280)
+    ln_quant_kernel<5><<<blocks, 256, 0, st>>>(x16, h16, sp, bp, q, sc, m, c, eps);
+  else
+    ln_quant_kernel<0><<<blocks, 256, 0, st>>>(x16, h16, sp, bp, q, sc, m, c, eps);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ysi_quant_chunks(const void* hf, const void* amax, void* hq, void* hs, int m, int n,
-                                int chunk, void* stream) {
-  if (m <= 0 || n <= 0 || chunk <= 0 || chunk % 16 || n % chunk) return (int)cudaErrorInvalidValue;
-  const long threads = (long)m * (n / 16);
-  quant_chunks_kernel<<<(unsigned)((threads + 255) / 256), 256, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(hf), static_cast<const float*>(amax), static_cast<int8_t*>(hq),
-      static_cast<float*>(hs), m, n, chunk);
+// hf: the fp32 (M, N) hidden before its GELU; hq, hs: its int8 form and the
+// (M, N / chunk) scales.
+extern "C" int ysi_gelu_quant(const void* hf, void* hq, void* hs, int m, int n, int chunk,
+                              void* stream) {
+  if (m <= 0 || n <= 0 || chunk <= 0 || chunk % 8 || n % chunk) return (int)cudaErrorInvalidValue;
+  const auto* f = static_cast<const float*>(hf);
+  auto* q = static_cast<int8_t*>(hq);
+  auto* sc = static_cast<float*>(hs);
+  const long units = (long)m * (n / chunk);
+  const unsigned blocks = (unsigned)((units + 7) / 8);  // a warp per (row, chunk)
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (chunk <= 768)
+    gelu_quant_kernel<3><<<blocks, 256, 0, st>>>(f, q, sc, m, n, chunk);
+  else if (chunk <= 1024)
+    gelu_quant_kernel<4><<<blocks, 256, 0, st>>>(f, q, sc, m, n, chunk);
+  else if (chunk <= 1280)
+    gelu_quant_kernel<5><<<blocks, 256, 0, st>>>(f, q, sc, m, n, chunk);
+  else if (chunk <= 1536)
+    gelu_quant_kernel<6><<<blocks, 256, 0, st>>>(f, q, sc, m, n, chunk);
+  else
+    gelu_quant_kernel<0><<<blocks, 256, 0, st>>>(f, q, sc, m, n, chunk);
   return (int)cudaGetLastError();
 }
 
+// a: (M, K) int8 rows; bt: the int8 weight transposed, (N, K) row-major.
 extern "C" int ysi_gemm_int8(int mode, const void* a, const void* bt, const void* a_scale,
                              const void* w_scale, const void* bias, const void* r1, const void* r2,
-                             void* out, void* amax, int m, int n, int k, int chunk, void* stream) {
+                             void* out, int m, int n, int k, int chunk, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || k % 16 || n % 8) return (int)cudaErrorInvalidValue;
-  if (mode == MLP1 && (chunk <= 0 || chunk % BN || n % chunk || amax == nullptr))
-    return (int)cudaErrorInvalidValue;
   if (mode == MLP2 && (chunk <= 0 || chunk % BK || k % chunk || r1 == nullptr))
     return (int)cudaErrorInvalidValue;
   Args p;
-  p.a = static_cast<const int8_t*>(a);
-  p.bt = static_cast<const int8_t*>(bt);
   p.a_scale = static_cast<const float*>(a_scale);
   p.w_scale = static_cast<const float*>(w_scale);
   p.bias = static_cast<const float*>(bias);
   p.r1 = static_cast<const __nv_bfloat16*>(r1);
   p.r2 = static_cast<const __nv_bfloat16*>(r2);
   p.out = out;
-  p.amax = static_cast<float*>(amax);
   p.m = m;
   p.n = n;
   p.k = k;
   p.chunk = chunk;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == QKV) gemm_int8_kernel<QKV><<<grid, THREADS, SMEM, st>>>(p);
-  else if (mode == MLP1) gemm_int8_kernel<MLP1><<<grid, THREADS, SMEM, st>>>(p);
-  else if (mode == MLP2) gemm_int8_kernel<MLP2><<<grid, THREADS, SMEM, st>>>(p);
-  else if (mode == GELU) gemm_int8_kernel<GELU><<<grid, THREADS, SMEM, st>>>(p);
-  else return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (mode == QKV) return launch<QKV>(a, bt, p, st);
+  if (mode == MLP1) return launch<MLP1>(a, bt, p, st);
+  if (mode == MLP2) return launch<MLP2>(a, bt, p, st);
+  if (mode == GELU) return launch<GELU>(a, bt, p, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,58 +1,52 @@
 // Window-confined multi-head attention with SAM's decomposed relative
-// position bias, read straight from the fused qkv tensor (Hopper, sm_90a).
+// position bias at windows of 16, read straight from the fused qkv tensor
+// (Hopper, sm_90a): the grid route's windowed layers (kernels K2 + K3).
 //
 //   qkv (B, S, S, 3C) bf16, channels [q | k | v], head-major inside each;
-//   rel_h, rel_w (2w-1, hd) bf16 raw tables (the pipeline's bf16 weights);
+//   rel_h, rel_w (31, hd) bf16 raw tables (the pipeline's bf16 weights);
 //   out (B, S, S, C) bf16, heads concatenated (the output projection
 //   follows as a separate GEMM).
 //
-// For a query q and a key k of the same w x w window (local coordinates
+// For a query q and a key k of the same 16 x 16 window (local coordinates
 // (qy, qx), (ky, kx)):
-//   logit = (q * hd^-0.5) . k + q . Rh[qy - ky + w - 1] + q . Rw[qx - kx + w - 1]
+//   logit = (q * hd^-0.5) . k + q . Rh[qy - ky + 15] + q . Rw[qx - kx + 15]
 // The rel-pos terms use the UNSCALED q, as SAM does
 // (yolo_sam_inference_tpu/models/sam/model.py:259-264 and :192-207).
 //
-// Replaces two TPU kernels (yolo_sam_inference_tpu/ops/flash_attention.py):
-//   * relpos_tables (:1085), which writes the (B, S, S, 2*heads*w) score
-//     tables to device memory: here each warp multiplies its 16 queries by
-//     the whole (2w-1, hd) tables on the tensor cores (QR = q . R[j] for
-//     every j) into shared memory, and the softmax reads
-//     rh[ky] = QRh[qy - ky + w - 1], rw[kx] = QRw[qx - kx + w - 1] from
-//     there, so nothing is stored;
-//   * flash_attention_grid (:608), the window attention itself.
+// Replaces two TPU kernels (yolo_sam_inference_tpu/ops/flash_attention.py)
+// at window 16: relpos_tables (:1085), which writes the score tables to
+// device memory (here each warp multiplies its 16 queries by the whole
+// tables on the tensor cores into shared memory), and flash_attention_grid
+// (:608), the window attention itself. Every other window, 32 to 64 (the
+// global layers), runs on flash_attention_relpos.cu's TMA + wgmma kernel.
 //
-// What bounds it on the H100: per window the work is about 4*w^4*hd flop
-// against 3*w^2*hd*2 bytes read, so it is compute bound (for w = 16, about
-// 700 flop per byte). The design follows FlashAttention-2: one block per
-// (image, window, head, 64-query tile), 4 warps of 16 queries. Each warp
-// keeps its Q fragments, the scores, the probabilities and the running
-// output in registers, in the mma.sync m16n8k16 fragment layout (bf16 in,
-// fp32 accumulation), so the score tile never touches shared memory and
-// the probabilities feed the P.V product straight from the score
-// registers. K and V tiles of 64 keys stream through a two-stage cp.async
-// ring; V is read transposed with ldmatrix.trans. The softmax is online,
-// in fp32, with max subtraction; exp is exp2f of log2(e)-scaled fp32
-// logits. (The TPU kernel's default clamp mode exponentiates bf16-rounded
-// logits; that is not copied.) The probabilities are rounded to bf16 for
-// the P.V product. It does not use wgmma or TMA; those come later.
+// Why windows of 16 stay here: a 16 x 16 window is 256 queries over 256
+// keys, about 17 MFLOP a window and head, so a block of the wgmma kernel
+// (one a window, head and 256 queries; 1 block an SM for its shared memory
+// and registers) spends most of its time on fixed latencies: the Q and
+// table loads, the q.R products and their shared-memory round trip, two key
+// tiles a pass. On an H100 80GB HBM3 at 700 W it took 0.2065 ms at ViT-B's
+// batch of 32 (12 heads of 64) against this kernel's 0.1595, and 0.342-0.348
+// against 0.273-0.279 at ViT-H's 16 heads of 80 (device times, in turns;
+// PERF.md). This kernel keeps three blocks of 4 warps an SM, which
+// hides those latencies.
 //
-// Supported: hd in {64, 80} (ViT-B/L and ViT-H; both split into m16n8k16
-// k-steps and n8 tiles), w in {16, 32, 48, 64}, S a multiple of w. Windows
-// 16 and 32 are the windowed layers and the global layers of a 32 x 32 grid
-// (512-pixel canvas); 48 and 64 are the global layers of the 768 and 1024
-// canvases. Anything else returns cudaErrorInvalidValue, and the Python
-// wrapper raises before that.
+// Design (FlashAttention-2 on mma.sync): one block per (image, window, head,
+// 64-query tile), 4 warps of 16 queries. Each warp keeps its Q fragments,
+// the scores, the probabilities and the running output in registers, in
+// the mma.sync m16n8k16 fragment layout (bf16 in, fp32 accumulation). K and
+// V tiles of 64 keys (4 window rows) stream through a two-stage cp.async
+// ring; V is read transposed with ldmatrix.trans. The softmax is online, in
+// fp32, with max subtraction; exp is exp2f of log2(e)-scaled fp32 logits.
+// (The TPU kernel's default clamp mode exponentiates bf16-rounded logits;
+// that is not copied.) The probabilities are rounded to bf16 for the P.V
+// product. The (31, hd) tables pass through the second stages of the K and
+// V buffers before the loop; a thread's rw terms sit in registers (a key
+// tile starts at a window row, so its columns hold fixed kx).
 //
-// The (2w-1, hd) tables pass through the 64-row second stages of the K and V
-// buffers in chunks of 64 rows (one chunk up to w = 32, two at w = 48 and 64),
-// so their length is bounded by nothing but the QR tables. Those are fp32,
-// (64, 2w + 4) each: at w = 64 they take 68 KB beside the 56 KB of bf16
-// Q/K/V tiles at hd 80, so Geo<64, 80> needs 124 KB of the 227 KB a block may
-// opt in to (set at load time for every instantiation). The rw terms of a
-// thread sit in registers up to w = 32 (2w/8 floats per row); above that the
-// loop reads them from the QRw table, which also covers w = 48, where a
-// 64-key tile does not start at a window row (2304 = 36 * 64: a tile spans
-// parts of two key rows, and 48 does not divide 64).
+// Supported: hd in {64, 80} (ViT-B/L and ViT-H), window 16, S a multiple of
+// 16; anything else returns cudaErrorInvalidValue, and the Python wrapper
+// raises before that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,12 +83,11 @@ struct Geo {
   static constexpr int NKV = NT / BKV;
   static constexpr int LDR = 2 * W + 4;  // fp32 row stride of the QR tables
   static constexpr int TROWS = 2 * W;    // table rows (2w - 1, and one zero row)
-  static constexpr int TCHUNKS = (TROWS + BKV - 1) / BKV;  // staged through K[1], V[1]
-  static constexpr bool RW_IN_REGS = BKV % W == 0;  // a key tile starts at a window row
   static constexpr size_t SMEM =
       sizeof(__nv_bfloat16) * 5 * BQ * LDH       // Q, K[2], V[2] (tables pass through K[1], V[1])
       + sizeof(float) * 2 * BQ * LDR;            // QRh, QRw
-  static_assert(W % 8 == 0, "one key row per n8 tile");
+  static_assert(W % 8 == 0 && BKV % W == 0, "key tiles of whole window rows, one a n8 tile");
+  static_assert(TROWS <= BKV, "the tables pass through one stage");
   static_assert(TROWS % 8 == 0, "the table chunks split into n8 tiles");
   static_assert(HD % 16 == 0, "hd splits into m16n8k16 k-steps");
   static_assert((BKV * HD / 8) % THREADS == 0 && (BQ * HD / 8) % THREADS == 0,
@@ -168,14 +161,12 @@ __global__ void __launch_bounds__(THREADS)
     }
   };
 
-  // table rows [ch * BKV, ch * BKV + BKV) into Th, Tw (rows from 2w-1 on zero-filled)
-  auto issue_tables = [&](int ch) {
-    const int rows = min(BKV, G::TROWS - ch * BKV);
-    for (int v = tid; v < rows * (HD / 8); v += THREADS) {
+  // the table rows into Th, Tw (row 2w - 1 zero-filled)
+  auto issue_tables = [&]() {
+    for (int v = tid; v < G::TROWS * (HD / 8); v += THREADS) {
       const int r = v / (HD / 8), d = (v % (HD / 8)) * 8;
-      const int row = ch * BKV + r;
-      const bool ok = row < 2 * W - 1;
-      const long off = ok ? (long)row * HD + d : 0;
+      const bool ok = r < 2 * W - 1;
+      const long off = ok ? (long)r * HD + d : 0;
       cp_async16(Th + r * LDH + d, rel_h + off, ok);
       cp_async16(Tw + r * LDH + d, rel_w + off, ok);
     }
@@ -188,7 +179,7 @@ __global__ void __launch_bounds__(THREADS)
     const int r = v / (HD / 8), d = (v % (HD / 8)) * 8;
     cp_async16(Qs + r * LDH + d, qkv + row_of(qt * BQ + r) + h * HD + d, true);
   }
-  issue_tables(0);
+  issue_tables();
   cp_async_commit();
   issue_kv(0, 0);
   cp_async_commit();
@@ -206,36 +197,24 @@ __global__ void __launch_bounds__(THREADS)
     qa[ks][3] = ld32(q + 8 * LDH + 8);
   }
 
-  // QR[r][j] = log2(e) * q_r . R[j] for the warp's 16 rows, all 2w table rows,
-  // one chunk of BKV table rows at a time
+  // QR[r][j] = log2(e) * q_r . R[j] for the warp's 16 rows, all 2w table rows
 #pragma unroll
-  for (int ch = 0; ch < G::TCHUNKS; ++ch) {
-    if (ch > 0) {
-      __syncthreads();  // every warp is done with the previous chunk
-      issue_tables(ch);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-    }
+  for (int tab = 0; tab < 2; ++tab) {
+    const __nv_bfloat16* T = tab ? Tw : Th;
+    float* QR = tab ? QRw : QRh;
 #pragma unroll
-    for (int tab = 0; tab < 2; ++tab) {
-      const __nv_bfloat16* T = tab ? Tw : Th;
-      float* QR = tab ? QRw : QRh;
+    for (int n = 0; n < G::TROWS / 8; ++n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int n = 0; n < BKV / 8; ++n) {
-        if (ch * BKV + n * 8 >= G::TROWS) break;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const __nv_bfloat16* rp = T + (n * 8 + g) * LDH + ks * 16 + 2 * t;
-          mma16816(acc, qa[ks], ld32(rp), ld32(rp + 8));
-        }
-        float* o = QR + (r0 + g) * G::LDR + ch * BKV + n * 8 + 2 * t;
-        o[0] = acc[0] * LOG2E;
-        o[1] = acc[1] * LOG2E;
-        o[8 * G::LDR] = acc[2] * LOG2E;
-        o[8 * G::LDR + 1] = acc[3] * LOG2E;
+      for (int ks = 0; ks < KS; ++ks) {
+        const __nv_bfloat16* rp = T + (n * 8 + g) * LDH + ks * 16 + 2 * t;
+        mma16816(acc, qa[ks], ld32(rp), ld32(rp + 8));
       }
+      float* o = QR + (r0 + g) * G::LDR + n * 8 + 2 * t;
+      o[0] = acc[0] * LOG2E;
+      o[1] = acc[1] * LOG2E;
+      o[8 * G::LDR] = acc[2] * LOG2E;
+      o[8 * G::LDR + 1] = acc[3] * LOG2E;
     }
   }
   __syncwarp();
@@ -248,18 +227,16 @@ __global__ void __launch_bounds__(THREADS)
   const float* qrw_b = QRw + (r0 + g + 8) * G::LDR + tqb % W + W - 1;
   // rw terms: with a key tile starting at a window row, a thread only ever
   // sees kx = u * 8 + 2t + e (u < w / 8, e < 2), kept in registers
-  constexpr int NU = G::RW_IN_REGS ? W / 8 : 1;
+  constexpr int NU = W / 8;
   float rwa[NU][2], rwb[NU][2];
-  if constexpr (G::RW_IN_REGS) {
 #pragma unroll
-    for (int u = 0; u < NU; ++u)
+  for (int u = 0; u < NU; ++u)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kx = u * 8 + 2 * t + e;
-        rwa[u][e] = qrw_a[-kx];
-        rwb[u][e] = qrw_b[-kx];
-      }
-  }
+    for (int e = 0; e < 2; ++e) {
+      const int kx = u * 8 + 2 * t + e;
+      rwa[u][e] = qrw_a[-kx];
+      rwb[u][e] = qrw_b[-kx];
+    }
   __syncthreads();  // every warp is done with the tables before stage 1 is refilled
 
   constexpr float QK_SCALE = Head<HD>::SCALE * LOG2E;  // hd^-0.5, log2 domain
@@ -297,15 +274,7 @@ __global__ void __launch_bounds__(THREADS)
       const float ha = qrh_a[-ky], hb = qrh_b[-ky];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float wa, wb;
-        if constexpr (G::RW_IN_REGS) {
-          wa = rwa[n % NU][e];
-          wb = rwb[n % NU][e];
-        } else {
-          const int kx = key0 % W + 2 * t + e;
-          wa = qrw_a[-kx];
-          wb = qrw_b[-kx];
-        }
+        const float wa = rwa[n % NU][e], wb = rwb[n % NU][e];
         sc[n][e] = fmaf(sc[n][e], QK_SCALE, ha + wa);
         sc[n][2 + e] = fmaf(sc[n][2 + e], QK_SCALE, hb + wb);
         mx_a = fmaxf(mx_a, sc[n][e]);
@@ -403,13 +372,7 @@ cudaError_t allow_smem() {
 // above the 48 KB default.
 extern "C" int ysi_window_attn_init(void) {
   cudaError_t err = allow_smem<16, 64>();
-  if (err == cudaSuccess) err = allow_smem<32, 64>();
-  if (err == cudaSuccess) err = allow_smem<48, 64>();
-  if (err == cudaSuccess) err = allow_smem<64, 64>();
   if (err == cudaSuccess) err = allow_smem<16, 80>();
-  if (err == cudaSuccess) err = allow_smem<32, 80>();
-  if (err == cudaSuccess) err = allow_smem<48, 80>();
-  if (err == cudaSuccess) err = allow_smem<64, 80>();
   return (int)err;
 }
 
@@ -421,13 +384,7 @@ extern "C" int ysi_window_attn_relpos(const void* qkv, const void* rel_h, const 
 #define YSI_ATTN_CASE(W_, HD_) \
   if (hd == HD_ && window == W_) return launch<W_, HD_>(qkv, rel_h, rel_w, out, b, s, heads, st);
   YSI_ATTN_CASE(16, 64)
-  YSI_ATTN_CASE(32, 64)
-  YSI_ATTN_CASE(48, 64)
-  YSI_ATTN_CASE(64, 64)
   YSI_ATTN_CASE(16, 80)
-  YSI_ATTN_CASE(32, 80)
-  YSI_ATTN_CASE(48, 80)
-  YSI_ATTN_CASE(64, 80)
 #undef YSI_ATTN_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -38,11 +38,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # a, a2, w, bias, ln_scale, ln_bias, scratch, r1, r2, out, m, n, k, eps, gelu, stream
     "ysi_gemm_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # qkv, rel_h, rel_w, out, b, s, heads, hd, window, stream
+    # qkv, rel_h, rel_w, out, b, s, heads, hd, window (16), stream
     "ysi_window_attn_relpos": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, k, v, rel_h, rel_w, out, b, heads, nq, s, row0, hd, q token / image
-    # strides, k and v token / image strides, stream
-    "ysi_flash_attn_relpos": (_P,) * 6 + (_I,) * 10 + (_P,),
+    # strides, k and v token / image strides, window (0: the whole grid), stream
+    "ysi_flash_attn_relpos": (_P,) * 6 + (_I,) * 11 + (_P,),
     # keys, pe, kq, vq, wq, bq, wo, bo, ln_s, ln_b, wk, bk, wv, bv, qn,
     # out_keys, out_kp, out_vp, part, n, t, tq, tq2, k_share, scale, eps, do_i2t, stream
     "ysi_keys_stream": (_P,) * 19 + (_I, _I, _I, _I, _I, _F, _F, _I, _P),
@@ -52,10 +52,10 @@ _SIGNATURES = {
     "ysi_t2i_attend": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, h, ln_scale, ln_bias, xq, xs, m, c, eps, stream
     "ysi_ln_quant": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
-    # mode, a, bt, a_scale, w_scale, bias, r1, r2, out, amax, m, n, k, chunk, stream
-    "ysi_gemm_int8": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # hf, amax, hq, hs, m, n, chunk, stream
-    "ysi_quant_chunks": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # mode, a, bt, a_scale, w_scale, bias, r1, r2, out, m, n, k, chunk, stream
+    "ysi_gemm_int8": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # hf, hq, hs, m, n, chunk, stream
+    "ysi_gelu_quant": (_P, _P, _P, _I, _I, _I, _P),
     # grid, r0, c0, out, n, gs, c, wg, stream
     "ysi_window_crop": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # pts, dirs, out, n, p, d, stream
@@ -73,8 +73,8 @@ _SIGNATURES = {
 }
 # Run once after loading (shared-memory attributes of the kernels).
 _INITS = ("ysi_gemm_init", "ysi_gemm_int8_init", "ysi_window_attn_init",
-          "ysi_flash_attn_relpos_init", "ysi_decoder_init", "ysi_tinyvit_attn_init",
-          "ysi_tinyvit_conv_init", "ysi_conv2d_act_init")
+          "ysi_flash_attn_relpos_init", "ysi_decoder_init", "ysi_tinyvit_attn_init", "ysi_tinyvit_conv_init",
+          "ysi_conv2d_act_init")
 
 
 def _sources():

@@ -5,12 +5,16 @@ and sequence-parallel routes (K12).
 Counterpart of ``relpos_tables``, ``flash_attention_grid`` and
 ``flash_attention_relpos`` in ``yolo_sam_inference_tpu/ops/flash_attention.py``.
 
-:func:`window_attention`: on the card one CUDA kernel
-(``csrc/window_attn_relpos.cu``) does K2 and K3: it multiplies each query
-by the raw ``(2w-1, hd)`` tables inside the block, and runs the window
-attention with an online fp32 softmax. Its source note says what
-bounds it and what the design does about it. The output projection, fused
-into the TPU kernel, follows here as a GEMM (``ops.fused_ln.linear``).
+:func:`window_attention`: on the card K12's kernel
+(``csrc/flash_attention_relpos.cu``) does K2 and K3 in its window mode: one
+block takes a query tile of one window, image and head, reads q, k and v in
+place from the fused qkv through tensor maps at the window's origin,
+multiplies its queries by the raw ``(2w-1, hd)`` tables inside the block,
+and runs the attention on wgmma with an online fp32 softmax; at ``window =
+S`` (the global layers) it is K12's whole-grid case. Windows of 16 run on
+``csrc/window_attn_relpos.cu`` (mma.sync, several small blocks an SM),
+which is faster there; its source note says why. The output projection,
+fused into the TPU kernel, follows here as a GEMM (``ops.fused_ln.linear``).
 
 Layout at the public function is the JAX package's: the fused qkv
 ``(B, S, S, 3C)`` with channels ``[q | k | v]``, head-major inside each, and
@@ -19,7 +23,8 @@ the output ``(B, S, S, C)``. Attention is confined to non-overlapping
 
 Dispatch is by the tensor's device: CPU takes the plain version, CUDA
 launches the kernel or raises. ``window_attention.launches`` counts launches,
-and ``window_attention.by_window`` counts them per window size.
+and ``window_attention.by_window`` counts them per window size; K12's
+counts do not include them.
 
 :func:`flash_attention_relpos` (K12) takes q ``(B, NQ, C)`` and k, v
 ``(B, N, C)`` over an ``S x S`` key grid (``N = S^2``, ``C = heads * hd``)
@@ -118,15 +123,18 @@ def window_attention(qkv, rel_h, rel_w, heads: int, window: int):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != qkv.device:
             raise ValueError(f"window_attention kernel: {name} must be contiguous bf16 on "
                              f"{qkv.device}, got {t.dtype} on {t.device}")
-    out = torch.empty((b, s, s, c), dtype=torch.bfloat16, device=qkv.device)
-    err = kernels().ysi_window_attn_relpos(
-        qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
-        b, s, heads, hd, window, torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
-    check(err, "window_attention")
+    if window == 16:  # the windowed layers
+        out = torch.empty((b, s, s, c), dtype=torch.bfloat16, device=qkv.device)
+        check(kernels().ysi_window_attn_relpos(
+            qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(), b, s, heads, hd,
+            window, torch.cuda.current_stream(qkv.device).cuda_stream), "window_attention")
+    else:
+        flat = qkv.reshape(b, s * s, c3)
+        out = _relpos_kernel(flat[..., :c], flat[..., c:2 * c], flat[..., 2 * c:], rel_h, rel_w,
+                             s, 0, window if window < s else 0, "window_attention")
     window_attention.launches += 1
     window_attention.by_window[window] = window_attention.by_window.get(window, 0) + 1
-    return out
+    return out.reshape(b, s, s, c)
 
 
 window_attention.launches = 0
@@ -234,29 +242,7 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w, grid_s: int, row0: int = 0):
     if hd not in KERNEL_HEAD_DIMS or grid_s > RELPOS_MAX_GRID:
         raise ValueError(f"flash_attention_relpos kernel takes hd=64 or hd=80 and a grid side "
                          f"up to {RELPOS_MAX_GRID}; got hd={hd}, grid_s={grid_s}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("rel_h", rel_h), ("rel_w", rel_w)):
-        if t.dtype != torch.bfloat16 or t.device != q.device or t.stride(-1) != 1:
-            raise ValueError(f"flash_attention_relpos kernel: {name} must be bf16 on {q.device} "
-                             f"with contiguous channels, got {t.dtype} on {t.device}, strides "
-                             f"{t.stride()}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_relpos kernel: {name} is not 16-byte aligned")
-    if not (rel_h.is_contiguous() and rel_w.is_contiguous()):
-        raise ValueError("flash_attention_relpos kernel: the rel-pos tables must be contiguous")
-    if k.stride() != v.stride():
-        raise ValueError(f"flash_attention_relpos kernel: k and v strides differ: {k.stride()}, "
-                         f"{v.stride()}")
-    strides = (q.stride(1), _image_stride(q), k.stride(1), _image_stride(k))
-    if any(st % 8 for st in strides):
-        raise ValueError(f"flash_attention_relpos kernel: token and image strides {strides} "
-                         f"must be multiples of 8 elements")
-    out = torch.empty((b, nq, c), dtype=torch.bfloat16, device=q.device)
-    err = kernels().ysi_flash_attn_relpos(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-        out.data_ptr(), b, c // hd, nq, grid_s, row0, hd, *strides,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check(err, "flash_attention_relpos")
+    out = _relpos_kernel(q, k, v, rel_h, rel_w, grid_s, row0, 0, "flash_attention_relpos")
     flash_attention_relpos.launches += 1
     flash_attention_relpos.by_nq[nq] = flash_attention_relpos.by_nq.get(nq, 0) + 1
     return out
@@ -264,6 +250,36 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w, grid_s: int, row0: int = 0):
 
 flash_attention_relpos.launches = 0
 flash_attention_relpos.by_nq = {}  # launches per query count NQ
+
+
+def _relpos_kernel(q, k, v, rel_h, rel_w, grid_s: int, row0: int, window: int, who: str):
+    """Launch ``csrc/flash_attention_relpos.cu`` on checked geometry: the
+    whole-grid mode (``window`` 0) or the window mode. Checks what the kernel
+    needs of the tensors, then returns the (B, NQ, C) output; counts nothing."""
+    b, nq, c = q.shape
+    hd = rel_h.shape[-1]
+    for name, t in (("q", q), ("k", k), ("v", v), ("rel_h", rel_h), ("rel_w", rel_w)):
+        if t.dtype != torch.bfloat16 or t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(f"{who} kernel: {name} must be bf16 on {q.device} with contiguous "
+                             f"channels, got {t.dtype} on {t.device}, strides {t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{who} kernel: {name} is not 16-byte aligned")
+    if not (rel_h.is_contiguous() and rel_w.is_contiguous()):
+        raise ValueError(f"{who} kernel: the rel-pos tables must be contiguous")
+    if k.stride() != v.stride():
+        raise ValueError(f"{who} kernel: k and v strides differ: {k.stride()}, {v.stride()}")
+    strides = (q.stride(1), _image_stride(q), k.stride(1), _image_stride(k))
+    if any(st % 8 for st in strides):
+        raise ValueError(f"{who} kernel: token and image strides {strides} must be multiples "
+                         f"of 8 elements")
+    out = torch.empty((b, nq, c), dtype=torch.bfloat16, device=q.device)
+    err = kernels().ysi_flash_attn_relpos(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+        out.data_ptr(), b, c // hd, nq, grid_s, row0, hd, *strides, window,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check(err, who)
+    return out
 
 
 def relpos_grid_attention(qkv, rel_h, rel_w, heads: int, plain: bool = False):

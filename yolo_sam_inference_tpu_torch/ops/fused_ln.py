@@ -344,7 +344,7 @@ def _check_int8(name: str, t: torch.Tensor, shape, device) -> None:
 
 def _int8_t(wq: torch.Tensor) -> torch.Tensor:
     """The (out, in) form of an (in, out) int8 weight that the kernel reads
-    (both mma operands then load with plain ldmatrix), made once."""
+    (s8 wgmma takes both operands K-major), made once."""
     return _derived(wq, "int8_t", lambda v: v.t().contiguous())
 
 
@@ -363,12 +363,12 @@ def _ln_quant(x2, h2, scale, bias, eps):
     return xq, xs
 
 
-def _gemm_int8(mode, a, a_scale, wq, ws, b, out, *, r1=None, r2=None, amax=None, chunk=0):
+def _gemm_int8(mode, a, a_scale, wq, ws, b, out, *, r1=None, r2=None, chunk=0):
     m, k = a.shape
     n = wq.shape[1]
     check(kernels().ysi_gemm_int8(mode, _ptr(a), _ptr(_int8_t(wq)), _ptr(a_scale), _ptr(_f32(ws)),
-                                  _ptr(_f32(b)), _ptr(r1), _ptr(r2), _ptr(out), _ptr(amax),
-                                  m, n, k, chunk, _stream(a)), "gemm_int8")
+                                  _ptr(_f32(b)), _ptr(r1), _ptr(r2), _ptr(out), m, n, k, chunk,
+                                  _stream(a)), "gemm_int8")
     return out
 
 
@@ -438,9 +438,9 @@ fused_ln_matmul_int8.launches = 0
 
 
 def _int8_tail(x, attn, scale, bias, w1q, w1s, b1, w2q, w2s, b2, eps, chunks):
-    """The w8a8 block tail on the card: LN + quant, int8 mlp1 (+ GELU, fp32
-    hidden, per-chunk row amax), per-chunk requantisation, int8 mlp2 with the
-    chunk scales folded in and the residual y added."""
+    """The w8a8 block tail on the card: LN + quant, int8 mlp1 (the fp32
+    hidden before its GELU), the GELU with the per-chunk requantisation, int8
+    mlp2 with the chunk scales folded in and the residual y added."""
     c = x.shape[-1]
     hidden = w1q.shape[1]
     ch = hidden // chunks
@@ -459,12 +459,11 @@ def _int8_tail(x, attn, scale, bias, w1q, w1s, b1, w2q, w2s, b2, eps, chunks):
     m = x2.shape[0]
     xq, xs = _ln_quant(x2, h2, scale, bias, eps)
     hf = torch.empty((m, hidden), dtype=torch.float32, device=dev)
-    amax = torch.zeros((m, chunks), dtype=torch.float32, device=dev)
-    _gemm_int8(_MLP1, xq, xs, w1q, w1s, b1, hf, amax=amax, chunk=ch)
+    _gemm_int8(_MLP1, xq, xs, w1q, w1s, b1, hf)
     hq = torch.empty((m, hidden), dtype=torch.int8, device=dev)
     hs = torch.empty((m, chunks), dtype=torch.float32, device=dev)
-    check(kernels().ysi_quant_chunks(_ptr(hf), _ptr(amax), _ptr(hq), _ptr(hs), m, hidden, ch,
-                                     _stream(hf)), "quant_chunks")
+    check(kernels().ysi_gelu_quant(_ptr(hf), _ptr(hq), _ptr(hs), m, hidden, ch, _stream(hf)),
+          "gelu_quant")
     out = torch.empty((m, c), dtype=torch.bfloat16, device=dev)
     _gemm_int8(_MLP2, hq, hs, w2q, w2s, b2, out, r1=x2, r2=h2, chunk=ch)
     return out.reshape(x.shape)
