@@ -20,7 +20,7 @@ failure ends the run with a non-zero exit and no result line:
    bare product (no LN) beside ``torch.addmm`` in turns at the qkv and mlp1
    shapes, and at a short M of 100 rows; the decoder's kernels also at
    T = 196 and 784 (the grids of the 224 and 448 canvases, whose last
-   64-token tile is short), ``t2i_attend`` also at T = 4096 (config 4's
+   128-token tile is short), ``t2i_attend`` also at T = 4096 (config 4's
    grid), each T beside SDPA on the same inputs; the LayerNorm (K5) at the
    neck's, the mask head's and the decoder's rows (and its residual form),
    by events and on the device beside ``F.layer_norm`` with its weights cast
@@ -546,7 +546,7 @@ def _decoder_kernel_phase(card: str) -> dict:
         n * t * (8.0 * c * dh + 4.0 * 2 * tq * dh),
         _nbytes(keys, pe, kq, vq, qn, bq, bk, bv, bo, ln_s, ln_b, *w.values(), keys1, part))
     fn, ref = lambda: dec.t2i_combine(part, tq), lambda: dec.t2i_combine_plain(part, tq)
-    _check("t2i_combine (512 streams x 16 tiles)", fn(), ref(), 2e-2, errs)
+    _check(f"t2i_combine (512 streams x {part.shape[1]} tiles)", fn(), ref(), 2e-2, errs)
     times["t2i_combine"] = (median_ms(fn), median_ms(ref))
     bounds["t2i_combine"] = _bound(0.0, _nbytes(part) + n * tq * dh * 2)
     # t2i_attend: layer 0's per-image k/v shared by 16 prompts (K6)
@@ -592,7 +592,7 @@ def _decoder_kernel_phase(card: str) -> dict:
     torch.cuda.empty_cache()
 
     # the grids of the 224 and 448 canvases: T = 196 and 784 tokens, whose
-    # last 64-token tile is short; each kernel against its fp32 plain version
+    # last 128-token tile is short; each kernel against its fp32 plain version
     for gs in (14, 28):
         tt, tag = gs * gs, f"T{gs * gs}"
         pe_t, img_t, keys_t = randn(tt, c), randn(b, tt, c), randn(n, tt, c)
@@ -2150,7 +2150,7 @@ def main() -> int:
               "tinyvit_window_block_cells)", mla["tinyvit_attn"], mk["errs"]["tinyvit_attn"],
               mt["tinyvit_attn stage2 ws14"], mb["tinyvit_attn stage2 ws14"],
               ml["tinyvit_attn stage2 ws14"]),
-        entry("mbconv_block", "cuda", "csrc/tinyvit_conv.cu",
+        entry("mbconv_block", "cuda", "csrc/mbconv.cu",
               "ops/mbconv_fused.py:134 mbconv_block", mla["mbconv_block"],
               mk["errs"]["mbconv"], mt["mbconv stage0"], mb["mbconv stage0"]),
         entry("patch_merge_block", "cuda", "csrc/tinyvit_conv.cu",
@@ -2164,7 +2164,7 @@ def main() -> int:
               "ops/dw_ln_mlp.py:88 dw_ln_mlp (its depthwise alone, as F.conv2d(groups=C))",
               mla["dw_conv3x3"], mk["errs"]["dw_conv3x3"], mt["dw_conv3x3 y only stage3"],
               mb["dw_conv3x3 y only stage3"], ml["dw_conv3x3 y only stage3"]),
-        entry("mbconv_block bf16", "cuda", "csrc/tinyvit_conv.cu",
+        entry("mbconv_block bf16", "cuda", "csrc/mbconv.cu",
               "ops/mbconv_fused.py:134 mbconv_block (compute=\"bf16\")",
               ms["launches bf16"]["mbconv_block_bf16"], mk["errs"]["mbconv_bf16"],
               mt["mbconv stage0 bf16"], mb["mbconv stage0 bf16"]),

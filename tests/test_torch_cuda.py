@@ -335,7 +335,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="ws 7 or 14"):
         ttv.tinyvit_attention(_randn(gen, 1, 8, 8, 384), _randn(gen, 384),
                               _randn(gen, 4, 81), 4, 5)
-    with pytest.raises(ValueError, match="multiples of 32"):
+    with pytest.raises(ValueError, match="stride-1 MBConv kernel takes"):
         tmb.mbconv_block(_randn(gen, 1, 8, 8, 48), _randn(gen, 48, 192), _randn(gen, 192),
                          _randn(gen, 3, 3, 192), _randn(gen, 192), _randn(gen, 192, 48),
                          _randn(gen, 48))
@@ -361,11 +361,16 @@ def _decoder_weights(gen, c=256, dh=128):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("i2t,k_share", [(True, 4), (True, 1), (False, 1)])
-def test_keys_stream_vs_plain(gen, i2t, k_share):
+@pytest.mark.parametrize("i2t,k_share,t,tq,tq2", [
+    (True, 4, 256, 7, 7), (True, 1, 256, 7, 7), (False, 1, 256, 7, 7),
+    (True, 16, 196, 5, 8), (True, 1, 4096, 8, 5), (True, 2, 784, 8, 8),
+    (False, 1, 196, 7, 7), (False, 1, 4096, 7, 7)])
+def test_keys_stream_vs_plain(gen, i2t, k_share, t, tq, tq2):
     """keys_stream: the i2t pass with the next attention split over its
-    tiles and joined by t2i_combine (K7), or the k/v projection pass (K6)."""
-    nsrc, t, tq = 3, 256, 7
+    128-token tiles and joined by t2i_combine (K7), or the k/v projection pass
+    (K6). T 196 and 784: a short last tile; 4096: 32 tiles; k_share 16:
+    layer 0's prompts sharing their image's keys; tq and tq2 up to 8."""
+    nsrc = 3 if t < 4096 else 2
     n = nsrc * k_share
     p = _decoder_weights(gen)
     keys, pe = _randn(gen, nsrc, t, 256), _randn(gen, t, 256)
@@ -375,7 +380,7 @@ def test_keys_stream_vs_plain(gen, i2t, k_share):
         want = dec.kv_project_plain(keys.float(), pe.float(), p["wk"], p["bk"], p["wv"], p["bv"])
     else:
         kq, vq = _randn(gen, n, tq, 128), _randn(gen, n, tq, 128)
-        qn = _randn(gen, n, tq, 128, std=0.25)
+        qn = _randn(gen, n, tq2, 128, std=0.25)
         w = (p["wq"], p["bq"], p["wout"], p["bout"], p["ln_s"], p["ln_b"])
         nxt = {"wk": p["wk"], "bk": p["bk"], "wv": p["wv"], "bv": p["bv"]}
         got = dec.i2t_keys_update(keys, pe, kq, vq, *w, heads=8, k_share=k_share,
@@ -393,7 +398,7 @@ def test_keys_stream_vs_plain(gen, i2t, k_share):
 @pytest.mark.parametrize("gs", [14, 28])
 def test_decoder_kernels_at_short_tiles(gen, gs):
     """keys_stream (both modes), t2i_combine and t2i_attend on grids of 14
-    and 28 (T = 196, 784: the last 64-token tile is short)."""
+    and 28 (T = 196, 784: the last 128-token tile is short)."""
     nsrc, k_share, t, tq = 2, 4, gs * gs, 7
     n = nsrc * k_share
     p = _decoder_weights(gen)
@@ -510,10 +515,16 @@ def _conv_weights(gen, c, e, co):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,e,co,residual", [((2, 16, 16, 64), 256, 64, True),
                                                  ((1, 10, 12, 64), 256, 64, True),
-                                                 ((2, 8, 8, 160), 320, 320, False)])
+                                                 ((2, 8, 8, 160), 320, 320, False),
+                                                 ((1, 13, 21, 64), 256, 64, True),
+                                                 ((2, 9, 11, 160), 320, 320, False),
+                                                 ((1, 16, 16, 128), 256, 128, True),
+                                                 ((1, 12, 10, 32), 128, 64, False)])
 def test_mbconv_vs_plain(gen, shape, e, co, residual):
-    """K14: stage 0's MBConv (a ragged 10 x 12 grid too) and the stride-1
-    merge2 without the residual."""
+    """K14: stage 0's MBConv (ragged 10 x 12 and 13 x 21 grids too: the 8 x 8
+    tiles do not divide them) and the stride-1 merge2's 160 -> 320 without the
+    residual (ragged too); Co 128 (streamed weights with the residual) and
+    C 32 (a short k-step group)."""
     x = _randn(gen, *shape)
     w = _conv_weights(gen, shape[-1], e, co)
     before = tmb.mbconv_block.launches
@@ -537,6 +548,8 @@ def test_patch_merge_vs_plain(gen, shape, co):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,e,co,stride,residual", [((2, 16, 16, 64), 256, 64, 1, True),
                                                         ((2, 8, 8, 160), 320, 320, 1, False),
+                                                        ((1, 13, 21, 64), 256, 64, 1, True),
+                                                        ((2, 9, 11, 160), 320, 320, 1, False),
                                                         ((2, 16, 16, 64), 128, 128, 2, False),
                                                         ((2, 12, 20, 128), 160, 160, 2, False)])
 def test_conv_blocks_bf16_compute_vs_plain(gen, shape, e, co, stride, residual):

@@ -210,23 +210,31 @@ def test_support_points_match_jax_kernel():
     assert (got[:, 0, 1] == np.maximum(pts[:, 0, 1], pts[:, 1, 1])).all()  # the tie-break
 
 
-def test_mma_b_order_is_the_fragment_layout():
-    """The weight order keys_stream_kernel reads: per (n-tile j, k-tile kt),
-    lane 4g + t holds rows 2t, 2t+1, 2t+8, 2t+9 of column 8j + g."""
-    k, n = 32, 16
-    w = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
-    frag = dec._mma_b_order(w).reshape(n // 8, k // 16, 32, 4)
-    for j in range(n // 8):
-        for kt in range(k // 16):
-            for lane in range(32):
-                g, t = divmod(lane, 4)
-                rows = [kt * 16 + 2 * t + d for d in (0, 1, 8, 9)]
-                assert frag[j, kt, lane].tolist() == w[rows, j * 8 + g].tolist()
+@pytest.mark.parametrize("i2t", [True, False])
+def test_slab_schedule_covers_each_weight_once(i2t):
+    """keys_stream_kernel's weight ring: each slab is a 16 KB run of whole
+    rows of one (in, out) weight, and the slabs of each weight, in the order
+    the kernel takes them, tile its rows once: wq before wout before wk / wv
+    (the q product, the output projection, then the k/v products)."""
+    shapes = {"wq": (256, 128), "wout": (128, 256), "wk": (256, 128), "wv": (256, 128)}
+    sched = dec.slab_schedule(i2t)
+    assert len(sched) == (16 if i2t else 8)
+    seen = {}
+    for name, row0, rows in sched:
+        assert rows * shapes[name][1] * 2 == dec.SLAB_BYTES
+        seen.setdefault(name, []).append((row0, rows))
+    assert list(seen) == (["wq", "wout", "wk", "wv"] if i2t else ["wk", "wv"])
+    for name, runs in seen.items():
+        covered = [r for row0, rows in runs for r in range(row0, row0 + rows)]
+        assert covered == list(range(shapes[name][0])), name
+    # the weights reach the kernel in their own layout: no packed copy
+    w = torch.randn(256, 128).to(torch.bfloat16)
+    assert dec._weight(w, (256, 128), w.device) is w
 
 
 @pytest.mark.parametrize("t", [256, 196, 784])
 def test_t2i_combine_joins_tile_partials(t):
-    """The partials keys_stream_kernel stores per 64-token tile (o, max, sum
+    """The partials keys_stream_kernel stores per 128-token tile (o, max, sum
     for each head and next query), joined by t2i_combine, give the attention
     over the whole stream; at T = 196 and 784 (grids 14 and 28) the last
     tile is short. Slots of absent queries are never read."""
@@ -235,7 +243,7 @@ def test_t2i_combine_joins_tile_partials(t):
     qn = torch.from_numpy(_f(rng, n, tq2, heads * hd, scale=0.5))
     kp, vp = (torch.from_numpy(_f(rng, n, t, heads * hd)) for _ in range(2))
     part = dec.t2i_tile_partials_plain(qn, kp, vp)
-    tiles = -(-t // 64)
+    tiles = -(-t // dec.KERNEL_ROWS)
     assert tuple(part.shape) == (n, tiles, heads * 8 * (hd + 2))
     part.view(n, tiles, heads, 8, hd + 2)[:, :, :, tq2:] = float("nan")
     got = dec.t2i_combine(part, tq2)
@@ -248,7 +256,7 @@ def test_t2i_combine_joins_tile_partials(t):
 @pytest.mark.parametrize("gs", [14, 28])
 def test_tile_partials_match_jax_i2t_at_short_tiles(gs):
     """K7 as the card computes it at SAM's decoder widths (C 256, dh 128, 8
-    heads) on grids of 14 and 28 (T = 196, 784: the last 64-token tile is
+    heads) on grids of 14 and 28 (T = 196, 784: the last 128-token tile is
     short): the plain keys pass, its k/v projections, the per-tile partials
     and t2i_combine_plain against JAX i2t_keys_update (interpret mode)."""
     rng = np.random.default_rng(gs)
@@ -270,7 +278,7 @@ def test_tile_partials_match_jax_i2t_at_short_tiles(gs):
     kp, vp = dec.kv_project_plain(keys, torch.from_numpy(pe), tt["wk"], tt["bk"], tt["wv"],
                                   tt["bv"])
     part = dec.t2i_tile_partials_plain(torch.from_numpy(qn), kp, vp)
-    assert part.shape[1] == -(-t // 64) and t % 64
+    assert part.shape[1] == -(-t // dec.KERNEL_ROWS) and t % dec.KERNEL_ROWS
     got = dec.t2i_combine_plain(part, tq)
     j = {k: jnp.asarray(v) for k, v in w.items()}
     want_keys, want_attn = j_i2t(

@@ -196,6 +196,75 @@ def _conv_weights(rng, c, e, co):
 _ERF_ATOL = 3e-4
 
 
+@pytest.mark.parametrize("c,e,co,plan", [
+    (64, 256, 64, (4, True, 181824)),     # stage 0: all weights resident, 4 warpgroups
+    (160, 320, 320, (2, False, 219936)),  # merge2: 300 KB of weights, streamed by chunk
+    (128, 256, 128, (2, False, 149792)),  # Co of two boxes: streamed
+    (32, 128, 64, (4, True, 115264))])
+def test_s1_plan_fits_the_card(c, e, co, plan):
+    """The stride-1 kernel's layout (csrc/mbconv.cu ysi_mbconv_s1): warpgroups
+    a block, resident weights, shared-memory bytes, within the H100's 227 KB
+    opt-in limit; the bytes add up from the parts its note names."""
+    from yolo_sam_inference_tpu_torch.ops.mbconv_fused import S1_SMEM_BUDGET, s1_plan
+
+    wgs, resident, nbytes = s1_plan(c, e, co)
+    assert (wgs, resident, nbytes) == plan
+    assert nbytes <= S1_SMEM_BUDGET
+    weights = 2 * (c * e + e * co) if resident else wgs * 2 * (64 * c + 64 * co)
+    assert nbytes == 1024 + weights + wgs * 2 * 100 * ((c + 8) + 72) + 16 * wgs
+
+
+@pytest.mark.parametrize("c,e,co", [(48, 192, 48), (72, 256, 64), (64, 96, 64),
+                                    (64, 256, 384), (256, 320, 320)])
+def test_s1_plan_refuses_widths_the_kernel_does_not_take(c, e, co):
+    """C off a multiple of 16, E or Co off a multiple of 64, Co above 320, or
+    a layout above the card's shared memory: a ValueError before any launch."""
+    from yolo_sam_inference_tpu_torch.ops.mbconv_fused import s1_plan
+
+    with pytest.raises(ValueError, match="stride-1 MBConv kernel"):
+        s1_plan(c, e, co)
+
+
+def test_kernel_erf_fit_is_fp32_erf():
+    """The stride-1 kernel's branch-free erf (csrc/mbconv.cu erf_fit), evaluated
+    in fp32 as the kernel does (with an exact 2^), stays within 2e-7 of erf
+    over [-12, 12] (about 3 ulp; CUDA's erff is within 2), so its GELUs round
+    to bf16 as erf's do; and the source carries the coefficients ERF_FIT
+    holds."""
+    import math
+    import re
+    from pathlib import Path
+
+    from yolo_sam_inference_tpu_torch.ops import mbconv_fused as mb
+
+    x = np.linspace(-12, 12, 400001).astype(np.float32)
+    want = np.array([math.erf(v) for v in x.astype(np.float64)])
+    err = np.abs(mb.erf_fit(x).astype(np.float64) - want)
+    assert err.max() <= 2e-7, (err.max(), x[err.argmax()])
+    src = (Path(mb.__file__).parent.parent / "csrc" / "mbconv.cu").read_text()
+    body = src[src.index("float erf_fit("):src.index("float gelu(")]
+    coeffs = [float(v) for v in re.findall(r"([-+]?\d\.\d+e[-+]\d+)f", body)]
+    assert coeffs == [*mb.ERF_FIT["P"], *mb.ERF_FIT["Q"]]
+
+
+@pytest.mark.parametrize("shape,wgs,sms", [((32, 128, 128), 4, 132), ((32, 32, 32), 2, 132),
+                                           ((1, 13, 21), 4, 132), ((3, 9, 11), 2, 4)])
+def test_s1_schedule_takes_every_tile_once(shape, wgs, sms):
+    """The persistent grid's tile walk: every 8 x 8 output tile (the last row
+    and column of tiles ragged where 8 does not divide H or W) is taken by
+    exactly one warpgroup, at most one block an SM, and no warpgroup takes
+    more than one tile above any other."""
+    from yolo_sam_inference_tpu_torch.ops.mbconv_fused import s1_schedule
+
+    b, h, w = shape
+    tiles, blocks, walks = s1_schedule(b, h, w, wgs, sms)
+    assert tiles == b * -(-h // 8) * -(-w // 8)
+    assert blocks <= sms and blocks * wgs >= min(tiles, sms * wgs)
+    assert sorted(i for walk in walks for i in walk) == list(range(tiles))
+    counts = [len(walk) for walk in walks]
+    assert max(counts) - min(counts) <= 1
+
+
 @pytest.mark.parametrize("residual,c,co", [(True, 64, 64), (False, 160, 320)])
 def test_mbconv_matches_jax_kernel(residual, c, co):
     """K14: stage 0's MBConv and the stride-1 merge2 (no residual), with

@@ -10,7 +10,12 @@ from this script's own checkout, so both trees are timed by the same code.
 It times, on batch-32 inputs made from seed 0 (CUDA events, median of 20
 calls, after 200 calls that bring the card's clocks up from idle):
 ``t2i_attend`` (K6, 32 images x 16 prompts x 7 tokens, k/v shared
-per image) at T 196, 784, 1024 and 4096; ``fused_ln_matmul`` (K1) and
+per image) at T 196, 784, 1024 and 4096; ``keys_stream`` (K7's pass: the
+layer-1 pass of 512 streams at T 784, 1024 and 4096, layer 0's at T 1024
+with 16 prompts sharing each of 32 images' keys; K6's k/v projection pass
+of 32 images) and ``t2i_combine`` on the layer-1 pass's partials;
+``mbconv_block`` (K14) at TinyViT-5M's stage 0 (32 x 128 x 128 x 64, E 256)
+and merge2 (32 x 32 x 32 x 160, E 320, Co 320) in both compute modes; ``fused_ln_matmul`` (K1) and
 ``fused_ln_mlp`` (K4 at ViT-B, K10 at ViT-L and ViT-H) at 32768 rows;
 ``conv2d_act`` (K17) at every ``CONV_SHAPES`` row; ``dw_conv3x3`` (K16's
 depthwise) at the three TinyViT stages, with ``ln=`` where the tree's
@@ -31,7 +36,7 @@ grids' global layers; the w8a8
 functions (K11a at ViT-L, K11b at ViT-H, K11c at both, 32768 rows) and
 ``int8_linear`` at the flat route's 51200 rows (qkv, mlp1 + GELU, mlp2),
 with the bare int8 products on ``torch._int_mm`` beside them. Beside each
-K12, LayerNorm, K3 and w8a8 time, the device time of the kernels of the
+K7, K14, K12, LayerNorm, K3 and w8a8 time, the device time of the kernels of the
 call. Prints the card, then one ``[TAG] name: ms`` line per call. Needs one
 card.
 """
@@ -100,6 +105,47 @@ def main() -> None:
     for t in (196, 784, 1024, 4096):
         kp, vp = rn(b, t, 128).to(bf), rn(b, t, 128).to(bf)
         say(f"t2i_attend T{t}", lambda: dec.t2i_attend(qp, kp, vp, 8, k))
+
+    # K7 (keys_stream with i2t, then t2i_combine) and K6's projection pass
+    # (keys_stream without i2t) at config 1's decoder widths
+    c, dh, n = 256, 128, b * k
+    wq, wk, wv = (rn(c, dh, std=c ** -0.5).to(bf) for _ in range(3))
+    wo = rn(dh, c, std=dh ** -0.5).to(bf)
+    bq, bk, bv, bo = rn(dh, std=0.1), rn(dh, std=0.1), rn(dh, std=0.1), rn(c, std=0.1)
+    kq, vq, qn = rn(n, tq, dh).to(bf), rn(n, tq, dh).to(bf), rn(n, tq, dh, std=0.25).to(bf)
+    i2t = (kq, vq, wq, bq, wo, bo, 1.0 + rn(c, std=0.1), rn(c, std=0.1))
+    kv = (wk, bk, wv, bv)
+    for t in (784, 1024, 4096):
+        pe, keys = rn(t, c).to(bf), rn(n, t, c).to(bf)
+        say(f"keys_stream layer 1 T{t} (512 streams)",
+            lambda: dec.keys_stream(keys, pe, *kv, qn=qn, i2t=i2t), "keys_stream")
+        if t == 1024:
+            img = rn(b, t, c).to(bf)
+            say("keys_stream layer 0 T1024 (32 images x 16 prompts)",
+                lambda: dec.keys_stream(img, pe, *kv, k_share=k, qn=qn, i2t=i2t), "keys_stream")
+            say("keys_stream k/v projection T1024 (32 images)",
+                lambda: dec.keys_stream(img, pe, *kv), "keys_stream")
+            part = dec.keys_stream(keys, pe, *kv, qn=qn, i2t=i2t)[1]
+            say(f"t2i_combine T1024 (512 streams x {part.shape[1]} tiles)",
+                lambda: dec.t2i_combine(part, tq), "t2i_combine")
+            del img, part
+        del pe, keys
+        torch.cuda.empty_cache()
+
+    # K14 (mbconv_block, stride 1): TinyViT-5M's stage 0 and its merge2 on the
+    # 512 canvas, in both compute modes
+    from yolo_sam_inference_tpu_torch.ops import mbconv_fused as tmb
+
+    for label, (side, ci, e, co, res) in (("stage0", (128, 64, 256, 64, True)),
+                                          ("merge2", (32, 160, 320, 320, False))):
+        x = rn(b, side, side, ci).to(bf)
+        w = (rn(ci, e, std=ci ** -0.5).to(bf), rn(e, std=0.3), rn(3, 3, e, std=1 / 3).to(bf),
+             rn(e, std=0.3), rn(e, co, std=e ** -0.5).to(bf), rn(co, std=0.3))
+        for mode in ("fp32", "bf16"):
+            say(f"mbconv {label} {mode}",
+                lambda: tmb.mbconv_block(x, *w, residual=res, compute=mode), "mbconv")
+        del x
+        torch.cuda.empty_cache()
     m = 32 * 1024
     for name, c in (("ViT-B", 768), ("ViT-L", 1024), ("ViT-H", 1280)):
         x, h = rn(m, c).to(bf), rn(m, c).to(bf)

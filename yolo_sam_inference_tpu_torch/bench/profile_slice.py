@@ -30,7 +30,8 @@ CATEGORIES = (  # (substring of the kernel name, category); first match wins
     ("flash_attn_relpos_kernel", "flash_attention_relpos (K12)"),
     ("layer_norm_kernel", "layer_norm (K5, K11d)"),
     ("keys_stream_kernel", "keys_stream"),
-    ("tinyvit_attn_kernel", "tinyvit_attn"), ("mbconv_kernel", "mbconv / patch merge"),
+    ("tinyvit_attn_kernel", "tinyvit_attn"), ("mbconv_s1_kernel", "mbconv (stride 1, K14)"),
+    ("mbconv_kernel", "patch merge (K15)"),
     ("dw3x3_ln_kernel", "dw_conv3x3 (+ LN)"), ("conv2d_act", "conv2d_act (K17)"),
     ("t2i_attend_kernel", "t2i_attend"), ("t2i_combine_kernel", "t2i_combine"),
     ("window_crop_kernel", "window_crop"),

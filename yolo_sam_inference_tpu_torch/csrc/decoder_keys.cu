@@ -1,9 +1,9 @@
 // The SAM mask decoder's passes over the image-token ("keys") stream, for
-// Hopper (sm_90a): two kernels.
+// Hopper (sm_90a): three kernels.
 //
-// keys_stream_kernel, one 64-token tile of one prompt stream per block:
+// keys_stream_kernel, one 128-token tile of one prompt stream per block:
 //
-//   [i2t]  kk   = keys + pe
+//   [i2t]  kk   = keys + pe                                    -> bf16
 //          q    = ((kk @ Wq + bq) * hd^-0.5)                  -> bf16
 //          p    = softmax_j(q_h . kq[j]_h)  per head, over the tq tokens -> bf16
 //          attn = p @ vq                                       -> bf16
@@ -20,9 +20,9 @@
 // n / K (layer 0: the K prompts of an image share its untouched tokens).
 //
 // t2i_combine_kernel, one prompt per block: the next attention's output from
-// the partials of the ceil(T / 64) tiles, out = sum o e^(m - M) / sum l e^(m - M).
+// the partials of the ceil(T / 128) tiles, out = sum o e^(m - M) / sum l e^(m - M).
 //
-// T need not be a multiple of 64 (SAM's grids of 14, 28, 20, 36, 50 and 60
+// T need not be a multiple of 128 (SAM's grids of 14, 28, 20, 36, 50 and 60
 // give T = 196, 784, 400, 1296, 2500, 3600): the last tile's rows at T and
 // beyond are zero-filled on load, score -inf in the next attention (so they
 // add nothing to its max, o or l) and store no keys, kp or vp row.
@@ -39,29 +39,60 @@
 //   * t2i_shared_attend (:231): keys_stream_kernel without [i2t] (the k/v
 //     projections once per image) + t2i_attend_kernel.
 //
-// What bounds them on the H100: at config 1 the keys stream is B*K prompts x
-// 1024 tokens x 256 channels (268 MB in bf16 at B*K = 512), and each pass
-// carries four (rows x 256) x (256 x 128)-sized products, about 137 GFLOP, so
-// a pass is compute bound (about 250 flop per byte) once the stream is read
-// once. The TPU kernel reads the keys once and writes them once; this one does
-// the same for the keys, and keeps q, the 7-token softmax and the attention
-// output on chip: q and the output projection run on mma.sync (m16n8k16,
-// bf16 in, fp32 accumulation); q waits in shared memory (registers hold the
-// 16 x 256 output accumulators of each warp); the per-head 7-token logits
-// and softmax run on the CUDA cores, a quad of lanes holding one row's 16
-// head channels; and the attention output, formed in the mma accumulator
-// layout, is the A fragment of the output projection without leaving
-// registers. Weights are read as B fragments straight from global
-// memory, stored by the wrapper in fragment order so that each warp load is
-// 256 contiguous bytes (they stay in L1/L2: the four matrices are 256 KB in
-// all, shared by every block). The residual add and
-// LayerNorm run on the accumulators (fp32 row statistics over each lane
-// quad). The TPU kernel holds a prompt's whole 1024-token stream in one
-// grid step, so the next stage's softmax is local there; here a prompt spans
-// 16 blocks, so each block keeps its tile's kp/vp in shared memory, takes
-// the softmax over its own 64 tokens (max, exponentials, sums and the
-// product with vp on the CUDA cores) and stores those partials, 4.5 KB per
-// tile instead of 64 KB of kp/vp; t2i_combine_kernel rescales and adds them.
+// What bounds keys_stream on the H100: at config 1 the keys stream is B*K
+// prompts x 1024 tokens x 256 channels (268 MB in bf16 at B*K = 512), read
+// once and written once, and each pass carries four (rows x 256) x
+// (256 x 128)-sized products, about 137 GFLOP: 0.139 ms at the tensor cores'
+// 989 TFLOP/s against 0.17 ms for the bytes, so a pass is bound by both.
+// The first design took 64 tokens a block as 4 warps of 16 rows on
+// mma.sync, each warp reading all four weights (256 KB) as B fragments from
+// global memory (a fragment-order copy): 4 x 256 KB of L1/L2 reads per 64
+// tokens, 8.6 GB a config-1 pass; 1.638 ms for the layer-1 pass on an H100
+// 80GB HBM3 at 700 W. This design:
+//   * 128 tokens a block, two warpgroups of 64 rows, one block an SM (209 KB
+//     of shared memory: the keys and pe tiles, a weight ring, the prompt
+//     tokens);
+//   * the four products on wgmma (m64n128k16 for q, kp, vp; m64n256k16 for
+//     the output projection), A from registers: ldmatrix of the cp.async'd
+//     keys and pe tiles (kk = keys + pe added in the fragments, one bf16
+//     rounding), and for the output projection the attention output; B, the
+//     weights in their (in, out) layout, by descriptor from a 4-stage ring
+//     of 16 KB slabs (64 or 32 weight rows x all columns) that one thread
+//     fills by TMA (128-byte swizzle) under full / empty mbarriers: Wq's 4
+//     slabs, Wo's 4, then Wk's and Wv's 4 each in turn (without [i2t] only
+//     the last 8). Both warpgroups take each slab, so the weights leave L2
+//     once per 128 tokens (1 GB a config-1 pass, against 8.6 GB before);
+//   * the small per-head products on mma.sync m16n8k16, each warp on its 16
+//     rows: q_h . kq^T (16 x 8 tokens) from q kept in registers as bf16
+//     pairs, the softmax over the tq tokens within each lane quad, p rounded
+//     to bf16, p @ vq_h (tokens padded to 16 with zeros) in the accumulator
+//     layout, which is the output projection's A fragment; and for the next
+//     attention kp_h . qn^T from kp's accumulators. The first design took
+//     these dot products on the CUDA cores (quad shuffles per token): its
+//     i2t part and its partials were 42% and 19% of its time (variants of
+//     it in PERF.md);
+//   * the residual add and LayerNorm on the output projection's
+//     accumulators (fp32 row statistics over each lane quad); the new keys
+//     go back into the keys tile for the k/v products and out to device
+//     memory;
+//   * the next attention's partials: the tile max per (head, query) over the
+//     block's 128 rows (lanes, then warps through shared memory), e = exp(s -
+//     max) in fp32 staged in the keys tile, o = e^T vp in fp32 on the CUDA
+//     cores (a thread per head, query pair and channel pair, vp staged in the
+//     pe tile). A prompt spans T / 128 blocks, so each block stores its
+//     tile's (m, l, o), 4.5 KB, and t2i_combine_kernel rescales and adds them.
+// Measured on an H100 80GB HBM3 at 700 W (bench/kernel_turns.py, device
+// time, batch 32, in turns with the first design): the layer-1 pass 0.981 ms
+// at T 1024 against 1.57 (0.834 against 1.28 at T 784, 3.86 against 6.16 at
+// T 4096), layer 0 (k_share 16) 0.987 against 1.55, the k/v pass 0.0246
+// against 0.031; t2i_combine over 8 tiles 0.0104 against 0.029 over 16.
+// Variants of this kernel (the layer-1 pass at T 1024, 0.974): without the
+// partials 0.765, without the i2t softmax 0.852, without the keys and pe
+// loads about 10% less; issuing a phase's slabs back to back, or one slab's
+// products in flight with the tiles loaded in channel groups, was 6-11%
+// slower (more registers, a barrier a slab). ptxas: 255 registers, 4 bytes
+// spilled.
+//
 // t2i_attend_kernel is bound by bytes: it must read each image's kp/vp once
 // (16.8 MB at config 1's batch of 32 images, T 1024: 0.0056 ms at 3.35 TB/s)
 // for about 0.5 GFLOP. Its first design ran one block per (prompt, head), so
@@ -75,11 +106,13 @@
 // any T - SAM's decoder at every encoder size.
 // The Python wrappers check them.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_frag.cuh"
 
 namespace {
@@ -88,14 +121,18 @@ constexpr int C = 256;        // decoder channels
 constexpr int DH = 128;       // attention internal channels (downsample rate 2)
 constexpr int HEADS = 8, HD = 16;
 constexpr int TQ_MAX = 8;
-constexpr int ROWS = 64;      // tokens per block
-constexpr int THREADS = 128;  // 4 warps x 16 rows
+constexpr int ROWS = 128;     // tokens per keys_stream block: 2 warpgroups of 64
+constexpr int THREADS = 256;
 constexpr int LDX = C + 8;    // 528-byte smem rows: ldmatrix stays conflict-free
-constexpr int LDQ = DH + 8;   // q rows (bf16)
 constexpr int PART = HD + 2;  // a partial: o[HD], m, l
 constexpr int HQ = HEADS * TQ_MAX;  // (head, next query) columns
-constexpr int LDS = HQ + 1;         // fp32 row stride of the tile's logits: no bank conflicts
-static_assert(DH == HEADS * HD && HD == 16, "one m16n8k16 k-tile per head");
+constexpr int LDS = HQ + 2;         // fp32 row stride of the tile's e (8-byte pairs)
+constexpr int LDT = DH + 8;         // prompt-token rows (bf16): conflict-free B fragments
+constexpr int WARPS = THREADS / 32;
+constexpr int STAGES = 4;           // weight ring depth
+constexpr int SLAB = 8 * 1024;      // bf16 elements of a ring stage (16 KB)
+constexpr int BOX = 64;             // bf16 columns of a 128-byte swizzled row
+static_assert(DH == HEADS * HD && HD == 16, "one k16 step per head");
 static_assert(HQ <= THREADS && (HQ * HD) % THREADS == 0, "partials map onto the block");
 
 struct KeysArgs {
@@ -103,15 +140,11 @@ struct KeysArgs {
   const __nv_bfloat16* pe;    // (T, C)
   const __nv_bfloat16* kq;    // (N, tq, DH)  i2t keys of the prompt tokens
   const __nv_bfloat16* vq;    // (N, tq, DH)
-  const uint2* wq_f;          // (C -> DH) weights in B-fragment order, see load_b
   const float* bq;            // (DH,)
-  const uint2* wo_f;          // (DH -> C)
   const float* bo;            // (C,)
   const float* ln_s;          // (C,)
   const float* ln_b;          // (C,)
-  const uint2* wk_f;          // (C -> DH)  next t2i
-  const float* bk;
-  const uint2* wv_f;          // (C -> DH)
+  const float* bk;            // (DH,)  next t2i
   const float* bv;
   const __nv_bfloat16* qn;    // (N, tq2, DH)  next queries, already scaled
   __nv_bfloat16* out_keys;    // (N, T, C)
@@ -123,12 +156,6 @@ struct KeysArgs {
   int do_i2t;
 };
 
-__device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
 __device__ __forceinline__ float2 unpack2(uint32_t v) {
   const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
   return __bfloat1622float2(h);
@@ -138,16 +165,6 @@ __device__ __forceinline__ float2 unpack2(uint32_t v) {
 __device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
   const float2 x = unpack2(a), y = unpack2(b);
   return pack_bf16(x.x + y.x, x.y + y.y);
-}
-
-// B fragment of n-tile j, k-tile kt of a weight stored in fragment order
-// (the wrapper's layout): for each (n-tile, k-tile), 32 lanes x {b0, b1}, so
-// a warp reads 256 contiguous bytes per fragment. kt_count = in / 16.
-__device__ __forceinline__ void load_b(const uint2* wf, int kt_count, int j, int kt, int lane,
-                                       uint32_t& b0, uint32_t& b1) {
-  const uint2 v = __ldg(wf + ((long)j * kt_count + kt) * 32 + lane);
-  b0 = v.x;
-  b1 = v.y;
 }
 
 __device__ __forceinline__ float quad_sum(float v) {
@@ -168,14 +185,48 @@ __device__ __forceinline__ void store_rows(const __nv_bfloat16* s, __nv_bfloat16
   }
 }
 
-__global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem);  // keys tile, then new keys
-  __nv_bfloat16* Ps = Xs + ROWS * LDX;                          // pe tile, then kp | vp
-  float* kqs = reinterpret_cast<float*>(Ps + ROWS * LDX);      // (TQ_MAX, DH)
-  float* vqs = kqs + TQ_MAX * DH;
-  float* qns = vqs + TQ_MAX * DH;                                         // (TQ_MAX, DH)
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(qns + TQ_MAX * DH);  // (ROWS, LDQ) q
+// The ring's slabs, in the order the block takes them: with [i2t] Wq's rows
+// 64 s.. (2 boxes of 64 columns), Wo's rows 32 s.. (4 boxes), then Wk's and
+// Wv's rows 64 s.. in turn; without it only Wk's and Wv's.
+struct Maps {
+  CUtensorMap q, o, k, v;
+};
+
+__device__ __forceinline__ void issue_slab(const Maps& m, int i, bool i2t, __nv_bfloat16* ring,
+                                           uint64_t* full) {
+  const int stage = i % STAGES;
+  __nv_bfloat16* dst = ring + stage * SLAB;
+  mbar_expect_tx(&full[stage], SLAB * 2);
+  if (i2t && i < 8) {
+    if (i < 4) {
+      for (int b = 0; b < DH / BOX; ++b) tma_load(dst + b * 64 * BOX, &m.q, &full[stage], b * BOX, 64 * i);
+    } else {
+      for (int b = 0; b < C / BOX; ++b)
+        tma_load(dst + b * 32 * BOX, &m.o, &full[stage], b * BOX, 32 * (i - 4));
+    }
+    return;
+  }
+  const int j = i2t ? i - 8 : i;
+  const CUtensorMap* map = j % 2 ? &m.v : &m.k;
+  for (int b = 0; b < DH / BOX; ++b) tma_load(dst + b * 64 * BOX, map, &full[stage], b * BOX, 64 * (j / 2));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    keys_stream_kernel(const __grid_constant__ Maps maps, KeysArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: the ring starts on that boundary
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // STAGES weight slabs
+  __nv_bfloat16* Xs = ring + STAGES * SLAB;                       // keys tile, then new keys
+  __nv_bfloat16* Ps = Xs + ROWS * LDX;                            // pe tile, then kp | vp
+  // the prompt tokens in bf16, zero past tq / tq2: kq and qn (token, LDT),
+  // vq transposed (channel, token); then the warps' column max and sum
+  __nv_bfloat16* kqb = Ps + ROWS * LDX;
+  __nv_bfloat16* qnb = kqb + TQ_MAX * LDT;
+  __nv_bfloat16* vqt = qnb + TQ_MAX * LDT;
+  float* red = reinterpret_cast<float*>(vqt + DH * TQ_MAX);  // (2, WARPS, HQ)
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * WARPS * HQ);
+  uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -184,6 +235,19 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
   const long row0 = (long)n * p.t + t0;  // first output row of this tile
   const __nv_bfloat16* xg = p.keys + ((long)(n / p.k_share) * p.t + t0) * C;
   const __nv_bfloat16* pg = p.pe + (long)t0 * C;
+  const bool i2t = p.do_i2t;
+  const int nslabs = i2t ? 16 : 8;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);                // the producer's arrive + the TMA bytes
+      mbar_init(&empty[s], THREADS / 32);    // one arrive per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < STAGES; ++i) issue_slab(maps, i, i2t, ring, full);
 
   for (int v = tid; v < ROWS * C / 8; v += THREADS) {
     const int r = v / (C / 8), c = (v % (C / 8)) * 8;
@@ -193,129 +257,133 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
     cp_async16(Ps + r * LDX + c, pg + off, in);
   }
   cp_async_commit();
-  if (p.do_i2t) {
-    const long q0 = (long)n * p.tq * DH;
-    for (int v = tid; v < p.tq * DH; v += THREADS) {
-      kqs[v] = bf(p.kq[q0 + v]);
-      vqs[v] = bf(p.vq[q0 + v]);
+  if (i2t) {
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    const long q0 = (long)n * p.tq * DH, n0 = (long)n * p.tq2 * DH;
+    for (int v = tid; v < TQ_MAX * DH; v += THREADS) {
+      const int j = v / DH, c = v % DH;
+      kqb[j * LDT + c] = j < p.tq ? p.kq[q0 + v] : zero;
+      vqt[c * TQ_MAX + j] = j < p.tq ? p.vq[q0 + v] : zero;
+      qnb[j * LDT + c] = j < p.tq2 ? p.qn[n0 + v] : zero;
     }
-    const long n0 = (long)n * p.tq2 * DH;
-    for (int v = tid; v < p.tq2 * DH; v += THREADS) qns[v] = bf(p.qn[n0 + v]);
   }
   cp_async_wait<0>();
   __syncthreads();  // from here on each warp touches only its own 16 rows
 
-  const int wr = warp * 16;
+  // slab i: wait until it has landed; release: every warp has done with it,
+  // and the producer (thread 0) refills its stage with slab i + STAGES
+  auto take = [&](int i) {
+    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+    return ring + (i % STAGES) * SLAB;
+  };
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i % STAGES]);
+    if (tid == 0 && i + STAGES < nslabs) {
+      mbar_wait(&empty[i % STAGES], (i / STAGES) & 1);
+      issue_slab(maps, i + STAGES, i2t, ring, full);
+    }
+  };
+
+  const int wr = warp * 16;  // warpgroup warp / 4 holds rows 64 (warp / 4) ..
   const int wrows = max(0, min(16, valid - wr));  // this warp's rows below T
   const __nv_bfloat16* xa = Xs + (wr + (lane & 15)) * LDX + (lane >> 4) * 8;  // ldmatrix rows
   const __nv_bfloat16* pa = Ps + (wr + (lane & 15)) * LDX + (lane >> 4) * 8;
+  int slab = 0;
 
-  if (p.do_i2t) {
-    // ---- q = (kk @ Wq + bq) * scale for all heads, in bf16, into this
-    // warp's rows of Qs (registers are kept for the output accumulators)
+  if (i2t) {
+    // ---- q = (kk @ Wq + bq) * scale for all heads, kept as bf16 pairs
+    uint32_t q2[DH / 8][2];  // (j, row g / g + 8): columns 8 j + 2 t, + 1
     {
-      float acc[DH / 8][4];
+      float qa[DH / 2];
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 2
-      for (int kt = 0; kt < C / 16; ++kt) {
-        uint32_t ax[4], ap[4], a[4];
-        ldmatrix_x4(ax, xa + kt * 16);
-        ldmatrix_x4(ap, pa + kt * 16);
+      for (int i = 0; i < DH / 2; ++i) qa[i] = 0.f;
+#pragma unroll 1
+      for (int s = 0; s < 4; ++s, ++slab) {
+        const __nv_bfloat16* w = take(slab);
+        uint32_t a[4][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = add2(ax[i], ap[i]);
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t ax[4], ap[4];
+          ldmatrix_x4(ax, xa + (s * 4 + ks) * 16);
+          ldmatrix_x4(ap, pa + (s * 4 + ks) * 16);
 #pragma unroll
-        for (int j = 0; j < DH / 8; ++j) {
-          uint32_t b0, b1;
-          load_b(p.wq_f, C / 16, j, kt, lane, b0, b1);
-          mma16816(acc[j], a, b0, b1);
+          for (int i = 0; i < 4; ++i) a[ks][i] = add2(ax[i], ap[i]);
         }
+        fence_acc(qa);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_rs_m64n128k16(qa, a[ks], smem_desc(w + ks * 16 * BOX, 64 * BOX * 2, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(qa);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) fence_regs(a[ks]);
+        release(slab);
       }
 #pragma unroll
       for (int j = 0; j < DH / 8; ++j) {
         const float b0 = p.bq[j * 8 + 2 * t], b1 = p.bq[j * 8 + 2 * t + 1];
-        __nv_bfloat16* q0 = Qs + (wr + g) * LDQ + j * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(q0) =
-            pack_bf16((acc[j][0] + b0) * p.scale, (acc[j][1] + b1) * p.scale);
-        *reinterpret_cast<uint32_t*>(q0 + 8 * LDQ) =
-            pack_bf16((acc[j][2] + b0) * p.scale, (acc[j][3] + b1) * p.scale);
+        q2[j][0] = pack_bf16((qa[4 * j] + b0) * p.scale, (qa[4 * j + 1] + b1) * p.scale);
+        q2[j][1] = pack_bf16((qa[4 * j + 2] + b0) * p.scale, (qa[4 * j + 3] + b1) * p.scale);
       }
     }
-    __syncwarp();
 
-    // ---- per head: 7-token softmax, attn = p @ vq, out += attn_h @ Wout[h rows]
-    float oacc[C / 8][4];
+    // ---- per head h, on this warp's 16 rows (mma.sync m16n8k16): the
+    // logits q_h . kq^T (16 x 8 tokens), their softmax over the tq tokens
+    // within each lane quad (p rounded to bf16), and attn_h = p @ vq_h (the
+    // tokens padded to k 16 with zeros) in the accumulator layout, which is
+    // the A fragment of k-step h of the output projection
+    uint32_t af[HEADS][4];
 #pragma unroll
-    for (int j = 0; j < C / 8; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
-#pragma unroll 1
     for (int h = 0; h < HEADS; ++h) {
-      // this lane's q: rows g (r = 0) and g + 8 (r = 1), head channels
-      // e = 0..3 at 2t, 2t + 1, 8 + 2t, 9 + 2t
-      float q[2][4];
+      const uint32_t qf[4] = {q2[2 * h][0], q2[2 * h][1], q2[2 * h + 1][0], q2[2 * h + 1][1]};
+      const __nv_bfloat16* kr = kqb + g * LDT + h * HD + 2 * t;  // token g
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};  // rows g, g + 8 x tokens 2 t, 2 t + 1
+      mma16816(sc, qf, *reinterpret_cast<const uint32_t*>(kr),
+               *reinterpret_cast<const uint32_t*>(kr + 8));
+      uint32_t pa[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const __nv_bfloat16* qr = Qs + (wr + g + 8 * r) * LDQ + h * HD + 2 * t;
-        const float2 lo = unpack2(*reinterpret_cast<const uint32_t*>(qr));
-        const float2 hi = unpack2(*reinterpret_cast<const uint32_t*>(qr + 8));
-        q[r][0] = lo.x;
-        q[r][1] = lo.y;
-        q[r][2] = hi.x;
-        q[r][3] = hi.y;
+        float s0 = 2 * t < p.tq ? sc[2 * r] : -INFINITY;
+        float s1 = 2 * t + 1 < p.tq ? sc[2 * r + 1] : -INFINITY;
+        float mx = fmaxf(s0, s1);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        s0 = expf(s0 - mx);
+        s1 = expf(s1 - mx);
+        const float inv = 1.f / quad_sum(s0 + s1);
+        pa[r] = pack_bf16(s0 * inv, s1 * inv);  // p rounded to bf16
       }
-      const int cbase = h * HD + 2 * t;
-      const int col[4] = {cbase, cbase + 1, cbase + 8, cbase + 9};
-      float s[2][TQ_MAX];
-      float mx[2] = {-INFINITY, -INFINITY};
+      float o0[4] = {0.f, 0.f, 0.f, 0.f}, o1[4] = {0.f, 0.f, 0.f, 0.f};
+      const __nv_bfloat16* vr = vqt + (h * HD + g) * TQ_MAX + 2 * t;  // channel g, tokens 2 t..
+      mma16816(o0, pa, *reinterpret_cast<const uint32_t*>(vr), 0u);
+      mma16816(o1, pa, *reinterpret_cast<const uint32_t*>(vr + 8 * TQ_MAX), 0u);
+      af[h][0] = pack_bf16(o0[0], o0[1]);
+      af[h][1] = pack_bf16(o0[2], o0[3]);
+      af[h][2] = pack_bf16(o1[0], o1[1]);
+      af[h][3] = pack_bf16(o1[2], o1[3]);
+    }
+
+    // ---- out = attn @ Wout: slab 4 + s holds Wout's rows of heads 2 s, 2 s + 1
+    float oa[C / 2];
 #pragma unroll
-      for (int j = 0; j < TQ_MAX; ++j) {
-        if (j < p.tq) {
+    for (int i = 0; i < C / 2; ++i) oa[i] = 0.f;
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            float d = 0.f;
+    for (int s = 0; s < 4; ++s, ++slab) {
+      const __nv_bfloat16* w = take(slab);
+      fence_acc(oa);
+      wgmma_fence();
 #pragma unroll
-            for (int e = 0; e < 4; ++e) d = fmaf(q[r][e], kqs[j * DH + col[e]], d);
-            s[r][j] = quad_sum(d);
-            mx[r] = fmaxf(mx[r], s[r][j]);
-          }
-        }
-      }
-      float den[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < TQ_MAX; ++j) {
-        if (j < p.tq) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            s[r][j] = expf(s[r][j] - mx[r]);
-            den[r] += s[r][j];
-          }
-        }
-      }
-      float at[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float inv = 1.f / den[r];
-#pragma unroll
-        for (int j = 0; j < TQ_MAX; ++j) {
-          if (j < p.tq) {
-            const float pj = round_bf16(s[r][j] * inv);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) at[r][e] = fmaf(pj, vqs[j * DH + col[e]], at[r][e]);
-          }
-        }
-      }
-      // the attention output in the accumulator layout is the A fragment of
-      // k-tile h of the output projection
-      uint32_t a[4];
-      a[0] = pack_bf16(at[0][0], at[0][1]);
-      a[1] = pack_bf16(at[1][0], at[1][1]);
-      a[2] = pack_bf16(at[0][2], at[0][3]);
-      a[3] = pack_bf16(at[1][2], at[1][3]);
-#pragma unroll
-      for (int j = 0; j < C / 8; ++j) {
-        uint32_t b0, b1;
-        load_b(p.wo_f, DH / 16, j, h, lane, b0, b1);
-        mma16816(oacc[j], a, b0, b1);
-      }
+      for (int kk = 0; kk < 2; ++kk)
+        wgmma_rs_m64n256k16(oa, af[2 * s + kk], smem_desc(w + kk * 16 * BOX, 32 * BOX * 2, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(oa);
+      fence_regs(af[2 * s]);
+      fence_regs(af[2 * s + 1]);
+      release(slab);
     }
 
     // ---- y = keys + (out + bout); LayerNorm over the 256 channels, fp32
@@ -328,23 +396,23 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
       const float b0 = p.bo[cl], b1 = p.bo[cl + 1];
       const float2 k0 = unpack2(*reinterpret_cast<const uint32_t*>(x0 + cl));
       const float2 k1 = unpack2(*reinterpret_cast<const uint32_t*>(x1 + cl));
-      oacc[j][0] = k0.x + (oacc[j][0] + b0);
-      oacc[j][1] = k0.y + (oacc[j][1] + b1);
-      oacc[j][2] = k1.x + (oacc[j][2] + b0);
-      oacc[j][3] = k1.y + (oacc[j][3] + b1);
-      sum[0] += oacc[j][0] + oacc[j][1];
-      sum[1] += oacc[j][2] + oacc[j][3];
+      oa[4 * j] = k0.x + (oa[4 * j] + b0);
+      oa[4 * j + 1] = k0.y + (oa[4 * j + 1] + b1);
+      oa[4 * j + 2] = k1.x + (oa[4 * j + 2] + b0);
+      oa[4 * j + 3] = k1.y + (oa[4 * j + 3] + b1);
+      sum[0] += oa[4 * j] + oa[4 * j + 1];
+      sum[1] += oa[4 * j + 2] + oa[4 * j + 3];
     }
     const float mean0 = quad_sum(sum[0]) / C, mean1 = quad_sum(sum[1]) / C;
     float var[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < C / 8; ++j) {
-      oacc[j][0] -= mean0;
-      oacc[j][1] -= mean0;
-      oacc[j][2] -= mean1;
-      oacc[j][3] -= mean1;
-      var[0] += oacc[j][0] * oacc[j][0] + oacc[j][1] * oacc[j][1];
-      var[1] += oacc[j][2] * oacc[j][2] + oacc[j][3] * oacc[j][3];
+      oa[4 * j] -= mean0;
+      oa[4 * j + 1] -= mean0;
+      oa[4 * j + 2] -= mean1;
+      oa[4 * j + 3] -= mean1;
+      var[0] += oa[4 * j] * oa[4 * j] + oa[4 * j + 1] * oa[4 * j + 1];
+      var[1] += oa[4 * j + 2] * oa[4 * j + 2] + oa[4 * j + 3] * oa[4 * j + 3];
     }
     const float rstd0 = rsqrtf(quad_sum(var[0]) / C + p.eps);
     const float rstd1 = rsqrtf(quad_sum(var[1]) / C + p.eps);
@@ -355,9 +423,9 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
       const float s0 = p.ln_s[cl], s1 = p.ln_s[cl + 1];
       const float b0 = p.ln_b[cl], b1 = p.ln_b[cl + 1];
       *reinterpret_cast<uint32_t*>(Xs + (wr + g) * LDX + cl) =
-          pack_bf16(oacc[j][0] * rstd0 * s0 + b0, oacc[j][1] * rstd0 * s1 + b1);
+          pack_bf16(oa[4 * j] * rstd0 * s0 + b0, oa[4 * j + 1] * rstd0 * s1 + b1);
       *reinterpret_cast<uint32_t*>(Xs + (wr + g + 8) * LDX + cl) =
-          pack_bf16(oacc[j][2] * rstd1 * s0 + b0, oacc[j][3] * rstd1 * s1 + b1);
+          pack_bf16(oa[4 * j + 2] * rstd1 * s0 + b0, oa[4 * j + 3] * rstd1 * s1 + b1);
     }
     __syncwarp();
     store_rows(Xs + wr * LDX, p.out_keys + (row0 + wr) * C, C, C, wrows, lane);
@@ -365,121 +433,167 @@ __global__ void __launch_bounds__(THREADS) keys_stream_kernel(KeysArgs p) {
 
   // ---- next stage's k/v projections: kp = (x + pe) @ Wk + bk, vp = x @ Wv + bv
   {
-    float ka[DH / 8][4], va[DH / 8][4];
+    float ka[DH / 2], va[DH / 2];
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
-      ka[j][0] = ka[j][1] = ka[j][2] = ka[j][3] = 0.f;
-      va[j][0] = va[j][1] = va[j][2] = va[j][3] = 0.f;
-    }
+    for (int i = 0; i < DH / 2; ++i) ka[i] = va[i] = 0.f;
 #pragma unroll 1
-    for (int kt = 0; kt < C / 16; ++kt) {
-      uint32_t ax[4], ap[4], ak[4];
-      ldmatrix_x4(ax, xa + kt * 16);
-      ldmatrix_x4(ap, pa + kt * 16);
+    for (int s = 0; s < 4; ++s) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ak[i] = add2(ax[i], ap[i]);
+      for (int which = 0; which < 2; ++which, ++slab) {  // Wk's slab s, then Wv's
+        const __nv_bfloat16* w = take(slab);
+        uint32_t a[4][4];
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
-        uint32_t b0, b1;
-        load_b(p.wk_f, C / 16, j, kt, lane, b0, b1);
-        mma16816(ka[j], ak, b0, b1);
-        load_b(p.wv_f, C / 16, j, kt, lane, b0, b1);
-        mma16816(va[j], ax, b0, b1);
+        for (int ks = 0; ks < 4; ++ks) {
+          ldmatrix_x4(a[ks], xa + (s * 4 + ks) * 16);
+          if (which == 0) {
+            uint32_t ap[4];
+            ldmatrix_x4(ap, pa + (s * 4 + ks) * 16);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[ks][i] = add2(a[ks][i], ap[i]);
+          }
+        }
+        if (which) fence_acc(va); else fence_acc(ka);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint64_t d = smem_desc(w + ks * 16 * BOX, 64 * BOX * 2, 1024);
+          if (which) wgmma_rs_m64n128k16(va, a[ks], d); else wgmma_rs_m64n128k16(ka, a[ks], d);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (which) fence_acc(va); else fence_acc(ka);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) fence_regs(a[ks]);
+        release(slab);
       }
     }
-    __syncwarp();  // the pe rows are read; they now stage kp | vp
+    // kp | vp with their biases, in bf16: staged in the pe rows (read by now),
+    // and kp kept as the A fragments of the next attention's logits
+    __syncwarp();
+    uint32_t kf[HEADS][4];
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
       const int cl = j * 8 + 2 * t;
       const float k0 = p.bk[cl], k1 = p.bk[cl + 1], v0 = p.bv[cl], v1 = p.bv[cl + 1];
       __nv_bfloat16* r0 = Ps + (wr + g) * LDX;
       __nv_bfloat16* r1 = r0 + 8 * LDX;
-      *reinterpret_cast<uint32_t*>(r0 + cl) = pack_bf16(ka[j][0] + k0, ka[j][1] + k1);
-      *reinterpret_cast<uint32_t*>(r1 + cl) = pack_bf16(ka[j][2] + k0, ka[j][3] + k1);
-      *reinterpret_cast<uint32_t*>(r0 + DH + cl) = pack_bf16(va[j][0] + v0, va[j][1] + v1);
-      *reinterpret_cast<uint32_t*>(r1 + DH + cl) = pack_bf16(va[j][2] + v0, va[j][3] + v1);
+      const uint32_t ka0 = pack_bf16(ka[4 * j] + k0, ka[4 * j + 1] + k1);
+      const uint32_t ka1 = pack_bf16(ka[4 * j + 2] + k0, ka[4 * j + 3] + k1);
+      kf[j / 2][2 * (j % 2)] = ka0;      // (row g, head j / 2's channels 8 (j % 2) + 2 t..)
+      kf[j / 2][2 * (j % 2) + 1] = ka1;  // (row g + 8, the same)
+      *reinterpret_cast<uint32_t*>(r0 + cl) = ka0;
+      *reinterpret_cast<uint32_t*>(r1 + cl) = ka1;
+      *reinterpret_cast<uint32_t*>(r0 + DH + cl) = pack_bf16(va[4 * j] + v0, va[4 * j + 1] + v1);
+      *reinterpret_cast<uint32_t*>(r1 + DH + cl) = pack_bf16(va[4 * j + 2] + v0, va[4 * j + 3] + v1);
     }
     __syncwarp();
-    if (!p.do_i2t) {
+    if (!i2t) {
       store_rows(Ps + wr * LDX, p.out_kp + (row0 + wr) * DH, DH, DH, wrows, lane);
       store_rows(Ps + wr * LDX + DH, p.out_vp + (row0 + wr) * DH, DH, DH, wrows, lane);
       return;
     }
-  }
 
-  // ---- this tile's share of the next token-to-image attention
-  float* S = reinterpret_cast<float*>(Qs);  // (ROWS, LDS) logits, then e; q is consumed
-  float* ml = kqs;                          // (HQ, 2) tile max and sum; kq is consumed
-  __syncthreads();  // every warp's kp | vp rows are staged, and q, kq are no longer read
-  {
-    // logits: thread -> row tid / 2, heads 4 * (tid % 2) .. + 3, every query;
-    // a row at T or beyond scores -inf
-    const int r = tid / 2;
-    const bool in = r < valid;
-    const __nv_bfloat16* kr = Ps + r * LDX;
+    // ---- this tile's share of the next token-to-image attention: per head,
+    // the logits kp_h . qn^T of this warp's rows (mma.sync, 16 x 8 queries;
+    // rows at T or beyond score -inf), the tile's max per (head, query) over
+    // the block's 128 rows (lanes, then warps through shared memory), and
+    // e = exp(s - max) in fp32, staged for o; l = sum e the same way
+    float sc[HEADS][4];  // rows g, g + 8 x queries 2 t, 2 t + 1
+    const bool in0 = wr + g < valid, in1 = wr + g + 8 < valid;
 #pragma unroll
-    for (int hh = 0; hh < HEADS / 2; ++hh) {
-      const int h = (tid % 2) * (HEADS / 2) + hh;
-      float kv[HD];
+    for (int h = 0; h < HEADS; ++h) {
+      const __nv_bfloat16* qr = qnb + g * LDT + h * HD + 2 * t;  // query g
+      // A fragment of k-step h: (row g, 2t..), (row g + 8, 2t..), (g, 8 + 2t..), (g + 8, 8 + 2t..)
+      const uint32_t a[4] = {kf[h][0], kf[h][1], kf[h][2], kf[h][3]};
+      sc[h][0] = sc[h][1] = sc[h][2] = sc[h][3] = 0.f;
+      mma16816(sc[h], a, *reinterpret_cast<const uint32_t*>(qr),
+               *reinterpret_cast<const uint32_t*>(qr + 8));
+      sc[h][0] = in0 ? sc[h][0] : -INFINITY;
+      sc[h][1] = in0 ? sc[h][1] : -INFINITY;
+      sc[h][2] = in1 ? sc[h][2] : -INFINITY;
+      sc[h][3] = in1 ? sc[h][3] : -INFINITY;
+    }
+    float* rmax = red;               // (WARPS, HQ)
+    float* rsum = red + WARPS * HQ;  // (WARPS, HQ)
+    auto warp_reduce = [&](float v, bool is_max) {  // over the 8 lanes of a quad column
 #pragma unroll
-      for (int c = 0; c < HD; c += 2) {
-        const float2 f = unpack2(*reinterpret_cast<const uint32_t*>(kr + h * HD + c));
-        kv[c] = f.x;
-        kv[c + 1] = f.y;
+      for (int m = 4; m < 32; m <<= 1) {
+        const float o = __shfl_xor_sync(0xffffffffu, v, m);
+        v = is_max ? fmaxf(v, o) : v + o;
       }
+      return v;
+    };
 #pragma unroll
-      for (int q = 0; q < TQ_MAX; ++q) {
-        float d = 0.f;
-        if (q < p.tq2) {
+    for (int h = 0; h < HEADS; ++h)
 #pragma unroll
-          for (int c = 0; c < HD; ++c) d = fmaf(qns[q * DH + h * HD + c], kv[c], d);
+      for (int e = 0; e < 2; ++e) {
+        const float m = warp_reduce(fmaxf(sc[h][e], sc[h][2 + e]), true);
+        if (g == 0) rmax[warp * HQ + h * TQ_MAX + 2 * t + e] = m;
+      }
+    __syncthreads();  // every warp's maxima are in; every warp is done with the keys tile
+    float* S = reinterpret_cast<float*>(Xs);  // (ROWS, LDS) e
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = h * TQ_MAX + 2 * t + e;
+        float m = rmax[col];
+#pragma unroll
+        for (int w = 1; w < WARPS; ++w) m = fmaxf(m, rmax[w * HQ + col]);
+        // (row 0 is below T in every tile, so m is finite and e is 0 past T)
+        const float e0 = expf(sc[h][e] - m), e1 = expf(sc[h][2 + e] - m);
+        S[(wr + g) * LDS + col] = e0;
+        S[(wr + g + 8) * LDS + col] = e1;
+        const float l = warp_reduce(e0 + e1, false);
+        if (g == 0) rsum[warp * HQ + col] = l;
+      }
+  }
+  __syncthreads();
+  {
+    // o[(h, q)][d] = sum_r e[r][(h, q)] * vp[r][h, d] in fp32: thread ->
+    // head h, queries 2 a, 2 a + 1 and channels 2 b, 2 b + 1 of the head
+    const float* S = reinterpret_cast<const float*>(Xs);
+    const int b = tid % 8, a = tid / 8 % 4, h = tid / 32;
+    const int col = h * TQ_MAX + 2 * a;
+    if (2 * a < p.tq2) {
+      float o[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      const __nv_bfloat16* vr = Ps + DH + h * HD + 2 * b;
+#pragma unroll 4
+      for (int r = 0; r < ROWS; ++r) {
+        const float2 e = *reinterpret_cast<const float2*>(S + r * LDS + col);
+        const float2 v = unpack2(*reinterpret_cast<const uint32_t*>(vr + r * LDX));
+        o[0][0] = fmaf(e.x, v.x, o[0][0]);
+        o[0][1] = fmaf(e.x, v.y, o[0][1]);
+        o[1][0] = fmaf(e.y, v.x, o[1][0]);
+        o[1][1] = fmaf(e.y, v.y, o[1][1]);
+      }
+      float* out = p.part + ((long)n * gridDim.x + blockIdx.x) * HQ * PART;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (2 * a + q >= p.tq2) continue;
+        float* oc = out + (col + q) * PART;
+        oc[2 * b] = o[q][0];
+        oc[2 * b + 1] = o[q][1];
+        if (b == 0) {
+          float m = red[col + q], l = 0.f;
+          for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w * HQ + col + q]);
+          for (int w = 0; w < WARPS; ++w) l += red[WARPS * HQ + w * HQ + col + q];
+          oc[HD] = m;
+          oc[HD + 1] = l;
         }
-        S[r * LDS + h * TQ_MAX + q] = in ? d : -INFINITY;
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < HQ) {  // column tid = (head, query): max and sum over the tile's rows
-    // (row 0 is below T in every tile, so m is finite and e is 0 past T)
-    float m = -INFINITY, l = 0.f;
-    for (int r = 0; r < ROWS; ++r) m = fmaxf(m, S[r * LDS + tid]);
-    for (int r = 0; r < ROWS; ++r) {
-      const float e = expf(S[r * LDS + tid] - m);
-      S[r * LDS + tid] = e;
-      l += e;
-    }
-    ml[2 * tid] = m;
-    ml[2 * tid + 1] = l;
-  }
-  __syncthreads();
-  {
-    // o[(h, q)][d] = sum_r e[r][(h, q)] * vp[r][h, d]: 16 lanes per column,
-    // neighbouring lanes on neighbouring vp channels
-    const int d = tid % HD;
-    float* out = p.part + ((long)n * gridDim.x + blockIdx.x) * HQ * PART;
-#pragma unroll
-    for (int i = 0; i < HQ * HD / THREADS; ++i) {
-      const int col = tid / HD + i * (THREADS / HD);
-      const int h = col / TQ_MAX, q = col % TQ_MAX;
-      if (q >= p.tq2) continue;
-      float acc = 0.f;
-      for (int r = 0; r < ROWS; ++r)
-        acc = fmaf(S[r * LDS + col], bf(Ps[r * LDX + DH + h * HD + d]), acc);
-      out[col * PART + d] = acc;
-      if (d == 0) {
-        out[col * PART + HD] = ml[2 * col];
-        out[col * PART + HD + 1] = ml[2 * col + 1];
       }
     }
   }
 }
 
 // One prompt per block: join the partials of its ceil(T / ROWS) tiles.
-__global__ void __launch_bounds__(THREADS)
+constexpr int CB_THREADS = 128;
+
+__global__ void __launch_bounds__(CB_THREADS)
     t2i_combine_kernel(const float* part, __nv_bfloat16* out, int tiles, int tq2) {
   const int n = blockIdx.x;
   const float* base = part + (long)n * tiles * HQ * PART;
-  for (int o = threadIdx.x; o < HQ * HD; o += THREADS) {
+  for (int o = threadIdx.x; o < HQ * HD; o += CB_THREADS) {
     const int col = o / HD, d = o % HD;
     const int h = col / TQ_MAX, q = col % TQ_MAX;
     if (q >= tq2) continue;
@@ -496,10 +610,15 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-constexpr size_t KEYS_SMEM = sizeof(__nv_bfloat16) * (2 * ROWS * LDX + ROWS * LDQ) +
-                             sizeof(float) * 3 * TQ_MAX * DH;
-static_assert(ROWS * LDS * sizeof(float) <= ROWS * LDQ * sizeof(__nv_bfloat16), "S fits in Qs");
-static_assert(2 * HQ <= TQ_MAX * DH, "the tile's max and sum fit in kqs");
+// keys_stream's shared memory: alignment slack, the weight ring, the keys and
+// pe tiles, the prompt tokens (bf16), the warps' column max and sum, the
+// ring's barriers
+constexpr size_t KEYS_SMEM = 1024 +
+                             sizeof(__nv_bfloat16) * (STAGES * SLAB + 2 * ROWS * LDX +
+                                                      2 * TQ_MAX * LDT + DH * TQ_MAX) +
+                             sizeof(float) * 2 * WARPS * HQ + 2 * STAGES * sizeof(uint64_t);
+static_assert(ROWS * LDS * sizeof(float) <= ROWS * LDX * sizeof(__nv_bfloat16), "S fits in Xs");
+static_assert(HEADS * 4 * 8 == THREADS, "o: a thread per head, query pair and channel pair");
 
 // ----------------------------------------------------------------- t2i attend
 //
@@ -679,34 +798,40 @@ __global__ void __launch_bounds__(AT_WARPS * 32)
 }  // namespace
 
 extern "C" int ysi_decoder_init(void) {
-  return (int)cudaFuncSetAttribute(keys_stream_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)KEYS_SMEM);
+  cudaError_t err = load_encode_tiled();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(keys_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)KEYS_SMEM);
+  return (int)err;
 }
 
+// Weights in their (in, out) layout: wq, wk, wv (C, DH), wo (DH, C), bf16.
 extern "C" int ysi_keys_stream(const void* keys, const void* pe, const void* kq, const void* vq,
-                               const void* wq_f, const void* bq, const void* wo_f, const void* bo,
-                               const void* ln_s, const void* ln_b, const void* wk_f,
-                               const void* bk, const void* wv_f, const void* bv, const void* qn,
+                               const void* wq, const void* bq, const void* wo, const void* bo,
+                               const void* ln_s, const void* ln_b, const void* wk,
+                               const void* bk, const void* wv, const void* bv, const void* qn,
                                void* out_keys, void* out_kp, void* out_vp, void* part, int n,
                                int t, int tq, int tq2, int k_share, float scale, float eps,
                                int do_i2t, void* stream) {
   if (n <= 0 || t <= 0 || k_share <= 0 || n % k_share) return (int)cudaErrorInvalidValue;
   if (do_i2t && (tq <= 0 || tq > TQ_MAX || tq2 <= 0 || tq2 > TQ_MAX))
     return (int)cudaErrorInvalidValue;
+  Maps maps;
+  cudaError_t err = make_map(&maps.k, wk, C, DH, 64);
+  if (err == cudaSuccess) err = make_map(&maps.v, wv, C, DH, 64);
+  if (err == cudaSuccess && do_i2t) err = make_map(&maps.q, wq, C, DH, 64);
+  if (err == cudaSuccess && do_i2t) err = make_map(&maps.o, wo, DH, C, 32);
+  if (err != cudaSuccess) return (int)err;
   KeysArgs p;
   p.keys = static_cast<const __nv_bfloat16*>(keys);
   p.pe = static_cast<const __nv_bfloat16*>(pe);
   p.kq = static_cast<const __nv_bfloat16*>(kq);
   p.vq = static_cast<const __nv_bfloat16*>(vq);
-  p.wq_f = static_cast<const uint2*>(wq_f);
   p.bq = static_cast<const float*>(bq);
-  p.wo_f = static_cast<const uint2*>(wo_f);
   p.bo = static_cast<const float*>(bo);
   p.ln_s = static_cast<const float*>(ln_s);
   p.ln_b = static_cast<const float*>(ln_b);
-  p.wk_f = static_cast<const uint2*>(wk_f);
   p.bk = static_cast<const float*>(bk);
-  p.wv_f = static_cast<const uint2*>(wv_f);
   p.bv = static_cast<const float*>(bv);
   p.qn = static_cast<const __nv_bfloat16*>(qn);
   p.out_keys = static_cast<__nv_bfloat16*>(out_keys);
@@ -721,7 +846,7 @@ extern "C" int ysi_keys_stream(const void* keys, const void* pe, const void* kq,
   p.eps = eps;
   p.do_i2t = do_i2t;
   dim3 grid((t + ROWS - 1) / ROWS, n);
-  keys_stream_kernel<<<grid, THREADS, KEYS_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
+  keys_stream_kernel<<<grid, THREADS, KEYS_SMEM, static_cast<cudaStream_t>(stream)>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
@@ -751,7 +876,7 @@ extern "C" int ysi_t2i_attend(const void* qp, const void* kp, const void* vp, vo
 extern "C" int ysi_t2i_combine(const void* part, void* out, int n, int tiles, int tq2,
                                void* stream) {
   if (n <= 0 || tiles <= 0 || tq2 <= 0 || tq2 > TQ_MAX) return (int)cudaErrorInvalidValue;
-  t2i_combine_kernel<<<n, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  t2i_combine_kernel<<<n, CB_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out), tiles, tq2);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,14 @@
-// TinyViT's convolution blocks (Hopper, sm_90a): the MBConv block and the
-// patch merges, and the depthwise 3x3 of the window blocks' tails.
+// TinyViT's convolution blocks (Hopper, sm_90a): the patch merges at stride
+// 2, and the depthwise 3x3 of the window blocks' tails. The stride-1 MBConv
+// blocks (stage 0, merge2) run on mbconv.cu's kernel; this
+// kernel's stride-1 instantiations (with and without the residual) are gone.
 //
-// mbconv_kernel<STRIDE, RESIDUAL, BF16>, for x (B, H, W, C) bf16, w1 (C, E)
+// mbconv_kernel<STRIDE, BF16> (STRIDE 2), for x (B, H, W, C) bf16, w1 (C, E)
 // and w3 (E, Co) bf16 (the JAX (in, out) layout), wd (3, 3, E) and the biases
 // fp32:
 //   h1  = gelu(x @ w1 + b1)                         rounded to bf16
 //   h2  = gelu(dw3x3_STRIDE(h1) + bd)               zero 'same' padding, fp32 taps, bf16
-//   out = h2 @ w3 + b3, then gelu(x + out) when RESIDUAL
+//   out = h2 @ w3 + b3
 // The expansion of a pixel outside the image is zero (the reference pads the
 // expanded tensor), not gelu(b1). At stride 2 (even H, W) only the top and
 // left padding is ever read. GELU is the exact erf form.
@@ -16,14 +18,13 @@
 // rounds to bf16 where they do: x @ w1 + b1 before its GELU; the depthwise
 // bias, weights and every tap's accumulator (packed bf16x2 FMAs, __hfma2, on
 // channel pairs: the CUDA cores' bf16x2 rate is twice their fp32 rate); and
-// with RESIDUAL, x + out before its GELU. Each GELU evaluates the erf in fp32
+// (in mbconv.cu's stride-1 kernel) x + out before its GELU. Each GELU evaluates the erf in fp32
 // on its bf16-rounded input and rounds its output to bf16 (the JAX kernels
 // evaluate the GELU's arithmetic in bf16 too); the products keep their fp32
 // accumulation, as there.
 //
-// Replaces (yolo_sam_inference_tpu/ops/): mbconv_fused.py:134 mbconv_block
-// (stride 1, with and without the residual: stage 0 and TinyViT's stride-1
-// merge2) and merge_fused.py:125 patch_merge_block (stride 2: merge0, merge1).
+// Replaces (yolo_sam_inference_tpu/ops/): merge_fused.py:125
+// patch_merge_block (stride 2: merge0, merge1).
 //
 // What bounds it on the H100: at TinyViT's widths a pixel costs 4 (C E + E Co)
 // flop of products against 2 (C + Co) bytes in and out: 128 flop per byte at
@@ -31,8 +32,8 @@
 // tensor cores bound the wide blocks and memory the narrow ones, once the
 // 4x-expanded activation stays on chip, which is the point of both TPU
 // kernels and of this one. The design: a block takes a tile of output pixels
-// (8 x 8 at stride 1, 4 x 8 at stride 2) and cp.asyncs the input tile with
-// its halo (10 x 10 or 9 x 17 pixels) into shared memory; the expansion runs
+// (4 x 8 at stride 2) and cp.asyncs the input tile with its halo (9 x 17
+// pixels) into shared memory; the expansion runs
 // as an mma.sync m16n8k16 product (bf16 in, fp32 accumulation) over that
 // tile, its GELU'd bf16 result stays in shared memory (zeroed outside the
 // image); the depthwise reads it in fp32 into a second bf16 tile; the
@@ -41,8 +42,7 @@
 // weights stream through a two-stage cp.async ring of 32 x 64 tiles, so no
 // weight matrix is held whole (merge2's are 200 KB). 8 warps: 4 along the
 // pixels, 2 along 32-column halves of each 64-column chunk. The halo costs
-// 1.56x (stride 1) and 1.2x (stride 2) of the expansion's products. No wgmma
-// or TMA yet.
+// 1.2x of the expansion's products. No wgmma or TMA yet (Queue 2).
 //
 // dw3x3_ln_kernel: y = dw3x3(x) + bd in fp32, rounded to bf16 where the TPU
 // kernel rounds it, and, for the tail of TinyViT's window blocks, LN(y) in
@@ -79,11 +79,11 @@ constexpr int MTW = 3;        // m16 tiles per warp row (up to 12 m-tiles of pix
 
 template <int STRIDE>
 struct Tile {
-  static constexpr int TH = STRIDE == 1 ? 8 : 4, TW = 8;  // output pixels
+  static constexpr int TH = 4, TW = 8;  // output pixels
   static constexpr int IH = (TH - 1) * STRIDE + 3, IW = (TW - 1) * STRIDE + 3;  // input tile
-  static constexpr int PIN = IH * IW;                 // 100 or 153 input pixels
-  static constexpr int MIN = (PIN + 15) / 16 * 16;    // 112 or 160 rows
-  static constexpr int MOUT = TH * TW;                // 64 or 32 rows
+  static constexpr int PIN = IH * IW;                 // 153 input pixels
+  static constexpr int MIN = (PIN + 15) / 16 * 16;    // 160 rows
+  static constexpr int MOUT = TH * TW;                // 32 rows
   static_assert(MIN / 16 <= 4 * MTW && MOUT / 16 <= 4 * MTW, "pixel tiles fit the warp rows");
 };
 
@@ -191,7 +191,7 @@ struct ConvArgs {
   int hgt, wid, c, e, co;
 };
 
-template <int STRIDE, bool RESIDUAL, bool BF16>
+template <int STRIDE, bool BF16>
 __global__ void __launch_bounds__(THREADS) mbconv_kernel(ConvArgs p) {
   using T = Tile<STRIDE>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -278,23 +278,11 @@ __global__ void __launch_bounds__(THREADS) mbconv_kernel(ConvArgs p) {
   }
   __syncthreads();
 
-  // the projection; bias, the residual and GELU (MBConv), store
+  // the projection and its bias, store
   block_gemm(Hs, lde, T::MOUT, p.e, p.w3, p.co, ring, [&](int row, int col, float v0, float v1) {
     const int oy = oy0 + row / T::TW, ox = ox0 + row % T::TW;
     if (oy >= ho || ox >= wo) return;
-    float a = v0 + p.b3[col], c1 = v1 + p.b3[col + 1];
-    if (RESIDUAL) {  // stride 1, Co == C: x at this pixel is input tile pixel (r + 1, c + 1)
-      const int pin = (row / T::TW + 1) * T::IW + row % T::TW + 1;
-      const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(Xs + pin * ldx + col);
-      a = __low2float(xv) + a;
-      c1 = __high2float(xv) + c1;
-      if (BF16) {
-        a = round_bf16(a);
-        c1 = round_bf16(c1);
-      }
-      a = gelu(a);
-      c1 = gelu(c1);
-    }
+    const float a = v0 + p.b3[col], c1 = v1 + p.b3[col + 1];
     *reinterpret_cast<uint32_t*>(p.out + (((long)b * ho + oy) * wo + ox) * p.co + col) =
         pack_bf16(a, c1);
   });
@@ -452,60 +440,50 @@ __global__ void __launch_bounds__(DW_TW * DW_MAX_C / 8)
   }
 }
 
-template <int STRIDE, bool RESIDUAL, bool BF16>
+template <int STRIDE, bool BF16>
 int launch_conv(const ConvArgs& p, int b, cudaStream_t st) {
   using T = Tile<STRIDE>;
   const int ho = p.hgt / STRIDE, wo = p.wid / STRIDE;
   const long blocks = (long)b * ((ho + T::TH - 1) / T::TH) * ((wo + T::TW - 1) / T::TW);
   // above the opt-in maximum set by ysi_tinyvit_conv_init, the launch is refused and reported
-  mbconv_kernel<STRIDE, RESIDUAL, BF16>
+  mbconv_kernel<STRIDE, BF16>
       <<<(unsigned)blocks, THREADS, conv_smem_bytes<STRIDE>(p.c, p.e), st>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int STRIDE, bool RESIDUAL>
+template <int STRIDE>
 cudaError_t allow_conv_smem(int bytes) {
-  cudaError_t err = cudaFuncSetAttribute(mbconv_kernel<STRIDE, RESIDUAL, false>,
+  cudaError_t err = cudaFuncSetAttribute(mbconv_kernel<STRIDE, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(mbconv_kernel<STRIDE, RESIDUAL, true>,
+    err = cudaFuncSetAttribute(mbconv_kernel<STRIDE, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   return err;
-}
-
-template <bool BF16>
-int launch_conv_mode(int stride, int residual, const ConvArgs& p, int b, cudaStream_t st) {
-  if (stride == 1 && residual) return launch_conv<1, true, BF16>(p, b, st);
-  if (stride == 1) return launch_conv<1, false, BF16>(p, b, st);
-  if (stride == 2) return launch_conv<2, false, BF16>(p, b, st);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Called once, when the library is loaded: the conv kernels may take up to the
-// card's opt-in shared memory per block (162 KB at merge2's widths).
+// card's opt-in shared memory per block.
 extern "C" int ysi_tinyvit_conv_init(void) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = allow_conv_smem<1, true>(optin);
-  if (err == cudaSuccess) err = allow_conv_smem<1, false>(optin);
-  if (err == cudaSuccess) err = allow_conv_smem<2, false>(optin);
+  if (err == cudaSuccess) err = allow_conv_smem<2>(optin);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(dw3x3_ln_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   return (int)err;
 }
 
-extern "C" int ysi_mbconv(int stride, int residual, int bf16, const void* x, const void* w1,
-                          const void* b1, const void* wd, const void* bd, const void* w3,
-                          const void* b3, void* out, int b, int hgt, int wid, int c, int e, int co,
-                          void* stream) {
+// The stride-2 patch merge (even H and W).
+extern "C" int ysi_patch_merge(int bf16, const void* x, const void* w1, const void* b1,
+                               const void* wd, const void* bd, const void* w3, const void* b3,
+                               void* out, int b, int hgt, int wid, int c, int e, int co,
+                               void* stream) {
   if (b <= 0 || hgt <= 0 || wid <= 0 || c % 32 || e % 32 || co % 32 || c <= 0 || e <= 0 || co <= 0)
     return (int)cudaErrorInvalidValue;
-  if ((residual && (stride != 1 || co != c)) || (stride == 2 && (hgt % 2 || wid % 2)))
-    return (int)cudaErrorInvalidValue;
+  if (hgt % 2 || wid % 2) return (int)cudaErrorInvalidValue;
   ConvArgs p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.w1 = static_cast<const __nv_bfloat16*>(w1);
@@ -521,8 +499,7 @@ extern "C" int ysi_mbconv(int stride, int residual, int bf16, const void* x, con
   p.e = e;
   p.co = co;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_conv_mode<true>(stride, residual, p, b, st)
-              : launch_conv_mode<false>(stride, residual, p, b, st);
+  return bf16 ? launch_conv<2, true>(p, b, st) : launch_conv<2, false>(p, b, st);
 }
 
 // y = dw3x3(x) + bd and, with ln_scale (and ln_shift), ln = LN(y); C a

@@ -7,9 +7,11 @@ kernels (``csrc/decoder_keys.cu``) carry its two functions on the card:
   ``keys_stream_kernel``: the image-to-token attention of one decoder layer,
   its residual add and LayerNorm, the next token-to-image attention's k/v
   projections of the new keys, and that attention's softmax over the pass's
-  64-token tile, stored as per-tile partials; ``t2i_combine_kernel`` joins
-  the tiles of each prompt. T need not be a multiple of 64: the last tile is
-  short.
+  128-token tile, stored as per-tile partials; ``t2i_combine_kernel`` joins
+  the tiles of each prompt. T need not be a multiple of 128: the last tile is
+  short. The kernel runs its four products on wgmma with the weights, in
+  their (in, out) layout, streamed by TMA through a ring of slabs in shared
+  memory (:func:`slab_schedule`).
 * :func:`t2i_shared_attend` (K6): the same pass without the i2t part
   projects decoder layer 0's per-image keys once per image
   (:func:`kv_project`), and ``t2i_attend_kernel`` runs the token-to-image
@@ -34,20 +36,24 @@ from typing import Optional
 import torch
 
 from ._build import check, kernels
-from .fused_ln import _check_bf16, _derived, _f32, _on_cpu, _ptr, layer_norm_plain
+from .fused_ln import _check_bf16, _f32, _on_cpu, _ptr, layer_norm_plain
 
 # The kernels' geometry: SAM's decoder at every encoder size.
-KERNEL_C, KERNEL_DH, KERNEL_HEADS, KERNEL_TQ_MAX, KERNEL_ROWS = 256, 128, 8, 8, 64
+KERNEL_C, KERNEL_DH, KERNEL_HEADS, KERNEL_TQ_MAX, KERNEL_ROWS = 256, 128, 8, 8, 128
 _PART = 16 + 2  # a per-tile partial: o[16], max, sum
+SLAB_BYTES = 16 * 1024  # a stage of keys_stream_kernel's weight ring
 
 
-def _mma_b_order(w: torch.Tensor) -> torch.Tensor:
-    """(in, out) weight -> the order in which ``keys_stream_kernel`` reads it as
-    mma.sync B fragments: for each 8-column n-tile and 16-row k-tile, lane
-    4g + t holds rows (2t, 2t+1, 2t+8, 2t+9) of column g."""
-    k, n = w.shape
-    wt = w.t().reshape(n // 8, 8, k // 16, 2, 4, 2)  # (j, g, kt, half, t, pair)
-    return wt.permute(0, 2, 1, 4, 3, 5).contiguous()
+def slab_schedule(i2t: bool) -> list:
+    """The weight slabs ``keys_stream_kernel`` takes, in order, through its
+    ring: (weight, first row, rows), each slab those rows of the (in, out)
+    weight with all its columns, 16 KB of bf16. With the i2t part: wq's 4
+    slabs of 64 rows, wout's 4 of 32 (the rows of heads 2 s and 2 s + 1),
+    then wk's and wv's slabs of 64 rows in turn; without it only the last 8."""
+    kv = [(w, 64 * s, 64) for s in range(4) for w in ("wk", "wv")]
+    if not i2t:
+        return kv
+    return [("wq", 64 * s, 64) for s in range(4)] + [("wout", 32 * s, 32) for s in range(4)] + kv
 
 
 # ------------------------------------------------------------------ plain math
@@ -114,9 +120,9 @@ def _check_tokens(name: str, tq: int) -> None:
 
 
 def _weight(w, shape, dev):
-    """(in, out) bf16 weight -> the kernel's fragment-order copy (made once)."""
+    """The (in, out) bf16 weight, as the kernel's TMA reads it."""
     _check_bf16("weight", w, shape, dev)
-    return _derived(w, "mma_b", _mma_b_order)
+    return w
 
 
 def keys_stream(keys_src, img_pe, wk, bk, wv, bv, *, k_share: int = 1, i2t=None,
@@ -174,7 +180,7 @@ keys_stream.launches = 0
 def t2i_tile_partials_plain(qn, kp, vp) -> torch.Tensor:
     """The per-tile partials :func:`keys_stream` stores for the next
     attention, in fp32: qn (N, tq2, dh) already scaled, kp and vp (N, T, dh)
-    -> (N, ceil(T / 64), heads * 8 * (16 + 2)). Per 64-token tile, head and
+    -> (N, ceil(T / 128), heads * 8 * (16 + 2)). Per 128-token tile, head and
     query: o = sum e vp, the max m and l = sum e, with e = exp(qn . kp - m)
     over the tile's tokens below T (the last tile may be short). The slots of
     absent queries hold zeros (the kernel leaves them unwritten)."""
@@ -295,6 +301,6 @@ def i2t_keys_update(keys_src, img_pe, kq, vq, wq, bq, wout, bout, ln_scale, ln_b
 
 __all__ = [
     "i2t_keys_update", "i2t_keys_update_plain", "keys_stream", "kv_project", "kv_project_plain",
-    "t2i_attend", "t2i_attend_plain", "t2i_combine", "t2i_combine_plain", "t2i_shared_attend",
-    "t2i_tile_partials_plain",
+    "slab_schedule", "t2i_attend", "t2i_attend_plain", "t2i_combine", "t2i_combine_plain",
+    "t2i_shared_attend", "t2i_tile_partials_plain",
 ]

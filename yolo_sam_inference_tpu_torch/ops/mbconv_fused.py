@@ -21,12 +21,14 @@ run in bf16 (values rounded to bf16 before each GELU and after each tap);
 the products keep their fp32 accumulation. For any other x, or with
 ``compute="fp32"``, the stretch runs in fp32, as in JAX.
 
-On the card one CUDA kernel (``csrc/tinyvit_conv.cu``) computes both, with
-stride, residual and the compute type as template parameters: a block takes
-a tile of output pixels, runs the expansion over the tile and its halo into
-shared memory, the depthwise and the projection, so the 4x-expanded
-activation never reaches device memory. Its source note says what bounds
-it.
+On the card two CUDA kernels compute them (the compute type a runtime flag
+of the first, a template parameter of the second): ``csrc/mbconv.cu`` the
+stride-1 blocks (K14: each warpgroup of a persistent block walks 8 x 8
+output tiles, the weights by TMA in shared memory, the expansion and
+projection on wgmma, the depthwise straight into the projection's operand;
+:func:`s1_plan` says how a shape is laid out), ``csrc/tinyvit_conv.cu`` the
+stride-2 merges (K15). Either way the 4x-expanded activation never reaches
+device memory. The source notes say what bounds them.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises. ``mbconv_block.launches`` and
@@ -43,6 +45,89 @@ from .fused_ln import _check_bf16, _f32, _on_cpu, _ptr
 
 
 COMPUTE_MODES = ("fp32", "bf16")
+
+# csrc/mbconv.cu's geometry (K14, stride 1): a warpgroup's 8 x 8 output tile
+# and its 10 x 10 halo, E in chunks of 64 channels, Co up to 5 boxes of 64.
+S1_TILE, S1_HALO, S1_CHUNK, S1_CO_MAX = 8, 100, 64, 320
+S1_SMEM_BUDGET = 227 * 1024  # the H100's opt-in shared memory of a block
+
+# csrc/mbconv.cu erf_fit's coefficients (Horner order, fp32): erf(x) = x + x P(x^2)
+# for |x| < 0.9, else sign(x) (1 - 2^Q(min(|x|, 4) - 2.45)).
+ERF_FIT = {
+    "P": (-6.106991787e-04, 5.015359726e-03, -2.678134292e-02, 1.128221229e-01,
+          -3.761253059e-01, 1.283791512e-01),
+    "Q": (2.323069111e-06, -2.012857476e-05, 1.185633591e-04, -6.406772882e-04,
+          3.279443365e-03, -1.630568318e-02, -1.359353185e+00, -7.586229801e+00,
+          -1.088014221e+01),
+}
+
+
+def erf_fit(x):
+    """The stride-1 kernel's erf, evaluated in fp32 as it is (one rounding per
+    multiply-add) but with an exact 2^ where the kernel takes the MUFU
+    unit's (relative error about 2^-22): numpy array in and out. The plain
+    versions use torch's erf."""
+    import numpy as np
+
+    f32 = np.float32
+    x = np.asarray(x, dtype=f32)
+
+    def fma(a, b, c):  # fp32 fused multiply-add: the exact product and sum, one rounding
+        return (a.astype(np.float64) * b + c).astype(f32)
+
+    a, s = np.abs(x), x * x
+    p = np.full_like(x, f32(ERF_FIT["P"][0]))
+    for c in ERF_FIT["P"][1:]:
+        p = fma(p, s, f32(c))
+    small = fma(p, x, x)
+    u = (np.minimum(a, f32(4)) - f32(2.45)).astype(f32)
+    q = np.full_like(x, f32(ERF_FIT["Q"][0]))
+    for c in ERF_FIT["Q"][1:]:
+        q = fma(q, u, f32(c))
+    large = np.copysign(f32(1) - np.exp2(q).astype(f32), x)
+    return np.where(a < 0.9, small, large).astype(f32)
+
+
+def s1_plan(c: int, e: int, co: int) -> tuple:
+    """How ``csrc/mbconv.cu`` lays out a stride-1 block of widths (C, E, Co):
+    (warpgroups a block, weights resident, shared-memory bytes), the same
+    rule as its ``ysi_mbconv_s1``. Resident: all of w1 and w3 loaded once a
+    block and shared by 4 warpgroups, where Co is one 64-column box, E <= 256
+    and it fits; else 2 warpgroups, each streaming its 64-channel E chunks'
+    weights through one w1 slot (C x 64) and one w3 slot (64 x Co). Each
+    warpgroup also holds its halo tile (100 x (C + 8)) and chunk tile
+    (100 x 72) in bf16; 1024 bytes align the swizzled weights; two barriers
+    a warpgroup. Raises ValueError for widths the kernel does not take."""
+    if c % 16 or not 0 < c <= 256 or e <= 0 or e % S1_CHUNK or co <= 0 or co % 64 \
+            or co > S1_CO_MAX:
+        raise ValueError(f"stride-1 MBConv kernel takes C a multiple of 16 up to 256, E a "
+                         f"multiple of 64 and Co multiples of 64 up to {S1_CO_MAX}; got {c}, "
+                         f"{e}, {co}")
+
+    def smem(resident, wgs):
+        weights = 2 * (c * e + e * co) if resident else wgs * 2 * (c * S1_CHUNK + S1_CHUNK * co)
+        own = 2 * S1_HALO * (c + 8) + 2 * S1_HALO * (S1_CHUNK + 8)
+        return 1024 + weights + wgs * own + 2 * wgs * 8
+
+    if co == 64 and e <= 256 and smem(True, 4) <= S1_SMEM_BUDGET:
+        return 4, True, smem(True, 4)
+    if smem(False, 2) <= S1_SMEM_BUDGET:
+        return 2, False, smem(False, 2)
+    raise ValueError(f"stride-1 MBConv kernel: widths {c}, {e}, {co} need "
+                     f"{smem(False, 2)} bytes of shared memory, above {S1_SMEM_BUDGET}")
+
+
+def s1_schedule(b: int, h: int, w: int, wgs: int, sms: int) -> tuple:
+    """``csrc/mbconv.cu``'s tile schedule: (tiles, blocks, the tiles of each
+    warpgroup). Output tile i is (image i // (ty tx), tile row i // tx % ty,
+    tile column i % tx) of 8 x 8 pixels; warpgroup j of the persistent grid
+    (block j // wgs, one block an SM at most) takes tiles j, j + n, j + 2 n,
+    ... with n the grid's warpgroups."""
+    tx, ty = -(-w // S1_TILE), -(-h // S1_TILE)
+    tiles = b * tx * ty
+    blocks = min(-(-tiles // wgs), sms)
+    n = blocks * wgs
+    return tiles, blocks, [list(range(j, tiles, n)) for j in range(n)]
 
 
 def _check_compute(compute: str) -> None:
@@ -97,7 +182,9 @@ def mbconv_plain(x, w1, b1, wd, bd, w3, b3, stride: int = 1, residual: bool = Tr
 def _launch(x, w1, b1, wd, bd, w3, b3, stride: int, residual: bool, compute: str):
     b, hgt, wid, c = x.shape
     e, co = w1.shape[1], w3.shape[1]
-    if c % 32 or e % 32 or co % 32:
+    if stride == 1:
+        s1_plan(c, e, co)  # raises for widths csrc/mbconv.cu does not take
+    elif c % 32 or e % 32 or co % 32:
         raise ValueError(f"tinyvit conv kernel takes C, E and Co multiples of 32; got {c}, {e}, "
                          f"{co}")
     if stride == 2 and (hgt % 2 or wid % 2):
@@ -109,11 +196,12 @@ def _launch(x, w1, b1, wd, bd, w3, b3, stride: int, residual: bool, compute: str
     ho, wo = hgt // stride, wid // stride
     out = torch.empty((b, ho, wo, co), dtype=torch.bfloat16, device=dev)
     wd32 = _f32(wd if wd.dim() == 3 else wd.reshape(3, 3, e))  # the module keeps (3, 3, E)
-    err = kernels().ysi_mbconv(
-        stride, int(residual), int(compute == "bf16"), _ptr(x), _ptr(w1), _ptr(_f32(b1)),
-        _ptr(wd32), _ptr(_f32(bd)), _ptr(w3), _ptr(_f32(b3)), _ptr(out), b, hgt, wid, c, e, co,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    args = (_ptr(x), _ptr(w1), _ptr(_f32(b1)), _ptr(wd32), _ptr(_f32(bd)), _ptr(w3),
+            _ptr(_f32(b3)), _ptr(out), b, hgt, wid, c, e, co,
+            torch.cuda.current_stream(dev).cuda_stream)
+    bf16 = int(compute == "bf16")
+    err = (kernels().ysi_mbconv_s1(int(residual), bf16, *args) if stride == 1 else
+           kernels().ysi_patch_merge(bf16, *args))
     check(err, "tinyvit conv kernel")
     return out
 
@@ -155,4 +243,5 @@ patch_merge_block.launches = 0
 patch_merge_block.bf16_launches = 0
 
 
-__all__ = ["COMPUTE_MODES", "mbconv_block", "mbconv_plain", "patch_merge_block"]
+__all__ = ["COMPUTE_MODES", "ERF_FIT", "erf_fit", "mbconv_block", "mbconv_plain",
+           "patch_merge_block", "s1_plan", "s1_schedule"]
