@@ -60,12 +60,16 @@ failure ends the run with a non-zero exit and no result line:
    drawn at random first) and ViT-B on 768x768 frames (windows 16 and 48): launch counts
    by window at batch 8, outputs, the embedding against the fp32 plain
    encoder, a timed batch;
-9. MobileSAM kernels: K13-K16 (``tinyvit_attention`` with its two
-   ``gemm_bf16`` launches, ``mbconv_block``, ``patch_merge_block``,
-   ``dw_conv3x3`` and its tail) at TinyViT-5M's batch-32 shapes against fp32
+9. MobileSAM kernels: K13-K16 (``tinyvit_window_block``, one launch at
+   stages 1 and 2, at stage 3 ``gemm_bf16`` + ``tinyvit_attention`` (also
+   alone, beside SDPA) + ``gemm_bf16``, against the official pad-then-LN
+   block in fp32; ``mbconv_block``,
+   ``patch_merge_block`` (K14 and K15 on one kernel), ``dw_conv3x3`` and its
+   tail) at TinyViT-5M's batch-32 shapes against fp32
    plain versions (the depthwise as one pass writing y and LN(y): y within
    2% of range, LN(y) within 1% of the plain LayerNorm of its own y; then y
-   alone beside ``F.conv2d(groups=C)``); K14 and K15 with ``compute="bf16"`` at stage 0 and merge0
+   alone beside ``F.conv2d(groups=C)``); K14 and K15 with ``compute="bf16"``
+   at stage 0, merge0 and merge1
    against their bf16-compute plain versions and, within the JAX package's
    bound for the mode, fp32 plain, timed in turns with the fp32
    instantiation;
@@ -1191,25 +1195,23 @@ def _sp_slice_phase(card: str, spec: str, pipe, frames, emb32, emb16) -> dict:
             "rel32": rel32, "ms": ms, "backend": backend}
 
 
-# TinyViT-5M at a 512 canvas, batch 32: (stage, grid, C, heads, window)
-TINYVIT_STAGES = ((1, 64, 128, 4, 7), (2, 32, 160, 5, 14), (3, 32, 320, 10, 7))
-
-
 def _mobile_kernel_phase(card: str) -> dict:
     """K13-K16 at TinyViT-5M's batch-32 shapes (512 canvas) against their fp32
-    plain versions: the window attention (and its block: two gemm_bf16
-    launches around it) at the three stages, MBConv at stage 0 and merge2,
+    plain versions: the window block at the three stages against the official
+    pad-then-LN form (one launch at stages 1 and 2; at stage 3 three, whose
+    attention kernel is also checked alone), MBConv at stage 0 and merge2,
     the stride-2 merges merge0 and merge1, the depthwise and the block tail
     at the three stages (the depthwise as the tail calls it: one pass that
     writes y and LN(y)). Beside each kernel's time, the plain version's and,
     where one PyTorch call computes the same function, that call's:
     scaled_dot_product_attention with the bias as a float mask (on windows
-    gathered beforehand) and F.conv2d(groups=C) for the depthwise alone; and
-    the depthwise's device time from torch.profiler."""
+    gathered beforehand) for the attention, F.conv2d(groups=C) for the
+    depthwise alone (no one call computes the window block); and the device
+    time from torch.profiler."""
     import torch
     import torch.nn.functional as F
 
-    from yolo_sam_inference_tpu_torch.bench.common import device_ms, median_ms
+    from yolo_sam_inference_tpu_torch.bench.common import TINYVIT_STAGES, device_ms, median_ms
     from yolo_sam_inference_tpu_torch.ops import dw_ln_mlp as tdw
     from yolo_sam_inference_tpu_torch.ops import fused_ln as tln
     from yolo_sam_inference_tpu_torch.ops import mbconv_fused as tmb
@@ -1244,40 +1246,48 @@ def _mobile_kernel_phase(card: str) -> dict:
         wq, bq = randn(c, 3 * c, std=c ** -0.5), randn(3 * c, std=0.3)
         wp, bp = randn(c, c, std=c ** -0.5), randn(c, std=0.1)
         blk = (table, ln_s, ln_b, wq, bq, wp, bp, heads, ws)
-        qkv = tln.fused_ln_matmul(x, ln_s, ln_b, wq, bq, eps=1e-5)
-        pad = ttv.pad_qkv_row(ln_b, wq, bq, bf)
-        # K13: the attention kernel alone, then the whole block (3 launches)
-        fn = lambda: ttv.tinyvit_attention(qkv, pad, table, heads, ws)
-        fnp = lambda: ttv.tinyvit_attention_plain(qkv, pad, table, heads, ws)
-        key = f"tinyvit_attn stage{si} ws{ws}"
-        _check(f"tinyvit_attn stage {si} ({b}x{gs}x{gs}x{3 * c}, {heads} heads, ws {ws})", fn(),
-               ttv.tinyvit_attention_plain(qkv.float(), pad.float(), table, heads, ws), 2e-2,
-               errs)
-        times[key] = (median_ms(fn), median_ms(fnp, reps=5))
-        nwin = b * (-(-gs // ws)) ** 2
-        bounds[key] = _bound(_attn_flops(nwin, heads, ws * ws, 32),
-                             _nbytes(qkv, pad, table) + x.numel() * 2)
-        # the library yardstick: windows (padded with the pad row) gathered
-        # beforehand, the bias as a float mask
-        ph = -(-gs // ws) * ws
-        grid = pad.reshape(1, 1, 1, -1).repeat(b, ph, ph, 1)
-        grid[:, :gs, :gs] = qkv
-        win = ttv._windows(grid, ws).reshape(-1, ws * ws, 3, heads, 32).permute(2, 0, 3, 1, 4)
-        qw, kw, vw = win[0].contiguous(), win[1].contiguous(), win[2].contiguous()
-        mask = table[:, torch.from_numpy(ttv.offset_index(ws)).to(dev)]
-        library[key] = median_ms(lambda: F.scaled_dot_product_attention(qw, kw, vw,
-                                                                        attn_mask=mask))
-        report(key)
-        del grid, win, qw, kw, vw
+        # the attention's least work: each real query against the window's ws^2
+        # keys (pad tokens are keys; pad queries' outputs are never stored)
+        attn_flops = b * gs * gs * heads * 4.0 * ws * ws * 32
+        fused = (ws, c) in ttv.KERNEL_WIDTHS
+        if not fused:
+            # stage 3's three launches: their attention kernel alone, beside
+            # SDPA with the bias as a float mask on windows gathered beforehand
+            qkv = tln.fused_ln_matmul(x, ln_s, ln_b, wq, bq, eps=1e-5)
+            pad = ttv.pad_qkv_row(ln_b, wq, bq, bf)
+            fn = lambda: ttv.tinyvit_attention(qkv, pad, table, heads, ws)
+            fnp = lambda: ttv.tinyvit_attention_plain(qkv, pad, table, heads, ws)
+            key = f"tinyvit_attn stage{si} ws{ws}"
+            _check(f"tinyvit_attn stage {si} ({b}x{gs}x{gs}x{3 * c}, {heads} heads, ws {ws})",
+                   fn(), ttv.tinyvit_attention_plain(qkv.float(), pad.float(), table, heads, ws),
+                   2e-2, errs)
+            times[key] = (median_ms(fn), median_ms(fnp, reps=5))
+            bounds[key] = _bound(attn_flops, _nbytes(qkv, pad, table) + x.numel() * 2)
+            device[key] = device_ms(fn, "tinyvit_attn")
+            ph = -(-gs // ws) * ws
+            grid = pad.reshape(1, 1, 1, -1).repeat(b, ph, ph, 1)
+            grid[:, :gs, :gs] = qkv
+            win = ttv._windows(grid, ws).reshape(-1, ws * ws, 3, heads, 32).permute(2, 0, 3, 1, 4)
+            qw, kw, vw = win[0].contiguous(), win[1].contiguous(), win[2].contiguous()
+            mask = table[:, torch.from_numpy(ttv.offset_index(ws)).to(dev)]
+            library[key] = median_ms(lambda: F.scaled_dot_product_attention(qw, kw, vw,
+                                                                            attn_mask=mask))
+            report(key)
+            del qkv, grid, win, qw, kw, vw
+        # K13: the whole block (one launch at stages 1 and 2, three at stage 3)
+        # against the official pad-then-LN form in fp32; beside it the three
+        # launches' plain versions (LN + qkv, the attention with the pad-token
+        # row, projection + residual in fp32)
         fn = lambda: ttv.tinyvit_window_block(x, *blk)
-        fnp = lambda: ttv.tinyvit_window_block(x, *blk, gemm=tln.gemm_plain,
-                                               attention=ttv.tinyvit_attention_plain)
-        _check(f"tinyvit_block stage {si} (gemm_bf16 LN+qkv, tinyvit_attn, proj+residual)",
+        fnp = lambda: ttv.tinyvit_window_block_plain(x, *blk)
+        route = "one launch" if fused else "gemm_bf16 LN+qkv, tinyvit_attn, proj+residual"
+        _check(f"tinyvit_block stage {si} ({b}x{gs}x{gs}x{c}, {heads} heads, ws {ws}: {route})",
                fn(), ttv.tinyvit_window_block_reference(x.float(), *blk), 2e-2, errs)
         key = f"K13 block stage{si}"
         times[key] = (median_ms(fn), median_ms(fnp, reps=5))
-        bounds[key] = _bound(8.0 * x.numel() * c + _attn_flops(nwin, heads, ws * ws, 32),
+        bounds[key] = _bound(8.0 * x.numel() * c + attn_flops,  # 8 C^2 a token: qkv, proj
                              2 * _nbytes(x) + _nbytes(wq, wp, table))
+        device[key] = device_ms(fn, "")  # every kernel of the call
         report(key)
 
         # K16: the depthwise alone (beside F.conv2d), then the tail
@@ -1329,7 +1339,7 @@ def _mobile_kernel_phase(card: str) -> dict:
         bounds[key] = _bound(18.0 * x.numel() + 16.0 * x.numel() * c,
                              2 * _nbytes(x) + _nbytes(wd, w1, w2))
         report(key)
-        del x, qkv
+        del x
         torch.cuda.empty_cache()
 
     # K14 and K15 (one kernel source): (name, input, E, Co, stride, residual)
@@ -1356,8 +1366,9 @@ def _mobile_kernel_phase(card: str) -> dict:
         pix_in, pix_out = x.numel() // c, out.numel() // co
         bounds[key] = _bound(2.0 * pix_in * c * e + pix_out * (18.0 * e + 2.0 * e * co),
                              _nbytes(x, out, *w))
+        device[key] = device_ms(fn, "mbconv")
         report(key)
-        if key in ("mbconv stage0", "patch_merge merge0"):
+        if key in ("mbconv stage0", "patch_merge merge0", "patch_merge merge1"):
             # the compute="bf16" instantiation: against its bf16-compute plain
             # version, and against fp32 plain within the JAX package's bound
             # for the mode (max 8%, mean 1% of max|ref|)
@@ -1384,6 +1395,7 @@ def _mobile_kernel_phase(card: str) -> dict:
             t32.append(median_ms(fn))
             times[bkey] = (statistics.median(t16), median_ms(fnp16, reps=5))
             bounds[bkey] = bounds[key]
+            device[bkey] = device_ms(fn16, "mbconv")
             report(bkey)
             _say("kernels", f"{key}: fp32 instantiation ms {[round(v, 4) for v in t32]}, bf16 "
                             f"{[round(v, 4) for v in t16]} (in turns) [{card}]")
@@ -1391,7 +1403,8 @@ def _mobile_kernel_phase(card: str) -> dict:
         del x, out
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library,
+            "device": device}
 
 
 def _conv_kernel_phase(card: str) -> dict:
@@ -1620,7 +1633,8 @@ def _wrappers() -> dict:
             "fused_ln_mlp_int8": tln.fused_ln_mlp_int8,
             "fused_ln_mlp_tiled_int8": tln.fused_ln_mlp_tiled_int8,
             "int8_linear": tln.int8_linear,
-            "tinyvit_attn": ttv.tinyvit_attention, "mbconv_block": tmb.mbconv_block,
+            "tinyvit_block": ttv.tinyvit_window_block, "tinyvit_attn": ttv.tinyvit_attention,
+            "mbconv_block": tmb.mbconv_block,
             "patch_merge_block": tmb.patch_merge_block, "dw_conv3x3": tdw.dw_conv3x3,
             "layer_norm": tln.layer_norm, "keys_stream": dec.keys_stream,
             "t2i_attend": dec.t2i_attend, "t2i_combine": dec.t2i_combine,
@@ -1933,11 +1947,12 @@ def _mobile_slice_phase(card: str) -> dict:
     _say("slice", f"mobile-sam: pipeline built (init + cast + upload) "
                   f"{time.perf_counter() - t0:.2f} s")
     frames = cell_frames(np.random.default_rng(6), TIMED_BATCH, FRAME)
-    # per batch: 10 window blocks (K13: attention + 2 GEMMs; K16: depthwise +
-    # 2 GEMMs), MBConv x2 + merge2 (K14), merge0 + merge1 (K15); the neck's 2
+    # per batch: 10 window blocks (K13: one launch at stages 1 and 2, 8
+    # blocks; at stage 3, 2 blocks, attention + 2 GEMMs; K16: depthwise + 2
+    # GEMMs), MBConv x2 + merge2 (K14), merge0 + merge1 (K15); the neck's 2
     # LayerNorms, then the decoder's
-    encoder = {"gemm_bf16": 40, "tinyvit_attn": 10, "mbconv_block": 3, "patch_merge_block": 2,
-               "dw_conv3x3": 10, "layer_norm": 2}
+    encoder = {"gemm_bf16": 24, "tinyvit_block": 8, "tinyvit_attn": 2, "mbconv_block": 3,
+               "patch_merge_block": 2, "dw_conv3x3": 10, "layer_norm": 2}
     launches, _, _ = _drive("mobile-sam", pipe, frames[:SLICE_BATCH], 16,
                          {**DECODER_COUNTS, **encoder, "layer_norm": 10})
     rels, _, _ = _embedding_vs_plain("mobile-sam", {"bf16": (pipe, 0.05)}, frames[:1],
@@ -2145,17 +2160,25 @@ def main() -> int:
     ]
     mt, mb, ml, mla = mk["times"], mk["bounds"], mk["library"], ms["launches"]
     table += [
+        # no one library call computes the whole window block
+        entry("tinyvit_block", "cuda", "csrc/tinyvit_block.cu",
+              "ops/tinyvit_attention.py:143 tinyvit_window_block (+ :384 "
+              "tinyvit_window_block_cells)", mla["tinyvit_block"], mk["errs"]["tinyvit_block"],
+              mt["K13 block stage2"], mb["K13 block stage2"], None,
+              (mk["device"]["K13 block stage2"], None)),
         entry("tinyvit_attn", "cuda", "csrc/tinyvit_attn.cu",
               "ops/tinyvit_attention.py:143 tinyvit_window_block (+ :384 "
-              "tinyvit_window_block_cells)", mla["tinyvit_attn"], mk["errs"]["tinyvit_attn"],
-              mt["tinyvit_attn stage2 ws14"], mb["tinyvit_attn stage2 ws14"],
-              ml["tinyvit_attn stage2 ws14"]),
+              "tinyvit_window_block_cells; its attention, at stage 3)", mla["tinyvit_attn"],
+              mk["errs"]["tinyvit_attn"], mt["tinyvit_attn stage3 ws7"],
+              mb["tinyvit_attn stage3 ws7"], ml["tinyvit_attn stage3 ws7"],
+              (mk["device"]["tinyvit_attn stage3 ws7"], None)),
         entry("mbconv_block", "cuda", "csrc/mbconv.cu",
               "ops/mbconv_fused.py:134 mbconv_block", mla["mbconv_block"],
               mk["errs"]["mbconv"], mt["mbconv stage0"], mb["mbconv stage0"]),
-        entry("patch_merge_block", "cuda", "csrc/tinyvit_conv.cu",
+        entry("patch_merge_block", "cuda", "csrc/mbconv.cu",
               "ops/merge_fused.py:125 patch_merge_block", mla["patch_merge_block"],
-              mk["errs"]["patch_merge"], mt["patch_merge merge0"], mb["patch_merge merge0"]),
+              mk["errs"]["patch_merge"], mt["patch_merge merge0"], mb["patch_merge merge0"],
+              None, (mk["device"]["patch_merge merge0"], None)),
         entry("dw_conv3x3", "cuda", "csrc/tinyvit_conv.cu",
               "ops/dw_ln_mlp.py:88 dw_ln_mlp (its depthwise and LayerNorm in one pass; the "
               "MLP on gemm_bf16)", mla["dw_conv3x3"], mk["errs"]["dw_conv3x3"],
@@ -2168,7 +2191,7 @@ def main() -> int:
               "ops/mbconv_fused.py:134 mbconv_block (compute=\"bf16\")",
               ms["launches bf16"]["mbconv_block_bf16"], mk["errs"]["mbconv_bf16"],
               mt["mbconv stage0 bf16"], mb["mbconv stage0 bf16"]),
-        entry("patch_merge_block bf16", "cuda", "csrc/tinyvit_conv.cu",
+        entry("patch_merge_block bf16", "cuda", "csrc/mbconv.cu",
               "ops/merge_fused.py:125 patch_merge_block (compute=\"bf16\")",
               ms["launches bf16"]["patch_merge_block_bf16"], mk["errs"]["patch_merge_bf16"],
               mt["patch_merge merge0 bf16"], mb["patch_merge merge0 bf16"]),

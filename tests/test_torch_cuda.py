@@ -335,6 +335,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="ws 7 or 14"):
         ttv.tinyvit_attention(_randn(gen, 1, 8, 8, 384), _randn(gen, 384),
                               _randn(gen, 4, 81), 4, 5)
+    gemms = tln.gemm_bf16.launches
+    for c, heads, ws in ((128, 4, 5), (320, 10, 5), (128, 2, 7)):  # refused before any launch
+        with pytest.raises(ValueError, match="ws 7 or 14"):
+            ttv.tinyvit_window_block(_randn(gen, 1, 8, 8, c), _randn(gen, heads, (2 * ws - 1) ** 2),
+                                     *_tv_block_weights(gen, c), heads, ws)
+    assert tln.gemm_bf16.launches == gemms
     with pytest.raises(ValueError, match="stride-1 MBConv kernel takes"):
         tmb.mbconv_block(_randn(gen, 1, 8, 8, 48), _randn(gen, 48, 192), _randn(gen, 192),
                          _randn(gen, 3, 3, 192), _randn(gen, 192), _randn(gen, 192, 48),
@@ -472,6 +478,14 @@ def _f32(gen, *shape, std=1.0):
     return _randn(gen, *shape, std=std, dtype=torch.float32)
 
 
+def _tv_block_weights(gen, c):
+    """LN scale and shift, qkv and projection weights and biases of a window
+    block (a large LN shift and qkv bias make the pad-token keys weigh)."""
+    return (1.0 + _randn(gen, c, std=0.1), _randn(gen, c, std=0.5),
+            _randn(gen, c, 3 * c, std=c ** -0.5), _randn(gen, 3 * c, std=0.3),
+            _randn(gen, c, c, std=c ** -0.5), _randn(gen, c, std=0.1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,heads,ws", [((2, 16, 16, 128), 4, 7), ((2, 15, 15, 160), 5, 14),
                                             ((2, 9, 9, 320), 10, 7), ((1, 14, 14, 128), 4, 7)])
@@ -489,21 +503,46 @@ def test_tinyvit_attention_vs_plain(gen, shape, heads, ws):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads,ws", [((2, 16, 16, 128), 4, 7), ((2, 9, 12, 128), 4, 7),
+                                            ((2, 15, 15, 160), 5, 14), ((1, 32, 32, 160), 5, 14),
+                                            ((2, 9, 9, 320), 10, 7), ((3, 5, 6, 320), 10, 7),
+                                            ((1, 10, 9, 160), 5, 14), ((1, 14, 14, 128), 4, 7),
+                                            ((1, 9, 11, 160), 5, 7)])
+def test_tinyvit_window_block_vs_reference(gen, shape, heads, ws):
+    """K13 at TinyViT-5M's widths (C 128 / 160 / 320, ws 7 and 14) against the
+    official pad-then-LN block in fp32: one launch at stage 1 and 2's widths
+    (C 128 at ws 7, C 160 at ws 14), the three launches elsewhere (stage 3's C
+    320, and C 160 at ws 7); ragged grids (pad tokens as keys, pad-only query
+    tiles at 32 x 32 in windows of 14), grids smaller than one window, an odd
+    window count (a warpgroup with no window), batch 1, an exact tiling (14 x
+    14 at ws 7)."""
+    b, h, w, c = shape
+    x = _randn(gen, b, h, w, c)
+    table = _randn(gen, heads, (2 * ws - 1) ** 2, std=0.5)
+    args = (table, *_tv_block_weights(gen, c), heads, ws)
+    fused = (ws, c) in ttv.KERNEL_WIDTHS
+    counts = (ttv.tinyvit_window_block, ttv.tinyvit_attention, tln.gemm_bf16)
+    before = [f.launches for f in counts]
+    got = ttv.tinyvit_window_block(x, *args)
+    assert [f.launches - n for f, n in zip(counts, before)] == ([1, 0, 0] if fused else [0, 1, 2])
+    _close(got, ttv.tinyvit_window_block_reference(x.float(), *args), 2e-2)
+
+
+@pytest.mark.cuda
 def test_tinyvit_window_block_vs_plain(gen):
-    """K13 as the encoder runs it: gemm_bf16 (LN + qkv), the attention kernel,
-    gemm_bf16 (projection + residual), against the pad-then-LN reference."""
+    """K13 as the encoder runs it: one launch, no gemm_bf16, against the
+    pad-then-LN reference and the plain route (LN + qkv, the attention with
+    the pad-token row, projection + residual)."""
     b, h, w, c, heads, ws = 2, 16, 16, 128, 4, 7
     x = _randn(gen, b, h, w, c)
     table = _randn(gen, heads, (2 * ws - 1) ** 2, std=0.5)
-    s, lb = 1.0 + _randn(gen, c, std=0.1), _randn(gen, c, std=0.5)
-    wq, bq = _randn(gen, c, 3 * c, std=c ** -0.5), _randn(gen, 3 * c, std=0.3)
-    wp, bp = _randn(gen, c, c, std=c ** -0.5), _randn(gen, c, std=0.1)
-    args = (table, s, lb, wq, bq, wp, bp, heads, ws)
-    before = ttv.tinyvit_attention.launches, tln.gemm_bf16.launches
+    args = (table, *_tv_block_weights(gen, c), heads, ws)
+    before = ttv.tinyvit_window_block.launches, tln.gemm_bf16.launches
     got = ttv.tinyvit_window_block(x, *args)
-    assert (ttv.tinyvit_attention.launches, tln.gemm_bf16.launches) == (before[0] + 1,
-                                                                         before[1] + 2)
+    assert (ttv.tinyvit_window_block.launches, tln.gemm_bf16.launches) == (before[0] + 1,
+                                                                           before[1])
     _close(got, ttv.tinyvit_window_block_reference(x.float(), *args), 2e-2)
+    _close(got, ttv.tinyvit_window_block_plain(x.float(), *args), 2e-2)
 
 
 def _conv_weights(gen, c, e, co):
@@ -534,9 +573,14 @@ def test_mbconv_vs_plain(gen, shape, e, co, residual):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,co", [((2, 16, 16, 64), 128), ((2, 12, 20, 128), 160)])
+@pytest.mark.parametrize("shape,co", [((2, 16, 16, 64), 128), ((2, 12, 20, 128), 160),
+                                      ((1, 18, 22, 64), 128), ((3, 14, 30, 128), 160),
+                                      ((1, 34, 18, 64), 96)])
 def test_patch_merge_vs_plain(gen, shape, co):
-    """K15: stride-2 merges, the second with ragged 6 x 10 output tiles."""
+    """K15: stride-2 merges at merge0's widths (C 64: 3 warpgroups) and
+    merge1's (C 128, E and Co 160: a zero-filled half box; 2 warpgroups), both
+    on resident weights, with ragged output tiles (6 x 10, 9 x 11, 7 x 15,
+    17 x 9) and odd tile counts, and E, Co 96."""
     x = _randn(gen, *shape)
     w = _conv_weights(gen, shape[-1], co, co)
     before = tmb.patch_merge_block.launches
@@ -551,7 +595,9 @@ def test_patch_merge_vs_plain(gen, shape, co):
                                                         ((1, 13, 21, 64), 256, 64, 1, True),
                                                         ((2, 9, 11, 160), 320, 320, 1, False),
                                                         ((2, 16, 16, 64), 128, 128, 2, False),
-                                                        ((2, 12, 20, 128), 160, 160, 2, False)])
+                                                        ((2, 12, 20, 128), 160, 160, 2, False),
+                                                        ((1, 18, 22, 64), 128, 128, 2, False),
+                                                        ((3, 14, 30, 128), 160, 160, 2, False)])
 def test_conv_blocks_bf16_compute_vs_plain(gen, shape, e, co, stride, residual):
     """K14 and K15 with compute="bf16": the bf16 instantiation against the
     bf16-compute plain version (2% of the range), and against the fp32 plain

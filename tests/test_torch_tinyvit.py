@@ -59,7 +59,12 @@ from yolo_sam_inference_tpu_torch.ops.mbconv_fused import (
     patch_merge_block,
 )
 from yolo_sam_inference_tpu_torch.ops.tinyvit_attention import (
+    BLOCK_SMEM_BUDGET,
+    block_plan,
+    block_schedule,
     offset_index,
+    qkv_slabs,
+    real_query_tiles,
     tinyvit_attention_plain,
     tinyvit_window_block,
     tinyvit_window_block_reference,
@@ -179,6 +184,209 @@ def test_tinyvit_window_block_matches_jax_kernels(b, h, w, c, heads, ws):
         real = tinyvit_attention_plain(qkv, pad, _t(table), heads, ws)
         zero = tinyvit_attention_plain(qkv, torch.zeros(3 * c), _t(table), heads, ws)
         assert (real - zero).abs().max() > 1e-2
+
+
+def _block_as_the_kernel_computes_it(x, table, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads,
+                                     ws, eps=1e-5):
+    """fp32 emulation of csrc/tinyvit_block.cu's plan: the windows in the
+    order of block_schedule, each window's tokens zero outside the grid and
+    normalised there (no pad-token row), qkv head by head from the
+    qkv_slabs rows, the keys of all ws^2 tokens, only the query tiles of
+    real_query_tiles, and the projection + residual stored at the window's
+    real tokens; every other output stays NaN."""
+    b, h, w, c = x.shape
+    t, nx, ny = ws * ws, -(-w // ws), -(-h // ws)
+    per_item = 2 if ws == 7 else 1  # block_plan's windows in flight
+    slabs = qkv_slabs(wqkv)
+    idx = torch.from_numpy(offset_index(ws))
+    out = torch.full_like(x, float("nan"))
+    for walk in block_schedule(b, h, w, ws, per_item, 3)[3]:
+        for win in walk:
+            wx, wy, bi = win % nx, win // nx % ny, win // (nx * ny)
+            rows, cols = min(ws, h - wy * ws), min(ws, w - wx * ws)
+            tok = torch.zeros(ws, ws, c)
+            tok[:rows, :cols] = x[bi, wy * ws:wy * ws + rows, wx * ws:wx * ws + cols]
+            ln = torch.nn.functional.layer_norm(tok.reshape(t, c), (c,), ln_s, ln_b, eps)
+            tiles = real_query_tiles(ws, rows, cols)
+            o = torch.zeros(t, c)
+            for hh in range(heads):
+                cols_h = [part * c + hh * 32 + i for part in range(3) for i in range(32)]
+                qkv = ln @ slabs[hh * 96:(hh + 1) * 96].T + bqkv[cols_h]
+                q, k, v = qkv[:, :32], qkv[:, 32:64], qkv[:, 64:]
+                for mt in tiles:
+                    r = slice(mt * 64, min(mt * 64 + 64, t))
+                    s = q[r] @ k.T * 32 ** -0.5 + table[hh][idx][r]
+                    o[r, hh * 32:(hh + 1) * 32] = torch.softmax(s, -1) @ v
+            y = o @ wproj + bproj
+            for mt in tiles:
+                for i in range(mt * 64, min(mt * 64 + 64, t)):
+                    ty, tx = divmod(i, ws)
+                    if ty < rows and tx < cols:
+                        gy, gx = wy * ws + ty, wx * ws + tx
+                        out[bi, gy, gx] = x[bi, gy, gx] + y[i]
+    return out
+
+
+@pytest.mark.parametrize("b,h,w,c,heads,ws", [(2, 9, 12, 128, 4, 7), (1, 15, 15, 160, 5, 14),
+                                              (1, 14, 14, 128, 4, 7), (3, 5, 6, 320, 10, 7),
+                                              (1, 32, 32, 160, 5, 14)])
+def test_block_as_the_kernel_plans_it_matches_jax_kernels(b, h, w, c, heads, ws):
+    """K13's one-launch plan (zero-pad x, then LN in the window, qkv from the
+    kernel's head slabs, pad-only query tiles skipped while their tokens stay
+    keys) writes every token of the grid and agrees with both TPU kernel
+    forms in interpret mode and with the pad-then-LN reference at 1e-4 (fp32),
+    on ragged grids, a grid smaller than one window and the 32 x 32 grid in
+    windows of 14 (stage 2: the bottom windows' 3 pad-only tiles)."""
+    rng = np.random.default_rng(h * c + ws + b)
+    x = rng.normal(size=(b, h, w, c)).astype(np.float32)
+    table, *args = _tv_block_args(rng, c, heads, ws)
+    got = _block_as_the_kernel_computes_it(_t(x), _t(table), *map(_t, args), heads, ws).numpy()
+    assert np.isfinite(got).all()  # every real token written
+    ref = tinyvit_window_block_reference(_t(x), _t(table), *map(_t, args), heads, ws).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+    bias_tt = _j(table)[:, jtv._offset_index(ws)]
+    for kernel in (jax_window_block, jax_window_block_cells):
+        want = np.asarray(kernel(_j(x), bias_tt, *map(_j, args), heads, ws, interpret=True))
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("c,heads,ws,plan", [
+    (128, 4, 7, (2, 2, True, 0, 212632)),     # stage 1: all weights resident, 2 windows a block
+    (160, 5, 14, (2, 1, False, 3, 226608))])  # stage 2: 2 warpgroups on 1 window, a slab a round
+def test_block_plan_fits_the_card(c, heads, ws, plan):
+    """The one-launch block's layout (csrc/tinyvit_block.cu ysi_tinyvit_block):
+    consumer warpgroups, windows in flight, resident weights, weight slots and
+    shared-memory bytes, within the H100's 227 KB at TinyViT-5M's stages 1
+    and 2; the bytes add up from the parts its note names, and the slots hold
+    a slab's K chunks."""
+    got = block_plan(c, heads, ws)
+    assert got == plan and got[4] <= BLOCK_SMEM_BUDGET
+    nwg, sets, resident, slots, nbytes = got
+    t, kch = ws * ws, -(-c // 64)
+    own = -(-t // 8) * 8 * 128 + -(-t // 64) * 32 * 128 + 2 * 2 * t * (c + 8)
+    own = -(-own // 1024) * 1024
+    weights = heads * kch * 96 * 128 + kch * kch * 64 * 128 if resident else slots * 96 * 128
+    table = -(-heads * (2 * ws - 1) ** 2 * 4 // 16) * 16
+    assert nbytes == 1024 + weights + sets * own + table + 8 * (1 if resident else 2 * slots)
+    assert resident or kch <= slots <= 8
+
+
+@pytest.mark.parametrize("c,heads,ws", [(128, 4, 5), (96, 3, 7), (128, 2, 7), (352, 11, 7),
+                                        (320, 10, 14), (128, 4, 14), (320, 10, 7),
+                                        (160, 5, 7)])
+def test_block_plan_refuses_widths_the_kernel_does_not_take(c, heads, ws):
+    """ws off 7 and 14, head dim off 32, or a (ws, C) the kernel is not built
+    for (it takes TinyViT-5M's stage 1, (7, 128), and stage 2, (14, 160);
+    stage 3, (7, 320), runs on three launches): a ValueError before any
+    launch."""
+    with pytest.raises(ValueError, match="tinyvit block kernel"):
+        block_plan(c, heads, ws)
+
+
+@pytest.mark.parametrize("b,h,w,ws,sms", [(32, 64, 64, 7, 132), (32, 32, 32, 14, 132),
+                                          (32, 32, 32, 7, 132), (3, 9, 12, 7, 4),
+                                          (1, 15, 15, 14, 132), (1, 5, 6, 7, 132),
+                                          (3, 5, 6, 7, 2)])
+def test_block_schedule_writes_every_real_token_once(b, h, w, ws, sms):
+    """The persistent grid's window walk: every window taken by exactly one
+    consumer warpgroup, at most one block an SM, no block more than one item
+    above another; and with the real query tiles, every token of the grid
+    written exactly once (a window's pad queries never)."""
+    nwg = 2 if ws == 7 else 1
+    windows, items, blocks, walks = block_schedule(b, h, w, ws, nwg, sms)
+    nx, ny = -(-w // ws), -(-h // ws)
+    assert windows == b * nx * ny and items == -(-windows // nwg) and blocks <= sms
+    assert sorted(win for walk in walks for win in walk) == list(range(windows))
+    per_block = [len(range(k, items, blocks)) for k in range(blocks)]
+    assert max(per_block) - min(per_block) <= 1
+    count = np.zeros((b, h, w), np.int64)
+    for walk in walks:
+        for win in walk:
+            wx, wy, bi = win % nx, win // nx % ny, win // (nx * ny)
+            rows, cols = min(ws, h - wy * ws), min(ws, w - wx * ws)
+            for mt in real_query_tiles(ws, rows, cols):
+                for i in range(mt * 64, min(mt * 64 + 64, ws * ws)):
+                    ty, tx = divmod(i, ws)
+                    if ty < rows and tx < cols:
+                        count[bi, wy * ws + ty, wx * ws + tx] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("ws", [7, 14])
+def test_real_query_tiles_skip_only_pad_only_tiles(ws):
+    """The kernel's test of a query tile (its closed form) against the
+    tokens themselves, for every window the grid's edge can cut: a tile is
+    computed exactly when one of its queries lies in the grid. At stage 2 (32
+    x 32 in windows of 14) the bottom windows keep 1 of 4 tiles."""
+    t = ws * ws
+    for rows in range(1, ws + 1):
+        for cols in range(1, ws + 1):
+            want = [mt for mt in range(-(-t // 64))
+                    if any(i // ws < rows and i % ws < cols
+                           for i in range(mt * 64, min(mt * 64 + 64, t)))]
+            assert real_query_tiles(ws, rows, cols) == want
+            assert want[0] == 0
+    if ws == 14:
+        assert real_query_tiles(14, 32 - 28, 14) == [0]
+        assert real_query_tiles(14, 14, 32 - 28) == [0, 1, 2]
+
+
+@pytest.mark.parametrize("c,e,co,plan", [
+    (64, 128, 128, (3, True, 182032)),   # merge0: weights resident, 3 warpgroups
+    (128, 160, 160, (2, True, 211808)),  # merge1: 160 = 2.5 boxes, resident, 2 warpgroups
+    (64, 96, 96, (3, True, 182032))])    # E, Co 96: one box and a zero-filled half
+def test_s2_plan_fits_the_card(c, e, co, plan):
+    """The stride-2 merge's layout (csrc/mbconv.cu ysi_patch_merge) within the
+    H100's 227 KB at merge0 and merge1, in both compute modes (the mode is a
+    runtime flag of the same layout); E and Co count in 64-channel boxes, a
+    warpgroup holds its 17 x 17 chunk tile (the expansion reads x from device
+    memory), rounded up to 16 bytes so the next warpgroup's rows stay
+    16-byte aligned."""
+    from yolo_sam_inference_tpu_torch.ops.mbconv_fused import S1_SMEM_BUDGET, s2_plan
+
+    wgs, resident, nbytes = s2_plan(c, e, co)
+    assert (wgs, resident, nbytes) == plan
+    assert nbytes <= S1_SMEM_BUDGET
+    ep, cop = -(-e // 64) * 64, -(-co // 64) * 64
+    weights = 2 * (c * ep + ep * cop)
+    own = -(-2 * 289 * 76 // 16) * 16
+    assert nbytes == 1024 + weights + wgs * own + 16 * wgs
+
+
+@pytest.mark.parametrize("c,e,co", [(40, 128, 128), (64, 100, 128), (64, 128, 352),
+                                    (272, 128, 128), (256, 320, 320), (160, 320, 320)])
+def test_s2_plan_refuses_widths_the_kernel_does_not_take(c, e, co):
+    """C other than merge0's 64 and merge1's 128 (the widths compiled in), Co
+    off its merge's range, E or Co off a multiple of 32: a ValueError before
+    any launch."""
+    from yolo_sam_inference_tpu_torch.ops.mbconv_fused import s2_plan
+
+    with pytest.raises(ValueError, match="stride-2 merge kernel"):
+        s2_plan(c, e, co)
+
+
+@pytest.mark.parametrize("shape,wgs,sms", [((32, 128, 128), 3, 132), ((32, 64, 64), 2, 132),
+                                           ((1, 18, 22), 3, 132), ((3, 14, 30), 2, 4)])
+def test_s2_schedule_writes_every_output_pixel_once(shape, wgs, sms):
+    """The stride-2 tile walk over the (H / 2, W / 2) output grid: every
+    output pixel (the last row and column of 8 x 8 tiles ragged where 8 does
+    not divide) written by exactly one warpgroup, at most one block an SM,
+    no warpgroup more than one tile above any other."""
+    from yolo_sam_inference_tpu_torch.ops.mbconv_fused import s2_schedule
+
+    b, h, w = shape
+    ho, wo = h // 2, w // 2
+    tiles, blocks, walks = s2_schedule(b, h, w, wgs, sms)
+    tx, ty = -(-wo // 8), -(-ho // 8)
+    assert tiles == b * tx * ty and blocks <= sms
+    count = np.zeros((b, ho, wo), np.int64)
+    for walk in walks:
+        for i in walk:
+            bi, oy0, ox0 = i // (tx * ty), i // tx % ty * 8, i % tx * 8
+            count[bi, oy0:oy0 + 8, ox0:ox0 + 8] += 1
+    assert (count == 1).all()
+    counts = [len(walk) for walk in walks]
+    assert max(counts) - min(counts) <= 1
 
 
 def _conv_weights(rng, c, e, co):

@@ -21,6 +21,11 @@ CONV_SHAPES = (
 # K16's depthwise at TinyViT-5M's three block stages on the 512 canvas:
 # (stage, grid side, C)
 DW_STAGES = ((1, 64, 128), (2, 32, 160), (3, 32, 320))
+# K13's window blocks at TinyViT-5M's three stages on the 512 canvas:
+# (stage, grid side, C, heads, window)
+TINYVIT_STAGES = ((1, 64, 128, 4, 7), (2, 32, 160, 5, 14), (3, 32, 320, 10, 7))
+# K15's stride-2 merges on the 512 canvas: (name, input (H, W, C), E, Co)
+MERGE_SHAPES = (("merge0", (128, 128, 64), 128, 128), ("merge1", (64, 64, 128), 160, 160))
 
 
 def card() -> str:

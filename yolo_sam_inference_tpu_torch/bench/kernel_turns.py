@@ -15,7 +15,12 @@ layer-1 pass of 512 streams at T 784, 1024 and 4096, layer 0's at T 1024
 with 16 prompts sharing each of 32 images' keys; K6's k/v projection pass
 of 32 images) and ``t2i_combine`` on the layer-1 pass's partials;
 ``mbconv_block`` (K14) at TinyViT-5M's stage 0 (32 x 128 x 128 x 64, E 256)
-and merge2 (32 x 32 x 32 x 160, E 320, Co 320) in both compute modes; ``fused_ln_matmul`` (K1) and
+and merge2 (32 x 32 x 32 x 160, E 320, Co 320) in both compute modes;
+``patch_merge_block`` (K15) at merge0 and merge1 (``MERGE_SHAPES``) in both
+compute modes; ``tinyvit_window_block`` (K13), the whole block, at the three
+``TINYVIT_STAGES`` (its device time: every kernel of the call), and where
+the tree has the first design's attention kernel, that kernel alone on a
+random qkv; ``fused_ln_matmul`` (K1) and
 ``fused_ln_mlp`` (K4 at ViT-B, K10 at ViT-L and ViT-H) at 32768 rows;
 ``conv2d_act`` (K17) at every ``CONV_SHAPES`` row; ``dw_conv3x3`` (K16's
 depthwise) at the three TinyViT stages, with ``ln=`` where the tree's
@@ -36,7 +41,7 @@ grids' global layers; the w8a8
 functions (K11a at ViT-L, K11b at ViT-H, K11c at both, 32768 rows) and
 ``int8_linear`` at the flat route's 51200 rows (qkv, mlp1 + GELU, mlp2),
 with the bare int8 products on ``torch._int_mm`` beside them. Beside each
-K7, K14, K12, LayerNorm, K3 and w8a8 time, the device time of the kernels of the
+K7, K14, K15, K13, K12, LayerNorm, K3 and w8a8 time, the device time of the kernels of the
 call. Prints the card, then one ``[TAG] name: ms`` line per call. Needs one
 card.
 """
@@ -146,6 +151,41 @@ def main() -> None:
                 lambda: tmb.mbconv_block(x, *w, residual=res, compute=mode), "mbconv")
         del x
         torch.cuda.empty_cache()
+    # K15 (patch_merge_block, stride 2): merge0 and merge1 on the 512 canvas,
+    # in both compute modes
+    for label, (hh, ww, ci), e, co in common.MERGE_SHAPES:
+        x = rn(b, hh, ww, ci).to(bf)
+        w = (rn(ci, e, std=ci ** -0.5).to(bf), rn(e, std=0.3), rn(3, 3, e, std=1 / 3).to(bf),
+             rn(e, std=0.3), rn(e, co, std=e ** -0.5).to(bf), rn(co, std=0.3))
+        for mode in ("fp32", "bf16"):
+            say(f"patch_merge {label} {mode}",
+                lambda: tmb.patch_merge_block(x, *w, compute=mode), "mbconv")
+        del x
+        torch.cuda.empty_cache()
+
+    # K13 (tinyvit_window_block): the whole block, x + proj(attn(LN(pad(x)))),
+    # at TinyViT-5M's three stages (every kernel of the call on the device),
+    # and, where the tree has it, the first design's attention kernel alone
+    from yolo_sam_inference_tpu_torch.ops import tinyvit_attention as ttv
+
+    attn = getattr(ttv, "tinyvit_attention", None)
+    for si, gs, c, heads, ws in common.TINYVIT_STAGES:
+        x = rn(b, gs, gs, c).to(bf)
+        table = rn(heads, (2 * ws - 1) ** 2, std=0.5).to(bf)
+        ln_s, ln_b = (1.0 + rn(c, std=0.1)).to(bf), rn(c, std=0.5).to(bf)
+        wq, bq = rn(c, 3 * c, std=c ** -0.5).to(bf), rn(3 * c, std=0.3).to(bf)
+        wp, bp = rn(c, c, std=c ** -0.5).to(bf), rn(c, std=0.1).to(bf)
+        blk = (table, ln_s, ln_b, wq, bq, wp, bp, heads, ws)
+        say(f"tinyvit_block stage{si} ws{ws}", lambda: ttv.tinyvit_window_block(x, *blk), "")
+        if attn is not None:
+            qkv = rn(b, gs, gs, 3 * c).to(bf)
+            pad = ttv.pad_qkv_row(ln_b, wq, bq, bf)
+            say(f"tinyvit_attn stage{si} ws{ws} (attention alone)",
+                lambda: attn(qkv, pad, table, heads, ws), "tinyvit_attn")
+            del qkv
+        del x
+        torch.cuda.empty_cache()
+
     m = 32 * 1024
     for name, c in (("ViT-B", 768), ("ViT-L", 1024), ("ViT-H", 1280)):
         x, h = rn(m, c).to(bf), rn(m, c).to(bf)

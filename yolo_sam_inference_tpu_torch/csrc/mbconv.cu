@@ -1,21 +1,26 @@
-// TinyViT's stride-1 MBConv block (Hopper, sm_90a): stage 0's blocks with
-// the residual and the stride-1 merge2 without it.
+// TinyViT's MBConv block and its patch merges (Hopper, sm_90a): stage 0's
+// blocks with the residual and the stride-1 merge2 without it (K14), and the
+// stride-2 merges merge0 and merge1 (K15), on one kernel.
 //
-// mbconv_s1_kernel, for x (B, H, W, C) bf16, w1 (C, E) and w3 (E, Co) bf16
-// in the JAX (in, out) layout, wd (3, 3, E) and the biases fp32:
+// mbconv_kernel<S, ...>, for x (B, H, W, C) bf16, w1 (C, E) and w3 (E, Co)
+// bf16 in the JAX (in, out) layout, wd (3, 3, E) and the biases fp32:
 //   h1  = gelu(x @ w1 + b1)               rounded to bf16; zero outside the image
-//   h2  = gelu(dw3x3(h1) + bd)            zero 'same' padding, fp32 taps, bf16
-//   out = h2 @ w3 + b3, then gelu(x + out) with the residual (Co == C)
+//   h2  = gelu(dw3x3_S(h1) + bd)          zero 'same' padding, fp32 taps, bf16
+//   out = h2 @ w3 + b3, then gelu(x + out) with the residual (S 1, Co == C)
 // GELU is the exact erf form (erf in fp32 by erf_fit below). bf16 is the JAX kernels' compute="bf16"
-// (mbconv_fused.py:68-72, :94, :108-114, :126) with the roundings listed in
-// tinyvit_conv.cu's note: x @ w1 + b1 before its GELU; the depthwise bias,
-// weights and every tap's accumulator (packed bf16x2 FMAs, in (dy, dx) order);
-// x + out before the last GELU; every GELU takes its erf in fp32.
+// (mbconv_fused.py:68-72, :94, :108-114, :126; merge_fused.py:65), rounding
+// to bf16 where they do: x @ w1 + b1 before its GELU; the depthwise bias,
+// weights and every tap's accumulator (packed bf16x2 FMAs, in (dy, dx) order:
+// the CUDA cores' bf16x2 rate is twice their fp32 rate); x + out before the
+// last GELU; every GELU takes its erf in fp32 on its bf16-rounded input and
+// rounds its output to bf16; the products keep their fp32 accumulation.
 //
-// Replaces yolo_sam_inference_tpu/ops/mbconv_fused.py:134 mbconv_block at
-// stride 1 (stage 0, and TinyViT's stride-1 merge2). The stride-2 merges
-// (merge_fused.py:125) stay on tinyvit_conv.cu's mbconv_kernel, whose
-// stride-1 instantiations this kernel replaced.
+// Replaces yolo_sam_inference_tpu/ops/mbconv_fused.py:134 mbconv_block
+// (stride 1: stage 0, and TinyViT's stride-1 merge2) and
+// yolo_sam_inference_tpu/ops/merge_fused.py:125 patch_merge_block (stride 2:
+// merge0, merge1). Both first ran on tinyvit_conv.cu's mbconv_kernel
+// (mma.sync, one block of 8 warps a 4 x 8 or 8 x 8 tile), which this kernel
+// replaced, the stride-1 forms first and the stride-2 ones after.
 //
 // What bounds it on the H100: at stage 0 (C 64, E 256) a pixel costs 128 KFLOP
 // of products for 256 bytes in and out, so the products alone would bound it
@@ -51,15 +56,29 @@
 //     accumulates h2 @ w3[chunk] on wgmma with B by descriptor; the 4x
 //     expanded activation never leaves the chunk tile;
 //   * epilogue: bias, the residual from the halo tile, GELU, bf16 stores.
-// The halo costs 100 / 64 of the expansion's GELUs.
-// Measured on an H100 80GB HBM3 at 700 W (bench/kernel_turns.py, device
-// time, batch 32, in turns with the first design): stage 0 0.835 ms (0.772
-// in bf16 mode) against 2.00 (1.92); merge2 0.154 (0.148) against 0.27
-// (0.26). Variants of this kernel: without any GELU stage 0 took 0.393 ms,
-// with one depthwise tap 0.787, without the expansion's products 0.911 (of
-// 0.906 then): the erf GELUs set its pace, the products hide. ptxas: 127
-// registers at 4 warpgroups, 254 at 2 (Co 320's five accumulator boxes),
-// no spills.
+// The halo costs 100 / 64 of the expansion's GELUs at stride 1.
+//
+// At stride 2 (K15) the same kernel takes an 8 x 8 tile of output pixels and
+// its 17 x 17 input halo (289 pixels, five m64 expansion tiles: 289 / 64 of
+// the expansion's GELUs, which the halo of a stride-2 tile needs); the
+// depthwise reads every other pixel of the chunk tile. The expansion's A
+// fragments come straight from device memory (L1 and L2 hold the halo),
+// not from a halo tile, so more warpgroups fit beside the chunk tiles:
+// merge0 (C 64, E Co 128) runs 3 warpgroups a block on resident weights
+// (178 KB), merge1 (C 128, E Co 160) 2 (207 KB); the first version of this
+// kernel, with the halo tile in shared memory, fitted 2 and 1 and took 0.338
+// and 0.230 ms (device time, the card below). C is compiled in at both (the wgmma then sit on no path
+// ptxas must treat as divergent, which serialises them). Measured
+// (bench/kernel_turns.py, device time, batch 32, in turns with the first
+// design; NVIDIA H100 80GB HBM3, 700.00 W): merge0 0.2870-0.2909 ms (bf16
+// mode 0.2836-0.2840) against 0.3753-0.3761 (0.3733-0.3735), merge1
+// 0.1307-0.1310 (0.1285-0.1290) against 0.2399-0.2412 (0.2410-0.2420).
+// ptxas: 168 registers at merge0, 223 at merge1, no spill. Merge1's E and Co of
+// 160 are not whole 64-channel boxes: TMA fills the last box past the matrix
+// with zeros, its GELUs and depthwise are skipped, so a tail of 32 channels
+// costs products only. What bounds K15 is what bounds K14: its erf GELUs
+// (about 93 M a call at merge0, 29 M at merge1) and the latency each
+// warpgroup's phases leave uncovered.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -72,36 +91,60 @@
 
 namespace {
 
-constexpr int TW = 8, TH = 8;                       // a warpgroup's output tile (m64)
-constexpr int IW = TW + 2, IH = TH + 2, PIN = IW * IH;  // its 10 x 10 input halo
-constexpr int EC = 64;                              // channels of an E chunk (a TMA box)
-constexpr int LDE = EC + 8;                         // chunk tile rows: conflict-free
-constexpr int NB_MAX = 5;                           // Co up to 320 (64-column boxes)
-constexpr int SMEM_BUDGET = 227 * 1024;             // a block's opt-in maximum on the H100
+constexpr int TW = 8, TH = 8;            // a warpgroup's output tile (m64)
+constexpr int EC = 64;                   // channels of an E chunk (a TMA box)
+constexpr int NB_MAX = 5;                // Co up to 320 (64-column boxes)
+constexpr int SMEM_BUDGET = 227 * 1024;  // a block's opt-in maximum on the H100
+
+// A tile's input halo at stride S (10 x 10 at stride 1, 17 x 17 at 2: a
+// stride-2 'same' 3x3 reads only the top and left padding), its m64 tiles of
+// the expansion, and the chunk tile's row stride (bf16): 72 at stride 1; 76 at
+// stride 2, where the depthwise's lanes read every other pixel and 72 would
+// put two of them on one bank.
+template <int S>
+struct Geo {
+  static constexpr int IW = (TW - 1) * S + 3, IH = (TH - 1) * S + 3, PIN = IW * IH;
+  static constexpr int MTH = (PIN + 63) / 64;
+  static constexpr int LDE = S == 1 ? EC + 8 : EC + 12;
+};
+
+__host__ __device__ inline int pad64(int v) { return (v + 63) / 64 * 64; }
 
 // Shared memory of a block: 1024 bytes of alignment slack, the weights (all
 // of them, or each warpgroup's two slots), each warpgroup's halo and chunk
-// tiles, the barriers. ops/mbconv_fused.py:s1_plan mirrors it.
+// tiles, the barriers. E and Co count in 64-channel boxes (TMA fills a box
+// past the matrix with zeros). ops/mbconv_fused.py:s1_plan and s2_plan
+// mirror it.
 __host__ __device__ inline size_t weight_bytes(bool resident, int wgs, int c, int e, int co) {
-  return resident ? 2 * ((size_t)c * e + (size_t)e * co)
-                  : (size_t)wgs * 2 * ((size_t)c * EC + (size_t)EC * co);
+  return resident ? 2 * ((size_t)c * pad64(e) + (size_t)pad64(e) * pad64(co))
+                  : (size_t)wgs * 2 * ((size_t)c * EC + (size_t)EC * pad64(co));
 }
-__host__ __device__ inline size_t halo_bytes(int c) { return 2 * (size_t)PIN * (c + 8); }
-constexpr size_t CHUNK_BYTES = 2 * (size_t)PIN * LDE;
-
-__host__ __device__ inline size_t s1_smem(bool resident, int wgs, int c, int e, int co) {
-  return 1024 + weight_bytes(resident, wgs, c, e, co) + wgs * (halo_bytes(c) + CHUNK_BYTES) +
-         2 * wgs * sizeof(uint64_t);
+// (each rounded up to 16 bytes: the next tile's cp.async and ldmatrix rows).
+// At stride 2 the expansion reads x straight from device memory (L1 and L2
+// hold a tile's 17 x 17 halo): no halo tile, so more warpgroups fit.
+template <int S>
+__host__ __device__ inline size_t halo_bytes(int c) {
+  return S == 2 ? 0 : (2 * (size_t)Geo<S>::PIN * (c + 8) + 15) / 16 * 16;
+}
+template <int S>
+__host__ __device__ inline size_t chunk_bytes() {
+  return (2 * (size_t)Geo<S>::PIN * Geo<S>::LDE + 15) / 16 * 16;
 }
 
-struct S1Args {
+template <int S>
+__host__ __device__ inline size_t conv_smem(bool resident, int wgs, int c, int e, int co) {
+  return 1024 + weight_bytes(resident, wgs, c, e, co) +
+         wgs * (halo_bytes<S>(c) + chunk_bytes<S>()) + 2 * wgs * sizeof(uint64_t);
+}
+
+struct ConvArgs {
   const __nv_bfloat16* x;
   const float* b1;
   const float* wd;
   const float* bd;
   const float* b3;
   __nv_bfloat16* out;
-  int hgt, wid, c, e, co, tiles_x, tiles_y, tiles;
+  int hgt, wid, ho, wo, c, e, co, tiles_x, tiles_y, tiles;
   int residual, bf16;  // the MBConv's residual and GELU; compute="bf16"
 };
 
@@ -152,31 +195,36 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
-template <int WGS, bool RESIDENT>
+template <int S, int WGS, bool RESIDENT, int NB, int CT>
 __global__ void __launch_bounds__(WGS * 128, 1)
-    mbconv_s1_kernel(const __grid_constant__ CUtensorMap map_w1,
-                     const __grid_constant__ CUtensorMap map_w3, S1Args p) {
-  constexpr int NB = RESIDENT ? 1 : NB_MAX;  // accumulator boxes of 64 output columns
+    mbconv_kernel(const __grid_constant__ CUtensorMap map_w1,
+                  const __grid_constant__ CUtensorMap map_w3, ConvArgs p) {
+  using G = Geo<S>;
+  constexpr int IW = G::IW, PIN = G::PIN, LDE = G::LDE;
+  // NB: accumulator boxes of 64 output columns (at least Co / 64, exactly at
+  // stride 2); CT: C compiled in at stride 2, 0 (C from p) at stride 1
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int c = p.c, nch = p.e / EC, nbox = p.co / 64, ksx = c / 16, ldx = c + 8;
+  const int c = CT > 0 ? CT : p.c, ep = pad64(p.e), nch = ep / EC, nbox = pad64(p.co) / 64;
+  const int ksx = c / 16;
+  const int ldx = c + 8;
   const bool bf16 = p.bf16;
 
   // weights: resident, w1 as E / 64 boxes of C rows and w3 as Co / 64 boxes
   // of E rows; streamed, this warpgroup's w1 slot (one box of C rows) and w3
-  // slot (Co / 64 boxes of 64 rows)
+  // slot (Co / 64 boxes of 64 rows); E and Co rounded up to 64 (zero-filled)
   __nv_bfloat16* w1s = reinterpret_cast<__nv_bfloat16*>(smem);
-  if (!RESIDENT) w1s += (size_t)wg * (c * EC + EC * p.co);
-  __nv_bfloat16* w3s = w1s + (RESIDENT ? c * p.e : c * EC);
-  const int w3_box = (RESIDENT ? p.e : EC) * 64;  // elements between w3's column boxes
-  unsigned char* own = smem + weight_bytes(RESIDENT, WGS, c, p.e, p.co) +
-                       wg * (halo_bytes(c) + CHUNK_BYTES);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(own);            // (PIN, C + 8)
-  __nv_bfloat16* es = reinterpret_cast<__nv_bfloat16*>(own + halo_bytes(c));  // (PIN, LDE)
-  uint64_t* bars = reinterpret_cast<uint64_t*>(
-      smem + weight_bytes(RESIDENT, WGS, c, p.e, p.co) + WGS * (halo_bytes(c) + CHUNK_BYTES));
+  if (!RESIDENT) w1s += (size_t)wg * (c * EC + EC * nbox * 64);
+  __nv_bfloat16* w3s = w1s + (RESIDENT ? c * ep : c * EC);
+  const int w3_box = (RESIDENT ? ep : EC) * 64;  // elements between w3's column boxes
+  const size_t wbytes = weight_bytes(RESIDENT, WGS, c, p.e, p.co);
+  unsigned char* own = smem + wbytes + wg * (halo_bytes<S>(c) + chunk_bytes<S>());
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(own);                     // (PIN, C + 8)
+  __nv_bfloat16* es = reinterpret_cast<__nv_bfloat16*>(own + halo_bytes<S>(c));  // (PIN, LDE)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + wbytes +
+                                               WGS * (halo_bytes<S>(c) + chunk_bytes<S>()));
   uint64_t* bar1 = bars + 2 * wg;  // resident: bars[0] holds all the weights
   uint64_t* bar3 = bar1 + 1;
 
@@ -196,7 +244,7 @@ __global__ void __launch_bounds__(WGS * 128, 1)
     for (int nb = 0; nb < nbox; ++nb) tma_load(w3s + nb * w3_box, &map_w3, bar3, nb * 64, ch * EC);
   };
   if (RESIDENT && threadIdx.x == 0) {
-    mbar_expect_tx(&bars[0], (uint32_t)weight_bytes(true, WGS, c, p.e, p.co));
+    mbar_expect_tx(&bars[0], (uint32_t)wbytes);
     for (int ch = 0; ch < nch; ++ch) tma_load(w1s + ch * c * 64, &map_w1, &bars[0], ch * EC, 0);
     for (int nb = 0; nb < nbox; ++nb) tma_load(w3s + nb * w3_box, &map_w3, &bars[0], nb * 64, 0);
   }
@@ -210,17 +258,19 @@ __global__ void __launch_bounds__(WGS * 128, 1)
     const int ox0 = (tile % p.tiles_x) * TW;
     const int oy0 = (tile / p.tiles_x % p.tiles_y) * TH;
     const int b = tile / (p.tiles_x * p.tiles_y);
-    const int iy0 = oy0 - 1, ix0 = ox0 - 1;
+    const int iy0 = oy0 * S - 1, ix0 = ox0 * S - 1;
     const __nv_bfloat16* xb = p.x + (long)b * p.hgt * p.wid * c;
-    for (int v = tid; v < PIN * (c / 8); v += 128) {
-      const int pix = v / (c / 8), d = (v % (c / 8)) * 8;
-      const int y = iy0 + pix / IW, xx = ix0 + pix % IW;
-      const bool ok = y >= 0 && y < p.hgt && xx >= 0 && xx < p.wid;
-      cp_async16(xs + pix * ldx + d, ok ? xb + ((long)y * p.wid + xx) * c + d : p.x, ok);
+    if constexpr (S == 1) {
+      for (int v = tid; v < PIN * (c / 8); v += 128) {
+        const int pix = v / (c / 8), d = (v % (c / 8)) * 8;
+        const int y = iy0 + pix / IW, xx = ix0 + pix % IW;
+        const bool ok = y >= 0 && y < p.hgt && xx >= 0 && xx < p.wid;
+        cp_async16(xs + pix * ldx + d, ok ? xb + ((long)y * p.wid + xx) * c + d : p.x, ok);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      wg_sync(wg);  // the halo tile is in
     }
-    cp_async_commit();
-    cp_async_wait<0>();
-    wg_sync(wg);  // the halo tile is in
     if (RESIDENT) mbar_wait(&bars[0], 0);
 
     float acc[NB][32];
@@ -236,29 +286,70 @@ __global__ void __launch_bounds__(WGS * 128, 1)
       if (!RESIDENT) mbar_wait(bar1, use & 1);
       const __nv_bfloat16* wb1 = RESIDENT ? w1s + ch * c * 64 : w1s;
 #pragma unroll 1
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < G::MTH; ++mt) {
         float ea[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) ea[i] = 0.f;
         const int arow = min(mt * 64 + warp * 16 + (lane & 15), PIN - 1);
         const __nv_bfloat16* ap = xs + arow * ldx + (lane >> 4) * 8;
+        if constexpr (S == 2) {  // C compiled in: no wgmma on a divergent path
+          constexpr int KSX = CT / 16;
+          // stride 2: this thread's two halo pixels (rows g, g + 8 of its
+          // warp's 16) from device memory, zero outside the image; a fragment
+          // is mma.sync's A layout: (g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8)
+          const int pa = min(mt * 64 + warp * 16 + g, PIN - 1), pb = min(pa + 8, PIN - 1);
+          const int ya = iy0 + pa / IW, xa = ix0 + pa % IW, yb = iy0 + pb / IW, xb2 = ix0 + pb % IW;
+          const bool oka = ya >= 0 && ya < p.hgt && xa >= 0 && xa < p.wid;
+          const bool okb = yb >= 0 && yb < p.hgt && xb2 >= 0 && xb2 < p.wid;
+          const __nv_bfloat16* ra = (oka ? xb + ((long)ya * p.wid + xa) * c : p.x) + 2 * t;
+          const __nv_bfloat16* rb = (okb ? xb + ((long)yb * p.wid + xb2) * c : p.x) + 2 * t;
+          auto load_a = [&](uint32_t(&a)[4], int k) {
+            const uint32_t v0 = __ldg(reinterpret_cast<const unsigned*>(ra + k));
+            const uint32_t v1 = __ldg(reinterpret_cast<const unsigned*>(rb + k));
+            const uint32_t v2 = __ldg(reinterpret_cast<const unsigned*>(ra + k + 8));
+            const uint32_t v3 = __ldg(reinterpret_cast<const unsigned*>(rb + k + 8));
+            a[0] = oka ? v0 : 0u;
+            a[1] = okb ? v1 : 0u;
+            a[2] = oka ? v2 : 0u;
+            a[3] = okb ? v3 : 0u;
+          };
+#pragma unroll
+          for (int k0 = 0; k0 < KSX; k0 += 4) {
+            uint32_t af[4][4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (k0 + i < KSX) load_a(af[i], (k0 + i) * 16);
+            fence_acc(ea);
+            wgmma_fence();
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (k0 + i < KSX)
+                wgmma_rs_m64n64k16(ea, af[i], smem_desc(wb1 + (k0 + i) * 16 * 64, CT * 128, 1024));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_acc(ea);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) fence_regs(af[i]);
+          }
+        } else {
 #pragma unroll 1
-        for (int k0 = 0; k0 < ksx; k0 += 4) {  // four k-steps' fragments a group
-          uint32_t af[4][4];
+          for (int k0 = 0; k0 < ksx; k0 += 4) {  // four k-steps' fragments a group
+            uint32_t af[4][4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (k0 + i < ksx) ldmatrix_x4(af[i], ap + (k0 + i) * 16);
-          fence_acc(ea);
-          wgmma_fence();
+            for (int i = 0; i < 4; ++i)
+              if (k0 + i < ksx) ldmatrix_x4(af[i], ap + (k0 + i) * 16);
+            fence_acc(ea);
+            wgmma_fence();
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (k0 + i < ksx)
-              wgmma_rs_m64n64k16(ea, af[i], smem_desc(wb1 + (k0 + i) * 16 * 64, c * 128, 1024));
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_acc(ea);
+            for (int i = 0; i < 4; ++i)
+              if (k0 + i < ksx)
+                wgmma_rs_m64n64k16(ea, af[i], smem_desc(wb1 + (k0 + i) * 16 * 64, c * 128, 1024));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_acc(ea);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) fence_regs(af[i]);
+            for (int i = 0; i < 4; ++i) fence_regs(af[i]);
+          }
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -268,15 +359,20 @@ __global__ void __launch_bounds__(WGS * 128, 1)
           const bool in = y >= 0 && y < p.hgt && xx >= 0 && xx < p.wid;
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            const int col = j * 8 + 2 * t;
-            const float2 bb = __ldg(reinterpret_cast<const float2*>(p.b1 + ch * EC + col));
+            // branch-free, so that the 16 GELUs of a row interleave; zero
+            // outside the image and past E (stride 2's tail box, whose bias
+            // read is clamped inside b1)
+            const int col = j * 8 + 2 * t, ech = ch * EC + col;
+            const bool keep = in && (S == 1 || ech < p.e);
+            const float2 bb = __ldg(reinterpret_cast<const float2*>(
+                p.b1 + (S == 1 ? ech : min(ech, p.e - 2))));
             float a0 = ea[4 * j + 2 * h] + bb.x, a1 = ea[4 * j + 2 * h + 1] + bb.y;
             if (bf16) {
               a0 = round_bf16(a0);
               a1 = round_bf16(a1);
             }
             *reinterpret_cast<uint32_t*>(es + row * LDE + col) =
-                in ? pack_bf16(gelu(a0), gelu(a1)) : 0u;
+                keep ? pack_bf16(gelu(a0), gelu(a1)) : 0u;
           }
         }
       }
@@ -291,6 +387,10 @@ __global__ void __launch_bounds__(WGS * 128, 1)
 #pragma unroll
         for (int hc = 0; hc < 2; ++hc) {
           const int lc = ks * 16 + hc * 8 + 2 * t, ech = ch * EC + lc;
+          if (S == 2 && ech >= p.e) {  // a channel past E (zero-filled w3 rows)
+            hf[ks][2 * hc] = hf[ks][2 * hc + 1] = 0u;
+            continue;
+          }
           float2 wt[9];
 #pragma unroll
           for (int tap = 0; tap < 9; ++tap)
@@ -299,7 +399,7 @@ __global__ void __launch_bounds__(WGS * 128, 1)
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const int oy = 2 * warp + r, ox = g;  // in the tile
-            const __nv_bfloat16* src = es + (oy * IW + ox) * LDE + lc;
+            const __nv_bfloat16* src = es + (oy * S * IW + ox * S) * LDE + lc;
             float a0, a1;
             if (bf16) {
               __nv_bfloat162 s = __floats2bfloat162_rn(bias.x, bias.y);
@@ -337,7 +437,7 @@ __global__ void __launch_bounds__(WGS * 128, 1)
       for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb)
-          if (nb < nbox)
+          if (S == 2 || nb < nbox)
             wgmma_rs_m64n64k16(acc[nb], hf[ks],
                                smem_desc(wb3 + nb * w3_box + ks * 16 * 64, w3_box * 2, 1024));
       wgmma_commit();
@@ -354,8 +454,8 @@ __global__ void __launch_bounds__(WGS * 128, 1)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int px = warp * 16 + g + 8 * h, oy = oy0 + px / TW, ox = ox0 + px % TW;
-      if (oy >= p.hgt || ox >= p.wid) continue;
-      __nv_bfloat16* dst = p.out + (((long)b * p.hgt + oy) * p.wid + ox) * p.co;
+      if (oy >= p.ho || ox >= p.wo) continue;
+      __nv_bfloat16* dst = p.out + (((long)b * p.ho + oy) * p.wo + ox) * p.co;
       const __nv_bfloat16* xr = xs + ((px / TW + 1) * IW + px % TW + 1) * ldx;
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
@@ -363,9 +463,10 @@ __global__ void __launch_bounds__(WGS * 128, 1)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int col = nb * 64 + j * 8 + 2 * t;
+          if (S == 2 && col >= p.co) continue;
           const float2 bb = __ldg(reinterpret_cast<const float2*>(p.b3 + col));
           float a0 = acc[nb][4 * j + 2 * h] + bb.x, a1 = acc[nb][4 * j + 2 * h + 1] + bb.y;
-          if (p.residual) {  // Co == C: x at this pixel is halo pixel (r + 1, c + 1)
+          if (S == 1 && p.residual) {  // Co == C: x at this pixel is halo pixel (r + 1, c + 1)
             const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + col));
             a0 = xv.x + a0;
             a1 = xv.y + a1;
@@ -386,22 +487,48 @@ __global__ void __launch_bounds__(WGS * 128, 1)
 
 int num_sms = 0;
 
-template <int WGS, bool RESIDENT>
-int launch_s1(const S1Args& p, const void* w1, const void* w3, cudaStream_t st) {
+template <int S, int WGS, bool RESIDENT, int NB, int CT = 0>
+int launch_conv(const ConvArgs& p, const void* w1, const void* w3, cudaStream_t st) {
   CUtensorMap map_w1, map_w3;
   cudaError_t err = make_map(&map_w1, w1, p.c, p.e, p.c);  // boxes of 64 columns x C rows
-  if (err == cudaSuccess) err = make_map(&map_w3, w3, p.e, p.co, RESIDENT ? p.e : EC);
+  if (err == cudaSuccess) err = make_map(&map_w3, w3, p.e, p.co, RESIDENT ? pad64(p.e) : EC);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (p.tiles + WGS - 1) / WGS;
   const int grid = blocks < num_sms ? blocks : num_sms;  // one block an SM, persistent
-  mbconv_s1_kernel<WGS, RESIDENT><<<grid, WGS * 128, s1_smem(RESIDENT, WGS, p.c, p.e, p.co), st>>>(map_w1, map_w3, p);
+  mbconv_kernel<S, WGS, RESIDENT, NB, CT>
+      <<<grid, WGS * 128, conv_smem<S>(RESIDENT, WGS, p.c, p.e, p.co), st>>>(map_w1, map_w3, p);
   return (int)cudaGetLastError();
 }
 
-template <int WGS, bool RESIDENT>
-cudaError_t allow_s1(int bytes) {
-  return cudaFuncSetAttribute(mbconv_s1_kernel<WGS, RESIDENT>,
+template <int S, int WGS, bool RESIDENT, int NB, int CT = 0>
+cudaError_t allow_conv(int bytes) {
+  return cudaFuncSetAttribute(mbconv_kernel<S, WGS, RESIDENT, NB, CT>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+ConvArgs conv_args(int s, int residual, int bf16, const void* x, const void* b1, const void* wd,
+                   const void* bd, const void* b3, void* out, int b, int hgt, int wid, int c,
+                   int e, int co) {
+  ConvArgs p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.b1 = static_cast<const float*>(b1);
+  p.wd = static_cast<const float*>(wd);
+  p.bd = static_cast<const float*>(bd);
+  p.b3 = static_cast<const float*>(b3);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.hgt = hgt;
+  p.wid = wid;
+  p.ho = hgt / s;
+  p.wo = wid / s;
+  p.c = c;
+  p.e = e;
+  p.co = co;
+  p.tiles_x = (p.wo + TW - 1) / TW;
+  p.tiles_y = (p.ho + TH - 1) / TH;
+  p.tiles = b * p.tiles_x * p.tiles_y;
+  p.residual = residual;
+  p.bf16 = bf16;
+  return p;
 }
 
 }  // namespace
@@ -415,8 +542,10 @@ extern "C" int ysi_mbconv_s1_init(void) {
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = allow_s1<4, true>(optin);
-  if (err == cudaSuccess) err = allow_s1<2, false>(optin);
+  if (err == cudaSuccess) err = allow_conv<1, 4, true, 1>(optin);
+  if (err == cudaSuccess) err = allow_conv<1, 2, false, NB_MAX>(optin);
+  if (err == cudaSuccess) err = allow_conv<2, 3, true, 2, 64>(optin);
+  if (err == cudaSuccess) err = allow_conv<2, 2, true, 3, 128>(optin);
   return (int)err;
 }
 
@@ -430,26 +559,33 @@ extern "C" int ysi_mbconv_s1(int residual, int bf16, const void* x, const void* 
   if (b <= 0 || hgt <= 0 || wid <= 0 || c <= 0 || c % 16 || c > 256 || e <= 0 || e % EC ||
       co <= 0 || co % 64 || co > 64 * NB_MAX || (residual && co != c))
     return (int)cudaErrorInvalidValue;
-  S1Args p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.b1 = static_cast<const float*>(b1);
-  p.wd = static_cast<const float*>(wd);
-  p.bd = static_cast<const float*>(bd);
-  p.b3 = static_cast<const float*>(b3);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.hgt = hgt;
-  p.wid = wid;
-  p.c = c;
-  p.e = e;
-  p.co = co;
-  p.tiles_x = (wid + TW - 1) / TW;
-  p.tiles_y = (hgt + TH - 1) / TH;
-  p.tiles = b * p.tiles_x * p.tiles_y;
-  p.residual = residual;
-  p.bf16 = bf16;
+  const ConvArgs p = conv_args(1, residual, bf16, x, b1, wd, bd, b3, out, b, hgt, wid, c, e, co);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (co == 64 && e <= 256 && s1_smem(true, 4, c, e, co) <= SMEM_BUDGET)
-    return launch_s1<4, true>(p, w1, w3, st);
-  if (s1_smem(false, 2, c, e, co) <= SMEM_BUDGET) return launch_s1<2, false>(p, w1, w3, st);
+  if (co == 64 && e <= 256 && conv_smem<1>(true, 4, c, e, co) <= SMEM_BUDGET)
+    return launch_conv<1, 4, true, 1>(p, w1, w3, st);
+  if (conv_smem<1>(false, 2, c, e, co) <= SMEM_BUDGET)
+    return launch_conv<1, 2, false, NB_MAX>(p, w1, w3, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Stride-2 patch merge (no residual), at TinyViT-5M's merge widths: even H
+// and W, E a multiple of 32 up to 256 (a last box of 32 channels is
+// zero-filled to 64), resident weights and C compiled in: 3 warpgroups a
+// block at merge0's C 64 with Co in (64, 128], 2 at merge1's C 128 with Co in
+// (128, 192]. Other widths are refused.
+extern "C" int ysi_patch_merge(int bf16, const void* x, const void* w1, const void* b1,
+                               const void* wd, const void* bd, const void* w3, const void* b3,
+                               void* out, int b, int hgt, int wid, int c, int e, int co,
+                               void* stream) {
+  if (b <= 0 || hgt <= 0 || wid <= 0 || hgt % 2 || wid % 2 || e <= 0 || e % 32 || co <= 0 ||
+      co % 32)
+    return (int)cudaErrorInvalidValue;
+  const ConvArgs p = conv_args(2, 0, bf16, x, b1, wd, bd, b3, out, b, hgt, wid, c, e, co);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nbox = pad64(co) / 64;
+  if (c == 64 && nbox == 2 && pad64(e) <= 256 && conv_smem<2>(true, 3, c, e, co) <= SMEM_BUDGET)
+    return launch_conv<2, 3, true, 2, 64>(p, w1, w3, st);
+  if (c == 128 && nbox == 3 && pad64(e) <= 256 && conv_smem<2>(true, 2, c, e, co) <= SMEM_BUDGET)
+    return launch_conv<2, 2, true, 3, 128>(p, w1, w3, st);
   return (int)cudaErrorInvalidValue;
 }

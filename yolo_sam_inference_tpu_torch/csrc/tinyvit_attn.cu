@@ -17,7 +17,10 @@
 // tinyvit_window_block_cells (yolo_sam_inference_tpu/ops/tinyvit_attention.py
 // :143 and :384). Their LN + qkv prologue and projection + residual epilogue
 // are gemm_bf16 launches here (csrc/gemm_bf16.cu). The TPU kernel
-// exponentiates bf16 logits; this one keeps exp in fp32.
+// exponentiates bf16 logits; this one keeps exp in fp32. Since the
+// one-launch block kernel (tinyvit_block.cu) took TinyViT-5M's stages 1 and
+// 2, these three launches serve stage 3 (C 320 at ws 7), where they measured
+// faster (ops/tinyvit_attention.py).
 //
 // What bounds it on the H100: per (window, head) it reads 3 x T x 32 bf16
 // values and writes T x 32, and does 4 T^2 x 32 flop (T = 49 or 196): about

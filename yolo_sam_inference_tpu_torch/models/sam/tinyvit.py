@@ -46,11 +46,7 @@ from ...ops.conv2d_fused import conv2d_act, conv2d_act_plain
 from ...ops.dw_ln_mlp import dw_conv3x3, dw_conv3x3_plain, dw_ln_mlp
 from ...ops.fused_ln import gemm_plain, layer_norm, layer_norm_plain
 from ...ops.mbconv_fused import COMPUTE_MODES, mbconv_block, mbconv_plain, patch_merge_block
-from ...ops.tinyvit_attention import (
-    tinyvit_attention,
-    tinyvit_attention_plain,
-    tinyvit_window_block,
-)
+from ...ops.tinyvit_attention import tinyvit_window_block, tinyvit_window_block_plain
 
 Params = Dict[str, Any]
 
@@ -161,10 +157,9 @@ class TinyViTBlock(nn.Module):
 
     def forward(self, x, plain: bool = False):
         route = {"gemm": gemm_plain} if plain else {}
-        x = tinyvit_window_block(
-            x, self.attn_bias, self.ln1_scale, self.ln1_bias, self.qkv_w, self.qkv_b,
-            self.proj_w, self.proj_b, self.heads, self.ws, eps=1e-5,
-            attention=tinyvit_attention_plain if plain else tinyvit_attention, **route)
+        block = tinyvit_window_block_plain if plain else tinyvit_window_block
+        x = block(x, self.attn_bias, self.ln1_scale, self.ln1_bias, self.qkv_w, self.qkv_b,
+                  self.proj_w, self.proj_b, self.heads, self.ws, eps=1e-5)
         return dw_ln_mlp(x, self.local_w, self.local_b, self.ln2_scale, self.ln2_bias,
                          self.mlp1_w, self.mlp1_b, self.mlp2_w, self.mlp2_b, eps=1e-5,
                          dw=dw_conv3x3_plain if plain else dw_conv3x3, **route)

@@ -62,6 +62,8 @@ _SIGNATURES = {
     "ysi_hull_support": (_P, _P, _P, _I, _I, _I, _P),
     # qkv, pad, bias, out, b, h, w, heads, ws, stream
     "ysi_tinyvit_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, wqkv_t, wproj_t, table, ln_scale, ln_bias, bqkv, bproj, out, b, h, w, c, ws, eps, stream
+    "ysi_tinyvit_block": (_P,) * 9 + (_I,) * 5 + (_F, _P),
     # bf16, x, w1, b1, wd, bd, w3, b3, out, b, h, w, c, e, co, stream
     "ysi_patch_merge": (_I,) + (_P,) * 8 + (_I,) * 6 + (_P,),
     # residual, bf16, x, w1, b1, wd, bd, w3, b3, out, b, h, w, c, e, co, stream
@@ -75,8 +77,9 @@ _SIGNATURES = {
 }
 # Run once after loading (shared-memory attributes of the kernels).
 _INITS = ("ysi_gemm_init", "ysi_gemm_int8_init", "ysi_window_attn_init",
-          "ysi_flash_attn_relpos_init", "ysi_decoder_init", "ysi_tinyvit_attn_init", "ysi_tinyvit_conv_init",
-          "ysi_mbconv_s1_init", "ysi_conv2d_act_init")
+          "ysi_flash_attn_relpos_init", "ysi_decoder_init", "ysi_tinyvit_attn_init",
+          "ysi_tinyvit_block_init", "ysi_tinyvit_conv_init", "ysi_mbconv_s1_init",
+          "ysi_conv2d_act_init")
 
 
 def _sources():

@@ -21,14 +21,15 @@ run in bf16 (values rounded to bf16 before each GELU and after each tap);
 the products keep their fp32 accumulation. For any other x, or with
 ``compute="fp32"``, the stretch runs in fp32, as in JAX.
 
-On the card two CUDA kernels compute them (the compute type a runtime flag
-of the first, a template parameter of the second): ``csrc/mbconv.cu`` the
-stride-1 blocks (K14: each warpgroup of a persistent block walks 8 x 8
-output tiles, the weights by TMA in shared memory, the expansion and
-projection on wgmma, the depthwise straight into the projection's operand;
-:func:`s1_plan` says how a shape is laid out), ``csrc/tinyvit_conv.cu`` the
-stride-2 merges (K15). Either way the 4x-expanded activation never reaches
-device memory. The source notes say what bounds them.
+On the card one CUDA kernel computes both (``csrc/mbconv.cu``, the stride a
+template parameter, the compute type and the residual runtime flags): each
+warpgroup of a persistent block walks 8 x 8 output tiles, the weights come by
+TMA into shared memory, the expansion and the projection run on wgmma, the
+depthwise goes straight into the projection's operand; :func:`s1_plan` and
+:func:`s2_plan` say how a shape is laid out, :func:`s1_schedule` and
+:func:`s2_schedule` which warpgroup takes which tile. The 4x-expanded
+activation never reaches device memory. The source's note says what bounds
+it.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises. ``mbconv_block.launches`` and
@@ -46,9 +47,11 @@ from .fused_ln import _check_bf16, _f32, _on_cpu, _ptr
 
 COMPUTE_MODES = ("fp32", "bf16")
 
-# csrc/mbconv.cu's geometry (K14, stride 1): a warpgroup's 8 x 8 output tile
-# and its 10 x 10 halo, E in chunks of 64 channels, Co up to 5 boxes of 64.
+# csrc/mbconv.cu's geometry: a warpgroup's 8 x 8 output tile and its 10 x 10
+# halo at stride 1 (K14; 17 x 17 at stride 2, K15, with chunk-tile rows of 76
+# bf16), E in chunks of 64 channels, Co up to 5 boxes of 64.
 S1_TILE, S1_HALO, S1_CHUNK, S1_CO_MAX = 8, 100, 64, 320
+S2_HALO, S2_CHUNK_LD = 17 * 17, 76
 S1_SMEM_BUDGET = 227 * 1024  # the H100's opt-in shared memory of a block
 
 # csrc/mbconv.cu erf_fit's coefficients (Horner order, fp32): erf(x) = x + x P(x^2)
@@ -117,6 +120,43 @@ def s1_plan(c: int, e: int, co: int) -> tuple:
                      f"{smem(False, 2)} bytes of shared memory, above {S1_SMEM_BUDGET}")
 
 
+def _pad64(v: int) -> int:
+    return -(-v // 64) * 64
+
+
+def _pad16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def s2_plan(c: int, e: int, co: int) -> tuple:
+    """How ``csrc/mbconv.cu`` lays out a stride-2 merge of widths (C, E, Co):
+    (warpgroups a block, weights resident, shared-memory bytes), the rule of
+    its ``ysi_patch_merge``. The kernel is built for TinyViT-5M's merges, C
+    compiled in: 3 warpgroups at merge0's C 64 with Co in (64, 128], 2 at
+    merge1's C 128 with Co in (128, 192]; E a multiple of 32 up to 256 and Co
+    a multiple of 32 (a last box of 32 is zero-filled by TMA); w1 and w3
+    resident (in 64-channel boxes). The expansion reads x from device memory,
+    so a warpgroup holds only its chunk tile (289 x 76 bf16, rounded up to 16
+    bytes). Raises ValueError for widths the kernel does not take."""
+    wgs = {(64, 2): 3, (128, 3): 2}.get((c, -(-co // 64)))
+    ep, cop = _pad64(e), _pad64(co)
+    if wgs is None or e <= 0 or e % 32 or ep > 256 or co % 32:
+        raise ValueError(f"stride-2 merge kernel takes C 64 with Co in (64, 128] or C 128 with "
+                         f"Co in (128, 192], E and Co multiples of 32, E up to 256; got {c}, "
+                         f"{e}, {co}")
+    smem = 1024 + 2 * (c * ep + ep * cop) + wgs * _pad16(2 * S2_HALO * S2_CHUNK_LD) + 2 * wgs * 8
+    if smem > S1_SMEM_BUDGET:
+        raise ValueError(f"stride-2 merge kernel: widths {c}, {e}, {co} need {smem} bytes of "
+                         f"shared memory, above {S1_SMEM_BUDGET}")
+    return wgs, True, smem
+
+
+def s2_schedule(b: int, h: int, w: int, wgs: int, sms: int) -> tuple:
+    """The stride-2 merge's tile schedule: :func:`s1_schedule` over the
+    (H / 2, W / 2) output grid."""
+    return s1_schedule(b, h // 2, w // 2, wgs, sms)
+
+
 def s1_schedule(b: int, h: int, w: int, wgs: int, sms: int) -> tuple:
     """``csrc/mbconv.cu``'s tile schedule: (tiles, blocks, the tiles of each
     warpgroup). Output tile i is (image i // (ty tx), tile row i // tx % ty,
@@ -182,11 +222,7 @@ def mbconv_plain(x, w1, b1, wd, bd, w3, b3, stride: int = 1, residual: bool = Tr
 def _launch(x, w1, b1, wd, bd, w3, b3, stride: int, residual: bool, compute: str):
     b, hgt, wid, c = x.shape
     e, co = w1.shape[1], w3.shape[1]
-    if stride == 1:
-        s1_plan(c, e, co)  # raises for widths csrc/mbconv.cu does not take
-    elif c % 32 or e % 32 or co % 32:
-        raise ValueError(f"tinyvit conv kernel takes C, E and Co multiples of 32; got {c}, {e}, "
-                         f"{co}")
+    (s1_plan if stride == 1 else s2_plan)(c, e, co)  # raises for widths the kernel does not take
     if stride == 2 and (hgt % 2 or wid % 2):
         raise ValueError(f"stride-2 merge kernel needs an even grid, got {hgt} x {wid}")
     dev = x.device
@@ -202,7 +238,7 @@ def _launch(x, w1, b1, wd, bd, w3, b3, stride: int, residual: bool, compute: str
     bf16 = int(compute == "bf16")
     err = (kernels().ysi_mbconv_s1(int(residual), bf16, *args) if stride == 1 else
            kernels().ysi_patch_merge(bf16, *args))
-    check(err, "tinyvit conv kernel")
+    check(err, "mbconv kernel")
     return out
 
 
@@ -244,4 +280,4 @@ patch_merge_block.bf16_launches = 0
 
 
 __all__ = ["COMPUTE_MODES", "ERF_FIT", "erf_fit", "mbconv_block", "mbconv_plain",
-           "patch_merge_block", "s1_plan", "s1_schedule"]
+           "patch_merge_block", "s1_plan", "s1_schedule", "s2_plan", "s2_schedule"]

@@ -6,24 +6,30 @@ Counterpart of ``tinyvit_window_block`` and ``tinyvit_window_block_cells`` in
 ``ws x ws`` windows (ws 7 or 14, head dim 32), whose two TPU forms differ only
 in how the windows are laid out in VMEM.
 
-On the card it runs as three launches:
-
-1. ``gemm_bf16`` with its LayerNorm prologue: LN1 + the qkv projection on the
-   unpadded ``(B*H*W, C)`` tokens;
-2. ``tinyvit_attention`` (``csrc/tinyvit_attn.cu``): the window attention with
-   the learned per-offset bias, read from the raw ``(heads, (2ws-1)^2)``
-   table, and an fp32 softmax;
-3. ``gemm_bf16``: the output projection with the residual in its epilogue.
+On the card, at TinyViT-5M's stages 1 and 2 (:data:`KERNEL_WIDTHS`), it is
+one launch of ``csrc/tinyvit_block.cu``: a window's tokens gathered and
+normalised in shared memory, qkv a head at a time on the tensor cores, the
+window attention with the learned per-offset bias (from the raw
+``(heads, (2ws-1)^2)`` table, fp32 softmax), the projection and the residual;
+qkv and the attention output never reach device memory. :func:`block_plan`
+says how a width is laid out, :func:`block_schedule` which warpgroup takes
+which window, :func:`real_query_tiles` which of a window's 64-query tiles it
+computes. At stage 3 (C 320 at ws 7), where the one-launch kernel lost in
+turns, it is three: ``gemm_bf16`` with its LayerNorm (LN + qkv on the
+unpadded tokens), :func:`tinyvit_attention` (``csrc/tinyvit_attn.cu``) and
+``gemm_bf16`` (the projection with the residual).
 
 Spatial padding. The official TinyViT pads the pre-norm input with zeros and
-normalises after windowing, so a pad token is a real key whose qkv is
-``LN(0) @ Wqkv + b = ln_bias @ Wqkv + b``. That row depends on the weights
-only (:func:`pad_qkv_row`, made once per weight set); the kernel reads it
-wherever a window reaches outside the grid. Pad queries are never written.
+normalises after windowing, so a pad token is a real key whose LN is the LN
+shift. The one-launch kernel pads with zeros before its LN; the three
+launches (and their plain versions, :func:`tinyvit_window_block_plain`) run
+LN + qkv on the unpadded tokens and read a pad token's qkv, ``LN(0) @ Wqkv +
+b = ln_bias @ Wqkv + b``, from one row (:func:`pad_qkv_row`) wherever a
+window reaches outside the grid. Pad queries are never written.
 
-Dispatch is by the tensor's device: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel or raises. ``tinyvit_attention.launches``
-counts launches.
+Dispatch is by the tensor's device: a CPU tensor takes the plain route, a
+CUDA tensor launches the kernels or raises. ``tinyvit_window_block.launches``
+and ``tinyvit_attention.launches`` count launches.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import numpy as np
 import torch
 
 from ._build import check, kernels
-from .fused_ln import _check_bf16, _derived, _on_cpu, _ptr, gemm_bf16
+from .fused_ln import _check_bf16, _derived, _f32, _on_cpu, _ptr, gemm_bf16, gemm_plain
 
 HEAD_DIM = 32  # every TinyViT-5M stage
 KERNEL_WINDOWS = (7, 14)
@@ -135,21 +141,154 @@ def tinyvit_attention(qkv, pad_row, bias_table, heads: int, ws: int):
 tinyvit_attention.launches = 0
 
 
-def tinyvit_window_block(x, bias_table, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
-                         heads: int, ws: int, eps: float = 1e-5, gemm=gemm_bf16,
-                         attention=tinyvit_attention):
-    """x (B, H, W, C) pre-norm -> ``x + proj(window_attn(LN(pad(x))))`` (K13).
+# csrc/tinyvit_block.cu's layout: a head's qkv slab is 96 rows of 128-byte K
+# chunks (12 KB), a projection box 64 rows (8 KB); a weight slot holds either;
+# the H100's opt-in shared memory of a block.
+_QKV_BOX, _PRJ_BOX = 3 * HEAD_DIM * 128, 64 * 128
+BLOCK_SMEM_BUDGET = 227 * 1024
 
-    LN + qkv on the unpadded tokens, the window attention (pad tokens as
-    keys, from :func:`pad_qkv_row`), the projection with the residual.
-    ``gemm=gemm_plain, attention=tinyvit_attention_plain`` is the plain
-    version on any device (the fp32 oracle)."""
+
+def _window(ws: int) -> dict:
+    t = ws * ws
+    ns, kpv = -(-t // 8) * 8, -(-t // 16) * 16
+    return {"t": t, "mt": -(-t // 64), "ns": ns, "kpv": kpv, "nb": (2 * ws - 1) ** 2,
+            "qk": ns * 128, "vt": -(-kpv // 64) * HEAD_DIM * 128}
+
+
+# The widths csrc/tinyvit_block.cu is built for: (ws, C) of TinyViT-5M's
+# stages 1 and 2. Stage 3 (C 320 at ws 7) keeps the three launches of
+# _three_launches, faster there in turns with the one-launch kernel.
+KERNEL_WIDTHS = ((7, 128), (14, 160))
+
+
+def block_plan(c: int, heads: int, ws: int) -> tuple:
+    """How ``csrc/tinyvit_block.cu`` lays out a block of width C (its
+    ``Plan``): (consumer warpgroups a block, windows in flight a
+    block, weights resident, weight slots, shared-memory bytes). Each window
+    in flight has its QK tile (keys rounded up to 8, 128-byte rows k | q),
+    V^T tile (64-key chunks of 32 rows), LN and O tiles (ws^2 x (C + 8)
+    bf16 each), rounded up to 1024 bytes; the block holds the bias table
+    (fp32) and the weights. At ws 7 (C 128), 2 warpgroups each on its own
+    window, all the weights resident; at ws 14 (C 160), 2 warpgroups on one
+    window, the weights in rounds of a slab's K chunks (one slot each).
+    Raises ValueError for widths the kernel does not take."""
+    if heads * HEAD_DIM != c or (ws, c) not in KERNEL_WIDTHS:
+        raise ValueError(f"tinyvit block kernel takes head dim {HEAD_DIM}, ws 7 or 14 and "
+                         f"(ws, C) in {KERNEL_WIDTHS}; got C {c}, {heads} heads, ws {ws}")
+    win, kch = _window(ws), -(-c // 64)
+    own = -(-(win["qk"] + win["vt"] + 2 * 2 * win["t"] * (c + 8)) // 1024) * 1024
+    table = -(-heads * win["nb"] * 4 // 16) * 16
+    if ws == 14:
+        return 2, 1, False, kch, 1024 + kch * _QKV_BOX + own + table + 2 * kch * 8
+    weights = heads * kch * _QKV_BOX + kch * kch * _PRJ_BOX
+    return 2, 2, True, 0, 1024 + weights + 2 * own + table + 8
+
+
+def block_schedule(b: int, h: int, w: int, ws: int, per_item: int, sms: int) -> tuple:
+    """``csrc/tinyvit_block.cu``'s window schedule: (windows, items, blocks,
+    the windows of each of a block's windows in flight). Window i is (image
+    i // (ny nx), window row i // nx % ny, window column i % nx); item k holds
+    windows k per_item .. k per_item + per_item - 1 (the windows in flight of
+    :func:`block_plan`: at ws 7 one a warpgroup, the last item's second
+    warpgroup possibly without one); block j of the persistent grid (one block
+    an SM at most) takes items j, j + n, j + 2 n, ... with n the grid's
+    blocks."""
+    nx, ny = -(-w // ws), -(-h // ws)
+    windows = b * nx * ny
+    items = -(-windows // per_item)
+    blocks = min(items, sms)
+    walks = [[k * per_item + j for k in range(blk, items, blocks) if k * per_item + j < windows]
+             for blk in range(blocks) for j in range(per_item)]
+    return windows, items, blocks, walks
+
+
+def real_query_tiles(ws: int, rows: int, cols: int) -> list:
+    """The 64-query tiles of a window that the kernel computes: those holding
+    a query inside the grid, for a window whose first ``rows`` rows and
+    ``cols`` columns are (the kernel's ``real_tile``). The others' queries are
+    pad tokens, whose output is never stored; their tokens stay keys."""
+    t = ws * ws
+    tiles = []
+    for mt in range(-(-t // 64)):
+        i0, i1 = mt * 64, min(mt * 64 + 64, t) - 1
+        r0, r1 = i0 // ws, i1 // ws
+        if r0 < rows and (i0 % ws < cols or (r0 + 1 <= r1 and r0 + 1 < rows)):
+            tiles.append(mt)
+    return tiles
+
+
+def qkv_slabs(wqkv: torch.Tensor) -> torch.Tensor:
+    """(C, 3C) qkv weights in JAX's (in, out) layout, q | k | v head-major ->
+    the kernel's (3C, C) K-major slabs: for each head h the rows of its q, k
+    and v output channels (96), each row the C inputs."""
+    c = wqkv.shape[0]
+    idx = torch.arange(3 * c).reshape(3, c // HEAD_DIM, HEAD_DIM).permute(1, 0, 2).reshape(-1)
+    return wqkv.t()[idx.to(wqkv.device)].contiguous()
+
+
+def _three_launches(x, bias_table, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads, ws,
+                    eps, gemm, attention):
+    """LN + qkv on the unpadded tokens, the window attention (pad tokens as
+    keys, from :func:`pad_qkv_row`), the projection with the residual."""
     b, h, w, c = x.shape
     x2 = x.reshape(-1, c).contiguous()
     qkv = gemm(x2, wqkv, bqkv, ln=(ln_scale, ln_bias, eps))
     pad = pad_qkv_row(ln_bias, wqkv, bqkv, x.dtype)
     o = attention(qkv.reshape(b, h, w, 3 * c), pad, bias_table, heads, ws)
     return gemm(o.reshape(-1, c), wproj, bproj, r1=x2).reshape(x.shape)
+
+
+def tinyvit_window_block(x, bias_table, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                         heads: int, ws: int, eps: float = 1e-5):
+    """x (B, H, W, C) pre-norm -> ``x + proj(window_attn(LN(pad(x))))`` (K13).
+
+    A CPU tensor takes :func:`tinyvit_window_block_plain`. A CUDA tensor
+    (bf16 x and weights, head dim 32) at :data:`KERNEL_WIDTHS` takes one
+    launch of ``csrc/tinyvit_block.cu``; at other widths (TinyViT-5M's stage
+    3) three: ``gemm_bf16`` (LN + qkv), :func:`tinyvit_attention`,
+    ``gemm_bf16`` (projection + residual)."""
+    b, h, w, c = x.shape
+    if tuple(bias_table.shape) != (heads, (2 * ws - 1) ** 2):
+        raise ValueError(f"tinyvit_window_block: bias table {tuple(bias_table.shape)}, need "
+                         f"{(heads, (2 * ws - 1) ** 2)}")
+    if tuple(wqkv.shape) != (c, 3 * c) or tuple(wproj.shape) != (c, c):
+        raise ValueError(f"tinyvit_window_block: weights {tuple(wqkv.shape)}, "
+                         f"{tuple(wproj.shape)} for C {c}")
+    args = (x, bias_table, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads, ws, eps)
+    if _on_cpu(x):
+        return tinyvit_window_block_plain(*args)
+    if heads * HEAD_DIM != c or ws not in KERNEL_WINDOWS:  # before any launch, on either route
+        raise ValueError(f"tinyvit_window_block kernels take head dim {HEAD_DIM} and ws 7 or 14; "
+                         f"got C {c}, {heads} heads, ws {ws}")
+    if (ws, c) not in KERNEL_WIDTHS:
+        return _three_launches(*args, gemm_bf16, tinyvit_attention)
+    dev = x.device
+    _check_bf16("x", x, (b, h, w, c), dev)
+    _check_bf16("wqkv", wqkv, (c, 3 * c), dev)
+    _check_bf16("wproj", wproj, (c, c), dev)
+    slabs = _derived(wqkv, "tinyvit_qkv_slabs", qkv_slabs)
+    wproj_t = _derived(wproj, "t", lambda v: v.t().contiguous())
+    out = torch.empty_like(x)
+    err = kernels().ysi_tinyvit_block(
+        _ptr(x), _ptr(slabs), _ptr(wproj_t), _ptr(_f32(bias_table)), _ptr(_f32(ln_scale)),
+        _ptr(_f32(ln_bias)), _ptr(_f32(bqkv)), _ptr(_f32(bproj)), _ptr(out), b, h, w, c, ws,
+        float(eps), torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "tinyvit_window_block")
+    tinyvit_window_block.launches += 1
+    return out
+
+
+tinyvit_window_block.launches = 0
+
+
+def tinyvit_window_block_plain(x, bias_table, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                               heads: int, ws: int, eps: float = 1e-5):
+    """The three launches' plain versions on any device, in fp32 (result in
+    x's dtype): LN + qkv on the unpadded tokens, the window attention with pad
+    tokens as keys (from :func:`pad_qkv_row`), the projection with the
+    residual."""
+    return _three_launches(x, bias_table, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads,
+                           ws, eps, gemm_plain, tinyvit_attention_plain)
 
 
 def tinyvit_window_block_reference(x, bias_table, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
@@ -172,6 +311,7 @@ def tinyvit_window_block_reference(x, bias_table, ln_scale, ln_bias, wqkv, bqkv,
 
 
 __all__ = [
-    "offset_index", "pad_qkv_row", "tinyvit_attention", "tinyvit_attention_plain",
-    "tinyvit_window_block", "tinyvit_window_block_reference",
+    "KERNEL_WIDTHS", "block_plan", "block_schedule", "offset_index", "pad_qkv_row", "qkv_slabs",
+    "real_query_tiles", "tinyvit_attention", "tinyvit_attention_plain", "tinyvit_window_block",
+    "tinyvit_window_block_plain", "tinyvit_window_block_reference",
 ]
