@@ -40,6 +40,15 @@ failure ends the run with a non-zero exit and no result line:
    YOLO convs + the neck), the raw YOLO maps of one frame and the embedding
    against fp32 plain versions (the default route's YOLO maps too), a timed
    pass at batch 32 beside the default route's;
+4c. directory: the disk-to-CSV path at config 1 on the slice's
+   stages, batch 32: 256 mode-L PNG frames through ``process_directory``
+   with PIL hidden from the decoder (launch counts over its 8 batches and
+   the timing sample), each image's rows against ``process_batch_arrays`` on
+   the same batch (rtol = atol = 1e-5), the CSVs read back, the
+   visualisations of 4 files, the bitpack round trip against the bool crops
+   and the fetch timed both ways, ``fused_call_chunked`` on 2 x 32 frames
+   against two ``fused_call`` (exact), ``fused_call`` img/s; then
+   ``bench/e2e.py`` at batch 32, 3 iterations, its directory leg on;
 5. big kernels: the kernels of the ViT-L/H paths at their batch-32 shapes:
    ``gemm_bf16`` at the ViT-L/H qkv and MLP (K10) widths and the attention at
    hd 80 against fp32 plain versions, and the w8a8 kernels (K11c, K11a,
@@ -148,6 +157,7 @@ MID_FRAME = 768  # the 768 canvas (global window 48)
 OFF_GRID = 640  # the off-grid canvas and frames (grid 40, window 14)
 SP_RANKS = 2  # sequence-parallel ranks (one card: they share it)
 SP_BATCH = 2  # frames per sequence-parallel batch
+DIR_FILES = 256  # PNG files through process_directory (8 batches of TIMED_BATCH)
 # published H100 SXM peaks (NVIDIA data sheet): bytes/s and operations/s
 PEAK = {"hbm": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # the decoder, crop and hull kernels of one batch (max_det prompts an image)
@@ -1519,6 +1529,196 @@ def _fused_slice_phase(card: str, pipe, frames, default_ms: float) -> dict:
             "yolo_ms": yolo_ms, "turns": turns}
 
 
+def _directory_phase(card: str, pipe) -> dict:
+    """The disk-to-CSV path at config 1 over ``pipe``'s stages: DIR_FILES
+    mode-L PNG frames through ``process_directory`` (batches of TIMED_BATCH,
+    counts set to 0 just before and read just after), each image's rows
+    against ``process_batch_arrays`` on the same batch, the bitpack round
+    trip, ``fused_call_chunked`` against ``fused_call``, the CSVs read back,
+    the visualisations of 4 files; then the bench entry's line."""
+    import copy
+    import csv
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench import e2e
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, median_ms, write_png
+    from yolo_sam_inference_tpu_torch.io import images as timages
+    from yolo_sam_inference_tpu_torch.io import png_native
+    from yolo_sam_inference_tpu_torch.ops.metrics import INT_METRIC_KEYS
+    from yolo_sam_inference_tpu_torch.pipeline.engine import _pack_csv_outputs, pack_bits
+    from yolo_sam_inference_tpu_torch.reporting import save_results_to_csv
+
+    # the same stages and weights; batch_size reaches only the loader
+    dpipe = copy.copy(pipe)
+    dpipe.options = dataclasses.replace(pipe.options, batch_size=TIMED_BATCH)
+    dpipe._slots, dpipe._slot_next = [], 0
+    dev = dpipe.device
+    result: dict = {}
+    phase_t0 = t0 = time.perf_counter()
+    gray = cell_frames(np.random.default_rng(1), DIR_FILES, FRAME)[..., 0]
+    with tempfile.TemporaryDirectory() as td:
+        src = Path(td) / "in"
+        src.mkdir()
+        for i, frame in enumerate(gray):
+            write_png(src / f"f_{i:03d}.png", frame)
+        _say("directory", f"{DIR_FILES} mode-L PNGs of {FRAME}x{FRAME} made and written in "
+                          f"{time.perf_counter() - t0:.2f} s")
+        # warm at the loader's one-channel shape: the stage path and one overlapped
+        # batch; and the PNG decoder's one-time g++ build
+        png_native.library()
+        dpipe.process_batch_arrays(gray[:TIMED_BATCH], fetch_masks=False, fetch_outputs=False)
+        dpipe._fetch_outputs(dpipe._dispatch_batch(gray[:TIMED_BATCH], fetch_masks=False))
+        torch.cuda.synchronize()
+
+        # PIL hidden from the decoder: a file that needed it would be skipped
+        pil, timages._PILImage = timages._PILImage, None
+        wrappers = _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            batch = dpipe.process_directory(src, Path(td) / "out", progress=False)
+            torch.cuda.synchronize()
+        finally:
+            timages._PILImage = pil
+        secs = time.perf_counter() - t0
+        stats = dpipe.last_directory_stats
+        passes = stats["n_batches"] + stats["n_sample_batches"]
+        per_batch = {**DECODER_COUNTS, "gemm_bf16": 48, "window_attn_relpos": 12}
+        result["launches"] = _read_counts(
+            "directory", wrappers, {k: v * passes for k, v in per_batch.items()},
+            by_window={16: 8 * passes, 32: 4 * passes})
+        result["ips"] = DIR_FILES / secs
+        result["stats"] = stats
+        _say("directory", f"process_directory (PNG decode without PIL): {DIR_FILES} files in "
+                          f"{secs:.3f} s = "
+                          f"{result['ips']:.2f} img/s; last_directory_stats {json.dumps(stats)} "
+                          f"[{card}]")
+        if len(batch.results) != DIR_FILES or stats["n_images"] != DIR_FILES:
+            raise AssertionError(f"directory: {len(batch.results)} results, expected {DIR_FILES}")
+
+        # each image's rows against the synced stage API on the same batch
+        by_name = {Path(r.image_path).name: r for r in batch.results}
+        worst = 0.0
+        for b0 in range(0, DIR_FILES, TIMED_BATCH):
+            out = dpipe.process_batch_arrays(gray[b0:b0 + TIMED_BATCH], fetch_masks=False)
+            for j in range(TIMED_BATCH):
+                res = by_name[f"f_{b0 + j:03d}.png"]
+                kept = np.flatnonzero(out["valid"][j])
+                if res.num_cells != len(kept):
+                    raise AssertionError(f"directory: f_{b0 + j:03d}.png has {res.num_cells} "
+                                         f"cells, process_batch_arrays {len(kept)}")
+                for row, k in zip(res.cell_metrics, kept):
+                    for key, got in row.items():
+                        want = float(out["metrics"][key][j, k])
+                        want = float(np.round(want)) if key in INT_METRIC_KEYS else want
+                        err = abs(got - want)
+                        worst = max(worst, err / (1e-5 + 1e-5 * abs(want)))
+                        if not err <= 1e-5 + 1e-5 * abs(want):
+                            raise AssertionError(f"directory: f_{b0 + j:03d}.png {key} {got} "
+                                                 f"against {want}")
+        _say("directory", f"rows equal process_batch_arrays on the same batches "
+                          f"({sum(r.num_cells for r in batch.results)} cells; worst error "
+                          f"{worst:.3f} of rtol=1e-5, atol=1e-5)")
+
+        # the CSVs parse back to the same rows
+        save_results_to_csv(batch, Path(td))
+        with open(Path(td) / "cell_metrics.csv", newline="") as f:
+            parsed = list(csv.DictReader(f))
+        with open(Path(td) / "processing_times.csv", newline="") as f:
+            timing_rows = list(csv.DictReader(f))
+        same = len(parsed) == len(batch.metrics_data) and all(
+            set(row) == set(want) and all(
+                (row[k] == str(v)) if isinstance(v, (str, int)) else float(row[k]) == v
+                for k, v in want.items())
+            for row, want in zip(parsed, batch.metrics_data))
+        if not (same and len(timing_rows) == DIR_FILES):
+            raise AssertionError("directory: the CSVs do not read back to the rows")
+        _say("directory", f"cell_metrics.csv ({len(parsed)} rows) and processing_times.csv "
+                          f"({len(timing_rows)} rows) read back to the same rows")
+
+        # the visualisations of the first 4 files (the synced stage path: one batch)
+        files = sorted(src.iterdir())[:4]
+        vis = dpipe.process_directory(src, Path(td) / "vis", save_visualizations=True,
+                                      image_paths=files, progress=False)
+        run_dir = Path(td) / "vis" / dpipe.run_id
+        dirs = ["1_original_images", "2_yolo_detections", "3_processed_masks",
+                "3_processed_masks/masks", "3_processed_masks/overlay_images",
+                "3_processed_masks/convex_hull_overlay", "4_combined_visualization"]
+        missing = [d for d in dirs if not (run_dir / d).is_dir()]
+        n_masks = len(list((run_dir / "3_processed_masks/masks").glob("*.tiff")))
+        if missing or n_masks != sum(r.num_cells for r in vis.results):
+            raise AssertionError(f"directory: visualisations missing {missing}, {n_masks} masks")
+        _say("directory", f"visualisations of {len(files)} files: the seven directories, "
+                          f"{n_masks} mask TIFFs")
+
+    # the bitpack round trip, and the fetch before (bool crops whole, the
+    # parent's) and after (bitpack into a pinned slot, event, unpack)
+    frames = torch.from_numpy(gray[:2 * TIMED_BATCH]).to(dev)
+    outputs = dpipe.fused_call(frames[:TIMED_BATCH])
+    crops = outputs[3]
+    want = crops.cpu().numpy()
+    if not (pack_bits(crops).cpu().numpy() == np.packbits(want, axis=-1)).all():
+        raise AssertionError("directory: pack_bits differs from np.packbits")
+    got = dpipe._fetch_outputs(dpipe._start_fetch(dpipe._acquire_slot(), outputs, True))
+    if not np.array_equal(got["mask_crops"], want):
+        raise AssertionError("directory: the bitpack round trip differs from the bool crops")
+    def whole():
+        _pack_csv_outputs(*outputs[:3], *outputs[4:]).cpu().numpy()
+        crops.cpu().numpy()
+
+    def packed():
+        dpipe._fetch_outputs(dpipe._start_fetch(dpipe._acquire_slot(), outputs, True))
+
+    result["fetch_ms"] = {"whole": median_ms(whole, reps=10), "packed": median_ms(packed, reps=10)}
+    _say("slice", f"config 1 fetch ms per batch of {TIMED_BATCH} (rows + crops, "
+                  f"{tuple(crops.shape)}): bool crops whole {result['fetch_ms']['whole']:.3f}, "
+                  f"bitpacked into a pinned slot {result['fetch_ms']['packed']:.3f} [{card}]")
+    _say("directory", f"bitpack round trip equals the bool crops ({tuple(crops.shape)})")
+
+    # fused_call_chunked on 2 x TIMED_BATCH frames against two fused_calls
+    chunked = dpipe.fused_call_chunked(frames.reshape(2, TIMED_BATCH, FRAME, FRAME))
+    for n in range(2):
+        single = dpipe.fused_call(frames[n * TIMED_BATCH:(n + 1) * TIMED_BATCH])
+        pairs = list(zip(chunked[:5], single[:5])) + [(chunked[5][k], single[5][k])
+                                                      for k in single[5]]
+        if not all(torch.equal(c[n], s) for c, s in pairs):
+            raise AssertionError(f"directory: fused_call_chunked batch {n} differs from fused_call")
+    _say("directory", f"fused_call_chunked on 2 x {TIMED_BATCH} frames equals two fused_calls")
+
+    # fused_call alone, frames on the card, outputs left there
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        dpipe.fused_call(frames[:TIMED_BATCH])
+    torch.cuda.synchronize()
+    result["fused_ips"] = TIMED_BATCH * 10 / (time.perf_counter() - t0)
+    _say("directory", f"fused_call: {result['fused_ips']:.2f} img/s at batch {TIMED_BATCH} "
+                      f"[{card}]")
+    del frames, outputs, chunked, crops
+
+    # the bench entry at this cell, its directory leg over DIR_FILES files
+    knobs = {"BENCH_BATCH": str(TIMED_BATCH), "BENCH_ITERS": str(TIMED_ITERS),
+             "BENCH_E2E": "1", "BENCH_E2E_FILES": str(DIR_FILES)}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        result["bench"] = e2e.run("cuda")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    _say("directory", f"bench/e2e.py at {json.dumps(knobs)}: {json.dumps(result['bench'])}")
+    _say("directory", f"phase done in {time.perf_counter() - phase_t0:.1f} s")
+    torch.cuda.empty_cache()
+    return result
+
+
 def _yolo_forward_ms(tag: str, pipes: dict, frames, card: str) -> dict:
     """{mode: [median ms, ...]}: YOLOv8n's forward alone on the letterboxed
     bf16 batch (CUDA events), each pipeline's in turns (a, b, b, a)."""
@@ -2048,6 +2248,7 @@ def main() -> int:
     sp = _slice_phase(card)
     ck = _conv_kernel_phase(card)
     fs = _fused_slice_phase(card, sp["pipe"], sp.pop("frames"), sp["ms_per_batch"])
+    dr = _directory_phase(card, sp["pipe"])
     bk = _big_kernel_phase(card)
     big = {model.rsplit("-", 1)[-1]: _big_slice_phase(card, model, max_det, layers)
            for model, max_det, layers, *_ in BIG_MODELS}
@@ -2240,6 +2441,14 @@ def main() -> int:
                    f"ms/batch of {SP_BATCH} by rank: config 4 {sq['ms']}, 896 {sq896['ms']} "
                    f"[{card}]")
     tb = ms["turns bf16"]
+    bench = dr["bench"]
+    _say("result", f"config 1 at batch {TIMED_BATCH}: fused_call {dr['fused_ips']:.2f} img/s, "
+                   f"fused_call_chunked (bench) {bench['value']} img/s, synced p50 batch "
+                   f"{bench['p50_batch_latency_ms']} ms; process_directory over {DIR_FILES} PNGs "
+                   f"{dr['ips']:.2f} img/s (bench leg {bench['e2e_dir_ips']}), "
+                   f"{dr['ips'] / dr['fused_ips']:.3f} of fused_call's; fetch ms whole "
+                   f"{dr['fetch_ms']['whole']:.3f}, bitpacked {dr['fetch_ms']['packed']:.3f} "
+                   f"[{card}]")
     _say("result", f"mobile-sam tinyvit_mbconv_compute bf16 "
                    f"{statistics.median(tb['bf16']):.2f} ms/batch of {TIMED_BATCH} (fp32 "
                    f"{statistics.median(tb['fp32']):.2f}; medians of the turns) [{card}]")

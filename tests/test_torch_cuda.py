@@ -687,3 +687,65 @@ def test_conv2d_act_refuses_what_the_kernel_does_not_take(gen):
     before = tcv.conv2d_act.launches
     tcv.conv2d_act(x, _randn(gen, 1, 1, 16, 16), None, k=1)  # a matmul: no launch
     assert tcv.conv2d_act.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cm", [48, 50, 128])
+def test_pack_and_fetch_vs_bool_crops(gen, cm):
+    """The device bitpack is ``np.packbits`` along the last axis, and a batch
+    fetched through a pinned slot (``_start_fetch`` then ``_fetch_outputs``,
+    which waits on the slot's event) unpacks to the bool crops."""
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.models.sam import sam_tiny_test
+    from yolo_sam_inference_tpu_torch.ops.metrics import METRIC_KEYS
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+    pipe = tengine.CellSegmentationPipeline(device="cuda", sam_config=sam_tiny_test())
+    crops = (torch.rand(32, 16, cm, cm, generator=gen) > 0.5).cuda()
+    want = crops.cpu().numpy()
+    assert (tengine.pack_bits(crops).cpu().numpy() == np.packbits(want, axis=-1)).all()
+    zeros = torch.zeros(32, 16, device="cuda")
+    outputs = (torch.zeros(32, 16, 4, device="cuda"), zeros, zeros > 0, crops,
+               torch.zeros(32, 16, 2, dtype=torch.long, device="cuda"),
+               {key: zeros + i for i, key in enumerate(METRIC_KEYS)})
+    rank = {key: i for i, key in enumerate(METRIC_KEYS)}
+    for _ in range(4):  # every slot of the ring, each reused once
+        h = pipe._start_fetch(pipe._acquire_slot(), outputs, fetch_masks=True)
+        assert h["csv"].is_pinned() and h["packed"].is_pinned()
+        out = pipe._fetch_outputs(h)
+        assert np.array_equal(out["mask_crops"], want)
+        assert all((out["metrics"][key] == rank[key]).all() for key in METRIC_KEYS)
+
+
+@pytest.mark.cuda
+def test_process_directory_vs_process_batch_arrays(gen, tmp_path):
+    """Config 1 on the card, 6 PNG frames at batch 2: the overlapped
+    directory path's rows equal the synced stage API on the same batches."""
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, write_png
+    from yolo_sam_inference_tpu_torch.ops.metrics import INT_METRIC_KEYS
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+    frames = cell_frames(np.random.default_rng(3), 6, 512)[..., 0]
+    for i, frame in enumerate(frames):
+        write_png(tmp_path / f"f_{i}.png", frame)
+    pipe = tengine.CellSegmentationPipeline(
+        device="cuda", options=tengine.PipelineOptions(batch_size=2, max_det=16))
+    batch = pipe.process_directory(tmp_path, tmp_path / "out", progress=False)
+    stats = pipe.last_directory_stats
+    assert (stats["n_images"], stats["n_batches"], stats["n_sample_batches"]) == (6, 3, 1)
+    by_name = {r.image_path.rsplit("/", 1)[-1]: r for r in batch.results}
+    for b0 in range(0, 6, 2):
+        out = pipe.process_batch_arrays(frames[b0:b0 + 2])
+        for j in range(2):
+            res = by_name[f"f_{b0 + j}.png"]
+            kept = np.flatnonzero(out["valid"][j])
+            assert res.num_cells == len(kept)
+            for row, k in zip(res.cell_metrics, kept):
+                for key, got in row.items():
+                    want = float(out["metrics"][key][j, k])
+                    want = float(np.round(want)) if key in INT_METRIC_KEYS else want
+                    assert abs(got - want) <= 1e-5 + 1e-5 * abs(want), (key, got, want)
+    assert sum(r.num_cells for r in batch.results) > 0

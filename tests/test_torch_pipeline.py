@@ -126,20 +126,61 @@ def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port (its pipeline, and the multi-rank modules its spawned ranks
-    import) and ``chip_smoke.py`` must import neither jax nor the JAX
-    package: the script is imported, and every import statement in it, those
-    inside its phase functions too, is read from its syntax tree."""
+    """The port (its pipeline, the directory path's modules, and the
+    multi-rank modules its spawned ranks import) and ``chip_smoke.py`` must
+    import neither jax nor the JAX package: the script is imported, and every
+    import statement in it, those inside its phase functions too, is read
+    from its syntax tree. Nothing in the port opens a path under ``native/``
+    for writing: with every write-mode open, ``os.replace`` and compiler
+    output path watched, the port builds its PNG decoder afresh (into a
+    temporary build root) and decodes a PNG through the loader's call."""
     code = (
-        "import ast, sys, pkgutil, importlib\n"
+        "import ast, builtins, io, os, subprocess, sys, pkgutil, importlib, tempfile\n"
+        "native = os.path.realpath('native') + os.sep\n"
+        "writes = []\n"
+        "def under(p):\n"
+        "    return isinstance(p, (str, bytes, os.PathLike)) and \\\n"
+        "        os.path.realpath(os.fsdecode(p)).startswith(native)\n"
+        "_open, _os_open, _replace = builtins.open, os.open, os.replace\n"
+        "def watched_open(f, mode='r', *a, **k):\n"
+        "    if any(c in mode for c in 'wax+') and under(f): writes.append(f)\n"
+        "    return _open(f, mode, *a, **k)\n"
+        "def watched_os_open(p, flags, *a, **k):\n"
+        "    if flags & (os.O_WRONLY | os.O_RDWR | os.O_CREAT) and under(p): writes.append(p)\n"
+        "    return _os_open(p, flags, *a, **k)\n"
+        "def watched_replace(s, d, *a, **k):\n"
+        "    if under(d): writes.append(d)\n"
+        "    return _replace(s, d, *a, **k)\n"
+        "_init = subprocess.Popen.__init__\n"
+        "def watched_popen(self, args, *a, **k):\n"
+        "    if isinstance(args, (list, tuple)) and '-o' in args and \\\n"
+        "            under(args[list(args).index('-o') + 1]): writes.append(args)\n"
+        "    return _init(self, args, *a, **k)\n"
+        "builtins.open = io.open = watched_open\n"
+        "os.open, os.replace, subprocess.Popen.__init__ = watched_os_open, watched_replace, \\\n"
+        "    watched_popen\n"
         "import yolo_sam_inference_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import yolo_sam_inference_tpu_torch.pipeline.engine\n"
         "import chip_smoke\n"
-        "walked = {'yolo_sam_inference_tpu_torch.parallel.' + m for m in ('sp', 'launch',\n"
-        "                                                                  'workers')}\n"
+        "walked = {'yolo_sam_inference_tpu_torch.' + m for m in (\n"
+        "    'parallel.sp', 'parallel.launch', 'parallel.workers', 'io.images', 'io.png_native',\n"
+        "    'io.tiff', 'io.deflate', 'pipeline.loader', 'pipeline.visualize', 'reporting',\n"
+        "    'utils.image_utils', 'utils.metrics_reporter', 'apps.single_batch_inference',\n"
+        "    'bench.e2e')}\n"
         "assert walked <= set(sys.modules), sorted(walked - set(sys.modules))\n"
+        "from yolo_sam_inference_tpu_torch.bench.common import write_png\n"
+        "from yolo_sam_inference_tpu_torch.io import png_native\n"
+        "from yolo_sam_inference_tpu_torch.pipeline.loader import _safe_load\n"
+        "assert not under(png_native.BUILD_ROOT), png_native.BUILD_ROOT\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "png_native.BUILD_ROOT = png_native.Path(tmp) / 'build'\n"
+        "png_native._load.cache_clear()\n"
+        "write_png(tmp + '/f.png', __import__('numpy').full((8, 9), 7, 'uint8'))\n"
+        "assert _safe_load(png_native.Path(tmp + '/f.png')).shape == (8, 9)\n"
+        "assert not writes, writes\n"
+        "assert png_native.library_path().is_file(), png_native.library_path()\n"
         "tree = ast.parse(open('chip_smoke.py').read())\n"
         "names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]\n"
         "names += [n.module or '' for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]\n"

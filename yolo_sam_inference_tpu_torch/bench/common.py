@@ -1,11 +1,13 @@
 """What the card-side scripts share: the card's name and power limit, CUDA-event
-timing, device time from the profiler, and synthetic cell frames made from a
-seed."""
+timing, device time from the profiler, synthetic cell frames made from a
+seed, and a PNG writer that needs no PIL."""
 
 from __future__ import annotations
 
 import statistics
+import struct
 import subprocess
+import zlib
 
 # K17's shapes on the paths, timed at batch 32 (chip_smoke.py, kernel_turns.py):
 # (name, (H, W, Ci), Co, k, stride, act, bias, channel slice)
@@ -121,3 +123,62 @@ def cell_frames(rng, n: int, size: int, cells: int = 12):
             box[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0] = rng.uniform(150, 220)
         frames[i] = img.clip(0, 255).astype(np.uint8)[..., None]
     return frames
+
+
+_PNG_COLOUR_TYPES = {1: 0, 3: 2, 4: 6}  # channels -> PNG colour type (gray, RGB, RGBA)
+
+
+def _png_filter(rows, bpp: int, kind: int):
+    """PNG scanline filter ``kind`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)
+    of uint8 rows (H, W * bpp): the filtered bytes, each predicted from the
+    unfiltered neighbours a (left), b (up), c (up-left), zero off the edge."""
+    import numpy as np
+
+    x = rows.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    if kind == 0:
+        pred = np.zeros_like(x)
+    elif kind == 1:
+        pred = a
+    elif kind == 2:
+        pred = b
+    elif kind == 3:
+        pred = (a + b) // 2
+    elif kind == 4:
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    else:
+        raise ValueError(f"PNG filter type {kind} is not one of 0-4")
+    return ((x - pred) % 256).astype(np.uint8)
+
+
+def png_bytes(image, filter_type: int = 0, level: int = 6) -> bytes:
+    """An 8-bit PNG of uint8 ``image``, (H, W) gray or (H, W, 3 | 4) RGB(A),
+    not interlaced, every scanline filtered with ``filter_type`` (0-4),
+    compressed with zlib."""
+    import numpy as np
+
+    img = np.ascontiguousarray(image, dtype=np.uint8)
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    rows = _png_filter(img.reshape(h, w * ch), ch, filter_type)
+    raw = np.concatenate([np.full((h, 1), filter_type, np.uint8), rows], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOUR_TYPES[ch], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + chunk(b"IEND", b""))
+
+
+def write_png(path, image, filter_type: int = 0) -> None:
+    """Write ``image`` as a PNG file (:func:`png_bytes`)."""
+    with open(path, "wb") as f:
+        f.write(png_bytes(image, filter_type))

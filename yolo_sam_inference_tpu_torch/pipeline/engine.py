@@ -17,6 +17,14 @@ batch runs as four stages on the pipeline's device:
   resample onto a fixed crop around each cell;
 * :func:`metrics_stage`: the 16 morphometrics per cell.
 
+Above the stages: ``process_batch_arrays`` (stages synchronised and timed),
+``fused_call`` / ``fused_call_chunked`` (device tensors, no sync), and the
+directory path (``process_single_image``, ``process_directory``) that
+overlaps host decode, device work and the fetch of earlier batches. Frames
+go up from pinned host buffers and come back through one pinned fp32 row
+pack (``_pack_csv_outputs``) and, where masks are asked for, a device-side
+bitpack of the crops (:func:`pack_bits`, 1 bit a pixel).
+
 Weights are random (the JAX package's numpy init, so one seed gives the same
 weights in both); checkpoint loading is not ported yet. Parameters are cast
 to ``compute_dtype`` once, when a stage set is built, not per call; with
@@ -27,9 +35,13 @@ to ``compute_dtype`` once, when a stage set is built, not per call; with
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 import time
+import uuid
 from dataclasses import dataclass
+from datetime import datetime
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -49,6 +61,7 @@ from ..models.sam import (
     sam_vit_l,
 )
 from ..models.yolo import YoloConfig, decode_predictions, init_yolo_params, yolov8n
+from ..io.images import list_image_files, load_image
 from ..ops.mbconv_fused import COMPUTE_MODES
 from ..ops.metrics import INT_METRIC_KEYS, METRIC_KEYS, cell_metrics
 from ..ops.nms import batched_nms
@@ -57,7 +70,17 @@ from ..ops.quant import quantize_sam_encoder_params
 from ..ops.window_crop import window_crop
 from ..parallel.sp import sam_image_encoder_sp
 from ..weights import from_jax_params
-from .results import ProcessingResult
+from ..utils.logger import setup_logger
+from .results import (
+    BatchProcessingResult,
+    ProcessingResult,
+    collect_metrics_data,
+    collect_timing_data,
+    initialize_timing_dict,
+    update_total_timing,
+)
+
+logger = setup_logger(__name__)
 
 SAM_CONFIGS = {
     "facebook/sam-vit-base": sam_vit_b,
@@ -285,6 +308,49 @@ def _pack_csv_outputs(boxes, scores, valid, offs, mets) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def pack_bits(crops: torch.Tensor) -> torch.Tensor:
+    """``np.packbits(crops, axis=-1)`` on the tensor's device: bool (..., cm)
+    -> uint8 (..., ceil(cm / 8)), the first element of each group of 8 in
+    the high bit, the last group zero-padded. Crops cross to the host at 1
+    bit a pixel (the JAX engine's ``"pack"``, ``jnp.packbits``)."""
+    cm = crops.shape[-1]
+    x = torch.nn.functional.pad(crops.to(torch.uint8), (0, (-cm) % 8))
+    x = x.reshape(*x.shape[:-1], -1, 8)
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=crops.device)
+    return (x * w).sum(dim=-1, dtype=torch.uint8)
+
+
+class _Slot:
+    """Host buffers of one batch in flight: the staged frames and the fetched
+    row pack and bitpack. Pinned (page-locked) on a CUDA pipeline, so both
+    copies run asynchronously; a slot is reused, not reallocated, once its
+    last copies have completed (``done``) and its outputs were fetched
+    (``pending`` cleared)."""
+
+    def __init__(self, pin: bool) -> None:
+        self.pin = pin
+        self.bufs: Dict[str, torch.Tensor] = {}
+        self.done = None  # CUDA event recorded after the slot's last copy
+        self.pending = False
+
+    def buf(self, name: str, shape, dtype: torch.dtype) -> torch.Tensor:
+        t = self.bufs.get(name)
+        if t is None or t.shape != torch.Size(shape) or t.dtype != dtype:
+            # a normal tensor, never an inference one: copies into it are
+            # allowed inside and outside inference mode
+            with torch.inference_mode(False):
+                t = self.bufs[name] = torch.empty(shape, dtype=dtype, pin_memory=self.pin)
+        return t
+
+    def record(self) -> None:
+        if self.pin:
+            self.done = torch.cuda.Event()
+            self.done.record()
+
+
 # ------------------------------------------------------------------- the engine
 
 
@@ -336,6 +402,9 @@ class CellSegmentationPipeline:
             self.yolo_params, self.sam_params = params
         self._stage_cache: Dict[Tuple[int, int], Dict[str, Any]] = {}
         self._adapted_params: Dict[Tuple[int, int], Any] = {}
+        self.run_id = f"{datetime.now().strftime('%Y%m%d_%H%M%S')}_{uuid.uuid4().hex[:8]}"
+        self._slots: List[_Slot] = []
+        self._slot_next = 0
 
     def _initialize_models(self, seed: int) -> None:
         """Random init on the host, the JAX engine's sub-seeds (2s, 2s + 1).
@@ -417,18 +486,96 @@ class CellSegmentationPipeline:
 
     # -- array-level API -------------------------------------------------------
 
-    def _images_to_device(self, images: np.ndarray) -> torch.Tensor:
+    def _acquire_slot(self) -> _Slot:
+        """The next host slot in turn, once its last copies are done. There
+        is one slot a batch in flight (``E2E_INFLIGHT``) and one for the next;
+        holding more unfetched batches raises: their outputs would be
+        overwritten."""
+        while len(self._slots) < int(os.environ.get("E2E_INFLIGHT", "2")) + 1:
+            self._slots.append(_Slot(pin=self.device.type == "cuda"))
+        slot = self._slots[self._slot_next % len(self._slots)]
+        if slot.pending:
+            raise RuntimeError(f"{len(self._slots)} batches in flight and none fetched: "
+                               "fetch one (_fetch_outputs) before dispatching another")
+        self._slot_next += 1
+        if slot.done is not None:
+            slot.done.synchronize()
+        return slot
+
+    def _images_to_device(self, images: np.ndarray, slot: Optional[_Slot] = None) -> torch.Tensor:
         """uint8 batch -> device tensor; replicated-gray RGB goes as one channel
-        (a third of the bytes; :func:`_ensure_rgb` broadcasts it back)."""
+        (a third of the bytes; :func:`_ensure_rgb` broadcasts it back). On a
+        CUDA pipeline the batch is staged in the slot's pinned buffer and
+        copied without blocking the host."""
         if images.ndim == 4 and images.shape[-1] == 3:
             c0 = images[..., 0]
             if np.array_equal(c0, images[..., 1]) and np.array_equal(c0, images[..., 2]):
-                images = np.ascontiguousarray(c0)
-        return torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+                images = c0
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        slot = slot or self._acquire_slot()
+        stage = slot.buf("images", images.shape, torch.uint8)
+        np.copyto(stage.numpy(), images)
+        dev = stage.to(self.device, non_blocking=True)
+        slot.record()
+        return dev
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _start_fetch(self, slot: _Slot, outputs, fetch_masks: bool) -> Dict[str, Any]:
+        """Queue the device -> host copies of one batch's row pack and, with
+        ``fetch_masks``, its bitpacked crops into the slot; no host sync.
+        Returns the handle :meth:`_fetch_outputs` takes."""
+        boxes, scores, valid, crops, offs, mets = outputs
+        csv = _pack_csv_outputs(boxes, scores, valid, offs, mets)
+        csv = slot.buf("csv", csv.shape, csv.dtype).copy_(csv, non_blocking=True)
+        packed = None
+        if fetch_masks:
+            packed = pack_bits(crops)
+            packed = slot.buf("packed", packed.shape, packed.dtype).copy_(packed,
+                                                                          non_blocking=True)
+        slot.record()
+        slot.pending = True
+        return {"slot": slot, "csv": csv, "packed": packed, "cm": crops.shape[-1],
+                "keys": sorted(mets)}
+
+    @torch.inference_mode()
+    def _dispatch_batch(self, images: np.ndarray, fetch_masks: bool = True) -> Dict[str, Any]:
+        """Upload a uint8 batch, launch the four stages and the pack, and queue
+        the fetch, with no host sync: the building block of
+        :meth:`process_directory`, where batch i computes while batch i-1's
+        outputs come back and batch i+1 decodes on the host."""
+        slot = self._acquire_slot()
+        return self._start_fetch(slot, self.fused_call(self._images_to_device(images, slot)),
+                                 fetch_masks)
+
+    @staticmethod
+    def _fetch_outputs(h: Dict[str, Any]) -> Dict[str, Any]:
+        """Wait for one batch's copies (its own event, never the whole
+        device) and split them into host arrays: boxes (B, K, 4), scores,
+        valid, mask_crops (B, K, cm, cm) bool or None, offsets (B, K, 2),
+        metrics {key: (B, K)}. Every packed field is exact in fp32, and the
+        arrays returned are the caller's own (the slot's buffers are
+        reused)."""
+        slot = h["slot"]
+        if slot.done is not None:
+            slot.done.synchronize()
+        flat = h["csv"].numpy().copy()  # (B, K, 8 + M) fp32
+        mask_crops = None
+        if h["packed"] is not None:
+            # unpackbits gives exact 0/1 bytes, so the bool view is free
+            mask_crops = np.unpackbits(h["packed"].numpy(), axis=-1)[..., :h["cm"]].view(np.bool_)
+        slot.pending = False
+        return {
+            "boxes": flat[..., :4],
+            "scores": flat[..., 4],
+            "valid": flat[..., 5] > 0.5,
+            "mask_crops": mask_crops,
+            "offsets": flat[..., 6:8].astype(np.int32),
+            "metrics": {key: flat[..., 8 + i] for i, key in enumerate(h["keys"])},
+        }
 
     @torch.inference_mode()
     def process_batch_arrays(
@@ -440,11 +587,11 @@ class CellSegmentationPipeline:
     ) -> Optional[Dict[str, Any]]:
         """Run the four stages on a uint8 batch, (B, H, W, 3) or (B, H, W).
 
-        Returns host arrays: boxes (B, K, 4), scores, valid, mask_crops
-        (B, K, cm, cm) (None when ``fetch_masks`` is False), offsets (B, K, 2),
-        metrics {key: (B, K)}. ``timings`` accumulates per-stage seconds
-        (device synchronised) under the reference's keys; with
-        ``fetch_outputs=False`` only the timings are produced.
+        Returns host arrays as :meth:`_fetch_outputs` gives them (mask_crops
+        None when ``fetch_masks`` is False: the bitpack is skipped).
+        ``timings`` accumulates per-stage seconds (device synchronised) under
+        the reference's keys; with ``fetch_outputs=False`` only the timings
+        are produced.
         """
         st = self._stages(images.shape[1], images.shape[2])
 
@@ -456,23 +603,16 @@ class CellSegmentationPipeline:
                 timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
             return out
 
-        dev_images = self._images_to_device(images)
+        slot = self._acquire_slot()
+        dev_images = self._images_to_device(images, slot)
         boxes, scores, valid = timed("yolo_detection", st["detect"], dev_images)
         emb = timed("sam_preprocess", st["embed"], dev_images)
         crops, offs = timed("sam_inference_total", st["segment"], emb, boxes, valid)
         mets = timed("metrics_total", st["metrics"], crops, offs, _gray_f32(dev_images))
         if not fetch_outputs:
             return None
-        flat = _pack_csv_outputs(boxes, scores, valid, offs, mets).cpu().numpy()
-        keys = sorted(mets)
-        return {
-            "boxes": flat[..., :4],
-            "scores": flat[..., 4],
-            "valid": flat[..., 5] > 0.5,
-            "mask_crops": crops.cpu().numpy() if fetch_masks else None,
-            "offsets": flat[..., 6:8].astype(np.int32),
-            "metrics": {key: flat[..., 8 + i] for i, key in enumerate(keys)},
-        }
+        return self._fetch_outputs(self._start_fetch(
+            slot, (boxes, scores, valid, crops, offs, mets), fetch_masks))
 
     @torch.inference_mode()
     def fused_call(self, images: torch.Tensor):
@@ -484,6 +624,17 @@ class CellSegmentationPipeline:
         crops, offs = st["segment"](emb, boxes, valid)
         mets = st["metrics"](crops, offs, _gray_f32(images))
         return boxes, scores, valid, crops, offs, mets
+
+    @torch.inference_mode()
+    def fused_call_chunked(self, images: torch.Tensor):
+        """N fused batches in one call: ``images`` is a device tensor
+        (N, B, H, W[, C]); the batches are launched back to back with no host
+        sync (the JAX engine's ``lax.map``), and every output is stacked on a
+        leading N axis."""
+        outs = [self.fused_call(images[i]) for i in range(images.shape[0])]
+        stacked = [torch.stack([o[j] for o in outs]) for j in range(5)]
+        mets = {key: torch.stack([o[5][key] for o in outs]) for key in outs[0][5]}
+        return (*stacked, mets)
 
     @torch.inference_mode()
     def detect_batch_arrays(self, images: np.ndarray) -> Dict[str, np.ndarray]:
@@ -534,3 +685,243 @@ class CellSegmentationPipeline:
                 )
             )
         return results
+
+    def _load_image(self, image_path: Union[str, Path]) -> np.ndarray:
+        """Load an image as RGB uint8 (reference ``pipeline.py:206-210``)."""
+        return load_image(image_path)
+
+    # -- public single-image / directory API -------------------------------------
+
+    @torch.inference_mode()
+    def process_single_image(
+        self,
+        image_path: Union[str, Path],
+        output_path: Union[str, Path],
+        save_visualizations: bool = True,
+    ) -> ProcessingResult:
+        """Process one image (API parity: reference ``pipeline.py:126-204``)."""
+        timings: Dict[str, float] = {}
+        t0 = time.time()
+        image = self._load_image(image_path)
+        timings["image_load"] = time.time() - t0
+
+        out = self.process_batch_arrays(image[None], timings)
+        result = self._results_from_outputs(out, [image_path], 1)[0]
+
+        t0 = time.time()
+        if save_visualizations:
+            from .visualize import save_visualizations as save_vis
+
+            try:
+                save_vis(image, out["mask_crops"][0], out["offsets"][0], out["boxes"][0],
+                         out["valid"][0], result.cell_metrics, Path(output_path),
+                         Path(image_path).stem)
+            except Exception as e:  # visualization failures are non-fatal
+                logger.warning("Visualization failed for %s: %s", image_path, e)
+        timings["visualization"] = time.time() - t0
+        timings["sam_postprocess_total"] = timings.get("sam_postprocess_total", 0.0)
+        timings["total_time"] = time.time() - t0 + sum(
+            v for k, v in timings.items() if k not in ("total_time", "visualization")
+        )
+        timings["cells_processed"] = result.num_cells
+        result.timing = timings
+        logger.info("Processed %s: %d cells detected", Path(image_path).name, result.num_cells)
+        return result
+
+    @torch.inference_mode()
+    def process_directory(
+        self,
+        input_dir: Union[str, Path],
+        output_dir: Union[str, Path],
+        save_visualizations: bool = False,
+        image_paths: Optional[Sequence[Path]] = None,
+        progress: bool = True,
+    ) -> BatchProcessingResult:
+        """Process a folder of images in device batches (API parity: reference
+        ``pipeline.py:212-263``) into ``{output_dir}/{run_id}/``.
+
+        Batches overlap: the loader decodes ahead on a thread (numpy only; no
+        torch work leaves this thread), each batch is dispatched without a
+        sync (:meth:`_dispatch_batch`), and the batch ``E2E_INFLIGHT`` (2)
+        dispatches back is fetched and assembled while later ones compute.
+        Per-stage timing rows come from a synced sample sub-batch
+        (``E2E_SAMPLE_BATCH`` images, 32) at the first batch and every 16th;
+        a run of one batch or fewer takes the synced stage path alone.
+        ``E2E_PREFETCH_DEPTH`` (3) bounds the decoded batches queued.
+        ``last_directory_stats`` holds the run's host-side wall seconds by leg.
+        """
+        from .loader import batched_image_loader, prefetch_iterator
+
+        input_dir = Path(input_dir)
+        if image_paths is None and not input_dir.is_dir():
+            raise FileNotFoundError(f"input directory does not exist: {input_dir}")
+        output_dir = Path(output_dir) / self.run_id
+        output_dir.mkdir(parents=True, exist_ok=True)
+
+        files = list(image_paths) if image_paths is not None else list_image_files(input_dir)
+        results: List[ProcessingResult] = []
+        total_timing = initialize_timing_dict()
+        metrics_data: List[Dict[str, Any]] = []
+        timing_data: List[Dict[str, Any]] = []
+
+        # per-run config snapshot (the reference snapshotted its parameters)
+        with open(output_dir / "pipeline_parameters.json", "w") as f:
+            snap = {
+                k: (str(v) if not isinstance(v, (int, float, bool, type(None))) else v)
+                for k, v in dataclasses.asdict(self.options).items()
+            }
+            snap.update({"sam_model_type": self.sam_model_type, "run_id": self.run_id})
+            json.dump(snap, f, indent=2)
+
+        bsz = self.options.batch_size
+        depth = int(os.environ.get("E2E_PREFETCH_DEPTH", "3"))
+        inflight = int(os.environ.get("E2E_INFLIGHT", "2"))
+        sample_n = max(1, int(os.environ.get("E2E_SAMPLE_BATCH", "32")))
+        batches = prefetch_iterator(
+            batched_image_loader(files, bsz, skipped_report=output_dir / "skipped_images.txt"),
+            depth=depth,
+        )
+        few = len(files) <= bsz
+        pending: List[Tuple[Any, np.ndarray]] = []
+        sampled: Dict[str, float] = {}
+        stats = {"decode_s": 0.0, "dispatch_s": 0.0, "fetch_s": 0.0,
+                 "assemble_s": 0.0, "sample_sync_s": 0.0, "vis_s": 0.0,
+                 "n_images": 0, "n_batches": 0, "n_sample_batches": 0}
+        wall_t0 = time.perf_counter()
+
+        def run_batch(timed, batch_imgs, batch_paths, n_valid, load_s):
+            timings: Dict[str, float] = {"image_load": load_s}
+            stats["decode_s"] += load_s
+            stats["n_batches"] += 1
+            if timed and few:
+                # one batch: the synced stage pass gives both results and timings
+                t0 = time.perf_counter()
+                out = self.process_batch_arrays(batch_imgs, timings,
+                                                fetch_masks=save_visualizations)
+                stats["sample_sync_s"] += time.perf_counter() - t0
+                stats["n_sample_batches"] += 1
+                return (out, None, batch_paths, n_valid, timings)
+            if timed:
+                # per-stage device seconds from a synced sub-batch; the full
+                # batch then takes the overlapped path like every other
+                sb = min(sample_n, len(batch_imgs))
+                stage_t: Dict[str, float] = {}
+                t0 = time.perf_counter()
+                self.process_batch_arrays(batch_imgs[:sb], stage_t, fetch_masks=False,
+                                          fetch_outputs=False)
+                stats["sample_sync_s"] += time.perf_counter() - t0
+                stats["n_sample_batches"] += 1
+                sampled.clear()
+                sampled.update({k: v / sb for k, v in stage_t.items()})
+            # scaled to this batch: finish() divides by n_valid again
+            timings.update({k: v * max(n_valid, 1) for k, v in sampled.items()})
+            t0 = time.perf_counter()
+            handles = self._dispatch_batch(batch_imgs, fetch_masks=save_visualizations)
+            stats["dispatch_s"] += time.perf_counter() - t0
+            return (None, handles, batch_paths, n_valid, timings)
+
+        def finish(entry, batch_imgs):
+            out, handles, batch_paths, n_valid, timings = entry
+            if out is None:
+                t0 = time.perf_counter()
+                out = self._fetch_outputs(handles)
+                stats["fetch_s"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            batch_results = self._results_from_outputs(out, batch_paths, n_valid)
+            stats["assemble_s"] += time.perf_counter() - t0
+            stats["n_images"] += n_valid
+
+            vis_t0 = time.time()
+            if save_visualizations:
+                from .visualize import save_visualizations as save_vis
+
+                for i, res in enumerate(batch_results):
+                    try:
+                        img = batch_imgs[i]
+                        if img.ndim == 2:  # loader-collapsed grayscale
+                            img = np.repeat(img[..., None], 3, axis=-1)
+                        save_vis(img, out["mask_crops"][i], out["offsets"][i], out["boxes"][i],
+                                 out["valid"][i], res.cell_metrics, output_dir,
+                                 Path(res.image_path).stem)
+                    except Exception as e:
+                        logger.warning("Visualization failed: %s", e)
+            vis_s = time.time() - vis_t0
+            stats["vis_s"] += vis_s
+            row_t0 = time.perf_counter()
+
+            per_img = 1.0 / max(n_valid, 1)
+            for res in batch_results:
+                res.timing = {
+                    "image_load": timings.get("image_load", 0.0) * per_img,
+                    "yolo_detection": timings.get("yolo_detection", 0.0) * per_img,
+                    "sam_preprocess": timings.get("sam_preprocess", 0.0) * per_img,
+                    "sam_inference_total": timings.get("sam_inference_total", 0.0) * per_img,
+                    "sam_postprocess_total": 0.0,
+                    "metrics_total": timings.get("metrics_total", 0.0) * per_img,
+                    "visualization": vis_s * per_img,
+                    "total_time": (sum(timings.values()) + vis_s) * per_img,
+                    "cells_processed": res.num_cells,
+                }
+                update_total_timing(total_timing, res.timing)
+                collect_metrics_data(metrics_data, res)
+                collect_timing_data(timing_data, res)
+                results.append(res)
+            stats["assemble_s"] += time.perf_counter() - row_t0
+            if progress:
+                logger.info("processed %d/%d images (%d cells so far)", len(results), len(files),
+                            int(total_timing["total_cells"]))
+
+        for bi, (batch_imgs, batch_paths, n_valid, load_s) in enumerate(batches):
+            timed = few or bi % 16 == 0
+            if timed:
+                # drain the batches in flight first: their device work would
+                # otherwise land in the sample's first timed stage
+                while pending:
+                    finish(*pending.pop(0))
+            pending.append((run_batch(timed, batch_imgs, batch_paths, n_valid, load_s),
+                            batch_imgs))
+            if len(pending) > inflight:
+                finish(*pending.pop(0))
+        while pending:
+            finish(*pending.pop(0))
+
+        stats["wall_s"] = time.perf_counter() - wall_t0
+        # decode_s is loader time overlapped on its thread; sample_sync_s is
+        # serial (device-synced stage rows); the rest is the overlapped steady state
+        self.last_directory_stats = {
+            k: (round(v, 4) if isinstance(v, float) else v) for k, v in stats.items()
+        }
+        return BatchProcessingResult(results=results, total_timing=total_timing,
+                                     metrics_data=metrics_data, timing_data=timing_data)
+
+
+class ParallelCellSegmentationPipeline(CellSegmentationPipeline):
+    """API-parity wrapper for the reference's thread-replica pipeline
+    (reference ``pipeline.py:440-643``): ``num_pipelines`` multiplies the
+    device batch size, so one program runs an N x batch_size batch where the
+    reference ran N thread replicas, each on its own image. Data parallelism
+    over cards is not ported yet (``ROADMAP.md``, Queue 1 item 4).
+    """
+
+    def __init__(self, *args, num_pipelines: int = 2, **kwargs) -> None:
+        opts = kwargs.get("options") or PipelineOptions()
+        kwargs["options"] = dataclasses.replace(
+            opts, batch_size=opts.batch_size * max(1, int(num_pipelines)))
+        super().__init__(*args, **kwargs)
+        self.num_pipelines = num_pipelines
+
+    def process_image(self, image: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Direct ndarray API (reference ``pipeline.py:469-503``): returns
+        (boxes xyxy, full-size masks, scores) for one RGB image."""
+        image = np.asarray(image)
+        if image.ndim == 2:
+            image = np.repeat(image[..., None], 3, axis=2)
+        out = self.process_batch_arrays(image[None].astype(np.uint8))
+        valid = out["valid"][0]
+        h, w = image.shape[:2]
+        masks = np.zeros((int(valid.sum()), h, w), dtype=bool)
+        cm = out["mask_crops"].shape[-1]
+        for j, k in enumerate(np.flatnonzero(valid)):
+            r0, c0 = out["offsets"][0, k]
+            masks[j, r0:r0 + cm, c0:c0 + cm] = out["mask_crops"][0, k]
+        return out["boxes"][0][valid], masks, out["scores"][0][valid]
