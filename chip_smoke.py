@@ -49,6 +49,21 @@ failure ends the run with a non-zero exit and no result line:
    and the fetch timed both ways, ``fused_call_chunked`` on 2 x 32 frames
    against two ``fused_call`` (exact), ``fused_call`` img/s; then
    ``bench/e2e.py`` at batch 32, 3 iterations, its directory leg on;
+4d. checkpoint: state dicts drawn from a seed in the public namings
+   (``bench/checkpoints.py``: HF ``SamModel`` ViT-B at its 1024 canvas,
+   ultralytics YOLOv8n and v8s, ``mobile_sam.pt`` without its
+   ``attention_bias_idxs``) written to a temporary directory; config 1 from
+   the YOLOv8n and ViT-B files (the rel-pos tables 27 / 127 rows -> 31 / 63
+   at the 512 canvas), its build timed in turns with the seeded build, a
+   batch of 8 with the seeded pass's launch counts, the embedding and the
+   decoder against fp32 plain; ``hull_mode="reference"`` on that batch, its
+   16 metrics against the CPU plain path on the same crops (ints exact,
+   floats 1e-5), the metrics stage timed in turns with the polygon's at
+   batch 32; MobileSAM and YOLOv8s from their files (launch counts, the
+   embedding, then ``conv2d_fused``: 42 K17 launches, output widths up to
+   512, YOLO maps against fp32 plain); a missing path raises
+   ``FileNotFoundError``; the runner on 8 PNG files from the same
+   checkpoints with ``--hull-mode reference``;
 5. big kernels: the kernels of the ViT-L/H paths at their batch-32 shapes:
    ``gemm_bf16`` at the ViT-L/H qkv and MLP (K10) widths and the attention at
    hd 80 against fp32 plain versions, and the w8a8 kernels (K11c, K11a,
@@ -163,6 +178,14 @@ PEAK = {"hbm": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # the decoder, crop and hull kernels of one batch (max_det prompts an image)
 DECODER_COUNTS = {"layer_norm": 10, "keys_stream": 3, "t2i_attend": 1, "t2i_combine": 2,
                   "window_crop": 1, "hull_support": 1}
+# MobileSAM's encoder a batch: 10 window blocks (K13: one launch at stages 1
+# and 2, 8 blocks; at stage 3, 2 blocks, attention + 2 GEMMs; K16: depthwise
+# + 2 GEMMs), MBConv x2 + merge2 (K14), merge0 + merge1 (K15); the neck's 2
+# LayerNorms
+MOBILE_ENCODER_COUNTS = {"gemm_bf16": 24, "tinyvit_block": 8, "tinyvit_attn": 2,
+                         "mbconv_block": 3, "patch_merge_block": 2, "dw_conv3x3": 10,
+                         "layer_norm": 2}
+CONFIG1_COUNTS = {**DECODER_COUNTS, "gemm_bf16": 48, "window_attn_relpos": 12}
 
 
 def _say(phase: str, msg: str) -> None:
@@ -1135,8 +1158,8 @@ def _sp_rank(rank: int, world: int, job: dict) -> None:
     frames = np.load(f"{job['dir']}/frames.npy")
     opts = tengine.PipelineOptions(max_det=16, metric_crop=128, encoder_parallel="sp",
                                    **spec["options"])
-    pipe = tengine.CellSegmentationPipeline(spec["model"], options=opts, device="cuda",
-                                            params=(trees["yolo"], trees["sam"]))
+    pipe = tengine.CellSegmentationPipeline(sam_model_type=spec["model"], options=opts,
+                                            device="cuda", params=(trees["yolo"], trees["sam"]))
     del trees
     h, w = frames.shape[1], frames.shape[2]
     pipe._stages(h, w)
@@ -1492,8 +1515,7 @@ def _slice_phase(card: str) -> dict:
     # per batch: 12 layers x (qkv + proj + 2 MLP) GEMMs; 12 attentions, 8 at
     # window 16 and the 4 global ones at 32; the decoder's (DECODER_COUNTS)
     launches, _, out = _drive("config 1", pipe, frames[:SLICE_BATCH], opts.max_det,
-                              {**DECODER_COUNTS, "gemm_bf16": 48, "window_attn_relpos": 12},
-                              by_window={16: 8, 32: 4})
+                              CONFIG1_COUNTS, by_window={16: 8, 32: 4})
 
     _, emb32, _ = _embedding_vs_plain("config 1", {"bf16": (pipe, 0.05)}, frames[:1])
     _decoder_vs_plain("config 1", pipe, FRAME, emb32, out["boxes"][:1])
@@ -1717,6 +1739,196 @@ def _directory_phase(card: str, pipe) -> dict:
     _say("directory", f"phase done in {time.perf_counter() - phase_t0:.1f} s")
     torch.cuda.empty_cache()
     return result
+
+
+
+def _checkpoint_phase(card: str, seeded_launches: dict) -> dict:
+    """The main path from checkpoint files: state dicts drawn from a seed in
+    the public namings (``bench/checkpoints.py``) written to a temporary
+    directory, then (1) config 1 from YOLOv8n (ultralytics) and SAM ViT-B
+    (HF, 1024-native: adapted to the 512 canvas) files, launch counts equal
+    to the seeded pass's, embedding and decoder against fp32 plain, the
+    build timed in turns with the seeded build; (2) ``hull_mode=
+    "reference"`` on that batch against the CPU plain path on the same crops,
+    the metrics stage timed in turns with the polygon's at batch 32; (3)
+    MobileSAM from its file (no ``attention_bias_idxs``) with (4) YOLOv8s
+    from its file, default convs and ``conv2d_fused``; (5) a missing path
+    raises; then the runner on PNG files from the same checkpoints."""
+    import csv
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.apps import single_batch_inference as tapp
+    from yolo_sam_inference_tpu_torch.bench import checkpoints
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, median_ms, write_png
+    from yolo_sam_inference_tpu_torch.models.sam import TinyViTConfig, sam_vit_b
+    from yolo_sam_inference_tpu_torch.models.yolo import yolov8n, yolov8s
+    from yolo_sam_inference_tpu_torch.ops.metrics import INT_METRIC_KEYS
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+    tmp = tempfile.TemporaryDirectory(prefix="ysi_ckpt_")
+    root = Path(tmp.name)
+    paths = {name: root / f"{name}.pt" for name in ("sam_vit_b", "yolov8n", "yolov8s",
+                                                      "mobile_sam")}
+    t0 = time.perf_counter()
+    for name, make in (
+        ("sam_vit_b", lambda: checkpoints.hf_sam_state_dict(sam_vit_b(), 1)),
+        ("yolov8n", lambda: checkpoints.ultralytics_state_dict(yolov8n(), 2)),
+        ("yolov8s", lambda: checkpoints.ultralytics_state_dict(yolov8s(), 3)),
+        ("mobile_sam", lambda: checkpoints.mobilesam_state_dict(TinyViTConfig(), sam_vit_b(), 4,
+                                                                with_bias_idxs=False)),
+    ):
+        torch.save(make(), paths[name])
+    _say("checkpoint", f"state dicts drawn and written in {time.perf_counter() - t0:.2f} s: "
+                       + ", ".join(f"{n} {p.stat().st_size / 2**20:.1f} MiB"
+                                   for n, p in paths.items()))
+    opts = tengine.PipelineOptions(max_det=16, metric_crop=128)
+
+    def build(mode):
+        t0 = time.perf_counter()
+        kw = (dict(yolo_model_path=paths["yolov8n"], sam_checkpoint=paths["sam_vit_b"])
+              if mode == "files" else dict(seed=0))
+        pipe = tengine.CellSegmentationPipeline(options=opts, device="cuda", **kw)
+        pipe._stages(FRAME, FRAME)
+        torch.cuda.synchronize()
+        return pipe, time.perf_counter() - t0
+
+    # (1) config 1 from the files; builds in turns (seeded, files, files, seeded):
+    # init or load + convert, adapt to the 512 canvas, cast, upload
+    builds = {"seeded": [], "files": []}
+    for mode in ("seeded", "files", "files", "seeded"):
+        pipe, secs = build(mode)
+        builds[mode].append(secs)
+        if mode == "files":
+            fpipe = pipe
+        del pipe
+    torch.cuda.empty_cache()
+    tables = {n: [lp["attn"]["rel_pos_h"].shape[0] for lp in tree["vision"]["layers"][1:3]]
+              for n, tree in (("file", fpipe.sam_params),
+                              ("512 canvas", fpipe._sam_params_for(fpipe._stages(FRAME,
+                                                                                 FRAME)["scfg"])))}
+    _say("checkpoint", f"config 1 build ms in turns (seeded, files, files, seeded): seeded "
+                       f"{[round(v * 1000, 1) for v in builds['seeded']]}, from files "
+                       f"{[round(v * 1000, 1) for v in builds['files']]}; rel-pos rows "
+                       f"(windowed, global) {tables} [{card}]")
+    if tables != {"file": [27, 127], "512 canvas": [31, 63]}:
+        raise AssertionError(f"checkpoint: rel-pos tables {tables}, expected 27/127 -> 31/63")
+    frames = cell_frames(np.random.default_rng(0), TIMED_BATCH, FRAME)
+    launches, _, out = _drive("config 1 from files", fpipe, frames[:SLICE_BATCH], 16,
+                              CONFIG1_COUNTS, by_window={16: 8, 32: 4})
+    if launches != seeded_launches:
+        raise AssertionError(f"config 1 from files: launches {launches}, the seeded pass's "
+                             f"{seeded_launches}")
+    _, emb32, _ = _embedding_vs_plain("config 1 from files", {"bf16": (fpipe, 0.05)}, frames[:1])
+    _decoder_vs_plain("config 1 from files", fpipe, FRAME, emb32, out["boxes"][:1])
+
+    # (2) the reference hull on the same batch, against the CPU plain path on
+    # the same crops
+    ropts = dataclasses.replace(opts, hull_mode="reference")
+    rpipe = _sharing_params(fpipe, ropts)
+    ref_launches, _, rout = _drive("config 1 from files, hull_mode reference", rpipe,
+                                   frames[:SLICE_BATCH], 16, CONFIG1_COUNTS,
+                                   by_window={16: 8, 32: 4})
+    with torch.inference_mode():
+        cpu = tengine.metrics_stage(
+            torch.from_numpy(rout["mask_crops"]), torch.from_numpy(rout["offsets"]),
+            tengine._gray_f32(torch.from_numpy(frames[:SLICE_BATCH])), (FRAME, FRAME), ropts)
+    worst = 0.0
+    for key, want in cpu.items():
+        got, want = rout["metrics"][key], want.numpy()
+        ok = (np.array_equal(got, want) if key in INT_METRIC_KEYS
+              else np.allclose(got, want, rtol=1e-5, atol=1e-5))
+        worst = max(worst, float(np.abs(got - want).max()))
+        if not ok:
+            raise AssertionError(f"hull_mode reference: {key} on the card differs from the CPU "
+                                 f"plain path (max abs {np.abs(got - want).max()})")
+    valid = rout["valid"]
+    delta = rout["metrics"]["deformability"][valid] - out["metrics"]["deformability"][valid]
+    _say("checkpoint", f"hull_mode reference: {int(valid.sum())} cells, 16 metrics equal the "
+                       f"CPU plain path's (ints exact, floats rtol 1e-5; worst abs diff "
+                       f"{worst:.3g}); deformability - polygon's: mean {delta.mean():.4f}, "
+                       f"max {delta.max():.4f}")
+    st = fpipe._stages(FRAME, FRAME)
+    with torch.inference_mode():
+        img = torch.from_numpy(frames).cuda()
+        boxes, _, valid32 = st["detect"](img)
+        crops, offs = st["segment"](st["embed"](img), boxes, valid32)
+        gray = tengine._gray_f32(img)
+        metric_ms = {"polygon": [], "reference": []}
+        for mode in ("polygon", "reference", "reference", "polygon"):
+            o = dataclasses.replace(opts, hull_mode=mode)
+            metric_ms[mode].append(median_ms(
+                lambda: tengine.metrics_stage(crops, offs, gray, (FRAME, FRAME), o), reps=10))
+    k, cm = crops.shape[0] * crops.shape[1], crops.shape[-1]
+    _say("checkpoint", f"metrics stage ms a batch of {TIMED_BATCH} ({k} crops of {cm}^2, "
+                       f"{opts.num_hull_directions} directions: the reference mode's (K, h, D) "
+                       f"is {k * cm * opts.num_hull_directions / 1e6:.1f} M elements) in turns: "
+                       f"polygon {[round(v, 3) for v in metric_ms['polygon']]}, reference "
+                       f"{[round(v, 3) for v in metric_ms['reference']]} [{card}]")
+    del rpipe, img, crops, offs, gray, st
+    fpipe._stage_cache.clear()
+    del fpipe
+    torch.cuda.empty_cache()
+
+    # (3) MobileSAM from its file (TinyViT naming, BN statistics, no index
+    # buffers) with (4) YOLOv8s from its file, default convs then conv2d_fused
+    mpipe = tengine.CellSegmentationPipeline(
+        yolo_model_path=paths["yolov8s"], sam_model_type="mobile-sam",
+        sam_checkpoint=paths["mobile_sam"], yolo_config=yolov8s(), options=opts, device="cuda")
+    mobile = {**DECODER_COUNTS, **MOBILE_ENCODER_COUNTS, "layer_norm": 10}
+    mobile_launches, _, _ = _drive("mobile-sam + yolov8s from files", mpipe,
+                                   frames[:SLICE_BATCH], 16, mobile)
+    mrel, _, _ = _embedding_vs_plain("mobile-sam from file", {"bf16": (mpipe, 0.05)}, frames[:1],
+                                     encoder_expected=MOBILE_ENCODER_COUNTS)
+    vpipe = _sharing_params(mpipe, dataclasses.replace(opts, conv2d_fused=True))
+    # YOLOv8s's 39 dense convs (down5 at Co 512, level 2's towers at Ci 512),
+    # TinyViT's two stems and its neck's 3x3
+    fused_launches, _, _ = _drive("mobile-sam + yolov8s from files, conv2d_fused", vpipe,
+                                  frames[:SLICE_BATCH], 16, {**mobile, "conv2d_act": 42})
+    widths = sorted({m.weight.shape[-1] for m in vpipe._stages(FRAME, FRAME)["yolo"].modules()
+                     if getattr(m, "fused", False) and m.weight.ndim == 4 and m.k > 1})
+    _say("checkpoint", f"yolov8s: K17's output widths on the path {widths}")
+    if max(widths) != 512:
+        raise AssertionError(f"yolov8s: conv2d_act widths {widths}, expected up to 512")
+    yolo_rel = _yolo_vs_plain("yolov8s from file", {"conv2d_fused": vpipe, "default": mpipe},
+                              frames[:1])
+    del mpipe, vpipe
+    torch.cuda.empty_cache()
+
+    # (5) a path that does not exist raises; nothing falls back to random weights
+    for kw in (dict(yolo_model_path=root / "missing.pt"), dict(sam_checkpoint=root / "missing.pt")):
+        try:
+            tengine.CellSegmentationPipeline(options=opts, device="cuda", **kw)
+        except FileNotFoundError:
+            continue
+        raise AssertionError(f"checkpoint: {kw} did not raise FileNotFoundError")
+    _say("checkpoint", "a missing yolo_model_path or sam_checkpoint raises FileNotFoundError")
+
+    # the runner from the same files, reference hull, on PNG files
+    src, dst = root / "frames", root / "out"
+    src.mkdir()
+    for i in range(SLICE_BATCH):
+        write_png(src / f"frame_{i}.png", frames[i, ..., 0])
+    t0 = time.perf_counter()
+    rc = tapp.main(["--input-dir", str(src), "--output-dir", str(dst), "--yolo-model",
+                    str(paths["yolov8n"]), "--sam-checkpoint", str(paths["sam_vit_b"]),
+                    "--hull-mode", "reference", "--batch-size", str(SLICE_BATCH),
+                    "--max-det", "16"])
+    (run_dir,) = dst.iterdir()
+    with open(run_dir / "cell_metrics.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    _say("checkpoint", f"runner from the files (--hull-mode reference): rc {rc}, "
+                       f"{len(rows)} rows in cell_metrics.csv, {time.perf_counter() - t0:.2f} s")
+    if rc != 0 or not rows or not all(np.isfinite(float(r["deformability"])) for r in rows):
+        raise AssertionError("checkpoint: the runner from files failed")
+    tmp.cleanup()
+    return {"launches": launches, "ref_launches": ref_launches, "builds": builds,
+            "metric_ms": metric_ms, "mobile_launches": mobile_launches,
+            "mobile_rel_rms": mrel["bf16"], "fused_launches": fused_launches,
+            "yolo_rel_rms": yolo_rel}
 
 
 def _yolo_forward_ms(tag: str, pipes: dict, frames, card: str) -> dict:
@@ -2138,7 +2350,8 @@ def _mobile_slice_phase(card: str) -> dict:
 
     t0 = time.perf_counter()
     opts = tengine.PipelineOptions(max_det=16, metric_crop=128)
-    pipe = tengine.CellSegmentationPipeline("mobile-sam", options=opts, device="cuda", seed=0)
+    pipe = tengine.CellSegmentationPipeline(sam_model_type="mobile-sam", options=opts,
+                                            device="cuda", seed=0)
     # the init's biases, LN shifts and attention bias tables are 0 (scales
     # 1): drawn at random here, so the pad-token qkv row, the bias tables and
     # the expanded halo's gelu(b1) reach the embedding check
@@ -2147,12 +2360,7 @@ def _mobile_slice_phase(card: str) -> dict:
     _say("slice", f"mobile-sam: pipeline built (init + cast + upload) "
                   f"{time.perf_counter() - t0:.2f} s")
     frames = cell_frames(np.random.default_rng(6), TIMED_BATCH, FRAME)
-    # per batch: 10 window blocks (K13: one launch at stages 1 and 2, 8
-    # blocks; at stage 3, 2 blocks, attention + 2 GEMMs; K16: depthwise + 2
-    # GEMMs), MBConv x2 + merge2 (K14), merge0 + merge1 (K15); the neck's 2
-    # LayerNorms, then the decoder's
-    encoder = {"gemm_bf16": 24, "tinyvit_block": 8, "tinyvit_attn": 2, "mbconv_block": 3,
-               "patch_merge_block": 2, "dw_conv3x3": 10, "layer_norm": 2}
+    encoder = MOBILE_ENCODER_COUNTS
     launches, _, _ = _drive("mobile-sam", pipe, frames[:SLICE_BATCH], 16,
                          {**DECODER_COUNTS, **encoder, "layer_norm": 10})
     rels, _, _ = _embedding_vs_plain("mobile-sam", {"bf16": (pipe, 0.05)}, frames[:1],
@@ -2249,6 +2457,7 @@ def main() -> int:
     ck = _conv_kernel_phase(card)
     fs = _fused_slice_phase(card, sp["pipe"], sp.pop("frames"), sp["ms_per_batch"])
     dr = _directory_phase(card, sp["pipe"])
+    cp = _checkpoint_phase(card, sp["launches"])
     bk = _big_kernel_phase(card)
     big = {model.rsplit("-", 1)[-1]: _big_slice_phase(card, model, max_det, layers)
            for model, max_det, layers, *_ in BIG_MODELS}
@@ -2313,6 +2522,11 @@ def main() -> int:
         src = "decoder_keys.cu" if name.startswith(("keys", "t2i")) else f"{name}.cu"
         table.append(entry(name, "cuda", f"csrc/{src}", replaces, sp["launches"][name],
                            dp["errs"][name], dt[timed], db[timed], dp["library"].get(timed)))
+    # K9 under hull_mode="reference" (config 1 from checkpoint files): the same call
+    table.append(entry("hull_support reference", "cuda", "csrc/hull_support.cu",
+                       "ops/hull_support.py:55 support_vertices_tpu (hull_mode=\"reference\")",
+                       cp["ref_launches"]["hull_support"], dp["errs"]["hull_support"],
+                       dt["hull_support"], db["hull_support"], dp["library"].get("hull_support")))
     # at T = 784 (the 448 canvas's grid of 28: a short last tile)
     for name, replaces in (("keys_stream", "ops/decoder_fused.py:298 i2t_keys_update"),
                            ("t2i_combine", "ops/decoder_fused.py:298 i2t_keys_update (its "
@@ -2398,12 +2612,14 @@ def main() -> int:
               mt["patch_merge merge0 bf16"], mb["patch_merge merge0 bf16"]),
     ]
     ct, cb, cl = ck["times"], ck["bounds"], ck["library"]
-    for name, shape in (("conv2d_act", "detect box1 level 0"),
-                        ("conv2d_act sam neck", "sam neck"),
-                        ("conv2d_act yolo stem", "yolo stem")):
+    for name, shape, launches in (("conv2d_act", "detect box1 level 0", fs["launches"]),
+                                  ("conv2d_act sam neck", "sam neck", fs["launches"]),
+                                  ("conv2d_act yolo stem", "yolo stem", fs["launches"]),
+                                  ("conv2d_act yolov8s down5", "yolov8s down5",
+                                   cp["fused_launches"])):
         table.append(entry(name, "cuda", "csrc/conv2d_act.cu",
                            "ops/conv2d_fused.py:428 conv2d_act (pallas_call :524)",
-                           fs["launches"]["conv2d_act"], ck["errs"]["conv2d_act"], ct[shape],
+                           launches["conv2d_act"], ck["errs"]["conv2d_act"], ct[shape],
                            cb[shape], cl[shape], (ck["device"][shape], None)))
     rt, rb, rl = rk["times"], rk["bounds"], rk["library"]
     k12_src = "csrc/flash_attention_relpos.cu"
@@ -2460,6 +2676,14 @@ def main() -> int:
                    f"{TIMED_BATCH / ms['ms_per_batch'] * 1000:.2f} img/s; config 4 "
                    f"{lf['ms config 4']:.2f} ms/batch of {lf['batch config 4']} = "
                    f"{lf['batch config 4'] / lf['ms config 4'] * 1000:.2f} img/s [{card}]")
+    bt_ms, mt_ms = cp["builds"], cp["metric_ms"]
+    _say("result", f"config 1 build from checkpoint files (load + convert + adapt + cast + "
+                   f"upload) {statistics.median(bt_ms['files']) * 1000:.1f} ms, seeded build "
+                   f"{statistics.median(bt_ms['seeded']) * 1000:.1f} ms (medians of the turns) "
+                   f"[{card}]")
+    _say("result", f"metrics stage at batch {TIMED_BATCH}: hull_mode reference "
+                   f"{statistics.median(mt_ms['reference']):.3f} ms, polygon "
+                   f"{statistics.median(mt_ms['polygon']):.3f} ms (medians of the turns) [{card}]")
     for row in table:
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']}: no launch on its path")

@@ -661,6 +661,10 @@ def test_dw_ln_mlp_vs_plain(gen, shape):
     ((2, 64, 144, 16), 128, 3, 1, "silu", True, False),   # enough tiles for 128 columns a block
     ((2, 128, 144, 16), 256, 3, 1, "none", True, False),  # and for 256
     ((3, 128, 256, 16), 256, 3, 2, "silu", True, False),  # and for 256 at stride 2
+    ((2, 16, 16, 256), 512, 3, 2, "silu", True, False),   # YOLOv8s down5: Co 512
+    ((2, 8, 8, 256), 256, 3, 1, "silu", True, True),      # v8s c2f5's bottleneck, a slice
+    ((2, 8, 8, 512), 64, 3, 1, "silu", True, False),      # v8s detect box1 at level 2: Ci 512
+    ((2, 8, 8, 512), 128, 3, 1, "silu", True, False),     # v8s detect cls1 at level 2
 ])
 def test_conv2d_act_vs_plain(gen, shape, co, k, stride, act, bias, sliced):
     """K17 at each geometry of the paths (narrower images, same widths)."""
@@ -687,6 +691,28 @@ def test_conv2d_act_refuses_what_the_kernel_does_not_take(gen):
     before = tcv.conv2d_act.launches
     tcv.conv2d_act(x, _randn(gen, 1, 1, 16, 16), None, k=1)  # a matmul: no launch
     assert tcv.conv2d_act.launches == before
+
+
+@pytest.mark.cuda
+def test_rasterized_hull_on_the_card_equals_the_cpu(gen):
+    """``hull_mode="reference"``: on a CUDA tensor the support vertices come
+    from K9's kernel, and the rasterised hull's measures equal the CPU plain
+    path's (areas exact, perimeters to fp32 summation order)."""
+    from yolo_sam_inference_tpu_torch.ops.hull_support import support_points
+    from yolo_sam_inference_tpu_torch.ops.metrics import rasterized_hull_measures
+
+    yy, xx = torch.meshgrid(torch.arange(128.0), torch.arange(128.0), indexing="ij")
+    c = torch.rand(64, 2, 1, 1, generator=gen) * 60 + 34  # centres, edges and corners too
+    c[:8] = torch.rand(8, 2, 1, 1, generator=gen) * 8
+    ax = torch.rand(64, 2, 1, 1, generator=gen) * 28 + 6
+    masks = ((yy - c[:, 0]) / ax[:, 0]) ** 2 + ((xx - c[:, 1]) / ax[:, 1]) ** 2 <= 1.0
+    masks[-1] = False
+    before = support_points.launches
+    area, perim = rasterized_hull_measures(masks.cuda())
+    assert support_points.launches == before + 1
+    want_a, want_p = rasterized_hull_measures(masks)
+    assert torch.equal(area.cpu(), want_a) and want_a[-1] == 0 and (want_a[:-1] > 0).all()
+    torch.testing.assert_close(perim.cpu(), want_p, rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda

@@ -353,11 +353,15 @@ def test_runner_app_matches_jax(tmp_path, monkeypatch):
         trees[name] = sorted(str(p.relative_to(run_dir)) for p in run_dir.rglob("*"))
     assert trees["port"] == trees["jax"]
     assert {"cell_metrics.csv", "processing_times.csv", "run_summary.txt"} <= set(trees["port"])
-    for argv in (["--yolo-model", "y.pt"], ["--sam-checkpoint", "s.pt"], ["--run-id", "r"],
-                 ["--hull-mode", "reference"], ["--encoder-parallel", "sp"],
-                 ["--encoder-parallel", "tp"]):
+    for argv in (["--encoder-parallel", "sp"], ["--encoder-parallel", "tp"],
+                 ["--parallel-devices", "2"]):
         with pytest.raises(SystemExit):
             tapp.parse_args(["--input-dir", str(src), "--output-dir", "o", *argv])
+    args = tapp.parse_args(["--input-dir", str(src), "--output-dir", "o", "--yolo-model", "y.pt",
+                            "--sam-checkpoint", "s.pt", "--experiment-id", "e", "--run-id", "r",
+                            "--hull-mode", "reference"])
+    assert (args.yolo_model, args.sam_checkpoint, args.run_id, args.hull_mode) == \
+        ("y.pt", "s.pt", "r", "reference")
 
 
 def test_bench_entry_on_the_cpu(monkeypatch, capsys):

@@ -209,7 +209,7 @@ def test_encoder_parallel_validation(opts, match):
 def test_encoder_parallel_refuses_tinyvit_and_unknown_modes():
     with pytest.raises(ValueError, match="ViT SAM encoders only"):
         tengine.CellSegmentationPipeline(
-            "mobile-sam", device="cpu", sam_config=sam_tiny_test(),
+            sam_model_type="mobile-sam", device="cpu", sam_config=sam_tiny_test(),
             options=tengine.PipelineOptions(encoder_parallel="sp"),
         )._stages(64, 64)
     with pytest.raises(ValueError, match="encoder_parallel must be one of"):

@@ -625,7 +625,7 @@ def mobile_both():
         yolo_config=JaxYoloConfig(num_classes=1), seed=0,
         options=jengine.PipelineOptions(compute_dtype=jnp.float32, **MOBILE_OPTS))
     tp = tengine.CellSegmentationPipeline(
-        "mobile-sam", device="cpu", sam_config=dataclasses.replace(
+        sam_model_type="mobile-sam", device="cpu", sam_config=dataclasses.replace(
             sam_tiny_test(), image_size=64, patch_size=16),
         yolo_config=YoloConfig(num_classes=1), seed=0,
         options=tengine.PipelineOptions(compute_dtype=torch.float32, **MOBILE_OPTS))
@@ -786,5 +786,5 @@ def test_mbconv_compute_refuses_unknown_modes(tinyvit_tree):
         TinyViT(tinyvit_tree, TinyViTConfig(image_size=64), mbconv_compute="bfloat16")
     with pytest.raises(ValueError, match="tinyvit_mbconv_compute must be one of"):
         tengine.CellSegmentationPipeline(
-            "mobile-sam", device="cpu", sam_config=sam_tiny_test(),
+            sam_model_type="mobile-sam", device="cpu", sam_config=sam_tiny_test(),
             options=tengine.PipelineOptions(tinyvit_mbconv_compute="fp16"))

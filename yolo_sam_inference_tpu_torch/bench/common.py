@@ -19,6 +19,7 @@ CONV_SHAPES = (
     ("sam neck", (32, 32, 256), 256, 3, 1, "none", False, False),
     ("tinyvit stem1", (512, 512, 3), 32, 3, 2, "gelu", True, False),
     ("s2d down4 exit k2", (32, 32, 256), 128, 2, 1, "silu", True, False),
+    ("yolov8s down5", (32, 32, 256), 512, 3, 2, "silu", True, False),
 )
 # K16's depthwise at TinyViT-5M's three block stages on the 512 canvas:
 # (stage, grid side, C)

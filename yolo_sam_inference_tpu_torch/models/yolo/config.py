@@ -50,3 +50,13 @@ class YoloConfig:
 
 def yolov8n(num_classes: int = 1) -> YoloConfig:
     return YoloConfig(depth_mult=1 / 3, width_mult=0.25, num_classes=num_classes)
+
+
+def yolov8s(num_classes: int = 1) -> YoloConfig:
+    return YoloConfig(depth_mult=1 / 3, width_mult=0.5, num_classes=num_classes)
+
+
+def yolov8m(num_classes: int = 1) -> YoloConfig:
+    return YoloConfig(
+        depth_mult=2 / 3, width_mult=0.75, max_channels=768, num_classes=num_classes
+    )

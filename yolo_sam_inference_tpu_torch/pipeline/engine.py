@@ -25,8 +25,9 @@ go up from pinned host buffers and come back through one pinned fp32 row
 pack (``_pack_csv_outputs``) and, where masks are asked for, a device-side
 bitpack of the crops (:func:`pack_bits`, 1 bit a pixel).
 
-Weights are random (the JAX package's numpy init, so one seed gives the same
-weights in both); checkpoint loading is not ported yet. Parameters are cast
+Weights come from checkpoint files (``models/yolo/convert.py``,
+``models/sam/convert.py``) or are random (the JAX package's numpy init, so
+one seed gives the same weights in both). Parameters are cast
 to ``compute_dtype`` once, when a stage set is built, not per call; with
 ``quant="int8"`` the encoder's qkv and MLP weights are then quantised (w8a8,
 ``ops/quant.py``) from the cast weights, as the JAX engine orders it.
@@ -56,14 +57,21 @@ from ..models.sam import (
     init_sam_params,
     init_tinyvit_params,
     is_tinyvit,
+    load_sam_params,
     sam_vit_b,
     sam_vit_h,
     sam_vit_l,
 )
-from ..models.yolo import YoloConfig, decode_predictions, init_yolo_params, yolov8n
+from ..models.yolo import (
+    YoloConfig,
+    decode_predictions,
+    init_yolo_params,
+    load_yolo_params,
+    yolov8n,
+)
 from ..io.images import list_image_files, load_image
 from ..ops.mbconv_fused import COMPUTE_MODES
-from ..ops.metrics import INT_METRIC_KEYS, METRIC_KEYS, cell_metrics
+from ..ops.metrics import HULL_MODES, INT_METRIC_KEYS, METRIC_KEYS, cell_metrics
 from ..ops.nms import batched_nms
 from ..ops.preprocess import letterbox_batch, sam_preprocess_batch
 from ..ops.quant import quantize_sam_encoder_params
@@ -112,6 +120,10 @@ class PipelineOptions:
     # multiple of 32, capped at 640)
     yolo_size: Optional[int] = None
     num_hull_directions: int = 256
+    # "polygon" = the exact hull polygon's measures; "reference" = the
+    # reference's rasterise-and-remeasure procedure (ops/metrics.py
+    # rasterized_hull_measures: deformability about +0.03)
+    hull_mode: str = "polygon"
     compute_dtype: torch.dtype = torch.bfloat16
     # SAM encoder canvas: None = native resolution (smallest of 256/512/768/
     # 1024 that fits the frame); weights are adapted at stage build time
@@ -293,7 +305,7 @@ def metrics_stage(
     img_idx = torch.arange(b, device=mask_crops.device).repeat_interleave(k)
     mets = cell_metrics(
         mask_crops.reshape(b * k, cm, cm), gray, img_idx, offsets.reshape(b * k, 2),
-        image_hw, opts.num_hull_directions,
+        image_hw, opts.num_hull_directions, opts.hull_mode,
     )
     return {key: v.reshape(b, k) for key, v in mets.items()}
 
@@ -358,16 +370,23 @@ class CellSegmentationPipeline:
     """YOLO + SAM + morphometrics pipeline on one device (default ``"cuda"``).
 
     Asking for CUDA where there is none raises; nothing falls back to the CPU.
-    With ``encoder_parallel="sp"`` it is one rank of a ``torch.distributed``
-    program: ``process_group`` (default: the world group) holds the ranks,
-    each calls the pipeline on the same batch. ``params`` = (YOLO tree, SAM
-    tree) in the JAX layout replaces the seeded random init.
+    ``yolo_model_path`` (an ultralytics state dict) and ``sam_checkpoint``
+    (HF ``SamModel`` or MobileSAM, ``.safetensors`` / ``.bin`` / ``.pt``) load
+    weights from files; a path that does not exist raises
+    ``FileNotFoundError``. A model given no file draws seeded random weights
+    (the JAX package's numpy init). With ``encoder_parallel="sp"`` it is one
+    rank of a ``torch.distributed`` program: ``process_group`` (default: the
+    world group) holds the ranks, each calls the pipeline on the same batch.
+    ``params`` = (YOLO tree, SAM tree) in the JAX layout replaces both the
+    files and the init.
     """
 
     def __init__(
         self,
+        yolo_model_path: Optional[Union[str, Path]] = None,
         sam_model_type: str = "facebook/sam-vit-base",
         device: Union[str, torch.device] = "cuda",
+        sam_checkpoint: Optional[Union[str, Path]] = None,
         options: Optional[PipelineOptions] = None,
         seed: int = 0,
         sam_config: Optional[SamTPUConfig] = None,
@@ -383,6 +402,8 @@ class CellSegmentationPipeline:
         self.process_group = process_group
         if self.options.quant not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {self.options.quant!r}: one of {QUANT_MODES}")
+        if self.options.hull_mode not in HULL_MODES:
+            raise ValueError(f"unknown hull_mode {self.options.hull_mode!r}: one of {HULL_MODES}")
         if self.options.tinyvit_mbconv_compute not in COMPUTE_MODES:
             raise ValueError(f"tinyvit_mbconv_compute must be one of {COMPUTE_MODES}, got "
                              f"{self.options.tinyvit_mbconv_compute!r}")
@@ -397,7 +418,10 @@ class CellSegmentationPipeline:
         else:
             raise ValueError(f"unknown SAM model type: {sam_model_type}")
         if params is None:
-            self._initialize_models(seed)
+            self._initialize_models(yolo_model_path, sam_checkpoint, seed)
+        elif yolo_model_path is not None or sam_checkpoint is not None:
+            raise ValueError("CellSegmentationPipeline: params= replaces the checkpoint files; "
+                             "pass either params or yolo_model_path / sam_checkpoint")
         else:
             self.yolo_params, self.sam_params = params
         self._stage_cache: Dict[Tuple[int, int], Dict[str, Any]] = {}
@@ -406,13 +430,29 @@ class CellSegmentationPipeline:
         self._slots: List[_Slot] = []
         self._slot_next = 0
 
-    def _initialize_models(self, seed: int) -> None:
-        """Random init on the host, the JAX engine's sub-seeds (2s, 2s + 1).
-        MobileSAM draws the whole SAM tree first (so the decoder's draws are
+    def _initialize_models(self, yolo_path, sam_ckpt, seed: int) -> None:
+        """Each model from its file where one is given, else a random init on
+        the host with the JAX engine's sub-seeds (2s, 2s + 1). MobileSAM
+        takes its TinyViT from the file where the file has one; with no SAM
+        file it draws the whole SAM tree first (so the decoder's draws are
         the same), then TinyViT's from seed + 1, and drops the ViT encoder."""
-        self.yolo_params = init_yolo_params(2 * seed, self.yolo_config)
-        self.sam_params = init_sam_params(2 * seed + 1, self.sam_config)
-        if self.sam_model_type in TINYVIT_TYPES:
+        for path in (yolo_path, sam_ckpt):
+            if path is not None and not Path(path).exists():
+                raise FileNotFoundError(f"checkpoint not found: {path}")
+        if yolo_path is not None:
+            logger.info("Loading YOLO weights from %s", yolo_path)
+            self.yolo_params = load_yolo_params(str(yolo_path), self.yolo_config)
+        else:
+            self.yolo_params = init_yolo_params(2 * seed, self.yolo_config)
+        if sam_ckpt is not None:
+            logger.info("Loading SAM weights from %s", sam_ckpt)
+            self.sam_params = load_sam_params(str(sam_ckpt), self.sam_config)
+        else:
+            self.sam_params = init_sam_params(2 * seed + 1, self.sam_config)
+        if self.sam_model_type in TINYVIT_TYPES and "tinyvit" not in self.sam_params:
+            if sam_ckpt is not None:
+                raise ValueError(f"{self.sam_model_type}: {sam_ckpt} holds no TinyViT encoder "
+                                 "(image_encoder.* in MobileSAM naming)")
             tcfg = TinyViTConfig(image_size=self.sam_config.image_size,
                                  output_channels=self.sam_config.output_channels)
             self.sam_params = dict(self.sam_params)

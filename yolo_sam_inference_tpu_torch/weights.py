@@ -1,14 +1,16 @@
 """Weight bridge: JAX-layout parameter trees -> the port's modules.
 
-The trees are the JAX package's (numpy leaves): ``init_yolo_params`` /
-``init_sam_params`` from either package, or trees converted from checkpoints
-by the JAX package, including trees whose encoder projections were quantised
-(``{"wq", "wscale", "b"}`` records, ``ops.quant.quantize_sam_encoder_params``
-of either package), and MobileSAM trees, whose ``"tinyvit"`` subtree takes
-the place of ``"vision"`` (``SamModel`` then builds TinyViT as its encoder).
-Layout changes happen in the module constructors (conv weights HWIO -> OIHW
-for ``F.conv2d``; with ``conv2d_fused`` the dense convs keep HWIO for
-``conv2d_act``); linear weights keep the (in, out) layout.
+The trees are in the JAX package's layout (numpy leaves): ``init_yolo_params``
+/ ``init_sam_params`` from either package, trees converted from checkpoint
+files by either package's converters (the port's own are
+``models/yolo/convert.py`` and ``models/sam/convert.py``), trees whose
+encoder projections were quantised (``{"wq", "wscale", "b"}`` records,
+``ops.quant.quantize_sam_encoder_params`` of either package), and MobileSAM
+trees, whose ``"tinyvit"`` subtree takes the place of ``"vision"``
+(``SamModel`` then builds TinyViT as its encoder). Layout changes happen
+in the module constructors (conv weights HWIO -> OIHW for ``F.conv2d``;
+with ``conv2d_fused`` the dense convs keep HWIO for ``conv2d_act``); linear
+weights keep the (in, out) layout.
 
 :func:`save_tree` and :func:`load_tree` carry a tree between processes (the
 ranks of a multi-process run) as one uncompressed ``.npz``.
@@ -56,6 +58,9 @@ def from_jax_params(
         for name, p in sam.named_parameters():
             if p.is_floating_point() and not name.endswith(".wscale"):
                 p.data = p.data.to(dtype)
+            # converted leaves may be strided views (a folded conv's transpose);
+            # the kernels take contiguous weights
+            p.data = p.data.contiguous()
     return yolo, sam
 
 
