@@ -64,6 +64,25 @@ failure ends the run with a non-zero exit and no result line:
    512, YOLO maps against fp32 plain); a missing path raises
    ``FileNotFoundError``; the runner on 8 PNG files from the same
    checkpoints with ``--hull-mode reference``;
+4e. serve: the port's HTTP service (``web/serve.py``) in-process at config 1
+   on the slice's stages, batch 32, loopback port 0: 96 requests (raw and
+   PNG bodies, ``?masks=1``, ``?fmt=bin``) from 48 client threads, launch
+   counts per batch dispatched, each response's cells against
+   ``process_batch_arrays`` on the 32 frames as one batch (1e-5), its masks
+   against the crops, each binary record against its JSON, ``/stats``;
+   then ``bench/serve.py`` at batch 32, inflight 64, 256 measured requests,
+   once with JSON and once with binary responses;
+4f. project: ``apps/project_inference.main`` on 2 conditions x 2 ``batch_*``
+   folders x 8 mode-L PNG frames, ``--roi 100,400 --batch-size 8``: launch
+   counts, the file set, the combined and gated CSVs against the
+   per-condition files and ``filter_cells_by_roi``, every row against
+   ``process_batch_arrays`` on the same frames (1e-5);
+4g. apps: ``apps/quant_report.run_report`` over 32 frames with a bf16 and a
+   ``quant="int8"`` config-1 pipeline on the same weights (K11a and K11c
+   counted; the summary against ``compare_outputs`` of their own outputs;
+   finite values) and ``apps/yolo_frame_cleaner.clean_frames`` with
+   ``conv2d_fused=True`` (39 K17 launches; each frame's class against
+   ``classify_frame`` on ``detect_batch_arrays``; its files);
 5. big kernels: the kernels of the ViT-L/H paths at their batch-32 shapes:
    ``gemm_bf16`` at the ViT-L/H qkv and MLP (K10) widths and the attention at
    hd 80 against fp32 plain versions, and the w8a8 kernels (K11c, K11a,
@@ -173,6 +192,10 @@ OFF_GRID = 640  # the off-grid canvas and frames (grid 40, window 14)
 SP_RANKS = 2  # sequence-parallel ranks (one card: they share it)
 SP_BATCH = 2  # frames per sequence-parallel batch
 DIR_FILES = 256  # PNG files through process_directory (8 batches of TIMED_BATCH)
+SERVE_REQUESTS = 3 * TIMED_BATCH  # the service's requests: three a frame
+SERVE_CLIENTS = 48  # client threads posting them
+SERVE_BENCH_ARGS = ("--inflight", "64", "--requests", "256", "--warm-requests", "64")
+PROJECT_FILES = 8  # PNG files a batch_* folder of the project runner's tree
 # published H100 SXM peaks (NVIDIA data sheet): bytes/s and operations/s
 PEAK = {"hbm": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # the decoder, crop and hull kernels of one batch (max_det prompts an image)
@@ -1558,9 +1581,7 @@ def _directory_phase(card: str, pipe) -> dict:
     against ``process_batch_arrays`` on the same batch, the bitpack round
     trip, ``fused_call_chunked`` against ``fused_call``, the CSVs read back,
     the visualisations of 4 files; then the bench entry's line."""
-    import copy
     import csv
-    import dataclasses
     import os
     import tempfile
 
@@ -1576,9 +1597,7 @@ def _directory_phase(card: str, pipe) -> dict:
     from yolo_sam_inference_tpu_torch.reporting import save_results_to_csv
 
     # the same stages and weights; batch_size reaches only the loader
-    dpipe = copy.copy(pipe)
-    dpipe.options = dataclasses.replace(pipe.options, batch_size=TIMED_BATCH)
-    dpipe._slots, dpipe._slot_next = [], 0
+    dpipe = _batch_copy(pipe, TIMED_BATCH)
     dev = dpipe.device
     result: dict = {}
     phase_t0 = t0 = time.perf_counter()
@@ -1929,6 +1948,443 @@ def _checkpoint_phase(card: str, seeded_launches: dict) -> dict:
             "metric_ms": metric_ms, "mobile_launches": mobile_launches,
             "mobile_rel_rms": mrel["bf16"], "fused_launches": fused_launches,
             "yolo_rel_rms": yolo_rel}
+
+
+def _batch_copy(pipe, batch: int, **changes):
+    """``pipe``'s host trees (and, with no option changed but the batch, its
+    stages) behind new options and host slots of its own."""
+    import copy
+    import dataclasses
+
+    other = copy.copy(pipe)
+    other.options = dataclasses.replace(pipe.options, batch_size=batch, **changes)
+    if changes:
+        other._stage_cache = {}
+    other._slots, other._slot_next = [], 0
+    return other
+
+
+def _rows_against(tag: str, rows, out, j: int) -> int:
+    """Metric rows (response cells or CSV rows, numbers or their text) of one
+    frame against image ``j`` of ``process_batch_arrays`` outputs: the same
+    cells, ints exact, floats within rtol = atol = 1e-5. Returns the cells."""
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.ops.metrics import INT_METRIC_KEYS, METRIC_KEYS
+
+    kept = np.flatnonzero(out["valid"][j])
+    if len(rows) != len(kept):
+        raise AssertionError(f"{tag}: {len(rows)} cells, process_batch_arrays {len(kept)}")
+    for row, k in zip(rows, kept):
+        for key in METRIC_KEYS:
+            got, want = float(row[key]), float(out["metrics"][key][j, k])
+            want = float(np.round(want)) if key in INT_METRIC_KEYS else want
+            if not abs(got - want) <= 1e-5 + 1e-5 * abs(want):
+                raise AssertionError(f"{tag}: {key} {got} against process_batch_arrays' {want}")
+    return len(kept)
+
+
+def _ysb1(buf: bytes) -> tuple:
+    """(keys, boxes, scores, metrics, [(offset, mask)]) of a YSB1 record."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if buf[:4] != b"YSB1":
+        raise AssertionError("serve: a binary response without its YSB1 magic")
+    n, nm, flags = struct.unpack_from("<III", buf, 4)
+    (klen,) = struct.unpack_from("<I", buf, 16)
+    keys = buf[20:20 + klen].decode().split(",")
+    off = 20 + klen
+    boxes = np.frombuffer(buf, "<f4", n * 4, off).reshape(n, 4)
+    off += n * 16
+    scores = np.frombuffer(buf, "<f4", n, off)
+    off += n * 4
+    metrics = np.frombuffer(buf, "<f4", n * nm, off).reshape(n, nm)
+    off += n * nm * 4
+    masks = []
+    for _ in range(n if flags & 1 else 0):
+        oy, ox, h, w, nb = struct.unpack_from("<IIIII", buf, off)
+        bits = np.unpackbits(np.frombuffer(zlib.decompress(buf[off + 20:off + 20 + nb]),
+                                           np.uint8))
+        masks.append(([oy, ox], bits[:h * w].reshape(h, w).astype(bool)))
+        off += 20 + nb
+    if off != len(buf):
+        raise AssertionError(f"serve: a binary record of {len(buf)} bytes ends at {off}")
+    return keys, boxes, scores, metrics, masks
+
+
+def _serve_phase(card: str, pipe) -> dict:
+    """The port's HTTP service in-process at config 1 over ``pipe``'s stages:
+    batch TIMED_BATCH, 512x512, loopback port 0. SERVE_REQUESTS requests from
+    SERVE_CLIENTS client threads, three a frame of TIMED_BATCH frames (a PNG
+    body with JSON and masks, a raw body with the binary record and masks, a
+    PNG or raw body with JSON alone), counts set to 0 just before and read
+    just after: K1-K9 per batch dispatched; each response's cells equal
+    ``process_batch_arrays`` on the frames as one batch (1e-5), its masks the
+    crops, the binary record the JSON, /stats counts every request. Then
+    ``bench/serve.py`` for one short leg a response format."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench import serve as bserve
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames
+    from yolo_sam_inference_tpu_torch.io.png import png_bytes
+    from yolo_sam_inference_tpu_torch.ops.metrics import METRIC_KEYS
+    from yolo_sam_inference_tpu_torch.utils.mask_encoding import decode_binary_mask
+    from yolo_sam_inference_tpu_torch.web import serve as tserve
+
+    phase_t0 = time.perf_counter()
+    spipe = _batch_copy(pipe, TIMED_BATCH)
+    gray = cell_frames(np.random.default_rng(2), TIMED_BATCH, FRAME)[..., 0]
+    ref = spipe.process_batch_arrays(gray)
+    raw = {"Content-Type": "application/octet-stream", "X-Shape": f"{FRAME}x{FRAME}"}
+    png = {"Content-Type": "image/png"}
+    # (frame, query, body, headers): three requests a frame
+    jobs = []
+    for i, frame in enumerate(gray):
+        jobs += [(i, "?masks=1", png_bytes(frame, i % 5), png),
+                 (i, "?masks=1&fmt=bin", frame.tobytes(), raw),
+                 (i, "", png_bytes(frame, 1), png) if i % 2 else (i, "", frame.tobytes(), raw)]
+    if len(jobs) != SERVE_REQUESTS:
+        raise AssertionError(f"serve: {len(jobs)} requests made, SERVE_REQUESTS {SERVE_REQUESTS}")
+
+    server, service = tserve.serve(spipe, port=0, batch_size=TIMED_BATCH, max_wait_ms=5.0,
+                                   image_shape=(FRAME, FRAME))
+    loop = threading.Thread(target=server.serve_forever, daemon=True)
+    loop.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    results, errors, lock = {}, [], threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                if not jobs:
+                    return
+                i, query, body, headers = jobs.pop()
+            try:
+                req = urllib.request.Request(url + "/segment" + query, data=body,
+                                             headers=headers, method="POST")
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    data = r.read()
+                results[i, query] = data if "fmt=bin" in query else _json.loads(data)
+            except Exception as e:  # every failed request fails the phase below
+                errors.append(f"{query} frame {i}: {e!r}")
+
+    try:
+        wrappers = _reset_counts()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client) for _ in range(SERVE_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        secs = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            stats = _json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.stop()
+        loop.join(timeout=5)
+    if errors or any(t.is_alive() for t in clients):
+        raise AssertionError(f"serve: {len(errors)} requests failed: {errors[:3]}")
+    batches = stats["batches"]
+    launches = _read_counts("serve", wrappers, {k: v * batches for k, v in CONFIG1_COUNTS.items()},
+                            by_window={16: 8 * batches, 32: 4 * batches})
+    _say("serve", f"{SERVE_REQUESTS} requests from {SERVE_CLIENTS} client threads in "
+                  f"{secs:.3f} s = {SERVE_REQUESTS / secs:.2f} req/s; /stats {_json.dumps(stats)} "
+                  f"[{card}]")
+    if (stats["requests"], stats["images_batched"], stats["errors"]) != (SERVE_REQUESTS,
+                                                                        SERVE_REQUESTS, 0):
+        raise AssertionError(f"serve: /stats {stats} does not count {SERVE_REQUESTS} requests")
+
+    cells = 0
+    for i in range(TIMED_BATCH):
+        resp, plain = results[i, "?masks=1"], results[i, ""]
+        cells += _rows_against(f"serve frame {i} (PNG, JSON)", resp["cells"], ref, i)
+        _rows_against(f"serve frame {i} (no masks)", plain["cells"], ref, i)
+        kept = np.flatnonzero(ref["valid"][i])
+        for m, k in zip(resp["masks"], kept):
+            if m["offset"] != ref["offsets"][i, k].tolist() or not np.array_equal(
+                    decode_binary_mask(m), ref["mask_crops"][i, k]):
+                raise AssertionError(f"serve: frame {i} cell {k}: the mask is not the crop")
+        keys, boxes, scores, metrics, masks = _ysb1(results[i, "?masks=1&fmt=bin"])
+        same = (keys == list(METRIC_KEYS)
+                and np.array_equal(boxes, np.asarray(resp["boxes"], np.float32))
+                and np.array_equal(scores, np.asarray(resp["scores"], np.float32))
+                and np.array_equal(metrics, np.asarray(
+                    [[c[k] for k in keys] for c in resp["cells"]], np.float32).reshape(
+                        metrics.shape))
+                and len(masks) == len(resp["masks"])
+                and all(o == m["offset"] and np.array_equal(b, decode_binary_mask(m))
+                        for (o, b), m in zip(masks, resp["masks"])))
+        if not same:
+            raise AssertionError(f"serve: frame {i}: the binary record differs from the JSON")
+    _say("serve", f"every response equals process_batch_arrays on the {TIMED_BATCH} frames as "
+                  f"one batch ({cells} cells a format; rtol = atol = 1e-5), its masks the "
+                  f"crops, each binary record its JSON")
+
+    # the service's ceiling in this call: the collector's batch alone
+    # (dispatch, then fetch, no mask bitpack), no HTTP load, bench/serve.py's frame
+    frames = np.broadcast_to(bserve.bench_frame(FRAME, np.random.default_rng(0)),
+                             (TIMED_BATCH, FRAME, FRAME)).copy()
+    per_batch = []
+    for _ in range(1 + TIMED_ITERS + 2):
+        t0 = time.perf_counter()
+        spipe._fetch_outputs(spipe._dispatch_batch(frames, fetch_masks=False))
+        per_batch.append(time.perf_counter() - t0)
+    ceiling_ms = statistics.median(per_batch[1:]) * 1e3
+    _say("serve", f"the collector's batch alone (dispatch + fetch, no HTTP load): median "
+                  f"{ceiling_ms:.2f} ms a batch of {TIMED_BATCH} = "
+                  f"{TIMED_BATCH / ceiling_ms * 1e3:.2f} img/s (ms "
+                  f"{[round(t * 1e3, 2) for t in per_batch[1:]]}) [{card}]")
+    # under the bench's load: the collector's dispatch and fetch timed on the
+    # pipeline instance (the bound methods shadowed for the leg alone)
+    dispatch, fetch = spipe._dispatch_batch, spipe._fetch_outputs
+    legs, spans = {}, {}
+    for fmt in ("json", "bin"):
+        spans[fmt] = {"dispatch": [], "fetch": []}
+
+        def timed_dispatch(*a, _s=spans[fmt], **k):
+            t0 = time.perf_counter()
+            handle = dispatch(*a, **k)
+            _s["dispatch"].append(time.perf_counter() - t0)
+            return handle
+
+        def timed_fetch(handle, _s=spans[fmt]):
+            t0 = time.perf_counter()
+            out = fetch(handle)
+            _s["fetch"].append(time.perf_counter() - t0)
+            return out
+
+        spipe._dispatch_batch, spipe._fetch_outputs = timed_dispatch, timed_fetch
+        t0 = time.perf_counter()
+        try:
+            legs[fmt] = bserve.run(["--batch", str(TIMED_BATCH), "--size", str(FRAME),
+                                    *SERVE_BENCH_ARGS, "--fmt", fmt], "cuda", pipeline=spipe)
+        finally:
+            del spipe._dispatch_batch, spipe._fetch_outputs
+        wall = time.perf_counter() - t0
+        d_ms, f_ms = (sorted(spans[fmt][k]) for k in ("dispatch", "fetch"))
+        _say("serve", f"bench/serve.py {fmt} leg: {len(d_ms)} batches in {wall:.3f} s (warm-up "
+                      f"batch included); the collector's dispatch median "
+                      f"{statistics.median(d_ms) * 1e3:.2f} ms, fetch "
+                      f"{statistics.median(f_ms) * 1e3:.2f} ms a batch under load; busy "
+                      f"{(sum(d_ms) + sum(f_ms)) / wall:.3f} of the leg [{card}]")
+        if legs[fmt]["errors"]:
+            raise AssertionError(f"serve: bench/serve.py {fmt} leg: {legs[fmt]['errors']} errors")
+        _say("serve", f"bench/serve.py line: {_json.dumps(legs[fmt])}")
+        _say("serve", f"bench/serve.py --batch {TIMED_BATCH} {' '.join(SERVE_BENCH_ARGS)} "
+                      f"--fmt {fmt}: {legs[fmt]['value']} img/s, p50 "
+                      f"{legs[fmt]['p50_request_latency_ms']} ms, p99 "
+                      f"{legs[fmt]['p99_request_latency_ms']} ms, fill "
+                      f"{legs[fmt]['mean_batch_fill']}, host CPU "
+                      f"{legs[fmt]['host_cpu_ms_per_request']} ms a request [{card}]")
+    _say("serve", f"phase done in {time.perf_counter() - phase_t0:.1f} s")
+    return {"launches": launches, "stats": stats, "req_s": SERVE_REQUESTS / secs, "bench": legs,
+            "ceiling_ms": ceiling_ms}
+
+
+def _project_phase(card: str, pipe) -> dict:
+    """The port's project runner, ``apps/project_inference.main``, on a tree
+    of 2 conditions x 2 ``batch_*`` folders x PROJECT_FILES mode-L 512x512
+    PNGs with ``--roi 100,400 --batch-size 8 --max-det 16`` (batches of 16:
+    one a condition), counts set to 0 just before and read just after: K1-K9
+    on both batches; the expected files; the combined CSV the per-condition
+    files one after the other; the gated CSV ``filter_cells_by_roi`` of the
+    combined rows and each condition's gated file its share; every row equal
+    to ``process_batch_arrays`` on the same frames (1e-5)."""
+    import csv
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.apps import project_inference as tapp
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, write_png
+    from yolo_sam_inference_tpu_torch.gate.filter import filter_cells_by_roi
+
+    def read(path):
+        with open(path, newline="") as f:
+            return list(csv.DictReader(f))
+
+    phase_t0 = time.perf_counter()
+    conds = ("cond_a", "cond_b")
+    per_cond = 2 * PROJECT_FILES
+    gray = cell_frames(np.random.default_rng(3), 2 * per_cond, FRAME)[..., 0]
+    with tempfile.TemporaryDirectory() as td:
+        root, out = Path(td) / "project", Path(td) / "out"
+        names = {}
+        for c, cond in enumerate(conds):
+            names[cond] = []
+            for b in range(2):
+                (root / cond / f"batch_{b + 1}").mkdir(parents=True)
+                for i in range(PROJECT_FILES):
+                    name = f"b{b + 1}_f{i:02d}.png"
+                    write_png(root / cond / f"batch_{b + 1}" / name,
+                              gray[c * per_cond + b * PROJECT_FILES + i])
+                    names[cond].append(name)
+        wrappers = _reset_counts()
+        t0 = time.perf_counter()
+        rc = tapp.main(["--project-dir", str(root), "--output-dir", str(out), "--roi", "100,400",
+                        "--batch-size", "8", "--max-det", str(pipe.options.max_det)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _read_counts("project", wrappers,
+                                {k: 2 * v for k, v in CONFIG1_COUNTS.items()},
+                                by_window={16: 16, 32: 8})
+        gc.collect()  # the runner's pipeline and its device weights
+        (run_dir,) = out.iterdir()
+        run = run_dir.name
+        want = {"cell_metrics.csv", "processing_times.csv", "run_summary.txt",
+                "gated_cell_metrics.csv", "roi_coordinates.json", "pipeline_parameters.json"}
+        for cond in conds:
+            want |= {f"{cond}/{run}/{n}" for n in ("cell_metrics.csv", "processing_times.csv",
+                                                   "condition_summary.txt",
+                                                   "gated_cell_metrics.csv",
+                                                   "pipeline_parameters.json")}
+        files = {str(p.relative_to(run_dir)) for p in run_dir.rglob("*") if p.is_file()}
+        if rc != 0 or not want <= files:
+            raise AssertionError(f"project: rc {rc}, missing {sorted(want - files)}")
+        combined = read(run_dir / "cell_metrics.csv")
+        parts = [read(run_dir / cond / run / "cell_metrics.csv") for cond in conds]
+        if combined != parts[0] + parts[1]:
+            raise AssertionError("project: cell_metrics.csv is not the conditions' rows in turn")
+        numeric = [{**r, "min_y": float(r["min_y"]), "max_y": float(r["max_y"])}
+                   for r in combined]
+        rois = {cond: {"x_min": 100, "x_max": 400, "y_min": 0, "y_max": 10**9} for cond in conds}
+        gated = read(run_dir / "gated_cell_metrics.csv")
+        if gated != [combined[numeric.index(r)] for r in filter_cells_by_roi(numeric, rois)]:
+            raise AssertionError("project: gated_cell_metrics.csv is not the ROI gate of the rows")
+        for cond in conds:
+            if read(run_dir / cond / run / "gated_cell_metrics.csv") != \
+                    [r for r in gated if r["condition"] == cond]:
+                raise AssertionError(f"project: {cond}'s gated file is not its share")
+        ppipe = _batch_copy(pipe, per_cond)
+        cells = 0
+        for c, (cond, rows) in enumerate(zip(conds, parts)):
+            ref = ppipe.process_batch_arrays(gray[c * per_cond:(c + 1) * per_cond])
+            for j, name in enumerate(names[cond]):
+                cells += _rows_against(f"project {cond}/{name}",
+                                       [r for r in rows if r["image_name"] == name], ref, j)
+    _say("project", f"runner over 2 conditions x 2 batch folders x {PROJECT_FILES} PNGs: rc {rc} "
+                    f"in {secs:.2f} s (its build included); {len(combined)} rows, {len(gated)} "
+                    f"gated by --roi 100,400; every row equals process_batch_arrays on the same "
+                    f"frames ({cells} cells; rtol = atol = 1e-5); the file set, the combined "
+                    f"and gated CSVs checked; phase {time.perf_counter() - phase_t0:.1f} s "
+                    f"[{card}]")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rows": len(combined), "gated": len(gated), "secs": secs}
+
+
+def _apps_phase(card: str, pipe) -> dict:
+    """The int8 calibration report and the frame cleaner over TIMED_BATCH
+    mode-L PNG frames, counts set to 0 just before and read just after each:
+    ``run_report`` with a bf16 and a ``quant="int8"`` config-1 pipeline over
+    ``pipe``'s weights (K1-K9 and K11a, K11c), its summary against
+    ``compare_outputs`` of the two pipelines' own ``process_batch_arrays``
+    outputs, every value finite; ``clean_frames`` with ``conv2d_fused=True``
+    (YOLOv8n's 39 dense convs on K17), its counts summing to the frames,
+    each frame's class that of ``classify_frame`` on ``detect_batch_arrays``,
+    its files written."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.apps import quant_report as tquant
+    from yolo_sam_inference_tpu_torch.apps import yolo_frame_cleaner as tclean
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, write_png
+
+    phase_t0 = time.perf_counter()
+    gray = cell_frames(np.random.default_rng(4), TIMED_BATCH, FRAME)[..., 0]
+    bpipe = _batch_copy(pipe, TIMED_BATCH)
+    qpipe = _batch_copy(pipe, TIMED_BATCH, quant="int8")
+    fpipe = _batch_copy(pipe, TIMED_BATCH, conv2d_fused=True)
+    result = {}
+    with tempfile.TemporaryDirectory() as td:
+        src = Path(td) / "frames"
+        src.mkdir()
+        files = []
+        for i, frame in enumerate(gray):
+            files.append(src / f"frame_{i:02d}.png")
+            write_png(files[-1], frame)
+
+        wrappers = _reset_counts()
+        t0 = time.perf_counter()
+        summary = tquant.run_report(bpipe, qpipe, files, Path(td) / "report", TIMED_BATCH)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        result["report_launches"] = _read_counts(
+            "apps int8 report", wrappers,
+            {**{k: 2 * v for k, v in DECODER_COUNTS.items()}, "gemm_bf16": 48 + 12,
+             "window_attn_relpos": 24, "fused_ln_matmul_int8": 12, "fused_ln_mlp_int8": 12},
+            by_window={16: 16, 32: 8})
+        acc = {}
+        rows = tquant.compare_outputs(bpipe.process_batch_arrays(gray),
+                                      qpipe.process_batch_arrays(gray), TIMED_BATCH)
+        for k, v in rows.items():
+            acc.setdefault(k, []).extend(v)
+        if summary != tquant.summarize(acc):
+            raise AssertionError("apps: the report's summary differs from compare_outputs of the "
+                                 "pipelines' own outputs")
+        if not all(math.isfinite(v) for s in summary.values() for v in s.values()):
+            raise AssertionError("apps: a non-finite value in the int8 report")
+        written = sorted(p.name for p in (Path(td) / "report").iterdir())
+        if written != ["quant_calibration.csv", "quant_calibration_summary.txt"]:
+            raise AssertionError(f"apps: the report wrote {written}")
+        iou = summary.get("iou", {})
+        _say("apps", f"int8 report over {TIMED_BATCH} frames in {secs:.2f} s (the int8 stages' "
+                     f"build included): {iou.get('n', 0)} matched detections, mask IoU mean "
+                     f"{iou.get('mean')}, |d deformability| max "
+                     f"{summary.get('deformability', {}).get('max')} (random weights: no gate "
+                     f"on them); equals compare_outputs of the pipelines' own outputs [{card}]")
+        qpipe._stage_cache.clear()
+
+        wrappers = _reset_counts()
+        t0 = time.perf_counter()
+        counts = tclean.clean_frames(src, Path(td) / "clean", fpipe, batch_size=TIMED_BATCH)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        result["cleaner_launches"] = _read_counts("apps frame cleaner", wrappers,
+                                                  {"conv2d_act": 39})
+        det = fpipe.detect_batch_arrays(gray)
+        roi = {"x_min": 0, "y_min": 0, "x_max": FRAME, "y_max": FRAME}
+        kinds = [tclean.classify_frame(det["boxes"][i], det["scores"][i], det["valid"][i], roi)[0]
+                 for i in range(TIMED_BATCH)]
+        if counts != {k: kinds.count(k) for k in ("target", "background", "rejected")} or \
+                sum(counts.values()) != TIMED_BATCH:
+            raise AssertionError(f"apps: clean_frames counts {counts}, classify_frame {kinds}")
+        out = Path(td) / "clean"
+        targets = [f"frame_{i:02d}.png" for i, k in enumerate(kinds) if k == "target"]
+        background = [f"frame_{i:02d}.png" for i, k in enumerate(kinds) if k == "background"]
+        full = targets + ([background[len(background) // 2][:-4] + "_background.png"]
+                          if background else [])
+        have = {d: sorted(p.name for p in (out / d).iterdir())
+                for d in ("full_frames_with_target", "cropped_roi_with_target",
+                          "debug_visualizations")}
+        if have["full_frames_with_target"] != sorted(full) or \
+                have["cropped_roi_with_target"] != targets or \
+                len(have["debug_visualizations"]) != TIMED_BATCH:
+            raise AssertionError(f"apps: clean_frames wrote {have}")
+        _say("apps", f"frame cleaner (conv2d_fused) over {TIMED_BATCH} frames in {secs:.2f} s "
+                     f"(its stages' build included): {counts}, each frame's class that of "
+                     f"classify_frame on detect_batch_arrays, its files written [{card}]")
+        fpipe._stage_cache.clear()
+    _say("apps", f"phase done in {time.perf_counter() - phase_t0:.1f} s")
+    torch.cuda.empty_cache()
+    result["summary"] = summary
+    result["counts"] = counts
+    return result
 
 
 def _yolo_forward_ms(tag: str, pipes: dict, frames, card: str) -> dict:
@@ -2458,6 +2914,9 @@ def main() -> int:
     fs = _fused_slice_phase(card, sp["pipe"], sp.pop("frames"), sp["ms_per_batch"])
     dr = _directory_phase(card, sp["pipe"])
     cp = _checkpoint_phase(card, sp["launches"])
+    sv = _serve_phase(card, sp["pipe"])
+    pj = _project_phase(card, sp["pipe"])
+    ap = _apps_phase(card, sp["pipe"])
     bk = _big_kernel_phase(card)
     big = {model.rsplit("-", 1)[-1]: _big_slice_phase(card, model, max_det, layers)
            for model, max_det, layers, *_ in BIG_MODELS}
@@ -2676,6 +3135,17 @@ def main() -> int:
                    f"{TIMED_BATCH / ms['ms_per_batch'] * 1000:.2f} img/s; config 4 "
                    f"{lf['ms config 4']:.2f} ms/batch of {lf['batch config 4']} = "
                    f"{lf['batch config 4'] / lf['ms config 4'] * 1000:.2f} img/s [{card}]")
+    sj, sb = sv["bench"]["json"], sv["bench"]["bin"]
+    _say("result", f"serve at batch {TIMED_BATCH}: {SERVE_REQUESTS} mixed requests at "
+                   f"{sv['req_s']:.2f} req/s (fill {sv['stats']['mean_batch_fill']}); the "
+                   f"collector's batch alone {TIMED_BATCH / sv['ceiling_ms'] * 1e3:.2f} img/s; "
+                   f"bench/serve.py json {sj['value']} img/s (p50 {sj['p50_request_latency_ms']} / "
+                   f"p99 {sj['p99_request_latency_ms']} ms, host CPU "
+                   f"{sj['host_cpu_ms_per_request']} ms a request), bin {sb['value']} img/s (p50 "
+                   f"{sb['p50_request_latency_ms']} / p99 {sb['p99_request_latency_ms']} ms, host "
+                   f"CPU {sb['host_cpu_ms_per_request']} ms); project runner {pj['rows']} rows, "
+                   f"{pj['gated']} gated, {pj['secs']:.2f} s; frame cleaner {ap['counts']} "
+                   f"[{card}]")
     bt_ms, mt_ms = cp["builds"], cp["metric_ms"]
     _say("result", f"config 1 build from checkpoint files (load + convert + adapt + cast + "
                    f"upload) {statistics.median(bt_ms['files']) * 1000:.1f} ms, seeded build "

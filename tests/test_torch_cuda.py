@@ -775,3 +775,102 @@ def test_process_directory_vs_process_batch_arrays(gen, tmp_path):
                     want = float(np.round(want)) if key in INT_METRIC_KEYS else want
                     assert abs(got - want) <= 1e-5 + 1e-5 * abs(want), (key, got, want)
     assert sum(r.num_cells for r in batch.results) > 0
+
+
+def _rows_equal(rows, out, j, where):
+    """Metric rows (a response's cells or CSV rows) against image ``j`` of
+    ``process_batch_arrays`` outputs: ints exact, floats within 1e-5."""
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.ops.metrics import INT_METRIC_KEYS, METRIC_KEYS
+
+    kept = np.flatnonzero(out["valid"][j])
+    assert len(rows) == len(kept), where
+    for row, k in zip(rows, kept):
+        for key in METRIC_KEYS:
+            got, want = float(row[key]), float(out["metrics"][key][j, k])
+            want = float(np.round(want)) if key in INT_METRIC_KEYS else want
+            assert abs(got - want) <= 1e-5 + 1e-5 * abs(want), (where, key, got, want)
+
+
+@pytest.mark.cuda
+def test_service_on_the_card_without_pil(gen, monkeypatch):
+    """Config 1 behind the service on the card, batch 2, PIL hidden: PNG
+    bodies of mode-L frames decode without it, and each response's cells
+    equal ``process_batch_arrays`` on the same two frames."""
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames
+    from yolo_sam_inference_tpu_torch.io import images as timages
+    from yolo_sam_inference_tpu_torch.io.png import png_bytes
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+    from yolo_sam_inference_tpu_torch.web import serve as tserve
+
+    monkeypatch.setattr(timages, "_PILImage", None)
+    frames = cell_frames(np.random.default_rng(4), 2, 512)[..., 0]
+    pipe = tengine.CellSegmentationPipeline(
+        device="cuda", options=tengine.PipelineOptions(batch_size=2, max_det=16))
+    ref = pipe.process_batch_arrays(frames)
+    server, service = tserve.serve(pipe, port=0, image_shape=(512, 512))
+    loop = threading.Thread(target=server.serve_forever, daemon=True)
+    loop.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/segment"
+        for j in range(2):
+            req = urllib.request.Request(url, data=png_bytes(frames[j], 4), method="POST",
+                                         headers={"Content-Type": "image/png"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                resp = json.loads(r.read())
+            _rows_equal(resp["cells"], ref, j, f"frame {j}")
+        assert service.stats["requests"] == 2 and service.stats["errors"] == 0
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.stop()
+    assert int(ref["valid"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_project_runner_on_the_card(gen, tmp_path):
+    """The project runner on a two-condition tree of mode-L PNG frames (one
+    batch of 2 a condition): each condition's rows equal
+    ``process_batch_arrays`` on its frames, and the gated file is the ROI
+    gate of the combined rows."""
+    import csv
+
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.apps import project_inference as tapp
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, write_png
+    from yolo_sam_inference_tpu_torch.gate.filter import filter_cells_by_roi
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+    frames = cell_frames(np.random.default_rng(5), 4, 512)[..., 0]
+    for c, cond in enumerate(("a", "b")):
+        (tmp_path / "p" / cond / "batch_1").mkdir(parents=True)
+        for i in range(2):
+            write_png(tmp_path / "p" / cond / "batch_1" / f"f_{i}.png", frames[2 * c + i])
+    assert tapp.main(["--project-dir", str(tmp_path / "p"), "--output-dir",
+                      str(tmp_path / "out"), "--roi", "100,400", "--batch-size", "1",
+                      "--max-det", "16"]) == 0
+    (run_dir,) = (tmp_path / "out").iterdir()
+    pipe = tengine.CellSegmentationPipeline(
+        device="cuda", options=tengine.PipelineOptions(batch_size=2, max_det=16))
+
+    def read(path):
+        with open(path, newline="") as f:
+            return list(csv.DictReader(f))
+
+    for c, cond in enumerate(("a", "b")):
+        out = pipe.process_batch_arrays(frames[2 * c:2 * c + 2])
+        rows = read(run_dir / cond / run_dir.name / "cell_metrics.csv")
+        for j in range(2):
+            _rows_equal([r for r in rows if r["image_name"] == f"f_{j}.png"], out, j, cond)
+    combined = read(run_dir / "cell_metrics.csv")
+    numeric = [{**r, "min_y": float(r["min_y"]), "max_y": float(r["max_y"])} for r in combined]
+    kept = filter_cells_by_roi(numeric, {c: {"x_min": 100, "x_max": 400} for c in ("a", "b")})
+    assert read(run_dir / "gated_cell_metrics.csv") == [combined[numeric.index(r)] for r in kept]

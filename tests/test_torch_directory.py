@@ -32,8 +32,9 @@ from yolo_sam_inference_tpu.pipeline import results as jresults
 from yolo_sam_inference_tpu.utils import image_utils as jimage_utils
 from yolo_sam_inference_tpu_torch import reporting as treporting
 from yolo_sam_inference_tpu_torch.bench import e2e
-from yolo_sam_inference_tpu_torch.bench.common import png_bytes, write_png
+from yolo_sam_inference_tpu_torch.bench.common import write_png
 from yolo_sam_inference_tpu_torch.io import tiff as ttiff
+from yolo_sam_inference_tpu_torch.io.png import png_bytes
 from yolo_sam_inference_tpu_torch.io.png_native import decode_png
 from yolo_sam_inference_tpu_torch.models.sam import sam_tiny_test
 from yolo_sam_inference_tpu_torch.models.yolo import YoloConfig

@@ -57,11 +57,18 @@ def parse_args(argv=None):
                    help="shard the SAM ViT encoder over cards (not ported yet)")
     p.add_argument("--parallel-devices", type=int, default=0, help="not ported yet")
     args = p.parse_args(argv)
-    for name, (keep, item) in NOT_PORTED.items():
-        if getattr(args, name) != keep:
-            p.error(f"--{name.replace('_', '-')} {getattr(args, name)} is not ported yet "
-                    f"(ROADMAP.md {item})")
+    refuse_not_ported(p, args, NOT_PORTED)
     return args
+
+
+def refuse_not_ported(parser: argparse.ArgumentParser, args, table) -> None:
+    """Exit through ``parser.error`` where an argument of ``table`` (name ->
+    (the value it may keep, the ROADMAP.md item that ports it)) has another
+    value."""
+    for name, (keep, item) in table.items():
+        if getattr(args, name) != keep:
+            parser.error(f"--{name.replace('_', '-')} {getattr(args, name)} is not ported yet "
+                         f"(ROADMAP.md {item})")
 
 
 def main(argv=None) -> int:

@@ -1,10 +1,10 @@
-"""Image loading and directory discovery.
+"""Image loading, saving and directory discovery.
 
 A copy of the JAX package's ``io/images.py`` (which the port may not import),
-but for its decode: PNGs go through the native decoder (``png_native.py``)
-and TIFFs through the port's codec (``tiff.py``). PIL, where it can be
-imported, takes only the forms those two do not (JPEG, palette or 16-bit
-PNG, ...); where it cannot, such a file raises. Loading returns RGB uint8
+but for its codecs: PNGs are read by the native decoder (``png_native.py``)
+and written by ``png.py``, TIFFs go through the port's codec (``tiff.py``).
+PIL, where it can be imported, takes only the forms those do not (JPEG,
+palette or 16-bit PNG, ...); where it cannot, such a file raises. Loading returns RGB uint8
 (H, W, 3) whatever the source format, matching the reference's BGR->RGB
 conversion contract.
 """
@@ -16,12 +16,13 @@ from typing import List
 
 import numpy as np
 
+from .png import png_bytes
 from .png_native import decode_png
-from .tiff import read_tiff
+from .tiff import read_tiff, write_tiff
 
 try:
     from PIL import Image as _PILImage
-except ImportError:  # the card's machine has no PIL
+except ImportError:  # optional: PNG and TIFF need no PIL
     _PILImage = None
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".tiff", ".tif")
@@ -99,7 +100,29 @@ def load_image_collapsed(path) -> np.ndarray:
     return _to_rgb_uint8(arr)
 
 
-def list_image_files(directory) -> List[Path]:
-    """Sorted image files in ``directory`` (reference ``pipeline.py:265-269``)."""
-    return sorted(p for p in Path(directory).glob("*")
+def save_image(path, image: np.ndarray) -> None:
+    """Save a uint8 image, the format chosen by the extension: TIFF through
+    the port's codec, PNG through ``png.py`` (no PIL), any other through PIL
+    where it is installed."""
+    path = Path(path)
+    if path.suffix.lower() in (".tif", ".tiff"):
+        write_tiff(path, image)
+        return
+    arr = np.asarray(image)
+    if arr.dtype != np.uint8:
+        arr = np.clip(arr, 0, 255).astype(np.uint8)
+    if path.suffix.lower() == ".png":
+        path.write_bytes(png_bytes(arr))
+    elif _PILImage is None:
+        raise RuntimeError(f"{path}: the port writes PNG and TIFF without PIL; PIL is not "
+                           "installed for other formats")
+    else:
+        _PILImage.fromarray(arr).save(path)
+
+
+def list_image_files(directory, recursive: bool = False) -> List[Path]:
+    """Sorted image files in ``directory``, or under it with ``recursive``
+    (reference ``pipeline.py:265-269``)."""
+    pattern = "**/*" if recursive else "*"
+    return sorted(p for p in Path(directory).glob(pattern)
                   if p.is_file() and p.suffix.lower() in IMAGE_EXTENSIONS)

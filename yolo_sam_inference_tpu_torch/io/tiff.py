@@ -254,7 +254,11 @@ def _read_ifd_entries(data: bytes, offset: int, fmt: str):
 def read_tiff(path, *, return_metadata: bool = False):
     """Read a TIFF written by :func:`write_tiff` (plus simple external TIFFs)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_tiff(f.read(), return_metadata=return_metadata)
+
+
+def decode_tiff(data: bytes, *, return_metadata: bool = False):
+    """:func:`read_tiff` of TIFF bytes already in memory (a request body)."""
     byte_order = data[:2]
     if byte_order == b"II":
         fmt = "<"

@@ -19,7 +19,7 @@ import csv
 import math
 from datetime import datetime
 from pathlib import Path
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 from .pipeline.results import BatchProcessingResult
 
@@ -42,11 +42,15 @@ def _column_text(values: List[Any]) -> List[str]:
     return ["" if _missing(v) else str(v) for v in values]
 
 
-def _write_csv(rows: List[Dict[str, Any]], fixed: Sequence[str], path: Path) -> None:
+def write_rows_csv(rows: List[Dict[str, Any]], fixed: Sequence[str], path: Path,
+                   columns: Optional[Sequence[str]] = None) -> None:
     """``pandas.DataFrame(rows)`` with the ``fixed`` columns first, as
     ``to_csv(path, index=False)`` writes it: columns in order of first
-    appearance, minimal quoting, a line feed ending each line."""
-    columns = list(dict.fromkeys(k for row in rows for k in row))
+    appearance, minimal quoting, a line feed ending each line. ``columns``
+    names the frame's columns where ``rows`` is a subset of a larger frame's
+    (an empty subset still writes its header)."""
+    if columns is None:
+        columns = dict.fromkeys(k for row in rows for k in row)
     columns = [c for c in fixed if c in columns] + [c for c in columns if c not in fixed]
     cells = [_column_text([row.get(c) for row in rows]) for c in columns]
     with open(path, "w", newline="", encoding="utf-8") as f:
@@ -59,10 +63,10 @@ def save_results_to_csv(batch_result: BatchProcessingResult, output_dir: Path) -
     """Save metrics and timing data to CSV files."""
     output_dir = Path(output_dir)
     if batch_result.metrics_data:
-        _write_csv(batch_result.metrics_data, ("condition", "image_name", "cell_id"),
+        write_rows_csv(batch_result.metrics_data, ("condition", "image_name", "cell_id"),
                    output_dir / "cell_metrics.csv")
     if batch_result.timing_data:
-        _write_csv(batch_result.timing_data, ("condition", "image_name", "cells_processed"),
+        write_rows_csv(batch_result.timing_data, ("condition", "image_name", "cells_processed"),
                    output_dir / "processing_times.csv")
 
 
