@@ -82,7 +82,20 @@ failure ends the run with a non-zero exit and no result line:
    counted; the summary against ``compare_outputs`` of their own outputs;
    finite values) and ``apps/yolo_frame_cleaner.clean_frames`` with
    ``conv2d_fused=True`` (39 K17 launches; each frame's class against
-   ``classify_frame`` on ``detect_batch_arrays``; its files);
+   ``classify_frame`` on ``detect_batch_arrays``; its files); then the project
+   runner with ``--interactive-roi``, its browser picker driven by an HTTP
+   client (the page, each condition's image, the ROIs posted; launch
+   counts), its rows against ``--roi-file`` with the same ROIs;
+4h. classical: ``ops/morphology.py`` on (16, 512, 512) frames against the
+   CPU port (masks equal, blur and contrast within 1e-5); the classical
+   project runner over 2 conditions x 64 generated 512x512 PNGs with
+   ``--thresholds 10,20 --batch-size 16`` on the card (K9 once a batch with
+   a component, no other kernel) and on the CPU, its CSVs against each
+   other (ints exact, floats 1e-5); with visualizations on 4 frames; the
+   stream runner over an ``images.bin`` of 2048 256x256 frames on the card
+   and the CPU (its CSV byte-equal); K9 at a batch's cells; frames/s of both
+   runners and the split of a batch (upload, device morphology, fetch,
+   host label + crop, metrics call; decode and cv2 topology of the stream);
 5. big kernels: the kernels of the ViT-L/H paths at their batch-32 shapes:
    ``gemm_bf16`` at the ViT-L/H qkv and MLP (K10) widths and the attention at
    hd 80 against fp32 plain versions, and the w8a8 kernels (K11c, K11a,
@@ -196,6 +209,10 @@ SERVE_REQUESTS = 3 * TIMED_BATCH  # the service's requests: three a frame
 SERVE_CLIENTS = 48  # client threads posting them
 SERVE_BENCH_ARGS = ("--inflight", "64", "--requests", "256", "--warm-requests", "64")
 PROJECT_FILES = 8  # PNG files a batch_* folder of the project runner's tree
+CLASSICAL_FRAMES = 64  # PNG frames a condition of the classical project (2 conditions)
+CLASSICAL_SIZE = 512
+STREAM_FRAMES = 2048  # frames of the classical phase's images.bin stream
+STREAM_SIZE = 256
 # published H100 SXM peaks (NVIDIA data sheet): bytes/s and operations/s
 PEAK = {"hbm": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # the decoder, crop and hull kernels of one batch (max_det prompts an image)
@@ -2380,10 +2397,441 @@ def _apps_phase(card: str, pipe) -> dict:
                      f"(its stages' build included): {counts}, each frame's class that of "
                      f"classify_frame on detect_batch_arrays, its files written [{card}]")
         fpipe._stage_cache.clear()
+    result["picker"] = _picker_runs(card, pipe)
     _say("apps", f"phase done in {time.perf_counter() - phase_t0:.1f} s")
     torch.cuda.empty_cache()
     result["summary"] = summary
     result["counts"] = counts
+    return result
+
+
+def _picker_runs(card: str, pipe) -> dict:
+    """The project runner on the card with ``--interactive-roi``: an HTTP
+    client drives the browser picker (the page, each condition's image,
+    the ROI posted) over 2 conditions x 4 mode-L 512 x 512 PNGs; counts set
+    to 0 just before and read just after; then ``--roi-file`` with the same
+    ROIs: the same cell and gated rows (ints exact, floats 1e-5)."""
+    import gc
+    import json
+    import socket
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.apps import project_inference as tapp
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, write_png
+    from yolo_sam_inference_tpu_torch.io.images import load_image
+    from yolo_sam_inference_tpu_torch.io.png_native import decode_png
+    from yolo_sam_inference_tpu_torch.web.app import pick_condition_image
+
+    conds = ("cond_a", "cond_b")
+    gray = cell_frames(np.random.default_rng(5), 8, FRAME)[..., 0]
+    rois = {conds[0]: {"x_min": 100, "x_max": 400, "y_min": 60, "y_max": 450},
+            conds[1]: {"x_min": 30, "x_max": 250, "y_min": 0, "y_max": 512}}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    seen, errors = {}, []
+
+    def client():
+        base = f"http://127.0.0.1:{port}"
+        posted = set()
+        try:
+            for _ in range(600):
+                try:
+                    urllib.request.urlopen(base + "/health", timeout=5).read()
+                    break
+                except OSError:
+                    time.sleep(0.1)
+            seen["page"] = urllib.request.urlopen(base + "/", timeout=10).read()
+            for cond in conds:
+                img = urllib.request.urlopen(f"{base}/image?condition={cond}", timeout=10).read()
+                seen[cond] = decode_png(img)
+                req = urllib.request.Request(base + "/confirm_roi", method="POST",
+                                             data=json.dumps({"condition": cond,
+                                                              **rois[cond]}).encode(),
+                                             headers={"Content-Type": "application/json"})
+                json.loads(urllib.request.urlopen(req, timeout=10).read())
+                posted.add(cond)
+        except Exception as e:  # reported after the join; the picker is released below
+            errors.append(e)
+        finally:
+            for cond in set(conds) - posted:  # never leave the runner waiting
+                req = urllib.request.Request(base + "/confirm_roi", method="POST",
+                                             data=json.dumps({"condition": cond,
+                                                              **rois[cond]}).encode())
+                try:
+                    urllib.request.urlopen(req, timeout=10).read()
+                except OSError:
+                    pass
+
+    with tempfile.TemporaryDirectory() as td:
+        root = Path(td) / "project"
+        for c, cond in enumerate(conds):
+            (root / cond / "batch_1").mkdir(parents=True)
+            for i in range(4):
+                write_png(root / cond / "batch_1" / f"f{i}.png", gray[4 * c + i])
+        common = ["--project-dir", str(root), "--batch-size", "8", "--max-det",
+                  str(pipe.options.max_det)]
+        thread = threading.Thread(target=client, daemon=True)
+        thread.start()
+        wrappers = _reset_counts()
+        t0 = time.perf_counter()
+        rc = tapp.main(common + ["--output-dir", str(Path(td) / "picked"), "--interactive-roi",
+                                 "--port", str(port)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        thread.join(timeout=60)
+        launches = _read_counts("apps interactive roi", wrappers,
+                                {k: 2 * v for k, v in CONFIG1_COUNTS.items()},
+                                by_window={16: 16, 32: 8})
+        if errors or rc != 0:
+            raise AssertionError(f"apps: the picker's client failed ({errors}) or rc {rc}")
+        if b"Select ROI" not in seen["page"] or not all(
+                np.array_equal(seen[c], load_image(pick_condition_image(root / c)))
+                for c in conds):
+            raise AssertionError("apps: the picker's page or a condition's image is wrong")
+        (Path(td) / "rois.json").write_text(json.dumps(rois))
+        if tapp.main(common + ["--output-dir", str(Path(td) / "file"), "--roi-file",
+                               str(Path(td) / "rois.json")]) != 0:
+            raise AssertionError("apps: the runner with --roi-file failed")
+        (picked,) = [p for p in (Path(td) / "picked").iterdir() if p.is_dir()]
+        (by_file,) = (Path(td) / "file").iterdir()
+        if json.loads((picked / "roi_coordinates.json").read_text()) != rois:
+            raise AssertionError("apps: the run's roi_coordinates.json is not the posted ROIs")
+        n = {name: _csv_rows_match(f"apps picker {name}", picked / name, by_file / name)
+             for name in ("cell_metrics.csv", "gated_cell_metrics.csv")}
+    gc.collect()  # the runners' pipelines and their device weights
+    _say("apps", f"project runner with --interactive-roi (the browser picker driven over HTTP "
+                 f"on port {port}: page, both images, ROIs posted) in {secs:.2f} s (its build "
+                 f"included): rows {n} equal to --roi-file's with the same ROIs [{card}]")
+    return {"launches": launches, "rows": n, "secs": secs}
+
+
+def _csv_rows_match(tag: str, got_path, want_path, rtol: float = 1e-5) -> int:
+    """Two CSVs: the same header and row count, every field that is not a
+    float equal, floats within ``rtol`` relative (and 1e-6 absolute).
+    Returns the rows."""
+    import csv
+
+    def read(path):
+        with open(path, newline="") as f:
+            return list(csv.reader(f))
+
+    got, want = read(got_path), read(want_path)
+    if got[0] != want[0] or len(got) != len(want):
+        raise AssertionError(f"{tag}: header {got[0]} and {len(got) - 1} rows against "
+                             f"{want[0]} and {len(want) - 1}")
+    for g_row, w_row in zip(got[1:], want[1:]):
+        for name, g, w in zip(want[0], g_row, w_row):
+            if g == w:
+                continue
+            try:
+                gf, wf = float(g), float(w)
+                ints = g.lstrip("-").isdigit() and w.lstrip("-").isdigit()
+            except ValueError:
+                gf = wf = ints = None
+            if gf is None or ints or not abs(gf - wf) <= 1e-6 + rtol * abs(wf):
+                raise AssertionError(f"{tag}: {name} {g!r} against {w!r}")
+    return len(got) - 1
+
+
+def _ellipse_frames(rng, n: int, size: int):
+    """(uint8 (n, size, size) frames, the background): a background near 30
+    (sigma 1) with 3-8 filled ellipses of 200 a frame, each drawn in its box."""
+    import numpy as np
+
+    bg = rng.normal(30, 1, size=(size, size)).clip(0, 255).astype(np.uint8)
+    frames = np.repeat(bg[None], n, axis=0)
+    for f in frames:
+        for _ in range(rng.integers(3, 9)):
+            cy, cx = rng.uniform(24, size - 24, size=2)
+            ry, rx = rng.uniform(6, 18, size=2)
+            r0, c0 = int(cy - ry), int(cx - rx)
+            yy, xx = np.mgrid[r0:int(cy + ry) + 2, c0:int(cx + rx) + 2]
+            f[r0:r0 + yy.shape[0], c0:c0 + yy.shape[1]][
+                ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0] = 200
+    return frames, bg
+
+
+def _ring_stream(rng, n: int, size: int):
+    """(uint8 (n, size, size) frames, the background): one ring cell a frame
+    (outer radius 15-19, a hole 4-6 narrower: the inner contour's area
+    within the stream gates' [250, 1200]), every 7th frame empty."""
+    import numpy as np
+
+    bg = rng.normal(30, 1, size=(size, size)).clip(0, 255).astype(np.uint8)
+    frames = np.repeat(bg[None], n, axis=0)
+    yy, xx = np.mgrid[:48, :48]
+    for i, f in enumerate(frames):
+        if i % 7 == 6:
+            continue
+        cy, cx = rng.uniform(40, size - 40, size=2)
+        r_out = rng.uniform(15, 19)
+        r_in = r_out - rng.uniform(4, 6)
+        r0, c0 = int(cy) - 24, int(cx) - 24
+        d2 = (yy + r0 - cy) ** 2 + (xx + c0 - cx) ** 2
+        f[r0:r0 + 48, c0:c0 + 48][(d2 <= r_out ** 2) & (d2 >= r_in ** 2)] = 220
+    return frames, bg
+
+
+def _host_ms(fn, reps: int = 5) -> tuple:
+    """(median host ms of ``fn()`` with the card idle before each call, the
+    last result)."""
+    import torch
+
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def _classical_phase(card: str) -> dict:
+    """The classical path on the card, against its own CPU run:
+    morphology (every function of ``ops/morphology.py`` and
+    ``classical_detect_batch``) on (16, 512, 512) frames against the CPU
+    port; the project runner ``apps/opencv_project_inference.main`` over 2
+    conditions x CLASSICAL_FRAMES 512 x 512 PNGs with ``--thresholds 10,20
+    --batch-size 16 --no-save-visualizations`` on the card (counts set to 0
+    just before and read just after: K9 once a batch with a component, no
+    other kernel) and with ``--device cpu``, its three CSVs against each
+    other; once more on the card with visualizations on 4 frames; the
+    stream runner ``apps/ms_opencv_process.main`` over STREAM_FRAMES 256 x
+    256 frames of one ``images.bin`` on the card and on the CPU, its CSV
+    byte-equal; K9 at a batch's cells against its plain version; frames/s of
+    both runners and the split of a batch."""
+    import csv
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.apps import ms_opencv_process as tstream
+    from yolo_sam_inference_tpu_torch.apps import opencv_project_inference as tproject
+    from yolo_sam_inference_tpu_torch.bench.common import median_ms, write_png
+    from yolo_sam_inference_tpu_torch.classical import ms_process as tms
+    from yolo_sam_inference_tpu_torch.classical.pipeline import (
+        ClassicalParams,
+        ClassicalPipeline,
+        gray_frames,
+    )
+    from yolo_sam_inference_tpu_torch.io.images import load_image
+    from yolo_sam_inference_tpu_torch.io.images_bin import (
+        read_frames_gray8,
+        scan_frames,
+        write_images_bin,
+    )
+    from yolo_sam_inference_tpu_torch.io.png_native import decode_png
+    from yolo_sam_inference_tpu_torch.ops import morphology as tm
+    from yolo_sam_inference_tpu_torch.ops.hull_support import support_points, support_points_plain
+    from yolo_sam_inference_tpu_torch.ops.metrics import _hull_candidates, _hull_directions
+
+    phase_t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    result = {"errs": {}}
+
+    # morphology on the card against the CPU port
+    frames, bg = _ellipse_frames(rng, 16, CLASSICAL_SIZE)
+
+    def morph(frames_t, bg_t):
+        f = frames_t.float()
+        bgb = tm.gaussian_blur(bg_t.float(), 5, 0.0)
+        out = {"gaussian_blur k5": tm.gaussian_blur(f, 5, 0.0),
+               "gaussian_blur k3 s1.2": tm.gaussian_blur(f, 3, 1.2),
+               "contrast": tm.contrast(f, 1.2, 0.0), "absdiff": tm.absdiff(f, bgb[None]),
+               "subtract_clip": tm.subtract_clip(tm.contrast(f, 1.2, 0.0), bgb[None])}
+        m = tm.threshold_binary(out["absdiff"], 10.0)
+        out["threshold_binary"] = m
+        for it in (1, 2, 3):
+            for name in ("dilate", "erode", "morph_open", "morph_close"):
+                out[f"{name} {it}"] = getattr(tm, name)(m, 3, it)
+        out["classical_detect_batch"] = tm.classical_detect_batch(frames_t, bgb, threshold=10.0)
+        return out
+
+    got = morph(torch.from_numpy(frames).cuda(), torch.from_numpy(bg).cuda())
+    want = morph(torch.from_numpy(frames), torch.from_numpy(bg))
+    masks_equal, diffs = 0, {}
+    for key, ref in want.items():
+        g = got[key].cpu()
+        if ref.dtype == torch.bool:
+            if not torch.equal(g, ref):
+                raise AssertionError(f"classical: {key} on the card differs from the CPU port in "
+                                     f"{int((g != ref).sum())} pixels")
+            masks_equal += 1
+        else:
+            diffs[key] = (g - ref).abs().max().item()
+            if not diffs[key] <= 1e-5:
+                raise AssertionError(f"classical: {key} max |card - cpu| {diffs[key]} > 1e-5")
+    _say("classical", f"morphology on the card against the CPU port at (16, {CLASSICAL_SIZE}, "
+                      f"{CLASSICAL_SIZE}): {masks_equal} masks equal, max |diff| "
+                      f"{ {k: float(f'{v:.3g}') for k, v in diffs.items()} } (<= 1e-5) [{card}]")
+    del got, want
+
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        # the project: 2 conditions x CLASSICAL_FRAMES frames, the frame cleaner's layout
+        project = td / "project"
+        all_frames = {}
+        for c, cond in enumerate(("cond_a", "cond_b")):
+            d = project / cond / "batch_1_output" / "cropped_roi_with_target"
+            d.mkdir(parents=True)
+            cf, cbg = _ellipse_frames(rng, CLASSICAL_FRAMES, CLASSICAL_SIZE)
+            write_png(d / "background.png", cbg)
+            for i, f in enumerate(cf):
+                write_png(d / f"frame_{i:03d}.png", f)
+            all_frames[cond] = (cf, cbg)
+        argv = ["--project-dir", str(project), "--thresholds", "10,20", "--batch-size", "16",
+                "--no-save-visualizations"]
+        t0 = time.perf_counter()
+        if tproject.main(argv + ["--output-dir", str(td / "cpu"), "--device", "cpu"]) != 0:
+            raise AssertionError("classical: the project runner on the CPU failed")
+        cpu_secs = time.perf_counter() - t0
+        # K9 launches once a batch of 16 that has a component (no ROI: every kept one)
+        expected, cpu_runs = 0, sorted((td / "cpu").iterdir())
+        for run in cpu_runs:
+            with open(run / "image_summary.csv", newline="") as f:
+                rows = list(csv.DictReader(f))
+            for cond in ("cond_a", "cond_b"):
+                cells = [int(r["num_cells"]) for r in rows if r["condition"] == cond]
+                expected += sum(any(cells[i:i + 16]) for i in range(0, len(cells), 16))
+        wrappers = _reset_counts()
+        t0 = time.perf_counter()
+        rc = tproject.main(argv + ["--output-dir", str(td / "card")])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        result["launches"] = _read_counts("classical project runner", wrappers,
+                                          {"hull_support": expected})
+        card_runs = sorted((td / "card").iterdir())
+        if rc != 0 or [p.name.split("_thresh")[1] for p in card_runs] != ["10", "20"]:
+            raise AssertionError(f"classical: runner rc {rc}, runs {[p.name for p in card_runs]}")
+        rows = {}
+        for crun, prun in zip(card_runs, cpu_runs):
+            for name in ("image_summary.csv", "cell_metrics.csv", "deformability_summary.csv"):
+                rows[f"{crun.name[-8:]} {name}"] = _csv_rows_match(
+                    f"classical {crun.name} {name}", crun / name, prun / name)
+        n = 2 * 2 * CLASSICAL_FRAMES
+        result["project_fps"] = n / secs
+        _say("classical", f"project runner over 2 conditions x {CLASSICAL_FRAMES} PNGs x "
+                          f"thresholds 10,20 at batch 16: card {secs:.2f} s = "
+                          f"{n / secs:.1f} frames/s (files to CSV), cpu {cpu_secs:.2f} s = "
+                          f"{n / cpu_secs:.1f} frames/s; K9 {expected} launches (a batch with a "
+                          f"component each); CSV rows {rows} equal to the CPU run's (ints "
+                          f"exact, floats 1e-5) [{card}]")
+
+        # one batch's split on the card
+        cf, cbg = all_frames["cond_a"]
+        files = sorted((project / "cond_a" / "batch_1_output" /
+                        "cropped_roi_with_target").glob("frame_*.png"))[:16]
+        load_ms, loaded = _host_ms(lambda: [load_image(f, grayscale=True) for f in files])
+        batch = np.stack(loaded)
+        if not np.array_equal(batch, cf[:16]):
+            raise AssertionError("classical: the PNG frames do not load back as written")
+        pipe = ClassicalPipeline(ClassicalParams(threshold=10.0), device="cuda")
+        pipe.preprocess_background(cbg.astype(np.float32), key="k")
+        upload_ms, gray = _host_ms(lambda: gray_frames(batch, pipe.device))
+        morph_ms = median_ms(lambda: pipe.detect_masks_device(gray, "k"))
+        masks_dev = pipe.detect_masks_device(gray, "k")
+        fetch_ms, masks = _host_ms(lambda: masks_dev.cpu().numpy())
+        label_ms, comps = _host_ms(lambda: [pipe.extract_components(m) for m in masks])
+        metrics_ms, _ = _host_ms(lambda: pipe.batch_metrics(comps, gray))
+        ncell = sum(map(len, comps))
+        split = {"load_ms": load_ms, "upload_ms": upload_ms, "morphology_ms": morph_ms,
+                 "fetch_ms": fetch_ms, "label_crop_ms": label_ms, "metrics_ms": metrics_ms,
+                 "cells": ncell}
+        result["split"] = split
+        _say("classical", f"a batch of 16 frames ({ncell} cells), ms: 16 PNGs loaded gray "
+                          f"{load_ms:.3f}, upload {upload_ms:.3f}, "
+                          f"device morphology {morph_ms:.3f} (events), mask fetch "
+                          f"{fetch_ms:.3f}, host label + crop {label_ms:.3f}, metrics call "
+                          f"(crops up, 16 metrics, rows down) {metrics_ms:.3f} (host clock) "
+                          f"[{card}]")
+        # K9 at this batch's cells
+        crops = torch.from_numpy(np.stack([c for fr in comps for c, _ in fr])).cuda()
+        pts, _ = _hull_candidates(crops)
+        dirs = torch.from_numpy(_hull_directions(256)).cuda()
+        fn, ref = lambda: support_points(pts, dirs), lambda: support_points_plain(pts, dirs)
+        _check(f"hull_support classical ({ncell} cells x {pts.shape[1]} candidates x 256 "
+               f"directions)", fn(), ref(), 0.0, result["errs"])
+        result["k9"] = {"times": (median_ms(fn), median_ms(ref)),
+                        "bound": _bound(4.0 * ncell * pts.shape[1] * 256,
+                                        _nbytes(pts, dirs, fn()), "fp32")}
+
+        # visualizations on 4 frames
+        vis = td / "vis" / "cond_v" / "batch_1_output" / "cropped_roi_with_target"
+        vis.mkdir(parents=True)
+        src = project / "cond_a" / "batch_1_output" / "cropped_roi_with_target"
+        for name in ["background.png"] + [f"frame_{i:03d}.png" for i in range(4)]:
+            shutil.copy(src / name, vis / name)
+        wrappers = _reset_counts()
+        rc = tproject.main(["--project-dir", str(td / "vis"), "--output-dir", str(td / "vis_out"),
+                            "--thresholds", "10", "--batch-size", "16"])
+        _read_counts("classical visualizations", wrappers, {"hull_support": 1})
+        (run,) = (td / "vis_out").iterdir()
+        pngs = sorted(p.name for p in (run / "cond_v").iterdir())
+        want_pngs = sorted(f"batch_1_output_frame_{i:03d}{s}" for i in range(4)
+                           for s in ("_visualization.png", "_mask.png", "_filtered_mask.png"))
+        panel = decode_png((run / "cond_v" / want_pngs[2]).read_bytes())
+        if rc != 0 or pngs != want_pngs or panel.shape != (CLASSICAL_SIZE, 2 * CLASSICAL_SIZE, 3):
+            raise AssertionError(f"classical: visualizations {pngs}, panel {panel.shape}")
+        _say("classical", f"runner with visualizations on 4 frames: {len(pngs)} PNGs, panels "
+                          f"{panel.shape} [{card}]")
+
+        # the stream runner: one images.bin
+        stream = td / "stream" / "batch_1"
+        stream.mkdir(parents=True)
+        sf, sbg = _ring_stream(rng, STREAM_FRAMES, STREAM_SIZE)
+        write_images_bin(stream / "images.bin", list(sf))
+        (stream / "roi.csv").write_text(f"x,y,width,height\n0,0,{STREAM_SIZE},{STREAM_SIZE}\n")
+        write_png(stream / "background.png", sbg)
+        del sf
+        argv = ["--project-dir", str(td / "stream"), "--batch-size", "64"]
+        wrappers = _reset_counts()
+        t0 = time.perf_counter()
+        rc = tstream.main(argv + ["--output-dir", str(td / "s_card")])
+        torch.cuda.synchronize()
+        ssecs = time.perf_counter() - t0
+        _read_counts("classical stream runner", wrappers, {})
+        t0 = time.perf_counter()
+        rc_cpu = tstream.main(argv + ["--output-dir", str(td / "s_cpu"), "--device", "cpu"])
+        scpu_secs = time.perf_counter() - t0
+        card_csv = (td / "s_card" / "deformability_results.csv").read_bytes()
+        same = card_csv == (td / "s_cpu" / "deformability_results.csv").read_bytes()
+        nrows = card_csv.count(b"\n") - 1
+        if rc or rc_cpu or not same or not STREAM_FRAMES // 2 < nrows < STREAM_FRAMES:
+            raise AssertionError(f"classical: stream runner rc {rc} / {rc_cpu}, {nrows} rows, "
+                                 f"the card's CSV equal to the CPU's: {same}")
+        result["stream_fps"] = STREAM_FRAMES / ssecs
+        _say("classical", f"stream runner over {STREAM_FRAMES} frames of {STREAM_SIZE}x"
+                          f"{STREAM_SIZE} at batch 64: card {ssecs:.2f} s = "
+                          f"{STREAM_FRAMES / ssecs:.1f} frames/s, cpu {scpu_secs:.2f} s = "
+                          f"{STREAM_FRAMES / scpu_secs:.1f} frames/s; {nrows} valid cells, "
+                          f"deformability_results.csv byte-equal [{card}]")
+        # a stream batch's split
+        frames_info = scan_frames(stream / "images.bin")[:64]
+        decode_ms, raw = _host_ms(lambda: read_frames_gray8(stream / "images.bin", frames_info))
+        cfg = tms.MsProcessingConfig()
+        sbg_dev = tms.preprocess_background(sbg, cfg, device="cuda")
+        sup_ms, sgray = _host_ms(lambda: gray_frames(raw, sbg_dev.device))
+        smorph_ms = median_ms(lambda: tms.process_frame_batch_device(sgray, sbg_dev, cfg))
+        smasks_dev = tms.process_frame_batch_device(sgray, sbg_dev, cfg)
+        sfetch_ms, smasks = _host_ms(lambda: smasks_dev.cpu().numpy())
+        topo_ms, _ = _host_ms(lambda: [tms.analyze_mask(m, cfg) for m in smasks])
+        result["stream_split"] = {"decode_ms": decode_ms, "upload_ms": sup_ms,
+                                  "morphology_ms": smorph_ms, "fetch_ms": sfetch_ms,
+                                  "topology_ms_per_frame": topo_ms / 64}
+        _say("classical", f"a stream batch of 64 frames, ms: images.bin decode {decode_ms:.3f}, "
+                          f"upload {sup_ms:.3f}, device morphology {smorph_ms:.3f} (events), "
+                          f"mask fetch {sfetch_ms:.3f}, cv2 topology {topo_ms / 64:.4f} a frame "
+                          f"(host clock) [{card}]")
+    _say("classical", f"phase done in {time.perf_counter() - phase_t0:.1f} s")
+    torch.cuda.empty_cache()
     return result
 
 
@@ -2917,6 +3365,7 @@ def main() -> int:
     sv = _serve_phase(card, sp["pipe"])
     pj = _project_phase(card, sp["pipe"])
     ap = _apps_phase(card, sp["pipe"])
+    clp = _classical_phase(card)
     bk = _big_kernel_phase(card)
     big = {model.rsplit("-", 1)[-1]: _big_slice_phase(card, model, max_det, layers)
            for model, max_det, layers, *_ in BIG_MODELS}
@@ -2986,6 +3435,11 @@ def main() -> int:
                        "ops/hull_support.py:55 support_vertices_tpu (hull_mode=\"reference\")",
                        cp["ref_launches"]["hull_support"], dp["errs"]["hull_support"],
                        dt["hull_support"], db["hull_support"], dp["library"].get("hull_support")))
+    # K9 on the classical path: one launch a batch over its frames' cells
+    table.append(entry("hull_support classical", "cuda", "csrc/hull_support.cu",
+                       "ops/hull_support.py:55 support_vertices_tpu (classical/pipeline.py's "
+                       "metrics)", clp["launches"]["hull_support"], clp["errs"]["hull_support"],
+                       clp["k9"]["times"], clp["k9"]["bound"]))
     # at T = 784 (the 448 canvas's grid of 28: a short last tile)
     for name, replaces in (("keys_stream", "ops/decoder_fused.py:298 i2t_keys_update"),
                            ("t2i_combine", "ops/decoder_fused.py:298 i2t_keys_update (its "
@@ -3146,6 +3600,15 @@ def main() -> int:
                    f"CPU {sb['host_cpu_ms_per_request']} ms); project runner {pj['rows']} rows, "
                    f"{pj['gated']} gated, {pj['secs']:.2f} s; frame cleaner {ap['counts']} "
                    f"[{card}]")
+    cs_, ss_ = clp["split"], clp["stream_split"]
+    _say("result", f"classical project runner {clp['project_fps']:.1f} frames/s (files to CSV, "
+                   f"2 thresholds, batch 16, 512x512); a batch of 16: PNG load "
+                   f"{cs_['load_ms']:.3f} ms, device morphology "
+                   f"{cs_['morphology_ms']:.3f} ms, fetch {cs_['fetch_ms']:.3f}, host label + "
+                   f"crop {cs_['label_crop_ms']:.3f}, metrics call {cs_['metrics_ms']:.3f}; "
+                   f"stream runner {clp['stream_fps']:.1f} frames/s (256x256, batch 64), cv2 "
+                   f"topology {ss_['topology_ms_per_frame']:.4f} ms a frame, device morphology "
+                   f"{ss_['morphology_ms']:.3f} ms a batch [{card}]")
     bt_ms, mt_ms = cp["builds"], cp["metric_ms"]
     _say("result", f"config 1 build from checkpoint files (load + convert + adapt + cast + "
                    f"upload) {statistics.median(bt_ms['files']) * 1000:.1f} ms, seeded build "

@@ -166,8 +166,7 @@ def test_malformed_roi_exits_like_jax(roi, tmp_path):
             app.resolve_rois(app.parse_args(argv), ["a"])
 
 
-@pytest.mark.parametrize("argv", [["--interactive-roi"], ["--cv2-roi"],
-                                  ["--encoder-parallel", "sp"], ["--encoder-parallel", "tp"],
+@pytest.mark.parametrize("argv", [["--encoder-parallel", "sp"], ["--encoder-parallel", "tp"],
                                   ["--parallel-devices", "2"]])
 def test_project_runner_refuses_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit):

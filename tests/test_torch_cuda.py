@@ -874,3 +874,102 @@ def test_project_runner_on_the_card(gen, tmp_path):
     numeric = [{**r, "min_y": float(r["min_y"]), "max_y": float(r["max_y"])} for r in combined]
     kept = filter_cells_by_roi(numeric, {c: {"x_min": 100, "x_max": 400} for c in ("a", "b")})
     assert read(run_dir / "gated_cell_metrics.csv") == [combined[numeric.index(r)] for r in kept]
+
+
+def _classical_frames(gen, n, size):
+    """uint8 frames near 30 with filled ellipses of 200, and the background."""
+    yy, xx = torch.meshgrid(torch.arange(float(size)), torch.arange(float(size)), indexing="ij")
+    bg = (torch.randn(size, size, generator=gen) + 30).clamp(0, 255).to(torch.uint8)
+    frames = bg.repeat(n, 1, 1)
+    for i in range(n):
+        for _ in range(5):
+            c = torch.rand(2, generator=gen) * (size - 48) + 24
+            ax = torch.rand(2, generator=gen) * 12 + 6
+            frames[i][((yy - c[0]) / ax[0]) ** 2 + ((xx - c[1]) / ax[1]) ** 2 <= 1.0] = 200
+    return frames, bg
+
+
+@pytest.mark.cuda
+def test_morphology_on_the_card_equals_the_cpu(gen):
+    """Every function of ``ops/morphology.py`` on a CUDA tensor against the
+    CPU port: masks equal, blur and contrast within 1e-5."""
+    from yolo_sam_inference_tpu_torch.ops import morphology as tm
+
+    frames, bg = _classical_frames(gen, 8, 256)
+    for dev_frames, dev_bg, out in ((frames.cuda(), bg.cuda(), {}), (frames, bg, {})):
+        f = dev_frames.float()
+        bgb = tm.gaussian_blur(dev_bg.float(), 5, 0.0)
+        out["blur"] = tm.gaussian_blur(f, 7, 1.2)
+        out["contrast"] = tm.contrast(f, 1.2, -3.0)
+        out["sub"] = tm.subtract_clip(out["contrast"], bgb[None])
+        m = tm.threshold_binary(tm.absdiff(f, bgb[None]), 10.0)
+        for it in (1, 2, 3):
+            for name in ("dilate", "erode", "morph_open", "morph_close"):
+                out[f"{name}{it}"] = getattr(tm, name)(m, 3, it)
+        out["detect"] = tm.classical_detect_batch(dev_frames, bgb, threshold=10.0)
+        if dev_frames.is_cuda:
+            card = {k: v.cpu() for k, v in out.items()}
+        else:
+            cpu = out
+    for key, want in cpu.items():
+        if want.dtype == torch.bool:
+            assert torch.equal(card[key], want), key
+        else:
+            assert (card[key] - want).abs().max().item() <= 1e-5, key
+
+
+@pytest.mark.cuda
+def test_classical_pipeline_on_the_card_equals_the_cpu(gen):
+    """``ClassicalPipeline`` on the card: the rows of the CPU port's (ints
+    exact, floats 1e-5) and K9 once for the batch."""
+    from yolo_sam_inference_tpu_torch.classical.pipeline import ClassicalParams, ClassicalPipeline
+    from yolo_sam_inference_tpu_torch.ops.hull_support import support_points
+
+    frames, bg = _classical_frames(gen, 8, 256)
+    params = ClassicalParams(threshold=10.0, min_area=30)
+    card = ClassicalPipeline(params)
+    card.preprocess_background(bg.numpy())
+    before = support_points.launches
+    got = card.process_images(frames.numpy(), return_masks=True)
+    assert support_points.launches == before + 1
+    want = ClassicalPipeline(params, device="cpu").process_images(
+        frames.numpy(), background=bg.numpy(), return_masks=True)
+    import numpy as np
+
+    assert np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2])
+    assert sum(map(len, want[0])) > 8
+    for g_rows, w_rows in zip(got[0], want[0]):
+        assert len(g_rows) == len(w_rows)
+        for g, w in zip(g_rows, w_rows):
+            for k, v in w.items():
+                assert abs(g[k] - v) <= 1e-6 + 1e-5 * abs(v), k
+
+
+@pytest.mark.cuda
+def test_stream_runner_on_the_card_equals_the_cpu(gen, tmp_path):
+    """``apps/ms_opencv_process.py`` on the card and with ``--device cpu``:
+    ``deformability_results.csv`` byte-equal, no kernel launched."""
+    from yolo_sam_inference_tpu_torch.apps import ms_opencv_process as tstream
+    from yolo_sam_inference_tpu_torch.bench.common import write_png
+    from yolo_sam_inference_tpu_torch.io.images_bin import write_images_bin
+
+    size = 128
+    yy, xx = torch.meshgrid(torch.arange(float(size)), torch.arange(float(size)), indexing="ij")
+    bg = (torch.randn(size, size, generator=gen) + 30).clamp(0, 255).to(torch.uint8)
+    frames = []
+    for i in range(96):
+        f = bg.clone()
+        c = torch.rand(2, generator=gen) * 40 + 44
+        d2 = (yy - c[0]) ** 2 + (xx - c[1]) ** 2
+        f[(d2 <= 17 ** 2) & (d2 >= 12 ** 2)] = 220
+        frames.append(f.numpy())
+    batch = tmp_path / "proj" / "batch_1"
+    batch.mkdir(parents=True)
+    write_images_bin(batch / "images.bin", frames)
+    write_png(batch / "background.png", bg.numpy())
+    argv = ["--project-dir", str(tmp_path / "proj"), "--batch-size", "32"]
+    assert tstream.main(argv + ["--output-dir", str(tmp_path / "card")]) == 0
+    assert tstream.main(argv + ["--output-dir", str(tmp_path / "cpu"), "--device", "cpu"]) == 0
+    got = (tmp_path / "card" / "deformability_results.csv").read_bytes()
+    assert got == (tmp_path / "cpu" / "deformability_results.csv").read_bytes()
+    assert got.count(b"\n") > 48

@@ -126,14 +126,16 @@ def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port (its pipeline, the directory path's modules, and the
-    multi-rank modules its spawned ranks import) and ``chip_smoke.py`` must
-    import neither jax nor the JAX package: the script is imported, and every
-    import statement in it, those inside its phase functions too, is read
+    """The port (its pipeline, the directory path's modules, the multi-rank
+    modules its spawned ranks import, the classical pipeline and the lab
+    apps) and ``chip_smoke.py`` must import neither jax nor the JAX package:
+    the script is imported, and every import statement in it, those inside
+    its phase functions (the ``[classical]`` phase's too) as well, is read
     from its syntax tree. Nothing in the port opens a path under ``native/``
     for writing: with every write-mode open, ``os.replace`` and compiler
-    output path watched, the port builds its PNG decoder afresh (into a
-    temporary build root) and decodes a PNG through the loader's call."""
+    output path watched, the port builds its PNG decoder and its images.bin
+    reader afresh (into temporary build roots), decodes a PNG through the
+    loader's call and reads a stream."""
     code = (
         "import ast, builtins, io, os, subprocess, sys, pkgutil, importlib, tempfile\n"
         "native = os.path.realpath('native') + os.sep\n"
@@ -168,7 +170,10 @@ def test_port_imports_no_jax():
         "    'parallel.sp', 'parallel.launch', 'parallel.workers', 'io.images', 'io.png_native',\n"
         "    'io.tiff', 'io.deflate', 'pipeline.loader', 'pipeline.visualize', 'reporting',\n"
         "    'utils.image_utils', 'utils.metrics_reporter', 'apps.single_batch_inference',\n"
-        "    'bench.e2e')}\n"
+        "    'bench.e2e', 'ops.morphology', 'io.images_bin', 'classical.pipeline', 'classical.viz',\n"
+        "    'classical.ms_process', 'apps.opencv_project_inference', 'apps.ms_opencv_process',\n"
+        "    'web.app', 'gate.picker', 'apps.plot_scatter', 'apps.deformability_training_data',\n"
+        "    'apps.tiff2png', 'apps.make_example_project')}\n"
         "assert walked <= set(sys.modules), sorted(walked - set(sys.modules))\n"
         "from yolo_sam_inference_tpu_torch.bench.common import write_png\n"
         "from yolo_sam_inference_tpu_torch.io import png_native\n"
@@ -181,10 +186,20 @@ def test_port_imports_no_jax():
         "assert _safe_load(png_native.Path(tmp + '/f.png')).shape == (8, 9)\n"
         "assert not writes, writes\n"
         "assert png_native.library_path().is_file(), png_native.library_path()\n"
+        "from yolo_sam_inference_tpu_torch.io import images_bin\n"
+        "assert not under(images_bin.BUILD_ROOT), images_bin.BUILD_ROOT\n"
+        "images_bin.BUILD_ROOT = images_bin.Path(tmp) / 'build_images_bin'\n"
+        "images_bin._load.cache_clear()\n"
+        "images_bin.write_images_bin(tmp + '/images.bin', [__import__('numpy').ones((4, 5), 'uint8')])\n"
+        "assert images_bin.read_frames_gray8(tmp + '/images.bin').shape == (1, 4, 5)\n"
+        "assert not writes, writes\n"
+        "assert images_bin.library_path().is_file(), images_bin.library_path()\n"
         "tree = ast.parse(open('chip_smoke.py').read())\n"
         "names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]\n"
         "names += [n.module or '' for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]\n"
         "assert 'yolo_sam_inference_tpu_torch.pipeline' in names, names\n"
+        "assert {'yolo_sam_inference_tpu_torch.classical.pipeline',\n"
+        "        'yolo_sam_inference_tpu_torch.web.app'} <= set(names), names\n"
         "bad = [m for m in list(sys.modules) + names\n"
         "       if m in ('jax', 'jaxlib', 'yolo_sam_inference_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'yolo_sam_inference_tpu.'))]\n"

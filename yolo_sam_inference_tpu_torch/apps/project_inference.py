@@ -7,11 +7,12 @@ per-condition CSVs + summaries, global combined CSVs, ROI gating producing
 The CSVs are the port's writers' (``reporting.py``: pandas' bytes without
 pandas). Runs on the card (``--device cuda``) unless asked for the CPU.
 
-ROI selection: ``--roi-file`` (pre-made ``roi_coordinates.json``) or
-``--roi x_min,x_max[,y_min,y_max]`` applied to all conditions; neither gates
-nothing out. The interactive pickers (``--interactive-roi``, ``--cv2-roi``)
-and the parallel encoders raise "not ported yet", naming the ``ROADMAP.md``
-item that ports them.
+ROI selection: ``--roi-file`` (pre-made ``roi_coordinates.json``),
+``--roi x_min,x_max[,y_min,y_max]`` applied to all conditions,
+``--interactive-roi`` (the browser picker, ``web/app.py``, on ``--port``) or
+``--cv2-roi`` (the click-two-lines picker, ``gate/picker.py``); none gates
+nothing out. The parallel encoders raise "not ported yet", naming the
+``ROADMAP.md`` item that ports them.
 
 Usage:
     python -m yolo_sam_inference_tpu_torch.apps.project_inference \\
@@ -27,15 +28,7 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
-from .single_batch_inference import NOT_PORTED as _FLAT_NOT_PORTED
-from .single_batch_inference import refuse_not_ported
-
-# argument -> (the value it may keep, the ROADMAP.md item that ports it)
-NOT_PORTED = {
-    **_FLAT_NOT_PORTED,
-    "interactive_roi": (False, "Queue 1 item 7, the browser ROI picker (web/app.py)"),
-    "cv2_roi": (False, "Queue 1 item 7, the cv2 ROI picker (gate/picker.py)"),
-}
+from .single_batch_inference import NOT_PORTED, refuse_not_ported
 
 
 def parse_args(argv=None):
@@ -64,9 +57,11 @@ def parse_args(argv=None):
     p.add_argument("--roi", type=str, default=None,
                    help="x_min,x_max[,y_min,y_max] applied to every condition")
     p.add_argument("--interactive-roi", action="store_true",
-                   help="the browser ROI picker (not ported yet)")
+                   help="launch the browser ROI picker")
     p.add_argument("--cv2-roi", action="store_true",
-                   help="the cv2 click-two-lines picker (not ported yet)")
+                   help="the cv2 click-two-lines picker per condition (needs a display; "
+                        "on a headless host use the browser picker or --roi/--roi-file)")
+    p.add_argument("--port", type=int, default=9487, help="the browser picker's port")
     p.add_argument("--log-to-mlflow", action="store_true",
                    help="track params/metrics/artifacts in MLflow (if installed)")
     p.add_argument("--experiment-name", type=str, default="yolo_sam_inference_tpu")
@@ -91,8 +86,9 @@ def collect_images_from_batches(condition_dir: Path) -> List[Path]:
 
 
 def resolve_rois(args, condition_names) -> Dict[str, Dict[str, int]]:
-    """Each condition's ROI from ``--roi-file``, else ``--roi``, else one
-    that gates nothing out."""
+    """Each condition's ROI from ``--roi-file``, else ``--roi``, else the
+    browser picker (``--interactive-roi``), else the cv2 picker
+    (``--cv2-roi``), else one that gates nothing out."""
     if args.roi_file:
         with open(args.roi_file) as f:
             return json.load(f)
@@ -112,6 +108,22 @@ def resolve_rois(args, condition_names) -> Dict[str, Dict[str, int]]:
         else:
             roi.update({"y_min": 0, "y_max": 10**9})
         return {c: dict(roi) for c in condition_names}
+    if args.interactive_roi:
+        from ..web.app import get_roi_coordinates_web
+
+        condition_dirs = [args.project_dir / c for c in condition_names]
+        return get_roi_coordinates_web(condition_dirs, args.output_dir, port=args.port)
+    if args.cv2_roi:
+        from ..gate.picker import get_roi_coordinates
+
+        rois = {}
+        for c in condition_names:
+            images = collect_images_from_batches(args.project_dir / c)
+            if not images:
+                raise SystemExit(f"error: no images found for condition {c!r}")
+            x_min, x_max = get_roi_coordinates(images[0])
+            rois[c] = {"x_min": x_min, "x_max": x_max, "y_min": 0, "y_max": 10**9}
+        return rois
     return {c: {"x_min": 0, "x_max": 10**9, "y_min": 0, "y_max": 10**9}
             for c in condition_names}
 

@@ -72,9 +72,13 @@ def _decode(path: Path, collapse: bool = False) -> np.ndarray:
         return np.asarray(im)
 
 
-def load_image(path) -> np.ndarray:
-    """Load an image file as RGB uint8 (H, W, 3)."""
-    return _to_rgb_uint8(_decode(Path(path)))
+def load_image(path, grayscale: bool = False) -> np.ndarray:
+    """Load an image file as RGB uint8 (H, W, 3), or with ``grayscale`` as
+    the mean over RGB cast to uint8 (H, W)."""
+    rgb = _to_rgb_uint8(_decode(Path(path)))
+    if grayscale:
+        return rgb.mean(axis=2).astype(np.uint8)
+    return rgb
 
 
 def load_image_collapsed(path) -> np.ndarray:
