@@ -96,6 +96,27 @@ failure ends the run with a non-zero exit and no result line:
    and the CPU (its CSV byte-equal); K9 at a batch's cells; frames/s of both
    runners and the split of a batch (upload, device morphology, fetch,
    host label + crop, metrics call; decode and cv2 topology of the stream);
+4i. registry: a ``WorkManifest`` over 32 mode-L 512x512 PNG frames and one
+   unreadable file (its name holds ``<script>``); ``process_pending`` on the
+   config-1 stages (one ``process_batch_arrays`` a file: K1-K9 once a file,
+   counted), files/s, each stored row against ``process_batch_arrays`` of
+   its frame alone (boxes, confidences, the 9 stored metrics within 1e-5,
+   the decoded full-frame mask exact), a second pass processing nothing,
+   the error row; ``manifest_cli`` and ``batch_readout`` once;
+   ``build_report``; ``serve_viewer`` on loopback (pages answer 200, the
+   ``<script>`` path escaped);
+4j. dp: 2 ranks (``parallel/launch.py``, gloo, both on the one card), each
+   with config 1 under ``mesh=make_mesh(dp=2)``: 32 and 30 frames (the
+   padding) through ``process_batch_arrays``, each rank's launch counts on
+   its 16 frames, its outputs equal on both ranks and to the single card on
+   the same frames, in the ranks' batches and in one batch; ``process_directory`` under the
+   mesh over 64 PNG files (rows against the single card at batch 16, one
+   run id, rank 0 alone writes); ``run_sharded_directory`` +
+   ``merge_csv_shards`` (rank 0's merged CSV against the single card's rows
+   of each shard's batch); the flat-folder runner with ``--encoder-parallel
+   sp --parallel-devices 2`` to rc 0, its rows against the single-card
+   runner's (the same cells, each metric within 2% relative RMS); wall times
+   labelled as two ranks on one card (no dp speed-up measurable);
 5. big kernels: the kernels of the ViT-L/H paths at their batch-32 shapes:
    ``gemm_bf16`` at the ViT-L/H qkv and MLP (K10) widths and the attention at
    hd 80 against fp32 plain versions, and the w8a8 kernels (K11c, K11a,
@@ -213,6 +234,9 @@ CLASSICAL_FRAMES = 64  # PNG frames a condition of the classical project (2 cond
 CLASSICAL_SIZE = 512
 STREAM_FRAMES = 2048  # frames of the classical phase's images.bin stream
 STREAM_SIZE = 256
+REGISTRY_FILES = 32  # PNG files of the [registry] phase's manifest (one unreadable more)
+DP_RANKS = 2  # data-parallel ranks (one card: they share it)
+DP_FILES = 64  # PNG files through process_directory under the mesh and the sharded run
 # published H100 SXM peaks (NVIDIA data sheet): bytes/s and operations/s
 PEAK = {"hbm": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # the decoder, crop and hull kernels of one batch (max_det prompts an image)
@@ -2835,6 +2859,486 @@ def _classical_phase(card: str) -> dict:
     return result
 
 
+def _registry_phase(card: str, pipe) -> dict:
+    """The results store at config 1 on ``pipe``'s stages: a ``WorkManifest``
+    over REGISTRY_FILES mode-L PNG frames and one unreadable file (its name
+    holds ``<script>``); ``process_pending`` on the card (one
+    ``process_batch_arrays`` a file, counts set to 0 just before and read
+    just after: K1-K9 once a file), each stored row against
+    ``process_batch_arrays`` of its frame alone (boxes, confidences, the 9
+    of the 16 metrics the result schema keeps, the decoded full-frame
+    mask); a second pass processes nothing; the error row; then
+    ``manifest_cli`` and ``batch_readout`` once, ``build_report``, and
+    ``serve_viewer`` on loopback (the table page and a row page answer 200,
+    the ``<script>`` path comes back escaped)."""
+    import contextlib
+    import csv
+    import io
+    import tempfile
+    import threading
+    import urllib.request
+    from urllib.parse import quote
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.apps import batch_readout, manifest_cli
+    from yolo_sam_inference_tpu_torch.apps.result_viewer import build_report, serve_viewer
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, write_png
+    from yolo_sam_inference_tpu_torch.registry import WorkManifest
+    from yolo_sam_inference_tpu_torch.registry.manifest import metrics_to_result_row
+    from yolo_sam_inference_tpu_torch.registry.nodes import process_pending
+    from yolo_sam_inference_tpu_torch.reporting import write_rows_csv
+    from yolo_sam_inference_tpu_torch.utils.mask_encoding import decode_binary_mask
+
+    phase_t0 = time.perf_counter()
+    n = REGISTRY_FILES
+    rpipe = _batch_copy(pipe, 1)
+    gray = cell_frames(np.random.default_rng(5), n, FRAME)[..., 0]
+    result: dict = {}
+    with tempfile.TemporaryDirectory() as td:
+        src = Path(td) / "in"
+        src.mkdir()
+        paths = []
+        for i, frame in enumerate(gray):
+            write_png(src / f"f_{i:02d}.png", frame)
+            paths.append(str(src / f"f_{i:02d}.png"))
+        bad = src / "unreadable<script>alert(1)<.png"
+        bad.write_bytes(b"not an image")
+        db = Path(td) / "manifest.db"
+        m = WorkManifest(db)
+        m.ingest(paths + [str(bad)])
+        rpipe.process_batch_arrays(gray[:1])  # warm at the one-image shape
+        torch.cuda.synchronize()
+
+        wrappers = _reset_counts()
+        t0 = time.perf_counter()
+        stats = process_pending(m, rpipe)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        result["launches"] = _read_counts(
+            "registry", wrappers, {k: v * n for k, v in CONFIG1_COUNTS.items()},
+            by_window={16: 8 * n, 32: 4 * n})
+        result["fps"] = n / secs
+        per_file = {k: v / n for k, v in result["launches"].items() if v}
+        _say("registry", f"process_pending over {n} PNGs + 1 unreadable file: {secs:.3f} s = "
+                         f"{result['fps']:.2f} files/s (one process_batch_arrays a file); "
+                         f"stats {stats}; launches a file {per_file} [{card}]")
+        if stats["processed"] != n or stats["errors"] != 1:
+            raise AssertionError(f"registry: stats {stats}, expected {n} processed, 1 error")
+
+        # each stored row against process_batch_arrays of the frame alone
+        cells = 0
+        worst = 0.0
+        for i, path in enumerate(paths):
+            out = rpipe.process_batch_arrays(gray[i:i + 1])
+            rows = m.get_results(path)
+            kept = np.flatnonzero(out["valid"][0])
+            if len(rows) != len(kept):
+                raise AssertionError(f"registry: {path} holds {len(rows)} cells, "
+                                     f"process_batch_arrays {len(kept)}")
+            cm = out["mask_crops"].shape[-1]
+            for row, k in zip(rows, kept):
+                want = metrics_to_result_row(rpipe._metrics_row(out["metrics"], 0, k),
+                                             box=out["boxes"][0, k],
+                                             confidence=out["scores"][0, k])
+                want_box, got_box = want.pop("box"), row["box"]
+                for key, value in [*want.items(), *((f"box {b}", want_box[b]) for b in want_box)]:
+                    got = got_box[key[4:]] if key.startswith("box ") else row[key]
+                    err = abs(got - value) / (1e-5 + 1e-5 * abs(value))
+                    worst = max(worst, err)
+                    if not err <= 1.0:
+                        raise AssertionError(f"registry: {path} {key} {got} against "
+                                             f"process_batch_arrays' {value}")
+                full = np.zeros((FRAME, FRAME), bool)
+                r0, c0 = out["offsets"][0, k]
+                full[r0:r0 + cm, c0:c0 + cm] = out["mask_crops"][0, k]
+                if not np.array_equal(decode_binary_mask(row["mask"]), full):
+                    raise AssertionError(f"registry: {path} cell {k}: the stored mask differs")
+                cells += 1
+        _say("registry", f"stored rows equal process_batch_arrays of each frame alone: {cells} "
+                         f"cells (boxes, confidences and the 9 stored metrics within rtol = atol "
+                         f"= 1e-5, worst {worst:.3f} of it; full-frame masks exact)")
+        # where a file's time goes (host clock, the device synchronised): the
+        # fetch and decode, the call, the rows (masks encoded), the commit
+        from yolo_sam_inference_tpu_torch.io.images import load_image
+        from yolo_sam_inference_tpu_torch.utils.mask_encoding import encode_binary_mask
+
+        split = {"load": [], "call": [], "rows": [], "commit": []}
+        scratch = WorkManifest(Path(td) / "split.db")
+        scratch.ingest(paths)
+        for path in paths:
+            t0 = time.perf_counter()
+            image = load_image(path)
+            t1 = time.perf_counter()
+            out = rpipe.process_batch_arrays(image[None])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rows = []
+            for k in np.flatnonzero(out["valid"][0]):
+                full = np.zeros((FRAME, FRAME), bool)
+                r0, c0 = out["offsets"][0, k]
+                cm = out["mask_crops"].shape[-1]
+                full[r0:r0 + cm, c0:c0 + cm] = out["mask_crops"][0, k]
+                rows.append(metrics_to_result_row(rpipe._metrics_row(out["metrics"], 0, k),
+                                                  mask_encoded=encode_binary_mask(full),
+                                                  box=out["boxes"][0, k],
+                                                  confidence=out["scores"][0, k]))
+            t3 = time.perf_counter()
+            scratch.record_result(path, rows)
+            t4 = time.perf_counter()
+            for key, a, b in (("load", t0, t1), ("call", t1, t2), ("rows", t2, t3),
+                              ("commit", t3, t4)):
+                split[key].append((b - a) * 1000)
+        scratch.close()
+        result["split_ms"] = {k: statistics.median(v) for k, v in split.items()}
+        _say("registry", f"a file's ms (medians over {n}): "
+                         f"{json.dumps({k: round(v, 3) for k, v in result['split_ms'].items()})}"
+                         f" [{card}]")
+        again = process_pending(m, rpipe)
+        summary = m.summary()
+        errors = [r for r in m.list_rows(limit=n + 1) if r["error"]]
+        if again["processed"] != 0 or summary["errors"] != 1 or \
+                [r["minio_path"] for r in errors] != [str(bad)]:
+            raise AssertionError(f"registry: second pass {again}, summary {summary}, "
+                                 f"errors {errors}")
+        _say("registry", f"second pass {again}; summary {json.dumps(summary)}; error row "
+                         f"{errors[0]['error'][:80]!r}")
+
+        # the CLIs
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rcs = [manifest_cli.main(["--db", str(db), "summary"]),
+                   manifest_cli.main(["--db", str(db), "pending"])]
+        cli = json.loads(buf.getvalue())
+        if rcs != [0, 0] or cli != summary:
+            raise AssertionError(f"registry: manifest_cli rc {rcs}, summary {cli}")
+        batches = Path(td) / "batches"
+        flat = [{"image_name": Path(p).name, "cell_id": j, **r}
+                for p in paths for j, r in enumerate(m.get_results(p))]
+        for r in flat:
+            r.update({f"box_{k}": v for k, v in r.pop("box").items()})
+            r.pop("mask")
+        half = len(flat) // 2
+        for b, part in enumerate((flat[:half], flat[half:])):
+            (batches / f"batch_{b + 1}").mkdir(parents=True)
+            write_rows_csv(part, (), batches / f"batch_{b + 1}" / "batch_data.csv")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = batch_readout.main(["--root", str(batches)])
+        with open(batches / "combined_output.csv", newline="") as f:
+            combined = list(csv.DictReader(f))
+        same = len(combined) == len(flat) and all(
+            row["batch"] == f"batch_{1 + (j >= half)}"
+            and all(str(v) == row[k] if isinstance(v, (str, int)) else
+                    abs(float(row[k]) - v) <= 1e-12 * max(1.0, abs(v))
+                    for k, v in want.items())
+            for j, (row, want) in enumerate(zip(combined, flat)))
+        if rc != 0 or not same:
+            raise AssertionError(f"registry: batch_readout rc {rc}, rows equal {same}")
+        _say("registry", f"manifest_cli summary / pending rc 0 (the summary equals the "
+                         f"manifest's); batch_readout {buf.getvalue().strip()!r}: "
+                         f"combined_output.csv holds the 2 batches' {len(flat)} rows")
+
+        # the viewer: the static report, then the live server on loopback
+        html = build_report(m, Path(td) / "report.html").read_text()
+        shown = min(20, n)
+        if html.count("data:image/png;base64,") != shown:
+            raise AssertionError(f"registry: the report renders "
+                                 f"{html.count('data:image/png;base64,')} images, expected {shown}")
+        server = serve_viewer(lambda table: WorkManifest(db, table=table), ["images"],
+                              "127.0.0.1", 0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        pages = {}
+        try:
+            for name, url in (("index", "/"), ("table", "/t/images"),
+                              ("row", f"/t/images/row?path={quote(paths[0], safe='')}"),
+                              ("bad row", f"/t/images/row?path={quote(str(bad), safe='')}")):
+                with urllib.request.urlopen(base + url, timeout=30) as resp:
+                    pages[name] = (resp.status, resp.read().decode())
+        finally:
+            server.shutdown()
+            server.server_close()
+        codes = {name: code for name, (code, _) in pages.items()}
+        escaped = all("<script>" not in body for _, body in pages.values()) and \
+            "&lt;script&gt;" in pages["table"][1] and "&lt;script&gt;" in pages["bad row"][1]
+        if set(codes.values()) != {200} or not escaped or \
+                "data:image/png;base64," not in pages["row"][1]:
+            raise AssertionError(f"registry: viewer pages {codes}, markup escaped {escaped}")
+        m.close()
+    _say("registry", f"build_report renders {shown} rows; serve_viewer on loopback: pages "
+                     f"{codes}, the <script> path escaped on the table and row pages; phase "
+                     f"{time.perf_counter() - phase_t0:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    return result
+
+
+def _dp_rank(rank: int, world: int, job: dict) -> None:
+    """One rank of the data-parallel phase (run by parallel/launch.py in a
+    process of its own): config 1 with ``mesh=make_mesh(dp=world)``, seeded
+    as the parent's, on 32 and 30 frames (counts set to 0 just before the
+    32 and read just after: K1-K9 once on its 16 frames), timed; then
+    ``process_directory`` under the mesh over the job's PNG files, and
+    ``run_sharded_directory`` + ``merge_csv_shards`` with a pipeline of its
+    own (no mesh) on the same weights. Results go to ``rank<r>.npz`` and
+    ``rank<r>.json`` in the job's directory."""
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.parallel.mesh import make_mesh
+    from yolo_sam_inference_tpu_torch.parallel.multihost import (
+        merge_csv_shards,
+        run_sharded_directory,
+    )
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+    d = Path(job["dir"])
+    tag = f"dp rank {rank} of {world}"
+    t0 = time.perf_counter()
+    opts = tengine.PipelineOptions(max_det=16, metric_crop=128, batch_size=TIMED_BATCH)
+    pipe = tengine.CellSegmentationPipeline(sam_model_type="facebook/sam-vit-base",
+                                            options=opts, device="cuda", seed=0,
+                                            mesh=make_mesh(dp=world))
+    pipe._stages(FRAME, FRAME)
+    build_s = time.perf_counter() - t0
+    frames = np.load(d / "frames.npy")
+    pipe.process_batch_arrays(frames)  # warm at the share's shape
+    torch.cuda.synchronize()
+    wrappers = _reset_counts()
+    out32 = pipe.process_batch_arrays(frames)
+    torch.cuda.synchronize()
+    launches = _read_counts(f"{tag}, its {frames.shape[0] // world} of {frames.shape[0]} "
+                            "frames", wrappers, CONFIG1_COUNTS, by_window={16: 8, 32: 4})
+    out_pad = pipe.process_batch_arrays(frames[:-2])  # dp does not divide: the padding
+    ms = _timed(f"{tag} (mesh=make_mesh(dp={world}); {world} ranks on one card: no dp "
+                "speed-up measurable)", pipe, frames, job["card"])
+    arrays = {}
+    for key, out in ((str(len(frames)), out32), (str(len(frames) - 2), out_pad)):
+        arrays.update({f"{key}/{k}": v for k, v in out.items() if isinstance(v, np.ndarray)})
+        arrays.update({f"{key}/metric_{k}": v for k, v in out["metrics"].items()})
+    np.savez(d / f"rank{rank}.npz", **arrays)
+
+    t0 = time.perf_counter()
+    batch = pipe.process_directory(d / "in", d / "mesh_out", progress=False)
+    torch.cuda.synchronize()
+    dir_s = time.perf_counter() - t0
+    local = tengine.CellSegmentationPipeline(sam_model_type="facebook/sam-vit-base",
+                                             options=opts, device="cuda",
+                                             params=(pipe.yolo_params, pipe.sam_params))
+    t0 = time.perf_counter()
+    sharded = run_sharded_directory(local, d / "in", d / "sharded_out")
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    run_dir = d / "sharded_out" / local.run_id
+    merged = [merge_csv_shards(run_dir, name) for name in ("cell_metrics", "processing_times")]
+    info = {"launches": launches, "ms": ms, "build_s": build_s, "dir_s": dir_s,
+            "shard_s": shard_s, "run_id": pipe.run_id, "writes": pipe.writes,
+            "rows": [[Path(r.image_path).name, r.cell_metrics] for r in batch.results],
+            "shard_files": [Path(r.image_path).name for r in sharded.results],
+            "merged": [None if p is None else str(p) for p in merged]}
+    with open(d / f"rank{rank}.json", "w") as f:
+        json.dump(info, f)
+
+
+def _dp_phase(card: str, pipe) -> dict:
+    """Data parallelism at config 1: DP_RANKS ranks through parallel/launch.py
+    (gloo: both ranks share the one card), each running :func:`_dp_rank`;
+    their outputs against ``pipe`` (the same seeded weights) on the same
+    frames, batched as the ranks batch them and as one batch: 32 frames (16
+    a rank) and 30 (the padding: 16 and 14 + 2); every rank's ``process_directory`` rows
+    under the mesh against the single-card run at the share's batch; the
+    merged CSVs of ``run_sharded_directory`` against the single-card rows of
+    each shard's batch; then the flat-folder runner with ``--encoder-parallel
+    sp --parallel-devices 2`` to rc 0, its rows against the single-card
+    runner's (the cells, and each metric within the 2% relative RMS that the
+    sequence-parallel slice holds its embedding to). Wall times are printed
+    as two ranks on one card: no dp speed-up is measurable."""
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.apps import single_batch_inference as tapp
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, write_png
+    from yolo_sam_inference_tpu_torch.ops.metrics import METRIC_KEYS
+    from yolo_sam_inference_tpu_torch.parallel.launch import run_ranks
+
+    phase_t0 = time.perf_counter()
+    frames = cell_frames(np.random.default_rng(6), TIMED_BATCH, FRAME)[..., 0]
+    files = cell_frames(np.random.default_rng(7), DP_FILES, FRAME)[..., 0]
+    share = TIMED_BATCH // DP_RANKS
+    result: dict = {}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as td:
+        d = Path(td)
+        np.save(d / "frames.npy", frames)
+        (d / "in").mkdir()
+        for i, frame in enumerate(files):
+            write_png(d / "in" / f"f_{i:03d}.png", frame)
+        t0 = time.perf_counter()
+        backend = run_ranks(_dp_rank, DP_RANKS, ({"dir": td, "card": card},))
+        ranks_s = time.perf_counter() - t0
+        outs = [dict(np.load(d / f"rank{r}.npz")) for r in range(DP_RANKS)]
+        infos = []
+        for r in range(DP_RANKS):
+            with open(d / f"rank{r}.json") as f:
+                infos.append(json.load(f))
+        result["launches"] = infos[0]["launches"]
+        _say("dp", f"{DP_RANKS} ranks over {backend} on {torch.cuda.device_count()} card(s), "
+                   f"done in {ranks_s:.2f} s; builds {[round(i['build_s'], 2) for i in infos]} s")
+
+        # the ranks' outputs: equal on every rank, and to the single card's on the shares
+        for key, out in outs[0].items():
+            for r in range(1, DP_RANKS):
+                if not np.array_equal(outs[r][key], out):
+                    raise AssertionError(f"dp: rank {r}'s {key} differs from rank 0's")
+        def flat(parts, n):
+            want = {k: np.concatenate([p[k] for p in parts])[:n]
+                    for k in ("boxes", "scores", "valid", "offsets", "mask_crops")}
+            want.update({f"metric_{k}": np.concatenate([p["metrics"][k] for p in parts])[:n]
+                         for k in METRIC_KEYS})
+            return want
+
+        spipe, wpipe = _batch_copy(pipe, share), _batch_copy(pipe, TIMED_BATCH)
+        for n in (TIMED_BATCH, TIMED_BATCH - 2):
+            padded = np.concatenate([frames[:n], np.zeros((TIMED_BATCH - n, FRAME, FRAME),
+                                                          np.uint8)])
+            refs = {f"the ranks' batches of {share}": flat(
+                        [spipe.process_batch_arrays(padded[s:s + share])
+                         for s in range(0, TIMED_BATCH, share)], n),
+                    f"one batch of {n}": flat([wpipe.process_batch_arrays(frames[:n])], n)}
+            worst = 0.0
+            for ref, want in refs.items():
+                for key, value in want.items():
+                    got = outs[0][f"{n}/{key}"]
+                    if got.shape != value.shape:
+                        raise AssertionError(f"dp: {n} frames {key} shape {got.shape}, "
+                                             f"expected {value.shape}")
+                    if value.dtype == bool or key == "offsets":
+                        ok = np.array_equal(got, value)
+                    else:
+                        err = np.abs(got - value) / (1e-5 + 1e-5 * np.abs(value))
+                        worst = max(worst, float(err.max(initial=0.0)))
+                        ok = bool((err <= 1.0).all())
+                    if not ok:
+                        raise AssertionError(f"dp: {n} frames: {key} differs from the single "
+                                             f"card's on {ref}")
+            _say("dp", f"mesh=make_mesh(dp={DP_RANKS}) on {n} frames: every rank returns the "
+                       f"whole batch ({n} rows), equal on all ranks and to the single card on "
+                       f"the same frames, in {' and in '.join(refs)} (valid, offsets, masks "
+                       f"exact; boxes, scores, metrics within 1e-5, worst {worst:.3f} of it)")
+
+        # process_directory under the mesh: one run id, rank 0 writes, the rows
+        if len({i["run_id"] for i in infos}) != 1 or \
+                [i["writes"] for i in infos] != [True] + [False] * (DP_RANKS - 1):
+            raise AssertionError(f"dp: run ids {[i['run_id'] for i in infos]}, writes "
+                                 f"{[i['writes'] for i in infos]}")
+        (mesh_run,) = (d / "mesh_out").iterdir()
+        written = sorted(p.name for p in mesh_run.iterdir())
+        ref = _batch_copy(pipe, share).process_directory(d / "in", d / "single_out",
+                                                         progress=False)
+        want_rows = [[Path(r.image_path).name, r.cell_metrics] for r in ref.results]
+        cells = 0
+        for info in infos:
+            if [name for name, _ in info["rows"]] != [name for name, _ in want_rows]:
+                raise AssertionError("dp: process_directory under the mesh gives other files")
+            for (name, got), (_, want) in zip(info["rows"], want_rows):
+                if len(got) != len(want):
+                    raise AssertionError(f"dp: {name} has {len(got)} cells, the single card "
+                                         f"{len(want)}")
+                for g, w in zip(got, want):
+                    for key in METRIC_KEYS:
+                        if not abs(g[key] - w[key]) <= 1e-5 + 1e-5 * abs(w[key]):
+                            raise AssertionError(f"dp: {name} {key} {g[key]} against {w[key]}")
+                cells += len(got)
+        _say("dp", f"process_directory under the mesh over {DP_FILES} PNGs: every rank's rows "
+                   f"equal the single card's at batch {share} ({cells // DP_RANKS} cells; "
+                   f"1e-5); one run id, rank 0 alone wrote {written}; wall s by rank "
+                   f"{[round(i['dir_s'], 3) for i in infos]} ({DP_RANKS} ranks on one card: no "
+                   f"dp speed-up measurable) [{card}]")
+
+        # run_sharded_directory + merge_csv_shards: rank 0's merged rows
+        merged = infos[0]["merged"]
+        if merged[0] is None or any(i["merged"] != [None, None] for i in infos[1:]):
+            raise AssertionError(f"dp: merged paths {[i['merged'] for i in infos]}")
+        with open(merged[0], newline="") as f:
+            merged_rows = list(csv.DictReader(f))
+        with open(merged[1], newline="") as f:
+            timing_rows = list(csv.DictReader(f))
+        names = sorted(p.name for p in (d / "in").iterdir())
+        if [i["shard_files"] for i in infos] != [names[r::DP_RANKS] for r in range(DP_RANKS)] \
+                or sorted(r["image_name"] for r in timing_rows) != names:
+            raise AssertionError("dp: the shards do not cover the files once each")
+        bpipe = _batch_copy(pipe, DP_FILES // DP_RANKS)
+        n_rows = 0
+        for r in range(DP_RANKS):
+            shard = names[r::DP_RANKS]
+            ref = bpipe.process_batch_arrays(np.stack([files[names.index(n)] for n in shard]))
+            for j, name in enumerate(shard):
+                n_rows += _rows_against(f"dp sharded {name}",
+                                        [row for row in merged_rows if row["image_name"] == name],
+                                        ref, j)
+        if n_rows != len(merged_rows):
+            raise AssertionError(f"dp: merged {len(merged_rows)} rows, the shards {n_rows}")
+        _say("dp", f"run_sharded_directory on {DP_RANKS} ranks ({DP_FILES // DP_RANKS} files a "
+                   f"rank) + merge_csv_shards: rank 0's cell_metrics.csv holds the single "
+                   f"card's rows of each shard's batch ({n_rows} rows; 1e-5), "
+                   f"processing_times.csv every file once; wall s by rank "
+                   f"{[round(i['shard_s'], 3) for i in infos]} [{card}]")
+
+        # the flat-folder runner with --encoder-parallel sp over 2 ranks
+        runs = {}
+        for name, extra in (("single", []), ("sp", ["--encoder-parallel", "sp",
+                                                    "--parallel-devices", str(DP_RANKS)])):
+            t0 = time.perf_counter()
+            rc = tapp.main(["--input-dir", str(d / "in"), "--output-dir", str(d / name),
+                            "--batch-size", str(share), "--max-det", "16", *extra])
+            secs = time.perf_counter() - t0
+            (run_dir,) = (d / name).iterdir()
+            with open(run_dir / "cell_metrics.csv", newline="") as f:
+                runs[name] = (rc, secs, list(csv.DictReader(f)),
+                              sorted(p.name for p in run_dir.iterdir()))
+        rc, sp_secs, sp_rows, sp_files = runs["sp"]
+        _, single_secs, single_rows, single_files = runs["single"]
+        by_image = {}
+        for tag, rows in (("sp", sp_rows), ("single", single_rows)):
+            for row in rows:
+                by_image.setdefault(row["image_name"], {}).setdefault(tag, []).append(row)
+        same_cells = sum(len(v.get("sp", [])) == len(v.get("single", []))
+                         for v in by_image.values())
+        rel = {}
+        for key in METRIC_KEYS:
+            pairs = [(float(s[key]), float(w[key])) for v in by_image.values()
+                     if len(v.get("sp", [])) == len(v.get("single", []))
+                     for s, w in zip(v.get("sp", []), v.get("single", []))]
+            diff = np.array([a - b for a, b in pairs])
+            base = np.array([b for _, b in pairs])
+            rel[key] = float(np.sqrt((diff ** 2).sum() / max((base ** 2).sum(), 1e-30)))
+        worst_key = max(rel, key=rel.get)
+        rel_text = json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()})
+        _say("dp", f"flat-folder runner --encoder-parallel sp --parallel-devices {DP_RANKS}: rc "
+                   f"{rc} in {sp_secs:.2f} s (single card {single_secs:.2f} s, builds "
+                   f"included; {DP_RANKS} ranks on one card: no speed-up measurable); the same "
+                   f"files {sp_files == single_files}; images with the single card's cell count "
+                   f"{same_cells}/{len(by_image)}; rows {len(sp_rows)} against {len(single_rows)}"
+                   f"; metric rel RMS against the single-card runner, worst {worst_key} "
+                   f"{rel[worst_key]:.3e} (bound 0.02), {rel_text} [{card}]")
+        if rc != 0 or sp_files != single_files or same_cells != len(by_image) or \
+                rel[worst_key] > 0.02:
+            raise AssertionError("dp: the sequence-parallel runner's rows disagree with the "
+                                 "single-card runner's")
+    ms = [round(i["ms"], 2) for i in infos]
+    _say("dp", f"mesh process_batch_arrays ms/batch of {TIMED_BATCH} by rank {ms} ({DP_RANKS} "
+               f"ranks on one card: no dp speed-up measurable); phase "
+               f"{time.perf_counter() - phase_t0:.1f} s [{card}]")
+    result.update({"ms": ms, "dir_s": [i["dir_s"] for i in infos], "sp_runner_s": sp_secs,
+                   "single_runner_s": single_secs, "sp_rel": rel[worst_key]})
+    torch.cuda.empty_cache()
+    return result
+
+
 def _yolo_forward_ms(tag: str, pipes: dict, frames, card: str) -> dict:
     """{mode: [median ms, ...]}: YOLOv8n's forward alone on the letterboxed
     bf16 batch (CUDA events), each pipeline's in turns (a, b, b, a)."""
@@ -3366,6 +3870,8 @@ def main() -> int:
     pj = _project_phase(card, sp["pipe"])
     ap = _apps_phase(card, sp["pipe"])
     clp = _classical_phase(card)
+    rg = _registry_phase(card, sp["pipe"])
+    dpp = _dp_phase(card, sp["pipe"])
     bk = _big_kernel_phase(card)
     big = {model.rsplit("-", 1)[-1]: _big_slice_phase(card, model, max_det, layers)
            for model, max_det, layers, *_ in BIG_MODELS}
@@ -3609,6 +4115,12 @@ def main() -> int:
                    f"stream runner {clp['stream_fps']:.1f} frames/s (256x256, batch 64), cv2 "
                    f"topology {ss_['topology_ms_per_frame']:.4f} ms a frame, device morphology "
                    f"{ss_['morphology_ms']:.3f} ms a batch [{card}]")
+    rg_split = json.dumps({k: round(v, 3) for k, v in rg["split_ms"].items()})
+    _say("result", f"registry process_pending {rg['fps']:.2f} files/s (one process_batch_arrays a "
+                   f"file; a file's ms {rg_split}); dp mesh ms/batch of {TIMED_BATCH} by rank "
+                   f"{dpp['ms']}, the sp runner "
+                   f"{dpp['sp_runner_s']:.2f} s against {dpp['single_runner_s']:.2f} s on one "
+                   f"rank ({DP_RANKS} ranks on one card: no dp speed-up measurable) [{card}]")
     bt_ms, mt_ms = cp["builds"], cp["metric_ms"]
     _say("result", f"config 1 build from checkpoint files (load + convert + adapt + cast + "
                    f"upload) {statistics.median(bt_ms['files']) * 1000:.1f} ms, seeded build "

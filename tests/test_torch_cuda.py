@@ -973,3 +973,115 @@ def test_stream_runner_on_the_card_equals_the_cpu(gen, tmp_path):
     got = (tmp_path / "card" / "deformability_results.csv").read_bytes()
     assert got == (tmp_path / "cpu" / "deformability_results.csv").read_bytes()
     assert got.count(b"\n") > 48
+
+
+@pytest.mark.cuda
+def test_process_pending_on_the_card(gen, tmp_path):
+    """``registry/nodes.process_pending`` on the card: each stored row equals
+    ``process_batch_arrays`` of its frame alone (boxes, confidence, the 9
+    stored metrics within 1e-5, the full-frame mask exact); the unreadable
+    file is an error row; a second pass processes nothing."""
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, write_png
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+    from yolo_sam_inference_tpu_torch.registry import WorkManifest
+    from yolo_sam_inference_tpu_torch.registry.manifest import metrics_to_result_row
+    from yolo_sam_inference_tpu_torch.registry.nodes import process_pending
+    from yolo_sam_inference_tpu_torch.utils.mask_encoding import decode_binary_mask
+
+    frames = cell_frames(np.random.default_rng(8), 3, 512)[..., 0]
+    paths = []
+    for i, frame in enumerate(frames):
+        write_png(tmp_path / f"f_{i}.png", frame)
+        paths.append(str(tmp_path / f"f_{i}.png"))
+    (tmp_path / "bad.png").write_bytes(b"not an image")
+    m = WorkManifest(tmp_path / "m.db")
+    m.ingest(paths + [str(tmp_path / "bad.png")])
+    pipe = tengine.CellSegmentationPipeline(
+        device="cuda", options=tengine.PipelineOptions(batch_size=1, max_det=16))
+    stats = process_pending(m, pipe)
+    assert (stats["processed"], stats["errors"]) == (3, 1)
+    cells = 0
+    for i, path in enumerate(paths):
+        out = pipe.process_batch_arrays(frames[i:i + 1])
+        rows = m.get_results(path)
+        kept = np.flatnonzero(out["valid"][0])
+        assert len(rows) == len(kept)
+        for row, k in zip(rows, kept):
+            want = metrics_to_result_row(pipe._metrics_row(out["metrics"], 0, k),
+                                         box=out["boxes"][0, k], confidence=out["scores"][0, k])
+            for key, value in want.items():
+                if key == "box":
+                    for b, v in value.items():
+                        assert row[key][b] == pytest.approx(v, rel=1e-5, abs=1e-5), b
+                else:
+                    assert row[key] == pytest.approx(value, rel=1e-5, abs=1e-5), key
+            full = np.zeros((512, 512), bool)
+            r0, c0 = out["offsets"][0, k]
+            full[r0:r0 + 128, c0:c0 + 128] = out["mask_crops"][0, k]
+            assert np.array_equal(decode_binary_mask(row["mask"]), full)
+            cells += 1
+    assert cells > 0
+    assert process_pending(m, pipe)["processed"] == 0
+    assert [r["minio_path"] for r in m.list_rows() if r["error"]] == [str(tmp_path / "bad.png")]
+
+
+@pytest.mark.cuda
+def test_data_parallel_on_the_card(gen, tmp_path):
+    """``mesh=make_mesh(dp=2)`` on 2 ranks sharing the card (gloo): every
+    rank returns the whole batch, equal to the single card on the same
+    frames in the ranks' batches (4 frames: 2 a rank; 3: 2 and 1 + the
+    padding), and ``process_directory`` under the mesh gives the single
+    card's rows at the share's batch."""
+    import json
+
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, write_png
+    from yolo_sam_inference_tpu_torch.ops.metrics import METRIC_KEYS
+    from yolo_sam_inference_tpu_torch.parallel.launch import run_ranks
+    from yolo_sam_inference_tpu_torch.parallel.workers import run_jobs
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+    frames = cell_frames(np.random.default_rng(9), 4, 256)[..., 0]
+    np.save(tmp_path / "f4.npy", frames)
+    np.save(tmp_path / "f3.npy", frames[:3])
+    (tmp_path / "in").mkdir()
+    for i in range(6):
+        write_png(tmp_path / "in" / f"f_{i}.png", frames[i % 4])
+    kwargs = dict(device="cuda", seed=0, options=tengine.PipelineOptions(batch_size=4,
+                                                                         max_det=16))
+    job = {"kind": "dp", "mesh": {"dp": 2}, "kwargs": kwargs,
+           "frames": [str(tmp_path / "f4.npy"), str(tmp_path / "f3.npy")],
+           "dir": str(tmp_path / "in"), "outdir": str(tmp_path / "out"),
+           "out": str(tmp_path / "dp")}
+    assert run_ranks(run_jobs, 2, ([job],)) == "gloo"
+    single = tengine.CellSegmentationPipeline(**{**kwargs, "options": tengine.PipelineOptions(
+        batch_size=2, max_det=16)})
+    for i, n in enumerate((4, 3)):
+        padded = np.concatenate([frames[:n], np.zeros((4 - n, 256, 256), np.uint8)])
+        parts = [single.process_batch_arrays(padded[s:s + 2]) for s in (0, 2)]
+        for r in range(2):
+            with np.load(tmp_path / f"dp.rank{r}.npz") as got:
+                for key in ("valid", "offsets", "mask_crops"):
+                    want = np.concatenate([p[key] for p in parts])[:n]
+                    np.testing.assert_array_equal(got[f"{i}/{key}"], want, err_msg=key)
+                for key in ("boxes", "scores"):
+                    want = np.concatenate([p[key] for p in parts])[:n]
+                    np.testing.assert_allclose(got[f"{i}/{key}"], want, rtol=1e-5, atol=1e-5)
+                for key in METRIC_KEYS:
+                    want = np.concatenate([p["metrics"][key] for p in parts])[:n]
+                    np.testing.assert_allclose(got[f"{i}/metric_{key}"], want, rtol=1e-5,
+                                               atol=1e-5, err_msg=key)
+    ref = single.process_directory(tmp_path / "in", tmp_path / "single", progress=False)
+    for r in range(2):
+        with open(tmp_path / f"dp.rank{r}.json") as f:
+            info = json.load(f)
+        assert info["writes"] == (r == 0)
+        assert len(info["rows"]) == len(ref.results) == 6
+        for (_, got), want in zip(info["rows"], ref.results):
+            assert len(got) == want.num_cells
+            for g, w in zip(got, want.cell_metrics):
+                for key in METRIC_KEYS:
+                    assert g[key] == pytest.approx(w[key], rel=1e-5, abs=1e-5), key

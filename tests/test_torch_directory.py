@@ -354,10 +354,10 @@ def test_runner_app_matches_jax(tmp_path, monkeypatch):
         trees[name] = sorted(str(p.relative_to(run_dir)) for p in run_dir.rglob("*"))
     assert trees["port"] == trees["jax"]
     assert {"cell_metrics.csv", "processing_times.csv", "run_summary.txt"} <= set(trees["port"])
-    for argv in (["--encoder-parallel", "sp"], ["--encoder-parallel", "tp"],
-                 ["--parallel-devices", "2"]):
-        with pytest.raises(SystemExit):
-            tapp.parse_args(["--input-dir", str(src), "--output-dir", "o", *argv])
+    with pytest.raises(SystemExit):  # sp is ported (tests/test_torch_parallel.py)
+        tapp.parse_args(["--input-dir", str(src), "--output-dir", "o", "--encoder-parallel", "tp"])
+    for argv in (["--encoder-parallel", "sp"], ["--parallel-devices", "2"]):
+        tapp.parse_args(["--input-dir", str(src), "--output-dir", "o", *argv])
     args = tapp.parse_args(["--input-dir", str(src), "--output-dir", "o", "--yolo-model", "y.pt",
                             "--sam-checkpoint", "s.pt", "--experiment-id", "e", "--run-id", "r",
                             "--hull-mode", "reference"])

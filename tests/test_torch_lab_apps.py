@@ -35,6 +35,7 @@ from yolo_sam_inference_tpu.apps import plot_scatter as jscatter
 from yolo_sam_inference_tpu.apps import tiff2png as jtiff2png
 from yolo_sam_inference_tpu.io import images as jimages
 from yolo_sam_inference_tpu.web import app as jweb
+from yolo_sam_inference_tpu_torch import reporting as treporting
 from yolo_sam_inference_tpu_torch.apps import deformability_training_data as ttrain
 from yolo_sam_inference_tpu_torch.apps import make_example_project as texample
 from yolo_sam_inference_tpu_torch.apps import plot_scatter as tscatter
@@ -482,5 +483,5 @@ def test_pandas_float_is_pandas_parser():
     texts = [repr(float(v)) for v in vals] + ["1e3", "-2.5E-3", "0.1", "+7", "1.5e300",
                                               "123456789012345678901.5"]
     want = pd.read_csv(io.StringIO("v\n" + "\n".join(texts) + "\n"))["v"].tolist()
-    assert [tscatter.pandas_float(t) for t in texts] == want
+    assert [treporting.pandas_float(t) for t in texts] == want
     assert sum(float(t) != w for t, w in zip(texts, want)) > 100

@@ -127,8 +127,10 @@ def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
 
 def test_port_imports_no_jax():
     """The port (its pipeline, the directory path's modules, the multi-rank
-    modules its spawned ranks import, the classical pipeline and the lab
-    apps) and ``chip_smoke.py`` must import neither jax nor the JAX package:
+    modules its spawned ranks import, the classical pipeline, the lab apps
+    and the results store) and ``chip_smoke.py`` must import neither jax nor
+    the JAX package, and the results store and the multi-rank modules
+    neither pandas nor PIL:
     the script is imported, and every import statement in it, those inside
     its phase functions (the ``[classical]`` phase's too) as well, is read
     from its syntax tree. Nothing in the port opens a path under ``native/``
@@ -173,8 +175,20 @@ def test_port_imports_no_jax():
         "    'bench.e2e', 'ops.morphology', 'io.images_bin', 'classical.pipeline', 'classical.viz',\n"
         "    'classical.ms_process', 'apps.opencv_project_inference', 'apps.ms_opencv_process',\n"
         "    'web.app', 'gate.picker', 'apps.plot_scatter', 'apps.deformability_training_data',\n"
-        "    'apps.tiff2png', 'apps.make_example_project')}\n"
+        "    'apps.tiff2png', 'apps.make_example_project', 'registry.manifest', 'registry.nodes',\n"
+        "    'registry.readout', 'registry.postgres', 'apps.manifest_cli', 'apps.batch_readout',\n"
+        "    'apps.result_viewer', 'parallel.mesh', 'parallel.multihost',\n"
+        "    'apps.project_inference')}\n"
         "assert walked <= set(sys.modules), sorted(walked - set(sys.modules))\n"
+        "for m in walked:\n"  # the results store and the ranks' modules: no pandas, no PIL
+        "    if m.split('.')[1] in ('registry', 'parallel') or m in (\n"
+        "            'yolo_sam_inference_tpu_torch.apps.' + a for a in (\n"
+        "            'manifest_cli', 'batch_readout', 'result_viewer')):\n"
+        "        mod = ast.parse(open(sys.modules[m].__file__).read())\n"
+        "        used = [a.name for n in ast.walk(mod) if isinstance(n, ast.Import)\n"
+        "                for a in n.names]\n"
+        "        used += [n.module or '' for n in ast.walk(mod) if isinstance(n, ast.ImportFrom)]\n"
+        "        assert not [u for u in used if u.split('.')[0] in ('pandas', 'PIL')], (m, used)\n"
         "from yolo_sam_inference_tpu_torch.bench.common import write_png\n"
         "from yolo_sam_inference_tpu_torch.io import png_native\n"
         "from yolo_sam_inference_tpu_torch.pipeline.loader import _safe_load\n"
@@ -199,7 +213,10 @@ def test_port_imports_no_jax():
         "names += [n.module or '' for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]\n"
         "assert 'yolo_sam_inference_tpu_torch.pipeline' in names, names\n"
         "assert {'yolo_sam_inference_tpu_torch.classical.pipeline',\n"
-        "        'yolo_sam_inference_tpu_torch.web.app'} <= set(names), names\n"
+        "        'yolo_sam_inference_tpu_torch.web.app', 'yolo_sam_inference_tpu_torch.registry.nodes',\n"
+        "        'yolo_sam_inference_tpu_torch.apps.result_viewer',\n"
+        "        'yolo_sam_inference_tpu_torch.parallel.mesh',\n"
+        "        'yolo_sam_inference_tpu_torch.parallel.multihost'} <= set(names), names\n"
         "bad = [m for m in list(sys.modules) + names\n"
         "       if m in ('jax', 'jaxlib', 'yolo_sam_inference_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'yolo_sam_inference_tpu.'))]\n"

@@ -9,7 +9,7 @@ click-to-hide legend entries, vanilla canvas JS (no Bokeh).
 
 No pandas: the CSVs are read by the ``csv`` module into row dicts, each
 column typed as pandas types it (int, float or str; an NA field is NaN) and
-each float read as pandas' C parser reads it (:func:`pandas_float`).
+each float read as pandas' C parser reads it (``reporting.read_csv_rows``).
 The crops are PNGs of the port's writer; a crop wider than ``max_size`` is
 shrunk by PIL's ``thumbnail`` where PIL imports (else it has no hover image).
 """
@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import base64
-import csv
 import json
 import math
 from pathlib import Path
@@ -26,6 +25,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..reporting import read_csv_rows
 from ..utils.logger import setup_logger
 
 logger = setup_logger(__name__)
@@ -36,85 +36,6 @@ PALETTE = [
 ]
 
 Row = Dict[str, Any]
-
-
-_NA_TEXTS = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
-                       "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
-                       "nan", "null"})
-_POW10 = [float(f"1e{k}") for k in range(309)]
-
-
-def pandas_float(text: str) -> float:
-    """A decimal as pandas' default C parser reads it (``precise_xstrtod``):
-    up to 17 significant digits accumulated in a double, then one multiply or
-    divide by a power of ten. It is not always the correctly rounded value
-    that ``float()`` gives: a repr written by pandas can read back one ulp
-    off, and the tools' outputs carry that value."""
-    t = text.strip()
-    low = t.lower()
-    if low.lstrip("+-") in ("inf", "infinity"):
-        return float(low)
-    neg = t[:1] == "-"
-    i = 1 if t[:1] in "+-" else 0
-    number, exponent, digits = 0.0, 0, 0
-    while i < len(t) and t[i].isdigit():
-        if digits < 17:
-            number = number * 10.0 + (ord(t[i]) - 48)
-            digits += 1
-        else:
-            exponent += 1
-        i += 1
-    if i < len(t) and t[i] == ".":
-        i += 1
-        decimals = 0
-        while i < len(t) and t[i].isdigit():
-            if digits < 17:
-                number = number * 10.0 + (ord(t[i]) - 48)
-                digits += 1
-                decimals += 1
-            i += 1
-        exponent -= decimals
-    if digits == 0:
-        raise ValueError(f"not a number: {text!r}")
-    if i < len(t) and t[i] in "eE":
-        exponent += int(t[i + 1:])
-    elif i != len(t):
-        raise ValueError(f"not a number: {text!r}")
-    if neg:
-        number = -number
-    if exponent > 308:
-        return math.copysign(math.inf, number)
-    if exponent > 0:
-        return number * _POW10[exponent]
-    if exponent < -308:
-        return 0.0 if exponent < -616 else number / _POW10[-308 - exponent] / _POW10[308]
-    return number / _POW10[-exponent]
-
-
-def _typed(texts: List[str]) -> tuple:
-    """One CSV column as pandas types it: (kind, values), kind "int" (all
-    present and integral), "float" (an NA text is NaN) or "str"."""
-    present = [t for t in texts if t not in _NA_TEXTS]
-    if len(present) == len(texts):
-        try:
-            return "int", [int(t) for t in texts]
-        except ValueError:
-            pass
-    try:
-        return "float", [pandas_float(t) if t not in _NA_TEXTS else math.nan for t in texts]
-    except ValueError:
-        return "str", [t if t not in _NA_TEXTS else math.nan for t in texts]
-
-
-def read_csv_rows(path: Path) -> tuple:
-    """({column: kind}, rows) of a CSV with a header, each column typed."""
-    with open(path, newline="", encoding="utf-8") as f:
-        reader = csv.reader(f)
-        columns = next(reader)
-        records = list(reader)
-    typed = [_typed([r[j] if j < len(r) else "" for r in records]) for j in range(len(columns))]
-    kinds = {c: kind for c, (kind, _) in zip(columns, typed)}
-    return kinds, [dict(zip(columns, vals)) for vals in zip(*(v for _, v in typed))]
 
 
 def _key(value) -> Any:

@@ -11,8 +11,10 @@ ROI selection: ``--roi-file`` (pre-made ``roi_coordinates.json``),
 ``--roi x_min,x_max[,y_min,y_max]`` applied to all conditions,
 ``--interactive-roi`` (the browser picker, ``web/app.py``, on ``--port``) or
 ``--cv2-roi`` (the click-two-lines picker, ``gate/picker.py``); none gates
-nothing out. The parallel encoders raise "not ported yet", naming the
-``ROADMAP.md`` item that ports them.
+nothing out. ``--encoder-parallel sp --parallel-devices N`` runs the
+conditions on N ranks (the ROIs resolved first, here), the SAM encoder's
+token rows split over them; rank 0 writes the run. ``--encoder-parallel tp``
+raises "not ported yet", naming the ``ROADMAP.md`` item that ports it.
 
 Usage:
     python -m yolo_sam_inference_tpu_torch.apps.project_inference \\
@@ -28,7 +30,7 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
-from .single_batch_inference import NOT_PORTED, refuse_not_ported
+from .single_batch_inference import NOT_PORTED, build_pipeline, launch_ranks, refuse_not_ported
 
 
 def parse_args(argv=None):
@@ -48,8 +50,10 @@ def parse_args(argv=None):
                    help="hull measurement: exact polygon (default) or the "
                         "reference's rasterize+regionprops procedure")
     p.add_argument("--encoder-parallel", choices=("none", "tp", "sp"), default="none",
-                   help="shard the SAM ViT encoder over cards (not ported yet)")
-    p.add_argument("--parallel-devices", type=int, default=0, help="not ported yet")
+                   help="shard the SAM ViT encoder over ranks: sp = its token rows "
+                        "(tp is not ported yet)")
+    p.add_argument("--parallel-devices", type=int, default=0,
+                   help="ranks for --encoder-parallel (0 = one a visible card)")
     p.add_argument("--quant", choices=("none", "int8"), default="none",
                    help="int8 = dynamic w8a8 SAM-encoder projections "
                         "(accuracy bounds: apps/quant_report.py)")
@@ -128,10 +132,36 @@ def resolve_rois(args, condition_names) -> Dict[str, Dict[str, int]]:
             for c in condition_names}
 
 
-def main(argv=None) -> int:
+def _condition_dirs(project_dir: Path) -> List[Path]:
+    if not project_dir.is_dir():
+        raise SystemExit(f"error: --project-dir does not exist: {project_dir}")
+    condition_dirs = sorted(d for d in project_dir.iterdir() if d.is_dir())
+    if not condition_dirs:
+        raise SystemExit(f"no condition directories under {project_dir}")
+    return condition_dirs
+
+
+def main(argv=None, pipeline_kwargs=None) -> int:
+    """The run; ``pipeline_kwargs`` as ``single_batch_inference.build_pipeline``
+    takes it."""
     args = parse_args(argv)
+    t_start = time.time()
+    rois = resolve_rois(args, [d.name for d in _condition_dirs(args.project_dir)])
+    if args.encoder_parallel == "sp":
+        launch_ranks("project_inference", args, pipeline_kwargs, rois=rois, t_start=t_start)
+        return 0
+    return run_rank(args, pipeline_kwargs, rois=rois, t_start=t_start)
+
+
+def run_rank(args, pipeline_kwargs=None, mesh=None, rois=None, t_start=None) -> int:
+    """The run on this process with the resolved ``rois``, one rank of
+    ``mesh`` where one is given (the mesh's first rank writes the run and
+    its profiler trace)."""
+    import torch.distributed as dist
+
+    writes = mesh is None or dist.get_rank() == mesh.first
     profiler = None
-    if args.profile_dir is not None:
+    if args.profile_dir is not None and writes:
         from torch.profiler import ProfilerActivity, profile
 
         args.profile_dir.mkdir(parents=True, exist_ok=True)
@@ -141,7 +171,7 @@ def main(argv=None) -> int:
         profiler = profile(activities=activities)
         profiler.start()
     try:
-        run_dir = _run(args)
+        run_dir = _run(args, rois, pipeline_kwargs, mesh, t_start or time.time())
     finally:
         if profiler is not None:
             profiler.stop()
@@ -149,53 +179,43 @@ def main(argv=None) -> int:
         trace = args.profile_dir / f"{run_dir.name}.trace.json"
         profiler.export_chrome_trace(str(trace))
         print(f"profiler trace written to {trace}")
-    print(f"\nResults written to {run_dir}")
+    if writes:
+        print(f"\nResults written to {run_dir}")
     return 0
 
 
-def _run(args) -> Path:
-    """The run itself; returns its directory."""
+def _run(args, rois, pipeline_kwargs, mesh, t_start: float) -> Path:
+    """The run itself; returns its directory. Under a mesh every rank runs
+    every condition, and only the mesh's first rank writes."""
     from ..gate.filter import filter_cells_by_roi, save_roi_coordinates
-    from ..pipeline.engine import ParallelCellSegmentationPipeline, PipelineOptions
+    from ..pipeline.engine import ParallelCellSegmentationPipeline
     from ..pipeline.results import BatchProcessingResult, initialize_timing_dict
     from ..registry.tracking import collect_run_metrics, create_summary_figures, tracked_run
     from ..reporting import print_summary, save_results_to_csv, save_run_summary, write_rows_csv
 
-    t_start = time.time()
     project_dir = args.project_dir
-    if not project_dir.is_dir():
-        raise SystemExit(f"error: --project-dir does not exist: {project_dir}")
-    condition_dirs = sorted(d for d in project_dir.iterdir() if d.is_dir())
+    condition_dirs = _condition_dirs(project_dir)
     condition_names = [d.name for d in condition_dirs]
-    if not condition_names:
-        raise SystemExit(f"no condition directories under {project_dir}")
 
-    rois = resolve_rois(args, condition_names)
-
-    opts = PipelineOptions(batch_size=args.batch_size, max_det=args.max_det,
-                           hull_mode=args.hull_mode, quant=args.quant)
-    pipeline = ParallelCellSegmentationPipeline(
-        yolo_model_path=args.yolo_model,
-        sam_model_type=args.sam_model,
-        sam_checkpoint=args.sam_checkpoint,
-        device=args.device,
-        options=opts,
-        num_pipelines=args.num_pipelines,
-    )
+    pipeline = build_pipeline(ParallelCellSegmentationPipeline, args, pipeline_kwargs, mesh,
+                              yolo_model_path=args.yolo_model,
+                              num_pipelines=args.num_pipelines)
+    writes = pipeline.writes
     run_dir = Path(args.output_dir) / pipeline.run_id
-    run_dir.mkdir(parents=True, exist_ok=True)
-    save_roi_coordinates(rois, run_dir / "roi_coordinates.json")
-    with open(run_dir / "pipeline_parameters.json", "w") as f:
-        json.dump(
-            {
-                **{k: str(v) if not isinstance(v, (int, float, bool, type(None))) else v
-                   for k, v in dataclasses.asdict(pipeline.options).items()},
-                "sam_model_type": pipeline.sam_model_type,
-                "run_id": pipeline.run_id,
-            },
-            f,
-            indent=2,
-        )
+    if writes:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        save_roi_coordinates(rois, run_dir / "roi_coordinates.json")
+        with open(run_dir / "pipeline_parameters.json", "w") as f:
+            json.dump(
+                {
+                    **{k: str(v) if not isinstance(v, (int, float, bool, type(None))) else v
+                       for k, v in dataclasses.asdict(pipeline.options).items()},
+                    "sam_model_type": pipeline.sam_model_type,
+                    "run_id": pipeline.run_id,
+                },
+                f,
+                indent=2,
+            )
 
     all_results, all_metrics, all_timing = [], [], []
     total_timing = initialize_timing_dict()
@@ -206,7 +226,8 @@ def _run(args) -> Path:
         if not images:
             continue
         cond_out = run_dir / cond
-        cond_out.mkdir(parents=True, exist_ok=True)
+        if writes:
+            cond_out.mkdir(parents=True, exist_ok=True)
         t0 = time.time()
         batch = pipeline.process_directory(
             cond_dir, cond_out, save_visualizations=args.save_visualizations,
@@ -220,11 +241,12 @@ def _run(args) -> Path:
         for row in batch.timing_data:
             row["condition"] = cond
         cond_run_dir = cond_out / pipeline.run_id
-        save_results_to_csv(batch, cond_run_dir)
-        save_run_summary(
-            batch, cond_dir, cond_run_dir, pipeline.run_id, cond_runtime,
-            summary_name="condition_summary.txt", is_condition_summary=True,
-        )
+        if writes:
+            save_results_to_csv(batch, cond_run_dir)
+            save_run_summary(
+                batch, cond_dir, cond_run_dir, pipeline.run_id, cond_runtime,
+                summary_name="condition_summary.txt", is_condition_summary=True,
+            )
         all_results.extend(batch.results)
         all_metrics.extend(batch.metrics_data)
         all_timing.extend(batch.timing_data)
@@ -237,6 +259,8 @@ def _run(args) -> Path:
         metrics_data=all_metrics,
         timing_data=all_timing,
     )
+    if not writes:
+        return run_dir
     save_results_to_csv(combined, run_dir)
 
     # ROI gating: the gated rows keep every column of the combined rows

@@ -8,27 +8,31 @@ print summary statistics. Runs on the card (``--device cuda``) unless asked
 for the CPU. Weights come from ``--yolo-model`` (an ultralytics state dict;
 ``--run-id`` fetches it from an MLflow run) and ``--sam-checkpoint`` (HF
 ``SamModel`` or MobileSAM; ``.safetensors``, ``.bin`` or ``.pt``); a model
-given no file draws random weights (seed 0). The arguments the port cannot
-honour yet raise, naming the ``ROADMAP.md`` item that ports them.
+given no file draws random weights (seed 0). ``--encoder-parallel sp
+--parallel-devices N`` starts N ranks (``parallel/launch.py``: NCCL with a
+card each, else gloo, the ranks sharing the cards), each running the
+pipeline with the SAM encoder's token rows split over the ranks; rank 0
+writes the outputs. The arguments the port cannot honour yet raise, naming
+the ``ROADMAP.md`` item that ports them (``--encoder-parallel tp``).
 
 Usage:
     python -m yolo_sam_inference_tpu_torch.apps.single_batch_inference \
         --input-dir IMGS --output-dir OUT [--yolo-model best.pt]
         [--sam-model facebook/sam-vit-base] [--sam-checkpoint model.safetensors]
         [--batch-size 8] [--max-det 24] [--hull-mode reference] [--quant int8]
-        [--save-visualizations]
+        [--encoder-parallel sp --parallel-devices 2] [--save-visualizations]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from pathlib import Path
 
-# argument -> (the value it may keep, the ROADMAP.md item that ports it)
+# argument -> (the values it may take, the ROADMAP.md item that ports the others)
 NOT_PORTED = {
-    "encoder_parallel": ("none", "Queue 1 items 4 and 6, the parallel encoders"),
-    "parallel_devices": (0, "Queue 1 items 4 and 6, the parallel encoders"),
+    "encoder_parallel": (("none", "sp"), "Queue 1 item 6, the tensor-parallel encoder"),
 }
 
 
@@ -54,8 +58,10 @@ def parse_args(argv=None):
     p.add_argument("--quant", choices=("none", "int8"), default="none",
                    help="int8 = dynamic w8a8 SAM-encoder projections")
     p.add_argument("--encoder-parallel", choices=("none", "tp", "sp"), default="none",
-                   help="shard the SAM ViT encoder over cards (not ported yet)")
-    p.add_argument("--parallel-devices", type=int, default=0, help="not ported yet")
+                   help="shard the SAM ViT encoder over ranks: sp = its token rows "
+                        "(tp is not ported yet)")
+    p.add_argument("--parallel-devices", type=int, default=0,
+                   help="ranks for --encoder-parallel (0 = one a visible card)")
     args = p.parse_args(argv)
     refuse_not_ported(p, args, NOT_PORTED)
     return args
@@ -63,20 +69,65 @@ def parse_args(argv=None):
 
 def refuse_not_ported(parser: argparse.ArgumentParser, args, table) -> None:
     """Exit through ``parser.error`` where an argument of ``table`` (name ->
-    (the value it may keep, the ROADMAP.md item that ports it)) has another
-    value."""
+    (the values it may take, the ROADMAP.md item that ports the others)) has
+    another value."""
     for name, (keep, item) in table.items():
-        if getattr(args, name) != keep:
+        if getattr(args, name) not in keep:
             parser.error(f"--{name.replace('_', '-')} {getattr(args, name)} is not ported yet "
                          f"(ROADMAP.md {item})")
 
 
-def main(argv=None) -> int:
+def launch_ranks(app: str, args, pipeline_kwargs=None, **job) -> None:
+    """``--encoder-parallel sp``: ``--parallel-devices`` ranks (0 = one a
+    visible card) through ``parallel.launch.run_ranks``, each running
+    ``apps.<app>.run_rank`` on a (dp=1, sp=N) mesh (the ``"app"`` job of
+    ``parallel/workers.py``). A failed rank raises here."""
+    import torch
+
+    from ..parallel.launch import run_ranks
+    from ..parallel.workers import run_jobs
+
+    n = args.parallel_devices or (torch.cuda.device_count() if args.device == "cuda" else 0)
+    if n < 1:
+        raise SystemExit(f"error: --encoder-parallel sp on device {args.device!r} needs "
+                         "--parallel-devices N")
+    run_ranks(run_jobs, n, ([{"kind": "app", "app": app, "args": args,
+                              "pipeline_kwargs": pipeline_kwargs,
+                              "mesh": {"encoder_parallel": "sp", "devices": n}, **job}],))
+
+
+def build_pipeline(cls, args, pipeline_kwargs=None, mesh=None, **kwargs):
+    """``cls`` (the engine or its thread-replica wrapper) from the runner's
+    arguments. ``pipeline_kwargs`` adds keyword arguments for the engine
+    (configs, seed, ...), its ``"options"`` a dict of ``PipelineOptions``
+    fields over the arguments' (a library caller's knob; the ranks of
+    ``--encoder-parallel`` get it too)."""
+    from ..pipeline.engine import PipelineOptions
+
+    extra = dict(pipeline_kwargs or {})
+    opts = PipelineOptions(batch_size=args.batch_size, max_det=args.max_det,
+                           hull_mode=args.hull_mode, quant=args.quant,
+                           encoder_parallel=args.encoder_parallel)
+    opts = dataclasses.replace(opts, **extra.pop("options", {}))
+    return cls(sam_model_type=args.sam_model, sam_checkpoint=args.sam_checkpoint,
+               device=args.device, options=opts, mesh=mesh, **kwargs, **extra)
+
+
+def main(argv=None, pipeline_kwargs=None) -> int:
     args = parse_args(argv)
     if not args.input_dir.is_dir():
         print(f"error: --input-dir does not exist: {args.input_dir}")
         return 2
-    from ..pipeline.engine import CellSegmentationPipeline, PipelineOptions
+    if args.encoder_parallel == "sp":
+        launch_ranks("single_batch_inference", args, pipeline_kwargs)
+        return 0
+    return run_rank(args, pipeline_kwargs)
+
+
+def run_rank(args, pipeline_kwargs=None, mesh=None) -> int:
+    """The run on this process, one rank of ``mesh`` where one is given
+    (the mesh's first rank writes the outputs)."""
+    from ..pipeline.engine import CellSegmentationPipeline
     from ..reporting import print_summary, save_results_to_csv, save_run_summary
     from ..utils.metrics_reporter import report_summary_statistics
     from ..utils.model_loader import load_model_from_mlflow
@@ -85,21 +136,16 @@ def main(argv=None) -> int:
     if yolo_path is None and args.run_id:
         yolo_path = load_model_from_mlflow(args.experiment_id or "", args.run_id)
 
-    opts = PipelineOptions(batch_size=args.batch_size, max_det=args.max_det,
-                           hull_mode=args.hull_mode, quant=args.quant)
-    pipeline = CellSegmentationPipeline(
-        yolo_model_path=yolo_path,
-        sam_model_type=args.sam_model,
-        sam_checkpoint=args.sam_checkpoint,
-        device=args.device,
-        options=opts,
-    )
+    pipeline = build_pipeline(CellSegmentationPipeline, args, pipeline_kwargs, mesh,
+                              yolo_model_path=yolo_path)
 
     t0 = time.time()
     batch = pipeline.process_directory(
         args.input_dir, args.output_dir, save_visualizations=args.save_visualizations
     )
     runtime = time.time() - t0
+    if not pipeline.writes:
+        return 0
 
     run_dir = Path(args.output_dir) / pipeline.run_id
     save_results_to_csv(batch, run_dir)

@@ -17,6 +17,12 @@ batch runs as four stages on the pipeline's device:
   resample onto a fixed crop around each cell;
 * :func:`metrics_stage`: the 16 morphometrics per cell.
 
+With ``mesh=`` (``parallel/mesh.py``, a data axis of dp ranks) the engine
+runs data-parallel: every rank is called with the same frames, runs its
+contiguous share of the batch (padded to a multiple of dp) through the four
+stages on its own card, and the outputs are gathered over the data axis on
+the host, so every rank returns the whole batch's.
+
 Above the stages: ``process_batch_arrays`` (stages synchronised and timed),
 ``fused_call`` / ``fused_call_chunked`` (device tensors, no sync), and the
 directory path (``process_single_image``, ``process_directory``) that
@@ -76,6 +82,7 @@ from ..ops.nms import batched_nms
 from ..ops.preprocess import letterbox_batch, sam_preprocess_batch
 from ..ops.quant import quantize_sam_encoder_params
 from ..ops.window_crop import window_crop
+from ..parallel.mesh import data_shard
 from ..parallel.sp import sam_image_encoder_sp
 from ..weights import from_jax_params
 from ..utils.logger import setup_logger
@@ -132,7 +139,8 @@ class PipelineOptions:
     # projections (ops/quant.py); "none" keeps compute_dtype throughout
     quant: str = "none"
     # "sp" = the ViT encoder's token rows split over the ranks of the
-    # pipeline's process group (parallel/sp.py); "tp" is not ported yet
+    # pipeline's process group or its mesh's 'sp' axis (parallel/sp.py);
+    # "tp" is not ported yet
     encoder_parallel: str = "none"
     # True = every dense (k > 1) conv of YOLOv8, the SAM neck and TinyViT's
     # stems and neck on conv2d_act (K17; the JAX package's CONV2D_FUSED=1),
@@ -363,6 +371,23 @@ class _Slot:
             self.done.record()
 
 
+def _gather_outputs(out: Dict[str, Any], group, dp: int, b: int) -> Dict[str, Any]:
+    """The host outputs of every rank of the data axis (``group``, ``dp``
+    ranks, each its share in rank order) joined on the batch axis, the
+    padding rows past ``b`` dropped. Every rank gets the whole batch's. A
+    rank that fails before the gather leaves the others waiting in it:
+    ``parallel.launch.run_ranks`` then ends them and raises."""
+    parts: List[Any] = [None] * dp
+    dist.all_gather_object(parts, out, group=group)
+
+    def cat(arrays):
+        return None if any(a is None for a in arrays) else np.concatenate(arrays)[:b]
+
+    joined = {k: cat([p[k] for p in parts]) for k in out if k != "metrics"}
+    joined["metrics"] = {k: cat([p["metrics"][k] for p in parts]) for k in out["metrics"]}
+    return joined
+
+
 # ------------------------------------------------------------------- the engine
 
 
@@ -376,9 +401,18 @@ class CellSegmentationPipeline:
     ``FileNotFoundError``. A model given no file draws seeded random weights
     (the JAX package's numpy init). With ``encoder_parallel="sp"`` it is one
     rank of a ``torch.distributed`` program: ``process_group`` (default: the
-    world group) holds the ranks, each calls the pipeline on the same batch.
-    ``params`` = (YOLO tree, SAM tree) in the JAX layout replaces both the
-    files and the init.
+    mesh's 'sp' axis, else the world group) holds the ranks, each calls the
+    pipeline on the same batch. ``params`` = (YOLO tree, SAM tree) in the JAX
+    layout replaces both the files and the init.
+
+    ``mesh`` (a :class:`~..parallel.mesh.RankMesh`, e.g. ``make_mesh(dp=2)``)
+    makes the pipeline one rank of a data-parallel program, the JAX engine's
+    ``mesh=``: each rank of the data axis builds the same weights (from the
+    seed or the files), runs its share of every batch, and returns the whole
+    batch's outputs; the ranks share one run id and only the mesh's first
+    rank writes files. ``fused_call`` and ``detect_batch_arrays`` stay on
+    the rank's own batch. A data axis beside a sequence-parallel one (dp x
+    sp) is not ported yet.
     """
 
     def __init__(
@@ -393,6 +427,7 @@ class CellSegmentationPipeline:
         yolo_config: Optional[YoloConfig] = None,
         process_group=None,
         params: Optional[Tuple[Any, Any]] = None,
+        mesh=None,
     ) -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -427,8 +462,34 @@ class CellSegmentationPipeline:
         self._stage_cache: Dict[Tuple[int, int], Dict[str, Any]] = {}
         self._adapted_params: Dict[Tuple[int, int], Any] = {}
         self.run_id = f"{datetime.now().strftime('%Y%m%d_%H%M%S')}_{uuid.uuid4().hex[:8]}"
+        self._set_mesh(mesh)
         self._slots: List[_Slot] = []
         self._slot_next = 0
+
+    def _set_mesh(self, mesh) -> None:
+        """The data axis of ``mesh`` ('dp', else the first axis that is not
+        'sp' or 'tp'), this rank's place on it, the run id of the mesh's
+        first rank, and ``writes``: whether this rank writes the run's
+        files (the mesh's first rank; every pipeline without a mesh)."""
+        self.mesh = mesh
+        self._dp, self._dp_axis, self._dp_group, self.writes = 1, None, None, True
+        if mesh is None:
+            return
+        if not mesh.contains:
+            raise ValueError(f"this rank is not one of the mesh's ranks {mesh.ranks.tolist()}")
+        names = mesh.axis_names
+        axis = "dp" if "dp" in names else next((a for a in names if a not in ("sp", "tp")), None)
+        if axis is not None and mesh.shape[axis] > 1:
+            if any(n > 1 for a, n in mesh.shape.items() if a != axis):
+                raise ValueError(f"mesh {mesh.shape}: a data axis beside another axis above 1 "
+                                 "(dp x sp) is not ported yet (ROADMAP.md, Queue 1 item 6)")
+            self._dp, self._dp_axis = mesh.shape[axis], axis
+            self._dp_group = mesh.axis_group(axis)
+        if mesh.group is not None and mesh.size > 1:
+            box = [self.run_id]
+            dist.broadcast_object_list(box, src=mesh.first, group=mesh.group)
+            self.run_id = box[0]
+            self.writes = dist.get_rank() == mesh.first
 
     def _initialize_models(self, yolo_path, sam_ckpt, seed: int) -> None:
         """Each model from its file where one is given, else a random init on
@@ -518,6 +579,12 @@ class CellSegmentationPipeline:
                              "stages have no sp sharding)")
         if self.process_group is not None:
             return self.process_group
+        if self.mesh is not None:
+            if "sp" not in self.mesh.axis_names or self.mesh.group is None:
+                raise ValueError(f"encoder_parallel='sp' with a mesh needs an 'sp' axis over the "
+                                 f"ranks of a process group, got {self.mesh.shape} "
+                                 "(make_encoder_parallel_mesh('sp', N))")
+            return self.mesh.axis_group("sp")
         if not (dist.is_available() and dist.is_initialized()):
             raise ValueError("encoder_parallel='sp' requires a torch.distributed process group "
                              "(init_process_group, or process_group=; "
@@ -586,10 +653,17 @@ class CellSegmentationPipeline:
         """Upload a uint8 batch, launch the four stages and the pack, and queue
         the fetch, with no host sync: the building block of
         :meth:`process_directory`, where batch i computes while batch i-1's
-        outputs come back and batch i+1 decodes on the host."""
+        outputs come back and batch i+1 decodes on the host. Under a mesh
+        this rank dispatches its share, and the fetch gathers the batch."""
+        gather = None
+        if self._dp > 1:
+            images, b = self._dp_share(images)
+            gather = (self._dp_group, self._dp, b)
         slot = self._acquire_slot()
-        return self._start_fetch(slot, self.fused_call(self._images_to_device(images, slot)),
-                                 fetch_masks)
+        h = self._start_fetch(slot, self.fused_call(self._images_to_device(images, slot)),
+                              fetch_masks)
+        h["gather"] = gather
+        return h
 
     @staticmethod
     def _fetch_outputs(h: Dict[str, Any]) -> Dict[str, Any]:
@@ -598,7 +672,8 @@ class CellSegmentationPipeline:
         valid, mask_crops (B, K, cm, cm) bool or None, offsets (B, K, 2),
         metrics {key: (B, K)}. Every packed field is exact in fp32, and the
         arrays returned are the caller's own (the slot's buffers are
-        reused)."""
+        reused). A handle of a mesh's rank gathers the batch's outputs over
+        the data axis (a collective: every rank fetches in the same order)."""
         slot = h["slot"]
         if slot.done is not None:
             slot.done.synchronize()
@@ -608,7 +683,7 @@ class CellSegmentationPipeline:
             # unpackbits gives exact 0/1 bytes, so the bool view is free
             mask_crops = np.unpackbits(h["packed"].numpy(), axis=-1)[..., :h["cm"]].view(np.bool_)
         slot.pending = False
-        return {
+        out = {
             "boxes": flat[..., :4],
             "scores": flat[..., 4],
             "valid": flat[..., 5] > 0.5,
@@ -616,6 +691,17 @@ class CellSegmentationPipeline:
             "offsets": flat[..., 6:8].astype(np.int32),
             "metrics": {key: flat[..., 8 + i] for i, key in enumerate(h["keys"])},
         }
+        return out if h.get("gather") is None else _gather_outputs(out, *h["gather"])
+
+    def _dp_share(self, images: np.ndarray) -> Tuple[np.ndarray, int]:
+        """(this rank's share of the batch, the batch size): the batch padded
+        with zero frames to a multiple of dp (the JAX engine's
+        ``_images_to_device`` under a mesh), this rank's contiguous slice."""
+        b = int(images.shape[0])
+        pad = (-b) % self._dp
+        if pad:
+            images = np.concatenate([images, np.zeros((pad, *images.shape[1:]), images.dtype)])
+        return images[data_shard(self.mesh, images.shape[0], self._dp_axis)], b
 
     @torch.inference_mode()
     def process_batch_arrays(
@@ -631,8 +717,19 @@ class CellSegmentationPipeline:
         None when ``fetch_masks`` is False: the bitpack is skipped).
         ``timings`` accumulates per-stage seconds (device synchronised) under
         the reference's keys; with ``fetch_outputs=False`` only the timings
-        are produced.
+        are produced. Under a mesh every rank runs its share, ``timings``
+        holds its own stages', and the outputs are the whole batch's,
+        gathered over the data axis.
         """
+        if self._dp == 1:
+            return self._process_local(images, timings, fetch_masks, fetch_outputs)
+        share, b = self._dp_share(images)
+        out = self._process_local(share, timings, fetch_masks, fetch_outputs)
+        return None if out is None else _gather_outputs(out, self._dp_group, self._dp, b)
+
+    def _process_local(self, images: np.ndarray, timings, fetch_masks: bool,
+                       fetch_outputs: bool) -> Optional[Dict[str, Any]]:
+        """:meth:`process_batch_arrays` on this rank's device alone."""
         st = self._stages(images.shape[1], images.shape[2])
 
         def timed(key, fn, *a):
@@ -657,7 +754,8 @@ class CellSegmentationPipeline:
     @torch.inference_mode()
     def fused_call(self, images: torch.Tensor):
         """All four stages on a device batch, no host sync; returns device
-        tensors (boxes, scores, valid, crops, offsets, metrics)."""
+        tensors (boxes, scores, valid, crops, offsets, metrics). Under a mesh
+        it runs the batch it is given on this rank alone."""
         st = self._stages(images.shape[1], images.shape[2])
         boxes, scores, valid = st["detect"](images)
         emb = st["embed"](images)
@@ -749,7 +847,7 @@ class CellSegmentationPipeline:
         result = self._results_from_outputs(out, [image_path], 1)[0]
 
         t0 = time.time()
-        if save_visualizations:
+        if save_visualizations and self.writes:
             from .visualize import save_visualizations as save_vis
 
             try:
@@ -789,6 +887,8 @@ class CellSegmentationPipeline:
         a run of one batch or fewer takes the synced stage path alone.
         ``E2E_PREFETCH_DEPTH`` (3) bounds the decoded batches queued.
         ``last_directory_stats`` holds the run's host-side wall seconds by leg.
+        Under a mesh every rank decodes every batch and returns every row;
+        only the mesh's first rank writes the run directory's files.
         """
         from .loader import batched_image_loader, prefetch_iterator
 
@@ -796,7 +896,8 @@ class CellSegmentationPipeline:
         if image_paths is None and not input_dir.is_dir():
             raise FileNotFoundError(f"input directory does not exist: {input_dir}")
         output_dir = Path(output_dir) / self.run_id
-        output_dir.mkdir(parents=True, exist_ok=True)
+        if self.writes:
+            output_dir.mkdir(parents=True, exist_ok=True)
 
         files = list(image_paths) if image_paths is not None else list_image_files(input_dir)
         results: List[ProcessingResult] = []
@@ -805,20 +906,22 @@ class CellSegmentationPipeline:
         timing_data: List[Dict[str, Any]] = []
 
         # per-run config snapshot (the reference snapshotted its parameters)
-        with open(output_dir / "pipeline_parameters.json", "w") as f:
-            snap = {
-                k: (str(v) if not isinstance(v, (int, float, bool, type(None))) else v)
-                for k, v in dataclasses.asdict(self.options).items()
-            }
-            snap.update({"sam_model_type": self.sam_model_type, "run_id": self.run_id})
-            json.dump(snap, f, indent=2)
+        if self.writes:
+            with open(output_dir / "pipeline_parameters.json", "w") as f:
+                snap = {
+                    k: (str(v) if not isinstance(v, (int, float, bool, type(None))) else v)
+                    for k, v in dataclasses.asdict(self.options).items()
+                }
+                snap.update({"sam_model_type": self.sam_model_type, "run_id": self.run_id})
+                json.dump(snap, f, indent=2)
 
         bsz = self.options.batch_size
         depth = int(os.environ.get("E2E_PREFETCH_DEPTH", "3"))
         inflight = int(os.environ.get("E2E_INFLIGHT", "2"))
         sample_n = max(1, int(os.environ.get("E2E_SAMPLE_BATCH", "32")))
         batches = prefetch_iterator(
-            batched_image_loader(files, bsz, skipped_report=output_dir / "skipped_images.txt"),
+            batched_image_loader(files, bsz, skipped_report=(
+                output_dir / "skipped_images.txt" if self.writes else None)),
             depth=depth,
         )
         few = len(files) <= bsz
@@ -872,7 +975,7 @@ class CellSegmentationPipeline:
             stats["n_images"] += n_valid
 
             vis_t0 = time.time()
-            if save_visualizations:
+            if save_visualizations and self.writes:
                 from .visualize import save_visualizations as save_vis
 
                 for i, res in enumerate(batch_results):
@@ -939,8 +1042,8 @@ class ParallelCellSegmentationPipeline(CellSegmentationPipeline):
     """API-parity wrapper for the reference's thread-replica pipeline
     (reference ``pipeline.py:440-643``): ``num_pipelines`` multiplies the
     device batch size, so one program runs an N x batch_size batch where the
-    reference ran N thread replicas, each on its own image. Data parallelism
-    over cards is not ported yet (``ROADMAP.md``, Queue 1 item 4).
+    reference ran N thread replicas, each on its own image. Across cards,
+    ``mesh=`` runs it data-parallel, as it does the base class.
     """
 
     def __init__(self, *args, num_pipelines: int = 2, **kwargs) -> None:

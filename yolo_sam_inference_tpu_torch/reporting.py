@@ -10,16 +10,19 @@ Byte-compatible output schemas with the reference ``reporting.py``:
 
 A copy of the JAX package's ``reporting.py`` (which the port may not
 import), but for the CSV writer: the card's machine has no pandas, so the
-``csv`` module writes the bytes ``DataFrame(rows).to_csv(index=False)`` gives.
+``csv`` module writes the bytes ``DataFrame(rows).to_csv(index=False)`` gives,
+and reads CSVs back typed as ``pandas.read_csv`` types them
+(:func:`read_csv_rows`).
 """
 
 from __future__ import annotations
 
 import csv
+import io
 import math
 from datetime import datetime
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from .pipeline.results import BatchProcessingResult
 
@@ -42,10 +45,10 @@ def _column_text(values: List[Any]) -> List[str]:
     return ["" if _missing(v) else str(v) for v in values]
 
 
-def write_rows_csv(rows: List[Dict[str, Any]], fixed: Sequence[str], path: Path,
-                   columns: Optional[Sequence[str]] = None) -> None:
+def rows_csv_text(rows: List[Dict[str, Any]], fixed: Sequence[str] = (),
+                  columns: Optional[Sequence[str]] = None) -> str:
     """``pandas.DataFrame(rows)`` with the ``fixed`` columns first, as
-    ``to_csv(path, index=False)`` writes it: columns in order of first
+    ``to_csv(index=False)`` writes it: columns in order of first
     appearance, minimal quoting, a line feed ending each line. ``columns``
     names the frame's columns where ``rows`` is a subset of a larger frame's
     (an empty subset still writes its header)."""
@@ -53,11 +56,122 @@ def write_rows_csv(rows: List[Dict[str, Any]], fixed: Sequence[str], path: Path,
         columns = dict.fromkeys(k for row in rows for k in row)
     columns = [c for c in fixed if c in columns] + [c for c in columns if c not in fixed]
     cells = [_column_text([row.get(c) for row in rows]) for c in columns]
-    with open(path, "w", newline="", encoding="utf-8") as f:
-        writer = csv.writer(f, lineterminator="\n")
-        writer.writerow(columns)
-        writer.writerows(zip(*cells))
+    buf = io.StringIO()
+    writer = csv.writer(buf, lineterminator="\n")
+    writer.writerow(columns)
+    writer.writerows(zip(*cells))
+    return buf.getvalue()
 
+
+def write_rows_csv(rows: List[Dict[str, Any]], fixed: Sequence[str], path: Path,
+                   columns: Optional[Sequence[str]] = None) -> None:
+    """:func:`rows_csv_text` written to ``path``."""
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        f.write(rows_csv_text(rows, fixed, columns))
+
+
+_NA_TEXTS = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+                       "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+                       "nan", "null"})
+_POW10 = [float(f"1e{k}") for k in range(309)]
+
+
+def pandas_float(text: str) -> float:
+    """A decimal as pandas' default C parser reads it (``precise_xstrtod``):
+    up to 17 significant digits accumulated in a double, then one multiply or
+    divide by a power of ten. It is not always the correctly rounded value
+    that ``float()`` gives: a repr written by pandas can read back one ulp
+    off, and the tools' outputs carry that value."""
+    t = text.strip()
+    low = t.lower()
+    if low.lstrip("+-") in ("inf", "infinity"):
+        return float(low)
+    neg = t[:1] == "-"
+    i = 1 if t[:1] in "+-" else 0
+    number, exponent, digits = 0.0, 0, 0
+    while i < len(t) and t[i].isdigit():
+        if digits < 17:
+            number = number * 10.0 + (ord(t[i]) - 48)
+            digits += 1
+        else:
+            exponent += 1
+        i += 1
+    if i < len(t) and t[i] == ".":
+        i += 1
+        decimals = 0
+        while i < len(t) and t[i].isdigit():
+            if digits < 17:
+                number = number * 10.0 + (ord(t[i]) - 48)
+                digits += 1
+                decimals += 1
+            i += 1
+        exponent -= decimals
+    if digits == 0:
+        raise ValueError(f"not a number: {text!r}")
+    if i < len(t) and t[i] in "eE":
+        exponent += int(t[i + 1:])
+    elif i != len(t):
+        raise ValueError(f"not a number: {text!r}")
+    if neg:
+        number = -number
+    if exponent > 308:
+        return math.copysign(math.inf, number)
+    if exponent > 0:
+        return number * _POW10[exponent]
+    if exponent < -308:
+        return 0.0 if exponent < -616 else number / _POW10[-308 - exponent] / _POW10[308]
+    return number / _POW10[-exponent]
+
+
+def _typed(texts: List[str]) -> tuple:
+    """One CSV column as pandas types it: (kind, values), kind "int" (all
+    present and integral), "float" (an NA text is NaN) or "str"."""
+    present = [t for t in texts if t not in _NA_TEXTS]
+    if len(present) == len(texts):
+        try:
+            return "int", [int(t) for t in texts]
+        except ValueError:
+            pass
+    try:
+        return "float", [pandas_float(t) if t not in _NA_TEXTS else math.nan for t in texts]
+    except ValueError:
+        return "str", [t if t not in _NA_TEXTS else math.nan for t in texts]
+
+
+def parse_csv_rows(text: str) -> tuple:
+    """({column: kind}, rows) of CSV text with a header, each column typed as
+    ``pandas.read_csv`` types it. Text with no header raises ValueError."""
+    reader = csv.reader(io.StringIO(text, newline=""))
+    columns = next(reader, None)
+    if columns is None:
+        raise ValueError("no columns to parse")
+    records = list(reader)
+    typed = [_typed([r[j] if j < len(r) else "" for r in records]) for j in range(len(columns))]
+    kinds = {c: kind for c, (kind, _) in zip(columns, typed)}
+    return kinds, [dict(zip(columns, vals)) for vals in zip(*(v for _, v in typed))]
+
+
+def concat_tables(tables: Sequence[tuple]) -> Tuple[List[str], List[Dict[str, Any]]]:
+    """(columns, rows) of the tables joined as ``pandas.concat(frames,
+    ignore_index=True)`` joins them: a column some table lacks is NaN there;
+    an all-number column that is float in a table, or missing from one,
+    holds floats. No table raises ValueError, as ``pandas.concat`` does."""
+    if not tables:
+        raise ValueError("No objects to concatenate")
+    columns = list(dict.fromkeys(c for kinds, _ in tables for c in kinds))
+    as_float = {c for c in columns
+                if all(kinds.get(c, "float") in ("int", "float") for kinds, _ in tables)
+                and any(kinds.get(c) != "int" for kinds, _ in tables)}
+    rows = [{c: (float(row[c]) if c in as_float else row[c]) if c in row else math.nan
+             for c in columns}
+            for _, table_rows in tables for row in table_rows]
+    return columns, rows
+
+
+def read_csv_rows(path: Path) -> tuple:
+    """:func:`parse_csv_rows` of a file."""
+    with open(path, newline="", encoding="utf-8") as f:
+        return parse_csv_rows(f.read())
 
 def save_results_to_csv(batch_result: BatchProcessingResult, output_dir: Path) -> None:
     """Save metrics and timing data to CSV files."""
