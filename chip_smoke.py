@@ -187,7 +187,30 @@ failure ends the run with a non-zero exit and no result line:
    a timed batch (two ranks sharing one card: no speed-up is measured);
    then ViT-B at the 896 canvas the same way (each rank's 14 x 14 windows
    on K12), against phase 12's single-card 896 and fp32 plain embeddings;
-14. result: the kernel table as one JSON line (each kernel's launches on its
+14. tp: ``gemm_bf16`` at the row-parallel products' K (384, 640) against
+   its fp32 plain version, beside ``torch.mm``; the tensor-parallel encoder
+   (``parallel/tp.py``) on 2 gloo ranks sharing the card, ViT-B (config 1's
+   weights) and ViT-H (8 heads a rank, hd 80) at the 512 canvas, each rank
+   holding only its shard: launch counts per rank, the embedding equal
+   across ranks and against the single card's bf16 and fp32 plain encoders
+   (2% / 5%), ms by rank; config 1 with ``encoder_parallel="tp"`` on the
+   pair, and on (dp 2, sp 2) and (dp 2, tp 2) meshes of 4 ranks: launch
+   counts, outputs against the single card's (boxes and detections exact,
+   masks on 99% of pixels, metrics 2%);
+15. train: ``parallel/train.py`` at ViT-B's full width on the 512 canvas,
+   8 frames x 16 boxes, 128² random targets, 3 AdamW steps: step 1's
+   gradients through the kernels (``ops/autograd.py``) against fp32 plain
+   autograd on the card, cosine per tensor (0.99), every leaf the loss
+   reaches with a non-zero gradient, the forward's launch counts those of
+   inference, the loss falling, each step's forward / backward / update ms;
+   then 2 steps on a dp 2 x tp 2 mesh of 4 ranks against the single card
+   (losses 1%, the replicated parameters bit-equal on all ranks);
+16. pp: ViT-B in 2 stages (``parallel/pp.py``), 4 microbatches of 2 frames:
+   launch counts per stage, the embedding against the single card's;
+17. multichip: ``parallel.dryrun.dryrun_multichip(4)`` (the dp engine, the
+   tp, sp and pp encoders, the dp x tp and dp x sp engines, two dp x tp
+   train steps, at ViT-B's widths cut to 2 layers);
+18. result: the kernel table as one JSON line (each kernel's launches on its
    path, the window attention's counted by window: windows of 16 run on
    ``window_attn_relpos.cu``, the others on ``flash_attention_relpos.cu``;
    error, ms, plain ms, the bound for the same work on an H100 and
@@ -237,6 +260,20 @@ STREAM_SIZE = 256
 REGISTRY_FILES = 32  # PNG files of the [registry] phase's manifest (one unreadable more)
 DP_RANKS = 2  # data-parallel ranks (one card: they share it)
 DP_FILES = 64  # PNG files through process_directory under the mesh and the sharded run
+TP_RANKS = 2  # tensor-parallel ranks of [tp] (one card: they share it)
+MESH_RANKS = 4  # ranks of the dp x sp / dp x tp meshes, [train]'s dp x tp and [multichip]
+TRAIN_BOXES = 16  # box prompts a frame in [train]
+TRAIN_STEPS = 3
+# Adam's first steps move each of ViT-B's ~93M weights by about the learning
+# rate; at optax's default 1e-4 (and 1e-5) the loss on random targets rises at
+# step 2, so [train] steps at 1e-6 and shows one default-rate run beside it
+TRAIN_LR = 1e-6
+# [train]'s gates on step 1's gradients, tensor by tensor, against a reference
+# (fp32 plain autograd; on dp 2 x tp 2 the single card's): the cosine, and the
+# norm ratio |g| / |g_ref|, which the cosine cannot see and AdamW's step hardly
+# depends on (a gradient summed where it should be averaged is off by tp)
+GRAD_COS_MIN, GRAD_NORM_TOL = 0.99, 0.05
+PP_RANKS, PP_MICROBATCHES = 2, 4
 # published H100 SXM peaks (NVIDIA data sheet): bytes/s and operations/s
 PEAK = {"hbm": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # the decoder, crop and hull kernels of one batch (max_det prompts an image)
@@ -3829,6 +3866,616 @@ def _randomise_affines(tree, rng) -> None:
             tree[key] = (0.1 * rng.normal(size=v.shape)).astype(v.dtype)
 
 
+def _vit_512(model: str):
+    """SAM config of ``model`` at the 512 canvas (grid 32, window 16)."""
+    import dataclasses
+
+    from yolo_sam_inference_tpu_torch.models.sam import sam_vit_b, sam_vit_h
+
+    base = {"vit-b": sam_vit_b, "vit-h": sam_vit_h}[model]()
+    return dataclasses.replace(base, image_size=FRAME, window_size=16)
+
+
+def _encoders_single(tree, cfg, pix):
+    """(bf16 kernel embedding, fp32 plain embedding on the bf16-rounded
+    weights, the kernel encoder's median ms) of the single card, on the
+    normalised pixels ``pix`` (fp32, on the card)."""
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+    from yolo_sam_inference_tpu_torch.weights import from_jax_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 oracle stays fp32
+    _, sam = from_jax_params(None, tree, "cuda", torch.bfloat16, sam_config=cfg)
+    pix16 = pix.to(torch.bfloat16)
+    with torch.inference_mode():
+        emb16 = sam.vision(pix16).float()
+        ms = median_ms(lambda: sam.vision(pix16), reps=5, warmup=1)
+    del sam
+    _, sam32 = from_jax_params(None, tengine._round_floating(tree, torch.bfloat16), "cuda",
+                               torch.float32, sam_config=cfg)
+    with torch.inference_mode():
+        emb32 = sam32.vision(pix, plain=True)
+    del sam32
+    torch.cuda.empty_cache()
+    return emb16, emb32, ms
+
+
+def _outputs_agree(tag: str, got: dict, want: dict) -> dict:
+    """A multi-rank engine's outputs against the single card's on the same
+    frames: boxes, scores and detections exactly (YOLO runs the same kernels
+    on the same frames), the masks of the valid cells on at least 99% of
+    pixels, each metric within 2% relative RMS (the bound the
+    sequence-parallel slice holds its embedding to)."""
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.ops.metrics import METRIC_KEYS
+
+    for key in ("boxes", "scores", "valid"):
+        if not np.array_equal(got[key], want[key]):
+            raise AssertionError(f"{tag}: {key} differ from the single card's")
+    valid = want["valid"]
+    agree = float((got["mask_crops"][valid] == want["mask_crops"][valid]).mean())
+    rels = {}
+    for key in METRIC_KEYS:
+        g, w = got[f"metric_{key}"][valid], want["metrics"][key][valid]
+        rels[key] = float(np.linalg.norm(g - w) / max(float(np.linalg.norm(w)), 1e-30))
+    worst = max(rels, key=rels.get)
+    exact = agree == 1.0 and max(rels.values()) == 0.0
+    _say("tp", f"{tag}: {int(valid.sum())} valid cells; boxes, scores, detections equal the "
+               f"single card's; masks agree on {agree:.6f} of their pixels; worst metric "
+               f"{worst} rel_rms {rels[worst]:.3e}{' (all outputs bit-equal)' if exact else ''}")
+    if agree < 0.99 or rels[worst] > 0.02:
+        raise AssertionError(f"{tag}: outputs disagree with the single card's")
+    return {"mask_agree": agree, "worst_metric_rel": rels[worst]}
+
+
+def _tp_rank(rank: int, world: int, job: dict) -> None:
+    """One of MESH_RANKS ranks of ``[tp]`` (run by parallel/launch.py in a
+    process of its own). Ranks 0-1 (a group of TP_RANKS): each holds only its
+    shard of ViT-B and of ViT-H (the parent's files) and runs the
+    tensor-parallel encoder on the frames (launch counts, embedding, median
+    ms), then config 1 with ``encoder_parallel="tp"`` on the pair
+    (``_drive``). All four: config 1 on a (dp 2, sp 2) and a (dp 2, tp 2)
+    mesh, each rank's launch counts on its share. Results go to the job's
+    directory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.models.sam import SamImageEncoder
+    from yolo_sam_inference_tpu_torch.parallel.mesh import make_mesh, make_mesh_axes
+    from yolo_sam_inference_tpu_torch.parallel.tp import sam_image_encoder_tp
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+    from yolo_sam_inference_tpu_torch.weights import load_tree
+
+    d = Path(job["dir"])
+    pair = dist.new_group(list(range(TP_RANKS)))  # new_group and meshes: on every rank
+    meshes = {"dp 2 x sp 2": (make_mesh_axes(dp=2, sp=2), "sp"),
+              "dp 2 x tp 2": (make_mesh(dp=2, tp=2), "tp")}
+    frames = np.load(d / "frames.npy")
+    trees = load_tree(d / "params.npz")
+    info: dict = {}
+    if rank < TP_RANKS:
+        pix = torch.from_numpy(np.load(d / "pix.npy")).cuda().to(torch.bfloat16)
+        for model, cfg in job["cfgs"].items():
+            enc = SamImageEncoder(load_tree(d / f"{model}.shard{rank}.npz"), cfg)
+            enc = enc.to("cuda", torch.bfloat16)
+            layers = cfg.vision_layers
+            tag = f"tp {model} rank {rank} of {TP_RANKS}"
+            with torch.inference_mode():
+                wrappers = _reset_counts()
+                emb = sam_image_encoder_tp(enc, pix, cfg, pair)
+                torch.cuda.synchronize()
+                info[f"{model} launches"] = _read_counts(
+                    f"{tag}, the encoder alone ({frames.shape[0]} frames)", wrappers,
+                    {"gemm_bf16": 4 * layers, "window_attn_relpos": layers, "layer_norm": 2},
+                    by_window={16: layers - 4, 32: 4})
+                # the counted call above warmed it; the gloo all-reduces take seconds
+                info[f"{model} ms"] = median_ms(lambda: sam_image_encoder_tp(enc, pix, cfg, pair),
+                                                reps=3, warmup=0)
+            np.save(d / f"{model}.emb{rank}.npy", emb.float().cpu().numpy())
+            del enc, emb
+            torch.cuda.empty_cache()
+        opts = tengine.PipelineOptions(max_det=16, metric_crop=128, encoder_parallel="tp")
+        pipe = tengine.CellSegmentationPipeline(sam_model_type="facebook/sam-vit-base",
+                                                options=opts, device="cuda", process_group=pair,
+                                                params=(trees["yolo"], trees["sam"]))
+        info["engine launches"], _, out = _drive(
+            f"tp engine rank {rank} of {TP_RANKS} (encoder_parallel='tp')", pipe, frames, 16,
+            CONFIG1_COUNTS, by_window={16: 8, 32: 4})
+        _save_outputs(d / f"engine.rank{rank}.npz", out)
+        del pipe
+        torch.cuda.empty_cache()
+    expected = {"dp 2 x sp 2": ({**DECODER_COUNTS, "gemm_bf16": 48, "window_attn_relpos": 8,
+                                 "flash_attention_relpos": 4}, {16: 8}, {512: 4}),
+                "dp 2 x tp 2": (CONFIG1_COUNTS, {16: 8, 32: 4}, None)}
+    for name, (mesh, kind) in meshes.items():
+        opts = tengine.PipelineOptions(max_det=16, metric_crop=128, encoder_parallel=kind)
+        pipe = tengine.CellSegmentationPipeline(sam_model_type="facebook/sam-vit-base",
+                                                options=opts, device="cuda", mesh=mesh,
+                                                params=(trees["yolo"], trees["sam"]))
+        counts, by_window, by_nq = expected[name]
+        wrappers = _reset_counts()
+        out = pipe.process_batch_arrays(frames)
+        torch.cuda.synchronize()
+        info[f"{name} launches"] = _read_counts(
+            f"{name} rank {rank}, its {frames.shape[0] // 2} of {frames.shape[0]} frames",
+            wrappers, counts, by_window, by_nq)
+        _save_outputs(d / f"{name.replace(' ', '')}.rank{rank}.npz", out)
+        del pipe
+        torch.cuda.empty_cache()
+    with open(d / f"rank{rank}.json", "w") as f:
+        json.dump(info, f)
+
+
+def _save_outputs(path, out: dict) -> None:
+    import numpy as np
+
+    arrays = {k: v for k, v in out.items() if isinstance(v, np.ndarray)}
+    arrays.update({f"metric_{k}": v for k, v in out["metrics"].items()})
+    np.savez(path, **arrays)
+
+
+def _tp_phase(card: str, vit_b_pipe, vit_h_pipe) -> dict:
+    """``[tp]``: the tensor-parallel encoder at full width on TP_RANKS gloo
+    ranks sharing the card, ViT-B (config 1's weights, 512² frames) and
+    ViT-H (16 heads: 8 a rank, hd 80), each with the tables, embeddings,
+    biases and affines that the earlier phases drew at random: the ranks'
+    embeddings equal, against the single card's bf16 kernel encoder (2%)
+    and the fp32 plain encoder (5%), the gates of ``[sp]``; config 1 with
+    ``encoder_parallel="tp"`` and on (dp 2, sp 2) and (dp 2, tp 2) meshes of
+    MESH_RANKS ranks, against the single card on the same frames; and
+    ``gemm_bf16`` at the row-parallel products' K (384 and 640) against its
+    fp32 plain version, timed beside ``torch.mm``."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, median_ms
+    from yolo_sam_inference_tpu_torch.models.sam import adapt_resolution
+    from yolo_sam_inference_tpu_torch.ops.fused_ln import gemm_bf16, gemm_plain
+    from yolo_sam_inference_tpu_torch.ops.preprocess import sam_preprocess_batch
+    from yolo_sam_inference_tpu_torch.parallel.launch import run_ranks
+    from yolo_sam_inference_tpu_torch.parallel.tp import shard_sam_encoder_tp
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+    from yolo_sam_inference_tpu_torch.weights import save_tree
+
+    phase_t0 = time.perf_counter()
+    result: dict = {"errs": {}, "times": {}, "bounds": {}, "library": {}}
+    # the row-parallel products of a tp rank: proj (K = C / tp) and mlp2
+    # (K = hidden / tp); their K is below one 128-wide tile pair's worth
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(18)
+    for tag, k, n in (("ViT-B", 384, 768), ("ViT-H", 640, 1280)):
+        a = torch.randn(KERNEL_ROWS, k, generator=g).to(dev, bf)
+        w = (torch.randn(k, n, generator=g) * k ** -0.5).to(dev, bf)
+        got = gemm_bf16(a, w)
+        key = f"tp {tag} K{k}"
+        _check(f"gemm_bf16 {key} row-parallel proj ({KERNEL_ROWS}x{k} @ {k}x{n})", got,
+               gemm_plain(a.float(), w.float()), 2e-2, result["errs"])
+        result["times"][key] = (median_ms(lambda: gemm_bf16(a, w)),
+                                median_ms(lambda: gemm_plain(a.float(), w.float())))
+        result["library"][key] = median_ms(lambda: torch.mm(a, w))
+        result["bounds"][key] = _bound(2.0 * KERNEL_ROWS * k * n, _nbytes(a, w, got))
+        _say("tp", f"gemm_bf16 {key}: {result['times'][key][0]:.4f} ms (plain fp32 "
+                   f"{result['times'][key][1]:.4f}, torch.mm bf16 {result['library'][key]:.4f}, "
+                   f"bound {result['bounds'][key][0]:.4f} {result['bounds'][key][1]}) [{card}]")
+        del a, w, got
+    frames = cell_frames(np.random.default_rng(18), SLICE_BATCH, FRAME)
+    pix, _, _ = sam_preprocess_batch(torch.from_numpy(frames).cuda(), FRAME)
+    cfgs = {"vit-b": _vit_512("vit-b"), "vit-h": _vit_512("vit-h")}
+    pipes = {"vit-b": vit_b_pipe, "vit-h": vit_h_pipe}
+    single = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for model, cfg in cfgs.items():
+            tree = adapt_resolution(pipes[model].sam_params, cfg)
+            for r in range(TP_RANKS):
+                save_tree(f"{tmp}/{model}.shard{r}.npz",
+                          shard_sam_encoder_tp(tree, cfg, TP_RANKS, r)["vision"])
+            single[model] = _encoders_single(tree, cfg, pix)
+            del tree
+        save_tree(f"{tmp}/params.npz", {"yolo": vit_b_pipe.yolo_params,
+                                        "sam": vit_b_pipe.sam_params})
+        np.save(f"{tmp}/frames.npy", frames)
+        np.save(f"{tmp}/pix.npy", pix.cpu().numpy())
+        _say("tp", f"shards of ViT-B and ViT-H, the single-card embeddings and the config-1 "
+                   f"trees written for the ranks in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        backend = run_ranks(_tp_rank, MESH_RANKS, ({"dir": tmp, "cfgs": cfgs},))
+        _say("tp", f"backend {backend}, {MESH_RANKS} ranks on {torch.cuda.device_count()} "
+                   f"card(s); ranks done in {time.perf_counter() - t0:.2f} s")
+        infos = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(MESH_RANKS)]
+        embs = {m: [np.load(f"{tmp}/{m}.emb{r}.npy") for r in range(TP_RANKS)] for m in cfgs}
+        outs = {name: [dict(np.load(f"{tmp}/{name}.rank{r}.npz")) for r in range(n)]
+                for name, n in (("engine", TP_RANKS), ("dp2xsp2", MESH_RANKS),
+                                ("dp2xtp2", MESH_RANKS))}
+    for model in cfgs:
+        emb16, emb32, ms = single[model]
+        got = embs[model]
+        if not all(np.array_equal(e, got[0]) for e in got[1:]):
+            raise AssertionError(f"tp {model}: the ranks' embeddings differ")
+        e16, e32 = emb16.cpu().numpy(), emb32.cpu().numpy()
+        rel16 = float(np.linalg.norm(got[0] - e16) / np.linalg.norm(e16))
+        rel32 = float(np.linalg.norm(got[0] - e32) / np.linalg.norm(e32))
+        result[f"{model} rel16"], result[f"{model} rel32"] = rel16, rel32
+        rank_ms = [info[f"{model} ms"] for info in infos[:TP_RANKS]]
+        result[f"{model} ms"], result[f"{model} single ms"] = rank_ms, ms
+        _say("tp", f"{model} encoder at tp={TP_RANKS} ({got[0].shape}): equal on all ranks; "
+                   f"rel_rms vs the single-card bf16 encoder {rel16:.3e} (bound 0.02), vs the "
+                   f"fp32 plain encoder {rel32:.5f} (bound 0.05); ms by rank {rank_ms}, the "
+                   f"single card {ms:.3f} (two ranks sharing one card: no tp speed) [{card}]")
+        if not (rel16 <= 0.02 and rel32 <= 0.05 and np.isfinite(got[0]).all()):
+            raise AssertionError(f"tp {model}: the tensor-parallel embedding disagrees with the "
+                                 "single-card encoders")
+    ref_pipe = _sharing_params(vit_b_pipe, tengine.PipelineOptions(max_det=16, metric_crop=128))
+    ref_pipe._adapted_params.clear()  # adapt the trees the ranks adapt, as they are now
+    want = ref_pipe.process_batch_arrays(frames)
+    for name, runs in outs.items():
+        for r, got in enumerate(runs):
+            result[f"{name} rank {r}"] = _outputs_agree(f"{name} rank {r}", got, want)
+    result["launches"] = {name: infos[0][f"{name} launches"]
+                          for name in ("vit-b", "vit-h", "engine", "dp 2 x sp 2", "dp 2 x tp 2")}
+    ref_pipe._stage_cache.clear()
+    torch.cuda.empty_cache()
+    result["secs"] = time.perf_counter() - phase_t0
+    _say("tp", f"phase {result['secs']:.2f} s")
+    return result
+
+
+# the train step's forward a batch: the encoder's and the decoder's kernels of
+# the inference path; no crop, no hull (the mask head runs on the whole grid)
+TRAIN_COUNTS = {k: v for k, v in CONFIG1_COUNTS.items() if k not in ("window_crop",
+                                                                      "hull_support")}
+# leaves the loss does not reach: the point prompt, the hypernetworks of masks
+# 1-3 (multimask_output=False)
+UNREACHED = ("prompt::not_a_point", "decoder::hyper_mlps::1::", "decoder::hyper_mlps::2::",
+             "decoder::hyper_mlps::3::")
+
+
+def _grad_stats(grads: dict, ref: dict, keys) -> dict:
+    """(cosine, |g| / |g_ref|) of step 1's gradients per tensor of ``keys``.
+    The attention key biases' true gradient is zero (a softmax drops a shift
+    of a query's logits), so both sides are rounding noise there: a fused qkv
+    bias is taken at its q and v thirds (``::k::b`` is not in ``keys``)."""
+    import torch
+
+    out = {}
+    for k in keys:
+        a = grads[k].double().flatten()
+        b = ref[k].double().flatten().to(a.device)
+        if k.endswith("attn::qkv::b"):
+            third = a.numel() // 3
+            keep = torch.cat([torch.arange(third), torch.arange(2 * third, 3 * third)])
+            a, b = a[keep.to(a.device)], b[keep.to(a.device)]
+        out[k] = (float((a @ b) / (a.norm() * b.norm()).clamp(min=1e-300)),
+                  float(a.norm() / b.norm().clamp(min=1e-300)))
+    return out
+
+
+def _gate_grads(tag: str, stats: dict) -> dict:
+    """Says the worst cosine and norm ratio of ``stats`` and raises past
+    GRAD_COS_MIN / GRAD_NORM_TOL."""
+    by_cos = sorted(stats, key=lambda k: stats[k][0])
+    by_ratio = sorted(stats, key=lambda k: -abs(stats[k][1] - 1))
+    ratios = [r for _, r in stats.values()]
+    _say("train", f"{tag}: cosine over {len(stats)} tensors min {stats[by_cos[0]][0]:.6f} "
+                  f"({by_cos[0]}), next {[(k, round(stats[k][0], 6)) for k in by_cos[1:3]]}, "
+                  f"median {statistics.median(c for c, _ in stats.values()):.6f} (bound "
+                  f"{GRAD_COS_MIN}); norm ratio |g|/|g_ref| from {min(ratios):.6f} to "
+                  f"{max(ratios):.6f}, worst {by_ratio[0]} (bound 1 +- {GRAD_NORM_TOL})")
+    if stats[by_cos[0]][0] < GRAD_COS_MIN or abs(stats[by_ratio[0]][1] - 1) > GRAD_NORM_TOL:
+        raise AssertionError(f"train: {tag}: the gradients disagree")
+    return {"min_cos": stats[by_cos[0]][0], "worst_cos": by_cos[0],
+            "worst_ratio": stats[by_ratio[0]][1], "worst_ratio_key": by_ratio[0]}
+
+
+def _train_batch(cfg, n: int):
+    """The [train] batch: n frames of 12 cells normalised as the engine does,
+    TRAIN_BOXES boxes a frame and 128² random target masks from a seed."""
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames
+    from yolo_sam_inference_tpu_torch.ops.preprocess import sam_preprocess_batch
+
+    rng = np.random.default_rng(19)
+    frames = cell_frames(rng, n, FRAME)
+    pix, _, _ = sam_preprocess_batch(torch.from_numpy(frames), cfg.image_size)
+    xy = rng.uniform(0, FRAME - 80, size=(n, TRAIN_BOXES, 2))
+    wh = rng.uniform(16, 80, size=(n, TRAIN_BOXES, 2))
+    low = cfg.low_res_size
+    return {"images": pix.numpy().astype(np.float32),
+            "boxes": np.concatenate([xy, xy + wh], -1).astype(np.float32),
+            "masks": (rng.random((n, TRAIN_BOXES, low, low)) > 0.5).astype(np.float32),
+            "valid": np.ones((n, TRAIN_BOXES), np.float32)}
+
+
+def _train_rank(rank: int, world: int, job: dict) -> None:
+    """One of MESH_RANKS ranks of [train]'s dp 2 x tp 2 run (parallel/launch.py):
+    the state on the mesh from the parent's tree, 2 steps on the parent's
+    batch (launch counts of step 1 on the rank's share); the losses, a digest
+    of the parameters that tp does not split and one of those it splits go
+    to ``rank<r>.json``, step 1's gradients gathered to one tree (as reduced
+    over the mesh) to ``grads1.npz`` by rank 0."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import yolo_sam_inference_tpu_torch.parallel.train as ttrain
+    from yolo_sam_inference_tpu_torch.parallel.mesh import make_mesh
+    from yolo_sam_inference_tpu_torch.utils.checkpoint import flatten_tree
+    from yolo_sam_inference_tpu_torch.weights import load_tree
+
+    d = Path(job["dir"])
+    mesh = make_mesh(dp=2, tp=2)
+    cfg = job["cfg"]
+    state = ttrain.make_train_state(0, cfg, mesh, params=load_tree(d / "tree.npz"),
+                                    learning_rate=TRAIN_LR)
+    with np.load(d / "batch.npz") as z:
+        batch = dict(z)
+    losses, timings = [], {}
+    for step in range(2):
+        wrappers = _reset_counts()
+        state, loss = ttrain.sam_decoder_train_step(state, batch, cfg, timings=timings)
+        if step == 0:
+            launches = _read_counts(f"train dp 2 x tp 2 rank {rank}, step 1", wrappers,
+                                    TRAIN_COUNTS, by_window={16: 8, 32: 4})
+            grads = ttrain.gather_params(state, grads=True)  # a collective over tp
+            if rank == 0:
+                np.savez(d / "grads1.npz", **flatten_tree(grads))
+            del grads
+        losses.append(loss)
+    digests = {"replicated": hashlib.sha1(), "sharded": hashlib.sha1()}
+    for key, p in state["params"].items():
+        kind = ("sharded" if key.startswith("vision::layers::") and key.endswith(ttrain.TP_SHARDED)
+                else "replicated")
+        digests[kind].update(p.detach().cpu().numpy().tobytes())
+    torch.cuda.synchronize()
+    with open(d / f"rank{rank}.json", "w") as f:
+        json.dump({"losses": losses, "launches": launches,
+                   "ms": {k: v * 1000 / 2 for k, v in timings.items()},
+                   **{k: h.hexdigest() for k, h in digests.items()}}, f)
+
+
+def _train_phase(card: str, vit_b_pipe) -> dict:
+    """``[train]``: the SAM fine-tune step at ViT-B's full width on the 512
+    canvas config 1 runs (grid 32, windows 16 / 32; the tree of
+    ``adapt_resolution`` from config 1's weights, as the earlier phases left
+    them), SLICE_BATCH frames x TRAIN_BOXES boxes, 128² random targets,
+    TRAIN_STEPS AdamW steps on the card: step 1's gradients against fp32 plain
+    autograd on the card (cosine and norm ratio per tensor), every leaf the
+    loss reaches with a non-zero gradient, the forward's launch counts those
+    of inference, the loss falling, each step's forward / backward / update
+    ms; then 2 steps on a dp 2 x tp 2 mesh of MESH_RANKS gloo ranks sharing
+    the card against the single card's first 2, and its step 1 gradients,
+    gathered, against the single card's. Learning rate TRAIN_LR (its note
+    says why)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.models.sam import adapt_resolution
+    import yolo_sam_inference_tpu_torch.parallel.train as ttrain
+    from yolo_sam_inference_tpu_torch.parallel.launch import run_ranks
+    from yolo_sam_inference_tpu_torch.weights import save_tree
+
+    phase_t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 oracle stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _vit_512("vit-b")
+    tree = adapt_resolution(vit_b_pipe.sam_params, cfg)
+    batch = _train_batch(cfg, SLICE_BATCH)
+    state = ttrain.make_train_state(0, cfg, params=tree, learning_rate=TRAIN_LR)
+    dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+    # the oracle: step 1's gradients by fp32 plain autograd on the same masters
+    t0 = time.perf_counter()
+    logits, iou = ttrain.forward(state, dev["images"], dev["boxes"], cfg, plain=True)
+    total, count = ttrain.loss_terms(logits, iou, dev["masks"], dev["valid"])
+    keys = list(state["params"])
+    ref = torch.autograd.grad(total / count, [state["params"][k] for k in keys],
+                              allow_unused=True)
+    ref = {k: (torch.zeros_like(state["params"][k]) if g is None else g) for k, g in zip(keys, ref)}
+    loss32 = (total / count).item()
+    del logits, iou, total
+    torch.cuda.synchronize()
+    _say("train", f"fp32 plain autograd on the card: loss {loss32:.6f} "
+                  f"({time.perf_counter() - t0:.2f} s)")
+
+    losses, steps_ms = [], []
+    for step in range(TRAIN_STEPS):
+        timings: dict = {}
+        wrappers = _reset_counts()
+        state, loss = ttrain.sam_decoder_train_step(state, batch, cfg, timings=timings)
+        if step == 0:
+            launches = _read_counts("train step 1 (the forward; the backward runs the plain "
+                                    "versions)", wrappers, TRAIN_COUNTS,
+                                    by_window={16: 8, 32: 4})
+            grads = {k: p.grad.detach().clone() for k, p in state["params"].items()}
+        losses.append(loss)
+        steps_ms.append({k: v * 1000 for k, v in timings.items()})
+        _say("train", f"step {step + 1}: loss {loss:.6f}; ms " + json.dumps(
+            {k: round(v, 3) for k, v in steps_ms[-1].items()}) + f" [{card}]")
+
+    unreached = {k for k in keys if k.startswith(UNREACHED)}
+    zero = {k for k, g in grads.items() if not bool(g.abs().sum() > 0)}
+    zero_ref = {k for k, g in ref.items() if not bool(g.abs().sum() > 0)}
+    _say("train", f"{len(keys) - len(zero)} of {len(keys)} leaves have a non-zero gradient; "
+                  f"the {len(zero)} others are the leaves the loss does not reach "
+                  f"({sorted(zero)[:3]}...)")
+    if zero != unreached or zero_ref != unreached:
+        raise AssertionError(f"train: zero gradients on {sorted(zero ^ unreached)} (oracle "
+                             f"{sorted(zero_ref ^ unreached)})")
+    compared = [k for k in keys if k not in unreached and not k.endswith("::k::b")]
+    agree = _gate_grads("step 1 gradients (bf16 kernels, plain backward) vs fp32 plain "
+                        "autograd", _grad_stats(grads, ref, compared))
+    rel_loss = abs(losses[0] - loss32) / loss32
+    _say("train", f"step 1 loss {losses[0]:.6f} vs fp32 plain autograd's {loss32:.6f} (rel "
+                  f"{rel_loss:.2e}, bound 0.02)")
+    if rel_loss > 0.02:
+        raise AssertionError("train: the kernels' loss disagrees with fp32 plain autograd")
+    if not all(np.isfinite(losses)) or not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"train: the loss does not fall: {losses}")
+    later = steps_ms[1:]
+    split = {k: statistics.median(s[k] for s in later) for k in later[0]}
+    share = split["backward"] / sum(split.values())
+    _say("train", f"losses {losses} (learning rate {TRAIN_LR}); step ms (median of steps "
+                  f"2-{TRAIN_STEPS}) " + json.dumps({k: round(v, 3) for k, v in split.items()})
+                  + f", backward {share:.3f} of the step [{card}]")
+    default = ttrain.make_train_state(0, cfg, params=tree)
+    rates = [ttrain.sam_decoder_train_step(default, batch, cfg)[1] for _ in range(2)]
+    _say("train", f"at optax's default learning rate 1e-4 from the same weights: losses {rates}")
+    del default
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_tree(f"{tmp}/tree.npz", tree)
+        np.savez(f"{tmp}/batch.npz", **batch)
+        t0 = time.perf_counter()
+        backend = run_ranks(_train_rank, MESH_RANKS, ({"dir": tmp, "cfg": cfg},))
+        infos = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(MESH_RANKS)]
+        with np.load(f"{tmp}/grads1.npz") as z:
+            mesh_grads = {k: torch.from_numpy(z[k]) for k in compared}
+    mesh_agree = _gate_grads("dp 2 x tp 2 step 1 gradients, reduced over the mesh and "
+                             "gathered, vs the single card's", _grad_stats(mesh_grads, grads,
+                                                                            compared))
+    del mesh_grads
+    _say("train", f"dp 2 x tp 2 on {MESH_RANKS} ranks ({backend}, one card) in "
+                  f"{time.perf_counter() - t0:.2f} s: losses by rank "
+                  f"{[i['losses'] for i in infos]}; ms a step rank 0 " + json.dumps(
+                      {k: round(v, 3) for k, v in infos[0]["ms"].items()}))
+    for info in infos:
+        rel = max(abs(a - b) / b for a, b in zip(info["losses"], losses[:2]))
+        if rel > 0.01:
+            raise AssertionError(f"train dp x tp: losses {info['losses']} against the single "
+                                 f"card's {losses[:2]}")
+    if len({i["replicated"] for i in infos}) != 1:
+        raise AssertionError("train dp x tp: the replicated parameters differ across ranks")
+    if infos[0]["sharded"] != infos[2]["sharded"] or infos[1]["sharded"] != infos[3]["sharded"]:
+        raise AssertionError("train dp x tp: a tp shard differs across its dp pair")
+    _say("train", "dp 2 x tp 2: the replicated parameters bit-equal on all ranks, each shard on "
+                  "its dp pair; losses within 1% of the single card's, step 1's gradients "
+                  "within the gates of the single card's")
+    del state, grads, ref, dev
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - phase_t0
+    _say("train", f"phase {secs:.2f} s")
+    return {"losses": losses, "launches": launches, "split_ms": split, "backward_share": share,
+            "grads": agree, "mesh_grads": mesh_agree, "mesh": infos, "secs": secs,
+            "default_rate_losses": rates}
+
+
+def _pp_rank(rank: int, world: int, job: dict) -> None:
+    """One stage of ``[pp]`` (parallel/launch.py): its layers of the parent's
+    tree, the encoder on the frames in PP_MICROBATCHES microbatches (launch
+    counts, embedding, median ms) to ``rank<r>.*`` in the job's directory."""
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import median_ms
+    from yolo_sam_inference_tpu_torch.models.sam import SamImageEncoder
+    from yolo_sam_inference_tpu_torch.parallel.pp import sam_image_encoder_pp
+    from yolo_sam_inference_tpu_torch.weights import load_tree
+
+    d = Path(job["dir"])
+    cfg = job["cfg"]
+    enc = SamImageEncoder(load_tree(d / f"stage{rank}.npz"), cfg).to("cuda", torch.bfloat16)
+    pix = torch.from_numpy(np.load(d / "pix.npy")).cuda().to(torch.bfloat16)
+    per = cfg.vision_layers // world
+    stage = range(rank * per, (rank + 1) * per)
+    glob = sum(i in cfg.global_attn_indexes for i in stage)
+    m = PP_MICROBATCHES
+    expected = {"gemm_bf16": 4 * per * m, "window_attn_relpos": per * m}
+    if rank == world - 1:
+        expected["layer_norm"] = 2  # the neck, on the last stage
+    with torch.inference_mode():
+        wrappers = _reset_counts()
+        emb = sam_image_encoder_pp(enc, pix, cfg, microbatches=m)
+        torch.cuda.synchronize()
+        launches = _read_counts(f"pp stage {rank} of {world} (layers {stage.start}-"
+                                f"{stage.stop - 1}, {m} microbatches)", wrappers, expected,
+                                by_window={16: (per - glob) * m, 32: glob * m})
+        ms = median_ms(lambda: sam_image_encoder_pp(enc, pix, cfg, microbatches=m), reps=5,
+                       warmup=1)
+    np.save(d / f"rank{rank}.npy", emb.float().cpu().numpy())
+    with open(d / f"rank{rank}.json", "w") as f:
+        json.dump({"launches": launches, "ms": ms}, f)
+
+
+def _pp_phase(card: str, vit_b_pipe) -> dict:
+    """``[pp]``: the pipeline-parallel encoder, ViT-B (config 1's weights as
+    the earlier phases left them, the 512 canvas) in PP_RANKS stages of 6
+    layers on gloo ranks sharing the card, PP_MICROBATCHES microbatches of
+    SLICE_BATCH frames: the stages' embeddings equal, against the single
+    card's bf16 kernel encoder (2%) and the fp32 plain encoder (5%)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames
+    from yolo_sam_inference_tpu_torch.models.sam import adapt_resolution
+    from yolo_sam_inference_tpu_torch.ops.preprocess import sam_preprocess_batch
+    from yolo_sam_inference_tpu_torch.parallel.launch import run_ranks
+    from yolo_sam_inference_tpu_torch.parallel.pp import stage_tree
+    from yolo_sam_inference_tpu_torch.weights import save_tree
+
+    phase_t0 = time.perf_counter()
+    cfg = _vit_512("vit-b")
+    tree = adapt_resolution(vit_b_pipe.sam_params, cfg)
+    frames = cell_frames(np.random.default_rng(20), SLICE_BATCH, FRAME)
+    pix, _, _ = sam_preprocess_batch(torch.from_numpy(frames).cuda(), FRAME)
+    emb16, emb32, ms = _encoders_single(tree, cfg, pix)
+    with tempfile.TemporaryDirectory() as tmp:
+        for r in range(PP_RANKS):
+            save_tree(f"{tmp}/stage{r}.npz", stage_tree(tree, cfg, PP_RANKS, r)["vision"])
+        np.save(f"{tmp}/pix.npy", pix.cpu().numpy())
+        backend = run_ranks(_pp_rank, PP_RANKS, ({"dir": tmp, "cfg": cfg},))
+        embs = [np.load(f"{tmp}/rank{r}.npy") for r in range(PP_RANKS)]
+        infos = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(PP_RANKS)]
+    if not all(np.array_equal(e, embs[0]) for e in embs[1:]):
+        raise AssertionError("pp: the stages' embeddings differ")
+    e16, e32 = emb16.cpu().numpy(), emb32.cpu().numpy()
+    rel16 = float(np.linalg.norm(embs[0] - e16) / np.linalg.norm(e16))
+    rel32 = float(np.linalg.norm(embs[0] - e32) / np.linalg.norm(e32))
+    rank_ms = [i["ms"] for i in infos]
+    _say("pp", f"ViT-B in {PP_RANKS} stages ({backend}), {PP_MICROBATCHES} microbatches of "
+               f"{SLICE_BATCH // PP_MICROBATCHES}: embedding {embs[0].shape} equal on all stages; "
+               f"rel_rms vs the single-card bf16 encoder {rel16:.3e} (bound 0.02; max_abs "
+               f"{np.abs(embs[0] - e16).max():.3e}), vs the fp32 plain encoder {rel32:.5f} (bound "
+               f"0.05); ms by stage {rank_ms}, the single card {ms:.3f} (stages sharing one card: "
+               f"no pp speed) [{card}]")
+    if not (rel16 <= 0.02 and rel32 <= 0.05 and np.isfinite(embs[0]).all()):
+        raise AssertionError("pp: the pipeline-parallel embedding disagrees with the single card")
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - phase_t0
+    _say("pp", f"phase {secs:.2f} s")
+    return {"rel16": rel16, "rel32": rel32, "ms": rank_ms, "single_ms": ms,
+            "launches": [i["launches"] for i in infos], "secs": secs}
+
+
+def _multichip_phase(card: str) -> dict:
+    """``[multichip]``: ``parallel.dryrun.dryrun_multichip(MESH_RANKS)`` on gloo
+    ranks sharing the card (its module note says what each part checks)."""
+    import torch
+
+    from yolo_sam_inference_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dryrun_multichip(MESH_RANKS)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    _say("multichip", f"dryrun_multichip({MESH_RANKS}) passed in {secs:.2f} s [{card}]")
+    return {"secs": secs}
+
+
 def main() -> int:
     if not (ROOT / "yolo_sam_inference_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -3876,14 +4523,18 @@ def main() -> int:
     big = {model.rsplit("-", 1)[-1]: _big_slice_phase(card, model, max_det, layers)
            for model, max_det, layers, *_ in BIG_MODELS}
     lk = _large_kernel_phase(card)
-    vit_b_pipe = sp.pop("pipe")
-    lf = _large_frame_phase(card, vit_b_pipe, big["huge"].pop("pipe"))
+    vit_b_pipe, vit_h_pipe = sp.pop("pipe"), big["huge"].pop("pipe")
+    lf = _large_frame_phase(card, vit_b_pipe, vit_h_pipe)
     rk = _relpos_kernel_phase(card)
     og = _offgrid_slice_phase(card, vit_b_pipe)
     sq = _sp_slice_phase(card, "config 4", *lf.pop("sp inputs"))
     sq896 = _sp_slice_phase(card, "896", *og.pop("sp inputs"))
     mk = _mobile_kernel_phase(card)
     ms = _mobile_slice_phase(card)
+    tpp = _tp_phase(card, vit_b_pipe, vit_h_pipe)
+    tr = _train_phase(card, vit_b_pipe)
+    ppp = _pp_phase(card, vit_b_pipe)
+    mc = _multichip_phase(card)
 
     def entry(name, route, source, replaces, launches, err, timed, bound, library=None,
               device=(None, None)):
@@ -4070,6 +4721,15 @@ def main() -> int:
               og["launches int8"]["int8_linear"], rk["errs"]["int8_linear"],
               rt["int8_linear qkv"], rb["int8_linear qkv"], rl["int8_linear qkv"]),
     ]
+    # the tensor-parallel encoder's row-parallel products (each rank's proj
+    # and mlp2, K = C / tp and hidden / tp); the launches are a tp rank's
+    # gemm_bf16 launches in [tp] (4 a layer)
+    for key, model in (("tp ViT-B K384", "vit-b"), ("tp ViT-H K640", "vit-h")):
+        table.append(entry(f"gemm_bf16 {key}", "cuda", "csrc/gemm_bf16.cu",
+                           "parallel/tp.py:169, :197 (XLA: the row-parallel projection and "
+                           "mlp2 before their psum; no pallas_call)",
+                           tpp["launches"][model]["gemm_bf16"], tpp["errs"]["gemm_bf16"],
+                           tpp["times"][key], tpp["bounds"][key], tpp["library"][key]))
     _say("result", f"off-grid 640 {og['ms']:.2f} ms/batch of {TIMED_BATCH} = "
                    f"{TIMED_BATCH / og['ms'] * 1000:.2f} img/s, int8 {og['ms int8']:.2f} "
                    f"(medians of the turns); sp ({sq['backend']}, {SP_RANKS} ranks on one card) "
@@ -4129,6 +4789,14 @@ def main() -> int:
     _say("result", f"metrics stage at batch {TIMED_BATCH}: hull_mode reference "
                    f"{statistics.median(mt_ms['reference']):.3f} ms, polygon "
                    f"{statistics.median(mt_ms['polygon']):.3f} ms (medians of the turns) [{card}]")
+    _say("result", f"tp={TP_RANKS} encoder ms by rank (ranks sharing one card): ViT-B "
+                   f"{tpp['vit-b ms']} (single card {tpp['vit-b single ms']:.3f}), ViT-H "
+                   f"{tpp['vit-h ms']} (single card {tpp['vit-h single ms']:.3f}); pp={PP_RANKS} "
+                   f"ViT-B ms by stage {ppp['ms']} (single card {ppp['single_ms']:.3f}); train "
+                   f"step ms " + json.dumps({k: round(v, 3) for k, v in tr["split_ms"].items()})
+                   + f" (backward {tr['backward_share']:.3f} of it), losses {tr['losses']}; "
+                   f"phases [tp] {tpp['secs']:.1f} s, [train] {tr['secs']:.1f} s, [pp] "
+                   f"{ppp['secs']:.1f} s, [multichip] {mc['secs']:.1f} s [{card}]")
     for row in table:
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']}: no launch on its path")

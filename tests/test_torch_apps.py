@@ -166,22 +166,20 @@ def test_malformed_roi_exits_like_jax(roi, tmp_path):
             app.resolve_rois(app.parse_args(argv), ["a"])
 
 
-@pytest.mark.parametrize("argv,refused", [
-    (["--encoder-parallel", "sp"], False),
-    (["--encoder-parallel", "tp"], True),
-    (["--parallel-devices", "2"], False),
+@pytest.mark.parametrize("argv", [
+    ["--encoder-parallel", "sp"],
+    ["--encoder-parallel", "tp"],
+    ["--parallel-devices", "2"],
 ])
-def test_project_runner_refuses_what_is_not_ported(argv, refused, capsys):
-    """``--encoder-parallel tp`` is refused, naming its ROADMAP.md item; sp
-    and ``--parallel-devices`` are ported."""
-    if not refused:
-        args = tapp.parse_args(["--project-dir", "p", "--output-dir", "o", *argv])
-        assert (args.encoder_parallel, args.parallel_devices) != ("none", 0)
-        return
+def test_project_runner_refuses_what_is_not_ported(argv, capsys):
+    """Nothing is refused any more: sp, tp and ``--parallel-devices`` parse
+    (tp since the tensor-parallel encoder was ported); an unknown mode
+    still exits through argparse."""
+    args = tapp.parse_args(["--project-dir", "p", "--output-dir", "o", *argv])
+    assert (args.encoder_parallel, args.parallel_devices) != ("none", 0)
     with pytest.raises(SystemExit):
-        tapp.parse_args(["--project-dir", "p", "--output-dir", "o", *argv])
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "Queue 1 item 6" in err
+        tapp.parse_args(["--project-dir", "p", "--output-dir", "o", "--encoder-parallel", "pp"])
+    assert "invalid choice" in capsys.readouterr().err
 
 
 # ----------------------------------------------------------- project runner

@@ -1085,3 +1085,101 @@ def test_data_parallel_on_the_card(gen, tmp_path):
             for g, w in zip(got, want.cell_metrics):
                 for key in METRIC_KEYS:
                     assert g[key] == pytest.approx(w[key], rel=1e-5, abs=1e-5), key
+
+
+def _grad_cases(gen):
+    """The kernels the fine-tune step's forward reaches, at shapes they take:
+    (entry, plain version, args, kwargs, (counter, its attribute)), bf16
+    tensors that require a gradient."""
+    def r(*shape, std=1.0):
+        return _randn(gen, *shape, std=std).requires_grad_()
+
+    c, heads, hd = 768, 12, 64
+    qkv = r(1, 32, 32, 3 * c)
+    flat = qkv.reshape(1, 1024, 3 * c)
+    keys, pe = r(2, 1024, 256), r(1024, 256)
+    t2i = {"qp": r(8, 7, 128, std=0.1), "wk": r(256, 128, std=0.06), "bk": r(128),
+           "wv": r(256, 128, std=0.06), "bv": r(128)}
+    return {
+        "gemm_bf16": (tln.gemm_bf16, tln.gemm_plain, (r(512, 768), r(768, 256, std=0.04), r(256)),
+                      dict(a2=r(512, 768), ln=(r(768), r(768), 1e-6), gelu=True, r1=r(512, 256)),
+                      (tln.gemm_bf16, "launches")),
+        "layer_norm": (tln.layer_norm, tln.layer_norm_plain, (r(64, 256), r(256), r(256), 1e-6),
+                       dict(residual=r(64, 256)), (tln.layer_norm, "residual_launches")),
+        "window_attention": (window_attention, window_attention_plain,
+                             (qkv, r(31, hd, std=0.3), r(31, hd, std=0.3), heads, 16), {},
+                             (window_attention, "launches")),
+        "flash_attention_relpos": (flash_attention_relpos, relpos_attention_plain,
+                                   (flat[..., :c], flat[..., c:2 * c], flat[..., 2 * c:],
+                                    r(63, hd, std=0.3), r(63, hd, std=0.3), 32), {},
+                                   (flash_attention_relpos, "launches")),
+        "t2i_shared_attend": (dec.t2i_shared_attend, dec.t2i_shared_attend_plain,
+                              (keys, pe, r(8, 7, 128, std=0.1), r(256, 128, std=0.06), r(128),
+                               r(256, 128, std=0.06), r(128), 8, 4), {},
+                              (dec.t2i_attend, "launches")),
+        "i2t_keys_update": (dec.i2t_keys_update, dec.i2t_keys_update_plain,
+                            (keys, pe, r(8, 7, 128, std=0.3), r(8, 7, 128), r(256, 128, std=0.06),
+                             r(128), r(128, 256, std=0.09), r(256), r(256), r(256)),
+                            dict(heads=8, k_share=4, eps=1e-6, t2i=t2i),
+                            (dec.keys_stream, "launches")),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gemm_bf16", "layer_norm", "window_attention",
+                                  "flash_attention_relpos", "t2i_shared_attend",
+                                  "i2t_keys_update"])
+def test_kernel_gradients_on_the_card(gen, name):
+    """``ops/autograd.py`` on the card: a kernel entry recorded by autograd
+    launches its kernel once (counted), returns outputs with a ``grad_fn``
+    within the kernel's bound of the plain version, and its backward (the
+    plain version's autograd in fp32) gives gradients within 1% of fp32 plain
+    autograd on the same bf16 inputs, cast up (cosine 0.9999), for every
+    input whose gradient is not zero by construction (a key bias, which the
+    softmax drops: its gradient is rounding noise, below 1e-4 of the
+    largest)."""
+    fn, plain, args, kwargs, (counter, attr) = _grad_cases(gen)[name]
+    leaves = [t for t in torch.utils._pytree.tree_leaves((args, kwargs))
+              if isinstance(t, torch.Tensor) and t.requires_grad]
+    before = getattr(counter, attr)
+    out = fn(*args, **kwargs)
+    assert getattr(counter, attr) == before + 1
+    outs = out if isinstance(out, tuple) else (out,)
+    assert all(o.grad_fn is not None for o in outs)
+    g = torch.Generator().manual_seed(3)
+    weights = [torch.randn(o.shape, generator=g).cuda() for o in outs]
+    got = torch.autograd.grad(sum((o.float() * w).sum() for o, w in zip(outs, weights)), leaves)
+    up = [t.detach().float().requires_grad_() for t in leaves]
+    swap = dict(zip(map(id, leaves), up))
+    a32, k32 = torch.utils._pytree.tree_map(
+        lambda t: swap.get(id(t), t) if isinstance(t, torch.Tensor) else t, (args, kwargs))
+    ref_out = plain(*a32, **k32)
+    ref_outs = ref_out if isinstance(ref_out, tuple) else (ref_out,)
+    for o, ref in zip(outs, ref_outs):
+        _close(o, ref, 2e-2)
+    want = torch.autograd.grad(sum((o * w).sum() for o, w in zip(ref_outs, weights)), up)
+    scale = max(gw.norm().item() for gw in want)
+    for gg, gw in zip(got, want):
+        if gw.norm().item() < 1e-4 * scale:
+            continue
+        a, b = gg.double().flatten(), gw.double().flatten()
+        assert (a @ b / (a.norm() * b.norm())).item() >= 0.9999
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_gradient_refuse_on_the_card(gen):
+    """The other kernel entries raise where autograd would record them (a
+    CUDA input that requires a gradient), and launch under no_grad."""
+    grid = _randn(gen, 4, 16, 16, 256).requires_grad_()
+    starts = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="has no gradient"):
+        window_crop(grid, starts, starts, 8)
+    x = _randn(gen, 2, 16, 16, 64).requires_grad_()
+    w = _randn(gen, 3, 3, 64, 64, std=0.05)
+    with pytest.raises(RuntimeError, match="has no gradient"):
+        tcv.conv2d_act(x, w, None, 3)
+    wq, ws = tq.quantize_weight(_randn(gen, 256, 256, std=0.06, dtype=torch.float32))
+    with pytest.raises(RuntimeError, match="has no gradient"):
+        tln.int8_linear(_randn(gen, 64, 256).requires_grad_(), wq, ws, _randn(gen, 256))
+    with torch.no_grad():
+        assert window_crop(grid, starts, starts, 8).shape == (4, 8, 8, 256)

@@ -336,7 +336,7 @@ def _tiny_factory(cls, dtype, sam, yolo):
 
 def test_runner_app_matches_jax(tmp_path, monkeypatch):
     """(i) The port's flat-folder runner on the CPU writes the file set the
-    JAX runner writes; the arguments it cannot honour are refused."""
+    JAX runner writes; its multi-rank and checkpoint arguments parse."""
     from yolo_sam_inference_tpu.apps import single_batch_inference as japp
     from yolo_sam_inference_tpu_torch.apps import single_batch_inference as tapp
 
@@ -354,9 +354,9 @@ def test_runner_app_matches_jax(tmp_path, monkeypatch):
         trees[name] = sorted(str(p.relative_to(run_dir)) for p in run_dir.rglob("*"))
     assert trees["port"] == trees["jax"]
     assert {"cell_metrics.csv", "processing_times.csv", "run_summary.txt"} <= set(trees["port"])
-    with pytest.raises(SystemExit):  # sp is ported (tests/test_torch_parallel.py)
-        tapp.parse_args(["--input-dir", str(src), "--output-dir", "o", "--encoder-parallel", "tp"])
-    for argv in (["--encoder-parallel", "sp"], ["--parallel-devices", "2"]):
+    # sp and tp are ported (tests/test_torch_parallel.py)
+    for argv in (["--encoder-parallel", "sp"], ["--encoder-parallel", "tp"],
+                 ["--parallel-devices", "2"]):
         tapp.parse_args(["--input-dir", str(src), "--output-dir", "o", *argv])
     args = tapp.parse_args(["--input-dir", str(src), "--output-dir", "o", "--yolo-model", "y.pt",
                             "--sam-checkpoint", "s.pt", "--experiment-id", "e", "--run-id", "r",

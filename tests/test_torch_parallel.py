@@ -7,8 +7,10 @@ multi-rank case: the meshes of ``parallel/mesh.py``; the engine's ``mesh=``
 at dp 4 and at dp 2 (ranks 0-1) on 6 and on 5 frames (batches dp does not
 divide: the padding) and through ``process_directory`` over 10 PNG files at
 batch 4; ``run_sharded_directory`` with ``merge_csv_shards`` on all four
-ranks. A second launch, of two ranks, is the flat-folder runner's own with
-``--encoder-parallel sp --parallel-devices 2``.
+ranks; the engine on a dp 2 x sp 2 mesh and on the (dp 1, tp 2) mesh of
+``make_encoder_parallel_mesh("tp", 2)``. Two more launches, of two ranks, are
+the flat-folder runner's own with ``--encoder-parallel sp
+--parallel-devices 2`` and with ``tp``.
 
 The JAX dp tests (``tests/test_parallel.py``) are marked slow, so the port's
 single-rank run is held against the JAX single-device engine on the same
@@ -49,9 +51,10 @@ DP_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_parallel.py:146-149 (metrics 1
 KEYS = ("boxes", "scores", "valid", "offsets", "mask_crops")
 
 
-def _kwargs():
+def _kwargs(**opts):
     return dict(device="cpu", sam_config=sam_tiny_test(), yolo_config=YoloConfig(num_classes=1),
-                seed=0, options=tengine.PipelineOptions(compute_dtype=torch.float32, **OPTS))
+                seed=0, options=tengine.PipelineOptions(compute_dtype=torch.float32,
+                                                        **{**OPTS, **opts}))
 
 
 def _single():
@@ -80,6 +83,11 @@ def runs(tmp_path_factory):
                      "out": str(d / f"dp{dp}")})
     jobs.append({"kind": "sharded", "kwargs": _kwargs(), "dir": str(src),
                  "outdir": str(d / "sharded"), "out": str(d / "sharded")})
+    jobs.append({"kind": "dp", "mesh": {"dp": 2, "sp": 2}, "kwargs": _kwargs(encoder_parallel="sp"),
+                 "frames": paths, "out": str(d / "dpsp")})
+    jobs.append({"kind": "dp", "ranks": 2, "mesh": {"encoder_parallel": "tp", "devices": 2},
+                 "kwargs": _kwargs(encoder_parallel="tp"), "frames": paths,
+                 "out": str(d / "eptp")})
     backend = run_ranks(run_jobs, 4, (jobs,))
     single = _single()
     return {"d": d, "frames": frames, "src": src, "backend": backend, "single": single,
@@ -119,7 +127,9 @@ def test_make_mesh_shapes(runs):
         assert info["dp2"]["contains"] == (r < 2) and info["dp2"]["first"] == 0
         assert info["dp2"]["groups"] == ({"dp": 2, "tp": None} if r < 2 else {})
         assert "dp*tp = 3 != 4 devices" in info["dp3"]
-        assert "not ported yet" in info["tp2"] and "item 6" in info["tp2"]
+        assert info["tp2"]["shape"] == {"dp": 2, "tp": 2}
+        assert info["tp2"]["groups"] == {"dp": 2, "tp": 2}
+        assert info["tp2"]["index"] == {"dp": r // 2, "tp": r % 2}
     mesh = tmesh.make_mesh()
     assert mesh.devices.size == 1 and mesh.shape == {"dp": 1, "tp": 1}
     with pytest.raises(ValueError, match="dp\\*tp = 6 != 1"):
@@ -130,16 +140,22 @@ def test_make_mesh_shapes(runs):
 
 def test_make_encoder_parallel_mesh(runs):
     """The CLI mesh helper (``tests/test_parallel.py:528-540``): axis naming,
-    0 = every rank, clear errors; tp is not ported yet (item 6)."""
+    0 = every rank, clear errors; the (dp 1, tp 2) mesh runs the engine with
+    ``encoder_parallel="tp"`` on its two ranks, each returning the single
+    rank's outputs."""
     for r, info in enumerate(_json(runs["d"], "mesh", r) for r in range(4)):
         assert info["sp_all"]["shape"] == {"dp": 1, "sp": 4}
         assert info["sp_all"]["groups"] == {"dp": None, "sp": 4}
         assert info["sp2"]["shape"] == {"dp": 1, "sp": 2} and info["sp2"]["contains"] == (r < 2)
         assert "visible devices" in info["ep_many"]
         assert "tp|sp" in info["ep_bogus"]
-        assert "not ported yet" in info["ep_tp"] and "Queue 1 item 6" in info["ep_tp"]
-    with pytest.raises(ValueError, match="not ported yet"):
-        tmesh.make_encoder_parallel_mesh("tp", 1)
+        assert info["ep_tp"]["shape"] == {"dp": 1, "tp": 2}
+        assert info["ep_tp"]["contains"] == (r < 2)
+        if r < 2:
+            assert info["ep_tp"]["groups"] == {"dp": None, "tp": 2}
+    assert tmesh.make_encoder_parallel_mesh("tp", 1).shape == {"dp": 1, "tp": 1}
+    for r in range(2):
+        _same_outputs(runs, "eptp", r)
 
 
 def test_shard_batch_takes_the_rank_share():
@@ -287,11 +303,28 @@ def test_num_pipelines_maps_to_batch_multiplier():
     assert pipe.mesh is None and pipe.writes
 
 
-def test_mesh_refuses_dp_beside_sp():
-    """A data axis beside a sequence-parallel one (dp x sp) is item 6's."""
+def _same_outputs(runs, prefix, rank):
+    """A rank's outputs of both frame batches against the single rank's
+    (the sp engine's tolerance, ``tests/test_torch_sp.py``)."""
+    with np.load(runs["d"] / f"{prefix}.rank{rank}.npz") as z:
+        for i, want in enumerate(runs["want"]):
+            for key in KEYS:
+                np.testing.assert_allclose(z[f"{i}/{key}"], want[key], rtol=1e-4, atol=1e-4,
+                                           err_msg=key)
+            for key in METRIC_KEYS:
+                np.testing.assert_allclose(z[f"{i}/metric_{key}"], want["metrics"][key],
+                                           rtol=1e-4, atol=1e-4, err_msg=key)
+
+
+def test_mesh_refuses_dp_beside_sp(runs):
+    """A data axis beside a sequence-parallel one (dp x sp) runs: each dp
+    member's share through its sp pair's encoder; all four ranks return the
+    single rank's outputs on both batches (6 and 5 frames: the padding)."""
+    for r in range(4):
+        _same_outputs(runs, "dpsp", r)
     mesh = tmesh.RankMesh(("dp", "sp"), np.arange(4).reshape(2, 2))
-    with pytest.raises(ValueError, match="dp x sp\\) is not ported yet"):
-        tengine.CellSegmentationPipeline(**_kwargs(), mesh=mesh)
+    pipe = tengine.CellSegmentationPipeline(**_kwargs(encoder_parallel="sp"), mesh=mesh)
+    assert (pipe._dp, pipe._dp_axis) == (2, "dp")
 
 
 RUNNER_KWARGS = dict(sam_config=sam_tiny_test(), yolo_config=YoloConfig(num_classes=1),
@@ -302,8 +335,7 @@ def test_runner_encoder_parallel_sp(tmp_path, capsys):
     """The flat-folder runner with ``--encoder-parallel sp --parallel-devices
     2`` on 2 CPU ranks (its own launch): rc 0, one run directory written by
     rank 0, the CSV rows of the single-rank runner within the tolerance
-    ``tests/test_torch_sp.py`` holds the sp engine to; ``tp`` is refused,
-    naming item 6."""
+    ``tests/test_torch_sp.py`` holds the sp engine to; ``tp`` parses too."""
     rng = np.random.default_rng(3)
     src = tmp_path / "in"
     src.mkdir()
@@ -332,9 +364,36 @@ def test_runner_encoder_parallel_sp(tmp_path, capsys):
             else:
                 assert float(got[key]) == pytest.approx(float(value), rel=1e-4, abs=1e-4), key
     assert "Results written to" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        tapp.parse_args([*base, "--output-dir", "o", "--encoder-parallel", "tp"])
-    assert "Queue 1 item 6" in capsys.readouterr().err
+    assert tapp.parse_args([*base, "--output-dir", "o", "--encoder-parallel",
+                            "tp"]).encoder_parallel == "tp"
+
+
+def test_runner_encoder_parallel_tp(tmp_path):
+    """The flat-folder runner with ``--encoder-parallel tp --parallel-devices
+    2`` on 2 CPU ranks (its own launch): rc 0, rank 0's run directory holds
+    the single-rank runner's files and rows."""
+    rng = np.random.default_rng(6)
+    src = tmp_path / "in"
+    src.mkdir()
+    for i in range(3):
+        write_png(src / f"im_{i}.png", make_cell_image(rng, 64, 64))
+    base = ["--input-dir", str(src), "--device", "cpu", "--batch-size", "4", "--max-det", "8"]
+    rows = {}
+    for name, extra in (("single", []), ("tp", ["--encoder-parallel", "tp",
+                                                "--parallel-devices", "2"])):
+        out = tmp_path / name
+        assert tapp.main([*base, "--output-dir", str(out), *extra],
+                         pipeline_kwargs=RUNNER_KWARGS) == 0
+        (run_dir,) = out.iterdir()
+        with open(run_dir / "cell_metrics.csv", newline="") as f:
+            rows[name] = list(csv.DictReader(f))
+    assert len(rows["tp"]) == len(rows["single"]) > 0
+    for got, want in zip(rows["tp"], rows["single"]):
+        for key, value in want.items():
+            if key in ("condition", "image_name", "cell_id") or key in INT_METRIC_KEYS:
+                assert got[key] == value, key
+            else:
+                assert float(got[key]) == pytest.approx(float(value), rel=1e-4, abs=1e-4), key
 
 
 def test_pipeline_kwargs_reach_the_options():

@@ -127,8 +127,9 @@ def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
 
 def test_port_imports_no_jax():
     """The port (its pipeline, the directory path's modules, the multi-rank
-    modules its spawned ranks import, the classical pipeline, the lab apps
-    and the results store) and ``chip_smoke.py`` must import neither jax nor
+    modules its spawned ranks import, the classical pipeline, the lab apps,
+    the results store, the tp / pp encoders, the fine-tune step and the
+    parameter checkpoints) and ``chip_smoke.py`` must import neither jax nor
     the JAX package, and the results store and the multi-rank modules
     neither pandas nor PIL:
     the script is imported, and every import statement in it, those inside
@@ -178,7 +179,8 @@ def test_port_imports_no_jax():
         "    'apps.tiff2png', 'apps.make_example_project', 'registry.manifest', 'registry.nodes',\n"
         "    'registry.readout', 'registry.postgres', 'apps.manifest_cli', 'apps.batch_readout',\n"
         "    'apps.result_viewer', 'parallel.mesh', 'parallel.multihost',\n"
-        "    'apps.project_inference')}\n"
+        "    'apps.project_inference', 'parallel.tp', 'parallel.pp', 'parallel.train',\n"
+        "    'parallel.dryrun', 'ops.autograd', 'utils.checkpoint')}\n"
         "assert walked <= set(sys.modules), sorted(walked - set(sys.modules))\n"
         "for m in walked:\n"  # the results store and the ranks' modules: no pandas, no PIL
         "    if m.split('.')[1] in ('registry', 'parallel') or m in (\n"
@@ -216,7 +218,11 @@ def test_port_imports_no_jax():
         "        'yolo_sam_inference_tpu_torch.web.app', 'yolo_sam_inference_tpu_torch.registry.nodes',\n"
         "        'yolo_sam_inference_tpu_torch.apps.result_viewer',\n"
         "        'yolo_sam_inference_tpu_torch.parallel.mesh',\n"
-        "        'yolo_sam_inference_tpu_torch.parallel.multihost'} <= set(names), names\n"
+        "        'yolo_sam_inference_tpu_torch.parallel.multihost',\n"
+        "        'yolo_sam_inference_tpu_torch.parallel.tp',\n"
+        "        'yolo_sam_inference_tpu_torch.parallel.pp',\n"
+        "        'yolo_sam_inference_tpu_torch.parallel.train',\n"
+        "        'yolo_sam_inference_tpu_torch.parallel.dryrun'} <= set(names), names\n"
         "bad = [m for m in list(sys.modules) + names\n"
         "       if m in ('jax', 'jaxlib', 'yolo_sam_inference_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'yolo_sam_inference_tpu.'))]\n"

@@ -182,14 +182,14 @@ def _pipe(process_group=None, **opts):
 
 
 @pytest.mark.parametrize("opts,match", [
-    (dict(encoder_parallel="tp"), "'tp' is not ported yet"),
+    (dict(encoder_parallel="tp"), "'tp' requires a torch.distributed process group"),
     (dict(encoder_parallel="sp"), "requires a torch.distributed process group"),
     (dict(encoder_parallel="sp", quant="int8"), "does not compose with quant='int8'"),
 ])
 def test_encoder_parallel_validation(opts, match):
-    """Clear errors, as the JAX engine's (``test_parallel.py:513-525``):
-    no process group, int8 weights, and tp (not ported yet). int8 is
-    refused by the encoder at the first batch, on a one-rank group."""
+    """Clear errors, as the JAX engine's (``test_parallel.py:513-525``): no
+    process group (sp and tp), int8 weights. int8 is refused by the encoder
+    at the first batch, on a one-rank group."""
     import torch.distributed as dist
 
     assert not dist.is_initialized()

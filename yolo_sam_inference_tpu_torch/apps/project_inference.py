@@ -11,10 +11,10 @@ ROI selection: ``--roi-file`` (pre-made ``roi_coordinates.json``),
 ``--roi x_min,x_max[,y_min,y_max]`` applied to all conditions,
 ``--interactive-roi`` (the browser picker, ``web/app.py``, on ``--port``) or
 ``--cv2-roi`` (the click-two-lines picker, ``gate/picker.py``); none gates
-nothing out. ``--encoder-parallel sp --parallel-devices N`` runs the
+nothing out. ``--encoder-parallel sp|tp --parallel-devices N`` runs the
 conditions on N ranks (the ROIs resolved first, here), the SAM encoder's
-token rows split over them; rank 0 writes the run. ``--encoder-parallel tp``
-raises "not ported yet", naming the ``ROADMAP.md`` item that ports it.
+token rows (sp) or heads and MLP hidden (tp) split over them; rank 0 writes
+the run.
 
 Usage:
     python -m yolo_sam_inference_tpu_torch.apps.project_inference \\
@@ -30,7 +30,7 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
-from .single_batch_inference import NOT_PORTED, build_pipeline, launch_ranks, refuse_not_ported
+from .single_batch_inference import build_pipeline, launch_ranks
 
 
 def parse_args(argv=None):
@@ -50,8 +50,8 @@ def parse_args(argv=None):
                    help="hull measurement: exact polygon (default) or the "
                         "reference's rasterize+regionprops procedure")
     p.add_argument("--encoder-parallel", choices=("none", "tp", "sp"), default="none",
-                   help="shard the SAM ViT encoder over ranks: sp = its token rows "
-                        "(tp is not ported yet)")
+                   help="shard the SAM ViT encoder over ranks: sp = its token rows, "
+                        "tp = its heads and MLP hidden")
     p.add_argument("--parallel-devices", type=int, default=0,
                    help="ranks for --encoder-parallel (0 = one a visible card)")
     p.add_argument("--quant", choices=("none", "int8"), default="none",
@@ -72,7 +72,6 @@ def parse_args(argv=None):
     p.add_argument("--profile-dir", type=Path, default=None,
                    help="write a torch.profiler chrome trace of the run to this directory")
     args = p.parse_args(argv)
-    refuse_not_ported(p, args, NOT_PORTED)
     return args
 
 
@@ -147,7 +146,7 @@ def main(argv=None, pipeline_kwargs=None) -> int:
     args = parse_args(argv)
     t_start = time.time()
     rois = resolve_rois(args, [d.name for d in _condition_dirs(args.project_dir)])
-    if args.encoder_parallel == "sp":
+    if args.encoder_parallel != "none":
         launch_ranks("project_inference", args, pipeline_kwargs, rois=rois, t_start=t_start)
         return 0
     return run_rank(args, pipeline_kwargs, rois=rois, t_start=t_start)

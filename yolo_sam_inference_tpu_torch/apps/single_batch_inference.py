@@ -8,19 +8,18 @@ print summary statistics. Runs on the card (``--device cuda``) unless asked
 for the CPU. Weights come from ``--yolo-model`` (an ultralytics state dict;
 ``--run-id`` fetches it from an MLflow run) and ``--sam-checkpoint`` (HF
 ``SamModel`` or MobileSAM; ``.safetensors``, ``.bin`` or ``.pt``); a model
-given no file draws random weights (seed 0). ``--encoder-parallel sp
+given no file draws random weights (seed 0). ``--encoder-parallel sp|tp
 --parallel-devices N`` starts N ranks (``parallel/launch.py``: NCCL with a
 card each, else gloo, the ranks sharing the cards), each running the
-pipeline with the SAM encoder's token rows split over the ranks; rank 0
-writes the outputs. The arguments the port cannot honour yet raise, naming
-the ``ROADMAP.md`` item that ports them (``--encoder-parallel tp``).
+pipeline with the SAM encoder's token rows (sp) or its heads and MLP hidden
+(tp) split over the ranks; rank 0 writes the outputs.
 
 Usage:
     python -m yolo_sam_inference_tpu_torch.apps.single_batch_inference \
         --input-dir IMGS --output-dir OUT [--yolo-model best.pt]
         [--sam-model facebook/sam-vit-base] [--sam-checkpoint model.safetensors]
         [--batch-size 8] [--max-det 24] [--hull-mode reference] [--quant int8]
-        [--encoder-parallel sp --parallel-devices 2] [--save-visualizations]
+        [--encoder-parallel sp|tp --parallel-devices 2] [--save-visualizations]
 """
 
 from __future__ import annotations
@@ -29,12 +28,6 @@ import argparse
 import dataclasses
 import time
 from pathlib import Path
-
-# argument -> (the values it may take, the ROADMAP.md item that ports the others)
-NOT_PORTED = {
-    "encoder_parallel": (("none", "sp"), "Queue 1 item 6, the tensor-parallel encoder"),
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Run YOLO+SAM cell analysis on a folder")
@@ -58,30 +51,18 @@ def parse_args(argv=None):
     p.add_argument("--quant", choices=("none", "int8"), default="none",
                    help="int8 = dynamic w8a8 SAM-encoder projections")
     p.add_argument("--encoder-parallel", choices=("none", "tp", "sp"), default="none",
-                   help="shard the SAM ViT encoder over ranks: sp = its token rows "
-                        "(tp is not ported yet)")
+                   help="shard the SAM ViT encoder over ranks: sp = its token rows, "
+                        "tp = its heads and MLP hidden")
     p.add_argument("--parallel-devices", type=int, default=0,
                    help="ranks for --encoder-parallel (0 = one a visible card)")
-    args = p.parse_args(argv)
-    refuse_not_ported(p, args, NOT_PORTED)
-    return args
-
-
-def refuse_not_ported(parser: argparse.ArgumentParser, args, table) -> None:
-    """Exit through ``parser.error`` where an argument of ``table`` (name ->
-    (the values it may take, the ROADMAP.md item that ports the others)) has
-    another value."""
-    for name, (keep, item) in table.items():
-        if getattr(args, name) not in keep:
-            parser.error(f"--{name.replace('_', '-')} {getattr(args, name)} is not ported yet "
-                         f"(ROADMAP.md {item})")
+    return p.parse_args(argv)
 
 
 def launch_ranks(app: str, args, pipeline_kwargs=None, **job) -> None:
-    """``--encoder-parallel sp``: ``--parallel-devices`` ranks (0 = one a
+    """``--encoder-parallel sp|tp``: ``--parallel-devices`` ranks (0 = one a
     visible card) through ``parallel.launch.run_ranks``, each running
-    ``apps.<app>.run_rank`` on a (dp=1, sp=N) mesh (the ``"app"`` job of
-    ``parallel/workers.py``). A failed rank raises here."""
+    ``apps.<app>.run_rank`` on a (dp=1, sp=N) or (dp=1, tp=N) mesh (the
+    ``"app"`` job of ``parallel/workers.py``). A failed rank raises here."""
     import torch
 
     from ..parallel.launch import run_ranks
@@ -89,11 +70,12 @@ def launch_ranks(app: str, args, pipeline_kwargs=None, **job) -> None:
 
     n = args.parallel_devices or (torch.cuda.device_count() if args.device == "cuda" else 0)
     if n < 1:
-        raise SystemExit(f"error: --encoder-parallel sp on device {args.device!r} needs "
-                         "--parallel-devices N")
+        raise SystemExit(f"error: --encoder-parallel {args.encoder_parallel} on device "
+                         f"{args.device!r} needs --parallel-devices N")
     run_ranks(run_jobs, n, ([{"kind": "app", "app": app, "args": args,
                               "pipeline_kwargs": pipeline_kwargs,
-                              "mesh": {"encoder_parallel": "sp", "devices": n}, **job}],))
+                              "mesh": {"encoder_parallel": args.encoder_parallel, "devices": n},
+                              **job}],))
 
 
 def build_pipeline(cls, args, pipeline_kwargs=None, mesh=None, **kwargs):
@@ -118,7 +100,7 @@ def main(argv=None, pipeline_kwargs=None) -> int:
     if not args.input_dir.is_dir():
         print(f"error: --input-dir does not exist: {args.input_dir}")
         return 2
-    if args.encoder_parallel == "sp":
+    if args.encoder_parallel != "none":
         launch_ranks("single_batch_inference", args, pipeline_kwargs)
         return 0
     return run_rank(args, pipeline_kwargs)

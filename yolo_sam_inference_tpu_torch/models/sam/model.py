@@ -39,7 +39,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.conv2d_fused import conv2d_act, conv2d_act_plain
-from ...ops.decoder_fused import i2t_keys_update, t2i_shared_attend
+from ...ops.decoder_fused import (
+    i2t_keys_update,
+    i2t_keys_update_plain,
+    t2i_shared_attend,
+    t2i_shared_attend_plain,
+)
 from ...ops.flash_attention import (
     K12_WINDOW,
     relpos_grid_attention,
@@ -54,6 +59,7 @@ from ...ops.fused_ln import (
     fused_ln_mlp_int8,
     fused_ln_mlp_int8_plain,
     fused_ln_mlp_tiled_int8,
+    gemm_bf16,
     gemm_plain,
     int8_linear,
     int8_linear_plain,
@@ -139,9 +145,11 @@ class VisionLayer(nn.Module):
         self.int8 = isinstance(self.mlp1, Int8Linear)
         self.tiled = self.int8 and np.size(p["mlp1"]["wq"]) > RESIDENT_MLP_INT8_MAX
 
-    def forward(self, x, heads: int, window: int, plain: bool = False):
+    def forward(self, x, heads: int, window: int, plain: bool = False, tp=None):
         """x (B, S, S, C) -> (B, S, S, C). ``plain`` runs every kernel's
-        plain PyTorch version, on any device (the fp32 oracle)."""
+        plain PyTorch version, on any device (the fp32 oracle). ``tp`` (a
+        ``parallel.tp.TPGroup``): the layer is its rank's shard of a
+        tensor-parallel group, ``heads`` the rank's (:meth:`_tail_tp`)."""
         gemm = {"gemm": gemm_plain} if plain else {}
         attn = window_attention_plain if plain else window_attention
         ln1, ln2 = self.ln1, self.ln2
@@ -150,9 +158,11 @@ class VisionLayer(nn.Module):
             qkv = qkv_fn(x, ln1.scale, ln1.bias, self.qkv.wq, self.qkv.wscale, self.qkv.b,
                          eps=ln1.eps)
         else:
-            qkv = fused_ln_matmul(x, ln1.scale, ln1.bias, self.qkv.w, self.qkv.b, eps=ln1.eps,
-                                  **gemm)
+            qkv = fused_ln_matmul(_copy(tp, x), ln1.scale, ln1.bias, self.qkv.w, self.qkv.b,
+                                  eps=ln1.eps, **gemm)
         h = attn(qkv, self.rel_pos_h, self.rel_pos_w, heads, window)
+        if tp is not None:
+            return self._tail_tp(x, h, tp, plain)
         h = linear(h, self.proj.w, self.proj.b, **gemm)
         if not self.int8:
             return fused_ln_mlp(x, h, ln2.scale, ln2.bias, self.mlp1.w, self.mlp1.b, self.mlp2.w,
@@ -166,6 +176,34 @@ class VisionLayer(nn.Module):
                                            chunks=chunks)
         tail = fused_ln_mlp_tiled_int8 if self.tiled else fused_ln_mlp_int8
         return tail(x, h, ln2.scale, ln2.bias, *w, eps=ln2.eps)
+
+    def _tail_tp(self, x, h, tp, plain: bool):
+        """A tensor-parallel shard's tail on the attention output h of its
+        heads: the projection and mlp2 on the GEMM kernel without bias, each
+        partial sum reduced over the group (:func:`_reduce`), then its bias
+        and the residual; LN2 + mlp1 + GELU on the rank's columns. Two GEMMs
+        around the reduce, as K4's single launch cannot take a partial sum;
+        rounding where the single-card layer rounds (the projection's output,
+        ``x + h``, the tail's output)."""
+        gemm = gemm_plain if plain else gemm_bf16
+        ln2, c = self.ln2, x.shape[-1]
+        x = x + _reduce(tp, linear(h, self.proj.w, None, gemm=gemm), self.proj.b).to(x.dtype)
+        hid = gemm(_copy(tp, x).reshape(-1, c).contiguous(), self.mlp1.w, self.mlp1.b,
+                   ln=(ln2.scale, ln2.bias, ln2.eps), gelu=True)
+        part = tp.reduce(gemm(hid, self.mlp2.w)).reshape(x.shape)
+        return (x.float() + part + self.mlp2.b.float()).to(x.dtype)  # one rounding, as K4's
+
+
+def _copy(tp, x):
+    """Megatron's f in front of a column-parallel product (identity forward,
+    the gradient summed over the group); x itself off tensor parallelism."""
+    return x if tp is None else tp.copy(x)
+
+
+def _reduce(tp, partial, bias):
+    """A row-parallel product's partial sums reduced over the group in fp32
+    (Megatron's g), plus the whole bias."""
+    return tp.reduce(partial) + bias.float()
 
 
 def _window_partition(x, ws: int):
@@ -189,17 +227,21 @@ def _window_unpartition(win, ws: int, padded: int, orig: int):
     return x.reshape(b, padded, padded, c)[:, :orig, :orig]
 
 
-def _project(lin: nn.Module, x, plain: bool = False, gelu: bool = False):
+def _project(lin: nn.Module, x, plain: bool = False, gelu: bool = False, tp=None):
     """``x @ w + b`` (then GELU) for a float record on the GEMM kernel, or
     for an int8 one on ``int8_linear`` (JAX ``apply_linear``, then
-    ``_gelu``)."""
+    ``_gelu``). With ``tp`` the record is a row-parallel shard: its partial
+    sums are reduced over the group before the bias."""
+    if tp is not None:
+        g = gemm_plain if plain else gemm_bf16
+        return _reduce(tp, linear(x, lin.w, None, gemm=g), lin.b).to(x.dtype)
     if isinstance(lin, Int8Linear):
         fn = int8_linear_plain if plain else int8_linear
         return fn(x, lin.wq, lin.wscale, lin.b, gelu=gelu)
     return linear(x, lin.w, lin.b, **({"gemm": gemm_plain} if plain else {}), gelu=gelu)
 
 
-def _vision_attention(layer: VisionLayer, h, heads: int, plain: bool = False):
+def _vision_attention(layer: VisionLayer, h, heads: int, plain: bool = False, tp=None):
     """The flat route's attention (JAX ``_vision_attention``, ``:215-269``)
     on LayerNormed tokens h (B, S, S, C): a whole grid, or a batch of
     windows. qkv (float or int8) and the projection (float) on the GEMM
@@ -207,10 +249,11 @@ def _vision_attention(layer: VisionLayer, h, heads: int, plain: bool = False):
     -> (B, S, S, C).
 
     Pad tokens of a partition are zero after LN1, so their qkv is the qkv
-    bias: they stay keys, as in the JAX package."""
-    o = relpos_grid_attention(_project(layer.qkv, h, plain), layer.rel_pos_h, layer.rel_pos_w,
-                              heads, plain)
-    return _project(layer.proj, o, plain)
+    bias: they stay keys, as in the JAX package. With ``tp`` the layer is a
+    shard: the rank's heads, the projection reduced over the group."""
+    o = relpos_grid_attention(_project(layer.qkv, _copy(tp, h), plain), layer.rel_pos_h,
+                              layer.rel_pos_w, heads, plain)
+    return _project(layer.proj, o, plain, tp=tp)
 
 
 class SamImageEncoder(nn.Module):
@@ -264,16 +307,27 @@ class SamImageEncoder(nn.Module):
         return self.neck_ln2(y, plain)
 
     def forward(self, pix: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        cfg = self.cfg
-        x = self.embed(pix)
-        if not self.grid_route():
-            return self.neck(self._forward_flat(x, plain), plain)
-        for i, layer in enumerate(self.layers):
-            window = cfg.grid_size if i in cfg.global_attn_indexes else cfg.window_size
-            x = layer(x, cfg.vision_heads, window, plain)
-        return self.neck(x, plain)
+        return self.neck(self.blocks(self.embed(pix), plain), plain)
 
-    def _forward_flat(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+    def blocks(self, x: torch.Tensor, plain: bool = False, first: int = 0,
+               tp=None) -> torch.Tensor:
+        """The layers on embedded tokens x (B, S, S, C), before the neck.
+        ``self.layers[i]`` is the model's layer ``first + i`` (a pipeline
+        stage holds a contiguous run of them, ``parallel/pp.py``); on the flat
+        route the run hands on ``x + pending``, its last MLP residual added.
+        ``tp`` (a ``parallel.tp.TPGroup``): the layers are the rank's shards of
+        a tensor-parallel group (``parallel/tp.py``)."""
+        cfg = self.cfg
+        heads = cfg.vision_heads if tp is None else cfg.vision_heads // tp.size
+        if not self.grid_route():
+            return self._forward_flat(x, plain, first, heads, tp)
+        for i, layer in enumerate(self.layers, first):
+            window = cfg.grid_size if i in cfg.global_attn_indexes else cfg.window_size
+            x = layer(x, heads, window, plain, tp)
+        return x
+
+    def _forward_flat(self, x: torch.Tensor, plain: bool, first: int = 0, heads=None,
+                      tp=None) -> torch.Tensor:
         """The flat route's layers, in the JAX order (``model.py:420-461``):
         ``x, h = add_ln(ln1, x, pending)`` (the plain LN at layer 0), the
         attention (windowed layers on zero-padded partitions), ``x, h =
@@ -281,23 +335,24 @@ class SamImageEncoder(nn.Module):
         residual LayerNorms are K11d's call sites; qkv, mlp1 and mlp2 take
         float or int8 weights (:func:`_project`)."""
         cfg = self.cfg
-        s, ws, heads = cfg.grid_size, cfg.window_size, cfg.vision_heads
+        s, ws, heads = cfg.grid_size, cfg.window_size, heads or cfg.vision_heads
         ln = layer_norm_plain if plain else layer_norm
         pending = None  # the MLP residual, carried into the next LayerNorm
-        for i, layer in enumerate(self.layers):
+        for i, layer in enumerate(self.layers, first):
             l1, l2 = layer.ln1, layer.ln2
             if pending is None:
                 h = ln(x, l1.scale, l1.bias, l1.eps)
             else:
                 x, h = ln(x, l1.scale, l1.bias, l1.eps, residual=pending)
             if i in cfg.global_attn_indexes:
-                h = _vision_attention(layer, h, heads, plain)
+                h = _vision_attention(layer, h, heads, plain, tp)
             else:
                 win, padded = _window_partition(h, ws)
-                h = _window_unpartition(_vision_attention(layer, win, heads, plain), ws, padded, s)
+                h = _window_unpartition(_vision_attention(layer, win, heads, plain, tp), ws,
+                                        padded, s)
             x, h = ln(x, l2.scale, l2.bias, l2.eps, residual=h)
-            h = _project(layer.mlp1, h, plain, gelu=True)
-            pending = _project(layer.mlp2, h, plain)
+            h = _project(layer.mlp1, _copy(tp, h), plain, gelu=True)
+            pending = _project(layer.mlp2, h, plain, tp=tp)
         return x if pending is None else x + pending
 
 
@@ -314,12 +369,18 @@ def _fourier_embed(pe_matrix: torch.Tensor, coords01: torch.Tensor) -> torch.Ten
 
 
 class SamPromptEncoder(nn.Module):
-    def __init__(self, p: Params, shared_pe, cfg: SamTPUConfig):
+    """Box prompts and the decoder's dense positional encoding. The tree's
+    ``shared_pe`` encodes the prompts and ``shared_image_pe`` (``shared_pe``
+    where a tree has none) the image tokens: one matrix in SAM, two leaves
+    in the JAX tree, which a fine-tune step updates apart."""
+
+    def __init__(self, p: Params, shared_pe, cfg: SamTPUConfig, shared_image_pe=None):
         super().__init__()
         self.cfg = cfg
         self.point_embed = _param(p["point_embed"])
         self.no_mask = _param(p["no_mask"])
         self.shared_pe = _param(shared_pe)
+        self.shared_image_pe = _param(shared_pe if shared_image_pe is None else shared_image_pe)
 
     def boxes(self, boxes: torch.Tensor) -> torch.Tensor:
         """boxes (B, K, 4) xyxy in encoder-input pixels -> (B, K, 2, C) fp32."""
@@ -331,9 +392,9 @@ class SamPromptEncoder(nn.Module):
     def image_pe(self) -> torch.Tensor:
         """Dense (gs, gs, C) positional encoding of the decoder's image tokens."""
         gs = self.cfg.grid_size
-        t = (torch.arange(gs, dtype=torch.float32, device=self.shared_pe.device) + 0.5) / gs
+        t = (torch.arange(gs, dtype=torch.float32, device=self.shared_image_pe.device) + 0.5) / gs
         grid = torch.stack([t[None, :].expand(gs, gs), t[:, None].expand(gs, gs)], dim=-1)
-        return _fourier_embed(self.shared_pe, grid)
+        return _fourier_embed(self.shared_image_pe, grid)
 
 
 # ----------------------------------------------------------------- mask decoder
@@ -419,12 +480,13 @@ class SamMaskDecoder(nn.Module):
         self.hyper_mlps = nn.ModuleList(FeedForward(fp) for fp in p["hyper_mlps"])
         self.iou_head = FeedForward(p["iou_head"])
 
-    def tokens(self, image_embeddings, sparse_prompts, image_pe, no_mask):
+    def tokens(self, image_embeddings, sparse_prompts, image_pe, no_mask, plain: bool = False):
         """Two-way transformer up to the mask upscaling.
 
         image_embeddings (B, gs, gs, C); sparse_prompts (B, K, P, C);
         image_pe (gs, gs, C); no_mask (C,). Returns (iou (B, K, M),
-        hyper (B*K, M, C/8), keys_grid (B*K, gs, gs, C)).
+        hyper (B*K, M, C/8), keys_grid (B*K, gs, gs, C)). ``plain`` runs the
+        kernels' plain versions on any device (the fp32 oracle).
         """
         cfg = self.cfg
         b, gs, _, c = image_embeddings.shape
@@ -445,13 +507,15 @@ class SamMaskDecoder(nn.Module):
 
         # layer 0: the K prompts of an image share its image tokens, so the
         # t2i k/v projections run once per image (K6)
+        t2i_fn = t2i_shared_attend_plain if plain else t2i_shared_attend
+        i2t_fn = i2t_keys_update_plain if plain else i2t_keys_update
         l0 = self.layers[0]
-        queries = l0.ln1(l0.self_attn(queries, queries, queries, heads))
+        queries = l0.ln1(l0.self_attn(queries, queries, queries, heads), plain)
         qp = l0.t2i.scaled_query(queries + point_pe, heads)
-        attn = t2i_shared_attend(img_flat, img_pe, qp, l0.t2i.k.w, l0.t2i.k.b, l0.t2i.v.w,
-                                 l0.t2i.v.b, heads, k)
-        queries = l0.ln2(queries + l0.t2i.out(attn))
-        queries = l0.ln3(queries + l0.mlp(queries))
+        attn = t2i_fn(img_flat, img_pe, qp, l0.t2i.k.w, l0.t2i.k.b, l0.t2i.v.w, l0.t2i.v.b,
+                      heads, k)
+        queries = l0.ln2(queries + l0.t2i.out(attn), plain)
+        queries = l0.ln3(queries + l0.mlp(queries), plain)
 
         # one pass over the keys stream per layer (K7): i2t + residual + LN4,
         # and the next token-to-image attention (layer i + 1's, or the final
@@ -462,22 +526,22 @@ class SamMaskDecoder(nn.Module):
             if i + 1 < len(self.layers):
                 nxt = self.layers[i + 1]
                 q = queries + point_pe
-                q_pre = nxt.ln1(queries + nxt.self_attn(q, q, queries, heads))
+                q_pre = nxt.ln1(queries + nxt.self_attn(q, q, queries, heads), plain)
                 t2i = nxt.t2i
             else:
                 q_pre, t2i = queries, self.final_t2i
             i2t = lp.i2t
-            keys, attn = i2t_keys_update(
+            keys, attn = i2t_fn(
                 keys_src, img_pe, i2t.k(queries + point_pe), i2t.v(queries), i2t.q.w, i2t.q.b,
                 i2t.out.w, i2t.out.b, lp.ln4.scale, lp.ln4.bias, heads=heads, k_share=share,
                 eps=lp.ln4.eps, t2i=t2i.next_t2i(t2i.scaled_query(q_pre + point_pe, heads)),
             )
             attn = t2i.out(attn)
             if i + 1 < len(self.layers):
-                queries = nxt.ln2(q_pre + attn)
-                queries = nxt.ln3(queries + nxt.mlp(queries))
+                queries = nxt.ln2(q_pre + attn, plain)
+                queries = nxt.ln3(queries + nxt.mlp(queries), plain)
             else:
-                queries = self.ln_final(q_pre + attn)
+                queries = self.ln_final(q_pre + attn, plain)
             keys_src, share = keys, 1
 
         m = cfg.num_mask_tokens
@@ -487,12 +551,12 @@ class SamMaskDecoder(nn.Module):
         iou = self.iou_head(queries[:, 0, :]).reshape(b, k, m)
         return iou, hyper, keys.reshape(b * k, gs, gs, c)
 
-    def mask_head(self, keys_grid, hyper):
+    def mask_head(self, keys_grid, hyper, plain: bool = False):
         """Upscale (N, g, g, C) tokens 4x and project with the hypernetwork
         outputs (N, M, C/8) -> fp32 logits (N, M, 4g, 4g)."""
         n, g, _, _ = keys_grid.shape
         up = _conv_transpose_2x(keys_grid, self.up1_w, self.up1_b)
-        up = F.gelu(self.up_ln(up))
+        up = F.gelu(self.up_ln(up, plain))
         up = F.gelu(_conv_transpose_2x(up, self.up2_w, self.up2_b))
         hw4 = g * 4
         logits = torch.einsum("nmc,npc->nmp", hyper.float(), up.reshape(n, hw4 * hw4, -1).float())
@@ -515,14 +579,28 @@ class SamModel(nn.Module):
             self.vision = TinyViT(params["tinyvit"], tcfg, conv2d_fused, tinyvit_mbconv_compute)
         else:
             self.vision = SamImageEncoder(params["vision"], cfg, conv2d_fused)
-        self.prompt = SamPromptEncoder(params["prompt"], params["shared_pe"], cfg)
+        self.prompt = SamPromptEncoder(params["prompt"], params["shared_pe"], cfg,
+                                       params.get("shared_image_pe"))
         self.decoder = SamMaskDecoder(params["decoder"], cfg)
 
-    def mask_decoder_tokens(self, image_embeddings, sparse_prompts):
+    def forward(self, pixel_values, boxes, plain: bool = False, encode=None):
+        """JAX ``sam_forward_boxes`` with ``multimask_output=False``: images
+        (B, H, W, 3) normalised and boxes (B, K, 4) in encoder-input pixels ->
+        (mask-0 low-res logits (B, K, 4gs, 4gs) fp32, IoU head (B, K, M)).
+        ``encode`` replaces the encoder call (a parallel encoder over
+        ``self.vision``); ``plain`` runs every kernel's plain version."""
+        emb = self.vision(pixel_values, plain) if encode is None else encode(pixel_values)
+        sparse = self.prompt.boxes(boxes).to(emb.dtype)
+        iou, hyper, keys = self.mask_decoder_tokens(emb, sparse, plain)
+        logits = self.decoder.mask_head(keys, hyper[:, :1], plain)
+        b, k = boxes.shape[:2]
+        return logits.reshape(b, k, *logits.shape[-2:]), iou
+
+    def mask_decoder_tokens(self, image_embeddings, sparse_prompts, plain: bool = False):
         """The JAX package's ``sam_mask_decoder_tokens`` (no dense prompt)."""
         return self.decoder.tokens(
             image_embeddings, sparse_prompts, self.prompt.image_pe(),
-            self.prompt.no_mask.to(image_embeddings.dtype),
+            self.prompt.no_mask.to(image_embeddings.dtype), plain,
         )
 
 

@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check, kernels
+from .autograd import refuse_grad
 from .fused_ln import _check_bf16, _derived, _f32, _on_cpu, _ptr
 
 ACTS = ("none", "silu", "gelu")
@@ -157,6 +158,7 @@ def conv2d_act(x, w, b, k: int = 3, stride: int = 1, act: str = "none"):
         return _act(y, act).reshape(*x.shape[:-1], w.shape[-1])
     if _on_cpu(x):
         return conv2d_act_plain(x, w, b, k, stride, act)
+    refuse_grad("conv2d_act", x, w, b)
     out = _launch(x, w, b, k, stride, act)
     conv2d_act.launches += 1
     return out

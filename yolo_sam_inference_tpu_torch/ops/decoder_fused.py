@@ -26,7 +26,9 @@ per image, (B, T, C), and ``k_share = K`` makes prompt n read image n // K.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernels or raises. Each launch function counts its
-launches in ``.launches``.
+launches in ``.launches``. Where autograd records a CUDA call, the two
+functions go through ``ops/autograd.py`` (the kernels forward, the plain
+version's autograd as backward); the launch functions alone raise.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Optional
 import torch
 
 from ._build import check, kernels
+from .autograd import refuse_grad, through_kernel, wants_grad
 from .fused_ln import _check_bf16, _f32, _on_cpu, _ptr, layer_norm_plain
 
 # The kernels' geometry: SAM's decoder at every encoder size.
@@ -136,6 +139,7 @@ def keys_stream(keys_src, img_pe, wk, bk, wv, bv, *, k_share: int = 1, i2t=None,
     if _on_cpu(keys_src):
         raise ValueError("keys_stream launches the CUDA kernel; kv_project and "
                          "i2t_keys_update take the plain versions on the CPU")
+    refuse_grad("keys_stream", keys_src, img_pe, wk, bk, wv, bv, qn, *(i2t or ()))
     nsrc, t, c = keys_src.shape
     n = nsrc * k_share
     dh = wk.shape[1]
@@ -220,6 +224,7 @@ def t2i_combine(part: torch.Tensor, tq2: int) -> torch.Tensor:
     ``t2i_combine_kernel``, see :func:`t2i_combine_plain`."""
     if _on_cpu(part):
         return t2i_combine_plain(part, tq2)
+    refuse_grad("t2i_combine", part)
     n, tiles, _ = part.shape
     _check_tokens("t2i_combine", tq2)
     out = torch.empty((n, tq2, KERNEL_DH), dtype=torch.bfloat16, device=part.device)
@@ -239,6 +244,7 @@ def t2i_attend(qp, kp, vp, heads: int, k_share: int = 1):
     ``t2i_attend_kernel`` (bf16, dh = 128, 8 heads, tq <= 8)."""
     if _on_cpu(qp):
         return t2i_attend_plain(qp, kp, vp, heads, k_share)
+    refuse_grad("t2i_attend", qp, kp, vp)
     n, tq, dh = qp.shape
     nsrc, t, _ = kp.shape
     _check_geometry("t2i_attend", KERNEL_C, dh, heads)
@@ -273,10 +279,19 @@ def kv_project(keys, img_pe, wk, bk, wv, bv, heads: int):
     return keys_stream(keys, img_pe, wk, bk, wv, bv)
 
 
+def t2i_shared_attend_plain(keys_img, img_pe, qp, wk, bk, wv, bv, heads: int, k_share: int):
+    """What :func:`t2i_shared_attend` computes, in fp32 (result in qp's dtype)."""
+    kp, vp = kv_project_plain(keys_img, img_pe, wk, bk, wv, bv)
+    return t2i_attend_plain(qp, kp, vp, heads, k_share)
+
+
 def t2i_shared_attend(keys_img, img_pe, qp, wk, bk, wv, bv, heads: int, k_share: int):
     """Decoder layer-0 token-to-image attention against per-image keys (K6):
     the k/v projections run once per image, keys_img (B, T, C); qp
     (B * k_share, tq, dh) already scaled. Returns (N, tq, dh)."""
+    if not _on_cpu(keys_img) and wants_grad(keys_img, img_pe, qp, wk, bk, wv, bv):
+        return through_kernel(t2i_shared_attend, t2i_shared_attend_plain, keys_img, img_pe, qp,
+                              wk, bk, wv, bv, heads, k_share)
     kp, vp = kv_project(keys_img, img_pe, wk, bk, wv, bv, heads)
     return t2i_attend(qp, kp, vp, heads, k_share)
 
@@ -291,6 +306,11 @@ def i2t_keys_update(keys_src, img_pe, kq, vq, wq, bq, wout, bout, ln_scale, ln_b
     if _on_cpu(keys_src):
         return i2t_keys_update_plain(keys_src, img_pe, kq, vq, wq, bq, wout, bout, ln_scale,
                                      ln_bias, heads=heads, k_share=k_share, eps=eps, t2i=t2i)
+    if wants_grad(keys_src, img_pe, kq, vq, wq, bq, wout, bout, ln_scale, ln_bias,
+                  *t2i.values()):
+        return through_kernel(i2t_keys_update, i2t_keys_update_plain, keys_src, img_pe, kq, vq,
+                              wq, bq, wout, bout, ln_scale, ln_bias, heads=heads,
+                              k_share=k_share, eps=eps, t2i=t2i)
     if heads != KERNEL_HEADS:
         raise ValueError(f"keys_stream kernel takes {KERNEL_HEADS} heads, got {heads}")
     keys, part = keys_stream(keys_src, img_pe, t2i["wk"], t2i["bk"], t2i["wv"], t2i["bv"],
@@ -302,5 +322,5 @@ def i2t_keys_update(keys_src, img_pe, kq, vq, wq, bq, wout, bout, ln_scale, ln_b
 __all__ = [
     "i2t_keys_update", "i2t_keys_update_plain", "keys_stream", "kv_project", "kv_project_plain",
     "slab_schedule", "t2i_attend", "t2i_attend_plain", "t2i_combine", "t2i_combine_plain",
-    "t2i_shared_attend", "t2i_tile_partials_plain",
+    "t2i_shared_attend", "t2i_shared_attend_plain", "t2i_tile_partials_plain",
 ]

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check, kernels
+from .autograd import refuse_grad
 from .fused_ln import _check_bf16, _f32, _on_cpu, _ptr, gemm_bf16, layer_norm_plain
 
 DW_MAX_C = 320  # the kernel's widest tile (csrc/tinyvit_conv.cu DW_MAX_C)
@@ -49,6 +50,7 @@ def dw_conv3x3(x, wd, bd, ln=None):
     takes bf16 x and C a multiple of 8, at most 320."""
     if _on_cpu(x):
         return dw_conv3x3_plain(x, wd, bd, ln)
+    refuse_grad("dw_conv3x3", x, wd, bd, *(ln or ()))
     b, h, w, c = x.shape
     if c % 8 or c > DW_MAX_C:
         raise ValueError(f"dw_conv3x3 kernel takes C a multiple of 8 up to {DW_MAX_C}, got {c}")

@@ -22,7 +22,8 @@ the output ``(B, S, S, C)``. Attention is confined to non-overlapping
 ``window x window`` blocks of the grid (``window = S`` for global layers).
 
 Dispatch is by the tensor's device: CPU takes the plain version, CUDA
-launches the kernel or raises. ``window_attention.launches`` counts launches,
+launches the kernel or raises; where autograd records a CUDA call, through
+``ops/autograd.py`` (the plain version's autograd as backward). ``window_attention.launches`` counts launches,
 and ``window_attention.by_window`` counts them per window size; K12's
 counts do not include them.
 
@@ -48,6 +49,7 @@ from __future__ import annotations
 import torch
 
 from ._build import check, kernels
+from .autograd import through_kernel, wants_grad
 from .fused_ln import _on_cpu
 
 
@@ -116,6 +118,9 @@ def window_attention(qkv, rel_h, rel_w, heads: int, window: int):
                          f"need {(2 * window - 1, hd)}")
     if _on_cpu(qkv):
         return window_attention_plain(qkv, rel_h, rel_w, heads, window)
+    if wants_grad(qkv, rel_h, rel_w):
+        return through_kernel(window_attention, window_attention_plain, qkv, rel_h, rel_w, heads,
+                              window)
     if hd not in KERNEL_HEAD_DIMS or window not in KERNEL_WINDOWS:
         raise ValueError(f"window_attention kernel takes hd=64 or hd=80 with window 16, 32, 48 "
                          f"or 64; got hd={hd}, window={window}")
@@ -239,6 +244,9 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w, grid_s: int, row0: int = 0):
                          f"{tuple(rel_w.shape)}, need {(2 * grid_s - 1, hd)}")
     if _on_cpu(q):
         return relpos_attention_plain(q, k, v, rel_h, rel_w, grid_s, row0)
+    if wants_grad(q, k, v, rel_h, rel_w):
+        return through_kernel(flash_attention_relpos, relpos_attention_plain, q, k, v, rel_h,
+                              rel_w, grid_s, row0)
     if hd not in KERNEL_HEAD_DIMS or grid_s > RELPOS_MAX_GRID:
         raise ValueError(f"flash_attention_relpos kernel takes hd=64 or hd=80 and a grid side "
                          f"up to {RELPOS_MAX_GRID}; got hd={hd}, grid_s={grid_s}")

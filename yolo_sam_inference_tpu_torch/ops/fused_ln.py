@@ -27,7 +27,10 @@ sources carry these functions on the card:
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain PyTorch
 version, a CUDA tensor launches the kernel (or raises). There is no
-fallback. Each kernel wrapper counts its launches in ``.launches``.
+fallback. Each kernel wrapper counts its launches in ``.launches``. Where
+autograd records a CUDA call, ``gemm_bf16`` and ``layer_norm`` go through
+``ops/autograd.py`` (the kernel forward, the plain version's autograd as
+backward) and the w8a8 kernels raise.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch.nn.functional as F
 
 from . import quant
 from ._build import check, kernels
+from .autograd import refuse_grad, through_kernel, wants_grad
 from .quant import int_dot, quant_rows
 
 
@@ -89,11 +93,23 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _derived(t: torch.Tensor, tag: str, make):
-    """``make(t)``, kept on ``t`` and made again only when t's storage, dtype,
-    device or shape change. For weights, which are read-only at inference: a
-    launch then casts or transposes nothing."""
-    key = (t.data_ptr(), t.dtype, t.device, tuple(t.shape))
+def _version(t: torch.Tensor):
+    """t's version counter, which every in-place update bumps (an optimiser
+    step, ``copy_``, ``load_state_dict``); None for an inference tensor, which
+    keeps none and cannot be updated in place outside inference mode."""
+    try:
+        return t._version
+    except RuntimeError:
+        return None
+
+
+def _derived(t: torch.Tensor, tag, make, deps=()):
+    """``make(t)``, kept on ``t`` and made again when t's storage, dtype,
+    device, shape or version change, or those of the tensors ``deps`` it
+    also reads. For weights: a launch then casts or transposes nothing, and
+    an in-place update of a weight remakes its form."""
+    key = tuple((u.data_ptr(), u.dtype, u.device, tuple(u.shape), _version(u))
+                for u in (t, *deps))
     cache = t.__dict__.setdefault("_kernel_forms", {})
     hit = cache.get(tag)
     if hit is None or hit[0] != key:
@@ -128,6 +144,8 @@ def gemm_bf16(a, w, bias=None, a2=None, ln=None, gelu=False, r1=None, r2=None):
     """
     if _on_cpu(a):
         return gemm_plain(a, w, bias, a2, ln, gelu, r1, r2)
+    if wants_grad(a, w, bias, a2, r1, r2, *(ln or ())):
+        return through_kernel(gemm_bf16, gemm_plain, a, w, bias, a2, ln, gelu, r1, r2)
     m, k = a.shape
     n = w.shape[1]
     if k % 8 or n % 8:
@@ -177,6 +195,8 @@ def layer_norm(x, scale, bias, eps: float = 1e-6, residual=None):
     one of ``LN_WIDTHS``."""
     if _on_cpu(x):
         return layer_norm_plain(x, scale, bias, eps, residual)
+    if wants_grad(x, scale, bias, residual):
+        return through_kernel(layer_norm, layer_norm_plain, x, scale, bias, eps, residual)
     c = x.shape[-1]
     if c not in LN_WIDTHS:
         raise ValueError(f"layer_norm kernel takes C in {LN_WIDTHS}, got {c}")
@@ -394,6 +414,7 @@ def int8_linear(x, wq, ws, b, gelu: bool = False):
     and column scales, the bias (and the GELU) in its epilogue."""
     if _on_cpu(x):
         return int8_linear_plain(x, wq, ws, b, gelu)
+    refuse_grad("int8_linear", x, ws, b)
     lead, c = x.shape[:-1], x.shape[-1]
     o = wq.shape[1]
     if c % 16 or o % 8:
@@ -420,6 +441,7 @@ def fused_ln_matmul_int8(x, scale, bias, wq, ws, b, eps: float = 1e-6, block_row
     is the JAX signature's and does not change the function."""
     if _on_cpu(x):
         return fused_ln_matmul_int8_plain(x, scale, bias, wq, ws, b, eps)
+    refuse_grad("fused_ln_matmul_int8", x, scale, bias, ws, b)
     lead, c = x.shape[:-1], x.shape[-1]
     o = wq.shape[1]
     if c % 16 or o % 8:
@@ -441,6 +463,7 @@ def _int8_tail(x, attn, scale, bias, w1q, w1s, b1, w2q, w2s, b2, eps, chunks):
     """The w8a8 block tail on the card: LN + quant, int8 mlp1 (the fp32
     hidden before its GELU), the GELU with the per-chunk requantisation, int8
     mlp2 with the chunk scales folded in and the residual y added."""
+    refuse_grad("w8a8 block tail", x, attn, scale, bias, w1s, b1, w2s, b2)
     c = x.shape[-1]
     hidden = w1q.shape[1]
     ch = hidden // chunks

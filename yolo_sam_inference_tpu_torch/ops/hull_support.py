@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ._build import check, kernels
+from .autograd import refuse_grad
 from .fused_ln import _on_cpu
 
 
@@ -45,6 +46,7 @@ def support_points(pts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     ``hull_support_kernel`` (fp32, at most 4096 candidates per cell)."""
     if _on_cpu(pts):
         return support_points_plain(pts, dirs)
+    refuse_grad("support_points", pts, dirs)
     n, p, two = pts.shape
     d = dirs.shape[0]
     if two != 2 or tuple(dirs.shape) != (d, 2) or p > 4096:

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check, kernels
+from .autograd import refuse_grad
 from .fused_ln import _check_bf16, _f32, _on_cpu, _ptr
 
 
@@ -252,6 +253,7 @@ def mbconv_block(x, w1, b1, wd, bd, w3, b3, residual: bool = True, compute: str 
         raise ValueError("residual MBConv needs Co == C")
     if _on_cpu(x):
         return mbconv_plain(x, w1, b1, wd, bd, w3, b3, 1, residual, compute)
+    refuse_grad("mbconv_block", x, w1, b1, wd, bd, w3, b3)
     out = _launch(x, w1, b1, wd, bd, w3, b3, 1, residual, compute)
     mbconv_block.launches += 1
     mbconv_block.bf16_launches += compute == "bf16"
@@ -269,6 +271,7 @@ def patch_merge_block(x, w1, b1, wd, bd, w3, b3, compute: str = "fp32"):
     _check_compute(compute)
     if _on_cpu(x):
         return mbconv_plain(x, w1, b1, wd, bd, w3, b3, 2, False, compute)
+    refuse_grad("patch_merge_block", x, w1, b1, wd, bd, w3, b3)
     out = _launch(x, w1, b1, wd, bd, w3, b3, 2, False, compute)
     patch_merge_block.launches += 1
     patch_merge_block.bf16_launches += compute == "bf16"

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ._build import check, kernels
+from .autograd import refuse_grad
 from .fused_ln import _check_bf16, _derived, _f32, _on_cpu, _ptr, gemm_bf16, gemm_plain
 
 HEAD_DIM = 32  # every TinyViT-5M stage
@@ -65,7 +66,7 @@ def pad_qkv_row(ln_bias, wqkv, bqkv, dtype):
         ln0 = ln_bias.detach().to(dtype).float()
         return (ln0 @ w.float() + bqkv.detach().float()).to(dtype).contiguous()
 
-    return _derived(wqkv, ("pad_qkv", ln_bias.data_ptr(), bqkv.data_ptr(), dtype), make)
+    return _derived(wqkv, ("pad_qkv", dtype), make, deps=(ln_bias, bqkv))
 
 
 def _windows(t: torch.Tensor, ws: int) -> torch.Tensor:
@@ -123,6 +124,7 @@ def tinyvit_attention(qkv, pad_row, bias_table, heads: int, ws: int):
                          f"{(heads, (2 * ws - 1) ** 2)}")
     if _on_cpu(qkv):
         return tinyvit_attention_plain(qkv, pad_row, bias_table, heads, ws)
+    refuse_grad("tinyvit_attention", qkv, pad_row, bias_table)
     if c // heads != HEAD_DIM or ws not in KERNEL_WINDOWS:
         raise ValueError(f"tinyvit_attention kernel takes head dim {HEAD_DIM} and ws 7 or 14; "
                          f"got hd={c // heads}, ws={ws}")
@@ -257,6 +259,7 @@ def tinyvit_window_block(x, bias_table, ln_scale, ln_bias, wqkv, bqkv, wproj, bp
     args = (x, bias_table, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads, ws, eps)
     if _on_cpu(x):
         return tinyvit_window_block_plain(*args)
+    refuse_grad("tinyvit_window_block", *args[:8])
     if heads * HEAD_DIM != c or ws not in KERNEL_WINDOWS:  # before any launch, on either route
         raise ValueError(f"tinyvit_window_block kernels take head dim {HEAD_DIM} and ws 7 or 14; "
                          f"got C {c}, {heads} heads, ws {ws}")

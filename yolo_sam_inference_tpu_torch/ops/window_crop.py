@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ._build import check, kernels
+from .autograd import refuse_grad
 from .fused_ln import _check_bf16, _on_cpu
 
 
@@ -37,6 +38,7 @@ def window_crop(grid, r0, c0, wg: int):
         raise ValueError(f"window_crop: grid {tuple(grid.shape)}, window {wg}")
     if _on_cpu(grid):
         return window_crop_plain(grid, r0, c0, wg)
+    refuse_grad("window_crop", grid)
     if c % 8:
         raise ValueError(f"window_crop kernel takes C a multiple of 8, got {c}")
     _check_bf16("grid", grid, (n, gs, gs, c), grid.device)

@@ -6,18 +6,16 @@ device is a rank (one process, one card), and a :class:`RankMesh` lays
 global ranks out the same way: ``make_mesh(dp=4)`` puts ranks 0-3 on the
 data axis. For each axis it holds this rank's process group along that axis
 (the ranks that differ from it only in that coordinate), so a data-parallel
-batch gathers over ``mesh.axis_group("dp")`` and the sequence-parallel encoder
-splits its rows over ``mesh.axis_group("sp")``. Weights are not placed: every
-rank builds the same ones from one seed or file (the JAX engine replicates
-them).
+batch gathers over ``mesh.axis_group("dp")``, the sequence-parallel encoder
+splits its rows over ``mesh.axis_group("sp")`` and the tensor-parallel one its
+heads and MLP hidden over ``mesh.axis_group("tp")``. Weights are not placed:
+every rank builds the same ones from one seed or file and keeps what its
+place on the mesh needs (``parallel/tp.py`` keeps a rank's shard).
 
 Building a mesh creates process groups, and ``torch.distributed.new_group``
 must be entered by every rank of the program in the same order: call these
 functions on every rank, also on ranks that the mesh leaves out. Without a
 process group there is one rank, and a mesh of extent 1 with no groups.
-
-The tensor-parallel axis is not ported yet: a ``tp`` extent above 1 raises
-(``ROADMAP.md`` Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -27,10 +25,6 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch.distributed as dist
-
-TP_NOT_PORTED = ("a 'tp' axis above 1 is not ported yet (parallel/tp.py; ROADMAP.md, Queue 1 "
-                 "item 6)")
-
 
 def _world() -> tuple:
     """(this rank, world size) of the running process group, (0, 1) without one."""
@@ -120,8 +114,6 @@ def make_mesh_axes(ranks: Optional[Sequence[int]] = None, **axes: int) -> RankMe
     n = int(np.prod(list(axes.values())))
     if n != len(ranks):
         raise ValueError(f"{axes} needs {n} devices, have {len(ranks)}")
-    if axes.get("tp", 1) > 1:
-        raise ValueError(TP_NOT_PORTED)
     arr = np.asarray(ranks, dtype=np.int64).reshape(tuple(axes.values()))
     if not (dist.is_available() and dist.is_initialized()):
         if len(ranks) > 1:
@@ -151,16 +143,16 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1,
 def make_encoder_parallel_mesh(kind: str, n_devices: int = 0,
                                ranks: Optional[Sequence[int]] = None) -> RankMesh:
     """Mesh for ``PipelineOptions(encoder_parallel=...)`` from a CLI knob: a
-    (dp=1, sp=N) mesh over the first ``n_devices`` ranks (0 = all); the
-    runners expose it as ``--encoder-parallel sp --parallel-devices N``.
-    ``"tp"`` is not ported yet (``ROADMAP.md`` Queue 1 item 6)."""
+    (dp=1, tp=N) or (dp=1, sp=N) mesh over the first ``n_devices`` ranks
+    (0 = all); the runners expose it as ``--encoder-parallel tp|sp
+    --parallel-devices N``."""
     ranks = list(range(_world()[1]) if ranks is None else ranks)
     n = int(n_devices) or len(ranks)
     if n > len(ranks):
         raise ValueError(f"--parallel-devices {n} > {len(ranks)} visible devices (the ranks "
                          f"of the process group)")
     if kind == "tp":
-        raise ValueError(f"--encoder-parallel tp: {TP_NOT_PORTED}")
+        return make_mesh(dp=1, tp=n, ranks=ranks[:n])
     if kind == "sp":
         return make_mesh_axes(ranks[:n], dp=1, sp=n)
     raise ValueError(f"encoder_parallel mesh kind must be tp|sp, got {kind!r}")
@@ -188,4 +180,4 @@ def shard_batch(mesh: RankMesh, batch):
 
 
 __all__ = ["RankMesh", "make_mesh", "make_mesh_axes", "make_encoder_parallel_mesh",
-           "data_shard", "shard_batch", "TP_NOT_PORTED"]
+           "data_shard", "shard_batch"]

@@ -38,24 +38,7 @@ from ..ops.flash_attention import (
     window_attention,
 )
 from ..ops.fused_ln import fused_ln_matmul, fused_ln_mlp, linear
-
-
-def _all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """The group's tensors of t's shape, concatenated along ``dim`` in rank
-    order. gloo's collectives run on host memory: a CUDA tensor is staged
-    through pinned host buffers here (the transport of the collective, not
-    a CPU path of the computation; it is what lets ranks share one card,
-    where NCCL refuses two ranks on one device)."""
-    world = dist.get_world_size(group)
-    if t.is_cuda and dist.get_backend(group) == dist.Backend.GLOO:
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
-        parts = [torch.empty_like(host) for _ in range(world)]
-        dist.all_gather(parts, host, group=group)
-        return torch.cat(parts, dim).to(t.device)
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(world)]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim)
+from .comm import all_gather
 
 
 def _win_part_rect(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -101,7 +84,7 @@ def _global_attention_sp(layer, x, s: int, group):
     qkv = fused_ln_matmul(x, ln1.scale, ln1.bias, layer.qkv.w, layer.qkv.b, eps=ln1.eps)
     qkv = qkv.reshape(b, nl, 3 * c)
     # (B, nl, 2C) from every rank -> (B, S*S, 2C): rank order is row order
-    kv = _all_gather(qkv[..., c:], group, dim=1)
+    kv = all_gather(qkv[..., c:], group, dim=1)
     row0 = dist.get_rank(group) * hl
     o = flash_attention_relpos(qkv[..., :c], kv[..., :c], kv[..., c:], layer.rel_pos_h,
                                layer.rel_pos_w, s, row0=row0)
@@ -123,7 +106,7 @@ def _encoder_local(encoder, pix_local, row0: int, group):
         ln2 = layer.ln2
         x = fused_ln_mlp(x, h, ln2.scale, ln2.bias, layer.mlp1.w, layer.mlp1.b, layer.mlp2.w,
                          layer.mlp2.b, eps=ln2.eps)
-    return encoder.neck(_all_gather(x, group, dim=1))
+    return encoder.neck(all_gather(x, group, dim=1))
 
 
 def rows_per_rank(cfg, sp: int) -> int:

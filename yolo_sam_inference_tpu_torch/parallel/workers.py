@@ -12,10 +12,13 @@ rank (``new_group`` is collective): ``{"dp": 2}`` or any axes of
 ``make_encoder_parallel_mesh``. A job is a dict:
 
 * ``{"kind": "encoder", "tree": .npz, "cfg": SamTPUConfig, "pix": .npy,
-  "out": prefix}``: the ``"vision"`` subtree as a ``SamImageEncoder`` (in
-  fp32 on the CPU, or on ``"device"`` in ``"dtype"``),
-  :func:`~.sp.sam_image_encoder_sp` on the pixels; ``{prefix}.rank{r}.npy``
-  holds the embeddings in fp32;
+  "out": prefix[, "parallel": "sp" | "tp" | "pp", "microbatches": M]}``:
+  the ``"vision"`` subtree (the rank's tp shard, or its pp stage) as a
+  ``SamImageEncoder`` (in fp32 on the CPU, or on ``"device"`` in
+  ``"dtype"``), the sp (default), tp or pp encoder on the pixels (under a
+  mesh with a 'dp' axis, the rank's dp share of them, its encoder group the
+  mesh's 'tp' axis); ``{prefix}.rank{r}.npy`` holds the embeddings in fp32,
+  ``{prefix}.rank{r}.json`` the shapes of the rank's layer-0 weights;
 * ``{"kind": "pipeline", "kwargs": dict, "frames": .npy, "out": prefix}``:
   ``CellSegmentationPipeline(**kwargs)`` (its options set
   ``encoder_parallel="sp"``) on the frames; ``{prefix}.rank{r}.npz`` holds
@@ -32,6 +35,15 @@ rank (``new_group`` is collective): ``{"dp": 2}`` or any axes of
   rank's own pipeline, then ``merge_csv_shards`` of both CSVs;
   ``{prefix}.rank{r}.json`` holds the run id, the shard's files and rank 0's
   merged paths;
+* ``{"kind": "train", "cfg": SamTPUConfig, "seed": int, "batch": .npz,
+  "steps": n, "out": prefix[, "mesh": {...}]}``: ``parallel.train`` on the
+  CPU in fp32, n steps on the batch; ``{prefix}.rank{r}.json`` holds the
+  losses, ``{prefix}.rank{r}.npz`` the rank's own parameters (its tp shard),
+  ``{prefix}.whole.npz`` (rank 0) the gathered tree by ``utils/checkpoint.py``,
+  ``{prefix}.grads1.npz`` (rank 0) step 1's gradients gathered likewise;
+* ``{"kind": "dryrun", "device": "cpu", "out": prefix}`` (on every rank):
+  ``parallel.dryrun``'s five parts; ``{prefix}.rank{r}.json`` holds the
+  parts run and the two losses;
 * ``{"kind": "mesh_checks", "out": prefix}``: the meshes of
   ``parallel/mesh.py`` on every rank: shapes, groups and the errors;
   ``{prefix}.rank{r}.json``;
@@ -54,14 +66,37 @@ import torch.distributed as dist
 def _encoder_job(rank: int, job: dict, group, mesh) -> None:
     from ..models.sam import SamImageEncoder
     from ..weights import load_tree
+    from .mesh import shard_batch
+    from .pp import sam_image_encoder_pp, stage_tree
     from .sp import sam_image_encoder_sp
+    from .tp import sam_image_encoder_tp, shard_sam_encoder_tp
 
+    cfg, kind = job["cfg"], job.get("parallel", "sp")
     dev, dtype = torch.device(job.get("device", "cpu")), job.get("dtype", torch.float32)
-    enc = SamImageEncoder(load_tree(job["tree"])["vision"], job["cfg"]).to(dev, dtype)
-    pix = torch.from_numpy(np.load(job["pix"])).to(dev, dtype)
+    tree, pix = load_tree(job["tree"]), np.load(job["pix"])
+    if mesh is not None:
+        pix = shard_batch(mesh, pix)
+        group = mesh.axis_group(kind)
+    n, index = dist.get_world_size(group), dist.get_rank(group)
+    if kind == "tp":
+        tree = shard_sam_encoder_tp(tree, cfg, n, index)
+    elif kind == "pp":
+        tree = stage_tree(tree, cfg, n, index)
+    enc = SamImageEncoder(tree["vision"], cfg).to(dev, dtype)
+    pix = torch.from_numpy(pix).to(dev, dtype)
     with torch.inference_mode():
-        emb = sam_image_encoder_sp(enc, pix, job["cfg"], group)
+        if kind == "tp":
+            emb = sam_image_encoder_tp(enc, pix, cfg, group)
+        elif kind == "pp":
+            emb = sam_image_encoder_pp(enc, pix, cfg, group, job.get("microbatches"))
+        else:
+            emb = sam_image_encoder_sp(enc, pix, cfg, group)
     np.save(f"{job['out']}.rank{rank}.npy", emb.float().cpu().numpy())
+    layer = enc.layers[0]
+    with open(f"{job['out']}.rank{rank}.json", "w") as f:
+        json.dump({"layers": len(enc.layers), "qkv": list(layer.qkv.w.shape),
+                   "proj": list(layer.proj.w.shape), "mlp1": list(layer.mlp1.w.shape),
+                   "mlp2": list(layer.mlp2.w.shape)}, f)
 
 
 def _arrays(out: dict, prefix: str = "") -> dict:
@@ -115,6 +150,39 @@ def _sharded_job(rank: int, job: dict, group, mesh) -> None:
         json.dump(info, f)
 
 
+def _train_job(rank: int, job: dict, group, mesh) -> None:
+    from ..utils.checkpoint import flatten_tree, save_params_npz
+    from .train import gather_params, make_train_state, sam_decoder_train_step
+
+    cfg = job["cfg"]
+    state = make_train_state(job["seed"], cfg, mesh, device="cpu")
+    with np.load(job["batch"]) as z:
+        batch = dict(z)
+    losses = []
+    for step in range(job["steps"]):
+        state, loss = sam_decoder_train_step(state, batch, cfg)
+        losses.append(loss)
+        if step == 0:
+            grads = gather_params(state, grads=True)
+            if rank == 0:
+                save_params_npz(grads, f"{job['out']}.grads1.npz")
+    np.savez(f"{job['out']}.rank{rank}.npz",
+             **{k: p.detach().numpy() for k, p in state["params"].items()})
+    whole = gather_params(state)
+    if rank == 0:
+        save_params_npz(whole, f"{job['out']}.whole.npz")
+    with open(f"{job['out']}.rank{rank}.json", "w") as f:
+        json.dump({"losses": losses, "keys": sorted(flatten_tree(whole))}, f)
+
+
+def _dryrun_job(rank: int, job: dict, group, mesh) -> None:
+    from .dryrun import _dryrun_rank
+
+    info = _dryrun_rank(rank, dist.get_world_size(), job.get("device", "cpu"))
+    with open(f"{job['out']}.rank{rank}.json", "w") as f:
+        json.dump(info, f)
+
+
 def _mesh_checks_job(rank: int, job: dict, group, mesh) -> None:
     from .mesh import make_encoder_parallel_mesh, make_mesh
 
@@ -122,16 +190,17 @@ def _mesh_checks_job(rank: int, job: dict, group, mesh) -> None:
     info = {}
     meshes = {"all": make_mesh(), "dp2": make_mesh(dp=2, ranks=range(2)),
               "sp_all": make_encoder_parallel_mesh("sp", 0),
-              "sp2": make_encoder_parallel_mesh("sp", 2)}
+              "sp2": make_encoder_parallel_mesh("sp", 2),
+              "tp2": make_mesh(dp=world // 2, tp=2),
+              "ep_tp": make_encoder_parallel_mesh("tp", 2)}
     for name, m in meshes.items():
         info[name] = {"shape": m.shape, "size": m.size, "contains": m.contains,
                       "first": m.first,
                       "groups": {a: (None if m.axis_group(a) is None
                                      else dist.get_world_size(m.axis_group(a)))
-                                 for a in m.axis_names if m.contains}}
+                                 for a in m.axis_names if m.contains},
+                      "index": {a: m.index(a) for a in m.axis_names if m.contains}}
     for name, fn in {"dp3": lambda: make_mesh(dp=3),
-                     "tp2": lambda: make_mesh(dp=world // 2, tp=2),
-                     "ep_tp": lambda: make_encoder_parallel_mesh("tp", 2),
                      "ep_many": lambda: make_encoder_parallel_mesh("sp", 99),
                      "ep_bogus": lambda: make_encoder_parallel_mesh("bogus", 2)}.items():
         try:
@@ -151,7 +220,8 @@ def _app_job(rank: int, job: dict, group, mesh) -> None:
 
 
 JOBS = {"encoder": _encoder_job, "pipeline": _pipeline_job, "dp": _dp_job,
-        "sharded": _sharded_job, "mesh_checks": _mesh_checks_job, "app": _app_job}
+        "sharded": _sharded_job, "mesh_checks": _mesh_checks_job, "app": _app_job,
+        "train": _train_job, "dryrun": _dryrun_job}
 
 
 def _job_mesh(spec, n: int):

@@ -9,9 +9,10 @@ batch runs as four stages on the pipeline's device:
   frame's native resolution (window 16, resolution-adapted weights), or
   TinyViT-5M for MobileSAM (``"mobile-sam"``, ``"tinyvit"``); with
   ``PipelineOptions.encoder_parallel="sp"`` the ViT encoder's token rows are
-  split over the ranks of a process group (``parallel/sp.py``), and every
-  rank runs the other stages on the whole batch and returns the same
-  outputs;
+  split over the ranks of a process group (``parallel/sp.py``), with
+  ``"tp"`` its heads and MLP hidden (``parallel/tp.py``: each rank keeps its
+  shard of the encoder), and every rank runs the other stages on the whole
+  batch and returns the same outputs;
 * :func:`segment_stage`: box prompts -> two-way decoder batched over every
   prompt -> a per-prompt window of the token grid -> mask head -> bilinear
   resample onto a fixed crop around each cell;
@@ -21,7 +22,9 @@ With ``mesh=`` (``parallel/mesh.py``, a data axis of dp ranks) the engine
 runs data-parallel: every rank is called with the same frames, runs its
 contiguous share of the batch (padded to a multiple of dp) through the four
 stages on its own card, and the outputs are gathered over the data axis on
-the host, so every rank returns the whole batch's.
+the host, so every rank returns the whole batch's. Beside the data axis an
+'sp' or 'tp' axis (dp x sp, dp x tp) holds each dp member's encoder group:
+the ranks of one group run the encoder together on their member's share.
 
 Above the stages: ``process_batch_arrays`` (stages synchronised and timed),
 ``fused_call`` / ``fused_call_chunked`` (device tensors, no sync), and the
@@ -84,6 +87,7 @@ from ..ops.quant import quantize_sam_encoder_params
 from ..ops.window_crop import window_crop
 from ..parallel.mesh import data_shard
 from ..parallel.sp import sam_image_encoder_sp
+from ..parallel.tp import sam_image_encoder_tp, shard_sam_encoder_tp
 from ..weights import from_jax_params
 from ..utils.logger import setup_logger
 from .results import (
@@ -140,7 +144,8 @@ class PipelineOptions:
     quant: str = "none"
     # "sp" = the ViT encoder's token rows split over the ranks of the
     # pipeline's process group or its mesh's 'sp' axis (parallel/sp.py);
-    # "tp" is not ported yet
+    # "tp" = its heads and MLP hidden over the group or the 'tp' axis
+    # (parallel/tp.py)
     encoder_parallel: str = "none"
     # True = every dense (k > 1) conv of YOLOv8, the SAM neck and TinyViT's
     # stems and neck on conv2d_act (K17; the JAX package's CONV2D_FUSED=1),
@@ -224,12 +229,15 @@ def embed_stage(sam, images_u8: torch.Tensor, scfg: SamTPUConfig, opts: Pipeline
     """uint8 (B, H, W[, 3]) -> SAM image embeddings (B, gs, gs, C) fp32.
     ``sam.vision`` is the ViT encoder, or TinyViT for MobileSAM (built from
     the tree's ``"tinyvit"`` subtree at the canvas ``scfg.image_size``).
-    With a process ``group``, the ViT encoder runs sequence-parallel over
-    its ranks."""
+    With a process ``group``, the ViT encoder runs over its ranks as
+    ``opts.encoder_parallel`` says: sequence-parallel, or tensor-parallel
+    (``sam.vision`` then holds the rank's shard)."""
     pix, _, _ = sam_preprocess_batch(_ensure_rgb(images_u8), scfg.image_size)
     pix = pix.to(opts.compute_dtype)
     if group is None:
         return sam.vision(pix).float()
+    if opts.encoder_parallel == "tp":
+        return sam_image_encoder_tp(sam.vision, pix, scfg, group).float()
     return sam_image_encoder_sp(sam.vision, pix, scfg, group).float()
 
 
@@ -399,11 +407,12 @@ class CellSegmentationPipeline:
     (HF ``SamModel`` or MobileSAM, ``.safetensors`` / ``.bin`` / ``.pt``) load
     weights from files; a path that does not exist raises
     ``FileNotFoundError``. A model given no file draws seeded random weights
-    (the JAX package's numpy init). With ``encoder_parallel="sp"`` it is one
-    rank of a ``torch.distributed`` program: ``process_group`` (default: the
-    mesh's 'sp' axis, else the world group) holds the ranks, each calls the
-    pipeline on the same batch. ``params`` = (YOLO tree, SAM tree) in the JAX
-    layout replaces both the files and the init.
+    (the JAX package's numpy init). With ``encoder_parallel="sp"`` or
+    ``"tp"`` it is one rank of a ``torch.distributed`` program:
+    ``process_group`` (default: the mesh's 'sp' or 'tp' axis, else the world
+    group) holds the ranks, each calls the pipeline on the same batch.
+    ``params`` = (YOLO tree, SAM tree) in the JAX layout replaces both the
+    files and the init.
 
     ``mesh`` (a :class:`~..parallel.mesh.RankMesh`, e.g. ``make_mesh(dp=2)``)
     makes the pipeline one rank of a data-parallel program, the JAX engine's
@@ -411,8 +420,11 @@ class CellSegmentationPipeline:
     seed or the files), runs its share of every batch, and returns the whole
     batch's outputs; the ranks share one run id and only the mesh's first
     rank writes files. ``fused_call`` and ``detect_batch_arrays`` stay on
-    the rank's own batch. A data axis beside a sequence-parallel one (dp x
-    sp) is not ported yet.
+    the rank's own batch. With ``encoder_parallel`` an 'sp' or 'tp' axis
+    beside the data axis holds each share's encoder group (dp x sp, dp x
+    tp). A caller that replaces ``sam_params`` or ``yolo_params`` gets stages
+    built anew from the new trees (a tp rank's shard re-cut), not the old
+    weights.
     """
 
     def __init__(
@@ -445,6 +457,7 @@ class CellSegmentationPipeline:
         if self.options.encoder_parallel not in ENCODER_PARALLEL:
             raise ValueError(f"encoder_parallel must be one of {ENCODER_PARALLEL}, got "
                              f"{self.options.encoder_parallel!r}")
+        self._stage_src = None
         self.yolo_config = yolo_config or yolov8n()
         if sam_config is not None:
             self.sam_config = sam_config
@@ -470,7 +483,11 @@ class CellSegmentationPipeline:
         """The data axis of ``mesh`` ('dp', else the first axis that is not
         'sp' or 'tp'), this rank's place on it, the run id of the mesh's
         first rank, and ``writes``: whether this rank writes the run's
-        files (the mesh's first rank; every pipeline without a mesh)."""
+        files (the mesh's first rank; every pipeline without a mesh). An axis
+        beside the data axis is the encoder's group where
+        ``encoder_parallel`` names it, else ranks that repeat the same work
+        (as a JAX mesh replicates over an axis a program does not shard
+        on)."""
         self.mesh = mesh
         self._dp, self._dp_axis, self._dp_group, self.writes = 1, None, None, True
         if mesh is None:
@@ -480,9 +497,6 @@ class CellSegmentationPipeline:
         names = mesh.axis_names
         axis = "dp" if "dp" in names else next((a for a in names if a not in ("sp", "tp")), None)
         if axis is not None and mesh.shape[axis] > 1:
-            if any(n > 1 for a, n in mesh.shape.items() if a != axis):
-                raise ValueError(f"mesh {mesh.shape}: a data axis beside another axis above 1 "
-                                 "(dp x sp) is not ported yet (ROADMAP.md, Queue 1 item 6)")
             self._dp, self._dp_axis = mesh.shape[axis], axis
             self._dp_group = mesh.axis_group(axis)
         if mesh.group is not None and mesh.size > 1:
@@ -532,7 +546,13 @@ class CellSegmentationPipeline:
         return self._adapted_params[key]
 
     def _stages(self, h: int, w: int) -> Dict[str, Any]:
-        """Models and stage callables specialised for frame shape (h, w)."""
+        """Models and stage callables specialised for frame shape (h, w),
+        built anew when the caller has replaced a parameter tree."""
+        src = (self.yolo_params, self.sam_params)
+        if self._stage_src is None or any(a is not b for a, b in zip(src, self._stage_src)):
+            self._stage_cache.clear()
+            self._adapted_params.clear()
+            self._stage_src = src
         key = (h, w)
         if key not in self._stage_cache:
             opts, ycfg = self.options, self.yolo_config
@@ -546,6 +566,9 @@ class CellSegmentationPipeline:
             if opts.quant == "int8":
                 sam_tree = quantize_sam_encoder_params(
                     _round_floating(sam_tree, opts.compute_dtype))
+            if group is not None and opts.encoder_parallel == "tp":
+                sam_tree = shard_sam_encoder_tp(sam_tree, scfg, dist.get_world_size(group),
+                                                dist.get_rank(group))
             yolo, sam = from_jax_params(
                 self.yolo_params, sam_tree, self.device, opts.compute_dtype,
                 yolo_config=ycfg, sam_config=scfg, conv2d_fused=opts.conv2d_fused,
@@ -567,27 +590,27 @@ class CellSegmentationPipeline:
         return self._stage_cache[key]
 
     def _encoder_group(self):
-        """The process group of ``encoder_parallel``; the errors mirror the
+        """The process group of ``encoder_parallel`` (None where the mesh's
+        axis has extent 1: the encoder runs alone); the errors mirror the
         JAX engine's ``_parallel_embed`` (``engine.py:778-799``), int8
-        weights refused by :func:`sam_image_encoder_sp` at the first batch."""
-        opts = self.options
-        if opts.encoder_parallel == "tp":
-            raise ValueError("encoder_parallel='tp' is not ported yet (parallel/tp.py; "
-                             "ROADMAP.md, Queue 1): use 'sp' or 'none'")
+        weights refused by the sp and tp encoders."""
+        kind = self.options.encoder_parallel
         if is_tinyvit(self.sam_params):
             raise ValueError("encoder_parallel supports ViT SAM encoders only (TinyViT's conv "
-                             "stages have no sp sharding)")
+                             "stages have no tp/sp sharding)")
         if self.process_group is not None:
             return self.process_group
         if self.mesh is not None:
-            if "sp" not in self.mesh.axis_names or self.mesh.group is None:
-                raise ValueError(f"encoder_parallel='sp' with a mesh needs an 'sp' axis over the "
-                                 f"ranks of a process group, got {self.mesh.shape} "
-                                 "(make_encoder_parallel_mesh('sp', N))")
-            return self.mesh.axis_group("sp")
+            if kind not in self.mesh.axis_names or self.mesh.group is None:
+                raise ValueError(f"encoder_parallel={kind!r} with a mesh needs a {kind!r} axis "
+                                 f"over the ranks of a process group, got {self.mesh.shape} "
+                                 f"(make_encoder_parallel_mesh({kind!r}, N))")
+            if self.mesh.shape[kind] == 1:
+                return None
+            return self.mesh.axis_group(kind)
         if not (dist.is_available() and dist.is_initialized()):
-            raise ValueError("encoder_parallel='sp' requires a torch.distributed process group "
-                             "(init_process_group, or process_group=; "
+            raise ValueError(f"encoder_parallel={kind!r} requires a torch.distributed process "
+                             "group (init_process_group, or process_group=; "
                              "parallel.launch.run_ranks starts ranks)")
         return dist.group.WORLD
 
