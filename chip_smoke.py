@@ -24,7 +24,20 @@ failure ends the run with a non-zero exit and no result line:
    grid), each T beside SDPA on the same inputs; the LayerNorm (K5) at the
    neck's, the mask head's and the decoder's rows (and its residual form),
    by events and on the device beside ``F.layer_norm`` with its weights cast
-   to bf16 beforehand;
+   to bf16 beforehand; the decoder kernels of layer 1 (``keys_stream``'s
+   pass, ``t2i_combine``, ``t2i_attend`` with 16 prompts an image) at
+   tq = tq2 in 7, 8, 9, 16, 17 and 34 prompt tokens (a box prompt's 7,
+   point prompts' 5 + P + 1), each against its fp32 plain version (2%),
+   timed beside it, with the bound and (``t2i_attend``) SDPA;
+3b. prompts: ViT-B at the 512 canvas (config 1's windows; seed 0, bf16, 8
+   frames x 16 prompts) through ``SamModel``: point prompts (1, 3, 10
+   points padded: tq 7, 9, 16), a box with 4 points (tq 11), 28 points (tq
+   34), boxes with ``multimask_output`` through ``forward_boxes`` and boxes
+   with a dense prompt, each call's launches counted from 0 (K6 1 + 1, K7
+   2 + 2) and its sparse tokens, masks and IoU within 5% relative RMS of
+   the same model in fp32 plain on the same bf16-rounded weights and the
+   same bf16 inputs (the decoder on one bf16 embedding; ``forward_boxes``
+   end to end);
 4. slice: the config-1 pipeline (YOLOv8n + SAM ViT-B, 512x512 uint8 frames,
    bf16, random weights from seed 0): one batch of 8 with every kernel's
    launch count checked, the bf16 image embedding of one frame against the
@@ -609,11 +622,14 @@ def _fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+PROMPT_TQS = (7, 8, 9, 16, 17, 34)  # a box prompt's 7 prompt tokens; point prompts' 5 + P + 1
+
+
 def _decoder_kernel_phase(card: str) -> dict:
     """The decoder, crop and hull kernels at the config-1 batch-32 shapes:
-    B*K = 512 prompt streams of 1024 tokens x 256 channels, 7 prompt tokens,
-    8 heads of 16; an 11 x 11 crop of the 32 x 32 grid; 512 candidates x 256
-    directions per cell."""
+    B*K = 512 prompt streams of 1024 tokens x 256 channels, 7 prompt tokens
+    (layer 1 also at each of PROMPT_TQS), 8 heads of 16; an 11 x 11 crop of
+    the 32 x 32 grid; 512 candidates x 256 directions per cell."""
     import numpy as np
     import torch
 
@@ -661,7 +677,6 @@ def _decoder_kernel_phase(card: str) -> dict:
 
     runs = {
         "i2t layer 0 (32 images x 16 prompts)": (i2t(img, k), i2t_ref(img, k), ("keys", "attn")),
-        "i2t layer 1 (512 streams)": (i2t(keys, 1), i2t_ref(keys, 1), ("keys", "attn")),
         "k/v projection (32 images)": (
             lambda: dec.kv_project(img, pe, *kv, 8),
             lambda: dec.kv_project_plain(img.float(), pe.float(), *kv), ("kp", "vp")),
@@ -670,41 +685,68 @@ def _decoder_kernel_phase(card: str) -> dict:
         for got, want, part in zip(fn(), ref(), parts):
             _check(f"keys_stream {label}: {part}", got, want, 2e-2, errs)
         times[f"keys_stream {label}"] = (median_ms(fn), median_ms(ref, reps=3, warmup=1))
-    # the layer-1 pass alone, without its combine (beside the whole plain function)
-    pass1 = lambda: dec.keys_stream(keys, pe, *kv, qn=qn, i2t=(kq, vq, *w_i2t))
-    times["keys_stream layer 1 pass alone"] = (
-        median_ms(pass1), times["keys_stream i2t layer 1 (512 streams)"][1])
     # K6's projection pass: k and v (2 C dh each a token)
     bounds["keys_stream k/v projection (32 images)"] = _bound(
         4.0 * b * t * c * dh, _nbytes(img, pe, w["wk"], w["wv"], bk, bv) + 2 * b * t * dh * 2)
-    keys1, part = pass1()  # layer 1's new keys and partials
-    # per token: q, out, k and v projections (8 C dh), i2t over tq and the
-    # next attention's partials over tq (4 dh each a query)
-    bounds["keys_stream layer 1 pass alone"] = _bound(
-        n * t * (8.0 * c * dh + 4.0 * 2 * tq * dh),
-        _nbytes(keys, pe, kq, vq, qn, bq, bk, bv, bo, ln_s, ln_b, *w.values(), keys1, part))
-    fn, ref = lambda: dec.t2i_combine(part, tq), lambda: dec.t2i_combine_plain(part, tq)
-    _check(f"t2i_combine (512 streams x {part.shape[1]} tiles)", fn(), ref(), 2e-2, errs)
-    times["t2i_combine"] = (median_ms(fn), median_ms(ref))
-    bounds["t2i_combine"] = _bound(0.0, _nbytes(part) + n * tq * dh * 2)
-    # t2i_attend: layer 0's per-image k/v shared by 16 prompts (K6)
-    qp = randn(n, tq, dh, std=0.25)
+    qp = randn(n, tq, dh, std=0.25)  # t2i_attend's queries at T 4096
     kp_, vp_ = randn(b, t, dh), randn(b, t, dh)
-    fn = lambda: dec.t2i_attend(qp, kp_, vp_, 8, k)
-    ref = lambda: dec.t2i_attend_plain(qp.float(), kp_.float(), vp_.float(), 8, k)
-    _check("t2i_attend shared (k_share 16)", fn(), ref(), 2e-2, errs)
-    times["t2i_attend"] = (median_ms(fn), median_ms(ref, reps=5))
-    bounds["t2i_attend"] = _bound(4.0 * n * tq * t * dh, _nbytes(qp, kp_, vp_) + _nbytes(qp))
+
     # one library call on the same inputs: an image's 16 prompts share its
-    # keys, so their 16 x 7 (pre-scaled) queries attend as one sequence
-    def sdpa_of(kv_k, kv_v):
+    # keys, so their 16 x tq (pre-scaled) queries attend as one sequence
+    def sdpa_of(q, kv_k, kv_v):
         tt = kv_k.shape[1]
         return lambda: torch.nn.functional.scaled_dot_product_attention(
-            qp.reshape(b, k * tq, 8, 16).transpose(1, 2),
+            q.reshape(b, -1, 8, 16).transpose(1, 2),
             kv_k.reshape(b, tt, 8, 16).transpose(1, 2), kv_v.reshape(b, tt, 8, 16).transpose(1, 2),
             scale=1.0)
 
-    library["t2i_attend"] = median_ms(sdpa_of(kp_, vp_))
+    def layer1(keys_t, pe_t, tq, tag):
+        """Layer 1 at tq = tq2 prompt tokens over keys_t (512 streams): the
+        i2t_keys_update call (keys_stream's pass, then t2i_combine) and
+        t2i_attend of 16 prompts over an image's k/v (K6), each against its
+        fp32 plain version, timed, with its bound."""
+        kq_, vq_, qn_ = randn(n, tq, dh), randn(n, tq, dh), randn(n, tq, dh, std=0.25)
+        tt = keys_t.shape[1]
+        fn = lambda: dec.i2t_keys_update(keys_t, pe_t, kq_, vq_, *w_i2t, heads=8,
+                                         t2i={"qp": qn_, **nxt})
+        ref = lambda: dec.i2t_keys_update_plain(
+            keys_t.float(), pe_t.float(), kq_.float(), vq_.float(), *w_i2t, heads=8,
+            t2i={"qp": qn_.float(), **nxt})
+        for got, want, part_name in zip(fn(), ref(), ("keys", "attn")):
+            _check(f"keys_stream i2t layer 1 {tag} (512 streams): {part_name}", got, want, 2e-2,
+                   errs)
+        pass1 = lambda: dec.keys_stream(keys_t, pe_t, *kv, qn=qn_, i2t=(kq_, vq_, *w_i2t))
+        keys1, part = pass1()  # the new keys and the next attention's partials
+        # the partials the pass writes and the combine reads: those of the tq
+        # next queries (the slots of the last group past tq stay unwritten)
+        part_bytes = _nbytes(part) // dec.part_slots(tq) * tq
+        times[f"keys_stream {tag}"] = (median_ms(pass1), median_ms(ref, reps=3, warmup=1))
+        # per token: q, out, k and v projections (8 C dh), i2t over tq and the
+        # next attention's partials over tq (4 dh each a query)
+        bounds[f"keys_stream {tag}"] = _bound(
+            n * tt * (8.0 * c * dh + 4.0 * 2 * tq * dh),
+            _nbytes(keys_t, pe_t, kq_, vq_, qn_, bq, bk, bv, bo, ln_s, ln_b, *w.values(), keys1)
+            + part_bytes)
+        fn, ref = lambda: dec.t2i_combine(part, tq), lambda: dec.t2i_combine_plain(part, tq)
+        _check(f"t2i_combine {tag} (512 streams x {part.shape[1]} tiles)", fn(), ref(), 2e-2,
+               errs)
+        times[f"t2i_combine {tag}"] = (median_ms(fn), median_ms(ref))
+        bounds[f"t2i_combine {tag}"] = _bound(0.0, part_bytes + n * tq * dh * 2)
+        del keys1, part
+        kp_t, vp_t = (kp_, vp_) if tt == t else (randn(b, tt, dh), randn(b, tt, dh))
+        fn = lambda: dec.t2i_attend(qn_, kp_t, vp_t, 8, k)
+        ref = lambda: dec.t2i_attend_plain(qn_.float(), kp_t.float(), vp_t.float(), 8, k)
+        _check(f"t2i_attend {tag} shared (k_share 16: {k * tq} rows an image)", fn(), ref(), 2e-2,
+               errs)
+        times[f"t2i_attend {tag}"] = (median_ms(fn), median_ms(ref, reps=5))
+        bounds[f"t2i_attend {tag}"] = _bound(4.0 * n * tq * tt * dh,
+                                             _nbytes(qn_, kp_t, vp_t) + _nbytes(qn_))
+        library[f"t2i_attend {tag}"] = median_ms(sdpa_of(qn_, kp_t, vp_t))
+
+    # T 1024 at every prompt-token count: a box prompt's 7, point prompts'
+    # 5 + P + 1 (above 8 the kernels take their grouped form)
+    for tq_ in PROMPT_TQS:
+        layer1(keys, pe, tq_, f"tq{tq_}")
     # window_crop: a copy, exact
     grid = randn(n, 32, 32, c)
     r0, c0 = (torch.randint(0, 32 - 11 + 1, (n,), generator=g).to(dev) for _ in range(2))
@@ -726,7 +768,7 @@ def _decoder_kernel_phase(card: str) -> dict:
     times["hull_support"] = (median_ms(fn), median_ms(ref))
     # a dot product (2 mul, 1 add) and a compare per candidate and direction
     bounds["hull_support"] = _bound(4.0 * n * pts.shape[1] * 256, _nbytes(pts, dirs, fn()), "fp32")
-    del keys, keys1, part, grid
+    del keys, grid
     torch.cuda.empty_cache()
 
     # the grids of the 224 and 448 canvases: T = 196 and 784 tokens, whose
@@ -734,38 +776,13 @@ def _decoder_kernel_phase(card: str) -> dict:
     for gs in (14, 28):
         tt, tag = gs * gs, f"T{gs * gs}"
         pe_t, img_t, keys_t = randn(tt, c), randn(b, tt, c), randn(n, tt, c)
-        fn = lambda: dec.i2t_keys_update(keys_t, pe_t, kq, vq, *w_i2t, heads=8,
-                                         t2i={"qp": qn, **nxt})
-        ref = lambda: dec.i2t_keys_update_plain(
-            keys_t.float(), pe_t.float(), kq.float(), vq.float(), *w_i2t, heads=8,
-            t2i={"qp": qn.float(), **nxt})
-        for got, want, part_name in zip(fn(), ref(), ("keys", "attn")):
-            _check(f"keys_stream i2t layer 1 {tag} (512 streams): {part_name}", got, want, 2e-2,
-                   errs)
         for got, want, part_name in zip(dec.kv_project(img_t, pe_t, *kv, 8),
                                         dec.kv_project_plain(img_t.float(), pe_t.float(), *kv),
                                         ("kp", "vp")):
             _check(f"keys_stream k/v projection {tag} (32 images): {part_name}", got, want, 2e-2,
                    errs)
-        pass_t = lambda: dec.keys_stream(keys_t, pe_t, *kv, qn=qn, i2t=(kq, vq, *w_i2t))
-        keys1, part = pass_t()
-        times[f"keys_stream {tag}"] = (median_ms(pass_t), median_ms(ref, reps=3, warmup=1))
-        bounds[f"keys_stream {tag}"] = _bound(
-            n * tt * (8.0 * c * dh + 4.0 * 2 * tq * dh),
-            _nbytes(keys_t, pe_t, kq, vq, qn, bq, bk, bv, bo, ln_s, ln_b, *w.values(), keys1,
-                    part))
-        fn, ref = lambda: dec.t2i_combine(part, tq), lambda: dec.t2i_combine_plain(part, tq)
-        _check(f"t2i_combine {tag} (512 streams x {part.shape[1]} tiles)", fn(), ref(), 2e-2, errs)
-        times[f"t2i_combine {tag}"] = (median_ms(fn), median_ms(ref))
-        bounds[f"t2i_combine {tag}"] = _bound(0.0, _nbytes(part) + n * tq * dh * 2)
-        kp_t, vp_t = randn(b, tt, dh), randn(b, tt, dh)
-        fn = lambda: dec.t2i_attend(qp, kp_t, vp_t, 8, k)
-        ref = lambda: dec.t2i_attend_plain(qp.float(), kp_t.float(), vp_t.float(), 8, k)
-        _check(f"t2i_attend {tag} shared (k_share 16)", fn(), ref(), 2e-2, errs)
-        times[f"t2i_attend {tag}"] = (median_ms(fn), median_ms(ref, reps=5))
-        bounds[f"t2i_attend {tag}"] = _bound(4.0 * n * tq * tt * dh, _nbytes(qp, kp_t, vp_t, qp))
-        library[f"t2i_attend {tag}"] = median_ms(sdpa_of(kp_t, vp_t))
-        del pe_t, img_t, keys_t, keys1, part, kp_t, vp_t
+        layer1(keys_t, pe_t, tq, tag)
+        del pe_t, img_t, keys_t
         torch.cuda.empty_cache()
     # T 4096: the 64 x 64 grid of config 4's 1024 canvas
     kp_t, vp_t = randn(b, 4096, dh), randn(b, 4096, dh)
@@ -774,7 +791,7 @@ def _decoder_kernel_phase(card: str) -> dict:
     _check("t2i_attend T4096 shared (k_share 16)", fn(), ref(), 2e-2, errs)
     times["t2i_attend T4096"] = (median_ms(fn), median_ms(ref, reps=5))
     bounds["t2i_attend T4096"] = _bound(4.0 * n * tq * 4096 * dh, _nbytes(qp, kp_t, vp_t, qp))
-    library["t2i_attend T4096"] = median_ms(sdpa_of(kp_t, vp_t))
+    library["t2i_attend T4096"] = median_ms(sdpa_of(qp, kp_t, vp_t))
     del kp_t, vp_t
     for name, (ms, plain) in times.items():
         extra = f", bound {bounds[name][0]:.4f} ms ({bounds[name][1]})" if name in bounds else ""
@@ -783,6 +800,127 @@ def _decoder_kernel_phase(card: str) -> dict:
         _say("kernels", f"{name}: kernel {ms:.4f} ms, plain {plain:.4f} ms{extra} [{card}]")
     torch.cuda.synchronize()
     return {"errs": errs, "times": times, "bounds": bounds, "library": library}
+
+
+PROMPT_DECODER_COUNTS = {"layer_norm": 8, "keys_stream": 3, "t2i_attend": 1, "t2i_combine": 2}
+
+
+def _prompts_phase(card: str) -> dict:
+    """[prompts]: SAM's prompt API at ViT-B's full width through ``SamModel``
+    on the card (the kernels alone at every prompt-token count are in
+    ``_decoder_kernel_phase``)."""
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.models.sam import init_sam_params
+    from yolo_sam_inference_tpu_torch.pipeline.engine import _round_floating
+    from yolo_sam_inference_tpu_torch.weights import from_jax_params
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 oracle stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    bf = torch.bfloat16
+    # ViT-B at config 1's encoder, 8 frames x 16 prompts
+    cfg = _vit_512("vit-b")
+    tree = init_sam_params(0, cfg)
+    _, sam = from_jax_params(None, tree, "cuda", bf, sam_config=cfg)
+    _, ref_model = from_jax_params(None, _round_floating(tree, bf), "cuda", torch.float32,
+                                   sam_config=cfg)
+    del tree
+    rng = np.random.default_rng(19)
+    fb, fk, gs = SLICE_BATCH, 16, cfg.grid_size
+
+    def host(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).cuda()
+
+    def box_prompts():
+        xy = rng.uniform(0, 0.75 * FRAME, size=(fb, fk, 2))
+        return host(np.concatenate([xy, xy + rng.uniform(0.03, 0.25, size=(fb, fk, 2)) * FRAME],
+                                   -1))
+
+    def point_prompts(p):
+        pts = host(rng.uniform(0, FRAME, size=(fb, fk, p, 2)))
+        labels = rng.integers(0, 2, size=(fb, fk, p))
+        labels[..., 0] = 1  # a foreground point in every prompt
+        return pts, torch.from_numpy(labels.astype(np.int32)).cuda()
+
+    # one bf16 input for both sides: the pixels, and the embedding the
+    # decoder calls share (the fp32 plain encoder's, rounded once)
+    pix16 = host(rng.normal(size=(fb, FRAME, FRAME, 3))).to(bf)
+    with torch.inference_mode():
+        emb16 = ref_model.vision(pix16.float(), plain=True).to(bf)
+
+    def rel_rms(x, y):
+        return ((x.float() - y.float()).norm() / y.float().norm()).item()
+
+    def gate(tag, got, want, tq, names=("masks", "iou")):
+        rels = []
+        for part_name, x, y in zip(names, got, want):
+            if tuple(x.shape) != tuple(y.shape) or not torch.isfinite(x.float()).all():
+                raise AssertionError(f"[prompts] {tag}: {part_name} {tuple(x.shape)} against "
+                                     f"{tuple(y.shape)}, or not finite")
+            rels.append(rel_rms(x, y))
+        _say("prompts", f"{tag} (tq {tq}, {fb} frames x {fk} prompts, {names[0]} "
+                        f"{tuple(got[0].shape)}): rel_rms "
+                        + ", ".join(f"{nm} {r:.5f}" for nm, r in zip(names, rels))
+                        + f" (bound 0.05) against fp32 plain [{card}]")
+        if max(rels) > 0.05:
+            raise AssertionError(f"[prompts] {tag}: bf16 kernels disagree with fp32 plain")
+        return rels
+
+    def decode(tag, sparse16, sparse32, tq, dense=None, multimask=False):
+        """The prompt encoder's bf16 tokens against its fp32 ones, then the
+        decoder on those bf16 tokens against fp32 plain on the same values,
+        counts from 0."""
+        if sparse16.shape[2] + cfg.num_mask_tokens + 1 != tq:
+            raise AssertionError(f"[prompts] {tag}: {sparse16.shape[2]} sparse tokens, not tq {tq}")
+        gate(f"{tag}: prompt encoder", (sparse16,), (sparse32,), tq, ("sparse",))
+        d16 = None if dense is None else dense.to(bf)
+        with torch.inference_mode():
+            wrappers = _reset_counts()
+            got = sam.mask_decoder(emb16, sparse16, d16, multimask_output=multimask)
+            torch.cuda.synchronize()
+            _read_counts(f"[prompts] {tag}", wrappers, PROMPT_DECODER_COUNTS)
+            want = ref_model.mask_decoder(emb16.float(), sparse16.float(),
+                                          None if d16 is None else d16.float(),
+                                          multimask_output=multimask, plain=True)
+        return gate(tag, got, want, tq)
+
+    rels = {}
+    for p in (1, 3, 10, 28):
+        pts, labels = point_prompts(p)
+        with torch.inference_mode():
+            s16, s32 = sam.prompt.points(pts, labels).to(bf), ref_model.prompt.points(pts, labels)
+        tag = f"{p} point{'s' if p > 1 else ''}"
+        rels[tag] = decode(tag, s16, s32, p + 6)
+    boxes = box_prompts()
+    pts, labels = point_prompts(4)
+    with torch.inference_mode():
+        s16 = torch.cat([sam.prompt.boxes(boxes), sam.prompt.points(pts, labels, pad=False)], 2)
+        s32 = torch.cat([ref_model.prompt.boxes(boxes),
+                         ref_model.prompt.points(pts, labels, pad=False)], 2)
+    rels["box + 4 points"] = decode("box + 4 points", s16.to(bf), s32, 11)
+    boxes = box_prompts()
+    dense = host(0.1 * rng.normal(size=(fb, gs, gs, cfg.prompt_hidden)))
+    with torch.inference_mode():
+        s16, s32 = sam.prompt.boxes(boxes).to(bf), ref_model.prompt.boxes(boxes)
+    rels["boxes + dense"] = decode("boxes + dense prompt", s16, s32, 7, dense=dense)
+    # multimask through the entry point, encoder included
+    boxes = box_prompts()
+    with torch.inference_mode():
+        wrappers = _reset_counts()
+        got = sam.forward_boxes(pix16, boxes, multimask_output=True)
+        torch.cuda.synchronize()
+        _read_counts("[prompts] forward_boxes multimask", wrappers, TRAIN_COUNTS)
+        want = ref_model.forward_boxes(pix16.float(), boxes, multimask_output=True, plain=True)
+    if got[0].shape[2] != cfg.num_mask_tokens - 1:
+        raise AssertionError(f"[prompts] multimask: {got[0].shape[2]} masks a prompt")
+    rels["forward_boxes multimask"] = gate("forward_boxes multimask (end to end)", got, want, 7)
+    del sam, ref_model, emb16, pix16, got, want
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_start
+    _say("prompts", f"phase {secs:.1f} s [{card}]")
+    return {"rels": rels, "secs": secs}
 
 
 def _big_kernel_phase(card: str) -> dict:
@@ -4508,6 +4646,7 @@ def main() -> int:
 
     kp = _kernel_phase(card)
     dp = _decoder_kernel_phase(card)
+    pr = _prompts_phase(card)
     sp = _slice_phase(card)
     ck = _conv_kernel_phase(card)
     fs = _fused_slice_phase(card, sp["pipe"], sp.pop("frames"), sp["ms_per_batch"])
@@ -4577,10 +4716,10 @@ def main() -> int:
     dt, db = dp["times"], dp["bounds"]
     for name, replaces, timed in (
         ("keys_stream", "ops/decoder_fused.py:298 i2t_keys_update (+ the k/v projections of "
-                        ":231 t2i_shared_attend)", "keys_stream layer 1 pass alone"),
+                        ":231 t2i_shared_attend)", "keys_stream tq7"),
         ("t2i_combine", "ops/decoder_fused.py:298 i2t_keys_update (its next-stage t2i, joined "
-                        "over the tiles)", "t2i_combine"),
-        ("t2i_attend", "ops/decoder_fused.py:231 t2i_shared_attend", "t2i_attend"),
+                        "over the tiles)", "t2i_combine tq7"),
+        ("t2i_attend", "ops/decoder_fused.py:231 t2i_shared_attend", "t2i_attend tq7"),
         ("window_crop", "ops/window_crop.py:46 window_crop", "window_crop"),
         ("hull_support", "ops/hull_support.py:55 support_vertices_tpu", "hull_support"),
     ):

@@ -356,6 +356,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     for c in (100, 128):  # off the paths' widths, a multiple of 8 or not
         with pytest.raises(ValueError, match="takes C in"):
             tln.layer_norm(_randn(gen, 4, c), _randn(gen, c), _randn(gen, c))
+    combines = dec.t2i_combine.launches
+    part = torch.zeros(2, 2, 8 * 8 * 18, device="cuda")  # laid out for at most 8 next queries
+    with pytest.raises(ValueError, match="partials hold"):  # read at 9: past its end
+        dec.t2i_combine(part, 9)
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        dec.t2i_combine(part.to(torch.bfloat16), 8)
+    assert dec.t2i_combine.launches == combines
 
 
 def _decoder_weights(gen, c=256, dh=128):
@@ -370,12 +377,14 @@ def _decoder_weights(gen, c=256, dh=128):
 @pytest.mark.parametrize("i2t,k_share,t,tq,tq2", [
     (True, 4, 256, 7, 7), (True, 1, 256, 7, 7), (False, 1, 256, 7, 7),
     (True, 16, 196, 5, 8), (True, 1, 4096, 8, 5), (True, 2, 784, 8, 8),
-    (False, 1, 196, 7, 7), (False, 1, 4096, 7, 7)])
+    (False, 1, 196, 7, 7), (False, 1, 4096, 7, 7),
+    (True, 4, 196, 5, 17), (True, 1, 256, 34, 9), (True, 2, 4096, 16, 3)])
 def test_keys_stream_vs_plain(gen, i2t, k_share, t, tq, tq2):
     """keys_stream: the i2t pass with the next attention split over its
     128-token tiles and joined by t2i_combine (K7), or the k/v projection pass
     (K6). T 196 and 784: a short last tile; 4096: 32 tiles; k_share 16:
-    layer 0's prompts sharing their image's keys; tq and tq2 up to 8."""
+    layer 0's prompts sharing their image's keys; tq and tq2 up to 8 (the
+    kernel's staged form) or past it apart (its grouped form)."""
     nsrc = 3 if t < 4096 else 2
     n = nsrc * k_share
     p = _decoder_weights(gen)
@@ -398,6 +407,103 @@ def test_keys_stream_vs_plain(gen, i2t, k_share, t, tq, tq2):
     assert dec.t2i_combine.launches == before[1] + int(i2t)
     for g_, w_ in zip(got, want):
         _close(g_, w_, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [7, 9, 16, 17, 34])
+def test_decoder_kernels_at_any_prompt_count(gen, tq):
+    """K6 and K7 at tq prompt tokens (= tq next queries), on a grid of 28
+    (a short last tile): 7 a box prompt's; 9, 16, 17 and 34 a point prompt's
+    (past one group of 8, a whole group of 16, two groups; 28 points). Layer
+    0's pass (16 prompts sharing an image's keys) and layer 1's, each with
+    t2i_combine, the k/v pass and t2i_attend (16 x 34 = 544 rows an image:
+    two blocks), each against its fp32 plain version, every call a launch."""
+    nsrc, k_share, t = 2, 16, 784
+    n = nsrc * k_share
+    p = _decoder_weights(gen)
+    img, pe, keys = _randn(gen, nsrc, t, 256), _randn(gen, t, 256), _randn(gen, n, t, 256)
+    kq, vq = _randn(gen, n, tq, 128), _randn(gen, n, tq, 128)
+    qn = _randn(gen, n, tq, 128, std=0.25)
+    w = (p["wq"], p["bq"], p["wout"], p["bout"], p["ln_s"], p["ln_b"])
+    nxt = {"wk": p["wk"], "bk": p["bk"], "wv": p["wv"], "bv": p["bv"]}
+    before = dec.keys_stream.launches, dec.t2i_combine.launches, dec.t2i_attend.launches
+    for src, share in ((img, k_share), (keys, 1)):
+        got = dec.i2t_keys_update(src, pe, kq, vq, *w, heads=8, k_share=share,
+                                  t2i={"qp": qn, **nxt})
+        want = dec.i2t_keys_update_plain(src.float(), pe.float(), kq.float(), vq.float(), *w,
+                                         heads=8, k_share=share, t2i={"qp": qn.float(), **nxt})
+        for g_, w_ in zip(got, want):
+            _close(g_, w_, 2e-2)
+    kp, vp = dec.kv_project(img, pe, p["wk"], p["bk"], p["wv"], p["bv"], 8)
+    _close(dec.t2i_attend(qn, kp, vp, 8, k_share),
+           dec.t2i_attend_plain(qn.float(), kp.float(), vp.float(), 8, k_share), 2e-2)
+    assert (dec.keys_stream.launches, dec.t2i_combine.launches, dec.t2i_attend.launches) == (
+        before[0] + 3, before[1] + 2, before[2] + 1)
+    with pytest.raises(ValueError, match="at least 1 prompt token"):  # refused only below 1
+        dec.t2i_attend(qn[:, :0], kp, vp, 8, k_share)
+
+
+def _prompt_models():
+    """ViT-B's widths at the 512 canvas with 2 encoder layers: the model in
+    bf16 on the card, and the same bf16-rounded weights in fp32 (the plain
+    oracle)."""
+    import dataclasses
+
+    from yolo_sam_inference_tpu_torch.models.sam import init_sam_params, sam_vit_b
+    from yolo_sam_inference_tpu_torch.pipeline.engine import _round_floating
+    from yolo_sam_inference_tpu_torch.weights import from_jax_params
+
+    cfg = dataclasses.replace(sam_vit_b(512), vision_layers=2, global_attn_indexes=(1,))
+    tree = init_sam_params(0, cfg)
+    _, sam = from_jax_params(None, tree, "cuda", torch.bfloat16, sam_config=cfg)
+    _, ref = from_jax_params(None, _round_floating(tree, torch.bfloat16), "cuda", torch.float32,
+                             sam_config=cfg)
+    return cfg, sam, ref
+
+
+def _rel_rms(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    return ((got - want).norm() / want.norm()).item()
+
+
+@pytest.mark.cuda
+def test_sam_prompt_api_through_the_kernels(gen):
+    """``SamModel`` on the card in bf16: ``forward_boxes`` with
+    ``multimask_output`` (3 masks a box) and the decoder on 10-point prompts
+    with a dense prompt (tq 16), each through K6 and K7 (1 + 1 and 2 + 2
+    launches a call, as for boxes) and within the decoder's 5% relative RMS
+    of the fp32 plain model on the same bf16-rounded weights."""
+    import numpy as np
+
+    cfg, sam, ref = _prompt_models()
+    rng = np.random.default_rng(0)
+    b, k, gs = 2, 4, cfg.grid_size
+    pix = torch.from_numpy(rng.normal(size=(b, 512, 512, 3)).astype(np.float32)).cuda()
+    xy = rng.uniform(0, 400, size=(b, k, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(16, 100, size=(b, k, 2))],
+                                            -1).astype(np.float32)).cuda()
+    counts = lambda: (dec.keys_stream.launches, dec.t2i_combine.launches,
+                      dec.t2i_attend.launches)
+    with torch.inference_mode():
+        before = counts()
+        masks, iou = sam.forward_boxes(pix.bfloat16(), boxes, multimask_output=True)
+        assert counts() == (before[0] + 3, before[1] + 2, before[2] + 1)
+        rmasks, riou = ref.forward_boxes(pix, boxes, multimask_output=True, plain=True)
+        assert tuple(masks.shape) == (b, k, 3, 4 * gs, 4 * gs) and tuple(iou.shape) == (b, k, 3)
+        assert _rel_rms(masks, rmasks) < 0.05 and _rel_rms(iou, riou) < 0.05
+        emb = ref.vision(pix, plain=True)
+        pts = torch.from_numpy(rng.uniform(0, 512, size=(b, k, 10, 2)).astype(np.float32)).cuda()
+        labels = torch.from_numpy(rng.integers(0, 2, size=(b, k, 10)).astype(np.int32)).cuda()
+        dense = torch.from_numpy((0.1 * rng.normal(size=(b, gs, gs, 256))).astype(np.float32))
+        dense = dense.cuda()
+        before = counts()
+        sparse = sam.prompt.points(pts, labels).bfloat16()
+        masks, iou = sam.mask_decoder(emb.bfloat16(), sparse, dense.bfloat16())
+        assert counts() == (before[0] + 3, before[1] + 2, before[2] + 1)
+        rmasks, riou = ref.mask_decoder(emb, ref.prompt.points(pts, labels), dense, plain=True)
+        assert tuple(masks.shape) == (b, k, 1, 4 * gs, 4 * gs)
+        assert _rel_rms(masks, rmasks) < 0.05 and _rel_rms(iou, riou) < 0.05
 
 
 @pytest.mark.cuda

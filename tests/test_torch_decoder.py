@@ -44,17 +44,21 @@ def _weights(rng):
             "wv": _f(rng, C, DH, scale=0.3), "bv": _f(rng, DH, scale=0.1)}
 
 
-@pytest.mark.parametrize("k_share", [1, 3])
-def test_i2t_keys_update_matches_jax_kernel(k_share):
+@pytest.mark.parametrize("k_share,tq", [
+    pytest.param(1, TQ, id="1"), pytest.param(3, TQ, id="3"),
+    pytest.param(1, 9, id="1-tq9"), pytest.param(3, 9, id="3-tq9"),
+    pytest.param(1, 17, id="1-tq17"), pytest.param(3, 17, id="3-tq17")])
+def test_i2t_keys_update_matches_jax_kernel(k_share, tq):
     """K7: i2t + residual + LN4 and the next stage's t2i, against the Pallas
-    kernel with its fused t2i (interpret mode)."""
-    rng = np.random.default_rng(20 + k_share)
+    kernel with its fused t2i (interpret mode); tq prompt tokens and tq + 1
+    next queries (9 and 17: past one and two groups of 8)."""
+    rng = np.random.default_rng(20 + k_share + (tq != TQ) * tq)
     nsrc = 2
     n = nsrc * k_share
     w = _weights(rng)
     keys_src, pe = _f(rng, nsrc, T, C), _f(rng, 1, T, C)
-    kq, vq = _f(rng, n, TQ, DH, scale=0.5), _f(rng, n, TQ, DH, scale=0.5)
-    qp2 = _f(rng, n, TQ + 1, DH, scale=0.3)
+    kq, vq = _f(rng, n, tq, DH, scale=0.5), _f(rng, n, tq, DH, scale=0.5)
+    qp2 = _f(rng, n, tq + 1, DH, scale=0.3)
     t = {k: torch.from_numpy(v) for k, v in w.items()}
     got_keys, got_attn = dec.i2t_keys_update(
         torch.from_numpy(keys_src), torch.from_numpy(pe), torch.from_numpy(kq),
@@ -125,15 +129,19 @@ def _t2i_attend_as_the_kernel_tiles_it(qp, kp, vp, k_share, keys=64):
     return out.to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("t,k_share", [(196, 16), (784, 1), (1024, 16)])
-def test_kernel_tiling_of_t2i_attend_stays_within_its_gate(t, k_share):
+@pytest.mark.parametrize("t,k_share,tq", [
+    pytest.param(196, 16, 7, id="196-16"), pytest.param(784, 1, 7, id="784-1"),
+    pytest.param(1024, 16, 7, id="1024-16"), pytest.param(196, 16, 34, id="196-16-tq34"),
+    pytest.param(784, 1, 9, id="784-1-tq9"), pytest.param(1024, 16, 17, id="1024-16-tq17")])
+def test_kernel_tiling_of_t2i_attend_stays_within_its_gate(t, k_share, tq):
     """The online softmax over 64-key tiles, with e rounded to bf16 before
     P.V (the kernel's order), against JAX's t2i attention, which rounds the
     normalised p instead (decoder_fused.py:223), run in interpret mode on the
     same bf16 inputs: within the 2% of range the card's check allows. T 196
-    and 784 end on a short tile."""
-    rng = np.random.default_rng(t + k_share)
-    b, tq = 2, 7
+    and 784 end on a short tile; 16 prompts x 34 tokens are 544 query rows,
+    more than one block holds."""
+    rng = np.random.default_rng(t + k_share + (tq != 7) * tq)
+    b = 2
     keys, pe = _f(rng, b, t, 256), _f(rng, 1, t, 256)
     wk, wv = _f(rng, 256, 128, scale=256 ** -0.5), _f(rng, 256, 128, scale=256 ** -0.5)
     bk, bv = _f(rng, 128, scale=0.1), _f(rng, 128, scale=0.1)
@@ -232,25 +240,52 @@ def test_slab_schedule_covers_each_weight_once(i2t):
     assert dec._weight(w, (256, 128), w.device) is w
 
 
-@pytest.mark.parametrize("t", [256, 196, 784])
-def test_t2i_combine_joins_tile_partials(t):
+@pytest.mark.parametrize("t,tq2", [
+    pytest.param(256, 7, id="256"), pytest.param(196, 7, id="196"),
+    pytest.param(784, 7, id="784"), pytest.param(196, 9, id="196-tq9"),
+    pytest.param(256, 16, id="256-tq16"), pytest.param(784, 34, id="784-tq34")])
+def test_t2i_combine_joins_tile_partials(t, tq2):
     """The partials keys_stream_kernel stores per 128-token tile (o, max, sum
-    for each head and next query), joined by t2i_combine, give the attention
-    over the whole stream; at T = 196 and 784 (grids 14 and 28) the last
-    tile is short. Slots of absent queries are never read."""
-    rng = np.random.default_rng(13)
-    n, tq2, heads, hd = 3, 7, 8, 16
+    for each head and next query, in groups of 8 query slots), joined by
+    t2i_combine, give the attention over the whole stream; at T = 196 and
+    784 (grids 14 and 28) the last tile is short. Slots of absent queries
+    are never read."""
+    rng = np.random.default_rng(13 + (tq2 != 7) * tq2)
+    n, heads, hd = 3, 8, 16
     qn = torch.from_numpy(_f(rng, n, tq2, heads * hd, scale=0.5))
     kp, vp = (torch.from_numpy(_f(rng, n, t, heads * hd)) for _ in range(2))
     part = dec.t2i_tile_partials_plain(qn, kp, vp)
-    tiles = -(-t // dec.KERNEL_ROWS)
-    assert tuple(part.shape) == (n, tiles, heads * 8 * (hd + 2))
-    part.view(n, tiles, heads, 8, hd + 2)[:, :, :, tq2:] = float("nan")
+    tiles, slots = -(-t // dec.KERNEL_ROWS), dec.part_slots(tq2)
+    assert slots == 8 * -(-tq2 // 8)
+    assert tuple(part.shape) == (n, tiles, heads * slots * (hd + 2))
+    part.view(n, tiles, heads, slots, hd + 2)[:, :, :, tq2:] = float("nan")
     got = dec.t2i_combine(part, tq2)
     want = dec.t2i_attend_plain(qn, kp, vp, heads)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (n, tq2, heads * hd)
     # fp32 on both sides, one bf16 rounding of the output
     torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("made_for,tq2,how", [
+    pytest.param(8, 9, "fp32", id="slots-8-read-at-9"),
+    pytest.param(17, 9, "fp32", id="slots-24-read-at-9"),
+    pytest.param(7, 7, "bf16", id="bf16"),
+    pytest.param(7, 7, "strided", id="not-contiguous")])
+def test_t2i_combine_refuses_partials_of_another_layout(made_for, tq2, how):
+    """Partials laid out for another query count, or not contiguous fp32,
+    are refused before any launch: the kernel would read them by tq2's
+    layout, past the end of a smaller buffer."""
+    rng = np.random.default_rng(made_for)
+    n, t = 2, 256
+    qn = torch.from_numpy(_f(rng, n, made_for, 128, scale=0.5))
+    kp, vp = (torch.from_numpy(_f(rng, n, t, 128)) for _ in range(2))
+    part = dec.t2i_tile_partials_plain(qn, kp, vp)
+    if how == "bf16":
+        part = part.to(torch.bfloat16)
+    elif how == "strided":
+        part = torch.cat([part, part], 2)[:, :, ::2]
+    with pytest.raises(ValueError, match="t2i_combine"):
+        dec.t2i_combine(part, tq2)
 
 
 @pytest.mark.parametrize("gs", [14, 28])

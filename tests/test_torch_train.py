@@ -275,14 +275,15 @@ def test_tp_trained_tree_loads_into_jax(runs, jax_run):
 
 
 def test_module_names_cover_the_model():
-    """Every ``SamModel`` parameter has exactly one tree leaf; the leaves the
-    model does not hold are the prompt encoder's point prompt alone."""
+    """Every ``SamModel`` parameter has exactly one tree leaf, and the model
+    holds every leaf (the point prompt's not-a-point embedding too)."""
     tree = init_sam_params(0, sam_tiny_test())
     model = SamModel(tree, sam_tiny_test())
     names = {k: ttrain.module_name(k) for k in tckpt.flatten_tree(tree)}
     held = [n for n in names.values() if n is not None]
     assert sorted(held) == sorted(n for n, _ in model.named_parameters())
-    assert [k for k, n in names.items() if n is None] == ["prompt::not_a_point"]
+    assert [k for k, n in names.items() if n is None] == []
+    assert names["prompt::not_a_point"] == "prompt.not_a_point"
     with pytest.raises(ValueError, match="no SamModel parameter"):
         ttrain.module_name("vision::bogus")
 

@@ -13,7 +13,9 @@ calls, after 200 calls that bring the card's clocks up from idle):
 per image) at T 196, 784, 1024 and 4096; ``keys_stream`` (K7's pass: the
 layer-1 pass of 512 streams at T 784, 1024 and 4096, layer 0's at T 1024
 with 16 prompts sharing each of 32 images' keys; K6's k/v projection pass
-of 32 images) and ``t2i_combine`` on the layer-1 pass's partials;
+of 32 images) and ``t2i_combine`` on the layer-1 pass's partials; the
+three at T 1024 at the prompt-token counts of point prompts, tq 9, 16, 17
+and 34 (a tree whose kernels take at most 8 tokens prints "refused");
 ``mbconv_block`` (K14) at TinyViT-5M's stage 0 (32 x 128 x 128 x 64, E 256)
 and merge2 (32 x 32 x 32 x 160, E 320, Co 320) in both compute modes;
 ``patch_merge_block`` (K15) at merge0 and merge1 (``MERGE_SHAPES``) in both
@@ -136,6 +138,25 @@ def main() -> None:
             del img, part
         del pe, keys
         torch.cuda.empty_cache()
+
+    # point prompts' token counts (5 + P + 1), as next queries too
+    pe, keys = rn(1024, c).to(bf), rn(n, 1024, c).to(bf)
+    kp, vp = rn(b, 1024, dh).to(bf), rn(b, 1024, dh).to(bf)
+    for m in (9, 16, 17, 34):
+        qn_m = rn(n, m, dh, std=0.25).to(bf)
+        i2t_m = (rn(n, m, dh).to(bf), rn(n, m, dh).to(bf), *i2t[2:])
+        try:
+            part = dec.keys_stream(keys, pe, *kv, qn=qn_m, i2t=i2t_m)[1]
+        except ValueError as e:
+            print(f"[{args.tag}] keys_stream tq{m}: refused ({e})", flush=True)
+            continue
+        say(f"keys_stream layer 1 T1024 tq{m} (512 streams)",
+            lambda: dec.keys_stream(keys, pe, *kv, qn=qn_m, i2t=i2t_m), "keys_stream")
+        say(f"t2i_combine T1024 tq{m} (512 streams x {part.shape[1]} tiles)",
+            lambda: dec.t2i_combine(part, m), "t2i_combine")
+        say(f"t2i_attend T1024 tq{m}", lambda: dec.t2i_attend(qn_m, kp, vp, 8, k))
+    del pe, keys, kp, vp
+    torch.cuda.empty_cache()
 
     # K14 (mbconv_block, stride 1): TinyViT-5M's stage 0 and its merge2 on the
     # 512 canvas, in both compute modes

@@ -10,7 +10,7 @@
 //          keys = LayerNorm(keys + (attn @ Wout + bout))       -> bf16, stored
 //   [next] kp   = (keys + pe) @ Wk + bk,  vp = keys @ Wv + bv  -> bf16
 //          then, with [i2t], this tile's share of the next token-to-image
-//          attention of the tq2 (<= 8) next queries qn (already scaled):
+//          attention of the tq2 next queries qn (already scaled):
 //          per (head, query) m = max_tile(qn . kp), l = sum_tile e,
 //          o = sum_tile e * vp with e = exp(qn . kp - m), stored as fp32
 //          partials; without [i2t], kp and vp are stored.
@@ -28,7 +28,7 @@
 // add nothing to its max, o or l) and store no keys, kp or vp row.
 //
 // t2i_attend_kernel, one (image, head) per block: the token-to-image
-// attention of the image's K prompts x tq (<= 8) tokens over all T image
+// attention of the image's K prompts x tq tokens over all T image
 // tokens from stored kp/vp, out = softmax_T(q_h . kp_h) @ vp_h, with q
 // already scaled; per-image kp/vp with k_share = K serve all K prompts.
 //
@@ -80,7 +80,8 @@
 //     max) in fp32 staged in the keys tile, o = e^T vp in fp32 on the CUDA
 //     cores (a thread per head, query pair and channel pair, vp staged in the
 //     pe tile). A prompt spans T / 128 blocks, so each block stores its
-//     tile's (m, l, o), 4.5 KB, and t2i_combine_kernel rescales and adds them.
+//     tile's (m, l, o), 4.5 KB a group of 8 queries, and t2i_combine_kernel
+//     rescales and adds them.
 // Measured on an H100 80GB HBM3 at 700 W (bench/kernel_turns.py, device
 // time, batch 32, in turns with the first design): the layer-1 pass 0.981 ms
 // at T 1024 against 1.57 (0.834 against 1.28 at T 784, 3.86 against 6.16 at
@@ -102,9 +103,35 @@
 // against 0.0587 for PyTorch's SDPA at T 1024. Its note below says what the
 // present design does about that.
 //
-// Shapes: C = 256 channels, 128 internal channels, 8 heads of 16, tq <= 8,
-// any T - SAM's decoder at every encoder size.
-// The Python wrappers check them.
+// Any number of prompt tokens (the JAX kernels build their block-diagonal
+// factors for any tq). A box prompt gives 7 (the IoU token, 4 mask tokens, 2
+// corners), and so does the main path on every batch; point prompts give 5 +
+// P (+ 1 padding point). keys_stream_kernel<false> takes tq, tq2 <= 8: the
+// prompt tokens staged once in shared memory, one n8 logit tile per head and
+// a softmax inside a lane quad, as measured above. keys_stream_kernel<true>
+// takes any tq, tq2 (the wrapper picks it above 8), with one more loop a
+// side:
+//   * i2t: the tokens in groups of 16 (two n8 logit tiles, one k16 p.v
+//     step), their B fragments read from device memory (L1: a prompt's kq /
+//     vq are 2 tq x 256 bytes, read by the block's 8 warps). Two passes a
+//     head: the row max and sum carried across the groups (online), then p =
+//     e / sum, rounded to bf16 as JAX rounds it, times vq. The logits are
+//     taken twice (one mma.sync per 8 tokens): cheaper than holding them.
+//     Staging kq / vq in shared memory (up to 48 tokens fit) was 2% faster
+//     at tq 9 and 6% at tq 34: not kept, one path for every tq. The
+//     partials' base pointer taken before the group loop (live through the
+//     logits) made the box path 1.5-4% slower: each group takes it where it
+//     stores (bench/kernel_turns.py in turns on an H100 80GB HBM3 at 700 W;
+//     PERF.md);
+//   * t2i: the next queries in groups of 8, each group the <false> kernel's
+//     partials pass (max, e, sum, o over the tile), its own 8 slots of the
+//     partials; a block barrier between groups, which share S and the
+//     column buffers.
+// The partials hold ceil(tq2 / 8) * 8 query slots a head, 8 at tq2 <= 8.
+//
+// Shapes: C = 256 channels, 128 internal channels, 8 heads of 16, any tq,
+// any T - SAM's decoder at every encoder size and prompt. The Python
+// wrappers check them.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -120,12 +147,12 @@ namespace {
 constexpr int C = 256;        // decoder channels
 constexpr int DH = 128;       // attention internal channels (downsample rate 2)
 constexpr int HEADS = 8, HD = 16;
-constexpr int TQ_MAX = 8;
+constexpr int TQG = 8;        // prompt tokens staged (<false>); next queries a group
 constexpr int ROWS = 128;     // tokens per keys_stream block: 2 warpgroups of 64
 constexpr int THREADS = 256;
 constexpr int LDX = C + 8;    // 528-byte smem rows: ldmatrix stays conflict-free
 constexpr int PART = HD + 2;  // a partial: o[HD], m, l
-constexpr int HQ = HEADS * TQ_MAX;  // (head, next query) columns
+constexpr int HQ = HEADS * TQG;  // (head, next query) columns of a query group
 constexpr int LDS = HQ + 2;         // fp32 row stride of the tile's e (8-byte pairs)
 constexpr int LDT = DH + 8;         // prompt-token rows (bf16): conflict-free B fragments
 constexpr int WARPS = THREADS / 32;
@@ -150,7 +177,8 @@ struct KeysArgs {
   __nv_bfloat16* out_keys;    // (N, T, C)
   __nv_bfloat16* out_kp;      // (N, T, DH)   without [i2t]
   __nv_bfloat16* out_vp;      // (N, T, DH)
-  float* part;                // (N, ceil(T / ROWS), HEADS, TQ_MAX, PART)  with [i2t]
+  float* part;                // (N, ceil(T / ROWS), HEADS, slots, PART)  with [i2t]:
+                              // slots = ceil(tq2 / TQG) * TQG
   int t, tq, tq2, k_share;
   float scale, eps;
   int do_i2t;
@@ -170,6 +198,77 @@ __device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {  // 2 bf16, 4-byte aligned
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+__device__ __forceinline__ uint32_t ld_half(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+
+// keys_stream_kernel<true>'s image-to-token attention of one head over any
+// tq prompt tokens, for this warp's 16 rows: qf the head's q A fragment; kq
+// and vq this prompt's token 0 at the head's channel 0 (token rows DH
+// apart). The tokens go in groups of 16, their B fragments read from device
+// memory (zero past tq); pass 1 carries each row's max and sum across the
+// groups, pass 2 takes p = e / sum in bf16 (JAX's rounding) times vq into
+// o0 / o1, the accumulators of the head's channels 0-7 / 8-15.
+__device__ __forceinline__ void i2t_head_grouped(const uint32_t qf[4], const __nv_bfloat16* kq,
+                                                 const __nv_bfloat16* vq, int tq, int g, int t,
+                                                 float o0[4], float o1[4]) {
+  // s[nt]: rows g, g + 8 x tokens j0 + 8 nt + 2 t, + 1; -inf past tq
+  auto logits = [&](int j0, float s[2][4]) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int tok = j0 + 8 * nt + g;  // this lane's B column
+      const __nv_bfloat16* kr = kq + (long)tok * DH + 2 * t;
+      const uint32_t b0 = tok < tq ? ld_pair(kr) : 0u, b1 = tok < tq ? ld_pair(kr + 8) : 0u;
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      mma16816(s[nt], qf, b0, b1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j0 + 8 * nt + 2 * t + (e & 1) >= tq) s[nt][e] = -INFINITY;
+    }
+  };
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this lane's share
+#pragma unroll 1
+  for (int j0 = 0; j0 < tq; j0 += 16) {
+    float s[2][4];
+    logits(j0, s);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]), fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[r], mx);  // finite: token j0 < tq is in the group
+      l[r] = l[r] * expf(m[r] - mn) + expf(s[0][2 * r] - mn) + expf(s[0][2 * r + 1] - mn) +
+             expf(s[1][2 * r] - mn) + expf(s[1][2 * r + 1] - mn);
+      m[r] = mn;
+    }
+  }
+  const float inv[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+  // B of p.v for channel c: tokens tok, tok + 1 (k 2 t.. of the step)
+  auto vpair = [&](int tok, int c) {
+    const uint32_t lo = tok < tq ? ld_half(vq + (long)tok * DH + c) : 0u;
+    const uint32_t hi = tok + 1 < tq ? ld_half(vq + (long)(tok + 1) * DH + c) : 0u;
+    return lo | (hi << 16);
+  };
+#pragma unroll 1
+  for (int j0 = 0; j0 < tq; j0 += 16) {
+    float s[2][4];
+    logits(j0, s);
+    uint32_t pa[4];  // the A fragment: (g, 2t..), (g + 8, 2t..), (g, 8 + 2t..), (g + 8, 8 + 2t..)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        pa[2 * nt + r] = pack_bf16(expf(s[nt][2 * r] - m[r]) * inv[r],
+                                   expf(s[nt][2 * r + 1] - m[r]) * inv[r]);
+    mma16816(o0, pa, vpair(j0 + 2 * t, g), vpair(j0 + 8 + 2 * t, g));
+    mma16816(o1, pa, vpair(j0 + 2 * t, 8 + g), vpair(j0 + 8 + 2 * t, 8 + g));
+  }
 }
 
 // Store the first `rows` (<= 16) of this warp's staged rows (ncols bf16
@@ -211,6 +310,7 @@ __device__ __forceinline__ void issue_slab(const Maps& m, int i, bool i2t, __nv_
   for (int b = 0; b < DH / BOX; ++b) tma_load(dst + b * 64 * BOX, map, &full[stage], b * BOX, 64 * (j / 2));
 }
 
+template <bool GROUPED>  // any tq, tq2 (else both <= TQG)
 __global__ void __launch_bounds__(THREADS, 1)
     keys_stream_kernel(const __grid_constant__ Maps maps, KeysArgs p) {
   extern __shared__ unsigned char smem_raw[];
@@ -219,12 +319,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // STAGES weight slabs
   __nv_bfloat16* Xs = ring + STAGES * SLAB;                       // keys tile, then new keys
   __nv_bfloat16* Ps = Xs + ROWS * LDX;                            // pe tile, then kp | vp
-  // the prompt tokens in bf16, zero past tq / tq2: kq and qn (token, LDT),
-  // vq transposed (channel, token); then the warps' column max and sum
+  // <false>: the prompt tokens in bf16, zero past tq / tq2: kq and qn (token,
+  // LDT), vq transposed (channel, token); then the warps' column max and sum
   __nv_bfloat16* kqb = Ps + ROWS * LDX;
-  __nv_bfloat16* qnb = kqb + TQ_MAX * LDT;
-  __nv_bfloat16* vqt = qnb + TQ_MAX * LDT;
-  float* red = reinterpret_cast<float*>(vqt + DH * TQ_MAX);  // (2, WARPS, HQ)
+  __nv_bfloat16* qnb = kqb + TQG * LDT;
+  __nv_bfloat16* vqt = qnb + TQG * LDT;
+  float* red = reinterpret_cast<float*>(vqt + DH * TQG);  // (2, WARPS, HQ)
   uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * WARPS * HQ);
   uint64_t* empty = full + STAGES;
 
@@ -257,13 +357,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_async16(Ps + r * LDX + c, pg + off, in);
   }
   cp_async_commit();
-  if (i2t) {
+  if (i2t && !GROUPED) {
     const __nv_bfloat16 zero = __float2bfloat16(0.f);
     const long q0 = (long)n * p.tq * DH, n0 = (long)n * p.tq2 * DH;
-    for (int v = tid; v < TQ_MAX * DH; v += THREADS) {
+    for (int v = tid; v < TQG * DH; v += THREADS) {
       const int j = v / DH, c = v % DH;
       kqb[j * LDT + c] = j < p.tq ? p.kq[q0 + v] : zero;
-      vqt[c * TQ_MAX + j] = j < p.tq ? p.vq[q0 + v] : zero;
+      vqt[c * TQG + j] = j < p.tq ? p.vq[q0 + v] : zero;
       qnb[j * LDT + c] = j < p.tq2 ? p.qn[n0 + v] : zero;
     }
   }
@@ -334,32 +434,38 @@ __global__ void __launch_bounds__(THREADS, 1)
     // logits q_h . kq^T (16 x 8 tokens), their softmax over the tq tokens
     // within each lane quad (p rounded to bf16), and attn_h = p @ vq_h (the
     // tokens padded to k 16 with zeros) in the accumulator layout, which is
-    // the A fragment of k-step h of the output projection
+    // the A fragment of k-step h of the output projection; <true>: the same
+    // over groups of 16 tokens (i2t_head_grouped)
     uint32_t af[HEADS][4];
 #pragma unroll
     for (int h = 0; h < HEADS; ++h) {
       const uint32_t qf[4] = {q2[2 * h][0], q2[2 * h][1], q2[2 * h + 1][0], q2[2 * h + 1][1]};
-      const __nv_bfloat16* kr = kqb + g * LDT + h * HD + 2 * t;  // token g
-      float sc[4] = {0.f, 0.f, 0.f, 0.f};  // rows g, g + 8 x tokens 2 t, 2 t + 1
-      mma16816(sc, qf, *reinterpret_cast<const uint32_t*>(kr),
-               *reinterpret_cast<const uint32_t*>(kr + 8));
-      uint32_t pa[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float s0 = 2 * t < p.tq ? sc[2 * r] : -INFINITY;
-        float s1 = 2 * t + 1 < p.tq ? sc[2 * r + 1] : -INFINITY;
-        float mx = fmaxf(s0, s1);
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        s0 = expf(s0 - mx);
-        s1 = expf(s1 - mx);
-        const float inv = 1.f / quad_sum(s0 + s1);
-        pa[r] = pack_bf16(s0 * inv, s1 * inv);  // p rounded to bf16
-      }
       float o0[4] = {0.f, 0.f, 0.f, 0.f}, o1[4] = {0.f, 0.f, 0.f, 0.f};
-      const __nv_bfloat16* vr = vqt + (h * HD + g) * TQ_MAX + 2 * t;  // channel g, tokens 2 t..
-      mma16816(o0, pa, *reinterpret_cast<const uint32_t*>(vr), 0u);
-      mma16816(o1, pa, *reinterpret_cast<const uint32_t*>(vr + 8 * TQ_MAX), 0u);
+      if constexpr (GROUPED) {
+        const long q0 = (long)n * p.tq * DH + h * HD;  // this prompt's kq / vq, head h
+        i2t_head_grouped(qf, p.kq + q0, p.vq + q0, p.tq, g, t, o0, o1);
+      } else {
+        const __nv_bfloat16* kr = kqb + g * LDT + h * HD + 2 * t;  // token g
+        float sc[4] = {0.f, 0.f, 0.f, 0.f};  // rows g, g + 8 x tokens 2 t, 2 t + 1
+        mma16816(sc, qf, *reinterpret_cast<const uint32_t*>(kr),
+                 *reinterpret_cast<const uint32_t*>(kr + 8));
+        uint32_t pa[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float s0 = 2 * t < p.tq ? sc[2 * r] : -INFINITY;
+          float s1 = 2 * t + 1 < p.tq ? sc[2 * r + 1] : -INFINITY;
+          float mx = fmaxf(s0, s1);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          s0 = expf(s0 - mx);
+          s1 = expf(s1 - mx);
+          const float inv = 1.f / quad_sum(s0 + s1);
+          pa[r] = pack_bf16(s0 * inv, s1 * inv);  // p rounded to bf16
+        }
+        const __nv_bfloat16* vr = vqt + (h * HD + g) * TQG + 2 * t;  // channel g, tokens 2 t..
+        mma16816(o0, pa, *reinterpret_cast<const uint32_t*>(vr), 0u);
+        mma16816(o1, pa, *reinterpret_cast<const uint32_t*>(vr + 8 * TQG), 0u);
+      }
       af[h][0] = pack_bf16(o0[0], o0[1]);
       af[h][1] = pack_bf16(o0[2], o0[3]);
       af[h][2] = pack_bf16(o1[0], o1[1]);
@@ -493,26 +599,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       return;
     }
 
-    // ---- this tile's share of the next token-to-image attention: per head,
-    // the logits kp_h . qn^T of this warp's rows (mma.sync, 16 x 8 queries;
-    // rows at T or beyond score -inf), the tile's max per (head, query) over
-    // the block's 128 rows (lanes, then warps through shared memory), and
+    // ---- this tile's share of the next token-to-image attention, a group of
+    // TQG next queries at a time (<false>: the one group): per head, the
+    // logits kp_h . qn^T of this warp's rows (mma.sync, 16 x 8 queries; rows
+    // at T or beyond score -inf), the tile's max per (head, query) over the
+    // block's 128 rows (lanes, then warps through shared memory), and
     // e = exp(s - max) in fp32, staged for o; l = sum e the same way
-    float sc[HEADS][4];  // rows g, g + 8 x queries 2 t, 2 t + 1
     const bool in0 = wr + g < valid, in1 = wr + g + 8 < valid;
-#pragma unroll
-    for (int h = 0; h < HEADS; ++h) {
-      const __nv_bfloat16* qr = qnb + g * LDT + h * HD + 2 * t;  // query g
-      // A fragment of k-step h: (row g, 2t..), (row g + 8, 2t..), (g, 8 + 2t..), (g + 8, 8 + 2t..)
-      const uint32_t a[4] = {kf[h][0], kf[h][1], kf[h][2], kf[h][3]};
-      sc[h][0] = sc[h][1] = sc[h][2] = sc[h][3] = 0.f;
-      mma16816(sc[h], a, *reinterpret_cast<const uint32_t*>(qr),
-               *reinterpret_cast<const uint32_t*>(qr + 8));
-      sc[h][0] = in0 ? sc[h][0] : -INFINITY;
-      sc[h][1] = in0 ? sc[h][1] : -INFINITY;
-      sc[h][2] = in1 ? sc[h][2] : -INFINITY;
-      sc[h][3] = in1 ? sc[h][3] : -INFINITY;
-    }
+    const int groups = GROUPED ? (p.tq2 + TQG - 1) / TQG : 1;
     float* rmax = red;               // (WARPS, HQ)
     float* rsum = red + WARPS * HQ;  // (WARPS, HQ)
     auto warp_reduce = [&](float v, bool is_max) {  // over the 8 lanes of a quad column
@@ -523,85 +617,116 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       return v;
     };
+    for (int qg = 0; qg < groups; ++qg) {
+      const int nq = GROUPED ? min(TQG, p.tq2 - qg * TQG) : p.tq2;  // this group's queries
+      if (qg) __syncthreads();  // the last group's o pass is done with S and red
+      float sc[HEADS][4];  // rows g, g + 8 x queries 2 t, 2 t + 1
 #pragma unroll
-    for (int h = 0; h < HEADS; ++h)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float m = warp_reduce(fmaxf(sc[h][e], sc[h][2 + e]), true);
-        if (g == 0) rmax[warp * HQ + h * TQ_MAX + 2 * t + e] = m;
+      for (int h = 0; h < HEADS; ++h) {
+        uint32_t b0, b1;  // query g's channels 2 t.., 8 + 2 t.. of head h (0 past tq2)
+        if constexpr (GROUPED) {
+          const __nv_bfloat16* qr = p.qn + ((long)n * p.tq2 + qg * TQG + g) * DH + h * HD + 2 * t;
+          b0 = g < nq ? ld_pair(qr) : 0u;
+          b1 = g < nq ? ld_pair(qr + 8) : 0u;
+        } else {
+          const __nv_bfloat16* qr = qnb + g * LDT + h * HD + 2 * t;
+          b0 = *reinterpret_cast<const uint32_t*>(qr);
+          b1 = *reinterpret_cast<const uint32_t*>(qr + 8);
+        }
+        // A fragment of k-step h: rows g, g + 8 x the head's channels 2t.., 8 + 2t..
+        const uint32_t a[4] = {kf[h][0], kf[h][1], kf[h][2], kf[h][3]};
+        sc[h][0] = sc[h][1] = sc[h][2] = sc[h][3] = 0.f;
+        mma16816(sc[h], a, b0, b1);
+        sc[h][0] = in0 ? sc[h][0] : -INFINITY;
+        sc[h][1] = in0 ? sc[h][1] : -INFINITY;
+        sc[h][2] = in1 ? sc[h][2] : -INFINITY;
+        sc[h][3] = in1 ? sc[h][3] : -INFINITY;
       }
-    __syncthreads();  // every warp's maxima are in; every warp is done with the keys tile
-    float* S = reinterpret_cast<float*>(Xs);  // (ROWS, LDS) e
 #pragma unroll
-    for (int h = 0; h < HEADS; ++h)
+      for (int h = 0; h < HEADS; ++h)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = h * TQ_MAX + 2 * t + e;
-        float m = rmax[col];
+        for (int e = 0; e < 2; ++e) {
+          const float m = warp_reduce(fmaxf(sc[h][e], sc[h][2 + e]), true);
+          if (g == 0) rmax[warp * HQ + h * TQG + 2 * t + e] = m;
+        }
+      __syncthreads();  // every warp's maxima are in; every warp is done with the keys tile
+      float* S = reinterpret_cast<float*>(Xs);  // (ROWS, LDS) e
 #pragma unroll
-        for (int w = 1; w < WARPS; ++w) m = fmaxf(m, rmax[w * HQ + col]);
-        // (row 0 is below T in every tile, so m is finite and e is 0 past T)
-        const float e0 = expf(sc[h][e] - m), e1 = expf(sc[h][2 + e] - m);
-        S[(wr + g) * LDS + col] = e0;
-        S[(wr + g + 8) * LDS + col] = e1;
-        const float l = warp_reduce(e0 + e1, false);
-        if (g == 0) rsum[warp * HQ + col] = l;
-      }
-  }
-  __syncthreads();
-  {
-    // o[(h, q)][d] = sum_r e[r][(h, q)] * vp[r][h, d] in fp32: thread ->
-    // head h, queries 2 a, 2 a + 1 and channels 2 b, 2 b + 1 of the head
-    const float* S = reinterpret_cast<const float*>(Xs);
-    const int b = tid % 8, a = tid / 8 % 4, h = tid / 32;
-    const int col = h * TQ_MAX + 2 * a;
-    if (2 * a < p.tq2) {
-      float o[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      const __nv_bfloat16* vr = Ps + DH + h * HD + 2 * b;
+      for (int h = 0; h < HEADS; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = h * TQG + 2 * t + e;
+          float m = rmax[col];
+#pragma unroll
+          for (int w = 1; w < WARPS; ++w) m = fmaxf(m, rmax[w * HQ + col]);
+          // (row 0 is below T in every tile, so m is finite and e is 0 past T)
+          const float e0 = expf(sc[h][e] - m), e1 = expf(sc[h][2 + e] - m);
+          S[(wr + g) * LDS + col] = e0;
+          S[(wr + g + 8) * LDS + col] = e1;
+          const float l = warp_reduce(e0 + e1, false);
+          if (g == 0) rsum[warp * HQ + col] = l;
+        }
+      __syncthreads();
+      // o[(h, q)][d] = sum_r e[r][(h, q)] * vp[r][h, d] in fp32: thread ->
+      // head h, queries 2 a, 2 a + 1 and channels 2 b, 2 b + 1 of the head
+      const int b = tid % 8, a = tid / 8 % 4, h = tid / 32;
+      const int col = h * TQG + 2 * a;
+      if (2 * a < nq) {
+        float o[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+        const __nv_bfloat16* vr = Ps + DH + h * HD + 2 * b;
 #pragma unroll 4
-      for (int r = 0; r < ROWS; ++r) {
-        const float2 e = *reinterpret_cast<const float2*>(S + r * LDS + col);
-        const float2 v = unpack2(*reinterpret_cast<const uint32_t*>(vr + r * LDX));
-        o[0][0] = fmaf(e.x, v.x, o[0][0]);
-        o[0][1] = fmaf(e.x, v.y, o[0][1]);
-        o[1][0] = fmaf(e.y, v.x, o[1][0]);
-        o[1][1] = fmaf(e.y, v.y, o[1][1]);
-      }
-      float* out = p.part + ((long)n * gridDim.x + blockIdx.x) * HQ * PART;
+        for (int r = 0; r < ROWS; ++r) {
+          const float2 e = *reinterpret_cast<const float2*>(S + r * LDS + col);
+          const float2 v = unpack2(*reinterpret_cast<const uint32_t*>(vr + r * LDX));
+          o[0][0] = fmaf(e.x, v.x, o[0][0]);
+          o[0][1] = fmaf(e.x, v.y, o[0][1]);
+          o[1][0] = fmaf(e.y, v.x, o[1][0]);
+          o[1][1] = fmaf(e.y, v.y, o[1][1]);
+        }
+        // slot (h, qg TQG + 2 a + q) of this tile's partials
+        float* out = p.part + (((long)n * gridDim.x + blockIdx.x) * HEADS * groups * TQG +
+                               h * groups * TQG + qg * TQG + 2 * a) * PART;
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        if (2 * a + q >= p.tq2) continue;
-        float* oc = out + (col + q) * PART;
-        oc[2 * b] = o[q][0];
-        oc[2 * b + 1] = o[q][1];
-        if (b == 0) {
-          float m = red[col + q], l = 0.f;
-          for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w * HQ + col + q]);
-          for (int w = 0; w < WARPS; ++w) l += red[WARPS * HQ + w * HQ + col + q];
-          oc[HD] = m;
-          oc[HD + 1] = l;
+        for (int q = 0; q < 2; ++q) {
+          if (2 * a + q >= nq) continue;
+          float* oc = out + q * PART;
+          oc[2 * b] = o[q][0];
+          oc[2 * b + 1] = o[q][1];
+          if (b == 0) {
+            float m = red[col + q], l = 0.f;
+            for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w * HQ + col + q]);
+            for (int w = 0; w < WARPS; ++w) l += red[WARPS * HQ + w * HQ + col + q];
+            oc[HD] = m;
+            oc[HD + 1] = l;
+          }
         }
       }
     }
   }
 }
 
-// One prompt per block: join the partials of its ceil(T / ROWS) tiles.
+// One prompt per block: join the partials of its ceil(T / ROWS) tiles, each
+// tile HEADS x slots of them: slots = TQG (<false>, tq2 <= TQG: the box
+// path's compile-time indexing; a runtime slot count and 64-bit offsets
+// for every tq2 were 1.6x slower at tq2 7, in turns on an H100) or
+// ceil(tq2 / TQG) * TQG (<true>).
 constexpr int CB_THREADS = 128;
 
+template <bool GROUPED>
 __global__ void __launch_bounds__(CB_THREADS)
     t2i_combine_kernel(const float* part, __nv_bfloat16* out, int tiles, int tq2) {
   const int n = blockIdx.x;
-  const float* base = part + (long)n * tiles * HQ * PART;
-  for (int o = threadIdx.x; o < HQ * HD; o += CB_THREADS) {
+  const int slots = GROUPED ? (tq2 + TQG - 1) / TQG * TQG : TQG, cols = HEADS * slots;
+  const float* base = part + (long)n * tiles * cols * PART;
+  for (int o = threadIdx.x; o < cols * HD; o += CB_THREADS) {
     const int col = o / HD, d = o % HD;
-    const int h = col / TQ_MAX, q = col % TQ_MAX;
+    const int h = col / slots, q = col % slots;
     if (q >= tq2) continue;
     float mx = -INFINITY;
-    for (int k = 0; k < tiles; ++k) mx = fmaxf(mx, base[(k * HQ + col) * PART + HD]);
+    for (int k = 0; k < tiles; ++k) mx = fmaxf(mx, base[(k * cols + col) * PART + HD]);
     float num = 0.f, den = 0.f;
     for (int k = 0; k < tiles; ++k) {
-      const float* pk = base + (k * HQ + col) * PART;
+      const float* pk = base + (k * cols + col) * PART;
       const float w = expf(pk[HD] - mx);
       num = fmaf(pk[d], w, num);
       den = fmaf(pk[HD + 1], w, den);
@@ -615,7 +740,7 @@ __global__ void __launch_bounds__(CB_THREADS)
 // ring's barriers
 constexpr size_t KEYS_SMEM = 1024 +
                              sizeof(__nv_bfloat16) * (STAGES * SLAB + 2 * ROWS * LDX +
-                                                      2 * TQ_MAX * LDT + DH * TQ_MAX) +
+                                                      2 * TQG * LDT + DH * TQG) +
                              sizeof(float) * 2 * WARPS * HQ + 2 * STAGES * sizeof(uint64_t);
 static_assert(ROWS * LDS * sizeof(float) <= ROWS * LDX * sizeof(__nv_bfloat16), "S fits in Xs");
 static_assert(HEADS * 4 * 8 == THREADS, "o: a thread per head, query pair and channel pair");
@@ -800,8 +925,11 @@ __global__ void __launch_bounds__(AT_WARPS * 32)
 extern "C" int ysi_decoder_init(void) {
   cudaError_t err = load_encode_tiled();
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(keys_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)KEYS_SMEM);
+    err = cudaFuncSetAttribute(keys_stream_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)KEYS_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(keys_stream_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)KEYS_SMEM);
   return (int)err;
 }
 
@@ -814,8 +942,7 @@ extern "C" int ysi_keys_stream(const void* keys, const void* pe, const void* kq,
                                int t, int tq, int tq2, int k_share, float scale, float eps,
                                int do_i2t, void* stream) {
   if (n <= 0 || t <= 0 || k_share <= 0 || n % k_share) return (int)cudaErrorInvalidValue;
-  if (do_i2t && (tq <= 0 || tq > TQ_MAX || tq2 <= 0 || tq2 > TQ_MAX))
-    return (int)cudaErrorInvalidValue;
+  if (do_i2t && (tq <= 0 || tq2 <= 0)) return (int)cudaErrorInvalidValue;
   Maps maps;
   cudaError_t err = make_map(&maps.k, wk, C, DH, 64);
   if (err == cudaSuccess) err = make_map(&maps.v, wv, C, DH, 64);
@@ -846,16 +973,21 @@ extern "C" int ysi_keys_stream(const void* keys, const void* pe, const void* kq,
   p.eps = eps;
   p.do_i2t = do_i2t;
   dim3 grid((t + ROWS - 1) / ROWS, n);
-  keys_stream_kernel<<<grid, THREADS, KEYS_SMEM, static_cast<cudaStream_t>(stream)>>>(maps, p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (do_i2t && (tq > TQG || tq2 > TQG))
+    keys_stream_kernel<true><<<grid, THREADS, KEYS_SMEM, st>>>(maps, p);
+  else
+    keys_stream_kernel<false><<<grid, THREADS, KEYS_SMEM, st>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ysi_t2i_attend(const void* qp, const void* kp, const void* vp, void* out, int n,
                               int tq, int t, int k_share, void* stream) {
-  if (n <= 0 || t <= 0 || tq <= 0 || tq > TQ_MAX || k_share <= 0 || n % k_share)
+  if (n <= 0 || t <= 0 || tq <= 0 || k_share <= 0 || n % k_share)
     return (int)cudaErrorInvalidValue;
   // all k_share * tq rows of an image in one block while 8 warps of up to 4
-  // row tiles hold them (k_share <= 73 at tq 7), so its k/v are read once
+  // row tiles hold them (k_share <= 73 at tq 7), so its k/v are read once;
+  // more rows split over grid z (16 prompts x 34 tokens: 2 blocks)
   const int rows = k_share * tq;
   const int mt = rows <= 16 * AT_WARPS ? 1 : 4;
   const int need = (rows + 16 * mt - 1) / (16 * mt);  // warps the rows need
@@ -875,8 +1007,13 @@ extern "C" int ysi_t2i_attend(const void* qp, const void* kp, const void* vp, vo
 
 extern "C" int ysi_t2i_combine(const void* part, void* out, int n, int tiles, int tq2,
                                void* stream) {
-  if (n <= 0 || tiles <= 0 || tq2 <= 0 || tq2 > TQ_MAX) return (int)cudaErrorInvalidValue;
-  t2i_combine_kernel<<<n, CB_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out), tiles, tq2);
+  if (n <= 0 || tiles <= 0 || tq2 <= 0) return (int)cudaErrorInvalidValue;
+  const auto* src = static_cast<const float*>(part);
+  auto* dst = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tq2 > TQG)
+    t2i_combine_kernel<true><<<n, CB_THREADS, 0, st>>>(src, dst, tiles, tq2);
+  else
+    t2i_combine_kernel<false><<<n, CB_THREADS, 0, st>>>(src, dst, tiles, tq2);
   return (int)cudaGetLastError();
 }

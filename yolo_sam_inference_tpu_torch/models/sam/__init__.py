@@ -1,3 +1,14 @@
+"""SAM in PyTorch: the ViT and TinyViT encoders, the prompt encoder and the
+mask decoder (``model.py``, ``tinyvit.py``), the configs and the checkpoint
+converters.
+
+The JAX package's functions are methods here: ``sam_image_encoder`` is
+``SamModel.vision``, ``sam_prompt_boxes`` / ``sam_prompt_points`` are
+``SamPromptEncoder.boxes`` / ``.points``, ``sam_mask_decoder`` (multimask
+output, dense prompts) is ``SamModel.mask_decoder`` and
+``sam_forward_boxes`` is ``SamModel.forward_boxes``.
+"""
+
 from .config import SamTPUConfig, sam_tiny_test, sam_vit_b, sam_vit_h, sam_vit_l
 from .convert import (
     adapt_resolution,

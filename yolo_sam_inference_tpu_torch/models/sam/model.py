@@ -369,15 +369,16 @@ def _fourier_embed(pe_matrix: torch.Tensor, coords01: torch.Tensor) -> torch.Ten
 
 
 class SamPromptEncoder(nn.Module):
-    """Box prompts and the decoder's dense positional encoding. The tree's
-    ``shared_pe`` encodes the prompts and ``shared_image_pe`` (``shared_pe``
-    where a tree has none) the image tokens: one matrix in SAM, two leaves
-    in the JAX tree, which a fine-tune step updates apart."""
+    """Box and point prompts and the decoder's dense positional encoding. The
+    tree's ``shared_pe`` encodes the prompts and ``shared_image_pe``
+    (``shared_pe`` where a tree has none) the image tokens: one matrix in
+    SAM, two leaves in the JAX tree, which a fine-tune step updates apart."""
 
     def __init__(self, p: Params, shared_pe, cfg: SamTPUConfig, shared_image_pe=None):
         super().__init__()
         self.cfg = cfg
         self.point_embed = _param(p["point_embed"])
+        self.not_a_point = _param(p["not_a_point"])
         self.no_mask = _param(p["no_mask"])
         self.shared_pe = _param(shared_pe)
         self.shared_image_pe = _param(shared_pe if shared_image_pe is None else shared_image_pe)
@@ -388,6 +389,21 @@ class SamPromptEncoder(nn.Module):
         emb = _fourier_embed(self.shared_pe, coords)
         pe = self.point_embed.float()
         return torch.stack([emb[..., 0, :] + pe[2], emb[..., 1, :] + pe[3]], dim=-2)
+
+    def points(self, points: torch.Tensor, labels: torch.Tensor, pad: bool = True) -> torch.Tensor:
+        """JAX ``sam_prompt_points``: points (B, K, P, 2) xy in encoder-input
+        pixels, labels (B, K, P): 1 foreground, 0 background, -1 padding (the
+        not-a-point embedding) -> (B, K, P, C) fp32; ``pad`` appends one
+        padding point (P + 1 tokens), as SAM does for prompts without a box."""
+        if pad:
+            points = torch.cat([points, points.new_zeros(*points.shape[:-2], 1, 2)], dim=-2)
+            labels = torch.cat([labels, labels.new_full((*labels.shape[:-1], 1), -1)], dim=-1)
+        emb = _fourier_embed(self.shared_pe, (points + 0.5) / self.cfg.image_size)
+        lab = labels[..., None]
+        pe = self.point_embed.float()
+        emb = torch.where(lab == -1, self.not_a_point.float(), emb)
+        emb = torch.where(lab == 0, emb + pe[0], emb)
+        return torch.where(lab == 1, emb + pe[1], emb)
 
     def image_pe(self) -> torch.Tensor:
         """Dense (gs, gs, C) positional encoding of the decoder's image tokens."""
@@ -480,11 +496,13 @@ class SamMaskDecoder(nn.Module):
         self.hyper_mlps = nn.ModuleList(FeedForward(fp) for fp in p["hyper_mlps"])
         self.iou_head = FeedForward(p["iou_head"])
 
-    def tokens(self, image_embeddings, sparse_prompts, image_pe, no_mask, plain: bool = False):
+    def tokens(self, image_embeddings, sparse_prompts, image_pe, dense_prompts,
+               plain: bool = False):
         """Two-way transformer up to the mask upscaling.
 
         image_embeddings (B, gs, gs, C); sparse_prompts (B, K, P, C);
-        image_pe (gs, gs, C); no_mask (C,). Returns (iou (B, K, M),
+        image_pe (gs, gs, C); dense_prompts (B or 1, gs, gs, C), or the
+        no-mask embedding (C,). Returns (iou (B, K, M),
         hyper (B*K, M, C/8), keys_grid (B*K, gs, gs, C)). ``plain`` runs the
         kernels' plain versions on any device (the fp32 oracle).
         """
@@ -493,7 +511,7 @@ class SamMaskDecoder(nn.Module):
         k = sparse_prompts.shape[1]
         heads = cfg.decoder_heads
         dt = image_embeddings.dtype
-        img_flat = (image_embeddings + no_mask).reshape(b, gs * gs, c)
+        img_flat = (image_embeddings + dense_prompts).reshape(b, gs * gs, c)
         img_pe = image_pe.reshape(1, gs * gs, c).to(dt)
 
         out_tokens = torch.cat([self.iou_token, self.mask_tokens], dim=0)
@@ -583,25 +601,40 @@ class SamModel(nn.Module):
                                        params.get("shared_image_pe"))
         self.decoder = SamMaskDecoder(params["decoder"], cfg)
 
-    def forward(self, pixel_values, boxes, plain: bool = False, encode=None):
-        """JAX ``sam_forward_boxes`` with ``multimask_output=False``: images
-        (B, H, W, 3) normalised and boxes (B, K, 4) in encoder-input pixels ->
-        (mask-0 low-res logits (B, K, 4gs, 4gs) fp32, IoU head (B, K, M)).
-        ``encode`` replaces the encoder call (a parallel encoder over
+    def forward_boxes(self, pixel_values, boxes, multimask_output: bool = False,
+                      plain: bool = False, encode=None):
+        """JAX ``sam_forward_boxes``: images (B, H, W, 3) normalised and boxes
+        (B, K, 4) in encoder-input pixels -> :meth:`mask_decoder`'s (masks,
+        IoU). ``encode`` replaces the encoder call (a parallel encoder over
         ``self.vision``); ``plain`` runs every kernel's plain version."""
         emb = self.vision(pixel_values, plain) if encode is None else encode(pixel_values)
         sparse = self.prompt.boxes(boxes).to(emb.dtype)
-        iou, hyper, keys = self.mask_decoder_tokens(emb, sparse, plain)
-        logits = self.decoder.mask_head(keys, hyper[:, :1], plain)
-        b, k = boxes.shape[:2]
-        return logits.reshape(b, k, *logits.shape[-2:]), iou
+        return self.mask_decoder(emb, sparse, multimask_output=multimask_output, plain=plain)
 
-    def mask_decoder_tokens(self, image_embeddings, sparse_prompts, plain: bool = False):
-        """The JAX package's ``sam_mask_decoder_tokens`` (no dense prompt)."""
-        return self.decoder.tokens(
-            image_embeddings, sparse_prompts, self.prompt.image_pe(),
-            self.prompt.no_mask.to(image_embeddings.dtype), plain,
-        )
+    forward = forward_boxes  # the module call (the fine-tune step's functional_call)
+
+    def mask_decoder(self, image_embeddings, sparse_prompts, dense_prompts=None,
+                     multimask_output: bool = False, plain: bool = False):
+        """JAX ``sam_mask_decoder``: embeddings (B, gs, gs, C), sparse prompts
+        (B, K, P, C) and dense prompts (B or 1, gs, gs, C; None: the no-mask
+        embedding) -> (low-res mask logits (B, K, M', 4gs, 4gs) fp32, IoU
+        (B, K, M')): masks 1.. with ``multimask_output``, else mask 0. The
+        mask head runs on the hypernetwork rows it returns."""
+        b, gs = image_embeddings.shape[:2]
+        k = sparse_prompts.shape[1]
+        iou, hyper, keys = self.mask_decoder_tokens(image_embeddings, sparse_prompts,
+                                                    dense_prompts, plain)
+        sel = slice(1, None) if multimask_output else slice(0, 1)
+        logits = self.decoder.mask_head(keys, hyper[:, sel], plain)
+        return logits.reshape(b, k, -1, 4 * gs, 4 * gs), iou[:, :, sel]
+
+    def mask_decoder_tokens(self, image_embeddings, sparse_prompts, dense_prompts=None,
+                            plain: bool = False):
+        """JAX ``sam_mask_decoder_tokens``; ``dense_prompts`` (B or 1, gs, gs,
+        C), None for the no-mask embedding."""
+        dense = self.prompt.no_mask if dense_prompts is None else dense_prompts
+        return self.decoder.tokens(image_embeddings, sparse_prompts, self.prompt.image_pe(),
+                                   dense.to(image_embeddings.dtype), plain)
 
 
 # ------------------------------------------------------------------------- init

@@ -9,9 +9,10 @@ kernels (``csrc/decoder_keys.cu``) carry its two functions on the card:
   projections of the new keys, and that attention's softmax over the pass's
   128-token tile, stored as per-tile partials; ``t2i_combine_kernel`` joins
   the tiles of each prompt. T need not be a multiple of 128: the last tile is
-  short. The kernel runs its four products on wgmma with the weights, in
-  their (in, out) layout, streamed by TMA through a ring of slabs in shared
-  memory (:func:`slab_schedule`).
+  short. Any number of prompt tokens: above 8 the kernel walks them in
+  groups (the source note says how). The kernel runs its four products on
+  wgmma with the weights, in their (in, out) layout, streamed by TMA
+  through a ring of slabs in shared memory (:func:`slab_schedule`).
 * :func:`t2i_shared_attend` (K6): the same pass without the i2t part
   projects decoder layer 0's per-image keys once per image
   (:func:`kv_project`), and ``t2i_attend_kernel`` runs the token-to-image
@@ -41,8 +42,9 @@ from ._build import check, kernels
 from .autograd import refuse_grad, through_kernel, wants_grad
 from .fused_ln import _check_bf16, _f32, _on_cpu, _ptr, layer_norm_plain
 
-# The kernels' geometry: SAM's decoder at every encoder size.
-KERNEL_C, KERNEL_DH, KERNEL_HEADS, KERNEL_TQ_MAX, KERNEL_ROWS = 256, 128, 8, 8, 128
+# The kernels' geometry: SAM's decoder at every encoder size and prompt
+# count. The partials hold the next queries in groups of KERNEL_TQ_GROUP.
+KERNEL_C, KERNEL_DH, KERNEL_HEADS, KERNEL_TQ_GROUP, KERNEL_ROWS = 256, 128, 8, 8, 128
 _PART = 16 + 2  # a per-tile partial: o[16], max, sum
 SLAB_BYTES = 16 * 1024  # a stage of keys_stream_kernel's weight ring
 
@@ -118,8 +120,14 @@ def _check_geometry(name: str, c: int, dh: int, heads: int) -> None:
 
 
 def _check_tokens(name: str, tq: int) -> None:
-    if not 0 < tq <= KERNEL_TQ_MAX:
-        raise ValueError(f"{name} kernel takes 1 to {KERNEL_TQ_MAX} prompt tokens, got {tq}")
+    if tq < 1:
+        raise ValueError(f"{name} kernel takes at least 1 prompt token, got {tq}")
+
+
+def part_slots(tq2: int) -> int:
+    """Query slots a head in the per-tile partials: tq2 rounded up to a
+    whole group of KERNEL_TQ_GROUP."""
+    return -(-tq2 // KERNEL_TQ_GROUP) * KERNEL_TQ_GROUP
 
 
 def _weight(w, shape, dev):
@@ -164,8 +172,9 @@ def keys_stream(keys_src, img_pe, wk, bk, wv, bv, *, k_share: int = 1, i2t=None,
         i2t_args = [kq, vq, _weight(wq, (c, dh), dev), _f32(bq), _weight(wout, (dh, c), dev),
                     _f32(bout), _f32(ln_s), _f32(ln_b)]
         outs["keys"] = torch.empty((n, t, c), dtype=torch.bfloat16, device=dev)
-        outs["part"] = torch.empty((n, -(-t // KERNEL_ROWS), KERNEL_HEADS * KERNEL_TQ_MAX * _PART),
-                                   dtype=torch.float32, device=dev)
+        outs["part"] = torch.empty(
+            (n, -(-t // KERNEL_ROWS), KERNEL_HEADS * part_slots(tq2) * _PART),
+            dtype=torch.float32, device=dev)
     err = kernels().ysi_keys_stream(
         _ptr(keys_src), _ptr(pe), *map(_ptr, i2t_args),
         _ptr(_weight(wk, (c, dh), dev)), _ptr(_f32(bk)), _ptr(_weight(wv, (c, dh), dev)),
@@ -184,15 +193,16 @@ keys_stream.launches = 0
 def t2i_tile_partials_plain(qn, kp, vp) -> torch.Tensor:
     """The per-tile partials :func:`keys_stream` stores for the next
     attention, in fp32: qn (N, tq2, dh) already scaled, kp and vp (N, T, dh)
-    -> (N, ceil(T / 128), heads * 8 * (16 + 2)). Per 128-token tile, head and
-    query: o = sum e vp, the max m and l = sum e, with e = exp(qn . kp - m)
-    over the tile's tokens below T (the last tile may be short). The slots of
-    absent queries hold zeros (the kernel leaves them unwritten)."""
+    -> (N, ceil(T / 128), heads * slots * (16 + 2)), slots =
+    :func:`part_slots` (tq2). Per 128-token tile, head and query: o = sum e
+    vp, the max m and l = sum e, with e = exp(qn . kp - m) over the tile's
+    tokens below T (the last tile may be short). The slots past tq2 hold
+    zeros (the kernel leaves them unwritten)."""
     n, tq2, dh = qn.shape
     t = kp.shape[1]
     heads, hd = KERNEL_HEADS, dh // KERNEL_HEADS
     tiles = -(-t // KERNEL_ROWS)
-    part = torch.zeros((n, tiles, heads, KERNEL_TQ_MAX, hd + 2), device=qn.device)
+    part = torch.zeros((n, tiles, heads, part_slots(tq2), hd + 2), device=qn.device)
     q = qn.float().reshape(n, tq2, heads, hd)
     for i in range(tiles):
         sl = slice(i * KERNEL_ROWS, min(t, (i + 1) * KERNEL_ROWS))
@@ -208,25 +218,39 @@ def t2i_tile_partials_plain(qn, kp, vp) -> torch.Tensor:
 
 
 def t2i_combine_plain(part: torch.Tensor, tq2: int) -> torch.Tensor:
-    """The per-tile partials of :func:`keys_stream` (N, tiles, heads * 8 *
-    (16 + 2)): o, max, sum per (head, query) -> (N, tq2, dh) bf16."""
+    """The per-tile partials of :func:`keys_stream` (N, tiles, heads *
+    :func:`part_slots` (tq2) * (16 + 2)): o, max, sum per (head, query) ->
+    (N, tq2, dh) bf16."""
     n, tiles, _ = part.shape
-    p = part.float().reshape(n, tiles, KERNEL_HEADS, KERNEL_TQ_MAX, _PART)[:, :, :, :tq2]
+    p = part.float().reshape(n, tiles, KERNEL_HEADS, part_slots(tq2), _PART)[:, :, :, :tq2]
     m = p[..., 16]
     w = torch.exp(m - m.amax(dim=1, keepdim=True))  # rescale each tile to the global max
     out = (p[..., :16] * w[..., None]).sum(1) / (p[..., 17] * w).sum(1)[..., None]
     return out.permute(0, 2, 1, 3).reshape(n, tq2, KERNEL_DH).to(torch.bfloat16)
 
 
+def _check_partials(part: torch.Tensor, tq2: int) -> None:
+    """The partials must be laid out for tq2 next queries: the kernel reads
+    them by that layout and would run past a smaller buffer."""
+    if part.dtype != torch.float32 or not part.is_contiguous() or part.dim() != 3:
+        raise ValueError(f"t2i_combine: needs contiguous fp32 partials (N, tiles, values), got "
+                         f"{part.dtype} {tuple(part.shape)} contiguous={part.is_contiguous()}")
+    want = KERNEL_HEADS * part_slots(tq2) * _PART
+    if part.shape[2] != want:
+        raise ValueError(f"t2i_combine: partials hold {part.shape[2]} values a tile; tq2 {tq2} "
+                         f"takes {want} ({KERNEL_HEADS} heads x {part_slots(tq2)} slots x {_PART})")
+
+
 def t2i_combine(part: torch.Tensor, tq2: int) -> torch.Tensor:
     """The next attention's output (N, tq2, dh) bf16 from the per-tile
     partials of :func:`keys_stream`; CUDA tensors launch
     ``t2i_combine_kernel``, see :func:`t2i_combine_plain`."""
+    _check_tokens("t2i_combine", tq2)
+    _check_partials(part, tq2)
     if _on_cpu(part):
         return t2i_combine_plain(part, tq2)
     refuse_grad("t2i_combine", part)
     n, tiles, _ = part.shape
-    _check_tokens("t2i_combine", tq2)
     out = torch.empty((n, tq2, KERNEL_DH), dtype=torch.bfloat16, device=part.device)
     err = kernels().ysi_t2i_combine(_ptr(part), _ptr(out), n, tiles, tq2,
                                     torch.cuda.current_stream(part.device).cuda_stream)
@@ -241,7 +265,7 @@ t2i_combine.launches = 0
 def t2i_attend(qp, kp, vp, heads: int, k_share: int = 1):
     """Token-to-image attention: qp (N, tq, dh) already scaled, kp/vp
     (N / k_share, T, dh) -> (N, tq, dh), head-major. CUDA tensors launch
-    ``t2i_attend_kernel`` (bf16, dh = 128, 8 heads, tq <= 8)."""
+    ``t2i_attend_kernel`` (bf16, dh = 128, 8 heads, any tq)."""
     if _on_cpu(qp):
         return t2i_attend_plain(qp, kp, vp, heads, k_share)
     refuse_grad("t2i_attend", qp, kp, vp)
@@ -321,6 +345,6 @@ def i2t_keys_update(keys_src, img_pe, kq, vq, wq, bq, wout, bout, ln_scale, ln_b
 
 __all__ = [
     "i2t_keys_update", "i2t_keys_update_plain", "keys_stream", "kv_project", "kv_project_plain",
-    "slab_schedule", "t2i_attend", "t2i_attend_plain", "t2i_combine", "t2i_combine_plain",
-    "t2i_shared_attend", "t2i_shared_attend_plain", "t2i_tile_partials_plain",
+    "part_slots", "slab_schedule", "t2i_attend", "t2i_attend_plain", "t2i_combine",
+    "t2i_combine_plain", "t2i_shared_attend", "t2i_shared_attend_plain", "t2i_tile_partials_plain",
 ]

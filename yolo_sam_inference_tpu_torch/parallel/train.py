@@ -64,13 +64,13 @@ TP_SHARDED = ("attn::qkv::w", "attn::qkv::b", "attn::proj::w", "mlp1::w", "mlp1:
 
 def module_name(key: str) -> Optional[str]:
     """The ``SamModel`` parameter of a JAX tree key (None for a leaf the
-    model does not hold: the prompt encoder's point and mask prompts)."""
+    model does not hold)."""
     parts = key.split("::")
     head, rest = parts[0], parts[1:]
     if key in ("shared_pe", "shared_image_pe"):
         return f"prompt.{key}"
     if head == "prompt":
-        return f"prompt.{rest[0]}" if rest[0] in ("point_embed", "no_mask") else None
+        return f"prompt.{rest[0]}" if rest[0] in ("point_embed", "not_a_point", "no_mask") else None
     if head == "decoder":
         return ".".join("inp" if p == "in" else p for p in parts)
     if head == "vision":
@@ -167,7 +167,7 @@ def forward(state, images, boxes, cfg, plain: bool = False):
     logits, iou = torch.func.functional_call(
         model, weights, (images.to(cd).to(dt), boxes), {"plain": plain, "encode": encode},
         strict=False)
-    return logits, iou[..., 0].float()
+    return logits[:, :, 0], iou[..., 0].float()
 
 
 def loss_terms(logits, iou_pred, masks, valid):
