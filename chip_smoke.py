@@ -28,7 +28,10 @@ failure ends the run with a non-zero exit and no result line:
    pass, ``t2i_combine``, ``t2i_attend`` with 16 prompts an image) at
    tq = tq2 in 7, 8, 9, 16, 17 and 34 prompt tokens (a box prompt's 7,
    point prompts' 5 + P + 1), each against its fp32 plain version (2%),
-   timed beside it, with the bound and (``t2i_attend``) SDPA;
+   timed beside it, with the bound and (``t2i_attend``) SDPA; K8
+   (``window_crop``) at config 1's and config 4's crops on the engine's
+   (N, 2) int64 starts and K9 (``hull_support``) from 512 ellipse masks of
+   128 x 128, each equal to its plain version, with its device time;
 3b. prompts: ViT-B at the 512 canvas (config 1's windows; seed 0, bf16, 8
    frames x 16 prompts) through ``SamModel``: point prompts (1, 3, 10
    points padded: tq 7, 9, 16), a box with 4 points (tq 11), 28 points (tq
@@ -40,7 +43,8 @@ failure ends the run with a non-zero exit and no result line:
    end to end);
 4. slice: the config-1 pipeline (YOLOv8n + SAM ViT-B, 512x512 uint8 frames,
    bf16, random weights from seed 0): one batch of 8 with every kernel's
-   launch count checked, the bf16 image embedding of one frame against the
+   launch count checked (every driven batch also checks that the plain hull
+   front end, ``hull_candidates``, never ran), the bf16 image embedding of one frame against the
    fp32 plain path on the same card, the bf16 decoder on that frame's prompts
    against the fp32 plain decoder, and a timed pass at batch 32;
 4b. K17: ``conv2d_act`` at its seven batch-32 shapes of the paths (the YOLO
@@ -337,6 +341,16 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def _hull_bound(masks, d: int) -> tuple:
+    """K9's bound: the bool crops read once, the (N, D, 2) fp32 points and
+    the (N,) flags written once; a score (2 mul, 1 add) for each candidate
+    these masks have, two for each row and each column with a pixel, and
+    each direction. The compares are no flops at the fp32 peak."""
+    n, h, w = masks.shape
+    live = 2 * (int(masks.any(2).sum()) + int(masks.any(1).sum()))
+    return _bound(3.0 * live * d, n * h * w + n * d * 2 * 4 + n, "fp32")
+
+
 
 def _int_mm_ms(a, w) -> float:
     """Median ms of ``torch._int_mm(a, w)``, the bare int8 product: a
@@ -625,19 +639,73 @@ def _fmt(ms) -> str:
 PROMPT_TQS = (7, 8, 9, 16, 17, 34)  # a box prompt's 7 prompt tokens; point prompts' 5 + P + 1
 
 
+def _crop_and_hull_kernels(n: int, c: int, g, errs: dict, times: dict, bounds: dict,
+                           device: dict) -> None:
+    """K8 and K9 at the config-1 batch-32 shapes (n prompts, c channels),
+    each exact against its plain version, timed by events and on the device,
+    with its bound; K8 also at config 4's crop."""
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import (after_l2_flush, device_ms,
+                                                           ellipse_masks, median_ms)
+    from yolo_sam_inference_tpu_torch.ops.hull_support import hull_support, hull_support_plain
+    from yolo_sam_inference_tpu_torch.ops.metrics import _hull_directions
+    from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop, window_crop_plain
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+
+    # window_crop: a copy, exact; the starts as the engine passes them (the
+    # two columns of one (N, 2) int64 tensor, read in place), at config 1's
+    # 11 x 11 windows of the 32 x 32 grid and config 4's 7 x 7 of 64 x 64
+    for key, gs, wg in (("window_crop", 32, 11), ("window_crop gs64", 64, 7)):
+        grid = randn(n, gs, gs, c)
+        starts = torch.randint(0, gs - wg + 1, (n, 2), generator=g).to(dev)
+        fn = lambda: window_crop(grid, starts[:, 0], starts[:, 1], wg)
+        ref = lambda: window_crop_plain(grid, starts[:, 0], starts[:, 1], wg)
+        got, want = fn(), ref()
+        _check(f"{key} ({n}x{gs}x{gs}x{c} -> {wg}x{wg})", got, want, 0.0, errs)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{key}: the kernel's copy differs from its plain version")
+        times[key] = (median_ms(fn), median_ms(ref))
+        # on the device with the L2 flushed before each call: in the
+        # pipeline K7 has just written the 268 MB grid; back-to-back calls
+        # would find the windows in L2. Also after a 256 MB write, which
+        # leaves the L2 full of dirty lines, as K7 does
+        device[key] = (device_ms(after_l2_flush(fn), "window_crop"), None)
+        bounds[key] = _bound(0.0, 2 * n * wg * wg * c * 2 + _nbytes(starts))  # the crops only
+        dirty = torch.empty(64 << 20, device=dev)
+        after_write = lambda: (dirty.fill_(1.0), fn())
+        _say("kernels", f"{key}: device {_fmt(device[key][0])} after a 256 MB read, "
+                        f"{_fmt(device_ms(after_write, 'window_crop'))} after a 256 MB write, "
+                        f"{_fmt(device_ms(fn, 'window_crop'))} warm (L2 kept between calls)")
+        del grid, dirty
+    # hull_support: elliptical 128 x 128 masks to support points, exact
+    masks = torch.from_numpy(ellipse_masks(np.random.default_rng(1), n, 128)).to(dev)
+    dirs = torch.from_numpy(_hull_directions(256)).to(dev)
+    fn, ref = lambda: hull_support(masks, dirs), lambda: hull_support_plain(masks, dirs)
+    for part, got, want in zip(("points", "non-empty"), fn(), ref()):
+        _check(f"hull_support ({n} cells of 128 x 128 x 256 directions): {part}", got, want, 0.0,
+               errs)
+        if not torch.equal(got, want):
+            raise AssertionError(f"hull_support: the kernel's {part} differ from the plain version")
+    times["hull_support"] = (median_ms(fn), median_ms(ref))
+    device["hull_support"] = (device_ms(fn, "hull_support"), None)
+    bounds["hull_support"] = _hull_bound(masks, 256)
+
+
 def _decoder_kernel_phase(card: str) -> dict:
     """The decoder, crop and hull kernels at the config-1 batch-32 shapes:
     B*K = 512 prompt streams of 1024 tokens x 256 channels, 7 prompt tokens
     (layer 1 also at each of PROMPT_TQS), 8 heads of 16; an 11 x 11 crop of
     the 32 x 32 grid; 512 candidates x 256 directions per cell."""
-    import numpy as np
     import torch
 
     from yolo_sam_inference_tpu_torch.bench.common import median_ms
     from yolo_sam_inference_tpu_torch.ops import decoder_fused as dec
-    from yolo_sam_inference_tpu_torch.ops.hull_support import support_points, support_points_plain
-    from yolo_sam_inference_tpu_torch.ops.metrics import _hull_candidates, _hull_directions
-    from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop, window_crop_plain
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device="cpu").manual_seed(1)
@@ -657,6 +725,7 @@ def _decoder_kernel_phase(card: str) -> dict:
     times: dict = {}
     bounds: dict = {}
     library: dict = {}
+    device: dict = {}
 
     # keys_stream: the i2t pass of layer 0 (per-image keys shared by 16
     # prompts) and layer 1, each with the next attention split over the tiles
@@ -747,28 +816,8 @@ def _decoder_kernel_phase(card: str) -> dict:
     # 5 + P + 1 (above 8 the kernels take their grouped form)
     for tq_ in PROMPT_TQS:
         layer1(keys, pe, tq_, f"tq{tq_}")
-    # window_crop: a copy, exact
-    grid = randn(n, 32, 32, c)
-    r0, c0 = (torch.randint(0, 32 - 11 + 1, (n,), generator=g).to(dev) for _ in range(2))
-    fn, ref = lambda: window_crop(grid, r0, c0, 11), lambda: window_crop_plain(grid, r0, c0, 11)
-    _check("window_crop (512x32x32x256 -> 11x11)", fn(), ref(), 0.0, errs)
-    times["window_crop"] = (median_ms(fn), median_ms(ref))
-    bounds["window_crop"] = _bound(0.0, 2 * n * 11 * 11 * c * 2 + _nbytes(r0, c0))  # the crops only
-    # hull_support: candidates of elliptical 128 x 128 masks, exact
-    rng = np.random.default_rng(1)
-    yy, xx = np.mgrid[:128, :128]
-    cy, cx, ry, rx = (rng.uniform(lo, hi, size=(n, 1, 1)) for lo, hi in
-                      ((40, 88), (40, 88), (8, 40), (8, 40)))
-    masks = torch.from_numpy(((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0).to(dev)
-    pts, _ = _hull_candidates(masks)
-    dirs = torch.from_numpy(_hull_directions(256)).to(dev)
-    fn, ref = lambda: support_points(pts, dirs), lambda: support_points_plain(pts, dirs)
-    _check(f"hull_support ({n} cells x {pts.shape[1]} candidates x 256 directions)", fn(), ref(),
-           0.0, errs)
-    times["hull_support"] = (median_ms(fn), median_ms(ref))
-    # a dot product (2 mul, 1 add) and a compare per candidate and direction
-    bounds["hull_support"] = _bound(4.0 * n * pts.shape[1] * 256, _nbytes(pts, dirs, fn()), "fp32")
-    del keys, grid
+    _crop_and_hull_kernels(n, c, g, errs, times, bounds, device)
+    del keys
     torch.cuda.empty_cache()
 
     # the grids of the 224 and 448 canvases: T = 196 and 784 tokens, whose
@@ -797,9 +846,11 @@ def _decoder_kernel_phase(card: str) -> dict:
         extra = f", bound {bounds[name][0]:.4f} ms ({bounds[name][1]})" if name in bounds else ""
         if name in library:
             extra += f", library {library[name]:.4f} ms"
+        if name in device:
+            extra += f", device {_fmt(device[name][0])}"
         _say("kernels", f"{name}: kernel {ms:.4f} ms, plain {plain:.4f} ms{extra} [{card}]")
     torch.cuda.synchronize()
-    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library, "device": device}
 
 
 PROMPT_DECODER_COUNTS = {"layer_norm": 8, "keys_stream": 3, "t2i_attend": 1, "t2i_combine": 2}
@@ -2829,8 +2880,9 @@ def _classical_phase(card: str) -> dict:
     )
     from yolo_sam_inference_tpu_torch.io.png_native import decode_png
     from yolo_sam_inference_tpu_torch.ops import morphology as tm
-    from yolo_sam_inference_tpu_torch.ops.hull_support import support_points, support_points_plain
-    from yolo_sam_inference_tpu_torch.ops.metrics import _hull_candidates, _hull_directions
+    from yolo_sam_inference_tpu_torch.bench.common import device_ms
+    from yolo_sam_inference_tpu_torch.ops.hull_support import hull_support, hull_support_plain
+    from yolo_sam_inference_tpu_torch.ops.metrics import _hull_directions
 
     phase_t0 = time.perf_counter()
     rng = np.random.default_rng(16)
@@ -2953,14 +3005,18 @@ def _classical_phase(card: str) -> dict:
                           f"[{card}]")
         # K9 at this batch's cells
         crops = torch.from_numpy(np.stack([c for fr in comps for c, _ in fr])).cuda()
-        pts, _ = _hull_candidates(crops)
         dirs = torch.from_numpy(_hull_directions(256)).cuda()
-        fn, ref = lambda: support_points(pts, dirs), lambda: support_points_plain(pts, dirs)
-        _check(f"hull_support classical ({ncell} cells x {pts.shape[1]} candidates x 256 "
-               f"directions)", fn(), ref(), 0.0, result["errs"])
+        fn, ref = lambda: hull_support(crops, dirs), lambda: hull_support_plain(crops, dirs)
+        for part, got, want in zip(("points", "non-empty"), fn(), ref()):
+            _check(f"hull_support classical ({ncell} cells of {tuple(crops.shape[1:])} x 256 "
+                   f"directions): {part}", got, want, 0.0, result["errs"])
+            if not torch.equal(got, want):
+                raise AssertionError(f"classical: K9's {part} differ from the plain version")
         result["k9"] = {"times": (median_ms(fn), median_ms(ref)),
-                        "bound": _bound(4.0 * ncell * pts.shape[1] * 256,
-                                        _nbytes(pts, dirs, fn()), "fp32")}
+                        "device": (device_ms(fn, "hull_support"), None),
+                        "bound": _hull_bound(crops, 256)}
+        _say("classical", f"K9 at the batch's cells: device {_fmt(result['k9']['device'][0])} "
+                          f"[{card}]")
 
         # visualizations on 4 frames
         vis = td / "vis" / "cond_v" / "batch_1_output" / "cropped_roi_with_target"
@@ -3619,7 +3675,7 @@ def _wrappers() -> dict:
         flash_attention_relpos,
         window_attention,
     )
-    from yolo_sam_inference_tpu_torch.ops.hull_support import support_points
+    from yolo_sam_inference_tpu_torch.ops.hull_support import hull_support
     from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop
 
     return {"gemm_bf16": tln.gemm_bf16, "window_attn_relpos": window_attention,
@@ -3633,7 +3689,7 @@ def _wrappers() -> dict:
             "patch_merge_block": tmb.patch_merge_block, "dw_conv3x3": tdw.dw_conv3x3,
             "layer_norm": tln.layer_norm, "keys_stream": dec.keys_stream,
             "t2i_attend": dec.t2i_attend, "t2i_combine": dec.t2i_combine,
-            "window_crop": window_crop, "hull_support": support_points,
+            "window_crop": window_crop, "hull_support": hull_support,
             "conv2d_act": tcv.conv2d_act}
 
 
@@ -3687,14 +3743,18 @@ def _drive(tag: str, pipe, frames, max_det: int, expected: dict, by_window=None,
     import numpy as np
     import torch
 
+    from yolo_sam_inference_tpu_torch.ops.hull_support import hull_candidates
     from yolo_sam_inference_tpu_torch.ops.metrics import METRIC_KEYS
 
     wrappers = _reset_counts()
+    hull_candidates.calls = 0
     t0 = time.perf_counter()
     out = pipe.process_batch_arrays(frames)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = _read_counts(tag, wrappers, expected, by_window, by_nq)
+    if hull_candidates.calls:  # K9 takes the masks: the plain front end stays off the card
+        raise AssertionError(f"{tag}: the plain hull front end ran {hull_candidates.calls} times")
     b = frames.shape[0]
     cm = min(pipe.options.metric_crop, frames.shape[1], frames.shape[2])
     if out["mask_crops"].shape != (b, max_det, cm, cm) or out["boxes"].shape != (b, max_det, 4):
@@ -4721,21 +4781,29 @@ def main() -> int:
                         "over the tiles)", "t2i_combine tq7"),
         ("t2i_attend", "ops/decoder_fused.py:231 t2i_shared_attend", "t2i_attend tq7"),
         ("window_crop", "ops/window_crop.py:46 window_crop", "window_crop"),
-        ("hull_support", "ops/hull_support.py:55 support_vertices_tpu", "hull_support"),
+        ("hull_support", "ops/hull_support.py:55 support_vertices_tpu (+ the candidates of "
+                         "ops/metrics.py:148 _hull_candidate_scores)", "hull_support"),
     ):
         src = "decoder_keys.cu" if name.startswith(("keys", "t2i")) else f"{name}.cu"
         table.append(entry(name, "cuda", f"csrc/{src}", replaces, sp["launches"][name],
-                           dp["errs"][name], dt[timed], db[timed], dp["library"].get(timed)))
+                           dp["errs"][name], dt[timed], db[timed], dp["library"].get(timed),
+                           dp["device"].get(timed, (None, None))))
+    # K8 at config 4's 7 x 7 windows of the 64 x 64 grid
+    table.append(entry("window_crop gs64", "cuda", "csrc/window_crop.cu",
+                       "ops/window_crop.py:46 window_crop", lf["config 4"]["window_crop"],
+                       dp["errs"]["window_crop"], dt["window_crop gs64"], db["window_crop gs64"],
+                       None, dp["device"]["window_crop gs64"]))
     # K9 under hull_mode="reference" (config 1 from checkpoint files): the same call
     table.append(entry("hull_support reference", "cuda", "csrc/hull_support.cu",
                        "ops/hull_support.py:55 support_vertices_tpu (hull_mode=\"reference\")",
                        cp["ref_launches"]["hull_support"], dp["errs"]["hull_support"],
-                       dt["hull_support"], db["hull_support"], dp["library"].get("hull_support")))
+                       dt["hull_support"], db["hull_support"], dp["library"].get("hull_support"),
+                       dp["device"]["hull_support"]))
     # K9 on the classical path: one launch a batch over its frames' cells
     table.append(entry("hull_support classical", "cuda", "csrc/hull_support.cu",
                        "ops/hull_support.py:55 support_vertices_tpu (classical/pipeline.py's "
                        "metrics)", clp["launches"]["hull_support"], clp["errs"]["hull_support"],
-                       clp["k9"]["times"], clp["k9"]["bound"]))
+                       clp["k9"]["times"], clp["k9"]["bound"], None, clp["k9"]["device"]))
     # at T = 784 (the 448 canvas's grid of 28: a short last tile)
     for name, replaces in (("keys_stream", "ops/decoder_fused.py:298 i2t_keys_update"),
                            ("t2i_combine", "ops/decoder_fused.py:298 i2t_keys_update (its "

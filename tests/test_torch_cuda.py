@@ -30,7 +30,11 @@ from yolo_sam_inference_tpu_torch.ops.flash_attention import (
 from yolo_sam_inference_tpu_torch.ops import dw_ln_mlp as tdw
 from yolo_sam_inference_tpu_torch.ops import mbconv_fused as tmb
 from yolo_sam_inference_tpu_torch.ops import tinyvit_attention as ttv
-from yolo_sam_inference_tpu_torch.ops.hull_support import support_points, support_points_plain
+from yolo_sam_inference_tpu_torch.ops.hull_support import (
+    hull_candidates,
+    hull_support,
+    hull_support_plain,
+)
 from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop, window_crop_plain
 
 
@@ -564,17 +568,119 @@ def test_window_crop_vs_plain(gen):
 
 
 @pytest.mark.cuda
-def test_support_points_vs_plain(gen):
-    n, p, d = 20, 512, 256
-    pts = (torch.randint(0, 128, (n, p, 2), generator=gen).float() - 0.5).cuda()
-    pts[:, ::7] = pts[:, 3:4]  # repeated candidates: exact score ties
+@pytest.mark.parametrize("n,gs,wg,c", [
+    (512, 32, 11, 256),   # config 1
+    (512, 64, 7, 256),    # config 4
+    (37, 64, 35, 256),    # a wide window
+    (5, 16, 16, 64),      # the whole grid, narrow C
+    (3, 14, 9, 8)])
+def test_window_crop_reads_the_engines_starts(gen, n, gs, wg, c):
+    """The kernel reads the starts in place: the two columns of one (N, 2)
+    tensor (strided views), some outside [0, gs - wg]; one launch, nothing
+    else on the stream (no cast), and a copy of its plain version."""
+    grid = _randn(gen, n, gs, gs, c)
+    starts = torch.randint(-3, gs - wg + 4, (n, 2), generator=gen).cuda()
+    before = window_crop.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = window_crop(grid, starts[:, 0], starts[:, 1], wg)
+        torch.cuda.synchronize()
+    assert window_crop.launches == before + 1
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert all("window_crop" in name for name in names), names
+    assert torch.equal(got, window_crop_plain(grid, starts[:, 0], starts[:, 1], wg))
+
+
+@pytest.mark.cuda
+def test_window_crop_refuses_what_the_kernel_does_not_take(gen):
+    grid = _randn(gen, 4, 16, 16, 256)
+    starts = torch.zeros(4, 2, dtype=torch.int64, device="cuda")
+    for bad in (starts.float(), starts.int(), starts.cpu(), starts[:3]):
+        with pytest.raises(ValueError):
+            window_crop(grid, bad[:, 0], bad[:, 1], 8)
+    with pytest.raises(ValueError):  # c0 of another type than r0
+        window_crop(grid, starts[:, 0], starts[:, 1].int(), 8)
+    with pytest.raises(ValueError):  # C no multiple of 8
+        window_crop(_randn(gen, 4, 16, 16, 36), starts[:, 0], starts[:, 1], 8)
+
+
+def _hull_case(case: str, h: int, w: int) -> torch.Tensor:
+    """A (h, w) bool crop: empty, one pixel, full, an ellipse touching all
+    four edges, or a random blob (three ellipses, some off the crop)."""
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float64),
+                            torch.arange(w, dtype=torch.float64), indexing="ij")
+    m = torch.zeros(h, w, dtype=torch.bool)
+    if case == "one pixel":
+        m[h // 3, w // 2] = True
+    elif case == "full":
+        m[:] = True
+    elif case == "four edges":
+        m = ((yy - (h - 1) / 2) / (h / 2)) ** 2 + ((xx - (w - 1) / 2) / (w / 2)) ** 2 <= 1.0
+    elif case == "blob":
+        g = torch.Generator().manual_seed(h * w)
+        for _ in range(3):
+            cy, cx = (torch.rand(2, generator=g, dtype=torch.float64) * 0.8 + 0.1) * torch.tensor(
+                [h, w])
+            ry, rx = (torch.rand(2, generator=g, dtype=torch.float64) * 0.35 + 0.05) * torch.tensor(
+                [h, w])
+            m |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+    return m
+
+
+def _dirs(d: int) -> torch.Tensor:
     ang = torch.arange(d, dtype=torch.float64) * (2 * torch.pi / d)
-    dirs = torch.stack([ang.cos(), ang.sin()], 1).float().cuda()
-    before = support_points.launches
-    got = support_points(pts, dirs)
-    assert support_points.launches == before + 1
-    # the same rounded fp32 scores and the same tie-break: identical points
-    assert torch.equal(got, support_points_plain(pts, dirs))
+    return torch.stack([ang.cos(), ang.sin()], 1).float().cuda()
+
+
+@pytest.mark.cuda
+def test_support_points_vs_plain(gen):
+    """K9 from the masks at config 1's shape: 512 ellipse crops of 128 x 128
+    (some touching the edges, a few empty), 256 directions: the same rounded
+    fp32 scores and the same tie-break, so identical points and flags; one
+    launch and no plain front end."""
+    yy, xx = torch.meshgrid(torch.arange(128.0), torch.arange(128.0), indexing="ij")
+    c = torch.rand(512, 2, 1, 1, generator=gen) * 88 + 20
+    ax = torch.rand(512, 2, 1, 1, generator=gen) * 40 + 2
+    masks = (((yy - c[:, 0]) / ax[:, 0]) ** 2 + ((xx - c[:, 1]) / ax[:, 1]) ** 2 <= 1.0)
+    masks[::97] = False
+    masks, dirs = masks.cuda(), _dirs(256)
+    before, fronts = hull_support.launches, hull_candidates.calls
+    got, got_any = hull_support(masks, dirs)
+    assert hull_support.launches == before + 1 and hull_candidates.calls == fronts
+    want, want_any = hull_support_plain(masks, dirs)
+    assert torch.equal(got, want) and torch.equal(got_any, want_any)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(64, 64), (128, 128), (256, 256), (99, 101), (37, 256),
+                                 (300, 258), (2048, 2048)])
+@pytest.mark.parametrize("case", ["empty", "one pixel", "full", "four edges", "blob"])
+def test_hull_support_edge_cases_vs_plain(gen, case, h, w):
+    """K9's edge cases at crops of 64, 128 and 256 (one tile), sides that are
+    no multiple of 16 or 4 (byte loads, the byte pass), a flat crop, masks
+    of several tiles (300 x 258: word and byte tiles; a 2048 x 2048 frame,
+    the largest it takes), with a direction count that is no multiple of
+    32: equal to the plain version."""
+    masks = torch.stack([_hull_case(case, h, w), _hull_case("blob", h, w)]).cuda()
+    for d in (256, 100):
+        got, got_any = hull_support(masks, _dirs(d))
+        want, want_any = hull_support_plain(masks, _dirs(d))
+        assert torch.equal(got, want) and torch.equal(got_any, want_any), (case, d)
+
+
+@pytest.mark.cuda
+def test_hull_support_refuses_what_the_kernel_does_not_take(gen):
+    dirs = _dirs(256)
+    for bad in (torch.zeros(2, 2049, 8, dtype=torch.bool, device="cuda"),
+                torch.zeros(2, 64, 64, device="cuda"),
+                torch.zeros(2, 64, 128, dtype=torch.bool, device="cuda")[:, :, ::2]):
+        with pytest.raises(ValueError):
+            hull_support(bad, dirs)
+    with pytest.raises(ValueError):
+        hull_support(torch.zeros(2, 64, 64, dtype=torch.bool, device="cuda"), dirs.double())
+    with pytest.raises(ValueError):  # no direction: nothing to select
+        hull_support(torch.ones(2, 64, 64, dtype=torch.bool, device="cuda"), dirs[:0])
+    pts, flags = hull_support(torch.zeros(0, 64, 64, dtype=torch.bool, device="cuda"), dirs)
+    assert pts.shape == (0, 256, 2) and flags.shape == (0,)
 
 
 # ---------------------------------------------------------------- MobileSAM
@@ -804,7 +910,6 @@ def test_rasterized_hull_on_the_card_equals_the_cpu(gen):
     """``hull_mode="reference"``: on a CUDA tensor the support vertices come
     from K9's kernel, and the rasterised hull's measures equal the CPU plain
     path's (areas exact, perimeters to fp32 summation order)."""
-    from yolo_sam_inference_tpu_torch.ops.hull_support import support_points
     from yolo_sam_inference_tpu_torch.ops.metrics import rasterized_hull_measures
 
     yy, xx = torch.meshgrid(torch.arange(128.0), torch.arange(128.0), indexing="ij")
@@ -813,9 +918,9 @@ def test_rasterized_hull_on_the_card_equals_the_cpu(gen):
     ax = torch.rand(64, 2, 1, 1, generator=gen) * 28 + 6
     masks = ((yy - c[:, 0]) / ax[:, 0]) ** 2 + ((xx - c[:, 1]) / ax[:, 1]) ** 2 <= 1.0
     masks[-1] = False
-    before = support_points.launches
+    before = hull_support.launches
     area, perim = rasterized_hull_measures(masks.cuda())
-    assert support_points.launches == before + 1
+    assert hull_support.launches == before + 1
     want_a, want_p = rasterized_hull_measures(masks)
     assert torch.equal(area.cpu(), want_a) and want_a[-1] == 0 and (want_a[:-1] > 0).all()
     torch.testing.assert_close(perim.cpu(), want_p, rtol=1e-5, atol=0)
@@ -1029,15 +1134,14 @@ def test_classical_pipeline_on_the_card_equals_the_cpu(gen):
     """``ClassicalPipeline`` on the card: the rows of the CPU port's (ints
     exact, floats 1e-5) and K9 once for the batch."""
     from yolo_sam_inference_tpu_torch.classical.pipeline import ClassicalParams, ClassicalPipeline
-    from yolo_sam_inference_tpu_torch.ops.hull_support import support_points
 
     frames, bg = _classical_frames(gen, 8, 256)
     params = ClassicalParams(threshold=10.0, min_area=30)
     card = ClassicalPipeline(params)
     card.preprocess_background(bg.numpy())
-    before = support_points.launches
+    before = hull_support.launches
     got = card.process_images(frames.numpy(), return_masks=True)
-    assert support_points.launches == before + 1
+    assert hull_support.launches == before + 1
     want = ClassicalPipeline(params, device="cpu").process_images(
         frames.numpy(), background=bg.numpy(), return_masks=True)
     import numpy as np
@@ -1277,7 +1381,7 @@ def test_kernels_without_a_gradient_refuse_on_the_card(gen):
     """The other kernel entries raise where autograd would record them (a
     CUDA input that requires a gradient), and launch under no_grad."""
     grid = _randn(gen, 4, 16, 16, 256).requires_grad_()
-    starts = torch.zeros(4, dtype=torch.int32, device="cuda")
+    starts = torch.zeros(4, dtype=torch.int64, device="cuda")
     with pytest.raises(RuntimeError, match="has no gradient"):
         window_crop(grid, starts, starts, 8)
     x = _randn(gen, 2, 16, 16, 64).requires_grad_()

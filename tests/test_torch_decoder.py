@@ -22,7 +22,7 @@ from yolo_sam_inference_tpu.ops.hull_support import support_vertices_tpu
 from yolo_sam_inference_tpu.ops.window_crop import window_crop as j_window_crop
 from yolo_sam_inference_tpu_torch.models.sam import SamModel
 from yolo_sam_inference_tpu_torch.ops import decoder_fused as dec
-from yolo_sam_inference_tpu_torch.ops.hull_support import support_points
+from yolo_sam_inference_tpu_torch.ops.hull_support import support_points_plain
 from yolo_sam_inference_tpu_torch.ops.metrics import _hull_directions
 from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop
 
@@ -211,7 +211,7 @@ def test_support_points_match_jax_kernel():
     top = pts[:, :, 0].max(axis=1)
     pts[:, 0, 0] = pts[:, 1, 0] = top + 1.0  # two candidates share the largest r
     dirs = _hull_directions(64)
-    got = support_points(torch.from_numpy(pts), torch.from_numpy(dirs)).numpy()
+    got = support_points_plain(torch.from_numpy(pts), torch.from_numpy(dirs)).numpy()
     want = np.asarray(support_vertices_tpu(jnp.asarray(pts.transpose(0, 2, 1)),
                                            jnp.asarray(dirs), interpret=True)).transpose(0, 2, 1)
     np.testing.assert_array_equal(got, want)

@@ -128,6 +128,41 @@ def test_sam_preprocess_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
 
 
+def test_box_mappings_match_jax():
+    """``scale_boxes_from_letterbox`` and ``boxes_to_sam_coords`` (JAX
+    ``ops/preprocess.py:73-87``): a letterboxed box back to the frame, then
+    to the SAM canvas, in fp32."""
+    rng = np.random.default_rng(5)
+    boxes = rng.uniform(0, 640, size=(2, 7, 4)).astype(np.float32)
+    for scale, pad, sam_scale in ((0.625, (0, 80), 1024 / 512), (1.25, (16, 0), 0.5)):
+        got = preprocess.scale_boxes_from_letterbox(torch.from_numpy(boxes), scale, pad)
+        want = jpre.scale_boxes_from_letterbox(jnp.asarray(boxes), scale, pad)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-5)
+        got = preprocess.boxes_to_sam_coords(got, sam_scale)
+        want = jpre.boxes_to_sam_coords(want, sam_scale)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,out_hw,dtype", [
+    ((2, 3, 32, 32), (128, 128), np.float32),  # the mask head's 4x upsample
+    ((5, 17, 23), (40, 31), np.float32),       # odd sizes, both ways up
+    ((3, 64, 48), (20, 48), np.float32),       # a shrink (antialiased) and an identity axis
+    ((2, 9, 9), (9, 9), np.float32),           # the identity
+    ((4, 12, 10), (36, 25), bool)])            # bool masks come out fp32
+def test_upsample_masks_bilinear_matches_jax(shape, out_hw, dtype):
+    """``upsample_masks_bilinear`` (JAX ``ops/preprocess.py:90-95``):
+    ``jax.image.resize``'s half-pixel bilinear on the last two axes."""
+    rng = np.random.default_rng(sum(shape))
+    masks = rng.normal(size=shape).astype(np.float32)
+    masks = masks > 0 if dtype is bool else masks
+    got = preprocess.upsample_masks_bilinear(torch.from_numpy(masks), *out_hw)
+    want = np.asarray(jpre.upsample_masks_bilinear(jnp.asarray(masks), *out_hw))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    assert tuple(got.shape) == want.shape == shape[:-2] + out_hw
+    # the same triangle weights in fp32, summed in another order
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_batched_nms_matches_jax():
     rng = np.random.default_rng(4)
     b, n = 3, 200

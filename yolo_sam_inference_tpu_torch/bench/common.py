@@ -62,7 +62,13 @@ def device_ms(fn, name: str, reps: int = 20):
     """Mean device time in ms of the kernels whose name holds ``name`` in one
     call of ``fn()``, from ``torch.profiler`` (CUPTI); None where the
     profiler recorded none. Unlike :func:`median_ms` it leaves out the host
-    time of a short call.
+    time of a short call. See :func:`device_ms_count`."""
+    return device_ms_count(fn, name, reps)[0]
+
+
+def device_ms_count(fn, name: str, reps: int = 20):
+    """(:func:`device_ms`, the number of those kernels a call); (None, None)
+    where not measured.
 
     The profiler may return no record for the last kernels of a session (on
     an H100, a session of one call often returned none, and late in
@@ -94,15 +100,31 @@ def device_ms(fn, name: str, reps: int = 20):
     events = prof.events()
     window = [e.time_range for e in events if e.name == mark and e.device_type == DeviceType.CPU]
     if not window:
-        return None
+        return None, None
     us = [e.time_range.end - e.time_range.start for e in events
           if e.device_type == DeviceType.CUDA and name in e.name and e.name != mark
           and window[0].start <= e.time_range.start <= window[0].end]
     if not us or len(us) % reps:
         print(f"device_ms {name!r}: {len(us)} kernel records in a window of {reps} calls: "
               f"not measured", file=sys.stderr, flush=True)
-        return None
-    return sum(us) / reps / 1e3
+        return None, None
+    return sum(us) / reps / 1e3, len(us) // reps
+
+
+def after_l2_flush(fn, nbytes: int = 256 << 20):
+    """``fn`` preceded by a read of ``nbytes`` of other device memory, which
+    leaves none of ``fn``'s inputs in an H100's 50 MB L2 cache. Time its
+    kernels by name (:func:`device_ms`) to see them as a caller does whose
+    inputs were written long before; events would time the read too."""
+    import torch
+
+    other = torch.zeros(nbytes // 4, device="cuda")
+
+    def call():
+        other.sum()
+        return fn()
+
+    return call
 
 
 def cell_frames(rng, n: int, size: int, cells: int = 12):
@@ -122,6 +144,20 @@ def cell_frames(rng, n: int, size: int, cells: int = 12):
             box[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0] = rng.uniform(150, 220)
         frames[i] = img.clip(0, 255).astype(np.uint8)[..., None]
     return frames
+
+
+def ellipse_masks(rng, n: int, size: int):
+    """bool (n, size, size) numpy crops, each one ellipse: centre within the
+    middle three eighths of the crop, radii from size / 16 to 5 size / 16
+    (so some touch the crop's edges). At size 128 these are the cells that
+    ``chip_smoke.py`` holds K9 to."""
+    import numpy as np
+
+    yy, xx = np.mgrid[:size, :size]
+    centre, radius = (size * 5 / 16, size * 11 / 16), (size / 16, size * 5 / 16)
+    cy, cx, ry, rx = (rng.uniform(lo, hi, size=(n, 1, 1))
+                      for lo, hi in (centre, centre, radius, radius))
+    return ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
 
 
 def write_png(path, image, filter_type: int = 0) -> None:

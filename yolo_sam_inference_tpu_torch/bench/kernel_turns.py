@@ -42,10 +42,16 @@ grid at hd 64 (ViT-B) and hd 80 (ViT-H) and at the 48 x 48 and 64 x 64
 grids' global layers; the w8a8
 functions (K11a at ViT-L, K11b at ViT-H, K11c at both, 32768 rows) and
 ``int8_linear`` at the flat route's 51200 rows (qkv, mlp1 + GELU, mlp2),
-with the bare int8 products on ``torch._int_mm`` beside them. Beside each
-K7, K14, K15, K13, K12, LayerNorm, K3 and w8a8 time, the device time of the kernels of the
-call. Prints the card, then one ``[TAG] name: ms`` line per call. Needs one
-card.
+with the bare int8 products on ``torch._int_mm`` beside them; K8
+(``window_crop``) at config 1 (512 windows of 11 x 11 on 32 x 32 grids) and
+config 4 (7 x 7 on 64 x 64), 256 channels, the starts as the engine passes
+them, also with the L2 flushed before each call (``common.after_l2_flush``); K9 on 128 x 128 ellipse crops (``common.ellipse_masks``) at config
+1's 512 cells and the classical batch's 95: the kernel alone, the metrics'
+masks-to-support-points call (``_hull_vertices``), the candidates' plain
+front end, and config 1's whole ``metrics_stage``. Beside each K7, K14,
+K15, K13, K12, LayerNorm, K3, w8a8, K8 and K9 time, the device time of the
+kernels of the call and their count a call. Prints the card, then one
+``[TAG] name: ms`` line per call. Needs one card.
 """
 
 from __future__ import annotations
@@ -87,7 +93,7 @@ def main() -> None:
     from yolo_sam_inference_tpu_torch.ops import quant as tquant
 
     assert tln.__file__.startswith(args.tree), tln.__file__
-    median_ms, device_ms = common.median_ms, common.device_ms
+    median_ms, device_ms_count = common.median_ms, common.device_ms_count
     print(common.card(), flush=True)
     g = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
@@ -102,12 +108,13 @@ def main() -> None:
             fn()
         torch.cuda.synchronize()
         ms = median_ms(fn)
-        dev = "" if kernel is None else device_ms(fn, kernel)
+        dev, nk = (None, None) if kernel is None else device_ms_count(fn, kernel)
         dev = "" if kernel is None else (", device not measured" if dev is None
-                                         else f", device {dev:.4f}")
+                                         else f", device {dev:.4f} ({nk} kernels a call)")
         print(f"[{args.tag}] {name}: {ms:.4f}{dev}", flush=True)
 
     b, k, tq = 32, 16, 7
+    _crop_and_hull(say, rn, g, common, b, k)
     qp = rn(b * k, tq, 128, std=0.25).to(bf)
     for t in (196, 784, 1024, 4096):
         kp, vp = rn(b, t, 128).to(bf), rn(b, t, 128).to(bf)
@@ -332,6 +339,58 @@ def main() -> None:
             lambda: tln.int8_linear(x, wq, ws, bb, gelu=gelu), "")
         int_mm(rows, ci, wq)
         del x
+
+
+
+def _crop_and_hull(say, rn, g, common, b: int, k: int) -> None:
+    """K8 at config 1 (gs 32, wg 11) and config 4 (gs 64, wg 7): ``b * k``
+    prompts' windows of 256 channels, the starts as the engine passes them
+    (the two columns of its (N, 2) int64 tensor); then K9 and the metrics
+    stage around it."""
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.ops import hull_support as thull
+    from yolo_sam_inference_tpu_torch.ops import metrics as tmet
+    from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop
+    from yolo_sam_inference_tpu_torch.pipeline import engine as teng
+
+    bf = torch.bfloat16
+    for label, gs, wg in (("config 1", 32, 11), ("config 4", 64, 7)):
+        grid = rn(b * k, gs, gs, 256).to(bf)
+        starts = torch.randint(0, gs - wg + 1, (b * k, 2), generator=g).cuda()
+        crop = lambda: window_crop(grid, starts[:, 0], starts[:, 1], wg)
+        say(f"window_crop {label} gs{gs} wg{wg}", crop, "window_crop")
+        say(f"window_crop {label} gs{gs} wg{wg} (every kernel of the call)", crop, "")
+        say(f"window_crop {label} gs{gs} wg{wg} (L2 flushed before each call; events time the "
+            f"flush too)", common.after_l2_flush(crop), "window_crop")
+        del grid
+    # K9 (hull support) on 128 x 128 ellipse crops: config 1's 512 cells and
+    # the classical batch's 95; the kernel alone (a tree with the points form
+    # takes candidates made beforehand), the masks-to-points call of the
+    # metrics (_hull_vertices: the candidates' front end and K9 in the
+    # parent), the front end alone where the tree has it, and config 1's
+    # whole metrics stage (16 metrics of 32 x 16 crops)
+    dirs = torch.from_numpy(tmet._hull_directions(256)).cuda()
+    rng = np.random.default_rng(1)
+    for label, cells in (("config 1", b * k), ("classical batch", 95)):
+        masks = torch.from_numpy(common.ellipse_masks(rng, cells, 128)).cuda()
+        if hasattr(thull, "support_points"):  # the points form
+            pts = tmet._hull_candidates(masks)[0]
+            kernel = lambda: thull.support_points(pts, dirs)
+        else:
+            kernel = lambda: thull.hull_support(masks, dirs)
+        say(f"hull_support {label} ({cells} cells, kernel alone)", kernel, "hull_support")
+        say(f"hull_vertices {label} ({cells} cells, masks to points)",
+            lambda: tmet._hull_vertices(masks, 256), "")
+        cands = getattr(thull, "hull_candidates", getattr(tmet, "_hull_candidates", None))
+        say(f"hull_candidates {label} ({cells} cells, the front end)", lambda: cands(masks), "")
+    crops = torch.from_numpy(common.ellipse_masks(rng, b * k, 128)).cuda().reshape(b, k, 128, 128)
+    offsets = torch.randint(0, 512 - 128 + 1, (b, k, 2), generator=g).cuda()
+    gray = (torch.rand(b, 512, 512, generator=g) * 255).cuda()
+    opts = teng.PipelineOptions(batch_size=b, max_det=k)
+    say(f"metrics_stage config 1 ({b} x {k} crops of 128, 16 metrics)",
+        lambda: teng.metrics_stage(crops, offsets, gray, (512, 512), opts), "")
 
 
 if __name__ == "__main__":

@@ -13,7 +13,11 @@ seed 0), makes ``--batch`` synthetic gray frames with ``--cells`` cells
 two warm-up batches, then ``--iters`` timed batches of ``process_batch_arrays``
 (wall clock after a device synchronise, upload and fetch included). Prints
 the card, then one ``[TAG] ...`` line: the median ms per batch, every
-iteration's ms, and the mean ms per batch of each stage. Needs one card.
+iteration's ms, and the mean ms per batch of each stage. ``--dump PATH``
+writes the last batch's outputs (boxes, scores, valid, offsets, the
+metrics, the mask crops) to an ``.npz`` file; ``--against PATH`` holds them
+to such a file, another tree's, byte for byte, and prints one more line.
+Needs one card.
 ``--frame 2048`` with ViT-H is config 4 (the 1024 canvas).
 """
 
@@ -48,6 +52,8 @@ def main() -> None:
     ap.add_argument("--max-det", type=int, default=16)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--dump", help="write the last batch's outputs to this .npz file")
+    ap.add_argument("--against", help="compare the last batch's outputs with this .npz file")
     args = ap.parse_args()
     common = _own_common()
     sys.path.insert(0, args.tree)
@@ -71,13 +77,27 @@ def main() -> None:
     for _ in range(args.iters):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipe.process_batch_arrays(frames, stages)
+        out = pipe.process_batch_arrays(frames, stages)
         per_iter.append((time.perf_counter() - t0) * 1e3)
     ms = statistics.median(per_iter)
     stage_ms = {k: round(v / args.iters * 1e3, 3) for k, v in stages.items()}
     print(f"[{args.tag}] {args.model} quant {args.quant} {args.frame}x{args.frame} batch "
           f"{args.batch}: {ms:.2f} ms/batch median (iterations {[round(t, 2) for t in per_iter]}), "
           f"stages {json.dumps(stage_ms)}", flush=True)
+    arrays = {f"metrics/{k}": np.asarray(v) for k, v in out["metrics"].items()}
+    arrays.update({k: np.asarray(v) for k, v in out.items() if k != "metrics"})
+    if args.dump:
+        np.savez(args.dump, **arrays)
+    if args.against:
+        with np.load(args.against) as ref:
+            differ = sorted(k for k in set(ref.files) | set(arrays)
+                            if k not in ref.files or k not in arrays
+                            or ref[k].dtype != arrays[k].dtype or ref[k].shape != arrays[k].shape
+                            or ref[k].tobytes() != arrays[k].tobytes())
+        print(f"[{args.tag}] outputs against {args.against}: "
+              + (f"differ in {differ}" if differ else
+                 f"bit for bit equal ({len(arrays)} arrays, "
+                 f"{sum(a.nbytes for a in arrays.values())} bytes)"), flush=True)
 
 
 if __name__ == "__main__":

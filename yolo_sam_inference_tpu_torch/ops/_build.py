@@ -56,10 +56,10 @@ _SIGNATURES = {
     "ysi_gemm_int8": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # hf, hq, hs, m, n, chunk, stream
     "ysi_gelu_quant": (_P, _P, _P, _I, _I, _I, _P),
-    # grid, r0, c0, out, n, gs, c, wg, stream
-    "ysi_window_crop": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # pts, dirs, out, n, p, d, stream
-    "ysi_hull_support": (_P, _P, _P, _I, _I, _I, _P),
+    # grid, r0, c0, r0 stride, c0 stride, out, n, gs, c, wg, stream
+    "ysi_window_crop": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P),
+    # masks, dirs, out, any, n, h, w, d, stream
+    "ysi_hull_support": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # qkv, pad, bias, out, b, h, w, heads, ws, stream
     "ysi_tinyvit_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, wqkv_t, wproj_t, table, ln_scale, ln_bias, bqkv, bproj, out, b, h, w, c, ws, eps, stream
@@ -79,7 +79,7 @@ _SIGNATURES = {
 _INITS = ("ysi_gemm_init", "ysi_gemm_int8_init", "ysi_window_attn_init",
           "ysi_flash_attn_relpos_init", "ysi_decoder_init", "ysi_tinyvit_attn_init",
           "ysi_tinyvit_block_init", "ysi_tinyvit_conv_init", "ysi_mbconv_s1_init",
-          "ysi_conv2d_act_init")
+          "ysi_conv2d_act_init", "ysi_hull_support_init")
 
 
 def _sources():

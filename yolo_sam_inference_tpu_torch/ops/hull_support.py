@@ -1,13 +1,17 @@
 """Convex-hull support points of cell masks (kernel K9).
 
-Counterpart of ``yolo_sam_inference_tpu/ops/hull_support.py``: for each cell
-and each of D directions, the boundary candidate with the largest projection,
-ties broken by the largest row, then the largest column. On the card
-``csrc/hull_support.cu`` computes the scores and the selection in one pass;
-its source note says what bounds it.
+Counterpart of ``yolo_sam_inference_tpu/ops/hull_support.py`` and of the
+candidates' front end of ``yolo_sam_inference_tpu/ops/metrics.py``
+(``_hull_candidate_scores``): each mask's boundary edge midpoints, and for
+each of D directions the candidate with the largest projection, ties broken
+by the largest row, then the largest column. On the card
+``csrc/hull_support.cu`` goes from the bool masks to the support points in
+one launch; its source note says what bounds it.
 
-Dispatch is by the tensor's device: CPU takes the plain version, CUDA
-launches the kernel or raises. ``support_points.launches`` counts launches.
+Dispatch is by the tensor's device: CPU takes the plain version
+(:func:`hull_candidates`, then :func:`support_points_plain`), CUDA launches
+the kernel or raises. ``hull_support.launches`` counts launches and
+``hull_candidates.calls`` the plain front end's calls.
 """
 
 from __future__ import annotations
@@ -17,6 +21,56 @@ import torch
 from ._build import check, kernels
 from .autograd import refuse_grad
 from .fused_ln import _on_cpu
+
+_BIG = 1.0e9
+MAX_SIDE = 2048  # the kernel's largest mask side (its keys and shared memory)
+
+
+def hull_candidates(masks: torch.Tensor):
+    """Boundary edge-midpoint candidates (N, 2h+2w, 2) as (r, c), and whether
+    each mask is non-empty: each row's extreme columns -+ 0.5, each column's
+    extreme rows -+ 0.5; empty rows and columns collapse to the centroid."""
+    hull_candidates.calls += 1
+    m = masks.float()
+    k, h, w = m.shape
+    dev = m.device
+    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    on = m > 0
+    any_mask = on.flatten(1).any(dim=1)
+    area = m.sum(dim=(1, 2))
+    cr = (m * rows).sum(dim=(1, 2)) / area.clamp(min=1.0)
+    cc = (m * cols).sum(dim=(1, 2)) / area.clamp(min=1.0)
+
+    big = torch.tensor(_BIG, device=dev)
+    minc = torch.where(on, cols, big).amin(dim=2)  # (N, h)
+    maxc = torch.where(on, cols, -big).amax(dim=2)
+    row_ok = on.any(dim=2)
+    minr = torch.where(on, rows, big).amin(dim=1)  # (N, w)
+    maxr = torch.where(on, rows, -big).amax(dim=1)
+    col_ok = on.any(dim=1)
+    r_idx = torch.arange(h, dtype=torch.float32, device=dev)[None].expand(k, h)
+    c_idx = torch.arange(w, dtype=torch.float32, device=dev)[None].expand(k, w)
+
+    # invalid rows/cols collapse to the centroid (inside the hull, never extreme)
+    def fill(pr, pc, ok):
+        pr = torch.where(ok, pr, cr[:, None].expand_as(pr))
+        pc = torch.where(ok, pc, cc[:, None].expand_as(pc))
+        return torch.stack([pr, pc], dim=-1)
+
+    pts = torch.cat(
+        [
+            fill(r_idx, minc - 0.5, row_ok),
+            fill(r_idx, maxc + 0.5, row_ok),
+            fill(minr - 0.5, c_idx, col_ok),
+            fill(maxr + 0.5, c_idx, col_ok),
+        ],
+        dim=1,
+    )
+    return pts.contiguous(), any_mask
+
+
+hull_candidates.calls = 0
 
 
 def select_support_points(pts: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
@@ -41,28 +95,46 @@ def support_points_plain(pts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     return select_support_points(pts, scores)
 
 
-def support_points(pts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
-    """See :func:`support_points_plain`. CUDA tensors launch
-    ``hull_support_kernel`` (fp32, at most 4096 candidates per cell)."""
-    if _on_cpu(pts):
-        return support_points_plain(pts, dirs)
-    refuse_grad("support_points", pts, dirs)
-    n, p, two = pts.shape
+def hull_support_plain(masks: torch.Tensor, dirs: torch.Tensor):
+    """masks (N, h, w), dirs (D, 2) fp32 -> (support points (N, D, 2),
+    non-empty (N,))."""
+    pts, any_mask = hull_candidates(masks)
+    return support_points_plain(pts, dirs), any_mask
+
+
+def hull_support(masks: torch.Tensor, dirs: torch.Tensor):
+    """See :func:`hull_support_plain`. CUDA tensors launch
+    ``hull_support_kernel``: bool masks, contiguous, sides up to 2048; unit
+    directions (D, 2), D > 0, fp32, contiguous, on the masks' card."""
+    if _on_cpu(masks):
+        return hull_support_plain(masks, dirs)
+    refuse_grad("hull_support", dirs)
+    if masks.dim() != 3 or tuple(dirs.shape[1:]) != (2,) or dirs.dim() != 2:
+        raise ValueError(f"hull_support: masks {tuple(masks.shape)}, dirs {tuple(dirs.shape)}")
+    n, h, w = masks.shape
     d = dirs.shape[0]
-    if two != 2 or tuple(dirs.shape) != (d, 2) or p > 4096:
-        raise ValueError(f"support_points: pts {tuple(pts.shape)}, dirs {tuple(dirs.shape)}")
-    for name, t in (("pts", pts), ("dirs", dirs)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != pts.device:
-            raise ValueError(f"support_points kernel: {name} must be contiguous fp32 on "
-                             f"{pts.device}, got {t.dtype} on {t.device}")
-    out = torch.empty((n, d, 2), dtype=torch.float32, device=pts.device)
-    err = kernels().ysi_hull_support(pts.data_ptr(), dirs.data_ptr(), out.data_ptr(), n, p, d,
-                                     torch.cuda.current_stream(pts.device).cuda_stream)
-    check(err, "support_points")
-    support_points.launches += 1
-    return out
+    if masks.dtype != torch.bool or not masks.is_contiguous() or \
+            not (0 < h <= MAX_SIDE and 0 < w <= MAX_SIDE):
+        raise ValueError(f"hull_support kernel: masks must be contiguous bool with sides up to "
+                         f"{MAX_SIDE}, got {masks.dtype} {tuple(masks.shape)} contiguous="
+                         f"{masks.is_contiguous()}")
+    if dirs.dtype != torch.float32 or not dirs.is_contiguous() or dirs.device != masks.device \
+            or d == 0:
+        raise ValueError(f"hull_support kernel: dirs must be (D > 0, 2) contiguous fp32 on "
+                         f"{masks.device}, got {tuple(dirs.shape)} {dirs.dtype} on {dirs.device}")
+    out = torch.empty((n, d, 2), dtype=torch.float32, device=masks.device)
+    any_mask = torch.empty((n,), dtype=torch.bool, device=masks.device)
+    if n == 0:
+        return out, any_mask
+    err = kernels().ysi_hull_support(masks.data_ptr(), dirs.data_ptr(), out.data_ptr(),
+                                     any_mask.data_ptr(), n, h, w, d,
+                                     torch.cuda.current_stream(masks.device).cuda_stream)
+    check(err, "hull_support")
+    hull_support.launches += 1
+    return out, any_mask
 
 
-support_points.launches = 0
+hull_support.launches = 0
 
-__all__ = ["select_support_points", "support_points", "support_points_plain"]
+__all__ = ["hull_candidates", "hull_support", "hull_support_plain", "select_support_points",
+           "support_points_plain"]

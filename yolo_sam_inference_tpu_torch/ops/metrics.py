@@ -9,8 +9,8 @@ does (``hull_mode="reference"``); brightness mean/std in the centroid disk.
 :func:`calculate_metrics` is the single-cell host API.
 
 Masks are fixed-size crops ``(N, h, w)`` with per-cell ``(row0, col0)``
-offsets into the frame. The hull's support-point selection is kernel K9
-(:func:`..ops.hull_support.support_points`).
+offsets into the frame. The hull's candidates and support points are
+kernel K9 (:func:`..ops.hull_support.hull_support`).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .hull_support import support_points
+from .hull_support import hull_support
 
 METRIC_KEYS = (
     "deformability",
@@ -96,55 +96,17 @@ def _hull_directions(num_directions: int) -> np.ndarray:
     return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)  # (D, 2)
 
 
-def _hull_candidates(masks: torch.Tensor):
-    """Boundary edge-midpoint candidates (N, 2h+2w, 2) as (r, c), and whether
-    each mask is non-empty."""
-    m = masks.float()
-    k, h, w = m.shape
-    dev = m.device
-    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
-    cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
-    on = m > 0
-    any_mask = on.flatten(1).any(dim=1)
-    area = m.sum(dim=(1, 2))
-    cr = (m * rows).sum(dim=(1, 2)) / area.clamp(min=1.0)
-    cc = (m * cols).sum(dim=(1, 2)) / area.clamp(min=1.0)
-
-    big = torch.tensor(_BIG, device=dev)
-    minc = torch.where(on, cols, big).amin(dim=2)  # (N, h)
-    maxc = torch.where(on, cols, -big).amax(dim=2)
-    row_ok = on.any(dim=2)
-    minr = torch.where(on, rows, big).amin(dim=1)  # (N, w)
-    maxr = torch.where(on, rows, -big).amax(dim=1)
-    col_ok = on.any(dim=1)
-    r_idx = torch.arange(h, dtype=torch.float32, device=dev)[None].expand(k, h)
-    c_idx = torch.arange(w, dtype=torch.float32, device=dev)[None].expand(k, w)
-
-    # invalid rows/cols collapse to the centroid (inside the hull, never extreme)
-    def fill(pr, pc, ok):
-        pr = torch.where(ok, pr, cr[:, None].expand_as(pr))
-        pc = torch.where(ok, pc, cc[:, None].expand_as(pc))
-        return torch.stack([pr, pc], dim=-1)
-
-    pts = torch.cat(
-        [
-            fill(r_idx, minc - 0.5, row_ok),
-            fill(r_idx, maxc + 0.5, row_ok),
-            fill(minr - 0.5, c_idx, col_ok),
-            fill(maxr + 0.5, c_idx, col_ok),
-        ],
-        dim=1,
-    )
-    return pts.contiguous(), any_mask
+@functools.lru_cache(maxsize=8)
+def _hull_directions_on(num_directions: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_hull_directions(num_directions)).to(device)
 
 
 def _hull_vertices(masks: torch.Tensor, num_directions: int):
     """(N, h, w) -> (support vertices (N, D, 2) in angular order, non-empty (N,)).
-    The selection is K9: the kernel on a CUDA tensor, its plain version on
-    the CPU."""
-    pts, any_mask = _hull_candidates(masks)
-    dirs = torch.from_numpy(_hull_directions(num_directions)).to(pts.device)
-    return support_points(pts, dirs), any_mask
+    K9 from the masks: the kernel on a CUDA tensor, its plain version (the
+    candidates, then the selection) on the CPU."""
+    on = masks if masks.dtype == torch.bool else masks > 0
+    return hull_support(on.contiguous(), _hull_directions_on(num_directions, masks.device))
 
 
 def convex_hull_measures(masks: torch.Tensor, num_directions: int = 256):
@@ -283,7 +245,7 @@ def cell_metrics(
 
     perim = perimeter_4n(m)
     hull = rasterized_hull_measures if hull_mode == "reference" else convex_hull_measures
-    hull_area, hull_perim = hull(m, num_directions)
+    hull_area, hull_perim = hull(on, num_directions)
     area_ratio = torch.where(nonempty, hull_area / safe_area, zero)
     circularity = torch.where(
         hull_perim > 0,

@@ -70,3 +70,30 @@ def sam_preprocess_batch(
     out = torch.zeros((b, size, size, c), dtype=torch.float32, device=images.device)
     out[:, :nh, :nw] = (resized - mean) / std
     return out, r, (nh, nw)
+
+
+def scale_boxes_from_letterbox(
+    boxes: torch.Tensor, scale: float, pad: Tuple[int, int]
+) -> torch.Tensor:
+    """Map xyxy boxes from letterboxed coords back to original image coords."""
+    px, py = pad
+    shift = torch.tensor([px, py, px, py], dtype=boxes.dtype, device=boxes.device)
+    return (boxes - shift) / scale
+
+
+def boxes_to_sam_coords(boxes: torch.Tensor, sam_scale: float) -> torch.Tensor:
+    """Map xyxy boxes in original-image coords to SAM encoder-input coords."""
+    return boxes * sam_scale
+
+
+def upsample_masks_bilinear(masks: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of the last two axes, (..., h, w) -> (..., out_h, out_w),
+    as ``jax.image.resize(method="bilinear")``: half-pixel centres,
+    antialiased where it shrinks; non-float masks are resized as fp32."""
+    h, w = masks.shape[-2], masks.shape[-1]
+    if h == out_h and w == out_w:
+        return masks
+    x = masks if masks.is_floating_point() else masks.float()
+    wy = torch.from_numpy(_linear_weights(h, out_h)).to(x.device, x.dtype)
+    wx = torch.from_numpy(_linear_weights(w, out_w)).to(x.device, x.dtype)
+    return torch.einsum("oh,...hw,pw->...op", wy, x, wx)
