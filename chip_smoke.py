@@ -134,6 +134,11 @@ failure ends the run with a non-zero exit and no result line:
    sp --parallel-devices 2`` to rc 0, its rows against the single-card
    runner's (the same cells, each metric within 2% relative RMS); wall times
    labelled as two ranks on one card (no dp speed-up measurable);
+4k. frames: K9 on masks with a side above 256 (its frames' kernels), exact
+   against its plain version on 2049^2 and 8192^2 masks, timed at 2048^2,
+   4096^2 and 8192^2 beside its bound; ``calculate_metrics`` on a 2100 x
+   2300 frame on the card in both hull modes (K9 once a call, counted),
+   against its CPU run and the float64 oracle of the brightness disk;
 5. big kernels: the kernels of the ViT-L/H paths at their batch-32 shapes:
    ``gemm_bf16`` at the ViT-L/H qkv and MLP (K10) widths and the attention at
    hd 80 against fp32 plain versions, and the w8a8 kernels (K11c, K11a,
@@ -2842,6 +2847,120 @@ def _host_ms(fn, reps: int = 5) -> tuple:
     return statistics.median(times), out
 
 
+FRAME_SIDES = (2048, 4096, 8192)  # K9 on square whole-frame masks: timed beside its bound
+METRICS_FRAME = (2100, 2300)  # calculate_metrics on the card: against its CPU run and the oracle
+
+
+def _frame_image_mask(h: int, w: int, seed: int):
+    """A uniform random RGB (h, w, 3) uint8 image and the centred ellipse
+    with semi-axes 0.45 h and 0.45 w: a whole frame for the single-cell API."""
+    import numpy as np
+
+    image = np.random.default_rng(seed).integers(0, 255, size=(h, w, 3)).astype(np.uint8)
+    yy, xx = np.mgrid[:h, :w]
+    return image, ((yy - h / 2) / (0.45 * h)) ** 2 + ((xx - w / 2) / (0.45 * w)) ** 2 <= 1
+
+
+def _frames_phase(card: str) -> dict:
+    """K9's frames' kernels (a side above 256): exact against the plain
+    version on 2049 x 2049 and 8192 x 8192 masks (a blob of three ellipses,
+    one reaching off the frame, and the empty mask); timed by events and on
+    the device at FRAME_SIDES beside the plain version and the bound; then
+    ``calculate_metrics`` on the card at METRICS_FRAME in both hull modes,
+    the counts set to 0 just before and read just after each call (K9 once),
+    against its CPU run (ints equal, floats within 1e-5 relative, or
+    absolute below 1: deformability is 1 - circularity) and the
+    float64 oracle (the centroid and the brightness over the reference's
+    disk, 1e-4 relative); K9 timed on that frame's mask for the table."""
+    import numpy as np
+    import torch
+
+    from yolo_sam_inference_tpu_torch.bench.common import device_ms, median_ms
+    from yolo_sam_inference_tpu_torch.ops.hull_support import hull_support, hull_support_plain
+    from yolo_sam_inference_tpu_torch.ops.metrics import (HULL_MODES, _hull_directions,
+                                                          calculate_metrics)
+
+    dev = torch.device("cuda")
+    dirs = torch.from_numpy(_hull_directions(256)).to(dev)
+    errs = {}
+    for side in (2049, 8192):
+        rng = np.random.default_rng(side)
+        yy = torch.arange(side, dtype=torch.float32, device=dev)[:, None]
+        xx = torch.arange(side, dtype=torch.float32, device=dev)[None, :]
+        masks = torch.zeros((2, side, side), dtype=torch.bool, device=dev)
+        for _ in range(3):
+            cy, cx = rng.uniform(0.1, 1.1, 2) * side
+            ry, rx = rng.uniform(0.05, 0.4, 2) * side
+            masks[0] |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+        for part, got, want in zip(("points", "non-empty"), hull_support(masks, dirs),
+                                   hull_support_plain(masks, dirs)):
+            _check(f"hull_support frame ({side} x {side}, a blob and an empty mask, 256 "
+                   f"directions): {part}", got, want, 0.0, errs)
+            if not torch.equal(got, want):
+                raise AssertionError(f"hull_support {side}^2: the kernel's {part} differ from "
+                                     f"the plain version")
+        del masks, yy, xx
+
+    def timed(mask):
+        fn = lambda: hull_support(mask, dirs)
+        return ((median_ms(fn), median_ms(lambda: hull_support_plain(mask, dirs))),
+                device_ms(fn, "hull_support"), _hull_bound(mask, 256))
+
+    for side in FRAME_SIDES:
+        mask = torch.from_numpy(_frame_image_mask(side, side, side)[1][None]).to(dev)
+        (ms, plain), dev_ms, bound = timed(mask)
+        share = "" if dev_ms is None else f", {bound[0] / dev_ms:.2f} of the bound"
+        parts = ", ".join(f"{k} {_fmt(device_ms(lambda: hull_support(mask, dirs), k))}"
+                          for k in ("extremes", "select", "merge"))
+        _say("frames", f"hull_support {side} x {side} (one frame, 256 directions): device "
+                       f"{_fmt(dev_ms)} ({parts}), events {ms:.4f} ms, plain {plain:.4f} ms, "
+                       f"bound {bound[0]:.4f} ms ({bound[1]}){share} [{card}]")
+        del mask
+
+    h, w = METRICS_FRAME
+    image, mask = _frame_image_mask(h, w, 0)
+    rows, cols = np.nonzero(mask)
+    yy, xx = np.mgrid[:h, :w]
+    disk = (yy - rows.mean()) ** 2 + (xx - cols.mean()) ** 2 <= int(0.1 * min(h, w)) ** 2
+    gray = image.astype(np.float64).mean(axis=2)[disk]
+    oracle = {"mean_brightness": gray.mean(), "brightness_std": gray.std()}
+    launches = None
+    for mode in HULL_MODES:
+        wrappers = _reset_counts()
+        t0 = time.perf_counter()
+        got = calculate_metrics(image, mask, mode, device="cuda")  # Python scalars: synced
+        secs = time.perf_counter() - t0
+        counts = _read_counts(f"frames calculate_metrics {h} x {w} {mode}", wrappers,
+                              {"hull_support": 1})
+        launches = launches or counts
+        t0 = time.perf_counter()
+        want = calculate_metrics(image, mask, mode, device="cpu")
+        cpu_secs = time.perf_counter() - t0
+        worst = 0.0  # the largest float difference, over max(|v|, 1)
+        for key, v in want.items():
+            same = got[key] == v if isinstance(v, int) else \
+                abs(got[key] - v) <= 1e-5 * max(abs(v), 1.0)
+            if type(got[key]) is not type(v) or not same:
+                raise AssertionError(f"calculate_metrics {mode}: {key} on the card {got[key]} "
+                                     f"against the CPU's {v}")
+            if not isinstance(v, int):
+                worst = max(worst, abs(got[key] - v) / max(abs(v), 1.0))
+        for key, v in oracle.items():
+            if abs(got[key] - v) > 1e-4 * v:
+                raise AssertionError(f"calculate_metrics {mode}: {key} {got[key]} against the "
+                                     f"float64 oracle's {v}")
+        _say("frames", f"calculate_metrics {h} x {w}, hull_mode {mode}: 16 keys equal the CPU "
+                       f"run (ints exact, floats within 1e-5 relative or absolute; the largest "
+                       f"{worst:.3g}), brightness {got['mean_brightness']:.6f} / "
+                       f"{got['brightness_std']:.6f} against the oracle's "
+                       f"{oracle['mean_brightness']:.6f} / {oracle['brightness_std']:.6f}; the "
+                       f"call {secs * 1e3:.1f} ms on the card (host clock, the copies "
+                       f"included), {cpu_secs * 1e3:.1f} ms on the CPU [{card}]")
+    times, dev_ms, bound = timed(torch.from_numpy(mask[None]).to(dev))
+    return {"launches": launches, "errs": errs, "times": times, "device": (dev_ms, None),
+            "bound": bound}
+
+
 def _classical_phase(card: str) -> dict:
     """The classical path on the card, against its own CPU run:
     morphology (every function of ``ops/morphology.py`` and
@@ -4718,6 +4837,7 @@ def main() -> int:
     clp = _classical_phase(card)
     rg = _registry_phase(card, sp["pipe"])
     dpp = _dp_phase(card, sp["pipe"])
+    frp = _frames_phase(card)
     bk = _big_kernel_phase(card)
     big = {model.rsplit("-", 1)[-1]: _big_slice_phase(card, model, max_det, layers)
            for model, max_det, layers, *_ in BIG_MODELS}
@@ -4804,6 +4924,12 @@ def main() -> int:
                        "ops/hull_support.py:55 support_vertices_tpu (classical/pipeline.py's "
                        "metrics)", clp["launches"]["hull_support"], clp["errs"]["hull_support"],
                        clp["k9"]["times"], clp["k9"]["bound"], None, clp["k9"]["device"]))
+    # K9's frames' kernels: calculate_metrics on a whole frame (2100 x 2300)
+    table.append(entry("hull_support frame", "cuda", "csrc/hull_support.cu",
+                       "ops/hull_support.py:55 support_vertices_tpu (ops/metrics.py:535 "
+                       "calculate_metrics on a whole frame)", frp["launches"]["hull_support"],
+                       frp["errs"]["hull_support"], frp["times"], frp["bound"], None,
+                       frp["device"]))
     # at T = 784 (the 448 canvas's grid of 28: a short last tile)
     for name, replaces in (("keys_stream", "ops/decoder_fused.py:298 i2t_keys_update"),
                            ("t2i_combine", "ops/decoder_fused.py:298 i2t_keys_update (its "

@@ -14,6 +14,7 @@ int8 versions on the same bf16 inputs, whose integer products are exact:
 see ``_close_int8``.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -35,6 +36,7 @@ from yolo_sam_inference_tpu_torch.ops.hull_support import (
     hull_support,
     hull_support_plain,
 )
+from yolo_sam_inference_tpu_torch.ops.metrics import calculate_metrics
 from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop, window_crop_plain
 
 
@@ -604,11 +606,12 @@ def test_window_crop_refuses_what_the_kernel_does_not_take(gen):
 
 
 def _hull_case(case: str, h: int, w: int) -> torch.Tensor:
-    """A (h, w) bool crop: empty, one pixel, full, an ellipse touching all
-    four edges, or a random blob (three ellipses, some off the crop)."""
-    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float64),
-                            torch.arange(w, dtype=torch.float64), indexing="ij")
-    m = torch.zeros(h, w, dtype=torch.bool)
+    """A (h, w) bool mask on the card: empty, one pixel, full, an ellipse
+    touching all four edges, or a random blob (three ellipses, some off the
+    mask)."""
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float64, device="cuda"),
+                            torch.arange(w, dtype=torch.float64, device="cuda"), indexing="ij")
+    m = torch.zeros(h, w, dtype=torch.bool, device="cuda")
     if case == "one pixel":
         m[h // 3, w // 2] = True
     elif case == "full":
@@ -618,10 +621,10 @@ def _hull_case(case: str, h: int, w: int) -> torch.Tensor:
     elif case == "blob":
         g = torch.Generator().manual_seed(h * w)
         for _ in range(3):
-            cy, cx = (torch.rand(2, generator=g, dtype=torch.float64) * 0.8 + 0.1) * torch.tensor(
-                [h, w])
-            ry, rx = (torch.rand(2, generator=g, dtype=torch.float64) * 0.35 + 0.05) * torch.tensor(
-                [h, w])
+            cy, cx = ((torch.rand(2, generator=g, dtype=torch.float64) * 0.8 + 0.1)
+                      * torch.tensor([h, w])).tolist()
+            ry, rx = ((torch.rand(2, generator=g, dtype=torch.float64) * 0.35 + 0.05)
+                      * torch.tensor([h, w])).tolist()
             m |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
     return m
 
@@ -652,15 +655,19 @@ def test_support_points_vs_plain(gen):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w", [(64, 64), (128, 128), (256, 256), (99, 101), (37, 256),
-                                 (300, 258), (2048, 2048)])
+                                 (300, 258), (2048, 2048), (2049, 2049), (2048, 3000),
+                                 (3000, 2048), (4096, 4096), (48, 5000), (8192, 8192), (1, 40000),
+                                 (40000, 3)])
 @pytest.mark.parametrize("case", ["empty", "one pixel", "full", "four edges", "blob"])
 def test_hull_support_edge_cases_vs_plain(gen, case, h, w):
-    """K9's edge cases at crops of 64, 128 and 256 (one tile), sides that are
-    no multiple of 16 or 4 (byte loads, the byte pass), a flat crop, masks
-    of several tiles (300 x 258: word and byte tiles; a 2048 x 2048 frame,
-    the largest it takes), with a direction count that is no multiple of
-    32: equal to the plain version."""
-    masks = torch.stack([_hull_case(case, h, w), _hull_case("blob", h, w)]).cuda()
+    """K9's edge cases at crops of 64, 128 and 256 (the crops' kernel),
+    sides that are no multiple of 16 or 4 (byte loads, the byte pass), a
+    flat crop, and the frames' kernels: masks of several tiles (300 x 258:
+    word and byte tiles), whole frames from 2048 x 2048 to 8192 x 8192,
+    sides past 2048 and 4096 (the old key's limits), a 48-row frame, a row
+    and a 3-column strip of 40000, with a direction count that is no
+    multiple of 32: equal to the plain version."""
+    masks = torch.stack([_hull_case(case, h, w), _hull_case("blob", h, w)])
     for d in (256, 100):
         got, got_any = hull_support(masks, _dirs(d))
         want, want_any = hull_support_plain(masks, _dirs(d))
@@ -670,8 +677,7 @@ def test_hull_support_edge_cases_vs_plain(gen, case, h, w):
 @pytest.mark.cuda
 def test_hull_support_refuses_what_the_kernel_does_not_take(gen):
     dirs = _dirs(256)
-    for bad in (torch.zeros(2, 2049, 8, dtype=torch.bool, device="cuda"),
-                torch.zeros(2, 64, 64, device="cuda"),
+    for bad in (torch.zeros(2, 64, 64, device="cuda"),
                 torch.zeros(2, 64, 128, dtype=torch.bool, device="cuda")[:, :, ::2]):
         with pytest.raises(ValueError):
             hull_support(bad, dirs)
@@ -681,6 +687,42 @@ def test_hull_support_refuses_what_the_kernel_does_not_take(gen):
         hull_support(torch.ones(2, 64, 64, dtype=torch.bool, device="cuda"), dirs[:0])
     pts, flags = hull_support(torch.zeros(0, 64, 64, dtype=torch.bool, device="cuda"), dirs)
     assert pts.shape == (0, 256, 2) and flags.shape == (0,)
+
+
+def _frame(h: int, w: int, seed: int):
+    """A uniform random RGB (h, w, 3) uint8 image and the centred ellipse
+    with semi-axes 0.45 h and 0.45 w (as ``tests/test_torch_metrics.py``
+    draws its whole frames)."""
+    image = np.random.default_rng(seed).integers(0, 255, size=(h, w, 3)).astype(np.uint8)
+    yy, xx = np.mgrid[:h, :w]
+    return image, ((yy - h / 2) / (0.45 * h)) ** 2 + ((xx - w / 2) / (0.45 * w)) ** 2 <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hull_mode", ["polygon", "reference"])
+@pytest.mark.parametrize("h,w", [(2100, 2300), (48, 2048)])
+def test_calculate_metrics_on_the_card_whole_frames(gen, h, w, hull_mode):
+    """The single-cell API on whole frames on the card (K9's frames'
+    kernels, the exact moment sums): equal to its CPU run, integers exactly,
+    floats within 1e-5 relative or absolute (fp32 sums in another order); the brightness
+    within 1e-4 of the float64 oracle (the reference's disk around the exact
+    centroid); one K9 launch. Deformability is 1 - circularity, about
+    0.04 here, so it also takes circularity's 1e-5 as an absolute bound."""
+    image, mask = _frame(h, w, h + w)
+    before = hull_support.launches
+    got = calculate_metrics(image, mask, hull_mode, device="cuda")
+    assert hull_support.launches == before + 1
+    want = calculate_metrics(image, mask, hull_mode, device="cpu")
+    for key, v in want.items():
+        assert type(got[key]) is type(v), key
+        assert got[key] == v if isinstance(v, int) else \
+            got[key] == pytest.approx(v, rel=1e-5, abs=1e-5), (key, got[key], v)
+    rows, cols = np.nonzero(mask)
+    yy, xx = np.mgrid[:h, :w]
+    disk = (yy - rows.mean()) ** 2 + (xx - cols.mean()) ** 2 <= int(0.1 * min(h, w)) ** 2
+    gray = image.astype(np.float64).mean(axis=2)[disk]
+    assert got["mean_brightness"] == pytest.approx(gray.mean(), rel=1e-4)
+    assert got["brightness_std"] == pytest.approx(gray.std(), rel=1e-4)
 
 
 # ---------------------------------------------------------------- MobileSAM

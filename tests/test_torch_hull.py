@@ -9,7 +9,9 @@ is held against JAX's ``_hull_candidate_scores`` followed by the Pallas
 ``window_crop`` on the clipped int32 starts. ``csrc/hull_support.cu`` leaves
 the centroid candidates out and breaks score ties with one packed key;
 ``_hull_support_as_the_kernel_does`` repeats that in numpy so the CPU can
-hold the method to the plain version. The CUDA kernels themselves are held
+hold the method to the plain version; ``_hull_support_as_the_frames_kernels_do``
+does the same for the kernels that take masks with a side above 256 (whole
+frames). The CUDA kernels themselves are held
 to the plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
@@ -24,6 +26,10 @@ from yolo_sam_inference_tpu.ops.hull_support import support_vertices_tpu
 from yolo_sam_inference_tpu.ops.metrics import _hull_candidate_scores
 from yolo_sam_inference_tpu.ops.window_crop import window_crop as j_window_crop
 from yolo_sam_inference_tpu_torch.ops.hull_support import (
+    CHUNK,
+    GROUP,
+    TILE,
+    frame_plan,
     hull_candidates,
     hull_support,
     hull_support_plain,
@@ -130,6 +136,98 @@ def test_kernel_method_equals_the_plain_version(size):
     dirs = _hull_directions(256)
     want, _ = hull_support_plain(torch.from_numpy(masks), torch.from_numpy(dirs))
     np.testing.assert_array_equal(_hull_support_as_the_kernel_does(masks, dirs), want.numpy())
+
+
+def _first_last(t: np.ndarray):
+    """Each row's first and last set column of a bool (r, c) array, and
+    whether it has one."""
+    ok = t.any(1)
+    return t.argmax(1), t.shape[1] - 1 - t[:, ::-1].argmax(1), ok
+
+
+def _hull_support_as_the_frames_kernels_do(masks: np.ndarray, dirs: np.ndarray, sms: int):
+    """The frames' kernels' method in numpy: the extremes merged tile by
+    tile as maxima of (w - minc, maxc + 1) a row and (h - minr, maxr + 1) a
+    column (0: no pixel); the candidates of each slice of :func:`frame_plan`
+    (CHUNK rows and columns a chunk) with their 64-bit keys (2r + 1) * 2^32 +
+    (2c + 1), each slice's best (score, key) a direction, merged over the
+    slices; the point decoded from the key; an empty mask's points (0, 0)."""
+    n, h, w = masks.shape
+    d = dirs.shape[0]
+    slices, per = frame_plan(n, h, w, d, sms)
+    out = np.zeros((n, d, 2), np.float32)
+    flags = np.zeros(n, bool)
+    for i, m in enumerate(masks):
+        ext = np.zeros((4, max(h, w)), np.int64)  # row_lo, row_hi, col_lo, col_hi
+        for r0 in range(0, h, TILE):
+            for c0 in range(0, w, TILE):
+                t = m[r0:r0 + TILE, c0:c0 + TILE]
+                for k, (tt, o_own, o_other, side) in enumerate(((t, r0, c0, w), (t.T, c0, r0, h))):
+                    first, last, ok = _first_last(tt)
+                    idx = o_own + np.nonzero(ok)[0]
+                    ext[2 * k, idx] = np.maximum(ext[2 * k, idx], side - (o_other + first[ok]))
+                    ext[2 * k + 1, idx] = np.maximum(ext[2 * k + 1, idx], o_other + last[ok] + 1)
+        best_s = np.full(d, -np.inf, np.float32)
+        best_k = np.zeros(d, np.uint64)
+        for s in range(slices):
+            idx = np.arange(s * per * CHUNK, min(max(h, w), (s + 1) * per * CHUNK))
+            r_ok, c_ok = idx[idx < h][ext[1, idx[idx < h]] > 0], idx[idx < w][ext[3, idx[idx < w]] > 0]
+            r2 = np.concatenate([2 * r_ok + 1, 2 * r_ok + 1, 2 * (h - ext[2, c_ok]),
+                                 2 * (ext[3, c_ok] - 1) + 2])
+            c2 = np.concatenate([2 * (w - ext[0, r_ok]), 2 * (ext[1, r_ok] - 1) + 2, 2 * c_ok + 1,
+                                 2 * c_ok + 1])
+            if not len(r2):
+                continue
+            key = r2.astype(np.uint64) << np.uint64(32) | c2.astype(np.uint64)
+            r = (r2 - 1).astype(np.float32) * np.float32(0.5)
+            c = (c2 - 1).astype(np.float32) * np.float32(0.5)
+            sc = r[:, None] * dirs[:, 0] + c[:, None] * dirs[:, 1]  # fp32, each op rounded
+            top = np.lexsort((key[:, None].repeat(d, 1), sc), axis=0)[-1]
+            s_top, k_top = sc[top, np.arange(d)], key[top]
+            take = (s_top > best_s) | ((s_top == best_s) & (k_top > best_k))
+            best_s, best_k = np.where(take, s_top, best_s), np.where(take, k_top, best_k)
+        flags[i] = best_k[0] != 0
+        if flags[i]:
+            out[i, :, 0] = ((best_k >> np.uint64(32)).astype(np.int64) - 1) * 0.5
+            out[i, :, 1] = ((best_k & np.uint64(0xFFFFFFFF)).astype(np.int64) - 1) * 0.5
+    return out, flags
+
+
+@pytest.mark.parametrize("h,w", [(300, 258), (37, 700), (1, 1000), (1000, 3), (520, 777)])
+def test_frames_kernels_method_equals_the_plain_version(h, w):
+    """Masks with a side above TILE take the frames' kernels: their method
+    (tile-merged extremes, the slices' candidates and 64-bit keys, the merge
+    over slices) on the edge cases and a blob, at slice plans for 132 SMs and
+    for 1 (one slice), equal the plain version bit for bit."""
+    dirs = _hull_directions(256)[:100]
+    yy, xx = np.mgrid[:h, :w]
+    masks = np.zeros((5, h, w), bool)
+    masks[1, h // 3, w // 2] = True
+    masks[2] = True
+    masks[3] = ((yy - (h - 1) / 2) / (h / 2)) ** 2 + ((xx - (w - 1) / 2) / (w / 2)) ** 2 <= 1.0
+    rng = np.random.default_rng(h * w)
+    for _ in range(3):
+        cy, cx = rng.uniform(0.1, 0.9, 2) * (h, w)
+        ry, rx = rng.uniform(0.05, 0.4, 2) * (h, w)
+        masks[4] |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+    want, want_any = hull_support_plain(torch.from_numpy(masks), torch.from_numpy(dirs))
+    for sms in (132, 1):
+        got, got_any = _hull_support_as_the_frames_kernels_do(masks, dirs, sms)
+        np.testing.assert_array_equal(got, want.numpy())
+        np.testing.assert_array_equal(got_any, want_any.numpy())
+
+
+@pytest.mark.parametrize("n,h,w,d", [(1, 8192, 8192, 256), (1, 2049, 2049, 100), (1, 1, 40000, 256),
+                                     (95, 300, 300, 256), (512, 257, 4000, 256), (3, 40000, 3, 7)])
+def test_frame_plan_covers_every_chunk(n, h, w, d):
+    """The selection's slices split the CHUNK-row chunks without an empty
+    slice, and one mask alone is spread to one to four blocks an SM (132)."""
+    chunks = -(-max(h, w) // CHUNK)
+    slices, per = frame_plan(n, h, w, d, 132)
+    assert per >= 1 and (slices - 1) * per < chunks <= slices * per and slices <= 65535
+    blocks = n * -(-d // GROUP) * slices
+    assert blocks >= min(132, n * -(-d // GROUP) * chunks)
+    assert slices == 1 or blocks < 2 * (2 * 132 + n * -(-d // GROUP))
 
 
 def test_hull_candidates_are_counted():

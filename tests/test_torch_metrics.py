@@ -1,7 +1,12 @@
 """The port's morphometrics against the JAX package, on the CPU, on cell
-masks cut from ``tests/synth.py`` frames."""
+masks cut from ``tests/synth.py`` frames, and the single-cell API on whole
+frames against JAX and a float64 numpy oracle of the reference's
+brightness disk."""
+
+import functools
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -92,3 +97,155 @@ def test_pack_csv_outputs_matches_jax():
     want = jengine._pack_csv_outputs(boxes, scores, valid, offs, mets)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert jax.default_backend() == "cpu"
+
+
+# whole frames (height, width) for the single-cell API: a narrow frame wider
+# than 4096, one with both sides above 2048, two narrow frames at 2000 and
+# 2048 columns, and a 3-row line
+FRAMES = ((48, 5000), (2100, 2300), (64, 2000), (48, 2048), (3, 9000))
+# the keys that depend on the centroid; JAX sums it in fp32 (F13)
+CENTROID_KEYS = ("mean_brightness", "brightness_std")
+
+
+@functools.lru_cache(maxsize=1)
+def _frames():
+    """{(h, w): (image (h, w, 3) uint8, mask (h, w) bool)}: a uniform random
+    RGB image (one draw of ``default_rng(0)`` a frame, in FRAMES' order) and
+    the centred ellipse with semi-axes 0.45 h and 0.45 w."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for h, w in FRAMES:
+        image = rng.integers(0, 255, size=(h, w, 3)).astype(np.uint8)
+        yy, xx = np.mgrid[:h, :w]
+        out[(h, w)] = image, ((yy - h / 2) / (0.45 * h)) ** 2 + ((xx - w / 2) / (0.45 * w)) ** 2 <= 1
+    return out
+
+
+def _oracle(image: np.ndarray, mask: np.ndarray):
+    """The reference's centroid and brightness in float64: the mean pixel
+    position, and the mean and std of the gray image over the disk of radius
+    int(0.1 min(H, W)) around it (the reference's ``utils/metrics.py:84-94``);
+    0 and 0 for a disk that holds no pixel centre, as both packages give (a
+    radius of 0 around a centroid off the pixel grid; numpy's mean would be
+    NaN)."""
+    rows, cols = np.nonzero(mask)
+    cr, cc = rows.mean(), cols.mean()
+    h, w = mask.shape
+    yy, xx = np.mgrid[:h, :w]
+    disk = (yy - cr) ** 2 + (xx - cc) ** 2 <= int(0.1 * min(h, w)) ** 2
+    gray = image.astype(np.float64).mean(axis=2)[disk]
+    if not gray.size:
+        return (cr, cc), {"mean_brightness": 0.0, "brightness_std": 0.0}
+    return (cr, cc), {"mean_brightness": gray.mean(), "brightness_std": gray.std()}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_metrics(h: int, w: int, hull_mode: str):
+    image, mask = _frames()[(h, w)]
+    return jmetrics.calculate_metrics(image, mask, hull_mode)
+
+
+@pytest.mark.parametrize("hull_mode", ["polygon", "reference"])
+@pytest.mark.parametrize("h,w", FRAMES)
+def test_calculate_metrics_whole_frames(h, w, hull_mode):
+    """The single-cell API on whole frames: the 14 keys that do not depend on
+    the centroid against JAX (integers equal, floats within 1e-5 relative);
+    the centroid and the brightness against the float64 oracle within 1e-4
+    relative (the fp32 disk sums), which JAX's fp32 centroid misses on some
+    of these frames by up to a few percent."""
+    image, mask = _frames()[(h, w)]
+    got = tmetrics.calculate_metrics(image, mask, hull_mode, device="cpu")
+    want = _jax_metrics(h, w, hull_mode)
+    assert list(got) == list(want)
+    for key in tmetrics.METRIC_KEYS:
+        assert type(got[key]) is type(want[key]), key
+        if key in CENTROID_KEYS:
+            continue
+        if isinstance(want[key], int):
+            assert got[key] == want[key], key
+        else:
+            assert got[key] == pytest.approx(want[key], rel=1e-5, abs=1e-6), key
+    (cr, cc), exact = _oracle(image, mask)
+    _, got_r, got_c = tmetrics._area_centroid(torch.from_numpy(mask[None]),
+                                              torch.zeros((1, 2)))
+    assert float(got_r) == pytest.approx(cr, rel=1e-4) and float(got_c) == pytest.approx(cc, rel=1e-4)
+    for key in CENTROID_KEYS:
+        assert got[key] == pytest.approx(exact[key], rel=1e-4), key
+    no_hull = tmetrics.calculate_metrics_no_convex_hull(image, mask, device="cpu")
+    assert {k: no_hull[k] for k in CENTROID_KEYS} == {k: got[k] for k in CENTROID_KEYS}
+
+
+def test_whole_frame_brightness_is_exact_where_jax_rounds():
+    """F13: on the 48 x 2048 frame JAX's fp32 moments put the centroid a
+    rounding off column 1024, so pixels on the disk's circle fall out and its
+    brightness std misses the oracle; the port's exact sums give the
+    oracle's."""
+    image, mask = _frames()[(48, 2048)]
+    (cr, cc), exact = _oracle(image, mask)
+    assert (cr, cc) == (24.0, 1024.0)
+    want = exact["brightness_std"]
+    jax_std = _jax_metrics(48, 2048, "polygon")["brightness_std"]
+    assert abs(jax_std - want) > 1e-2 * want, (jax_std, want)
+    got = tmetrics.calculate_metrics(image, mask, device="cpu")
+    assert got["brightness_std"] == pytest.approx(want, rel=1e-5)
+    assert got["mean_brightness"] == pytest.approx(exact["mean_brightness"], rel=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["full 4100 x 4100", "random 3000 x 5000", "band"])
+def test_area_and_centroid_are_exact_on_whole_frames(kind):
+    """Whole-frame masks whose fp32 moment sums round on the CPU (the fp32
+    formula puts these centroids an ulp or more off): the area and the
+    centroid equal the exact count and the float64 mean rounded to fp32, bit
+    for bit (both are the int64 sums' fp64 quotient, rounded once)."""
+    if kind == "full 4100 x 4100":  # 16.8 M pixels, above 2^24
+        mask = np.ones((4100, 4100), bool)
+    elif kind == "random 3000 x 5000":
+        mask = np.random.default_rng(5).random((3000, 5000)) < 0.5
+    else:  # a 2000 x 3000 block off the frame's centre
+        mask = np.pad(np.ones((2000, 3000), bool), ((5, 1000), (7, 2000)))
+    rows, cols = np.nonzero(mask)
+    area, cr, cc = tmetrics._area_centroid(torch.from_numpy(mask[None]), torch.zeros((1, 2)))
+    assert area.dtype == cr.dtype == cc.dtype == torch.float32
+    assert (float(area), float(cr), float(cc)) == (
+        np.float32(len(rows)), np.float32(rows.mean()), np.float32(cols.mean()))
+
+
+def _area_centroid_fp32(on, off):
+    """The fp32 formula the exact sums replaced: masked sums of the pixel
+    count and of the row and column indices, an fp32 quotient, the offset."""
+    m = on.float()
+    _, h, w = m.shape
+    rows = torch.arange(h, dtype=torch.float32)[:, None].expand(h, w)
+    cols = torch.arange(w, dtype=torch.float32)[None, :].expand(h, w)
+    area = m.sum(dim=(1, 2))
+    safe = area.clamp(min=1.0)
+    return area, (m * rows).sum(dim=(1, 2)) / safe + off[:, 0], \
+        (m * cols).sum(dim=(1, 2)) / safe + off[:, 1]
+
+
+def test_crop_metrics_equal_the_fp32_formula_bit_for_bit(monkeypatch):
+    """On 128 x 128 crops every fp32 partial sum is an exact integer and the
+    fp64 quotient rounds to the fp32 one, so the exact sums change no bit:
+    the area and centroid, and all 16 outputs of ``cell_metrics``, equal
+    what the fp32 formula gives (random blobs, full and empty crops, offsets
+    into a 512 x 640 frame)."""
+    rng = np.random.default_rng(4)
+    n = 24
+    yy, xx = np.mgrid[:128, :128]
+    cy, cx, ry, rx = (rng.uniform(lo, hi, (n, 1, 1))
+                      for lo, hi in ((0, 128), (0, 128), (2, 90), (2, 90)))
+    masks = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+    masks &= rng.random(masks.shape) < 0.9  # holes: sums off the ellipse's symmetry
+    masks[0], masks[1] = True, False
+    on = torch.from_numpy(masks)
+    off = torch.from_numpy(rng.integers(0, 384, (n, 2)))
+    gray = torch.from_numpy(rng.uniform(0, 255, (3, 512, 640)).astype(np.float32))
+    img_idx = torch.from_numpy(rng.integers(0, 3, n))
+    for got, want in zip(tmetrics._area_centroid(on, off.float()),
+                         _area_centroid_fp32(on, off.float())):
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    got = tmetrics.cell_metrics(on, gray, img_idx, off, (512, 640))
+    monkeypatch.setattr(tmetrics, "_area_centroid", _area_centroid_fp32)
+    want = tmetrics.cell_metrics(on, gray, img_idx, off, (512, 640))
+    for key in tmetrics.METRIC_KEYS:
+        assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key

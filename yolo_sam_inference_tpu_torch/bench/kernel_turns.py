@@ -48,7 +48,9 @@ config 4 (7 x 7 on 64 x 64), 256 channels, the starts as the engine passes
 them, also with the L2 flushed before each call (``common.after_l2_flush``); K9 on 128 x 128 ellipse crops (``common.ellipse_masks``) at config
 1's 512 cells and the classical batch's 95: the kernel alone, the metrics'
 masks-to-support-points call (``_hull_vertices``), the candidates' plain
-front end, and config 1's whole ``metrics_stage``. Beside each K7, K14,
+front end, and config 1's whole ``metrics_stage``; K9 on one whole-frame
+mask of 2048, 4096 and 8192 a side (a tree that refuses the side prints
+"refused"). Beside each K7, K14,
 K15, K13, K12, LayerNorm, K3, w8a8, K8 and K9 time, the device time of the
 kernels of the call and their count a call. Prints the card, then one
 ``[TAG] name: ms`` line per call. Needs one card.
@@ -385,6 +387,22 @@ def _crop_and_hull(say, rn, g, common, b: int, k: int) -> None:
             lambda: tmet._hull_vertices(masks, 256), "")
         cands = getattr(thull, "hull_candidates", getattr(tmet, "_hull_candidates", None))
         say(f"hull_candidates {label} ({cells} cells, the front end)", lambda: cands(masks), "")
+    # K9 on one whole frame (the single-cell API's mask): a centred ellipse
+    # with semi-axes 0.45 of the side; a tree that refuses the side prints
+    # "refused"
+    for side in (2048, 4096, 8192):
+        yy, xx = torch.meshgrid(torch.arange(side, device="cuda"),
+                                torch.arange(side, device="cuda"), indexing="ij")
+        frame = (((yy - side / 2) / (0.45 * side)) ** 2
+                 + ((xx - side / 2) / (0.45 * side)) ** 2 <= 1)[None]
+        del yy, xx
+        try:
+            thull.hull_support(frame, dirs)
+        except ValueError:
+            print(f"hull_support frame {side}: refused", flush=True)
+            continue
+        say(f"hull_support frame {side} (one {side} x {side} mask)",
+            lambda: thull.hull_support(frame, dirs), "hull_support")
     crops = torch.from_numpy(common.ellipse_masks(rng, b * k, 128)).cuda().reshape(b, k, 128, 128)
     offsets = torch.randint(0, 512 - 128 + 1, (b, k, 2), generator=g).cuda()
     gray = (torch.rand(b, 512, 512, generator=g) * 255).cuda()

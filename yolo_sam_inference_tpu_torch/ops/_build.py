@@ -58,8 +58,8 @@ _SIGNATURES = {
     "ysi_gelu_quant": (_P, _P, _P, _I, _I, _I, _P),
     # grid, r0, c0, r0 stride, c0 stride, out, n, gs, c, wg, stream
     "ysi_window_crop": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P),
-    # masks, dirs, out, any, n, h, w, d, stream
-    "ysi_hull_support": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # masks, dirs, out, any, ext, part_s, part_k, n, h, w, d, chunks a slice, stream
+    "ysi_hull_support": (_P,) * 7 + (_I,) * 5 + (_P,),
     # qkv, pad, bias, out, b, h, w, heads, ws, stream
     "ysi_tinyvit_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, wqkv_t, wproj_t, table, ln_scale, ln_bias, bqkv, bproj, out, b, h, w, c, ws, eps, stream

@@ -5,8 +5,10 @@ candidates' front end of ``yolo_sam_inference_tpu/ops/metrics.py``
 (``_hull_candidate_scores``): each mask's boundary edge midpoints, and for
 each of D directions the candidate with the largest projection, ties broken
 by the largest row, then the largest column. On the card
-``csrc/hull_support.cu`` goes from the bool masks to the support points in
-one launch; its source note says what bounds it.
+``csrc/hull_support.cu`` goes from the bool masks to the support points:
+crops (both sides up to 256) in one launch, larger masks (whole frames) in
+three over a scratch that the wrapper allocates (:func:`frame_plan`); its
+source note says what bounds it.
 
 Dispatch is by the tensor's device: CPU takes the plain version
 (:func:`hull_candidates`, then :func:`support_points_plain`), CUDA launches
@@ -16,6 +18,8 @@ the kernel or raises. ``hull_support.launches`` counts launches and
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ._build import check, kernels
@@ -23,7 +27,10 @@ from .autograd import refuse_grad
 from .fused_ln import _on_cpu
 
 _BIG = 1.0e9
-MAX_SIDE = 2048  # the kernel's largest mask side (its keys and shared memory)
+# csrc/hull_support.cu: masks with both sides up to TILE take the crops'
+# kernel; larger ones the frames' kernels, whose selection takes GROUP
+# directions and CHUNK rows and columns at a time
+TILE, GROUP, CHUNK = 256, 32, 256
 
 
 def hull_candidates(masks: torch.Tensor):
@@ -102,10 +109,27 @@ def hull_support_plain(masks: torch.Tensor, dirs: torch.Tensor):
     return support_points_plain(pts, dirs), any_mask
 
 
+def frame_plan(n: int, h: int, w: int, d: int, sms: int):
+    """The frames' selection grid, (n, ceil(d / GROUP), slices) blocks, as
+    (slices, chunks a slice): the rows and columns in chunks of CHUNK, split
+    into slices until the grid holds about two blocks an SM (one slice when
+    the masks alone fill the card; never a slice without a chunk)."""
+    chunks = -(-max(h, w) // CHUNK)
+    groups = -(-d // GROUP)
+    want = max(1, min(chunks, -(-2 * sms // (n * groups))))
+    per = -(-chunks // want)
+    return -(-chunks // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def hull_support(masks: torch.Tensor, dirs: torch.Tensor):
-    """See :func:`hull_support_plain`. CUDA tensors launch
-    ``hull_support_kernel``: bool masks, contiguous, sides up to 2048; unit
-    directions (D, 2), D > 0, fp32, contiguous, on the masks' card."""
+    """See :func:`hull_support_plain`. CUDA tensors launch the kernels: bool
+    masks, contiguous, of any sides; unit directions (D, 2), D > 0, fp32,
+    contiguous, on the masks' card."""
     if _on_cpu(masks):
         return hull_support_plain(masks, dirs)
     refuse_grad("hull_support", dirs)
@@ -113,22 +137,29 @@ def hull_support(masks: torch.Tensor, dirs: torch.Tensor):
         raise ValueError(f"hull_support: masks {tuple(masks.shape)}, dirs {tuple(dirs.shape)}")
     n, h, w = masks.shape
     d = dirs.shape[0]
-    if masks.dtype != torch.bool or not masks.is_contiguous() or \
-            not (0 < h <= MAX_SIDE and 0 < w <= MAX_SIDE):
-        raise ValueError(f"hull_support kernel: masks must be contiguous bool with sides up to "
-                         f"{MAX_SIDE}, got {masks.dtype} {tuple(masks.shape)} contiguous="
-                         f"{masks.is_contiguous()}")
+    if masks.dtype != torch.bool or not masks.is_contiguous() or h == 0 or w == 0:
+        raise ValueError(f"hull_support kernel: masks must be contiguous bool, got {masks.dtype} "
+                         f"{tuple(masks.shape)} contiguous={masks.is_contiguous()}")
     if dirs.dtype != torch.float32 or not dirs.is_contiguous() or dirs.device != masks.device \
             or d == 0:
         raise ValueError(f"hull_support kernel: dirs must be (D > 0, 2) contiguous fp32 on "
                          f"{masks.device}, got {tuple(dirs.shape)} {dirs.dtype} on {dirs.device}")
-    out = torch.empty((n, d, 2), dtype=torch.float32, device=masks.device)
-    any_mask = torch.empty((n,), dtype=torch.bool, device=masks.device)
+    dev = masks.device
+    out = torch.empty((n, d, 2), dtype=torch.float32, device=dev)
+    any_mask = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:
         return out, any_mask
+    ext = part_s = part_k = None
+    per = 0
+    if h > TILE or w > TILE:  # the frames' scratch: extremes, then the slices' partials
+        slices, per = frame_plan(n, h, w, d, _sm_count(dev))
+        ext = torch.empty((n, 2 * (h + w)), dtype=torch.int32, device=dev)
+        part_s = torch.empty((n, slices, d), dtype=torch.float32, device=dev)
+        part_k = torch.empty((n, slices, d), dtype=torch.int64, device=dev)
     err = kernels().ysi_hull_support(masks.data_ptr(), dirs.data_ptr(), out.data_ptr(),
-                                     any_mask.data_ptr(), n, h, w, d,
-                                     torch.cuda.current_stream(masks.device).cuda_stream)
+                                     any_mask.data_ptr(), *(None if t is None else t.data_ptr()
+                                                            for t in (ext, part_s, part_k)),
+                                     n, h, w, d, per, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "hull_support")
     hull_support.launches += 1
     return out, any_mask
@@ -136,5 +167,5 @@ def hull_support(masks: torch.Tensor, dirs: torch.Tensor):
 
 hull_support.launches = 0
 
-__all__ = ["hull_candidates", "hull_support", "hull_support_plain", "select_support_points",
-           "support_points_plain"]
+__all__ = ["frame_plan", "hull_candidates", "hull_support", "hull_support_plain",
+           "select_support_points", "support_points_plain"]

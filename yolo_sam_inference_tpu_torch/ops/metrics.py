@@ -173,6 +173,25 @@ def rasterized_hull_measures(masks: torch.Tensor, num_directions: int = 256):
 HULL_MODES = ("polygon", "reference")
 
 
+def _area_centroid(on: torch.Tensor, off: torch.Tensor):
+    """Area (N,) fp32 and centroid rows and columns (N,) fp32 in frame
+    coordinates of (N, h, w) bool masks with (N, 2) fp32 offsets. The pixel
+    count and the moments are summed exactly in int64 (each row's count times
+    its index), divided in fp64, rounded to fp32, then offset in fp32. On
+    crops every fp32 sum is exact too, and an fp64 quotient rounded to fp32
+    is the correctly rounded fp32 quotient, so crops get the bits of the fp32
+    formula; on whole frames fp32 sums round and move the centroid, and with
+    it the brightness disk (F13 in ``ROADMAP.md``)."""
+    _, h, w = on.shape
+    per_row = on.sum(dim=2, dtype=torch.int64)  # (N, h)
+    per_col = on.sum(dim=1, dtype=torch.int64)  # (N, w)
+    area = per_row.sum(dim=1)
+    mr = (per_row * torch.arange(h, device=on.device)).sum(dim=1)
+    mc = (per_col * torch.arange(w, device=on.device)).sum(dim=1)
+    safe = area.clamp(min=1).double()
+    return area.float(), (mr / safe).float() + off[:, 0], (mc / safe).float() + off[:, 1]
+
+
 def _brightness_disk(gray, img_idx, cr, cc, radius: int):
     """Mean/std of ``gray[img_idx]`` inside the integer-radius disk around
     each float centroid, clipped at the image border (not masked by the cell).
@@ -227,11 +246,9 @@ def cell_metrics(
     on = m > 0
     big = torch.tensor(_BIG, device=dev)
 
-    area = m.sum(dim=(1, 2))
+    area, cr, cc = _area_centroid(on, off)
     nonempty = area > 0
     safe_area = area.clamp(min=1.0)
-    cr = (m * rows).sum(dim=(1, 2)) / safe_area + off[:, 0]
-    cc = (m * cols).sum(dim=(1, 2)) / safe_area + off[:, 1]
 
     zero = torch.zeros_like(area)
     # bbox in regionprops convention: (min_row, min_col, max_row + 1, max_col + 1)
