@@ -1,0 +1,9 @@
+"""Mean host milliseconds a batch of the segment stage's span inside
+``dispatch`` (``dispatch/segment``) in the steady stream under
+``spans.recording()`` with no profiler (phase (S),
+``cytobench/stream_spans.py``): the time the host spends launching the
+stage, and waiting where the stage blocks on the card."""
+
+
+def read(rec):
+    return rec.get("spans", {}).get("total_ms", {}).get("dispatch/segment")

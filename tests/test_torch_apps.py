@@ -286,7 +286,8 @@ def test_project_runner_gates_its_own_rows(project_runs):
 
 
 def test_project_runner_profile_and_mlflow(tmp_path, monkeypatch):
-    """``--profile-dir`` writes a chrome trace of the run; ``--log-to-mlflow``
+    """``--profile-dir`` writes a chrome trace of the run with the engine's
+    spans as ranges on it; ``--log-to-mlflow``
     logs the params, the gated count and the outputs (a fake mlflow);
     ``--roi`` that keeps nothing still writes the gated files' headers."""
     root = _project(tmp_path / "project")
@@ -300,7 +301,9 @@ def test_project_runner_profile_and_mlflow(tmp_path, monkeypatch):
     (run_dir,) = (tmp_path / "out").iterdir()
     (trace,) = (tmp_path / "prof").glob("*.trace.json")
     assert trace.name == f"{run_dir.name}.trace.json"
-    assert json.loads(trace.read_text())["traceEvents"]
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"detect", "nms", "embed", "segment", "metrics"} <= names  # the engine's spans
     gated = (run_dir / "gated_cell_metrics.csv").read_text()
     assert gated.splitlines() == [(run_dir / "cell_metrics.csv").read_text().splitlines()[0]]
     run = state.runs[-1]

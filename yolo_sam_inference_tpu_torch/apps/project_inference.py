@@ -24,6 +24,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -70,7 +71,8 @@ def parse_args(argv=None):
                    help="track params/metrics/artifacts in MLflow (if installed)")
     p.add_argument("--experiment-name", type=str, default="yolo_sam_inference_tpu")
     p.add_argument("--profile-dir", type=Path, default=None,
-                   help="write a torch.profiler chrome trace of the run to this directory")
+                   help="write a torch.profiler chrome trace of the run to this directory, "
+                        "the engine's spans (dispatch, detect, nms, ...) on it as ranges")
     args = p.parse_args(argv)
     return args
 
@@ -160,17 +162,22 @@ def run_rank(args, pipeline_kwargs=None, mesh=None, rois=None, t_start=None) -> 
 
     writes = mesh is None or dist.get_rank() == mesh.first
     profiler = None
+    marks = contextlib.nullcontext()
     if args.profile_dir is not None and writes:
         from torch.profiler import ProfilerActivity, profile
+
+        from ..utils.spans import recording
 
         args.profile_dir.mkdir(parents=True, exist_ok=True)
         activities = [ProfilerActivity.CPU]
         if args.device == "cuda":
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities)
+        marks = recording()  # the engine's spans as ranges on the trace
         profiler.start()
     try:
-        run_dir = _run(args, rois, pipeline_kwargs, mesh, t_start or time.time())
+        with marks:
+            run_dir = _run(args, rois, pipeline_kwargs, mesh, t_start or time.time())
     finally:
         if profiler is not None:
             profiler.stop()

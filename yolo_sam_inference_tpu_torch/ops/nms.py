@@ -11,6 +11,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.spans import span
+
 
 def _iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
     """Pairwise IoU of (..., K, 4) xyxy boxes -> (..., K, K)."""
@@ -33,24 +35,27 @@ def batched_nms(
     conf_threshold: float = 0.25,
     num_candidates: int = 256,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """boxes (B, N, 4), scores (B, N) -> (B, max_det, 4), (B, max_det), valid (B, max_det)."""
-    k = min(num_candidates, scores.shape[1])
-    top_scores, idx = torch.topk(scores, k, dim=1, sorted=True)
-    top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
-    suppress = _iou_matrix(top_boxes) > iou_threshold  # (B, K, K)
-    conf_ok = top_scores >= conf_threshold
+    """boxes (B, N, 4), scores (B, N) -> (B, max_det, 4), (B, max_det), valid (B, max_det).
+    One span, ``nms``, covers the call (``utils/spans.py``)."""
+    with span("nms"):
+        k = min(num_candidates, scores.shape[1])
+        top_scores, idx = torch.topk(scores, k, dim=1, sorted=True)
+        top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+        suppress = _iou_matrix(top_boxes) > iou_threshold  # (B, K, K)
+        conf_ok = top_scores >= conf_threshold
 
-    # greedy in score order: keep i iff no earlier kept box overlaps it
-    kept = torch.zeros_like(conf_ok)
-    for i in range(k):
-        blocked = (kept[:, :i] & suppress[:, i, :i]).any(dim=1)
-        kept[:, i] = conf_ok[:, i] & ~blocked
+        # greedy in score order: keep i iff no earlier kept box overlaps it
+        kept = torch.zeros_like(conf_ok)
+        for i in range(k):
+            blocked = (kept[:, :i] & suppress[:, i, :i]).any(dim=1)
+            kept[:, i] = conf_ok[:, i] & ~blocked
 
-    # kept first, score order preserved; pad to max_det
-    order = torch.sort((~kept).to(torch.int8), dim=1, stable=True).indices
-    kept_sorted = torch.gather(kept, 1, order)[:, :max_det]
-    boxes_sorted = torch.gather(top_boxes, 1, order[..., None].expand(-1, -1, 4))[:, :max_det]
-    scores_sorted = torch.gather(top_scores, 1, order)[:, :max_det]
-    out_scores = torch.where(kept_sorted, scores_sorted, torch.zeros_like(scores_sorted))
-    out_boxes = torch.where(kept_sorted[..., None], boxes_sorted, torch.zeros_like(boxes_sorted))
-    return out_boxes, out_scores, kept_sorted
+        # kept first, score order preserved; pad to max_det
+        order = torch.sort((~kept).to(torch.int8), dim=1, stable=True).indices
+        kept_sorted = torch.gather(kept, 1, order)[:, :max_det]
+        boxes_sorted = torch.gather(top_boxes, 1, order[..., None].expand(-1, -1, 4))[:, :max_det]
+        scores_sorted = torch.gather(top_scores, 1, order)[:, :max_det]
+        out_scores = torch.where(kept_sorted, scores_sorted, torch.zeros_like(scores_sorted))
+        out_boxes = torch.where(kept_sorted[..., None], boxes_sorted,
+                                torch.zeros_like(boxes_sorted))
+        return out_boxes, out_scores, kept_sorted

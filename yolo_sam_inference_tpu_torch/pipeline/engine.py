@@ -90,6 +90,7 @@ from ..parallel.sp import sam_image_encoder_sp
 from ..parallel.tp import sam_image_encoder_tp, shard_sam_encoder_tp
 from ..weights import from_jax_params
 from ..utils.logger import setup_logger
+from ..utils.spans import next_batch, span
 from .results import (
     BatchProcessingResult,
     ProcessingResult,
@@ -629,7 +630,8 @@ class CellSegmentationPipeline:
                                "fetch one (_fetch_outputs) before dispatching another")
         self._slot_next += 1
         if slot.done is not None:
-            slot.done.synchronize()
+            with span("slot_wait"):
+                slot.done.synchronize()
         return slot
 
     def _images_to_device(self, images: np.ndarray, slot: Optional[_Slot] = None) -> torch.Tensor:
@@ -677,15 +679,23 @@ class CellSegmentationPipeline:
         the fetch, with no host sync: the building block of
         :meth:`process_directory`, where batch i computes while batch i-1's
         outputs come back and batch i+1 decodes on the host. Under a mesh
-        this rank dispatches its share, and the fetch gathers the batch."""
-        gather = None
-        if self._dp > 1:
-            images, b = self._dp_share(images)
-            gather = (self._dp_group, self._dp, b)
-        slot = self._acquire_slot()
-        h = self._start_fetch(slot, self.fused_call(self._images_to_device(images, slot)),
-                              fetch_masks)
+        this rank dispatches its share, and the fetch gathers the batch. The
+        handle carries the batch's id (``"batch"``), which the dispatch's and
+        the fetch's spans share (``utils/spans.py``)."""
+        batch = next_batch()
+        with span("dispatch", batch):
+            gather = None
+            if self._dp > 1:
+                images, b = self._dp_share(images)
+                gather = (self._dp_group, self._dp, b)
+            slot = self._acquire_slot()
+            with span("upload"):
+                dev_images = self._images_to_device(images, slot)
+            outputs = self.fused_call(dev_images)
+            with span("pack"):
+                h = self._start_fetch(slot, outputs, fetch_masks)
         h["gather"] = gather
+        h["batch"] = batch
         return h
 
     @staticmethod
@@ -697,24 +707,28 @@ class CellSegmentationPipeline:
         arrays returned are the caller's own (the slot's buffers are
         reused). A handle of a mesh's rank gathers the batch's outputs over
         the data axis (a collective: every rank fetches in the same order)."""
-        slot = h["slot"]
-        if slot.done is not None:
-            slot.done.synchronize()
-        flat = h["csv"].numpy().copy()  # (B, K, 8 + M) fp32
-        mask_crops = None
-        if h["packed"] is not None:
-            # unpackbits gives exact 0/1 bytes, so the bool view is free
-            mask_crops = np.unpackbits(h["packed"].numpy(), axis=-1)[..., :h["cm"]].view(np.bool_)
-        slot.pending = False
-        out = {
-            "boxes": flat[..., :4],
-            "scores": flat[..., 4],
-            "valid": flat[..., 5] > 0.5,
-            "mask_crops": mask_crops,
-            "offsets": flat[..., 6:8].astype(np.int32),
-            "metrics": {key: flat[..., 8 + i] for i, key in enumerate(h["keys"])},
-        }
-        return out if h.get("gather") is None else _gather_outputs(out, *h["gather"])
+        with span("fetch", h.get("batch")):
+            slot = h["slot"]
+            if slot.done is not None:
+                with span("fetch_wait"):
+                    slot.done.synchronize()
+            with span("unpack"):
+                flat = h["csv"].numpy().copy()  # (B, K, 8 + M) fp32
+                mask_crops = None
+                if h["packed"] is not None:
+                    # unpackbits gives exact 0/1 bytes, so the bool view is free
+                    mask_crops = np.unpackbits(h["packed"].numpy(),
+                                               axis=-1)[..., :h["cm"]].view(np.bool_)
+                slot.pending = False
+                out = {
+                    "boxes": flat[..., :4],
+                    "scores": flat[..., 4],
+                    "valid": flat[..., 5] > 0.5,
+                    "mask_crops": mask_crops,
+                    "offsets": flat[..., 6:8].astype(np.int32),
+                    "metrics": {key: flat[..., 8 + i] for i, key in enumerate(h["keys"])},
+                }
+                return out if h.get("gather") is None else _gather_outputs(out, *h["gather"])
 
     def _dp_share(self, images: np.ndarray) -> Tuple[np.ndarray, int]:
         """(this rank's share of the batch, the batch size): the batch padded
@@ -755,9 +769,10 @@ class CellSegmentationPipeline:
         """:meth:`process_batch_arrays` on this rank's device alone."""
         st = self._stages(images.shape[1], images.shape[2])
 
-        def timed(key, fn, *a):
+        def timed(key, stage, *a):
             t0 = time.perf_counter()
-            out = fn(*a)
+            with span(stage):
+                out = st[stage](*a)
             self._sync()
             if timings is not None:
                 timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
@@ -765,10 +780,10 @@ class CellSegmentationPipeline:
 
         slot = self._acquire_slot()
         dev_images = self._images_to_device(images, slot)
-        boxes, scores, valid = timed("yolo_detection", st["detect"], dev_images)
-        emb = timed("sam_preprocess", st["embed"], dev_images)
-        crops, offs = timed("sam_inference_total", st["segment"], emb, boxes, valid)
-        mets = timed("metrics_total", st["metrics"], crops, offs, _gray_f32(dev_images))
+        boxes, scores, valid = timed("yolo_detection", "detect", dev_images)
+        emb = timed("sam_preprocess", "embed", dev_images)
+        crops, offs = timed("sam_inference_total", "segment", emb, boxes, valid)
+        mets = timed("metrics_total", "metrics", crops, offs, _gray_f32(dev_images))
         if not fetch_outputs:
             return None
         return self._fetch_outputs(self._start_fetch(
@@ -780,10 +795,14 @@ class CellSegmentationPipeline:
         tensors (boxes, scores, valid, crops, offsets, metrics). Under a mesh
         it runs the batch it is given on this rank alone."""
         st = self._stages(images.shape[1], images.shape[2])
-        boxes, scores, valid = st["detect"](images)
-        emb = st["embed"](images)
-        crops, offs = st["segment"](emb, boxes, valid)
-        mets = st["metrics"](crops, offs, _gray_f32(images))
+        with span("detect"):
+            boxes, scores, valid = st["detect"](images)
+        with span("embed"):
+            emb = st["embed"](images)
+        with span("segment"):
+            crops, offs = st["segment"](emb, boxes, valid)
+        with span("metrics"):
+            mets = st["metrics"](crops, offs, _gray_f32(images))
         return boxes, scores, valid, crops, offs, mets
 
     @torch.inference_mode()
