@@ -1435,3 +1435,36 @@ def test_kernels_without_a_gradient_refuse_on_the_card(gen):
         tln.int8_linear(_randn(gen, 64, 256).requires_grad_(), wq, ws, _randn(gen, 256))
     with torch.no_grad():
         assert window_crop(grid, starts, starts, 8).shape == (4, 8, 8, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,hull_mode", [(512, 512, "polygon"), (600, 700, "polygon"),
+                                           (512, 512, "reference")])
+def test_dispatch_blocks_nowhere_once_warm(gen, h, w, hull_mode):
+    """Config 1 on the card at batch 2, two batches in flight: once the
+    stream is warm, a dispatch (upload, the four stages, the pack and the
+    queued fetch) makes no call that blocks the host, which
+    ``torch.cuda.set_sync_debug_mode("error")`` turns into a raise. Every
+    constant a stage needs is on the card from the first batch. 512² frames
+    need no resize; 600 x 700 frames take the letterbox's and SAM's."""
+    import numpy as np
+
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+    frames = cell_frames(np.random.default_rng(6), 4, max(h, w))[:, :h, :w, 0]
+    pipe = tengine.CellSegmentationPipeline(
+        device="cuda", options=tengine.PipelineOptions(batch_size=2, max_det=16,
+                                                       hull_mode=hull_mode))
+    warm = [pipe._fetch_outputs(pipe._dispatch_batch(frames[i:i + 2])) for i in (0, 2)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = [pipe._dispatch_batch(frames[i:i + 2]) for i in (0, 2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    outs = [pipe._fetch_outputs(hd) for hd in handles]
+    for out, ref in zip(outs, warm):
+        assert out["valid"].any()
+        assert np.array_equal(out["valid"], ref["valid"])
+        assert np.isfinite(out["boxes"]).all()

@@ -24,6 +24,7 @@ import torch
 
 from ._build import check, kernels
 from .autograd import refuse_grad
+from .constants import constant
 from .fused_ln import _on_cpu
 
 _BIG = 1.0e9
@@ -49,7 +50,7 @@ def hull_candidates(masks: torch.Tensor):
     cr = (m * rows).sum(dim=(1, 2)) / area.clamp(min=1.0)
     cc = (m * cols).sum(dim=(1, 2)) / area.clamp(min=1.0)
 
-    big = torch.tensor(_BIG, device=dev)
+    big = constant(_BIG, torch.float32, dev)
     minc = torch.where(on, cols, big).amin(dim=2)  # (N, h)
     maxc = torch.where(on, cols, -big).amax(dim=2)
     row_ok = on.any(dim=2)
@@ -88,7 +89,7 @@ def select_support_points(pts: torch.Tensor, scores: torch.Tensor) -> torch.Tens
     elig = scores >= mx
     r = pts[..., 0][:, :, None]
     c = pts[..., 1][:, :, None]
-    neg = torch.tensor(-1e9, device=pts.device)
+    neg = constant(-_BIG, torch.float32, pts.device)
     vr = torch.where(elig, r, neg).amax(dim=1)  # (N, D)
     elig2 = elig & (r >= vr[:, None, :])
     vc = torch.where(elig2, c, neg).amax(dim=1)

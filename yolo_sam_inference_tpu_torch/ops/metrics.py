@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .constants import constant, made_once
 from .hull_support import hull_support
 
 METRIC_KEYS = (
@@ -96,7 +97,7 @@ def _hull_directions(num_directions: int) -> np.ndarray:
     return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)  # (D, 2)
 
 
-@functools.lru_cache(maxsize=8)
+@made_once(maxsize=8)
 def _hull_directions_on(num_directions: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_hull_directions(num_directions)).to(device)
 
@@ -154,7 +155,7 @@ def rasterized_hull_measures(masks: torch.Tensor, num_directions: int = 256):
     axial = ~(pos | neg)  # n_c ~ 0: the row's feasibility (or a repeated vertex)
     safe_nc = torch.where(axial, torch.ones_like(n_c), n_c)
     bound = resid / safe_nc[:, None, :]
-    big = torch.tensor(_BIG, device=dev)
+    big = constant(_BIG, torch.float32, dev)
     cmax = torch.where(pos[:, None, :], bound, big).amin(dim=-1)  # (N, h)
     cmin = torch.where(neg[:, None, :], bound, -big).amax(dim=-1)
     row_ok = torch.where(axial[:, None, :], resid, big).amin(dim=-1) >= -eps
@@ -244,7 +245,7 @@ def cell_metrics(
     rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
     cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
     on = m > 0
-    big = torch.tensor(_BIG, device=dev)
+    big = constant(_BIG, torch.float32, dev)
 
     area, cr, cc = _area_centroid(on, off)
     nonempty = area > 0

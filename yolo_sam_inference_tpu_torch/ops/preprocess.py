@@ -12,6 +12,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .constants import constant, made_once
+
 # SAM (ImageNet) normalization constants, matching SamProcessor defaults.
 SAM_MEAN = (123.675, 116.28, 103.53)
 SAM_STD = (58.395, 57.12, 57.375)
@@ -31,13 +33,20 @@ def _linear_weights(in_len: int, out_len: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
+@made_once(maxsize=32)
+def _linear_weights_on(in_len: int, out_len: int, device: torch.device,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_linear_weights` on ``device`` in ``dtype``, made once."""
+    return torch.from_numpy(_linear_weights(in_len, out_len)).to(device, dtype)
+
+
 def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear resize (half-pixel centres, antialiased on downsample), NHWC float."""
     h, w = img.shape[-3], img.shape[-2]
     if h == out_h and w == out_w:
         return img
-    wy = torch.from_numpy(_linear_weights(h, out_h)).to(img.device)
-    wx = torch.from_numpy(_linear_weights(w, out_w)).to(img.device)
+    wy = _linear_weights_on(h, out_h, img.device, torch.float32)
+    wx = _linear_weights_on(w, out_w, img.device, torch.float32)
     return torch.einsum("oh,...hwc,pw->...opc", wy, img, wx)
 
 
@@ -65,8 +74,8 @@ def sam_preprocess_batch(
     r = size / max(h, w)
     nh, nw = int(h * r + 0.5), int(w * r + 0.5)
     resized = resize_bilinear(images.float(), nh, nw)
-    mean = torch.tensor(SAM_MEAN, dtype=torch.float32, device=images.device)
-    std = torch.tensor(SAM_STD, dtype=torch.float32, device=images.device)
+    mean = constant(SAM_MEAN, torch.float32, images.device)
+    std = constant(SAM_STD, torch.float32, images.device)
     out = torch.zeros((b, size, size, c), dtype=torch.float32, device=images.device)
     out[:, :nh, :nw] = (resized - mean) / std
     return out, r, (nh, nw)
@@ -94,6 +103,6 @@ def upsample_masks_bilinear(masks: torch.Tensor, out_h: int, out_w: int) -> torc
     if h == out_h and w == out_w:
         return masks
     x = masks if masks.is_floating_point() else masks.float()
-    wy = torch.from_numpy(_linear_weights(h, out_h)).to(x.device, x.dtype)
-    wx = torch.from_numpy(_linear_weights(w, out_w)).to(x.device, x.dtype)
+    wy = _linear_weights_on(h, out_h, x.device, x.dtype)
+    wx = _linear_weights_on(w, out_w, x.device, x.dtype)
     return torch.einsum("oh,...hw,pw->...op", wy, x, wx)

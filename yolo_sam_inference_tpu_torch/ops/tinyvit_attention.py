@@ -41,6 +41,7 @@ import torch
 
 from ._build import check, kernels
 from .autograd import refuse_grad
+from .constants import made_once
 from .fused_ln import _check_bf16, _derived, _f32, _on_cpu, _ptr, gemm_bf16, gemm_plain
 
 HEAD_DIM = 32  # every TinyViT-5M stage
@@ -54,6 +55,11 @@ def offset_index(ws: int) -> np.ndarray:
     coords = np.stack(np.mgrid[:ws, :ws], -1).reshape(-1, 2)
     rel = coords[:, None, :] - coords[None, :, :] + (ws - 1)
     return rel[..., 0] * (2 * ws - 1) + rel[..., 1]
+
+
+@made_once(maxsize=8)
+def _offset_index_on(ws: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(offset_index(ws)).to(device)
 
 
 def pad_qkv_row(ln_bias, wqkv, bqkv, dtype):
@@ -87,7 +93,7 @@ def _attend(q, k, v, bias_table, ws: int):
     """Per-window multi-head attention in fp32 with the learned bias.
     q, k, v (N, heads, T, hd) fp32; bias_table (heads, (2ws-1)^2)."""
     hd = q.shape[-1]
-    idx = torch.from_numpy(offset_index(ws)).to(q.device)
+    idx = _offset_index_on(ws, q.device)
     bias = bias_table.float()[:, idx]  # (heads, T, T)
     logits = (q * hd ** -0.5) @ k.transpose(-1, -2) + bias
     return torch.softmax(logits, dim=-1) @ v

@@ -39,7 +39,11 @@ Weights come from checkpoint files (``models/yolo/convert.py``,
 one seed gives the same weights in both). Parameters are cast
 to ``compute_dtype`` once, when a stage set is built, not per call; with
 ``quant="int8"`` the encoder's qkv and MLP weights are then quantised (w8a8,
-``ops/quant.py``) from the cast weights, as the JAX engine orders it.
+``ops/quant.py``) from the cast weights, as the JAX engine orders it. The
+stages' constants (the letterbox's shift and limits, the resize matrices,
+SAM's mean and std, the metrics' fill values, the bitpack's weights) are made
+on the device at their first use and kept (``ops/constants.py``), so a warm
+dispatch copies nothing from the host but the frames and never blocks on it.
 """
 
 from __future__ import annotations
@@ -79,6 +83,7 @@ from ..models.yolo import (
     yolov8n,
 )
 from ..io.images import list_image_files, load_image
+from ..ops.constants import constant
 from ..ops.mbconv_fused import COMPUTE_MODES
 from ..ops.metrics import HULL_MODES, INT_METRIC_KEYS, METRIC_KEYS, cell_metrics
 from ..ops.nms import batched_nms
@@ -218,8 +223,8 @@ def detect_stage(yolo, images_u8: torch.Tensor, ycfg: YoloConfig, opts: Pipeline
         num_candidates=opts.nms_candidates,
     )
     dev = boxes.device
-    shift = torch.tensor([pad_x, pad_y, pad_x, pad_y], dtype=boxes.dtype, device=dev)
-    lim = torch.tensor([w - 1, h - 1, w - 1, h - 1], dtype=boxes.dtype, device=dev)
+    shift = constant((pad_x, pad_y, pad_x, pad_y), boxes.dtype, dev)
+    lim = constant((w - 1, h - 1, w - 1, h - 1), boxes.dtype, dev)
     boxes = torch.minimum(((boxes - shift) / scale).clamp(min=0.0), lim)
     boxes = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
     return boxes, scores, valid
@@ -348,7 +353,7 @@ def pack_bits(crops: torch.Tensor) -> torch.Tensor:
     cm = crops.shape[-1]
     x = torch.nn.functional.pad(crops.to(torch.uint8), (0, (-cm) % 8))
     x = x.reshape(*x.shape[:-1], -1, 8)
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=crops.device)
+    w = constant(_BIT_WEIGHTS, torch.uint8, crops.device)
     return (x * w).sum(dim=-1, dtype=torch.uint8)
 
 
