@@ -5,18 +5,21 @@ whole batch run beside nothing else on one card.
 score), :func:`detect` adds the NMS, :func:`embed` is SAM's encoder,
 :func:`crops` the prompts, decoder, mask head and crop resampling for given
 boxes, :func:`pipeline` all of them and the metrics: the outputs of one
-batch in the program's layout, from the reference alone.
+batch in the program's layout, from the reference alone. :func:`embed` and
+:func:`crops` are the configuration's model family's
+(``cytobench/families/``).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional
 
 import torch
 
+from ..flops import yolo_size
+from ..manifest import family
 from . import metrics as rmetrics
-from . import preprocess, sam, yolo
+from . import preprocess, yolo
 
 BUDGET = 1 << 29  # bytes of the largest intermediate a block holds
 
@@ -35,32 +38,17 @@ def cast(tree, dtype):
     return None if tree is None else tree.to(dtype)
 
 
-def geometry(cfg: Dict, traffic: Dict) -> Dict:
-    """The shapes the pipeline derives from the frame: YOLO's canvas, SAM's
-    canvas and grid, the crop side and the scale from frame pixels to the
-    low-resolution logits."""
-    from ..flops import yolo_size
-
-    v = cfg["vision_config"]
-    side = traffic["frame_size"]
-    canvas = v["image_size"]
-    gs = canvas // v["patch_size"]
-    sam_scale = canvas / side
-    return {"yolo_size": yolo_size(traffic), "canvas": canvas, "gs": gs, "sam_scale": sam_scale,
-            "crop": min(traffic["metric_crop"], side), "to_low": sam_scale * 4 * gs / canvas}
-
-
 def candidates(ytree: Dict, frames: torch.Tensor, cfg: Dict, traffic: Dict,
                quant: Optional[str] = None) -> Dict:
     """Every anchor of every frame: boxes in letterbox pixels ``boxes_lb``
     and mapped to the frame and clamped into it ``boxes``, ``scores``, and
     each anchor's ``stride``; with the letterbox ``scale``."""
-    g = geometry(cfg, traffic)
+    size = yolo_size(traffic)
     b, h, w = frames.shape
     out = {"boxes_lb": [], "scores": []}
-    step = _block(g["yolo_size"] ** 2 * 64 * 4)
+    step = _block(size ** 2 * 64 * 4)
     for s in range(0, b, step):
-        lb, r, (px, py) = preprocess.letterbox(frames[s:s + step], g["yolo_size"])
+        lb, r, (px, py) = preprocess.letterbox(frames[s:s + step], size)
         boxes, scores, strides = yolo.decode(yolo.forward(ytree, lb, quant), cfg["yolo"]["reg_max"])
         out["boxes_lb"].append(boxes)
         out["scores"].append(scores)
@@ -91,16 +79,10 @@ def detect(cand: Dict, traffic: Dict) -> Dict:
 
 
 def embed(stree: Dict, frames: torch.Tensor, cfg: Dict, traffic: Dict,
-          quant: Optional[str] = None) -> torch.Tensor:
-    """SAM's image embeddings (B, gs, gs, C) of the frames."""
-    g = geometry(cfg, traffic)
-    v = dict(cfg["vision_config"], image_size=g["canvas"])
-    step = _block(g["gs"] ** 2 * v["mlp_dim"] * 4 * 4)
-    out = []
-    for s in range(0, frames.shape[0], step):
-        pix = preprocess.sam_pixels(frames[s:s + step], g["canvas"])
-        out.append(sam.encoder(stree["vision"], v, pix, quant).float())
-    return torch.cat(out)
+          quant: Optional[str] = None):
+    """SAM's image embedding of the frames, in the form that the model
+    family's :func:`crops` takes."""
+    return family(cfg).embed(stree, frames, cfg, traffic, quant)
 
 
 def offsets(boxes: torch.Tensor, crop: int, h: int, w: int) -> torch.Tensor:
@@ -112,27 +94,12 @@ def offsets(boxes: torch.Tensor, crop: int, h: int, w: int) -> torch.Tensor:
                        -1)
 
 
-def crops(stree: Dict, emb: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
-          frame_hw, cfg: Dict, traffic: Dict, quant: Optional[str] = None) -> Dict:
+def crops(stree: Dict, emb, boxes: torch.Tensor, valid: torch.Tensor, frame_hw, cfg: Dict,
+          traffic: Dict, quant: Optional[str] = None) -> Dict:
     """For every box (B, K, 4): its crop origin (B, K, 2) and the fp32 mask
-    logits of its crop (B, K, crop, crop); invalid slots' logits are -inf
-    (no mask). The decoder and the upscaling run in the type of the tree."""
-    g = geometry(cfg, traffic)
-    d = cfg["mask_decoder_config"]
-    b, k = boxes.shape[:2]
-    h, w = frame_hw
-    off = offsets(boxes, g["crop"], h, w)
-    logits = torch.full((b, k, g["crop"], g["crop"]), -math.inf, device=emb.device)
-    idx = valid.nonzero()
-    step = _block(g["gs"] ** 2 * max(d["hidden_size"], 16 * 64) * 4 * 4)
-    for s in range(0, idx.shape[0], step):
-        bi, ki = idx[s:s + step].unbind(1)
-        sparse = sam.box_tokens(stree, boxes[bi, ki] * g["sam_scale"], g["canvas"])
-        dt = stree["decoder"]["iou_token"].dtype
-        hyper, keys = sam.decode(stree, emb[bi].to(dt), sparse, d["num_attention_heads"], quant)
-        low = sam.mask_logits(stree, keys, hyper)
-        logits[bi, ki] = sam.crop_sample(low, off[bi, ki], g["crop"], g["to_low"])
-    return {"offsets": off, "logits": logits}
+    logits of its crop (B, K, crop, crop), from the model family's
+    :func:`embed`; invalid slots' logits are -inf (no mask)."""
+    return family(cfg).crops(stree, emb, boxes, valid, frame_hw, cfg, traffic, quant)
 
 
 def metrics(masks: torch.Tensor, offs: torch.Tensor, frames: torch.Tensor,

@@ -55,10 +55,20 @@ def forbidden_modules() -> List[str]:
 
 def build_pipeline(cfg: Dict, traffic: Dict, seed: int, device, quant: str = "none"):
     """The port's pipeline for a configuration and a traffic mix, on weights
-    drawn from ``seed`` (``cytobench/weights.py``)."""
+    drawn from ``seed`` (``cytobench/weights.py``): its model family's
+    ``build``."""
+    from .manifest import family
+
+    return family(cfg).build(cfg, traffic, seed, device, quant)
+
+
+def port_pipeline(cfg: Dict, traffic: Dict, seed: int, device, quant: str, sam_config,
+                  sam_encoder_size: int):
+    """The port's pipeline from what every family shares: YOLOv8 from the
+    configuration's ``yolo``, the engine's options from the traffic mix,
+    the weights from ``seed``; SAM as the family configures it."""
     import torch
 
-    from yolo_sam_inference_tpu_torch.models.sam import SamTPUConfig
     from yolo_sam_inference_tpu_torch.models.yolo import YoloConfig
     from yolo_sam_inference_tpu_torch.pipeline.engine import (
         CellSegmentationPipeline,
@@ -67,28 +77,17 @@ def build_pipeline(cfg: Dict, traffic: Dict, seed: int, device, quant: str = "no
 
     from . import flops, weights
 
-    v, p, d, y = (cfg[k] for k in ("vision_config", "prompt_encoder_config",
-                                   "mask_decoder_config", "yolo"))
-    scfg = SamTPUConfig(
-        image_size=v["image_size"], patch_size=v["patch_size"], vision_hidden=v["hidden_size"],
-        vision_layers=v["num_hidden_layers"], vision_heads=v["num_attention_heads"],
-        vision_mlp_dim=v["mlp_dim"], window_size=v["window_size"],
-        global_attn_indexes=tuple(v["global_attn_indexes"]), output_channels=v["output_channels"],
-        prompt_hidden=p["hidden_size"], num_pos_feats=p["hidden_size"] // 2,
-        decoder_layers=d["num_hidden_layers"], decoder_heads=d["num_attention_heads"],
-        decoder_mlp_dim=d["mlp_dim"], iou_head_hidden=d["iou_head_hidden_dim"],
-        iou_head_depth=d["iou_head_depth"], num_multimask_outputs=d["num_multimask_outputs"],
-        layer_norm_eps=v["layer_norm_eps"], decoder_layer_norm_eps=d["layer_norm_eps"])
+    y = cfg["yolo"]
     ycfg = YoloConfig(depth_mult=y["depth_multiple"], width_mult=y["width_multiple"],
                       max_channels=y["max_channels"], num_classes=y["nc"], reg_max=y["reg_max"])
     opts = PipelineOptions(
         batch_size=traffic["batch"], max_det=traffic["max_det"],
         metric_crop=traffic["metric_crop"], conf_threshold=traffic["conf_threshold"],
         iou_threshold=traffic["iou_threshold"], nms_candidates=traffic["nms_candidates"],
-        yolo_size=flops.yolo_size(traffic), sam_encoder_size=v["image_size"],
+        yolo_size=flops.yolo_size(traffic), sam_encoder_size=sam_encoder_size,
         compute_dtype=getattr(torch, cfg["dtype"]), quant=quant)
     params = weights.weights(cfg, seed, device, host=True)
-    return CellSegmentationPipeline(device=device, options=opts, sam_config=scfg,
+    return CellSegmentationPipeline(device=device, options=opts, sam_config=sam_config,
                                     yolo_config=ycfg, params=params)
 
 
@@ -205,7 +204,8 @@ def run_cell(manifest, name: str, seed: int, seconds: float, trace: bool, device
             prof_stream.step()
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         rec["encoder_images"] = []
-        with profile(activities=acts) as prof, tracing.mark_encoder(rec["encoder_images"]):
+        encoder = manifest.family(cfg).ENCODER_CLASS
+        with profile(activities=acts) as prof, tracing.mark_encoder(rec["encoder_images"], encoder):
             with record_function(tracing.WINDOW):
                 for _ in range(traffic["profiled_batches"]):
                     prof_stream.step()

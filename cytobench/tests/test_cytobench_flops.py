@@ -8,6 +8,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from cytobench import flops
+from cytobench.manifest import family
 from cytobench.reference import sam, yolo
 from cytobench.weights import weights
 
@@ -58,7 +59,7 @@ def test_counts_match_torch_on_the_reference():
     unused = (masks - 1) * 2 * (2 * c * c + c * c // 8) + 2 * (c * ih + ih * ih + ih * masks)
     # and it encodes the token grid's positions: (gs^2, 2) @ (2, c / 2), once an image
     image_pe = 2 * gs * gs * 2 * (c // 2)
-    assert _counted(prompt) == flops.prompt_flops(cfg, traffic, g=gs) - unused + image_pe
+    assert _counted(prompt) == family(cfg).prompt_flops(cfg, traffic, g=gs) - unused + image_pe
 
 
 def test_full_size_totals():

@@ -32,6 +32,19 @@ def test_reference_takes_nothing_of_the_port():
         assert PORT not in f.read_text(), f
 
 
+def test_families_load_nothing_of_the_port():
+    """A family's module, which the reference's embedding and crops are
+    taken from, imports the port only inside the function that builds it."""
+    files = sorted((HERE / "families").glob("*.py"))
+    assert files
+    for f in files:
+        top = [n for n in ast.parse(f.read_text()).body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import) for a in n.names}
+        names |= {n.module.split(".")[0] for n in top if isinstance(n, ast.ImportFrom) and n.module}
+        assert PORT not in names, f
+
+
 def test_reads_no_jax_benchmark():
     for f in sorted(HERE.rglob("*.py")):
         if f.parent.name == "tests":

@@ -8,7 +8,9 @@ import shutil
 import tempfile
 from pathlib import Path
 
-from cytobench import run
+import pytest
+
+from cytobench import run, trace
 from cytobench.manifest import Manifest
 
 from . import tiny
@@ -82,3 +84,81 @@ def test_a_cell_and_a_metric_are_added_as_files_only(tiny_root):
     assert line["metrics"]["frames_seen"]["value"] > 0
     assert all(p.read_bytes() == b for p, b in before.items())
 
+
+
+PROBE = '''"""A family that hands every hook to sam_vit's and counts its calls."""
+import collections
+from pathlib import Path
+
+from cytobench.manifest import family
+
+CALLS = collections.Counter()
+BASE = family({"family": "sam_vit", "family_dir": str(Path(__file__).parent)})
+ENCODER_CLASS = BASE.ENCODER_CLASS
+HOOKS = ("sam_spec", "build", "encoder_units", "prompt_flops", "embed", "crops")
+
+
+def _counted(name):
+    def hook(*args, **kwargs):
+        CALLS[name] += 1
+        out = getattr(BASE, name)(*args, **kwargs)
+        return FLIP(out) if name == "crops" else out
+    return hook
+
+
+for _name in HOOKS:
+    globals()[_name] = _counted(_name)
+'''
+
+
+@pytest.mark.parametrize("name,flip", [("probe", "out"),
+                                       ("probe_flip", "dict(out, logits=-out['logits'])")],
+                         ids=["faithful", "flipped"])
+def test_a_family_is_added_as_files_only(tiny_root, monkeypatch, name, flip):
+    """A new model family is a module in families/, a configuration that
+    names it and a cell, all new files and entries: a run of the cell calls
+    every hook, reads the encoder's roofline and the step's MFU, and is
+    correct; with the reference's masks flipped by the family, it is not.
+    No file that was there changes. A CPU profile has no device time, so
+    each marked encoder call is given 1 ms of it."""
+    none = {"window_s": 0.0, "busy_s": 0.0, "device_ops": [], "idle_gaps": []}
+    read = trace.read
+    monkeypatch.setattr(trace, "read", lambda events: dict(
+        read(events) or none, encoder_s=[1e-3 for e in events if e.name == trace.ENCODER]))
+    root = Path(tempfile.mkdtemp(prefix="cytobench_family_"))
+    shutil.copytree(tiny_root, root, dirs_exist_ok=True)
+    here = root / "cytobench"
+    before = {p: p.read_bytes() for p in here.rglob("*") if p.is_file()}
+    (here / "families" / f"{name}.py").write_text(PROBE + f"\n\ndef FLIP(out):\n    return {flip}\n")
+    (here / "configs" / f"{name}.json").write_text(json.dumps(dict(tiny.tiny_config(),
+                                                                   name=name, family=name)))
+    cell = f"{name}-cell"
+    shutil.copy(here / "workloads" / f"{tiny.CELL}.json", here / "workloads" / f"{cell}.json")
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": name, "source": "test", "file": f"cytobench/configs/{name}.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": cell, "config": name, "traffic": "tiny", "chips": 1,
+                               "why": "test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    m = Manifest(root, here)
+    line = run.run_cell(m, cell, 3, 0.3, True, "cpu")
+    assert all(p.read_bytes() == b for p, b in before.items())
+    if name == "probe_flip":
+        assert not line["correct"], line["compared"]
+        return
+    assert line["correct"], line["compared"]
+    assert {"encoder_roofline", "mfu_pct"} <= set(line["metrics"])
+    probe = m.family({"family": name})
+    assert all(probe.CALLS[h] > 0 for h in probe.HOOKS), probe.CALLS
+
+
+def test_a_configuration_without_a_family_is_refused(tiny_root):
+    root = Path(tempfile.mkdtemp(prefix="cytobench_nofamily_"))
+    shutil.copytree(tiny_root, root, dirs_exist_ok=True)
+    path = root / "cytobench" / "configs" / "tiny.json"
+    cfg = json.loads(path.read_text())
+    del cfg["family"]
+    path.write_text(json.dumps(cfg))
+    m = Manifest(root, root / "cytobench")
+    with pytest.raises(KeyError, match='"family"'):
+        m.config(m.cell(tiny.CELL))

@@ -64,7 +64,8 @@ class SamImageEncoder(torch.nn.Module):
 
 def test_encoder_calls_are_marked_in_the_profile():
     enc, images = SamImageEncoder(), []
-    with profile(activities=[ProfilerActivity.CPU]) as prof, trace.mark_encoder(images):
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            trace.mark_encoder(images, "SamImageEncoder"):
         enc(torch.ones(3, 2))
         enc(torch.ones(5, 2))
         torch.nn.Linear(2, 2)(torch.ones(1, 2))

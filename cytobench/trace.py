@@ -5,8 +5,8 @@ device time of the SAM image encoder's kernels.
 
 The window is the CPU range that the harness marks with :data:`WINDOW`;
 the host's own phases are marked ``dispatch`` and ``fetch``, and each call
-of the encoder module (class :data:`ENCODER_CLASS`, the engine's
-``sam.vision``) :data:`ENCODER` (:func:`mark_encoder`). The profiler also
+of the encoder module (the engine's ``sam.vision``, whose class the model
+family names) :data:`ENCODER` (:func:`mark_encoder`). The profiler also
 puts these marks on the device's timeline; they are no device work.
 """
 
@@ -19,29 +19,29 @@ from typing import Dict, List, Tuple
 WINDOW = "cytobench.window"
 PHASES = ("dispatch", "fetch")
 ENCODER = "cytobench.encoder"
-ENCODER_CLASS = "SamImageEncoder"
 RUNTIME = re.compile(r"cu(da)?[A-Z]")  # the CUDA runtime's and driver's calls
 
 
 @contextlib.contextmanager
-def mark_encoder(images: List[int]):
-    """Marks every forward of an encoder module with a :data:`ENCODER`
-    range while the block runs, and appends each call's batch to
-    ``images``. Module hooks from outside the program: it is not edited."""
+def mark_encoder(images: List[int], encoder_class: str):
+    """Marks every forward of a module of class ``encoder_class`` with a
+    :data:`ENCODER` range while the block runs, and appends each call's
+    batch to ``images``. Module hooks from outside the program: it is not
+    edited."""
     from torch.autograd.profiler import record_function
     from torch.nn.modules import module
 
     open_: List = []
 
     def pre(mod, args):
-        if type(mod).__name__ == ENCODER_CLASS:
+        if type(mod).__name__ == encoder_class:
             images.append(int(args[0].shape[0]))
             rf = record_function(ENCODER)
             rf.__enter__()
             open_.append(rf)
 
     def post(mod, args, out):
-        if type(mod).__name__ == ENCODER_CLASS and open_:
+        if type(mod).__name__ == encoder_class and open_:
             open_.pop().__exit__(None, None, None)
 
     hooks = [module.register_module_forward_pre_hook(pre),

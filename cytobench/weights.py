@@ -1,4 +1,5 @@
-"""The benchmark's weights: YOLOv8 and SAM drawn from ``--seed`` on the
+"""The benchmark's weights: YOLOv8 and SAM (the tree of the configuration's
+model family, ``cytobench/families/``) drawn from ``--seed`` on the
 device, in one call of the card's generator, in bfloat16, the type they are
 served in; then laid out as the parameter tree that the program's
 ``CellSegmentationPipeline(params=(yolo, sam))`` takes (host float32 arrays
@@ -22,6 +23,8 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from .manifest import family
 
 Leaf = Tuple[Tuple[int, ...], str, float]  # (shape, kind, scale)
 
@@ -81,69 +84,6 @@ def yolo_spec(y: Dict) -> Dict:
     }
 
 
-def sam_spec(cfg: Dict) -> Dict:
-    v, p, d = cfg["vision_config"], cfg["prompt_encoder_config"], cfg["mask_decoder_config"]
-    c, ps = v["hidden_size"], v["patch_size"]
-    gs = v["image_size"] // ps
-    hd = c // v["num_attention_heads"]
-    oc = v["output_channels"]
-
-    def dense(i, o):
-        return {"w": _normal((i, o), 1.0 / math.sqrt(i)), "b": _normal((o,), 0.02)}
-
-    def ln(n, outliers=False):
-        return {"scale": _gain(n, outliers), "bias": _normal((n,), 0.02)}
-
-    def layer(i):
-        ws = gs if i in v["global_attn_indexes"] else v["window_size"]
-        return {"ln1": ln(c, True),
-                "attn": {"qkv": dense(c, 3 * c), "proj": dense(c, c),
-                         "rel_pos_h": _normal((2 * ws - 1, hd), 0.1),
-                         "rel_pos_w": _normal((2 * ws - 1, hd), 0.1)},
-                "ln2": ln(c, True), "mlp1": dense(c, v["mlp_dim"]), "mlp2": dense(v["mlp_dim"], c)}
-
-    di = d["hidden_size"]
-    down = di // d["attention_downsample_rate"]
-
-    def attn(inner):
-        return {"q": dense(di, inner), "k": dense(di, inner), "v": dense(di, inner),
-                "out": dense(inner, di)}
-
-    def ff(i, h, o, depth):
-        return {"in": dense(i, h), "hidden": [dense(h, h) for _ in range(depth - 2)],
-                "out": dense(h, o)}
-
-    m = d["num_multimask_outputs"] + 1
-    return {
-        "vision": {
-            "patch_embed": {"w": _normal((ps, ps, 3, c), 1.0 / math.sqrt(ps * ps * 3)),
-                            "b": _normal((c,), 0.02)},
-            "pos_embed": _normal((1, gs, gs, c), 0.1),
-            "layers": [layer(i) for i in range(v["num_hidden_layers"])],
-            "neck": {"conv1_w": _normal((c, oc), 1.0 / math.sqrt(c)), "ln1": ln(oc),
-                     "conv2_w": _normal((3, 3, oc, oc), 1.0 / math.sqrt(9 * oc)), "ln2": ln(oc)},
-        },
-        "prompt": {"point_embed": _normal((4, p["hidden_size"]), 1.0),
-                   "not_a_point": _normal((p["hidden_size"],), 1.0),
-                   "no_mask": _normal((p["hidden_size"],), 0.1), "mask_embed": None},
-        "decoder": {
-            "iou_token": _normal((1, di), 1.0), "mask_tokens": _normal((m, di), 1.0),
-            "layers": [{"self_attn": attn(di), "ln1": ln(di), "t2i": attn(down), "ln2": ln(di),
-                        "mlp1": dense(di, d["mlp_dim"]), "mlp2": dense(d["mlp_dim"], di),
-                        "ln3": ln(di), "i2t": attn(down), "ln4": ln(di)}
-                       for _ in range(d["num_hidden_layers"])],
-            "final_t2i": attn(down), "ln_final": ln(di),
-            "up1_w": _normal((di, di // 4, 2, 2), 1.0 / math.sqrt(di)),
-            "up1_b": _normal((di // 4,), 0.02), "up_ln": ln(di // 4),
-            "up2_w": _normal((di // 4, di // 8, 2, 2), 1.0 / math.sqrt(di // 4)),
-            "up2_b": _normal((di // 8,), 0.02),
-            "hyper_mlps": [ff(di, di, di // 8, 3) for _ in range(m)],
-            "iou_head": ff(di, d["iou_head_hidden_dim"], m, d["iou_head_depth"]),
-        },
-        "shared_pe": _normal((2, p["hidden_size"] // 2), 1.0),
-    }
-
-
 def _leaves(spec, out: List[Leaf]) -> None:
     if isinstance(spec, dict):
         for k in spec:
@@ -194,7 +134,7 @@ def weights(cfg: Dict, seed: int, device, host: bool):
     """(YOLO tree, SAM tree): host float32 numpy leaves (``host``, the
     program's ``params=``) or float32 tensors on ``device`` (the reference)."""
     trees = []
-    for i, spec in enumerate((yolo_spec(cfg["yolo"]), sam_spec(cfg))):
+    for i, spec in enumerate((yolo_spec(cfg["yolo"]), family(cfg).sam_spec(cfg))):
         leaves = draw(spec, seed * 2 + i, device, cfg["assumed"])
         if host:
             flat = torch.cat([t.reshape(-1) for t in leaves]).cpu().float().numpy()
