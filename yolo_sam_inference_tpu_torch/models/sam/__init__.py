@@ -6,10 +6,20 @@ The JAX package's functions are methods here: ``sam_image_encoder`` is
 ``SamModel.vision``, ``sam_prompt_boxes`` / ``sam_prompt_points`` are
 ``SamPromptEncoder.boxes`` / ``.points``, ``sam_mask_decoder`` (multimask
 output, dense prompts) is ``SamModel.mask_decoder`` and
-``sam_forward_boxes`` is ``SamModel.forward_boxes``.
+``sam_forward_boxes`` is ``SamModel.forward_boxes``. SAM 2's image path
+(the Hiera encoder, no JAX counterpart) is ``hiera.py``.
 """
 
-from .config import SamTPUConfig, sam_tiny_test, sam_vit_b, sam_vit_h, sam_vit_l
+from .config import (
+    Sam2Config,
+    SamTPUConfig,
+    sam2_1_hiera_l,
+    sam2_tiny_test,
+    sam_tiny_test,
+    sam_vit_b,
+    sam_vit_h,
+    sam_vit_l,
+)
 from .convert import (
     adapt_resolution,
     convert_hf_sam_state_dict,
@@ -18,11 +28,13 @@ from .convert import (
     is_mobilesam_state_dict,
     load_sam_params,
 )
+from .hiera import HieraImageEncoder, Sam2Model, init_sam2_params
 from .model import SamImageEncoder, SamMaskDecoder, SamModel, SamPromptEncoder, init_sam_params
 from .tinyvit import TinyViT, TinyViTConfig, init_tinyvit_params, is_tinyvit
 
 __all__ = [
-    "SamImageEncoder", "SamMaskDecoder", "SamModel", "SamPromptEncoder", "SamTPUConfig",
+    "HieraImageEncoder", "Sam2Config", "Sam2Model", "init_sam2_params", "sam2_1_hiera_l",
+    "sam2_tiny_test", "SamImageEncoder", "SamMaskDecoder", "SamModel", "SamPromptEncoder", "SamTPUConfig",
     "TinyViT", "TinyViTConfig", "adapt_resolution", "convert_hf_sam_state_dict",
     "convert_mobilesam_state_dict", "convert_mobilesam_tinyvit", "init_sam_params",
     "init_tinyvit_params", "is_mobilesam_state_dict", "is_tinyvit", "load_sam_params",

@@ -93,3 +93,106 @@ def sam_tiny_test() -> SamTPUConfig:
         decoder_mlp_dim=32,
         iou_head_hidden=16,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class Sam2Config:
+    """SAM 2's image path: the Hiera trunk, its FPN neck and the mask decoder
+    with high-resolution features (``sam2/configs/sam2.1/*.yaml``,
+    ``sam2/modeling/backbones/hieradet.py``, ``image_encoder.py``,
+    ``sam/mask_decoder.py``). The prompt encoder and the two-way transformer
+    are SAM's, so the decoder's fields keep :class:`SamTPUConfig`'s names."""
+
+    image_size: int = 1024
+    # Hiera trunk: a 7x7 stride-4 patch embedding, then stages whose first
+    # block (past the first stage) pools its queries 2x2 and doubles the width
+    # and the heads
+    embed_dim: int = 144
+    num_heads: int = 2
+    stages: Tuple[int, ...] = (2, 6, 36, 4)
+    window_spec: Tuple[int, ...] = (8, 4, 16, 8)
+    global_att_blocks: Tuple[int, ...] = (23, 33, 43)
+    pos_embed_bkg: int = 7  # the side of the interpolated background position table
+    patch_kernel: int = 7
+    patch_stride: int = 4
+    mlp_ratio: float = 4.0
+    # FPN neck: nearest top-down sums at these levels, the coarsest ``scalp``
+    # levels dropped; the decoder's high-resolution projections of levels 0, 1
+    fpn_top_down_levels: Tuple[int, ...] = (2, 3)
+    scalp: int = 1
+    output_channels: int = 256
+    # prompt encoder / decoder (SAM's, with the object-score token first)
+    prompt_hidden: int = 256
+    num_pos_feats: int = 128
+    decoder_layers: int = 2
+    decoder_heads: int = 8
+    decoder_mlp_dim: int = 2048
+    iou_head_hidden: int = 256
+    iou_head_depth: int = 3
+    num_multimask_outputs: int = 3
+    layer_norm_eps: float = 1e-6
+    decoder_layer_norm_eps: float = 1e-5  # SAM 2's decoder LayerNorms: nn.LayerNorm defaults
+    # single-mask output: token 0 unless its stability (area above +delta
+    # over area above -delta, over its whole low-res mask) is below thresh,
+    # then the best of tokens 1.. by predicted IoU
+    stability_delta: float = 0.05
+    stability_thresh: float = 0.98
+
+    @property
+    def stage_ends(self) -> Tuple[int, ...]:
+        return tuple(sum(self.stages[:i + 1]) - 1 for i in range(len(self.stages)))
+
+    @property
+    def q_pool_blocks(self) -> Tuple[int, ...]:
+        return tuple(e + 1 for e in self.stage_ends[:-1])
+
+    def blocks(self):
+        """Every trunk block as (dim, dim_out, heads, window, pools): a block
+        takes the window of the stage it starts in (0: global), so a stage's
+        first block, which pools, runs the previous stage's window."""
+        out, dim, heads, stage = [], self.embed_dim, self.num_heads, 0
+        for i in range(sum(self.stages)):
+            window = 0 if i in self.global_att_blocks else self.window_spec[stage]
+            dim_out = dim
+            if i - 1 in self.stage_ends:
+                dim_out, heads, stage = 2 * dim, 2 * heads, stage + 1
+            out.append((dim, dim_out, heads, window, i in self.q_pool_blocks))
+            dim = dim_out
+        return out
+
+    @property
+    def stage_dims(self) -> Tuple[int, ...]:
+        return tuple(self.embed_dim * 2 ** i for i in range(len(self.stages)))
+
+    @property
+    def trunk_grid(self) -> int:
+        return self.image_size // self.patch_stride  # 256 at the 1024 canvas
+
+    @property
+    def grid_size(self) -> int:
+        """The side of the image embedding the decoder attends to: the finest
+        level the scalp keeps last."""
+        return self.trunk_grid >> (len(self.stages) - 1 - self.scalp)
+
+    @property
+    def num_mask_tokens(self) -> int:
+        return self.num_multimask_outputs + 1
+
+    @property
+    def low_res_size(self) -> int:
+        return self.grid_size * 4
+
+
+def sam2_1_hiera_l(image_size: int = 1024) -> Sam2Config:
+    """SAM 2.1 Hiera-L (``sam2.1_hiera_l.yaml``; ``facebook/sam2.1-hiera-large``)."""
+    return Sam2Config(image_size=image_size)
+
+
+def sam2_tiny_test() -> Sam2Config:
+    """Tiny SAM 2 for the CPU tests: every stage transition, two blocks in
+    stage 3 (the second global), head dim 8, a 64-pixel canvas (trunk grid
+    16, embedding grid 4)."""
+    return Sam2Config(
+        image_size=64, embed_dim=16, num_heads=2, stages=(1, 2, 2, 1), window_spec=(4, 2, 2, 2),
+        global_att_blocks=(4,), pos_embed_bkg=3, output_channels=32, prompt_hidden=32,
+        num_pos_feats=16, decoder_heads=2, decoder_mlp_dim=32, iou_head_hidden=16)

@@ -393,8 +393,10 @@ class SamPromptEncoder(nn.Module):
     def points(self, points: torch.Tensor, labels: torch.Tensor, pad: bool = True) -> torch.Tensor:
         """JAX ``sam_prompt_points``: points (B, K, P, 2) xy in encoder-input
         pixels, labels (B, K, P): 1 foreground, 0 background, -1 padding (the
-        not-a-point embedding) -> (B, K, P, C) fp32; ``pad`` appends one
-        padding point (P + 1 tokens), as SAM does for prompts without a box."""
+        not-a-point embedding), and SAM 2's 2 and 3, a box's top-left and
+        bottom-right corners (``point_embed`` 2 and 3, as :meth:`boxes` adds
+        them) -> (B, K, P, C) fp32; ``pad`` appends one padding point (P + 1
+        tokens), as SAM does for prompts without a box."""
         if pad:
             points = torch.cat([points, points.new_zeros(*points.shape[:-2], 1, 2)], dim=-2)
             labels = torch.cat([labels, labels.new_full((*labels.shape[:-1], 1), -1)], dim=-1)
@@ -402,8 +404,9 @@ class SamPromptEncoder(nn.Module):
         lab = labels[..., None]
         pe = self.point_embed.float()
         emb = torch.where(lab == -1, self.not_a_point.float(), emb)
-        emb = torch.where(lab == 0, emb + pe[0], emb)
-        return torch.where(lab == 1, emb + pe[1], emb)
+        for i in range(4):
+            emb = torch.where(lab == i, emb + pe[i], emb)
+        return emb
 
     def image_pe(self) -> torch.Tensor:
         """Dense (gs, gs, C) positional encoding of the decoder's image tokens."""
@@ -487,6 +490,10 @@ class SamMaskDecoder(nn.Module):
         self.cfg = cfg
         eps = cfg.decoder_layer_norm_eps
         self.iou_token, self.mask_tokens = _param(p["iou_token"]), _param(p["mask_tokens"])
+        # SAM 2's object-score token, first among the output tokens where the
+        # tree has one
+        obj = p.get("obj_score_token")
+        self.obj_score_token = None if obj is None else _param(obj)
         self.layers = nn.ModuleList(DecoderLayer(lp, eps) for lp in p["layers"])
         self.final_t2i = DecoderAttention(p["final_t2i"])
         self.ln_final = Norm(p["ln_final"], 1e-5)  # a default nn.LayerNorm in SAM
@@ -504,7 +511,9 @@ class SamMaskDecoder(nn.Module):
         image_pe (gs, gs, C); dense_prompts (B or 1, gs, gs, C), or the
         no-mask embedding (C,). Returns (iou (B, K, M),
         hyper (B*K, M, C/8), keys_grid (B*K, gs, gs, C)). ``plain`` runs the
-        kernels' plain versions on any device (the fp32 oracle).
+        kernels' plain versions on any device (the fp32 oracle). A SAM 2
+        decoder's object-score token leads the output tokens; nothing here
+        reads its output.
         """
         cfg = self.cfg
         b, gs, _, c = image_embeddings.shape
@@ -514,7 +523,9 @@ class SamMaskDecoder(nn.Module):
         img_flat = (image_embeddings + dense_prompts).reshape(b, gs * gs, c)
         img_pe = image_pe.reshape(1, gs * gs, c).to(dt)
 
-        out_tokens = torch.cat([self.iou_token, self.mask_tokens], dim=0)
+        first = [] if self.obj_score_token is None else [self.obj_score_token]
+        out_tokens = torch.cat([*first, self.iou_token, self.mask_tokens], dim=0)
+        s = len(first)  # the IoU token's index
         num_out = out_tokens.shape[0]
         nt = num_out + sparse_prompts.shape[2]
         tokens = torch.cat(
@@ -564,9 +575,9 @@ class SamMaskDecoder(nn.Module):
 
         m = cfg.num_mask_tokens
         hyper = torch.stack(
-            [self.hyper_mlps[i](queries[:, 1 + i, :]) for i in range(m)], dim=1
+            [self.hyper_mlps[i](queries[:, s + 1 + i, :]) for i in range(m)], dim=1
         )
-        iou = self.iou_head(queries[:, 0, :]).reshape(b, k, m)
+        iou = self.iou_head(queries[:, s, :]).reshape(b, k, m)
         return iou, hyper, keys.reshape(b * k, gs, gs, c)
 
     def mask_head(self, keys_grid, hyper, plain: bool = False):

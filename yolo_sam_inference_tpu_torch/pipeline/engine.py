@@ -16,6 +16,12 @@ batch runs as four stages on the pipeline's device:
 * :func:`segment_stage`: box prompts -> two-way decoder batched over every
   prompt -> a per-prompt window of the token grid -> mask head -> bilinear
   resample onto a fixed crop around each cell;
+* SAM 2 (a :class:`Sam2Config`, ``"facebook/sam2.1-hiera-large"``) takes
+  :func:`embed_stage_sam2` (the Hiera encoder and FPN neck: the embedding and
+  two high-resolution levels) and :func:`segment_stage_sam2` (the decoder,
+  then each prompt's whole upscaling with the high-resolution levels, the
+  stability choice over token 0's whole low-res mask, and the chosen mask on
+  the prompt's window);
 * :func:`metrics_stage`: the 16 morphometrics per cell.
 
 With ``mesh=`` (``parallel/mesh.py``, a data axis of dp ranks) the engine
@@ -48,6 +54,7 @@ dispatch copies nothing from the host but the frames and never blocks on it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -64,13 +71,16 @@ import torch
 import torch.distributed as dist
 
 from ..models.sam import (
+    Sam2Config,
     SamTPUConfig,
     TinyViTConfig,
     adapt_resolution,
+    init_sam2_params,
     init_sam_params,
     init_tinyvit_params,
     is_tinyvit,
     load_sam_params,
+    sam2_1_hiera_l,
     sam_vit_b,
     sam_vit_h,
     sam_vit_l,
@@ -117,6 +127,8 @@ SAM_CONFIGS = {
     # MobileSAM: the TinyViT-5M encoder with SAM ViT-B's prompt encoder and decoder
     "mobile-sam": sam_vit_b,
     "tinyvit": sam_vit_b,
+    # SAM 2.1: the Hiera-L encoder and SAM 2's decoder (models/sam/hiera.py)
+    "facebook/sam2.1-hiera-large": sam2_1_hiera_l,
 }
 TINYVIT_TYPES = ("mobile-sam", "tinyvit")
 QUANT_MODES = ("none", "int8")
@@ -247,6 +259,18 @@ def embed_stage(sam, images_u8: torch.Tensor, scfg: SamTPUConfig, opts: Pipeline
     return sam_image_encoder_sp(sam.vision, pix, scfg, group).float()
 
 
+def embed_stage_sam2(sam, images_u8: torch.Tensor, scfg: Sam2Config, opts: PipelineOptions,
+                     mark=span):
+    """uint8 (B, S, S[, 3]) -> (embedding (B, gs, gs, C), feat_s1 (B, 2 gs,
+    2 gs, C / 4), feat_s0 (B, 4 gs, 4 gs, C / 8)) in the compute dtype. SAM
+    2's transforms resize the frame to the canvas and normalise it as SAM's
+    do; on square frames (the only ones :meth:`CellSegmentationPipeline.
+    _stages` builds SAM 2 for) that is :func:`sam_preprocess_batch`. ``mark``
+    makes the encoder's spans."""
+    pix, _, _ = sam_preprocess_batch(_ensure_rgb(images_u8), scfg.image_size)
+    return sam.vision(pix.to(opts.compute_dtype), mark=mark)
+
+
 def _bilinear_crop_sample_window(
     win_logits: torch.Tensor,
     offset_rc: torch.Tensor,
@@ -294,25 +318,87 @@ def segment_stage(
     _, hyper, keys_grid = sam.mask_decoder_tokens(embeddings.to(cd), sparse)
     hyper1 = hyper[:, :1, :]  # single-mask output (multimask_output=False)
 
-    cx = (boxes[..., 0] + boxes[..., 2]) * 0.5
-    cy = (boxes[..., 1] + boxes[..., 3]) * 0.5
-    off_r = (torch.round(cy).long() - cm // 2).clamp(0, h - cm)
-    off_c = (torch.round(cx).long() - cm // 2).clamp(0, w - cm)
-    offsets = torch.stack([off_r, off_c], dim=-1)
-
-    # each prompt's mask is only needed inside its crop: slice a window of
-    # the token grid per prompt and upscale just that
-    scale_to_low = sam_scale / (scfg.image_size / scfg.low_res_size)
-    scale_to_grid = scale_to_low / 4.0
-    wg = min(gs, int(math.ceil(cm * scale_to_grid)) + 3)
-    flat_off = offsets.reshape(b * k, 2)
-    g_start = ((flat_off.float() * scale_to_grid).long() - 1).clamp(0, gs - wg)
+    offsets, flat_off, g_start, wg, scale_to_low = _crop_windows(boxes, image_hw, cm, gs,
+                                                                 sam_scale, scfg)
     windows = window_crop(keys_grid, g_start[:, 0], g_start[:, 1], wg)
     logits_win = sam.decoder.mask_head(windows, hyper1)[:, 0]  # (B*K, 4wg, 4wg)
 
     crops = _bilinear_crop_sample_window(logits_win, flat_off, g_start * 4, cm, scale_to_low)
     mask_crops = (crops.reshape(b, k, cm, cm) > 0.0) & valid[..., None, None]
     return mask_crops, offsets
+
+
+def _crop_windows(boxes, image_hw, cm: int, gs: int, sam_scale: float, scfg):
+    """Each prompt's crop origin in frame pixels (offsets (B, K, 2), and
+    flattened (B*K, 2)) and, as a prompt's mask is only needed inside its
+    crop, the (wg, wg) window of the token grid that covers it (starts
+    g_start (B*K, 2)); with the scale from frame pixels to the low-res
+    logits."""
+    h, w = image_hw
+    b, k = boxes.shape[0], boxes.shape[1]
+    cx = (boxes[..., 0] + boxes[..., 2]) * 0.5
+    cy = (boxes[..., 1] + boxes[..., 3]) * 0.5
+    off_r = (torch.round(cy).long() - cm // 2).clamp(0, h - cm)
+    off_c = (torch.round(cx).long() - cm // 2).clamp(0, w - cm)
+    offsets = torch.stack([off_r, off_c], dim=-1)
+    scale_to_low = sam_scale / (scfg.image_size / scfg.low_res_size)
+    scale_to_grid = scale_to_low / 4.0
+    wg = min(gs, int(math.ceil(cm * scale_to_grid)) + 3)
+    flat_off = offsets.reshape(b * k, 2)
+    g_start = ((flat_off.float() * scale_to_grid).long() - 1).clamp(0, gs - wg)
+    return offsets, flat_off, g_start, wg, scale_to_low
+
+
+# fp32 bytes of the upscaled prompts that one chunk of SAM 2's head holds
+SAM2_HEAD_BYTES = 1 << 30
+
+
+def segment_stage_sam2(sam, feats, boxes: torch.Tensor, valid: torch.Tensor,
+                       image_hw: Tuple[int, int], scfg: Sam2Config, opts: PipelineOptions,
+                       mark=span):
+    """SAM 2: (embedding, feat_s1, feat_s0) + boxes -> (mask_crops (B, K,
+    cm, cm) bool, offsets (B, K, 2)). The decoder is SAM's, on 9 tokens a
+    prompt (the object-score, IoU and 4 mask tokens; the box's corners as
+    points labelled 2 and 3 and a padding point). Then, in the span
+    ``sam2_head`` and a chunk of images at a time (``SAM2_HEAD_BYTES``):
+    every prompt's whole upscaling with its image's high-resolution levels,
+    token 0's logits over the whole low-res grid for the stability choice
+    (:meth:`Sam2Model.choose`), the chosen token's logits on the prompt's
+    window (K8 on the upscaled grid at 4x the window's start), and the
+    crop's bilinear samples. Also returns each slot's chosen token (B, K;
+    -1 where invalid), which the fetch hands on as ``mask_token``."""
+    emb, feat_s1, feat_s0 = feats
+    h, w = image_hw
+    b, k = boxes.shape[0], boxes.shape[1]
+    cm = min(opts.metric_crop, h, w)
+    gs = scfg.grid_size
+    sam_scale = scfg.image_size / max(h, w)
+    sparse = sam.box_prompts(boxes * sam_scale).to(emb.dtype)
+    iou, hyper, keys = sam.mask_decoder_tokens(emb, sparse)
+    offsets, flat_off, g_start, wg, scale_to_low = _crop_windows(boxes, image_hw, cm, gs,
+                                                                 sam_scale, scfg)
+    with mark("sam2_head"):
+        iou = iou.reshape(b * k, -1)
+        low_start = g_start * 4
+        c8 = feat_s0.shape[-1]
+        per_image = max(1, k * (4 * gs) ** 2 * c8 * 4)
+        step = max(1, SAM2_HEAD_BYTES // per_image)
+        parts, tokens = [], []
+        for i0 in range(0, b, step):
+            p0, p1 = i0 * k, min(b, i0 + step) * k
+            up = sam.upscale(keys[p0:p1], feat_s1[i0:i0 + step], feat_s0[i0:i0 + step])
+            hy = hyper[p0:p1].float()
+            logits0 = torch.einsum("npc,nc->np", up.flatten(1, 2).float(), hy[:, 0])
+            choice = sam.choose(logits0, iou[p0:p1])
+            tokens.append(choice)
+            chosen = hy.gather(1, choice[:, None, None].expand(-1, 1, c8))[:, 0]
+            win = window_crop(up, low_start[p0:p1, 0], low_start[p0:p1, 1], 4 * wg)
+            parts.append(torch.einsum("nhwc,nc->nhw", win.float(), chosen))
+        crops = _bilinear_crop_sample_window(torch.cat(parts), flat_off, low_start, cm,
+                                             scale_to_low)
+    mask_crops = (crops.reshape(b, k, cm, cm) > 0.0) & valid[..., None, None]
+    token = torch.where(valid, torch.cat(tokens).reshape(b, k), -1)
+    return mask_crops, offsets, token
 
 
 def metrics_stage(
@@ -330,6 +416,11 @@ def metrics_stage(
         image_hw, opts.num_hull_directions, opts.hull_mode,
     )
     return {key: v.reshape(b, k) for key, v in mets.items()}
+
+
+# SAM 2's segment stage also gives each slot's chosen token; it rides in the
+# row pack beside the metrics and is handed on under this key
+MASK_TOKEN = "mask_token"
 
 
 def _pack_csv_outputs(boxes, scores, valid, offs, mets) -> torch.Tensor:
@@ -471,6 +562,13 @@ class CellSegmentationPipeline:
             self.sam_config = SAM_CONFIGS[sam_model_type]()
         else:
             raise ValueError(f"unknown SAM model type: {sam_model_type}")
+        if isinstance(self.sam_config, Sam2Config):
+            if self.options.quant != "none" or self.options.encoder_parallel != "none":
+                raise ValueError("SAM 2 runs in compute_dtype on one card: quant='none', "
+                                 "encoder_parallel='none'")
+            if sam_checkpoint is not None:
+                raise ValueError("SAM 2 checkpoints have no converter yet: pass params= or "
+                                 "draw random weights")
         if params is None:
             self._initialize_models(yolo_model_path, sam_checkpoint, seed)
         elif yolo_model_path is not None or sam_checkpoint is not None:
@@ -528,6 +626,8 @@ class CellSegmentationPipeline:
         if sam_ckpt is not None:
             logger.info("Loading SAM weights from %s", sam_ckpt)
             self.sam_params = load_sam_params(str(sam_ckpt), self.sam_config)
+        elif isinstance(self.sam_config, Sam2Config):
+            self.sam_params = init_sam2_params(2 * seed + 1, self.sam_config)
         else:
             self.sam_params = init_sam_params(2 * seed + 1, self.sam_config)
         if self.sam_model_type in TINYVIT_TYPES and "tinyvit" not in self.sam_params:
@@ -560,6 +660,8 @@ class CellSegmentationPipeline:
             self._adapted_params.clear()
             self._stage_src = src
         key = (h, w)
+        if key not in self._stage_cache and isinstance(self.sam_config, Sam2Config):
+            self._stage_cache[key] = self._stages_sam2(h, w)
         if key not in self._stage_cache:
             opts, ycfg = self.options, self.yolo_config
             group = self._encoder_group() if opts.encoder_parallel != "none" else None
@@ -583,8 +685,9 @@ class CellSegmentationPipeline:
             self._stage_cache[key] = {
                 "scfg": scfg,
                 "detect": lambda img: detect_stage(yolo, img, ycfg, opts),
-                "embed": lambda img: embed_stage(sam, img, scfg, opts, group),
-                "segment": lambda emb, boxes, valid: segment_stage(
+                # ``mark`` (the spans inside a stage) is SAM 2's: none here
+                "embed": lambda img, mark=span: embed_stage(sam, img, scfg, opts, group),
+                "segment": lambda emb, boxes, valid, mark=span: segment_stage(
                     sam, emb, boxes, valid, (h, w), scfg, opts
                 ),
                 "metrics": lambda crops, offs, gray: metrics_stage(
@@ -594,6 +697,32 @@ class CellSegmentationPipeline:
                 "sam": sam,
             }
         return self._stage_cache[key]
+
+    def _stages_sam2(self, h: int, w: int) -> Dict[str, Any]:
+        """SAM 2's stages for (h, w) frames: the encoder at its canvas (or
+        ``sam_encoder_size``); the detect and metrics stages as ViT's. Each
+        SAM stage takes ``mark``, which makes its spans; the segment stage
+        also returns each slot's chosen token."""
+        if h != w:
+            raise ValueError(f"SAM 2 takes square frames here, got {h}x{w}: its transforms "
+                             "resize to a square canvas, which the crop geometry does not yet "
+                             "follow on other frames")
+        opts, ycfg = self.options, self.yolo_config
+        scfg = dataclasses.replace(self.sam_config,
+                                   image_size=opts.sam_encoder_size or self.sam_config.image_size)
+        yolo, sam = from_jax_params(self.yolo_params, self.sam_params, self.device,
+                                    opts.compute_dtype, yolo_config=ycfg, sam_config=scfg,
+                                    conv2d_fused=opts.conv2d_fused)
+        return {
+            "scfg": scfg,
+            "detect": lambda img: detect_stage(yolo, img, ycfg, opts),
+            "embed": lambda img, mark=span: embed_stage_sam2(sam, img, scfg, opts, mark),
+            "segment": lambda feats, boxes, valid, mark=span: segment_stage_sam2(
+                sam, feats, boxes, valid, (h, w), scfg, opts, mark),
+            "metrics": lambda crops, offs, gray: metrics_stage(crops, offs, gray, (h, w), opts),
+            "yolo": yolo,
+            "sam": sam,
+        }
 
     def _encoder_group(self):
         """The process group of ``encoder_parallel`` (None where the mesh's
@@ -708,9 +837,10 @@ class CellSegmentationPipeline:
         """Wait for one batch's copies (its own event, never the whole
         device) and split them into host arrays: boxes (B, K, 4), scores,
         valid, mask_crops (B, K, cm, cm) bool or None, offsets (B, K, 2),
-        metrics {key: (B, K)}. Every packed field is exact in fp32, and the
-        arrays returned are the caller's own (the slot's buffers are
-        reused). A handle of a mesh's rank gathers the batch's outputs over
+        metrics {key: (B, K)}; on SAM 2 also ``mask_token`` (B, K) int32,
+        the token each slot's mask came from. Every packed field is exact in
+        fp32, and the arrays returned are the caller's own (the slot's
+        buffers are reused). A handle of a mesh's rank gathers the batch's outputs over
         the data axis (a collective: every rank fetches in the same order)."""
         with span("fetch", h.get("batch")):
             slot = h["slot"]
@@ -733,6 +863,8 @@ class CellSegmentationPipeline:
                     "offsets": flat[..., 6:8].astype(np.int32),
                     "metrics": {key: flat[..., 8 + i] for i, key in enumerate(h["keys"])},
                 }
+                if MASK_TOKEN in out["metrics"]:
+                    out[MASK_TOKEN] = out["metrics"].pop(MASK_TOKEN).astype(np.int32)
                 return out if h.get("gather") is None else _gather_outputs(out, *h["gather"])
 
     def _dp_share(self, images: np.ndarray) -> Tuple[np.ndarray, int]:
@@ -774,10 +906,21 @@ class CellSegmentationPipeline:
         """:meth:`process_batch_arrays` on this rank's device alone."""
         st = self._stages(images.shape[1], images.shape[2])
 
-        def timed(key, stage, *a):
+        @contextlib.contextmanager
+        def sub(name):  # a span inside a stage, synchronised and timed as the stages are
+            self._sync()
+            t0 = time.perf_counter()
+            with span(name):
+                yield
+            self._sync()
+            timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+
+        marks = {"mark": sub} if timings is not None else {}
+
+        def timed(key, stage, *a, **kw):
             t0 = time.perf_counter()
             with span(stage):
-                out = st[stage](*a)
+                out = st[stage](*a, **kw)
             self._sync()
             if timings is not None:
                 timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
@@ -786,9 +929,11 @@ class CellSegmentationPipeline:
         slot = self._acquire_slot()
         dev_images = self._images_to_device(images, slot)
         boxes, scores, valid = timed("yolo_detection", "detect", dev_images)
-        emb = timed("sam_preprocess", "embed", dev_images)
-        crops, offs = timed("sam_inference_total", "segment", emb, boxes, valid)
+        emb = timed("sam_preprocess", "embed", dev_images, **marks)
+        crops, offs, *token = timed("sam_inference_total", "segment", emb, boxes, valid, **marks)
         mets = timed("metrics_total", "metrics", crops, offs, _gray_f32(dev_images))
+        if token:
+            mets[MASK_TOKEN] = token[0]
         if not fetch_outputs:
             return None
         return self._fetch_outputs(self._start_fetch(
@@ -805,9 +950,11 @@ class CellSegmentationPipeline:
         with span("embed"):
             emb = st["embed"](images)
         with span("segment"):
-            crops, offs = st["segment"](emb, boxes, valid)
+            crops, offs, *token = st["segment"](emb, boxes, valid)
         with span("metrics"):
             mets = st["metrics"](crops, offs, _gray_f32(images))
+        if token:
+            mets[MASK_TOKEN] = token[0]
         return boxes, scores, valid, crops, offs, mets
 
     @torch.inference_mode()
