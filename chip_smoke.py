@@ -232,6 +232,16 @@ failure ends the run with a non-zero exit and no result line:
 17. multichip: ``parallel.dryrun.dryrun_multichip(4)`` (the dp engine, the
    tp, sp and pp encoders, the dp x tp and dp x sp engines, two dp x tp
    train steps, at ViT-B's widths cut to 2 layers);
+17b. Hiera: SAM 2.1 Hiera-L's attention (``csrc/hiera_attention.cu``) at
+   each case of ``Sam2Config.attention()`` at the benchmark cell's batch 8
+   (1024 canvas, hd 72; the pooling block's qkv a column slice of rows 4C
+   apart) against its fp32 plain version (2%), timed by events and on the
+   device beside the plain version, the bound (``cytobench/flops.py``'s
+   peaks) and, as the library yardstick the port never calls, the windows
+   gathered by strided copies, ``scaled_dot_product_attention`` and the copy
+   back into token order; then one batch of 8 2048 x 2048 frames through
+   the ``facebook/sam2.1-hiera-large`` pipeline (``_drive``: every launch
+   count, the attention's by case, one a block);
 18. result: the kernel table as one JSON line (each kernel's launches on its
    path, the window attention's counted by window: windows of 16 run on
    ``window_attn_relpos.cu``, the others on ``flash_attention_relpos.cu``;
@@ -309,6 +319,11 @@ MOBILE_ENCODER_COUNTS = {"gemm_bf16": 24, "tinyvit_block": 8, "tinyvit_attn": 2,
                          "mbconv_block": 3, "patch_merge_block": 2, "dw_conv3x3": 10,
                          "layer_norm": 2}
 CONFIG1_COUNTS = {**DECODER_COUNTS, "gemm_bf16": 48, "window_attn_relpos": 12}
+# SAM 2.1 Hiera-L a batch (its attention counted apart): 4 GEMMs a block over
+# 48 blocks, the neck's 4 laterals, conv_s1 and conv_s0; the decoder's
+# LayerNorms (no neck LayerNorm), its kernels, the crop and the hull
+SAM2_COUNTS = {"gemm_bf16": 4 * 48 + 4 + 2, "layer_norm": 8, "keys_stream": 3, "t2i_attend": 1,
+               "t2i_combine": 2, "window_crop": 1, "hull_support": 1}
 
 
 def _say(phase: str, msg: str) -> None:
@@ -1733,6 +1748,113 @@ def _mobile_kernel_phase(card: str) -> dict:
     torch.cuda.synchronize()
     return {"errs": errs, "times": times, "bounds": bounds, "library": library,
             "device": device}
+
+
+def _hiera_case(grid: int, window: int, pool: bool) -> str:
+    """A name for one case of ``hiera_window_attention.by_window``."""
+    return f"g{grid} {f'w{window}' if window else 'global'}{' pooled' if pool else ''}"
+
+
+def _hiera_cases() -> dict:
+    """Hiera-L's attention cases at the 1024 canvas, from its
+    ``attention()``: name -> (grid, heads, window, pool)."""
+    from yolo_sam_inference_tpu_torch.models.sam import sam2_1_hiera_l
+
+    return {_hiera_case(grid, window, pool): (grid, heads, window, pool)
+            for grid, heads, window, pool in sam2_1_hiera_l().attention()}
+
+
+def _hiera_library(qkv, heads: int, window: int, pool: bool):
+    """The yardstick of ``hiera_window_attention``: q, k and v of each
+    window gathered by strided copies (q max-pooled), SDPA, the output
+    copied back into token order. The port never calls it."""
+    import torch.nn.functional as F
+
+    b, s, _, c3 = qkv.shape
+    c = c3 // 3
+    hd, w = c // heads, window or s
+    n = s // w
+    wq = w // 2 if pool else w
+    t = qkv.reshape(b, n, w, n, w, 3, heads, hd).permute(5, 0, 1, 3, 6, 2, 4, 7)
+    k, v = (t[i].reshape(b * n * n, heads, w * w, hd) for i in (1, 2))
+    q = t[0]
+    if pool:
+        q = q.reshape(b, n, n, heads, wq, 2, wq, 2, hd).amax(dim=(-4, -2))
+    o = F.scaled_dot_product_attention(q.reshape(b * n * n, heads, wq * wq, hd), k, v)
+    o = o.reshape(b, n, n, heads, wq, wq, hd).permute(0, 1, 4, 2, 5, 3, 6)
+    return o.reshape(b, n * wq, n * wq, c)
+
+
+def _hiera_attention_phase(card: str) -> dict:
+    """Phase 17b: ``hiera_window_attention`` at Hiera-L's cases at batch 8
+    against its plain version, timed (events, device) beside the plain
+    version, the bound and the library yardstick; then one batch of 8
+    2048 x 2048 frames through the SAM 2.1 Hiera-L pipeline, whose launch
+    counts by case are the kernel table's."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from cytobench.flops import PEAK as FLOPS_PEAK, least_s
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames, device_ms, median_ms
+    from yolo_sam_inference_tpu_torch.models.sam import sam2_1_hiera_l
+    from yolo_sam_inference_tpu_torch.ops.hiera_attention import (
+        hiera_window_attention,
+        hiera_window_attention_plain,
+    )
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+    t0 = time.perf_counter()
+    b, hd = SLICE_BATCH, 72
+    g = torch.Generator().manual_seed(28)
+    errs, times, bounds, library, device = {}, {}, {}, {}, {}
+    for case, (s, heads, window, pool) in _hiera_cases().items():
+        c = heads * hd
+        wide = 4 if pool else 3  # a pooling block's qkv: 3C columns of its [qkv | shortcut]
+        y = (torch.randn(b * s * s, wide * c, generator=g) * 2).to("cuda", torch.bfloat16)
+        qkv = y[:, :3 * c].reshape(b, s, s, 3 * c)
+        fn = lambda: hiera_window_attention(qkv, heads, window, pool)
+        fnp = lambda: hiera_window_attention_plain(qkv, heads, window, pool)
+        fnl = lambda: _hiera_library(qkv, heads, window, pool)
+        _check(f"hiera_attention {case} ({b}x{s}x{s}x{3 * c}, {heads} heads, window "
+               f"{window or s}, pool {pool})", fn(), fnp(), 2e-2, errs)
+        w = window or s
+        nk, nq = w * w, (w * w // 4 if pool else w * w)
+        flops = b * (s // w) ** 2 * heads * 4.0 * nq * nk * hd
+        so = s // 2 if pool else s
+        nbytes = 2 * (b * s * s * 3 * c + b * so * so * c)  # q, k, v read once, the output written
+        least_ms = least_s(flops, nbytes) * 1e3
+        by_ops = flops / FLOPS_PEAK["bf16"] * 1e3 >= least_ms
+        bounds[case] = (least_ms, "operations" if by_ops else "bytes")
+        times[case] = (median_ms(fn), median_ms(fnp, reps=3, warmup=1))
+        device[case] = (device_ms(fn, "hiera_attn_kernel"), None)
+        library[case] = median_ms(fnl)
+        dev_ms = device[case][0]
+        _say("hiera", f"{case}: kernel {times[case][0]:.4f} ms (device "
+                      f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), plain "
+                      f"{times[case][1]:.4f} ms, bound {least_ms:.4f} ms ({bounds[case][1]}), "
+                      f"library (copies + SDPA) {library[case]:.4f} ms [{card}]")
+        del y, qkv
+
+    cfg = sam2_1_hiera_l()
+    t1 = time.perf_counter()
+    opts = tengine.PipelineOptions(max_det=16, metric_crop=128)
+    pipe = tengine.CellSegmentationPipeline(sam_model_type="facebook/sam2.1-hiera-large",
+                                            options=opts, device="cuda")
+    frames = cell_frames(np.random.default_rng(28), b, LARGE_FRAME, cells=BIG_CELLS)
+    _say("hiera", f"SAM 2.1 Hiera-L pipeline built and {b} {LARGE_FRAME} x {LARGE_FRAME} frames "
+                  f"made in {time.perf_counter() - t1:.2f} s")
+    by_case = collections.Counter((grid, window, pool)
+                                  for grid, _, window, pool in cfg.attention())
+    launches, _, _ = _drive(f"SAM 2.1 Hiera-L, {LARGE_FRAME} x {LARGE_FRAME}", pipe, frames, 16,
+                            {**SAM2_COUNTS, "hiera_attention": len(cfg.blocks())},
+                            hiera=dict(by_case))
+    _say("hiera", f"phase {time.perf_counter() - t0:.1f} s [{card}]")
+    del pipe, frames
+    torch.cuda.empty_cache()
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library, "device": device,
+            "launches": launches}
 
 
 def _conv_kernel_phase(card: str) -> dict:
@@ -3794,6 +3916,7 @@ def _wrappers() -> dict:
         flash_attention_relpos,
         window_attention,
     )
+    from yolo_sam_inference_tpu_torch.ops.hiera_attention import hiera_window_attention
     from yolo_sam_inference_tpu_torch.ops.hull_support import hull_support
     from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop
 
@@ -3809,7 +3932,7 @@ def _wrappers() -> dict:
             "layer_norm": tln.layer_norm, "keys_stream": dec.keys_stream,
             "t2i_attend": dec.t2i_attend, "t2i_combine": dec.t2i_combine,
             "window_crop": window_crop, "hull_support": hull_support,
-            "conv2d_act": tcv.conv2d_act}
+            "conv2d_act": tcv.conv2d_act, "hiera_attention": hiera_window_attention}
 
 
 def _reset_counts() -> dict:
@@ -3817,6 +3940,7 @@ def _reset_counts() -> dict:
     for w in wrappers.values():
         w.launches = 0
     wrappers["window_attn_relpos"].by_window = {}
+    wrappers["hiera_attention"].by_window = {}
     wrappers["flash_attention_relpos"].by_nq = {}
     wrappers["layer_norm"].residual_launches = 0
     wrappers["mbconv_block"].bf16_launches = 0
@@ -3824,24 +3948,28 @@ def _reset_counts() -> dict:
     return wrappers
 
 
-def _read_counts(tag: str, wrappers: dict, expected: dict, by_window=None, by_nq=None) -> dict:
+def _read_counts(tag: str, wrappers: dict, expected: dict, by_window=None, by_nq=None,
+                 hiera=None) -> dict:
     """The launch counts since the reset; every kernel not in ``expected``
     must have run 0 times (the residual LayerNorm, K11d, counts as
     ``layer_norm_residual``; the compute="bf16" instantiations of K14 and
     K15 as ``mbconv_block_bf16`` and ``patch_merge_block_bf16`` too), and
-    the window attention's counts by window
-    and K12's by query count must match. The returned counts add K12's by
-    query count as ``flash_attention_relpos nq<NQ>`` and the window
-    attention's by window as ``window_attn_relpos w<w>`` (windows of 16 run
-    on one kernel, the others on K12's)."""
+    the window attention's counts by window, K12's by query count and
+    Hiera's attention by (grid, window, pool) must match. The returned
+    counts add K12's by query count as ``flash_attention_relpos nq<NQ>``,
+    the window attention's by window as ``window_attn_relpos w<w>`` (windows
+    of 16 run on one kernel, the others on K12's) and Hiera's by case as
+    ``hiera_attention <case>``."""
     launches = {name: w.launches for name, w in wrappers.items()}
     launches["layer_norm_residual"] = wrappers["layer_norm"].residual_launches
     for name in ("mbconv_block", "patch_merge_block"):
         launches[f"{name}_bf16"] = wrappers[name].bf16_launches
     windows = dict(wrappers["window_attn_relpos"].by_window)
     nqs = dict(wrappers["flash_attention_relpos"].by_nq)
+    cases = dict(wrappers["hiera_attention"].by_window)
     _say("slice", f"{tag}: launches {({k: v for k, v in launches.items() if v})}, attention by "
-                  f"window {windows}, K12 by query count {nqs}")
+                  f"window {windows}, K12 by query count {nqs}"
+                  + (f", Hiera's attention by case {cases}" if cases else ""))
     for name, n in launches.items():
         if n != expected.get(name, 0):
             raise AssertionError(f"{tag}: {name} launched {n} times, expected "
@@ -3850,13 +3978,16 @@ def _read_counts(tag: str, wrappers: dict, expected: dict, by_window=None, by_nq
         raise AssertionError(f"{tag}: attention launches by window {windows}, expected {by_window}")
     if by_nq is not None and nqs != by_nq:
         raise AssertionError(f"{tag}: K12 launches by query count {nqs}, expected {by_nq}")
+    if hiera is not None and cases != hiera:
+        raise AssertionError(f"{tag}: Hiera's attention launches by case {cases}, expected {hiera}")
     launches.update({f"flash_attention_relpos nq{nq}": c for nq, c in nqs.items()})
     launches.update({f"window_attn_relpos w{w}": c for w, c in windows.items()})
+    launches.update({f"hiera_attention {_hiera_case(*key)}": c for key, c in cases.items()})
     return launches
 
 
 def _drive(tag: str, pipe, frames, max_det: int, expected: dict, by_window=None,
-           by_nq=None) -> tuple:
+           by_nq=None, hiera=None) -> tuple:
     """One batch through process_batch_arrays with every count set to 0 just
     before and read just after; output shapes and finite values checked."""
     import numpy as np
@@ -3871,7 +4002,7 @@ def _drive(tag: str, pipe, frames, max_det: int, expected: dict, by_window=None,
     out = pipe.process_batch_arrays(frames)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = _read_counts(tag, wrappers, expected, by_window, by_nq)
+    launches = _read_counts(tag, wrappers, expected, by_window, by_nq, hiera)
     if hull_candidates.calls:  # K9 takes the masks: the plain front end stays off the card
         raise AssertionError(f"{tag}: the plain hull front end ran {hull_candidates.calls} times")
     b = frames.shape[0]
@@ -4854,6 +4985,7 @@ def main() -> int:
     tr = _train_phase(card, vit_b_pipe)
     ppp = _pp_phase(card, vit_b_pipe)
     mc = _multichip_phase(card)
+    hp = _hiera_attention_phase(card)
 
     def entry(name, route, source, replaces, launches, err, timed, bound, library=None,
               device=(None, None)):
@@ -5130,6 +5262,14 @@ def main() -> int:
                    + f" (backward {tr['backward_share']:.3f} of it), losses {tr['losses']}; "
                    f"phases [tp] {tpp['secs']:.1f} s, [train] {tr['secs']:.1f} s, [pp] "
                    f"{ppp['secs']:.1f} s, [multichip] {mc['secs']:.1f} s [{card}]")
+    # SAM 2's attention replaces no TPU kernel (the JAX package has no Hiera)
+    for case in _hiera_cases():
+        row = entry(f"hiera_attention {case}", "cuda", "csrc/hiera_attention.cu", "",
+                    hp["launches"][f"hiera_attention {case}"],
+                    hp["errs"]["hiera_attention"], hp["times"][case],
+                    hp["bounds"][case], hp["library"][case], hp["device"][case])
+        row["replaces"] = "none (cuDNN's SDPA and the window copies)"
+        table.append(row)
     for row in table:
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']}: no launch on its path")

@@ -1,8 +1,9 @@
 """SAM 2 in the port (``models/sam/hiera.py``, the engine's SAM 2 stages)
 against the plain fp32 reference (``tests/plain_sam2.py``), seeded, on the
 CPU at ``sam2_tiny_test()``: the trunk, the neck and the decoder's masks,
-a pooling block and a global block alone, the stability choice on built
-cases, the box prompt, the engine's windowed head against the whole masks,
+a pooling block and a global block alone, the attention's plain version
+against SDPA at every attention case of the tiny and the published
+configurations, the stability choice on built cases, the box prompt, the engine's windowed head against the whole masks,
 its spans, and the benchmark's copy of the reference against this one.
 
 Both sides run in fp32 on the CPU, so each tolerance is fp32 rounding
@@ -27,6 +28,7 @@ from yolo_sam_inference_tpu_torch.models.sam import (
     sam2_tiny_test,
 )
 from yolo_sam_inference_tpu_torch.models.sam.hiera import HieraBlock
+from yolo_sam_inference_tpu_torch.ops.hiera_attention import hiera_window_attention_plain
 from yolo_sam_inference_tpu_torch.models.yolo import YoloConfig
 from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
 from yolo_sam_inference_tpu_torch.utils import spans
@@ -114,6 +116,69 @@ def test_block_alone_matches_plain(model, index):
         got = blk(x)
         want = plain.block(x, tree["vision"]["blocks"][index], dim, dim_out, heads, window, pool)
     assert got.shape == (2, side // 2 if pool else side, side // 2 if pool else side, dim_out)
+    _close(got, want, 1e-5)
+
+
+def _sdpa_windows(qkv, heads, window, pool):
+    """The oracle: each window's q, k, v gathered by permutes (q max-pooled
+    2 x 2 by ``F.max_pool2d``), ``F.scaled_dot_product_attention`` in fp32,
+    scattered back into token order."""
+    import torch.nn.functional as F
+
+    b, s, _, c3 = qkv.shape
+    c = c3 // 3
+    hd, w = c // heads, window or s
+    n, wq = s // w, (w // 2 if pool else w)
+    t = qkv.float().reshape(b, n, w, n, w, 3, heads, hd).permute(5, 0, 1, 3, 6, 2, 4, 7)
+    k, v = (t[i].reshape(b * n * n, heads, w * w, hd) for i in (1, 2))
+    q = t[0].reshape(-1, w, w, hd)
+    if pool:
+        q = F.max_pool2d(q.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+    o = F.scaled_dot_product_attention(q.reshape(b * n * n, heads, wq * wq, hd), k, v)
+    o = o.reshape(b, n, n, heads, wq, wq, hd).permute(0, 1, 4, 2, 5, 3, 6)
+    return o.reshape(b, n * wq, n * wq, c)
+
+
+def _case_id(grid, window, pool):
+    return f"g{grid}-{f'w{window}' if window else 'global'}{'-pooled' if pool else ''}"
+
+
+def _attention_cases():
+    """(id, batch, grid, heads, hd, window, pool, 4C rows): every attention of
+    ``sam2_tiny_test()`` at its grid, and each case of Hiera-L's
+    ``attention()`` (hd 72) at batch 1 on a grid cut to two windows a side
+    (a global block's to 16 x 16), its first pooled case also with the
+    pooling block's [qkv | shortcut] rows 4C apart."""
+    cases = []
+    for i, ((_, dim_out, *_), (grid, heads, window, pool)) in enumerate(
+            zip(CFG.blocks(), CFG.attention())):
+        cases.append((f"tiny{i}", 2, grid, heads, dim_out // heads, window, pool, pool))
+    hiera_l = list(dict.fromkeys(sam2_1_hiera_l().attention()))
+    for grid, heads, window, pool in hiera_l:
+        cases.append((f"hiera-l-{_case_id(grid, window, pool)}", 1, 2 * window or 16, heads, 72,
+                      window, pool, False))
+    grid, heads, window, _ = next(c for c in hiera_l if c[3])
+    cases.append((f"hiera-l-{_case_id(grid, window, True)}-4c-rows", 1, 2 * window, heads, 72,
+                  window, True, True))
+    return cases
+
+
+@pytest.mark.parametrize("case", _attention_cases(), ids=lambda c: c[0])
+def test_attention_plain_matches_sdpa(case):
+    """``hiera_window_attention_plain`` (explicit fp32 softmax) against the
+    SDPA oracle; where rows are 4C apart, qkv is the first 3C columns of a
+    (tokens, 4C) product, as at a pooling block."""
+    _, b, s, heads, hd, window, pool, wide = case
+    c = heads * hd
+    g = torch.Generator().manual_seed(s * heads + window)
+    y = torch.randn(b * s * s, (4 if wide else 3) * c, generator=g)
+    qkv = y[:, :3 * c].reshape(b, s, s, 3 * c)
+    assert qkv.stride(2) == y.shape[1]
+    with torch.inference_mode():
+        got = hiera_window_attention_plain(qkv, heads, window, pool)
+        want = _sdpa_windows(qkv, heads, window, pool)
+    side = s // 2 if pool else s
+    assert got.shape == (b, side, side, c)
     _close(got, want, 1e-5)
 
 

@@ -160,6 +160,16 @@ class Sam2Config:
             dim = dim_out
         return out
 
+    def attention(self):
+        """Every trunk block's attention as (grid, heads, window, pools): the
+        side of the token grid the block takes (its queries pool to half of
+        it), then as :meth:`blocks`."""
+        out, side = [], self.trunk_grid
+        for _, _, heads, window, pool in self.blocks():
+            out.append((side, heads, window, pool))
+            side //= 2 if pool else 1
+        return out
+
     @property
     def stage_dims(self) -> Tuple[int, ...]:
         return tuple(self.embed_dim * 2 ** i for i in range(len(self.stages)))

@@ -17,8 +17,9 @@ predictor's single-mask output):
   max-pooled the same way, then LN2 and the GELU MLP. Every linear layer runs
   on ``gemm_bf16`` (its LayerNorm prologue takes LN1 and LN2 at every Hiera
   width; at a pooling block one product gives qkv and the shortcut), the
-  attention on ``F.scaled_dot_product_attention`` over batched windows (head
-  dim 72 at Hiera-L).
+  attention on ``ops/hiera_attention.py`` (one kernel that reads each
+  window's q, k and v where the qkv product wrote them; head dim 72 at
+  Hiera-L).
 * :class:`Sam2Model`: the encoder with SAM's prompt encoder and two-way
   decoder (the object-score token first) and SAM 2's mask head:
   :meth:`Sam2Model.upscale` adds ``feat_s1`` after the first transposed
@@ -44,6 +45,7 @@ import torch.nn.functional as F
 
 from ...ops.constants import constant
 from ...ops.fused_ln import fused_ln_mlp, gemm_bf16, gemm_plain, linear
+from ...ops.hiera_attention import hiera_window_attention, hiera_window_attention_plain
 from ...utils.spans import span
 from .config import Sam2Config
 from .model import (
@@ -77,32 +79,6 @@ def max_pool2(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*lead, s // 2, 2, s // 2, 2, c).amax(dim=(-4, -2))
 
 
-def window_attention(qkv: torch.Tensor, heads: int, window: int, pool: bool) -> torch.Tensor:
-    """Attention in square windows of ``window`` tokens a side (0: the whole
-    grid) over qkv (B, S, S, 3 C) -> (B, S', S', C), plain SDPA with no bias;
-    with ``pool`` the queries are max-pooled 2x2 inside each window first, so
-    S' = S / 2."""
-    b, s, _, c3 = qkv.shape
-    c = c3 // 3
-    hd = c // heads
-    w = window or s
-    if s % w or (pool and w % 2):
-        raise ValueError(f"Hiera attention: window {w} on a {s}-token grid")
-    n = s // w
-    # (3, B, n, n, heads, w, w, hd): each window's tokens, by head
-    t = qkv.reshape(b, n, w, n, w, 3, heads, hd).permute(5, 0, 1, 3, 6, 2, 4, 7)
-    k = t[1].reshape(b * n * n, heads, w * w, hd)
-    v = t[2].reshape(b * n * n, heads, w * w, hd)
-    q = t[0]
-    wq = w
-    if pool:
-        q, wq = max_pool2(q), w // 2
-    q = q.reshape(b * n * n, heads, wq * wq, hd)
-    o = F.scaled_dot_product_attention(q, k, v)
-    o = o.reshape(b, n, n, heads, wq, wq, hd).permute(0, 1, 4, 2, 5, 3, 6)
-    return o.reshape(b, n * wq, n * wq, c)
-
-
 class HieraBlock(nn.Module):
     """One Hiera block on (B, S, S, dim) -> (B, S', S', dim_out)."""
 
@@ -121,6 +97,7 @@ class HieraBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         gemm = gemm_plain if plain else gemm_bf16
+        attn = hiera_window_attention_plain if plain else hiera_window_attention
         b, s, _, c = x.shape
         co = self.dim_out
         ln1, ln2 = self.ln1, self.ln2
@@ -130,8 +107,8 @@ class HieraBlock(nn.Module):
         if c != co:  # the projected LN1 output, pooled as the queries are
             shortcut = y[:, 3 * co:].reshape(b, s, s, co)
             shortcut = max_pool2(shortcut) if self.pool else shortcut.contiguous()
-        h = linear(window_attention(qkv, self.heads, self.window, self.pool), self.proj.w,
-                   self.proj.b, gemm=gemm)
+        h = linear(attn(qkv, self.heads, self.window, self.pool), self.proj.w, self.proj.b,
+                   gemm=gemm)
         return fused_ln_mlp(shortcut, h, ln2.scale, ln2.bias, self.mlp1.w, self.mlp1.b,
                             self.mlp2.w, self.mlp2.b, eps=ln2.eps, gemm=gemm)
 
@@ -154,12 +131,10 @@ class HieraImageEncoder(nn.Module):
         eps = cfg.layer_norm_eps
         self.blocks = nn.ModuleList(HieraBlock(bp, *spec, eps)
                                     for bp, spec in zip(p["blocks"], cfg.blocks()))
-        side = cfg.trunk_grid
-        for blk in self.blocks:
-            if side % (blk.window or side) or (blk.pool and (blk.window or side) % 2):
-                raise ValueError(f"Hiera: window {blk.window} does not tile the {side}-token "
+        for side, _, window, pool in cfg.attention():
+            if side % (window or side) or (pool and (window or side) % 2):
+                raise ValueError(f"Hiera: window {window} does not tile the {side}-token "
                                  f"grid at canvas {cfg.image_size}")
-            side //= 2 if blk.pool else 1
         n = p["neck"]
         self.lateral = nn.ModuleList(Linear(lp) for lp in n["lateral"])  # fine to coarse
         self.conv_s0, self.conv_s1 = Linear(n["conv_s0"]), Linear(n["conv_s1"])

@@ -74,12 +74,14 @@ _SIGNATURES = {
     "ysi_conv2d_act": (_P,) * 4 + (_I,) * 11 + (_P,),
     # x, r, y, out, scale, bias, rows, c, eps, stream
     "ysi_layer_norm": (_P,) * 6 + (_I, _I, _F, _P),
+    # qkv, out, b, s, heads, hd, window (0: the whole grid), pool, token stride, stream
+    "ysi_hiera_attention": (_P, _P) + (_I,) * 7 + (_P,),
 }
 # Run once after loading (shared-memory attributes of the kernels).
 _INITS = ("ysi_gemm_init", "ysi_gemm_int8_init", "ysi_window_attn_init",
           "ysi_flash_attn_relpos_init", "ysi_decoder_init", "ysi_tinyvit_attn_init",
           "ysi_tinyvit_block_init", "ysi_tinyvit_conv_init", "ysi_mbconv_s1_init",
-          "ysi_conv2d_act_init", "ysi_hull_support_init")
+          "ysi_conv2d_act_init", "ysi_hull_support_init", "ysi_hiera_attn_init")
 
 
 def _sources():
