@@ -5,6 +5,7 @@ at a tiny size: ``sam_tiny_test()`` (adapted to window 16 on a 32x32 grid),
 YOLOv8n at a 64-pixel letterbox, two 64x64 ``tests/synth.py`` frames.
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -232,3 +233,13 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", ["pipeline/engine.py", "weights.py"])
+def test_engine_names_no_sam_family(path):
+    """The engine and the weight bridge ask a configuration for its family's
+    answers (``models/sam/config.py``) and name no family themselves."""
+    text = (ROOT / "yolo_sam_inference_tpu_torch" / path).read_text()
+    named = re.findall(r"Sam2Config|TinyViTConfig|is_tinyvit|TINYVIT_TYPES|init_sam2_params|"
+                       r"init_tinyvit_params|_sam2", text)
+    assert not named, named

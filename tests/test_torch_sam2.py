@@ -29,6 +29,7 @@ from yolo_sam_inference_tpu_torch.models.sam import (
 )
 from yolo_sam_inference_tpu_torch.models.sam.hiera import HieraBlock
 from yolo_sam_inference_tpu_torch.ops.hiera_attention import hiera_window_attention_plain
+from yolo_sam_inference_tpu_torch.ops.window_crop import crop_sample
 from yolo_sam_inference_tpu_torch.models.yolo import YoloConfig
 from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
 from yolo_sam_inference_tpu_torch.utils import spans
@@ -265,7 +266,7 @@ def test_segment_stage_matches_whole_masks(frames):
         scale = scfg.image_size / 64
         low, chosen, _ = sam.low_res_masks(*feats, sam.box_prompts(boxes * scale))
         b, k = boxes.shape[:2]
-        full = tengine._bilinear_crop_sample_window(
+        full = crop_sample(
             low.reshape(b * k, *low.shape[-2:]), offs.reshape(b * k, 2),
             torch.zeros(b * k, 2, dtype=torch.long), 24,
             scale * 4 * scfg.grid_size / scfg.image_size)

@@ -7,12 +7,14 @@ The JAX package's functions are methods here: ``sam_image_encoder`` is
 ``SamPromptEncoder.boxes`` / ``.points``, ``sam_mask_decoder`` (multimask
 output, dense prompts) is ``SamModel.mask_decoder`` and
 ``sam_forward_boxes`` is ``SamModel.forward_boxes``. SAM 2's image path
-(the Hiera encoder, no JAX counterpart) is ``hiera.py``.
+(the Hiera encoder, no JAX counterpart) is ``hiera.py``. A configuration's
+class is its family (``config.py``).
 """
 
 from .config import (
     Sam2Config,
     SamTPUConfig,
+    mobile_sam,
     sam2_1_hiera_l,
     sam2_tiny_test,
     sam_tiny_test,
@@ -37,6 +39,6 @@ __all__ = [
     "sam2_tiny_test", "SamImageEncoder", "SamMaskDecoder", "SamModel", "SamPromptEncoder", "SamTPUConfig",
     "TinyViT", "TinyViTConfig", "adapt_resolution", "convert_hf_sam_state_dict",
     "convert_mobilesam_state_dict", "convert_mobilesam_tinyvit", "init_sam_params",
-    "init_tinyvit_params", "is_mobilesam_state_dict", "is_tinyvit", "load_sam_params",
+    "init_tinyvit_params", "is_mobilesam_state_dict", "is_tinyvit", "load_sam_params", "mobile_sam",
     "sam_tiny_test", "sam_vit_b", "sam_vit_h", "sam_vit_l",
 ]

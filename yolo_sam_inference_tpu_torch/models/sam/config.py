@@ -1,9 +1,16 @@
-"""SAM configuration (static hyperparameters; everything shape-relevant)."""
+"""SAM configuration (static hyperparameters; everything shape-relevant).
+
+A configuration's class is its SAM family (the ViT, MobileSAM, SAM 2) and
+answers what the engine asks of one: its tree, the stage's configuration for
+a frame shape, the model, and what it refuses to run.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+from .tinyvit import TinyViTConfig, init_tinyvit_params, is_tinyvit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +52,78 @@ class SamTPUConfig:
     @property
     def low_res_size(self) -> int:
         return self.grid_size * 4  # 256 for standard SAM
+
+    def sized(self, cfg=None):
+        """This family at ``cfg``'s sizes (a ViT name takes ``cfg`` as given)."""
+        return self if cfg is None else cfg
+
+    def params(self, seed: int, checkpoint=None):
+        """The tree from ``checkpoint``, else drawn from a pipeline's seed (the
+        JAX engine's SAM sub-seed, 2 seed + 1)."""
+        from .convert import load_sam_params
+        from .model import init_sam_params
+
+        if checkpoint is not None:
+            return load_sam_params(checkpoint, self)
+        return init_sam_params(2 * seed + 1, self)
+
+    def refuse(self, tree=None, *, encoder_parallel: str = "none", **_) -> None:
+        """A TinyViT tree (MobileSAM) has no sequence- or tensor-parallel encoder."""
+        if encoder_parallel != "none" and tree is not None and is_tinyvit(tree):
+            raise ValueError("encoder_parallel supports ViT SAM encoders only (TinyViT's conv "
+                             "stages have no tp/sp sharding)")
+
+    def for_frame(self, h: int, w: int, size: Optional[int] = None) -> "SamTPUConfig":
+        """The stage's configuration for (h, w) frames: the canvas ``size``, else
+        native resolution (the smallest of 256 / 512 / 768 / 1024 that holds
+        the frame), in windows of 16 where 16 divides the grid (every grid of
+        that ladder)."""
+        if size is None:
+            size = next((s for s in (256, 512, 768, 1024) if max(h, w) <= s), 1024)
+        ws = 16 if (size // self.patch_size) % 16 == 0 else self.window_size
+        return dataclasses.replace(self, image_size=size, window_size=ws)
+
+    def adapt_params(self, tree, cfg: "SamTPUConfig"):
+        """``tree`` for the stage's ``cfg``: the ViT's position tables resized
+        to its grid and window. TinyViT's weights do not depend on the canvas."""
+        from .convert import adapt_resolution
+
+        if (cfg.image_size, cfg.window_size) == (self.image_size, self.window_size) \
+                or is_tinyvit(tree):
+            return tree
+        return adapt_resolution(tree, cfg)
+
+    def build(self, tree, conv2d_fused: bool = False, tinyvit_mbconv_compute: str = "fp32"):
+        from .model import SamModel
+
+        return SamModel(tree, self, conv2d_fused, tinyvit_mbconv_compute)
+
+
+@dataclasses.dataclass(frozen=True)
+class MobileSamConfig(SamTPUConfig):
+    """MobileSAM: TinyViT-5M in the ViT encoder's place, with SAM ViT-B's
+    prompt encoder and decoder. A seed draws SAM's tree, then TinyViT's from
+    seed + 1 (the JAX engine's order), and drops the ViT encoder; a
+    checkpoint must hold TinyViT."""
+
+    def sized(self, cfg=None):
+        return self if cfg is None else MobileSamConfig(**dataclasses.asdict(cfg))
+
+    def params(self, seed: int, checkpoint=None):
+        tree = super().params(seed, checkpoint)
+        if "tinyvit" in tree:
+            return tree
+        if checkpoint is not None:
+            raise ValueError(f"MobileSAM: {checkpoint} holds no TinyViT encoder "
+                             "(image_encoder.* in MobileSAM naming)")
+        tcfg = TinyViTConfig(image_size=self.image_size, output_channels=self.output_channels)
+        tree = dict(tree, tinyvit=init_tinyvit_params(seed + 1, tcfg))
+        tree.pop("vision", None)
+        return tree
+
+
+def mobile_sam(image_size: int = 1024) -> MobileSamConfig:
+    return MobileSamConfig(image_size=image_size)
 
 
 def sam_vit_b(image_size: int = 1024) -> SamTPUConfig:
@@ -191,6 +270,40 @@ class Sam2Config:
     @property
     def low_res_size(self) -> int:
         return self.grid_size * 4
+
+    def sized(self, cfg=None):
+        return self if cfg is None else cfg
+
+    def params(self, seed: int, checkpoint=None):
+        """Drawn from a pipeline's seed at 2 seed + 1 (checkpoints are refused)."""
+        from .hiera import init_sam2_params
+
+        return init_sam2_params(2 * seed + 1, self)
+
+    def refuse(self, tree=None, *, quant: str = "none", encoder_parallel: str = "none",
+               checkpoint=None) -> None:
+        if quant != "none" or encoder_parallel != "none":
+            raise ValueError("SAM 2 runs in compute_dtype on one card: quant='none', "
+                             "encoder_parallel='none'")
+        if checkpoint is not None:
+            raise ValueError("SAM 2 checkpoints have no converter yet: pass params= or draw "
+                             "random weights")
+
+    def for_frame(self, h: int, w: int, size: Optional[int] = None) -> "Sam2Config":
+        """The encoder at ``size``, else at this configuration's canvas."""
+        if h != w:
+            raise ValueError(f"SAM 2 takes square frames here, got {h}x{w}: its transforms "
+                             "resize to a square canvas, which the crop geometry does not yet "
+                             "follow on other frames")
+        return dataclasses.replace(self, image_size=size or self.image_size)
+
+    def adapt_params(self, tree, cfg: "Sam2Config"):
+        return tree
+
+    def build(self, tree, **_):
+        from .hiera import Sam2Model
+
+        return Sam2Model(tree, self)
 
 
 def sam2_1_hiera_l(image_size: int = 1024) -> Sam2Config:

@@ -24,7 +24,8 @@ predictor's single-mask output):
   decoder (the object-score token first) and SAM 2's mask head:
   :meth:`Sam2Model.upscale` adds ``feat_s1`` after the first transposed
   conv and ``feat_s0`` after the second; :meth:`Sam2Model.choose` is the
-  stability choice over token 0's whole low-res mask.
+  stability choice over token 0's whole low-res mask; ``encode`` and
+  ``segment_windows`` are the engine's calls.
 
 Windows must divide each block's token grid (they do at every canvas that is
 a multiple of 256 at Hiera-L's windows); SAM 2 zero-pads, which no such
@@ -46,6 +47,7 @@ import torch.nn.functional as F
 from ...ops.constants import constant
 from ...ops.fused_ln import fused_ln_mlp, gemm_bf16, gemm_plain, linear
 from ...ops.hiera_attention import hiera_window_attention, hiera_window_attention_plain
+from ...ops.window_crop import window_crop
 from ...utils.spans import span
 from .config import Sam2Config
 from .model import (
@@ -190,6 +192,10 @@ class HieraImageEncoder(nn.Module):
         return emb, s1, s0
 
 
+# fp32 bytes of the upscaled prompts that one chunk of SAM 2's head holds
+SAM2_HEAD_BYTES = 1 << 30
+
+
 class Sam2Model(nn.Module):
     """Hiera encoder + SAM's prompt encoder + the mask decoder with SAM 2's
     head, from one tree (:func:`init_sam2_params`)."""
@@ -201,6 +207,48 @@ class Sam2Model(nn.Module):
         self.prompt = SamPromptEncoder(params["prompt"], params["shared_pe"], cfg,
                                        params.get("shared_image_pe"))
         self.decoder = SamMaskDecoder(params["decoder"], cfg)
+
+    def encode(self, pix: torch.Tensor, mark=span):
+        """The engine's embed call: (B, S, S, 3) normalised canvas pixels ->
+        (embedding, feat_s1, feat_s0) in the compute dtype; ``mark`` makes the
+        encoder's spans ``hiera_fine`` and ``hiera_coarse``."""
+        return self.vision(pix, mark=mark)
+
+    def segment_windows(self, feats, boxes, windows, mark=span):
+        """The engine's segment call: (embedding, feat_s1, feat_s0) and box
+        prompts (B, K, 4) in canvas pixels -> (the chosen token's logits
+        sampled onto each prompt's crop (B*K, crop, crop) fp32, the chosen
+        token (B*K,)). The decoder runs on 9 tokens a prompt; then, in the
+        span ``sam2_head`` and a chunk of images at a time
+        (``SAM2_HEAD_BYTES``): every prompt's whole upscaling with its image's
+        high-resolution levels, token 0's logits over the whole low-res grid
+        for the stability choice (:meth:`choose`), the chosen token's logits
+        on the prompt's window (K8 on the upscaled grid at 4x the window's
+        start), and the crop's samples."""
+        emb, feat_s1, feat_s0 = feats
+        b, k = boxes.shape[0], boxes.shape[1]
+        gs = self.cfg.grid_size
+        sparse = self.box_prompts(boxes).to(emb.dtype)
+        iou, hyper, keys = self.mask_decoder_tokens(emb, sparse)
+        with mark("sam2_head"):
+            iou = iou.reshape(b * k, -1)
+            low_start = windows.starts * 4
+            c8 = feat_s0.shape[-1]
+            per_image = max(1, k * (4 * gs) ** 2 * c8 * 4)
+            step = max(1, SAM2_HEAD_BYTES // per_image)
+            parts, tokens = [], []
+            for i0 in range(0, b, step):
+                p0, p1 = i0 * k, min(b, i0 + step) * k
+                up = self.upscale(keys[p0:p1], feat_s1[i0:i0 + step], feat_s0[i0:i0 + step])
+                hy = hyper[p0:p1].float()
+                logits0 = torch.einsum("npc,nc->np", up.flatten(1, 2).float(), hy[:, 0])
+                choice = self.choose(logits0, iou[p0:p1])
+                tokens.append(choice)
+                chosen = hy.gather(1, choice[:, None, None].expand(-1, 1, c8))[:, 0]
+                win = window_crop(up, low_start[p0:p1, 0], low_start[p0:p1, 1], 4 * windows.side)
+                parts.append(torch.einsum("nhwc,nc->nhw", win.float(), chosen))
+            crops = windows.sample(torch.cat(parts), low_start)
+        return crops, torch.cat(tokens)
 
     def box_prompts(self, boxes: torch.Tensor) -> torch.Tensor:
         """(B, K, 4) xyxy boxes in canvas pixels -> (B, K, 3, C) fp32: the
@@ -247,7 +295,7 @@ class Sam2Model(nn.Module):
                       plain: bool = False):
         """Every prompt's chosen low-res mask on the whole grid: (logits (B, K,
         4gs, 4gs) fp32, chosen token (B, K), iou (B, K) after the sigmoid).
-        The engine's segment stage computes the same a window at a time."""
+        :meth:`segment_windows` computes the same a window at a time."""
         b, k = sparse_prompts.shape[:2]
         iou, hyper, keys = self.mask_decoder_tokens(image_embeddings, sparse_prompts, plain)
         up = self.upscale(keys, feat_s1, feat_s0, plain)

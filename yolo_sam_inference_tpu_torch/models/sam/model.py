@@ -69,6 +69,8 @@ from ...ops.fused_ln import (
     linear,
 )
 from ...ops.quant import is_quantized
+from ...ops.window_crop import window_crop
+from ...utils.spans import span
 from .config import SamTPUConfig
 from .tinyvit import TinyViT, TinyViTConfig, is_tinyvit
 
@@ -623,6 +625,29 @@ class SamModel(nn.Module):
         return self.mask_decoder(emb, sparse, multimask_output=multimask_output, plain=plain)
 
     forward = forward_boxes  # the module call (the fine-tune step's functional_call)
+
+    def encode(self, pix: torch.Tensor, mark=span) -> torch.Tensor:
+        """The engine's embed call: (B, S, S, 3) normalised canvas pixels ->
+        embeddings (B, gs, gs, C) fp32; no spans of its own to ``mark``."""
+        return self.vision(pix).float()
+
+    def box_prompts(self, boxes: torch.Tensor) -> torch.Tensor:
+        """(B, K, 4) xyxy boxes in canvas pixels -> sparse prompts (B, K, 2, C)."""
+        return self.prompt.boxes(boxes)
+
+    def segment_windows(self, embeddings, boxes, windows, mark=span):
+        """The engine's segment call: embeddings and box prompts (B, K, 4) in
+        canvas pixels -> (token 0's logits sampled onto each prompt's crop
+        (B*K, crop, crop) fp32, None: no token is chosen). The decoder runs in
+        its weights' dtype, the mask head on each prompt's window of the keys
+        grid (``windows``: ``ops.window_crop.crop_windows``)."""
+        cd = self.prompt.no_mask.dtype
+        sparse = self.box_prompts(boxes).to(cd)
+        _, hyper, keys = self.mask_decoder_tokens(embeddings.to(cd), sparse)
+        starts = windows.starts
+        grid = window_crop(keys, starts[:, 0], starts[:, 1], windows.side)
+        logits = self.decoder.mask_head(grid, hyper[:, :1, :])[:, 0]  # (B*K, 4 side, 4 side)
+        return windows.sample(logits, starts * 4), None
 
     def mask_decoder(self, image_embeddings, sparse_prompts, dense_prompts=None,
                      multimask_output: bool = False, plain: bool = False):

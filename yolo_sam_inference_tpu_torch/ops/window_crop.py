@@ -8,9 +8,15 @@ what bounds it.
 
 Dispatch is by the tensor's device: CPU takes the plain version, CUDA
 launches the kernel or raises. ``window_crop.launches`` counts launches.
+
+:func:`crop_windows` gives each prompt's crop of the frame and the window
+that covers it, :func:`crop_sample` the window's logits on the crop.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -60,4 +66,59 @@ def window_crop(grid, r0, c0, wg: int):
 
 window_crop.launches = 0
 
-__all__ = ["window_crop", "window_crop_plain"]
+
+def crop_sample(win_logits, offset_rc, win_low_start, crop: int, scale_to_low: float):
+    """Sample (N, crop, crop) frame-resolution logits from per-cell low-res
+    windows (N, lw, lw) whose low-res origin is ``win_low_start`` (N, 2), the
+    crops' origins in frame pixels ``offset_rc`` (N, 2). Frame pixel (r, c)
+    maps to low-res ((r + 0.5) * s - 0.5); separable hat-function weights,
+    two small products per cell."""
+    lw = win_logits.shape[-1]
+    dev = win_logits.device
+    idx = torch.arange(crop, dtype=torch.float32, device=dev)
+    off = offset_rc.float()
+    start = win_low_start.float()
+    ly = (off[:, 0:1] + idx + 0.5) * scale_to_low - 0.5
+    lx = (off[:, 1:2] + idx + 0.5) * scale_to_low - 0.5
+    ly = (ly - start[:, 0:1]).clamp(0.0, lw - 1.0)
+    lx = (lx - start[:, 1:2]).clamp(0.0, lw - 1.0)
+    j = torch.arange(lw, dtype=torch.float32, device=dev)
+    py = (1.0 - (ly[..., None] - j).abs()).clamp(min=0.0)  # (N, crop, lw)
+    px = (1.0 - (lx[..., None] - j).abs()).clamp(min=0.0)
+    return torch.einsum("niw,nwv,njv->nij", py, win_logits.float(), px)
+
+
+class CropWindows(NamedTuple):
+    """Each prompt's crop and the window of the token grid that covers it
+    (:func:`crop_windows`); ``sample`` is :func:`crop_sample` on them."""
+
+    offsets: torch.Tensor  # (B, K, 2) the crops' origins in frame pixels
+    flat: torch.Tensor  # the same, (B*K, 2)
+    starts: torch.Tensor  # (B*K, 2) the windows' starts on the token grid
+    side: int  # the windows' side in tokens
+    crop: int  # the crops' side in frame pixels
+    scale_to_low: float  # frame pixels -> low-res logits (4 a token)
+
+    def sample(self, win_logits, low_start):
+        return crop_sample(win_logits, self.flat, low_start, self.crop, self.scale_to_low)
+
+
+def crop_windows(boxes, image_hw: Tuple[int, int], crop: int, gs: int,
+                 scale_to_low: float) -> CropWindows:
+    """A (crop, crop) crop of the frame centred on each box (B, K, 4), kept
+    inside the frame, and, as a prompt's mask is only needed inside its crop,
+    the window of the (gs, gs) token grid that covers it."""
+    h, w = image_hw
+    cx = (boxes[..., 0] + boxes[..., 2]) * 0.5
+    cy = (boxes[..., 1] + boxes[..., 3]) * 0.5
+    off_r = (torch.round(cy).long() - crop // 2).clamp(0, h - crop)
+    off_c = (torch.round(cx).long() - crop // 2).clamp(0, w - crop)
+    offsets = torch.stack([off_r, off_c], dim=-1)
+    scale_to_grid = scale_to_low / 4.0
+    wg = min(gs, int(math.ceil(crop * scale_to_grid)) + 3)
+    flat = offsets.reshape(-1, 2)
+    starts = ((flat.float() * scale_to_grid).long() - 1).clamp(0, gs - wg)
+    return CropWindows(offsets, flat, starts, wg, crop, scale_to_low)
+
+
+__all__ = ["CropWindows", "crop_sample", "crop_windows", "window_crop", "window_crop_plain"]

@@ -5,24 +5,22 @@ batch runs as four stages on the pipeline's device:
 
 * :func:`detect_stage`: letterbox -> YOLOv8 -> DFL decode -> fixed-shape NMS,
   boxes mapped back to frame pixels;
-* :func:`embed_stage`: SAM preprocess -> ViT encoder once per image at the
-  frame's native resolution (window 16, resolution-adapted weights), or
-  TinyViT-5M for MobileSAM (``"mobile-sam"``, ``"tinyvit"``); with
+* :func:`embed_stage`: SAM preprocess -> the model's encoder once per image
+  (``encode``: the ViT at the frame's native resolution, MobileSAM's
+  TinyViT-5M, or SAM 2.1's Hiera encoder and FPN neck); with
   ``PipelineOptions.encoder_parallel="sp"`` the ViT encoder's token rows are
   split over the ranks of a process group (``parallel/sp.py``), with
   ``"tp"`` its heads and MLP hidden (``parallel/tp.py``: each rank keeps its
   shard of the encoder), and every rank runs the other stages on the whole
   batch and returns the same outputs;
-* :func:`segment_stage`: box prompts -> two-way decoder batched over every
-  prompt -> a per-prompt window of the token grid -> mask head -> bilinear
-  resample onto a fixed crop around each cell;
-* SAM 2 (a :class:`Sam2Config`, ``"facebook/sam2.1-hiera-large"``) takes
-  :func:`embed_stage_sam2` (the Hiera encoder and FPN neck: the embedding and
-  two high-resolution levels) and :func:`segment_stage_sam2` (the decoder,
-  then each prompt's whole upscaling with the high-resolution levels, the
-  stability choice over token 0's whole low-res mask, and the chosen mask on
-  the prompt's window);
+* :func:`segment_stage`: each prompt's crop and the window of the token grid
+  that covers it (``ops/window_crop.py``), then the model's
+  ``segment_windows``: box prompts -> two-way decoder -> mask logits on the
+  window -> bilinear resample onto the crop (SAM 2 also chooses a token);
 * :func:`metrics_stage`: the 16 morphometrics per cell.
+
+The SAM family is the configuration's class (``models/sam/config.py``): the
+engine names none.
 
 With ``mesh=`` (``parallel/mesh.py``, a data axis of dp ranks) the engine
 runs data-parallel: every rank is called with the same frames, runs its
@@ -57,7 +55,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
-import math
 import os
 import time
 import uuid
@@ -71,15 +68,8 @@ import torch
 import torch.distributed as dist
 
 from ..models.sam import (
-    Sam2Config,
     SamTPUConfig,
-    TinyViTConfig,
-    adapt_resolution,
-    init_sam2_params,
-    init_sam_params,
-    init_tinyvit_params,
-    is_tinyvit,
-    load_sam_params,
+    mobile_sam,
     sam2_1_hiera_l,
     sam_vit_b,
     sam_vit_h,
@@ -99,7 +89,7 @@ from ..ops.metrics import HULL_MODES, INT_METRIC_KEYS, METRIC_KEYS, cell_metrics
 from ..ops.nms import batched_nms
 from ..ops.preprocess import letterbox_batch, sam_preprocess_batch
 from ..ops.quant import quantize_sam_encoder_params
-from ..ops.window_crop import window_crop
+from ..ops.window_crop import crop_windows
 from ..parallel.mesh import data_shard
 from ..parallel.sp import sam_image_encoder_sp
 from ..parallel.tp import sam_image_encoder_tp, shard_sam_encoder_tp
@@ -125,14 +115,16 @@ SAM_CONFIGS = {
     "vit-large": sam_vit_l,
     "vit-huge": sam_vit_h,
     # MobileSAM: the TinyViT-5M encoder with SAM ViT-B's prompt encoder and decoder
-    "mobile-sam": sam_vit_b,
-    "tinyvit": sam_vit_b,
+    "mobile-sam": mobile_sam,
+    "tinyvit": mobile_sam,
     # SAM 2.1: the Hiera-L encoder and SAM 2's decoder (models/sam/hiera.py)
     "facebook/sam2.1-hiera-large": sam2_1_hiera_l,
 }
-TINYVIT_TYPES = ("mobile-sam", "tinyvit")
 QUANT_MODES = ("none", "int8")
 ENCODER_PARALLEL = ("none", "sp", "tp")
+# each stage's key in ``process_batch_arrays``' timings (the reference's)
+_TIMING_KEYS = {"detect": "yolo_detection", "embed": "sam_preprocess",
+                "segment": "sam_inference_total", "metrics": "metrics_total"}
 
 
 @dataclass(frozen=True)
@@ -154,8 +146,9 @@ class PipelineOptions:
     # rasterized_hull_measures: deformability about +0.03)
     hull_mode: str = "polygon"
     compute_dtype: torch.dtype = torch.bfloat16
-    # SAM encoder canvas: None = native resolution (smallest of 256/512/768/
-    # 1024 that fits the frame); weights are adapted at stage build time
+    # SAM encoder canvas: None = the family's own (the ViT's native resolution,
+    # the smallest of 256/512/768/1024 that fits the frame; SAM 2's canvas);
+    # weights are adapted at stage build time
     sam_encoder_size: Optional[int] = None
     # "int8" = dynamic w8a8 quantisation of the SAM encoder's qkv/MLP
     # projections (ops/quant.py); "none" keeps compute_dtype throughout
@@ -173,15 +166,6 @@ class PipelineOptions:
     # (K14, K15) in bf16 instead of fp32 (ops/mbconv_fused.py), where the
     # JAX package's fused path would
     tinyvit_mbconv_compute: str = "fp32"
-
-    def encoder_size_for(self, h: int, w: int) -> int:
-        if self.sam_encoder_size is not None:
-            return self.sam_encoder_size
-        m = max(h, w)
-        for size in (256, 512, 768, 1024):
-            if m <= size:
-                return size
-        return 1024
 
     def yolo_size_for(self, h: int, w: int) -> int:
         if self.yolo_size is not None:
@@ -243,162 +227,40 @@ def detect_stage(yolo, images_u8: torch.Tensor, ycfg: YoloConfig, opts: Pipeline
 
 
 def embed_stage(sam, images_u8: torch.Tensor, scfg: SamTPUConfig, opts: PipelineOptions,
-                group=None):
-    """uint8 (B, H, W[, 3]) -> SAM image embeddings (B, gs, gs, C) fp32.
-    ``sam.vision`` is the ViT encoder, or TinyViT for MobileSAM (built from
-    the tree's ``"tinyvit"`` subtree at the canvas ``scfg.image_size``).
-    With a process ``group``, the ViT encoder runs over its ranks as
-    ``opts.encoder_parallel`` says: sequence-parallel, or tensor-parallel
-    (``sam.vision`` then holds the rank's shard)."""
+                group=None, mark=span):
+    """uint8 (B, H, W[, 3]) -> the features the segment stage takes: the
+    model's ``encode`` of the frames resized to the canvas ``scfg.image_size``
+    and normalised (``mark`` makes its spans); for the ViT and TinyViT the
+    embeddings (B, gs, gs, C) fp32. With a process ``group``, the ViT encoder
+    runs over its ranks as ``opts.encoder_parallel`` says: sequence-parallel,
+    or tensor-parallel (``sam.vision`` then holds the rank's shard)."""
     pix, _, _ = sam_preprocess_batch(_ensure_rgb(images_u8), scfg.image_size)
     pix = pix.to(opts.compute_dtype)
     if group is None:
-        return sam.vision(pix).float()
+        return sam.encode(pix, mark)
     if opts.encoder_parallel == "tp":
         return sam_image_encoder_tp(sam.vision, pix, scfg, group).float()
     return sam_image_encoder_sp(sam.vision, pix, scfg, group).float()
 
 
-def embed_stage_sam2(sam, images_u8: torch.Tensor, scfg: Sam2Config, opts: PipelineOptions,
-                     mark=span):
-    """uint8 (B, S, S[, 3]) -> (embedding (B, gs, gs, C), feat_s1 (B, 2 gs,
-    2 gs, C / 4), feat_s0 (B, 4 gs, 4 gs, C / 8)) in the compute dtype. SAM
-    2's transforms resize the frame to the canvas and normalise it as SAM's
-    do; on square frames (the only ones :meth:`CellSegmentationPipeline.
-    _stages` builds SAM 2 for) that is :func:`sam_preprocess_batch`. ``mark``
-    makes the encoder's spans."""
-    pix, _, _ = sam_preprocess_batch(_ensure_rgb(images_u8), scfg.image_size)
-    return sam.vision(pix.to(opts.compute_dtype), mark=mark)
-
-
-def _bilinear_crop_sample_window(
-    win_logits: torch.Tensor,
-    offset_rc: torch.Tensor,
-    win_low_start: torch.Tensor,
-    crop: int,
-    scale_to_low: float,
-) -> torch.Tensor:
-    """Sample (N, crop, crop) frame-resolution logits from per-cell low-res
-    windows (N, lw, lw) whose low-res origin is ``win_low_start`` (N, 2).
-    Frame pixel (r, c) maps to low-res ((r + 0.5) * s - 0.5); separable
-    hat-function weights, two small products per cell."""
-    lw = win_logits.shape[-1]
-    dev = win_logits.device
-    idx = torch.arange(crop, dtype=torch.float32, device=dev)
-    off = offset_rc.float()
-    start = win_low_start.float()
-    ly = (off[:, 0:1] + idx + 0.5) * scale_to_low - 0.5
-    lx = (off[:, 1:2] + idx + 0.5) * scale_to_low - 0.5
-    ly = (ly - start[:, 0:1]).clamp(0.0, lw - 1.0)
-    lx = (lx - start[:, 1:2]).clamp(0.0, lw - 1.0)
-    j = torch.arange(lw, dtype=torch.float32, device=dev)
-    py = (1.0 - (ly[..., None] - j).abs()).clamp(min=0.0)  # (N, crop, lw)
-    px = (1.0 - (lx[..., None] - j).abs()).clamp(min=0.0)
-    return torch.einsum("niw,nwv,njv->nij", py, win_logits.float(), px)
-
-
-def segment_stage(
-    sam,
-    embeddings: torch.Tensor,
-    boxes: torch.Tensor,
-    valid: torch.Tensor,
-    image_hw: Tuple[int, int],
-    scfg: SamTPUConfig,
-    opts: PipelineOptions,
-):
-    """Embeddings + boxes -> (mask_crops (B, K, cm, cm) bool, offsets (B, K, 2))."""
+def segment_stage(sam, feats, boxes: torch.Tensor, valid: torch.Tensor,
+                  image_hw: Tuple[int, int], scfg: SamTPUConfig, opts: PipelineOptions,
+                  mark=span):
+    """Features + boxes -> (mask_crops (B, K, cm, cm) bool, offsets (B, K,
+    2)), and each slot's chosen token (B, K; -1 where invalid) where the
+    model chooses one (SAM 2). The model's ``segment_windows`` gives each
+    prompt's logits on its crop; ``mark`` makes its spans."""
     h, w = image_hw
     b, k = boxes.shape[0], boxes.shape[1]
     cm = min(opts.metric_crop, h, w)
-    gs = scfg.grid_size
-    cd = opts.compute_dtype
     sam_scale = scfg.image_size / max(h, w)
-
-    sparse = sam.prompt.boxes(boxes * sam_scale).to(cd)
-    _, hyper, keys_grid = sam.mask_decoder_tokens(embeddings.to(cd), sparse)
-    hyper1 = hyper[:, :1, :]  # single-mask output (multimask_output=False)
-
-    offsets, flat_off, g_start, wg, scale_to_low = _crop_windows(boxes, image_hw, cm, gs,
-                                                                 sam_scale, scfg)
-    windows = window_crop(keys_grid, g_start[:, 0], g_start[:, 1], wg)
-    logits_win = sam.decoder.mask_head(windows, hyper1)[:, 0]  # (B*K, 4wg, 4wg)
-
-    crops = _bilinear_crop_sample_window(logits_win, flat_off, g_start * 4, cm, scale_to_low)
+    windows = crop_windows(boxes, image_hw, cm, scfg.grid_size,
+                           sam_scale / (scfg.image_size / scfg.low_res_size))
+    crops, token = sam.segment_windows(feats, boxes * sam_scale, windows, mark)
     mask_crops = (crops.reshape(b, k, cm, cm) > 0.0) & valid[..., None, None]
-    return mask_crops, offsets
-
-
-def _crop_windows(boxes, image_hw, cm: int, gs: int, sam_scale: float, scfg):
-    """Each prompt's crop origin in frame pixels (offsets (B, K, 2), and
-    flattened (B*K, 2)) and, as a prompt's mask is only needed inside its
-    crop, the (wg, wg) window of the token grid that covers it (starts
-    g_start (B*K, 2)); with the scale from frame pixels to the low-res
-    logits."""
-    h, w = image_hw
-    b, k = boxes.shape[0], boxes.shape[1]
-    cx = (boxes[..., 0] + boxes[..., 2]) * 0.5
-    cy = (boxes[..., 1] + boxes[..., 3]) * 0.5
-    off_r = (torch.round(cy).long() - cm // 2).clamp(0, h - cm)
-    off_c = (torch.round(cx).long() - cm // 2).clamp(0, w - cm)
-    offsets = torch.stack([off_r, off_c], dim=-1)
-    scale_to_low = sam_scale / (scfg.image_size / scfg.low_res_size)
-    scale_to_grid = scale_to_low / 4.0
-    wg = min(gs, int(math.ceil(cm * scale_to_grid)) + 3)
-    flat_off = offsets.reshape(b * k, 2)
-    g_start = ((flat_off.float() * scale_to_grid).long() - 1).clamp(0, gs - wg)
-    return offsets, flat_off, g_start, wg, scale_to_low
-
-
-# fp32 bytes of the upscaled prompts that one chunk of SAM 2's head holds
-SAM2_HEAD_BYTES = 1 << 30
-
-
-def segment_stage_sam2(sam, feats, boxes: torch.Tensor, valid: torch.Tensor,
-                       image_hw: Tuple[int, int], scfg: Sam2Config, opts: PipelineOptions,
-                       mark=span):
-    """SAM 2: (embedding, feat_s1, feat_s0) + boxes -> (mask_crops (B, K,
-    cm, cm) bool, offsets (B, K, 2)). The decoder is SAM's, on 9 tokens a
-    prompt (the object-score, IoU and 4 mask tokens; the box's corners as
-    points labelled 2 and 3 and a padding point). Then, in the span
-    ``sam2_head`` and a chunk of images at a time (``SAM2_HEAD_BYTES``):
-    every prompt's whole upscaling with its image's high-resolution levels,
-    token 0's logits over the whole low-res grid for the stability choice
-    (:meth:`Sam2Model.choose`), the chosen token's logits on the prompt's
-    window (K8 on the upscaled grid at 4x the window's start), and the
-    crop's bilinear samples. Also returns each slot's chosen token (B, K;
-    -1 where invalid), which the fetch hands on as ``mask_token``."""
-    emb, feat_s1, feat_s0 = feats
-    h, w = image_hw
-    b, k = boxes.shape[0], boxes.shape[1]
-    cm = min(opts.metric_crop, h, w)
-    gs = scfg.grid_size
-    sam_scale = scfg.image_size / max(h, w)
-    sparse = sam.box_prompts(boxes * sam_scale).to(emb.dtype)
-    iou, hyper, keys = sam.mask_decoder_tokens(emb, sparse)
-    offsets, flat_off, g_start, wg, scale_to_low = _crop_windows(boxes, image_hw, cm, gs,
-                                                                 sam_scale, scfg)
-    with mark("sam2_head"):
-        iou = iou.reshape(b * k, -1)
-        low_start = g_start * 4
-        c8 = feat_s0.shape[-1]
-        per_image = max(1, k * (4 * gs) ** 2 * c8 * 4)
-        step = max(1, SAM2_HEAD_BYTES // per_image)
-        parts, tokens = [], []
-        for i0 in range(0, b, step):
-            p0, p1 = i0 * k, min(b, i0 + step) * k
-            up = sam.upscale(keys[p0:p1], feat_s1[i0:i0 + step], feat_s0[i0:i0 + step])
-            hy = hyper[p0:p1].float()
-            logits0 = torch.einsum("npc,nc->np", up.flatten(1, 2).float(), hy[:, 0])
-            choice = sam.choose(logits0, iou[p0:p1])
-            tokens.append(choice)
-            chosen = hy.gather(1, choice[:, None, None].expand(-1, 1, c8))[:, 0]
-            win = window_crop(up, low_start[p0:p1, 0], low_start[p0:p1, 1], 4 * wg)
-            parts.append(torch.einsum("nhwc,nc->nhw", win.float(), chosen))
-        crops = _bilinear_crop_sample_window(torch.cat(parts), flat_off, low_start, cm,
-                                             scale_to_low)
-    mask_crops = (crops.reshape(b, k, cm, cm) > 0.0) & valid[..., None, None]
-    token = torch.where(valid, torch.cat(tokens).reshape(b, k), -1)
-    return mask_crops, offsets, token
+    if token is None:
+        return mask_crops, windows.offsets
+    return mask_crops, windows.offsets, torch.where(valid, token.reshape(b, k), -1)
 
 
 def metrics_stage(
@@ -418,18 +280,21 @@ def metrics_stage(
     return {key: v.reshape(b, k) for key, v in mets.items()}
 
 
-# SAM 2's segment stage also gives each slot's chosen token; it rides in the
-# row pack beside the metrics and is handed on under this key
+# the key of each slot's chosen token (SAM 2) in a batch's outputs: beside the
+# metrics on the device, its own array (int32) once fetched
 MASK_TOKEN = "mask_token"
 
 
-def _pack_csv_outputs(boxes, scores, valid, offs, mets) -> torch.Tensor:
-    """Every CSV-needed per-detection output as one fp32 (B, K, 8 + M) tensor:
-    [boxes(4), scores(1), valid(1), offsets(2), metrics(M) in sorted-key
-    order], so one device -> host copy covers the row set. All fields are
-    exact in fp32 (coordinates < 2^24)."""
+def _pack_csv_outputs(boxes, scores, valid, offs, mets, token=None) -> torch.Tensor:
+    """Every CSV-needed per-detection output as one fp32 (B, K, 8 + M [+ 1])
+    tensor: [boxes(4), scores(1), valid(1), offsets(2), metrics(M) in
+    sorted-key order, the chosen token where there is one], so one device ->
+    host copy covers the row set. All fields are exact in fp32 (coordinates
+    < 2^24)."""
     parts = [boxes.float(), scores.float()[..., None], valid.float()[..., None], offs.float()]
     parts += [mets[key].float()[..., None] for key in sorted(mets)]
+    if token is not None:
+        parts.append(token.float()[..., None])
     return torch.cat(parts, dim=-1)
 
 
@@ -556,19 +421,14 @@ class CellSegmentationPipeline:
                              f"{self.options.encoder_parallel!r}")
         self._stage_src = None
         self.yolo_config = yolo_config or yolov8n()
-        if sam_config is not None:
-            self.sam_config = sam_config
-        elif sam_model_type in SAM_CONFIGS:
-            self.sam_config = SAM_CONFIGS[sam_model_type]()
-        else:
+        # the name gives the family; ``sam_config`` its sizes
+        named = SAM_CONFIGS.get(sam_model_type)
+        if named is None and sam_config is None:
             raise ValueError(f"unknown SAM model type: {sam_model_type}")
-        if isinstance(self.sam_config, Sam2Config):
-            if self.options.quant != "none" or self.options.encoder_parallel != "none":
-                raise ValueError("SAM 2 runs in compute_dtype on one card: quant='none', "
-                                 "encoder_parallel='none'")
-            if sam_checkpoint is not None:
-                raise ValueError("SAM 2 checkpoints have no converter yet: pass params= or "
-                                 "draw random weights")
+        self.sam_config = sam_config if named is None else named().sized(sam_config)
+        self.sam_config.refuse(quant=self.options.quant,
+                               encoder_parallel=self.options.encoder_parallel,
+                               checkpoint=sam_checkpoint)
         if params is None:
             self._initialize_models(yolo_model_path, sam_checkpoint, seed)
         elif yolo_model_path is not None or sam_checkpoint is not None:
@@ -611,10 +471,8 @@ class CellSegmentationPipeline:
 
     def _initialize_models(self, yolo_path, sam_ckpt, seed: int) -> None:
         """Each model from its file where one is given, else a random init on
-        the host with the JAX engine's sub-seeds (2s, 2s + 1). MobileSAM
-        takes its TinyViT from the file where the file has one; with no SAM
-        file it draws the whole SAM tree first (so the decoder's draws are
-        the same), then TinyViT's from seed + 1, and drops the ViT encoder."""
+        the host with the JAX engine's sub-seeds: YOLO's 2s, SAM's as its
+        family draws them (2s + 1; MobileSAM's TinyViT s + 1)."""
         for path in (yolo_path, sam_ckpt):
             if path is not None and not Path(path).exists():
                 raise FileNotFoundError(f"checkpoint not found: {path}")
@@ -625,31 +483,15 @@ class CellSegmentationPipeline:
             self.yolo_params = init_yolo_params(2 * seed, self.yolo_config)
         if sam_ckpt is not None:
             logger.info("Loading SAM weights from %s", sam_ckpt)
-            self.sam_params = load_sam_params(str(sam_ckpt), self.sam_config)
-        elif isinstance(self.sam_config, Sam2Config):
-            self.sam_params = init_sam2_params(2 * seed + 1, self.sam_config)
-        else:
-            self.sam_params = init_sam_params(2 * seed + 1, self.sam_config)
-        if self.sam_model_type in TINYVIT_TYPES and "tinyvit" not in self.sam_params:
-            if sam_ckpt is not None:
-                raise ValueError(f"{self.sam_model_type}: {sam_ckpt} holds no TinyViT encoder "
-                                 "(image_encoder.* in MobileSAM naming)")
-            tcfg = TinyViTConfig(image_size=self.sam_config.image_size,
-                                 output_channels=self.sam_config.output_channels)
-            self.sam_params = dict(self.sam_params)
-            self.sam_params["tinyvit"] = init_tinyvit_params(seed + 1, tcfg)
-            self.sam_params.pop("vision", None)
+        self.sam_params = self.sam_config.params(seed, None if sam_ckpt is None else str(sam_ckpt))
 
     def _sam_params_for(self, scfg: SamTPUConfig):
-        """Resolution-adapted SAM parameter tree (cached per encoder geometry).
-        TinyViT has no resolution-dependent weights."""
-        key = (scfg.image_size, scfg.window_size)
-        if key == (self.sam_config.image_size, self.sam_config.window_size) or is_tinyvit(
-                self.sam_params):
-            return self.sam_params
-        if key not in self._adapted_params:
-            self._adapted_params[key] = adapt_resolution(self.sam_params, scfg)
-        return self._adapted_params[key]
+        """The SAM tree for the stage configuration ``scfg``, adapted to its
+        canvas where the family's weights depend on it (cached per stage
+        configuration)."""
+        if scfg not in self._adapted_params:
+            self._adapted_params[scfg] = self.sam_config.adapt_params(self.sam_params, scfg)
+        return self._adapted_params[scfg]
 
     def _stages(self, h: int, w: int) -> Dict[str, Any]:
         """Models and stage callables specialised for frame shape (h, w),
@@ -660,16 +502,10 @@ class CellSegmentationPipeline:
             self._adapted_params.clear()
             self._stage_src = src
         key = (h, w)
-        if key not in self._stage_cache and isinstance(self.sam_config, Sam2Config):
-            self._stage_cache[key] = self._stages_sam2(h, w)
         if key not in self._stage_cache:
             opts, ycfg = self.options, self.yolo_config
+            scfg = self.sam_config.for_frame(h, w, opts.sam_encoder_size)
             group = self._encoder_group() if opts.encoder_parallel != "none" else None
-            enc_size = opts.encoder_size_for(h, w)
-            gs = enc_size // self.sam_config.patch_size
-            # window 16 divides every grid of the native-resolution ladder
-            ws = 16 if gs % 16 == 0 else self.sam_config.window_size
-            scfg = dataclasses.replace(self.sam_config, image_size=enc_size, window_size=ws)
             sam_tree = self._sam_params_for(scfg)
             if opts.quant == "int8":
                 sam_tree = quantize_sam_encoder_params(
@@ -685,44 +521,15 @@ class CellSegmentationPipeline:
             self._stage_cache[key] = {
                 "scfg": scfg,
                 "detect": lambda img: detect_stage(yolo, img, ycfg, opts),
-                # ``mark`` (the spans inside a stage) is SAM 2's: none here
-                "embed": lambda img, mark=span: embed_stage(sam, img, scfg, opts, group),
-                "segment": lambda emb, boxes, valid, mark=span: segment_stage(
-                    sam, emb, boxes, valid, (h, w), scfg, opts
-                ),
-                "metrics": lambda crops, offs, gray: metrics_stage(
-                    crops, offs, gray, (h, w), opts
-                ),
+                # ``mark`` makes the spans inside a stage (the model's own)
+                "embed": lambda img, mark=span: embed_stage(sam, img, scfg, opts, group, mark),
+                "segment": lambda feats, boxes, valid, mark=span: segment_stage(
+                    sam, feats, boxes, valid, (h, w), scfg, opts, mark),
+                "metrics": lambda crops, offs, gray: metrics_stage(crops, offs, gray, (h, w), opts),
                 "yolo": yolo,
                 "sam": sam,
             }
         return self._stage_cache[key]
-
-    def _stages_sam2(self, h: int, w: int) -> Dict[str, Any]:
-        """SAM 2's stages for (h, w) frames: the encoder at its canvas (or
-        ``sam_encoder_size``); the detect and metrics stages as ViT's. Each
-        SAM stage takes ``mark``, which makes its spans; the segment stage
-        also returns each slot's chosen token."""
-        if h != w:
-            raise ValueError(f"SAM 2 takes square frames here, got {h}x{w}: its transforms "
-                             "resize to a square canvas, which the crop geometry does not yet "
-                             "follow on other frames")
-        opts, ycfg = self.options, self.yolo_config
-        scfg = dataclasses.replace(self.sam_config,
-                                   image_size=opts.sam_encoder_size or self.sam_config.image_size)
-        yolo, sam = from_jax_params(self.yolo_params, self.sam_params, self.device,
-                                    opts.compute_dtype, yolo_config=ycfg, sam_config=scfg,
-                                    conv2d_fused=opts.conv2d_fused)
-        return {
-            "scfg": scfg,
-            "detect": lambda img: detect_stage(yolo, img, ycfg, opts),
-            "embed": lambda img, mark=span: embed_stage_sam2(sam, img, scfg, opts, mark),
-            "segment": lambda feats, boxes, valid, mark=span: segment_stage_sam2(
-                sam, feats, boxes, valid, (h, w), scfg, opts, mark),
-            "metrics": lambda crops, offs, gray: metrics_stage(crops, offs, gray, (h, w), opts),
-            "yolo": yolo,
-            "sam": sam,
-        }
 
     def _encoder_group(self):
         """The process group of ``encoder_parallel`` (None where the mesh's
@@ -730,9 +537,7 @@ class CellSegmentationPipeline:
         JAX engine's ``_parallel_embed`` (``engine.py:778-799``), int8
         weights refused by the sp and tp encoders."""
         kind = self.options.encoder_parallel
-        if is_tinyvit(self.sam_params):
-            raise ValueError("encoder_parallel supports ViT SAM encoders only (TinyViT's conv "
-                             "stages have no tp/sp sharding)")
+        self.sam_config.refuse(self.sam_params, encoder_parallel=kind)
         if self.process_group is not None:
             return self.process_group
         if self.mesh is not None:
@@ -795,7 +600,9 @@ class CellSegmentationPipeline:
         ``fetch_masks``, its bitpacked crops into the slot; no host sync.
         Returns the handle :meth:`_fetch_outputs` takes."""
         boxes, scores, valid, crops, offs, mets = outputs
-        csv = _pack_csv_outputs(boxes, scores, valid, offs, mets)
+        mets = dict(mets)
+        token = mets.pop(MASK_TOKEN, None)
+        csv = _pack_csv_outputs(boxes, scores, valid, offs, mets, token)
         csv = slot.buf("csv", csv.shape, csv.dtype).copy_(csv, non_blocking=True)
         packed = None
         if fetch_masks:
@@ -805,7 +612,7 @@ class CellSegmentationPipeline:
         slot.record()
         slot.pending = True
         return {"slot": slot, "csv": csv, "packed": packed, "cm": crops.shape[-1],
-                "keys": sorted(mets)}
+                "keys": sorted(mets), "token": token is not None}
 
     @torch.inference_mode()
     def _dispatch_batch(self, images: np.ndarray, fetch_masks: bool = True) -> Dict[str, Any]:
@@ -863,8 +670,8 @@ class CellSegmentationPipeline:
                     "offsets": flat[..., 6:8].astype(np.int32),
                     "metrics": {key: flat[..., 8 + i] for i, key in enumerate(h["keys"])},
                 }
-                if MASK_TOKEN in out["metrics"]:
-                    out[MASK_TOKEN] = out["metrics"].pop(MASK_TOKEN).astype(np.int32)
+                if h["token"]:
+                    out[MASK_TOKEN] = flat[..., -1].astype(np.int32)
                 return out if h.get("gather") is None else _gather_outputs(out, *h["gather"])
 
     def _dp_share(self, images: np.ndarray) -> Tuple[np.ndarray, int]:
@@ -903,59 +710,58 @@ class CellSegmentationPipeline:
 
     def _process_local(self, images: np.ndarray, timings, fetch_masks: bool,
                        fetch_outputs: bool) -> Optional[Dict[str, Any]]:
-        """:meth:`process_batch_arrays` on this rank's device alone."""
-        st = self._stages(images.shape[1], images.shape[2])
+        """:meth:`process_batch_arrays` on this rank's device alone: each stage
+        synchronised, and with ``timings`` timed under its key, each span
+        inside a stage under its name."""
 
         @contextlib.contextmanager
-        def sub(name):  # a span inside a stage, synchronised and timed as the stages are
-            self._sync()
+        def timed(name, key):  # synchronised after, timed where there are timings
             t0 = time.perf_counter()
             with span(name):
                 yield
             self._sync()
-            timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
-
-        marks = {"mark": sub} if timings is not None else {}
-
-        def timed(key, stage, *a, **kw):
-            t0 = time.perf_counter()
-            with span(stage):
-                out = st[stage](*a, **kw)
-            self._sync()
             if timings is not None:
                 timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
-            return out
+
+        @contextlib.contextmanager
+        def inner(name):  # a span inside a stage, synchronised on entry too
+            self._sync()
+            with timed(name, name):
+                yield
 
         slot = self._acquire_slot()
         dev_images = self._images_to_device(images, slot)
-        boxes, scores, valid = timed("yolo_detection", "detect", dev_images)
-        emb = timed("sam_preprocess", "embed", dev_images, **marks)
-        crops, offs, *token = timed("sam_inference_total", "segment", emb, boxes, valid, **marks)
-        mets = timed("metrics_total", "metrics", crops, offs, _gray_f32(dev_images))
-        if token:
-            mets[MASK_TOKEN] = token[0]
+        outputs = self._run_stages(dev_images, lambda name: timed(name, _TIMING_KEYS[name]),
+                                   inner if timings is not None else span)
         if not fetch_outputs:
             return None
-        return self._fetch_outputs(self._start_fetch(
-            slot, (boxes, scores, valid, crops, offs, mets), fetch_masks))
+        return self._fetch_outputs(self._start_fetch(slot, outputs, fetch_masks))
+
+    def _run_stages(self, images: torch.Tensor, stage=span, mark=span):
+        """The four stages on a device batch: (boxes, scores, valid, crops,
+        offsets, metrics), with the chosen token a slot (where the model
+        chooses one) beside the metrics under ``MASK_TOKEN``. ``stage(name)``
+        wraps each stage (its span, which the synchronised path also times);
+        ``mark`` makes the spans inside a stage."""
+        st = self._stages(images.shape[1], images.shape[2])
+        with stage("detect"):
+            boxes, scores, valid = st["detect"](images)
+        with stage("embed"):
+            feats = st["embed"](images, mark)
+        with stage("segment"):
+            crops, offs, *token = st["segment"](feats, boxes, valid, mark)
+        with stage("metrics"):
+            mets = st["metrics"](crops, offs, _gray_f32(images))
+        if token:
+            mets[MASK_TOKEN] = token[0]
+        return boxes, scores, valid, crops, offs, mets
 
     @torch.inference_mode()
     def fused_call(self, images: torch.Tensor):
         """All four stages on a device batch, no host sync; returns device
         tensors (boxes, scores, valid, crops, offsets, metrics). Under a mesh
         it runs the batch it is given on this rank alone."""
-        st = self._stages(images.shape[1], images.shape[2])
-        with span("detect"):
-            boxes, scores, valid = st["detect"](images)
-        with span("embed"):
-            emb = st["embed"](images)
-        with span("segment"):
-            crops, offs, *token = st["segment"](emb, boxes, valid)
-        with span("metrics"):
-            mets = st["metrics"](crops, offs, _gray_f32(images))
-        if token:
-            mets[MASK_TOKEN] = token[0]
-        return boxes, scores, valid, crops, offs, mets
+        return self._run_stages(images)
 
     @torch.inference_mode()
     def fused_call_chunked(self, images: torch.Tensor):

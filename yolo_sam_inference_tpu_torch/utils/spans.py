@@ -13,13 +13,17 @@ returns one shared object that does nothing: a module-level check, no
 allocation, no torch call, no clock read. Only :func:`recording` turns
 spans on, for the block it wraps. While it is on, each span keeps its name,
 its parent (the span open on the same thread when it began), its batch id,
-its thread and its start and end in memory, and also opens a
-``torch.profiler.record_function`` range of the same name: where a
-profiler runs, the span lies on its timeline and the device work launched
-inside it is linked to it by correlation id. Start and end are read with
-``time.time_ns()`` inside that range, so both are on the profiler's clock
-(Kineto reports events as unix-epoch nanoseconds: the trace's start plus
-the event's offset).
+its thread and its start and end in memory, and also opens a profiler
+range of the same name (``_RecordFunctionFast``: ``record_function`` with a
+C-level entry and exit): where a profiler runs, the span lies on its
+timeline and the device work launched inside it is linked to it by
+correlation id. Start and end are read with ``time.time_ns()``, so both are
+on the profiler's clock (Kineto reports events as unix-epoch nanoseconds:
+the trace's start plus the event's offset), right after the range opens
+and right before it closes. Nothing else runs between the profiler's stamp
+and the span's: a thread descheduled there reads its stamp that much later
+(with ``torch.profiler.record_function``'s Python-level entry and exit in
+that gap, spans on a loaded host read 16-32 ms off their ranges).
 
 A batch id (:func:`next_batch`) is given where a batch is dispatched and
 passed to the span that opens the batch's fetch; a span given no batch id
@@ -31,11 +35,11 @@ from __future__ import annotations
 import contextlib
 import itertools
 import threading
-import time
 from dataclasses import dataclass
+from time import time_ns
 from typing import Iterator, List, Optional
 
-from torch.profiler import record_function
+from torch._C._profiler import _RecordFunctionFast as record_function
 
 _batches = itertools.count()
 
@@ -99,14 +103,15 @@ class _On:
         self.rec, self.name, self.batch = rec, name, batch
 
     def __enter__(self) -> Span:
-        self.range = record_function(self.name)
-        self.range.__enter__()
         rec, stack = self.rec, self.rec._stack()
         parent = stack[-1] if stack else None
         batch = self.batch
         if batch is None and parent is not None:
             batch = rec.spans[parent].batch
-        s = Span(self.name, parent, batch, threading.get_native_id(), time.time_ns())
+        self.range = record_function(self.name)
+        self.range.__enter__()
+        start = time_ns()
+        s = Span(self.name, parent, batch, threading.get_native_id(), start)
         with rec._lock:
             self.index = len(rec.spans)
             rec.spans.append(s)
@@ -114,9 +119,10 @@ class _On:
         return s
 
     def __exit__(self, *exc) -> bool:
-        self.rec.spans[self.index].end_ns = time.time_ns()
         self.rec._stack().pop()
-        self.range.__exit__(*exc)
+        s, close = self.rec.spans[self.index], self.range.__exit__
+        s.end_ns = time_ns()
+        close(*exc)
         return False
 
 

@@ -19,12 +19,12 @@ ranks of a multi-process run) as one uncompressed ``.npz``.
 from __future__ import annotations
 
 import json
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .models.sam import Sam2Config, Sam2Model, SamModel, SamTPUConfig
+from .models.sam import SamModel
 from .models.yolo import YoloConfig, YoloV8
 
 
@@ -35,7 +35,7 @@ def from_jax_params(
     dtype: torch.dtype = torch.float32,
     *,
     yolo_config: Optional[YoloConfig] = None,
-    sam_config: Optional[Union[SamTPUConfig, Sam2Config]] = None,
+    sam_config: Optional[Any] = None,
     conv2d_fused: bool = False,
     tinyvit_mbconv_compute: str = "fp32",
 ) -> Tuple[Optional[YoloV8], Optional[SamModel]]:
@@ -45,8 +45,9 @@ def from_jax_params(
     a SAM tree needs its ``sam_config`` (window sizes and heads are not in
     the tree). ``conv2d_fused`` puts the dense convs of both models on
     ``conv2d_act`` (K17); ``tinyvit_mbconv_compute`` is a MobileSAM
-    encoder's K14/K15 compute mode. A :class:`Sam2Config` builds SAM 2
-    (``Sam2Model``, from a tree in ``models/sam/hiera.py``'s layout)."""
+    encoder's K14/K15 compute mode. The configuration builds its family's
+    model (``build``): a SAM 2 configuration ``Sam2Model``, from a tree in
+    ``models/sam/hiera.py``'s layout."""
     yolo = sam = None
     if yolo_tree is not None:
         yolo = YoloV8(yolo_tree, yolo_config or YoloConfig(), conv2d_fused)
@@ -54,11 +55,8 @@ def from_jax_params(
     if sam_tree is not None:
         if sam_config is None:
             raise ValueError("from_jax_params: a SAM tree needs sam_config")
-        if isinstance(sam_config, Sam2Config):
-            sam = Sam2Model(sam_tree, sam_config)
-        else:
-            sam = SamModel(sam_tree, sam_config, conv2d_fused, tinyvit_mbconv_compute)
-        sam = sam.to(device=device)
+        sam = sam_config.build(sam_tree, conv2d_fused=conv2d_fused,
+                               tinyvit_mbconv_compute=tinyvit_mbconv_compute).to(device=device)
         for name, p in sam.named_parameters():
             if p.is_floating_point() and not name.endswith(".wscale"):
                 p.data = p.data.to(dtype)
