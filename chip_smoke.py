@@ -242,6 +242,15 @@ failure ends the run with a non-zero exit and no result line:
    back into token order; then one batch of 8 2048 x 2048 frames through
    the ``facebook/sam2.1-hiera-large`` pipeline (``_drive``: every launch
    count, the attention's by case, one a block);
+17c. resample: ``csrc/resample.cu`` at the 2048² cells' two resizes (8
+   gray frames to the letterbox's 640 and SAM's 1024 canvas, the engine's
+   stride-0 channel view) against its plain version (the dense fp32 einsum
+   on the card) on the 0-255 scale, timed with the L2 flushed before each
+   call (a 256 MB read: the frames would sit in it) by events and on the
+   device, beside its bytes bound (the uint8 frames read once, the fp32
+   canvas written once), the plain version and the benchmark's fp32
+   reference (``cytobench/reference/preprocess.py``); every drive expects
+   one launch for each stage whose resized area differs from the frame;
 18. result: the kernel table as one JSON line (each kernel's launches on its
    path, the window attention's counted by window: windows of 16 run on
    ``window_attn_relpos.cu``, the others on ``flash_attention_relpos.cu``;
@@ -321,9 +330,10 @@ MOBILE_ENCODER_COUNTS = {"gemm_bf16": 24, "tinyvit_block": 8, "tinyvit_attn": 2,
 CONFIG1_COUNTS = {**DECODER_COUNTS, "gemm_bf16": 48, "window_attn_relpos": 12}
 # SAM 2.1 Hiera-L a batch (its attention counted apart): 4 GEMMs a block over
 # 48 blocks, the neck's 4 laterals, conv_s1 and conv_s0; the decoder's
-# LayerNorms (no neck LayerNorm), its kernels, the crop and the hull
+# LayerNorms (no neck LayerNorm), its kernels, the crop and the hull; the
+# 2048² frames' resample to the letterbox's 640 and SAM's 1024 canvas
 SAM2_COUNTS = {"gemm_bf16": 4 * 48 + 4 + 2, "layer_norm": 8, "keys_stream": 3, "t2i_attend": 1,
-               "t2i_combine": 2, "window_crop": 1, "hull_support": 1}
+               "t2i_combine": 2, "window_crop": 1, "hull_support": 1, "resample": 2}
 
 
 def _say(phase: str, msg: str) -> None:
@@ -1855,6 +1865,82 @@ def _hiera_attention_phase(card: str) -> dict:
     torch.cuda.empty_cache()
     return {"errs": errs, "times": times, "bounds": bounds, "library": library, "device": device,
             "launches": launches}
+
+
+def _cold_ms(fn, flush, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn()`` in ms by CUDA events, ``flush()`` run
+    before each call outside the timed pair (the L2 left holding other data)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _resample_phase(card: str) -> dict:
+    """Phase 17c: ``csrc/resample.cu`` at the 2048² cells' two resizes, 8
+    gray frames as the engine holds them (a stride-0 channel view of the
+    uint8 frames): the letterbox's 640 canvas and SAM's 1024. Error against
+    the plain version (the dense fp32 einsum on the card) on the 0-255
+    scale; the kernel timed with the L2 flushed before each call, by events
+    and on the device, beside its bytes bound, the plain version and the
+    benchmark's fp32 reference."""
+    import numpy as np
+    import torch
+
+    from cytobench.flops import PEAK as FLOPS_PEAK
+    from cytobench.reference import preprocess as ref
+    from yolo_sam_inference_tpu_torch.bench.common import device_ms
+    from yolo_sam_inference_tpu_torch.ops import preprocess as tpre
+
+    t0 = time.perf_counter()
+    b, side = SLICE_BATCH, LARGE_FRAME
+    gray = torch.from_numpy(np.random.default_rng(30).integers(0, 256, (b, side, side),
+                                                               dtype=np.uint8)).cuda()
+    x = gray[..., None].expand(b, side, side, 3)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scratch.sum(dtype=torch.int32)  # noqa: E731 (a 256 MB read)
+    lb_pad = float(np.float32(114.0) / np.float32(255.0))
+    cases = {"letterbox 640": (640, (0.0,) * 3, (255.0,) * 3, lb_pad, ref.letterbox),
+             "sam 1024": (1024, tpre.SAM_MEAN, tpre.SAM_STD, 0.0, ref.sam_pixels)}
+    errs, times, bounds, library, device = {}, {}, {}, {}, {}
+    for case, (size, sub, div, pad, reference) in cases.items():
+        args = ((size, size), size, (0, 0), sub, div, pad)
+        fn = lambda: tpre.resample_canvas(x, *args)  # noqa: E731
+        fnp = lambda: tpre.resample_canvas_plain(x, *args)  # noqa: E731
+        fnr = lambda: reference(gray, size)  # noqa: E731
+        got, want = fn(), fnp()
+        scale = torch.tensor(div, device="cuda")
+        errs[case] = err = ((got - want).abs() * scale).max().item()
+        _say("resample", f"{case}: kernel vs plain max |diff| {err:.3e} on the 0-255 scale")
+        if not (err <= 5e-4 + 255 * 2 ** -23 and torch.isfinite(got).all()):
+            raise AssertionError(f"resample {case}: the kernel disagrees with the plain version")
+        del got, want
+        nbytes = b * side * side + b * size * size * 3 * 4  # uint8 frames in, fp32 canvas out
+        bounds[case] = (nbytes / FLOPS_PEAK["hbm"] * 1e3, "bytes")
+        times[case] = (_cold_ms(fn, flush), _cold_ms(fnp, flush, reps=5, warmup=1))
+        library[case] = _cold_ms(fnr, flush, reps=5, warmup=1)
+        device[case] = (device_ms(lambda: (flush(), fn()), "resample_kernel"), None)
+        dev_ms = device[case][0]
+        _say("resample", f"{case}: kernel {times[case][0]:.4f} ms (device "
+                         f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), bound "
+                         f"{bounds[case][0]:.4f} ms (bytes), plain (dense einsum) "
+                         f"{times[case][1]:.4f} ms, fp32 reference {library[case]:.4f} ms, "
+                         f"L2 flushed before each call [{card}]")
+    del gray, x, scratch
+    torch.cuda.empty_cache()
+    _say("resample", f"phase {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library, "device": device}
 
 
 def _conv_kernel_phase(card: str) -> dict:
@@ -3918,9 +4004,10 @@ def _wrappers() -> dict:
     )
     from yolo_sam_inference_tpu_torch.ops.hiera_attention import hiera_window_attention
     from yolo_sam_inference_tpu_torch.ops.hull_support import hull_support
+    from yolo_sam_inference_tpu_torch.ops.preprocess import resample_canvas
     from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop
 
-    return {"gemm_bf16": tln.gemm_bf16, "window_attn_relpos": window_attention,
+    return {"resample": resample_canvas, "gemm_bf16": tln.gemm_bf16, "window_attn_relpos": window_attention,
             "flash_attention_relpos": flash_attention_relpos,
             "fused_ln_matmul_int8": tln.fused_ln_matmul_int8,
             "fused_ln_mlp_int8": tln.fused_ln_mlp_int8,
@@ -3986,16 +4073,29 @@ def _read_counts(tag: str, wrappers: dict, expected: dict, by_window=None, by_nq
     return launches
 
 
+def _resamples(pipe, h: int, w: int) -> int:
+    """The resample launches a batch of h x w frames makes: one for each of
+    the letterbox and SAM's canvas whose resized area is not the frame's."""
+    size = pipe.options.yolo_size_for(h, w)
+    r = min(size / h, size / w)
+    s = pipe._stages(h, w)["scfg"].image_size / max(h, w)
+    return (int((round(h * r), round(w * r)) != (h, w))
+            + int((int(h * s + 0.5), int(w * s + 0.5)) != (h, w)))
+
+
 def _drive(tag: str, pipe, frames, max_det: int, expected: dict, by_window=None,
            by_nq=None, hiera=None) -> tuple:
     """One batch through process_batch_arrays with every count set to 0 just
-    before and read just after; output shapes and finite values checked."""
+    before and read just after; output shapes and finite values checked.
+    Where ``expected`` names no resample count, the frames' geometry gives
+    it (:func:`_resamples`)."""
     import numpy as np
     import torch
 
     from yolo_sam_inference_tpu_torch.ops.hull_support import hull_candidates
     from yolo_sam_inference_tpu_torch.ops.metrics import METRIC_KEYS
 
+    expected = {"resample": _resamples(pipe, frames.shape[1], frames.shape[2]), **expected}
     wrappers = _reset_counts()
     hull_candidates.calls = 0
     t0 = time.perf_counter()
@@ -4210,7 +4310,8 @@ def _large_frame_phase(card: str, vit_b_pipe, vit_h_pipe) -> dict:
     t0 = time.perf_counter()
     frames = cell_frames(rng, TIMED_BATCH, LARGE_FRAME, cells=BIG_CELLS)
     _say("slice", f"config 4: {TIMED_BATCH} frames made in {time.perf_counter() - t0:.2f} s")
-    expected = {**DECODER_COUNTS, "gemm_bf16": 4 * 32, "window_attn_relpos": 32}
+    # ... and the 2048² frames' resample to the letterbox's 640 and SAM's 1024
+    expected = {**DECODER_COUNTS, "gemm_bf16": 4 * 32, "window_attn_relpos": 32, "resample": 2}
     result["config 4"], secs, out = _drive("config 4 (ViT-H, 2048x2048)", pipe,
                                            frames[:SLICE_BATCH], 16, expected,
                                            by_window={16: 28, 64: 4})
@@ -4986,6 +5087,7 @@ def main() -> int:
     ppp = _pp_phase(card, vit_b_pipe)
     mc = _multichip_phase(card)
     hp = _hiera_attention_phase(card)
+    rsp = _resample_phase(card)
 
     def entry(name, route, source, replaces, launches, err, timed, bound, library=None,
               device=(None, None)):
@@ -5269,6 +5371,14 @@ def main() -> int:
                     hp["errs"]["hiera_attention"], hp["times"][case],
                     hp["bounds"][case], hp["library"][case], hp["device"][case])
         row["replaces"] = "none (cuDNN's SDPA and the window copies)"
+        table.append(row)
+    # the frames' resample replaces no TPU kernel (XLA's jax.image.resize);
+    # its launches: the SAM 2 drive's batch of 2048² frames
+    for case in rsp["times"]:
+        row = entry(f"resample {case}", "cuda", "csrc/resample.cu", "",
+                    hp["launches"]["resample"], rsp["errs"][case], rsp["times"][case],
+                    rsp["bounds"][case], rsp["library"][case], rsp["device"][case])
+        row["replaces"] = "none (the dense fp32 einsum; XLA's jax.image.resize in the JAX package)"
         table.append(row)
     for row in table:
         if row["launches"] < 1:

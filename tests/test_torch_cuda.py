@@ -37,6 +37,7 @@ from yolo_sam_inference_tpu_torch.ops.hull_support import (
     hull_support_plain,
 )
 from yolo_sam_inference_tpu_torch.ops.metrics import calculate_metrics
+from yolo_sam_inference_tpu_torch.ops import preprocess as tpre
 from yolo_sam_inference_tpu_torch.ops.window_crop import window_crop, window_crop_plain
 
 
@@ -1439,14 +1440,15 @@ def test_kernels_without_a_gradient_refuse_on_the_card(gen):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w,hull_mode", [(512, 512, "polygon"), (600, 700, "polygon"),
-                                           (512, 512, "reference")])
+                                           (512, 512, "reference"), (2048, 2048, "polygon")])
 def test_dispatch_blocks_nowhere_once_warm(gen, h, w, hull_mode):
     """Config 1 on the card at batch 2, two batches in flight: once the
     stream is warm, a dispatch (upload, the four stages, the pack and the
     queued fetch) makes no call that blocks the host, which
     ``torch.cuda.set_sync_debug_mode("error")`` turns into a raise. Every
     constant a stage needs is on the card from the first batch. 512² frames
-    need no resize; 600 x 700 frames take the letterbox's and SAM's."""
+    need no resize; 600 x 700 and 2048² frames take the letterbox's and
+    SAM's (``csrc/resample.cu``, its bands made once)."""
     import numpy as np
 
     from yolo_sam_inference_tpu_torch.bench.common import cell_frames
@@ -1468,3 +1470,98 @@ def test_dispatch_blocks_nowhere_once_warm(gen, h, w, hull_mode):
         assert out["valid"].any()
         assert np.array_equal(out["valid"], ref["valid"])
         assert np.isfinite(out["boxes"]).all()
+
+
+def _resample_f64(x, nh, nw):
+    """The float64 resample of the frames by the same fp32 weights."""
+    wy = torch.from_numpy(tpre._linear_weights(x.shape[1], nh)).to("cuda", torch.float64)
+    wx = torch.from_numpy(tpre._linear_weights(x.shape[2], nw)).to("cuda", torch.float64)
+    return (wy @ x.double().permute(0, 3, 1, 2) @ wx.T).permute(0, 2, 3, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gray", [True, False], ids=["gray", "rgb"])
+@pytest.mark.parametrize("h,w,size,stage", [(2048, 2048, 640, "letterbox"),
+                                            (2048, 2048, 1024, "sam"),
+                                            (512, 512, 640, "letterbox"),
+                                            (1536, 2048, 640, "letterbox"),
+                                            (1536, 2048, 1024, "sam")])
+def test_resample_vs_plain(gen, h, w, size, stage, gray):
+    """``csrc/resample.cu`` against the float64 resample by the same fp32
+    weights, on the stage's geometry, before the epilogue (sub 0, div 1):
+    within 5e-4 on the 0-255 scale (at most 8 taps of values up to 255
+    summed in fp32, twice, against 1.0 for a bf16 ulp at 255), and the plain
+    version (the dense einsum on the card) held to the same bound; the pad
+    written exactly. Then the stage itself against its plain version on the
+    CPU: pads bit-equal, the resampled area within the same 5e-4 (and an
+    fp32 ulp of the normalised value)."""
+    rng = np.random.default_rng(h + w + size + gray)
+    if gray:  # the engine's view of a gray frame: a stride-0 channel
+        u8 = torch.from_numpy(rng.integers(0, 256, (2, h, w), dtype=np.uint8))
+        x = u8.cuda()[..., None].expand(2, h, w, 3)
+        x_cpu = u8[:1, ..., None].expand(1, h, w, 3)
+    else:
+        x_cpu = torch.from_numpy(rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8))
+        x, x_cpu = x_cpu.cuda(), x_cpu[:1]
+    if stage == "letterbox":
+        r = min(size / h, size / w)
+        nh, nw = round(h * r), round(w * r)
+        off = ((size - nh) // 2, (size - nw) // 2)
+    else:
+        r = size / max(h, w)
+        nh, nw, off = int(h * r + 0.5), int(w * r + 0.5), (0, 0)
+    raw = (x, (nh, nw), size, off, (0.0,) * 3, (1.0,) * 3, -1.0)
+    before = tpre.resample_canvas.launches
+    got = tpre.resample_canvas(*raw)
+    assert tpre.resample_canvas.launches == before + 1
+    plain = tpre.resample_canvas_plain(*raw)
+    torch.cuda.synchronize()
+    want = _resample_f64(x, nh, nw)
+    inside = torch.zeros(got.shape, dtype=torch.bool, device="cuda")
+    inside[:, off[0]:off[0] + nh, off[1]:off[1] + nw] = True
+    for out in (got, plain):
+        assert out.shape == (2, size, size, 3) and out.dtype == torch.float32
+        err = (out[:, off[0]:off[0] + nh, off[1]:off[1] + nw].double() - want).abs().max().item()
+        assert err <= 5e-4, err
+        assert (out[~inside] == -1.0).all()
+
+    fn = tpre.letterbox_batch if stage == "letterbox" else tpre.sam_preprocess_batch
+    card, cr, cgeo = fn(x[:1], size)
+    cpu, pr, pgeo = fn(x_cpu, size)
+    assert (cr, cgeo) == (pr, pgeo) and card.dtype == cpu.dtype == torch.float32
+    card, inside = card.cpu(), inside[:1].cpu()
+    assert torch.equal(card[~inside], cpu[~inside])
+    scale = torch.tensor((255.0,) * 3 if stage == "letterbox" else tpre.SAM_STD)
+    err = ((card - cpu).abs() * scale)[inside].max().item()
+    assert err <= 5e-4 + 255 * 2 ** -23, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,launches", [(2048, 2), (512, 0)])
+def test_resample_launches_a_batch_through_the_pipeline(gen, side, launches):
+    """Config 1 at batch 2: 2048² frames take the letterbox's 640 and SAM's
+    1024 canvas, one launch each; 512² frames (canvas 512, letterbox 512)
+    resize nothing and launch none."""
+    from yolo_sam_inference_tpu_torch.bench.common import cell_frames
+    from yolo_sam_inference_tpu_torch.pipeline import engine as tengine
+
+    frames = cell_frames(np.random.default_rng(30), 2, side)[..., 0]
+    pipe = tengine.CellSegmentationPipeline(
+        device="cuda", options=tengine.PipelineOptions(batch_size=2, max_det=16))
+    pipe.process_batch_arrays(frames)
+    tpre.resample_canvas.launches = 0
+    out = pipe.process_batch_arrays(frames)
+    assert tpre.resample_canvas.launches == launches
+    assert out["valid"].any() and np.isfinite(out["boxes"]).all()
+
+
+@pytest.mark.cuda
+def test_resample_refuses_what_the_kernel_does_not_take(gen):
+    x = torch.zeros(1, 64, 64, 3, device="cuda")
+    args = ((32, 32), 32, (0, 0), (0.0,) * 3, (1.0,) * 3, 0.0)
+    with pytest.raises(ValueError, match="takes uint8 or fp32 frames"):
+        tpre.resample_canvas(x.half(), *args)
+    with pytest.raises(RuntimeError, match="has no gradient"):
+        tpre.resample_canvas(x.requires_grad_(), *args)
+    with torch.no_grad():
+        assert tpre.resample_canvas(x, *args).shape == (1, 32, 32, 3)

@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: (argtypes). Each returns cudaGetLastError() as an int.
 _SIGNATURES = {
     # a, a2, w, bias, ln_scale, ln_bias, scratch, r1, r2, out, m, n, k, eps, gelu, stream
@@ -76,12 +77,17 @@ _SIGNATURES = {
     "ysi_layer_norm": (_P,) * 6 + (_I, _I, _F, _P),
     # qkv, out, b, s, heads, hd, window (0: the whole grid), pool, token stride, stream
     "ysi_hiera_attention": (_P, _P) + (_I,) * 7 + (_P,),
+    # x, fp32, 4 strides, vec, b, c, cin, ys, wy, ky, xs, wx, kx, nh, nw, oy, ox, out, oh,
+    # ow, sub, div, pad, ty, tx, vw, rh, stream
+    "ysi_resample": (_P, _I) + (_L,) * 4 + (_I,) * 4 + (_P, _P, _I, _P, _P) + (_I,) * 5
+                    + (_P, _I, _I, _P, _P, _F) + (_I,) * 4 + (_P,),
 }
 # Run once after loading (shared-memory attributes of the kernels).
 _INITS = ("ysi_gemm_init", "ysi_gemm_int8_init", "ysi_window_attn_init",
           "ysi_flash_attn_relpos_init", "ysi_decoder_init", "ysi_tinyvit_attn_init",
           "ysi_tinyvit_block_init", "ysi_tinyvit_conv_init", "ysi_mbconv_s1_init",
-          "ysi_conv2d_act_init", "ysi_hull_support_init", "ysi_hiera_attn_init")
+          "ysi_conv2d_act_init", "ysi_hull_support_init", "ysi_hiera_attn_init",
+          "ysi_resample_init")
 
 
 def _sources():

@@ -44,7 +44,7 @@ one seed gives the same weights in both). Parameters are cast
 to ``compute_dtype`` once, when a stage set is built, not per call; with
 ``quant="int8"`` the encoder's qkv and MLP weights are then quantised (w8a8,
 ``ops/quant.py``) from the cast weights, as the JAX engine orders it. The
-stages' constants (the letterbox's shift and limits, the resize matrices,
+stages' constants (the letterbox's shift and limits, the resample's bands,
 SAM's mean and std, the metrics' fill values, the bitpack's weights) are made
 on the device at their first use and kept (``ops/constants.py``), so a warm
 dispatch copies nothing from the host but the frames and never blocks on it.
